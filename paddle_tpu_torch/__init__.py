@@ -1,0 +1,15 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for Hopper.
+
+The port is built slice by slice beside the JAX package, which stays
+the reference it is held against. This slice is generative serving:
+the chunked-prefill ``serving.DecodeEngine`` over a block-paged KV
+cache, whose one kernel (``kernels.paged_attention_mixed``) is written
+by hand in CUDA C++ for sm_90a.
+
+Entry points run on the CUDA card by default; ``device="cpu"`` is the
+explicit opt-in the tests use, where every kernel wrapper takes its
+plain PyTorch version. Nothing here imports JAX or ``paddle_tpu``.
+"""
+from paddle_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,26 @@
+"""Hand-written Hopper kernels of the port, each beside its plain
+PyTorch version.
+
+A wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises. ``LAUNCHES`` counts kernel
+launches by wrapper name (incremented where the kernel is launched and
+nowhere else), so a run can show that its main path went through the
+kernels; ``reset_launches`` zeroes it.
+"""
+from typing import Dict
+
+LAUNCHES: Dict[str, int] = {"paged_attention_mixed": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+from paddle_tpu_torch.kernels.paged_attention import (  # noqa: E402
+    NEG_INF, paged_attention_mixed, paged_attention_mixed_reference,
+    paged_attention_reference)
+
+__all__ = ["LAUNCHES", "NEG_INF", "paged_attention_mixed",
+           "paged_attention_mixed_reference", "paged_attention_reference",
+           "reset_launches"]

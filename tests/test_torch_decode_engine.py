@@ -1,0 +1,259 @@
+"""The port's DecodeEngine held against the JAX package's.
+
+Both engines (chunked prefill, continuous admission, prefix cache on)
+serve the same prompts from the same params — including a shared
+prefix (prefix-cache hits) and a pool small enough to force preemption
+— and must return identical greedy tokens. The params scale up
+``embed`` and the projections so that generations depend on context,
+and the test checks that every greedy step's top-2 logit gap exceeds
+1e-3, so no near-tie (fp32 differs across frameworks by ~1e-6) decides
+the result. Also: solo == batched inside the port, the options not
+ported yet raise, entry points raise without a card unless asked for
+the CPU, and no module of the port imports JAX or the JAX package."""
+import ast
+import os
+import pathlib
+import sys
+import threading
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.serving import DecodeEngine as JaxEngine
+from paddle_tpu.serving import decode_model as jdm
+from paddle_tpu_torch.convert import params_from_jax
+from paddle_tpu_torch.serving import (DecodeEngine, DecodeResult,
+                                      ServingOverloadError, make_pools)
+from paddle_tpu_torch.serving import decode_model as tdm
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+JCFG = jdm.DecoderConfig(vocab_size=64, d_model=32, n_heads=2,
+                         head_dim=16, n_layers=2, d_ff=64, max_seq_len=64)
+TCFG = tdm.DecoderConfig(**JCFG.__dict__)
+MAX_NEW = 12
+MIN_GAP = 1e-3
+
+
+@pytest.fixture(scope="module")
+def np_params():
+    p = {k: np.asarray(v) for k, v in jdm.init_params(JCFG, 11).items()}
+    for k in p:
+        if k == "embed" or k.endswith(("wqkv", "wo", "w1", "w2")):
+            p[k] = p[k] * 15.0
+    return p
+
+
+def _prompts():
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(1, 64, 9).tolist()
+    out = [rng.integers(1, 64, rng.integers(1, 20)).tolist()
+           for _ in range(6)]
+    out += [prefix + rng.integers(1, 64, rng.integers(1, 8)).tolist()
+            for _ in range(4)]
+    return out
+
+
+def _serve(engine, prompts):
+    futs = [engine.submit(p, MAX_NEW) for p in prompts]
+    res = [f.result(timeout=120) for f in futs]
+    engine.close()
+    return [r.tokens.tolist() for r in res]
+
+
+def _greedy_gap(tp, prompt, gen):
+    """Teacher-forced replay of prompt+generation in one port
+    mixed_step: argmax must reproduce ``gen``; returns the smallest
+    top-2 logit gap over the generated positions."""
+    seq = list(prompt) + list(gen[:-1])
+    n = len(seq)
+    k, v = make_pools(TCFG.kv_config(4, 17), "cpu")
+    tables = np.arange(16, dtype=np.int32)[None]
+    logits, _, _ = tdm.mixed_step(TCFG, tp, k, v, np.asarray(seq),
+                                  np.zeros(n, np.int32), np.arange(n),
+                                  np.ones(n, bool), tables)
+    lg = logits[len(prompt) - 1:].numpy()
+    assert lg.argmax(-1).tolist() == list(gen)
+    top = np.sort(lg, axis=-1)
+    return float((top[:, -1] - top[:, -2]).min())
+
+
+@pytest.mark.parametrize("pool", ["roomy", "tight"])
+def test_greedy_tokens_match_jax_engine(np_params, pool):
+    kw = dict(block_size=4, num_blocks=96 if pool == "roomy" else 14,
+              max_slots=4 if pool == "roomy" else 3, eos_id=0)
+    prompts = _prompts()
+    jeng = JaxEngine(JCFG, {k: jnp.asarray(v) for k, v in
+                            np_params.items()}, **kw)
+    want = _serve(jeng, prompts)
+    tp = params_from_jax(np_params, "cpu")
+    teng = DecodeEngine(TCFG, tp, device="cpu", **kw)
+    got = _serve(teng, prompts)
+    assert got == want
+    gaps = [_greedy_gap(tp, p, g) for p, g in zip(prompts, got)]
+    assert min(gaps) > MIN_GAP, "a near-tie decided a greedy token"
+    st = teng.stats()
+    assert st["prefix"]["hit_tokens"] > 0
+    if pool == "tight":
+        assert st["preempted_total"] > 0, "pool sized to force preemption"
+        assert jeng.stats()["preempted_total"] > 0
+    teng.pool.assert_consistent()
+    assert teng.pool.check_leaks() == []
+    assert all(1 <= len(g) <= MAX_NEW for g in got)
+
+
+def test_solo_equals_churning_batch(np_params):
+    tp = params_from_jax(np_params, "cpu")
+    prompts = _prompts()
+    batch = _serve(DecodeEngine(TCFG, tp, device="cpu", block_size=4,
+                                num_blocks=40, max_slots=3,
+                                chunk_size=3), prompts)
+    solo_eng = DecodeEngine(TCFG, tp, device="cpu", block_size=4,
+                            num_blocks=40, max_slots=1, chunk_size=5)
+    solo = [solo_eng.generate(p, MAX_NEW, timeout=60).tokens.tolist()
+            for p in prompts]
+    solo_eng.close()
+    assert solo == batch
+
+
+def test_concurrent_clients_stress(np_params):
+    """More client threads than cores submit at once, with a short
+    switch interval; every request completes with its solo tokens and
+    the pool ends consistent and empty."""
+    tp = params_from_jax(np_params, "cpu")
+    prompts = _prompts()
+    want = _serve(DecodeEngine(TCFG, tp, device="cpu", block_size=4,
+                               num_blocks=24, max_slots=3), prompts)
+    eng = DecodeEngine(TCFG, tp, device="cpu", block_size=4,
+                       num_blocks=24, max_slots=3)
+    n_threads = 2 * len(os.sched_getaffinity(0)) + 1
+    got, errors = {}, []
+
+    def client(i):
+        try:
+            j = i % len(prompts)
+            got[i] = (j, eng.generate(prompts[j], MAX_NEW,
+                                      timeout=120).tokens.tolist())
+        except Exception as exc:       # surfaced by the assert below
+            errors.append(exc)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+        eng.close()
+    assert errors == [] and len(got) == n_threads
+    assert all(toks == want[j] for j, toks in got.values())
+    eng.pool.assert_consistent()
+    assert eng.pool.check_leaks() == [] and eng.stats()[
+        "requests_total"] == n_threads
+
+
+def test_stats_keys_are_the_jax_engines(np_params):
+    eng = DecodeEngine(TCFG, params_from_jax(np_params, "cpu"),
+                       device="cpu", block_size=4, num_blocks=32)
+    assert eng.warmup() == 1
+    assert not eng._k_pool.any()            # the warmup wrote nothing
+    res = eng.generate([3, 4, 5], 4, timeout=60)
+    assert isinstance(res, DecodeResult) and res.ttft_ms >= 0.0
+    st = eng.stats()
+    eng.close()
+    jeng = JaxEngine(JCFG, jdm.init_params(JCFG, 0), block_size=4,
+                     num_blocks=32, autostart=False)
+    jkeys = set(jeng.stats())
+    jeng.close()
+    assert set(st) - {"device"} <= jkeys
+    for key in ("tokens_total", "steps_total", "preempted_total",
+                "ttft_ms_p99", "prefix", "chunked_prefill", "kv"):
+        assert key in st
+    assert st["warmed"] and st["tokens_total"] == len(res.tokens)
+    names = {m.name for m in eng.registry.metrics()}
+    assert {"decode_ttft_ms", "decode_tokens_total",
+            "decode_mixed_step_fill_frac"} <= names
+
+
+def test_queue_backpressure(np_params):
+    eng = DecodeEngine(TCFG, params_from_jax(np_params, "cpu"),
+                       device="cpu", block_size=4, num_blocks=32,
+                       max_queue=1, autostart=False)
+    eng._started = True                     # hold the loop: queue only
+    eng.submit([1, 2])
+    with pytest.raises(ServingOverloadError):
+        eng.submit([1, 2])
+    with pytest.raises(ValueError):
+        eng.submit([])
+    eng.close()
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(speculate_k=2, draft_cfg=TCFG), "A6.4"),
+    (dict(prefill_mode="whole"), "A6.3"),
+    (dict(admission="static"), "A6.3"),
+    (dict(quant_plan="int8"), "A6.2"),
+    (dict(kv_config=TCFG.kv_config(4, 8, dtype="int8")), "A6.2"),
+    (dict(compile_cache="/nonexistent"), "A6.7"),
+    (dict(telemetry=object()), "A6.6"),
+])
+def test_unported_options_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        DecodeEngine(TCFG, device="cpu", autostart=False, **kw)
+
+
+def test_generate_beam_raises(np_params):
+    eng = DecodeEngine(TCFG, params_from_jax(np_params, "cpu"),
+                       device="cpu", autostart=False)
+    with pytest.raises(NotImplementedError, match="A6.5"):
+        eng.generate_beam([1, 2, 3])
+    eng.close()
+
+
+def test_entry_points_raise_without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecodeEngine(TCFG, autostart=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdm.init_params(TCFG)
+    meta = {k: v.to("meta") for k, v in
+            tdm.init_params(TCFG, device="cpu").items()}
+    with pytest.raises(ValueError, match="meta"):
+        DecodeEngine(TCFG, meta, device="cpu", autostart=False)
+
+
+def _port_files():
+    files = sorted((REPO / "paddle_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    bad = []
+    files = _port_files()
+    assert len(files) > 10 and files[-1].is_file()
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            elif (isinstance(node, ast.Call)
+                  and getattr(node.func, "id", getattr(
+                      node.func, "attr", "")) in ("__import__",
+                                                  "import_module")):
+                mods = [a.value for a in node.args
+                        if isinstance(a, ast.Constant)]
+            else:
+                continue
+            for m in mods:
+                top = m.split(".")[0]
+                if top in ("jax", "jaxlib", "paddle_tpu"):
+                    bad.append(f"{path.relative_to(REPO)}: {m}")
+    assert bad == []
