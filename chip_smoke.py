@@ -23,9 +23,26 @@ Phases, in order (any failure exits non-zero and prints no result):
    before the requests go in and read just after they all return;
    one request served solo must give the same greedy tokens.
 
-Then it prints the ``kernels`` JSON line, the ``serve`` JSON line and,
-last, ``{"ok": true, "device": {...}}``. Float32 matmuls run in full
-float32 (TF32 off). With no CUDA card it exits non-zero at once.
+The quantized slice adds, in the same run:
+
+3b. the paged-attention kernel's bfloat16 lane and its quantized lane
+   (int8 and fp8-e4m3 pools with random nonzero per-block scales), and
+   the quantized matmul (int8 and fp8-e4m3) at the decoder's four
+   projection shapes with M=80, each against its plain version, the
+   a-priori error bound, and a library yardstick the port never calls;
+4b. a full-width int8 KV + int8 weight mixed step with the kernels
+   (under sync-debug "error") against the same step with the plain
+   versions, from the same zero pools;
+5b. the slice's main path: the same engine with an int8 KV pool and
+   int8 projection weights (``quant_plan="int8"``) serving the same 48
+   requests, with exact launch counts of both kernels, a leak-free
+   pool and solo == batched; then the first 16 requests on fp8-e4m3
+   KV + fp8 weights and on bfloat16 KV with fp32 weights.
+
+Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
+lane), the ``serve`` lines and, last, ``{"ok": true, "device":
+{...}}``. Float32 matmuls run in full float32 (TF32 off). With no CUDA
+card it exits non-zero at once.
 """
 import json
 import subprocess
@@ -37,8 +54,25 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
+H100_INT8_OPS = 1979e12         # dense int8 tensor-core TOP/s (and fp8)
 ATTN_TOL = 1e-5                 # fp32, kernel vs plain: sum order only
 LOGIT_TOL = 1e-4                # through 12 layers of fp32 matmuls
+# quant_matmul, kernel vs plain, relative to max|out|: the int8 sums are
+# exact on both sides and the fp32 epilogue is the same ops in the same
+# order; the e4m3 products are exact in fp32 and only the order of the
+# K <= 3072 fp32 sums differs (kernel: sequential per thread; plain: a
+# cuBLAS fp32 GEMM)
+QMM_TOL = {"int8": 1e-6, "fp8-e4m3": 1e-5}
+# the quantized mixed step, kernels vs plain: the attention kernel's
+# fp32 sums differ from the plain version's in the last bit, which moves
+# a later int8 activation or K/V value across a rounding midpoint now and
+# then, and each flip perturbs every later layer by a quantum, so from
+# the second layer on the two paths drift apart at the level of the
+# model's own quantization noise. What is held: layer 0's K/V (nothing
+# upstream differs) equal byte for byte, every scale equal, and the
+# kernel path no worse an approximation of the fp32 step than the plain
+# path: max|logits - fp32| <= QUANT_ERR_RATIO * the plain path's + 1e-3
+QUANT_ERR_RATIO = 1.5
 
 
 def _check(ok, what):
@@ -100,9 +134,34 @@ def _attention_case(dev, T, H, d, B, P, S, N, seed=0):
     return q, k, v, tables, slots, ctx
 
 
-def _attention_bound(tables, slots, ctx, H, d, B, P):
+def _quant_pools(dev, dtype, N, H, B, d, seed=0):
+    """Pools of a bfloat16 or 1-byte payload at the main path's shapes;
+    1-byte payloads get random nonzero per-block scales [N, H] that
+    dequantize to magnitudes of at most about 2, as calibrated K/V."""
+    g = torch.Generator(device=dev).manual_seed(100 + seed)
+    shape = (N, H, B, d)
+    if dtype == "bfloat16":
+        return [torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2)] + [None, None]
+    if dtype == "int8":
+        pools = [torch.randint(-127, 128, shape, generator=g, device=dev,
+                               dtype=torch.int8) for _ in range(2)]
+        qmax = 127.0
+    else:
+        pools = [((torch.rand(shape, generator=g, device=dev) * 2 - 1)
+                  * 448.0).to(torch.float8_e4m3fn) for _ in range(2)]
+        qmax = 448.0
+    scales = [(0.5 + 1.5 * torch.rand((N, H), generator=g, device=dev))
+              / qmax for _ in range(2)]
+    return pools + scales
+
+
+def _attention_bound(tables, slots, ctx, H, d, B, P, elem_bytes=4,
+                     scaled=False):
     """Least bytes/ops of this call: each K/V position that some row
-    needs is read once, q/out once, the table entries needed once."""
+    needs is read once (``elem_bytes`` per element), q/out once, the
+    table entries needed once, and for a quantized pool the K and V
+    scales of each needed block once."""
     keys, pages = [], []
     for t in range(len(ctx)):
         n = min(int(ctx[t]), P * B)
@@ -111,10 +170,13 @@ def _attention_bound(tables, slots, ctx, H, d, B, P):
                     + pos % B)
         pages.append(slots[t] * P + np.arange(-(-n // B)))
     n_keys = np.unique(np.concatenate(keys)).size
-    n_pages = np.unique(np.concatenate(pages)).size
+    page_ids = np.unique(np.concatenate(pages))
+    n_pages = page_ids.size
+    n_blocks = np.unique(tables.reshape(-1)[page_ids]).size
     T = len(ctx)
-    nbytes = (n_keys * H * d * 4 * 2 + 2 * T * H * d * 4
-              + n_pages * 4 + 2 * T * 4)
+    nbytes = (n_keys * H * d * elem_bytes * 2 + 2 * T * H * d * 4
+              + n_pages * 4 + 2 * T * 4
+              + (n_blocks * H * 4 * 2 if scaled else 0))
     flops = 4.0 * np.minimum(ctx, P * B).sum() * H * d
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_FP32_FLOPS * 1e3
@@ -122,51 +184,166 @@ def _attention_bound(tables, slots, ctx, H, d, B, P):
                                  else "operations")
 
 
-def check_attention(pa, dev, flush, shape):
-    """Phase 3: kernel vs plain at the main path's shapes, and times."""
+# pool dtype -> (kernels-line name, TPU kernel body it replaces)
+ATTN_LANES = {
+    "float32": ("paged_attention_mixed",
+                "paddle_tpu/kernels/paged_attention.py:314"),
+    "bfloat16": ("paged_attention_mixed_bf16",
+                 "paddle_tpu/kernels/paged_attention.py:314"),
+    "int8": ("paged_attention_mixed_quant_int8",
+             "paddle_tpu/kernels/paged_attention.py:332"),
+    "fp8-e4m3": ("paged_attention_mixed_quant_fp8",
+                 "paddle_tpu/kernels/paged_attention.py:332"),
+}
+
+
+def check_attention(pa, dev, flush, shape, dtype="float32"):
+    """Phase 3: kernel vs plain at the main path's shapes, and times,
+    for one pool dtype (float32: B1; bfloat16: B1's bf16 lane; int8 and
+    fp8-e4m3 with per-block scales: B2)."""
     from paddle_tpu_torch import kernels
     T, H, d, B, P, S, N = (shape[k] for k in "THdBPSN")
     q, k, v, tables_np, slots_np, ctx_np = _attention_case(
         dev, T, H, d, B, P, S, N)
+    ks = vs = None
+    if dtype != "float32":
+        del k, v
+        k, v, ks, vs = _quant_pools(dev, dtype, N, H, B, d)
     tables, slots, ctx = (torch.from_numpy(a).to(dev)
                           for a in (tables_np, slots_np, ctx_np))
     args = (q, k, v, tables, slots, ctx)
-    got = pa.paged_attention_mixed(*args)
+    kw = {} if ks is None else {"k_scale": ks, "v_scale": vs}
+    got = pa.paged_attention_mixed(*args, **kw)
     torch.cuda.synchronize()
-    want = pa.paged_attention_mixed_reference(*args)
+    want = pa.paged_attention_mixed_reference(*args, **kw)
     err = float((got - want).abs().max())
-    _check(err <= ATTN_TOL, f"paged_attention_mixed max_abs_err {err}")
+    _check(err <= ATTN_TOL, f"paged_attention_mixed {dtype} max_abs_err "
+           f"{err}")
     _check(not got[ctx == 0].any(), "ctx 0 rows must be exact zeros")
-    kernel_ms = _time_ms(lambda: pa.paged_attention_mixed(*args), flush)
+    kernel_ms = _time_ms(lambda: pa.paged_attention_mixed(*args, **kw),
+                         flush)
     plain_ms = _time_ms(
-        lambda: pa.paged_attention_mixed_reference(*args), flush)
-    # library yardstick: SDPA over the pre-gathered dense K/V with the
-    # length mask (rows with ctx 0 are let see key 0 to stay finite)
-    kd = k[tables[slots.long()].long()].permute(0, 2, 1, 3, 4).reshape(
-        T, H, P * B, d)
-    vd = v[tables[slots.long()].long()].permute(0, 2, 1, 3, 4).reshape(
-        T, H, P * B, d)
+        lambda: pa.paged_attention_mixed_reference(*args, **kw), flush)
+    # library yardstick: SDPA over the pre-gathered (and dequantized)
+    # dense K/V with the length mask (rows with ctx 0 are let see key 0
+    # to stay finite)
+    gather = tables[slots.long()].long()
+    kd, vd = k[gather].float(), v[gather].float()
+    if ks is not None:
+        kd = kd * ks[gather][:, :, :, None, None]
+        vd = vd * vs[gather][:, :, :, None, None]
+    kd = kd.permute(0, 2, 1, 3, 4).reshape(T, H, P * B, d)
+    vd = vd.permute(0, 2, 1, 3, 4).reshape(T, H, P * B, d)
     mask = (torch.arange(P * B, device=dev)[None, :]
             < ctx.clamp(min=1)[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = _time_ms(lambda: sdpa(q[:, :, None], kd, vd,
                                        attn_mask=mask), flush)
-    bound_ms, bound_by = _attention_bound(tables_np, slots_np, ctx_np,
-                                          H, d, B, P)
+    bound_ms, bound_by = _attention_bound(
+        tables_np, slots_np, ctx_np, H, d, B, P,
+        elem_bytes=k.element_size(), scaled=ks is not None)
     kernels.reset_launches()
-    return {"name": "paged_attention_mixed", "route": "cuda",
+    name, replaces = ATTN_LANES[dtype]
+    return {"name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-            "replaces": "paddle_tpu/kernels/paged_attention.py:314",
+            "replaces": replaces,
             "max_abs_err": err, "ms": kernel_ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "shape": dict(shape)}
+            "shape": dict(shape, dtype=dtype)}
 
 
-def check_mixed_step(dm, make_pools, cfg, params, kv, rows, slots_n):
-    """Phase 4: two full-width mixed steps (a 128-token prompt in two
-    chunks, then a decode row of another slot joins) with the kernel,
-    and again with the plain attention, from the same zero pools."""
+def _qmm_library(lane, x, wq, ws, sx):
+    """One PyTorch call computing the same product from PRE-quantized
+    activations (so it skips the activation quantization the kernel
+    does): ``torch._int_mm`` + the epilogue for int8, ``torch._scaled_mm``
+    with row-wise scales for fp8 (which writes bf16: row-wise scaling
+    refuses an fp32 output). Returns the callable and a note."""
+    if lane == "int8":
+        xq = torch.round(x / sx).clamp(-127, 127).to(torch.int8)
+        return (lambda: torch._int_mm(xq, wq).float() * sx * ws,
+                "torch._int_mm on pre-quantized int8 x, then the epilogue")
+    xq = (x / sx).to(torch.float8_e4m3fn)
+    wt = wq.t().contiguous().t()                   # column-major operand
+    sb = ws.reshape(1, -1)
+    return (lambda: torch._scaled_mm(xq, wt, scale_a=sx, scale_b=sb,
+                                     out_dtype=torch.bfloat16),
+            "torch._scaled_mm, row-wise scales, bf16 out, on "
+            "pre-quantized e4m3 x")
+
+
+def check_quant_matmul(qm, dev, flush, cfg, lane, M=80):
+    """Phase 3b: the quantized matmul against its plain version and the
+    a-priori bound at the decoder's four projection shapes (one call
+    each per layer), with times. ``ms``, ``plain_ms``, ``bound_ms`` and
+    ``library_ms`` are means over the four shapes: per launch on the
+    main path, where each shape is launched once per layer."""
+    hd = cfg.n_heads * cfg.head_dim
+    shapes = [("wqkv", cfg.d_model, 3 * hd), ("wo", hd, cfg.d_model),
+              ("w1", cfg.d_model, cfg.d_ff), ("w2", cfg.d_ff, cfg.d_model)]
+    g = torch.Generator(device=dev).manual_seed(3)
+    per, notes = [], set()
+    for name, K, N in shapes:
+        x = torch.randn((M, K), generator=g, device=dev)
+        w = 0.02 * torch.randn((K, N), generator=g, device=dev)
+        wq, ws = qm.quantize_weight(w, lane)
+        got = qm.quant_matmul(x, wq, ws)
+        torch.cuda.synchronize()
+        want = qm.quant_matmul_reference(x, wq, ws)
+        err = float((got - want).abs().max())
+        tol = QMM_TOL[lane] * float(want.abs().max())
+        _check(err <= tol, f"quant_matmul {lane} {name} max_abs_err {err} "
+               f"> {tol}")
+        exact = (x.double() @ w.double())
+        bound = qm.quant_matmul_error_bound(x, w, lane).double()
+        _check(bool(((got.double() - exact).abs() <= bound).all()),
+               f"quant_matmul {lane} {name} outside its error bound")
+        kernel_ms = _time_ms(lambda: qm.quant_matmul(x, wq, ws), flush)
+        plain_ms = _time_ms(lambda: qm.quant_matmul_reference(x, wq, ws),
+                            flush)
+        sx = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / (
+            127.0 if lane == "int8" else 448.0)
+        try:
+            fn, note = _qmm_library(lane, x, wq, ws, sx)
+            library_ms = _time_ms(fn, flush)
+            notes.add(note)
+        except (RuntimeError, ValueError) as exc:   # yardstick only
+            library_ms = None
+            notes.add(f"library call refused: {str(exc)[:120]}")
+        nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = 2.0 * M * K * N / H100_INT8_OPS * 1e3
+        per.append({"proj": name, "K": K, "N": N, "max_abs_err": err,
+                    "tol": tol, "ms": kernel_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations"})
+    from paddle_tpu_torch import kernels
+    kernels.reset_launches()
+
+    def mean(key):
+        vals = [p[key] for p in per]
+        return None if None in vals else float(np.mean(vals))
+
+    by = {p["bound_by"] for p in per}
+    return {"name": f"quant_matmul_{'int8' if lane == 'int8' else 'fp8'}",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
+            "replaces": "paddle_tpu/kernels/quant_matmul.py:"
+            + ("84" if lane == "int8" else "94"),
+            "max_abs_err": max(p["max_abs_err"] for p in per),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"),
+            "bound_by": by.pop() if len(by) == 1 else "bytes",
+            "library_ms": mean("library_ms"),
+            "library_note": "; ".join(sorted(notes)), "M": M,
+            "per_shape": per}
+
+
+def _mixed_script(cfg, kv, rows, slots_n, dev):
+    """Two full-width mixed steps: a 128-token prompt in two chunks,
+    then a decode row of another slot joins."""
     T = rows
     rng = np.random.default_rng(1)
     tables = np.zeros((slots_n, kv.blocks_for(cfg.max_seq_len)), np.int32)
@@ -185,12 +362,16 @@ def check_mixed_step(dm, make_pools, cfg, params, kv, rows, slots_n):
         if i == 1:
             toks[1], row_slots[1], valid[1] = prompt[128], 1, True
         steps.append((toks, row_slots, pos, valid))
-    dev = params["embed"].device
     steps = [[torch.from_numpy(a).to(dev) for a in step] for step in steps]
-    tables = torch.from_numpy(tables).to(dev)
+    return steps, torch.from_numpy(tables).to(dev)
+
+
+def _run_mixed(dm, make_pools, cfg, params, kv, steps, tables, cal):
+    """The script with the kernels (under sync-debug "error") and with
+    the plain versions, each from fresh zero pools."""
     results = []
     for impl in (None, "reference"):
-        k_pool, v_pool = make_pools(kv)
+        k_pool, v_pool = make_pools(kv, None, *cal)
         for toks, row_slots, pos, valid in steps:
             # the kernel path must not sync the host: the engine's one
             # fence per step is reading the argmax back, after the step
@@ -203,7 +384,16 @@ def check_mixed_step(dm, make_pools, cfg, params, kv, rows, slots_n):
                 torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         results.append((logits[valid], k_pool, v_pool))
-    (lk, kk, vk), (lr, kr, vr) = results
+    return results
+
+
+def check_mixed_step(dm, make_pools, cfg, params, kv, rows, slots_n):
+    """Phase 4: two full-width mixed steps with the kernel, and again
+    with the plain attention, from the same zero pools."""
+    steps, tables = _mixed_script(cfg, kv, rows, slots_n,
+                                  params["embed"].device)
+    (lk, kk, vk), (lr, kr, vr) = _run_mixed(dm, make_pools, cfg, params,
+                                            kv, steps, tables, (None, None))
     _check(bool(torch.isfinite(lk).all()), "non-finite logits")
     err = float((lk - lr).abs().max())
     pool_err = max(float((kk - kr).abs().max()),
@@ -212,11 +402,47 @@ def check_mixed_step(dm, make_pools, cfg, params, kv, rows, slots_n):
     _check(pool_err <= LOGIT_TOL, f"mixed_step pools differ by {pool_err}")
     same = float((lk.argmax(-1) == lr.argmax(-1)).float().mean())
     return {"logits_max_abs_err": err, "pool_max_abs_err": pool_err,
-            "argmax_agreement": same, "rows": int(lk.shape[0])}
+            "argmax_agreement": same, "rows": int(lk.shape[0])}, lr
+
+
+def check_quant_mixed_step(dm, make_pools, cfg, qparams, kv, cal, rows,
+                           slots_n, fp32_logits):
+    """Phase 4b: the same two steps with int8 KV and int8 weights, the
+    kernels (quant_matmul and the quantized attention lane, under
+    sync-debug "error") against their plain versions, from the same
+    zero pools under the same calibration; ``fp32_logits`` are the
+    plain fp32 step's (see QUANT_ERR_RATIO)."""
+    steps, tables = _mixed_script(cfg, kv, rows, slots_n,
+                                  qparams["embed"].device)
+    (lk, kk, vk), (lr, kr, vr) = _run_mixed(dm, make_pools, cfg, qparams,
+                                            kv, steps, tables, cal)
+    _check(bool(torch.isfinite(lk).all()), "non-finite quantized logits")
+    err = float((lk - lr).abs().max())
+    err_k = float((lk - fp32_logits).abs().max())
+    err_r = float((lr - fp32_logits).abs().max())
+    rec = {"logits_max_abs_err": err, "kernel_err_vs_fp32": err_k,
+           "plain_err_vs_fp32": err_r, "err_ratio_limit": QUANT_ERR_RATIO,
+           "argmax_agreement": float(
+               (lk.argmax(-1) == lr.argmax(-1)).float().mean()),
+           "argmax_agreement_vs_fp32": float(
+               (lk.argmax(-1) == fp32_logits.argmax(-1)).float().mean()),
+           "rows": int(lk.shape[0])}
+    for name, a, b in (("k", kk, kr), ("v", vk, vr)):
+        diff = (a[0].int() - b[0].int()).abs().reshape(cfg.n_layers, -1)
+        rec[f"{name}_quanta_apart_max_per_layer"] = \
+            diff.amax(1).tolist()
+        rec[f"{name}_elems_apart_per_layer"] = (diff != 0).sum(1).tolist()
+        _check(not diff[0].any(), f"layer 0 {name} payloads differ")
+        _check(torch.equal(a[1], b[1]), f"per-block {name} scales differ")
+    rec["written_block_layers"] = int((kk[1] != 0).any(-1).sum())
+    _check(err_k <= QUANT_ERR_RATIO * err_r + 1e-3,
+           f"quantized mixed_step: kernel path error vs fp32 {err_k} > "
+           f"{QUANT_ERR_RATIO} x the plain path's {err_r}")
+    return rec
 
 
 def profile_steps(dm, make_pools, cfg, params, kv, rows, slots_n,
-                  n_steps=8):
+                  n_steps=8, cal=(None, None), key="profile"):
     """Phase 6: where a full-width mixed step's time goes. Runs
     ``n_steps`` steps of 16 decode rows + 64 prefill rows under
     ``torch.profiler`` and returns host wall ms per step, device-busy
@@ -228,7 +454,7 @@ def profile_steps(dm, make_pools, cfg, params, kv, rows, slots_n,
     pages = kv.blocks_for(cfg.max_seq_len)
     tables = np.arange(slots_n * pages, dtype=np.int32).reshape(
         slots_n, pages)
-    k_pool, v_pool = make_pools(kv)
+    k_pool, v_pool = make_pools(kv, None, *cal)
     plans = []
     for i in range(n_steps + 2):
         toks = rng.integers(1, cfg.vocab_size, rows).astype(np.int32)
@@ -262,7 +488,7 @@ def profile_steps(dm, make_pools, cfg, params, kv, rows, slots_n,
                                + e.time_range.elapsed_us() / 1e3)
     busy_ms = sum(by_name.values()) / n_steps
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
-    return {"profile": {
+    return {key: {
         "rows": rows, "steps": n_steps, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms or None,
         "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
@@ -277,8 +503,9 @@ def profile_steps(dm, make_pools, cfg, params, kv, rows, slots_n,
                                    for n, ms in top]}}
 
 
-def serve(DecodeEngine, kernels, cfg, params, n_requests=48, seed=0):
-    """Phase 5: the main path. Returns the serve record and results."""
+def _requests(cfg, n_requests=48, seed=0):
+    """The seeded burst: prompts of 16-384 tokens, every other one
+    behind a shared 128-token prefix, and 16-48 new tokens each."""
     rng = np.random.default_rng(seed)
     prefix = rng.integers(1, cfg.vocab_size, 128).astype(np.int32)
     prompts, max_new = [], []
@@ -289,7 +516,20 @@ def serve(DecodeEngine, kernels, cfg, params, n_requests=48, seed=0):
             p = np.concatenate([prefix, p[:max(n - 128, 1)]])
         prompts.append(p)
         max_new.append(int(rng.integers(16, 49)))
-    kw = dict(block_size=16, num_blocks=2048, max_slots=16, eos_id=0)
+    return prompts, max_new
+
+
+def serve(DecodeEngine, kernels, cfg, params, n_requests=48, seed=0,
+          key="serve", engine_kw=None, n_serve=None, reference=None):
+    """Phase 5 (and 5b): a main path. ``engine_kw`` adds the engine's
+    KV dtype / quant plan; ``n_serve`` serves only the first requests
+    of the burst; ``reference`` (token lists of another run) is
+    compared, not gated. Returns the serve record, the launch counts of
+    the run and the generated tokens."""
+    prompts, max_new = _requests(cfg, n_requests, seed)
+    prompts, max_new = prompts[:n_serve], max_new[:n_serve]
+    kw = dict(block_size=16, num_blocks=2048, max_slots=16, eos_id=0,
+              **(engine_kw or {}))
     eng = DecodeEngine(cfg, params, **kw)
     eng.warmup()
     torch.cuda.synchronize()
@@ -303,23 +543,33 @@ def serve(DecodeEngine, kernels, cfg, params, n_requests=48, seed=0):
     for r, m in zip(results, max_new):
         _check(1 <= len(r.tokens) <= m, f"{len(r.tokens)} tokens, max {m}")
     steps = int(st["steps_total"])
-    _check(launches["paged_attention_mixed"] == cfg.n_layers * steps,
-           f"launches {launches} over {steps} mixed steps")
-    _check(st["prefix"]["hit_tokens"] > 0, "the shared prefix never hit")
+    L = cfg.n_layers
+    quant_kv = eng.kv.quantized
+    want = {"paged_attention_mixed": 0 if quant_kv else L * steps,
+            "paged_attention_mixed_quant": L * steps if quant_kv else 0,
+            "quant_matmul": 4 * L * steps if eng.quant_plan else 0}
+    _check(launches == want, f"{key}: launches {launches} over {steps} "
+           f"mixed steps, want {want}")
+    if len(prompts) > kw["max_slots"]:   # some wait while the prefix lands
+        _check(st["prefix"]["hit_tokens"] > 0, "the shared prefix never hit")
     eng.pool.assert_consistent()
     eng.close()
     _check(eng.pool.check_leaks() == [] and eng.pool.blocks_in_use == 0,
            f"leaked blocks: {eng.pool.check_leaks()}")
+    hbm_bytes = eng.kv.hbm_bytes
+    del eng
     # one request served solo, on a fresh engine, gives the same tokens
     j = 1
     solo_eng = DecodeEngine(cfg, params, **kw)
     solo = solo_eng.generate(prompts[j], max_new[j], timeout=600)
     solo_eng.close()
+    del solo_eng
     _check(solo.tokens.tolist() == results[j].tokens.tolist(),
-           "solo and batched greedy tokens differ")
-    n_tok = int(sum(len(r.tokens) for r in results))
-    rec = {"serve": {
-        "requests": n_requests, "generated_tokens": n_tok,
+           f"{key}: solo and batched greedy tokens differ")
+    tokens = [r.tokens.tolist() for r in results]
+    n_tok = int(sum(len(t) for t in tokens))
+    rec = {
+        "requests": len(prompts), "generated_tokens": n_tok,
         "prompt_tokens": int(sum(p.size for p in prompts)),
         "wall_s": wall, "tokens_per_s": n_tok / wall,
         "ttft_ms_p50": st["ttft_ms_p50"], "ttft_ms_p99": st["ttft_ms_p99"],
@@ -330,8 +580,15 @@ def serve(DecodeEngine, kernels, cfg, params, n_requests=48, seed=0):
         "preempted": st["preempted_total"],
         "kv_high_water_blocks": st["kv"]["high_water"],
         "solo_equals_batched": True,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}}
-    return rec, launches
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if engine_kw:
+        rec.update({"kv_dtype": st["quant"]["kv_dtype"],
+                    "weights_quantized": st["quant"]["weights_quantized"],
+                    "kv_hbm_bytes": hbm_bytes, "launches": launches})
+    if reference is not None:
+        rec["greedy_equal_share_vs_fp32"] = float(np.mean(
+            [a == b for a, b in zip(tokens, reference)]))
+    return {key: rec}, launches, tokens
 
 
 def main():
@@ -342,9 +599,11 @@ def main():
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import quant_matmul as qm
     from paddle_tpu_torch.serving import (DecodeEngine, DecoderConfig,
                                           init_params, make_pools)
     from paddle_tpu_torch.serving import decode_model as dm
+    from paddle_tpu_torch.serving.decode_engine import _probe_kv_absmax
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -372,26 +631,81 @@ def main():
              "N": kv.num_blocks}
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     krec = check_attention(pa, dev, flush, shape)
-    del flush
     _say(f"kernel check: paged_attention_mixed max_abs_err "
          f"{krec['max_abs_err']:.3e} <= {ATTN_TOL}")
+    lanes = {"float32": krec}
+    for dtype in ("bfloat16", "int8", "fp8-e4m3"):
+        lanes[dtype] = check_attention(pa, dev, flush, shape, dtype)
+        _say(f"kernel check: {lanes[dtype]['name']} max_abs_err "
+             f"{lanes[dtype]['max_abs_err']:.3e} <= {ATTN_TOL}")
+    qrecs = {}
+    for lane in ("int8", "fp8-e4m3"):
+        qrecs[lane] = check_quant_matmul(qm, dev, flush, cfg, lane,
+                                         M=shape["T"])
+        _say(f"kernel check: {qrecs[lane]['name']} max_abs_err "
+             f"{qrecs[lane]['max_abs_err']:.3e} (<= {QMM_TOL[lane]} of "
+             f"max|out| per shape, and within quant_matmul_error_bound); "
+             f"library: {qrecs[lane]['library_note']}")
+    del flush
 
     params = init_params(cfg, seed=0)
-    mrec = check_mixed_step(dm, make_pools, cfg, params, kv,
-                            shape["T"], max_slots)
+    mrec, fp32_logits = check_mixed_step(dm, make_pools, cfg, params, kv,
+                                         shape["T"], max_slots)
     _say("mixed_step check: " + json.dumps(mrec))
+    kv8 = cfg.kv_config(block_size=16, num_blocks=2048, dtype="int8")
+    qparams = dm.quantize_decoder_params(cfg, params, "int8")
+    cal = _probe_kv_absmax(cfg, qparams)
+    mqrec = check_quant_mixed_step(dm, make_pools, cfg, qparams, kv8, cal,
+                                   shape["T"], max_slots, fp32_logits)
+    _say("quant mixed_step check: " + json.dumps(mqrec))
+    del qparams, fp32_logits
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    srec, launches = serve(DecodeEngine, kernels, cfg, params)
+    srec, launches, fp32_tokens = serve(DecodeEngine, kernels, cfg, params)
     krec["launches"] = launches["paged_attention_mixed"]
     torch.cuda.synchronize()
     prec = profile_steps(dm, make_pools, cfg, params, kv, shape["T"],
                          max_slots)
 
+    # the slice's main path: int8 KV + int8 weights, the same 48 requests
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sqrec, qlaunch, _ = serve(
+        DecodeEngine, kernels, cfg, params, key="serve_quant",
+        engine_kw=dict(kv_config=kv8, quant_plan="int8"),
+        reference=fp32_tokens)
+    lanes["int8"]["launches"] = qlaunch["paged_attention_mixed_quant"]
+    qrecs["int8"]["launches"] = qlaunch["quant_matmul"]
+    # short runs: fp8 KV + fp8 weights, and bf16 KV with fp32 weights
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s8rec, f8launch, _ = serve(
+        DecodeEngine, kernels, cfg, params, key="serve_fp8", n_serve=16,
+        engine_kw=dict(kv_config=cfg.kv_config(16, 2048, "fp8-e4m3"),
+                       quant_plan="fp8-e4m3"))
+    lanes["fp8-e4m3"]["launches"] = f8launch["paged_attention_mixed_quant"]
+    qrecs["fp8-e4m3"]["launches"] = f8launch["quant_matmul"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sbrec, bflaunch, _ = serve(
+        DecodeEngine, kernels, cfg, params, key="serve_bf16", n_serve=16,
+        engine_kw=dict(kv_config=cfg.kv_config(16, 2048, "bfloat16")))
+    lanes["bfloat16"]["launches"] = bflaunch["paged_attention_mixed"]
+    torch.cuda.synchronize()
+    qparams = dm.quantize_decoder_params(cfg, params, "int8")
+    pqrec = profile_steps(dm, make_pools, cfg, qparams, kv8, shape["T"],
+                          max_slots, cal=cal, key="profile_quant")
+    del qparams
+
     _say(json.dumps(prec))
-    _say(json.dumps({"kernels": [krec]}))
+    _say(json.dumps(pqrec))
+    _say(json.dumps({"kernels": [krec, lanes["bfloat16"], lanes["int8"],
+                                 lanes["fp8-e4m3"], qrecs["int8"],
+                                 qrecs["fp8-e4m3"]]}))
     _say(json.dumps(srec))
+    for rec in (sqrec, s8rec, sbrec):
+        _say(json.dumps(rec))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

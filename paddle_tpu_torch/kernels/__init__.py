@@ -9,7 +9,9 @@ kernels; ``reset_launches`` zeroes it.
 """
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"paged_attention_mixed": 0}
+LAUNCHES: Dict[str, int] = {"paged_attention_mixed": 0,
+                            "paged_attention_mixed_quant": 0,
+                            "quant_matmul": 0}
 
 
 def reset_launches() -> None:
@@ -20,7 +22,10 @@ def reset_launches() -> None:
 from paddle_tpu_torch.kernels.paged_attention import (  # noqa: E402
     NEG_INF, paged_attention_mixed, paged_attention_mixed_reference,
     paged_attention_reference)
+# ``kernels.quant_matmul`` is the module (its function has the same
+# name, so it is not re-exported here)
+from paddle_tpu_torch.kernels import quant_matmul  # noqa: E402
 
 __all__ = ["LAUNCHES", "NEG_INF", "paged_attention_mixed",
            "paged_attention_mixed_reference", "paged_attention_reference",
-           "reset_launches"]
+           "quant_matmul", "reset_launches"]

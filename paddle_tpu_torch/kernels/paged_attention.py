@@ -6,7 +6,10 @@ single-token query rows, each with its own slot (which block-table row
 it reads) and its own context length, over a block-paged K/V pool
 ``[num_blocks, heads, block_size, head_dim]``. Each row folds the keys
 at positions ``< ctx_lens[t]`` through an fp32 online softmax; a row
-with ``ctx_lens[t] == 0`` outputs an exact zero row.
+with ``ctx_lens[t] == 0`` outputs an exact zero row. Pools are float32
+or bfloat16, or int8 / float8_e4m3fn payloads with per-block fp32
+scales ``[num_blocks, heads]`` (``k_scale``/``v_scale``): each gathered
+block is dequantized as ``payload * scale`` before the same fold.
 
 On CUDA tensors the wrapper launches the hand-written sm_90a kernel in
 ``csrc/paged_attention.cu`` (bandwidth-bound; see the note there) and
@@ -29,6 +32,13 @@ __all__ = ["NEG_INF", "paged_attention_mixed",
 
 NEG_INF = -1e30  # finite stand-in for -inf: keeps exp() NaN-free
 MAX_HEAD_DIM = 128  # the CUDA kernel keeps head_dim/32 floats per lane
+# the kernel's lanes: pool dtype -> (lane id, scaled, launch counter)
+_LANES = {
+    torch.float32: (0, False, "paged_attention_mixed"),
+    torch.bfloat16: (1, False, "paged_attention_mixed"),
+    torch.int8: (2, True, "paged_attention_mixed_quant"),
+    torch.float8_e4m3fn: (3, True, "paged_attention_mixed_quant"),
+}
 
 _entry = None
 
@@ -38,15 +48,16 @@ def _cuda_entry():
     global _entry
     if _entry is None:
         from paddle_tpu_torch.kernels import _build
-        fn = _build.load("paged_attention").paged_attention_mixed_f32
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        fn = _build.load("paged_attention").paged_attention_mixed
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                       + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _entry = fn
     return _entry
 
 
-def _check_pools(q, k_pool, v_pool):
+def _check_pools(q, k_pool, v_pool, k_scale, v_scale):
     if tuple(k_pool.shape) != tuple(v_pool.shape):
         raise ValueError(f"k_pool {tuple(k_pool.shape)} != v_pool "
                          f"{tuple(v_pool.shape)}")
@@ -56,24 +67,48 @@ def _check_pools(q, k_pool, v_pool):
             "pools must be [num_blocks, heads, block_size, head_dim] "
             f"matching q's heads/head_dim; got {tuple(k_pool.shape)} vs "
             f"q {tuple(q.shape)}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    if k_scale is not None:
+        want = (k_pool.shape[0], k_pool.shape[1])
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(sc.shape) != want:
+                raise ValueError(f"{name} must be [num_blocks, heads] "
+                                 f"{want}, got {tuple(sc.shape)}")
 
 
-def _check_cuda(q, k_pool, v_pool, block_tables, row_slots, ctx_lens):
-    """What the CUDA kernel takes: every tensor on q's card, float32 q
-    and pools, int32 index arrays, all contiguous, head_dim <= 128."""
+def _check_cuda(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                row_slots, ctx_lens):
+    """What the CUDA kernel takes: every tensor on q's card and
+    contiguous; float32 q; float32 or bfloat16 pools without scales, or
+    int8 / float8_e4m3fn pools with float32 scales; int32 index arrays;
+    head_dim <= 128. Returns the kernel's lane."""
     named = (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
              ("block_tables", block_tables), ("row_slots", row_slots),
              ("ctx_lens", ctx_lens))
+    if k_scale is not None:
+        named += (("k_scale", k_scale), ("v_scale", v_scale))
     for name, x in named:
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, x in named[:3]:
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 for the CUDA kernel, "
-                            f"got {x.dtype}")
-    for name, x in named[3:]:
+    if q.dtype != torch.float32:
+        raise TypeError(f"q must be float32 for the CUDA kernel, got "
+                        f"{q.dtype}")
+    lane = _LANES.get(k_pool.dtype)
+    if (lane is None or v_pool.dtype != k_pool.dtype
+            or lane[1] != (k_scale is not None)):
+        raise TypeError(
+            f"no CUDA kernel lane for {k_pool.dtype}/{v_pool.dtype} pools "
+            f"{'with' if k_scale is not None else 'without'} scales: it "
+            "takes float32 or bfloat16 pools without scales, int8 or "
+            "float8_e4m3fn pools with scales")
+    if k_scale is not None and (k_scale.dtype != torch.float32
+                                or v_scale.dtype != torch.float32):
+        raise TypeError(f"k_scale/v_scale must be float32, got "
+                        f"{k_scale.dtype}/{v_scale.dtype}")
+    for name, x in named[3:6]:
         if x.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {x.dtype}")
     if q.shape[2] > MAX_HEAD_DIM:
@@ -82,10 +117,12 @@ def _check_cuda(q, k_pool, v_pool, block_tables, row_slots, ctx_lens):
     if block_tables.dim() != 2 or block_tables.shape[1] < 1:
         raise ValueError(f"block_tables must be [slots, max_pages], got "
                          f"{tuple(block_tables.shape)}")
+    return lane
 
 
 def paged_attention_mixed(q, k_pool, v_pool, block_tables, row_slots,
-                          ctx_lens, *, sm_scale=None):
+                          ctx_lens, *, k_scale=None, v_scale=None,
+                          sm_scale=None):
     """Attention for a MIXED batch of independent single-token rows.
 
     Args:
@@ -97,18 +134,21 @@ def paged_attention_mixed(q, k_pool, v_pool, block_tables, row_slots,
       row_slots: ``[rows]`` int32 — which table row each query row reads.
       ctx_lens: ``[rows]`` int32 — keys each row sees, INCLUDING itself;
         0 masks the row (output 0).
+      k_scale, v_scale: ``[num_blocks, heads]`` fp32 per-block scales of
+        a quantized pool, or None for a float pool.
       sm_scale: logit scale; default ``1/sqrt(head_dim)``.
 
     Returns ``[rows, heads, head_dim]``. CUDA tensors launch the kernel
-    (adding one to ``kernels.LAUNCHES["paged_attention_mixed"]``) or
-    raise; CPU tensors take the plain version. Row slots and table
+    (adding one to ``kernels.LAUNCHES["paged_attention_mixed"]`` for
+    float pools, ``["paged_attention_mixed_quant"]`` for quantized ones)
+    or raise; CPU tensors take the plain version. Row slots and table
     entries are not range-checked on the card (that would cost a host
     sync); the engine builds them.
     """
     if q.dim() != 3:
         raise ValueError(f"q must be [rows, heads, head_dim], got shape "
                          f"{tuple(q.shape)}")
-    _check_pools(q, k_pool, v_pool)
+    _check_pools(q, k_pool, v_pool, k_scale, v_scale)
     T = q.shape[0]
     if tuple(row_slots.shape) != (T,) or tuple(ctx_lens.shape) != (T,):
         raise ValueError(
@@ -119,43 +159,51 @@ def paged_attention_mixed(q, k_pool, v_pool, block_tables, row_slots,
     if q.device.type == "cpu":
         return paged_attention_mixed_reference(
             q, k_pool, v_pool, block_tables, row_slots, ctx_lens,
-            sm_scale=sm_scale)
+            k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged_attention_mixed for device {q.device}")
-    _check_cuda(q, k_pool, v_pool, block_tables, row_slots, ctx_lens)
+    lane, scaled, counter = _check_cuda(q, k_pool, v_pool, k_scale,
+                                        v_scale, block_tables, row_slots,
+                                        ctx_lens)
     fn = _cuda_entry()
     out = torch.empty_like(q)
     N, H, B, d = k_pool.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        err = fn(lane, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 k_scale.data_ptr() if scaled else None,
+                 v_scale.data_ptr() if scaled else None,
                  block_tables.data_ptr(), row_slots.data_ptr(),
                  ctx_lens.data_ptr(), out.data_ptr(), T, H, d, B,
                  block_tables.shape[1], float(sm_scale), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_mixed kernel launch failed: "
                            f"CUDA error {err}")
-    _kernels.LAUNCHES["paged_attention_mixed"] += 1
+    _kernels.LAUNCHES[counter] += 1
     return out
 
 
 def paged_attention_mixed_reference(q, k_pool, v_pool, block_tables,
-                                    row_slots, ctx_lens, *, sm_scale=None):
+                                    row_slots, ctx_lens, *, k_scale=None,
+                                    v_scale=None, sm_scale=None):
     """Plain version: gather each row's block-table row by its slot id,
     then the single-query dense reference on the [rows]-major batch."""
     slots = row_slots.to(device=block_tables.device, dtype=torch.long)
     return paged_attention_reference(q, k_pool, v_pool,
                                      block_tables[slots], ctx_lens,
+                                     k_scale=k_scale, v_scale=v_scale,
                                      sm_scale=sm_scale)
 
 
 def paged_attention_reference(q, k_pool, v_pool, block_tables, seq_lens,
-                              *, sm_scale=None):
+                              *, k_scale=None, v_scale=None,
+                              sm_scale=None):
     """Dense reference: gather every row's pages into a contiguous
     context and run masked softmax attention, exactly the JAX package's
     ``paged_attention_reference`` (fp32 statistics, finite ``NEG_INF``
-    mask, zero row at length 0). ``block_tables`` is ``[rows,
-    max_pages]``; O(rows * max_pages * block_size) memory."""
+    mask, zero row at length 0). A quantized pool's gathered blocks are
+    dequantized with their stored per-block scales first. ``block_tables``
+    is ``[rows, max_pages]``; O(rows * max_pages * block_size) memory."""
     S, H, d = q.shape
     block_size = k_pool.shape[2]
     n_pages = block_tables.shape[1]
@@ -165,6 +213,9 @@ def paged_attention_reference(q, k_pool, v_pool, block_tables, seq_lens,
     lens = seq_lens.to(device=q.device, dtype=torch.long)
     kg = k_pool[tables].float()                    # [S, P, H, B, d]
     vg = v_pool[tables].float()
+    if k_scale is not None:
+        kg = kg * k_scale[tables][:, :, :, None, None]
+        vg = vg * v_scale[tables][:, :, :, None, None]
     k = kg.permute(0, 2, 1, 3, 4).reshape(S, H, n_pages * block_size, d)
     v = vg.permute(0, 2, 1, 3, 4).reshape(S, H, n_pages * block_size, d)
     s = torch.einsum("shd,shtd->sht", q.float(), k) * sm_scale

@@ -1,15 +1,16 @@
 """DecodeEngine — continuous-batching autoregressive serving on the card.
 
 The port of the JAX package's ``serving/decode_engine.py`` in its
-default configuration: chunked prefill, continuous admission, prefix
-cache on, float32 KV pool, no speculation. An **iteration-level** loop
-(the vLLM/Orca policy) runs on its own thread: every turn retires slots
-that finished, admits waiting requests into free slots, then dispatches
-ONE ``mixed_step`` whose rows are every decoding slot's next token plus
-up to ``prefill_token_budget`` tokens of prompt chunks for slots still
-mid-prefill. Slot ids, positions and validity are data, so the step's
-shapes never change with batch composition, and a request's greedy
-tokens are the same solo or inside a churning batch.
+chunked configurations: chunked prefill, continuous admission, prefix
+cache on, no speculation, with a float32, bfloat16, int8 or fp8-e4m3 KV
+pool and fp32 or quantized projection weights. An **iteration-level**
+loop (the vLLM/Orca policy) runs on its own thread: every turn retires
+slots that finished, admits waiting requests into free slots, then
+dispatches ONE ``mixed_step`` whose rows are every decoding slot's next
+token plus up to ``prefill_token_budget`` tokens of prompt chunks for
+slots still mid-prefill. Slot ids, positions and validity are data, so
+the step's shapes never change with batch composition, and a request's
+greedy tokens are the same solo or inside a churning batch.
 
 - **Prefix cache**: admission content-hashes the prompt's full blocks
   and reacquires published blocks by refcount; only the cold tail is
@@ -20,15 +21,20 @@ tokens are the same solo or inside a churning batch.
 - **Preemption**: when the pool runs dry while a context grows, the
   most recently admitted request is freed and requeued at the FRONT of
   the queue; greedy decoding restarts deterministically.
+- **Quantized execution**: an int8/fp8-e4m3 ``kv_config`` stores K/V
+  at one byte per element with per-block scales, written under
+  per-layer/head scales from ``kv_calibration`` or a one-time dense
+  prefill probe; ``quant_plan`` sends the projections through the
+  quantized matmul kernel.
 
 The step's argmax stays on the device; the one host fence per step is
 reading the per-row tokens back. The pools are updated in place.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): whole-prompt prefill and static admission (A6.3), speculation
-(A6.4), CoW beams (A6.5), quantized KV pools and weights (A6.2),
-telemetry with the lifecycle ledger and goodput decomposition (A6.6),
-and the compile cache (A6.7).
+(A6.4, with its quantized draft pool), CoW beams (A6.5), telemetry
+with the lifecycle ledger and goodput decomposition (A6.6), and the
+compile cache (A6.7).
 
 Metric names are the decode contract of the JAX package's
 ``docs/serving.md``.
@@ -58,6 +64,24 @@ from paddle_tpu_torch.serving.kvcache import (BlockPool, KVCacheConfig,
 __all__ = ["DecodeEngine", "DecodeResult", "DecodeRequest"]
 
 _request_ids = itertools.count(1)
+
+
+def _probe_kv_absmax(cfg, params, probe_len: int = 64,
+                     margin: float = 1.5, seed: int = 0):
+    """Default quantized-KV calibration, as the JAX engine's: one dense
+    prefill over ``probe_len`` seeded tokens measures the model's
+    per-layer/head K/V absmax, widened by ``margin`` so decode-time
+    values a bit past the probe's range still land inside the
+    quantizer's clip. Returns ``(k_absmax, v_absmax)`` float32 numpy
+    arrays [L, H]."""
+    probe_len = int(min(cfg.max_seq_len, probe_len))
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, probe_len, dtype=np.int64)
+    kc, vc = dm.dense_prefill(cfg, params, toks, probe_len)
+    # caches are [L, H, T, d] with garbage past probe_len: slice first
+    k_absmax = kc[:, :, :probe_len].abs().amax(dim=(2, 3)).cpu().numpy()
+    v_absmax = vc[:, :, :probe_len].abs().amax(dim=(2, 3)).cpu().numpy()
+    return k_absmax * margin, v_absmax * margin
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -114,6 +138,15 @@ class DecodeEngine:
     and ``prefill_token_budget`` (default one chunk) shape the mixed
     step, which has ``max_slots + prefill_token_budget`` rows. A
     context may grow to ``min(cfg.max_seq_len, pool capacity)``.
+
+    Quantized execution: a ``kv_config`` of dtype int8 or fp8-e4m3
+    makes the pools ``(payload, scales, cal)`` tuples, with write
+    scales from ``kv_calibration`` (``(k_absmax, v_absmax)`` [L, H]) or
+    a dense-prefill probe; bfloat16 stores bare bf16 pools.
+    ``quant_plan`` ("int8", "fp8-e4m3", or a plan object with
+    ``.decisions``) replaces the projection weights with 1-byte
+    payloads served by the quantized matmul kernel; the probe runs on
+    the quantized weights, as in the JAX engine.
     """
 
     def __init__(self, cfg: dm.DecoderConfig, params=None, *,
@@ -134,6 +167,7 @@ class DecodeEngine:
                  draft_params=None,
                  speculate_k: int = 0,
                  quant_plan=None,
+                 kv_calibration=None,
                  device=None,
                  autostart: bool = True):
         if admission == "static":
@@ -152,8 +186,6 @@ class DecodeEngine:
         if speculate_k > 0 or draft_cfg is not None \
                 or draft_params is not None:
             raise _not_ported("speculative decoding", "A6.4")
-        if quant_plan is not None:
-            raise _not_ported("quant_plan (quantized weights)", "A6.2")
         if compile_cache is not None:
             raise _not_ported("compile_cache", "A6.7")
         if telemetry is not None:
@@ -161,9 +193,6 @@ class DecodeEngine:
                               "goodput decomposition)", "A6.6")
         self.cfg = cfg
         self.kv = kv_config or cfg.kv_config(block_size, num_blocks)
-        if self.kv.quantized:
-            raise _not_ported(f"a quantized KV pool ({self.kv.dtype})",
-                              "A6.2")
         if (self.kv.num_layers, self.kv.num_heads, self.kv.head_dim) != \
                 (cfg.n_layers, cfg.n_heads, cfg.head_dim):
             raise ValueError(
@@ -177,6 +206,11 @@ class DecodeEngine:
             if p.device != self.device:
                 raise ValueError(f"param {name!r} is on {p.device}, the "
                                  f"engine on {self.device}")
+        # quantized projections: the plan rewrites the param dict once,
+        # BEFORE the KV probe, so the probe sees the served weights
+        self.quant_plan = quant_plan
+        if quant_plan is not None:
+            params = dm.quantize_decoder_params(cfg, params, quant_plan)
         self.params = params
         self.max_slots = int(max_slots)
         self.default_max_new = int(max_new_tokens)
@@ -208,7 +242,14 @@ class DecodeEngine:
         self._mixed_rows = self.max_slots + self.prefill_budget
 
         self.pool = BlockPool(self.kv)
-        self._k_pool, self._v_pool = make_pools(self.kv, self.device)
+        k_cal = v_cal = None
+        if self.kv.quantized:
+            if kv_calibration is not None:
+                k_cal, v_cal = kv_calibration
+            else:
+                k_cal, v_cal = _probe_kv_absmax(cfg, self.params)
+        self._k_pool, self._v_pool = make_pools(
+            self.kv, self.device, k_absmax=k_cal, v_absmax=v_cal)
         self._tokens = np.zeros((self.max_slots,), np.int32)
         self._seq_lens = np.zeros((self.max_slots,), np.int32)
         self._active = np.zeros((self.max_slots,), bool)
@@ -330,7 +371,7 @@ class DecodeEngine:
     def warmup(self) -> int:
         """Dispatch one all-invalid mixed step before traffic (every
         K/V write is a no-op, so the pool stays clean). On the card this
-        builds and launches the attention kernel once. Returns the
+        builds and launches the step's kernels once. Returns the
         number of mixed-step shapes the engine serves (always 1)."""
         T = self._mixed_rows
         zeros = np.zeros((T,), np.int32)
@@ -748,6 +789,11 @@ class DecodeEngine:
             "max_slots": self.max_slots,
             "kv": self.pool.stats(),
             "kv_config": self.kv.describe(),
+            "quant": {
+                "kv_dtype": self.kv.dtype,
+                "kv_quantized": self.kv.quantized,
+                "weights_quantized": self.quant_plan is not None,
+            },
             "prefix": {
                 "hit_tokens": self._prefix_hit_tokens.value,
                 "miss_tokens": self._prefix_miss_tokens.value,

@@ -14,6 +14,12 @@ context, so a request's tokens are the same solo or in a churning
 batch. Attention goes through ``kernels.paged_attention_mixed`` (the
 CUDA kernel for tensors on the card, its plain version on the CPU); the
 rest is plain PyTorch, as the JAX package left it to XLA.
+
+Quantized serving keeps the same signatures: ``quantize_decoder_params``
+replaces the projection weights with 1-byte payloads and per-channel
+scales that ``_proj`` sends through ``kernels.quant_matmul``, and a
+quantized pool is the ``(payload, scales, cal)`` tuple of
+``kvcache.make_pools``.
 """
 from __future__ import annotations
 
@@ -26,11 +32,24 @@ import torch.nn.functional as F
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.kernels.paged_attention import (
     paged_attention_mixed, paged_attention_mixed_reference)
+from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
+                                                   quant_matmul_reference,
+                                                   quantize_weight)
 from paddle_tpu_torch.serving.kvcache import KVCacheConfig
 
-__all__ = ["DecoderConfig", "init_params", "param_bytes", "mixed_step"]
+__all__ = ["DecoderConfig", "init_params", "param_bytes", "mixed_step",
+           "QUANT_PROJ_KEYS", "quantize_decoder_params", "dense_prefill"]
 
 _LN_EPS = 1e-5
+# Projection weights eligible for the quantized-matmul lane. Embed/pos
+# stay fp32 (gather + tied LM head); layernorm scales and biases are
+# vectors, and quantizing them saves nothing.
+QUANT_PROJ_KEYS = ("wqkv", "wo", "w1", "w2")
+# absmax/rms ceilings of a plan's fallback rule, copied from the JAX
+# package's analysis/quant.py: int8 holds a ratio-32 distribution with
+# <= 2-bit noise at the rms point; e4m3's exponent covers ~2^8 of spread
+_INT8_RATIO_MAX = 32.0
+_FP8_RATIO_MAX = 256.0
 
 
 @dataclass(frozen=True)
@@ -114,28 +133,92 @@ def param_bytes(cfg: DecoderConfig, dtype_bytes: int = 4) -> int:
     return total * int(dtype_bytes)
 
 
+def _plan_dtype_for(plan, name: str, w) -> Optional[str]:
+    """Precision for projection ``name`` under ``plan``: a bare dtype
+    string ("int8" / "fp8-e4m3") quantizes every projection; a plan
+    object's ``.decisions`` (each with ``.name`` and ``.dtype``) are
+    matched by name or name suffix; a projection with no decision falls
+    back to the absmax/rms ratio rule on the weight itself. None keeps
+    the weight in fp32."""
+    if plan is None:
+        return None
+    if isinstance(plan, str):
+        return plan
+    suffix = name.split("_", 1)[-1]          # "l0_wqkv" -> "wqkv"
+    for d in getattr(plan, "decisions", ()):
+        if d.name == name or d.name.endswith(suffix):
+            return d.dtype if d.dtype in ("int8", "fp8-e4m3") else None
+    w = w.float()
+    absmax = float(w.abs().max())
+    rms = float(w.square().mean().sqrt())
+    if rms <= 0.0:
+        return "int8"
+    ratio = absmax / rms
+    if ratio <= _INT8_RATIO_MAX:
+        return "int8"
+    if ratio <= _FP8_RATIO_MAX:
+        return "fp8-e4m3"
+    return None
+
+
+def quantize_decoder_params(cfg: DecoderConfig, params, quant_plan):
+    """Rewrite ``params`` for quantized projections per ``quant_plan``
+    (the JAX package's ``quantize_decoder_params``): each projection in
+    ``QUANT_PROJ_KEYS`` planned as int8 or fp8-e4m3 is REPLACED by
+    ``name__q`` (1-byte payload) and ``name__scale`` (per-output-channel
+    fp32), so the fp32 weight's memory is freed. Returns a new dict;
+    the input is not mutated."""
+    out = dict(params)
+    for l in range(cfg.n_layers):
+        for key in QUANT_PROJ_KEYS:
+            name = f"l{l}_{key}"
+            w = params[name]
+            dtype = _plan_dtype_for(quant_plan, name, w)
+            if dtype is None:
+                continue
+            wq, scale = quantize_weight(w, dtype)
+            del out[name]
+            out[name + "__q"] = wq
+            out[name + "__scale"] = scale
+    return out
+
+
 def _ln(x, s, b):
     """Layernorm with the biased variance and eps 1e-5, as the JAX
     package's ``_ln``."""
     return F.layer_norm(x, (x.shape[-1],), s, b, _LN_EPS)
 
 
-def _qkv(cfg, params, l, x):
+def _proj(params, name, x, add=None, plain=False):
+    """``add + x @ params[name]`` (``add`` a bias or the residual) — or
+    the quantized-matmul lane when ``quantize_decoder_params`` replaced
+    the weight with its ``name__q`` / ``name__scale`` form (its plain
+    version when ``plain``)."""
+    wq = params.get(name + "__q")
+    if wq is None:
+        w = params[name]
+        return x @ w if add is None else torch.addmm(add, x, w)
+    qmm = quant_matmul_reference if plain else quant_matmul
+    y = qmm(x, wq, params[name + "__scale"])
+    return y if add is None else y + add
+
+
+def _qkv(cfg, params, l, x, plain=False):
     """[n, D] -> q, k, v each [n, H, head_dim]."""
     h = _ln(x, params[f"l{l}_ln1_s"], params[f"l{l}_ln1_b"])
-    qkv = torch.addmm(params[f"l{l}_bqkv"], h, params[f"l{l}_wqkv"])
+    qkv = _proj(params, f"l{l}_wqkv", h, params[f"l{l}_bqkv"], plain)
     hd = cfg.n_heads * cfg.head_dim
     shape = (-1, cfg.n_heads, cfg.head_dim)
     return (qkv[:, :hd].reshape(shape), qkv[:, hd:2 * hd].reshape(shape),
             qkv[:, 2 * hd:].reshape(shape))
 
 
-def _mlp(cfg, params, l, x):
+def _mlp(cfg, params, l, x, plain=False):
     h = _ln(x, params[f"l{l}_ln2_s"], params[f"l{l}_ln2_b"])
     # jax.nn.gelu defaults to the tanh approximation
-    a = F.gelu(torch.addmm(params[f"l{l}_b1"], h, params[f"l{l}_w1"]),
+    a = F.gelu(_proj(params, f"l{l}_w1", h, params[f"l{l}_b1"], plain),
                approximate="tanh")
-    return torch.addmm(params[f"l{l}_b2"], a, params[f"l{l}_w2"])
+    return _proj(params, f"l{l}_w2", a, params[f"l{l}_b2"], plain)
 
 
 def _logits(cfg, params, x):
@@ -165,27 +248,62 @@ def _write_plan(blk, off, valid):
             valid[first].reshape(1, 1, 1))
 
 
+def _pool_layer(pool, l):
+    """Layer ``l``'s view of a pool (bare tensor or the quantized
+    ``(payload, scales, cal)`` tuple): ``(payload_l, scales_l or
+    None)``."""
+    if isinstance(pool, tuple):
+        return pool[0][l], pool[1][l]
+    return pool[l], None
+
+
+def _quantize_kv(rows, scale, dtype):
+    """K/V rows ``[n, H, d]`` / per-head write scale ``[H]`` -> 1-byte
+    payload values, as the JAX package's ``_scatter_kv`` makes them.
+    fp8 is not clipped there, and JAX's e4m3 cast turns a magnitude
+    past 464 (the rounding midpoint above 448) into NaN where torch's
+    saturates: the port writes the NaN too, so its pools stay equal to
+    the reference's (ROADMAP C2)."""
+    scaled = rows.float() / scale[None, :, None]
+    if dtype == torch.int8:
+        return torch.round(scaled).clamp(-127, 127).to(torch.int8)
+    scaled = torch.where(scaled.abs() > 464.0,
+                         torch.full_like(scaled, float("nan")), scaled)
+    return scaled.to(dtype)
+
+
 def _scatter_kv(pool, l, plan, rows):
     """Write per-row K or V heads ``rows [n, H, d]`` into pool layer
-    ``l`` IN PLACE, following ``_write_plan``."""
+    ``l`` IN PLACE, following ``_write_plan``. A quantized pool
+    quantizes ``rows`` with its write scale ``cal[l]`` and records that
+    scale in the written block's ``scales`` row, so reads dequantize a
+    block with the scale it was written under."""
     blk, off, src_row, any_valid = plan
-    pl = pool[l]                                   # [N, H, B, d] view
-    pl[blk, :, off, :] = torch.where(any_valid, rows[src_row].to(pl.dtype),
+    if not isinstance(pool, tuple):
+        pl = pool[l]                               # [N, H, B, d] view
+        pl[blk, :, off, :] = torch.where(
+            any_valid, rows[src_row].to(pl.dtype), pl[blk, :, off, :])
+        return
+    payload, scales, cal = pool
+    s = cal[l]                                     # [H] write scale
+    q = _quantize_kv(rows[src_row], s, payload.dtype)
+    # 1-byte payloads move as uint8, which every indexing op takes
+    pl = payload[l].view(torch.uint8)
+    pl[blk, :, off, :] = torch.where(any_valid, q.view(torch.uint8),
                                      pl[blk, :, off, :])
+    sl = scales[l]                                 # [N, H] view
+    sl[blk] = torch.where(any_valid[0], s.expand(blk.shape[0], -1),
+                          sl[blk])
 
 
 def _attend_mixed(q, k_pool, v_pool, l, block_tables, row_slots,
-                  ctx_lens, attn_impl):
-    if attn_impl is None:
-        return paged_attention_mixed(q, k_pool[l], v_pool[l],
-                                     block_tables, row_slots, ctx_lens)
-    if attn_impl == "reference":
-        return paged_attention_mixed_reference(q, k_pool[l], v_pool[l],
-                                               block_tables, row_slots,
-                                               ctx_lens)
-    raise ValueError(f"attn_impl must be None (the kernel on CUDA, its "
-                     f"plain version on CPU) or 'reference', got "
-                     f"{attn_impl!r}")
+                  ctx_lens, plain):
+    k_l, k_sc = _pool_layer(k_pool, l)
+    v_l, v_sc = _pool_layer(v_pool, l)
+    attend = paged_attention_mixed_reference if plain \
+        else paged_attention_mixed
+    return attend(q, k_l, v_l, block_tables, row_slots, ctx_lens,
+                  k_scale=k_sc, v_scale=v_sc)
 
 
 @torch.no_grad()
@@ -205,15 +323,23 @@ def mixed_step(cfg: DecoderConfig, params, k_pool, v_pool,
     1`` keys, so chunk rows of one slot packed in position order see
     earlier rows of their own chunk (the causal intra-chunk mask).
 
-    Unlike the JAX version, ``k_pool``/``v_pool`` are updated IN PLACE;
+    Unlike the JAX version, ``k_pool``/``v_pool`` (bare tensors, or the
+    quantized ``(payload, scales, cal)`` tuples) are updated IN PLACE;
     they are also returned, so the ``(logits [T, vocab], k_pool,
     v_pool)`` signature stays. Row arrays may be tensors or numpy
-    arrays; they are moved to the pools' device. ``attn_impl=None``
-    takes ``paged_attention_mixed`` (the kernel for CUDA pools);
-    ``"reference"`` forces the plain version, for comparisons only.
+    arrays; they are moved to the params' device. ``attn_impl=None``
+    takes the kernels (``paged_attention_mixed`` and, for quantized
+    weights, ``quant_matmul``: on CUDA tensors they launch);
+    ``"reference"`` forces the plain version of both, for comparisons
+    only.
     """
-    dev = k_pool.device
-    bs = k_pool.shape[3]
+    if attn_impl not in (None, "reference"):
+        raise ValueError(f"attn_impl must be None (the kernels on CUDA, "
+                         f"their plain versions on CPU) or 'reference', "
+                         f"got {attn_impl!r}")
+    plain = attn_impl == "reference"
+    dev = params["embed"].device
+    bs = _pool_layer(k_pool, 0)[0].shape[2]        # [N, H, B, d]
     if write_limit is None:
         write_limit = cfg.max_seq_len
     tokens = torch.as_tensor(tokens, device=dev).long()
@@ -230,11 +356,44 @@ def mixed_step(cfg: DecoderConfig, params, k_pool, v_pool,
                        (pos % bs).long(), valid)
     ctx_lens = torch.where(valid, pos + 1, torch.zeros_like(pos))
     for l in range(cfg.n_layers):
-        q, k, v = _qkv(cfg, params, l, x)
+        q, k, v = _qkv(cfg, params, l, x, plain)
         _scatter_kv(k_pool, l, plan, k)
         _scatter_kv(v_pool, l, plan, v)
         attn = _attend_mixed(q.contiguous(), k_pool, v_pool, l, tables,
-                             slots, ctx_lens, attn_impl)
-        x = torch.addmm(x, attn.reshape(T, -1), params[f"l{l}_wo"])
-        x = x + _mlp(cfg, params, l, x)
+                             slots, ctx_lens, plain)
+        x = _proj(params, f"l{l}_wo", attn.reshape(T, -1), x, plain)
+        x = x + _mlp(cfg, params, l, x, plain)
     return _logits(cfg, params, x), k_pool, v_pool
+
+
+@torch.no_grad()
+def dense_prefill(cfg: DecoderConfig, params, tokens, true_len):
+    """Prompt forward with a dense per-request KV cache (the JAX
+    package's ``dense_prefill``, in plain PyTorch: it has no kernel
+    there either). Returns ``(k_cache, v_cache)`` shaped ``[n_layers,
+    heads, max_seq_len, head_dim]`` holding K/V for positions <
+    ``true_len`` (garbage elsewhere). The engine's KV calibration probe
+    runs it."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    R = tokens.shape[0]
+    positions = torch.arange(R, device=dev)
+    real = positions < int(true_len)
+    x = params["embed"][tokens] + \
+        params["pos"][positions.clamp(0, cfg.max_seq_len - 1)]
+    shape = (cfg.n_layers, cfg.n_heads, cfg.max_seq_len, cfg.head_dim)
+    kc = torch.zeros(shape, dtype=torch.float32, device=dev)
+    vc = torch.zeros_like(kc)
+    scale = 1.0 / float(cfg.head_dim) ** 0.5
+    causal = (positions[None, :] <= positions[:, None]) & real[None, :]
+    for l in range(cfg.n_layers):
+        q, k, v = _qkv(cfg, params, l, x)
+        kc[l, :, :R] = k.transpose(0, 1)
+        vc[l, :, :R] = v.transpose(0, 1)
+        s = torch.einsum("qhd,khd->hqk", q.float(), k.float()) * scale
+        s = torch.where(causal[None], s, torch.full_like(s, -1e30))
+        p = torch.softmax(s, dim=-1)
+        attn = torch.einsum("hqk,khd->qhd", p, v.float())
+        x = _proj(params, f"l{l}_wo", attn.reshape(R, -1), x)
+        x = x + _mlp(cfg, params, l, x)
+    return kc, vc

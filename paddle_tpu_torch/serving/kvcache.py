@@ -29,8 +29,9 @@ Split of responsibilities:
   ``kernels/paged_attention.py`` reads), stacked over layers on axis 0.
   The mixed step writes new K/V rows into them in place.
 
-Quantized pools (``dtype="int8"``/``"fp8-e4m3"``) keep their sizing
-math here, but building them is ROADMAP item A6.2 of the port.
+Quantized pools (``dtype="int8"``/``"fp8-e4m3"``) store K/V at one
+byte per element with per-block fp32 scales beside them; ``make_pools``
+returns each as the JAX package's ``(payload, scales, cal)`` tuple.
 """
 from __future__ import annotations
 
@@ -46,10 +47,23 @@ import torch
 from paddle_tpu_torch.device import resolve_device
 
 __all__ = ["KVCacheConfig", "BlockPool", "OutOfBlocksError",
-           "chain_block_hashes", "QUANT_KV_DTYPES", "make_pools"]
+           "chain_block_hashes", "QUANT_KV_DTYPES", "QUANT_QMAX",
+           "FP8_E4M3_MAX", "kv_storage_dtype", "kv_quant_cal",
+           "make_pools"]
 
 QUANT_KV_DTYPES = ("int8", "fp8-e4m3")
-_QUANT_DTYPE_BYTES = {"int8": 1, "fp8-e4m3": 1}
+FP8_E4M3_MAX = 448.0      # largest finite float8_e4m3fn magnitude
+QUANT_QMAX = {"int8": 127.0, "fp8-e4m3": FP8_E4M3_MAX}
+# Bytes per element by name. A table, not ``np.dtype(name)``: numpy
+# knows "bfloat16" only once ``ml_dtypes`` is imported, and the port
+# does not import it.
+_DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "int8": 1,
+                "fp8-e4m3": 1}
+_STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                   "float16": torch.float16, "int8": torch.int8,
+                   "fp8-e4m3": torch.float8_e4m3fn}
+# pool dtypes the paged-attention kernel has a lane for
+_POOL_DTYPES = ("float32", "bfloat16") + QUANT_KV_DTYPES
 
 
 class OutOfBlocksError(RuntimeError):
@@ -79,17 +93,23 @@ class KVCacheConfig:
             v = getattr(self, field)
             if int(v) < 1:
                 raise ValueError(f"{field} must be >= 1, got {v}")
-        if self.dtype not in _QUANT_DTYPE_BYTES:
-            np.dtype(self.dtype)     # raises on unknown names early
+        if self.dtype not in _DTYPE_BYTES:
+            raise ValueError(f"unknown KV dtype {self.dtype!r}; known: "
+                             f"{sorted(_DTYPE_BYTES)}")
 
     @property
     def quantized(self) -> bool:
         return self.dtype in QUANT_KV_DTYPES
 
     @property
+    def quant_qmax(self) -> float:
+        """Largest representable magnitude of the quantized payload
+        dtype (scale = absmax / qmax)."""
+        return QUANT_QMAX[self.dtype]
+
+    @property
     def dtype_bytes(self) -> int:
-        b = _QUANT_DTYPE_BYTES.get(self.dtype)
-        return int(np.dtype(self.dtype).itemsize) if b is None else b
+        return _DTYPE_BYTES[self.dtype]
 
     @property
     def block_bytes(self) -> int:
@@ -421,18 +441,55 @@ class BlockPool:
         }
 
 
-def make_pools(config: KVCacheConfig, device=None):
-    """Fresh zeroed K and V pool tensors on ``device`` (the card by
-    default; ``"cpu"`` only when asked for), each shaped
+def kv_storage_dtype(config: KVCacheConfig) -> torch.dtype:
+    """The torch dtype K/V payloads are stored as."""
+    return _STORAGE_DTYPES[config.dtype]
+
+
+def kv_quant_cal(config: KVCacheConfig, absmax=None, device=None):
+    """Calibration write-scale tensor ``[num_layers, num_heads]`` fp32:
+    ``max(absmax, 1e-8) / qmax``, computed in numpy float32 exactly as
+    the JAX package does. ``absmax`` is a per-layer/head estimate
+    (broadcast to the shape); None means 1.0 everywhere."""
+    shape = (config.num_layers, config.num_heads)
+    if absmax is None:
+        a = np.ones(shape, np.float32)
+    else:
+        a = np.broadcast_to(
+            np.asarray(absmax, np.float32), shape).astype(np.float32)
+    a = np.maximum(a, 1e-8)
+    return torch.from_numpy(a / config.quant_qmax).to(
+        resolve_device(device))
+
+
+def make_pools(config: KVCacheConfig, device=None, k_absmax=None,
+               v_absmax=None):
+    """Fresh zeroed K and V pools on ``device`` (the card by default;
+    ``"cpu"`` only when asked for). Each payload is shaped
     ``[num_layers, num_blocks, num_heads, block_size, head_dim]`` — per
-    layer, the paged kernel's ``[N, H, B, d]`` layout, contiguous."""
-    if config.dtype != "float32":
+    layer, the paged kernel's ``[N, H, B, d]`` layout, contiguous.
+
+    float32 and bfloat16 configs return bare tensors. Quantized configs
+    return each pool as the JAX package's ``(payload, scales, cal)``
+    tuple: the 1-byte payload, per-block scales ``[L, N, H]`` fp32
+    (zero, so an unwritten block dequantizes to 0.0 as a float pool
+    would), and the write scale ``[L, H]`` from ``k_absmax`` /
+    ``v_absmax`` (``kv_quant_cal``)."""
+    if config.dtype not in _POOL_DTYPES:
         raise NotImplementedError(
-            f"KV pools of dtype {config.dtype!r} are not ported yet "
-            "(only float32): ROADMAP item A6.2 of the PyTorch port "
-            "(quantized and reduced-precision KV)")
+            f"KV pools of dtype {config.dtype!r} are not ported: the "
+            f"paged-attention kernel has lanes for {list(_POOL_DTYPES)}")
     dev = resolve_device(device)
     shape = (config.num_layers, config.num_blocks, config.num_heads,
              config.block_size, config.head_dim)
-    return (torch.zeros(shape, dtype=torch.float32, device=dev),
-            torch.zeros(shape, dtype=torch.float32, device=dev))
+    dt = kv_storage_dtype(config)
+    if not config.quantized:
+        return (torch.zeros(shape, dtype=dt, device=dev),
+                torch.zeros(shape, dtype=dt, device=dev))
+
+    def pool(absmax):
+        return (torch.zeros(shape, dtype=dt, device=dev),
+                torch.zeros(shape[:3], dtype=torch.float32, device=dev),
+                kv_quant_cal(config, absmax, dev))
+
+    return pool(k_absmax), pool(v_absmax)

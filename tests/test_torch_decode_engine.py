@@ -7,14 +7,18 @@ prefix (prefix-cache hits) and a pool small enough to force preemption
 ``embed`` and the projections so that generations depend on context,
 and the test checks that every greedy step's top-2 logit gap exceeds
 1e-3, so no near-tie (fp32 differs across frameworks by ~1e-6) decides
-the result. Also: solo == batched inside the port, the options not
-ported yet raise, entry points raise without a card unless asked for
-the CPU, and no module of the port imports JAX or the JAX package."""
+the result. The quantized configurations (int8 KV + int8 weights,
+fp8-e4m3 KV + fp8 weights, bfloat16 KV) are held to the same, with the
+same default calibration probe on both sides. Also: solo == batched
+inside the port, the options not ported yet raise, entry points raise
+without a card unless asked for the CPU, and no module of the port
+imports JAX or the JAX package."""
 import ast
 import os
 import pathlib
 import sys
 import threading
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,10 +26,12 @@ import pytest
 import torch
 
 from paddle_tpu.serving import DecodeEngine as JaxEngine
+from paddle_tpu.serving import decode_engine as jde
 from paddle_tpu.serving import decode_model as jdm
 from paddle_tpu_torch.convert import params_from_jax
 from paddle_tpu_torch.serving import (DecodeEngine, DecodeResult,
                                       ServingOverloadError, make_pools)
+from paddle_tpu_torch.serving import decode_engine as tde
 from paddle_tpu_torch.serving import decode_model as tdm
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -62,13 +68,14 @@ def _serve(engine, prompts):
     return [r.tokens.tolist() for r in res]
 
 
-def _greedy_gap(tp, prompt, gen):
+def _greedy_gap(tp, prompt, gen, kv_dtype="float32", cal=(None, None)):
     """Teacher-forced replay of prompt+generation in one port
-    mixed_step: argmax must reproduce ``gen``; returns the smallest
-    top-2 logit gap over the generated positions."""
+    mixed_step (pools of ``kv_dtype`` under calibration ``cal``):
+    argmax must reproduce ``gen``; returns the smallest top-2 logit gap
+    over the generated positions."""
     seq = list(prompt) + list(gen[:-1])
     n = len(seq)
-    k, v = make_pools(TCFG.kv_config(4, 17), "cpu")
+    k, v = make_pools(TCFG.kv_config(4, 17, kv_dtype), "cpu", *cal)
     tables = np.arange(16, dtype=np.int32)[None]
     logits, _, _ = tdm.mixed_step(TCFG, tp, k, v, np.asarray(seq),
                                   np.zeros(n, np.int32), np.arange(n),
@@ -101,6 +108,101 @@ def test_greedy_tokens_match_jax_engine(np_params, pool):
     teng.pool.assert_consistent()
     assert teng.pool.check_leaks() == []
     assert all(1 <= len(g) <= MAX_NEW for g in got)
+
+
+@pytest.mark.parametrize("pool", ["roomy", "tight"])
+@pytest.mark.parametrize("kv_dtype,w_dtype", [
+    ("int8", "int8"), ("fp8-e4m3", "fp8-e4m3"), ("bfloat16", None)])
+def test_quantized_greedy_tokens_match_jax_engine(np_params, kv_dtype,
+                                                  w_dtype, pool):
+    nb = 96 if pool == "roomy" else 14
+    kw = dict(max_slots=4 if pool == "roomy" else 3, eos_id=0,
+              quant_plan=w_dtype)
+    prompts = _prompts()
+    jeng = JaxEngine(JCFG, {k: jnp.asarray(v) for k, v in
+                            np_params.items()},
+                     kv_config=JCFG.kv_config(4, nb, kv_dtype), **kw)
+    want = _serve(jeng, prompts)
+    tp = params_from_jax(np_params, "cpu")
+    teng = DecodeEngine(TCFG, tp, device="cpu",
+                        kv_config=TCFG.kv_config(4, nb, kv_dtype), **kw)
+    got = _serve(teng, prompts)
+    assert got == want
+    cal = (None, None)
+    if teng.kv.quantized:
+        cal = tde._probe_kv_absmax(TCFG, teng.params)
+        np.testing.assert_array_equal(
+            teng._k_pool[2].numpy(),
+            (np.maximum(cal[0], 1e-8) / teng.kv.quant_qmax))
+    gaps = [_greedy_gap(teng.params, p, g, kv_dtype, cal)
+            for p, g in zip(prompts, got)]
+    assert min(gaps) > MIN_GAP, "a near-tie decided a greedy token"
+    st = teng.stats()
+    assert st["prefix"]["hit_tokens"] > 0
+    if pool == "tight":
+        assert st["preempted_total"] > 0, "pool sized to force preemption"
+    assert st["quant"] == jeng.stats()["quant"]
+    assert st["quant"] == {"kv_dtype": kv_dtype,
+                           "kv_quantized": kv_dtype != "bfloat16",
+                           "weights_quantized": w_dtype is not None}
+    teng.pool.assert_consistent()
+    assert teng.pool.check_leaks() == []
+
+
+@pytest.mark.parametrize("w_dtype", [None, "int8"])
+def test_probe_calibration_matches_jax(np_params, w_dtype):
+    jp = {k: jnp.asarray(v) for k, v in np_params.items()}
+    tp = params_from_jax(np_params, "cpu")
+    if w_dtype is not None:
+        jp = jdm.quantize_decoder_params(JCFG, jp, w_dtype)
+        tp = tdm.quantize_decoder_params(TCFG, tp, w_dtype)
+    want = jde._probe_kv_absmax(JCFG, jp)
+    got = tde._probe_kv_absmax(TCFG, tp)
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32 and g.shape == (2, 2)
+        np.testing.assert_allclose(g, w, rtol=1e-5)
+
+
+def test_params_from_jax_takes_a_quantized_dict(np_params):
+    """A param dict quantized on the JAX side (int8 and fp8 payloads)
+    crosses with ``params_from_jax`` and serves the JAX engine's
+    tokens with no ``quant_plan`` on either side."""
+    jq = jdm.quantize_decoder_params(
+        JCFG, {k: jnp.asarray(v) for k, v in np_params.items()},
+        types.SimpleNamespace(decisions=[
+            types.SimpleNamespace(name="wqkv", dtype="fp8-e4m3"),
+            types.SimpleNamespace(name="wo", dtype="bfloat16"),
+            types.SimpleNamespace(name="w2", dtype="int8")]))
+    tp = params_from_jax({k: np.asarray(v) for k, v in jq.items()}, "cpu")
+    assert tp["l0_wqkv__q"].dtype == torch.float8_e4m3fn
+    assert tp["l1_w2__q"].dtype == torch.int8 and "l0_wo" in tp
+    assert tp["l0_w1__q"].dtype == torch.int8        # the ratio rule
+    prompts = _prompts()[:4]
+    kw = dict(block_size=4, num_blocks=64, max_slots=2, eos_id=0)
+    want = _serve(JaxEngine(JCFG, jq, **kw), prompts)
+    teng = DecodeEngine(TCFG, tp, device="cpu", **kw)
+    assert _serve(teng, prompts) == want
+    assert teng.stats()["quant"]["weights_quantized"] is False
+
+
+def test_explicit_kv_calibration(np_params):
+    ka = np.array([[1.0, 2.0], [3.0, 4.0]], np.float32)
+    va = np.float32(5.0)
+    kw = dict(kv_config=TCFG.kv_config(4, 16, "int8"),
+              kv_calibration=(ka, va), autostart=False)
+    eng = DecodeEngine(TCFG, params_from_jax(np_params, "cpu"),
+                       device="cpu", **kw)
+    jeng = JaxEngine(JCFG, {k: jnp.asarray(v) for k, v in
+                            np_params.items()},
+                     kv_config=JCFG.kv_config(4, 16, "int8"),
+                     kv_calibration=(ka, va), autostart=False)
+    for t, j in ((eng._k_pool, jeng._k_pool), (eng._v_pool, jeng._v_pool)):
+        np.testing.assert_array_equal(t[2].numpy(), np.asarray(j[2]))
+    assert eng.warmup() == 1
+    assert not eng._k_pool[0].view(torch.uint8).any()
+    assert not eng._k_pool[1].any()              # no scale was written
+    eng.close()
+    jeng.close()
 
 
 def test_solo_equals_churning_batch(np_params):
@@ -198,8 +300,9 @@ def test_queue_backpressure(np_params):
     (dict(speculate_k=2, draft_cfg=TCFG), "A6.4"),
     (dict(prefill_mode="whole"), "A6.3"),
     (dict(admission="static"), "A6.3"),
-    (dict(quant_plan="int8"), "A6.2"),
-    (dict(kv_config=TCFG.kv_config(4, 8, dtype="int8")), "A6.2"),
+    (dict(speculate_k=2, draft_cfg=TCFG,
+          kv_config=TCFG.kv_config(4, 8, dtype="int8")), "A6.4"),
+    (dict(speculate_k=2, draft_cfg=TCFG, quant_plan="int8"), "A6.4"),
     (dict(compile_cache="/nonexistent"), "A6.7"),
     (dict(telemetry=object()), "A6.6"),
 ])

@@ -5,13 +5,23 @@ decode rows, invalid rows and a ``write_limit`` cut — goes through the
 JAX ``mixed_step`` (dense reference and the Pallas kernel in interpret
 mode) and through the port's, from the same params (``params_from_jax``)
 and the same numpy inputs. Logits and both pools must agree within
-atol 1e-5 in float32 after every step."""
+atol 1e-5 in float32 after every step.
+
+The quantized configurations run the same script from the same
+calibration: int8 KV + int8 weights, fp8-e4m3 KV + fp8 weights, and
+bfloat16 KV with fp32 weights. There the logits must agree within atol
+1e-5 and the 1-byte payloads and the per-block scales must be equal
+(the int8 matmul is exact on both sides, so its outputs differ only by
+fp32 epilogue rounding, which moves no quantized K/V value here)."""
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu.serving import decode_model as jdm
+from paddle_tpu.serving import kvcache as jkv
 from paddle_tpu_torch.convert import params_from_jax
 from paddle_tpu_torch.serving import decode_model as tdm
 from paddle_tpu_torch.serving.kvcache import make_pools
@@ -158,3 +168,147 @@ def test_init_params_without_card_raises(monkeypatch):
         tdm.init_params(TCFG)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_jax({"embed": np.zeros((2, 2), np.float32)})
+
+
+QUANT_CASES = [("int8", "int8"), ("fp8-e4m3", "fp8-e4m3"),
+               ("bfloat16", None)]
+
+
+def _np(x):
+    return {k: np.asarray(v) for k, v in x.items()}
+
+
+def _payload_bytes(pool):
+    """A pool's payload as comparable numpy bytes (JAX or torch)."""
+    payload = pool[0] if isinstance(pool, tuple) else pool
+    if isinstance(payload, torch.Tensor):
+        return payload.view(torch.uint8 if payload.element_size() == 1
+                            else torch.int16).numpy()
+    a = np.asarray(payload)
+    return a.view(np.uint8 if a.itemsize == 1 else np.int16)
+
+
+@pytest.mark.parametrize("plan", ["int8", "fp8-e4m3", "object"])
+def test_quantize_decoder_params_matches_jax(params, plan):
+    jp, _tp = params
+    np_p = _np(jp)
+    # spiky channels: the ratio rule sends them to fp8
+    np_p["l0_w1"] = np_p["l0_w1"].copy()
+    np_p["l0_w1"][0, 0] = 2.0
+    if plan == "object":          # duck-typed QuantPlan: .decisions
+        plan = types.SimpleNamespace(decisions=[
+            types.SimpleNamespace(name="l1_wqkv", dtype="fp8-e4m3"),
+            types.SimpleNamespace(name="w2", dtype="bfloat16")])
+    jq = jdm.quantize_decoder_params(
+        JCFG, {k: jnp.asarray(v) for k, v in np_p.items()}, plan)
+    tq = tdm.quantize_decoder_params(TCFG, params_from_jax(np_p, "cpu"),
+                                     plan)
+    assert sorted(tq) == sorted(jq)
+    for name, arr in jq.items():
+        arr = np.asarray(arr)
+        if name.endswith("__q"):
+            assert tq[name].element_size() == 1
+            assert np.array_equal(tq[name].view(torch.uint8).numpy(),
+                                  arr.view(np.uint8)), name
+        else:
+            np.testing.assert_allclose(tq[name].numpy(), arr, rtol=1e-7,
+                                       atol=0, err_msg=name)
+    if not isinstance(plan, str):
+        assert "l0_w2" in tq and "l0_wqkv__q" in tq      # kept / planned
+        assert tq["l1_wqkv__q"].dtype == torch.float8_e4m3fn
+        assert tq["l0_w1__q"].dtype == torch.float8_e4m3fn   # ratio rule
+        assert tq["l1_w1__q"].dtype == torch.int8
+    # params_from_jax carries the quantized dict byte for byte
+    carried = params_from_jax(_np(jq), "cpu")
+    for name in jq:
+        assert carried[name].dtype == tq[name].dtype, name
+        assert carried[name].view(torch.uint8).numpy().tobytes() == \
+            tq[name].view(torch.uint8).numpy().tobytes(), name
+
+
+@pytest.mark.parametrize("jax_impl", ["reference", "kernel_interpret"])
+@pytest.mark.parametrize("kv_dtype,w_dtype", QUANT_CASES)
+def test_quantized_mixed_step_matches_jax(params, kv_dtype, w_dtype,
+                                          jax_impl):
+    jp, tp = params
+    if w_dtype is not None:
+        jp = jdm.quantize_decoder_params(JCFG, jp, w_dtype)
+        tp = tdm.quantize_decoder_params(TCFG, tp, w_dtype)
+    kw = dict(num_layers=JCFG.n_layers, num_heads=JCFG.n_heads,
+              head_dim=JCFG.head_dim, block_size=BS, num_blocks=NB,
+              dtype=kv_dtype)
+    rng = np.random.default_rng(7)
+    ka = rng.uniform(0.5, 2.0, (JCFG.n_layers, JCFG.n_heads))
+    va = rng.uniform(0.5, 2.0, (JCFG.n_layers, JCFG.n_heads))
+    jk, jv = jkv.make_pools(jkv.KVCacheConfig(**kw), ka, va)
+    tk, tv = make_pools(TCFG.kv_config(BS, NB, kv_dtype), "cpu", ka, va)
+    tables = _tables()
+    for toks, slots, pos, valid in _script():
+        jl, jk, jv = jdm.mixed_step(JCFG, jp, jk, jv, toks, slots, pos,
+                                    valid, tables, attn_impl=jax_impl,
+                                    write_limit=11)
+        tl, tk2, tv2 = tdm.mixed_step(TCFG, tp, tk, tv, toks, slots, pos,
+                                      valid, tables, write_limit=11)
+        assert tk2 is tk and tv2 is tv
+        mask = valid & (pos < 11)
+        assert np.isfinite(tl.numpy()[mask]).all()
+        np.testing.assert_allclose(tl.numpy()[mask],
+                                   np.asarray(jl)[mask],
+                                   atol=1e-5, rtol=1e-5)
+        for jpool, tpool in ((jk, tk), (jv, tv)):
+            assert np.array_equal(_payload_bytes(tpool),
+                                  _payload_bytes(jpool))
+            if isinstance(tpool, tuple):
+                assert np.array_equal(tpool[1].numpy(),
+                                      np.asarray(jpool[1]))
+    if isinstance(tk, tuple):       # every written block has its scale
+        written = tk[0].view(torch.uint8).reshape(
+            JCFG.n_layers, NB, -1).any(-1)
+        assert torch.equal(written, (tk[1] != 0).all(-1) & written)
+        assert not tk[1][:, 6].any()          # the cut write left none
+
+
+@pytest.mark.parametrize("w_dtype", [None, "int8", "fp8-e4m3"])
+def test_dense_prefill_matches_jax(params, w_dtype):
+    jp, tp = params
+    if w_dtype is not None:
+        jp = jdm.quantize_decoder_params(JCFG, jp, w_dtype)
+        tp = tdm.quantize_decoder_params(TCFG, tp, w_dtype)
+    toks = np.random.default_rng(5).integers(0, JCFG.vocab_size, 23)
+    jk, jv = jdm.dense_prefill(JCFG, jp, jnp.asarray(toks, jnp.int32),
+                               np.int32(20))
+    tk, tv = tdm.dense_prefill(TCFG, tp, toks, 20)
+    assert tuple(tk.shape) == jk.shape
+    for t, j in ((tk, jk), (tv, jv)):
+        np.testing.assert_allclose(t.numpy()[:, :, :20],
+                                   np.asarray(j)[:, :, :20], atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_fp8_kv_overflow_writes_nan_like_jax():
+    """The fp8 K/V write does not clip: JAX's e4m3 cast gives 448 up to
+    464 and NaN past it, where torch's saturates. The port writes what
+    the reference writes (ROADMAP C2)."""
+    vals = np.array([0.0, 1.0, 440.0, 448.0, 456.0, 464.0, 464.5, 480.0,
+                     1e4, -464.0, -465.0, -1e4], np.float32)
+    rows = vals.reshape(1, 1, -1)
+    shape = (1, 2, 1, 1, vals.size)
+    jpool = (jnp.zeros(shape, jnp.float8_e4m3fn),
+             jnp.zeros(shape[:3], jnp.float32),
+             jnp.ones((1, 1), jnp.float32))
+    jpool = jdm._scatter_kv(jpool, 0, jnp.array([1]), jnp.array([0]),
+                            jnp.asarray(rows))
+    tpool = (torch.zeros(shape, dtype=torch.float8_e4m3fn),
+             torch.zeros(shape[:3]), torch.ones((1, 1)))
+    plan = tdm._write_plan(torch.tensor([1]), torch.tensor([0]),
+                           torch.tensor([True]))
+    tdm._scatter_kv(tpool, 0, plan, torch.from_numpy(rows))
+    want = np.asarray(jpool[0]).astype(np.float32)[0, 1, 0, 0]
+    got = tpool[0].float().numpy()[0, 1, 0, 0]
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got).tolist() == [False] * 6 + [True] * 3 + \
+        [False, True, True]
+    fin = ~np.isnan(want)
+    np.testing.assert_array_equal(got[fin], want[fin])
+    assert got[5] == 448.0 and got[9] == -448.0
+    np.testing.assert_array_equal(tpool[1].numpy(), np.asarray(jpool[1]))
