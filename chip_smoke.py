@@ -39,8 +39,33 @@ The quantized slice adds, in the same run:
    pool and solo == batched; then the first 16 requests on fp8-e4m3
    KV + fp8 weights and on bfloat16 KV with fp32 weights.
 
+The whole-prompt slice adds, in the same run:
+
+3c. the decode-step kernel (``paged_attention``, B3/B4) at the decode
+   shape (16 slots, ragged contexts 0-512) and the row-tiled chunk
+   kernel (``paged_attention_chunk``, B5/B6) at two whole-mode prefill
+   shapes (rung 384 from position 0; rung 256 after a 128-token prefix
+   hit; both with rung padding rows), every lane (float32, bfloat16,
+   int8, fp8-e4m3) against its plain version, timed beside it, an SDPA
+   yardstick on gathered K/V and its bound; and the chunk kernel at one
+   row per slot against the decode kernel;
+4c. a full-width ``decode_step`` (16 ragged slots) and the two
+   full-width ``prefill`` calls with the kernels (under sync-debug
+   "error") against the same calls with the plain versions, in fp32 and
+   with int8 KV + int8 weights (phase 4b's quantized gates);
+5c. the slice's main paths: ``prefill_mode="whole"`` engines with the
+   rungs (16, 32, 64, 128, 256, 384) serving the same 48 requests with
+   continuous admission (fp32, and int8 KV + int8 weights) and with
+   static admission (fp32), and the first 16 requests on fp8 and bf16
+   KV. Launch counts are exact (B3/B4: layers x decode steps, B5/B6:
+   layers x prefills, B7: 4 x layers x both, B1/B2: none); every request
+   without the shared prefix gives the same greedy tokens continuous,
+   static and served solo. Agreement with the chunked runs is reported;
+   then ``profile_whole``: a decode step and a rung-384 prefill under
+   ``torch.profiler``.
+
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
-lane), the ``serve`` lines and, last, ``{"ok": true, "device":
+lane of every kernel), the ``serve`` lines and, last, ``{"ok": true, "device":
 {...}}``. Float32 matmuls run in full float32 (TF32 off). With no CUDA
 card it exits non-zero at once.
 """
@@ -157,11 +182,13 @@ def _quant_pools(dev, dtype, N, H, B, d, seed=0):
 
 
 def _attention_bound(tables, slots, ctx, H, d, B, P, elem_bytes=4,
-                     scaled=False):
+                     scaled=False, n_index=2):
     """Least bytes/ops of this call: each K/V position that some row
-    needs is read once (``elem_bytes`` per element), q/out once, the
-    table entries needed once, and for a quantized pool the K and V
-    scales of each needed block once."""
+    needs is read once per slot however many rows read it
+    (``elem_bytes`` per element), q/out once, the table entries needed
+    once, ``n_index`` int32 arrays of one entry per row (row slots,
+    contexts), and for a quantized pool the K and V scales of each
+    needed block once. ``slots``/``ctx`` are per row."""
     keys, pages = [], []
     for t in range(len(ctx)):
         n = min(int(ctx[t]), P * B)
@@ -175,7 +202,7 @@ def _attention_bound(tables, slots, ctx, H, d, B, P, elem_bytes=4,
     n_blocks = np.unique(tables.reshape(-1)[page_ids]).size
     T = len(ctx)
     nbytes = (n_keys * H * d * elem_bytes * 2 + 2 * T * H * d * 4
-              + n_pages * 4 + 2 * T * 4
+              + n_pages * 4 + n_index * T * 4
               + (n_blocks * H * 4 * 2 if scaled else 0))
     flops = 4.0 * np.minimum(ctx, P * B).sum() * H * d
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -227,13 +254,7 @@ def check_attention(pa, dev, flush, shape, dtype="float32"):
     # library yardstick: SDPA over the pre-gathered (and dequantized)
     # dense K/V with the length mask (rows with ctx 0 are let see key 0
     # to stay finite)
-    gather = tables[slots.long()].long()
-    kd, vd = k[gather].float(), v[gather].float()
-    if ks is not None:
-        kd = kd * ks[gather][:, :, :, None, None]
-        vd = vd * vs[gather][:, :, :, None, None]
-    kd = kd.permute(0, 2, 1, 3, 4).reshape(T, H, P * B, d)
-    vd = vd.permute(0, 2, 1, 3, 4).reshape(T, H, P * B, d)
+    kd, vd = _dense_kv(k, v, ks, vs, tables[slots.long()])
     mask = (torch.arange(P * B, device=dev)[None, :]
             < ctx.clamp(min=1)[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -251,6 +272,169 @@ def check_attention(pa, dev, flush, shape, dtype="float32"):
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "shape": dict(shape, dtype=dtype)}
+
+
+# pool dtype -> (kernels-line name, TPU kernel function it replaces), for
+# the decode-step kernel (B3/B4) and the chunk kernel (B5/B6)
+DECODE_LANES = {
+    "float32": ("paged_attention",
+                "paddle_tpu/kernels/paged_attention.py:173"),
+    "bfloat16": ("paged_attention_bf16",
+                 "paddle_tpu/kernels/paged_attention.py:173"),
+    "int8": ("paged_attention_quant_int8",
+             "paddle_tpu/kernels/paged_attention.py:213"),
+    "fp8-e4m3": ("paged_attention_quant_fp8",
+                 "paddle_tpu/kernels/paged_attention.py:213"),
+}
+CHUNK_LANES = {
+    "float32": ("paged_attention_chunk",
+                "paddle_tpu/kernels/paged_attention.py:564"),
+    "bfloat16": ("paged_attention_chunk_bf16",
+                 "paddle_tpu/kernels/paged_attention.py:564"),
+    "int8": ("paged_attention_chunk_quant_int8",
+             "paddle_tpu/kernels/paged_attention.py:603"),
+    "fp8-e4m3": ("paged_attention_chunk_quant_fp8",
+                 "paddle_tpu/kernels/paged_attention.py:603"),
+}
+# the whole-mode prefill shapes: (rung G, prefix-hit start, true length)
+CHUNK_SHAPES = ((384, 0, 370), (256, 128, 250))
+
+
+def _pools_for(dev, dtype, N, H, B, d, seed=0):
+    """float32 pools (randn) or ``_quant_pools``: ``(k, v, ks, vs)``."""
+    if dtype == "float32":
+        g = torch.Generator(device=dev).manual_seed(200 + seed)
+        return [torch.randn((N, H, B, d), generator=g, device=dev)
+                for _ in range(2)] + [None, None]
+    return _quant_pools(dev, dtype, N, H, B, d, seed)
+
+
+def _dense_kv(k, v, ks, vs, tables):
+    """The library yardstick's input: every row's table gathered into a
+    dense [rows, H, P*B, d] K and V (dequantized), outside the timing."""
+    gather = tables.long()
+    kd, vd = k[gather].float(), v[gather].float()
+    if ks is not None:
+        kd = kd * ks[gather][:, :, :, None, None]
+        vd = vd * vs[gather][:, :, :, None, None]
+    R, P, H, B, d = kd.shape
+    return (kd.permute(0, 2, 1, 3, 4).reshape(R, H, P * B, d),
+            vd.permute(0, 2, 1, 3, 4).reshape(R, H, P * B, d))
+
+
+def _lane_record(name, replaces, source, err, kernel_ms, plain_ms,
+                 library_ms, bound, extra):
+    return dict({"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "max_abs_err": err, "ms": kernel_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound[0],
+                 "bound_by": bound[1], "library_ms": library_ms}, **extra)
+
+
+def check_decode_attention(pa, dev, flush, shape, dtype):
+    """Phase 3c: the decode-step kernel (B3, B4 on 1-byte pools) against
+    its plain version at the decode shape: 16 slots, ragged contexts
+    including 0, 1, block edges and the full 512-key table."""
+    S, H, d, B, P, N = (shape[k] for k in "SHdBPN")
+    g = torch.Generator(device=dev).manual_seed(4)
+    rng = np.random.default_rng(4)
+    q = torch.randn((S, H, d), generator=g, device=dev)
+    k, v, ks, vs = _pools_for(dev, dtype, N, H, B, d, seed=4)
+    tables_np = rng.integers(0, N, (S, P)).astype(np.int32)
+    lens_np = rng.integers(1, P * B + 1, S).astype(np.int32)
+    lens_np[:7] = [0, 1, B - 1, B, B + 1, 2 * B, P * B]
+    tables, lens = (torch.from_numpy(a).to(dev)
+                    for a in (tables_np, lens_np))
+    kw = {} if ks is None else {"k_scale": ks, "v_scale": vs}
+    args = (q, k, v, tables, lens)
+    got = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_reference(*args, **kw)
+    err = float((got - want).abs().max())
+    name, replaces = DECODE_LANES[dtype]
+    _check(err <= ATTN_TOL, f"{name} max_abs_err {err}")
+    _check(not got[lens == 0].any(), "ctx 0 slots must be exact zeros")
+    kernel_ms = _time_ms(lambda: pa.paged_attention(*args, **kw), flush)
+    plain_ms = _time_ms(lambda: pa.paged_attention_reference(*args, **kw),
+                        flush)
+    kd, vd = _dense_kv(k, v, ks, vs, tables)
+    mask = (torch.arange(P * B, device=dev)[None, :]
+            < lens.clamp(min=1)[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = _time_ms(lambda: sdpa(q[:, :, None], kd, vd,
+                                       attn_mask=mask), flush)
+    bound = _attention_bound(tables_np, np.arange(S), lens_np, H, d, B, P,
+                             elem_bytes=k.element_size(),
+                             scaled=ks is not None, n_index=1)
+    # the chunk kernel at one row per slot against this kernel
+    one = pa.paged_attention_chunk(q[:, None].contiguous(), k, v, tables,
+                                   lens[:, None].contiguous(), **kw)
+    torch.cuda.synchronize()
+    g1_err = float((one[:, 0] - got).abs().max())
+    _check(g1_err <= ATTN_TOL, f"chunk kernel at G=1 vs {name}: {g1_err}")
+    return _lane_record(
+        name, replaces, "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+        err, kernel_ms, plain_ms, library_ms, bound,
+        {"chunk_g1_vs_decode_max_abs_err": g1_err,
+         "shape": dict(S=S, H=H, d=d, B=B, P=P, N=N, dtype=dtype)})
+
+
+def check_chunk_attention(pa, dev, flush, shape, dtype):
+    """Phase 3c: the chunk kernel (B5, B6 on 1-byte pools) against its
+    plain version at the whole-mode prefill shapes of ``CHUNK_SHAPES``
+    (one slot, rung G rows, the last G - true_len of them padding with
+    context 0). The record's times are the rung-384 shape's; the
+    rung-256 prefix-hit shape's are under ``at_prefix_hit``."""
+    H, d, B, P, N = (shape[k] for k in "HdBPN")
+    name, replaces = CHUNK_LANES[dtype]
+    k, v, ks, vs = _pools_for(dev, dtype, N, H, B, d, seed=5)
+    kw = {} if ks is None else {"k_scale": ks, "v_scale": vs}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    recs = []
+    for G, start, true_len in CHUNK_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(G)
+        rng = np.random.default_rng(G)
+        q = torch.randn((1, G, H, d), generator=g, device=dev)
+        tables_np = rng.permutation(N)[:P].astype(np.int32)[None]
+        ctx_np = np.zeros((1, G), np.int32)
+        ctx_np[0, :true_len] = start + np.arange(true_len) + 1
+        tables, ctx = (torch.from_numpy(a).to(dev)
+                       for a in (tables_np, ctx_np))
+        args = (q, k, v, tables, ctx)
+        got = pa.paged_attention_chunk(*args, **kw)
+        torch.cuda.synchronize()
+        want = pa.paged_attention_chunk_reference(*args, **kw)
+        err = float((got - want).abs().max())
+        _check(err <= ATTN_TOL, f"{name} G={G} max_abs_err {err}")
+        _check(not got[ctx == 0].any(), "padding rows must be exact zeros")
+        kernel_ms = _time_ms(lambda: pa.paged_attention_chunk(*args, **kw),
+                             flush)
+        plain_ms = _time_ms(
+            lambda: pa.paged_attention_chunk_reference(*args, **kw), flush,
+            reps=5)
+        kd, vd = _dense_kv(k, v, ks, vs, tables)
+        # the causal offset mask: row g sees keys < ctx[g] (padding rows
+        # are let see key 0 to stay finite)
+        mask = (torch.arange(P * B, device=dev)[None, None, :]
+                < ctx.clamp(min=1)[:, :, None])[:, None]
+        qh = q.permute(0, 2, 1, 3)                     # [1, H, G, d]
+        library_ms = _time_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask),
+                              flush)
+        bound = _attention_bound(tables_np, np.zeros(G, np.int64),
+                                 ctx_np[0], H, d, B, P,
+                                 elem_bytes=k.element_size(),
+                                 scaled=ks is not None, n_index=1)
+        recs.append(_lane_record(
+            name, replaces,
+            "paddle_tpu_torch/kernels/csrc/paged_attention_chunk.cu", err,
+            kernel_ms, plain_ms, library_ms, bound,
+            {"shape": dict(S=1, G=G, start=start, true_len=true_len, H=H,
+                           d=d, B=B, P=P, N=N, dtype=dtype)}))
+    rec = recs[0]
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in recs)
+    rec["at_prefix_hit"] = {k_: recs[1][k_] for k_ in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "shape")}
+    return rec
 
 
 def _qmm_library(lane, x, wq, ws, sx):
@@ -441,6 +625,118 @@ def check_quant_mixed_step(dm, make_pools, cfg, qparams, kv, cal, rows,
     return rec
 
 
+def _whole_script(cfg, kv, slots_n, dev, seed=3):
+    """The whole-mode calls at full width: request A's rung-384 prefill
+    (370 real tokens) into slot 0, request B's rung-256 prefill (250
+    tail tokens) into slot 1 after a 128-token prefix hit on A's first
+    eight blocks, then one decode step over 16 slots with ragged
+    contexts 1-512 (slot 2 inactive) whose earlier pages read A's
+    blocks. Every array is on the card before any call."""
+    rng = np.random.default_rng(seed)
+    P = kv.blocks_for(cfg.max_seq_len)
+    tables = rng.integers(1200, kv.num_blocks, (slots_n, P)).astype(
+        np.int32)                                 # stale past each need
+    tables[0, :24] = np.arange(10, 34)
+    tables[1, :8] = tables[0, :8]                 # the prefix hit
+    tables[1, 8:24] = np.arange(100, 116)
+    lens = np.array([370, 378, 0, 1, 15, 16, 17, 100, 200, 255, 256, 300,
+                     383, 400, 480, 511], np.int32)[:slots_n]
+    for s in range(2, slots_n):
+        own = int(lens[s]) // kv.block_size       # the page it writes
+        tables[s, :own] = np.resize(np.arange(10, 34), own)
+        tables[s, own] = 300 + s
+    active = lens > 0
+    prompt = rng.integers(1, cfg.vocab_size, 400).astype(np.int32)
+    pa_ = np.zeros(384, np.int32)
+    pa_[:370] = prompt[:370]
+    pb = np.zeros(256, np.int32)
+    pb[:250] = prompt[128:378]
+    toks = rng.integers(1, cfg.vocab_size, slots_n).astype(np.int32)
+
+    def dev_(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return {"prefills": [(dev_(pa_), 370, 0, dev_(tables[0])),
+                         (dev_(pb), 250, 128, dev_(tables[1]))],
+            "decode": (dev_(toks), dev_(tables), dev_(lens),
+                       dev_(active)),
+            "active": active}
+
+
+def _run_whole(dm, make_pools, cfg, params, kv, script, cal):
+    """The script with the kernels (under sync-debug "error") and with
+    the plain versions, each from fresh zero pools. Returns, per run,
+    the logits of every real row ([2 + active slots, vocab]) and the
+    pools."""
+    results = []
+    for impl in (None, "reference"):
+        k_pool, v_pool = make_pools(kv, None, *cal)
+        rows = []
+        torch.cuda.set_sync_debug_mode("error" if impl is None else 0)
+        try:
+            for toks, true_len, start, row in script["prefills"]:
+                lg, _, _ = dm.prefill(cfg, params, k_pool, v_pool, toks,
+                                      true_len, start, row, attn_impl=impl,
+                                      write_limit=cfg.max_seq_len)
+                rows.append(lg[None])
+            toks, tables, lens, active = script["decode"]
+            lg, _, _ = dm.decode_step(cfg, params, k_pool, v_pool, toks,
+                                      tables, lens, active, attn_impl=impl)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        rows.append(lg[active])        # a mask select reads back: after
+        results.append((torch.cat(rows), k_pool, v_pool))
+    return results
+
+
+def check_whole_steps(dm, make_pools, cfg, params, kv, slots_n):
+    """Phase 4c: the full-width whole-mode calls with the kernels (B3,
+    B5) against the plain versions, from the same zero pools: fp32
+    logits within LOGIT_TOL and the pools within ATTN_TOL."""
+    script = _whole_script(cfg, kv, slots_n, params["embed"].device)
+    (lk, kk, vk), (lr, kr, vr) = _run_whole(dm, make_pools, cfg, params,
+                                            kv, script, (None, None))
+    _check(bool(torch.isfinite(lk).all()), "non-finite whole-mode logits")
+    err = float((lk - lr).abs().max())
+    pool_err = max(float((kk - kr).abs().max()),
+                   float((vk - vr).abs().max()))
+    _check(err <= LOGIT_TOL, f"whole-mode logits differ by {err}")
+    _check(pool_err <= ATTN_TOL, f"whole-mode pools differ by {pool_err}")
+    return {"logits_max_abs_err": err, "pool_max_abs_err": pool_err,
+            "argmax_agreement": float(
+                (lk.argmax(-1) == lr.argmax(-1)).float().mean()),
+            "rows": int(lk.shape[0])}, lr, script
+
+
+def check_quant_whole_steps(dm, make_pools, cfg, qparams, kv, cal, script,
+                            fp32_logits):
+    """Phase 4c: the same calls with int8 KV and int8 weights (B4, B6,
+    B7) against their plain versions from the same zero pools under one
+    calibration, with phase 4b's gates: layer 0's payloads equal byte for
+    byte, every scale equal, and the kernel path's error against the
+    fp32 calls at most QUANT_ERR_RATIO x the plain path's (+ 1e-3)."""
+    (lk, kk, vk), (lr, kr, vr) = _run_whole(dm, make_pools, cfg, qparams,
+                                            kv, script, cal)
+    _check(bool(torch.isfinite(lk).all()), "non-finite quantized logits")
+    err_k = float((lk - fp32_logits).abs().max())
+    err_r = float((lr - fp32_logits).abs().max())
+    rec = {"logits_max_abs_err": float((lk - lr).abs().max()),
+           "kernel_err_vs_fp32": err_k, "plain_err_vs_fp32": err_r,
+           "err_ratio_limit": QUANT_ERR_RATIO,
+           "argmax_agreement": float(
+               (lk.argmax(-1) == lr.argmax(-1)).float().mean()),
+           "rows": int(lk.shape[0])}
+    for name, a, b in (("k", kk, kr), ("v", vk, vr)):
+        diff = (a[0].int() - b[0].int()).abs().reshape(cfg.n_layers, -1)
+        rec[f"{name}_quanta_apart_max_per_layer"] = diff.amax(1).tolist()
+        _check(not diff[0].any(), f"whole: layer 0 {name} payloads differ")
+        _check(torch.equal(a[1], b[1]), f"whole: {name} scales differ")
+    _check(err_k <= QUANT_ERR_RATIO * err_r + 1e-3,
+           f"quantized whole calls: kernel path error vs fp32 {err_k} > "
+           f"{QUANT_ERR_RATIO} x the plain path's {err_r}")
+    return rec
+
+
 def profile_steps(dm, make_pools, cfg, params, kv, rows, slots_n,
                   n_steps=8, cal=(None, None), key="profile"):
     """Phase 6: where a full-width mixed step's time goes. Runs
@@ -448,8 +744,6 @@ def profile_steps(dm, make_pools, cfg, params, kv, rows, slots_n,
     ``torch.profiler`` and returns host wall ms per step, device-busy
     ms per step (the sum of the card's kernel and copy times), the
     idle share, and the costliest device ops."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(2)
     pages = kv.blocks_for(cfg.max_seq_len)
     tables = np.arange(slots_n * pages, dtype=np.int32).reshape(
@@ -471,14 +765,27 @@ def profile_steps(dm, make_pools, cfg, params, kv, rows, slots_n,
                                      tables)
         return torch.argmax(logits, dim=-1).cpu()
 
-    for plan in plans[:2]:
-        step(plan)
+    return {key: dict({"rows": rows}, **_profile(
+        [lambda plan=plan: step(plan) for plan in plans]))}
+
+
+def _profile(calls):
+    """Run ``calls[:2]`` to warm up, then the rest under
+    ``torch.profiler``: host wall ms per call, device-busy ms per call
+    (the sum of the card's kernel and copy times), the idle share, the
+    device ops and device-to-host copies per call and the costliest
+    device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for call in calls[:2]:
+        call()
     torch.cuda.synchronize()
+    n_steps = len(calls) - 2
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for plan in plans[2:]:
-            step(plan)
+        for call in calls[2:]:
+            call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     by_name = {}
@@ -488,8 +795,8 @@ def profile_steps(dm, make_pools, cfg, params, kv, rows, slots_n,
                                + e.time_range.elapsed_us() / 1e3)
     busy_ms = sum(by_name.values()) / n_steps
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
-    return {key: {
-        "rows": rows, "steps": n_steps, "wall_ms_per_step": wall_ms,
+    return {
+        "steps": n_steps, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms or None,
         "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
         else None,
@@ -500,7 +807,49 @@ def profile_steps(dm, make_pools, cfg, params, kv, rows, slots_n,
             1 for e in prof.events() if e.device_type == DeviceType.CUDA
             and "DtoH" in e.name) / n_steps,
         "top_device_ms_per_step": [[n[:60], ms / n_steps]
-                                   for n, ms in top]}}
+                                   for n, ms in top]}
+
+
+def profile_whole(dm, make_pools, cfg, params, kv, slots_n, n_steps=8):
+    """Where the whole-mode time goes: ``n_steps`` decode steps over 16
+    active slots (contexts 200+), then ``n_steps`` rung-384 prefills
+    (370 real tokens, each into its own blocks), each call ending in the
+    engine's small read-back."""
+    rng = np.random.default_rng(6)
+    dev = params["embed"].device
+    pages = kv.blocks_for(cfg.max_seq_len)
+    tables = torch.from_numpy(np.arange(slots_n * pages, dtype=np.int32)
+                              .reshape(slots_n, pages)).to(dev)
+    k_pool, v_pool = make_pools(kv, None)
+    active = torch.ones(slots_n, dtype=torch.bool, device=dev)
+    dec = [(torch.from_numpy(rng.integers(1, cfg.vocab_size, slots_n)
+                             .astype(np.int32)).to(dev),
+            torch.full((slots_n,), 200 + i, dtype=torch.int32, device=dev))
+           for i in range(n_steps + 2)]
+    pre = []
+    for i in range(n_steps + 2):
+        toks = np.zeros(384, np.int32)
+        toks[:370] = rng.integers(1, cfg.vocab_size, 370)
+        row = (slots_n * pages + 24 * i + np.arange(pages)).astype(
+            np.int32) % kv.num_blocks
+        pre.append((torch.from_numpy(toks).to(dev),
+                    torch.from_numpy(row).to(dev)))
+
+    def decode(toks, lens):
+        lg, _, _ = dm.decode_step(cfg, params, k_pool, v_pool, toks,
+                                  tables, lens, active)
+        return torch.argmax(lg, dim=-1).cpu()
+
+    def prefill(toks, row):
+        lg, _, _ = dm.prefill(cfg, params, k_pool, v_pool, toks, 370, 0,
+                              row)
+        return torch.argmax(lg).cpu()
+
+    return {"profile_whole": {
+        "decode_step": dict({"slots": slots_n}, **_profile(
+            [lambda a=a: decode(*a) for a in dec])),
+        "prefill_384": dict({"rung": 384, "true_len": 370}, **_profile(
+            [lambda a=a: prefill(*a) for a in pre]))}}
 
 
 def _requests(cfg, n_requests=48, seed=0):
@@ -520,12 +869,15 @@ def _requests(cfg, n_requests=48, seed=0):
 
 
 def serve(DecodeEngine, kernels, cfg, params, n_requests=48, seed=0,
-          key="serve", engine_kw=None, n_serve=None, reference=None):
-    """Phase 5 (and 5b): a main path. ``engine_kw`` adds the engine's
-    KV dtype / quant plan; ``n_serve`` serves only the first requests
-    of the burst; ``reference`` (token lists of another run) is
-    compared, not gated. Returns the serve record, the launch counts of
-    the run and the generated tokens."""
+          key="serve", engine_kw=None, n_serve=None, reference=None,
+          solo_index=1):
+    """Phase 5 (and 5b, 5c): a main path. ``engine_kw`` adds the
+    engine's KV dtype / quant plan / prefill mode / admission;
+    ``n_serve`` serves only the first requests of the burst;
+    ``reference`` (token lists of other runs, by name) is compared, not
+    gated; request ``solo_index`` (None: none) served solo on a fresh
+    engine must give the same tokens. Returns the serve record, the
+    launch counts of the run and the generated tokens."""
     prompts, max_new = _requests(cfg, n_requests, seed)
     prompts, max_new = prompts[:n_serve], max_new[:n_serve]
     kw = dict(block_size=16, num_blocks=2048, max_slots=16, eos_id=0,
@@ -543,13 +895,24 @@ def serve(DecodeEngine, kernels, cfg, params, n_requests=48, seed=0,
     for r, m in zip(results, max_new):
         _check(1 <= len(r.tokens) <= m, f"{len(r.tokens)} tokens, max {m}")
     steps = int(st["steps_total"])
+    prefills = int(st["prefills_total"])
     L = cfg.n_layers
     quant_kv = eng.kv.quantized
-    want = {"paged_attention_mixed": 0 if quant_kv else L * steps,
-            "paged_attention_mixed_quant": L * steps if quant_kv else 0,
-            "quant_matmul": 4 * L * steps if eng.quant_plan else 0}
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    if eng.prefill_mode == "chunked":     # one mixed step per turn
+        want["paged_attention_mixed_quant" if quant_kv
+             else "paged_attention_mixed"] = L * steps
+        dense_calls = steps
+    else:             # decode steps, plus one prefill per admission
+        want["paged_attention_quant" if quant_kv
+             else "paged_attention"] = L * steps
+        want["paged_attention_chunk_quant" if quant_kv
+             else "paged_attention_chunk"] = L * prefills
+        dense_calls = steps + prefills
+    if eng.quant_plan:
+        want["quant_matmul"] = 4 * L * dense_calls
     _check(launches == want, f"{key}: launches {launches} over {steps} "
-           f"mixed steps, want {want}")
+           f"steps and {prefills} prefills, want {want}")
     if len(prompts) > kw["max_slots"]:   # some wait while the prefix lands
         _check(st["prefix"]["hit_tokens"] > 0, "the shared prefix never hit")
     eng.pool.assert_consistent()
@@ -558,14 +921,15 @@ def serve(DecodeEngine, kernels, cfg, params, n_requests=48, seed=0,
            f"leaked blocks: {eng.pool.check_leaks()}")
     hbm_bytes = eng.kv.hbm_bytes
     del eng
-    # one request served solo, on a fresh engine, gives the same tokens
-    j = 1
-    solo_eng = DecodeEngine(cfg, params, **kw)
-    solo = solo_eng.generate(prompts[j], max_new[j], timeout=600)
-    solo_eng.close()
-    del solo_eng
-    _check(solo.tokens.tolist() == results[j].tokens.tolist(),
-           f"{key}: solo and batched greedy tokens differ")
+    if solo_index is not None:
+        # one request served solo, on a fresh engine: the same tokens
+        j = solo_index
+        solo_eng = DecodeEngine(cfg, params, **kw)
+        solo = solo_eng.generate(prompts[j], max_new[j], timeout=600)
+        solo_eng.close()
+        del solo_eng
+        _check(solo.tokens.tolist() == results[j].tokens.tolist(),
+               f"{key}: solo and batched greedy tokens differ")
     tokens = [r.tokens.tolist() for r in results]
     n_tok = int(sum(len(t) for t in tokens))
     rec = {
@@ -574,21 +938,39 @@ def serve(DecodeEngine, kernels, cfg, params, n_requests=48, seed=0,
         "wall_s": wall, "tokens_per_s": n_tok / wall,
         "ttft_ms_p50": st["ttft_ms_p50"], "ttft_ms_p99": st["ttft_ms_p99"],
         "tpot_ms_p50": st["tpot_ms_p50"],
-        "mixed_steps": steps, "step_ms_p50": st["step_ms_p50"],
-        "mixed_rows": st["chunked_prefill"]["mixed_rows"],
+        "steps": steps, "prefills": prefills,
+        "step_ms_p50": st["step_ms_p50"],
+        "prefill_mode": st["prefill_mode"], "admission": st["admission"],
         "prefix_hit_rate": st["prefix"]["hit_rate"],
         "preempted": st["preempted_total"],
         "kv_high_water_blocks": st["kv"]["high_water"],
-        "solo_equals_batched": True,
+        "solo_equals_batched": solo_index is not None or None,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if st["prefill_mode"] == "chunked":
+        rec["mixed_rows"] = st["chunked_prefill"]["mixed_rows"]
+    else:
+        rec["prompt_rungs"] = st["prompt_rungs"]
     if engine_kw:
         rec.update({"kv_dtype": st["quant"]["kv_dtype"],
                     "weights_quantized": st["quant"]["weights_quantized"],
                     "kv_hbm_bytes": hbm_bytes, "launches": launches})
-    if reference is not None:
-        rec["greedy_equal_share_vs_fp32"] = float(np.mean(
-            [a == b for a, b in zip(tokens, reference)]))
+    for name, ref in (reference or {}).items():
+        rec[f"greedy_equal_share_vs_{name}"] = float(np.mean(
+            [a == b for a, b in zip(tokens, ref)]))
     return {key: rec}, launches, tokens
+
+
+def solo_tokens(DecodeEngine, cfg, params, indices, engine_kw,
+                n_requests=48, seed=0):
+    """The burst's requests ``indices`` served one at a time on one
+    fresh engine (each alone in the engine while it runs)."""
+    prompts, max_new = _requests(cfg, n_requests, seed)
+    eng = DecodeEngine(cfg, params, block_size=16, num_blocks=2048,
+                       max_slots=16, eos_id=0, **engine_kw)
+    out = {j: eng.generate(prompts[j], max_new[j],
+                           timeout=600).tokens.tolist() for j in indices}
+    eng.close()
+    return out
 
 
 def main():
@@ -646,7 +1028,17 @@ def main():
              f"{qrecs[lane]['max_abs_err']:.3e} (<= {QMM_TOL[lane]} of "
              f"max|out| per shape, and within quant_matmul_error_bound); "
              f"library: {qrecs[lane]['library_note']}")
+    # 3c: the decode-step kernel (B3/B4) and the chunk kernel (B5/B6)
+    dlanes, clanes = {}, {}
+    for dtype in ("float32", "bfloat16", "int8", "fp8-e4m3"):
+        dlanes[dtype] = check_decode_attention(pa, dev, flush, shape, dtype)
+        clanes[dtype] = check_chunk_attention(pa, dev, flush, shape, dtype)
+        for rec in (dlanes[dtype], clanes[dtype]):
+            _say(f"kernel check: {rec['name']} max_abs_err "
+                 f"{rec['max_abs_err']:.3e} <= {ATTN_TOL}")
+    kernels.reset_launches()
     del flush
+    _say(f"kernel phases done at {time.perf_counter() - t0:.1f} s")
 
     params = init_params(cfg, seed=0)
     mrec, fp32_logits = check_mixed_step(dm, make_pools, cfg, params, kv,
@@ -658,7 +1050,15 @@ def main():
     mqrec = check_quant_mixed_step(dm, make_pools, cfg, qparams, kv8, cal,
                                    shape["T"], max_slots, fp32_logits)
     _say("quant mixed_step check: " + json.dumps(mqrec))
-    del qparams, fp32_logits
+    # 4c: the whole-mode calls, fp32 and int8 KV + int8 weights
+    wrec, fp32_whole, script = check_whole_steps(dm, make_pools, cfg,
+                                                 params, kv, max_slots)
+    _say("whole-mode steps check: " + json.dumps(wrec))
+    wqrec = check_quant_whole_steps(dm, make_pools, cfg, qparams, kv8, cal,
+                                    script, fp32_whole)
+    _say("quant whole-mode steps check: " + json.dumps(wqrec))
+    del qparams, fp32_logits, fp32_whole, script
+    _say(f"step phases done at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -671,16 +1071,16 @@ def main():
     # the slice's main path: int8 KV + int8 weights, the same 48 requests
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    sqrec, qlaunch, _ = serve(
+    sqrec, qlaunch, q_tokens = serve(
         DecodeEngine, kernels, cfg, params, key="serve_quant",
         engine_kw=dict(kv_config=kv8, quant_plan="int8"),
-        reference=fp32_tokens)
+        reference={"fp32": fp32_tokens})
     lanes["int8"]["launches"] = qlaunch["paged_attention_mixed_quant"]
     qrecs["int8"]["launches"] = qlaunch["quant_matmul"]
     # short runs: fp8 KV + fp8 weights, and bf16 KV with fp32 weights
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    s8rec, f8launch, _ = serve(
+    s8rec, f8launch, f8_tokens = serve(
         DecodeEngine, kernels, cfg, params, key="serve_fp8", n_serve=16,
         engine_kw=dict(kv_config=cfg.kv_config(16, 2048, "fp8-e4m3"),
                        quant_plan="fp8-e4m3"))
@@ -688,7 +1088,7 @@ def main():
     qrecs["fp8-e4m3"]["launches"] = f8launch["quant_matmul"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    sbrec, bflaunch, _ = serve(
+    sbrec, bflaunch, bf_tokens = serve(
         DecodeEngine, kernels, cfg, params, key="serve_bf16", n_serve=16,
         engine_kw=dict(kv_config=cfg.kv_config(16, 2048, "bfloat16")))
     lanes["bfloat16"]["launches"] = bflaunch["paged_attention_mixed"]
@@ -697,15 +1097,73 @@ def main():
     pqrec = profile_steps(dm, make_pools, cfg, qparams, kv8, shape["T"],
                           max_slots, cal=cal, key="profile_quant")
     del qparams
+    _say(f"chunked serving phases done at {time.perf_counter() - t0:.1f} s")
+
+    # 5c: the slice's main paths, whole-prompt prefill
+    rungs = (16, 32, 64, 128, 256, 384)
+    whole = dict(prefill_mode="whole", prompt_rungs=rungs)
+    whole_runs = {}
+    # (key, engine options, requests, the chunked run of the same pool
+    # and weights)
+    for key, kw, n_serve, chunked in (
+            ("serve_whole", {}, None, fp32_tokens),
+            ("serve_whole_static", dict(admission="static"), None,
+             fp32_tokens),
+            ("serve_whole_quant", dict(kv_config=kv8, quant_plan="int8"),
+             None, q_tokens),
+            ("serve_whole_fp8",
+             dict(kv_config=cfg.kv_config(16, 2048, "fp8-e4m3"),
+                  quant_plan="fp8-e4m3"), 16, f8_tokens),
+            ("serve_whole_bf16",
+             dict(kv_config=cfg.kv_config(16, 2048, "bfloat16")), 16,
+             bf_tokens)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        refs = {"chunked": chunked}
+        if "serve_whole" in whole_runs:
+            refs["whole_fp32"] = whole_runs["serve_whole"][2]
+        whole_runs[key] = serve(DecodeEngine, kernels, cfg, params,
+                                key=key, engine_kw=dict(whole, **kw),
+                                n_serve=n_serve, reference=refs,
+                                solo_index=None)
+    # requests without the shared prefix (even index): the same greedy
+    # tokens continuous, static and served solo
+    even = list(range(0, 48, 2))
+    solo = solo_tokens(DecodeEngine, cfg, params, even, whole)
+    cont = whole_runs["serve_whole"][2]
+    stat = whole_runs["serve_whole_static"][2]
+    for j in even:
+        _check(cont[j] == stat[j] == solo[j],
+               f"request {j}: whole continuous / static / solo tokens "
+               "differ")
+    for key in ("serve_whole", "serve_whole_static"):
+        whole_runs[key][0][key]["no_prefix_equal_solo_and_across"] = \
+            len(even)
+    for dtype, key in (("float32", "serve_whole"),
+                       ("int8", "serve_whole_quant"),
+                       ("fp8-e4m3", "serve_whole_fp8"),
+                       ("bfloat16", "serve_whole_bf16")):
+        launch = whole_runs[key][1]
+        sfx = "_quant" if dtype in ("int8", "fp8-e4m3") else ""
+        dlanes[dtype]["launches"] = launch["paged_attention" + sfx]
+        clanes[dtype]["launches"] = launch["paged_attention_chunk" + sfx]
+    torch.cuda.synchronize()
+    pwrec = profile_whole(dm, make_pools, cfg, params, kv, max_slots)
+    _say(f"whole serving phases done at {time.perf_counter() - t0:.1f} s")
 
     _say(json.dumps(prec))
     _say(json.dumps(pqrec))
-    _say(json.dumps({"kernels": [krec, lanes["bfloat16"], lanes["int8"],
-                                 lanes["fp8-e4m3"], qrecs["int8"],
-                                 qrecs["fp8-e4m3"]]}))
+    _say(json.dumps(pwrec))
+    _say(json.dumps({"kernels": [
+        krec, lanes["bfloat16"], lanes["int8"], lanes["fp8-e4m3"],
+        *(dlanes[d] for d in ("float32", "bfloat16", "int8", "fp8-e4m3")),
+        *(clanes[d] for d in ("float32", "bfloat16", "int8", "fp8-e4m3")),
+        qrecs["int8"], qrecs["fp8-e4m3"]]}))
     _say(json.dumps(srec))
     for rec in (sqrec, s8rec, sbrec):
         _say(json.dumps(rec))
+    for key in whole_runs:
+        _say(json.dumps(whole_runs[key][0]))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

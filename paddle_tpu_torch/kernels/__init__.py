@@ -11,6 +11,10 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"paged_attention_mixed": 0,
                             "paged_attention_mixed_quant": 0,
+                            "paged_attention": 0,
+                            "paged_attention_quant": 0,
+                            "paged_attention_chunk": 0,
+                            "paged_attention_chunk_quant": 0,
                             "quant_matmul": 0}
 
 
@@ -20,12 +24,16 @@ def reset_launches() -> None:
 
 
 from paddle_tpu_torch.kernels.paged_attention import (  # noqa: E402
-    NEG_INF, paged_attention_mixed, paged_attention_mixed_reference,
+    NEG_INF, paged_attention_chunk, paged_attention_chunk_reference,
+    paged_attention_mixed, paged_attention_mixed_reference,
     paged_attention_reference)
-# ``kernels.quant_matmul`` is the module (its function has the same
-# name, so it is not re-exported here)
+# ``kernels.paged_attention`` and ``kernels.quant_matmul`` are the
+# modules (each has a function of the same name, so those two functions
+# are not re-exported here)
+from paddle_tpu_torch.kernels import paged_attention  # noqa: E402
 from paddle_tpu_torch.kernels import quant_matmul  # noqa: E402
 
-__all__ = ["LAUNCHES", "NEG_INF", "paged_attention_mixed",
-           "paged_attention_mixed_reference", "paged_attention_reference",
-           "quant_matmul", "reset_launches"]
+__all__ = ["LAUNCHES", "NEG_INF", "paged_attention",
+           "paged_attention_chunk", "paged_attention_chunk_reference",
+           "paged_attention_mixed", "paged_attention_mixed_reference",
+           "paged_attention_reference", "quant_matmul", "reset_launches"]

@@ -1,10 +1,13 @@
 """Generative serving on the card.
 
-``DecodeEngine`` is the chunked-prefill, continuous-batching engine
-over a block-paged KV cache (``KVCacheConfig``/``BlockPool``): every
-turn is one ``mixed_step`` that carries every decoding slot's next
-token and a budget of prompt-chunk tokens, through the hand-written
-paged-attention kernel. Quantized serving (int8/fp8-e4m3 KV pools and
+``DecodeEngine`` is the continuous-batching engine over a block-paged
+KV cache (``KVCacheConfig``/``BlockPool``). In chunked-prefill mode
+(the default) every turn is one ``mixed_step`` that carries every
+decoding slot's next token and a budget of prompt-chunk tokens; in
+whole-prompt mode admission runs one ``prefill`` per prompt and every
+turn is one ``decode_step``; ``admission="static"`` is the synchronous
+baseline. Attention runs through the hand-written paged-attention
+kernels (mixed, decode and chunk forms). Quantized serving (int8/fp8-e4m3 KV pools and
 projection weights, bfloat16 pools) rides the same step, through the
 hand-written quantized matmul and the paged-attention kernel's
 quantized lane. See the JAX package's ``docs/serving.md`` for the
@@ -15,8 +18,8 @@ from paddle_tpu_torch.serving.decode_engine import (DecodeEngine,
                                                     DecodeRequest,
                                                     DecodeResult)
 from paddle_tpu_torch.serving.decode_model import (
-    DecoderConfig, dense_prefill, init_params, mixed_step, param_bytes,
-    quantize_decoder_params)
+    DecoderConfig, decode_chunk, decode_step, dense_prefill, init_params,
+    mixed_step, param_bytes, prefill, quantize_decoder_params)
 from paddle_tpu_torch.serving.kvcache import (BlockPool, KVCacheConfig,
                                               OutOfBlocksError,
                                               chain_block_hashes,
@@ -34,6 +37,8 @@ __all__ = [
     "OutOfBlocksError",
     "ServingOverloadError",
     "chain_block_hashes",
+    "decode_chunk",
+    "decode_step",
     "dense_prefill",
     "init_params",
     "kv_quant_cal",
@@ -41,5 +46,6 @@ __all__ = [
     "make_pools",
     "mixed_step",
     "param_bytes",
+    "prefill",
     "quantize_decoder_params",
 ]

@@ -1,23 +1,36 @@
 """DecodeEngine — continuous-batching autoregressive serving on the card.
 
-The port of the JAX package's ``serving/decode_engine.py`` in its
-chunked configurations: chunked prefill, continuous admission, prefix
-cache on, no speculation, with a float32, bfloat16, int8 or fp8-e4m3 KV
-pool and fp32 or quantized projection weights. An **iteration-level**
-loop (the vLLM/Orca policy) runs on its own thread: every turn retires
-slots that finished, admits waiting requests into free slots, then
-dispatches ONE ``mixed_step`` whose rows are every decoding slot's next
-token plus up to ``prefill_token_budget`` tokens of prompt chunks for
-slots still mid-prefill. Slot ids, positions and validity are data, so
-the step's shapes never change with batch composition, and a request's
-greedy tokens are the same solo or inside a churning batch.
+The port of the JAX package's ``serving/decode_engine.py`` without
+speculation: chunked or whole-prompt prefill, continuous or static
+admission, prefix cache on or off, with a float32, bfloat16, int8 or
+fp8-e4m3 KV pool and fp32 or quantized projection weights. An
+**iteration-level** loop (the vLLM/Orca policy) runs on its own
+thread: every turn retires slots that finished, admits waiting
+requests into free slots, then advances every resident request.
+
+- **Chunked prefill** (``prefill_mode="chunked"``, the default): each
+  turn is ONE ``mixed_step`` whose rows are every decoding slot's next
+  token plus up to ``prefill_token_budget`` tokens of prompt chunks for
+  slots still mid-prefill.
+- **Whole-prompt prefill** (``prefill_mode="whole"``): admission runs
+  one synchronous ``prefill`` of the prompt's cold tail, padded up the
+  ``prompt_rungs`` ladder, which emits the first token; each turn is
+  then ONE ``decode_step`` over every slot.
+- **Static admission** (``admission="static"``): admit only into an
+  idle engine and drain fully (the synchronous baseline).
+
+Slot ids, positions and validity are data, so a step's shapes never
+change with batch composition, and a request's greedy tokens are the
+same solo or inside a churning batch.
 
 - **Prefix cache**: admission content-hashes the prompt's full blocks
   and reacquires published blocks by refcount; only the cold tail is
   prefilled (a hit is capped at ``(len-1)//block_size`` blocks, so at
   least one token always runs and emits the first generated token).
-  Hashes of a prompt's blocks are published only when its prefill
-  completes, so a half-written block is never acquirable.
+  Chunked mode publishes a prompt's block hashes only when its prefill
+  completes, so a half-written block is never acquirable; whole mode
+  publishes them right after the prompt's one prefill dispatch.
+  ``prefix_cache=False`` neither acquires nor publishes.
 - **Preemption**: when the pool runs dry while a context grows, the
   most recently admitted request is freed and requeued at the FRONT of
   the queue; greedy decoding restarts deterministically.
@@ -27,14 +40,14 @@ greedy tokens are the same solo or inside a churning batch.
   prefill probe; ``quant_plan`` sends the projections through the
   quantized matmul kernel.
 
-The step's argmax stays on the device; the one host fence per step is
-reading the per-row tokens back. The pools are updated in place.
+The argmax stays on the device; the one host fence per dispatch is
+reading the tokens back (with the EOS flags in whole mode, as one small
+buffer). The pools are updated in place.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): whole-prompt prefill and static admission (A6.3), speculation
-(A6.4, with its quantized draft pool), CoW beams (A6.5), telemetry
-with the lifecycle ledger and goodput decomposition (A6.6), and the
-compile cache (A6.7).
+item): speculation (A6.4, with its quantized draft pool), CoW beams
+(A6.5), telemetry with the lifecycle ledger and goodput decomposition
+(A6.6), and the compile cache (A6.7).
 
 Metric names are the decode contract of the JAX package's
 ``docs/serving.md``.
@@ -46,11 +59,12 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.decode import greedy_step
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.obs.metrics import (LATENCY_BUCKETS_MS,
                                           MetricsRegistry)
@@ -103,13 +117,14 @@ class DecodeResult(NamedTuple):
 class DecodeRequest:
     """One queued/in-flight generation."""
 
-    __slots__ = ("prompt", "max_new", "future", "request_id",
+    __slots__ = ("prompt", "max_new", "rung", "future", "request_id",
                  "t_submit", "t_ns", "generated", "t_first", "preempts",
                  "admit_seq")
 
-    def __init__(self, prompt: np.ndarray, max_new: int):
+    def __init__(self, prompt: np.ndarray, max_new: int, rung: int):
         self.prompt = prompt
         self.max_new = int(max_new)
+        self.rung = int(rung)          # prompt rung (0 in chunked mode)
         self.future: Future = Future()
         self.request_id = next(_request_ids)
         self.t_submit = time.perf_counter()
@@ -136,8 +151,14 @@ class DecodeEngine:
     ``block_size`` / ``num_blocks``) sizes the paged pool;
     ``max_slots``: resident requests; ``chunk_size`` (default 4 blocks)
     and ``prefill_token_budget`` (default one chunk) shape the mixed
-    step, which has ``max_slots + prefill_token_budget`` rows. A
-    context may grow to ``min(cfg.max_seq_len, pool capacity)``.
+    step, which has ``max_slots + prefill_token_budget`` rows.
+    ``prefill_mode="whole"`` instead prefills each prompt's cold tail
+    in one dispatch padded to the smallest of ``prompt_rungs`` that
+    holds it (a longer prompt is refused at ``submit``) and decodes
+    with one ``decode_step`` over all slots; ``admission="static"``
+    admits only into an idle engine. ``prefix_cache``: content-hash
+    and share full prompt blocks (default on). A context may grow to
+    ``max_context`` (default ``min(cfg.max_seq_len, pool capacity)``).
 
     Quantized execution: a ``kv_config`` of dtype int8 or fp8-e4m3
     makes the pools ``(payload, scales, cal)`` tuples, with write
@@ -153,7 +174,9 @@ class DecodeEngine:
                  kv_config: Optional[KVCacheConfig] = None,
                  block_size: int = 16, num_blocks: int = 256,
                  max_slots: int = 8,
+                 prompt_rungs: Sequence[int] = (8, 16, 32),
                  max_new_tokens: int = 32,
+                 max_context: Optional[int] = None,
                  eos_id: int = 0,
                  admission: str = "continuous",
                  prefill_mode: str = "chunked",
@@ -163,6 +186,7 @@ class DecodeEngine:
                  compile_cache=None,
                  telemetry=None,
                  seed: int = 0,
+                 prefix_cache: bool = True,
                  draft_cfg: Optional[dm.DecoderConfig] = None,
                  draft_params=None,
                  speculate_k: int = 0,
@@ -170,14 +194,10 @@ class DecodeEngine:
                  kv_calibration=None,
                  device=None,
                  autostart: bool = True):
-        if admission == "static":
-            raise _not_ported('admission="static"', "A6.3")
-        if admission != "continuous":
+        if admission not in ("continuous", "static"):
             raise ValueError(f"admission must be continuous|static, "
                              f"got {admission!r}")
-        if prefill_mode == "whole":
-            raise _not_ported('prefill_mode="whole"', "A6.3")
-        if prefill_mode != "chunked":
+        if prefill_mode not in ("chunked", "whole"):
             raise ValueError(f"prefill_mode must be chunked|whole, "
                              f"got {prefill_mode!r}")
         if speculate_k < 0:
@@ -213,14 +233,24 @@ class DecodeEngine:
             params = dm.quantize_decoder_params(cfg, params, quant_plan)
         self.params = params
         self.max_slots = int(max_slots)
+        self.prompt_rungs = tuple(sorted(int(r) for r in prompt_rungs))
+        if not self.prompt_rungs:
+            raise ValueError("prompt_rungs must be non-empty")
         self.default_max_new = int(max_new_tokens)
-        self.max_context = min(cfg.max_seq_len, self.kv.max_tokens)
+        self.max_context = int(max_context if max_context is not None
+                               else min(cfg.max_seq_len,
+                                        self.kv.max_tokens))
+        if self.max_context > cfg.max_seq_len:
+            raise ValueError(
+                f"max_context {self.max_context} exceeds the model's "
+                f"max_seq_len {cfg.max_seq_len}")
         self.eos_id = int(eos_id)
         self.admission = admission
         self.prefill_mode = prefill_mode
         self.max_queue = int(max_queue)
         # every slot may grow to max_context: the block-table width
         self.max_pages = self.kv.blocks_for(self.max_context)
+        self.prefix_cache = bool(prefix_cache)
 
         # ---- chunked prefill: prompts stream into the mixed step as
         # fixed-size token chunks under a per-step budget. The default
@@ -367,21 +397,84 @@ class DecodeEngine:
         toks = torch.argmax(logits, dim=-1).to(torch.int32)
         return toks.cpu().numpy()
 
+    def _dispatch_decode(self):
+        """Run one whole-mode ``decode_step`` over every slot (tokens,
+        lengths, activity and tables go to the device as ONE int32
+        buffer) and return the fenced ``(next_token [S], done [S])``:
+        the greedy head runs on the device, inactive slots frozen on EOS,
+        and ``done = active & (next == eos)``; the two come back as one
+        [2, S] read, the dispatch's only host fence."""
+        S = self.max_slots
+        buf = torch.from_numpy(np.concatenate([
+            self._tokens, self._seq_lens, self._active.astype(np.int32),
+            self._tables.reshape(-1)]).astype(np.int32)).to(self.device)
+        active = buf[2 * S:3 * S].bool()
+        logits, _, _ = dm.decode_step(
+            self.cfg, self.params, self._k_pool, self._v_pool, buf[:S],
+            buf[3 * S:].view(S, self.max_pages), buf[S:2 * S], active)
+        nxt, _fin = greedy_step(logits, ~active, self.eos_id)
+        done = active & (nxt == self.eos_id)
+        out = torch.stack([nxt, done.to(torch.int32)]).cpu().numpy()
+        return out[0], out[1].astype(bool)
+
+    def _dispatch_prefill(self, padded, tail_len: int, start_len: int,
+                          row):
+        """Run one whole-mode ``prefill`` of a padded prompt tail at
+        absolute position ``start_len`` (the prefix-hit length); the
+        tokens and the table row go to the device as ONE int32 buffer,
+        the lengths stay host ints. Returns the fenced ``(first_token,
+        done)``, read back together (never the [vocab] logits)."""
+        R = padded.shape[0]
+        buf = torch.from_numpy(np.concatenate([padded, row]).astype(
+            np.int32)).to(self.device)
+        logits_last, _, _ = dm.prefill(
+            self.cfg, self.params, self._k_pool, self._v_pool, buf[:R],
+            tail_len, start_len, buf[R:], write_limit=self.max_context)
+        nxt, _fin = greedy_step(
+            logits_last[None, :],
+            torch.zeros((1,), dtype=torch.bool, device=self.device),
+            self.eos_id)
+        out = torch.stack([nxt[0], (nxt[0] == self.eos_id).to(
+            torch.int32)]).cpu().numpy()
+        return int(out[0]), bool(out[1])
+
     # ------------------------------------------------------------ warmup
     def warmup(self) -> int:
-        """Dispatch one all-invalid mixed step before traffic (every
-        K/V write is a no-op, so the pool stays clean). On the card this
-        builds and launches the step's kernels once. Returns the
-        number of mixed-step shapes the engine serves (always 1)."""
-        T = self._mixed_rows
-        zeros = np.zeros((T,), np.int32)
+        """Dispatch every step shape once on inert inputs before traffic
+        (all rows invalid / slots inactive / true_len 0: every K/V write
+        is a no-op, so the pool stays clean). On the card this builds
+        and launches the steps' kernels once. Returns the number of
+        step shapes the engine serves, counted as the JAX engine counts
+        its entries: 1 in chunked mode (the mixed step), ``1 +
+        len(prompt_rungs)`` in whole mode (the decode step and one
+        prefill per rung)."""
         with self._device_lock:
-            self._dispatch_mixed_rows(zeros, zeros, zeros,
-                                      np.zeros((T,), bool), self._tables)
+            if self.prefill_mode == "chunked":
+                T = self._mixed_rows
+                zeros = np.zeros((T,), np.int32)
+                self._dispatch_mixed_rows(zeros, zeros, zeros,
+                                          np.zeros((T,), bool),
+                                          self._tables)
+                n = 1
+            else:
+                self._dispatch_decode()
+                zero_row = np.zeros((self.max_pages,), np.int32)
+                for rung in self.prompt_rungs:
+                    self._dispatch_prefill(np.zeros((rung,), np.int32),
+                                           0, 0, zero_row)
+                n = 1 + len(self.prompt_rungs)
         self._warmed = True
-        return 1
+        return n
 
     # ------------------------------------------------------------- client
+    def _rung_for(self, n: int) -> int:
+        for r in self.prompt_rungs:
+            if n <= r:
+                return r
+        raise ValueError(
+            f"prompt of {n} tokens exceeds the largest prompt rung "
+            f"{self.prompt_rungs[-1]}")
+
     def submit(self, prompt: Sequence[int],
                max_new_tokens: Optional[int] = None) -> Future:
         """Queue one generation; returns a Future resolving to a
@@ -395,6 +488,10 @@ class DecodeEngine:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
+        # chunked mode has no prompt ladder: any prompt that leaves room
+        # to generate within max_context is admissible; rung is 0 there
+        rung = (self._rung_for(prompt.size)
+                if self.prefill_mode == "whole" else 0)
         max_new = int(max_new_tokens if max_new_tokens is not None
                       else self.default_max_new)
         max_new = min(max_new, self.max_context - int(prompt.size))
@@ -408,7 +505,7 @@ class DecodeEngine:
                 f"prompt+max_new needs more KV blocks than the pool "
                 f"holds ({self.kv.num_blocks}); shrink the request or "
                 "grow num_blocks")
-        req = DecodeRequest(prompt, max_new)
+        req = DecodeRequest(prompt, max_new, rung)
         with self._cv:
             if len(self._pending) >= self.max_queue:
                 self._rejected.inc()
@@ -459,7 +556,10 @@ class DecodeEngine:
                 with self._device_lock:
                     self._admit()
                     if any(self._active):
-                        self._iterate_chunked()
+                        if self.prefill_mode == "chunked":
+                            self._iterate_chunked()
+                        else:
+                            self._iterate_whole()
             except Exception as exc:   # fail loudly into the futures
                 self._fail_all(exc)
 
@@ -489,8 +589,12 @@ class DecodeEngine:
         return None
 
     def _admit(self):
-        """FIFO admission: admit while a slot AND the prompt's blocks
-        are available — never skipping ahead past the queue head."""
+        """FIFO admission. Continuous: admit while a slot AND the
+        prompt's blocks are available — never skipping ahead past the
+        queue head. Static: only into an idle engine (the synchronous
+        baseline)."""
+        if self.admission == "static" and any(self._active):
+            return
         while True:
             with self._cv:
                 if not self._pending:
@@ -506,8 +610,9 @@ class DecodeEngine:
 
     def _admit_into(self, r: DecodeRequest, slot: int):
         """Admit ``r`` into ``slot``: prefix-cache acquire, allocate the
-        rest of the prompt's blocks, and hand the slot to chunked
-        prefill (``_finish_admit_chunked``)."""
+        rest of the prompt's blocks, then either hand the slot to
+        chunked prefill (``_finish_admit_chunked``) or run its whole
+        prefill now (``_finish_admit_whole``)."""
         now_ns = time.monotonic_ns()
         self._queue_age_ms.observe((now_ns - r.t_ns) / 1e6)
         toks = r.prompt
@@ -516,14 +621,16 @@ class DecodeEngine:
         # content hash; the LAST hashable block is never a hit target
         # (cap below) so at least one tail token always prefills and
         # the step always emits the first generated token.
-        hashes = chain_block_hashes(toks, bs)
+        hashes: List[str] = []
         hit_blocks: List[int] = []
-        cap = (int(toks.size) - 1) // bs
-        for i in range(min(cap, len(hashes))):
-            blk = self.pool.acquire_cached(hashes[i], r.request_id)
-            if blk is None:
-                break
-            hit_blocks.append(blk)
+        if self.prefix_cache:
+            hashes = chain_block_hashes(toks, bs)
+            cap = (int(toks.size) - 1) // bs
+            for i in range(min(cap, len(hashes))):
+                blk = self.pool.acquire_cached(hashes[i], r.request_id)
+                if blk is None:
+                    break
+                hit_blocks.append(blk)
         hit_len = len(hit_blocks) * bs
         need = self.kv.blocks_for(int(toks.size) + 1) - len(hit_blocks)
         try:
@@ -536,7 +643,48 @@ class DecodeEngine:
         row = np.zeros((self.max_pages,), np.int32)
         row[:len(hit_blocks)] = hit_blocks
         row[len(hit_blocks):len(hit_blocks) + len(fresh)] = fresh
-        self._finish_admit_chunked(r, slot, row, hashes, hit_len)
+        if self.prefill_mode == "chunked":
+            self._finish_admit_chunked(r, slot, row, hashes, hit_len)
+        else:
+            self._finish_admit_whole(r, slot, row, hashes, hit_len)
+
+    def _finish_admit_whole(self, r: DecodeRequest, slot: int, row,
+                            hashes: List[str], hit_len: int):
+        """Whole-prompt admission: ONE synchronous prefill dispatch of
+        the cold tail (padded to its own rung) at position ``hit_len``,
+        which emits the first generated token; every full block of the
+        prompt is published right away (a hit re-registers as a no-op:
+        registration is first-wins)."""
+        tail = r.prompt[hit_len:]
+        padded = np.zeros((self._rung_for(int(tail.size)),), np.int32)
+        padded[:tail.size] = tail
+        try:
+            tok, done = self._dispatch_prefill(padded, int(tail.size),
+                                               hit_len, row)
+        except Exception as exc:
+            # not in a slot yet, so _fail_all would miss it: release its
+            # blocks and fail its future here
+            self.pool.free(r.request_id)
+            if not r.future.done():
+                r.future.set_exception(exc)
+            raise
+        self._prefills.inc()
+        self._prefix_hit_tokens.inc(hit_len)
+        self._prefix_miss_tokens.inc(int(tail.size))
+        for i, h in enumerate(hashes):
+            self.pool.register(int(row[i]), h)
+        r.admit_seq = next(self._admit_seq)
+        r.t_first = time.perf_counter()
+        r.generated.append(tok)
+        self._tokens_total.inc()
+        self._ttft_ms.observe((r.t_first - r.t_submit) * 1e3)
+        self._slots[slot] = r
+        self._tokens[slot] = tok
+        self._seq_lens[slot] = r.prompt.size
+        self._active[slot] = True
+        self._tables[slot] = row
+        if done or len(r.generated) >= r.max_new:
+            self._retire(slot)
 
     def _finish_admit_chunked(self, r: DecodeRequest, slot: int,
                               row, hashes: List[str], hit_len: int):
@@ -616,6 +764,37 @@ class DecodeEngine:
                 have += 1
 
     # ------------------------------------------------------- the big step
+    def _iterate_whole(self):
+        """One whole-mode turn: ONE decode step over every slot, then
+        retire on EOS, ``max_new`` or ``max_context``."""
+        self._ensure_blocks()
+        if not any(self._active):   # growth may have preempted everyone
+            return
+        occ = int(np.sum(self._active))
+        t0 = time.perf_counter()
+        nxt, done = self._dispatch_decode()
+        self._step_ms.observe((time.perf_counter() - t0) * 1e3)
+        self._steps_total.inc()
+        self._occ_steps += occ
+        self._tot_steps += self.max_slots
+        for s in range(self.max_slots):
+            if self._slots[s] is not None:
+                self._advance(s, int(nxt[s]), bool(done[s]))
+        self._update_gauges()
+
+    def _advance(self, s: int, tok: int, done: bool):
+        """Slot ``s`` decoded ``tok`` at its write frontier: record it,
+        move the frontier, and retire on EOS (``done``), ``max_new`` or
+        ``max_context``."""
+        r = self._slots[s]
+        r.generated.append(tok)
+        self._tokens_total.inc()
+        self._tokens[s] = tok
+        self._seq_lens[s] += 1
+        if (done or len(r.generated) >= r.max_new
+                or int(self._seq_lens[s]) + 1 >= self.max_context):
+            self._retire(s)
+
     def _iterate_chunked(self):
         """One turn: pack this step's decode rows and a bounded budget
         of prefill-chunk rows into ONE mixed dispatch."""
@@ -717,18 +896,9 @@ class DecodeEngine:
                 self._retire(s)
         if n_dec:
             for s in range(self.max_slots):
-                r = self._slots[s]
-                if r is None or not valid[s]:
-                    continue
-                tok = int(toks[s])
-                r.generated.append(tok)
-                self._tokens_total.inc()
-                self._tokens[s] = tok
-                self._seq_lens[s] += 1
-                if (tok == self.eos_id or len(r.generated) >= r.max_new
-                        or int(self._seq_lens[s]) + 1
-                        >= self.max_context):
-                    self._retire(s)
+                if self._slots[s] is not None and valid[s]:
+                    tok = int(toks[s])
+                    self._advance(s, tok, tok == self.eos_id)
         self._update_gauges()
 
     def _retire(self, slot: int):
@@ -768,6 +938,10 @@ class DecodeEngine:
     def stats(self) -> dict:
         """Point-in-time decode summary, with the JAX engine's keys for
         the parts ported."""
+        by_rung: Dict[str, int] = {}
+        with self._lock:
+            for r in self._pending:
+                by_rung[str(r.rung)] = by_rung.get(str(r.rung), 0) + 1
         return {
             "requests_total": self._requests.value,
             "rejected_total": self._rejected.value,
@@ -780,6 +954,7 @@ class DecodeEngine:
             "tpot_ms_p50": self._tpot_ms.percentile(50),
             "step_ms_p50": self._step_ms.percentile(50),
             "queue_depth": self.queue_depth,
+            "queue_depth_by_rung": by_rung,
             "slot_occupancy": float(np.sum(self._active))
             / self.max_slots,
             "slot_occupancy_frac": (
@@ -795,6 +970,7 @@ class DecodeEngine:
                 "weights_quantized": self.quant_plan is not None,
             },
             "prefix": {
+                "enabled": self.prefix_cache,
                 "hit_tokens": self._prefix_hit_tokens.value,
                 "miss_tokens": self._prefix_miss_tokens.value,
                 "hit_rate": round(
@@ -802,6 +978,7 @@ class DecodeEngine:
                     / max(1, self._prefix_hit_tokens.value
                           + self._prefix_miss_tokens.value), 4),
             },
+            "prompt_rungs": list(self.prompt_rungs),
             "prefill_mode": self.prefill_mode,
             "chunked_prefill": {
                 "chunk_size": self.chunk_size,

@@ -6,13 +6,17 @@ tied-head, GELU decoder, with parameters as a plain dict of tensors in
 the JAX layout (``x @ W``; ``wqkv`` is ``[D, 3*H*hd]``), so
 ``convert.params_from_jax`` copies weights across without transposing.
 
-``mixed_step`` is the one entry of the serving loop: T independent
-(slot, position, token) rows per call — decode rows and prompt-chunk
-rows packed together — whose shapes never depend on batch composition.
-Every dense op acts per row and attention reads only the row's own
-context, so a request's tokens are the same solo or in a churning
-batch. Attention goes through ``kernels.paged_attention_mixed`` (the
-CUDA kernel for tensors on the card, its plain version on the CPU); the
+``mixed_step`` is the one entry of the chunked serving loop: T
+independent (slot, position, token) rows per call — decode rows and
+prompt-chunk rows packed together — whose shapes never depend on batch
+composition. The whole-prompt engine has two: ``decode_step`` (one
+token per slot) and ``prefill`` (one request's prompt tail, padded to a
+rung, through ``decode_chunk``). Every dense op acts per row and
+attention reads only the row's own context, so a request's tokens are
+the same solo or in a churning batch at the same step shapes. Attention
+goes through ``kernels.paged_attention_mixed``, ``kernels.
+paged_attention`` and ``kernels.paged_attention_chunk`` (the CUDA
+kernels for tensors on the card, their plain versions on the CPU); the
 rest is plain PyTorch, as the JAX package left it to XLA.
 
 Quantized serving keeps the same signatures: ``quantize_decoder_params``
@@ -31,14 +35,17 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.kernels.paged_attention import (
-    paged_attention_mixed, paged_attention_mixed_reference)
+    paged_attention, paged_attention_chunk,
+    paged_attention_chunk_reference, paged_attention_mixed,
+    paged_attention_mixed_reference, paged_attention_reference)
 from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
                                                    quant_matmul_reference,
                                                    quantize_weight)
 from paddle_tpu_torch.serving.kvcache import KVCacheConfig
 
 __all__ = ["DecoderConfig", "init_params", "param_bytes", "mixed_step",
-           "QUANT_PROJ_KEYS", "quantize_decoder_params", "dense_prefill"]
+           "decode_step", "decode_chunk", "prefill", "QUANT_PROJ_KEYS",
+           "quantize_decoder_params", "dense_prefill"]
 
 _LN_EPS = 1e-5
 # Projection weights eligible for the quantized-matmul lane. Embed/pos
@@ -226,7 +233,9 @@ def _logits(cfg, params, x):
 
 
 def _write_plan(blk, off, valid):
-    """Where each row's K/V write lands, decided once per step.
+    """Where each row's K/V write lands, decided once per step, over
+    the flat rows of a step (``[T]`` for the mixed step, ``[S]`` for the
+    decode step, ``[S*G]`` for a chunk).
 
     The JAX package drops invalid rows with an out-of-range scatter
     (``mode="drop"``); torch raises on those indices, and a boolean
@@ -296,14 +305,41 @@ def _scatter_kv(pool, l, plan, rows):
                           sl[blk])
 
 
-def _attend_mixed(q, k_pool, v_pool, l, block_tables, row_slots,
-                  ctx_lens, plain):
-    k_l, k_sc = _pool_layer(k_pool, l)
-    v_l, v_sc = _pool_layer(v_pool, l)
-    attend = paged_attention_mixed_reference if plain \
-        else paged_attention_mixed
-    return attend(q, k_l, v_l, block_tables, row_slots, ctx_lens,
-                  k_scale=k_sc, v_scale=v_sc)
+def _attend(kernel, reference, plain, k_pool, v_pool, *args):
+    """``attend(q, l)`` for ``_layers``: attention of layer ``l`` through
+    ``kernel`` (``reference`` when ``plain``) over that layer's pool
+    views and scales, with ``args`` (tables, row slots, lengths) after
+    the pools."""
+    def attend(q, l):
+        k_l, k_sc = _pool_layer(k_pool, l)
+        v_l, v_sc = _pool_layer(v_pool, l)
+        fn = reference if plain else kernel
+        return fn(q, k_l, v_l, *args, k_scale=k_sc, v_scale=v_sc)
+    return attend
+
+
+def _layers(cfg, params, k_pool, v_pool, x, plan, attend, plain):
+    """The decoder's layers over flat rows ``x [n, d_model]``: each layer
+    writes its K/V into the pools by ``plan`` (``_write_plan``) and then
+    attends through ``attend(q [n, heads, head_dim], l)``, which returns
+    q's shape or any shape of n rows. Returns the logits [n, vocab]."""
+    n = x.shape[0]
+    for l in range(cfg.n_layers):
+        q, k, v = _qkv(cfg, params, l, x, plain)
+        _scatter_kv(k_pool, l, plan, k)
+        _scatter_kv(v_pool, l, plan, v)
+        attn = attend(q.contiguous(), l)
+        x = _proj(params, f"l{l}_wo", attn.reshape(n, -1), x, plain)
+        x = x + _mlp(cfg, params, l, x, plain)
+    return _logits(cfg, params, x)
+
+
+def _is_plain(attn_impl) -> bool:
+    if attn_impl not in (None, "reference"):
+        raise ValueError(f"attn_impl must be None (the kernels on CUDA, "
+                         f"their plain versions on CPU) or 'reference', "
+                         f"got {attn_impl!r}")
+    return attn_impl == "reference"
 
 
 @torch.no_grad()
@@ -333,11 +369,7 @@ def mixed_step(cfg: DecoderConfig, params, k_pool, v_pool,
     ``"reference"`` forces the plain version of both, for comparisons
     only.
     """
-    if attn_impl not in (None, "reference"):
-        raise ValueError(f"attn_impl must be None (the kernels on CUDA, "
-                         f"their plain versions on CPU) or 'reference', "
-                         f"got {attn_impl!r}")
-    plain = attn_impl == "reference"
+    plain = _is_plain(attn_impl)
     dev = params["embed"].device
     bs = _pool_layer(k_pool, 0)[0].shape[2]        # [N, H, B, d]
     if write_limit is None:
@@ -348,22 +380,153 @@ def mixed_step(cfg: DecoderConfig, params, k_pool, v_pool,
     tables = torch.as_tensor(block_tables, device=dev).to(torch.int32)
     valid = torch.as_tensor(valid, device=dev).bool() & (
         pos < int(write_limit))
-    T = tokens.shape[0]
     safe_pos = pos.clamp(0, cfg.max_seq_len - 1).long()
     x = params["embed"][tokens] + params["pos"][safe_pos]
     page = (pos // bs).clamp(0, tables.shape[1] - 1).long()
     plan = _write_plan(tables[slots.long(), page].long(),
                        (pos % bs).long(), valid)
     ctx_lens = torch.where(valid, pos + 1, torch.zeros_like(pos))
-    for l in range(cfg.n_layers):
-        q, k, v = _qkv(cfg, params, l, x, plain)
-        _scatter_kv(k_pool, l, plan, k)
-        _scatter_kv(v_pool, l, plan, v)
-        attn = _attend_mixed(q.contiguous(), k_pool, v_pool, l, tables,
-                             slots, ctx_lens, plain)
-        x = _proj(params, f"l{l}_wo", attn.reshape(T, -1), x, plain)
-        x = x + _mlp(cfg, params, l, x, plain)
-    return _logits(cfg, params, x), k_pool, v_pool
+    attend = _attend(paged_attention_mixed, paged_attention_mixed_reference,
+                     plain, k_pool, v_pool, tables, slots, ctx_lens)
+    logits = _layers(cfg, params, k_pool, v_pool, x, plan, attend, plain)
+    return logits, k_pool, v_pool
+
+
+@torch.no_grad()
+def decode_step(cfg: DecoderConfig, params, k_pool, v_pool, tokens,
+                block_tables, seq_lens, active,
+                attn_impl: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode iteration over every slot (the whole-mode engine's
+    step).
+
+    ``tokens[s]`` is slot ``s``'s last sampled token, not yet written;
+    its position is ``seq_lens[s]`` (the tokens written so far). The
+    step writes each active slot's new K/V into its current block,
+    attends over ``seq_lens + 1`` positions through
+    ``kernels.paged_attention``, and returns ``(logits [slots, vocab],
+    k_pool, v_pool)``. Inactive slots write nothing and their logits
+    are garbage the engine ignores. Pools are updated IN PLACE, as in
+    ``mixed_step``; ``attn_impl`` as there.
+    """
+    plain = _is_plain(attn_impl)
+    dev = params["embed"].device
+    bs = _pool_layer(k_pool, 0)[0].shape[2]
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    pos = torch.as_tensor(seq_lens, device=dev).to(torch.int32)
+    active = torch.as_tensor(active, device=dev).bool()
+    tables = torch.as_tensor(block_tables, device=dev).to(torch.int32)
+    x = params["embed"][tokens] + \
+        params["pos"][pos.clamp(0, cfg.max_seq_len - 1).long()]
+    page = (pos // bs).clamp(0, tables.shape[1] - 1).long()
+    rows = torch.arange(tokens.shape[0], device=dev)
+    plan = _write_plan(tables[rows, page].long(), (pos % bs).long(),
+                       active)
+    ctx_lens = torch.where(active, pos + 1, torch.zeros_like(pos))
+    attend = _attend(paged_attention, paged_attention_reference, plain,
+                     k_pool, v_pool, tables, ctx_lens)
+    logits = _layers(cfg, params, k_pool, v_pool, x, plan, attend, plain)
+    return logits, k_pool, v_pool
+
+
+def _chunk_forward(cfg, params, k_pool, v_pool, tokens, tables, pos,
+                   valid, plain):
+    """The layers of a chunk step: ``tokens``/``pos``/``valid`` are
+    ``[S, G]`` device tensors (positions int32), ``tables`` ``[S, P]``
+    int32. Returns logits ``[S, G, vocab]``; pools change in place."""
+    S, G = tokens.shape
+    dev = tokens.device
+    bs = _pool_layer(k_pool, 0)[0].shape[2]
+    x = params["embed"][tokens.reshape(-1)] + params["pos"][
+        pos.clamp(0, cfg.max_seq_len - 1).long().reshape(-1)]
+    page = (pos // bs).clamp(0, tables.shape[1] - 1).long()
+    blk = tables[torch.arange(S, device=dev)[:, None], page]    # [S, G]
+    plan = _write_plan(blk.reshape(-1).long(),
+                       (pos % bs).reshape(-1).long(), valid.reshape(-1))
+    ctx_lens = torch.where(valid, pos + 1, torch.zeros_like(pos))
+    attend = _attend(paged_attention_chunk, paged_attention_chunk_reference,
+                     plain, k_pool, v_pool, tables, ctx_lens)
+    logits = _layers(cfg, params, k_pool, v_pool, x, plan,
+                     lambda q, l: attend(q.view(S, G, *q.shape[1:]), l),
+                     plain)
+    return logits.reshape(S, G, -1)
+
+
+@torch.no_grad()
+def decode_chunk(cfg: DecoderConfig, params, k_pool, v_pool, tokens,
+                 block_tables, start_lens, q_lens, active,
+                 attn_impl: Optional[str] = None,
+                 write_limit: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """G tokens per slot in one call (the paged prefill with slots=1,
+    and later the speculative verify lane).
+
+    ``tokens``: [slots, G]; row g of slot s sits at absolute position
+    ``start_lens[s] + g``. Rows with ``g >= q_lens[s]``, rows of
+    inactive slots, and rows at positions >= ``write_limit`` (default
+    ``cfg.max_seq_len``) are masked: they write no K/V and their logits
+    are garbage the caller ignores. Valid rows write K/V first, then
+    attend over ``position + 1`` keys through
+    ``kernels.paged_attention_chunk`` — the causal intra-chunk mask
+    falls out of the per-row context lengths. Returns ``(logits [slots,
+    G, vocab], k_pool, v_pool)``, pools updated IN PLACE.
+    """
+    plain = _is_plain(attn_impl)
+    dev = params["embed"].device
+    if write_limit is None:
+        write_limit = cfg.max_seq_len
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    tables = torch.as_tensor(block_tables, device=dev).to(torch.int32)
+    start = torch.as_tensor(start_lens, device=dev).to(torch.int32)
+    qn = torch.as_tensor(q_lens, device=dev).to(torch.int32)
+    active = torch.as_tensor(active, device=dev).bool()
+    G = tokens.shape[1]
+    g_idx = torch.arange(G, device=dev, dtype=torch.int32)
+    pos = start[:, None] + g_idx[None, :]                     # [S, G]
+    valid = (active[:, None] & (g_idx[None, :] < qn[:, None])
+             & (pos < int(write_limit)))
+    logits = _chunk_forward(cfg, params, k_pool, v_pool, tokens, tables,
+                            pos, valid, plain)
+    return logits, k_pool, v_pool
+
+
+@torch.no_grad()
+def prefill(cfg: DecoderConfig, params, k_pool, v_pool, tokens,
+            true_len: int, start_len: int, block_table_row,
+            attn_impl: Optional[str] = None,
+            write_limit: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One request's cold prompt TAIL in one call: ``decode_chunk``
+    with one slot.
+
+    ``tokens``: [rung] — the prompt minus its prefix-cache hit, padded
+    up a ladder rung (pad rows write no K/V and see no keys);
+    ``true_len``: the real tail length and ``start_len``: the hit
+    length, both host ints (tail row i sits at absolute position
+    ``start_len + i`` and attends over the hit blocks plus earlier tail
+    rows, through the pool); ``block_table_row``: [max_pages] int32,
+    hit blocks + fresh blocks.
+
+    Returns ``(logits_last [vocab], k_pool, v_pool)``: the prediction
+    after the final real prompt token; pools updated IN PLACE.
+    """
+    plain = _is_plain(attn_impl)
+    dev = params["embed"].device
+    if write_limit is None:
+        write_limit = cfg.max_seq_len
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    row = torch.as_tensor(block_table_row, device=dev).to(torch.int32)
+    R = tokens.shape[0]
+    true_len, start_len = int(true_len), int(start_len)
+    # host ints: positions and validity are built on the device from
+    # them, with nothing copied to or read back from the card
+    g_idx = torch.arange(R, device=dev, dtype=torch.int32)
+    pos = (g_idx + start_len)[None, :]
+    valid = ((g_idx < true_len) & (pos[0] < int(write_limit)))[None, :]
+    logits = _chunk_forward(cfg, params, k_pool, v_pool, tokens[None, :],
+                            row[None, :], pos, valid, plain)
+    last = min(max(true_len - 1, 0), R - 1)
+    return logits[0, last], k_pool, v_pool
 
 
 @torch.no_grad()

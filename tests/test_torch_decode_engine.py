@@ -298,8 +298,6 @@ def test_queue_backpressure(np_params):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(speculate_k=2, draft_cfg=TCFG), "A6.4"),
-    (dict(prefill_mode="whole"), "A6.3"),
-    (dict(admission="static"), "A6.3"),
     (dict(speculate_k=2, draft_cfg=TCFG,
           kv_config=TCFG.kv_config(4, 8, dtype="int8")), "A6.4"),
     (dict(speculate_k=2, draft_cfg=TCFG, quant_plan="int8"), "A6.4"),
@@ -329,6 +327,180 @@ def test_entry_points_raise_without_card(monkeypatch):
             tdm.init_params(TCFG, device="cpu").items()}
     with pytest.raises(ValueError, match="meta"):
         DecodeEngine(TCFG, meta, device="cpu", autostart=False)
+
+
+# ---- whole-prompt prefill and static admission
+
+def _whole_pair(np_params, prompts, **kw):
+    """The JAX engine's and the port's greedy tokens for ``prompts``
+    under the same options, and the port engine (closed)."""
+    jkw, tkw = dict(kw), dict(kw)
+    if "kv_config" in kw:               # (block_size, num_blocks, dtype)
+        jkw["kv_config"] = JCFG.kv_config(*kw["kv_config"])
+        tkw["kv_config"] = TCFG.kv_config(*kw["kv_config"])
+    want = _serve(JaxEngine(JCFG, {k: jnp.asarray(v) for k, v in
+                                   np_params.items()}, **jkw), prompts)
+    teng = DecodeEngine(TCFG, params_from_jax(np_params, "cpu"),
+                        device="cpu", **tkw)
+    return want, _serve(teng, prompts), teng
+
+
+@pytest.mark.parametrize("pool", ["roomy", "tight"])
+@pytest.mark.parametrize("admission", ["continuous", "static"])
+def test_whole_greedy_tokens_match_jax_engine(np_params, admission, pool):
+    kw = dict(block_size=4, num_blocks=96 if pool == "roomy" else 14,
+              max_slots=4 if pool == "roomy" else 3, eos_id=0,
+              prefill_mode="whole", admission=admission)
+    prompts = _prompts()
+    want, got, teng = _whole_pair(np_params, prompts, **kw)
+    assert got == want
+    tp = teng.params
+    gaps = [_greedy_gap(tp, p, g) for p, g in zip(prompts, got)]
+    assert min(gaps) > MIN_GAP, "a near-tie decided a greedy token"
+    st = teng.stats()
+    assert st["prefix"]["hit_tokens"] > 0 and st["prefix"]["enabled"]
+    assert st["prefills_total"] >= len(prompts)
+    if pool == "tight":
+        assert st["preempted_total"] > 0, "pool sized to force preemption"
+    teng.pool.assert_consistent()
+    assert teng.pool.check_leaks() == []
+    # the port's chunked engine gives the same tokens
+    chunked = _serve(DecodeEngine(TCFG, tp, device="cpu",
+                                  **dict(kw, prefill_mode="chunked")),
+                     prompts)
+    assert chunked == got
+
+
+@pytest.mark.parametrize("kv_dtype,w_dtype", [
+    ("int8", "int8"), ("fp8-e4m3", "fp8-e4m3"), ("bfloat16", None)])
+def test_whole_quantized_greedy_tokens_match_jax_engine(np_params,
+                                                        kv_dtype, w_dtype):
+    prompts = _prompts()
+    want, got, teng = _whole_pair(
+        np_params, prompts, kv_config=(4, 40, kv_dtype), max_slots=3,
+        eos_id=0, quant_plan=w_dtype, prefill_mode="whole")
+    assert got == want
+    cal = (None, None)
+    if teng.kv.quantized:
+        cal = tde._probe_kv_absmax(TCFG, teng.params)
+    gaps = [_greedy_gap(teng.params, p, g, kv_dtype, cal)
+            for p, g in zip(prompts, got)]
+    assert min(gaps) > MIN_GAP, "a near-tie decided a greedy token"
+    st = teng.stats()
+    assert st["prefix"]["hit_tokens"] > 0
+    assert st["quant"]["kv_dtype"] == kv_dtype
+    teng.pool.assert_consistent()
+    assert teng.pool.check_leaks() == []
+
+
+@pytest.mark.parametrize("mode", ["whole", "chunked"])
+def test_prefix_cache_off_matches_jax_engine(np_params, mode):
+    """``prefix_cache=False``: no block is acquired or published, and the
+    tokens are the JAX engine's (and the cache-on run's)."""
+    kw = dict(block_size=4, num_blocks=40, max_slots=2, eos_id=0,
+              prefill_mode=mode)
+    prompts = _prompts()
+    want, got, teng = _whole_pair(np_params, prompts, prefix_cache=False,
+                                  **kw)
+    assert got == want
+    st = teng.stats()
+    assert st["prefix"] == {"enabled": False, "hit_tokens": 0,
+                            "miss_tokens": float(sum(map(len, prompts))),
+                            "hit_rate": 0.0}
+    assert teng.pool.stats()["cached_blocks"] == 0
+    on = _serve(DecodeEngine(TCFG, teng.params, device="cpu", **kw),
+                prompts)
+    assert on == got
+
+
+def test_whole_max_context_matches_jax_engine(np_params):
+    """A ``max_context`` under the model's caps every generation where
+    the JAX engine caps it; one past ``max_seq_len`` raises."""
+    kw = dict(block_size=4, num_blocks=64, max_slots=3, eos_id=0,
+              prefill_mode="whole", max_context=22)
+    prompts = _prompts()
+    want, got, teng = _whole_pair(np_params, prompts, **kw)
+    assert got == want
+    assert all(len(p) + len(g) <= 22 for p, g in zip(prompts, got))
+    with pytest.raises(ValueError, match="max_context"):
+        DecodeEngine(TCFG, device="cpu", autostart=False,
+                     max_context=TCFG.max_seq_len + 1)
+
+
+def test_whole_mode_options_validate_like_jax(np_params):
+    tp = params_from_jax(np_params, "cpu")
+    eng = DecodeEngine(TCFG, tp, device="cpu", block_size=4,
+                       num_blocks=32, prefill_mode="whole",
+                       prompt_rungs=(16, 4, 8), autostart=False)
+    jeng = JaxEngine(JCFG, {k: jnp.asarray(v) for k, v in
+                            np_params.items()}, block_size=4,
+                     num_blocks=32, prefill_mode="whole",
+                     prompt_rungs=(16, 4, 8), autostart=False)
+    assert eng.prompt_rungs == jeng.prompt_rungs == (4, 8, 16)
+    for e in (eng, jeng):
+        with pytest.raises(ValueError, match="largest prompt rung 16"):
+            e.submit(list(range(1, 18)))
+    eng._started = True                     # hold the loop: queue only
+    for n in (3, 7, 9, 12):
+        eng.submit(list(range(1, n + 1)))
+    assert eng.stats()["queue_depth_by_rung"] == {"4": 1, "8": 1,
+                                                  "16": 2}
+    eng.close()
+    jeng.close()
+    for bad in (dict(prompt_rungs=()), dict(admission="batch"),
+                dict(prefill_mode="eager")):
+        with pytest.raises(ValueError):
+            DecodeEngine(TCFG, device="cpu", autostart=False, **bad)
+
+
+def test_whole_warmup_and_stats_keys(np_params):
+    """Whole-mode ``warmup()`` dispatches the decode step and one
+    prefill per rung on inert inputs (the pool stays clean) and returns
+    ``1 + len(prompt_rungs)``, as the JAX engine counts its entries; the
+    stats keys are the JAX engine's."""
+    eng = DecodeEngine(TCFG, params_from_jax(np_params, "cpu"),
+                       device="cpu", block_size=4, num_blocks=32,
+                       prefill_mode="whole", admission="static",
+                       prompt_rungs=(4, 8, 16, 32))
+    assert eng.warmup() == 5
+    assert not eng._k_pool.any() and not eng._v_pool.any()
+    res = eng.generate([3, 4, 5], 4, timeout=60)
+    assert isinstance(res, DecodeResult) and res.ttft_ms >= 0.0
+    st = eng.stats()
+    eng.close()
+    jeng = JaxEngine(JCFG, jdm.init_params(JCFG, 0), block_size=4,
+                     num_blocks=32, prefill_mode="whole",
+                     admission="static", autostart=False)
+    jkeys = set(jeng.stats())
+    jeng.close()
+    assert set(st) - {"device"} <= jkeys
+    assert st["prompt_rungs"] == [4, 8, 16, 32]
+    assert st["queue_depth_by_rung"] == {}
+    assert st["prefix"]["enabled"] is True
+    assert (st["prefill_mode"], st["admission"]) == ("whole", "static")
+    assert st["warmed"] and st["prefills_total"] == 1
+    assert st["steps_total"] == len(res.tokens) - 1
+
+
+def test_whole_prefill_failure_fails_the_request_leak_free(np_params,
+                                                          monkeypatch):
+    """A prefill dispatch that raises fails its request's future and
+    every queued one, and leaves no block allocated."""
+    eng = DecodeEngine(TCFG, params_from_jax(np_params, "cpu"),
+                       device="cpu", block_size=4, num_blocks=32,
+                       prefill_mode="whole", autostart=False)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("prefill kernel launch failed")
+
+    monkeypatch.setattr(tdm, "prefill", broken)
+    futs = [eng.submit([1, 2, 3], 4), eng.submit([4, 5], 4)]
+    eng.start()
+    for f in futs:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            f.result(timeout=60)
+    eng.close()
+    assert eng.pool.blocks_in_use == 0 and eng.pool.check_leaks() == []
 
 
 def _port_files():

@@ -312,3 +312,145 @@ def test_fp8_kv_overflow_writes_nan_like_jax():
     np.testing.assert_array_equal(got[fin], want[fin])
     assert got[5] == 448.0 and got[9] == -448.0
     np.testing.assert_array_equal(tpool[1].numpy(), np.asarray(jpool[1]))
+
+
+# ---- the whole-prompt path: decode_step, decode_chunk, prefill
+
+def _whole_script():
+    """Whole-mode calls over slots 0..2 with ``_tables()``: two padded
+    prefills (slot 0 from 0; slot 2 after a one-block prefix hit), a
+    decode step with slot 1 inactive, and a decode chunk whose rows cross
+    ``write_limit`` 12 and whose slot 1 is inactive."""
+    rng = np.random.default_rng(3)
+    toks = rng.integers(1, JCFG.vocab_size, 64).astype(np.int32)
+    return [
+        ("prefill", dict(tokens=toks[:8], true_len=6, start_len=0,
+                         slot=0)),
+        ("prefill", dict(tokens=toks[8:16], true_len=5, start_len=4,
+                         slot=2)),
+        ("decode", dict(tokens=toks[16:19], seq_lens=np.array(
+            [6, 0, 9], np.int32), active=np.array([True, False, True]))),
+        ("chunk", dict(tokens=toks[19:28].reshape(3, 3),
+                       start_lens=np.array([7, 0, 10], np.int32),
+                       q_lens=np.array([3, 3, 2], np.int32),
+                       active=np.array([True, False, True]))),
+    ]
+
+
+def _whole_call(mod, cfg, p, k, v, kind, a, tables, impl):
+    """One script call on either side; returns ``(logits of the valid
+    rows [n, vocab], k, v)``."""
+    if kind == "prefill":
+        lg, k, v = mod.prefill(cfg, p, k, v, a["tokens"], a["true_len"],
+                               a["start_len"], tables[a["slot"]],
+                               attn_impl=impl, write_limit=12)
+        return np.asarray(lg)[None], k, v
+    if kind == "decode":
+        lg, k, v = mod.decode_step(cfg, p, k, v, a["tokens"], tables,
+                                   a["seq_lens"], a["active"],
+                                   attn_impl=impl)
+        return np.asarray(lg)[a["active"]], k, v
+    lg, k, v = mod.decode_chunk(cfg, p, k, v, a["tokens"], tables,
+                                a["start_lens"], a["q_lens"], a["active"],
+                                attn_impl=impl, write_limit=12)
+    G = a["tokens"].shape[1]
+    pos = a["start_lens"][:, None] + np.arange(G)[None]
+    valid = (a["active"][:, None] & (np.arange(G)[None] < a["q_lens"][:,
+                                                                    None])
+             & (pos < 12))
+    return np.asarray(lg)[valid], k, v
+
+
+@pytest.mark.parametrize("jax_impl", ["reference", "kernel_interpret"])
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_whole_path_matches_jax(params, quant, jax_impl):
+    """decode_step, decode_chunk and prefill against JAX: logits within
+    1e-5 after every call and the pools equal (float: within 1e-5;
+    int8: payload bytes and scales equal). Padding rows, rows past the
+    write limit and inactive slots write nothing."""
+    jp, tp = params
+    kv_dtype = "float32"
+    if quant is not None:
+        kv_dtype = quant
+        jp = jdm.quantize_decoder_params(JCFG, jp, quant)
+        tp = tdm.quantize_decoder_params(TCFG, tp, quant)
+    kw = dict(num_layers=JCFG.n_layers, num_heads=JCFG.n_heads,
+              head_dim=JCFG.head_dim, block_size=BS, num_blocks=NB,
+              dtype=kv_dtype)
+    rng = np.random.default_rng(7)
+    ka = rng.uniform(0.5, 2.0, (JCFG.n_layers, JCFG.n_heads))
+    va = rng.uniform(0.5, 2.0, (JCFG.n_layers, JCFG.n_heads))
+    jk, jv = jkv.make_pools(jkv.KVCacheConfig(**kw), ka, va)
+    tk, tv = make_pools(TCFG.kv_config(BS, NB, kv_dtype), "cpu", ka, va)
+    tables = _tables()
+    for kind, a in _whole_script():
+        jl, jk, jv = _whole_call(jdm, JCFG, jp, jk, jv, kind, a, tables,
+                                 jax_impl)
+        tl, tk2, tv2 = _whole_call(tdm, TCFG, tp, tk, tv, kind, a, tables,
+                                   None)
+        assert tk2 is tk and tv2 is tv            # updated in place
+        assert np.isfinite(tl).all() and tl.shape == jl.shape
+        np.testing.assert_allclose(tl, jl, atol=1e-5, rtol=1e-5,
+                                   err_msg=kind)
+        for jpool, tpool in ((jk, tk), (jv, tv)):
+            if quant is None:
+                np.testing.assert_allclose(tpool.numpy(),
+                                           np.asarray(jpool), atol=1e-5,
+                                           rtol=1e-5, err_msg=kind)
+            else:
+                assert np.array_equal(_payload_bytes(tpool),
+                                      _payload_bytes(jpool)), kind
+                assert np.array_equal(tpool[1].numpy(),
+                                      np.asarray(jpool[1])), kind
+        if kind == "prefill" and a["slot"] == 0:
+            # rung padding rows 6 and 7 (block 2, offsets 2-3) wrote
+            # nothing
+            pay = _payload_bytes(tk)
+            assert not pay[:, 2, :, 2:].any()
+    pay = _payload_bytes(tk)
+    # inactive slot 1 (blocks 1, 14) and the cut chunk row at position 12
+    # (slot 2, page 3 = block 6) wrote nothing, on both sides
+    for blk in (1, 14, 6):
+        assert not pay[:, blk].any()
+        assert not _payload_bytes(jk)[:, blk].any()
+
+
+def test_prefill_after_prefix_hit_equals_prefill_from_zero(params):
+    """A prompt prefilled whole from position 0 and the same prompt
+    prefilled as its first two blocks, then the tail at start 8 over the
+    same blocks, give the same last-row logits and the same K/V."""
+    _jp, tp = params
+    toks = np.random.default_rng(9).integers(1, 64, 13).astype(np.int32)
+    row = np.array([3, 8, 12, 5, 0, 0, 0, 0], np.int32)
+    k0, v0 = make_pools(TCFG.kv_config(BS, NB), "cpu")
+    padded = np.zeros(16, np.int32)
+    padded[:13] = toks
+    whole, _, _ = tdm.prefill(TCFG, tp, k0, v0, padded, 13, 0, row)
+    k1, v1 = make_pools(TCFG.kv_config(BS, NB), "cpu")
+    head = np.zeros(8, np.int32)
+    head[:8] = toks[:8]
+    tdm.prefill(TCFG, tp, k1, v1, head, 8, 0, row)
+    tail = np.zeros(8, np.int32)
+    tail[:5] = toks[8:]
+    hit, _, _ = tdm.prefill(TCFG, tp, k1, v1, tail, 5, 8, row)
+    torch.testing.assert_close(hit, whole, atol=1e-5, rtol=1e-5)
+    assert int(hit.argmax()) == int(whole.argmax())
+    torch.testing.assert_close(k1, k0, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(v1, v0, atol=1e-5, rtol=1e-5)
+
+
+def test_whole_path_reference_impl_equals_default_on_cpu(params):
+    _jp, tp = params
+    outs = []
+    for impl in (None, "reference"):
+        tk, tv = make_pools(TCFG.kv_config(BS, NB), "cpu")
+        logits = [_whole_call(tdm, TCFG, tp, tk, tv, kind, a, _tables(),
+                              impl)[0] for kind, a in _whole_script()]
+        outs.append((logits, tk))
+    for a, b in zip(outs[0][0], outs[1][0]):
+        assert np.array_equal(a, b)
+    assert torch.equal(outs[0][1], outs[1][1])
+    for kind, a in _whole_script()[1:]:
+        with pytest.raises(ValueError):
+            _whole_call(tdm, TCFG, tp, tk, tv, kind, a, _tables(),
+                        "kernel")

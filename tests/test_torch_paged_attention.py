@@ -135,6 +135,9 @@ def test_cpu_path_launches_no_kernel():
                               v_scale=vs)
     assert set(tk.LAUNCHES) == {"paged_attention_mixed",
                                 "paged_attention_mixed_quant",
+                                "paged_attention", "paged_attention_quant",
+                                "paged_attention_chunk",
+                                "paged_attention_chunk_quant",
                                 "quant_matmul"}
     assert not any(tk.LAUNCHES.values())
 
