@@ -64,10 +64,36 @@ The whole-prompt slice adds, in the same run:
    then ``profile_whole``: a decode step and a rung-384 prefill under
    ``torch.profiler``.
 
+The training slice adds, in the same run:
+
+3d. the flash-attention forward (B8) and its dq and dk/dv backward
+   kernels (B9), fp32 and bf16 lanes, against their plain versions at
+   the training shape [16, 12, 512, 64] causal, at a ragged T = 500 and
+   at a non-causal cross shape (Tq 200, Tk 512); fp32 to 1e-5 (out,
+   lse) and 1e-4 (dq, dk, dv), bf16 no further from the fp32 plain
+   result than 1.5x the bf16 plain version + 1e-3; a query with no key
+   gives zeros and lse NEG_INF; each kernel timed beside its plain
+   version, its bound and an SDPA yardstick (forward; backward) that the
+   port never calls;
+4d. one full-width training step (the transformer LM at bench.py's
+   GPT-2-small widths, batch 16 x 512, 12 layers) in fp32 and in bf16
+   with the kernels (under sync-debug "error") against the same step
+   through the plain flash versions: the loss and every gradient leaf
+   within relative L2 1e-4 (fp32) / 2e-2 (bf16);
+5d. the slice's main path: ``make_train_step(cfg, lr=0.01)`` in bf16
+   with ``attn_impl="flash"`` (``train_transformer``), 3 warm-up + 20
+   timed steps (tokens/s, step ms p50, peak memory, every loss finite),
+   each flash kernel launched exactly 12 x steps, then
+   ``make_kstep_train_step`` with K = 8; then the same steps with
+   ``attn_impl="xla"`` (``train_xla``: plain attention, tokens/s and
+   loss agreement reported) and a short fp32 run; then
+   ``profile_train``: two steps under ``torch.profiler``, with B8 and
+   B9's device time per step.
+
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
-lane of every kernel), the ``serve`` lines and, last, ``{"ok": true, "device":
-{...}}``. Float32 matmuls run in full float32 (TF32 off). With no CUDA
-card it exits non-zero at once.
+lane of every kernel), the ``serve`` and ``train`` lines and, last,
+``{"ok": true, "device": {...}}``. Float32 matmuls run in full float32
+(TF32 off). With no CUDA card it exits non-zero at once.
 """
 import json
 import subprocess
@@ -769,12 +795,13 @@ def profile_steps(dm, make_pools, cfg, params, kv, rows, slots_n,
         [lambda plan=plan: step(plan) for plan in plans]))}
 
 
-def _profile(calls):
+def _profile(calls, named=()):
     """Run ``calls[:2]`` to warm up, then the rest under
     ``torch.profiler``: host wall ms per call, device-busy ms per call
     (the sum of the card's kernel and copy times), the idle share, the
-    device ops and device-to-host copies per call and the costliest
-    device ops."""
+    device ops and device-to-host copies per call, the costliest device
+    ops and, for each substring in ``named``, the device ms per call of
+    the ops whose names hold it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for call in calls[:2]:
@@ -807,7 +834,10 @@ def _profile(calls):
             1 for e in prof.events() if e.device_type == DeviceType.CUDA
             and "DtoH" in e.name) / n_steps,
         "top_device_ms_per_step": [[n[:60], ms / n_steps]
-                                   for n, ms in top]}
+                                   for n, ms in top],
+        **({"named_device_ms_per_step": {
+            sub: sum(ms for n, ms in by_name.items() if sub in n) / n_steps
+            for sub in named}} if named else {})}
 
 
 def profile_whole(dm, make_pools, cfg, params, kv, slots_n, n_steps=8):
@@ -973,6 +1003,427 @@ def solo_tokens(DecodeEngine, cfg, params, indices, engine_kw,
     return out
 
 
+# ---------------------------------------------------------------- training
+
+H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core FLOP/s
+FLASH_FWD_TOL = 1e-5            # fp32 out and lse, kernel vs plain
+FLASH_GRAD_TOL = 1e-4           # fp32 dq/dk/dv: sums over up to 512 rows
+# bf16 lanes: the kernel's error against the fp32 plain result, at most
+# this ratio of the bf16 plain version's error + 1e-3 (both round the
+# same fp32 math to bf16 once; the sums run in another order)
+FLASH_BF16_RATIO = 1.5
+# one full-width training step, kernels vs plain flash versions: the
+# loss and every gradient leaf by relative L2 (fp32: sum order through
+# 12 layers; bf16: every eager op rounds to bf16, and the flash outputs
+# differ by an ulp now and then, which later bf16 ops amplify)
+TRAIN_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bench.py:800-806: the flagship LM at GPT-2-small widths, batch 16 x 512
+TRAIN_CFG = dict(vocab_size=32000, d_model=768, n_heads=12, n_layers=12,
+                 d_ff=3072, max_len=512)
+TRAIN_B, TRAIN_T, TRAIN_LR = 16, 512, 0.01
+# 3d's shapes: (B, H, Tq, Tk, causal); "main" is what training gives B8/B9
+FLASH_SHAPES = {"main": (16, 12, 512, 512, True),
+                "ragged": (4, 12, 500, 500, True),
+                "cross": (4, 12, 200, 512, False)}
+FLASH_KERNELS = {
+    "flash_attention_fwd": "paddle_tpu/kernels/flash_attention.py:44",
+    "flash_attention_dq": "paddle_tpu/kernels/flash_attention.py:93",
+    "flash_attention_dkv": "paddle_tpu/kernels/flash_attention.py:133",
+}
+
+
+def _flash_case(dev, dtype, B, H, Tq, Tk, d=64, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def randn(T):
+        return torch.randn((B, H, T, d), generator=g, device=dev).to(dtype)
+
+    return randn(Tq), randn(Tk), randn(Tk), randn(Tq)
+
+
+def _flash_bound(name, dtype, B, H, Tq, Tk, d, causal):
+    """Least time of one call: its inputs read once and outputs written
+    once (q/k/v/do at the payload's width, lse/delta fp32) over the HBM
+    rate, against the products its visible (query, key) pairs need (fwd:
+    q.k and p.v; dq: q.k, do.v, ds.k; dk/dv: those two and p^T.do,
+    ds^T.q; 2 FLOPs each per element of d) over the dtype's peak (fp32
+    CUDA cores, bf16 tensor cores)."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    rows = np.arange(Tq)
+    pairs = B * H * float(np.minimum(rows + 1, Tk).sum() if causal
+                          else Tq * Tk)
+    bh = B * H
+    if name == "flash_attention_fwd":
+        nbytes = bh * ((2 * Tq + 2 * Tk) * d * e + Tq * 4)
+        flops = 4.0 * d * pairs
+    elif name == "flash_attention_dq":
+        nbytes = bh * ((3 * Tq + 2 * Tk) * d * e + 2 * Tq * 4)
+        flops = 6.0 * d * pairs
+    else:
+        nbytes = bh * ((2 * Tq + 4 * Tk) * d * e + 2 * Tq * 4)
+        flops = 8.0 * d * pairs
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _flash_calls(fa, q, k, v, do, causal, plain=False):
+    """Forward, then dq and dk/dv from the forward's lse and delta:
+    the kernels, or (``plain``) the plain versions on the same inputs."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    if plain:
+        fwd, dq_fn, dkv_fn = (fa.flash_attention_fwd_reference,
+                              fa.flash_attention_dq_reference,
+                              fa.flash_attention_dkv_reference)
+    else:
+        fwd, dq_fn, dkv_fn = (fa.flash_attention_fwd, fa.flash_attention_dq,
+                              fa.flash_attention_dkv)
+    out, lse = fwd(q, k, v, causal, scale)
+    delta = torch.sum(do.float() * out.float(), dim=-1)
+    dq = dq_fn(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = dkv_fn(q, k, v, do, lse, delta, causal, scale)
+    return {"out": out, "lse": lse, "delta": delta, "dq": dq, "dk": dk,
+            "dv": dv}
+
+
+def _flash_errors(fa, q, k, v, do, causal):
+    """max |kernel - plain| per output (the plain backward from the
+    kernel's lse and delta, so each kernel is held on its own inputs);
+    for bf16, also each output's error against the fp32 plain result
+    and the bf16 plain version's error against it."""
+    got = _flash_calls(fa, q, k, v, do, causal)
+    torch.cuda.synchronize()
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    ref = dict(zip(("out", "lse"), fa.flash_attention_fwd_reference(
+        q, k, v, causal, scale)))
+    args = (q, k, v, do, got["lse"], got["delta"], causal, scale)
+    ref["dq"] = fa.flash_attention_dq_reference(*args)
+    ref["dk"], ref["dv"] = fa.flash_attention_dkv_reference(*args)
+    errs = {n: float((got[n].float() - ref[n].float()).abs().max())
+            for n in ("out", "lse", "dq", "dk", "dv")}
+    if q.dtype != torch.bfloat16:
+        return errs, None
+    f = [t.float() for t in (q, k, v, do)]
+    exact = dict(zip(("out", "lse"), fa.flash_attention_fwd_reference(
+        *f[:3], causal, scale)))
+    fargs = (*f, got["lse"], got["delta"], causal, scale)
+    exact["dq"] = fa.flash_attention_dq_reference(*fargs)
+    exact["dk"], exact["dv"] = fa.flash_attention_dkv_reference(*fargs)
+    vs_fp32 = {n: (float((got[n].float() - exact[n]).abs().max()),
+                   float((ref[n].float() - exact[n]).abs().max()))
+               for n in ("out", "dq", "dk", "dv")}
+    return errs, vs_fp32
+
+
+def check_flash(fa, kernels, dev, flush, dtype):
+    """Phase 3d: B8 (forward) and B9 (dq, dk/dv), one lane, against
+    their plain versions at the training shape [16, 12, 512, 64] causal,
+    a ragged T = 500 and a non-causal cross shape Tq 200 / Tk 512; a
+    query with no key gives zeros and lse NEG_INF; then each kernel
+    timed at the training shape beside its plain version, its bound and
+    an SDPA yardstick the port never calls. Returns one kernels-line
+    record per kernel."""
+    lane = "bf16" if dtype == torch.bfloat16 else "fp32"
+    worst = {n: 0.0 for n in ("out", "lse", "dq", "dk", "dv")}
+    worst_vs = {}
+    for key, (B, H, Tq, Tk, causal) in FLASH_SHAPES.items():
+        q, k, v, do = _flash_case(dev, dtype, B, H, Tq, Tk)
+        errs, vs_fp32 = _flash_errors(fa, q, k, v, do, causal)
+        for n, e in errs.items():
+            worst[n] = max(worst[n], e)
+        _check(errs["lse"] <= FLASH_FWD_TOL,
+               f"flash {lane} {key}: lse differs by {errs['lse']}")
+        if vs_fp32 is None:
+            _check(errs["out"] <= FLASH_FWD_TOL,
+                   f"flash fp32 {key}: out differs by {errs['out']}")
+            for n in ("dq", "dk", "dv"):
+                _check(errs[n] <= FLASH_GRAD_TOL,
+                       f"flash fp32 {key}: {n} differs by {errs[n]}")
+        else:
+            for n, (err, plain_err) in vs_fp32.items():
+                _check(err <= FLASH_BF16_RATIO * plain_err + 1e-3,
+                       f"flash bf16 {key}: {n} is {err} from fp32, the "
+                       f"plain version {plain_err}")
+                w = worst_vs.get(n, (0.0, 0.0))
+                worst_vs[n] = (max(w[0], err), max(w[1], plain_err))
+        del q, k, v, do
+    q, k, v, _do = _flash_case(dev, dtype, 1, 2, 70, 0)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, 0.125)
+    torch.cuda.synchronize()
+    _check(not out.any() and bool((lse == fa.NEG_INF).all()),
+           f"flash {lane}: a query with no key must give 0 and NEG_INF")
+
+    B, H, Tq, Tk, causal = FLASH_SHAPES["main"]
+    q, k, v, do = _flash_case(dev, dtype, B, H, Tq, Tk)
+    saved = _flash_calls(fa, q, k, v, do, causal)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    bwd_args = (q, k, v, do, saved["lse"], saved["delta"], causal, scale)
+    timed = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, causal, scale),
+            lambda: fa.flash_attention_fwd_reference(q, k, v, causal,
+                                                     scale)),
+        "flash_attention_dq": (
+            lambda: fa.flash_attention_dq(*bwd_args),
+            lambda: fa.flash_attention_dq_reference(*bwd_args)),
+        "flash_attention_dkv": (
+            lambda: fa.flash_attention_dkv(*bwd_args),
+            lambda: fa.flash_attention_dkv_reference(*bwd_args)),
+    }
+    # yardsticks: SDPA forward (is_causal: top-left, Tq == Tk), and its
+    # backward, which gives dq, dk and dv in one call
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd_lib_ms = _time_ms(lambda: sdpa(q, k, v, is_causal=True), flush)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o = sdpa(qs, ks, vs, is_causal=True)
+    bwd_lib_ms = _time_ms(lambda: torch.autograd.grad(
+        o, (qs, ks, vs), do, retain_graph=True), flush)
+    del o, qs, ks, vs
+    err_of = {"flash_attention_fwd": max(worst["out"], worst["lse"]),
+              "flash_attention_dq": worst["dq"],
+              "flash_attention_dkv": max(worst["dk"], worst["dv"])}
+    recs = {}
+    for name, (kernel_fn, plain_fn) in timed.items():
+        bound = _flash_bound(name, dtype, B, H, Tq, Tk, q.shape[-1], causal)
+        rec = _lane_record(
+            name if lane == "fp32" else f"{name}_bf16",
+            FLASH_KERNELS[name],
+            "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            err_of[name], _time_ms(kernel_fn, flush),
+            _time_ms(plain_fn, flush, reps=5),
+            fwd_lib_ms if name == "flash_attention_fwd" else bwd_lib_ms,
+            bound, {"shape": [B, H, Tq, Tk, q.shape[-1]], "causal": causal,
+                    "dtype": str(dtype).replace("torch.", "")})
+        if name != "flash_attention_fwd":
+            rec["library_note"] = ("SDPA backward: dq, dk and dv in one "
+                                   "call")
+        if worst_vs:
+            rec["err_vs_fp32_and_plain_bf16_err"] = {
+                n: worst_vs[n] for n in (("out",) if name.endswith("fwd")
+                                         else ("dq",) if
+                                         name.endswith("dq")
+                                         else ("dk", "dv"))}
+        recs[name] = rec
+    recs["flash_attention_dq"]["sdpa_fwd_bwd_ms"] = fwd_lib_ms + bwd_lib_ms
+    kernels.reset_launches()
+    return recs
+
+
+def _param_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for key in sorted(tree)
+                for p in _param_paths(tree[key], f"{prefix}{key}/")]
+    if isinstance(tree, list):
+        return [p for i, item in enumerate(tree)
+                for p in _param_paths(item, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def _loss_and_grads(tt, params, tok, tgt, cfg):
+    live = [p.detach().requires_grad_() for p in tt._leaves(params)]
+    loss = tt.loss_fn(tt._rebuild(params, live), tok, tgt, cfg)
+    return loss.detach(), torch.autograd.grad(loss, live)
+
+
+def _train_batches(dev, n=4, seed=0):
+    """``n`` seeded batches of random tokens and random targets, on the
+    card (bench.py's LM feed)."""
+    rng = np.random.default_rng(seed)
+
+    def batch():
+        return torch.from_numpy(rng.integers(
+            0, TRAIN_CFG["vocab_size"], (TRAIN_B, TRAIN_T)).astype(
+                np.int32)).to(dev)
+
+    return [batch() for _ in range(n)], [batch() for _ in range(n)]
+
+
+def check_train_step(tt, kernels, dev, dtype):
+    """Phase 4d: one full-width training step's loss and gradients with
+    the flash kernels (under sync-debug "error": the step must not sync
+    the host) against the same step through their plain versions
+    (``attn_impl="flash_reference"``), from the same params and batch."""
+    cfg = tt.TransformerConfig(**TRAIN_CFG, dtype=dtype, attn_impl="flash")
+    plain_cfg = tt.TransformerConfig(**TRAIN_CFG, dtype=dtype,
+                                     attn_impl="flash_reference")
+    params = tt.init_params(cfg, seed=0, device=dev)
+    toks, tgts = _train_batches(dev, n=1, seed=1)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, grads = _loss_and_grads(tt, params, toks[0], tgts[0], cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    for name in FLASH_KERNELS:
+        _check(kernels.LAUNCHES[name] == L,
+               f"4d: {name} launched {kernels.LAUNCHES[name]}, want {L}")
+    p_loss, p_grads = _loss_and_grads(tt, params, toks[0], tgts[0],
+                                      plain_cfg)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    _check(bool(torch.isfinite(loss)), f"4d: loss {float(loss)}")
+    tol = TRAIN_REL_TOL[dtype]
+    loss_rel = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
+    _check(loss_rel <= tol, f"4d {dtype}: loss {float(loss)} vs plain "
+           f"{float(p_loss)}")
+    worst, worst_path = 0.0, None
+    for path, g, pg in zip(_param_paths(params), grads, p_grads):
+        _check(bool(torch.isfinite(g).all()), f"4d: non-finite grad {path}")
+        rel = float(torch.linalg.vector_norm((g - pg).float())
+                    / torch.linalg.vector_norm(pg.float()).clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_path = rel, path
+    _check(worst <= tol, f"4d {dtype}: grad {worst_path} relative L2 "
+           f"{worst} > {tol}")
+    return {"dtype": str(dtype).replace("torch.", ""), "loss": float(loss),
+            "plain_loss": float(p_loss), "loss_rel_err": loss_rel,
+            "grad_max_rel_l2": worst, "grad_worst_leaf": worst_path,
+            "grad_leaves": len(grads), "tol": tol,
+            "sync_debug": "error"}
+
+
+def _train_flops(cfg):
+    """Model FLOPs of one step: 6 per matmul weight per token (forward
+    and backward), plus attention: q.k and p.v over the causal pairs,
+    three times over (forward, backward)."""
+    D, Fd, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    n_mm = L * (4 * D * D + 2 * D * Fd) + V * D
+    pairs = TRAIN_T * (TRAIN_T + 1) / 2
+    attn = L * 3 * 4 * TRAIN_B * cfg.n_heads * pairs * cfg.head_dim
+    return 6.0 * n_mm * TRAIN_B * TRAIN_T + attn
+
+
+def train(tt, kernels, dev, key="train_transformer", dtype=torch.bfloat16,
+          attn_impl="flash", warmup=3, steps=20, kstep=8, kstep_calls=2,
+          reference=None):
+    """Phase 5d: a training run. ``make_train_step(cfg, lr=0.01)`` at
+    bench.py's shape: ``warmup`` steps, then ``steps`` timed in one
+    window (tokens/s; step ms p50 from CUDA events between steps, no
+    host syncs), every loss read back once at the end and held finite.
+    The launch counts are zeroed just before the first step and read
+    just after the last: each flash kernel runs once per layer and step
+    (none for ``attn_impl="xla"``). With ``kstep``, then
+    ``make_kstep_train_step`` with that K, ``kstep_calls`` timed calls
+    after one warm-up call, its launches exact too. ``reference``: the
+    per-step losses of another run, compared (reported, not gated)."""
+    cfg = tt.TransformerConfig(**TRAIN_CFG, dtype=dtype, attn_impl=attn_impl)
+    params = tt.init_params(cfg, seed=0, device=dev)
+    velocity = tt._rebuild(params, [torch.zeros_like(p)
+                                    for p in tt._leaves(params)])
+    toks, tgts = _train_batches(dev)
+    step = tt.make_train_step(cfg, lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L = cfg.n_layers
+    per_step = L if attn_impl == "flash" else 0
+    kernels.reset_launches()                       # the main path: go
+    losses = []
+    for i in range(warmup):
+        params, velocity, loss = step(params, velocity, toks[i % 4],
+                                      tgts[i % 4])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(steps + 1)]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        events[i].record()
+        j = (warmup + i) % 4
+        params, velocity, loss = step(params, velocity, toks[j], tgts[j])
+        losses.append(loss)
+    events[steps].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)              # read just after
+    n = warmup + steps
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for name in FLASH_KERNELS:
+        want[name] = per_step * n
+    _check(launches == want, f"{key}: launches {launches} over {n} steps, "
+           f"want {want}")
+    loss_list = torch.stack(losses).cpu().tolist()
+    _check(all(np.isfinite(loss_list)), f"{key}: non-finite loss "
+           f"{loss_list}")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    tokens = TRAIN_B * TRAIN_T
+    flops = _train_flops(cfg)
+    rec = {"dtype": str(dtype).replace("torch.", ""),
+           "attn_impl": attn_impl, "batch": [TRAIN_B, TRAIN_T],
+           "layers": L, "lr": TRAIN_LR, "warmup_steps": warmup,
+           "timed_steps": steps, "wall_s": wall,
+           "tokens_per_s": tokens * steps / wall,
+           "step_ms_p50": float(np.median(step_ms)),
+           "step_ms_min": float(np.min(step_ms)),
+           "model_tflop_per_step": flops / 1e12,
+           "model_tflops_per_s": flops * steps / wall / 1e12,
+           "mfu_vs_bf16_peak": flops * steps / wall / H100_BF16_FLOPS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss_first": loss_list[0], "loss_last": loss_list[-1],
+           "losses_finite": len(loss_list), "launches": launches}
+    if reference is not None:
+        m = min(len(reference), len(loss_list))
+        rec["loss_max_abs_diff_vs_flash"] = float(np.max(np.abs(
+            np.asarray(loss_list[:m]) - np.asarray(reference[:m]))))
+    if kstep:
+        fn = tt.make_kstep_train_step(cfg, lr=TRAIN_LR)
+        tk_ = torch.stack([toks[i % 4] for i in range(kstep)])
+        gk_ = torch.stack([tgts[i % 4] for i in range(kstep)])
+        kernels.reset_launches()                   # the K-step path: go
+        params, velocity, kl = fn(params, velocity, tk_, gk_)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        klosses = [kl]
+        for _ in range(kstep_calls):
+            params, velocity, kl = fn(params, velocity, tk_, gk_)
+            klosses.append(kl)
+        torch.cuda.synchronize()
+        kwall = time.perf_counter() - t0
+        klaunch = dict(kernels.LAUNCHES)           # read just after
+        kn = kstep * (kstep_calls + 1)
+        kwant = dict.fromkeys(kernels.LAUNCHES, 0)
+        for name in FLASH_KERNELS:
+            kwant[name] = per_step * kn
+        _check(klaunch == kwant, f"{key} kstep: launches {klaunch}, want "
+               f"{kwant}")
+        kvals = torch.cat(klosses).cpu().tolist()
+        _check(all(np.isfinite(kvals)), f"{key} kstep: non-finite loss")
+        rec.update({"kstep_k": kstep, "kstep_timed_calls": kstep_calls,
+                    "kstep_tokens_per_s": tokens * kstep * kstep_calls
+                    / kwall, "kstep_loss_last": kvals[-1],
+                    "kstep_launches": klaunch})
+    del params, velocity
+    kernels.reset_launches()
+    return {key: rec}, launches, loss_list
+
+
+def profile_train(tt, dev, n_steps=2):
+    """Where a full-width bf16 training step's time goes: ``n_steps``
+    steps under ``torch.profiler`` after two warm-up steps, with B8 and
+    B9's device ms per step."""
+    cfg = tt.TransformerConfig(**TRAIN_CFG, attn_impl="flash")
+    params = tt.init_params(cfg, seed=0, device=dev)
+    velocity = tt._rebuild(params, [torch.zeros_like(p)
+                                    for p in tt._leaves(params)])
+    toks, tgts = _train_batches(dev)
+    step = tt.make_train_step(cfg, lr=TRAIN_LR)
+
+    def call(i):
+        loss = step(params, velocity, toks[i % 4], tgts[i % 4])[2]
+        return loss.cpu()
+
+    return {"profile_train": dict(
+        {"batch": [TRAIN_B, TRAIN_T], "dtype": "bfloat16"},
+        **_profile([lambda i=i: call(i) for i in range(n_steps + 2)],
+                   named=("tc::fwd_kernel", "tc::dq_kernel",
+                          "tc::dkv_kernel")))}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the "
@@ -980,12 +1431,14 @@ def main():
         return 1
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.kernels import quant_matmul as qm
     from paddle_tpu_torch.serving import (DecodeEngine, DecoderConfig,
                                           init_params, make_pools)
     from paddle_tpu_torch.serving import decode_model as dm
     from paddle_tpu_torch.serving.decode_engine import _probe_kv_absmax
+    from paddle_tpu_torch.models import transformer as tt
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1036,6 +1489,13 @@ def main():
         for rec in (dlanes[dtype], clanes[dtype]):
             _say(f"kernel check: {rec['name']} max_abs_err "
                  f"{rec['max_abs_err']:.3e} <= {ATTN_TOL}")
+    # 3d: the flash-attention forward (B8) and backward (B9), both lanes
+    flanes = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        flanes[dtype] = check_flash(fa, kernels, dev, flush, dtype)
+        for rec in flanes[dtype].values():
+            _say(f"kernel check: {rec['name']} max_abs_err "
+                 f"{rec['max_abs_err']:.3e}")
     kernels.reset_launches()
     del flush
     _say(f"kernel phases done at {time.perf_counter() - t0:.1f} s")
@@ -1057,6 +1517,11 @@ def main():
     wqrec = check_quant_whole_steps(dm, make_pools, cfg, qparams, kv8, cal,
                                     script, fp32_whole)
     _say("quant whole-mode steps check: " + json.dumps(wqrec))
+    # 4d: one full-width training step, kernels vs plain flash versions
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.cuda.empty_cache()
+        _say("train step check: " + json.dumps(
+            check_train_step(tt, kernels, dev, dtype)))
     del qparams, fp32_logits, fp32_whole, script
     _say(f"step phases done at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
@@ -1151,19 +1616,46 @@ def main():
     pwrec = profile_whole(dm, make_pools, cfg, params, kv, max_slots)
     _say(f"whole serving phases done at {time.perf_counter() - t0:.1f} s")
 
+    # 5d: the training slice's main path: bf16 with the flash kernels,
+    # then the same steps with the plain attention ("xla") and a short
+    # fp32 run (the fp32 lanes' launches)
+    del params
+    train_runs = {}
+    for key, kw in (("train_transformer", {}),
+                    ("train_xla", dict(attn_impl="xla", kstep=None)),
+                    ("train_fp32", dict(dtype=torch.float32, warmup=2,
+                                        steps=5, kstep=None))):
+        torch.cuda.empty_cache()
+        ref = (train_runs["train_transformer"][2] if key == "train_xla"
+               else None)
+        train_runs[key] = train(tt, kernels, dev, key=key, reference=ref,
+                                **kw)
+    for dtype, key in ((torch.float32, "train_fp32"),
+                       (torch.bfloat16, "train_transformer")):
+        for name, rec in flanes[dtype].items():
+            rec["launches"] = train_runs[key][1][name]
+    torch.cuda.empty_cache()
+    ptrec = profile_train(tt, dev)
+    _say(f"training phases done at {time.perf_counter() - t0:.1f} s")
+
     _say(json.dumps(prec))
     _say(json.dumps(pqrec))
     _say(json.dumps(pwrec))
+    _say(json.dumps(ptrec))
     _say(json.dumps({"kernels": [
         krec, lanes["bfloat16"], lanes["int8"], lanes["fp8-e4m3"],
         *(dlanes[d] for d in ("float32", "bfloat16", "int8", "fp8-e4m3")),
         *(clanes[d] for d in ("float32", "bfloat16", "int8", "fp8-e4m3")),
-        qrecs["int8"], qrecs["fp8-e4m3"]]}))
+        qrecs["int8"], qrecs["fp8-e4m3"],
+        *(flanes[d][n] for d in (torch.float32, torch.bfloat16)
+          for n in FLASH_KERNELS)]}))
     _say(json.dumps(srec))
     for rec in (sqrec, s8rec, sbrec):
         _say(json.dumps(rec))
     for key in whole_runs:
         _say(json.dumps(whole_runs[key][0]))
+    for key in train_runs:
+        _say(json.dumps(train_runs[key][0]))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

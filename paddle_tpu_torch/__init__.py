@@ -5,10 +5,13 @@ the reference it is held against. The slices so far are generative
 serving: ``serving.DecodeEngine`` with chunked or whole-prompt prefill
 and continuous or static admission over a block-paged KV cache
 (float32, bfloat16, or int8 / fp8-e4m3 with per-block scales), with
-fp32 or quantized projection weights. Its kernels (the mixed-step,
-decode-step and chunk forms of paged attention in
-``kernels.paged_attention``, and ``kernels.quant_matmul``) are written
-by hand in CUDA C++ for sm_90a.
+fp32 or quantized projection weights; and training the transformer LM
+(``models.transformer``: bf16 compute over fp32 master weights, SGD
+with momentum). Their kernels (the mixed-step, decode-step and chunk
+forms of paged attention in ``kernels.paged_attention``,
+``kernels.quant_matmul``, and the flash-attention forward and backward
+in ``kernels.flash_attention``) are written by hand in CUDA C++ for
+sm_90a.
 
 Entry points run on the CUDA card by default; ``device="cpu"`` is the
 explicit opt-in the tests use, where every kernel wrapper takes its

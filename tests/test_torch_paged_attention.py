@@ -138,7 +138,8 @@ def test_cpu_path_launches_no_kernel():
                                 "paged_attention", "paged_attention_quant",
                                 "paged_attention_chunk",
                                 "paged_attention_chunk_quant",
-                                "quant_matmul"}
+                                "quant_matmul", "flash_attention_fwd",
+                                "flash_attention_dq", "flash_attention_dkv"}
     assert not any(tk.LAUNCHES.values())
 
 
