@@ -90,8 +90,34 @@ The training slice adds, in the same run:
    ``profile_train``: two steps under ``torch.profiler``, with B8 and
    B9's device time per step.
 
+The seq2seq slice adds, in the same run:
+
+3e. the fused GRU forward (B12, ``gru_fwd``) and backward (B13: the
+   reverse recurrence ``gru_bwd`` and the dW reduction ``gru_dw``), fp32
+   and bf16 lanes, against their plain versions at the training shape (T
+   30, B 512, D 512), the generation shape (B 128) and a ragged training
+   batch (lengths 0..30); fp32 to 1e-5 (hs, gates) / 1e-4 (dx, dh0; dW
+   by relative L2), bf16 no further from the fp32 plain result than 1.5x
+   the bf16 plain version + 1e-3; each kernel timed beside its plain
+   version and its bound (no PyTorch call computes this GRU);
+4e. one full-width seq2seq training step (bench.py's bench_seq2seq
+   config, half the sources ragged) in fp32 and bf16 through the kernels
+   (under sync-debug "error") against the same step through their plain
+   versions: the loss and every gradient by relative L2 (fp32 1e-4; bf16
+   no further from the fp32 plain gradient than 1.5x the bf16 plain
+   path + 1e-2);
+5e. the slice's main paths: ``train_seq2seq`` (bf16, Adam, 3 + 20
+   steps over bench.py's 4 seeded batches: tokens/s, step ms, MFU, peak
+   memory, every loss finite; each GRU kernel launched exactly 2 x
+   steps), ``train_seq2seq_fp32`` (2 + 5 steps, the fp32 lanes),
+   ``generate_beam`` (bench_beam: fp32, batch 128, beam 5, length 30;
+   one call under sync-debug "error", 2 ``gru_fwd`` launches per call,
+   deterministic; best-beam agreement with the plain GRU reported) and
+   ``profile_seq2seq`` (one bf16 step under ``torch.profiler``).
+
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
-lane of every kernel), the ``serve`` and ``train`` lines and, last,
+lane of every kernel), the ``serve``, ``train`` and seq2seq lines and,
+last,
 ``{"ok": true, "device": {...}}``. Float32 matmuls run in full float32
 (TF32 off). With no CUDA card it exits non-zero at once.
 """
@@ -1424,6 +1450,489 @@ def profile_train(tt, dev, n_steps=2):
                           "tc::dkv_kernel")))}
 
 
+# ----------------------------------------------------------------- seq2seq
+
+# the B12/B13 kernels: forward; backward recurrence; backward dW reduction
+GRU_KERNELS = {
+    "gru_fwd": "paddle_tpu/kernels/fused_rnn.py:450",
+    "gru_bwd": "paddle_tpu/kernels/fused_rnn.py:481",
+    "gru_dw": "paddle_tpu/kernels/fused_rnn.py:481",
+}
+GRU_SOURCE = "paddle_tpu_torch/kernels/csrc/fused_rnn.cu"
+GRU_FWD_TOL = 1e-5              # fp32 hs and gates, kernel vs plain
+GRU_GRAD_TOL = 1e-4             # fp32 dx and dh0
+GRU_DW_REL = 1e-4               # fp32 dW, relative L2
+GRU_LIBRARY_NOTE = ("none: no PyTorch call computes this GRU (torch.nn.GRU "
+                    "/ cuDNN applies the reset gate after the recurrent "
+                    "product, this GRU before it)")
+# bench.py:882-884 (bench_seq2seq) and :941-942 (bench_beam): emb 256,
+# hidden 512, vocab 8000; training batch 512 x 30 -> 30 in bf16, Adam
+S2S_CFG = dict(src_vocab=8000, tgt_vocab=8000, emb_dim=256, hidden_dim=512)
+S2S_B, S2S_S, S2S_T, S2S_LR = 512, 30, 30, 1e-3
+BEAM_B, BEAM_K = 128, 5
+# 3e's shapes (T, B, D, ragged): what training and generation give B12/B13
+GRU_SHAPES = {"train": (30, 512, 512, False), "beam": (30, 128, 512, False),
+              "ragged": (30, 512, 512, True)}
+# 4e: one full-width seq2seq step, kernels vs plain GRU versions: the loss
+# and every gradient by relative L2, each leaf's norm floored at
+# S2S_NORM_FLOOR x the whole gradient's norm: a leaf that cancels below
+# that is at fp32's noise floor, where its value moves with the last bit
+# of any input (att_dec_w at init: the query's term is the same at every
+# source position up to tanh's curvature and the softmax ignores a common
+# shift, so its gradient is ~1e-9 of the whole).
+# fp32: sum order only. bf16: each kernel-path gradient no further from
+# the fp32 plain gradient than S2S_BF16_RATIO x the bf16 plain path's +
+# 1e-2 (the plain path's own bf16 error sets the gate: both round every
+# eager op to bf16)
+S2S_REL_TOL = 1e-4
+S2S_BF16_RATIO = 1.5
+S2S_NORM_FLOOR = 1e-6
+
+
+def _gru_case(dev, T, B, D, ragged, seed=0):
+    """Seeded GRU inputs at one shape (fp32): x, w, lens, h0, dhs; ragged
+    lengths are drawn from 0..T with 0 and T present."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    if ragged:
+        lens = torch.randint(0, T + 1, (B, 1), generator=g,
+                             device=dev).float()
+        lens[0], lens[1] = 0.0, float(T)
+    else:
+        lens = torch.full((B, 1), float(T), device=dev)
+    return (randn(T, B, 3 * D, scale=0.5), randn(D, 3 * D, scale=0.05),
+            lens, randn(B, D, scale=0.3), randn(T, B, D))
+
+
+def _gru_bound(name, dtype, T, B, D):
+    """Least time of one call: its inputs read once and outputs written
+    once (payload at the lane's width, lens fp32) over the HBM rate,
+    against its products (2 FLOPs per multiply-add: fwd h@W_ur and rh@W_c;
+    bwd dc@W_c^T and dur@W_ur^T; dW the same two as outer products) over
+    the lane's peak (fp32 CUDA cores, bf16 tensor cores)."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    tb = T * B
+    if name == "gru_fwd":   # x, W, h0 -> hs, gates (+ lens)
+        nbytes = e * (tb * 3 * D + 3 * D * D + B * D + tb * D
+                      + tb * 3 * D) + 4 * B
+    elif name == "gru_bwd":  # gates, hprev, W, dhs -> dx, dh0 (+ lens)
+        nbytes = e * (tb * 3 * D + tb * D + 3 * D * D + tb * D
+                      + tb * 3 * D + B * D) + 4 * B
+    else:                    # hprev, r, dx -> dW
+        nbytes = e * (tb * D + tb * D + tb * 3 * D + 3 * D * D)
+    flops = 2.0 * tb * D * 3 * D
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _grad_norm(grads):
+    return float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads.values()])))
+
+
+def _rel_l2(a, b, floor=1e-30):
+    """||a - b|| / ||b||, with ||b|| floored at ``floor``."""
+    return float(torch.linalg.vector_norm((a.float() - b.float()))
+                 / max(float(torch.linalg.vector_norm(b.float())), floor))
+
+
+def _max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def _gru_errors(fr, x, w, lens, h0, dhs, dtype):
+    """Each kernel (forward; backward recurrence; dW) against its plain
+    version on the kernel's own inputs, one lane. fp32: max |kernel -
+    plain| (dW: relative L2). bf16: each output's error against the fp32
+    plain result beside the bf16 plain version's, as (kernel, plain)."""
+    xs, ws, h0s, dhss = (t.to(dtype) for t in (x, w, h0, dhs))
+    hs, gates = fr.gru_fwd(xs, ws, lens, h0s)
+    dx, dh0 = fr.gru_bwd_data(gates, hs, ws, lens, h0s, dhss)
+    dw = fr.gru_dw(gates, hs, h0s, dx)
+    torch.cuda.synchronize()
+    r_hs, r_gates = fr.gru_fwd_reference(xs, ws, lens, h0s)
+    r_dx, r_dh0 = fr.gru_bwd_data_reference(gates, hs, ws, lens, h0s, dhss)
+    r_dw = fr.gru_dw_reference(gates, hs, h0s, dx)
+    got = {"hs": hs, "gates": gates, "dx": dx, "dh0": dh0}
+    plain = {"hs": r_hs, "gates": r_gates, "dx": r_dx, "dh0": r_dh0}
+    if dtype == torch.float32:
+        errs = {n: _max_err(got[n], plain[n]) for n in got}
+        errs["dw_rel_l2"] = _rel_l2(dw, r_dw)
+        return errs, got
+    f = [t.float() for t in (xs, ws, h0s, dhss)]
+    e_hs, e_gates = fr.gru_fwd_reference(f[0], f[1], lens, f[2])
+    e_dx, e_dh0 = fr.gru_bwd_data_reference(gates.float(), hs.float(), f[1],
+                                            lens, f[2], f[3])
+    e_dw = fr.gru_dw_reference(gates.float(), hs.float(), f[2], dx.float())
+    exact = {"hs": e_hs, "gates": e_gates, "dx": e_dx, "dh0": e_dh0}
+    errs = {n: (_max_err(got[n], exact[n]), _max_err(plain[n], exact[n]))
+            for n in got}
+    errs["dw_rel_l2"] = (_rel_l2(dw, e_dw), _rel_l2(r_dw, e_dw))
+    return errs, got
+
+
+def check_gru(fr, kernels, dev, flush, dtype):
+    """Phase 3e: B12 (gru_fwd) and B13 (gru_bwd: the reverse recurrence;
+    gru_dw: the dW reduction), one lane, against their plain versions at
+    the training shape (T 30, B 512, D 512), the generation shape (B
+    128) and a ragged training batch (lengths 0..30: a zero-length row
+    keeps h0 and gets no gradient). fp32: hs/gates to 1e-5, dx/dh0 to
+    1e-4, dW to 1e-4 relative L2; bf16: no further from the fp32 plain
+    result than 1.5x the bf16 plain version + 1e-3. Then each kernel
+    timed beside its plain version and its bound (fp32 gru_fwd at the
+    generation shape, which runs it; everything else at the training
+    shape). Returns one kernels-line record per kernel."""
+    lane = "bf16" if dtype == torch.bfloat16 else "fp32"
+    worst = {}
+    for key, (T, B, D, ragged) in GRU_SHAPES.items():
+        x, w, lens, h0, dhs = _gru_case(dev, T, B, D, ragged)
+        errs, got = _gru_errors(fr, x, w, lens, h0, dhs, dtype)
+        for n, e in errs.items():
+            if dtype == torch.float32:
+                worst[n] = max(worst.get(n, 0.0), e)
+                tol = (GRU_FWD_TOL if n in ("hs", "gates") else GRU_DW_REL
+                       if n == "dw_rel_l2" else GRU_GRAD_TOL)
+                _check(e <= tol, f"gru fp32 {key}: {n} differs by {e}")
+            else:
+                err, plain_err = e
+                w_ = worst.get(n, (0.0, 0.0))
+                worst[n] = (max(w_[0], err), max(w_[1], plain_err))
+                _check(err <= FLASH_BF16_RATIO * plain_err + 1e-3,
+                       f"gru bf16 {key}: {n} is {err} from fp32, the plain "
+                       f"version {plain_err}")
+        if ragged:
+            zero = lens[:, 0] == 0
+            _check(bool((got["hs"][:, zero].float()
+                         == h0[zero].to(dtype).float()).all()),
+                   f"gru {lane}: a zero-length row must keep h0")
+            _check(not got["dx"][:, zero].any(),
+                   f"gru {lane}: a zero-length row must get no gradient")
+        del x, w, lens, h0, dhs, got
+    recs = {}
+    for name in GRU_KERNELS:
+        T, B, D, _r = GRU_SHAPES["beam" if (name == "gru_fwd" and
+                                            lane == "fp32") else "train"]
+        x, w, lens, h0, dhs = (t.to(dtype) if t.shape[-1] != 1 else t
+                               for t in _gru_case(dev, T, B, D, False))
+        hs, gates = fr.gru_fwd(x, w, lens, h0)
+        dx, _dh0 = fr.gru_bwd_data(gates, hs, w, lens, h0, dhs)
+        kernel_fn, plain_fn = {
+            "gru_fwd": (lambda: fr.gru_fwd(x, w, lens, h0),
+                        lambda: fr.gru_fwd_reference(x, w, lens, h0)),
+            "gru_bwd": (lambda: fr.gru_bwd_data(gates, hs, w, lens, h0, dhs),
+                        lambda: fr.gru_bwd_data_reference(gates, hs, w, lens,
+                                                          h0, dhs)),
+            "gru_dw": (lambda: fr.gru_dw(gates, hs, h0, dx),
+                       lambda: fr.gru_dw_reference(gates, hs, h0, dx)),
+        }[name]
+        err_of = {"gru_fwd": ("hs", "gates"), "gru_bwd": ("dx", "dh0"),
+                  "gru_dw": ("dw_rel_l2",)}[name]
+        rec = _lane_record(
+            name if lane == "fp32" else f"{name}_bf16", GRU_KERNELS[name],
+            GRU_SOURCE,
+            max(worst[n] if lane == "fp32" else worst[n][0] for n in err_of),
+            _time_ms(kernel_fn, flush), _time_ms(plain_fn, flush, reps=5),
+            None, _gru_bound(name, dtype, T, B, D),
+            {"shape": [T, B, D], "dtype": str(dtype).replace("torch.", ""),
+             "library_note": GRU_LIBRARY_NOTE})
+        if name == "gru_dw":
+            rec["err_is"] = "relative L2"
+        if lane == "bf16":
+            rec["err_vs_fp32_and_plain_bf16_err"] = {n: worst[n]
+                                                     for n in err_of}
+        recs[name] = rec
+        del x, w, lens, h0, dhs, hs, gates, dx
+    # the fp32 forward also at the training shape (the fp32 train run)
+    if lane == "fp32":
+        T, B, D, _r = GRU_SHAPES["train"]
+        x, w, lens, h0, _d = _gru_case(dev, T, B, D, False)
+        recs["gru_fwd"]["train_shape_ms"] = _time_ms(
+            lambda: fr.gru_fwd(x, w, lens, h0), flush)
+        recs["gru_fwd"]["train_shape_bound_ms"] = _gru_bound(
+            "gru_fwd", dtype, T, B, D)[0]
+    # B13 as the JAX kernel counts it: the recurrence and dW together
+    recs["gru_bwd"]["b13_ms"] = recs["gru_bwd"]["ms"] + recs["gru_dw"]["ms"]
+    T, B, D, _r = GRU_SHAPES["train"]
+    tb, e = T * B, 2 if dtype == torch.bfloat16 else 4
+    b13_bytes = e * (2 * tb * 3 * D + 2 * tb * D + 2 * 3 * D * D + B * D)
+    b13_ops = 4.0 * tb * D * 3 * D
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    recs["gru_bwd"]["b13_bound_ms"] = max(b13_bytes / H100_BYTES_PER_S,
+                                          b13_ops / peak) * 1e3
+    kernels.reset_launches()
+    return recs
+
+
+def _s2s_batches(dev, n=4, seed=0, ragged=False):
+    """bench.py:891-900's feed: ``n`` seeded batches of random tokens
+    (ids 2..7999), all-ones masks; ``ragged`` gives the first half of the
+    rows source lengths 1..30 (row 0: 1, row 1: 30)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        b = {"src": rng.randint(2, 8000, (S2S_B, S2S_S)),
+             "src_mask": np.ones((S2S_B, S2S_S), np.float32),
+             "tgt_in": rng.randint(2, 8000, (S2S_B, S2S_T)),
+             "tgt_out": rng.randint(2, 8000, (S2S_B, S2S_T)),
+             "tgt_mask": np.ones((S2S_B, S2S_T), np.float32)}
+        if ragged:
+            half = S2S_B // 2
+            lens = rng.randint(1, S2S_S + 1, half)
+            lens[0], lens[1] = 1, S2S_S
+            b["src_mask"][:half] = (np.arange(S2S_S)[None]
+                                    < lens[:, None]).astype(np.float32)
+        out.append({k: torch.from_numpy(np.asarray(
+            v, np.int32 if v.dtype.kind == "i" else np.float32)).to(dev)
+                    for k, v in b.items()})
+    return out
+
+
+def _s2s_grads(s2s, params, b, cfg):
+    live = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = s2s.decode_train_loss(live, b["src"], b["src_mask"], b["tgt_in"],
+                                 b["tgt_out"], b["tgt_mask"], cfg)
+    grads = torch.autograd.grad(loss, list(live.values()))
+    return loss.detach(), dict(zip(live, grads))
+
+
+def check_s2s_step(s2s, fr, kernels, dev):
+    """Phase 4e: one full-width seq2seq training step (bench_seq2seq's
+    config, half the sources ragged) in fp32 and in bf16, through the
+    GRU kernels (under sync-debug "error": the step must not sync the
+    host; two launches of each kernel: the encoder's two directions)
+    against the same step through their plain versions
+    (``fused_rnn.plain_versions()``), from the same params and batch."""
+    batch = _s2s_batches(dev, n=1, seed=1, ragged=True)[0]
+    recs, exact = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.cuda.empty_cache()
+        cfg = s2s.Seq2SeqConfig(**S2S_CFG, dtype=dtype)
+        params = s2s.init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, grads = _s2s_grads(s2s, params, batch, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        for name in GRU_KERNELS:
+            _check(kernels.LAUNCHES[name] == 2,
+                   f"4e: {name} launched {kernels.LAUNCHES[name]}, want 2")
+        with fr.plain_versions():
+            p_loss, p_grads = _s2s_grads(s2s, params, batch, cfg)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        _check(bool(torch.isfinite(loss)), f"4e: loss {float(loss)}")
+        loss_rel = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
+        rec = {"dtype": str(dtype).replace("torch.", ""),
+               "loss": float(loss), "plain_loss": float(p_loss),
+               "loss_rel_err": loss_rel, "sync_debug": "error",
+               "ragged_rows": S2S_B // 2}
+        if exact is None:
+            exact = p_grads
+            floor = S2S_NORM_FLOOR * _grad_norm(exact)
+        rels = {}
+        for k, g in grads.items():
+            _check(bool(torch.isfinite(g).all()), f"4e: non-finite grad {k}")
+            rels[k] = (_rel_l2(g, p_grads[k], floor),
+                       _rel_l2(g, p_grads[k]))
+        worst_k = max(rels, key=lambda k: rels[k][0])
+        worst = rels[worst_k][0]
+        unfloored_k = max(rels, key=lambda k: rels[k][1])
+        rec.update({
+            "grad_max_rel_l2": worst, "grad_worst_leaf": worst_k,
+            "grad_max_rel_l2_unfloored": rels[unfloored_k][1],
+            "grad_worst_leaf_unfloored": unfloored_k,
+            "leaf_norm_over_grad_norm": float(torch.linalg.vector_norm(
+                p_grads[unfloored_k].float())) / _grad_norm(p_grads),
+            "norm_floor": S2S_NORM_FLOOR})
+        if dtype == torch.float32:
+            _check(loss_rel <= S2S_REL_TOL and worst <= S2S_REL_TOL,
+                   f"4e fp32: loss rel {loss_rel}, grad {worst_k} rel "
+                   f"{worst} > {S2S_REL_TOL}")
+            rec["tol"] = S2S_REL_TOL
+        else:
+            gate = {}
+            for k, g in grads.items():
+                err = _rel_l2(g, exact[k], floor)
+                plain_err = _rel_l2(p_grads[k], exact[k], floor)
+                gate[k] = (err, plain_err)
+                _check(err <= S2S_BF16_RATIO * plain_err + 1e-2,
+                       f"4e bf16: grad {k} is {err} from the fp32 plain "
+                       f"gradient, the bf16 plain path {plain_err}")
+            rec["grad_rel_l2_vs_fp32_plain_and_plain_bf16"] = gate
+            _check(loss_rel <= 1e-2, f"4e bf16: loss rel {loss_rel}")
+        recs.append(rec)
+        del params, grads
+    return recs
+
+
+def _s2s_flops(cfg):
+    """bench.py:924-929: model FLOPs of one training step (3 x forward,
+    2 per multiply-add) per target token, times B x T."""
+    e, h, v = cfg.emb_dim, cfg.hidden_dim, cfg.tgt_vocab
+    macs_tok = (2 * 3 * h * (e + h) + 3 * h * (e + 3 * h)
+                + h * h + 2 * S2S_S * h + h * v)
+    return 3 * 2 * macs_tok * S2S_B * S2S_T
+
+
+def train_s2s(s2s, kernels, dev, key="train_seq2seq", dtype=torch.bfloat16,
+              warmup=3, steps=20):
+    """Phase 5e: a seq2seq training run. ``make_train_step(cfg,
+    lr=1e-3)`` (Adam) at bench_seq2seq's shape over its 4 seeded batches:
+    ``warmup`` steps, then ``steps`` timed in one window (tokens/s: B x T
+    target tokens per step; step ms p50 from CUDA events between steps,
+    no host syncs), every loss read back once at the end and held
+    finite. The launch counts are zeroed just before the first step and
+    read just after the last: each GRU kernel runs twice per step."""
+    cfg = s2s.Seq2SeqConfig(**S2S_CFG, dtype=dtype)
+    params = s2s.init_params(cfg, seed=0, device=dev)
+    opt, step = s2s.make_train_step(cfg, lr=S2S_LR)
+    state = opt.init(params)
+    batches = _s2s_batches(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()                       # the main path: go
+    losses = []
+    for i in range(warmup):
+        params, state, loss = step(params, state, batches[i % 4])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        events[i].record()
+        params, state, loss = step(params, state, batches[(warmup + i) % 4])
+        losses.append(loss)
+    events[steps].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)              # read just after
+    n = warmup + steps
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for name in GRU_KERNELS:
+        want[name] = 2 * n
+    _check(launches == want, f"{key}: launches {launches} over {n} steps, "
+           f"want {want}")
+    loss_list = torch.stack(losses).cpu().tolist()
+    _check(all(np.isfinite(loss_list)), f"{key}: non-finite loss "
+           f"{loss_list}")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    flops = _s2s_flops(cfg)
+    del params, state
+    kernels.reset_launches()
+    return {key: {
+        "dtype": str(dtype).replace("torch.", ""),
+        "batch": [S2S_B, S2S_S, S2S_T], "widths": S2S_CFG, "lr": S2S_LR,
+        "warmup_steps": warmup, "timed_steps": steps, "wall_s": wall,
+        "tokens_per_s": S2S_B * S2S_T * steps / wall,
+        "step_ms_p50": float(np.median(step_ms)),
+        "step_ms_min": float(np.min(step_ms)),
+        "model_tflop_per_step": flops / 1e12,
+        "mfu_vs_bf16_peak": flops * steps / wall / H100_BF16_FLOPS,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "loss_first": loss_list[0], "loss_last": loss_list[-1],
+        "losses_finite": len(loss_list), "launches": launches}}, launches
+
+
+def generate_beam(s2s, fr, kernels, dev, calls=6):
+    """Phase 5e: beam-search generation at bench_beam's config (fp32,
+    batch 128, beam 5, source and output length 30, 2 seeded sources).
+    One call under sync-debug "error" (nothing in the search may sync),
+    then ``calls`` timed calls alternating the sources (ms per batch;
+    emitted tokens/s: batch x max_len per call). The launch counts are
+    zeroed just before the first call and read just after the last: two
+    ``gru_fwd`` launches per call (the encoder). Two calls on one source
+    give the same sequences; agreement of the best beam with the
+    plain-GRU path is reported, not gated."""
+    cfg = s2s.Seq2SeqConfig(**S2S_CFG)
+    params = s2s.init_params(cfg, seed=0, device=dev)
+    rng = np.random.RandomState(0)
+    srcs = [torch.from_numpy(rng.randint(2, 8000, (BEAM_B, S2S_S)).astype(
+        np.int32)).to(dev) for _ in range(2)]
+    mask = torch.ones((BEAM_B, S2S_S), device=dev)
+
+    def gen(src):
+        return s2s.generate(params, src, mask, cfg, beam_size=BEAM_K,
+                            max_len=S2S_T)
+
+    gen(srcs[1])                                   # allocator warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()                       # the main path: go
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = gen(srcs[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        out = gen(srcs[i % 2])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / calls
+    launches = dict(kernels.LAUNCHES)              # read just after
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want["gru_fwd"] = 2 * (calls + 1)
+    _check(launches == want, f"generate_beam: launches {launches}, want "
+           f"{want}")
+    again = gen(srcs[0])
+    _check(torch.equal(first.sequences, again.sequences)
+           and torch.equal(first.lengths, again.lengths),
+           "generate_beam: two calls on one source differ")
+    with fr.plain_versions():
+        plain = gen(srcs[0])
+    seqs, lens = first.sequences.cpu(), first.lengths.cpu()
+    _check(tuple(seqs.shape) == (BEAM_B, BEAM_K, S2S_T)
+           and bool(((lens >= 1) & (lens <= S2S_T)).all())
+           and bool(torch.isfinite(first.scores).all())
+           and bool((first.scores[:, :-1] >= first.scores[:, 1:]).all()),
+           "generate_beam: malformed result")
+    best_equal = float((seqs[:, 0] == plain.sequences[:, 0].cpu())
+                       .all(dim=1).float().mean())
+    del params, out
+    kernels.reset_launches()
+    return {"generate_beam": {
+        "dtype": "float32", "batch": BEAM_B, "beam": BEAM_K,
+        "src_len": S2S_S, "max_len": S2S_T, "widths": S2S_CFG,
+        "timed_calls": calls, "ms_per_batch": wall * 1e3,
+        "emitted_tokens_per_s": BEAM_B * S2S_T / wall,
+        "mean_best_length": float(lens[:, 0].float().mean()),
+        "deterministic": True, "sync_debug": "error",
+        "best_beam_equal_share_vs_plain_gru": best_equal,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches}}, launches
+
+
+def profile_s2s(s2s, dev):
+    """Where a full-width bf16 seq2seq training step's time goes: one
+    step under ``torch.profiler`` after two warm-up steps, with B12 and
+    B13's device ms per step."""
+    cfg = s2s.Seq2SeqConfig(**S2S_CFG, dtype=torch.bfloat16)
+    state = {"p": s2s.init_params(cfg, seed=0, device=dev)}
+    opt, step = s2s.make_train_step(cfg, lr=S2S_LR)
+    state["o"] = opt.init(state["p"])
+    batches = _s2s_batches(dev)
+
+    def call(i):
+        state["p"], state["o"], loss = step(state["p"], state["o"],
+                                            batches[i % 4])
+        return loss.cpu()
+
+    return {"profile_seq2seq": dict(
+        {"batch": [S2S_B, S2S_S, S2S_T], "dtype": "bfloat16"},
+        **_profile([lambda i=i: call(i) for i in range(3)],
+                   named=("gru_fwd_kernel", "gru_bwd_kernel", "gru_dw")))}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the "
@@ -1432,12 +1941,14 @@ def main():
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_rnn as fr
     from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.kernels import quant_matmul as qm
     from paddle_tpu_torch.serving import (DecodeEngine, DecoderConfig,
                                           init_params, make_pools)
     from paddle_tpu_torch.serving import decode_model as dm
     from paddle_tpu_torch.serving.decode_engine import _probe_kv_absmax
+    from paddle_tpu_torch.models import seq2seq as s2s
     from paddle_tpu_torch.models import transformer as tt
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1496,6 +2007,13 @@ def main():
         for rec in flanes[dtype].values():
             _say(f"kernel check: {rec['name']} max_abs_err "
                  f"{rec['max_abs_err']:.3e}")
+    # 3e: the GRU forward (B12) and backward (B13: recurrence, dW)
+    glanes = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        glanes[dtype] = check_gru(fr, kernels, dev, flush, dtype)
+        for rec in glanes[dtype].values():
+            _say(f"kernel check: {rec['name']} max_abs_err "
+                 f"{rec['max_abs_err']:.3e}")
     kernels.reset_launches()
     del flush
     _say(f"kernel phases done at {time.perf_counter() - t0:.1f} s")
@@ -1522,6 +2040,9 @@ def main():
         torch.cuda.empty_cache()
         _say("train step check: " + json.dumps(
             check_train_step(tt, kernels, dev, dtype)))
+    # 4e: one full-width seq2seq step, kernels vs plain GRU versions
+    for rec in check_s2s_step(s2s, fr, kernels, dev):
+        _say("seq2seq step check: " + json.dumps(rec))
     del qparams, fp32_logits, fp32_whole, script
     _say(f"step phases done at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
@@ -1638,17 +2159,42 @@ def main():
     ptrec = profile_train(tt, dev)
     _say(f"training phases done at {time.perf_counter() - t0:.1f} s")
 
+    # 5e: the seq2seq slice's main paths: bf16 training through B12/B13,
+    # a short fp32 run (the fp32 lanes of B13), beam-search generation
+    s2s_runs = {}
+    for key, kw in (("train_seq2seq", {}),
+                    ("train_seq2seq_fp32", dict(dtype=torch.float32,
+                                                warmup=2, steps=5))):
+        torch.cuda.empty_cache()
+        s2s_runs[key] = train_s2s(s2s, kernels, dev, key=key, **kw)
+    torch.cuda.empty_cache()
+    beam_rec, beam_launch = generate_beam(s2s, fr, kernels, dev)
+    for dtype, key in ((torch.float32, "train_seq2seq_fp32"),
+                       (torch.bfloat16, "train_seq2seq")):
+        for name, rec in glanes[dtype].items():
+            rec["launches"] = s2s_runs[key][1][name]
+    # fp32 B12's main path is generation (timed at its shape)
+    fwd32 = glanes[torch.float32]["gru_fwd"]
+    fwd32["launches_train_seq2seq_fp32"] = fwd32["launches"]
+    fwd32["launches"] = beam_launch["gru_fwd"]
+    torch.cuda.empty_cache()
+    psrec = profile_s2s(s2s, dev)
+    _say(f"seq2seq phases done at {time.perf_counter() - t0:.1f} s")
+
     _say(json.dumps(prec))
     _say(json.dumps(pqrec))
     _say(json.dumps(pwrec))
     _say(json.dumps(ptrec))
+    _say(json.dumps(psrec))
     _say(json.dumps({"kernels": [
         krec, lanes["bfloat16"], lanes["int8"], lanes["fp8-e4m3"],
         *(dlanes[d] for d in ("float32", "bfloat16", "int8", "fp8-e4m3")),
         *(clanes[d] for d in ("float32", "bfloat16", "int8", "fp8-e4m3")),
         qrecs["int8"], qrecs["fp8-e4m3"],
         *(flanes[d][n] for d in (torch.float32, torch.bfloat16)
-          for n in FLASH_KERNELS)]}))
+          for n in FLASH_KERNELS),
+        *(glanes[d][n] for d in (torch.float32, torch.bfloat16)
+          for n in GRU_KERNELS)]}))
     _say(json.dumps(srec))
     for rec in (sqrec, s8rec, sbrec):
         _say(json.dumps(rec))
@@ -1656,6 +2202,9 @@ def main():
         _say(json.dumps(whole_runs[key][0]))
     for key in train_runs:
         _say(json.dumps(train_runs[key][0]))
+    for key in s2s_runs:
+        _say(json.dumps(s2s_runs[key][0]))
+    _say(json.dumps(beam_rec))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

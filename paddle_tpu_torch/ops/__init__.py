@@ -1,3 +1,4 @@
-"""Operators of the port. Only ``loss.nll_from_logits`` so far (the
-transformer's loss); the registered ops wait for the Program/Executor
-slices."""
+"""Operators of the port: ``loss.nll_from_logits`` (the transformer's
+and the seq2seq model's loss) and the ``rnn`` helpers of the fused
+recurrence (its engagement predicate, ragged reversal); the registered
+ops wait for the Program/Executor slices."""

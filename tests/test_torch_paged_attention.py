@@ -139,7 +139,8 @@ def test_cpu_path_launches_no_kernel():
                                 "paged_attention_chunk",
                                 "paged_attention_chunk_quant",
                                 "quant_matmul", "flash_attention_fwd",
-                                "flash_attention_dq", "flash_attention_dkv"}
+                                "flash_attention_dq", "flash_attention_dkv",
+                                "gru_fwd", "gru_bwd", "gru_dw"}
     assert not any(tk.LAUNCHES.values())
 
 
