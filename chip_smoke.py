@@ -115,9 +115,41 @@ The seq2seq slice adds, in the same run:
    deterministic; best-beam agreement with the plain GRU reported) and
    ``profile_seq2seq`` (one bf16 step under ``torch.profiler``).
 
+The text-classification slice adds, in the same run:
+
+3f. the fused LSTM kernels: B10 (``lstm_fwd``), B11 (the reverse
+   recurrence ``lstm_bwd`` and the dW reduction ``lstm_dw``), B14
+   (``lstm_proj_fwd``: the input projection inside the recurrence) and
+   B15 (``lstm_proj_bwd``: the recurrence with dxe and db;
+   ``lstm_proj_dw``: dWx and dW), fp32 and bf16 lanes, against their
+   plain versions at the flagship's two layer shapes (T 100, B 128,
+   D 512; E 128 and E 512) and a ragged batch (lengths 0..100); fp32 to
+   1e-5 (forwards absolute, backwards relative to their largest entry,
+   weight sums by relative L2), bf16 no further from the fp32 plain
+   result than 1.5x the bf16 plain version + 1e-3; each kernel timed
+   (L2 flushed) beside its plain version and its bound (no PyTorch call
+   computes this LSTM), B14/B15 at both layers;
+4f. one full-width flagship training step (bench.py's bench_lstm:
+   ``lstm_benchmark_net`` with ``fused_lstm``, batch 128 x 100, vocab
+   5147, emb 128, hidden 512, 2 layers) in fp32 and under AMP, and the
+   composed route (fc + ``dynamic_lstm``) in both, through the kernels
+   (under sync-debug "error"; each route's kernels launched twice)
+   against the same step through their plain versions: the loss and
+   every gradient by relative L2 (fp32 1e-4; AMP no further from the
+   fp32 plain gradient than 1.5x the AMP plain path + 1e-2);
+5f. the slice's main paths: ``train_lstm`` (bench_lstm: fused_lstm,
+   AMP, Adam 0.002, 3 + 20 steps: ms per batch, words/s, MFU against
+   bench.py's analytic FLOPs, peak memory, every loss finite; each
+   B14/B15 kernel launched exactly 2 x steps), ``train_lstm_composed``
+   (fc + dynamic_lstm: B10/B11, 2 x steps), ``train_lstm_ragged``
+   (ragged LoD, so fused_lstm falls back to B10/B11), short fp32 runs of
+   both routes (the fp32 lanes' launches), and ``profile_lstm`` (one
+   step under ``torch.profiler``: the kernels' device ms, the device's
+   busy and idle share).
+
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
-lane of every kernel), the ``serve``, ``train`` and seq2seq lines and,
-last,
+lane of every kernel), the ``serve``, ``train``, seq2seq and LSTM lines
+and, last,
 ``{"ok": true, "device": {...}}``. Float32 matmuls run in full float32
 (TF32 off). With no CUDA card it exits non-zero at once.
 """
@@ -1933,6 +1965,474 @@ def profile_s2s(s2s, dev):
                    named=("gru_fwd_kernel", "gru_bwd_kernel", "gru_dw")))}
 
 
+# -------------------------------------------------------------------- LSTM
+
+# the B10/B11 (dynamic_lstm) and B14/B15 (fused_lstm) kernels: each
+# wrapper and the TPU kernel function it replaces
+LSTM_KERNELS = {
+    "lstm_fwd": "paddle_tpu/kernels/fused_rnn.py:215",
+    "lstm_bwd": "paddle_tpu/kernels/fused_rnn.py:266",
+    "lstm_dw": "paddle_tpu/kernels/fused_rnn.py:266",
+    "lstm_proj_fwd": "paddle_tpu/kernels/fused_rnn.py:663",
+    "lstm_proj_bwd": "paddle_tpu/kernels/fused_rnn.py:700",
+    "lstm_proj_dw": "paddle_tpu/kernels/fused_rnn.py:700",
+}
+LSTM_COMPOSED = ("lstm_fwd", "lstm_bwd", "lstm_dw")
+LSTM_PROJ = ("lstm_proj_fwd", "lstm_proj_bwd", "lstm_proj_dw")
+LSTM_LIBRARY_NOTE = ("none: no PyTorch call computes this LSTM "
+                     "(torch.nn.LSTM / cuDNN has two bias vectors, its own "
+                     "gate layout, and no length mask that keeps c)")
+# fp32, kernel vs plain: sum order only. hs, cs and the gates are bounded
+# by 1 in size (c by the step count) and held absolutely; the backward
+# outputs grow with the 100 steps' upstream gradients and are held
+# relative to their largest entry; dW by relative L2
+LSTM_FWD_TOL = 1e-5
+LSTM_GRAD_REL = 1e-5
+LSTM_DW_REL = 1e-5
+# bench.py:78-82 and :161-173 (bench_lstm): the IMDB LSTM classifier,
+# batch 128 x 100 tokens, emb 128, hidden 512, vocab 5147, 2 layers,
+# fused_lstm, Adam(0.002), AMP
+TEXT_CFG = dict(vocab_size=5147, emb_dim=128, hid_dim=512, num_layers=2)
+TEXT_B, TEXT_T, TEXT_LR = 128, 100, 0.002
+# 3f's shapes (T, B, D, E, ragged): the flagship's two layers (E 128, the
+# embedding; E 512, layer 1's h) and a ragged batch with lengths 0..T
+LSTM_SHAPES = {"layer1": (100, 128, 512, 128, False),
+               "layer2": (100, 128, 512, 512, False),
+               "ragged": (100, 128, 512, 128, True)}
+
+
+def _lstm_case(dev, T, B, D, E, ragged, seed=0):
+    """Seeded fp32 LSTM inputs at one shape: the gates x [T, B, 4D] (B10),
+    xe [T, B, E], wx, b (B14), w, lens (ragged: 0..T with 0 and T
+    present), h0, c0 and the upstream dhs, dcs."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    if ragged:
+        lens = torch.randint(0, T + 1, (B, 1), generator=g,
+                             device=dev).float()
+        lens[0], lens[1] = 0.0, float(T)
+    else:
+        lens = torch.full((B, 1), float(T), device=dev)
+    return {"x": randn(T, B, 4 * D, scale=0.5),
+            "w": randn(D, 4 * D, scale=0.05), "lens": lens,
+            "h0": randn(B, D, scale=0.3), "c0": randn(B, D, scale=0.3),
+            "dhs": randn(T, B, D), "dcs": randn(T, B, D),
+            "xe": randn(T, B, E, scale=0.5),
+            "wx": randn(E, 4 * D, scale=0.05), "b": randn(4 * D, scale=0.1)}
+
+
+def _lstm_bound(name, dtype, T, B, D, E):
+    """Least time of one call: its inputs read once and outputs written
+    once (payload at the lane's width; lens and db fp32) over the HBM
+    rate, against its products (2 FLOPs per multiply-add) over the lane's
+    peak (fp32 CUDA cores, bf16 tensor cores)."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    tb, G = T * B, 4 * D
+    if name == "lstm_fwd":        # x, W, h0, c0 -> hs, cs, gates
+        nbytes = e * (tb * G + D * G + 2 * B * D + 2 * tb * D + tb * G)
+        flops = 2.0 * tb * D * G
+    elif name == "lstm_bwd":      # gates, cs, W, c0, dhs, dcs -> dx, dh0, dc0
+        nbytes = e * (tb * G + tb * D + D * G + B * D + 2 * tb * D
+                      + tb * G + 2 * B * D)
+        flops = 2.0 * tb * G * D
+    elif name == "lstm_dw":       # hprev, dx -> dW
+        nbytes = e * (tb * D + tb * G + D * G)
+        flops = 2.0 * tb * D * G
+    elif name == "lstm_proj_fwd":  # xe, Wx, b, W, h0, c0 -> hs, cs, gates
+        nbytes = e * (tb * E + E * G + G + D * G + 2 * B * D + 2 * tb * D
+                      + tb * G)
+        flops = 2.0 * tb * (E + D) * G
+    elif name == "lstm_proj_bwd":  # gates, cs, Wx, W, c0, dhs, dcs ->
+        # dxe, dx, dh0, dc0 (+ db fp32)
+        nbytes = e * (tb * G + tb * D + E * G + D * G + B * D + 2 * tb * D
+                      + tb * E + tb * G + 2 * B * D) + 4 * G
+        flops = 2.0 * tb * G * (D + E)
+    else:                          # lstm_proj_dw: xe, hprev, dx -> dWx, dW
+        nbytes = e * (tb * E + tb * D + tb * G + (E + D) * G)
+        flops = 2.0 * tb * (E + D) * G
+    nbytes += 4 * B                # lens
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _rel_max(a, b):
+    """max |a - b| over max |b| (floored at 1)."""
+    return _max_err(a, b) / max(1.0, float(b.float().abs().max()))
+
+
+def _lstm_run(fr, c, kernel=True, ref=None):
+    """Each LSTM kernel (or, ``kernel=False``, its plain version) on the
+    inputs ``c``; a backward reads the saved tensors of ``ref`` (default:
+    this run's own forward), so that plain and kernel see the same."""
+    x, w, lens, h0, c0 = c["x"], c["w"], c["lens"], c["h0"], c["c0"]
+    dhs, dcs, xe, wx, b = c["dhs"], c["dcs"], c["xe"], c["wx"], c["b"]
+    k = kernel
+    o = {}
+    o["hs"], o["cs"], o["gates"] = (fr.lstm_fwd if k else
+                                    fr.lstm_fwd_reference)(x, w, lens, h0,
+                                                           c0)
+    r = ref or o
+    o["dx"], o["dh0"], o["dc0"] = (fr.lstm_bwd_data if k else
+                                   fr.lstm_bwd_data_reference)(
+        r["gates"], r["cs"], w, lens, h0, c0, dhs, dcs)
+    o["dw"] = (fr.lstm_dw if k else fr.lstm_dw_reference)(r["hs"], h0,
+                                                          r["dx"])
+    o["p_hs"], o["p_cs"], o["p_gates"] = (fr.lstm_proj_fwd if k else
+                                          fr.lstm_proj_fwd_reference)(
+        xe, wx, b, w, lens, h0, c0)
+    o["dxe"], o["p_dx"], o["db"], o["p_dh0"], o["p_dc0"] = (
+        fr.lstm_proj_bwd_data if k else fr.lstm_proj_bwd_data_reference)(
+        r["p_gates"], r["p_cs"], wx, w, lens, h0, c0, dhs, dcs)
+    o["dwx"], o["p_dw"] = (fr.lstm_proj_dw if k else
+                           fr.lstm_proj_dw_reference)(xe, r["p_hs"], h0,
+                                                      r["p_dx"])
+    return o
+
+
+# the outputs of each kernel, and how an output is held: "abs" (max abs,
+# fp32 LSTM_FWD_TOL), "rel" (max abs over max |plain|, LSTM_GRAD_REL),
+# "l2" (relative L2, LSTM_DW_REL)
+LSTM_OUTPUTS = {
+    "lstm_fwd": {"hs": "abs", "cs": "abs", "gates": "abs"},
+    "lstm_bwd": {"dx": "rel", "dh0": "rel", "dc0": "rel"},
+    "lstm_dw": {"dw": "l2"},
+    "lstm_proj_fwd": {"p_hs": "abs", "p_cs": "abs", "p_gates": "abs"},
+    "lstm_proj_bwd": {"dxe": "rel", "p_dx": "rel", "db": "rel",
+                      "p_dh0": "rel", "p_dc0": "rel"},
+    "lstm_proj_dw": {"dwx": "l2", "p_dw": "l2"},
+}
+_LSTM_MEASURE = {"abs": _max_err, "rel": _rel_max, "l2": _rel_l2}
+
+
+def _lstm_errors(fr, c, dtype):
+    """Each LSTM kernel against its plain version on the kernel's own
+    inputs, one lane. fp32: each output's error (LSTM_OUTPUTS' measure).
+    bf16: each output's error against the fp32 plain result beside the
+    bf16 plain version's, as (kernel, plain)."""
+    lc = {k: (v.to(dtype) if k != "lens" else v) for k, v in c.items()}
+    got = _lstm_run(fr, lc)
+    torch.cuda.synchronize()
+    plain = _lstm_run(fr, lc, kernel=False, ref=got)
+    how = {n: m for outs in LSTM_OUTPUTS.values() for n, m in outs.items()}
+    if dtype == torch.float32:
+        return {n: _LSTM_MEASURE[m](got[n], plain[n])
+                for n, m in how.items()}, got
+    fc = {k: v.float() for k, v in lc.items()}
+    exact = _lstm_run(fr, fc, kernel=False,
+                      ref={k: v.float() for k, v in got.items()})
+    return {n: (_LSTM_MEASURE[m](got[n], exact[n]),
+                _LSTM_MEASURE[m](plain[n], exact[n]))
+            for n, m in how.items()}, got
+
+
+def check_lstm(fr, kernels, dev, flush, dtype):
+    """Phase 3f: B10 (lstm_fwd), B11 (lstm_bwd: the reverse recurrence;
+    lstm_dw: the dW reduction), B14 (lstm_proj_fwd) and B15
+    (lstm_proj_bwd: the recurrence with dxe and db; lstm_proj_dw: dWx and
+    dW), one lane, against their plain versions at the flagship's two
+    layer shapes (T 100, B 128, D 512; E 128 and E 512) and a ragged batch
+    (lengths 0..100: a zero-length row keeps h0 and c0 and gets no
+    gradient). fp32: LSTM_FWD_TOL / LSTM_GRAD_REL / LSTM_DW_REL; bf16: no
+    further from the fp32 plain result than 1.5x the bf16 plain version +
+    1e-3. Then each kernel timed (L2 flushed) beside its plain version
+    and its bound: B10/B11 at T 100, B 128, D 512, B14/B15 at layer 1
+    (E 128) and layer 2 (E 512). Returns one kernels-line record per
+    kernel."""
+    lane = "bf16" if dtype == torch.bfloat16 else "fp32"
+    worst = {}
+    tol = {"abs": LSTM_FWD_TOL, "rel": LSTM_GRAD_REL, "l2": LSTM_DW_REL}
+    how = {n: m for outs in LSTM_OUTPUTS.values() for n, m in outs.items()}
+    for key, (T, B, D, E, ragged) in LSTM_SHAPES.items():
+        c = _lstm_case(dev, T, B, D, E, ragged)
+        errs, got = _lstm_errors(fr, c, dtype)
+        for n, e in errs.items():
+            if dtype == torch.float32:
+                worst[n] = max(worst.get(n, 0.0), e)
+                _check(e <= tol[how[n]],
+                       f"lstm fp32 {key}: {n} differs by {e}")
+            else:
+                err, plain_err = e
+                w_ = worst.get(n, (0.0, 0.0))
+                worst[n] = (max(w_[0], err), max(w_[1], plain_err))
+                _check(err <= FLASH_BF16_RATIO * plain_err + 1e-3,
+                       f"lstm bf16 {key}: {n} is {err} from fp32, the "
+                       f"plain version {plain_err}")
+        if ragged:
+            zero = c["lens"][:, 0] == 0
+            for hs_, cs_, dx_ in (("hs", "cs", "dx"),
+                                  ("p_hs", "p_cs", "p_dx")):
+                _check(bool((got[hs_][:, zero].float()
+                             == c["h0"][zero].to(dtype).float()).all())
+                       and bool((got[cs_][:, zero].float()
+                                 == c["c0"][zero].to(dtype).float()).all()),
+                       f"lstm {lane}: a zero-length row must keep h0, c0")
+                _check(not got[dx_][:, zero].any(),
+                       f"lstm {lane}: a zero-length row must get no "
+                       "gradient")
+        del c, got
+    recs = {}
+    for key in ("layer1", "layer2"):
+        T, B, D, E, _r = LSTM_SHAPES[key]
+        c = {k: (v.to(dtype) if k != "lens" else v)
+             for k, v in _lstm_case(dev, T, B, D, E, False).items()}
+        o = _lstm_run(fr, c)
+        x, w, lens, h0, c0 = c["x"], c["w"], c["lens"], c["h0"], c["c0"]
+        dhs, dcs, xe, wx, b = (c["dhs"], c["dcs"], c["xe"], c["wx"],
+                               c["b"])
+        calls = {
+            "lstm_fwd": (lambda: fr.lstm_fwd(x, w, lens, h0, c0),
+                         lambda: fr.lstm_fwd_reference(x, w, lens, h0, c0)),
+            "lstm_bwd": (lambda: fr.lstm_bwd_data(
+                o["gates"], o["cs"], w, lens, h0, c0, dhs, dcs),
+                lambda: fr.lstm_bwd_data_reference(
+                    o["gates"], o["cs"], w, lens, h0, c0, dhs, dcs)),
+            "lstm_dw": (lambda: fr.lstm_dw(o["hs"], h0, o["dx"]),
+                        lambda: fr.lstm_dw_reference(o["hs"], h0, o["dx"])),
+            "lstm_proj_fwd": (lambda: fr.lstm_proj_fwd(xe, wx, b, w, lens,
+                                                       h0, c0),
+                              lambda: fr.lstm_proj_fwd_reference(
+                                  xe, wx, b, w, lens, h0, c0)),
+            "lstm_proj_bwd": (lambda: fr.lstm_proj_bwd_data(
+                o["p_gates"], o["p_cs"], wx, w, lens, h0, c0, dhs, dcs),
+                lambda: fr.lstm_proj_bwd_data_reference(
+                    o["p_gates"], o["p_cs"], wx, w, lens, h0, c0, dhs,
+                    dcs)),
+            "lstm_proj_dw": (lambda: fr.lstm_proj_dw(xe, o["p_hs"], h0,
+                                                     o["p_dx"]),
+                             lambda: fr.lstm_proj_dw_reference(
+                                 xe, o["p_hs"], h0, o["p_dx"])),
+        }
+        # B10/B11 do not depend on E: timed once, at layer 1
+        names = LSTM_KERNELS if key == "layer1" else LSTM_PROJ
+        for name in names:
+            kernel_fn, plain_fn = calls[name]
+            ms = _time_ms(kernel_fn, flush, reps=10)
+            bound = _lstm_bound(name, dtype, T, B, D, E)
+            if key == "layer2":
+                recs[name].update({"layer2_ms": ms,
+                                   "layer2_bound_ms": bound[0],
+                                   "layer2_shape": [T, B, D, E]})
+                continue
+            outs = LSTM_OUTPUTS[name]
+            rec = _lane_record(
+                name if lane == "fp32" else f"{name}_bf16",
+                LSTM_KERNELS[name], GRU_SOURCE,
+                max(worst[n] if lane == "fp32" else worst[n][0]
+                    for n in outs),
+                ms, _time_ms(plain_fn, flush, reps=3), None, bound,
+                {"shape": [T, B, D] + ([E] if "proj" in name else []),
+                 "dtype": str(dtype).replace("torch.", ""),
+                 "err_is": {n: outs[n] for n in outs},
+                 "library_note": LSTM_LIBRARY_NOTE})
+            if lane == "bf16":
+                rec["err_vs_fp32_and_plain_bf16_err"] = {n: worst[n]
+                                                         for n in outs}
+            recs[name] = rec
+        del c, o, calls
+    kernels.reset_launches()
+    return recs
+
+
+def _text_feeds(dev, n=4, seed=0, ragged=False):
+    """bench.py:177-185's feed: ``n`` seeded batches of TEXT_B sequences
+    of random word ids (0..5146) and 0/1 labels, on the card. Uniform:
+    every sequence TEXT_T long (bench_lstm's LoD); ``ragged``: lengths
+    1..TEXT_T (the first 1, the second TEXT_T)."""
+    from paddle_tpu_torch.core.lod import LoD, LoDTensor
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        if ragged:
+            lens = rng.randint(1, TEXT_T + 1, TEXT_B)
+            lens[0], lens[1] = 1, TEXT_T
+        else:
+            lens = np.full(TEXT_B, TEXT_T)
+        words = rng.randint(0, TEXT_CFG["vocab_size"], (int(lens.sum()), 1))
+        out.append({"words": LoDTensor(torch.from_numpy(words).to(dev),
+                                       LoD.from_lengths([lens.tolist()])),
+                    "label": torch.from_numpy(
+                        rng.randint(0, 2, (TEXT_B, 1))).to(dev)})
+    return out
+
+
+def _text_grads(tx, params, feed, cfg):
+    live = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = tx.loss_fn(live, feed, cfg)
+    grads = torch.autograd.grad(loss, list(live.values()))
+    return loss.detach(), dict(zip(live, grads))
+
+
+def check_text_step(tx, fr, kernels, dev):
+    """Phase 4f: one full-width flagship training step (bench_lstm's
+    config: fused_lstm, batch 128 x 100) in fp32 and under AMP, and the
+    composed route (fc + dynamic_lstm) in both, through the LSTM kernels
+    (under sync-debug "error": the step must not sync the host; each
+    route's three kernels launched twice, one per layer) against the same
+    step through their plain versions (``fused_rnn.plain_versions()``),
+    from the same params and feed: the loss, and every gradient by
+    relative L2 with each leaf's norm floored at S2S_NORM_FLOOR x the
+    whole gradient's (fp32: S2S_REL_TOL; AMP: no further from the fp32
+    plain gradient than S2S_BF16_RATIO x the AMP plain path's + 1e-2)."""
+    feed = _text_feeds(dev, n=1, seed=1)[0]
+    recs = []
+    for fused_proj in (True, False):
+        exact = None
+        route = LSTM_PROJ if fused_proj else LSTM_COMPOSED
+        for amp in (False, True):
+            torch.cuda.empty_cache()
+            cfg = tx.TextConfig(**TEXT_CFG, fused_proj=fused_proj, amp=amp)
+            params = tx.init_params(cfg, seed=0, device=dev)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                loss, grads = _text_grads(tx, params, feed, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            want = dict.fromkeys(kernels.LAUNCHES, 0)
+            want.update(dict.fromkeys(route, 2))
+            _check(kernels.LAUNCHES == want,
+                   f"4f: launches {kernels.LAUNCHES}, want {want}")
+            with fr.plain_versions():
+                p_loss, p_grads = _text_grads(tx, params, feed, cfg)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            _check(bool(torch.isfinite(loss)), f"4f: loss {float(loss)}")
+            loss_rel = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
+            rec = {"fused_proj": fused_proj, "amp": amp,
+                   "loss": float(loss), "plain_loss": float(p_loss),
+                   "loss_rel_err": loss_rel, "sync_debug": "error"}
+            if exact is None:
+                exact = p_grads
+                floor = S2S_NORM_FLOOR * _grad_norm(exact)
+            rels = {}
+            for k, g in grads.items():
+                _check(bool(torch.isfinite(g).all()),
+                       f"4f: non-finite grad {k}")
+                rels[k] = _rel_l2(g, p_grads[k], floor)
+            worst_k = max(rels, key=rels.get)
+            rec.update({"grad_max_rel_l2": rels[worst_k],
+                        "grad_worst_leaf": worst_k,
+                        "norm_floor": S2S_NORM_FLOOR})
+            if not amp:
+                _check(loss_rel <= S2S_REL_TOL
+                       and rels[worst_k] <= S2S_REL_TOL,
+                       f"4f fp32: loss rel {loss_rel}, grad {worst_k} rel "
+                       f"{rels[worst_k]} > {S2S_REL_TOL}")
+                rec["tol"] = S2S_REL_TOL
+            else:
+                gate = {}
+                for k, g in grads.items():
+                    err = _rel_l2(g, exact[k], floor)
+                    plain_err = _rel_l2(p_grads[k], exact[k], floor)
+                    gate[k] = (err, plain_err)
+                    _check(err <= S2S_BF16_RATIO * plain_err + 1e-2,
+                           f"4f amp: grad {k} is {err} from the fp32 plain "
+                           f"gradient, the AMP plain path {plain_err}")
+                rec["grad_rel_l2_vs_fp32_plain_and_plain_amp"] = gate
+                _check(loss_rel <= 1e-2, f"4f amp: loss rel {loss_rel}")
+            recs.append(rec)
+            del params, grads, p_grads
+    return recs
+
+
+def train_text(tx, kernels, dev, key="train_lstm", fused_proj=True,
+               amp=True, ragged=False, warmup=3, steps=20):
+    """Phase 5f: a flagship training run. ``make_train_step(cfg, "adam",
+    0.002)`` at bench_lstm's shape over 4 seeded feeds: ``warmup`` steps,
+    then ``steps`` timed in one window (tokens/s: B x T words per step;
+    ms per batch p50 from CUDA events between steps, no host syncs;
+    model FLOP utilization from bench.py's analytic count, scaled to the
+    words of a ragged batch), every loss
+    read back once at the end and held finite. The launch counts are
+    zeroed just before the first step and read just after the last:
+    each kernel of the route (fused_lstm on uniform lengths: B14/B15;
+    fc + dynamic_lstm, or any ragged batch: B10/B11) runs twice a
+    step."""
+    cfg = tx.TextConfig(**TEXT_CFG, fused_proj=fused_proj, amp=amp)
+    params = tx.init_params(cfg, seed=0, device=dev)
+    opt, step = tx.make_train_step(cfg, "adam", TEXT_LR)
+    state = opt.init(params)
+    feeds = _text_feeds(dev, ragged=ragged)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()                       # the main path: go
+    losses = []
+    for i in range(warmup):
+        params, state, loss, _acc = step(params, state, feeds[i % 4])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        events[i].record()
+        params, state, loss, _acc = step(params, state,
+                                         feeds[(warmup + i) % 4])
+        losses.append(loss)
+    events[steps].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)              # read just after
+    n = warmup + steps
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    route = LSTM_PROJ if fused_proj and not ragged else LSTM_COMPOSED
+    want.update(dict.fromkeys(route, 2 * n))
+    _check(launches == want, f"{key}: launches {launches} over {n} steps, "
+           f"want {want}")
+    loss_list = torch.stack(losses).cpu().tolist()
+    _check(all(np.isfinite(loss_list)), f"{key}: non-finite loss "
+           f"{loss_list}")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    words = sum(int(f["words"].lod.total_size()) for f in feeds) / 4
+    # bench.py's count is per padded batch; a ragged batch needs only its
+    # words' share of it
+    flops = tx.train_flops(cfg, TEXT_B, TEXT_T) * words / (TEXT_B * TEXT_T)
+    del params, state
+    kernels.reset_launches()
+    return {key: {
+        "amp": amp, "fused_proj": fused_proj, "ragged": ragged,
+        "batch": [TEXT_B, TEXT_T], "widths": TEXT_CFG, "lr": TEXT_LR,
+        "optimizer": "adam", "warmup_steps": warmup, "timed_steps": steps,
+        "wall_s": wall, "tokens_per_s": words * steps / wall,
+        "ms_per_batch_p50": float(np.median(step_ms)),
+        "ms_per_batch_min": float(np.min(step_ms)),
+        "model_tflop_per_step": flops / 1e12,
+        "mfu_vs_bf16_peak": flops * steps / wall / H100_BF16_FLOPS,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "loss_first": loss_list[0], "loss_last": loss_list[-1],
+        "losses_finite": len(loss_list), "launches": launches}}, launches
+
+
+def profile_text(tx, dev):
+    """Where a flagship training step's time goes (fused_lstm, AMP): three
+    steps under ``torch.profiler`` after two warm-up steps, with the LSTM
+    kernels' device ms per step and the device's busy and idle share."""
+    cfg = tx.TextConfig(**TEXT_CFG)
+    state = {"p": tx.init_params(cfg, seed=0, device=dev)}
+    opt, step = tx.make_train_step(cfg, "adam", TEXT_LR)
+    state["o"] = opt.init(state["p"])
+    feeds = _text_feeds(dev)
+
+    def call(i):
+        state["p"], state["o"], loss, _acc = step(state["p"], state["o"],
+                                                  feeds[i % 4])
+        return loss.cpu()
+
+    return {"profile_lstm": dict(
+        {"batch": [TEXT_B, TEXT_T], "amp": True, "fused_proj": True},
+        **_profile([lambda i=i: call(i) for i in range(5)],
+                   named=("lstm_fwd_kernel", "lstm_bwd_kernel",
+                          "lstm_dw_kernel", "sum_partials")))}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the "
@@ -1949,6 +2449,7 @@ def main():
     from paddle_tpu_torch.serving import decode_model as dm
     from paddle_tpu_torch.serving.decode_engine import _probe_kv_absmax
     from paddle_tpu_torch.models import seq2seq as s2s
+    from paddle_tpu_torch.models import text as tx
     from paddle_tpu_torch.models import transformer as tt
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2014,6 +2515,13 @@ def main():
         for rec in glanes[dtype].values():
             _say(f"kernel check: {rec['name']} max_abs_err "
                  f"{rec['max_abs_err']:.3e}")
+    # 3f: the LSTM kernels, B10/B11 (dynamic_lstm) and B14/B15 (fused_lstm)
+    llanes = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        llanes[dtype] = check_lstm(fr, kernels, dev, flush, dtype)
+        for rec in llanes[dtype].values():
+            _say(f"kernel check: {rec['name']} max_abs_err "
+                 f"{rec['max_abs_err']:.3e}")
     kernels.reset_launches()
     del flush
     _say(f"kernel phases done at {time.perf_counter() - t0:.1f} s")
@@ -2043,6 +2551,9 @@ def main():
     # 4e: one full-width seq2seq step, kernels vs plain GRU versions
     for rec in check_s2s_step(s2s, fr, kernels, dev):
         _say("seq2seq step check: " + json.dumps(rec))
+    # 4f: one full-width flagship LSTM step, kernels vs plain versions
+    for rec in check_text_step(tx, fr, kernels, dev):
+        _say("lstm step check: " + json.dumps(rec))
     del qparams, fp32_logits, fp32_whole, script
     _say(f"step phases done at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
@@ -2181,11 +2692,41 @@ def main():
     psrec = profile_s2s(s2s, dev)
     _say(f"seq2seq phases done at {time.perf_counter() - t0:.1f} s")
 
+    # 5f: the text-classification slice's main paths: the flagship
+    # (fused_lstm, AMP) through B14/B15, the composed and the ragged
+    # routes through B10/B11, short fp32 runs (the fp32 lanes)
+    text_runs = {}
+    for key, kw in (
+            ("train_lstm", {}),
+            ("train_lstm_composed", dict(fused_proj=False)),
+            ("train_lstm_ragged", dict(ragged=True)),
+            ("train_lstm_fp32", dict(amp=False, warmup=2, steps=5)),
+            ("train_lstm_composed_fp32", dict(fused_proj=False, amp=False,
+                                              warmup=2, steps=5))):
+        torch.cuda.empty_cache()
+        text_runs[key] = train_text(tx, kernels, dev, key=key, **kw)
+    for dtype, proj_key, comp_key in (
+            (torch.float32, "train_lstm_fp32", "train_lstm_composed_fp32"),
+            (torch.bfloat16, "train_lstm", "train_lstm_composed")):
+        for name, rec in llanes[dtype].items():
+            key = proj_key if name in LSTM_PROJ else comp_key
+            rec["launches"] = text_runs[key][1][name]
+            rec["launches_run"] = key
+    torch.cuda.empty_cache()
+    plrec = profile_text(tx, dev)
+    text_runs["train_lstm"][0]["train_lstm"].update({
+        "device_busy_ms_per_step_profiled":
+            plrec["profile_lstm"]["device_busy_ms_per_step"],
+        "device_idle_share_profiled":
+            plrec["profile_lstm"]["device_idle_share"]})
+    _say(f"lstm phases done at {time.perf_counter() - t0:.1f} s")
+
     _say(json.dumps(prec))
     _say(json.dumps(pqrec))
     _say(json.dumps(pwrec))
     _say(json.dumps(ptrec))
     _say(json.dumps(psrec))
+    _say(json.dumps(plrec))
     _say(json.dumps({"kernels": [
         krec, lanes["bfloat16"], lanes["int8"], lanes["fp8-e4m3"],
         *(dlanes[d] for d in ("float32", "bfloat16", "int8", "fp8-e4m3")),
@@ -2194,7 +2735,9 @@ def main():
         *(flanes[d][n] for d in (torch.float32, torch.bfloat16)
           for n in FLASH_KERNELS),
         *(glanes[d][n] for d in (torch.float32, torch.bfloat16)
-          for n in GRU_KERNELS)]}))
+          for n in GRU_KERNELS),
+        *(llanes[d][n] for d in (torch.float32, torch.bfloat16)
+          for n in LSTM_KERNELS)]}))
     _say(json.dumps(srec))
     for rec in (sqrec, s8rec, sbrec):
         _say(json.dumps(rec))
@@ -2205,6 +2748,8 @@ def main():
     for key in s2s_runs:
         _say(json.dumps(s2s_runs[key][0]))
     _say(json.dumps(beam_rec))
+    for key in text_runs:
+        _say(json.dumps(text_runs[key][0]))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -26,7 +26,13 @@ LAUNCHES: Dict[str, int] = {"paged_attention_mixed": 0,
                             "flash_attention_dkv": 0,
                             "gru_fwd": 0,
                             "gru_bwd": 0,
-                            "gru_dw": 0}
+                            "gru_dw": 0,
+                            "lstm_fwd": 0,
+                            "lstm_bwd": 0,
+                            "lstm_dw": 0,
+                            "lstm_proj_fwd": 0,
+                            "lstm_proj_bwd": 0,
+                            "lstm_proj_dw": 0}
 
 
 def reset_launches() -> None:

@@ -1,32 +1,46 @@
-// Fused GRU recurrence for Hopper (sm_90a): the forward (B12) and the
-// backward (B13: the reverse-time recurrence and the dW reduction), each
-// with a float32 and a bfloat16 lane on the CUDA cores.
-//
-// gru_fwd replaces paddle_tpu/kernels/fused_rnn.py: _gru_fwd_kernel,
-// launched by _gru_fwd_call; gru_bwd and gru_dw together replace
-// _gru_bwd_kernel, launched by _gru_bwd_call. Layouts are the JAX ones,
-// time-major and row-major:
-//   x, gates [T, B, 3D]   pre-projected input gates u|r|c~ (+ bias) / the
-//                         saved post-activation gates u, r, c
-//   w        [D, 3D]      recurrent weights, [:, :2D] u/r, [:, 2D:] c~
+// Fused LSTM and GRU recurrences for Hopper (sm_90a), each with a
+// float32 and a bfloat16 lane on the CUDA cores:
+//   LSTM (gates i|f|c~|o, w [D, 4D]):
+//     lstm_fwd       (B10) replaces paddle_tpu/kernels/fused_rnn.py:
+//                    _lstm_fwd_kernel, launched by _lstm_fwd_call;
+//     lstm_bwd +     (B11) the reverse recurrence and the dW reduction
+//     lstm_dw        of _lstm_bwd_kernel (_lstm_bwd_call);
+//     lstm_proj_fwd  (B14) _lstm_proj_fwd_kernel (_lstm_proj_fwd_call):
+//                    B10 with xe_t @ Wx + b computed inside the step;
+//     lstm_proj_bwd  (B15) _lstm_proj_bwd_kernel (_lstm_proj_bwd_call):
+//     (+ lstm_dw     the recurrence with dxe = dgates_lp @ Wx^T and the
+//      over [Wx; W]) fp32 db, then dWx and dW in one reduction;
+//   GRU (gates u|r|c~, w [D, 3D]):
+//     gru_fwd        (B12) _gru_fwd_kernel (_gru_fwd_call);
+//     gru_bwd +      (B13) the reverse recurrence and the dW reduction
+//     gru_dw         of _gru_bwd_kernel (_gru_bwd_call).
+// Layouts are the JAX ones, time-major and row-major:
+//   x, gates [T, B, G]    pre-projected input gates (+ bias) / the saved
+//                         post-activation gates; G = 4D (LSTM), 3D (GRU)
+//   xe       [T, B, E]    B14/B15: the raw layer input; wx [E, 4D], b [4D]
+//   w        [D, G]       recurrent weights
 //   lens     [B] fp32     valid lengths: step t of row b is live iff t < lens
-//   h0, dh0  [B, D]
-//   hs, dhs  [T, B, D]
-//   dx       [T, B, 3D]   pre-activation gate gradients
-//   dw       [D, 3D]
-// x, w, h0 (and gates, hs, dhs, dx, dw, dh0) share one dtype: the lane.
+//   h0, c0, dh0, dc0 [B, D]
+//   hs, cs, dhs, dcs [T, B, D]
+//   dx       [T, B, G]    pre-activation gate gradients
+// Every tensor of a call shares one dtype (the lane), except lens and
+// B15's fp32 db.
 //
-// The math follows the Pallas bodies operation for operation: the carry h
-// (forward) and dh (backward) stay fp32; every product rounds its
-// operands to W's dtype first (h, r*h; dc_pre, dur_pre, and in dW hprev
-// and r*hprev) and sums in fp32 (bf16 x bf16 is exact in fp32, so the
+// The math follows the Pallas bodies operation for operation: the carries
+// (h, c; dh, dc) stay fp32; every product rounds its operands to W's
+// dtype first and sums in fp32 (bf16 x bf16 is exact in fp32, so the
 // bf16 lane differs from the plain version only in the order of the fp32
-// sums); a masked step keeps h (m*h_t + (1-m)*h_prev). hprev is [h0;
-// hs[:-1]] in hs's dtype, read in place rather than built.
+// sums); a masked step keeps the state (m*new + (1-m)*old). hprev is
+// [h0; hs[:-1]] and the LSTM's cprev [c0; cs[:-1]], both read in place in
+// the stored dtype (in the bf16 lane the backward's c~ = f*c_prev + i*g
+// uses the rounded cell, as the Pallas kernel does).
 //
-// What bounds them here, and the design. At the seq2seq training shape
-// (T 30, B 512, D 512, bf16) one forward does 2*T*B*D*3D = 24 GFLOP over
-// 112 MB: the card's bound is the bytes (0.033 ms). But W (1.5 MiB in
+// What bounds them here, and the design (the GRU's; the LSTM kernels
+// below follow it, their notes say where they differ). At the seq2seq
+// training shape (T 30, B 512, D 512, bf16) one forward does 2*T*B*D*3D
+// = 24 GFLOP over 112 MB: the card's bound is the bytes (0.033 ms); at
+// the LSTM flagship's (T 100, B 128, D 512, bf16) B10 does 27 GFLOP over
+// 134 MB (0.040 ms). But W (1.5 MiB in
 // bf16, 3 MiB in fp32) is re-read by every step of the recurrence, and it
 // does not fit one SM's 227 KB of shared memory, so the TPU kernel's
 // design (W resident in VMEM for all T steps) does not carry over. This
@@ -59,6 +73,8 @@
 //     fp32 partials a second pass sums in order (as JAX sums its per-tile
 //     partials) and casts to W's dtype. No atomics: the sums are the same
 //     run to run.
+// The LSTM's W is 2 MiB in bf16 (B14/B15 add Wx, 0.5 or 2 MiB), so its
+// steps are set by the same L2 reads: 128 blocks x 2.5-4 MiB a step.
 // Left for later work: tensor cores (mma.sync / wgmma on the bf16 lane),
 // W split across the SMs and kept resident with a per-step grid barrier,
 // cp.async prefetch of the next step's x.
@@ -376,28 +392,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------------ dW reduction (B13)
+// ------------------------------------------- dW reductions (B13, B11, B15)
 
-// one 64 x 64 tile of dW (rows k0.., columns j0..) over the rows
-// [n_begin, n_end) of the T*B rows; splits == 1 writes dW, else fp32
-// partials [splits][D][3D]
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    gru_dw_kernel(const T* __restrict__ gates, const T* __restrict__ hs,
-                  const T* __restrict__ h0, const T* __restrict__ dx,
-                  float* __restrict__ part, T* __restrict__ dw, int n_steps,
-                  int B, int D, int rows_per_split, int splits) {
+// The tiled reduction every dW shares: acc[i][j] += sum over the rows
+// [n_begin, n_end) of the T*B rows of A[n][ka + ty*4 + i] * dx[n][j0 +
+// tx*4 + j], one 64 x 64 output tile per block, 256 threads of 4 x 4,
+// rows staged kDwChunk at a time. load_a(n, v) fills v with the four A
+// values of row n that this thread stages (columns ka + (tid % 16)*4..).
+template <typename T, typename LoadA>
+__device__ __forceinline__ void dw_tile(LoadA load_a, const T* __restrict__ dx,
+                                        int G, int j0, int n_begin,
+                                        int n_end, float (&acc)[4][4]) {
   __shared__ __align__(16) float a_s[kDwChunk][kDwTile];  // [row][k]
   __shared__ __align__(16) float b_s[kDwChunk][kDwTile];  // [row][j]
-  const int G = 3 * D;
-  const int j0 = blockIdx.x * kDwTile, k0 = blockIdx.y * kDwTile;
-  const bool cand = j0 >= 2 * D;  // c~ columns: A = r * hprev, else hprev
-  const int n_rows = n_steps * B;
-  const int n_begin = blockIdx.z * rows_per_split;
-  const int n_end = min(n_rows, n_begin + rows_per_split);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int sr = threadIdx.x / 16, sc = (threadIdx.x % 16) * 4;
-  float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -406,15 +415,7 @@ __global__ void __launch_bounds__(kThreads)
     const int n = c0 + sr;
     float a[4] = {0.f, 0.f, 0.f, 0.f}, bv[4] = {0.f, 0.f, 0.f, 0.f};
     if (n < n_end) {
-      const T* hp = n >= B ? hs + static_cast<size_t>(n - B) * D
-                           : h0 + static_cast<size_t>(n) * D;  // t = 0
-      load4(hp + k0 + sc, a);
-      if (cand) {
-        float r[4];
-        load4(gates + static_cast<size_t>(n) * G + D + k0 + sc, r);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) a[c] = round_to<T>(r[c] * a[c]);
-      }
+      load_a(n, a);
       load4(dx + static_cast<size_t>(n) * G + j0 + sc, bv);
     }
     __syncthreads();  // the previous chunk's products are done
@@ -435,26 +436,353 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
     }
   }
+}
+
+// this block's tile (output rows k0.., columns j0..) of an [n_out, G]
+// result: written in W's dtype when splits == 1, else as fp32 partials
+// [splits][n_out][G] (split blockIdx.z)
+template <typename T>
+__device__ __forceinline__ void dw_store(const float (&acc)[4][4],
+                                         float* __restrict__ part,
+                                         T* __restrict__ out, int n_out,
+                                         int G, int k0, int j0, int splits) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const size_t o = static_cast<size_t>(k0 + ty * 4 + i) * G + j0 + tx * 4;
     if (splits == 1) {
-      store4(dw + o, acc[i]);
+      store4(out + o, acc[i]);
     } else {
-      store4(part + static_cast<size_t>(blockIdx.z) * D * G + o, acc[i]);
+      store4(part + static_cast<size_t>(blockIdx.z) * n_out * G + o, acc[i]);
     }
   }
 }
 
-// dW = the partials summed in split order, cast to W's dtype
+// hprev row n of the T*B rows: hs[n - B], or h0[n] for t = 0
 template <typename T>
-__global__ void gru_dw_sum_kernel(const float* __restrict__ part,
+__device__ __forceinline__ const T* hprev_row(const T* hs, const T* h0,
+                                             int n, int B, int D) {
+  return n >= B ? hs + static_cast<size_t>(n - B) * D
+                : h0 + static_cast<size_t>(n) * D;
+}
+
+// GRU: one 64 x 64 tile of dW (rows k0.., columns j0..) over the rows
+// [n_begin, n_end) of the T*B rows; splits == 1 writes dW, else fp32
+// partials [splits][D][3D]
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gru_dw_kernel(const T* __restrict__ gates, const T* __restrict__ hs,
+                  const T* __restrict__ h0, const T* __restrict__ dx,
+                  float* __restrict__ part, T* __restrict__ dw, int n_steps,
+                  int B, int D, int rows_per_split, int splits) {
+  const int G = 3 * D;
+  const int j0 = blockIdx.x * kDwTile, k0 = blockIdx.y * kDwTile;
+  const bool cand = j0 >= 2 * D;  // c~ columns: A = r * hprev, else hprev
+  const int n_rows = n_steps * B;
+  const int n_begin = blockIdx.z * rows_per_split;
+  const int n_end = min(n_rows, n_begin + rows_per_split);
+  const int kk = k0 + (threadIdx.x % 16) * 4;
+  auto load_a = [&](int n, float* a) {
+    load4(hprev_row(hs, h0, n, B, D) + kk, a);
+    if (cand) {
+      float r[4];
+      load4(gates + static_cast<size_t>(n) * G + D + kk, r);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) a[c] = round_to<T>(r[c] * a[c]);
+    }
+  };
+  float acc[4][4];
+  dw_tile<T>(load_a, dx, G, j0, n_begin, n_end, acc);
+  dw_store<T>(acc, part, dw, D, G, k0, j0, splits);
+}
+
+// LSTM: one 64 x 64 tile of [dWx; dW] ([E + D, 4D]: rows < E are dWx =
+// sum xe^T dx, the rest dW = sum hprev^T dx; E = 0 for B11) over the rows
+// [n_begin, n_end) of the T*B rows. dx holds dgates already rounded to
+// W's dtype, the operand the Pallas kernel multiplies.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    lstm_dw_kernel(const T* __restrict__ xe, const T* __restrict__ hs,
+                   const T* __restrict__ h0, const T* __restrict__ dx,
+                   float* __restrict__ part, T* __restrict__ dw, int n_steps,
+                   int B, int D, int E, int rows_per_split, int splits) {
+  const int G = 4 * D;
+  const int j0 = blockIdx.x * kDwTile, k0 = blockIdx.y * kDwTile;
+  const int n_rows = n_steps * B;
+  const int n_begin = blockIdx.z * rows_per_split;
+  const int n_end = min(n_rows, n_begin + rows_per_split);
+  const int kk = k0 + (threadIdx.x % 16) * 4;
+  auto load_a = [&](int n, float* a) {
+    if (k0 < E) {
+      load4(xe + static_cast<size_t>(n) * E + kk, a);
+    } else {
+      load4(hprev_row(hs, h0, n, B, D) + kk - E, a);
+    }
+  };
+  float acc[4][4];
+  dw_tile<T>(load_a, dx, G, j0, n_begin, n_end, acc);
+  dw_store<T>(acc, part, dw, E + D, G, k0, j0, splits);
+}
+
+// out = the fp32 partials [splits][n] summed in split order, cast to T
+template <typename T>
+__global__ void sum_partials_kernel(const float* __restrict__ part,
                                   T* __restrict__ dw, int n, int splits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
   for (int p = 0; p < splits; ++p) s += part[static_cast<size_t>(p) * n + i];
   dw[i] = from_f<T>(s);
+}
+
+// ---------------------------------------------- LSTM forward (B10, B14)
+
+// One block of 256 threads per tile of BB batch rows walks all T steps.
+// Thread tid owns the hidden units k0 = 2*tid (+ 2*256 ...) and k0 + 1 of
+// every row of the tile: it computes their four gate columns q*D + k
+// (q = i, f, c~, o), so the whole cell update of a unit is in one thread
+// and a step needs one barrier. The fp32 carries h and c are read and
+// written only by their owner; h rounded to W's dtype (the operand of the
+// next step's product) is double-buffered, as is (B14) the step's xe
+// rows, which the block stages one step ahead.
+//   B10: gates = x_t + h_lp @ W
+//   B14: gates = (xe_t @ Wx + b) + h_lp @ W   (the Pallas sum order)
+template <typename T, int BB, bool PROJ>
+__global__ void __launch_bounds__(kThreads)
+    lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wx,
+                    const T* __restrict__ bias, const T* __restrict__ w,
+                    const float* __restrict__ lens, const T* __restrict__ h0,
+                    const T* __restrict__ c0, T* __restrict__ hs,
+                    T* __restrict__ cs, T* __restrict__ gates, int n_steps,
+                    int B, int D, int E) {
+  extern __shared__ float smem[];
+  const int N = BB * D;
+  float* h = smem;               // [BB][D] the fp32 carry h
+  float* c = h + N;              // [BB][D] the fp32 carry c
+  float* h_lp = c + N;           // [2][BB][D] h rounded to W's dtype
+  float* xe_s = h_lp + 2 * N;    // B14: [2][BB][E] the step's xe rows
+  __shared__ float len_s[BB];
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * BB;
+  const int G = 4 * D;
+  for (int i = tid; i < N; i += kThreads) {
+    const int b = i / D;
+    const size_t o = static_cast<size_t>(b0 + b) * D + i % D;
+    const float hv = b0 + b < B ? to_f(h0[o]) : 0.f;
+    h[i] = hv;
+    c[i] = b0 + b < B ? to_f(c0[o]) : 0.f;
+    h_lp[i] = round_to<T>(hv);
+    h_lp[N + i] = 0.f;
+  }
+  if constexpr (PROJ) {
+    for (int i = tid; i < 2 * BB * E; i += kThreads) {
+      const int b = (i / E) % BB;
+      xe_s[i] = i < BB * E && b0 + b < B && n_steps > 0
+                    ? to_f(x[static_cast<size_t>(b0 + b) * E + i % E])
+                    : 0.f;
+    }
+  }
+  if (tid < BB) len_s[tid] = b0 + tid < B ? lens[b0 + tid] : 0.f;
+  __syncthreads();
+
+  for (int t = 0; t < n_steps; ++t) {
+    const int cur = t & 1;
+    const float* hl = h_lp + cur * N;
+    float* hl_next = h_lp + (cur ^ 1) * N;
+    const size_t row0 = static_cast<size_t>(t) * B + b0;  // (t, b0)
+    if constexpr (PROJ) {
+      if (t + 1 < n_steps) {  // stage xe[t + 1] in the other buffer
+        float* nxt = xe_s + (cur ^ 1) * BB * E;
+        for (int i = tid; i < BB * E; i += kThreads) {
+          const int b = i / E;
+          if (b0 + b < B) nxt[i] = to_f(x[(row0 + B + b) * E + i % E]);
+        }
+      }
+    }
+    for (int k0 = 2 * tid; k0 < D; k0 += 2 * kThreads) {
+      float pre[4][BB][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        cols_dot<T, BB, 2>(w + q * D + k0, G, hl, D, D, pre[q]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if constexpr (PROJ) {
+          float ax[BB][2], bq[2];
+          cols_dot<T, BB, 2>(wx + q * D + k0, G, xe_s + cur * BB * E, E, E,
+                             ax);
+          load2(bias + q * D + k0, bq);
+#pragma unroll
+          for (int b = 0; b < BB; ++b)
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc)
+              pre[q][b][cc] = (ax[b][cc] + bq[cc]) + pre[q][b][cc];
+        } else {
+#pragma unroll
+          for (int b = 0; b < BB; ++b) {
+            if (b0 + b >= B) continue;
+            float xv[2];
+            load2(x + (row0 + b) * G + q * D + k0, xv);
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc)
+              pre[q][b][cc] = xv[cc] + pre[q][b][cc];
+          }
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < BB; ++b) {
+        if (b0 + b >= B) continue;
+        const float m = static_cast<float>(t) < len_s[b] ? 1.f : 0.f;
+        float gv[4][2], hn[2], cn[2];
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int i = b * D + k0 + cc;
+          const float ig = sigmoid(pre[0][b][cc]);
+          const float fg = sigmoid(pre[1][b][cc]);
+          const float gg = tanhf(pre[2][b][cc]);
+          const float og = sigmoid(pre[3][b][cc]);
+          const float hp = h[i], cp = c[i];
+          const float ct = fg * cp + ig * gg;
+          const float ht = og * tanhf(ct);
+          hn[cc] = m * ht + (1.f - m) * hp;
+          cn[cc] = m * ct + (1.f - m) * cp;
+          h[i] = hn[cc];
+          c[i] = cn[cc];
+          hl_next[i] = round_to<T>(hn[cc]);
+          gv[0][cc] = ig;
+          gv[1][cc] = fg;
+          gv[2][cc] = gg;
+          gv[3][cc] = og;
+        }
+        store2(hs + (row0 + b) * D + k0, hn);
+        store2(cs + (row0 + b) * D + k0, cn);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          store2(gates + (row0 + b) * G + q * D + k0, gv[q]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// --------------------------------------------- LSTM backward (B11, B15)
+
+// The reverse recurrence, one block per tile of BB rows, reverse time.
+// Phase 0 (elementwise): thread tid owns units k = tid (+ 256 ...) of
+// every row: it recomputes c~ = f*c_prev + i*g from the saved gates and
+// c_prev = [c0; cs[:-1]] as stored (in cs's dtype: the bf16 lane's c_prev
+// is the rounded one, as in the Pallas kernel), forms the four
+// pre-activation gate gradients, writes them (dx) and keeps them rounded
+// to W's dtype in shared memory, updates dc and sets dh = (1-m)*dH; B15
+// also sums the unrounded fp32 dgates of its units into db (the Pallas
+// db sums fp32 dgates; dWx and dW sum the rounded ones).
+// Phase 1: dh += dgates_lp @ W^T (D columns), and B15's dxe_t =
+// dgates_lp @ Wx^T (E columns), both from transposed copies the wrapper
+// makes once per call, 2 columns per thread.
+template <typename T, int BB, bool PROJ>
+__global__ void __launch_bounds__(kThreads)
+    lstm_bwd_kernel(const T* __restrict__ gates, const T* __restrict__ cs,
+                    const T* __restrict__ wt, const T* __restrict__ wxt,
+                    const float* __restrict__ lens, const T* __restrict__ c0,
+                    const T* __restrict__ dhs, const T* __restrict__ dcs,
+                    T* __restrict__ dx, T* __restrict__ dxe,
+                    float* __restrict__ db_part, T* __restrict__ dh0,
+                    T* __restrict__ dc0, int n_steps, int B, int D, int E) {
+  extern __shared__ float smem[];
+  const int N = BB * D;
+  const int G = 4 * D;
+  float* dh = smem;              // [BB][D] the fp32 carry dh
+  float* dc = dh + N;            // [BB][D] the fp32 carry dc
+  float* dg = dc + N;            // [BB][4D] dgates rounded to W's dtype
+  float* db_s = dg + BB * G;     // B15: [4D] this tile's fp32 sum of dgates
+  __shared__ float len_s[BB];
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * BB;
+  for (int i = tid; i < N; i += kThreads) dh[i] = dc[i] = 0.f;
+  for (int i = tid; i < BB * G; i += kThreads) dg[i] = 0.f;
+  if constexpr (PROJ) {
+    for (int i = tid; i < G; i += kThreads) db_s[i] = 0.f;
+  }
+  if (tid < BB) len_s[tid] = b0 + tid < B ? lens[b0 + tid] : 0.f;
+  __syncthreads();
+
+  for (int t = n_steps - 1; t >= 0; --t) {
+    const size_t row0 = static_cast<size_t>(t) * B + b0;
+    // phase 0
+    for (int k = tid; k < D; k += kThreads) {
+      float dbk[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int b = 0; b < BB; ++b) {
+        if (b0 + b >= B) continue;  // a padding row: dg stays 0
+        const size_t n = row0 + b;
+        const int i = b * D + k;
+        const float ig = to_f(gates[n * G + k]);
+        const float fg = to_f(gates[n * G + D + k]);
+        const float gg = to_f(gates[n * G + 2 * D + k]);
+        const float og = to_f(gates[n * G + 3 * D + k]);
+        const float cp = to_f(t > 0 ? cs[(n - B) * D + k]
+                                    : c0[static_cast<size_t>(b0 + b) * D + k]);
+        const float ct = fg * cp + ig * gg;  // the pre-mask cell
+        const float tc = tanhf(ct);
+        const float m = static_cast<float>(t) < len_s[b] ? 1.f : 0.f;
+        const float dH = to_f(dhs[n * D + k]) + dh[i];
+        const float dC = to_f(dcs[n * D + k]) + dc[i];
+        const float dht = m * dH;
+        const float dct = m * dC + dht * og * (1.f - tc * tc);
+        const float d[4] = {dct * gg * ig * (1.f - ig),
+                            dct * cp * fg * (1.f - fg),
+                            dct * ig * (1.f - gg * gg),
+                            dht * tc * og * (1.f - og)};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dx[n * G + q * D + k] = from_f<T>(d[q]);
+          dg[b * G + q * D + k] = round_to<T>(d[q]);
+          dbk[q] += d[q];
+        }
+        dc[i] = (1.f - m) * dC + dct * fg;
+        dh[i] = (1.f - m) * dH;
+      }
+      if constexpr (PROJ) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) db_s[q * D + k] += dbk[q];
+      }
+    }
+    __syncthreads();
+    // phase 1: dh += dg @ W^T (wt [4D, D]); B15: dxe = dg @ Wx^T (wxt
+    // [4D, E])
+    const int n_cols = D + (PROJ ? E : 0);
+    for (int k0 = 2 * tid; k0 < n_cols; k0 += 2 * kThreads) {
+      float acc[BB][2];
+      if (k0 < D) {
+        cols_dot<T, BB, 2>(wt + k0, D, dg, G, G, acc);
+#pragma unroll
+        for (int b = 0; b < BB; ++b) {
+          if (b0 + b >= B) continue;
+          dh[b * D + k0] += acc[b][0];
+          dh[b * D + k0 + 1] += acc[b][1];
+        }
+      } else {
+        const int ke = k0 - D;
+        cols_dot<T, BB, 2>(wxt + ke, E, dg, G, G, acc);
+#pragma unroll
+        for (int b = 0; b < BB; ++b) {
+          if (b0 + b >= B) continue;
+          store2(dxe + (row0 + b) * E + ke, acc[b]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < N; i += kThreads) {
+    const int b = i / D;
+    if (b0 + b >= B) continue;
+    const size_t o = static_cast<size_t>(b0 + b) * D + i % D;
+    dh0[o] = from_f<T>(dh[i]);
+    dc0[o] = from_f<T>(dc[i]);
+  }
+  if constexpr (PROJ) {
+    for (int i = tid; i < G; i += kThreads)
+      db_part[static_cast<size_t>(blockIdx.x) * G + i] = db_s[i];
+  }
 }
 
 // ------------------------------------------------------------- launchers
@@ -518,11 +846,90 @@ cudaError_t launch_dw(const void* gates, const void* hs, const void* h0,
       static_cast<T*>(dw), n_steps, B, D, per, splits);
   if (splits > 1) {
     const int n = D * 3 * D;
-    gru_dw_sum_kernel<T><<<(n + 255) / 256, 256, 0, st>>>(
+    sum_partials_kernel<T><<<(n + 255) / 256, 256, 0, st>>>(
         part, static_cast<T*>(dw), n, splits);
   }
   return cudaGetLastError();
 }
+
+// shared memory of the LSTM recurrence kernels (the wrapper's
+// _lstm_smem_bytes computes the same)
+int lstm_fwd_smem(int bb, int D, int E) {
+  return (4 * bb * D + 2 * bb * E) * static_cast<int>(sizeof(float));
+}
+int lstm_bwd_smem(int bb, int D, bool proj) {
+  return (6 * bb * D + (proj ? 4 * D : 0)) * static_cast<int>(sizeof(float));
+}
+
+template <typename T, int BB, bool PROJ>
+cudaError_t launch_lstm_fwd(const void* x, const void* wx, const void* bias,
+                            const void* w, const float* lens, const void* h0,
+                            const void* c0, void* hs, void* cs, void* gates,
+                            int n_steps, int B, int D, int E,
+                            cudaStream_t st) {
+  const int smem = lstm_fwd_smem(BB, D, PROJ ? E : 0);
+  const cudaError_t err = opt_in(lstm_fwd_kernel<T, BB, PROJ>, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((B + BB - 1) / BB);
+  lstm_fwd_kernel<T, BB, PROJ><<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wx),
+      static_cast<const T*>(bias), static_cast<const T*>(w), lens,
+      static_cast<const T*>(h0), static_cast<const T*>(c0),
+      static_cast<T*>(hs), static_cast<T*>(cs), static_cast<T*>(gates),
+      n_steps, B, D, E);
+  return cudaGetLastError();
+}
+
+template <typename T, int BB, bool PROJ>
+cudaError_t launch_lstm_bwd(const void* gates, const void* cs, const void* wt,
+                            const void* wxt, const float* lens, const void* c0,
+                            const void* dhs, const void* dcs, void* dx,
+                            void* dxe, float* db_part, float* db, void* dh0,
+                            void* dc0, int n_steps, int B, int D, int E,
+                            cudaStream_t st) {
+  const int smem = lstm_bwd_smem(BB, D, PROJ);
+  const cudaError_t err = opt_in(lstm_bwd_kernel<T, BB, PROJ>, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (B + BB - 1) / BB;
+  lstm_bwd_kernel<T, BB, PROJ><<<static_cast<unsigned>(grid), kThreads,
+                                 smem, st>>>(
+      static_cast<const T*>(gates), static_cast<const T*>(cs),
+      static_cast<const T*>(wt), static_cast<const T*>(wxt), lens,
+      static_cast<const T*>(c0), static_cast<const T*>(dhs),
+      static_cast<const T*>(dcs), static_cast<T*>(dx), static_cast<T*>(dxe),
+      db_part, static_cast<T*>(dh0), static_cast<T*>(dc0), n_steps, B, D,
+      E);
+  if constexpr (PROJ) {  // db: the tiles' fp32 partials summed in order
+    const int n = 4 * D;
+    sum_partials_kernel<float><<<(n + 255) / 256, 256, 0, st>>>(
+        db_part, db, n, grid);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_lstm_dw(const void* xe, const void* hs, const void* h0,
+                           const void* dx, float* part, void* dw, int n_steps,
+                           int B, int D, int E, int splits, cudaStream_t st) {
+  const int n_rows = n_steps * B;
+  const int per = (n_rows + splits - 1) / splits;
+  const dim3 grid(static_cast<unsigned>(4 * D / kDwTile),
+                  static_cast<unsigned>((E + D) / kDwTile),
+                  static_cast<unsigned>(splits));
+  lstm_dw_kernel<T><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(xe), static_cast<const T*>(hs),
+      static_cast<const T*>(h0), static_cast<const T*>(dx), part,
+      static_cast<T*>(dw), n_steps, B, D, E, per, splits);
+  if (splits > 1) {
+    const int n = (E + D) * 4 * D;
+    sum_partials_kernel<T><<<(n + 255) / 256, 256, 0, st>>>(
+        part, static_cast<T*>(dw), n, splits);
+  }
+  return cudaGetLastError();
+}
+
+// E (the B14/B15 input width): a multiple of 64 (the dWx tiles)
+bool bad_e(int E) { return E < 64 || E % 64 != 0; }
 
 }  // namespace
 
@@ -591,5 +998,116 @@ extern "C" int gru_dw(int lane, const void* gates, const void* hs,
                                    D, splits, st)
                 : launch_dw<bf16>(gates, hs, h0, dx, part, dw, n_steps, B,
                                   D, splits, st);
+  return static_cast<int>(err);
+}
+
+// ----------------------------------------------------------- LSTM entries
+
+#define LSTM_BB_DISPATCH(CALL)                                        \
+  (lane == 0 ? (bb == 1 ? CALL(float, 1) : bb == 2 ? CALL(float, 2)   \
+                : bb == 4 ? CALL(float, 4) : CALL(float, 8))          \
+             : (bb == 1 ? CALL(bf16, 1) : bb == 2 ? CALL(bf16, 2)     \
+                : bb == 4 ? CALL(bf16, 4) : CALL(bf16, 8)))
+
+// B10. x [T, B, 4D] (bias added), w [D, 4D], lens [B] fp32, h0, c0 [B, D]
+// -> hs, cs [T, B, D], gates [T, B, 4D] (post-activation i|f|c~|o); one
+// block per bb rows.
+extern "C" int lstm_fwd(int lane, const void* x, const void* w,
+                        const float* lens, const void* h0, const void* c0,
+                        void* hs, void* cs, void* gates, int n_steps, int B,
+                        int D, int bb, void* stream) {
+  if (bad_sizes(lane, n_steps, B, D, bb)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(T, BB)                                                        \
+  launch_lstm_fwd<T, BB, false>(x, nullptr, nullptr, w, lens, h0, c0, hs, \
+                                cs, gates, n_steps, B, D, 0, st)
+  const cudaError_t err = LSTM_BB_DISPATCH(CALL);
+#undef CALL
+  return static_cast<int>(err);
+}
+
+// B14. xe [T, B, E], wx [E, 4D], b [4D], w [D, 4D], lens, h0, c0 -> hs,
+// cs, gates as B10.
+extern "C" int lstm_proj_fwd(int lane, const void* xe, const void* wx,
+                             const void* b, const void* w, const float* lens,
+                             const void* h0, const void* c0, void* hs,
+                             void* cs, void* gates, int n_steps, int B, int D,
+                             int E, int bb, void* stream) {
+  if (bad_sizes(lane, n_steps, B, D, bb) || bad_e(E)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(T, BB)                                                         \
+  launch_lstm_fwd<T, BB, true>(xe, wx, b, w, lens, h0, c0, hs, cs, gates, \
+                               n_steps, B, D, E, st)
+  const cudaError_t err = LSTM_BB_DISPATCH(CALL);
+#undef CALL
+  return static_cast<int>(err);
+}
+
+// B11's recurrence. gates [T, B, 4D], cs [T, B, D], wt = W^T [4D, D],
+// lens, c0, dhs, dcs [T, B, D] -> dx [T, B, 4D] (dgates), dh0, dc0 [B, D].
+extern "C" int lstm_bwd(int lane, const void* gates, const void* cs,
+                        const void* wt, const float* lens, const void* c0,
+                        const void* dhs, const void* dcs, void* dx, void* dh0,
+                        void* dc0, int n_steps, int B, int D, int bb,
+                        void* stream) {
+  if (bad_sizes(lane, n_steps, B, D, bb)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(T, BB)                                                        \
+  launch_lstm_bwd<T, BB, false>(gates, cs, wt, nullptr, lens, c0, dhs,    \
+                                dcs, dx, nullptr, nullptr, nullptr, dh0,  \
+                                dc0, n_steps, B, D, 0, st)
+  const cudaError_t err = LSTM_BB_DISPATCH(CALL);
+#undef CALL
+  return static_cast<int>(err);
+}
+
+// B15's recurrence. As lstm_bwd, plus wxt = Wx^T [4D, E] -> dxe [T, B, E],
+// and db [4D] fp32 (the sum of the unrounded dgates) through db_part
+// [ceil(B / bb)][4D] fp32 scratch.
+extern "C" int lstm_proj_bwd(int lane, const void* gates, const void* cs,
+                             const void* wt, const void* wxt,
+                             const float* lens, const void* c0,
+                             const void* dhs, const void* dcs, void* dx,
+                             void* dxe, float* db_part, float* db, void* dh0,
+                             void* dc0, int n_steps, int B, int D, int E,
+                             int bb, void* stream) {
+  if (bad_sizes(lane, n_steps, B, D, bb) || bad_e(E)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(T, BB)                                                          \
+  launch_lstm_bwd<T, BB, true>(gates, cs, wt, wxt, lens, c0, dhs, dcs, dx, \
+                               dxe, db_part, db, dh0, dc0, n_steps, B, D,  \
+                               E, st)
+  const cudaError_t err = LSTM_BB_DISPATCH(CALL);
+#undef CALL
+  return static_cast<int>(err);
+}
+
+// The dW reductions of B11 (E = 0, xe null) and B15: xe [T, B, E], hs,
+// h0, dx (the dgates in W's dtype) -> dw = [dWx; dW] [E + D, 4D]; `part`
+// holds splits * (E + D) * 4D fp32 partials when splits > 1 (unused, may
+// be null, when 1).
+extern "C" int lstm_dw(int lane, const void* xe, const void* hs,
+                       const void* h0, const void* dx, float* part, void* dw,
+                       int n_steps, int B, int D, int E, int splits,
+                       void* stream) {
+  if (bad_sizes(lane, n_steps, B, D, 1) || (E != 0 && bad_e(E)) ||
+      (E != 0 && xe == nullptr) || splits < 1 || splits > 65535 ||
+      (splits > 1 && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      lane == 0 ? launch_lstm_dw<float>(xe, hs, h0, dx, part, dw, n_steps, B,
+                                        D, E, splits, st)
+                : launch_lstm_dw<bf16>(xe, hs, h0, dx, part, dw, n_steps, B,
+                                       D, E, splits, st);
   return static_cast<int>(err);
 }

@@ -1,38 +1,48 @@
-"""Fused GRU recurrence, forward and backward: the whole time loop in one
-kernel launch per direction.
+"""Fused LSTM and GRU recurrences, forward and backward: the whole time
+loop in one kernel launch per direction.
 
-The port of the GRU half of the JAX package's ``kernels/fused_rnn.py``
-(``_gru_fwd_call``, ``_gru_bwd_call``, ``gru_scan`` with its custom
-VJP). Layouts are the JAX ones, time-major:
+The port of the JAX package's ``kernels/fused_rnn.py``: the LSTM
+(``_lstm_fwd_call`` B10, ``_lstm_bwd_call`` B11, ``lstm_scan``; with the
+input projection in the loop, ``_lstm_proj_fwd_call`` B14,
+``_lstm_proj_bwd_call`` B15, ``lstm_scan_proj``) and the GRU
+(``_gru_fwd_call`` B12, ``_gru_bwd_call`` B13, ``gru_scan``), each scan
+with its custom VJP. Layouts are the JAX ones, time-major:
 
-- ``x [T, B, 3D]``: pre-projected input gates u | r | c~ (+ bias);
-- ``w [D, 3D]``: recurrent weights, ``[:, :2D]`` u/r, ``[:, 2D:]`` c~;
+- ``x [T, B, G]``: pre-projected input gates (+ bias): LSTM ``G = 4D``,
+  i | f | c~ | o; GRU ``G = 3D``, u | r | c~;
+- ``w [D, G]``: recurrent weights (GRU: ``[:, :2D]`` u/r, ``[:, 2D:]``
+  c~);
+- B14/B15: ``xe [T, B, E]`` the raw layer input, ``wx [E, 4D]`` the
+  input projection and ``b [4D]`` its bias, applied inside the step;
 - ``lens [B, 1]`` fp32: valid lengths (step t of row b is live iff
-  ``t < lens[b]``; a masked step keeps h, so the final state is
+  ``t < lens[b]``; a masked step keeps h (and c), so the final state is
   ``hs[-1]``);
-- ``h0 [B, D]``.
+- ``h0`` (LSTM also ``c0``) ``[B, D]``.
 
-x, w and h0 share one dtype, float32 or bfloat16 (the seq2seq model
-casts w to x's dtype and makes h0 in it). The carry is fp32; every
-product rounds its operands to w's dtype and sums in fp32, as the Pallas
-bodies do. The forward saves the post-activation gates (in x's dtype);
-the backward walks time in reverse from them and ``hprev = [h0;
-hs[:-1]]``, and gives ``dx`` (pre-activation gate gradients, in the
-gates' dtype), ``dw`` (an fp32 sum cast to w's dtype) and ``dh0``.
+The inputs share one dtype, float32 or bfloat16 (the ops cast w to x's
+dtype and make h0 in it). The carries are fp32; every product rounds its
+operands to w's dtype and sums in fp32, as the Pallas bodies do. The
+forwards save the post-activation gates (in x's dtype); the backwards
+walk time in reverse from them and ``hprev = [h0; hs[:-1]]`` (LSTM also
+``cprev = [c0; cs[:-1]]``, as stored in cs's dtype), and give ``dx``
+(pre-activation gate gradients, in the gates' dtype), the weight
+gradients (fp32 sums cast to w's dtype; B15's ``db`` an fp32 sum of the
+unrounded gate gradients) and ``dh0`` (``dc0``).
 
-``gru_scan`` is differentiable through a ``torch.autograd.Function``. On
-CUDA tensors ``gru_fwd`` launches the hand-written sm_90a forward
-kernel (B12) and ``gru_bwd`` the backward recurrence and then the dW
-reduction (B13), all in ``csrc/fused_rnn.cu``, each counted in
-``kernels.LAUNCHES`` (``"gru_fwd"``, ``"gru_bwd"``, ``"gru_dw"``); they
+On CUDA tensors each wrapper launches its hand-written sm_90a kernel in
+``csrc/fused_rnn.cu``, counted in ``kernels.LAUNCHES`` under its own
+name: ``lstm_fwd`` (B10); ``lstm_bwd`` and ``lstm_dw`` (B11's recurrence
+and dW reduction); ``lstm_proj_fwd`` (B14); ``lstm_proj_bwd`` and
+``lstm_proj_dw`` (B15's recurrence, with dxe and db, and its dWx/dW
+reduction); ``gru_fwd`` (B12); ``gru_bwd`` and ``gru_dw`` (B13). They
 raise on what the kernels do not take. On CPU tensors each runs its
 plain version, which follows the Pallas body step by step in torch ops.
-Inside ``plain_versions()`` ``gru_scan`` runs the plain versions on any
+Inside ``plain_versions()`` the scans run the plain versions on any
 device: what the kernels are held against on the card.
 
-The LSTM kernels of the JAX file (B10, B11, B14, B15) are not ported
-yet (ROADMAP A4). ``gru_scan_dp`` is a ``shard_map`` wrapper, not a
-kernel; it raises, naming ROADMAP A9.
+``lstm_scan_dp`` / ``gru_scan_dp`` are ``shard_map`` wrappers, not
+kernels; they raise, naming ROADMAP A9. ``lstm_scan``'s batch-major
+``layout="bt"`` (which no JAX op calls) raises too.
 """
 from __future__ import annotations
 
@@ -45,17 +55,33 @@ from paddle_tpu_torch import kernels as _kernels
 
 __all__ = ["gru_bwd", "gru_bwd_data", "gru_bwd_data_reference",
            "gru_bwd_reference", "gru_dw", "gru_dw_reference", "gru_fwd",
-           "gru_fwd_reference", "gru_scan", "gru_scan_dp",
-           "plain_versions"]
+           "gru_fwd_reference", "gru_scan", "gru_scan_dp", "lstm_bwd",
+           "lstm_bwd_data", "lstm_bwd_data_reference", "lstm_bwd_reference",
+           "lstm_dw", "lstm_dw_reference", "lstm_fwd", "lstm_fwd_reference",
+           "lstm_proj_bwd", "lstm_proj_bwd_data",
+           "lstm_proj_bwd_data_reference", "lstm_proj_bwd_reference",
+           "lstm_proj_dw", "lstm_proj_dw_reference", "lstm_proj_fwd",
+           "lstm_proj_fwd_reference", "lstm_scan", "lstm_scan_dp",
+           "lstm_scan_proj", "plain_versions"]
 
 _LANES = {torch.float32: 0, torch.bfloat16: 1}
 # C entry -> (pointer arguments, int arguments after the pointers); each
 # takes the lane first and the stream last
-_ENTRIES = {"gru_fwd": (6, 4), "gru_bwd": (8, 4), "gru_dw": (6, 4)}
+_ENTRIES = {"gru_fwd": (6, 4), "gru_bwd": (8, 4), "gru_dw": (6, 4),
+            "lstm_fwd": (8, 4), "lstm_bwd": (10, 4), "lstm_dw": (6, 5),
+            "lstm_proj_fwd": (10, 5), "lstm_proj_bwd": (14, 5)}
 _entries = {}
 SMEM_LIMIT = 232448        # bytes of shared memory a block may opt in to
-# fp32 [bb, D] arrays each recurrence kernel keeps in shared memory
-_SMEM_ARRAYS = {"gru_fwd": 4, "gru_bwd": 10}
+# shared memory of each recurrence kernel for bb batch rows, hidden D and
+# input width E (the C launchers compute the same): fp32 [bb, D] arrays,
+# [bb, E] arrays (B14's staged xe, double-buffered) and [4D] vectors
+# (B15's db)
+_SMEM_FLOATS = {"gru_fwd": lambda bb, D, E: 4 * bb * D,
+                "gru_bwd": lambda bb, D, E: 10 * bb * D,
+                "lstm_fwd": lambda bb, D, E: 4 * bb * D,
+                "lstm_proj_fwd": lambda bb, D, E: 4 * bb * D + 2 * bb * E,
+                "lstm_bwd": lambda bb, D, E: 6 * bb * D,
+                "lstm_proj_bwd": lambda bb, D, E: 6 * bb * D + 4 * D}
 _DW_TILES_PER_SM = 4       # dW: aim for this many blocks per SM
 _plain = [False]           # inside plain_versions()
 
@@ -74,19 +100,20 @@ def _cuda_entry(name):
     return fn
 
 
-def _check_shapes(x, w, lens, h0):
-    """x [T, B, 3D] (or the gates), w [D, 3D], lens [B, 1], h0 [B, D]; x,
-    w and h0 of one dtype."""
-    if x.dim() != 3 or w.dim() != 2 or w.shape[1] != 3 * w.shape[0]:
-        raise ValueError(f"x must be [T, B, 3D] and w [D, 3D]; got "
+def _check_shapes(x, w, lens, h0, ng=3):
+    """x [T, B, ng*D] (or the gates), w [D, ng*D], lens [B, 1], h0 [B, D];
+    x, w and h0 of one dtype (ng = 3 for the GRU, 4 for the LSTM)."""
+    if x.dim() != 3 or w.dim() != 2 or w.shape[1] != ng * w.shape[0]:
+        raise ValueError(f"x must be [T, B, {ng}D] and w [D, {ng}D]; got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
     T, B, G = x.shape
     D = w.shape[0]
-    if G != 3 * D or tuple(h0.shape) != (B, D) or tuple(lens.shape) != (B, 1):
+    if (G != ng * D or tuple(h0.shape) != (B, D)
+            or tuple(lens.shape) != (B, 1)):
         raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}, lens "
                          f"{tuple(lens.shape)} and h0 {tuple(h0.shape)} do "
-                         "not agree (want [T, B, 3D], [D, 3D], [B, 1], "
-                         "[B, D])")
+                         f"not agree (want [T, B, {ng}D], [D, {ng}D], "
+                         "[B, 1], [B, D])")
     if not (x.dtype == w.dtype == h0.dtype):
         raise TypeError(f"x {x.dtype}, w {w.dtype} and h0 {h0.dtype} must "
                         "share one dtype")
@@ -95,7 +122,8 @@ def _check_shapes(x, w, lens, h0):
 
 def _device_kind(x):
     if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no fused GRU for device {x.device}")
+        raise ValueError(f"no fused recurrence kernel for device "
+                         f"{x.device}")
     return x.device.type
 
 
@@ -107,7 +135,7 @@ def _check_cuda(tensors, lens=None):
     lane = _LANES.get(first.dtype)
     if lane is None:
         raise TypeError(f"no CUDA kernel lane for {first.dtype}: the fused "
-                        "GRU takes float32 or bfloat16")
+                        "recurrence kernels take float32 or bfloat16")
     if lens is not None:
         tensors = tuple(tensors) + (("lens", lens),)
         if lens.dtype != torch.float32:
@@ -123,52 +151,58 @@ def _check_cuda(tensors, lens=None):
     return lane
 
 
-def _check_like(gates, hs, h0, other):
-    """hs ``[T, B, D]`` for gates ``[T, B, 3D]``, and ``other`` = (name,
-    tensor, shape) of that shape; all in the gates' dtype (the kernels'
-    one lane)."""
+def _check_like(gates, hs, h0, *others, ng=3):
+    """hs ``[T, B, D]`` for gates ``[T, B, ng*D]``, and each of
+    ``others`` = (name, tensor, shape) of that shape; all in the gates'
+    dtype (the kernels' one lane)."""
     T, B, G = gates.shape
-    name, t, shape = other
-    if tuple(hs.shape) != (T, B, G // 3) or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"hs {tuple(hs.shape)} / {name} {tuple(t.shape)} "
-                         f"do not fit gates {tuple(gates.shape)}")
-    for n, x in (("hs", hs), ("h0", h0), (name, t)):
+    if tuple(hs.shape) != (T, B, G // ng):
+        raise ValueError(f"hs {tuple(hs.shape)} does not fit gates "
+                         f"{tuple(gates.shape)}")
+    for name, t, shape in others:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"hs {tuple(hs.shape)} / {name} "
+                             f"{tuple(t.shape)} do not fit gates "
+                             f"{tuple(gates.shape)}")
+    for n, x in (("hs", hs), ("h0", h0)) + tuple(o[:2] for o in others):
         if x.dtype != gates.dtype:
             raise TypeError(f"{n} {x.dtype} must have the gates' dtype "
                             f"{gates.dtype}")
 
 
-def _check_d(D):
-    if D % 64:
-        raise ValueError(f"D={D} is not a multiple of 64, which the CUDA "
-                         "kernels need")
+def _check_d(D, what="D"):
+    if D % 64 or D < 64:
+        raise ValueError(f"{what}={D} is not a multiple of 64, which the "
+                         "CUDA kernels need")
 
 
 def _n_sm(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _pick_bb(name, B, D, dev):
+def _pick_bb(name, B, D, dev, E=0):
     """Batch rows per block: the fewest (1, 2, 4, 8) whose tiles fit on
     the card's SMs in one wave, then halved while the block's shared
     memory would not fit."""
     n_sm = _n_sm(dev)
+    smem = _SMEM_FLOATS[name]
     bb = next((b for b in (1, 2, 4) if -(-B // b) <= n_sm), 8)
-    while bb > 1 and _SMEM_ARRAYS[name] * bb * D * 4 > SMEM_LIMIT:
+    while bb > 1 and smem(bb, D, E) * 4 > SMEM_LIMIT:
         bb //= 2
-    if _SMEM_ARRAYS[name] * bb * D * 4 > SMEM_LIMIT:
+    if smem(bb, D, E) * 4 > SMEM_LIMIT:
         raise ValueError(f"D={D} is too large for the {name} kernel: "
-                         f"{_SMEM_ARRAYS[name] * D * 4} bytes of shared "
-                         f"memory per batch row, {SMEM_LIMIT} per block")
+                         f"{smem(1, D, E) * 4} bytes of shared memory for "
+                         f"one batch row, {SMEM_LIMIT} per block")
     return bb
 
 
-def _launch(name, lane, pointers, ints, dev):
-    """Launch ``name`` on the current stream of ``dev``; raise on a CUDA
-    error and count the launch."""
+def _launch(name, lane, pointers, ints, dev, entry=None):
+    """Launch the C entry ``entry`` (default ``name``) on the current
+    stream of ``dev``; raise on a CUDA error and count the launch under
+    ``name``."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _cuda_entry(name)(
+        err = _cuda_entry(entry or name)(
             lane, *[p if p is None else p.data_ptr() for p in pointers],
             *ints, stream)
     if err != 0:
@@ -341,8 +375,9 @@ def gru_bwd(gates, hs, w, lens, h0, dhs):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Run ``gru_scan`` through the plain versions on any device, forward
-    and backward, while inside (the card-side oracle)."""
+    """Run ``gru_scan``, ``lstm_scan`` and ``lstm_scan_proj`` through the
+    plain versions on any device, forward and backward, while inside (the
+    card-side oracle)."""
     prev = _plain[0]
     _plain[0] = True
     try:
@@ -383,4 +418,456 @@ def gru_scan(x, w, lens, h0):
 def gru_scan_dp(x, w, lens, h0, mesh, data_axis, interpret=None):
     raise NotImplementedError(
         "gru_scan_dp (gru_scan under shard_map over the data axis) needs "
+        "the port's parallel/ package (ROADMAP A9)")
+
+
+# ===================================================================== LSTM
+#
+# Gate order i | f | c~ | o. The carries h and c are fp32; every product
+# rounds its operands to W's dtype and sums in fp32; a masked step keeps h
+# and c. The saved gates are post-activation, in x's dtype.
+
+def _cprev(cs, c0):
+    """``[c0; cs[:-1]]`` in cs's dtype: the backward's c_prev is the
+    stored (in the bf16 lane, rounded) cell, as in ``_lstm_bwd_call``."""
+    return torch.cat([c0[None].to(cs.dtype), cs[:-1]], dim=0)
+
+
+def _lstm_cell(pre, h, c, m, D):
+    """One step from the fp32 pre-activations: ``(h, c, gates)``."""
+    i = torch.sigmoid(pre[:, :D])
+    f = torch.sigmoid(pre[:, D:2 * D])
+    g = torch.tanh(pre[:, 2 * D:3 * D])
+    o = torch.sigmoid(pre[:, 3 * D:])
+    c_t = f * c + i * g
+    h_t = o * torch.tanh(c_t)
+    h = m * h_t + (1.0 - m) * h
+    c = m * c_t + (1.0 - m) * c
+    return h, c, torch.cat([i, f, g, o], dim=-1)
+
+
+def _lstm_loop(T, B, D, like, lens, h0, c0, w, pre_of):
+    """The forward recurrence: ``pre_of(t, h_lp)`` gives step t's fp32
+    pre-activations from h rounded to W's dtype."""
+    h, c = h0.float(), c0.float()
+    hs = like.new_empty((T, B, D))
+    cs = like.new_empty((T, B, D))
+    gates = like.new_empty((T, B, 4 * D))
+    for t in range(T):
+        m = (t < lens).float()
+        h, c, g4 = _lstm_cell(pre_of(t, h.to(w.dtype).float()), h, c, m, D)
+        hs[t] = h.to(like.dtype)
+        cs[t] = c.to(like.dtype)
+        gates[t] = g4.to(like.dtype)
+    return hs, cs, gates
+
+
+def _lstm_bwd_loop(gates, cs, w, lens, c0, dhs, dcs, step=None):
+    """The reverse recurrence (``_lstm_bwd_kernel``): ``(dx, dh, dc)``
+    with dx the pre-activation gate gradients in the gates' dtype and
+    dh, dc the fp32 carries at t = 0. ``step(t, dgates, dgates_lp)`` is
+    called at every step (B15's extra outputs)."""
+    T, B, G = gates.shape
+    D = G // 4
+    wf = w.float()
+    cprev = _cprev(cs, c0)
+    dh = torch.zeros((B, D), dtype=torch.float32, device=gates.device)
+    dc = torch.zeros_like(dh)
+    dx = torch.empty_like(gates)
+    for t in range(T - 1, -1, -1):
+        g4 = gates[t].float()
+        i, f, g, o = g4[:, :D], g4[:, D:2 * D], g4[:, 2 * D:3 * D], g4[:, 3 * D:]
+        c_prev = cprev[t].float()
+        tc = torch.tanh(f * c_prev + i * g)      # the pre-mask cell
+        m = (t < lens).float()
+        dH = dhs[t].float() + dh
+        dC = dcs[t].float() + dc
+        dh_t = m * dH
+        dc_t = m * dC + dh_t * o * (1.0 - tc * tc)
+        dgates = torch.cat([dc_t * g * i * (1.0 - i),
+                            dc_t * c_prev * f * (1.0 - f),
+                            dc_t * i * (1.0 - g * g),
+                            dh_t * tc * o * (1.0 - o)], dim=-1)
+        dx[t] = dgates.to(dx.dtype)
+        dg_lp = dgates.to(w.dtype).float()
+        if step is not None:
+            step(t, dgates, dg_lp)
+        dh = (1.0 - m) * dH + dg_lp @ wf.T
+        dc = (1.0 - m) * dC + dc_t * f
+    return dx, dh, dc
+
+
+def lstm_fwd_reference(x, w, lens, h0, c0):
+    """Plain version of B10 (``_lstm_fwd_kernel``), one step at a time:
+    ``(hs, cs [T, B, D], gates [T, B, 4D])`` in x's dtype."""
+    T, B, D = _check_shapes(x, w, lens, h0, ng=4)
+    _check_c0(h0, c0)
+    wf = w.float()
+    return _lstm_loop(T, B, D, x, lens, h0, c0, w,
+                      lambda t, h_lp: x[t].float() + h_lp @ wf)
+
+
+def lstm_bwd_data_reference(gates, cs, w, lens, h0, c0, dhs, dcs):
+    """Plain version of B11's recurrence (``_lstm_bwd_kernel`` without
+    its dW): ``(dx [T, B, 4D] in the gates' dtype, dh0, dc0)``."""
+    _check_shapes(gates, w, lens, h0, ng=4)
+    _check_c0(h0, c0)
+    dx, dh, dc = _lstm_bwd_loop(gates, cs, w, lens, c0, dhs, dcs)
+    return dx, dh.to(h0.dtype), dc.to(c0.dtype)
+
+
+def lstm_dw_reference(hs, h0, dx):
+    """Plain version of B11's dW: ``sum_t hprev_lp^T dx`` in fp32, cast
+    to dx's dtype (which is W's: dx holds the dgates rounded to it)."""
+    T, B, G = dx.shape
+    hprev = _hprev(hs, h0).reshape(T * B, G // 4).to(dx.dtype).float()
+    return (hprev.T @ dx.float().reshape(T * B, G)).to(dx.dtype)
+
+
+def lstm_bwd_reference(gates, hs, cs, w, lens, h0, c0, dhs, dcs):
+    """Plain version of B11 (``_lstm_bwd_call``): ``(dx, dw, dh0,
+    dc0)``."""
+    dx, dh0, dc0 = lstm_bwd_data_reference(gates, cs, w, lens, h0, c0, dhs,
+                                           dcs)
+    return dx, lstm_dw_reference(hs, h0, dx), dh0, dc0
+
+
+def lstm_proj_fwd_reference(xe, wx, b, w, lens, h0, c0):
+    """Plain version of B14 (``_lstm_proj_fwd_kernel``): per step
+    ``(xe_t @ Wx + b) + h_lp @ W`` in fp32; returns ``(hs, cs, gates)`` in
+    xe's dtype."""
+    T, B, D, _E = _check_proj(xe, wx, b, w, lens, h0, c0)
+    wf, wxf, bf = w.float(), wx.float(), b.float()
+    return _lstm_loop(T, B, D, xe, lens, h0, c0, w,
+                      lambda t, h_lp: (xe[t].float() @ wxf + bf)
+                      + h_lp @ wf)
+
+
+def lstm_proj_bwd_data_reference(gates, cs, wx, w, lens, h0, c0, dhs, dcs):
+    """Plain version of B15's recurrence: ``(dxe [T, B, E] in the gates'
+    dtype, dx [T, B, 4D] the dgates rounded to W's dtype, db [4D] fp32
+    (the sum of the unrounded dgates), dh0, dc0)``."""
+    T, B, G = gates.shape
+    _check_shapes(gates, w, lens, h0, ng=4)
+    _check_c0(h0, c0)
+    wxf = wx.float()
+    dxe = gates.new_empty((T, B, wx.shape[0]))
+    db = torch.zeros((G,), dtype=torch.float32, device=gates.device)
+
+    def step(t, dgates, dg_lp):
+        dxe[t] = (dg_lp @ wxf.T).to(dxe.dtype)
+        db.add_(dgates.sum(0))
+
+    dx, dh, dc = _lstm_bwd_loop(gates, cs, w, lens, c0, dhs, dcs, step)
+    return dxe, dx, db, dh.to(h0.dtype), dc.to(c0.dtype)
+
+
+def lstm_proj_dw_reference(xe, hs, h0, dx):
+    """Plain version of B15's reductions: ``(dWx = sum xe^T dx, dW = sum
+    hprev_lp^T dx)``, fp32 sums cast to dx's dtype."""
+    T, B, E = xe.shape
+    G = dx.shape[-1]
+    d = dx.float().reshape(T * B, G)
+    return ((xe.reshape(T * B, E).float().T @ d).to(dx.dtype),
+            lstm_dw_reference(hs, h0, dx))
+
+
+def lstm_proj_bwd_reference(xe, gates, hs, cs, wx, w, lens, h0, c0, dhs,
+                            dcs):
+    """Plain version of B15 (``_lstm_proj_bwd_call``): ``(dxe, dwx, db,
+    dw, dh0, dc0)``, db fp32."""
+    dxe, dx, db, dh0, dc0 = lstm_proj_bwd_data_reference(
+        gates, cs, wx, w, lens, h0, c0, dhs, dcs)
+    dwx, dw = lstm_proj_dw_reference(xe, hs, h0, dx)
+    return dxe, dwx, db, dw, dh0, dc0
+
+
+def _check_c0(h0, c0):
+    if tuple(c0.shape) != tuple(h0.shape) or c0.dtype != h0.dtype:
+        raise ValueError(f"c0 {tuple(c0.shape)} {c0.dtype} must match h0 "
+                         f"{tuple(h0.shape)} {h0.dtype}")
+
+
+def _check_proj(xe, wx, b, w, lens, h0, c0):
+    """xe [T, B, E], wx [E, 4D], b [4D], w [D, 4D], lens [B, 1], h0, c0
+    [B, D]; xe, wx, b, w and h0 of one dtype."""
+    D = w.shape[0] if w.dim() == 2 else 0
+    if (xe.dim() != 3 or wx.dim() != 2 or w.dim() != 2
+            or w.shape[1] != 4 * D or tuple(wx.shape) != (xe.shape[2], 4 * D)
+            or tuple(b.shape) != (4 * D,)
+            or tuple(h0.shape) != (xe.shape[1], D)
+            or tuple(lens.shape) != (xe.shape[1], 1)):
+        raise ValueError(f"xe {tuple(xe.shape)}, wx {tuple(wx.shape)}, b "
+                         f"{tuple(b.shape)}, w {tuple(w.shape)}, lens "
+                         f"{tuple(lens.shape)} and h0 {tuple(h0.shape)} do "
+                         "not agree (want [T, B, E], [E, 4D], [4D], "
+                         "[D, 4D], [B, 1], [B, D])")
+    _check_c0(h0, c0)
+    if not (xe.dtype == wx.dtype == b.dtype == w.dtype == h0.dtype):
+        raise TypeError(f"xe {xe.dtype}, wx {wx.dtype}, b {b.dtype}, w "
+                        f"{w.dtype} and h0 {h0.dtype} must share one dtype")
+    T, B, E = xe.shape
+    return T, B, D, E
+
+
+# ------------------------------------------------------------ LSTM kernels
+
+def _wt(w):
+    """W^T, contiguous: the backward kernels read it with the forward's
+    column pattern."""
+    return w.t().contiguous()
+
+
+def _dw_splits(dev, rows, cols, n_rows):
+    """Fixed row splits of a dW reduction: enough tiles for the SMs,
+    at least 256 rows a split."""
+    tiles = (rows // 64) * (cols // 64)
+    return max(1, min(-(-_DW_TILES_PER_SM * _n_sm(dev) // tiles),
+                      -(-n_rows // 256)))
+
+
+def lstm_fwd(x, w, lens, h0, c0):
+    """B10: ``(hs, cs, gates)``. CUDA tensors launch the kernel
+    (``kernels.LAUNCHES["lstm_fwd"]``) or raise; CPU tensors take the
+    plain version."""
+    T, B, D = _check_shapes(x, w, lens, h0, ng=4)
+    _check_c0(h0, c0)
+    if _device_kind(x) == "cpu":
+        return lstm_fwd_reference(x, w, lens, h0, c0)
+    lane = _check_cuda((("x", x), ("w", w), ("h0", h0), ("c0", c0)), lens)
+    _check_d(D)
+    hs = x.new_empty((T, B, D))
+    cs = x.new_empty((T, B, D))
+    gates = torch.empty_like(x)
+    if B:
+        _launch("lstm_fwd", lane, (x, w, lens, h0, c0, hs, cs, gates),
+                (T, B, D, _pick_bb("lstm_fwd", B, D, x.device)), x.device)
+    return hs, cs, gates
+
+
+def lstm_bwd_data(gates, cs, w, lens, h0, c0, dhs, dcs):
+    """B11's recurrence: ``(dx, dh0, dc0)``. CUDA tensors launch the
+    kernel (``LAUNCHES["lstm_bwd"]``) or raise; CPU tensors take the
+    plain version."""
+    T, B, D = _check_shapes(gates, w, lens, h0, ng=4)
+    _check_c0(h0, c0)
+    if _device_kind(gates) == "cpu":
+        return lstm_bwd_data_reference(gates, cs, w, lens, h0, c0, dhs, dcs)
+    _check_like(gates, cs, h0, ("dhs", dhs, cs.shape),
+                ("dcs", dcs, cs.shape), ("c0", c0, h0.shape), ng=4)
+    lane = _check_cuda((("gates", gates), ("cs", cs), ("w", w), ("c0", c0),
+                        ("dhs", dhs), ("dcs", dcs)), lens)
+    _check_d(D)
+    dx = torch.empty_like(gates)
+    dh0 = torch.empty_like(h0)
+    dc0 = torch.empty_like(c0)
+    if B:
+        _launch("lstm_bwd", lane,
+                (gates, cs, _wt(w), lens, c0, dhs, dcs, dx, dh0, dc0),
+                (T, B, D, _pick_bb("lstm_bwd", B, D, gates.device)),
+                gates.device)
+    return dx, dh0, dc0
+
+
+def _lstm_dw(name, xe, hs, h0, dx, E):
+    """The dW reduction entry: ``[dWx; dW] [E + D, 4D]`` in dx's
+    dtype."""
+    T, B, G = dx.shape
+    D = G // 4
+    dev = dx.device
+    tensors = [("hs", hs), ("h0", h0), ("dx", dx)]
+    if E:
+        tensors.append(("xe", xe))
+    _check_like(dx, hs, h0, ng=4)
+    lane = _check_cuda(tuple(tensors))
+    _check_d(D)
+    dw = dx.new_empty((E + D, G))
+    splits = _dw_splits(dev, E + D, G, T * B)
+    part = (torch.empty((splits, E + D, G), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    if B and T:
+        _launch(name, lane, (xe if E else None, hs, h0, dx, part, dw),
+                (T, B, D, E, splits), dev, entry="lstm_dw")
+    else:
+        dw.zero_()
+    return dw
+
+
+def lstm_dw(hs, h0, dx):
+    """B11's dW reduction over the T*B rows. CUDA tensors launch the
+    kernel (``LAUNCHES["lstm_dw"]``) or raise; CPU tensors take the
+    plain version."""
+    if _device_kind(dx) == "cpu":
+        return lstm_dw_reference(hs, h0, dx)
+    return _lstm_dw("lstm_dw", None, hs, h0, dx, 0)
+
+
+def lstm_bwd(gates, hs, cs, w, lens, h0, c0, dhs, dcs):
+    """B11: ``(dx, dw, dh0, dc0)``, the recurrence then the dW reduction
+    (on the card, one launch each)."""
+    dx, dh0, dc0 = lstm_bwd_data(gates, cs, w, lens, h0, c0, dhs, dcs)
+    return dx, lstm_dw(hs, h0, dx), dh0, dc0
+
+
+def lstm_proj_fwd(xe, wx, b, w, lens, h0, c0):
+    """B14: ``(hs, cs, gates)``. CUDA tensors launch the kernel
+    (``LAUNCHES["lstm_proj_fwd"]``) or raise; CPU tensors take the plain
+    version."""
+    T, B, D, E = _check_proj(xe, wx, b, w, lens, h0, c0)
+    if _device_kind(xe) == "cpu":
+        return lstm_proj_fwd_reference(xe, wx, b, w, lens, h0, c0)
+    lane = _check_cuda((("xe", xe), ("wx", wx), ("b", b), ("w", w),
+                        ("h0", h0), ("c0", c0)), lens)
+    _check_d(D)
+    _check_d(E, "E")
+    hs = xe.new_empty((T, B, D))
+    cs = xe.new_empty((T, B, D))
+    gates = xe.new_empty((T, B, 4 * D))
+    if B:
+        _launch("lstm_proj_fwd", lane,
+                (xe, wx, b, w, lens, h0, c0, hs, cs, gates),
+                (T, B, D, E, _pick_bb("lstm_proj_fwd", B, D, xe.device, E)),
+                xe.device)
+    return hs, cs, gates
+
+
+def lstm_proj_bwd_data(gates, cs, wx, w, lens, h0, c0, dhs, dcs):
+    """B15's recurrence: ``(dxe, dx, db, dh0, dc0)``, dx the dgates
+    rounded to W's dtype (the reductions' operand), db fp32. CUDA tensors
+    launch the kernel (``LAUNCHES["lstm_proj_bwd"]``) or raise; CPU
+    tensors take the plain version."""
+    T, B, D = _check_shapes(gates, w, lens, h0, ng=4)
+    _check_c0(h0, c0)
+    if _device_kind(gates) == "cpu":
+        return lstm_proj_bwd_data_reference(gates, cs, wx, w, lens, h0, c0,
+                                            dhs, dcs)
+    E = wx.shape[0]
+    if tuple(wx.shape) != (E, 4 * D):
+        raise ValueError(f"wx {tuple(wx.shape)} does not fit w "
+                         f"{tuple(w.shape)}")
+    _check_like(gates, cs, h0, ("dhs", dhs, cs.shape),
+                ("dcs", dcs, cs.shape), ("c0", c0, h0.shape),
+                ("wx", wx, wx.shape), ng=4)
+    lane = _check_cuda((("gates", gates), ("cs", cs), ("wx", wx), ("w", w),
+                        ("c0", c0), ("dhs", dhs), ("dcs", dcs)), lens)
+    _check_d(D)
+    _check_d(E, "E")
+    dev = gates.device
+    dx = torch.empty_like(gates)
+    dxe = gates.new_empty((T, B, E))
+    db = torch.zeros((4 * D,), dtype=torch.float32, device=dev)
+    dh0 = torch.empty_like(h0)
+    dc0 = torch.empty_like(c0)
+    if B:
+        bb = _pick_bb("lstm_proj_bwd", B, D, dev, E)
+        # fp32 per-tile db partials: db sums the unrounded dgates
+        db_part = torch.empty((-(-B // bb), 4 * D), dtype=torch.float32,
+                              device=dev)
+        _launch("lstm_proj_bwd", lane,
+                (gates, cs, _wt(w), _wt(wx), lens, c0, dhs, dcs, dx, dxe,
+                 db_part, db, dh0, dc0), (T, B, D, E, bb), dev)
+    return dxe, dx, db, dh0, dc0
+
+
+def lstm_proj_dw(xe, hs, h0, dx):
+    """B15's reductions: ``(dWx, dW)``, one launch
+    (``LAUNCHES["lstm_proj_dw"]``) on the card; CPU tensors take the
+    plain version."""
+    if _device_kind(dx) == "cpu":
+        return lstm_proj_dw_reference(xe, hs, h0, dx)
+    T, B, E = xe.shape
+    if tuple(xe.shape[:2]) != tuple(dx.shape[:2]) or xe.dtype != dx.dtype:
+        raise ValueError(f"xe {tuple(xe.shape)} {xe.dtype} does not fit dx "
+                         f"{tuple(dx.shape)} {dx.dtype}")
+    _check_d(E, "E")
+    dw = _lstm_dw("lstm_proj_dw", xe, hs, h0, dx, E)
+    return dw[:E], dw[E:]
+
+
+def lstm_proj_bwd(xe, gates, hs, cs, wx, w, lens, h0, c0, dhs, dcs):
+    """B15: ``(dxe, dwx, db, dw, dh0, dc0)`` as ``_lstm_proj_bwd_call``
+    returns them (db fp32): the recurrence, then the reductions."""
+    dxe, dx, db, dh0, dc0 = lstm_proj_bwd_data(gates, cs, wx, w, lens, h0,
+                                               c0, dhs, dcs)
+    dwx, dw = lstm_proj_dw(xe, hs, h0, dx)
+    return dxe, dwx, db, dw, dh0, dc0
+
+
+# ---------------------------------------------------------- LSTM autograd
+
+class _LstmScan(torch.autograd.Function):
+    """The JAX ``lstm_scan`` custom VJP: the forward saves ``(gates, hs,
+    cs, w, lens, h0, c0)``; the backward gives dx, dw, dh0 and dc0 (none
+    for lens)."""
+
+    @staticmethod
+    def forward(ctx, x, w, lens, h0, c0, plain):
+        hs, cs, gates = (lstm_fwd_reference if plain else lstm_fwd)(
+            x, w, lens, h0, c0)
+        ctx.save_for_backward(gates, hs, cs, w, lens, h0, c0)
+        ctx.plain = plain
+        return hs, cs
+
+    @staticmethod
+    def backward(ctx, dhs, dcs):
+        gates, hs, cs, w, lens, h0, c0 = ctx.saved_tensors
+        bwd = lstm_bwd_reference if ctx.plain else lstm_bwd
+        dx, dw, dh0, dc0 = bwd(gates, hs, cs, w, lens, h0, c0,
+                               dhs.to(hs.dtype).contiguous(),
+                               dcs.to(cs.dtype).contiguous())
+        return dx, dw, None, dh0, dc0, None
+
+
+def lstm_scan(x, w, lens, h0, c0, layout="tb"):
+    """Fused LSTM over time (B10/B11). x ``[T, B, 4D]`` pre-projected
+    gates (+ bias), i | f | c~ | o; w ``[D, 4D]``; lens ``[B, 1]`` fp32;
+    h0, c0 ``[B, D]``. Returns ``(hs, cs)`` ``[T, B, D]``, differentiable
+    in x, w, h0 and c0. CUDA tensors run the kernels, CPU tensors (or any
+    inside ``plain_versions()``) the plain versions. The JAX batch-major
+    ``layout="bt"`` (kept there as the record of an experiment; no op
+    calls it) is not ported."""
+    if layout != "tb":
+        raise NotImplementedError(
+            f"lstm_scan layout={layout!r}: only the time-major 'tb' layout "
+            "of B10/B11 (_lstm_fwd_call / _lstm_bwd_call) is ported; no op "
+            "calls the batch-major one")
+    return _LstmScan.apply(x, w, lens, h0, c0, _plain[0])
+
+
+class _LstmScanProj(torch.autograd.Function):
+    """The JAX ``lstm_scan_proj`` custom VJP: saves ``(xe, gates, hs, cs,
+    wx, b, w, lens, h0, c0)``; gives dxe, dwx, db (in b's dtype), dw, dh0
+    and dc0."""
+
+    @staticmethod
+    def forward(ctx, xe, wx, b, w, lens, h0, c0, plain):
+        hs, cs, gates = (lstm_proj_fwd_reference if plain else
+                         lstm_proj_fwd)(xe, wx, b, w, lens, h0, c0)
+        ctx.save_for_backward(xe, gates, hs, cs, wx, b, w, lens, h0, c0)
+        ctx.plain = plain
+        return hs, cs
+
+    @staticmethod
+    def backward(ctx, dhs, dcs):
+        xe, gates, hs, cs, wx, b, w, lens, h0, c0 = ctx.saved_tensors
+        bwd = lstm_proj_bwd_reference if ctx.plain else lstm_proj_bwd
+        dxe, dwx, db, dw, dh0, dc0 = bwd(
+            xe, gates, hs, cs, wx, w, lens, h0, c0,
+            dhs.to(hs.dtype).contiguous(), dcs.to(cs.dtype).contiguous())
+        return dxe, dwx, db.to(b.dtype), dw, None, dh0, dc0, None
+
+
+def lstm_scan_proj(xe, wx, b, w, lens, h0, c0):
+    """Fused LSTM with the input projection inside the recurrence
+    (B14/B15): per step ``gates = xe_t @ wx + b + h_prev @ w``. xe ``[T,
+    B, E]``, wx ``[E, 4D]``, b ``[4D]``, w ``[D, 4D]``, lens ``[B, 1]``
+    fp32, h0, c0 ``[B, D]``. Returns ``(hs, cs)``, differentiable in xe,
+    wx, b, w, h0 and c0."""
+    return _LstmScanProj.apply(xe, wx, b, w, lens, h0, c0, _plain[0])
+
+
+def lstm_scan_dp(x, w, lens, h0, c0, mesh, data_axis, interpret=None,
+                 layout="tb"):
+    raise NotImplementedError(
+        "lstm_scan_dp (lstm_scan under shard_map over the data axis) needs "
         "the port's parallel/ package (ROADMAP A9)")

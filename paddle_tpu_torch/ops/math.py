@@ -1,0 +1,88 @@
+"""Dense math operators the text classifier emits: the port of the JAX
+package's ``ops/math.py`` ``mul`` (``amp_compute``), ``elementwise_add``
+(fc's bias), ``mean``, ``lookup_table`` (the embedding) and ``top_k``
+(the accuracy metric's first half); the reference's mul_op.cc,
+elementwise_add_op.cc, mean_op.cc, lookup_table_op.cc and top_k_op.cc.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch.framework.registry import register_op
+
+__all__ = ["mul", "elementwise_add", "mean", "lookup_table", "top_k"]
+
+_LOW = (torch.bfloat16, torch.float16)
+
+
+def _flatten2d(x, num_col_dims):
+    lead = int(np.prod(x.shape[:num_col_dims])) if num_col_dims > 0 else 1
+    return x.reshape(lead, -1)
+
+
+def _accum_matmul(x, y):
+    """Matmul with fp32 accumulation for bf16/f16 operands (AMP), rounded
+    back to the operands' promoted dtype once at the end (the JAX
+    ``preferred_element_type=float32``): the products of bf16 operands
+    are exact in fp32, so the fp32 product of the operands as stored is
+    that function."""
+    if x.dtype in _LOW or y.dtype in _LOW:
+        out = torch.matmul(x.float(), y.float())
+        return out.to(torch.promote_types(x.dtype, y.dtype))
+    return torch.matmul(x, y)
+
+
+@register_op("mul", inputs=["X", "Y"], outputs=["Out"],
+             attrs={"x_num_col_dims": 1, "y_num_col_dims": 1},
+             amp_compute=True)
+def mul(ins, attrs, ctx):
+    """fluid mul: flatten-then-matmul."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn, yn = attrs["x_num_col_dims"], attrs["y_num_col_dims"]
+    y2 = y.reshape(int(np.prod(y.shape[:yn])), -1)
+    out = _accum_matmul(_flatten2d(x, xn), y2)
+    return {"Out": out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))}
+
+
+def _broadcast_y(x, y, axis):
+    """fluid elementwise broadcast: y's dims align to x at ``axis``."""
+    if x.shape == y.shape or y.dim() == 0:
+        return y
+    ax = axis if axis >= 0 else x.dim() - y.dim()
+    return y.reshape((1,) * ax + tuple(y.shape)
+                     + (1,) * (x.dim() - ax - y.dim()))
+
+
+@register_op("elementwise_add", inputs=["X", "Y"], outputs=["Out"],
+             attrs={"axis": -1})
+def elementwise_add(ins, attrs, ctx):
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": x + _broadcast_y(x, y, attrs["axis"])}
+
+
+@register_op("mean", inputs=["X"], outputs=["Out"])
+def mean(ins, attrs, ctx):
+    return {"Out": torch.mean(ins["X"][0])}
+
+
+@register_op("lookup_table", inputs=["W", "Ids"], outputs=["Out"],
+             attrs={"padding_idx": None, "is_sparse": False})
+def lookup_table(ins, attrs, ctx):
+    """Embedding gather; its gradient is autograd's scatter-add (the
+    dense analog of the reference's SelectedRows)."""
+    w, ids = ins["W"][0], ins["Ids"][0]
+    flat = ids.reshape(-1).to(torch.int64)
+    out = w[flat]
+    if attrs["padding_idx"] is not None:
+        out = out * (flat != attrs["padding_idx"])[:, None].to(out.dtype)
+    lead = tuple(ids.shape[:-1] if ids.shape[-1] == 1 else ids.shape)
+    ctx.set_lod("Out", ctx.lod("Ids"))
+    return {"Out": out.reshape(lead + (w.shape[-1],))}
+
+
+@register_op("top_k", inputs=["X"], outputs=["Out", "Indices"],
+             attrs={"k": 1})
+def top_k(ins, attrs, ctx):
+    vals, idx = torch.topk(ins["X"][0], attrs["k"], dim=-1)
+    return {"Out": vals, "Indices": idx.to(torch.int32)}

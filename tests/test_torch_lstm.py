@@ -1,0 +1,630 @@
+"""The port's fused LSTM (B10/B11 ``lstm_scan``, B14/B15
+``lstm_scan_proj``) and its ops (``dynamic_lstm``, ``fused_lstm``), held
+against the JAX package.
+
+The same numpy inputs (``tests/test_fused_rnn.py``'s shapes: B 8, T 7,
+D 128, E 128; ragged lengths including 0 and T) go through the JAX
+Pallas kernels in interpret mode (``_lstm_fwd_call``, ``_lstm_bwd_call``,
+``_lstm_proj_fwd_call``, ``_lstm_proj_bwd_call``, the scans' custom
+VJPs) and through the port on the CPU, where the wrappers run their
+plain versions:
+
+- fp32 kernels: atol 1e-5 (the same fp32 math, sums in another order);
+  the backward from the same saved tensors, and the gradients of
+  ``sum(sin(hs)) + sum(cos(cs))/2`` through the ``autograd.Function``s
+  for every input: atol 1e-5 + rtol 1e-5 (dW sums 56 rows of O(1)
+  products);
+- bf16 (as the GRU's): hs, cs and gates atol 2e-2 (one bf16 ulp at
+  |v| <= 2: both round the same fp32 carry once); dx, dxe, dh0, dc0 atol
+  5e-2; dW, dWx and db rtol 2e-2 + atol 0.1 (a bf16 ulp of |dW| <= 16:
+  JAX sums bf16 partials per batch tile, the port over all rows at
+  once);
+- a two-tile batch (B 256: the Pallas kernel runs two 128-row tiles and
+  sums their dW, dWx and db partials) in fp32, T 3.
+
+The ops go through ``paddle_tpu.framework.registry.get_op_info(...)
+.compute`` on the JAX side (its kernel route forced on the CPU with
+``FORCE_FOR_TESTS``, as ``tests/test_fused_rnn.py`` does) and the
+port's registry on the other, from the same packed inputs and LoD:
+outputs atol 1e-5 (fp32) / 2e-2 (bf16), gradients atol 1e-4.
+
+The kernel-vs-plain cases need a card and skip without one.
+"""
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch import kernels as tk
+from paddle_tpu_torch.core.lod import LoD
+from paddle_tpu_torch.flags import FLAGS
+from paddle_tpu_torch.framework import registry as treg
+from paddle_tpu_torch.kernels import fused_rnn as tfr
+
+B, T, D, E = 8, 7, 128, 128
+TOL = 1e-5
+BF16_FWD_TOL = 2e-2
+BF16_GRAD_TOL = 5e-2
+OP_GRAD_TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def jfr():
+    pytest.importorskip("jax")
+    from paddle_tpu.kernels import fused_rnn
+    return fused_rnn
+
+
+def _inputs(seed=1, B=B, T=T, D=D, E=E):
+    """The LSTM inputs as in tests/test_fused_rnn.py, lens ragged with 0
+    and T; dhs, dcs upstream gradients; xe, wx, b the projection's."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    x = rng.randn(T, B, 4 * D).astype(f) * 0.5
+    w = rng.randn(D, 4 * D).astype(f) * 0.1
+    h0 = rng.randn(B, D).astype(f) * 0.3
+    c0 = rng.randn(B, D).astype(f) * 0.3
+    lens = rng.randint(1, T + 1, (B, 1)).astype(f)
+    lens[0], lens[-1] = 0, T
+    dhs = rng.randn(T, B, D).astype(f)
+    dcs = rng.randn(T, B, D).astype(f)
+    xe = rng.randn(T, B, E).astype(f) * 0.5
+    wx = rng.randn(E, 4 * D).astype(f) * 0.1
+    b = rng.randn(4 * D).astype(f) * 0.1
+    return dict(x=x, w=w, lens=lens, h0=h0, c0=c0, dhs=dhs, dcs=dcs, xe=xe,
+                wx=wx, b=b)
+
+
+def _j(a, bf16=False):
+    import jax.numpy as jnp
+    lp = bf16 and a.dtype == np.float32 and a.shape[-1] != 1
+    return jnp.asarray(a, jnp.bfloat16 if lp else a.dtype)
+
+
+def _t(a, bf16=False):
+    lp = bf16 and a.shape[-1] != 1
+    return torch.from_numpy(np.ascontiguousarray(a)).to(
+        torch.bfloat16 if lp else torch.float32)
+
+
+def _np(x):
+    if torch.is_tensor(x):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, atol, rtol=0.0, what=""):
+    np.testing.assert_allclose(_np(got), _np(want), atol=atol, rtol=rtol,
+                               err_msg=what)
+
+
+def _from_jax(a, dtype):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+def _close_grads(got, want, names, bf16):
+    for g, w_, name in zip(got, want, names):
+        if not bf16:
+            _close(g, w_, TOL, TOL, what=name)
+        elif name in ("dw", "dwx", "db"):
+            _close(g, w_, 0.1, rtol=2e-2, what=name)
+        else:
+            _close(g, w_, BF16_GRAD_TOL, what=name)
+
+
+# ------------------------------------------------------ kernels vs JAX
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_forward_matches_jax_fwd_call(jfr, bf16):
+    a = _inputs()
+    args = ("x", "w", "lens", "h0", "c0")
+    want = jfr._lstm_fwd_call(*(_j(a[k], bf16) for k in args),
+                              interpret=True)
+    got = tfr.lstm_fwd(*(_t(a[k], bf16) for k in args))
+    dt = torch.bfloat16 if bf16 else torch.float32
+    for g, w_, name in zip(got, want, ("hs", "cs", "gates")):
+        assert g.dtype == dt, name
+        _close(g, w_, BF16_FWD_TOL if bf16 else TOL, what=name)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_backward_matches_jax_bwd_call(jfr, bf16):
+    """Each side's backward from the same (JAX) saved gates, hs and cs;
+    the bf16 lane recomputes c~ from the bf16 cs, as JAX does."""
+    a = _inputs()
+    j = {k: _j(v, bf16) for k, v in a.items()}
+    jhs, jcs, jg = jfr._lstm_fwd_call(j["x"], j["w"], j["lens"], j["h0"],
+                                      j["c0"], interpret=True)
+    want = jfr._lstm_bwd_call(jg, jhs, jcs, j["w"], j["lens"], j["h0"],
+                              j["c0"], j["dhs"], j["dcs"], interpret=True)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    g, hs, cs = (_from_jax(v, dt) for v in (jg, jhs, jcs))
+    t = {k: _t(v, bf16) for k, v in a.items()}
+    got = tfr.lstm_bwd(g, hs, cs, t["w"], t["lens"], t["h0"], t["c0"],
+                       t["dhs"], t["dcs"])
+    assert all(v.dtype == dt for v in got)
+    _close_grads(got, want, ("dx", "dw", "dh0", "dc0"), bf16)
+    # the halves the wrapper is made of
+    dx, dh0, dc0 = tfr.lstm_bwd_data(g, cs, t["w"], t["lens"], t["h0"],
+                                     t["c0"], t["dhs"], t["dcs"])
+    assert torch.equal(dx, got[0]) and torch.equal(dh0, got[2])
+    assert torch.equal(tfr.lstm_dw(hs, t["h0"], dx), got[1])
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_proj_forward_matches_jax(jfr, bf16):
+    a = _inputs()
+    args = ("xe", "wx", "b", "w", "lens", "h0", "c0")
+    want = jfr._lstm_proj_fwd_call(*(_j(a[k], bf16) for k in args),
+                                   interpret=True)
+    got = tfr.lstm_proj_fwd(*(_t(a[k], bf16) for k in args))
+    for g, w_, name in zip(got, want, ("hs", "cs", "gates")):
+        _close(g, w_, BF16_FWD_TOL if bf16 else TOL, what=name)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_proj_backward_matches_jax(jfr, bf16):
+    """B15 from the same saved tensors: dxe, dWx, db (fp32: the sum of
+    the unrounded dgates), dW, dh0, dc0."""
+    a = _inputs()
+    j = {k: _j(v, bf16) for k, v in a.items()}
+    jhs, jcs, jg = jfr._lstm_proj_fwd_call(
+        j["xe"], j["wx"], j["b"], j["w"], j["lens"], j["h0"], j["c0"],
+        interpret=True)
+    want = jfr._lstm_proj_bwd_call(
+        j["xe"], jg, jhs, jcs, j["wx"], j["w"], j["lens"], j["h0"], j["c0"],
+        j["dhs"], j["dcs"], interpret=True)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    g, hs, cs = (_from_jax(v, dt) for v in (jg, jhs, jcs))
+    t = {k: _t(v, bf16) for k, v in a.items()}
+    got = tfr.lstm_proj_bwd(t["xe"], g, hs, cs, t["wx"], t["w"], t["lens"],
+                            t["h0"], t["c0"], t["dhs"], t["dcs"])
+    assert got[2].dtype == torch.float32                 # db
+    _close_grads(got, want, ("dxe", "dwx", "db", "dw", "dh0", "dc0"), bf16)
+
+
+def _jax_scan_grads(jfr, proj, a, bf16=False):
+    import jax
+    import jax.numpy as jnp
+    j = {k: _j(v, bf16) for k, v in a.items()}
+
+    def loss(*diff):
+        if proj:
+            xe, wx, b, w, h0, c0 = diff
+            hs, cs = jfr.lstm_scan_proj(xe, wx, b, w, j["lens"], h0, c0,
+                                        interpret=True)
+        else:
+            x, w, h0, c0 = diff
+            hs, cs = jfr.lstm_scan(x, w, j["lens"], h0, c0, interpret=True)
+        return (jnp.sum(jnp.sin(hs.astype(jnp.float32)))
+                + 0.5 * jnp.sum(jnp.cos(cs.astype(jnp.float32))))
+
+    names = _diff_names(proj)
+    val, grads = jax.value_and_grad(loss, argnums=tuple(range(len(names))))(
+        *(j[k] for k in names))
+    return float(val), grads
+
+
+def _diff_names(proj):
+    return (("xe", "wx", "b", "w", "h0", "c0") if proj
+            else ("x", "w", "h0", "c0"))
+
+
+def _port_scan_grads(proj, a, bf16=False):
+    names = _diff_names(proj)
+    live = {k: _t(a[k], bf16).requires_grad_() for k in names}
+    lens = _t(a["lens"])
+    if proj:
+        hs, cs = tfr.lstm_scan_proj(live["xe"], live["wx"], live["b"],
+                                    live["w"], lens, live["h0"], live["c0"])
+    else:
+        hs, cs = tfr.lstm_scan(live["x"], live["w"], lens, live["h0"],
+                               live["c0"])
+    loss = (torch.sum(torch.sin(hs.float()))
+            + 0.5 * torch.sum(torch.cos(cs.float())))
+    return float(loss.detach()), torch.autograd.grad(loss, list(
+        live.values()))
+
+
+@pytest.mark.parametrize("proj", [False, True], ids=["scan", "scan_proj"])
+@pytest.mark.parametrize("shape", [(B, T), (256, 3)], ids=["b8", "b256"])
+def test_autograd_grads_match_jax(jfr, proj, shape):
+    """Every input's gradient through the custom VJPs; B 256 runs the
+    Pallas kernels as two batch tiles whose weight partials are
+    summed."""
+    Bn, Tn = shape
+    a = _inputs(seed=9, B=Bn, T=Tn)
+    j_val, j_grads = _jax_scan_grads(jfr, proj, a)
+    val, grads = _port_scan_grads(proj, a)
+    assert abs(val - j_val) <= 1e-5 * max(1.0, abs(j_val))
+    for g, w_, name in zip(grads, j_grads, _diff_names(proj)):
+        _close(g, w_, TOL, TOL, what=name)
+
+
+@pytest.mark.parametrize("proj", [False, True], ids=["scan", "scan_proj"])
+def test_bf16_autograd_grads_match_jax(jfr, proj):
+    a = _inputs(seed=4)
+    j_val, j_grads = _jax_scan_grads(jfr, proj, a, bf16=True)
+    val, grads = _port_scan_grads(proj, a, bf16=True)
+    assert abs(val - j_val) <= 2e-2 * max(1.0, abs(j_val))
+    for g, w_, name in zip(grads, j_grads, _diff_names(proj)):
+        assert g.dtype == torch.bfloat16, name
+        if name in ("w", "wx", "b"):
+            _close(g, w_, 0.1, rtol=2e-2, what=name)
+        else:
+            _close(g, w_, BF16_GRAD_TOL, what=name)
+
+
+def test_zero_length_rows_keep_state_and_get_no_gradient():
+    t = {k: _t(v) for k, v in _inputs().items()}
+    for proj in (False, True):
+        if proj:
+            hs, cs, g = tfr.lstm_proj_fwd(t["xe"], t["wx"], t["b"], t["w"],
+                                          t["lens"], t["h0"], t["c0"])
+            dx = tfr.lstm_proj_bwd_data(g, cs, t["wx"], t["w"], t["lens"],
+                                        t["h0"], t["c0"], t["dhs"],
+                                        t["dcs"])[1]
+        else:
+            hs, cs, g = tfr.lstm_fwd(t["x"], t["w"], t["lens"], t["h0"],
+                                     t["c0"])
+            dx = tfr.lstm_bwd_data(g, cs, t["w"], t["lens"], t["h0"],
+                                   t["c0"], t["dhs"], t["dcs"])[0]
+        for s in range(T):                       # lens[0] == 0
+            assert torch.equal(hs[s, 0], t["h0"][0])
+            assert torch.equal(cs[s, 0], t["c0"][0])
+        assert not dx[:, 0].any()
+
+
+def test_plain_versions_switch_and_cpu_path_count_no_launches():
+    a = _inputs()
+    before = dict(tk.LAUNCHES)
+    for proj in (False, True):
+        va, ga = _port_scan_grads(proj, a)
+        with tfr.plain_versions():
+            vb, gb = _port_scan_grads(proj, a)
+        assert va == vb
+        assert all(torch.equal(p, q) for p, q in zip(ga, gb))
+    assert tk.LAUNCHES == before
+    assert not tfr._plain[0]
+
+
+def test_bad_inputs_raise():
+    t = {k: _t(v) for k, v in _inputs().items()}
+    with pytest.raises(ValueError, match="do not agree"):
+        tfr.lstm_fwd(t["x"], t["w"], t["lens"][:4], t["h0"], t["c0"])
+    with pytest.raises(ValueError, match=r"\[D, 4D\]"):
+        tfr.lstm_fwd(t["x"], t["w"][:, :100], t["lens"], t["h0"], t["c0"])
+    with pytest.raises(ValueError, match="c0"):
+        tfr.lstm_fwd(t["x"], t["w"], t["lens"], t["h0"], t["c0"][:4])
+    with pytest.raises(TypeError, match="one dtype"):
+        tfr.lstm_proj_fwd(t["xe"], t["wx"].to(torch.bfloat16), t["b"],
+                          t["w"], t["lens"], t["h0"], t["c0"])
+    with pytest.raises(ValueError, match="do not agree"):
+        tfr.lstm_proj_fwd(t["xe"], t["wx"], t["b"][:8], t["w"], t["lens"],
+                          t["h0"], t["c0"])
+    with pytest.raises(NotImplementedError, match="B10/B11"):
+        tfr.lstm_scan(t["x"], t["w"], t["lens"], t["h0"], t["c0"],
+                      layout="bt")
+    with pytest.raises(NotImplementedError, match="A9"):
+        tfr.lstm_scan_dp(t["x"], t["w"], t["lens"], t["h0"], t["c0"],
+                         mesh=None, data_axis="data")
+
+
+# ---------------------------------------------------------- ops vs JAX
+
+@pytest.fixture
+def jax_kernel_route(jfr, monkeypatch):
+    """The JAX ops' fused route on the CPU (Pallas interpret), as
+    tests/test_fused_rnn.py forces it."""
+    monkeypatch.setattr(jfr, "FORCE_FOR_TESTS", True)
+
+
+def _op_case(seed, lens, D=D, E=None, bf16=False):
+    """Packed op inputs for ``lens``: Input [total, 4D] (dynamic_lstm)
+    or [total, E] (fused_lstm), Weight, WeightX, Bias, H0, C0."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    total, nb = int(sum(lens)), len(lens)
+    width = 4 * D if E is None else E
+    case = {"Input": rng.randn(total, width).astype(f) * 0.5,
+            "Weight": rng.randn(D, 4 * D).astype(f) * 0.1,
+            "Bias": rng.randn(1, 4 * D).astype(f) * 0.1,
+            "H0": rng.randn(nb, D).astype(f) * 0.3,
+            "C0": rng.randn(nb, D).astype(f) * 0.3}
+    if E is not None:
+        case["WeightX"] = rng.randn(E, 4 * D).astype(f) * 0.1
+    return case
+
+
+def _run_jax_op(op, case, lens, attrs, slots, grad_of=()):
+    """The JAX op's outputs (and, for the slots in ``grad_of``, the
+    gradients of sum(sin(Hidden)) + sum(cos(Cell))/2) as numpy."""
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.core.lod import LoD as JLoD
+    from paddle_tpu.framework import registry as jreg
+    info = jreg.get_op_info(op)
+    full = dict(info.attrs, **attrs)
+    lod = JLoD.from_lengths([list(lens)])
+
+    def run(diff):
+        ins = {s: [diff[s] if s in diff else jnp.asarray(case[s])]
+               for s in slots}
+        ctx = jreg.OpContext(attrs=full, in_lods={"Input": [lod]})
+        out = info.compute(ins, full, ctx)
+        return out["Hidden"], out["Cell"]
+
+    base = {s: jnp.asarray(case[s]) for s in grad_of}
+    hs, cs = run(base)
+    grads = ()
+    if grad_of:
+        def loss(d):
+            h, c = run(d)
+            return (jnp.sum(jnp.sin(h.astype(jnp.float32)))
+                    + 0.5 * jnp.sum(jnp.cos(c.astype(jnp.float32))))
+        g = jax.grad(loss)(base)
+        grads = tuple(np.asarray(g[s], np.float32) for s in grad_of)
+    return np.asarray(hs, np.float32), np.asarray(cs, np.float32), grads
+
+
+def _run_port_op(op, case, lens, attrs, slots, grad_of=()):
+    info = treg.get_op_info(op)
+    full = dict(info.attrs, **attrs)
+    live = {s: torch.from_numpy(case[s]).requires_grad_(s in grad_of)
+            for s in slots}
+    ctx = treg.OpContext(attrs=full,
+                         in_lods={"Input": [LoD.from_lengths([list(lens)])]})
+    out = info.compute({s: [live[s]] for s in slots}, full, ctx)
+    hs, cs = out["Hidden"], out["Cell"]
+    assert ctx.out_lods["Hidden"][0] == LoD.from_lengths([list(lens)])
+    grads = ()
+    if grad_of:
+        loss = (torch.sum(torch.sin(hs.float()))
+                + 0.5 * torch.sum(torch.cos(cs.float())))
+        grads = torch.autograd.grad(loss, [live[s] for s in grad_of])
+    return hs, cs, grads
+
+
+UNIFORM = [T] * B
+RAGGED = [1, 7, 3, 5, 7, 2, 6, 4]          # a length-1 sequence included
+
+
+def _case_slots(case, seq_lens=None, h0=False):
+    slots = [s for s in ("Input", "WeightX", "Weight", "Bias") if s in case]
+    if h0:
+        slots += ["H0", "C0"]
+    if seq_lens is not None:
+        case["SeqLens"] = np.asarray(seq_lens, np.int32)
+        slots.append("SeqLens")
+    return slots
+
+
+# (op, lens, is_reverse, SeqLens, H0/C0, the port's route)
+OP_CASES = {
+    "dyn-uniform": ("dynamic_lstm", UNIFORM, False, None, False, "kernel"),
+    "dyn-ragged-reverse-h0": ("dynamic_lstm", RAGGED, True, None, True,
+                              "kernel"),
+    "dyn-seqlens": ("dynamic_lstm", UNIFORM, False, [7, 1, 3, 5, 7, 2, 6, 4],
+                    False, "kernel"),
+    "fused-proj-h0": ("fused_lstm", UNIFORM, False, None, True, "proj"),
+    "fused-proj-seqlens": ("fused_lstm", UNIFORM, False,
+                           [7, 1, 3, 5, 7, 2, 6, 4], False, "proj"),
+    "fused-ragged": ("fused_lstm", RAGGED, False, None, False, "kernel"),
+    "fused-reverse": ("fused_lstm", UNIFORM, True, None, True, "kernel"),
+}
+
+
+@pytest.mark.parametrize("name", list(OP_CASES))
+def test_op_matches_jax(jax_kernel_route, monkeypatch, name):
+    """Each op and route against the JAX op's compute, the JAX side's
+    fused kernels forced: Hidden and Cell, and the gradients of Input,
+    the weights and H0/C0."""
+    op, lens, rev, seq_lens, h0, route = OP_CASES[name]
+    case = _op_case(3, lens, E=E if op == "fused_lstm" else None)
+    slots = _case_slots(case, seq_lens, h0)
+    grad_of = tuple(s for s in slots if s != "SeqLens")
+    attrs = {"is_reverse": rev}
+    j_hs, j_cs, j_g = _run_jax_op(op, case, lens, attrs, slots, grad_of)
+    before = dict(tk.LAUNCHES)
+    scan = {"kernel": tfr._LstmScan, "proj": tfr._LstmScanProj}[route]
+    calls = []
+    orig = scan.apply
+    monkeypatch.setattr(scan, "apply",
+                        lambda *a: (calls.append(route), orig(*a))[1])
+    hs, cs, grads = _run_port_op(op, case, lens, attrs, slots, grad_of)
+    assert calls == [route]                 # the route the JAX op takes
+    assert tk.LAUNCHES == before            # CPU: the plain versions
+    _close(hs, j_hs, TOL, what="Hidden")
+    _close(cs, j_cs, TOL, what="Cell")
+    for g, w_, s in zip(grads, j_g, grad_of):
+        _close(g, w_, OP_GRAD_TOL, what=s)
+
+
+@pytest.mark.parametrize("op", ["dynamic_lstm", "fused_lstm"])
+def test_op_bf16_matches_jax(jax_kernel_route, op):
+    """bf16 inputs (the AMP lane): both sides round the same fp32 carry
+    once into bf16 outputs."""
+    case = _op_case(5, RAGGED if op == "dynamic_lstm" else UNIFORM,
+                    E=E if op == "fused_lstm" else None)
+    lens = RAGGED if op == "dynamic_lstm" else UNIFORM
+    slots = _case_slots(case, h0=True)
+    j_case = {s: np.asarray(_j(v, bf16=True)) for s, v in case.items()}
+    j_hs, j_cs, _ = _run_jax_op(op, j_case, lens, {}, slots)
+    t_case = {s: v.astype(np.float32) for s, v in j_case.items()}
+    info = treg.get_op_info(op)
+    ins = {s: [torch.from_numpy(t_case[s]).to(torch.bfloat16)]
+           for s in slots}
+    ctx = treg.OpContext(attrs=dict(info.attrs),
+                         in_lods={"Input": [LoD.from_lengths([lens])]})
+    out = info.compute(ins, dict(info.attrs), ctx)
+    assert out["Hidden"].dtype == torch.bfloat16
+    _close(out["Hidden"], j_hs, BF16_FWD_TOL, what="Hidden")
+    _close(out["Cell"], j_cs, BF16_FWD_TOL, what="Cell")
+
+
+@pytest.mark.parametrize("variant", ["peepholes", "d24", "flag-off"])
+def test_dynamic_lstm_step_route_matches_jax(variant, monkeypatch):
+    """The step-by-step route (peepholes with a 7D bias; D % 128 != 0;
+    FLAGS.fused_rnn off on both sides) against the JAX lax.scan route,
+    outputs and gradients."""
+    pytest.importorskip("jax")
+    from paddle_tpu.flags import FLAGS as JFLAGS
+    Dn = 24 if variant == "d24" else D
+    case = _op_case(7, RAGGED, D=Dn)
+    attrs = {"is_reverse": True}
+    if variant == "peepholes":
+        rng = np.random.RandomState(8)
+        case["Bias"] = rng.randn(1, 7 * Dn).astype(np.float32) * 0.1
+        attrs["use_peepholes"] = True
+    if variant == "flag-off":
+        monkeypatch.setattr(FLAGS, "fused_rnn", False)
+        monkeypatch.setattr(JFLAGS, "fused_rnn", False)
+    slots = _case_slots(case, h0=True)
+    j_hs, j_cs, j_g = _run_jax_op("dynamic_lstm", case, RAGGED, attrs,
+                                  slots, tuple(slots))
+    calls = []
+    orig = tfr._LstmScan.apply
+    monkeypatch.setattr(tfr._LstmScan, "apply",
+                        lambda *a: (calls.append(1), orig(*a))[1])
+    hs, cs, grads = _run_port_op("dynamic_lstm", case, RAGGED, attrs,
+                                 slots, tuple(slots))
+    assert calls == []                     # not the kernel route
+    _close(hs, j_hs, TOL, what="Hidden")
+    _close(cs, j_cs, TOL, what="Cell")
+    for g, w_, s in zip(grads, j_g, slots):
+        _close(g, w_, OP_GRAD_TOL, what=s)
+
+
+def test_fused_lstm_rejects_a_peephole_bias():
+    case = _op_case(2, UNIFORM, E=E)
+    case["Bias"] = np.zeros((1, 7 * D), np.float32)
+    info = treg.get_op_info("fused_lstm")
+    ctx = treg.OpContext(attrs=dict(info.attrs),
+                         in_lods={"Input": [LoD.from_lengths([UNIFORM])]})
+    ins = {s: [torch.from_numpy(case[s])]
+           for s in ("Input", "WeightX", "Weight", "Bias")}
+    with pytest.raises(ValueError, match="4\\*D"):
+        info.compute(ins, dict(info.attrs), ctx)
+
+
+def test_ops_need_a_lod():
+    case = _op_case(2, UNIFORM)
+    info = treg.get_op_info("dynamic_lstm")
+    with pytest.raises(ValueError, match="LoD"):
+        info.compute({s: [torch.from_numpy(case[s])]
+                      for s in ("Input", "Weight")}, dict(info.attrs),
+                     treg.OpContext(attrs=dict(info.attrs)))
+
+
+# -------------------------------------------------------------- the card
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the LSTM kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rel_l2(a, b):
+    return float(torch.linalg.vector_norm((a.float() - b.float()))
+                 / torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7, 8, 128, 128), (5, 130, 192, 64),
+                                   (3, 270, 64, 256)],
+                         ids=["b8-d128", "b130-d192", "b270-d64"])
+def test_kernels_match_plain_on_card(cuda_device, dtype, shape):
+    """Each of the six LSTM kernels against its plain version on the same
+    card tensors (the backward from the kernel's own forward): fp32
+    forwards to 1e-5, backwards to 1e-4, weight sums by relative L2 1e-4;
+    bf16 within 2e-2 (an ulp) of the bf16 plain version, weight sums
+    relative L2 2e-2."""
+    Tn, Bn, Dn, En = shape
+    t = {k: _t(v).to(cuda_device)
+         for k, v in _inputs(seed=5, B=Bn, T=Tn, D=Dn, E=En).items()}
+    t = {k: (v if k == "lens" else v.to(dtype)) for k, v in t.items()}
+    before = dict(tk.LAUNCHES)
+    hs, cs, g = tfr.lstm_fwd(t["x"], t["w"], t["lens"], t["h0"], t["c0"])
+    dx, dh0, dc0 = tfr.lstm_bwd_data(g, cs, t["w"], t["lens"], t["h0"],
+                                     t["c0"], t["dhs"], t["dcs"])
+    dw = tfr.lstm_dw(hs, t["h0"], dx)
+    phs, pcs, pg = tfr.lstm_proj_fwd(t["xe"], t["wx"], t["b"], t["w"],
+                                     t["lens"], t["h0"], t["c0"])
+    pout = tfr.lstm_proj_bwd_data(pg, pcs, t["wx"], t["w"], t["lens"],
+                                  t["h0"], t["c0"], t["dhs"], t["dcs"])
+    dwx, pdw = tfr.lstm_proj_dw(t["xe"], phs, t["h0"], pout[1])
+    torch.cuda.synchronize()
+    for name in tfr._ENTRIES:
+        if name.startswith("lstm"):
+            assert tk.LAUNCHES[name] == before[name] + 1, name
+    assert tk.LAUNCHES["lstm_proj_dw"] == before["lstm_proj_dw"] + 1
+    r = {"fwd": tfr.lstm_fwd_reference(t["x"], t["w"], t["lens"], t["h0"],
+                                       t["c0"]),
+         "bwd": tfr.lstm_bwd_data_reference(g, cs, t["w"], t["lens"],
+                                            t["h0"], t["c0"], t["dhs"],
+                                            t["dcs"]),
+         "pfwd": tfr.lstm_proj_fwd_reference(t["xe"], t["wx"], t["b"],
+                                             t["w"], t["lens"], t["h0"],
+                                             t["c0"]),
+         "pbwd": tfr.lstm_proj_bwd_data_reference(
+             pg, pcs, t["wx"], t["w"], t["lens"], t["h0"], t["c0"],
+             t["dhs"], t["dcs"])}
+    fp32 = dtype == torch.float32
+    pairs = [((hs, cs, g), r["fwd"], 1e-5 if fp32 else 2e-2),
+             ((dx, dh0, dc0), r["bwd"], 1e-4 if fp32 else 2e-2),
+             ((phs, pcs, pg), r["pfwd"], 1e-5 if fp32 else 2e-2),
+             (pout, r["pbwd"], 1e-4 if fp32 else 2e-2)]
+    for got, want, tol in pairs:
+        for a, b_ in zip(got, want):
+            scale = max(1.0, float(b_.float().abs().max()))
+            assert float((a.float() - b_.float()).abs().max()) <= tol * scale
+    l2 = 1e-4 if fp32 else 2e-2
+    assert _rel_l2(dw, tfr.lstm_dw_reference(hs, t["h0"], dx)) <= l2
+    r_dwx, r_dw = tfr.lstm_proj_dw_reference(t["xe"], phs, t["h0"], pout[1])
+    assert _rel_l2(dwx, r_dwx) <= l2 and _rel_l2(pdw, r_dw) <= l2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("proj", [False, True], ids=["scan", "scan_proj"])
+def test_autograd_through_kernels_on_card(cuda_device, proj):
+    a = _inputs(seed=6)
+    names = _diff_names(proj)
+    lens = _t(a["lens"]).to(cuda_device)
+
+    def run(plain):
+        live = {k: _t(a[k]).to(cuda_device).requires_grad_() for k in names}
+        with tfr.plain_versions() if plain else contextlib.nullcontext():
+            if proj:
+                hs, cs = tfr.lstm_scan_proj(
+                    live["xe"], live["wx"], live["b"], live["w"], lens,
+                    live["h0"], live["c0"])
+            else:
+                hs, cs = tfr.lstm_scan(live["x"], live["w"], lens,
+                                       live["h0"], live["c0"])
+            loss = hs.sin().sum() + 0.5 * cs.cos().sum()
+            return loss, torch.autograd.grad(loss, list(live.values()))
+
+    la, ga = run(False)
+    lb, gb = run(True)
+    assert abs(float(la) - float(lb)) <= 1e-4 * max(1.0, abs(float(lb)))
+    for p, q in zip(ga, gb):
+        assert float((p - q).abs().max()) <= 1e-4 * max(
+            1.0, float(q.abs().max()))
+
+
+@pytest.mark.cuda
+def test_lstm_wrappers_raise_on_what_they_do_not_take(cuda_device):
+    t = {k: _t(v).to(cuda_device) for k, v in _inputs().items()}
+    with pytest.raises(ValueError, match="contiguous"):
+        tfr.lstm_fwd(t["x"].transpose(0, 1).contiguous().transpose(0, 1),
+                     t["w"], t["lens"], t["h0"], t["c0"])
+    with pytest.raises(TypeError, match="lane"):
+        tfr.lstm_fwd(t["x"].half(), t["w"].half(), t["lens"],
+                     t["h0"].half(), t["c0"].half())
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tfr.lstm_proj_fwd(t["xe"][..., :96].contiguous(),
+                          t["wx"][:96].contiguous(), t["b"], t["w"],
+                          t["lens"], t["h0"], t["c0"])

@@ -140,7 +140,10 @@ def test_cpu_path_launches_no_kernel():
                                 "paged_attention_chunk_quant",
                                 "quant_matmul", "flash_attention_fwd",
                                 "flash_attention_dq", "flash_attention_dkv",
-                                "gru_fwd", "gru_bwd", "gru_dw"}
+                                "gru_fwd", "gru_bwd", "gru_dw",
+                                "lstm_fwd", "lstm_bwd", "lstm_dw",
+                                "lstm_proj_fwd", "lstm_proj_bwd",
+                                "lstm_proj_dw"}
     assert not any(tk.LAUNCHES.values())
 
 
