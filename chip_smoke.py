@@ -99,7 +99,10 @@ The seq2seq slice adds, in the same run:
    batch (lengths 0..30); fp32 to 1e-5 (hs, gates) / 1e-4 (dx, dh0; dW
    by relative L2), bf16 no further from the fp32 plain result than 1.5x
    the bf16 plain version + 1e-3; each kernel timed beside its plain
-   version and its bound (no PyTorch call computes this GRU);
+   version and its bound (no PyTorch call computes this GRU; the dW
+   reduction beside its yardstick, two ``torch.matmul`` calls with fp32
+   sums on pre-built operands, and two of its launches on the same
+   inputs held bit-equal);
 4e. one full-width seq2seq training step (bench.py's bench_seq2seq
    config, half the sources ragged) in fp32 and bf16 through the kernels
    (under sync-debug "error") against the same step through their plain
@@ -128,7 +131,10 @@ The text-classification slice adds, in the same run:
    weight sums by relative L2), bf16 no further from the fp32 plain
    result than 1.5x the bf16 plain version + 1e-3; each kernel timed
    (L2 flushed) beside its plain version and its bound (no PyTorch call
-   computes this LSTM), B14/B15 at both layers;
+   computes this LSTM; the dW reductions beside their yardstick, one
+   ``torch.matmul`` with fp32 sums on pre-built ``hprev`` or
+   ``[xe | hprev]``, and two launches on the same inputs held
+   bit-equal), B14/B15 at both layers;
 4f. one full-width flagship training step (bench.py's bench_lstm:
    ``lstm_benchmark_net`` with ``fused_lstm``, batch 128 x 100, vocab
    5147, emb 128, hidden 512, 2 layers) in fp32 and under AMP, and the
@@ -1579,6 +1585,66 @@ def _max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+# The dW reductions' yardstick: the same function as one torch.matmul per
+# column block over the T*B rows, on operands built outside the timed
+# call (as the attention rows pre-gather K/V), with fp32 sums as the
+# kernels take them (TF32 is off for the whole run)
+_FP32_SUMS = ("fp32 sums (allow_bf16_reduced_precision_reduction False, "
+              "TF32 off)")
+DW_LIBRARY_NOTES = {
+    "lstm_dw": "torch.matmul(hprev.T, dx), hprev = [h0; hs[:-1]] "
+               "pre-built; " + _FP32_SUMS,
+    "lstm_proj_dw": "torch.matmul([xe | hprev].T, dx), [xe | hprev] "
+                    "pre-built; " + _FP32_SUMS,
+    "gru_dw": "two torch.matmul calls: hprev.T @ dx[:, :2D] and "
+              "bf16(r * hprev).T @ dx[:, 2D:], hprev and bf16(r * hprev) "
+              "pre-built; " + _FP32_SUMS,
+}
+
+
+def _dw_library_call(name, hs, h0, dx, xe=None, gates=None):
+    """The yardstick call of a dW entry (DW_LIBRARY_NOTES), its operands
+    built now, and its result as the entry returns it."""
+    T, B, D = hs.shape
+    G = dx.shape[-1]
+    hprev = torch.cat([h0[None], hs[:-1]]).reshape(T * B, D)
+    d = dx.reshape(T * B, G)
+    if name == "lstm_dw":
+        return lambda: torch.matmul(hprev.t(), d)
+    if name == "lstm_proj_dw":
+        xh = torch.cat([xe.reshape(T * B, -1), hprev], dim=1)
+        return lambda: torch.matmul(xh.t(), d)
+    rh = (gates[..., D:2 * D].reshape(T * B, D).float()
+          * hprev.float()).to(dx.dtype)
+    return lambda: (torch.matmul(hprev.t(), d[:, :2 * D]),
+                    torch.matmul(rh.t(), d[:, 2 * D:]))
+
+
+def _dw_yardstick(name, kernel_fn, library_fn, flush):
+    """Two launches of a dW entry on the same inputs must give the same
+    bits; then its yardstick, checked against the kernel's result (the
+    same function: relative L2 <= 1e-2) and timed with fp32 sums.
+    Returns the record's extra keys."""
+    def whole(out, dim):   # [dWx; dW] rows, or gru's two column blocks
+        return torch.cat(out, dim=dim) if isinstance(out, tuple) else out
+
+    first, second = whole(kernel_fn(), 0), whole(kernel_fn(), 0)
+    _check(torch.equal(first, second),
+           f"{name}: two launches on the same inputs differ")
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        err = _rel_l2(whole(library_fn(), 1), first)
+        _check(err <= 1e-2, f"{name}: the yardstick differs from the "
+               f"kernel by {err} (relative L2)")
+        ms = _time_ms(library_fn, flush)
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = prev
+    return {"library_ms": ms, "library_note": DW_LIBRARY_NOTES[name],
+            "library_rel_l2_vs_kernel": err, "bit_equal_two_launches": True}
+
+
 def _gru_errors(fr, x, w, lens, h0, dhs, dtype):
     """Each kernel (forward; backward recurrence; dW) against its plain
     version on the kernel's own inputs, one lane. fp32: max |kernel -
@@ -1666,16 +1732,18 @@ def check_gru(fr, kernels, dev, flush, dtype):
         }[name]
         err_of = {"gru_fwd": ("hs", "gates"), "gru_bwd": ("dx", "dh0"),
                   "gru_dw": ("dw_rel_l2",)}[name]
+        extra = {"shape": [T, B, D],
+                 "dtype": str(dtype).replace("torch.", ""),
+                 "library_note": GRU_LIBRARY_NOTE, "library_ms": None}
+        if name == "gru_dw":
+            extra.update(_dw_yardstick(name, kernel_fn, _dw_library_call(
+                name, hs, h0, dx, gates=gates), flush), err_is="relative L2")
         rec = _lane_record(
             name if lane == "fp32" else f"{name}_bf16", GRU_KERNELS[name],
             GRU_SOURCE,
             max(worst[n] if lane == "fp32" else worst[n][0] for n in err_of),
             _time_ms(kernel_fn, flush), _time_ms(plain_fn, flush, reps=5),
-            None, _gru_bound(name, dtype, T, B, D),
-            {"shape": [T, B, D], "dtype": str(dtype).replace("torch.", ""),
-             "library_note": GRU_LIBRARY_NOTE})
-        if name == "gru_dw":
-            rec["err_is"] = "relative L2"
+            extra.pop("library_ms"), _gru_bound(name, dtype, T, B, D), extra)
         if lane == "bf16":
             rec["err_vs_fp32_and_plain_bf16_err"] = {n: worst[n]
                                                      for n in err_of}
@@ -1962,7 +2030,8 @@ def profile_s2s(s2s, dev):
     return {"profile_seq2seq": dict(
         {"batch": [S2S_B, S2S_S, S2S_T], "dtype": "bfloat16"},
         **_profile([lambda i=i: call(i) for i in range(3)],
-                   named=("gru_fwd_kernel", "gru_bwd_kernel", "gru_dw")))}
+                   named=("gru_fwd_kernel", "gru_bwd_kernel", "dw_wgmma",
+                          "sum_partials")))}
 
 
 # -------------------------------------------------------------------- LSTM
@@ -2213,11 +2282,17 @@ def check_lstm(fr, kernels, dev, flush, dtype):
         names = LSTM_KERNELS if key == "layer1" else LSTM_PROJ
         for name in names:
             kernel_fn, plain_fn = calls[name]
+            extra = {"library_note": LSTM_LIBRARY_NOTE, "library_ms": None}
+            if name in ("lstm_dw", "lstm_proj_dw"):
+                extra = _dw_yardstick(name, kernel_fn, _dw_library_call(
+                    name, o["p_hs" if "proj" in name else "hs"], h0,
+                    o["p_dx" if "proj" in name else "dx"], xe=xe), flush)
             ms = _time_ms(kernel_fn, flush, reps=10)
             bound = _lstm_bound(name, dtype, T, B, D, E)
             if key == "layer2":
                 recs[name].update({"layer2_ms": ms,
                                    "layer2_bound_ms": bound[0],
+                                   "layer2_library_ms": extra["library_ms"],
                                    "layer2_shape": [T, B, D, E]})
                 continue
             outs = LSTM_OUTPUTS[name]
@@ -2226,11 +2301,11 @@ def check_lstm(fr, kernels, dev, flush, dtype):
                 LSTM_KERNELS[name], GRU_SOURCE,
                 max(worst[n] if lane == "fp32" else worst[n][0]
                     for n in outs),
-                ms, _time_ms(plain_fn, flush, reps=3), None, bound,
-                {"shape": [T, B, D] + ([E] if "proj" in name else []),
-                 "dtype": str(dtype).replace("torch.", ""),
-                 "err_is": {n: outs[n] for n in outs},
-                 "library_note": LSTM_LIBRARY_NOTE})
+                ms, _time_ms(plain_fn, flush, reps=3),
+                extra.pop("library_ms"), bound,
+                dict({"shape": [T, B, D] + ([E] if "proj" in name else []),
+                      "dtype": str(dtype).replace("torch.", ""),
+                      "err_is": {n: outs[n] for n in outs}}, **extra))
             if lane == "bf16":
                 rec["err_vs_fp32_and_plain_bf16_err"] = {n: worst[n]
                                                          for n in outs}
@@ -2430,7 +2505,7 @@ def profile_text(tx, dev):
         {"batch": [TEXT_B, TEXT_T], "amp": True, "fused_proj": True},
         **_profile([lambda i=i: call(i) for i in range(5)],
                    named=("lstm_fwd_kernel", "lstm_bwd_kernel",
-                          "lstm_dw_kernel", "sum_partials")))}
+                          "dw_wgmma", "sum_partials")))}
 
 
 def main():

@@ -1,5 +1,6 @@
 // Fused LSTM and GRU recurrences for Hopper (sm_90a), each with a
-// float32 and a bfloat16 lane on the CUDA cores:
+// float32 and a bfloat16 lane (the recurrences on the CUDA cores, the dW
+// reductions' bf16 lane on the tensor cores):
 //   LSTM (gates i|f|c~|o, w [D, 4D]):
 //     lstm_fwd       (B10) replaces paddle_tpu/kernels/fused_rnn.py:
 //                    _lstm_fwd_kernel, launched by _lstm_fwd_call;
@@ -63,37 +64,57 @@
 //     dh_prev. Both products read W transposed (a copy the wrapper makes
 //     once per call) with the forward's pattern, 2 columns per thread.
 //     Every product is one routine, cols_dot.
-//   - gru_dw: dW cannot be a per-block accumulator here (3 MiB of fp32),
-//     so it is a second kernel after the recurrence, a tiled reduction
-//     over the T*B rows: dW[:, :2D] = sum hprev_lp^T dur_lp and dW[:, 2D:]
-//     = sum rh_lp^T dc_lp, reading hprev, r (from gates) and dx (dur_pre |
-//     dc_pre already in W's dtype, the operands the Pallas kernel
-//     multiplies). 64 x 64 output tiles, 256 threads of 4 x 4, rows staged
-//     16 at a time; the rows are split into `splits` fixed ranges whose
-//     fp32 partials a second pass sums in order (as JAX sums its per-tile
-//     partials) and casts to W's dtype. No atomics: the sums are the same
-//     run to run.
+//   - the dW reductions (gru_dw; lstm_dw, which serves B11 and B15's
+//     [dWx; dW]): dW cannot be a per-block accumulator here (3 MiB of
+//     fp32), so it is a second kernel after the recurrence, one GEMM
+//     with the T*B rows as its depth: dW = sum_n A[n]^T dx[n], A =
+//     hprev (GRU c~ columns: bf16(r * hprev); B15: [xe | hprev]), dx the
+//     gate gradients already in W's dtype (the operands the Pallas
+//     kernel multiplies). What bounds it is operations: B11 is 2 * 12800
+//     * 512 * 2048 = 26.8 GFLOP over 68 MB, 0.027 ms at the bf16 tensor
+//     cores' 989 TFLOP/s and 0.40 ms at the CUDA cores' 67 (fp32); but
+//     with 128 x 256 output tiles the blocks read 320 MB from L2 into
+//     shared memory, 12 TB/s at that pace, more than the L2 gives, so
+//     the bytes moved into the SMs set it. The bf16 lane runs on the tensor
+//     cores: two consumer warpgroups of wgmma m64n256k16 (m64n128k16 for
+//     a GRU whose 2D is no multiple of 256) read both operands MN-major
+//     from a ring of 64-row stages that one producer warp fills by TMA,
+//     with mbarriers between them; fp32 accumulators stay in registers.
+//     Blocks of a cluster along M share dx: each loads half of a stage's
+//     dx and multicasts it to both, which halves dx's L2 reads (where the
+//     card holds the grid's pairs in one wave). A comes
+//     from xe, h0 or hs per 64 output rows and stage (the one stage that
+//     straddles the hprev seam at row B takes its hprev rows by cp.async);
+//     the GRU's c~ operand is formed in shared memory once its stage
+//     lands. The fp32 lane stays on the CUDA cores (TF32 would miss the
+//     fp32 gates): 128 x 128 tiles, 8 x 8 outputs a thread, double-
+//     buffered cp.async stages. Both split the rows into fixed ranges
+//     (the wrapper's dw_plan: the most splits that keep one wave of
+//     blocks) whose fp32 partials a second pass sums in split order. No
+//     atomics: the same inputs give the same bits.
 // The LSTM's W is 2 MiB in bf16 (B14/B15 add Wx, 0.5 or 2 MiB), so its
 // steps are set by the same L2 reads: 128 blocks x 2.5-4 MiB a step.
-// Left for later work: tensor cores (mma.sync / wgmma on the bf16 lane),
-// W split across the SMs and kept resident with a per-step grid barrier,
-// cp.async prefetch of the next step's x.
+// Left for later work: tensor cores in the recurrences, W split across
+// the SMs and kept resident with a per-step grid barrier, cp.async
+// prefetch of the next step's x.
 //
 // Built by paddle_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes; each C entry returns cudaGetLastError().
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
-constexpr int kDwTile = 64;   // dW output tile (rows of W x columns)
-constexpr int kDwChunk = 16;  // T*B rows staged per step of the reduction
 constexpr int kFwdArrays = 4;   // [BB][D] fp32 arrays in the forward's smem
 constexpr int kBwdArrays = 10;  // ... and in the backward's
 
@@ -393,146 +414,579 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------- dW reductions (B13, B11, B15)
+//
+// dW = sum over the T*B rows n of A[n]^T dx[n]: an [M, G] product whose
+// depth is the T*B rows, with both operands MN-major (the depth is the
+// slow axis of hs, xe, gates and dx). A[n] is hprev row n (hs[n - B], or
+// h0[n] for n < B, read in place) in output rows m >= E, and (B15) xe[n]
+// in rows m < E; the GRU's c~ columns (>= 2D) take bf16(r * hprev), the
+// fp32 product rounded to W's dtype as the plain version rounds it.
+// Products in W's dtype, sums in fp32. The rows are split into fixed
+// ranges of whole kDwRows chunks (the last one shorter), blockIdx.z the
+// split: with one split a block writes its tile in W's dtype, else fp32
+// partials [splits][M][G] that a second pass sums in split order. No
+// atomics: the same inputs give the same bits.
 
-// The tiled reduction every dW shares: acc[i][j] += sum over the rows
-// [n_begin, n_end) of the T*B rows of A[n][ka + ty*4 + i] * dx[n][j0 +
-// tx*4 + j], one 64 x 64 output tile per block, 256 threads of 4 x 4,
-// rows staged kDwChunk at a time. load_a(n, v) fills v with the four A
-// values of row n that this thread stages (columns ka + (tid % 16)*4..).
-template <typename T, typename LoadA>
-__device__ __forceinline__ void dw_tile(LoadA load_a, const T* __restrict__ dx,
-                                        int G, int j0, int n_begin,
-                                        int n_end, float (&acc)[4][4]) {
-  __shared__ __align__(16) float a_s[kDwChunk][kDwTile];  // [row][k]
-  __shared__ __align__(16) float b_s[kDwChunk][kDwTile];  // [row][j]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int sr = threadIdx.x / 16, sc = (threadIdx.x % 16) * 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int c0 = n_begin; c0 < n_end; c0 += kDwChunk) {
-    const int n = c0 + sr;
-    float a[4] = {0.f, 0.f, 0.f, 0.f}, bv[4] = {0.f, 0.f, 0.f, 0.f};
-    if (n < n_end) {
-      load_a(n, a);
-      load4(dx + static_cast<size_t>(n) * G + j0 + sc, bv);
+constexpr int kDwRows = 64;  // the split granularity, rows
+
+// rows per split (a multiple of kDwRows); the wrapper's dw_plan computes
+// the same, and picks splits so that none is empty
+inline int dw_rows_per_split(int n_rows, int splits) {
+  const int chunks = (n_rows + kDwRows * splits - 1) / (kDwRows * splits);
+  return kDwRows * (chunks > 1 ? chunks : 1);
+}
+
+// One launch's operands: M = E + D output rows, G gate columns.
+template <typename T>
+struct DwOps {
+  const T* xe;     // [T*B, E] (B15), else null
+  const T* hs;     // [T*B, D]
+  const T* h0;     // [B, D]
+  const T* gates;  // the GRU's [T*B, 3D] (r: columns D..2D), else null
+  const T* dx;     // [T*B, G], in W's dtype
+  float* part;     // [splits][M][G] fp32 partials when splits > 1
+  T* dw;           // [M][G]
+  int n_rows, B, D, E, G, M, per, splits;
+  int cluster;     // bf16 lane: blocks sharing dx (along M)
+
+  // row n of the A operand over the 64 output rows from m (a multiple of
+  // 64, so the slice lies wholly in xe or wholly in hprev)
+  __device__ __forceinline__ const T* a_row(int n, int m) const {
+    if (m < E) return xe + static_cast<size_t>(n) * E + m;
+    return (n >= B ? hs + static_cast<size_t>(n - B) * D
+                   : h0 + static_cast<size_t>(n) * D) + (m - E);
+  }
+  // row n of the GRU's r for the hidden units from m
+  __device__ __forceinline__ const T* r_row(int n, int m) const {
+    return gates + static_cast<size_t>(n) * 3 * D + D + m;
+  }
+  __device__ __forceinline__ const T* dx_row(int n, int col) const {
+    return dx + static_cast<size_t>(n) * G + col;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared without the registers; zeros (src unread)
+// when !ok
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- bf16: warpgroup products (wgmma) from a TMA-filled ring
+
+namespace tc {
+
+constexpr int kBM = 128;  // output rows a block: 2 warpgroups x 64
+constexpr int kBudget = 192 * 1024;
+
+// A stage holds the A operand (kBM / 64 slices), dx (BN / 64) and, for
+// the GRU, r (kBM / 64), each slice kBK rows of 128 bytes in the 128-byte
+// swizzle that TMA writes and wgmma reads MN-major operands in (16-byte
+// piece p of row r at r * 128 + ((p ^ (r % 8)) * 16), slices 1024-byte
+// aligned).
+template <bool GRU, int BN>
+struct Cfg {
+  static constexpr int kBK = 64;            // T*B rows a stage
+  static constexpr int kSlice = kBK * 128;  // bytes of one slice a stage
+  // a split ends on a stage boundary, so a stage's boxes never reach into
+  // the next split's rows (past n_rows the maps load zeros)
+  static_assert(kDwRows % kBK == 0, "a split is whole stages");
+  static constexpr int kSlices = 2 + BN / 64 + (GRU ? 2 : 0);
+  static constexpr int kStageBytes = kSlices * kSlice;
+  static constexpr int kStages = kBudget / kStageBytes;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;  // + align
+};
+
+// wgmma's shared-memory matrix descriptor: 128-byte swizzle; lbo the
+// bytes between 64-element slices along M/N, sbo between 8-row groups
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | static_cast<uint64_t>(1)
+                                                     << 62;
+}
+
+// d (64 x BN, fp32, the wgmma accumulator layout) += A (64 x 16) * B (16
+// x BN), both bf16 MN-major in shared memory (the two transpose bits)
+template <int BN>
+__device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t a,
+                                    uint64_t b);
+// eight accumulator operands of a wgmma
+#define DW_R8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+template <>
+__device__ __forceinline__ void mma<256>(float (&d)[128], uint64_t a,
+                                        uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 1, 1;\n}\n"
+      : DW_R8(0), DW_R8(8), DW_R8(16), DW_R8(24),
+        DW_R8(32), DW_R8(40), DW_R8(48), DW_R8(56),
+        DW_R8(64), DW_R8(72), DW_R8(80), DW_R8(88),
+        DW_R8(96), DW_R8(104), DW_R8(112), DW_R8(120)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma<128>(float (&d)[64], uint64_t a,
+                                        uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : DW_R8(0), DW_R8(8), DW_R8(16), DW_R8(24),
+        DW_R8(32), DW_R8(40), DW_R8(48), DW_R8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+#undef DW_R8
+
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// bf16(r * h) for two packed pairs (fp32 product, round to nearest even)
+__device__ __forceinline__ unsigned mul_bf2(unsigned h, unsigned r) {
+  const float2 a = bf2_to_f2(h), b = bf2_to_f2(r);
+  return f2_to_bf2(b.x * a.x, b.y * a.y);
+}
+
+// mbarriers, TMA and the thread block cluster. The arrives are relaxed:
+// a release arrive would also wait for the arriving thread's own copies
+// still in flight, and what it signals (the products on a stage are done,
+// the bytes a stage expects) needs no ordering of earlier writes.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// arrive expecting `bytes`; `release` also publishes this thread's earlier
+// writes (and those ordered before them) to the waiters
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes,
+                                               bool release) {
+  if (release) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 _, [%0], "
+        "%1;\n" ::"r"(bar),
+        "r"(bytes)
+        : "memory");
+  } else {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.relaxed.cta.shared::cta.b64 _, [%0], "
+        "%1;\n" ::"r"(bar),
+        "r"(bytes)
+        : "memory");
+  }
+}
+// arrive on the barrier at the same offset in the cluster's block `rank`
+__device__ __forceinline__ void mbar_arrive_at(uint32_t bar, int rank) {
+  asm volatile(
+      "{\n.reg .b32 a;\nmapa.shared::cluster.u32 a, %0, %1;\n"
+      "mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [a];\n}\n" ::
+          "r"(bar),
+      "r"(rank)
+      : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// the box at (x, y) of a 2-D tensor map to shared memory at dst,
+// completing on bar; with cm > 1 multicast to the cluster's cm blocks
+// (the same offsets there)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int x, int y, uint32_t bar,
+                                         int cm = 1) {
+  if (cm == 1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+        "l"(map), "r"(x), "r"(y), "r"(bar)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], "
+        "%5;\n" ::"r"(dst),
+        "l"(map), "r"(x), "r"(y), "r"(bar),
+        "h"(static_cast<uint16_t>((1 << cm) - 1))
+        : "memory");
+  }
+}
+
+// The operands' tensor maps (64-column x kBK-row boxes, 128-byte swizzle):
+// dx [n_rows, G]; hs [n_rows, D] (hprev row n >= B is hs row n - B); h0
+// [B, D]; xe [n_rows, E] (B15); gates [n_rows, 3D] (the GRU's r: columns
+// D..2D). Rows and columns past a map's bounds load as zeros.
+struct DwMaps {
+  CUtensorMap dx, hs, h0, xe, gates;
+};
+
+// One 128 x BN tile of dW over one split's rows: two consumer warpgroups
+// (w owning output rows m0 + 64w..) and a producer warp, around a ring of
+// kStages stages with a `full` and an `empty` barrier each. The producer
+// fills a stage by TMA once every consumer of the cluster has released it:
+// dx, shared by the cluster's blocks (1, cm, 1) (the same column tile and
+// split), 1/cm of it from each block, multicast; A (xe, or hprev from h0 or
+// hs) and the GRU's r for this block alone. A stage whose rows straddle
+// the hprev seam at row B (B not a multiple of kBK) takes its hprev rows
+// by cp.async instead, the warp's lanes choosing the source per row. The
+// consumers wait for a stage, form the GRU's c~ operand bf16(r * hprev) in
+// place, run their wgmmas and release the stage once they are done, so the
+// producer keeps the other stages in flight.
+template <bool GRU, int BN>
+__global__ void __launch_bounds__(288, 1)
+    dw_wgmma_kernel(const DwOps<bf16> op, const __grid_constant__ DwMaps maps) {
+  using C = Cfg<GRU, BN>;
+  constexpr int kBK = C::kBK, kSlice = C::kSlice, kS = C::kStages;
+  constexpr int kR = 2 + BN / 64;  // the first r slice
+  extern __shared__ uint8_t dw_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * kS];  // full, then empty
+  const uint32_t raw = smem_u32(dw_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = dw_smem + (base - raw);
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kS;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int j0 = blockIdx.x * BN, m0 = blockIdx.y * kBM;
+  const int n_begin = blockIdx.z * op.per;
+  const int n_end = min(op.n_rows, n_begin + op.per);
+  const int n_chunks = (n_end - n_begin + kBK - 1) / kBK;
+  const bool cand = GRU && j0 >= 2 * op.D;  // c~ columns: A = r * hprev
+  const int cm = op.cluster, rank = cluster_rank();
+  const int n_a = min(2, (op.M - m0) / 64);  // A slices inside M
+
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2 * cm);
     }
-    __syncthreads();  // the previous chunk's products are done
-    *reinterpret_cast<float4*>(&a_s[sr][sc]) = make_float4(a[0], a[1], a[2],
-                                                           a[3]);
-    *reinterpret_cast<float4*>(&b_s[sr][sc]) = make_float4(bv[0], bv[1],
-                                                           bv[2], bv[3]);
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  if (wg == 2) {  // ---- the producer warp
+    const int lane = tid & 31;
+    const int dx_per = BN / 64 / cm;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int s = c % kS;
+      const uint32_t st = base + s * C::kStageBytes, full = full0 + 8 * s;
+      const int n0 = n_begin + c * kBK;
+      const bool seam = n0 < op.B && n0 + kBK > op.B;
+      if (c >= kS) mbar_wait(empty0 + 8 * s, (c / kS - 1) & 1);
+      if (seam) {  // hprev rows by cp.async, then make them visible
+        for (int w = 0; w < n_a; ++w) {
+          const int m = m0 + 64 * w;
+          if (m < op.E) continue;
+          for (int idx = lane; idx < kBK * 8; idx += 32) {
+            const int p = idx & 7, r = idx >> 3, n = n0 + r;
+            const bool ok = n < n_end;
+            cp16(st + w * kSlice + r * 128 + ((p ^ (r & 7)) << 4),
+                 ok ? op.a_row(n, m) + 8 * p : op.dx, ok);
+          }
+        }
+        cp_commit();
+        cp_wait<0>();
+        fence_async();
+        __syncwarp();
+      }
+      if (lane == 0) {
+        int bytes = BN / 64 * kSlice;
+        for (int w = 0; w < n_a; ++w) {
+          const bool tma_a = m0 + 64 * w < op.E || !seam;
+          bytes += (tma_a ? kSlice : 0) + (cand ? kSlice : 0);
+        }
+        mbar_expect_tx(full, bytes, seam);
+        for (int j = rank * dx_per; j < (rank + 1) * dx_per; ++j) {
+          tma_load(st + (2 + j) * kSlice, &maps.dx, j0 + 64 * j, n0, full,
+                   cm);
+        }
+        for (int w = 0; w < n_a; ++w) {
+          const int m = m0 + 64 * w;
+          const uint32_t dst = st + w * kSlice;
+          if (m < op.E) {
+            tma_load(dst, &maps.xe, m, n0, full);
+          } else if (!seam) {
+            if (n0 >= op.B) {
+              tma_load(dst, &maps.hs, m - op.E, n0 - op.B, full);
+            } else {
+              tma_load(dst, &maps.h0, m - op.E, n0, full);
+            }
+          }
+          if (cand) tma_load(st + (kR + w) * kSlice, &maps.gates,
+                             op.D + m, n0, full);
+        }
+      }
+    }
+  } else {  // ---- the consumer warpgroups
+    float acc[BN / 2];
 #pragma unroll
-    for (int rr = 0; rr < kDwChunk; ++rr) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_s[rr][ty * 4]);
-      const float4 bw = *reinterpret_cast<const float4*>(&b_s[rr][tx * 4]);
-      const float ai[4] = {av.x, av.y, av.z, av.w};
-      const float bj[4] = {bw.x, bw.y, bw.z, bw.w};
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int s = c % kS;
+      const uint32_t st = base + s * C::kStageBytes;
+      mbar_wait(full0 + 8 * s, (c / kS) & 1);
+      if (cand) {  // this warpgroup's A slice := bf16(r * hprev), in place
+        uint8_t* a = gbase + s * C::kStageBytes + wg * kSlice;
+        const uint8_t* rv = a + kR * kSlice;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int q = 0; q < kSlice / 16 / 128; ++q) {
+          const int off = ((tid & 127) + 128 * q) * 16;
+          uint4 h = *reinterpret_cast<const uint4*>(a + off);
+          const uint4 r = *reinterpret_cast<const uint4*>(rv + off);
+          h.x = mul_bf2(h.x, r.x);
+          h.y = mul_bf2(h.y, r.y);
+          h.z = mul_bf2(h.z, r.z);
+          h.w = mul_bf2(h.w, r.w);
+          *reinterpret_cast<uint4*>(a + off) = h;
+        }
+        fence_async();
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      }
+      wg_fence();
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
+      for (int k = 0; k < kBK / 16; ++k) {
+        mma<BN>(acc, desc(st + wg * kSlice + k * 2048, kSlice, 1024),
+                desc(st + 2 * kSlice + k * 2048, kSlice, 1024));
+      }
+      wg_commit();
+      wg_wait<0>();  // the products of stage c are done: release it
+      if ((tid & 127) == 0) {
+        for (int r = 0; r < cm; ++r) mbar_arrive_at(empty0 + 8 * s, r);
+      }
+    }
+
+    // accumulator i of thread t: row 16 * warp + lane / 4 (+ 8 for i % 4
+    // >= 2), column 8 * (i / 4) + 2 * (lane % 4) (+ 1 for odd i)
+    const int m = m0 + 64 * wg;
+    if (m < op.M) {
+      const int lane = tid & 31;
+      const int row = m + 16 * ((tid & 127) >> 5) + (lane >> 2);
+      float* const part =
+          op.splits == 1
+              ? nullptr
+              : op.part + static_cast<size_t>(blockIdx.z) * op.M * op.G;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = j0 + 8 * j + 2 * (lane & 3);
+        if (col >= op.G) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const size_t o = static_cast<size_t>(row + 8 * h) * op.G + col;
+          const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (op.splits == 1) {
+            *reinterpret_cast<unsigned*>(op.dw + o) = f2_to_bf2(v0, v1);
+          } else {
+            *reinterpret_cast<float2*>(part + o) = make_float2(v0, v1);
+          }
+        }
+      }
+    }
+  }
+  cluster_sync();  // no block leaves while a peer may still signal it
+}
+
+}  // namespace tc
+
+// ---- fp32: a register-blocked tile on the CUDA cores
+
+namespace simt {
+
+constexpr int kBM = 128, kBN = 128;  // output tile; 8 x 8 a thread
+constexpr int kBK = 32;              // T*B rows a stage
+constexpr int kStages = 2;
+constexpr int kTile = kBK * kBM;     // floats of one operand a stage
+static_assert(kBK % 8 == 0, "whole float4 copies for every thread");
+
+template <bool GRU>
+constexpr int smem_bytes() {
+  return kStages * (GRU ? 3 : 2) * kTile * static_cast<int>(sizeof(float));
+}
+
+// One 128 x 128 tile of dW over one split's rows: 256 threads, each 8 x 8
+// outputs. Warp w covers rows 64 * (w / 4).. and columns 32 * (w % 4)..;
+// lane l takes 4 rows at r0 = .. + 4 * (l / 4) and r0 + 32, 4 columns at
+// c0 = .. + 4 * (l % 4) and c0 + 16, so a warp's shared-memory reads of a
+// row are 8 and 4 neighbouring float4s. The operands are staged
+// [row][128] by cp.async, double-buffered; the GRU's c~ tiles stage r too
+// and form r * hprev in shared memory once a stage has landed.
+template <bool GRU>
+__global__ void __launch_bounds__(256, 2)
+    dw_fp32_kernel(const DwOps<float> op) {
+  constexpr int kOps = GRU ? 3 : 2;  // A, dx (, r) a stage
+  extern __shared__ float4 dw_smem4[];
+  float* const sm = reinterpret_cast<float*>(dw_smem4);
+  const int tid = threadIdx.x, wp = tid >> 5, ln = tid & 31;
+  const int r0 = 64 * (wp >> 2) + 4 * (ln >> 2);
+  const int c0 = 32 * (wp & 3) + 4 * (ln & 3);
+  const int j0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  const int n_begin = blockIdx.z * op.per;
+  const int n_end = min(op.n_rows, n_begin + op.per);
+  const int n_chunks = (n_end - n_begin + kBK - 1) / kBK;
+  const bool cand = GRU && j0 >= 2 * op.D;
+
+  auto load = [&](int chunk) {
+    float* st = sm + (chunk % kStages) * kOps * kTile;
+    const int n0 = n_begin + chunk * kBK;
+#pragma unroll
+    for (int q = 0; q < kBK / 8; ++q) {  // kBK rows x 32 float4 an operand
+      const int idx = tid + 256 * q;
+      const int c4 = idx & 31, r = idx >> 5, half = c4 >> 4;
+      const int n = n0 + r, m = m0 + 64 * half, col = j0 + 64 * half;
+      const int in = 4 * (c4 & 15);
+      const bool a_ok = n < n_end && m < op.M;
+      const bool b_ok = n < n_end && col < op.G;
+      const int off = r * kBM + 4 * c4;
+      cp16(smem_u32(st + off), a_ok ? op.a_row(n, m) + in : op.dx, a_ok);
+      cp16(smem_u32(st + kTile + off), b_ok ? op.dx_row(n, col) + in : op.dx,
+           b_ok);
+      if (cand) {
+        cp16(smem_u32(st + 2 * kTile + off),
+             a_ok ? op.r_row(n, m) + in : op.dx, a_ok);
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < n_chunks) load(c);
+    cp_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // stage c landed; every thread is done with c - 1
+    const float* st = sm + (c % kStages) * kOps * kTile;
+    if (cand) {  // A := r * hprev (fp32: the rounding is the identity)
+      float* a = sm + (c % kStages) * kOps * kTile;
+#pragma unroll
+      for (int q = 0; q < kBK / 8; ++q) {
+        const int off = 4 * (tid + 256 * q);
+        float4 h = *reinterpret_cast<const float4*>(a + off);
+        const float4 r = *reinterpret_cast<const float4*>(a + 2 * kTile +
+                                                          off);
+        h.x = r.x * h.x; h.y = r.y * h.y; h.z = r.z * h.z; h.w = r.w * h.w;
+        *reinterpret_cast<float4*>(a + off) = h;
+      }
+      __syncthreads();
+    }
+    if (c + kStages - 1 < n_chunks) load(c + kStages - 1);
+    cp_commit();
+#pragma unroll
+    for (int k = 0; k < kBK; ++k) {
+      const float* ar = st + k * kBM + r0;
+      const float* br = st + kTile + k * kBN + c0;
+      const float4 a0 = *reinterpret_cast<const float4*>(ar);
+      const float4 a1 = *reinterpret_cast<const float4*>(ar + 32);
+      const float4 b0 = *reinterpret_cast<const float4*>(br);
+      const float4 b1 = *reinterpret_cast<const float4*>(br + 16);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+
+  float* const out =
+      op.splits == 1 ? op.dw
+                     : op.part + static_cast<size_t>(blockIdx.z) * op.M * op.G;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + r0 + 32 * (i >> 2) + (i & 3);
+    if (m0 + 64 * (wp >> 2) >= op.M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = j0 + c0 + 16 * h;
+      if (j0 + 64 * ((wp & 3) >> 1) >= op.G) continue;
+      const size_t o = static_cast<size_t>(row) * op.G + col;
+      store4(out + o, &acc[i][4 * h]);
     }
   }
 }
 
-// this block's tile (output rows k0.., columns j0..) of an [n_out, G]
-// result: written in W's dtype when splits == 1, else as fp32 partials
-// [splits][n_out][G] (split blockIdx.z)
-template <typename T>
-__device__ __forceinline__ void dw_store(const float (&acc)[4][4],
-                                         float* __restrict__ part,
-                                         T* __restrict__ out, int n_out,
-                                         int G, int k0, int j0, int splits) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t o = static_cast<size_t>(k0 + ty * 4 + i) * G + j0 + tx * 4;
-    if (splits == 1) {
-      store4(out + o, acc[i]);
-    } else {
-      store4(part + static_cast<size_t>(blockIdx.z) * n_out * G + o, acc[i]);
-    }
-  }
-}
+}  // namespace simt
 
-// hprev row n of the T*B rows: hs[n - B], or h0[n] for t = 0
+// out = the fp32 partials [splits][4 * n4] summed in split order, cast to
+// T, four neighbours a thread (B15's db, the dW reductions)
 template <typename T>
-__device__ __forceinline__ const T* hprev_row(const T* hs, const T* h0,
-                                             int n, int B, int D) {
-  return n >= B ? hs + static_cast<size_t>(n - B) * D
-                : h0 + static_cast<size_t>(n) * D;
-}
-
-// GRU: one 64 x 64 tile of dW (rows k0.., columns j0..) over the rows
-// [n_begin, n_end) of the T*B rows; splits == 1 writes dW, else fp32
-// partials [splits][D][3D]
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    gru_dw_kernel(const T* __restrict__ gates, const T* __restrict__ hs,
-                  const T* __restrict__ h0, const T* __restrict__ dx,
-                  float* __restrict__ part, T* __restrict__ dw, int n_steps,
-                  int B, int D, int rows_per_split, int splits) {
-  const int G = 3 * D;
-  const int j0 = blockIdx.x * kDwTile, k0 = blockIdx.y * kDwTile;
-  const bool cand = j0 >= 2 * D;  // c~ columns: A = r * hprev, else hprev
-  const int n_rows = n_steps * B;
-  const int n_begin = blockIdx.z * rows_per_split;
-  const int n_end = min(n_rows, n_begin + rows_per_split);
-  const int kk = k0 + (threadIdx.x % 16) * 4;
-  auto load_a = [&](int n, float* a) {
-    load4(hprev_row(hs, h0, n, B, D) + kk, a);
-    if (cand) {
-      float r[4];
-      load4(gates + static_cast<size_t>(n) * G + D + kk, r);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) a[c] = round_to<T>(r[c] * a[c]);
-    }
-  };
-  float acc[4][4];
-  dw_tile<T>(load_a, dx, G, j0, n_begin, n_end, acc);
-  dw_store<T>(acc, part, dw, D, G, k0, j0, splits);
-}
-
-// LSTM: one 64 x 64 tile of [dWx; dW] ([E + D, 4D]: rows < E are dWx =
-// sum xe^T dx, the rest dW = sum hprev^T dx; E = 0 for B11) over the rows
-// [n_begin, n_end) of the T*B rows. dx holds dgates already rounded to
-// W's dtype, the operand the Pallas kernel multiplies.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    lstm_dw_kernel(const T* __restrict__ xe, const T* __restrict__ hs,
-                   const T* __restrict__ h0, const T* __restrict__ dx,
-                   float* __restrict__ part, T* __restrict__ dw, int n_steps,
-                   int B, int D, int E, int rows_per_split, int splits) {
-  const int G = 4 * D;
-  const int j0 = blockIdx.x * kDwTile, k0 = blockIdx.y * kDwTile;
-  const int n_rows = n_steps * B;
-  const int n_begin = blockIdx.z * rows_per_split;
-  const int n_end = min(n_rows, n_begin + rows_per_split);
-  const int kk = k0 + (threadIdx.x % 16) * 4;
-  auto load_a = [&](int n, float* a) {
-    if (k0 < E) {
-      load4(xe + static_cast<size_t>(n) * E + kk, a);
-    } else {
-      load4(hprev_row(hs, h0, n, B, D) + kk - E, a);
-    }
-  };
-  float acc[4][4];
-  dw_tile<T>(load_a, dx, G, j0, n_begin, n_end, acc);
-  dw_store<T>(acc, part, dw, E + D, G, k0, j0, splits);
-}
-
-// out = the fp32 partials [splits][n] summed in split order, cast to T
-template <typename T>
-__global__ void sum_partials_kernel(const float* __restrict__ part,
-                                  T* __restrict__ dw, int n, int splits) {
+__global__ void sum_partials4_kernel(const float4* __restrict__ part,
+                                     T* __restrict__ dw, int n4, int splits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < splits; ++p) s += part[static_cast<size_t>(p) * n + i];
-  dw[i] = from_f<T>(s);
+  if (i >= n4) return;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int p = 0; p < splits; ++p) {
+    const float4 q = part[static_cast<size_t>(p) * n4 + i];
+    v[0] += q.x; v[1] += q.y; v[2] += q.z; v[3] += q.w;
+  }
+  store4(dw + static_cast<size_t>(i) * 4, v);
 }
 
 // ---------------------------------------------- LSTM forward (B10, B14)
@@ -831,27 +1285,6 @@ cudaError_t launch_bwd(const void* gates, const void* hs, const void* wt,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dw(const void* gates, const void* hs, const void* h0,
-                      const void* dx, float* part, void* dw, int n_steps,
-                      int B, int D, int splits, cudaStream_t st) {
-  const int n_rows = n_steps * B;
-  const int per = (n_rows + splits - 1) / splits;
-  const dim3 grid(static_cast<unsigned>(3 * D / kDwTile),
-                  static_cast<unsigned>(D / kDwTile),
-                  static_cast<unsigned>(splits));
-  gru_dw_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(gates), static_cast<const T*>(hs),
-      static_cast<const T*>(h0), static_cast<const T*>(dx), part,
-      static_cast<T*>(dw), n_steps, B, D, per, splits);
-  if (splits > 1) {
-    const int n = D * 3 * D;
-    sum_partials_kernel<T><<<(n + 255) / 256, 256, 0, st>>>(
-        part, static_cast<T*>(dw), n, splits);
-  }
-  return cudaGetLastError();
-}
-
 // shared memory of the LSTM recurrence kernels (the wrapper's
 // _lstm_smem_bytes computes the same)
 int lstm_fwd_smem(int bb, int D, int E) {
@@ -900,31 +1333,146 @@ cudaError_t launch_lstm_bwd(const void* gates, const void* cs, const void* wt,
       db_part, static_cast<T*>(dh0), static_cast<T*>(dc0), n_steps, B, D,
       E);
   if constexpr (PROJ) {  // db: the tiles' fp32 partials summed in order
-    const int n = 4 * D;
-    sum_partials_kernel<float><<<(n + 255) / 256, 256, 0, st>>>(
-        db_part, db, n, grid);
+    sum_partials4_kernel<float><<<(D + 255) / 256, 256, 0, st>>>(
+        reinterpret_cast<const float4*>(db_part), db, D, grid);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_lstm_dw(const void* xe, const void* hs, const void* h0,
-                           const void* dx, float* part, void* dw, int n_steps,
-                           int B, int D, int E, int splits, cudaStream_t st) {
-  const int n_rows = n_steps * B;
-  const int per = (n_rows + splits - 1) / splits;
-  const dim3 grid(static_cast<unsigned>(4 * D / kDwTile),
-                  static_cast<unsigned>((E + D) / kDwTile),
-                  static_cast<unsigned>(splits));
-  lstm_dw_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(xe), static_cast<const T*>(hs),
-      static_cast<const T*>(h0), static_cast<const T*>(dx), part,
-      static_cast<T*>(dw), n_steps, B, D, E, per, splits);
-  if (splits > 1) {
-    const int n = (E + D) * 4 * D;
-    sum_partials_kernel<T><<<(n + 255) / 256, 256, 0, st>>>(
-        part, static_cast<T*>(dw), n, splits);
+// a tensor map of a row-major bf16 [rows, cols] tensor (row stride ld
+// elements) in 64-column x rows_box boxes and the 128-byte swizzle,
+// through the driver's cuTensorMapEncodeTiled (found through the runtime:
+// no -lcuda)
+cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int rows,
+                            int cols, int ld, int rows_box) {
+  static const PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
+                                         12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      fn = nullptr;
+    }
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(rows_box)};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+      dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <bool GRU, int BN>
+cudaError_t launch_dw_wgmma(DwOps<bf16> op, cudaStream_t st) {
+  using C = tc::Cfg<GRU, BN>;
+  cudaError_t err = opt_in(tc::dw_wgmma_kernel<GRU, BN>, C::kSmem);
+  if (err != cudaSuccess) return err;
+  tc::DwMaps maps;
+  const int rows = op.n_rows, bk = C::kBK;
+  err = bf16_tensor_map(&maps.dx, op.dx, rows, op.G, op.G, bk);
+  if (err == cudaSuccess) {
+    err = bf16_tensor_map(&maps.hs, op.hs, rows, op.D, op.D, bk);
   }
+  if (err == cudaSuccess) {
+    err = bf16_tensor_map(&maps.h0, op.h0, op.B, op.D, op.D, bk);
+  }
+  maps.xe = maps.hs;  // unused unless E > 0
+  if (err == cudaSuccess && op.E > 0) {
+    err = bf16_tensor_map(&maps.xe, op.xe, rows, op.E, op.E, bk);
+  }
+  maps.gates = maps.hs;  // unused unless GRU
+  if (err == cudaSuccess && GRU) {
+    err = bf16_tensor_map(&maps.gates, op.gates, rows, 3 * op.D, 3 * op.D,
+                          bk);
+  }
+  if (err != cudaSuccess) return err;
+  const int m_tiles = (op.M + tc::kBM - 1) / tc::kBM;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 2;  // pairs of row tiles share dx
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((op.G + BN - 1) / BN),
+                     static_cast<unsigned>(m_tiles),
+                     static_cast<unsigned>(op.splits));
+  cfg.blockDim = dim3(288);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // pairs the card holds at once (its GPCs' SM counts set it); a grid of
+  // pairs that does not fit in one wave runs without clusters instead
+  static int pairs = -1;
+  if (pairs < 0) {
+    cudaLaunchConfig_t one = cfg;  // any grid of whole pairs
+    one.gridDim = dim3(1, 2, 1);
+    if (cudaOccupancyMaxActiveClusters(&pairs, tc::dw_wgmma_kernel<GRU, BN>,
+                                       &one) != cudaSuccess) {
+      pairs = 0;
+      (void)cudaGetLastError();
+    }
+  }
+  const int blocks = static_cast<int>(cfg.gridDim.x * cfg.gridDim.y *
+                                      cfg.gridDim.z);
+  op.cluster = m_tiles % 2 == 0 && 2 * pairs >= blocks ? 2 : 1;
+  attr[0].val.clusterDim.y = static_cast<unsigned>(op.cluster);
+  return cudaLaunchKernelEx(&cfg, tc::dw_wgmma_kernel<GRU, BN>, op, maps);
+}
+
+template <bool GRU>
+cudaError_t launch_dw_fp32(const DwOps<float>& op, cudaStream_t st) {
+  constexpr int smem = simt::smem_bytes<GRU>();
+  const cudaError_t err = opt_in(simt::dw_fp32_kernel<GRU>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>((op.G + simt::kBN - 1) / simt::kBN),
+                  static_cast<unsigned>((op.M + simt::kBM - 1) / simt::kBM),
+                  static_cast<unsigned>(op.splits));
+  simt::dw_fp32_kernel<GRU><<<grid, 256, smem, st>>>(op);
+  return cudaGetLastError();
+}
+
+// One dW reduction (GRU: [D, 3D]; LSTM: [E + D, 4D]): the tile kernel of
+// the lane (bf16: wgmma, 128 x 256 tiles, 128 x 128 for a GRU whose 2D is
+// no multiple of 256 so that no tile straddles the c~ columns; fp32:
+// CUDA cores, 128 x 128), then, with splits > 1, the ordered sum. splits
+// must leave no split empty (the wrapper's dw_plan).
+template <typename T, bool GRU>
+cudaError_t launch_dw(const void* xe, const void* hs, const void* h0,
+                      const void* gates, const void* dx, float* part,
+                      void* dw, int n_steps, int B, int D, int E, int splits,
+                      cudaStream_t st) {
+  const int n_rows = n_steps * B;
+  const int per = dw_rows_per_split(n_rows, splits);
+  if (splits != (n_rows > per ? (n_rows + per - 1) / per : 1)) {
+    return cudaErrorInvalidValue;
+  }
+  const DwOps<T> op{static_cast<const T*>(xe), static_cast<const T*>(hs),
+                    static_cast<const T*>(h0), static_cast<const T*>(gates),
+                    static_cast<const T*>(dx), part, static_cast<T*>(dw),
+                    n_rows, B, D, E, (GRU ? 3 : 4) * D, E + D, per, splits,
+                    1};
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    err = launch_dw_fp32<GRU>(op, st);
+  } else if constexpr (GRU) {
+    err = D % 128 ? launch_dw_wgmma<true, 128>(op, st)
+                  : launch_dw_wgmma<true, 256>(op, st);
+  } else {
+    err = launch_dw_wgmma<false, 256>(op, st);
+  }
+  if (err != cudaSuccess || splits == 1) return err;
+  const int n4 = op.M * op.G / 4;
+  sum_partials4_kernel<T><<<(n4 + 255) / 256, 256, 0, st>>>(
+      reinterpret_cast<const float4*>(part), static_cast<T*>(dw), n4, splits);
   return cudaGetLastError();
 }
 
@@ -994,10 +1542,10 @@ extern "C" int gru_dw(int lane, const void* gates, const void* hs,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      lane == 0 ? launch_dw<float>(gates, hs, h0, dx, part, dw, n_steps, B,
-                                   D, splits, st)
-                : launch_dw<bf16>(gates, hs, h0, dx, part, dw, n_steps, B,
-                                  D, splits, st);
+      lane == 0 ? launch_dw<float, true>(nullptr, hs, h0, gates, dx, part,
+                                         dw, n_steps, B, D, 0, splits, st)
+                : launch_dw<bf16, true>(nullptr, hs, h0, gates, dx, part,
+                                        dw, n_steps, B, D, 0, splits, st);
   return static_cast<int>(err);
 }
 
@@ -1105,9 +1653,9 @@ extern "C" int lstm_dw(int lane, const void* xe, const void* hs,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      lane == 0 ? launch_lstm_dw<float>(xe, hs, h0, dx, part, dw, n_steps, B,
-                                        D, E, splits, st)
-                : launch_lstm_dw<bf16>(xe, hs, h0, dx, part, dw, n_steps, B,
-                                       D, E, splits, st);
+      lane == 0 ? launch_dw<float, false>(xe, hs, h0, nullptr, dx, part, dw,
+                                          n_steps, B, D, E, splits, st)
+                : launch_dw<bf16, false>(xe, hs, h0, nullptr, dx, part, dw,
+                                         n_steps, B, D, E, splits, st);
   return static_cast<int>(err);
 }

@@ -48,12 +48,13 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from paddle_tpu_torch import kernels as _kernels
 
-__all__ = ["gru_bwd", "gru_bwd_data", "gru_bwd_data_reference",
+__all__ = ["DwPlan", "dw_plan", "gru_bwd", "gru_bwd_data", "gru_bwd_data_reference",
            "gru_bwd_reference", "gru_dw", "gru_dw_reference", "gru_fwd",
            "gru_fwd_reference", "gru_scan", "gru_scan_dp", "lstm_bwd",
            "lstm_bwd_data", "lstm_bwd_data_reference", "lstm_bwd_reference",
@@ -82,7 +83,6 @@ _SMEM_FLOATS = {"gru_fwd": lambda bb, D, E: 4 * bb * D,
                 "lstm_proj_fwd": lambda bb, D, E: 4 * bb * D + 2 * bb * E,
                 "lstm_bwd": lambda bb, D, E: 6 * bb * D,
                 "lstm_proj_bwd": lambda bb, D, E: 6 * bb * D + 4 * D}
-_DW_TILES_PER_SM = 4       # dW: aim for this many blocks per SM
 _plain = [False]           # inside plain_versions()
 
 
@@ -351,14 +351,11 @@ def gru_dw(gates, hs, h0, dx):
                         ("dx", dx)))
     _check_d(D)
     dw = gates.new_empty((D, G))
-    tiles = (G // 64) * (D // 64)
-    splits = max(1, min(-(-_DW_TILES_PER_SM * _n_sm(dev) // tiles),
-                        -(-T * B // 256)))
-    part = (torch.empty((splits, D, G), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
-    if B:
-        _launch("gru_dw", lane, (gates, hs, h0, dx, part, dw),
-                (T, B, D, splits), dev)
+    plan = dw_plan("gru", gates.dtype, T, B, D, 0, _n_sm(dev))
+    if B and T:
+        _launch("gru_dw", lane,
+                (gates, hs, h0, dx, _dw_partials(plan, dev), dw),
+                (T, B, D, plan.splits), dev)
     else:
         dw.zero_()
     return dw
@@ -618,12 +615,51 @@ def _wt(w):
     return w.t().contiguous()
 
 
-def _dw_splits(dev, rows, cols, n_rows):
-    """Fixed row splits of a dW reduction: enough tiles for the SMs,
-    at least 256 rows a split."""
-    tiles = (rows // 64) * (cols // 64)
-    return max(1, min(-(-_DW_TILES_PER_SM * _n_sm(dev) // tiles),
-                      -(-n_rows // 256)))
+class DwPlan(NamedTuple):
+    """How a dW reduction is launched (``dw_plan``)."""
+    tile: Tuple[int, int]             # output rows x columns of a block
+    splits: int                       # fixed row ranges, blockIdx.z
+    rows_per_split: int               # a multiple of DW_ROWS
+    rows: List[Tuple[int, int]]       # each split's [begin, end) rows
+    partials: Optional[Tuple[int, int, int]]  # fp32 [splits, E + D, G]
+
+
+DW_ROWS = 64               # dW row splits are whole multiples of this
+
+
+def dw_plan(kind, dtype, T, B, D, E=0, n_sm=132):
+    """The launch plan of a dW reduction (``kind`` "lstm": ``[E + D,
+    4D]``, "gru": ``[D, 3D]``) over the T*B rows; ``csrc/fused_rnn.cu``'s
+    ``launch_dw`` follows it. Tiles: bf16 128 x 256 on the tensor cores
+    (128 x 128 for a GRU whose 2D is no multiple of 256, so that no tile
+    straddles the c~ columns), one block an SM; fp32 128 x 128 on the
+    CUDA cores, two an SM. A tile takes its A operand from xe or hprev
+    per 64 output rows, so E and D need only be multiples of 64. Splits:
+    the most that keep the grid in one wave on ``n_sm`` SMs, at least
+    256 rows each, as whole 64-row chunks (the last split shorter, none
+    empty); the wrapper allocates ``partials`` (fp32, summed in split
+    order) when there is more than one."""
+    G = (3 if kind == "gru" else 4) * D
+    M = E + D
+    if dtype == torch.bfloat16:
+        tile = (128, 256 if kind == "lstm" or D % 128 == 0 else 128)
+        per_sm = 1
+    else:
+        tile, per_sm = (128, 128), 2
+    tiles = -(-M // tile[0]) * -(-G // tile[1])
+    n_rows = T * B
+    splits = max(1, min(per_sm * n_sm // tiles, -(-n_rows // 256)))
+    per = DW_ROWS * max(1, -(-n_rows // (DW_ROWS * splits)))
+    splits = max(1, -(-n_rows // per))
+    return DwPlan(tile, splits, per,
+                  [(z * per, min(n_rows, (z + 1) * per))
+                   for z in range(splits)],
+                  (splits, M, G) if splits > 1 else None)
+
+
+def _dw_partials(plan, dev):
+    return (None if plan.partials is None else
+            torch.empty(plan.partials, dtype=torch.float32, device=dev))
 
 
 def lstm_fwd(x, w, lens, h0, c0):
@@ -682,12 +718,11 @@ def _lstm_dw(name, xe, hs, h0, dx, E):
     lane = _check_cuda(tuple(tensors))
     _check_d(D)
     dw = dx.new_empty((E + D, G))
-    splits = _dw_splits(dev, E + D, G, T * B)
-    part = (torch.empty((splits, E + D, G), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
+    plan = dw_plan("lstm", dx.dtype, T, B, D, E, _n_sm(dev))
     if B and T:
-        _launch(name, lane, (xe if E else None, hs, h0, dx, part, dw),
-                (T, B, D, E, splits), dev, entry="lstm_dw")
+        _launch(name, lane, (xe if E else None, hs, h0, dx,
+                             _dw_partials(plan, dev), dw),
+                (T, B, D, E, plan.splits), dev, entry="lstm_dw")
     else:
         dw.zero_()
     return dw

@@ -206,6 +206,59 @@ def test_bad_inputs_raise():
         tfr.gru_scan_dp(x, w, lens, h0, mesh=None, data_axis="data")
 
 
+# ------------------------------------------------- the dW reductions' plan
+
+# (kind, T, B, D, E): the main paths' shapes (B11; B15's layers 1 and 2;
+# B13 in training and generation) and the card tests' D 64 / 192, E 64
+DW_PLAN_SHAPES = [("lstm", 100, 128, 512, 0), ("lstm", 100, 128, 512, 128),
+                  ("lstm", 100, 128, 512, 512), ("gru", 30, 512, 512, 0),
+                  ("gru", 30, 128, 512, 0), ("lstm", 7, 8, 128, 0),
+                  ("lstm", 5, 130, 192, 64), ("lstm", 3, 270, 64, 256),
+                  ("gru", 7, 8, 128, 0), ("gru", 5, 130, 192, 0),
+                  ("gru", 3, 270, 64, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", DW_PLAN_SHAPES,
+                         ids=["-".join(map(str, s)) for s in DW_PLAN_SHAPES])
+def test_dw_plan_splits_every_row_once(shape, dtype):
+    """The dW reductions' launch plan (pure Python; the C launcher
+    recomputes rows_per_split from the row count and splits): every one
+    of the T*B rows in exactly one split, in order, none empty; splits of
+    whole 64-row chunks; tiles on 64-row source boundaries (E, D) and, for
+    the GRU, on the c~ columns (2D); one wave of blocks; the fp32 partial
+    buffer's shape; the same plan on every call."""
+    kind, T, B, D, E = shape
+    plan = tfr.dw_plan(kind, dtype, T, B, D, E, n_sm=132)
+    assert plan == tfr.dw_plan(kind, dtype, T, B, D, E, n_sm=132)
+    n = T * B
+    seen = np.zeros(n, dtype=np.int64)
+    for lo, hi in plan.rows:
+        assert lo < hi
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert len(plan.rows) == plan.splits
+    assert [lo for lo, _ in plan.rows] == [z * plan.rows_per_split
+                                           for z in range(plan.splits)]
+    assert plan.rows_per_split % tfr.DW_ROWS == 0
+    assert plan.rows_per_split == tfr.DW_ROWS * max(
+        1, -(-n // (tfr.DW_ROWS * plan.splits)))
+    G = (3 if kind == "gru" else 4) * D
+    bm, bn = plan.tile
+    assert bm % 64 == 0 and bn % 64 == 0
+    assert E % 64 == 0 and D % 64 == 0 and G % 64 == 0
+    if kind == "gru":
+        assert (2 * D) % bn == 0       # no tile straddles the c~ columns
+    tiles = -(-(E + D) // bm) * -(-G // bn)
+    per_sm = 2 if dtype == torch.float32 else 1
+    assert plan.splits == 1 or tiles * plan.splits <= per_sm * 132
+    assert plan.partials == ((plan.splits, E + D, G) if plan.splits > 1
+                             else None)
+    if plan.splits > 1:
+        assert min(hi - lo for lo, hi in plan.rows[:-1]) >= 256
+
+
 # -------------------------------------------------------------- the card
 
 @pytest.fixture
@@ -302,3 +355,34 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda_device):
         tfr.gru_bwd(gates, hs, w, lens, h0, dhs.to(torch.bfloat16))
     with pytest.raises(ValueError, match="too large"):
         tfr._pick_bb("gru_bwd", 8, 6400, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(30, 512, 512), (30, 128, 512)],
+                         ids=["train", "beam"])
+def test_gru_dw_at_seq2seq_shapes_on_card(cuda_device, dtype, shape):
+    """gru_dw at the seq2seq shapes (T 30, D 512; B 512 training, 128
+    generation) against its plain version: fp32 relative L2 1e-4; bf16
+    no further from the fp32 plain result than 1.5x the bf16 plain
+    version + 2e-3; two launches on the same inputs give the same
+    bits."""
+    Tn, Bn, Dn = shape
+    rng = np.random.RandomState(7)
+    f = np.float32
+    gates, hs, dx = _t(rng.rand(Tn, Bn, 3 * Dn).astype(f),
+                       rng.randn(Tn, Bn, Dn).astype(f) * 0.5,
+                       rng.randn(Tn, Bn, 3 * Dn).astype(f))
+    (h0,) = _t(rng.randn(Bn, Dn).astype(f) * 0.5)
+    gates, hs, dx, h0 = (t.to(cuda_device, dtype) for t in (gates, hs, dx,
+                                                            h0))
+    dw = tfr.gru_dw(gates, hs, h0, dx)
+    assert torch.equal(dw, tfr.gru_dw(gates, hs, h0, dx))
+    r_dw = tfr.gru_dw_reference(gates, hs, h0, dx)
+    if dtype == torch.float32:
+        assert _rel_l2(dw, r_dw) <= 1e-4
+        return
+    f_dw = tfr.gru_dw_reference(gates.float(), hs.float(), h0.float(),
+                                dx.float())
+    assert _rel_l2(dw, f_dw) <= 1.5 * _rel_l2(r_dw, f_dw) + 2e-3

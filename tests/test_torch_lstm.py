@@ -628,3 +628,34 @@ def test_lstm_wrappers_raise_on_what_they_do_not_take(cuda_device):
         tfr.lstm_proj_fwd(t["xe"][..., :96].contiguous(),
                           t["wx"][:96].contiguous(), t["b"], t["w"],
                           t["lens"], t["h0"], t["c0"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("E_", [0, 128, 512], ids=["b11", "b15-l1",
+                                                   "b15-l2"])
+def test_dw_at_flagship_shapes_on_card(cuda_device, dtype, E_):
+    """lstm_dw (E 0) and lstm_proj_dw (E 128, 512: the flagship's two
+    layers) at T 100, B 128, D 512 against their plain versions, relative
+    L2 1e-4 (fp32) / 2e-2 (bf16); two launches on the same inputs give
+    the same bits."""
+    Tn, Bn, Dn = 100, 128, 512
+    rng = np.random.RandomState(8)
+    f = np.float32
+    hs, h0, dx, xe = (_t(a).to(cuda_device, dtype) for a in (
+        rng.randn(Tn, Bn, Dn).astype(f) * 0.5,
+        rng.randn(Bn, Dn).astype(f) * 0.5,
+        rng.randn(Tn, Bn, 4 * Dn).astype(f),
+        rng.randn(Tn, Bn, max(E_, 64)).astype(f) * 0.5))
+    l2 = 1e-4 if dtype == torch.float32 else 2e-2
+    if E_ == 0:
+        dw = tfr.lstm_dw(hs, h0, dx)
+        assert torch.equal(dw, tfr.lstm_dw(hs, h0, dx))
+        assert _rel_l2(dw, tfr.lstm_dw_reference(hs, h0, dx)) <= l2
+        return
+    dwx, dw = tfr.lstm_proj_dw(xe, hs, h0, dx)
+    again = tfr.lstm_proj_dw(xe, hs, h0, dx)
+    assert torch.equal(dwx, again[0]) and torch.equal(dw, again[1])
+    r_dwx, r_dw = tfr.lstm_proj_dw_reference(xe, hs, h0, dx)
+    assert _rel_l2(dwx, r_dwx) <= l2 and _rel_l2(dw, r_dw) <= l2
