@@ -29,7 +29,10 @@ The quantized slice adds, in the same run:
    (int8 and fp8-e4m3 pools with random nonzero per-block scales), and
    the quantized matmul (int8 and fp8-e4m3) at the decoder's four
    projection shapes with M=80, each against its plain version, the
-   a-priori error bound, and a library yardstick the port never calls;
+   a-priori error bound and itself (two launches bit-equal), and a
+   library yardstick the port never calls, which quantizes x inside the
+   timed call as the kernel does (beside it the same call on x quantized
+   beforehand);
 4b. a full-width int8 KV + int8 weight mixed step with the kernels
    (under sync-debug "error") against the same step with the plain
    versions, from the same zero pools;
@@ -72,9 +75,9 @@ The training slice adds, in the same run:
    at a non-causal cross shape (Tq 200, Tk 512); fp32 to 1e-5 (out,
    lse) and 1e-4 (dq, dk, dv), bf16 no further from the fp32 plain
    result than 1.5x the bf16 plain version + 1e-3; a query with no key
-   gives zeros and lse NEG_INF; each kernel timed beside its plain
-   version, its bound and an SDPA yardstick (forward; backward) that the
-   port never calls;
+   gives zeros and lse NEG_INF; two forward launches bit-equal; each
+   kernel timed beside its plain version, its bound and an SDPA
+   yardstick (forward; backward) that the port never calls;
 4d. one full-width training step (the transformer LM at bench.py's
    GPT-2-small widths, batch 16 x 512, 12 layers) in fp32 and in bf16
    with the kernels (under sync-debug "error") against the same step
@@ -188,6 +191,9 @@ QMM_TOL = {"int8": 1e-6, "fp8-e4m3": 1e-5}
 # kernel path no worse an approximation of the fp32 step than the plain
 # path: max|logits - fp32| <= QUANT_ERR_RATIO * the plain path's + 1e-3
 QUANT_ERR_RATIO = 1.5
+# B7's two kernels (the row quantization, the product) as torch.profiler
+# names them: profile_quant reports their device ms per step
+B7_PROFILE_NAMES = ("quantize_rows_kernel", "qmm_kernel")
 
 
 def _check(ok, what):
@@ -527,23 +533,38 @@ def check_chunk_attention(pa, dev, flush, shape, dtype):
     return rec
 
 
-def _qmm_library(lane, x, wq, ws, sx):
-    """One PyTorch call computing the same product from PRE-quantized
-    activations (so it skips the activation quantization the kernel
-    does): ``torch._int_mm`` + the epilogue for int8, ``torch._scaled_mm``
-    with row-wise scales for fp8 (which writes bf16: row-wise scaling
-    refuses an fp32 output). Returns the callable and a note."""
+def _qmm_library(lane, x, wq, ws):
+    """One PyTorch call computing the same product, as two callables and
+    a note: the yardstick, which quantizes x inside the timed call as the
+    kernel does (amax, clamp, divide, round or cast: four small launches
+    at M = 80) and then calls ``torch._int_mm`` + the epilogue (int8) or
+    ``torch._scaled_mm`` with row-wise scales (fp8; it writes bf16:
+    row-wise scaling refuses an fp32 output); and the same library call
+    on x quantized outside the timing (the series before PR 8)."""
+    qmax = 127.0 if lane == "int8" else 448.0
+
+    def quantize():
+        sx = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / qmax
+        if lane == "int8":
+            return torch.round(x / sx).clamp(-127, 127).to(torch.int8), sx
+        return (x / sx).to(torch.float8_e4m3fn), sx
+
     if lane == "int8":
-        xq = torch.round(x / sx).clamp(-127, 127).to(torch.int8)
-        return (lambda: torch._int_mm(xq, wq).float() * sx * ws,
-                "torch._int_mm on pre-quantized int8 x, then the epilogue")
-    xq = (x / sx).to(torch.float8_e4m3fn)
-    wt = wq.t().contiguous().t()                   # column-major operand
-    sb = ws.reshape(1, -1)
-    return (lambda: torch._scaled_mm(xq, wt, scale_a=sx, scale_b=sb,
-                                     out_dtype=torch.bfloat16),
-            "torch._scaled_mm, row-wise scales, bf16 out, on "
-            "pre-quantized e4m3 x")
+        def product(xq, sx):
+            return torch._int_mm(xq, wq).float() * sx * ws
+        note = ("quantize x (amax, clamp, divide, round) + torch._int_mm "
+                "+ the epilogue")
+    else:
+        wt = wq.t().contiguous().t()               # column-major operand
+        sb = ws.reshape(1, -1)
+
+        def product(xq, sx):
+            return torch._scaled_mm(xq, wt, scale_a=sx, scale_b=sb,
+                                    out_dtype=torch.bfloat16)
+        note = ("quantize x (amax, clamp, divide, cast) + "
+                "torch._scaled_mm, row-wise scales, bf16 out")
+    pre = quantize()
+    return (lambda: product(*quantize()), lambda: product(*pre), note)
 
 
 def check_quant_matmul(qm, dev, flush, cfg, lane, M=80):
@@ -562,7 +583,10 @@ def check_quant_matmul(qm, dev, flush, cfg, lane, M=80):
         w = 0.02 * torch.randn((K, N), generator=g, device=dev)
         wq, ws = qm.quantize_weight(w, lane)
         got = qm.quant_matmul(x, wq, ws)
+        again = qm.quant_matmul(x, wq, ws)
         torch.cuda.synchronize()
+        _check(torch.equal(got, again),
+               f"quant_matmul {lane} {name}: two launches differ")
         want = qm.quant_matmul_reference(x, wq, ws)
         err = float((got - want).abs().max())
         tol = QMM_TOL[lane] * float(want.abs().max())
@@ -575,14 +599,13 @@ def check_quant_matmul(qm, dev, flush, cfg, lane, M=80):
         kernel_ms = _time_ms(lambda: qm.quant_matmul(x, wq, ws), flush)
         plain_ms = _time_ms(lambda: qm.quant_matmul_reference(x, wq, ws),
                             flush)
-        sx = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / (
-            127.0 if lane == "int8" else 448.0)
         try:
-            fn, note = _qmm_library(lane, x, wq, ws, sx)
+            fn, pre_fn, note = _qmm_library(lane, x, wq, ws)
             library_ms = _time_ms(fn, flush)
+            pre_ms = _time_ms(pre_fn, flush)
             notes.add(note)
         except (RuntimeError, ValueError) as exc:   # yardstick only
-            library_ms = None
+            library_ms = pre_ms = None
             notes.add(f"library call refused: {str(exc)[:120]}")
         nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -590,6 +613,7 @@ def check_quant_matmul(qm, dev, flush, cfg, lane, M=80):
         per.append({"proj": name, "K": K, "N": N, "max_abs_err": err,
                     "tol": tol, "ms": kernel_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms,
+                    "library_prequantized_ms": pre_ms,
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops
                     else "operations"})
@@ -611,8 +635,9 @@ def check_quant_matmul(qm, dev, flush, cfg, lane, M=80):
             "bound_ms": mean("bound_ms"),
             "bound_by": by.pop() if len(by) == 1 else "bytes",
             "library_ms": mean("library_ms"),
+            "library_prequantized_ms": mean("library_prequantized_ms"),
             "library_note": "; ".join(sorted(notes)), "M": M,
-            "per_shape": per}
+            "two_launches_bit_equal": True, "per_shape": per}
 
 
 def _mixed_script(cfg, kv, rows, slots_n, dev):
@@ -828,7 +853,7 @@ def check_quant_whole_steps(dm, make_pools, cfg, qparams, kv, cal, script,
 
 
 def profile_steps(dm, make_pools, cfg, params, kv, rows, slots_n,
-                  n_steps=8, cal=(None, None), key="profile"):
+                  n_steps=8, cal=(None, None), key="profile", named=()):
     """Phase 6: where a full-width mixed step's time goes. Runs
     ``n_steps`` steps of 16 decode rows + 64 prefill rows under
     ``torch.profiler`` and returns host wall ms per step, device-busy
@@ -856,7 +881,7 @@ def profile_steps(dm, make_pools, cfg, params, kv, rows, slots_n,
         return torch.argmax(logits, dim=-1).cpu()
 
     return {key: dict({"rows": rows}, **_profile(
-        [lambda plan=plan: step(plan) for plan in plans]))}
+        [lambda plan=plan: step(plan) for plan in plans], named))}
 
 
 def _profile(calls, named=()):
@@ -1224,6 +1249,12 @@ def check_flash(fa, kernels, dev, flush, dtype):
     q, k, v, do = _flash_case(dev, dtype, B, H, Tq, Tk)
     saved = _flash_calls(fa, q, k, v, do, causal)
     scale = 1.0 / np.sqrt(q.shape[-1])
+    again = fa.flash_attention_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    fwd_bit_equal = (torch.equal(again[0], saved["out"])
+                     and torch.equal(again[1], saved["lse"]))
+    _check(fwd_bit_equal, f"flash {lane}: two forward launches differ")
+    del again
     bwd_args = (q, k, v, do, saved["lse"], saved["delta"], causal, scale)
     timed = {
         "flash_attention_fwd": (
@@ -1264,6 +1295,8 @@ def check_flash(fa, kernels, dev, flush, dtype):
         if name != "flash_attention_fwd":
             rec["library_note"] = ("SDPA backward: dq, dk and dv in one "
                                    "call")
+        else:
+            rec["two_launches_bit_equal"] = fwd_bit_equal
         if worst_vs:
             rec["err_vs_fp32_and_plain_bf16_err"] = {
                 n: worst_vs[n] for n in (("out",) if name.endswith("fwd")
@@ -2667,7 +2700,8 @@ def main():
     torch.cuda.synchronize()
     qparams = dm.quantize_decoder_params(cfg, params, "int8")
     pqrec = profile_steps(dm, make_pools, cfg, qparams, kv8, shape["T"],
-                          max_slots, cal=cal, key="profile_quant")
+                          max_slots, cal=cal, key="profile_quant",
+                          named=B7_PROFILE_NAMES)
     del qparams
     _say(f"chunked serving phases done at {time.perf_counter() - t0:.1f} s")
 

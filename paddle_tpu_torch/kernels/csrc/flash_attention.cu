@@ -38,21 +38,34 @@
 // dS) goes through shared memory, transposed, to the next product. No
 // TF32: it would break fp32 parity.
 //
-// The bfloat16 lane (namespace tc): 128 threads, each warp 16 rows of the
-// tile, every product a warp-level mma.sync.m16n8k16 (bf16 in, fp32
-// accumulate). Tiles are staged as bf16 [64][64 + 8] (16-byte loads from
-// device memory; the padding makes every fragment load conflict-free);
-// an operand used as the mma's B with the key (or q) axis as its depth is
-// staged transposed. Scores stay in the accumulator registers: the
-// softmax's row statistics are quad shuffles, and the fp32 P (or dS) is
-// re-packed in registers as the A operand of the next product. The Pallas
-// kernels multiply P and dS in fp32; rounding them to bf16 would add a
-// 2^-9 relative error to every term, so each is split into hi + lo bf16
-// halves and multiplied twice (error ~2^-17, two mmas where one would do;
-// the tensor cores are not the limit here).
+// The bfloat16 lane (namespace tc). The backward kernels: 128 threads,
+// each warp 16 rows of the tile, every product a warp-level
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulate). Tiles are staged as bf16
+// [64][64 + 8] (16-byte loads from device memory; the padding makes every
+// fragment load conflict-free); an operand used as the mma's B with the
+// key (or q) axis as its depth is staged transposed. Scores stay in the
+// accumulator registers: the softmax's row statistics are quad shuffles,
+// and the fp32 P (or dS) is re-packed in registers as the A operand of the
+// next product. The Pallas kernels multiply P and dS in fp32; rounding
+// them to bf16 would add a 2^-9 relative error to every term, so each is
+// split into hi + lo bf16 halves and multiplied twice (error ~2^-17).
 //
-// Left for later work: cp.async/TMA staging that overlaps the next tile's
-// loads with this tile's math, ldmatrix for the fragments, wgmma.
+// The forward (B8) on Hopper's warpgroup products: one warpgroup a block,
+// 64 q rows; K/V tiles of 64 keys through a 2-stage cp.async ring (zeros
+// past Tk by the src-size operand), in the 128-byte swizzle that wgmma
+// reads, so V is read MN-major as it lies and nothing is transposed in
+// staging. S = Q K^T is 4 wgmma m64n64k16 from shared memory; the online
+// softmax runs on S in registers (the mask only on the diagonal and tail
+// tiles; one ex2 of an FFMA per score, scale * log2 e folded in); O += P V
+// is 8 wgmma with P's bf16 hi and lo halves as the register operand (1.5x
+// the tensor work of a bf16-P kernel, by design). The heaviest q tiles
+// launch first under the causal mask. Measured on an H100 (PERF.md): one
+// warpgroup a block with 2 stages beat two (128 rows) and 3-4 stages, and
+// five blocks an SM (96 registers, no spills) beat four (123).
+//
+// Left for later work: B9's kernels on the forward's design (cp.async,
+// swizzled tiles, wgmma), and overlapping a warpgroup's softmax with its
+// next tile's S product (the forward waits on each wgmma group in turn).
 //
 // Built by paddle_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -553,76 +566,262 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// B8: one block per (batch*head, 64-row q tile); warp w owns rows
-// 16w..16w+15, a thread rows g and g + 8 of them.
-__global__ void __launch_bounds__(kThreads)
+// ---- B8's forward: cp.async ring, swizzled tiles, ldmatrix fragments
+
+constexpr int kFwdRows = 64;             // q rows a block: a warpgroup
+constexpr int kFwdThreads = 128;
+constexpr int kStages = 2;               // K/V tiles in flight
+constexpr int kRowBytes = kMaxD * 2;     // a staged row: 8 pieces of 16 B
+constexpr int kTileBytes = kTile * kRowBytes;
+// + 1024: the tiles are 1024-byte aligned, as the 128-byte swizzle needs
+constexpr int kFwdSmem =
+    kFwdRows * kRowBytes + kStages * 2 * kTileBytes + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared without the registers; zeros (src unread)
+// when !ok
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// wgmma's shared-memory matrix descriptor, 128-byte swizzle: sbo the
+// bytes between 8-row groups, lbo between 64-element slices of an MN-major
+// operand (ignored for a K-major one)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | static_cast<uint64_t>(1)
+                                                     << 62;
+}
+// the 32 fp32 accumulators of a 64 x 64 warpgroup tile: d[nt][e] of
+// thread lane 4g + t in warp w is row 16w + g (+ 8 for e >= 2), column
+// 8nt + 2t (+ 1 for odd e): mma.sync's layout, tile by tile
+#define FA_D8(i)                                                      \
+  "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3]),         \
+      "+f"(d[i + 1][0]), "+f"(d[i + 1][1]), "+f"(d[i + 1][2]),        \
+      "+f"(d[i + 1][3])
+#define FA_REGS                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31}"
+// d (+)= A * B, m64n64k16: A (64 x 16) and B (16 x 64) K-major bf16 in
+// shared memory; acc 0 zeroes d first
+__device__ __forceinline__ void wgmma_ss(float d[8][4], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_REGS
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FA_D8(0), FA_D8(2), FA_D8(4), FA_D8(6)
+      : "l"(a), "l"(b), "r"(acc));
+}
+// d += A * B: A (64 x 16) bf16 in registers (the mma.sync A fragment of
+// each warp's 16 rows), B (16 x 64) MN-major bf16 in shared memory
+__device__ __forceinline__ void wgmma_rs(float d[8][4], const uint32_t a[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_REGS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FA_D8(0), FA_D8(2), FA_D8(4), FA_D8(6)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef FA_D8
+#undef FA_REGS
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// cp.async's writes (generic proxy) before wgmma reads them (async proxy)
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// 2^x, MUFU.EX2 (relative error ~2^-22; 0 for x below -126)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// 16-byte piece p of row r of a staged tile: the piece index XORed with
+// the row's low 3 bits, wgmma's 128-byte swizzle (and 8 rows of one piece
+// hit 8 distinct bank groups)
+__device__ __forceinline__ uint32_t swz(uint32_t base, int r, int p) {
+  return base + r * kRowBytes + ((p ^ (r & 7)) << 4);
+}
+
+// Stage rows [r0, r0 + NR) of the row-major [n_rows, d] bf16 matrix g into
+// the swizzled tile at s by cp.async, zeros past n_rows and past d
+template <int NR>
+__device__ __forceinline__ void stage_async(const bf16* __restrict__ g,
+                                            int r0, int n_rows, int d,
+                                            uint32_t s) {
+#pragma unroll
+  for (int i = threadIdx.x; i < NR * 8; i += kFwdThreads) {
+    const int r = i >> 3;
+    const int p = i & 7;
+    const bool ok = r0 + r < n_rows && p * 8 < d;
+    cp16(swz(s, r, p), ok ? g + static_cast<size_t>(r0 + r) * d + p * 8 : g,
+         ok);
+  }
+}
+
+// B8: one warpgroup a block, per (batch*head, 64-row q tile), heaviest q
+// tiles first under the causal mask; warp w owns rows 16w..16w+15, a
+// thread rows g and g + 8. Per key tile the warpgroup runs S = Q K^T (4 wgmma, both operands from shared memory),
+// the online softmax on S in registers, then O += P V (8 wgmma: P's bf16
+// hi and lo halves as the register operand). Every exponential is one ex2
+// of an FFMA: with kPos (a positive scale) the row max is taken on the
+// raw scores s and p = 2^(s * scale log2 e - m * scale log2 e); otherwise
+// on s * scale log2 e.
+template <bool kPos>
+__global__ void __launch_bounds__(kFwdThreads, 5)
 fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, bf16* __restrict__ out,
            float* __restrict__ lse, int Tq, int Tk, int d, int causal,
            float scale) {
-  __shared__ __align__(16) bf16 sK[kBuf];   // [key][d]; first Q
-  __shared__ __align__(16) bf16 sVt[kBuf];  // [d][key]
+  extern __shared__ __align__(128) unsigned char fsmem[];
+  const uint32_t sQ = (smem_u32(fsmem) + 1023) & ~1023u;
+  const uint32_t sKV = sQ + kFwdRows * kRowBytes;  // stage i: K, then V
   const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const size_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdRows;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const bf16* kb = k + bh * Tk * d;
   const bf16* vb = v + bh * Tk * d;
-  uint32_t qf[4][4];
-  stage<false>(q + bh * Tq * d, q0, Tq, d, sK);
-  __syncthreads();
-  load_a(sK, warp * 16, qf);
+  const int n_kt = Tk == 0 ? 0 : causal
+      ? min((Tk + kTile - 1) / kTile, (q0 + kFwdRows - 1) / kTile + 1)
+      : (Tk + kTile - 1) / kTile;
+  const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
+  const float mul = kPos ? 1.f : sl2;   // the max is taken on s * mul
+  const float emul = kPos ? sl2 : 1.f;  // p = 2^((s * mul - m) * emul)
 
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-  float o[8][4] = {};
-  const int n_kt = key_tiles(q0, Tk, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    stage<false>(kb, k0, Tk, d, sK);
-    stage<true>(vb, k0, Tk, d, sVt);
-    __syncthreads();
-    float s[8][4] = {};
-    product(s, qf, sK);
-    float mx[2] = {kNegInf, kNegInf};
+  // the ring's first tiles; q rides in the first group
+  if (n_kt > 0) stage_async<kFwdRows>(q + bh * Tq * d, q0, Tq, d, sQ);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = k0 + nt * 8 + 2 * t + (e & 1);
-        s[nt][e] = visible(rows[e >> 1], kp, Tq, Tk, causal)
-                       ? s[nt][e] * scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_kt) {
+      const uint32_t st = sKV + i * 2 * kTileBytes;
+      stage_async<kTile>(kb, i * kTile, Tk, d, st);
+      stage_async<kTile>(vb, i * kTile, Tk, d, st + kTileBytes);
     }
-    float m_new[2];
+    cp_commit();
+  }
+
+  float m[2] = {kNegInf, kNegInf};  // row max of s * mul
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  float o[8][4] = {};
+  const bool live = q0 < Tq;        // (Tq = 0 has no block)
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int nxt = kt + kStages - 1;
+    if (nxt < n_kt) {
+      const uint32_t st = sKV + (nxt % kStages) * 2 * kTileBytes;
+      stage_async<kTile>(kb, nxt * kTile, Tk, d, st);
+      stage_async<kTile>(vb, nxt * kTile, Tk, d, st + kTileBytes);
+    }
+    cp_commit();
+    cp_wait<kStages - 1>();
+    fence_async();
+    __syncthreads();
+    const int k0 = kt * kTile;
+    // a block whose rows all precede the tile sees none of it
+    if (live && !(causal && k0 > q0 + kFwdRows - 1)) {
+      const uint32_t sK = sKV + (kt % kStages) * 2 * kTileBytes;
+      const uint32_t sV = sK + kTileBytes;
+      float s[8][4];
+      wg_fence();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m_new[h] = fmaxf(m[h], quad_max(mx[h]));
-      const float alpha = expf(m[h] - m_new[h]);
-      l[h] *= alpha;
-      m[h] = m_new[h];
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss(s, desc(sQ + 32 * kk, 16, 1024),
+                 desc(sK + 32 * kk, 16, 1024), kk);
+      }
+      wg_commit();
+      wg_wait();
+      // only the diagonal tiles and the ragged tail need the mask
+      const bool edge = k0 + kTile > Tk || (causal && k0 + kTile - 1 > q0);
+      float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        o[nt][2 * h] *= alpha;
-        o[nt][2 * h + 1] *= alpha;
-      }
-    }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = k0 + nt * 8 + 2 * t + (e & 1);
-        s[nt][e] = visible(rows[e >> 1], kp, Tq, Tk, causal)
-                       ? expf(s[nt][e] - m_new[e >> 1]) : 0.f;
-        l[e >> 1] += s[nt][e];
+        for (int e = 0; e < 4; ++e) {
+          float x = kPos ? s[nt][e] : s[nt][e] * mul;
+          if (edge) {
+            const int kp = k0 + nt * 8 + 2 * t + (e & 1);
+            if (kp >= Tk || (causal && kp > rows[e >> 1])) x = kNegInf;
+          }
+          s[nt][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
       }
+      float m_new[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m_new[h] = fmaxf(m[h], quad_max(mx[h]));
+        const float alpha = ex2((m[h] - m_new[h]) * emul);
+        l[h] *= alpha;
+        m[h] = m_new[h];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          o[nt][2 * h] *= alpha;
+          o[nt][2 * h + 1] *= alpha;
+        }
+      }
+      // a masked score is -1e30 below a finite row max: ex2 gives 0 (a
+      // row with no visible key yet is one past Tq, and is never stored)
+      const float mo[2] = {-m_new[0] * emul, -m_new[1] * emul};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = ex2(fmaf(s[nt][e], emul, mo[e >> 1]));
+          l[e >> 1] += s[nt][e];
+        }
+      }
+      // o += P V, P split into bf16 hi + lo halves (the fp32 product)
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const float* src = s[2 * kk + (f >> 1)] + 2 * (f & 1);
+          const __nv_bfloat162 h = __floats2bfloat162_rn(src[0], src[1]);
+          hi[kk][f] = pack(h);
+          lo[kk][f] = pack(__floats2bfloat162_rn(src[0] - __low2float(h),
+                                                 src[1] - __high2float(h)));
+        }
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t bv = desc(sV + 2048 * kk, kTileBytes, 1024);
+        wgmma_rs(o, hi[kk], bv);
+        wgmma_rs(o, lo[kk], bv);
+      }
+      wg_commit();
+      wg_wait();
     }
-    product_split(o, s, sVt);
+    __syncthreads();  // the stage is refilled kStages - 1 tiles later
   }
+  cp_wait<0>();
 
   float inv[2];
 #pragma unroll
@@ -631,7 +830,10 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float safe_l = l[h] == 0.f ? 1.f : l[h];
     inv[h] = 1.f / safe_l;
     if (t == 0 && rows[h] < Tq) {
-      lse[bh * Tq + rows[h]] = l[h] == 0.f ? kNegInf : m[h] + logf(safe_l);
+      // back from log2 units: lse = (m * emul + log2 l) * ln 2
+      lse[bh * Tq + rows[h]] =
+          l[h] == 0.f ? kNegInf
+                      : fmaf(m[h], emul, log2f(safe_l)) * 0.6931471805599453f;
     }
   }
   // out = acc / l as acc * (1 / l): within an ulp of the division, under
@@ -809,7 +1011,12 @@ extern "C" int flash_attention_fwd(int lane, const void* q, const void* k,
         static_cast<const float*>(v), static_cast<float*>(out), lse, Tq, Tk,
         d, causal, scale);
   } else {
-    tc::fwd_kernel<<<grid, tc::kThreads, 0, st>>>(
+    auto* kernel = scale > 0.f ? tc::fwd_kernel<true> : tc::fwd_kernel<false>;
+    const cudaError_t err = opt_in(kernel, tc::kFwdSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int n_bt = (Tq + tc::kFwdRows - 1) / tc::kFwdRows;
+    kernel<<<dim3(static_cast<unsigned>(BH), static_cast<unsigned>(n_bt)),
+             tc::kFwdThreads, tc::kFwdSmem, st>>>(
         static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
         static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(out), lse,
         Tq, Tk, d, causal, scale);

@@ -10,9 +10,11 @@ The port of the JAX package's ``kernels/quant_matmul.py``. For ``x
   fp8-e4m3: ``xq = e4m3(x / sx)``, a float32 dot of the e4m3 values;
 - ``out = float(acc) * sx * w_scale[n]``, in that order.
 
-On CUDA tensors the wrapper launches the hand-written sm_90a kernel in
-``csrc/quant_matmul.cu`` and raises on anything it does not take. On
-CPU tensors it runs the plain version, ``quant_matmul_reference``. The
+On CUDA tensors the wrapper launches the hand-written sm_90a kernels in
+``csrc/quant_matmul.cu`` (a row-quantize pass, then the product on the
+tensor cores, split over K by ``qmm_plan``) and raises on anything they
+do not take. On CPU tensors it runs the plain version,
+``quant_matmul_reference``. The
 plain int8 lane sums in float64, which is exact for these products
 (127 * 127 * K stays far below 2^53), so it agrees with an int32
 accumulator on either device; the fp8 lane upcasts the e4m3 values to
@@ -21,19 +23,25 @@ float32 (exact) and sums in float32.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from paddle_tpu_torch import kernels as _kernels
 
-__all__ = ["FP8_E4M3_MAX", "QUANT_DTYPES", "quantize_weight",
-           "quant_matmul", "quant_matmul_reference",
-           "quant_matmul_error_bound"]
+__all__ = ["FP8_E4M3_MAX", "QUANT_DTYPES", "QMM_BM", "QMM_BN",
+           "QMM_CHUNK_MAX", "QMM_MAX_CLUSTER", "QmmPlan", "qmm_plan", "quantize_weight", "quant_matmul",
+           "quant_matmul_reference", "quant_matmul_error_bound"]
 
 FP8_E4M3_MAX = 448.0
 QUANT_DTYPES = {"int8": torch.int8, "fp8-e4m3": torch.float8_e4m3fn}
 _QMAX = {"int8": 127.0, "fp8-e4m3": FP8_E4M3_MAX}
 _TINY = 1e-8
+QMM_BN = 64           # output channels a block of the CUDA kernel
+QMM_BM = 128          # rows a pass of a block
+QMM_CHUNK_MAX = 384   # k one split covers, at most (shared memory)
+QMM_MAX_CLUSTER = 8   # splits summed in a cluster's shared memory
 
 _entry = None
 
@@ -44,11 +52,65 @@ def _cuda_entry():
     if _entry is None:
         from paddle_tpu_torch.kernels import _build
         fn = _build.load("quant_matmul").quant_matmul
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _entry = fn
     return _entry
+
+
+class QmmPlan(NamedTuple):
+    """How the CUDA kernel splits ``x [M, K] @ wq [K, N]`` (``qmm_plan``)."""
+    splits: int       # fixed ranges of k, gridDim.y
+    chunk: int        # k a split covers (a multiple of 32)
+    k_pad: int        # K rounded up to 32: the row pitch of xq
+    col_tiles: int    # blocks of QMM_BN output channels, gridDim.x
+    cluster: int      # blocks a cluster (the splits), or 1
+    scratch: tuple    # byte offsets (xq, sx, counters, part, end) after
+                      # the output
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=256)
+def qmm_plan(M: int, K: int, N: int, n_sm: int = 132) -> QmmPlan:
+    """The launch plan of the CUDA kernel: ``col_tiles`` blocks of 64
+    output channels, and the 32-deep k steps of ``K`` (rounded up to 32)
+    split into ``splits`` ranges of ``chunk`` (at most
+    ``QMM_CHUNK_MAX``, none empty), as many as keep about one block on
+    each of ``n_sm`` SMs, at most ``QMM_MAX_CLUSTER`` where M <= 128 and
+    K allows: at the decoder's M = 80, wqkv and w1 give 144 blocks
+    (4 / 3 splits), wo and w2 96 (8 splits). Every block covers all M
+    rows (a loop of 128-row tiles), so each weight byte is read from
+    device memory once. Up to 8 splits with M <= 128 are one thread
+    block cluster (``cluster``) that sums its partials in shared
+    memory, in split order. Otherwise the scratch holds a counter a
+    column tile and the fp32 (int32 for int8) partials ``[splits, M,
+    N]``, which each column tile's last block sums in split order. The
+    wrapper allocates one byte buffer: the output ``[M, N]`` fp32, then
+    ``xq [M, k_pad]`` bytes and ``sx [M]`` fp32 (``scratch``: their
+    offsets, the end)."""
+    k_pad = -(-K // 32) * 32
+    col_tiles = -(-N // QMM_BN)
+    steps = k_pad // 32
+    least = -(-k_pad // QMM_CHUNK_MAX)
+    want = max(least, min(steps, -(-n_sm // col_tiles)))
+    if M <= QMM_BM and least <= QMM_MAX_CLUSTER:
+        want = min(want, QMM_MAX_CLUSTER)
+    chunk = 32 * -(-steps // want)
+    splits = -(-k_pad // chunk)
+    cluster = (splits if 1 < splits <= QMM_MAX_CLUSTER and M <= QMM_BM
+               else 1)
+    glob = splits > 1 and cluster == 1
+    xq = _align16(4 * M * N)             # after the output [M, N] fp32
+    sx = _align16(xq + M * k_pad)
+    counters = _align16(sx + 4 * M)
+    part = _align16(counters + (4 * col_tiles if glob else 0))
+    end = part + (4 * splits * M * N if glob else 0)
+    return QmmPlan(splits, chunk, k_pad, col_tiles, cluster,
+                   (xq, sx, counters, part, end))
 
 
 def _lane(dtype: torch.dtype) -> str:
@@ -96,7 +158,7 @@ def _check_args(x, wq, w_scale):
 def _check_cuda(x, wq, w_scale):
     """What the CUDA kernel takes: every tensor on x's card, fp32 x and
     w_scale, contiguous, K and N multiples of 4 (the kernel moves four
-    1-byte values per 32-bit word), 16-byte aligned x and wq."""
+    1-byte values per 32-bit word), 16-byte aligned x, wq and w_scale."""
     for name, t in (("wq", wq), ("w_scale", w_scale)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -111,8 +173,26 @@ def _check_cuda(x, wq, w_scale):
     if K % 4 or N % 4:
         raise ValueError(f"the CUDA kernel needs K and N divisible by 4, "
                          f"got K={K}, N={N}")
-    if x.data_ptr() % 16 or wq.data_ptr() % 16:
-        raise ValueError("x and wq must be 16-byte aligned")
+    if x.data_ptr() % 16 or wq.data_ptr() % 16 or w_scale.data_ptr() % 16:
+        raise ValueError("x, wq and w_scale must be 16-byte aligned")
+
+
+_sm_counts = {}
+
+
+def _raw_stream(index):
+    """The current stream of card ``index`` as a pointer (what
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without
+    building the stream object)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _n_sm(dev):
+    n = _sm_counts.get(dev)
+    if n is None:
+        n = _sm_counts[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
 
 
 def quant_matmul(x, wq, w_scale):
@@ -131,28 +211,40 @@ def quant_matmul(x, wq, w_scale):
     take the plain version.
     """
     _check_args(x, wq, w_scale)
-    lead = tuple(x.shape[:-1])
     K, N = wq.shape
-    x2 = x.reshape(-1, K)
+    x2 = x if x.dim() == 2 else x.reshape(-1, K)
     if x.device.type == "cpu":
-        return quant_matmul_reference(x2, wq, w_scale).reshape(*lead, N)
+        return quant_matmul_reference(x2, wq, w_scale).reshape(
+            *x.shape[:-1], N)
     if x.device.type != "cuda":
         raise ValueError(f"no quant_matmul for device {x.device}")
     _check_cuda(x2, wq, w_scale)
     M = x2.shape[0]
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    # the serving decoder calls this 4 times a layer and step: one buffer
+    # holds the output and the kernel's scratch, and the launch skips the
+    # device switch where x's card is current (both measured host costs)
+    plan = qmm_plan(M, K, N, _n_sm(x.device))
+    buf = torch.empty(plan.scratch[-1], dtype=torch.uint8, device=x.device)
+    out = buf[:4 * M * N].view(torch.float32).view(M, N)
     if M:
-        lane = 0 if wq.dtype == torch.int8 else 1
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _cuda_entry()(lane, x2.data_ptr(), wq.data_ptr(),
-                                w_scale.data_ptr(), out.data_ptr(), M, K,
-                                N, stream)
+        base = buf.data_ptr()
+        xq, sx, counters, part = (base + off for off in plan.scratch[:4])
+        if plan.splits == 1 or plan.cluster > 1:
+            counters = part = None
+        args = (0 if wq.dtype == torch.int8 else 1, x2.data_ptr(),
+                wq.data_ptr(), w_scale.data_ptr(), out.data_ptr(), xq, sx,
+                counters, part, M, K, N, plan.splits, plan.chunk)
+        index = x.device.index
+        if index == torch.cuda.current_device():
+            err = _cuda_entry()(*args, _raw_stream(index))
+        else:
+            with torch.cuda.device(x.device):
+                err = _cuda_entry()(*args, _raw_stream(index))
         if err != 0:
             raise RuntimeError(f"quant_matmul kernel launch failed: CUDA "
                                f"error {err}")
         _kernels.LAUNCHES["quant_matmul"] += 1
-    return out.reshape(*lead, N)
+    return out if x.dim() == 2 else out.reshape(*x.shape[:-1], N)
 
 
 def quant_matmul_reference(x, wq, w_scale):

@@ -329,3 +329,53 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda_device):
     lse = torch.zeros(1, 2, 16, device=cuda_device, dtype=torch.float64)
     with pytest.raises(TypeError, match="lse"):
         tfa.flash_attention_dq(q, k, v, do, lse, lse.float(), True, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2, 500, 500, 64, True),
+                                   (1, 2, 200, 512, 64, False),
+                                   (1, 2, 200, 512, 64, True),
+                                   (2, 2, 300, 300, 32, True),
+                                   (1, 2, 70, 0, 64, True)])
+def test_bf16_forward_ragged_and_bit_equal_on_card(cuda_device, shape):
+    """B8's bf16 kernel (wgmma, a cp.async ring, masks on the diagonal and
+    tail tiles only) at a ragged T, Tq != Tk, d 32 and Tk = 0: lse within
+    1e-5 of the plain version, out no further from the fp32 plain result
+    than 1.5x the bf16 plain version + 1e-3, and two launches
+    bit-equal."""
+    B, H, Tq, Tk, d, causal = shape
+    q, k, v, _do = _card_case(cuda_device, torch.bfloat16, B, H, Tq, Tk, d)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal, scale)
+    out2, lse2 = tfa.flash_attention_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    if Tk == 0:
+        assert not out.any() and bool((lse == tfa.NEG_INF).all())
+        return
+    r_out, r_lse = tfa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    f_out, _ = tfa.flash_attention_fwd_reference(q.float(), k.float(),
+                                                 v.float(), causal, scale)
+    assert float((lse - r_lse).abs().max()) <= 1e-5
+    err = float((out.float() - f_out).abs().max())
+    plain_err = float((r_out.float() - f_out).abs().max())
+    assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_forward_negative_scale_on_card(cuda_device, causal):
+    """A scale <= 0 takes the bf16 forward's other instantiation (the row
+    max of the scaled scores, not the raw ones): the same gates."""
+    q, k, v, _do = _card_case(cuda_device, torch.bfloat16, 2, 3, 200, 200,
+                              64)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal, -0.125)
+    torch.cuda.synchronize()
+    r_out, r_lse = tfa.flash_attention_fwd_reference(q, k, v, causal,
+                                                     -0.125)
+    f_out, _ = tfa.flash_attention_fwd_reference(q.float(), k.float(),
+                                                 v.float(), causal, -0.125)
+    assert float((lse - r_lse).abs().max()) <= 1e-5
+    err = float((out.float() - f_out).abs().max())
+    plain_err = float((r_out.float() - f_out).abs().max())
+    assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)

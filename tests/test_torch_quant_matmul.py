@@ -15,7 +15,9 @@ Both stay within ``quant_matmul_error_bound`` of the fp32 product. An
 all-max row at K=3072 (127 * 127 * 3072 = 4.95e7, past the 2^24 where an
 fp32 sum stops being exact) must give the exact value.
 
-The kernel-vs-plain case needs a card and skips without one."""
+``qmm_plan``, the CUDA kernel's split of K (pure Python), is held on the
+CPU at the decoder's and the card tests' shapes. The kernel-vs-plain
+cases need a card and skip without one."""
 import numpy as np
 import pytest
 import torch
@@ -150,6 +152,56 @@ def test_unknown_device_raises_and_cpu_launches_nothing():
     assert tk.LAUNCHES["quant_matmul"] == 0
 
 
+# (M, K, N): the decoder's four projections at M = 80, and the card tests'
+# ragged shapes (M 1 / 17 / 80 / 130, K = 3072, N no multiple of 64)
+PLAN_SHAPES = [(80, 768, 2304), (80, 768, 768), (80, 768, 3072),
+               (80, 3072, 768), (1, 3072, 20), (17, 3072, 20),
+               (80, 3072, 20), (130, 3072, 20), (130, 3072, 776),
+               (80, 36, 20), (300, 8192, 1000)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_qmm_plan_splits_every_k_step_once(shape):
+    """Every 32-deep k step of K (rounded up to 32) in exactly one split,
+    in order, none empty, each at most QMM_CHUNK_MAX deep; at most 8
+    splits (one cluster that sums in shared memory) where M <= 128 and K
+    allows, else the device-memory partials; the scratch regions in
+    order, 16-byte aligned and large enough; the same plan every call."""
+    M, K, N = shape
+    plan = tq.qmm_plan(M, K, N, n_sm=132)
+    assert plan == tq.qmm_plan(M, K, N, n_sm=132)
+    assert plan.k_pad == -(-K // 32) * 32 and plan.k_pad >= K
+    assert plan.chunk % 32 == 0 and 32 <= plan.chunk <= tq.QMM_CHUNK_MAX
+    ranges = [(z * plan.chunk, min(plan.k_pad, (z + 1) * plan.chunk))
+              for z in range(plan.splits)]
+    assert all(lo < hi for lo, hi in ranges)
+    assert ranges[-1][1] == plan.k_pad
+    assert plan.col_tiles == -(-N // tq.QMM_BN)
+    fits = M <= tq.QMM_BM and -(-plan.k_pad // tq.QMM_CHUNK_MAX) <= 8
+    if fits:
+        assert plan.splits <= tq.QMM_MAX_CLUSTER
+    assert plan.cluster == (plan.splits if 1 < plan.splits and fits else 1)
+    xq, sx, counters, part, end = plan.scratch
+    assert xq >= 4 * M * N                      # the output comes first
+    assert all(off % 16 == 0 for off in (xq, sx, counters, part))
+    assert xq + M * plan.k_pad <= sx and sx + 4 * M <= counters
+    glob = plan.splits > 1 and plan.cluster == 1
+    assert part - counters >= (4 * plan.col_tiles if glob else 0)
+    assert end - part == (4 * plan.splits * M * N if glob else 0)
+
+
+@pytest.mark.parametrize("shape,blocks", [((80, 768, 2304), 144),
+                                          ((80, 768, 768), 96),
+                                          ((80, 768, 3072), 144),
+                                          ((80, 3072, 768), 96)])
+def test_qmm_plan_fills_the_card_at_the_decoder_shapes(shape, blocks):
+    """At M = 80 each projection's grid is about one block an SM of 132
+    (a cluster caps the splits at 8: wo and w2 give 96)."""
+    plan = tq.qmm_plan(*shape, n_sm=132)
+    assert plan.col_tiles * plan.splits == blocks
+    assert plan.cluster == plan.splits > 1
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -176,3 +228,45 @@ def test_kernel_matches_plain_on_card(cuda_device, lane, K, N):
         tq.quant_matmul(x.double(), wq, ws)
     with pytest.raises(ValueError):
         tq.quant_matmul(x, wq.cpu(), ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", LANES)
+@pytest.mark.parametrize("M", [1, 17, 80, 130])
+@pytest.mark.parametrize("N", [20, 776])
+def test_kernel_ragged_shapes_on_card(cuda_device, lane, M, N):
+    """The tensor-core kernel at K = 3072 (split over K) with M on both
+    sides of the 128-row tile and N no multiple of the 64-column tile:
+    within QMM's tolerance of the plain version, inside the a-priori
+    bound, and two launches bit-equal (the splits are summed in order)."""
+    x, w = _case(7, M, 3072, N)
+    x = torch.from_numpy(x).to(cuda_device)
+    w = torch.from_numpy(w).to(cuda_device)
+    wq, ws = tq.quantize_weight(w, lane)
+    assert tq.qmm_plan(M, 3072, N).splits > 1
+    got = tq.quant_matmul(x, wq, ws)
+    again = tq.quant_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = tq.quant_matmul_reference(x, wq, ws)
+    tol = (1e-6 if lane == "int8" else 1e-5) * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    exact = x.double() @ w.double()
+    bound = tq.quant_matmul_error_bound(x, w, lane).double()
+    assert bool(((got.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(768, 768), (3072, 768)])
+def test_fp8_split_launches_bit_equal_on_card(cuda_device, K, N):
+    """fp8 at the decoder's split projections (8 splits in a cluster):
+    the fp32 partials are summed in split order, so repeated launches on
+    the same inputs give the same bits."""
+    x, w = _case(8, 80, K, N)
+    x = torch.from_numpy(x).to(cuda_device)
+    wq, ws = tq.quantize_weight(torch.from_numpy(w).to(cuda_device),
+                                "fp8-e4m3")
+    assert tq.qmm_plan(80, K, N).cluster == 8
+    outs = [tq.quant_matmul(x, wq, ws) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
