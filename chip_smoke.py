@@ -215,15 +215,26 @@ def _card_line():
     return out.splitlines()[0]
 
 
-def _time_ms(fn, flush, reps=20):
+# cycles the card sleeps ahead of a queue_ahead window (about 1 ms at the
+# H100's clocks): longer than the host takes to enqueue the timed call
+QUEUE_AHEAD_CYCLES = 2_000_000
+
+
+def _time_ms(fn, flush, reps=20, queue_ahead=False):
     """Median device ms of ``fn()`` over ``reps`` runs, each timed with
     CUDA events after the L2 cache is flushed (a serving step meets
-    every layer's pool cold)."""
+    every layer's pool cold). With ``queue_ahead``, a
+    ``torch.cuda._sleep`` after the flush holds the stream while the host
+    enqueues the start event, ``fn``'s kernels and the end event, so the
+    window holds device time alone however slowly the host enqueues
+    (``torch.autograd.grad`` goes through the autograd engine)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if queue_ahead:
+            torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -1095,6 +1106,7 @@ def solo_tokens(DecodeEngine, cfg, params, indices, engine_kw,
 # ---------------------------------------------------------------- training
 
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core FLOP/s
+H100_TF32_FLOPS = 495e12        # dense tf32 tensor-core FLOP/s
 FLASH_FWD_TOL = 1e-5            # fp32 out and lse, kernel vs plain
 FLASH_GRAD_TOL = 1e-4           # fp32 dq/dk/dv: sums over up to 512 rows
 # bf16 lanes: the kernel's error against the fp32 plain result, at most
@@ -1136,8 +1148,10 @@ def _flash_bound(name, dtype, B, H, Tq, Tk, d, causal):
     once (q/k/v/do at the payload's width, lse/delta fp32) over the HBM
     rate, against the products its visible (query, key) pairs need (fwd:
     q.k and p.v; dq: q.k, do.v, ds.k; dk/dv: those two and p^T.do,
-    ds^T.q; 2 FLOPs each per element of d) over the dtype's peak (fp32
-    CUDA cores, bf16 tensor cores)."""
+    ds^T.q; 2 FLOPs each per element of d) over the rate the kernel's
+    products run at: bf16 on the tensor cores; the fp32 forward on the
+    CUDA cores; the fp32 backward as 3xTF32, three tf32 tensor-core
+    products for each product."""
     e = 2 if dtype == torch.bfloat16 else 4
     rows = np.arange(Tq)
     pairs = B * H * float(np.minimum(rows + 1, Tk).sum() if causal
@@ -1152,9 +1166,13 @@ def _flash_bound(name, dtype, B, H, Tq, Tk, d, causal):
     else:
         nbytes = bh * ((2 * Tq + 4 * Tk) * d * e + 2 * Tq * 4)
         flops = 8.0 * d * pairs
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    if dtype == torch.bfloat16:
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+    elif name == "flash_attention_fwd":
+        t_ops = flops / H100_FP32_FLOPS * 1e3
+    else:
+        t_ops = 3.0 * flops / H100_TF32_FLOPS * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -1213,8 +1231,11 @@ def check_flash(fa, kernels, dev, flush, dtype):
     a ragged T = 500 and a non-causal cross shape Tq 200 / Tk 512; a
     query with no key gives zeros and lse NEG_INF; then each kernel
     timed at the training shape beside its plain version, its bound and
-    an SDPA yardstick the port never calls. Returns one kernels-line
-    record per kernel."""
+    an SDPA yardstick the port never calls (``ms`` / ``library_ms`` by
+    ``_time_ms``, ``device_ms`` / ``library_device_ms`` with the card's
+    queue kept ahead of the host); two launches of each kernel on the main
+    shape must be bit-equal. Returns one kernels-line record per
+    kernel."""
     lane = "bf16" if dtype == torch.bfloat16 else "fp32"
     worst = {n: 0.0 for n in ("out", "lse", "dq", "dk", "dv")}
     worst_vs = {}
@@ -1256,6 +1277,19 @@ def check_flash(fa, kernels, dev, flush, dtype):
     _check(fwd_bit_equal, f"flash {lane}: two forward launches differ")
     del again
     bwd_args = (q, k, v, do, saved["lse"], saved["delta"], causal, scale)
+    dq_again = fa.flash_attention_dq(*bwd_args)
+    dk_again, dv_again = fa.flash_attention_dkv(*bwd_args)
+    torch.cuda.synchronize()
+    bit_equal = {
+        "flash_attention_fwd": fwd_bit_equal,
+        "flash_attention_dq": torch.equal(dq_again, saved["dq"]),
+        "flash_attention_dkv": (torch.equal(dk_again, saved["dk"])
+                                and torch.equal(dv_again, saved["dv"]))}
+    _check(bit_equal["flash_attention_dq"],
+           f"flash {lane}: two dq launches differ")
+    _check(bit_equal["flash_attention_dkv"],
+           f"flash {lane}: two dk/dv launches differ")
+    del dq_again, dk_again, dv_again
     timed = {
         "flash_attention_fwd": (
             lambda: fa.flash_attention_fwd(q, k, v, causal, scale),
@@ -1271,32 +1305,36 @@ def check_flash(fa, kernels, dev, flush, dtype):
     # yardsticks: SDPA forward (is_causal: top-left, Tq == Tk), and its
     # backward, which gives dq, dk and dv in one call
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    fwd_lib_ms = _time_ms(lambda: sdpa(q, k, v, is_causal=True), flush)
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
     o = sdpa(qs, ks, vs, is_causal=True)
-    bwd_lib_ms = _time_ms(lambda: torch.autograd.grad(
-        o, (qs, ks, vs), do, retain_graph=True), flush)
-    del o, qs, ks, vs
+    lib_fns = {"fwd": lambda: sdpa(q, k, v, is_causal=True),
+               "bwd": lambda: torch.autograd.grad(
+                   o, (qs, ks, vs), do, retain_graph=True)}
+    lib_ms = {n: _time_ms(fn, flush) for n, fn in lib_fns.items()}
+    lib_device_ms = {n: _time_ms(fn, flush, queue_ahead=True)
+                     for n, fn in lib_fns.items()}
+    del o, qs, ks, vs, lib_fns
     err_of = {"flash_attention_fwd": max(worst["out"], worst["lse"]),
               "flash_attention_dq": worst["dq"],
               "flash_attention_dkv": max(worst["dk"], worst["dv"])}
     recs = {}
     for name, (kernel_fn, plain_fn) in timed.items():
+        side = "fwd" if name == "flash_attention_fwd" else "bwd"
         bound = _flash_bound(name, dtype, B, H, Tq, Tk, q.shape[-1], causal)
         rec = _lane_record(
             name if lane == "fp32" else f"{name}_bf16",
             FLASH_KERNELS[name],
             "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
             err_of[name], _time_ms(kernel_fn, flush),
-            _time_ms(plain_fn, flush, reps=5),
-            fwd_lib_ms if name == "flash_attention_fwd" else bwd_lib_ms,
-            bound, {"shape": [B, H, Tq, Tk, q.shape[-1]], "causal": causal,
-                    "dtype": str(dtype).replace("torch.", "")})
+            _time_ms(plain_fn, flush, reps=5), lib_ms[side], bound,
+            {"shape": [B, H, Tq, Tk, q.shape[-1]], "causal": causal,
+             "dtype": str(dtype).replace("torch.", "")})
+        rec["device_ms"] = _time_ms(kernel_fn, flush, queue_ahead=True)
+        rec["library_device_ms"] = lib_device_ms[side]
+        rec["two_launches_bit_equal"] = bit_equal[name]
         if name != "flash_attention_fwd":
             rec["library_note"] = ("SDPA backward: dq, dk and dv in one "
                                    "call")
-        else:
-            rec["two_launches_bit_equal"] = fwd_bit_equal
         if worst_vs:
             rec["err_vs_fp32_and_plain_bf16_err"] = {
                 n: worst_vs[n] for n in (("out",) if name.endswith("fwd")
@@ -1304,7 +1342,8 @@ def check_flash(fa, kernels, dev, flush, dtype):
                                          name.endswith("dq")
                                          else ("dk", "dv"))}
         recs[name] = rec
-    recs["flash_attention_dq"]["sdpa_fwd_bwd_ms"] = fwd_lib_ms + bwd_lib_ms
+    recs["flash_attention_dq"]["sdpa_fwd_bwd_ms"] = (lib_ms["fwd"]
+                                                     + lib_ms["bwd"])
     kernels.reset_launches()
     return recs
 
@@ -2571,9 +2610,12 @@ def main():
     _say(f"build: {time.perf_counter() - t0:.3f} s, nvcc ran for "
          f"{built or 'none (cached)'}")
     for name, log in _build.build_logs.items():
+        entry = ""  # the kernel ptxas reports on, mangled
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                _say(f"ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                _say(f"ptxas {name} {entry}: {line.strip()}")
 
     cfg = DecoderConfig(vocab_size=32000, d_model=768, n_heads=12,
                         head_dim=64, n_layers=12, d_ff=3072,

@@ -1,6 +1,7 @@
 // Flash attention for Hopper (sm_90a): the forward (B8) and the two
-// backward kernels, dq and dk/dv (B9), with a float32 lane on the CUDA
-// cores and a bfloat16 lane on the tensor cores (mma.sync).
+// backward kernels, dq and dk/dv (B9), with a float32 lane (the forward on
+// the CUDA cores, the backward on the tensor cores as 3xTF32) and a
+// bfloat16 lane on the tensor cores (wgmma).
 //
 // flash_attention_fwd replaces paddle_tpu/kernels/flash_attention.py:
 // _fwd_kernel, launched by _fwd_call; flash_attention_dq and
@@ -24,48 +25,60 @@
 //     sequential innermost axis becomes the loop inside the block), so
 //     there are no atomics and no scratch in device memory, the [T, T]
 //     scores never leave the chip, and the sum order is fixed by the
-//     shapes alone.
+//     shapes alone: two launches are bit-equal.
 //   - Under the causal mask a block skips every tile strictly above the
-//     diagonal (the Pallas kernels' pl.when), so the work is about half.
+//     diagonal (the Pallas kernels' pl.when), so the work is about half;
+//     the blocks with the most tiles launch first.
 //   - Tiles are staged in shared memory, zero-filled past Tq/Tk and past
 //     d, so the ragged tail is masked in the kernel and nothing is padded
 //     in device memory (the TPU wrapper's _pad_seq).
 //
-// The float32 lane (namespace simt): 256 threads (16 x 16), each a 4 x 4
-// register tile; tiles staged as fp32 [depth][64 + 4], so the inner loop
-// of every product reads one float4 of each operand per depth step for 16
-// FMAs. The online softmax's row max and sum are half-warp shuffles; P (or
-// dS) goes through shared memory, transposed, to the next product. No
-// TF32: it would break fp32 parity.
+// The float32 lane. The forward (namespace simt) runs on the CUDA cores:
+// 256 threads (16 x 16), each a 4 x 4 register tile; tiles staged as fp32
+// [depth][64 + 4]; P goes through shared memory, transposed, to the next
+// product. No plain TF32: it would break fp32 parity. The backward
+// (namespace tf32) runs on the tensor cores as 3xTF32: every fp32 operand
+// is split into tf32 hi + lo halves and each product is a_lo b_hi + a_hi
+// b_lo + a_hi b_hi (mma.sync m16n8k8), fp32 to ~2^-21. 128 threads,
+// warp w owning rows 16w..16w+15; tiles staged by cp.async, double-
+// buffered, as they lie in device memory ([row][64 + 4], conflict-free
+// fragment loads); P and dS stay in the accumulators and are the A
+// fragment of the next product as they lie (its k-steps take the two
+// columns a lane holds), so nothing is transposed. Measured on an H100
+// (PERF.md): 1.4x faster than a register-blocked CUDA-core tile (8 x 4 a
+// thread, the design first written for this lane), inside the fp32 gate.
 //
-// The bfloat16 lane (namespace tc). The backward kernels: 128 threads,
-// each warp 16 rows of the tile, every product a warp-level
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate). Tiles are staged as bf16
-// [64][64 + 8] (16-byte loads from device memory; the padding makes every
-// fragment load conflict-free); an operand used as the mma's B with the
-// key (or q) axis as its depth is staged transposed. Scores stay in the
-// accumulator registers: the softmax's row statistics are quad shuffles,
-// and the fp32 P (or dS) is re-packed in registers as the A operand of the
-// next product. The Pallas kernels multiply P and dS in fp32; rounding
-// them to bf16 would add a 2^-9 relative error to every term, so each is
-// split into hi + lo bf16 halves and multiplied twice (error ~2^-17).
+// The bfloat16 lane (namespace tc): one warpgroup (128 threads) a block,
+// warp w owning rows 16w..16w+15 of the 64-row tile. Tiles of 64 rows flow
+// through a 2-stage cp.async ring (zeros past Tq/Tk by the src-size
+// operand) in the 128-byte swizzle that wgmma reads, so an operand is read
+// K-major or MN-major as it lies and nothing is transposed in staging.
+// Every product is wgmma m64n64k16 with fp32 accumulators: a product over
+// d takes both operands from shared memory (S = Q K^T, dP = dO V^T, and in
+// dk/dv S^T = K Q^T, dP^T = V dO^T, so P^T and dS^T come out in
+// accumulator layout); a product over the tile takes the fp32 P or dS from
+// registers. The Pallas kernels multiply P and dS in fp32; rounding them to
+// bf16 would add a 2^-9 relative error to every term, so each is split
+// into bf16 hi + lo halves and multiplied twice (error ~2^-17): 1.5x the
+// tensor work of a bf16-P forward, 2x that of a bf16-dS backward, by
+// design. Every exponential is one ex2 of an FFMA (scale * log2 e folded
+// in); the masks run only on the diagonal and tail tiles.
+//   - Forward (B8): K/V tiles through the ring; S, the online softmax on S
+//     in registers, O += P V (8 wgmma, P's hi and lo halves). Measured on
+//     an H100 (PERF.md): one warpgroup a block with 2 stages beat two (128
+//     rows) and 3-4 stages, and five blocks an SM (96 registers, no
+//     spills) beat four (123).
+//   - dq: Q and dO loaded once; K/V tiles through the ring; S and dP (8
+//     wgmma from shared memory), p = 2^(s scale log2 e - lse log2 e), ds =
+//     p (dp - delta) scale in registers, dQ += dS K (8 wgmma, K read
+//     MN-major).
+//   - dk/dv: K and V loaded once; Q/dO tiles and their lse and delta
+//     through the ring, from the diagonal on; S^T and dP^T (8 wgmma),
+//     dV += P^T dO and dK += dS^T Q (16 wgmma, dO and Q MN-major).
 //
-// The forward (B8) on Hopper's warpgroup products: one warpgroup a block,
-// 64 q rows; K/V tiles of 64 keys through a 2-stage cp.async ring (zeros
-// past Tk by the src-size operand), in the 128-byte swizzle that wgmma
-// reads, so V is read MN-major as it lies and nothing is transposed in
-// staging. S = Q K^T is 4 wgmma m64n64k16 from shared memory; the online
-// softmax runs on S in registers (the mask only on the diagonal and tail
-// tiles; one ex2 of an FFMA per score, scale * log2 e folded in); O += P V
-// is 8 wgmma with P's bf16 hi and lo halves as the register operand (1.5x
-// the tensor work of a bf16-P kernel, by design). The heaviest q tiles
-// launch first under the causal mask. Measured on an H100 (PERF.md): one
-// warpgroup a block with 2 stages beat two (128 rows) and 3-4 stages, and
-// five blocks an SM (96 registers, no spills) beat four (123).
-//
-// Left for later work: B9's kernels on the forward's design (cp.async,
-// swizzled tiles, wgmma), and overlapping a warpgroup's softmax with its
-// next tile's S product (the forward waits on each wgmma group in turn).
+// Left for later work: overlapping a warpgroup's elementwise work with its
+// next tile's products (every kernel waits on each wgmma group in turn),
+// and the fp32 forward on the backward's 3xTF32 products.
 //
 // Built by paddle_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -91,6 +104,25 @@ __device__ __forceinline__ bool visible(int qp, int kp, int Tq, int Tk,
 __device__ __forceinline__ int key_tiles(int q0, int Tk, int causal) {
   const int n = (Tk + kTile - 1) / kTile;
   return causal ? min(n, (q0 + kTile - 1) / kTile + 1) : n;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared without the registers; zeros (src unread)
+// when !ok
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------- float32: CUDA cores
@@ -250,283 +282,348 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// B9, dq: one block per (batch*head, 64-row q tile), walking the key tiles
-// up to the diagonal: p = exp(s - lse), ds = p * (dp - delta) * scale,
-// dq += ds @ k.
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          float* __restrict__ dq, int Tq, int Tk, int d, int causal,
-          float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* sQt = smem;              // [d][q row]
-  float* sdOt = smem + kBuf;      // [d][q row]
-  float* sKt = smem + 2 * kBuf;   // [d][key]
-  float* sVt = smem + 3 * kBuf;   // [d][key]
-  float* sK = smem + 4 * kBuf;    // [key][d]
-  float* sdSt = smem + 5 * kBuf;  // [key][q row]
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const size_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
-  const float* kb = k + bh * Tk * d;
-  const float* vb = v + bh * Tk * d;
-  stage<true>(q + bh * Tq * d, q0, Tq, d, sQt);
-  stage<true>(dout + bh * Tq * d, q0, Tq, d, sdOt);
-  float lse_r[4], delta_r[4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
-    lse_r[i] = qp < Tq ? lse[bh * Tq + qp] : 0.f;
-    delta_r[i] = qp < Tq ? delta[bh * Tq + qp] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  const int n_kt = key_tiles(q0, Tk, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    stage<true>(kb, k0, Tk, d, sKt);
-    stage<false>(kb, k0, Tk, d, sK);
-    stage<true>(vb, k0, Tk, d, sVt);
-    __syncthreads();
-    float s[4][4] = {};
-    float dp[4][4] = {};
-    tile_product(sQt, sKt, ty * 4, tx * 4, s);
-    tile_product(sdOt, sVt, ty * 4, tx * 4, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = visible(qp, k0 + tx * 4 + j, Tq, Tk, causal)
-                            ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        s[i][j] = p * (dp[i][j] - delta_r[i]) * scale;  // ds
-      }
-    }
-    put_transposed(sdSt, ty * 4, tx * 4, s);
-    __syncthreads();
-    tile_product(sdSt, sK, ty * 4, tx * 4, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
-    if (qp >= Tq) continue;
-    float* o = dq + (bh * Tq + qp) * d;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx * 4 + j;
-      if (c < d) o[c] = acc[i][j];
-    }
-  }
-}
-
-// B9, dk/dv: one block per (batch*head, 64-key tile), walking the q tiles
-// from the diagonal to the end: dv += p^T @ do, dk += ds^T @ q.
-__global__ void __launch_bounds__(kThreads)
-dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           float* __restrict__ dk, float* __restrict__ dv, int Tq, int Tk,
-           int d, int causal, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* sKt = smem;              // [d][key]
-  float* sVt = smem + kBuf;       // [d][key]
-  float* sQt = smem + 2 * kBuf;   // [d][q row]
-  float* sdOt = smem + 3 * kBuf;  // [d][q row]
-  float* sQ = smem + 4 * kBuf;    // [q row][d]
-  float* sdO = smem + 5 * kBuf;   // [q row][d]
-  float* sP = smem + 6 * kBuf;    // [q row][key]: P, then dS
-  const int tx = threadIdx.x & 15;  // q rows / dims tx*4 .. +3
-  const int ty = threadIdx.x >> 4;  // keys ty*4 .. +3
-  const size_t bh = blockIdx.x;
-  const int k0 = blockIdx.y * kTile;
-  const float* qb = q + bh * Tq * d;
-  const float* dob = dout + bh * Tq * d;
-  stage<true>(k + bh * Tk * d, k0, Tk, d, sKt);
-  stage<true>(v + bh * Tk * d, k0, Tk, d, sVt);
-  float dk_acc[4][4] = {};
-  float dv_acc[4][4] = {};
-  const int n_qt = (Tq + kTile - 1) / kTile;
-  // q tiles that end before this key tile starts see none of it
-  for (int qt = causal ? static_cast<int>(blockIdx.y) : 0; qt < n_qt;
-       ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    stage<true>(qb, q0, Tq, d, sQt);
-    stage<true>(dob, q0, Tq, d, sdOt);
-    stage<false>(qb, q0, Tq, d, sQ);
-    stage<false>(dob, q0, Tq, d, sdO);
-    __syncthreads();
-    float lse_c[4], delta_c[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qp = q0 + tx * 4 + j;
-      lse_c[j] = qp < Tq ? lse[bh * Tq + qp] : 0.f;
-      delta_c[j] = qp < Tq ? delta[bh * Tq + qp] : 0.f;
-    }
-    float st[4][4] = {};   // s^T: [key][q row]
-    float dpt[4][4] = {};  // dp^T
-    tile_product(sKt, sQt, ty * 4, tx * 4, st);
-    tile_product(sVt, sdOt, ty * 4, tx * 4, dpt);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kp = k0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = visible(q0 + tx * 4 + j, kp, Tq, Tk, causal)
-                            ? expf(st[i][j] * scale - lse_c[j]) : 0.f;
-        st[i][j] = p;
-        dpt[i][j] = p * (dpt[i][j] - delta_c[j]) * scale;  // ds^T
-      }
-    }
-    put_transposed(sP, ty * 4, tx * 4, st);
-    __syncthreads();
-    tile_product(sP, sdO, ty * 4, tx * 4, dv_acc);
-    __syncthreads();
-    put_transposed(sP, ty * 4, tx * 4, dpt);
-    __syncthreads();
-    tile_product(sP, sQ, ty * 4, tx * 4, dk_acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty * 4 + i;
-    if (kp >= Tk) continue;
-    float* ok = dk + (bh * Tk + kp) * d;
-    float* ov = dv + (bh * Tk + kp) * d;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx * 4 + j;
-      if (c < d) {
-        ok[c] = dk_acc[i][j];
-        ov[c] = dv_acc[i][j];
-      }
-    }
-  }
-}
-
 constexpr int kFwdSmem = 4 * kBuf * 4;  // bytes
-constexpr int kDqSmem = 6 * kBuf * 4;
-constexpr int kDkvSmem = 7 * kBuf * 4;
 
 }  // namespace simt
 
-// --------------------------------------- bfloat16: tensor cores (mma.sync)
-namespace tc {
+// --------------------------- float32 backward: 3xTF32 on the tensor cores
+namespace tf32 {
 
-using bf16 = __nv_bfloat16;
-constexpr int kThreads = 128;        // 4 warps, 16 tile rows each
-constexpr int kLdh = kMaxD + 8;      // padded staged row, bf16 elements
-constexpr int kLdw = kLdh / 2;       // the same in 32-bit words (36)
-constexpr int kBuf = kTile * kLdh;   // bf16 elements per staged tile
+constexpr int kBwdThreads = 128;        // 4 warps, 16 tile rows each
+constexpr int kLd = kMaxD + 4;          // padded staged row, floats
+constexpr int kTileF = kTile * kLd;     // floats of a staged tile
+// bytes: two resident tiles (Q and dO, or K and V) and 2 stages of the
+// other two
+constexpr int kSmem = 6 * kTileF * 4;
 
-// d[4] += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate.
-// Fragments (lane = 4 * g + t): a0 = A[g][2t, 2t+1], a1 = A[g + 8][..],
-// a2 = A[g][2t + 8, +9], a3 = A[g + 8][..]; b0 = B[2t, 2t+1][g],
-// b1 = B[2t + 8, +9][g]; d0, d1 = D[g][2t, 2t+1], d2, d3 = D[g + 8][..].
+// x = hi + lo: hi is x rounded to its top 11 significant bits (tf32) by
+// an integer add and mask (cvt.rna.tf32 runs at a quarter of their rate),
+// lo = x - hi exactly, of which the tensor core reads the top 11 bits: x
+// to ~2^-21
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a * b, m16n8k8, tf32 in, fp32 accumulate. Fragments (lane 4g + t):
+// a0 = A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4], a3 = A[g + 8][t + 4];
+// b0 = B[t][g], b1 = B[t + 4][g]; d0, d1 = D[g][2t, 2t + 1], d2, d3 =
+// D[g + 8][2t, 2t + 1].
 __device__ __forceinline__ void mma(float d[4], const uint32_t a[4],
                                     uint32_t b0, uint32_t b1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// acc[nt] += A * B over one k-step of 8 for the 8 column tiles nt, as the
+// fp32 product 3xTF32 gives it: a_lo b_hi + a_hi b_lo + a_hi b_hi (the
+// a_lo b_lo term, ~2^-22 of the product, is dropped). b[nt] holds B's hi
+// fragment (b0, b1), then its lo fragment.
+__device__ __forceinline__ void mma3(float acc[8][4], const uint32_t ahi[4],
+                                     const uint32_t alo[4],
+                                     const uint32_t b[8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) mma(acc[nt], alo, b[nt][0], b[nt][1]);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) mma(acc[nt], ahi, b[nt][2], b[nt][3]);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) mma(acc[nt], ahi, b[nt][0], b[nt][1]);
+}
+
+// Stage rows [r0, r0 + 64) of the row-major [n_rows, d] matrix g into the
+// padded tile s[64][kLd], zeros past n_rows and past d: by cp.async when
+// vec (d % 4 == 0, g 16-byte aligned), else by scalar loads.
+__device__ __forceinline__ void stage(const float* __restrict__ g, int r0,
+                                      int n_rows, int d, bool vec,
+                                      float* __restrict__ s) {
+  if (vec) {
+#pragma unroll
+    for (int i = threadIdx.x; i < kTile * 16; i += kBwdThreads) {
+      const int r = i >> 4;
+      const int c4 = i & 15;
+      const bool ok = r0 + r < n_rows && 4 * c4 < d;
+      cp16(smem_u32(s + r * kLd + 4 * c4),
+           ok ? g + static_cast<size_t>(r0 + r) * d + 4 * c4 : g, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * kMaxD; i += kBwdThreads) {
+      const int r = i >> 6;
+      const int c = i & 63;
+      s[r * kLd + c] = r0 + r < n_rows && c < d
+                           ? g[static_cast<size_t>(r0 + r) * d + c] : 0.f;
+    }
+  }
+}
+
+// acc (16 x 64: 8 tiles of 8 columns) += A B^T over the 64 columns of two
+// staged tiles: rows rb..rb+15 of A against every row of B (a product over
+// d, both operands read along their rows; the padding makes each fragment
+// load conflict-free)
+__device__ __forceinline__ void prod_rows(const float* __restrict__ A,
+                                          const float* __restrict__ B,
+                                          int rb, float acc[8][4]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const float* a = A + (rb + g) * kLd + t;
+  const float* b = B + g * kLd + t;
+#pragma unroll 2
+  for (int ks = 0; ks < 8; ++ks) {
+    uint32_t ahi[4], alo[4], bf[8][4];
+    split(a[8 * ks], ahi[0], alo[0]);
+    split(a[8 * kLd + 8 * ks], ahi[1], alo[1]);
+    split(a[8 * ks + 4], ahi[2], alo[2]);
+    split(a[8 * kLd + 8 * ks + 4], ahi[3], alo[3]);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float* bp = b + 8 * nt * kLd + 8 * ks;
+      split(bp[0], bf[nt][0], bf[nt][2]);
+      split(bp[4], bf[nt][1], bf[nt][3]);
+    }
+    mma3(acc, ahi, alo, bf);
+  }
+}
+
+// acc (16 x 64 over d) += X B over the 64 rows of the staged tile B, for
+// an fp32 X (16 x 64) in accumulator layout: k-step ks takes columns
+// 8ks + 2t (k index t) and 8ks + 2t + 1 (t + 4) of X, the two this lane
+// holds, and the same rows of B, so X is the A fragment as it lies. The
+// tile's product is summed in a fresh accumulator and added to acc with
+// fp32 adds that round to nearest: the tensor core's own adds truncate,
+// and acc runs over every tile of a row.
+__device__ __forceinline__ void prod_cols(const float x[8][4],
+                                          const float* __restrict__ B,
+                                          float acc[8][4]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const float* b = B + 2 * t * kLd + g;
+  float part[8][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    uint32_t ahi[4], alo[4], bf[8][4];
+    split(x[ks][0], ahi[0], alo[0]);
+    split(x[ks][2], ahi[1], alo[1]);
+    split(x[ks][1], ahi[2], alo[2]);
+    split(x[ks][3], ahi[3], alo[3]);
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd) {
+      const float* bp = b + 8 * ks * kLd + 8 * nd;
+      split(bp[0], bf[nd][0], bf[nd][2]);
+      split(bp[kLd], bf[nd][1], bf[nd][3]);
+    }
+    mma3(part, ahi, alo, bf);
+  }
+#pragma unroll
+  for (int nd = 0; nd < 8; ++nd) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] += part[nd][e];
+  }
+}
+
+// rows rb + g and rb + g + 8 (< n_rows) of a 16 x 64 accumulator to the
+// row-major [n_rows, d] matrix o
+__device__ __forceinline__ void store_rows(const float acc[8][4], int rb,
+                                           int n_rows, int d,
+                                           float* __restrict__ o) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rb + g + 8 * h;
+    if (r >= n_rows) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nt * 8 + 2 * t + e;
+        if (c < d) o[static_cast<size_t>(r) * d + c] = acc[nt][2 * h + e];
+      }
+    }
+  }
+}
+
+// B9, dq: one block per (batch*head, 64-row q tile), the heaviest first,
+// walking the key tiles up to the diagonal; warp w owns rows 16w..16w+15.
+// S = Q K^T and dP = dO V^T from the staged tiles, ds = p (dp - delta)
+// scale in registers, dQ += dS K with dS as it lies in the accumulators.
+__global__ void __launch_bounds__(kBwdThreads, 2)
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          float* __restrict__ dq, int Tq, int Tk, int d, int causal,
+          float scale, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sdO = smem + kTileF;
+  float* sKV = smem + 2 * kTileF;  // stage i: K at sKV + 2 i kTileF, then V
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const size_t bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const float* kb = k + bh * Tk * d;
+  const float* vb = v + bh * Tk * d;
+  const int n_kt = key_tiles(q0, Tk, causal);
+  if (n_kt > 0) {
+    stage(q + bh * Tq * d, q0, Tq, d, vec, sQ);
+    stage(dout + bh * Tq * d, q0, Tq, d, vec, sdO);
+    stage(kb, 0, Tk, d, vec, sKV);
+    stage(vb, 0, Tk, d, vec, sKV + kTileF);
+  }
+  cp_commit();
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse_r[h] = rows[h] < Tq ? lse[bh * Tq + rows[h]] : 0.f;
+    delta_r[h] = rows[h] < Tq ? delta[bh * Tq + rows[h]] : 0.f;
+  }
+  float acc[8][4] = {};
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_wait<0>();
+    __syncthreads();  // tile kt landed; every thread is done with kt - 1
+    if (kt + 1 < n_kt) {
+      float* nx = sKV + ((kt + 1) & 1) * 2 * kTileF;
+      stage(kb, (kt + 1) * kTile, Tk, d, vec, nx);
+      stage(vb, (kt + 1) * kTile, Tk, d, vec, nx + kTileF);
+    }
+    cp_commit();
+    const float* sK = sKV + (kt & 1) * 2 * kTileF;
+    const float* sV = sK + kTileF;
+    float s[8][4] = {};
+    float dp[8][4] = {};
+    prod_rows(sQ, sK, warp * 16, s);
+    prod_rows(sdO, sV, warp * 16, dp);
+    const int k0 = kt * kTile;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int kp = k0 + nt * 8 + 2 * t + (e & 1);
+        const float p = visible(rows[h], kp, Tq, Tk, causal)
+                            ? expf(s[nt][e] * scale - lse_r[h]) : 0.f;
+        s[nt][e] = p * (dp[nt][e] - delta_r[h]) * scale;  // ds
+      }
+    }
+    prod_cols(s, sK, acc);
+  }
+  cp_wait<0>();
+  store_rows(acc, q0 + warp * 16, Tq, d, dq + bh * Tq * d);
+}
+
+// B9, dk/dv: one block per (batch*head, 64-key tile), key tile 0 first,
+// walking the q tiles from the diagonal to the end; warp w owns keys
+// 16w..16w+15. S^T = K Q^T and dP^T = V dO^T from the staged tiles, so P^T
+// and dS^T come out in accumulator layout for dV += P^T dO and dK +=
+// dS^T Q; each q tile's lse and delta ride with it in shared memory.
+__global__ void __launch_bounds__(kBwdThreads, 2)
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           float* __restrict__ dk, float* __restrict__ dv, int Tq, int Tk,
+           int d, int causal, float scale, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float sStat[2][2][kTile];  // per stage: lse, delta
+  float* sK = smem;
+  float* sV = smem + kTileF;
+  float* sQO = smem + 2 * kTileF;  // stage i: Q at sQO + 2 i kTileF, then dO
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const size_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;
+  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const float* qb = q + bh * Tq * d;
+  const float* dob = dout + bh * Tq * d;
+  const int n_qt = (Tq + kTile - 1) / kTile;
+  // q tiles that end before this key tile starts see none of it
+  const int qt0 = causal ? static_cast<int>(blockIdx.y) : 0;
+  const int sr = threadIdx.x & (kTile - 1);
+  // this thread's statistic of q tile qt: lse (threads 0-63) or delta
+  auto stat = [&](int qt) {
+    const int qp = qt * kTile + sr;
+    if (qp >= Tq) return 0.f;
+    return threadIdx.x < kTile ? lse[bh * Tq + qp] : delta[bh * Tq + qp];
+  };
+  if (qt0 < n_qt) {
+    stage(k + bh * Tk * d, k0, Tk, d, vec, sK);
+    stage(v + bh * Tk * d, k0, Tk, d, vec, sV);
+    stage(qb, qt0 * kTile, Tq, d, vec, sQO);
+    stage(dob, qt0 * kTile, Tq, d, vec, sQO + kTileF);
+    sStat[0][threadIdx.x / kTile][sr] = stat(qt0);
+  }
+  cp_commit();
+  float dk_acc[8][4] = {};
+  float dv_acc[8][4] = {};
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    cp_wait<0>();
+    __syncthreads();  // tile qt landed; every thread is done with qt - 1
+    const int slot = (qt - qt0) & 1;
+    float stat_nxt = 0.f;  // stored once this tile's products are done
+    if (qt + 1 < n_qt) {
+      float* nx = sQO + (slot ^ 1) * 2 * kTileF;
+      stage(qb, (qt + 1) * kTile, Tq, d, vec, nx);
+      stage(dob, (qt + 1) * kTile, Tq, d, vec, nx + kTileF);
+      stat_nxt = stat(qt + 1);
+    }
+    cp_commit();
+    const float* sQ = sQO + slot * 2 * kTileF;
+    const float* sdO = sQ + kTileF;
+    const float* lse_c = sStat[slot][0];
+    const float* delta_c = sStat[slot][1];
+    const int q0 = qt * kTile;
+    float st[8][4] = {};   // s^T: [key][q row]
+    float dpt[8][4] = {};  // dp^T
+    prod_rows(sK, sQ, warp * 16, st);
+    prod_rows(sV, sdO, warp * 16, dpt);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + 2 * t + (e & 1);  // q row in the tile
+        const float p = visible(q0 + c, keys[e >> 1], Tq, Tk, causal)
+                            ? expf(st[nt][e] * scale - lse_c[c]) : 0.f;
+        st[nt][e] = p;
+        dpt[nt][e] = p * (dpt[nt][e] - delta_c[c]) * scale;  // ds^T
+      }
+    }
+    prod_cols(st, sdO, dv_acc);
+    prod_cols(dpt, sQ, dk_acc);
+    if (qt + 1 < n_qt) sStat[slot ^ 1][threadIdx.x / kTile][sr] = stat_nxt;
+  }
+  cp_wait<0>();
+  store_rows(dk_acc, k0 + warp * 16, Tk, d, dk + bh * Tk * d);
+  store_rows(dv_acc, k0 + warp * 16, Tk, d, dv + bh * Tk * d);
+}
+
+}  // namespace tf32
+
+// ------------------------------------ bfloat16: tensor cores (wgmma)
+namespace tc {
+
+using bf16 = __nv_bfloat16;
 __device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Stage rows [r0, r0 + 64) of the row-major [n_rows, d] bf16 matrix g
-// (d % 8 == 0, 16-byte aligned rows) into s[64][kLdh], zero past n_rows
-// and past d; kTrans stores it transposed, s[c][r].
-template <bool kTrans>
-__device__ __forceinline__ void stage(const bf16* __restrict__ g, int r0,
-                                      int n_rows, int d,
-                                      bf16* __restrict__ s) {
-  for (int idx = threadIdx.x; idx < kTile * kMaxD / 8; idx += kThreads) {
-    // transposed: consecutive lanes on consecutive rows, so the 2-byte
-    // stores of a warp land in distinct banks
-    const int r = kTrans ? idx % kTile : idx / (kMaxD / 8);
-    const int c = kTrans ? (idx / kTile) * 8 : (idx % (kMaxD / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n_rows && c < d) {
-      x = *reinterpret_cast<const uint4*>(
-          g + static_cast<size_t>(r0 + r) * d + c);
-    }
-    if (kTrans) {
-      const bf16* e = reinterpret_cast<const bf16*>(&x);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s[(c + i) * kLdh + r] = e[i];
-    } else {
-      *reinterpret_cast<uint4*>(s + r * kLdh + c) = x;
-    }
-  }
-}
-
-// the warp's A fragments of rows rb..rb+15 of a staged tile, over its 64
-// columns (4 depth steps of 16)
-__device__ __forceinline__ void load_a(const bf16* __restrict__ s, int rb,
-                                       uint32_t a[4][4]) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(s);
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
+// x (fp32, accumulator layout) as the register operand of wgmma_rs over
+// its 64 columns (4 depth steps of 16), split into bf16 hi and lo halves
+// so the product keeps ~16 bits of x's mantissa
+__device__ __forceinline__ void split(const float x[8][4], uint32_t hi[4][4],
+                                      uint32_t lo[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = w[(rb + g) * kLdw + kk * 8 + t];
-    a[kk][1] = w[(rb + g + 8) * kLdw + kk * 8 + t];
-    a[kk][2] = w[(rb + g) * kLdw + kk * 8 + 4 + t];
-    a[kk][3] = w[(rb + g + 8) * kLdw + kk * 8 + 4 + t];
-  }
-}
-
-// acc (16 x 64: 8 tiles of 8 columns) += A (16 x 64) * B, where B's 64
-// columns are the rows of the staged tile sB (B[k][n] = sB[n][k])
-__device__ __forceinline__ void product(float acc[8][4],
-                                        const uint32_t a[4][4],
-                                        const bf16* __restrict__ sB) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(sB);
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const uint32_t* row = w + (nt * 8 + g) * kLdw + kk * 8 + t;
-      mma(acc[nt], a[kk], row[0], row[4]);
-    }
-  }
-}
-
-// acc += X * B for an fp32 X (16 x 64) held in accumulator layout: each
-// depth step's A fragment is X split into bf16 hi + lo halves, both
-// multiplied, so X keeps ~16 bits of mantissa
-__device__ __forceinline__ void product_split(float acc[8][4],
-                                              const float x[8][4],
-                                              const bf16* __restrict__ sB) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(sB);
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t hi[4], lo[4];
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
       // f: 0 = rows g, 1 = rows g + 8 of column tile 2kk; 2, 3 of 2kk + 1
       const float* src = x[2 * kk + (f >> 1)] + 2 * (f & 1);
       const __nv_bfloat162 h = __floats2bfloat162_rn(src[0], src[1]);
-      hi[f] = pack(h);
-      lo[f] = pack(__floats2bfloat162_rn(src[0] - __low2float(h),
-                                         src[1] - __high2float(h)));
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const uint32_t* row = w + (nt * 8 + g) * kLdw + kk * 8 + t;
-      mma(acc[nt], hi, row[0], row[4]);
-      mma(acc[nt], lo, row[0], row[4]);
+      hi[kk][f] = pack(h);
+      lo[kk][f] = pack(__floats2bfloat162_rn(src[0] - __low2float(h),
+                                             src[1] - __high2float(h)));
     }
   }
 }
@@ -566,35 +663,25 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---- B8's forward: cp.async ring, swizzled tiles, ldmatrix fragments
+// ---- wgmma fed by a cp.async ring of swizzled tiles
 
 constexpr int kFwdRows = 64;             // q rows a block: a warpgroup
-constexpr int kFwdThreads = 128;
-constexpr int kStages = 2;               // K/V tiles in flight
+constexpr int kWgThreads = 128;
+constexpr int kStages = 2;               // tiles in flight
 constexpr int kRowBytes = kMaxD * 2;     // a staged row: 8 pieces of 16 B
 constexpr int kTileBytes = kTile * kRowBytes;
+constexpr float kLog2e = 1.4426950408889634f;
 // + 1024: the tiles are 1024-byte aligned, as the 128-byte swizzle needs
 constexpr int kFwdSmem =
     kFwdRows * kRowBytes + kStages * 2 * kTileBytes + 1024;
+// B9: two resident tiles (Q and dO, or K and V) + the ring
+constexpr int kBwdSmem = 2 * kTileBytes + kStages * 2 * kTileBytes + 1024;
+// __launch_bounds__' least blocks an SM, the register cap: dq fits in 122
+// registers (4 blocks resident), dk/dv in 168 (3); a cap for 4 (dk/dv) or
+// 5 (dq) spills and measured slower on an H100
+constexpr int kDqBlocks = 3;
+constexpr int kDkvBlocks = 3;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared without the registers; zeros (src unread)
-// when !ok
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
-                                     bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 // wgmma's shared-memory matrix descriptor, 128-byte swizzle: sbo the
 // bytes between 8-row groups, lbo between 64-element slices of an MN-major
 // operand (ignored for a K-major one)
@@ -673,7 +760,7 @@ __device__ __forceinline__ void stage_async(const bf16* __restrict__ g,
                                             int r0, int n_rows, int d,
                                             uint32_t s) {
 #pragma unroll
-  for (int i = threadIdx.x; i < NR * 8; i += kFwdThreads) {
+  for (int i = threadIdx.x; i < NR * 8; i += kWgThreads) {
     const int r = i >> 3;
     const int p = i & 7;
     const bool ok = r0 + r < n_rows && p * 8 < d;
@@ -691,7 +778,7 @@ __device__ __forceinline__ void stage_async(const bf16* __restrict__ g,
 // raw scores s and p = 2^(s * scale log2 e - m * scale log2 e); otherwise
 // on s * scale log2 e.
 template <bool kPos>
-__global__ void __launch_bounds__(kFwdThreads, 5)
+__global__ void __launch_bounds__(kWgThreads, 5)
 fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, bf16* __restrict__ out,
            float* __restrict__ lse, int Tq, int Tk, int d, int causal,
@@ -711,7 +798,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_kt = Tk == 0 ? 0 : causal
       ? min((Tk + kTile - 1) / kTile, (q0 + kFwdRows - 1) / kTile + 1)
       : (Tk + kTile - 1) / kTile;
-  const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
+  const float sl2 = scale * kLog2e;
   const float mul = kPos ? 1.f : sl2;   // the max is taken on s * mul
   const float emul = kPos ? sl2 : 1.f;  // p = 2^((s * mul - m) * emul)
 
@@ -798,17 +885,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       // o += P V, P split into bf16 hi + lo halves (the fp32 product)
       uint32_t hi[4][4], lo[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int f = 0; f < 4; ++f) {
-          const float* src = s[2 * kk + (f >> 1)] + 2 * (f & 1);
-          const __nv_bfloat162 h = __floats2bfloat162_rn(src[0], src[1]);
-          hi[kk][f] = pack(h);
-          lo[kk][f] = pack(__floats2bfloat162_rn(src[0] - __low2float(h),
-                                                 src[1] - __high2float(h)));
-        }
-      }
+      split(s, hi, lo);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -841,133 +918,244 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows(o, q0 + warp * 16, Tq, d, inv[0], inv[1], out + bh * Tq * d);
 }
 
-// B9, dq: one block per (batch*head, 64-row q tile), walking the key tiles
-// up to the diagonal: p = exp(s - lse), ds = p * (dp - delta) * scale,
-// dq += ds @ k.
-__global__ void __launch_bounds__(kThreads)
+// B9, dq: one warpgroup a block, per (batch*head, 64-row q tile), the
+// heaviest q tiles first; warp w owns rows 16w..16w+15, a thread rows g and
+// g + 8. Q and dO ride in the ring's first group and stay; per key tile
+// the warpgroup runs S = Q K^T and dP = dO V^T (8 wgmma from shared
+// memory), p = 2^(s scale log2 e - lse log2 e) and ds = p (dp - delta)
+// scale in registers, then dQ += dS K (8 wgmma: dS's hi and lo halves as
+// the register operand, K read MN-major as it lies).
+__global__ void __launch_bounds__(kWgThreads, kDqBlocks)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, const bf16* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           bf16* __restrict__ dq, int Tq, int Tk, int d, int causal,
           float scale) {
-  __shared__ __align__(16) bf16 sK[kBuf];   // [key][d]; first Q
-  __shared__ __align__(16) bf16 sKt[kBuf];  // [d][key]
-  __shared__ __align__(16) bf16 sV[kBuf];   // [key][d]; first dO
+  extern __shared__ __align__(128) unsigned char fsmem[];
+  const uint32_t sQ = (smem_u32(fsmem) + 1023) & ~1023u;
+  const uint32_t sdO = sQ + kTileBytes;
+  const uint32_t sKV = sdO + kTileBytes;  // stage i: K, then V
   const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const size_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const bf16* kb = k + bh * Tk * d;
   const bf16* vb = v + bh * Tk * d;
-  uint32_t qf[4][4], dof[4][4];
-  stage<false>(q + bh * Tq * d, q0, Tq, d, sK);
-  stage<false>(dout + bh * Tq * d, q0, Tq, d, sV);
-  __syncthreads();
-  load_a(sK, warp * 16, qf);
-  load_a(sV, warp * 16, dof);
-  float lse_r[2], delta_r[2];
+  const int n_kt = key_tiles(q0, Tk, causal);
+  const float sl2 = scale * kLog2e;
+
+  if (n_kt > 0) {
+    stage_async<kTile>(q + bh * Tq * d, q0, Tq, d, sQ);
+    stage_async<kTile>(dout + bh * Tq * d, q0, Tq, d, sdO);
+  }
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_kt) {
+      const uint32_t st = sKV + i * 2 * kTileBytes;
+      stage_async<kTile>(kb, i * kTile, Tk, d, st);
+      stage_async<kTile>(vb, i * kTile, Tk, d, st + kTileBytes);
+    }
+    cp_commit();
+  }
+  float lse2[2], dlt[2];  // lse * log2 e, delta of rows g, g + 8
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    lse_r[h] = rows[h] < Tq ? lse[bh * Tq + rows[h]] : 0.f;
-    delta_r[h] = rows[h] < Tq ? delta[bh * Tq + rows[h]] : 0.f;
+    lse2[h] = rows[h] < Tq ? lse[bh * Tq + rows[h]] * kLog2e : 0.f;
+    dlt[h] = rows[h] < Tq ? delta[bh * Tq + rows[h]] : 0.f;
   }
   float acc[8][4] = {};
-  const int n_kt = key_tiles(q0, Tk, causal);
   for (int kt = 0; kt < n_kt; ++kt) {
+    const int nxt = kt + kStages - 1;
+    if (nxt < n_kt) {
+      const uint32_t st = sKV + (nxt % kStages) * 2 * kTileBytes;
+      stage_async<kTile>(kb, nxt * kTile, Tk, d, st);
+      stage_async<kTile>(vb, nxt * kTile, Tk, d, st + kTileBytes);
+    }
+    cp_commit();
+    cp_wait<kStages - 1>();
+    fence_async();
+    __syncthreads();
     const int k0 = kt * kTile;
-    __syncthreads();
-    stage<false>(kb, k0, Tk, d, sK);
-    stage<true>(kb, k0, Tk, d, sKt);
-    stage<false>(vb, k0, Tk, d, sV);
-    __syncthreads();
-    float s[8][4] = {};
-    float dp[8][4] = {};
-    product(s, qf, sK);
-    product(dp, dof, sV);
+    const uint32_t sK = sKV + (kt % kStages) * 2 * kTileBytes;
+    const uint32_t sV = sK + kTileBytes;
+    float s[8][4], dp[8][4];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss(s, desc(sQ + 32 * kk, 16, 1024), desc(sK + 32 * kk, 16, 1024),
+               kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss(dp, desc(sdO + 32 * kk, 16, 1024),
+               desc(sV + 32 * kk, 16, 1024), kk);
+    }
+    wg_commit();
+    wg_wait();
+    // only the diagonal tiles and the ragged tail need the mask
+    const bool edge = k0 + kTile > Tk || (causal && k0 + kTile - 1 > q0);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
-        const int kp = k0 + nt * 8 + 2 * t + (e & 1);
-        const float p = visible(rows[h], kp, Tq, Tk, causal)
-                            ? expf(s[nt][e] * scale - lse_r[h]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - delta_r[h]) * scale;  // ds
+        float p = ex2(fmaf(s[nt][e], sl2, -lse2[h]));
+        if (edge) {
+          const int kp = k0 + nt * 8 + 2 * t + (e & 1);
+          if (kp >= Tk || (causal && kp > rows[h])) p = 0.f;
+        }
+        s[nt][e] = p * (dp[nt][e] - dlt[h]) * scale;  // ds
       }
     }
-    product_split(acc, s, sKt);
+    uint32_t hi[4][4], lo[4][4];
+    split(s, hi, lo);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bk = desc(sK + 2048 * kk, kTileBytes, 1024);
+      wgmma_rs(acc, hi[kk], bk);
+      wgmma_rs(acc, lo[kk], bk);
+    }
+    wg_commit();
+    wg_wait();
+    __syncthreads();  // the stage is refilled kStages - 1 tiles later
   }
+  cp_wait<0>();
   store_rows(acc, q0 + warp * 16, Tq, d, 1.f, 1.f, dq + bh * Tq * d);
 }
 
-// B9, dk/dv: one block per (batch*head, 64-key tile), walking the q tiles
-// from the diagonal to the end: dv += p^T @ do, dk += ds^T @ q. Warp w
-// owns keys 16w..16w+15; its products are the transposed ones (s^T = k
-// q^T, dp^T = v do^T), so p^T and ds^T come out in accumulator layout.
-__global__ void __launch_bounds__(kThreads)
+// B9, dk/dv: one warpgroup a block, per (batch*head, 64-key tile), key
+// tile 0 (the one every q tile sees) first; warp w owns keys 16w..16w+15.
+// K and V ride in the ring's first group and stay; per q tile, from the
+// diagonal on, the ring brings Q, dO and the tile's lse and delta, and
+// the warpgroup runs S^T = K Q^T and dP^T = V dO^T (8 wgmma from shared
+// memory), so p^T and ds^T come out in accumulator layout, then dV +=
+// P^T dO and dK += dS^T Q (16 wgmma, hi and lo halves in registers, dO
+// and Q read MN-major).
+__global__ void __launch_bounds__(kWgThreads, kDkvBlocks)
 dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk,
            int d, int causal, float scale) {
-  __shared__ __align__(16) bf16 sQ[kBuf];    // [q row][d]; first K
-  __shared__ __align__(16) bf16 sQt[kBuf];   // [d][q row]
-  __shared__ __align__(16) bf16 sdO[kBuf];   // [q row][d]; first V
-  __shared__ __align__(16) bf16 sdOt[kBuf];  // [d][q row]
-  __shared__ float sLse[kTile];
-  __shared__ float sDelta[kTile];
+  extern __shared__ __align__(128) unsigned char fsmem[];
+  // per stage: lse * log2 e (threads 0-63 stage it) and delta (64-127)
+  __shared__ float sStat[kStages][2][kTile];
+  const uint32_t sK = (smem_u32(fsmem) + 1023) & ~1023u;
+  const uint32_t sV = sK + kTileBytes;
+  const uint32_t sQO = sV + kTileBytes;  // stage i: Q, then dO
   const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const size_t bh = blockIdx.x;
   const int k0 = blockIdx.y * kTile;
   const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
   const bf16* qb = q + bh * Tq * d;
   const bf16* dob = dout + bh * Tq * d;
-  uint32_t kf[4][4], vf[4][4];
-  stage<false>(k + bh * Tk * d, k0, Tk, d, sQ);
-  stage<false>(v + bh * Tk * d, k0, Tk, d, sdO);
-  __syncthreads();
-  load_a(sQ, warp * 16, kf);
-  load_a(sdO, warp * 16, vf);
+  // q tiles that end before this key tile starts see none of it
+  const int qt0 = causal ? static_cast<int>(blockIdx.y) : 0;
+  const int n = (Tq + kTile - 1) / kTile - qt0;  // q tiles to walk
+  const float sl2 = scale * kLog2e;
+  const int sr = threadIdx.x & (kTile - 1);
+  // this thread's statistic of the block's i-th q tile
+  auto stat = [&](int i) {
+    const int qp = (qt0 + i) * kTile + sr;
+    if (qp >= Tq) return 0.f;
+    return threadIdx.x < kTile ? lse[bh * Tq + qp] * kLog2e
+                               : delta[bh * Tq + qp];
+  };
+
+  if (n > 0) {
+    stage_async<kTile>(k + bh * Tk * d, k0, Tk, d, sK);
+    stage_async<kTile>(v + bh * Tk * d, k0, Tk, d, sV);
+  }
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n) {
+      const uint32_t st = sQO + i * 2 * kTileBytes;
+      stage_async<kTile>(qb, (qt0 + i) * kTile, Tq, d, st);
+      stage_async<kTile>(dob, (qt0 + i) * kTile, Tq, d, st + kTileBytes);
+      sStat[i][threadIdx.x / kTile][sr] = stat(i);
+    }
+    cp_commit();
+  }
   float dk_acc[8][4] = {};
   float dv_acc[8][4] = {};
-  const int n_qt = (Tq + kTile - 1) / kTile;
-  // q tiles that end before this key tile starts see none of it
-  for (int qt = causal ? static_cast<int>(blockIdx.y) : 0; qt < n_qt;
-       ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    stage<false>(qb, q0, Tq, d, sQ);
-    stage<true>(qb, q0, Tq, d, sQt);
-    stage<false>(dob, q0, Tq, d, sdO);
-    stage<true>(dob, q0, Tq, d, sdOt);
-    if (threadIdx.x < kTile) {
-      const int qp = q0 + threadIdx.x;
-      sLse[threadIdx.x] = qp < Tq ? lse[bh * Tq + qp] : 0.f;
-      sDelta[threadIdx.x] = qp < Tq ? delta[bh * Tq + qp] : 0.f;
+  for (int j = 0; j < n; ++j) {
+    const int nxt = j + kStages - 1;
+    float stat_nxt = 0.f;  // stored once this tile's products are done
+    if (nxt < n) {
+      const uint32_t st = sQO + (nxt % kStages) * 2 * kTileBytes;
+      stage_async<kTile>(qb, (qt0 + nxt) * kTile, Tq, d, st);
+      stage_async<kTile>(dob, (qt0 + nxt) * kTile, Tq, d, st + kTileBytes);
+      stat_nxt = stat(nxt);
     }
+    cp_commit();
+    cp_wait<kStages - 1>();
+    fence_async();
     __syncthreads();
-    float st[8][4] = {};   // s^T: [key][q row]
-    float dpt[8][4] = {};  // dp^T
-    product(st, kf, sQ);
-    product(dpt, vf, sdO);
+    const int q0 = (qt0 + j) * kTile;
+    const uint32_t sQ = sQO + (j % kStages) * 2 * kTileBytes;
+    const uint32_t sdO = sQ + kTileBytes;
+    const float* lse2 = sStat[j % kStages][0];
+    const float* dlt = sStat[j % kStages][1];
+    float s[8][4], dp[8][4];  // s^T, dp^T: [key][q row]
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss(s, desc(sK + 32 * kk, 16, 1024), desc(sQ + 32 * kk, 16, 1024),
+               kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss(dp, desc(sV + 32 * kk, 16, 1024),
+               desc(sdO + 32 * kk, 16, 1024), kk);
+    }
+    wg_commit();
+    wg_wait();
+    const bool edge = q0 + kTile > Tq || k0 + kTile > Tk ||
+                      (causal && q0 < k0 + kTile - 1);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = nt * 8 + 2 * t + (e & 1);  // q row in the tile
-        const float p = visible(q0 + c, keys[e >> 1], Tq, Tk, causal)
-                            ? expf(st[nt][e] * scale - sLse[c]) : 0.f;
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - sDelta[c]) * scale;  // ds^T
+        float p = ex2(fmaf(s[nt][e], sl2, -lse2[c]));
+        if (edge) {
+          const int qp = q0 + c;
+          const int kp = keys[e >> 1];
+          if (qp >= Tq || kp >= Tk || (causal && kp > qp)) p = 0.f;
+        }
+        s[nt][e] = p;
+        dp[nt][e] = p * (dp[nt][e] - dlt[c]) * scale;  // ds^T
       }
     }
-    product_split(dv_acc, st, sdOt);
-    product_split(dk_acc, dpt, sQt);
+    uint32_t phi[4][4], plo[4][4], dhi[4][4], dlo[4][4];
+    split(s, phi, plo);
+    split(dp, dhi, dlo);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bo = desc(sdO + 2048 * kk, kTileBytes, 1024);
+      wgmma_rs(dv_acc, phi[kk], bo);
+      wgmma_rs(dv_acc, plo[kk], bo);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bq = desc(sQ + 2048 * kk, kTileBytes, 1024);
+      wgmma_rs(dk_acc, dhi[kk], bq);
+      wgmma_rs(dk_acc, dlo[kk], bq);
+    }
+    wg_commit();
+    wg_wait();
+    if (nxt < n) sStat[nxt % kStages][threadIdx.x / kTile][sr] = stat_nxt;
+    __syncthreads();  // the stage is refilled kStages - 1 tiles later
   }
+  cp_wait<0>();
   store_rows(dk_acc, k0 + warp * 16, Tk, d, 1.f, 1.f, dk + bh * Tk * d);
   store_rows(dv_acc, k0 + warp * 16, Tk, d, 1.f, 1.f, dv + bh * Tk * d);
 }
@@ -986,6 +1174,17 @@ cudaError_t opt_in(K kernel, int bytes) {
 bool bad_sizes(int lane, int BH, int Tq, int Tk, int d, int n_tiles) {
   return lane < 0 || lane > 1 || BH < 0 || Tq < 0 || Tk < 0 || d < 1 ||
          d > kMaxD || (lane == 1 && d % 8 != 0) || n_tiles > 65535;
+}
+
+// the float32 backward stages by cp.async when every input's rows are
+// whole 16-byte pieces, else by scalar loads
+int vec_rows(int d, const void* q, const void* k, const void* v,
+             const void* dout) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) |
+                         reinterpret_cast<uintptr_t>(dout);
+  return d % 4 == 0 && bits % 16 == 0;
 }
 
 }  // namespace
@@ -1016,7 +1215,7 @@ extern "C" int flash_attention_fwd(int lane, const void* q, const void* k,
     if (err != cudaSuccess) return static_cast<int>(err);
     const int n_bt = (Tq + tc::kFwdRows - 1) / tc::kFwdRows;
     kernel<<<dim3(static_cast<unsigned>(BH), static_cast<unsigned>(n_bt)),
-             tc::kFwdThreads, tc::kFwdSmem, st>>>(
+             tc::kWgThreads, tc::kFwdSmem, st>>>(
         static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
         static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(out), lse,
         Tq, Tk, d, causal, scale);
@@ -1038,14 +1237,17 @@ extern "C" int flash_attention_dq(int lane, const void* q, const void* k,
   const dim3 grid(static_cast<unsigned>(BH), static_cast<unsigned>(n_qt));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (lane == 0) {
-    const cudaError_t err = opt_in(simt::dq_kernel, simt::kDqSmem);
+    const cudaError_t err = opt_in(tf32::dq_kernel, tf32::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    simt::dq_kernel<<<grid, simt::kThreads, simt::kDqSmem, st>>>(
+    tf32::dq_kernel<<<grid, tf32::kBwdThreads, tf32::kSmem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), Tq, Tk, d, causal, scale);
+        delta, static_cast<float*>(dq), Tq, Tk, d, causal, scale,
+        vec_rows(d, q, k, v, dout));
   } else {
-    tc::dq_kernel<<<grid, tc::kThreads, 0, st>>>(
+    const cudaError_t err = opt_in(tc::dq_kernel, tc::kBwdSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tc::dq_kernel<<<grid, tc::kWgThreads, tc::kBwdSmem, st>>>(
         static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
         static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
         lse, delta, static_cast<tc::bf16*>(dq), Tq, Tk, d, causal, scale);
@@ -1068,15 +1270,17 @@ extern "C" int flash_attention_dkv(int lane, const void* q, const void* k,
   const dim3 grid(static_cast<unsigned>(BH), static_cast<unsigned>(n_kt));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (lane == 0) {
-    const cudaError_t err = opt_in(simt::dkv_kernel, simt::kDkvSmem);
+    const cudaError_t err = opt_in(tf32::dkv_kernel, tf32::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    simt::dkv_kernel<<<grid, simt::kThreads, simt::kDkvSmem, st>>>(
+    tf32::dkv_kernel<<<grid, tf32::kBwdThreads, tf32::kSmem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk, d,
-        causal, scale);
+        causal, scale, vec_rows(d, q, k, v, dout));
   } else {
-    tc::dkv_kernel<<<grid, tc::kThreads, 0, st>>>(
+    const cudaError_t err = opt_in(tc::dkv_kernel, tc::kBwdSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tc::dkv_kernel<<<grid, tc::kWgThreads, tc::kBwdSmem, st>>>(
         static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
         static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
         lse, delta, static_cast<tc::bf16*>(dk), static_cast<tc::bf16*>(dv),

@@ -21,8 +21,9 @@ accumulator are fp32.
 .Function`` that saves ``(q, k, v, out, lse)``. On CUDA tensors each of
 ``flash_attention_fwd``, ``flash_attention_dq`` and
 ``flash_attention_dkv`` launches its hand-written sm_90a kernel
-(``csrc/flash_attention.cu``: fp32 on the CUDA cores, bf16 on the tensor
-cores) and raises on anything it does not take;
+(``csrc/flash_attention.cu``: fp32 forward on the CUDA cores, fp32
+backward as 3xTF32 and bf16 on the tensor cores) and raises on anything
+it does not take;
 on CPU tensors it runs its plain version, which follows the Pallas
 kernel body's math over one tile spanning the whole sequence. The
 TPU wrapper's ``block_q``/``block_k``/``interpret`` are tile hints for

@@ -211,6 +211,17 @@ def test_bad_shapes_raise():
         tfa.flash_attention(q, k[..., :4], v[..., :4])
 
 
+def test_probe_plain_tf32_variant_keeps_only_the_hi_product():
+    from paddle_tpu_torch.kernels import _build, flash_probe
+    src = (_build.CSRC_DIR / "flash_attention.cu").read_text()
+    plain = flash_probe.plain_tf32_source(src)
+    assert "mma(acc[nt], ahi, b[nt][0], b[nt][1]);" in plain
+    assert "alo, b[nt]" not in plain and "b[nt][2], b[nt][3]" not in plain
+    assert len(src.splitlines()) == len(plain.splitlines())
+    with pytest.raises(ValueError, match="expected one"):
+        flash_probe.plain_tf32_source(plain)
+
+
 # -------------------------------------------------------------- the card
 
 @pytest.fixture
@@ -379,3 +390,96 @@ def test_bf16_forward_negative_scale_on_card(cuda_device, causal):
     err = float((out.float() - f_out).abs().max())
     plain_err = float((r_out.float() - f_out).abs().max())
     assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)
+
+
+# B9 on the card: (B, H, Tq, Tk, d, causal). d 32 / 40 / 64; a ragged T;
+# Tq != Tk both ways, causal and not; 8 x 12 heads at T 512 (768 q tiles,
+# more blocks than the card holds at once); one tile (the causal diagonal
+# alone); Tk = 0 (dq = 0)
+B9_CARD_SHAPES = [
+    (2, 3, 256, 256, 32, True),
+    (2, 3, 256, 256, 40, True),
+    (2, 3, 256, 256, 64, False),
+    (1, 2, 500, 500, 64, True),
+    (1, 2, 200, 512, 64, True),
+    (1, 2, 200, 512, 64, False),
+    (1, 2, 512, 200, 64, True),
+    (1, 2, 512, 200, 64, False),
+    (8, 12, 512, 512, 64, True),
+    (1, 2, 64, 64, 64, True),
+    (1, 2, 70, 0, 64, True),
+]
+B9_CARD_IDS = [f"{s[0]}x{s[1]}-{s[2]}x{s[3]}-d{s[4]}-"
+               f"{'causal' if s[5] else 'full'}" for s in B9_CARD_SHAPES]
+
+
+def _b9_on_card(q, k, v, do, causal, scale):
+    """dq and dk/dv launched twice from the plain forward's lse and
+    delta; asserts the two launches bit-equal and returns the first."""
+    out, lse = tfa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    delta = torch.sum(do.float() * out.float(), dim=-1)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    first = (tfa.flash_attention_dq(*args), *tfa.flash_attention_dkv(*args))
+    again = (tfa.flash_attention_dq(*args), *tfa.flash_attention_dkv(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    return first, lse, delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", B9_CARD_SHAPES, ids=B9_CARD_IDS)
+def test_backward_kernels_match_plain_and_repeat_on_card(cuda_device, dtype,
+                                                         shape):
+    """B9's dq and dk/dv (fp32 as 3xTF32 on mma.sync, bf16 on wgmma fed
+    by the cp.async ring) against their plain versions on the same lse
+    and delta: fp32 to 1e-4; bf16 against the fp32 plain result,
+    no worse than 1.5x the bf16 plain version's error + 1e-3. Two launches
+    are bit-equal."""
+    B, H, Tq, Tk, d, causal = shape
+    q, k, v, do = _card_case(cuda_device, dtype, B, H, Tq, Tk, d)
+    scale = 1.0 / math.sqrt(d)
+    got, lse, delta = _b9_on_card(q, k, v, do, causal, scale)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    plain = (tfa.flash_attention_dq_reference(*args),
+             *tfa.flash_attention_dkv_reference(*args))
+    if Tk == 0:
+        assert not got[0].any()
+    f32 = [t.float() for t in (q, k, v, do)]
+    exact = (tfa.flash_attention_dq_reference(*f32, *args[4:]),
+             *tfa.flash_attention_dkv_reference(*f32, *args[4:]))
+    for g, p, e in zip(got, plain, exact):
+        assert g.dtype == dtype and g.shape == p.shape
+        if not g.numel():
+            continue
+        if dtype == torch.float32:
+            assert float((g - p).abs().max()) <= 1e-4
+        else:
+            err = float((g.float() - e).abs().max())
+            plain_err = float((p.float() - e).abs().max())
+            assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, offset", [(33, 0), (64, 1)],
+                         ids=["d33", "unaligned"])
+def test_fp32_backward_scalar_staging_on_card(cuda_device, d, offset):
+    """The fp32 backward stages by scalar loads when a row is no whole
+    number of 16-byte pieces (d 33) or a tensor starts off a 16-byte
+    boundary: the same 1e-4 against the plain versions, and bit-equal
+    launches."""
+    q, k, v, do = _card_case(cuda_device, torch.float32, 1, 2, 130, 130, d)
+    if offset:
+        q, k, v, do = (torch.cat([torch.zeros(offset, device=cuda_device),
+                                  t.flatten()])[offset:].view(t.shape)
+                       for t in (q, k, v, do))
+        assert q.data_ptr() % 16
+    scale = 1.0 / math.sqrt(d)
+    got, lse, delta = _b9_on_card(q, k, v, do, True, scale)
+    args = (q, k, v, do, lse, delta, True, scale)
+    plain = (tfa.flash_attention_dq_reference(*args),
+             *tfa.flash_attention_dkv_reference(*args))
+    for g, p in zip(got, plain):
+        assert float((g - p).abs().max()) <= 1e-4
