@@ -173,6 +173,8 @@ import torch
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 H100_INT8_OPS = 1979e12         # dense int8 tensor-core TOP/s (and fp8)
+H100_TF32_FLOPS = 495e12        # dense tf32 tensor-core FLOP/s
+H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core FLOP/s
 ATTN_TOL = 1e-5                 # fp32, kernel vs plain: sum order only
 LOGIT_TOL = 1e-4                # through 12 layers of fp32 matmuls
 # quant_matmul, kernel vs plain, relative to max|out|: the int8 sums are
@@ -289,13 +291,15 @@ def _quant_pools(dev, dtype, N, H, B, d, seed=0):
 
 
 def _attention_bound(tables, slots, ctx, H, d, B, P, elem_bytes=4,
-                     scaled=False, n_index=2):
+                     scaled=False, n_index=2, s_per_flop=None):
     """Least bytes/ops of this call: each K/V position that some row
     needs is read once per slot however many rows read it
     (``elem_bytes`` per element), q/out once, the table entries needed
     once, ``n_index`` int32 arrays of one entry per row (row slots,
     contexts), and for a quantized pool the K and V scales of each
-    needed block once. ``slots``/``ctx`` are per row."""
+    needed block once. ``slots``/``ctx`` are per row. The products are
+    priced at the fp32 CUDA-core rate, or at ``s_per_flop`` seconds for
+    each fp32 FLOP (B5/B6: ``CHUNK_S_PER_FLOP``)."""
     keys, pages = [], []
     for t in range(len(ctx)):
         n = min(int(ctx[t]), P * B)
@@ -313,7 +317,9 @@ def _attention_bound(tables, slots, ctx, H, d, B, P, elem_bytes=4,
               + (n_blocks * H * 4 * 2 if scaled else 0))
     flops = 4.0 * np.minimum(ctx, P * B).sum() * H * d
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
+    if s_per_flop is None:
+        s_per_flop = 1.0 / H100_FP32_FLOPS
+    t_ops = flops * s_per_flop * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -405,6 +411,15 @@ CHUNK_LANES = {
 }
 # the whole-mode prefill shapes: (rung G, prefix-hit start, true length)
 CHUNK_SHAPES = ((384, 0, 370), (256, 128, 250))
+# the least tensor-core time of one fp32 FLOP of the chunk kernel at
+# fp32 parity: 3xTF32 for fp32 pools. bf16, int8 and e4m3 payloads have
+# at most 8 significant bits, exact in bf16, so there the cheaper of two
+# tf32 products (q or P split into tf32 hi + lo) and three bf16 products
+# (q or P split into three bf16 pieces, each product exact in fp32)
+_EXACT_PAYLOAD_S = min(2.0 / H100_TF32_FLOPS, 3.0 / H100_BF16_FLOPS)
+CHUNK_S_PER_FLOP = {"float32": 3.0 / H100_TF32_FLOPS,
+                    "bfloat16": _EXACT_PAYLOAD_S, "int8": _EXACT_PAYLOAD_S,
+                    "fp8-e4m3": _EXACT_PAYLOAD_S}
 
 
 def _pools_for(dev, dtype, N, H, B, d, seed=0):
@@ -513,8 +528,14 @@ def check_chunk_attention(pa, dev, flush, shape, dtype):
         err = float((got - want).abs().max())
         _check(err <= ATTN_TOL, f"{name} G={G} max_abs_err {err}")
         _check(not got[ctx == 0].any(), "padding rows must be exact zeros")
-        kernel_ms = _time_ms(lambda: pa.paged_attention_chunk(*args, **kw),
-                             flush)
+        again = pa.paged_attention_chunk(*args, **kw)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, again), f"{name} G={G}: two launches on "
+               "the same inputs differ")
+
+        def kernel():
+            return pa.paged_attention_chunk(*args, **kw)
+        kernel_ms = _time_ms(kernel, flush)
         plain_ms = _time_ms(
             lambda: pa.paged_attention_chunk_reference(*args, **kw), flush,
             reps=5)
@@ -524,23 +545,34 @@ def check_chunk_attention(pa, dev, flush, shape, dtype):
         mask = (torch.arange(P * B, device=dev)[None, None, :]
                 < ctx.clamp(min=1)[:, :, None])[:, None]
         qh = q.permute(0, 2, 1, 3)                     # [1, H, G, d]
-        library_ms = _time_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask),
-                              flush)
-        bound = _attention_bound(tables_np, np.zeros(G, np.int64),
-                                 ctx_np[0], H, d, B, P,
-                                 elem_bytes=k.element_size(),
-                                 scaled=ks is not None, n_index=1)
+
+        def library():
+            return sdpa(qh, kd, vd, attn_mask=mask)
+        library_ms = _time_ms(library, flush)
+        # the same two with the card's queue kept ahead of the host, so
+        # the ctypes wrapper's host time stays out of the window
+        device_ms = _time_ms(kernel, flush, queue_ahead=True)
+        library_device_ms = _time_ms(library, flush, queue_ahead=True)
+        bkw = dict(elem_bytes=k.element_size(), scaled=ks is not None,
+                   n_index=1)
+        rows = (tables_np, np.zeros(G, np.int64), ctx_np[0], H, d, B, P)
+        bound = _attention_bound(*rows, s_per_flop=CHUNK_S_PER_FLOP[dtype],
+                                 **bkw)
         recs.append(_lane_record(
             name, replaces,
             "paddle_tpu_torch/kernels/csrc/paged_attention_chunk.cu", err,
             kernel_ms, plain_ms, library_ms, bound,
-            {"shape": dict(S=1, G=G, start=start, true_len=true_len, H=H,
+            {"device_ms": device_ms, "library_device_ms": library_device_ms,
+             "two_launches_bit_equal": True,
+             "bound_cuda_core_ms": _attention_bound(*rows, **bkw)[0],
+             "shape": dict(S=1, G=G, start=start, true_len=true_len, H=H,
                            d=d, B=B, P=P, N=N, dtype=dtype)}))
     rec = recs[0]
     rec["max_abs_err"] = max(r["max_abs_err"] for r in recs)
     rec["at_prefix_hit"] = {k_: recs[1][k_] for k_ in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "shape")}
+        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+        "bound_by", "bound_cuda_core_ms", "library_ms",
+        "library_device_ms", "two_launches_bit_equal", "shape")}
     return rec
 
 
@@ -979,7 +1011,8 @@ def profile_whole(dm, make_pools, cfg, params, kv, slots_n, n_steps=8):
         "decode_step": dict({"slots": slots_n}, **_profile(
             [lambda a=a: decode(*a) for a in dec])),
         "prefill_384": dict({"rung": 384, "true_len": 370}, **_profile(
-            [lambda a=a: prefill(*a) for a in pre]))}}
+            [lambda a=a: prefill(*a) for a in pre],
+            named=("paged_attention_chunk",)))}}
 
 
 def _requests(cfg, n_requests=48, seed=0):
@@ -1105,8 +1138,6 @@ def solo_tokens(DecodeEngine, cfg, params, indices, engine_kw,
 
 # ---------------------------------------------------------------- training
 
-H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core FLOP/s
-H100_TF32_FLOPS = 495e12        # dense tf32 tensor-core FLOP/s
 FLASH_FWD_TOL = 1e-5            # fp32 out and lse, kernel vs plain
 FLASH_GRAD_TOL = 1e-4           # fp32 dq/dk/dv: sums over up to 512 rows
 # bf16 lanes: the kernel's error against the fp32 plain result, at most

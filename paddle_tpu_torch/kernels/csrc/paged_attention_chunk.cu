@@ -6,44 +6,81 @@
 // Replaces paddle_tpu/kernels/paged_attention.py:_chunk_kernel, launched by
 // _paged_chunk_call (B5), and _chunk_kernel_quant with _dequant_kv, launched
 // by _paged_chunk_call_quant (B6). q is [S, G, H, d]; row g of slot s sees
-// the first ctx_lens[s, g] keys of tables[s] (a chunk written at positions
-// start..start+G-1 has ctx = start+g+1, so the causal intra-chunk mask is
-// carried by the lengths); ctx 0 (a rung padding row, a row past the write
-// limit, an inactive slot) writes an exact zero row and reads nothing. A
-// quantized lane dequantizes each key and value as payload * scale, with the
-// scale the block's writer stored, before the unchanged fp32 fold.
+// the first min(ctx_lens[s, g], P*B) keys of tables[s] (a chunk written at
+// positions start..start+G-1 has ctx = start+g+1, so the causal intra-chunk
+// mask is carried by the lengths); ctx 0 (a rung padding row, a row past
+// the write limit, an inactive slot) writes an exact zero row and reads
+// nothing. A quantized lane's key and value are payload * the (block, head)
+// scale the block's writer stored. q and out are fp32; every score,
+// softmax statistic and sum is fp32; -1e30 is the finite stand-in for -inf.
 //
-// What bounds it. The TPU kernel walks a (slot, page) grid in order and
-// keeps G*H*d fp32 accumulators in VMEM (1.2 MB at G=384, H=12, d=64), far
-// past the 227 KB of shared memory a Hopper block may use; and one block per
-// (slot, head) would fill 12 of 132 SMs. One block per row, as the mixed
-// kernel has, would re-read the slot's K/V once per row: sum(ctx)*H*d*8
-// bytes, about 454 MB of L2 traffic for one rung-384 fp32 prefill layer.
-// The least time for that layer is set by arithmetic, not bytes: 4*sum(ctx)
-// *H*d = 227 MFLOP on the fp32 CUDA cores (3.4 us at 67 TFLOP/s) against
-// about 1.4 us for the bytes that must move. So the design stages each key
-// once per tile of rows and spends its instructions on the dot products:
-//   - One CUDA block per (slot, tile of kTileRows rows, head): 24 x 12 = 288
-//     blocks at G = 384. Each of the kWarps warps owns kRowsPerWarp rows of
-//     the tile, with each row's running max, normaliser and accumulator in
-//     registers (lanes over head_dim).
-//   - The tile walks its keys in chunks of 32 positions, up to the largest
-//     context among its rows (never past it: no table entry, K/V or scale
-//     beyond is read). The block stages a chunk's K and V in shared memory
-//     once, dequantized to fp32 (coalesced loads along head_dim, the block
-//     id read through the table once per key), and every row of the tile
-//     folds it from there: the tile reads its slot's K/V once, not once per
-//     row, so L2 traffic falls by the tile height.
-//   - A row scores a chunk with lanes over keys (lane j does the whole
-//     q . k_j dot product from shared memory, float4 loads, K rows padded so
-//     the eight lanes of a quarter-warp hit distinct banks), takes one warp
-//     max and one warp sum for the chunk's online-softmax update, then
-//     accumulates P.V with lanes over head_dim. No shuffle per key, no
-//     scratch in device memory, no atomics; a row's result depends only on
-//     its own context and the pool, never on the other rows of the chunk.
-// Left for later work: double-buffered cp.async/TMA staging of the next
-// chunk, mma.sync/wgmma for the scores and P.V, and a split over keys for
-// tiles whose rows see long contexts.
+// What bounds it. A rung-384 prefill layer (370 real rows, H 12, d 64) is
+// 4 * sum(ctx) * H * d = 211 MFLOP over 4.6 MB (fp32 pools; 1.0 MB bf16,
+// 0.9 MB int8/fp8). On the fp32 CUDA cores (67 TFLOP/s) that is 3.1 us of
+// arithmetic. Run on the tensor cores at fp32 parity (three tf32 products
+// for each fp32 product, 495 TFLOP/s) it is 1.3 us, under the 1.4 us the
+// fp32 bytes take at 3.35 TB/s: bytes bound the call. A 1- or 2-byte
+// payload is exact in bf16, so its least is three bf16 products (q or P in
+// three bf16 pieces, 989 TFLOP/s), 0.64 us, under its 0.9-1.0 us of bytes;
+// after a prefix hit (195 MFLOP over fewer bytes) the 1-byte lanes are
+// still bound by bytes, the fp32 lane by its products. The design:
+//   - Products on the tensor cores (mma.sync m16n8k8 tf32), S = Q K^T and
+//     O += P V, at fp32 parity. An fp32 operand x is split into tf32 hi +
+//     lo (hi by an integer add and mask, lo = x - hi exactly) and a product
+//     is a_lo b_hi + a_hi b_lo + a_hi b_hi (3xTF32). bf16, int8 and e4m3
+//     payloads have at most 8 significant bits, exact in tf32, so their K
+//     and V have no lo half and those lanes run two products: S = q_hi k +
+//     q_lo k, O += (p vs)_hi v + (p vs)_lo v. The scale of a quantized lane
+//     is applied outside the product: to S's columns (k_scale, one per key)
+//     and to P's columns before the split (v_scale); the plain version
+//     scales each element first, so the two differ in fp32 rounding order
+//     only. Every 8-term k-step of either product goes into a fresh
+//     accumulator that is added to the running sum in fp32 (the tensor
+//     core's own adds truncate). Each product runs over 4 (S) or 8 (P V)
+//     column tiles before the next, so that many independent chains are in
+//     flight. P stays in registers: S's accumulator layout is the A
+//     fragment of P V as it lies, the key order of the k-step permuted to
+//     match; q is split once a block, in the same permuted dim order as the
+//     K fragment loads, its loads issued first so that they overlap the
+//     context -> block table -> K/V chain of the first tile.
+//   - Staging: K/V tiles of 32 keys by cp.async (16-byte copies where the
+//     row and the pool allow, else 8 or 4 bytes, byte loads below that)
+//     into a two-stage ring, so the next tile's copy runs under this tile's
+//     products. The payload keeps its own width in shared memory (an int8
+//     64-d tile is 2 KB a tensor) and is widened to tf32 in the fragment
+//     load, 16 bytes a lane; K rows are padded to 64 mod 128 bytes and V
+//     rows to 16 mod 64, which makes every fragment load conflict-free.
+//     A thread stages one key row: it reads that row's block id once,
+//     prefetched an iteration ahead, and copies the row's K, V and scales.
+//     Rows past the tile's largest context are zero-filled through the
+//     src-size operand from a valid base address: no table entry, K/V row
+//     or scale past a row's pages is read. Dims past d are zero-filled.
+//   - Reductions: a row lives in the four lanes of a quad, so its tile max
+//     is two shuffles; its sum stays a per-lane share, rescaled with the
+//     accumulators and reduced over the quad once at the end; each
+//     exponential is one ex2 of an explicitly rounded product.
+//   - Grid and balance: one 128-thread block per (slot, tile of 32 rows,
+//     head), the heaviest row tiles launched first. Its four warps are two
+//     16-row warps times two key groups: key tile kt goes to group kt % 2,
+//     so the longest row's chain is half its keys; the groups' softmax
+//     states are merged in shared memory in group order. At G = 384 that
+//     is 144 blocks, up to two an SM. Measured on an H100 (PERF.md), this
+//     beat 32-row blocks without a key split by 1.35-1.5x, 64-row blocks
+//     of two key groups by 1.26-1.39x and of one by 1.45-1.6x; 16-row
+//     blocks of four key groups ran 1.3x slower in fp32 (154 KB of stages:
+//     one block an SM) and within 3 % on the other lanes.
+//   - Masks and row independence: a warp masks only the tiles that reach
+//     past the smallest context of its rows, and skips the tiles at or past
+//     the largest. A fully masked or skipped tile leaves a row's state as
+//     it was, the split points are fixed key positions (tile kt = keys 32kt
+//     .. 32kt + 31), the merge order is fixed, and nothing is atomic. Each
+//     fp32 operation on a row's path is an explicit round-to-nearest
+//     intrinsic (__fmul_rn, __fadd_rn), so none is contracted into an FMA:
+//     the compiler contracts the two rows a lane holds (g and g + 8)
+//     differently, which made a row's last bit depend on its place in the
+//     tile. So a row's output depends only on its own context and the pool
+//     (a row launched alone gives the same bits as inside a chunk), and
+//     two launches give the same bits.
 //
 // Built by paddle_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -55,20 +92,204 @@ namespace {
 
 using paged::kMaxHeadDim;
 using paged::kNegInf;
-using paged::kPerLane;
-using paged::kThreads;
-using paged::kWarps;
-using paged::to_float;
-using paged::warp_max;
-using paged::warp_sum;
 
-constexpr int kChunkKeys = 32;                    // one key per lane
-constexpr int kTileRows = 16;                     // rows per block
-constexpr int kRowsPerWarp = kTileRows / kWarps;  // 2
-constexpr int kKStride = kMaxHeadDim + 4;         // padded K rows (floats)
+constexpr int kKeys = 32;                      // keys per tile
+constexpr int kRowWarps = 2;                   // 16-row warps per block
+constexpr int kKeyWarps = 2;                   // key groups per block
+constexpr int kRows = 16 * kRowWarps;          // rows per block
+constexpr int kThreadsC = 32 * kRowWarps * kKeyWarps;
+// e^x as 2^(x log2 e): the product rounds to fp32 first, so a p = e^(s - m)
+// near 1 is off by ~2^-22 (ex2's own error) and a small one by ~|s - m|
+// 2^-24 of itself
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T, bool kScaled>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// `bytes` (16, 8 or 4) global -> shared without the registers; zeros (src
+// unread) when !ok
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int bytes, bool ok) {
+  const int n = ok ? bytes : 0;
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(n)
+                 : "memory");
+  } else if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(n)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// x = hi + lo: hi is x rounded to its top 11 significant bits (tf32) by an
+// integer add and mask, lo = x - hi exactly, of which the tensor core reads
+// the top 11 bits: x to ~2^-21
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// d += a * b, m16n8k8, tf32 in, fp32 accumulate. Fragments (lane 4g + t):
+// a0 = A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4], a3 = A[g + 8][t + 4];
+// b0 = B[t][g], b1 = B[t + 4][g]; d0, d1 = D[g][2t, 2t + 1], d2, d3 =
+// D[g + 8][2t, 2t + 1]. Not volatile: a product has no side effect, so the
+// compiler may interleave independent ones.
+__device__ __forceinline__ void mma(float d[4], const uint32_t a[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// f[c] += A B[c] for the N column tiles c of one k-step, at fp32 parity:
+// three products for an fp32 B (split here: A_lo B_hi, A_hi B_lo, A_hi
+// B_hi), two for a B exact in tf32 (A_lo B, A_hi B). Each product runs
+// over all N tiles before the next, so N independent chains are in flight.
+template <bool kExact, int N>
+__device__ __forceinline__ void mma_round(float (*f)[4],
+                                          const uint32_t ahi[4],
+                                          const uint32_t alo[4],
+                                          const uint32_t (*b)[2]) {
+  if constexpr (kExact) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) mma(f[c], alo, b[c][0], b[c][1]);
+#pragma unroll
+    for (int c = 0; c < N; ++c) mma(f[c], ahi, b[c][0], b[c][1]);
+  } else {
+    uint32_t bh[N][2], bl[N][2];
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      split(__uint_as_float(b[c][0]), bh[c][0], bl[c][0]);
+      split(__uint_as_float(b[c][1]), bh[c][1], bl[c][1]);
+    }
+#pragma unroll
+    for (int c = 0; c < N; ++c) mma(f[c], alo, bh[c][0], bh[c][1]);
+#pragma unroll
+    for (int c = 0; c < N; ++c) mma(f[c], ahi, bl[c][0], bl[c][1]);
+#pragma unroll
+    for (int c = 0; c < N; ++c) mma(f[c], ahi, bh[c][0], bh[c][1]);
+  }
+}
+
+__device__ __forceinline__ uint32_t f16_to_f32_bits(uint32_t h) {
+  return __float_as_uint(
+      __half2float(__ushort_as_half(static_cast<unsigned short>(h))));
+}
+
+// Element i of a payload run held in 32-bit words w, as the fp32 (or,
+// kExact, tf32-exact) bit pattern the tensor core reads. i is a constant
+// once the loops are unrolled.
+template <typename T>
+struct Payload;
+template <>
+struct Payload<float> {
+  static constexpr bool kExact = false;  // split into hi + lo at the mma
+  static __device__ __forceinline__ uint32_t pick(const uint32_t* w, int i) {
+    return w[i];
+  }
+};
+template <>
+struct Payload<__nv_bfloat16> {
+  static constexpr bool kExact = true;
+  static __device__ __forceinline__ uint32_t pick(const uint32_t* w, int i) {
+    return i & 1 ? w[i >> 1] & 0xffff0000u : w[i >> 1] << 16;
+  }
+};
+template <>
+struct Payload<int8_t> {
+  static constexpr bool kExact = true;
+  // byte b as 2^23 + (b + 128) in the mantissa, less 2^23 + 128: exact
+  static __device__ __forceinline__ uint32_t pick(const uint32_t* w, int i) {
+    return __float_as_uint(
+        __uint_as_float(__byte_perm(w[i >> 2] ^ 0x80808080u, 0x4b000000u,
+                                    0x7440 + (i & 3))) -
+        8388736.f);
+  }
+};
+template <>
+struct Payload<__nv_fp8_e4m3> {
+  static constexpr bool kExact = true;
+  // two e4m3 bytes to f16x2 in one cvt (exact; the pair's other pick reuses
+  // it), the half to fp32
+  static __device__ __forceinline__ uint32_t pick(const uint32_t* w, int i) {
+    uint32_t h2;
+    asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n"
+        : "=r"(h2)
+        : "h"(static_cast<unsigned short>(w[i >> 2] >>
+                                          (16 * ((i >> 1) & 1)))));
+    return f16_to_f32_bits(i & 1 ? h2 >> 16 : h2 & 0xffffu);
+  }
+};
+
+template <int kWords>
+__device__ __forceinline__ void lds(const char* p, uint32_t* w) {
+  if constexpr (kWords == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  }
+}
+
+// The shapes of one lane (payload T, kD = 64 or 128 head dims, zero-padded
+// past d) in shared memory and in the fragments.
+template <typename T, bool kScaled, int kD>
+struct Cfg {
+  static constexpr int kElem = sizeof(T);
+  static constexpr int kRowBytes = kD * kElem;
+  // K rows at 64 mod 128 bytes: a quarter-warp's two rows of 16-byte
+  // fragment loads fill the 32 banks; V rows at 16 mod 64: the four rows
+  // 2t of a quarter-warp (or a half-warp's 8-byte loads) do
+  static constexpr int kPK =
+      kRowBytes % 128 == 64 ? kRowBytes : kRowBytes + 64;
+  static constexpr int kPV = kRowBytes + 16;
+  static constexpr int kTileBytes =
+      kKeys * (kPK + kPV) + (kScaled ? 2 * kKeys * 4 : 0);
+  // S = Q K^T: a lane loads 16 bytes of a K row (kEPC dims, kEPC / 2
+  // k-steps); dims (4c + t) * kEPC + 2s and + 1 are k-step c * kKSG + s's
+  // k indices t and t + 4
+  static constexpr int kEPC = 16 / kElem;
+  static constexpr int kKSG = kEPC / 2;
+  static constexpr int kKS = kD / 8;             // k-steps over d
+  static constexpr int kGroups = kKS / kKSG;
+  // O += P V: lane g loads kU bytes (kEPU dims) of units g + 8j, j < kNU,
+  // of each of its two V rows; n-tile nd = j * kEPU + i of O holds dims
+  // (n + 8j) * kEPU + i at its column n
+  static constexpr int kU = kRowBytes / 8 < 16 ? kRowBytes / 8 : 16;
+  static constexpr int kEPU = kU / kElem;
+  static constexpr int kNU = kRowBytes / (8 * kU);
+  static constexpr int kNT = kD / 8;             // O's n-tiles
+  static constexpr int kQBytes = kRowWarps * kKS * 32 * 16 * 2;
+  static constexpr int kSmem = 2 * kKeyWarps * kTileBytes + kQBytes;
+  // the key groups' merge, in the ring once it is drained
+  static_assert((kKeyWarps - 1) * kRowWarps * (4 * kNT + 4) * 32 * 4 <=
+                    2 * kKeyWarps * kTileBytes,
+                "merge scratch must fit in the ring");
+};
+
+// One block per (slot s, tile of kRows rows, head h), the heaviest tiles
+// (the last rows of a causal chunk) first. Warp w: rows 16 (w % kRowWarps)
+// .. + 15 of the tile, key group w / kRowWarps.
+template <typename T, bool kScaled, int kD>
+__global__ void __launch_bounds__(kThreadsC, 2)
 paged_attention_chunk_kernel(const float* __restrict__ q,
                              const T* __restrict__ k_pool,
                              const T* __restrict__ v_pool,
@@ -76,132 +297,437 @@ paged_attention_chunk_kernel(const float* __restrict__ q,
                              const float* __restrict__ v_scale,
                              const int* __restrict__ tables,
                              const int* __restrict__ ctx_lens,
-                             float* __restrict__ out, int G, int H, int d,
-                             int B, int P, int n_tiles, float sm_scale) {
-  __shared__ __align__(16) float s_k[kChunkKeys][kKStride];
-  __shared__ __align__(16) float s_v[kChunkKeys][kMaxHeadDim];
-  __shared__ __align__(16) float s_q[kTileRows][kMaxHeadDim];
-  __shared__ float s_p[kWarps][kChunkKeys];
-  __shared__ int s_ctx[kTileRows];
+                             float* __restrict__ out, int S, int G, int H,
+                             int d, int B, int P, int n_row_tiles,
+                             int copy_bytes, float sm_scale) {
+  using C = Cfg<T, kScaled, kD>;
+  using Pl = Payload<T>;
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int s_ctx[kRows];
 
-  const int s = blockIdx.x / n_tiles;
-  const int g0 = (blockIdx.x % n_tiles) * kTileRows;
-  const int h = blockIdx.y;
-  const int lane = threadIdx.x & 31;
+  const int n_sh = S * H;
+  const int tile = n_row_tiles - 1 - static_cast<int>(blockIdx.x) / n_sh;
+  const int s = (static_cast<int>(blockIdx.x) % n_sh) / H;
+  const int h = static_cast<int>(blockIdx.x) % H;
+  const int g0 = tile * kRows;
   const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rw = warp % kRowWarps;
+  const int kg = warp / kRowWarps;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
 
-  if (threadIdx.x < kTileRows) {
+  // q's A fragments, in the K loads' dim order: loaded now, split into hi
+  // and lo once the first tile's copies are under way
+  constexpr int kQPer = kRowWarps * C::kKS * 32 / kThreadsC;
+  float qv[kQPer][4];
+#pragma unroll
+  for (int u = 0; u < kQPer; ++u) {
+    const int i = threadIdx.x + u * kThreadsC;
+    const int ln = i & 31;
+    const int ks = (i >> 5) % C::kKS;
+    const int r0 = g0 + 16 * (i / (32 * C::kKS)) + (ln >> 2);
+    const int dim = (4 * (ks / C::kKSG) + (ln & 3)) * C::kEPC +
+                    2 * (ks % C::kKSG);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * (e & 1);
+      const int c = dim + (e >> 1);
+      qv[u][e] = r < G && c < d
+          ? q[((static_cast<size_t>(s) * G + r) * H + h) * d + c] : 0.f;
+    }
+  }
+  if (threadIdx.x < kRows) {
     const int g = g0 + threadIdx.x;
     const int c = g < G ? ctx_lens[static_cast<size_t>(s) * G + g] : 0;
     s_ctx[threadIdx.x] = max(0, min(c, P * B));  // never past P pages
   }
-  for (int i = threadIdx.x; i < kTileRows * d; i += kThreads) {
-    const int r = i / d;
-    const int e = i - r * d;
-    const int g = g0 + r;
-    s_q[r][e] = g < G
-        ? q[((static_cast<size_t>(s) * G + g) * H + h) * d + e] : 0.f;
-  }
   __syncthreads();
+
   int n_keys = 0;  // the tile's largest context
 #pragma unroll
-  for (int r = 0; r < kTileRows; ++r) n_keys = max(n_keys, s_ctx[r]);
+  for (int r = 0; r < kRows; ++r) n_keys = max(n_keys, s_ctx[r]);
+  const int ctx[2] = {s_ctx[16 * rw + gq], s_ctx[16 * rw + gq + 8]};
+  // this warp's rows: keys past wmax are skipped, tiles past wmin masked
+  const int wmax = __reduce_max_sync(0xffffffffu, max(ctx[0], ctx[1]));
+  const int wmin = __reduce_min_sync(0xffffffffu, min(ctx[0], ctx[1]));
+  const int n_kt = (n_keys + kKeys - 1) / kKeys;
+  const int n_iter = (n_kt + kKeyWarps - 1) / kKeyWarps;
 
-  // this warp's rows: r = warp * kRowsPerWarp + rr
-  int ctx[kRowsPerWarp];
-  float m[kRowsPerWarp];
-  float l[kRowsPerWarp];
-  float acc[kRowsPerWarp][kPerLane];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    ctx[rr] = s_ctx[warp * kRowsPerWarp + rr];
-    m[rr] = kNegInf;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int x = 0; x < kPerLane; ++x) acc[rr][x] = 0.f;
-  }
-
+  // staging: thread -> key row sj of group skg's tile, units sub, sub +
+  // kRowWarps, ... of its K and V rows
+  const int srow = threadIdx.x / kRowWarps;
+  const int sub = threadIdx.x % kRowWarps;
+  const int skg = srow / kKeys;
+  const int sj = srow % kKeys;
   const int* table = tables + static_cast<size_t>(s) * P;
-  const size_t head_stride = static_cast<size_t>(B) * d;
-  const size_t block_stride = static_cast<size_t>(H) * head_stride;
-  for (int c0 = 0; c0 < n_keys; c0 += kChunkKeys) {
-    // stage keys c0 .. c0+31, dequantized; zeros past the tile's context
-    for (int i = threadIdx.x; i < kChunkKeys * d; i += kThreads) {
-      const int j = i / d;
-      const int e = i - j * d;
-      const int pos = c0 + j;
-      float kf = 0.f;
-      float vf = 0.f;
-      if (pos < n_keys) {
-        const int blk = table[pos / B];
-        const size_t off = static_cast<size_t>(blk) * block_stride +
-                           h * head_stride +
-                           static_cast<size_t>(pos % B) * d + e;
-        kf = to_float(k_pool[off]);
-        vf = to_float(v_pool[off]);
-        if (kScaled) {
-          kf *= k_scale[static_cast<size_t>(blk) * H + h];
-          vf *= v_scale[static_cast<size_t>(blk) * H + h];
-        }
+  auto key_of = [&](int it) { return (it * kKeyWarps + skg) * kKeys + sj; };
+  auto block_of = [&](int it) {
+    const int key = key_of(it);
+    return key < n_keys ? table[key / B] : -1;
+  };
+  auto stage = [&](int it, int blk) {
+    char* base = smem + ((it & 1) * kKeyWarps + skg) * C::kTileBytes;
+    const bool ok = blk >= 0;
+    const size_t off =
+        ok ? ((static_cast<size_t>(blk) * H + h) * B + key_of(it) % B) * d
+           : 0;
+    const char* ksrc = reinterpret_cast<const char*>(k_pool + off);
+    const char* vsrc = reinterpret_cast<const char*>(v_pool + off);
+    char* kdst = base + sj * C::kPK;
+    char* vdst = base + kKeys * C::kPK + sj * C::kPV;
+    const int real = d * C::kElem;
+    if (copy_bytes > 0) {
+      for (int u = sub * copy_bytes; u < C::kRowBytes;
+           u += kRowWarps * copy_bytes) {
+        const bool in = ok && u < real;
+        cp_async(smem_u32(kdst + u),
+                 in ? ksrc + u : reinterpret_cast<const char*>(k_pool),
+                 copy_bytes, in);
+        cp_async(smem_u32(vdst + u),
+                 in ? vsrc + u : reinterpret_cast<const char*>(v_pool),
+                 copy_bytes, in);
       }
-      s_k[j][e] = kf;
-      s_v[j][e] = vf;
+    } else {  // a pool off a 4-byte boundary: byte loads
+      for (int u = sub; u < C::kRowBytes; u += kRowWarps) {
+        const bool in = ok && u < real;
+        kdst[u] = in ? ksrc[u] : 0;
+        vdst[u] = in ? vsrc[u] : 0;
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const int nj = min(kChunkKeys, ctx[rr] - c0);  // warp-uniform
-      if (nj <= 0) continue;
-      float sc = kNegInf;
-      if (lane < nj) {
-        const float* kr = s_k[lane];
-        const float* qr = s_q[r];
-        float dot = 0.f;
-        for (int e = 0; e < d; e += 4) {
-          const float4 kk = *reinterpret_cast<const float4*>(kr + e);
-          const float4 qq = *reinterpret_cast<const float4*>(qr + e);
-          dot += qq.x * kk.x;
-          dot += qq.y * kk.y;
-          dot += qq.z * kk.z;
-          dot += qq.w * kk.w;
-        }
-        sc = dot * sm_scale;
-      }
-      const float m_new = fmaxf(m[rr], warp_max(sc));
-      const float p = lane < nj ? expf(sc - m_new) : 0.f;
-      const float alpha = expf(m[rr] - m_new);
-      l[rr] = l[rr] * alpha + warp_sum(p);
-      m[rr] = m_new;
-      s_p[warp][lane] = p;
-      __syncwarp();
-#pragma unroll
-      for (int x = 0; x < kPerLane; ++x) acc[rr][x] *= alpha;
-      for (int j = 0; j < nj; ++j) {
-        const float pj = s_p[warp][j];
-#pragma unroll
-        for (int x = 0; x < kPerLane; ++x) {
-          const int e = lane + 32 * x;
-          if (e < d) acc[rr][x] += pj * s_v[j][e];
-        }
-      }
-      __syncwarp();
+    if (kScaled && sub == 0) {
+      float* sc = reinterpret_cast<float*>(base + kKeys * (C::kPK + C::kPV));
+      const size_t at = ok ? static_cast<size_t>(blk) * H + h : 0;
+      cp_async(smem_u32(sc + sj), k_scale + at, 4, ok);
+      cp_async(smem_u32(sc + kKeys + sj), v_scale + at, 4, ok);
     }
-    __syncthreads();
-  }
+  };
 
+  float o[C::kNT][4];
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int g = g0 + warp * kRowsPerWarp + rr;
-    if (g >= G) continue;
-    float* o = out + ((static_cast<size_t>(s) * G + g) * H + h) * d;
-    const float safe_l = l[rr] == 0.f ? 1.f : l[rr];  // ctx-0 row -> zeros
+  for (int nd = 0; nd < C::kNT; ++nd) {
 #pragma unroll
-    for (int x = 0; x < kPerLane; ++x) {
-      const int e = lane + 32 * x;
-      if (e < d) o[e] = ctx[rr] > 0 ? acc[rr][x] / safe_l : 0.f;
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+  }
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+
+  int blk_next = -1;
+  if (n_iter > 0) stage(0, block_of(0));
+  cp_commit();
+  if (n_iter > 1) blk_next = block_of(1);
+  uint4* qf_hi = reinterpret_cast<uint4*>(smem + 2 * kKeyWarps *
+                                          C::kTileBytes);
+  uint4* qf_lo = qf_hi + kRowWarps * C::kKS * 32;
+#pragma unroll
+  for (int u = 0; u < kQPer; ++u) {  // read after the loop's first barrier
+    uint4 hi, lo;
+    split(qv[u][0], hi.x, lo.x);
+    split(qv[u][1], hi.y, lo.y);
+    split(qv[u][2], hi.z, lo.z);
+    split(qv[u][3], hi.w, lo.w);
+    qf_hi[threadIdx.x + u * kThreadsC] = hi;
+    qf_lo[threadIdx.x + u * kThreadsC] = lo;
+  }
+  for (int it = 0; it < n_iter; ++it) {
+    cp_wait_all();
+    __syncthreads();  // tiles of `it` landed; every warp is done with it-1
+    if (it + 1 < n_iter) stage(it + 1, blk_next);
+    cp_commit();
+    if (it + 2 < n_iter) blk_next = block_of(it + 2);
+    const int k0 = (it * kKeyWarps + kg) * kKeys;
+    if (k0 >= wmax) continue;  // no row of this warp sees these keys
+    const char* base = smem + ((it & 1) * kKeyWarps + kg) * C::kTileBytes;
+    const char* sk = base;
+    const char* sv = base + kKeys * C::kPK;
+    const float* ksc =
+        reinterpret_cast<const float*>(base + kKeys * (C::kPK + C::kPV));
+    const float* vsc = ksc + kKeys;
+
+    // S = Q K^T, 16 rows x 32 keys: sc[nt] = keys 8nt .. 8nt + 7
+    float sc[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < C::kGroups; ++c) {
+      uint32_t raw[4][4];  // K rows 8nt + gq, chunk 4c + tq
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        lds<4>(sk + (8 * nt + gq) * C::kPK + 16 * (4 * c + tq), raw[nt]);
+      }
+#pragma unroll
+      for (int j = 0; j < C::kKSG; j += 2) {  // two k-steps a round
+        uint32_t qh[2][4], ql[2][4], b[2][4][2];
+        float f[2][4][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int at = (rw * C::kKS + c * C::kKSG + j + u) * 32 + lane;
+          const uint4 a = qf_hi[at];
+          const uint4 z = qf_lo[at];
+          qh[u][0] = a.x; qh[u][1] = a.y; qh[u][2] = a.z; qh[u][3] = a.w;
+          ql[u][0] = z.x; ql[u][1] = z.y; ql[u][2] = z.z; ql[u][3] = z.w;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            b[u][nt][0] = Pl::pick(raw[nt], 2 * (j + u));
+            b[u][nt][1] = Pl::pick(raw[nt], 2 * (j + u) + 1);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) f[u][nt][e] = 0.f;
+          }
+          mma_round<Pl::kExact, 4>(f[u], qh[u], ql[u], b[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sc[nt][e] = __fadd_rn(sc[nt][e], f[u][nt][e]);
+            }
+          }
+        }
+      }
+    }
+
+    // online softmax: rows gq (r = 0) and gq + 8 (r = 1), keys k0 + 8nt +
+    // 2tq + e in sc[nt][2r + e]
+    const bool edge = k0 + kKeys > wmin;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * nt + 2 * tq + e;
+          float x = sc[nt][2 * r + e];
+          if (kScaled) x = __fmul_rn(x, ksc[j]);
+          x = __fmul_rn(x, sm_scale);
+          if (edge && k0 + j >= ctx[r]) x = kNegInf;
+          sc[nt][2 * r + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = exp2f(__fmul_rn(__fsub_rn(m[r], m_new), kLog2e));
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * nt + 2 * tq + e;
+          const float x = __fmul_rn(__fsub_rn(sc[nt][2 * r + e], m_new),
+                                    kLog2e);
+          const float p = edge && k0 + j >= ctx[r] ? 0.f : exp2f(x);
+          sc[nt][2 * r + e] = p;
+          sum = __fadd_rn(sum, p);
+        }
+      }
+      l[r] = __fadd_rn(__fmul_rn(l[r], alpha), sum);
+#pragma unroll
+      for (int nd = 0; nd < C::kNT; ++nd) {
+        o[nd][2 * r] = __fmul_rn(o[nd][2 * r], alpha);
+        o[nd][2 * r + 1] = __fmul_rn(o[nd][2 * r + 1], alpha);
+      }
+    }
+
+    // O += P V: k-step nt takes keys 8nt + 2t (k index t) and 8nt + 2t + 1
+    // (t + 4), the two columns a lane holds of S's n-tile nt
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float p[4] = {sc[nt][0], sc[nt][2], sc[nt][1], sc[nt][3]};
+      if (kScaled) {
+        const float2 vs =
+            *reinterpret_cast<const float2*>(vsc + 8 * nt + 2 * tq);
+        p[0] = __fmul_rn(p[0], vs.x);
+        p[1] = __fmul_rn(p[1], vs.x);
+        p[2] = __fmul_rn(p[2], vs.y);
+        p[3] = __fmul_rn(p[3], vs.y);
+      }
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(p[e], ph[e], pl[e]);
+      uint32_t w[2][C::kNU][C::kU / 4];  // V rows 8nt + 2tq and + 1
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int j = 0; j < C::kNU; ++j) {
+          lds<C::kU / 4>(sv + (8 * nt + 2 * tq + x) * C::kPV +
+                             C::kU * (gq + 8 * j),
+                         w[x][j]);
+        }
+      }
+#pragma unroll
+      for (int rd = 0; rd < C::kNT; rd += 8) {  // eight n-tiles a round
+        uint32_t b[8][2];
+        float f[8][4];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int nd = rd + u;
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            b[u][x] = Pl::pick(w[x][nd / C::kEPU], nd % C::kEPU);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) f[u][e] = 0.f;
+        }
+        mma_round<Pl::kExact, 8>(f, ph, pl, b);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            o[rd + u][e] = __fadd_rn(o[rd + u][e], f[u][e]);
+          }
+        }
+      }
     }
   }
+  cp_wait_all();
+  __syncthreads();  // the ring is free: it holds the merge
+
+  // each row's sum over its quad (every lane of the quad gets the same bits)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 2));
+  }
+  if (kKeyWarps > 1) {
+    // [group - 1][row warp][value][lane]: m, l, then O
+    constexpr int kVals = 4 + 4 * C::kNT;
+    float* mrg = reinterpret_cast<float*>(smem);
+    if (kg > 0) {
+      float* p = mrg + ((kg - 1) * kRowWarps + rw) * kVals * 32 + lane;
+      p[0] = m[0];
+      p[32] = m[1];
+      p[64] = l[0];
+      p[96] = l[1];
+#pragma unroll
+      for (int nd = 0; nd < C::kNT; ++nd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[(4 + 4 * nd + e) * 32] = o[nd][e];
+      }
+    }
+    __syncthreads();
+    if (kg == 0) {
+      float m_all[2] = {m[0], m[1]};
+#pragma unroll
+      for (int k = 1; k < kKeyWarps; ++k) {
+        const float* p = mrg + ((k - 1) * kRowWarps + rw) * kVals * 32 + lane;
+        m_all[0] = fmaxf(m_all[0], p[0]);
+        m_all[1] = fmaxf(m_all[1], p[32]);
+      }
+      float f[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        f[r] = expf(__fsub_rn(m[r], m_all[r]));
+        l[r] = __fmul_rn(l[r], f[r]);
+      }
+#pragma unroll
+      for (int nd = 0; nd < C::kNT; ++nd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nd][e] = __fmul_rn(o[nd][e], f[e >> 1]);
+      }
+#pragma unroll
+      for (int k = 1; k < kKeyWarps; ++k) {
+        const float* p = mrg + ((k - 1) * kRowWarps + rw) * kVals * 32 + lane;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          // 0 for a group that saw no key of the row
+          f[r] = expf(__fsub_rn(p[32 * r], m_all[r]));
+          l[r] = __fadd_rn(l[r], __fmul_rn(p[(2 + r) * 32], f[r]));
+        }
+#pragma unroll
+        for (int nd = 0; nd < C::kNT; ++nd) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            o[nd][e] = __fadd_rn(
+                o[nd][e], __fmul_rn(p[(4 + 4 * nd + e) * 32], f[e >> 1]));
+          }
+        }
+      }
+    }
+  }
+  if (kg != 0) return;
+  // ctx 0 rows: l = 0, never read
+  const float inv[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int g = g0 + 16 * rw + gq + 8 * r;
+    if (g >= G) continue;
+    float* orow = out + ((static_cast<size_t>(s) * G + g) * H + h) * d;
+    // n-tiles nd0 .. nd0 + 3 hold four consecutive dims at each column
+#pragma unroll
+    for (int nd0 = 0; nd0 < C::kNT; nd0 += 4) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int dim =
+            (2 * tq + e + 8 * (nd0 / C::kEPU)) * C::kEPU + nd0 % C::kEPU;
+        if (dim >= d) continue;  // d % 4 == 0: all four or none
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ctx[r] > 0) {
+          v.x = __fmul_rn(o[nd0][2 * r + e], inv[r]);
+          v.y = __fmul_rn(o[nd0 + 1][2 * r + e], inv[r]);
+          v.z = __fmul_rn(o[nd0 + 2][2 * r + e], inv[r]);
+          v.w = __fmul_rn(o[nd0 + 3][2 * r + e], inv[r]);
+        }
+        *reinterpret_cast<float4*>(orow + dim) = v;
+      }
+    }
+  }
+}
+
+template <typename T, bool kScaled, int kD>
+cudaError_t launch(const float* q, const void* k_pool, const void* v_pool,
+                   const float* k_scale, const float* v_scale,
+                   const int* tables, const int* ctx_lens, float* out, int S,
+                   int G, int H, int d, int B, int P, int n_row_tiles,
+                   int copy_bytes, float sm_scale, cudaStream_t st) {
+  constexpr int smem = Cfg<T, kScaled, kD>::kSmem;
+  auto* kernel = paged_attention_chunk_kernel<T, kScaled, kD>;
+  // the attribute belongs to the current device: set at every launch
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(n_row_tiles * S * H), kThreadsC, smem,
+           st>>>(q, static_cast<const T*>(k_pool),
+                 static_cast<const T*>(v_pool), k_scale, v_scale, tables,
+                 ctx_lens, out, S, G, H, d, B, P, n_row_tiles, copy_bytes,
+                 sm_scale);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kScaled>
+cudaError_t launch_lane(const float* q, const void* k_pool,
+                        const void* v_pool, const float* k_scale,
+                        const float* v_scale, const int* tables,
+                        const int* ctx_lens, float* out, int S, int G, int H,
+                        int d, int B, int P, float sm_scale,
+                        cudaStream_t st) {
+  const int n_row_tiles = (G + kRows - 1) / kRows;
+  // the widest copy that the row length and both pools' alignment allow
+  const int row = d * static_cast<int>(sizeof(T));
+  const uintptr_t at = reinterpret_cast<uintptr_t>(k_pool) |
+                       reinterpret_cast<uintptr_t>(v_pool);
+  int copy_bytes = 0;
+  for (int w = 16; w >= 4; w /= 2) {
+    if (row % w == 0 && at % w == 0) {
+      copy_bytes = w;
+      break;
+    }
+  }
+  return d <= 64
+      ? launch<T, kScaled, 64>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                               ctx_lens, out, S, G, H, d, B, P, n_row_tiles,
+                               copy_bytes, sm_scale, st)
+      : launch<T, kScaled, kMaxHeadDim>(q, k_pool, v_pool, k_scale, v_scale,
+                                        tables, ctx_lens, out, S, G, H, d, B,
+                                        P, n_row_tiles, copy_bytes, sm_scale,
+                                        st);
 }
 
 }  // namespace
@@ -209,34 +735,44 @@ paged_attention_chunk_kernel(const float* __restrict__ q,
 // q [S, G, H, d] fp32, tables [S, P] int32, ctx_lens [S, G] int32, out
 // [S, G, H, d] fp32. lane 0: float32 pools; 1: bfloat16; 2: int8 with
 // scales; 3: fp8-e4m3 with scales (k_scale/v_scale [N, H] fp32, ignored on
-// lanes 0 and 1). head_dim must be a multiple of 4 (float4 staging reads).
+// lanes 0 and 1). head_dim must be a multiple of 4, at most 128.
 extern "C" int paged_attention_chunk(
     int lane, const float* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* tables,
     const int* ctx_lens, float* out, int S, int G, int H, int d, int B,
     int P, float sm_scale, void* stream) {
   if (S <= 0 || G <= 0 || H <= 0) return 0;  // nothing to do
-  const int n_tiles = (G + kTileRows - 1) / kTileRows;
+  const long long n_row_tiles = (G + kRows - 1) / kRows;
   if (d < 4 || d > kMaxHeadDim || d % 4 != 0 || B < 1 || P < 1 ||
-      H > 65535 || lane < 0 || lane > 3 ||
-      static_cast<long long>(S) * n_tiles > 2147483647LL ||
+      lane < 0 || lane > 3 ||
+      static_cast<long long>(S) * H * n_row_tiles > 2147483647LL ||
+      static_cast<long long>(P) * B > 2147483647LL ||
       (lane >= 2 && (k_scale == nullptr || v_scale == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(static_cast<unsigned>(S * n_tiles),
-                  static_cast<unsigned>(H));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PA_CHUNK(TYPE, SCALED)                                             \
-  paged_attention_chunk_kernel<TYPE, SCALED><<<grid, kThreads, 0, st>>>(   \
-      q, static_cast<const TYPE*>(k_pool), static_cast<const TYPE*>(v_pool), \
-      k_scale, v_scale, tables, ctx_lens, out, G, H, d, B, P, n_tiles,     \
-      sm_scale)
+  cudaError_t err;
   switch (lane) {
-    case 0: PA_CHUNK(float, false); break;
-    case 1: PA_CHUNK(__nv_bfloat16, false); break;
-    case 2: PA_CHUNK(int8_t, true); break;
-    default: PA_CHUNK(__nv_fp8_e4m3, true); break;
+    case 0:
+      err = launch_lane<float, false>(q, k_pool, v_pool, k_scale, v_scale,
+                                      tables, ctx_lens, out, S, G, H, d, B,
+                                      P, sm_scale, st);
+      break;
+    case 1:
+      err = launch_lane<__nv_bfloat16, false>(
+          q, k_pool, v_pool, k_scale, v_scale, tables, ctx_lens, out, S, G,
+          H, d, B, P, sm_scale, st);
+      break;
+    case 2:
+      err = launch_lane<int8_t, true>(q, k_pool, v_pool, k_scale, v_scale,
+                                      tables, ctx_lens, out, S, G, H, d, B,
+                                      P, sm_scale, st);
+      break;
+    default:
+      err = launch_lane<__nv_fp8_e4m3, true>(
+          q, k_pool, v_pool, k_scale, v_scale, tables, ctx_lens, out, S, G,
+          H, d, B, P, sm_scale, st);
+      break;
   }
-#undef PA_CHUNK
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

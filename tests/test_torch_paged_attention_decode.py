@@ -331,3 +331,89 @@ def test_chunk_kernel_matches_plain_on_card(cuda_device, dtype, G, start,
                                   ctx[:, 0].contiguous(), k_scale=ks,
                                   v_scale=vs)
         torch.testing.assert_close(got[:, 0], dec, **TOL)
+
+
+def _chunk_on_card(dev, dtype, ctx, d=64, B=16, P=32, N=600, H=12, seed=11):
+    """Chunk-kernel inputs on the card for contexts ``ctx`` [S, G]:
+    random q, tables of valid block ids, pools of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    S, G = ctx.shape
+    q = torch.from_numpy(rng.standard_normal((S, G, H, d)).astype(
+        np.float32))
+    tables = torch.from_numpy(rng.integers(0, N, (S, P)).astype(np.int32))
+    k, v, ks, vs = _on(dev, *_pools(seed, dtype, N, H, B, d))
+    q, tables, ctx = _on(dev, q, tables, torch.from_numpy(ctx))
+    return (q, k, v, tables, ctx), dict(k_scale=ks, v_scale=vs)
+
+
+def _causal_ctx(S, G, start, pad, limit):
+    ctx = np.zeros((S, G), np.int32)
+    ctx[:, :G - pad] = start + np.arange(G - pad) + 1
+    return np.minimum(ctx, limit)
+
+
+def _off_by_one(t):
+    """``t`` copied into a buffer one element past an allocation's start:
+    its pointer is off a 16-byte boundary (fp32: staged by 4-byte copies;
+    bf16 / int8 / fp8: by byte loads)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LANES)
+@pytest.mark.parametrize("case", ["d128", "d36", "block8", "non_monotone",
+                                  "unaligned_pool"])
+def test_chunk_kernel_shapes_on_card(cuda_device, dtype, case):
+    """Head dims 128 and 36 (36: rows that are no multiple of 16 bytes in
+    bf16 / int8 / fp8), 8-token pages, a chunk whose contexts are not
+    monotone (ctx 0 rows between long rows), and pools off a 16-byte
+    boundary: each lane against its plain version at TOL, and two
+    launches bit-equal."""
+    rng = np.random.default_rng(12)
+    kw = {}
+    if case == "d128":
+        ctx, kw = _causal_ctx(2, 150, 60, 6, 512), dict(d=128)
+    elif case == "d36":
+        ctx, kw = _causal_ctx(2, 150, 60, 6, 512), dict(d=36)
+    elif case == "block8":
+        ctx, kw = _causal_ctx(2, 100, 37, 3, 512), dict(B=8, P=64)
+    elif case == "non_monotone":
+        ctx = rng.integers(1, 513, (2, 70)).astype(np.int32)
+        ctx[:, ::3] = 0
+        ctx[0, 1], ctx[0, 5], ctx[1, 4] = 512, 1, 33
+    else:
+        ctx = _causal_ctx(2, 80, 100, 4, 512)
+    args, scales = _chunk_on_card(cuda_device, dtype, ctx, **kw)
+    if case == "unaligned_pool":
+        args = (args[0], _off_by_one(args[1]), _off_by_one(args[2])) + \
+            args[3:]
+    tk.reset_launches()
+    got = tpa.paged_attention_chunk(*args, **scales)
+    again = tpa.paged_attention_chunk(*args, **scales)
+    torch.cuda.synchronize()
+    assert sum(tk.LAUNCHES.values()) == 2
+    want = tpa.paged_attention_chunk_reference(*args, **scales)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)                  # two launches
+    assert not got[args[4] == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LANES)
+def test_chunk_kernel_row_alone_on_card(cuda_device, dtype):
+    """A row of a rung-384 chunk (370 real rows from position 0) gives
+    the same bits as that row launched alone as a one-row chunk: its
+    output depends only on its own context and the pool."""
+    args, scales = _chunk_on_card(cuda_device, dtype,
+                                  _causal_ctx(1, 384, 0, 14, 512))
+    q, k, v, tables, ctx = args
+    chunk = tpa.paged_attention_chunk(*args, **scales)
+    for g in (0, 1, 31, 32, 63, 200, 255, 352, 369, 383):
+        one = tpa.paged_attention_chunk(q[:, g:g + 1].contiguous(), k, v,
+                                        tables, ctx[:, g:g + 1].contiguous(),
+                                        **scales)
+        torch.cuda.synchronize()
+        assert torch.equal(one[:, 0], chunk[:, g]), g
