@@ -77,19 +77,25 @@ The training slice adds, in the same run:
    result than 1.5x the bf16 plain version + 1e-3; a query with no key
    gives zeros and lse NEG_INF; two forward launches bit-equal; each
    kernel timed beside its plain version, its bound and an SDPA
-   yardstick (forward; backward) that the port never calls;
+   yardstick (forward; backward) that the port never calls; then the
+   same checks and timings at head_dim 128, the kernels' widest
+   capacity ([4, 8, 512, 128] causal, ragged T = 500, cross Tq 200 / Tk
+   512, and head_dim 96 inside that capacity: records named "_d128");
 4d. one full-width training step (the transformer LM at bench.py's
    GPT-2-small widths, batch 16 x 512, 12 layers) in fp32 and in bf16
    with the kernels (under sync-debug "error") against the same step
    through the plain flash versions: the loss and every gradient leaf
-   within relative L2 1e-4 (fp32) / 2e-2 (bf16);
+   within relative L2 1e-4 (fp32) / 2e-2 (bf16); then the same with 6
+   heads of 128 (``TRAIN_D128_CFG``);
 5d. the slice's main path: ``make_train_step(cfg, lr=0.01)`` in bf16
    with ``attn_impl="flash"`` (``train_transformer``), 3 warm-up + 20
    timed steps (tokens/s, step ms p50, peak memory, every loss finite),
    each flash kernel launched exactly 12 x steps, then
    ``make_kstep_train_step`` with K = 8; then the same steps with
    ``attn_impl="xla"`` (``train_xla``: plain attention, tokens/s and
-   loss agreement reported) and a short fp32 run; then
+   loss agreement reported) and a short fp32 run; then short runs of
+   the 6 x 128 heads' model in bf16 and fp32 (``train_d128``,
+   ``train_d128_fp32``: the head_dim-128 records' launches); then
    ``profile_train``: two steps under ``torch.profiler``, with B8 and
    B9's device time per step.
 
@@ -1153,10 +1159,21 @@ TRAIN_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TRAIN_CFG = dict(vocab_size=32000, d_model=768, n_heads=12, n_layers=12,
                  d_ff=3072, max_len=512)
 TRAIN_B, TRAIN_T, TRAIN_LR = 16, 512, 0.01
-# 3d's shapes: (B, H, Tq, Tk, causal); "main" is what training gives B8/B9
-FLASH_SHAPES = {"main": (16, 12, 512, 512, True),
-                "ragged": (4, 12, 500, 500, True),
-                "cross": (4, 12, 200, 512, False)}
+# 3d's shapes: (B, H, Tq, Tk, causal, head_dim); "main" is what training
+# gives B8/B9
+FLASH_SHAPES = {"main": (16, 12, 512, 512, True, 64),
+                "ragged": (4, 12, 500, 500, True, 64),
+                "cross": (4, 12, 200, 512, False, 64)}
+# the same forms at head_dim 128, the kernels' widest capacity (what
+# TRAIN_D128_CFG gives them, at batch 4 x 8 heads), and an fp32 head_dim
+# 96 inside that capacity; their records carry the suffix "_d128"
+FLASH_WIDE_SHAPES = {"main": (4, 8, 512, 512, True, 128),
+                     "ragged": (4, 8, 500, 500, True, 128),
+                     "cross": (4, 8, 200, 512, False, 128),
+                     "d96": (4, 8, 512, 512, True, 96)}
+# the flagship LM with 6 heads of 128 (d_model // n_heads = 128): the d128
+# records' main path
+TRAIN_D128_CFG = dict(TRAIN_CFG, n_heads=6)
 FLASH_KERNELS = {
     "flash_attention_fwd": "paddle_tpu/kernels/flash_attention.py:44",
     "flash_attention_dq": "paddle_tpu/kernels/flash_attention.py:93",
@@ -1179,10 +1196,10 @@ def _flash_bound(name, dtype, B, H, Tq, Tk, d, causal):
     once (q/k/v/do at the payload's width, lse/delta fp32) over the HBM
     rate, against the products its visible (query, key) pairs need (fwd:
     q.k and p.v; dq: q.k, do.v, ds.k; dk/dv: those two and p^T.do,
-    ds^T.q; 2 FLOPs each per element of d) over the rate the kernel's
-    products run at: bf16 on the tensor cores; the fp32 forward on the
-    CUDA cores; the fp32 backward as 3xTF32, three tf32 tensor-core
-    products for each product."""
+    ds^T.q; 2 FLOPs each per element of d) over the rate of the cheapest
+    form that keeps the lane's precision: bf16 on the tensor cores; fp32
+    (forward and backward) as 3xTF32, three tf32 tensor-core products
+    for each product."""
     e = 2 if dtype == torch.bfloat16 else 4
     rows = np.arange(Tq)
     pairs = B * H * float(np.minimum(rows + 1, Tk).sum() if causal
@@ -1199,8 +1216,6 @@ def _flash_bound(name, dtype, B, H, Tq, Tk, d, causal):
         flops = 8.0 * d * pairs
     if dtype == torch.bfloat16:
         t_ops = flops / H100_BF16_FLOPS * 1e3
-    elif name == "flash_attention_fwd":
-        t_ops = flops / H100_FP32_FLOPS * 1e3
     else:
         t_ops = 3.0 * flops / H100_TF32_FLOPS * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -1256,56 +1271,60 @@ def _flash_errors(fa, q, k, v, do, causal):
     return errs, vs_fp32
 
 
-def check_flash(fa, kernels, dev, flush, dtype):
+def check_flash(fa, kernels, dev, flush, dtype, shapes=None, suffix=""):
     """Phase 3d: B8 (forward) and B9 (dq, dk/dv), one lane, against
-    their plain versions at the training shape [16, 12, 512, 64] causal,
-    a ragged T = 500 and a non-causal cross shape Tq 200 / Tk 512; a
-    query with no key gives zeros and lse NEG_INF; then each kernel
-    timed at the training shape beside its plain version, its bound and
-    an SDPA yardstick the port never calls (``ms`` / ``library_ms`` by
-    ``_time_ms``, ``device_ms`` / ``library_device_ms`` with the card's
-    queue kept ahead of the host); two launches of each kernel on the main
-    shape must be bit-equal. Returns one kernels-line record per
-    kernel."""
+    their plain versions at ``shapes`` (default ``FLASH_SHAPES``: the
+    training shape [16, 12, 512, 64] causal, a ragged T = 500 and a
+    non-causal cross shape Tq 200 / Tk 512; ``FLASH_WIDE_SHAPES`` the
+    same at head_dim 128, and 96); a query with no key gives zeros and
+    lse NEG_INF; then each kernel timed at the "main" shape beside its
+    plain version, its bound and an SDPA yardstick the port never calls
+    (``ms`` / ``library_ms`` by ``_time_ms``, ``device_ms`` /
+    ``library_device_ms`` with the card's queue kept ahead of the host);
+    two launches of each kernel on the main shape must be bit-equal.
+    Returns one kernels-line record per kernel, named with ``suffix``
+    (and "_bf16" for the bf16 lane)."""
+    shapes = FLASH_SHAPES if shapes is None else shapes
     lane = "bf16" if dtype == torch.bfloat16 else "fp32"
+    tag = f"{lane}{suffix}"
     worst = {n: 0.0 for n in ("out", "lse", "dq", "dk", "dv")}
     worst_vs = {}
-    for key, (B, H, Tq, Tk, causal) in FLASH_SHAPES.items():
-        q, k, v, do = _flash_case(dev, dtype, B, H, Tq, Tk)
+    for key, (B, H, Tq, Tk, causal, d) in shapes.items():
+        q, k, v, do = _flash_case(dev, dtype, B, H, Tq, Tk, d)
         errs, vs_fp32 = _flash_errors(fa, q, k, v, do, causal)
         for n, e in errs.items():
             worst[n] = max(worst[n], e)
         _check(errs["lse"] <= FLASH_FWD_TOL,
-               f"flash {lane} {key}: lse differs by {errs['lse']}")
+               f"flash {tag} {key}: lse differs by {errs['lse']}")
         if vs_fp32 is None:
             _check(errs["out"] <= FLASH_FWD_TOL,
-                   f"flash fp32 {key}: out differs by {errs['out']}")
+                   f"flash {tag} {key}: out differs by {errs['out']}")
             for n in ("dq", "dk", "dv"):
                 _check(errs[n] <= FLASH_GRAD_TOL,
-                       f"flash fp32 {key}: {n} differs by {errs[n]}")
+                       f"flash {tag} {key}: {n} differs by {errs[n]}")
         else:
             for n, (err, plain_err) in vs_fp32.items():
                 _check(err <= FLASH_BF16_RATIO * plain_err + 1e-3,
-                       f"flash bf16 {key}: {n} is {err} from fp32, the "
+                       f"flash {tag} {key}: {n} is {err} from fp32, the "
                        f"plain version {plain_err}")
                 w = worst_vs.get(n, (0.0, 0.0))
                 worst_vs[n] = (max(w[0], err), max(w[1], plain_err))
         del q, k, v, do
-    q, k, v, _do = _flash_case(dev, dtype, 1, 2, 70, 0)
+    B, H, Tq, Tk, causal, d = shapes["main"]
+    q, k, v, _do = _flash_case(dev, dtype, 1, 2, 70, 0, d)
     out, lse = fa.flash_attention_fwd(q, k, v, True, 0.125)
     torch.cuda.synchronize()
     _check(not out.any() and bool((lse == fa.NEG_INF).all()),
-           f"flash {lane}: a query with no key must give 0 and NEG_INF")
+           f"flash {tag}: a query with no key must give 0 and NEG_INF")
 
-    B, H, Tq, Tk, causal = FLASH_SHAPES["main"]
-    q, k, v, do = _flash_case(dev, dtype, B, H, Tq, Tk)
+    q, k, v, do = _flash_case(dev, dtype, B, H, Tq, Tk, d)
     saved = _flash_calls(fa, q, k, v, do, causal)
     scale = 1.0 / np.sqrt(q.shape[-1])
     again = fa.flash_attention_fwd(q, k, v, causal, scale)
     torch.cuda.synchronize()
     fwd_bit_equal = (torch.equal(again[0], saved["out"])
                      and torch.equal(again[1], saved["lse"]))
-    _check(fwd_bit_equal, f"flash {lane}: two forward launches differ")
+    _check(fwd_bit_equal, f"flash {tag}: two forward launches differ")
     del again
     bwd_args = (q, k, v, do, saved["lse"], saved["delta"], causal, scale)
     dq_again = fa.flash_attention_dq(*bwd_args)
@@ -1317,9 +1336,9 @@ def check_flash(fa, kernels, dev, flush, dtype):
         "flash_attention_dkv": (torch.equal(dk_again, saved["dk"])
                                 and torch.equal(dv_again, saved["dv"]))}
     _check(bit_equal["flash_attention_dq"],
-           f"flash {lane}: two dq launches differ")
+           f"flash {tag}: two dq launches differ")
     _check(bit_equal["flash_attention_dkv"],
-           f"flash {lane}: two dk/dv launches differ")
+           f"flash {tag}: two dk/dv launches differ")
     del dq_again, dk_again, dv_again
     timed = {
         "flash_attention_fwd": (
@@ -1351,15 +1370,17 @@ def check_flash(fa, kernels, dev, flush, dtype):
     recs = {}
     for name, (kernel_fn, plain_fn) in timed.items():
         side = "fwd" if name == "flash_attention_fwd" else "bwd"
-        bound = _flash_bound(name, dtype, B, H, Tq, Tk, q.shape[-1], causal)
+        bound = _flash_bound(name, dtype, B, H, Tq, Tk, d, causal)
         rec = _lane_record(
-            name if lane == "fp32" else f"{name}_bf16",
+            f"{name}{suffix}" if lane == "fp32" else f"{name}{suffix}_bf16",
             FLASH_KERNELS[name],
             "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
             err_of[name], _time_ms(kernel_fn, flush),
             _time_ms(plain_fn, flush, reps=5), lib_ms[side], bound,
-            {"shape": [B, H, Tq, Tk, q.shape[-1]], "causal": causal,
-             "dtype": str(dtype).replace("torch.", "")})
+            {"shape": [B, H, Tq, Tk, d], "causal": causal,
+             "dtype": str(dtype).replace("torch.", ""),
+             "checked_shapes": {key: list(sh) for key, sh in
+                                shapes.items()}})
         rec["device_ms"] = _time_ms(kernel_fn, flush, queue_ahead=True)
         rec["library_device_ms"] = lib_device_ms[side]
         rec["two_launches_bit_equal"] = bit_equal[name]
@@ -1408,13 +1429,15 @@ def _train_batches(dev, n=4, seed=0):
     return [batch() for _ in range(n)], [batch() for _ in range(n)]
 
 
-def check_train_step(tt, kernels, dev, dtype):
+def check_train_step(tt, kernels, dev, dtype, model=None):
     """Phase 4d: one full-width training step's loss and gradients with
     the flash kernels (under sync-debug "error": the step must not sync
     the host) against the same step through their plain versions
-    (``attn_impl="flash_reference"``), from the same params and batch."""
-    cfg = tt.TransformerConfig(**TRAIN_CFG, dtype=dtype, attn_impl="flash")
-    plain_cfg = tt.TransformerConfig(**TRAIN_CFG, dtype=dtype,
+    (``attn_impl="flash_reference"``), from the same params and batch;
+    ``model`` the config's widths (default ``TRAIN_CFG``)."""
+    model = TRAIN_CFG if model is None else model
+    cfg = tt.TransformerConfig(**model, dtype=dtype, attn_impl="flash")
+    plain_cfg = tt.TransformerConfig(**model, dtype=dtype,
                                      attn_impl="flash_reference")
     params = tt.init_params(cfg, seed=0, device=dev)
     toks, tgts = _train_batches(dev, n=1, seed=1)
@@ -1448,7 +1471,8 @@ def check_train_step(tt, kernels, dev, dtype):
             worst, worst_path = rel, path
     _check(worst <= tol, f"4d {dtype}: grad {worst_path} relative L2 "
            f"{worst} > {tol}")
-    return {"dtype": str(dtype).replace("torch.", ""), "loss": float(loss),
+    return {"dtype": str(dtype).replace("torch.", ""),
+            "head_dim": cfg.head_dim, "loss": float(loss),
             "plain_loss": float(p_loss), "loss_rel_err": loss_rel,
             "grad_max_rel_l2": worst, "grad_worst_leaf": worst_path,
             "grad_leaves": len(grads), "tol": tol,
@@ -1468,7 +1492,7 @@ def _train_flops(cfg):
 
 def train(tt, kernels, dev, key="train_transformer", dtype=torch.bfloat16,
           attn_impl="flash", warmup=3, steps=20, kstep=8, kstep_calls=2,
-          reference=None):
+          reference=None, model=None):
     """Phase 5d: a training run. ``make_train_step(cfg, lr=0.01)`` at
     bench.py's shape: ``warmup`` steps, then ``steps`` timed in one
     window (tokens/s; step ms p50 from CUDA events between steps, no
@@ -1478,8 +1502,10 @@ def train(tt, kernels, dev, key="train_transformer", dtype=torch.bfloat16,
     (none for ``attn_impl="xla"``). With ``kstep``, then
     ``make_kstep_train_step`` with that K, ``kstep_calls`` timed calls
     after one warm-up call, its launches exact too. ``reference``: the
-    per-step losses of another run, compared (reported, not gated)."""
-    cfg = tt.TransformerConfig(**TRAIN_CFG, dtype=dtype, attn_impl=attn_impl)
+    per-step losses of another run, compared (reported, not gated).
+    ``model``: the config's widths (default ``TRAIN_CFG``)."""
+    model = TRAIN_CFG if model is None else model
+    cfg = tt.TransformerConfig(**model, dtype=dtype, attn_impl=attn_impl)
     params = tt.init_params(cfg, seed=0, device=dev)
     velocity = tt._rebuild(params, [torch.zeros_like(p)
                                     for p in tt._leaves(params)])
@@ -1521,7 +1547,8 @@ def train(tt, kernels, dev, key="train_transformer", dtype=torch.bfloat16,
     tokens = TRAIN_B * TRAIN_T
     flops = _train_flops(cfg)
     rec = {"dtype": str(dtype).replace("torch.", ""),
-           "attn_impl": attn_impl, "batch": [TRAIN_B, TRAIN_T],
+           "attn_impl": attn_impl, "head_dim": cfg.head_dim,
+           "batch": [TRAIN_B, TRAIN_T],
            "layers": L, "lr": TRAIN_LR, "warmup_steps": warmup,
            "timed_steps": steps, "wall_s": wall,
            "tokens_per_s": tokens * steps / wall,
@@ -2682,11 +2709,14 @@ def main():
         for rec in (dlanes[dtype], clanes[dtype]):
             _say(f"kernel check: {rec['name']} max_abs_err "
                  f"{rec['max_abs_err']:.3e} <= {ATTN_TOL}")
-    # 3d: the flash-attention forward (B8) and backward (B9), both lanes
-    flanes = {}
+    # 3d: the flash-attention forward (B8) and backward (B9), both lanes,
+    # at head_dim 64 (the flagship's) and at the kernels' 128 capacity
+    flanes, fwide = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         flanes[dtype] = check_flash(fa, kernels, dev, flush, dtype)
-        for rec in flanes[dtype].values():
+        fwide[dtype] = check_flash(fa, kernels, dev, flush, dtype,
+                                   FLASH_WIDE_SHAPES, "_d128")
+        for rec in (*flanes[dtype].values(), *fwide[dtype].values()):
             _say(f"kernel check: {rec['name']} max_abs_err "
                  f"{rec['max_abs_err']:.3e}")
     # 3e: the GRU forward (B12) and backward (B13: recurrence, dW)
@@ -2724,11 +2754,13 @@ def main():
     wqrec = check_quant_whole_steps(dm, make_pools, cfg, qparams, kv8, cal,
                                     script, fp32_whole)
     _say("quant whole-mode steps check: " + json.dumps(wqrec))
-    # 4d: one full-width training step, kernels vs plain flash versions
-    for dtype in (torch.float32, torch.bfloat16):
-        torch.cuda.empty_cache()
-        _say("train step check: " + json.dumps(
-            check_train_step(tt, kernels, dev, dtype)))
+    # 4d: one full-width training step, kernels vs plain flash versions,
+    # with 12 heads of 64 and with 6 heads of 128
+    for model in (TRAIN_CFG, TRAIN_D128_CFG):
+        for dtype in (torch.float32, torch.bfloat16):
+            torch.cuda.empty_cache()
+            _say("train step check: " + json.dumps(
+                check_train_step(tt, kernels, dev, dtype, model)))
     # 4e: one full-width seq2seq step, kernels vs plain GRU versions
     for rec in check_s2s_step(s2s, fr, kernels, dev):
         _say("seq2seq step check: " + json.dumps(rec))
@@ -2832,22 +2864,32 @@ def main():
 
     # 5d: the training slice's main path: bf16 with the flash kernels,
     # then the same steps with the plain attention ("xla") and a short
-    # fp32 run (the fp32 lanes' launches)
+    # fp32 run (the fp32 lanes' launches); then the 6 x 128 heads' model
+    # in both lanes (the head_dim-128 instantiations' launches)
     del params
     train_runs = {}
     for key, kw in (("train_transformer", {}),
                     ("train_xla", dict(attn_impl="xla", kstep=None)),
                     ("train_fp32", dict(dtype=torch.float32, warmup=2,
-                                        steps=5, kstep=None))):
+                                        steps=5, kstep=None)),
+                    ("train_d128", dict(model=TRAIN_D128_CFG, warmup=2,
+                                        steps=10, kstep=None)),
+                    ("train_d128_fp32", dict(model=TRAIN_D128_CFG,
+                                             dtype=torch.float32, warmup=2,
+                                             steps=5, kstep=None))):
         torch.cuda.empty_cache()
         ref = (train_runs["train_transformer"][2] if key == "train_xla"
                else None)
         train_runs[key] = train(tt, kernels, dev, key=key, reference=ref,
                                 **kw)
-    for dtype, key in ((torch.float32, "train_fp32"),
-                       (torch.bfloat16, "train_transformer")):
+    for dtype, key, wkey in (
+            (torch.float32, "train_fp32", "train_d128_fp32"),
+            (torch.bfloat16, "train_transformer", "train_d128")):
         for name, rec in flanes[dtype].items():
             rec["launches"] = train_runs[key][1][name]
+        for name, rec in fwide[dtype].items():
+            rec["launches"] = train_runs[wkey][1][name]
+            rec["launches_run"] = wkey
     torch.cuda.empty_cache()
     ptrec = profile_train(tt, dev)
     _say(f"training phases done at {time.perf_counter() - t0:.1f} s")
@@ -2915,6 +2957,8 @@ def main():
         *(clanes[d] for d in ("float32", "bfloat16", "int8", "fp8-e4m3")),
         qrecs["int8"], qrecs["fp8-e4m3"],
         *(flanes[d][n] for d in (torch.float32, torch.bfloat16)
+          for n in FLASH_KERNELS),
+        *(fwide[d][n] for d in (torch.float32, torch.bfloat16)
           for n in FLASH_KERNELS),
         *(glanes[d][n] for d in (torch.float32, torch.bfloat16)
           for n in GRU_KERNELS),

@@ -110,6 +110,8 @@
 
 #include <type_traits>
 
+#include "tf32_mma_cp_async.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -464,25 +466,6 @@ struct DwOps {
     return dx + static_cast<size_t>(n) * G + col;
   }
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared without the registers; zeros (src unread)
-// when !ok
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
-                                     bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // ---- bf16: warpgroup products (wgmma) from a TMA-filled ring
 

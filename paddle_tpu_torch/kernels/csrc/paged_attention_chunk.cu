@@ -87,6 +87,7 @@
 // and called through ctypes; the C entry returns cudaGetLastError().
 
 #include "paged_attention.cuh"
+#include "tf32_mma_cp_async.cuh"
 
 namespace {
 
@@ -102,57 +103,6 @@ constexpr int kThreadsC = 32 * kRowWarps * kKeyWarps;
 // near 1 is off by ~2^-22 (ex2's own error) and a small one by ~|s - m|
 // 2^-24 of itself
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// `bytes` (16, 8 or 4) global -> shared without the registers; zeros (src
-// unread) when !ok
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
-                                         int bytes, bool ok) {
-  const int n = ok ? bytes : 0;
-  if (bytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(n)
-                 : "memory");
-  } else if (bytes == 8) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(n)
-                 : "memory");
-  }
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// x = hi + lo: hi is x rounded to its top 11 significant bits (tf32) by an
-// integer add and mask, lo = x - hi exactly, of which the tensor core reads
-// the top 11 bits: x to ~2^-21
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-// d += a * b, m16n8k8, tf32 in, fp32 accumulate. Fragments (lane 4g + t):
-// a0 = A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4], a3 = A[g + 8][t + 4];
-// b0 = B[t][g], b1 = B[t + 4][g]; d0, d1 = D[g][2t, 2t + 1], d2, d3 =
-// D[g + 8][2t, 2t + 1]. Not volatile: a product has no side effect, so the
-// compiler may interleave independent ones.
-__device__ __forceinline__ void mma(float d[4], const uint32_t a[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // f[c] += A B[c] for the N column tiles c of one k-step, at fp32 parity:
 // three products for an fp32 B (split here: A_lo B_hi, A_hi B_lo, A_hi
@@ -430,7 +380,7 @@ paged_attention_chunk_kernel(const float* __restrict__ q,
     qf_lo[threadIdx.x + u * kThreadsC] = lo;
   }
   for (int it = 0; it < n_iter; ++it) {
-    cp_wait_all();
+    cp_wait<0>();
     __syncthreads();  // tiles of `it` landed; every warp is done with it-1
     if (it + 1 < n_iter) stage(it + 1, blk_next);
     cp_commit();
@@ -587,7 +537,7 @@ paged_attention_chunk_kernel(const float* __restrict__ q,
       }
     }
   }
-  cp_wait_all();
+  cp_wait<0>();
   __syncthreads();  // the ring is free: it holds the merge
 
   // each row's sum over its quad (every lane of the quad gets the same bits)

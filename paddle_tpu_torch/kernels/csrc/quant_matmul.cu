@@ -66,6 +66,7 @@
 
 #include <type_traits>
 
+#include "tf32_mma_cp_async.cuh"
 
 namespace {
 
@@ -108,27 +109,11 @@ __device__ __forceinline__ uint32_t quantize(float x, float sx) {
       __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3));
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// global -> shared without the registers; zeros (src unread) when !ok
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
-                                     bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
+// 4 bytes global -> shared (cp16 and the rest: tf32_mma_cp_async.cuh)
 __device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(ok ? 4 : 0)
                : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 // four 8 x 16-byte matrices; lanes 8i..8i+7 give matrix i's row addresses
 // and lane 4g + t receives bytes 4t..4t+3 of row g of each

@@ -21,9 +21,9 @@ accumulator are fp32.
 .Function`` that saves ``(q, k, v, out, lse)``. On CUDA tensors each of
 ``flash_attention_fwd``, ``flash_attention_dq`` and
 ``flash_attention_dkv`` launches its hand-written sm_90a kernel
-(``csrc/flash_attention.cu``: fp32 forward on the CUDA cores, fp32
-backward as 3xTF32 and bf16 on the tensor cores) and raises on anything
-it does not take;
+(``csrc/flash_attention.cu``, on the tensor cores: fp32 as 3xTF32 on
+``mma.sync``, bf16 on ``wgmma``; each instantiated for head_dim <= 64
+and <= 128) and raises on anything it does not take;
 on CPU tensors it runs its plain version, which follows the Pallas
 kernel body's math over one tile spanning the whole sequence. The
 TPU wrapper's ``block_q``/``block_k``/``interpret`` are tile hints for
@@ -46,7 +46,7 @@ __all__ = ["MAX_HEAD_DIM", "NEG_INF", "flash_attention",
            "flash_attention_reference"]
 
 NEG_INF = -1e30  # finite stand-in for -inf: keeps exp() NaN-free
-MAX_HEAD_DIM = 64  # the CUDA kernels stage 64-wide fp32 tiles
+MAX_HEAD_DIM = 128  # the CUDA kernels' widest head_dim capacity
 _LANES = {torch.float32: 0, torch.bfloat16: 1}
 # C entry -> (pointer arguments, int arguments): each takes the lane, the
 # pointers, the ints (BH, Tq, Tk, d, causal), the scale and the stream
@@ -84,8 +84,9 @@ def _check_shapes(q, k, v):
 def _check_cuda(q, tensors, stats=()):
     """What the CUDA kernels take: every tensor on q's card and
     contiguous; q/k/v (and do) all float32 or all bfloat16; fp32
-    ``lse``/``delta``; head_dim <= 64, and for bfloat16 a multiple of 8
-    with 16-byte aligned tensors. Returns the lane id."""
+    ``lse``/``delta``; head_dim <= 128, and for bfloat16 a multiple of 8
+    with 16-byte aligned tensors. Returns the lane id. The widths the
+    reference takes beyond these are ROADMAP C4."""
     lane = _LANES.get(q.dtype)
     for name, x in tuple(tensors) + tuple(stats):
         if x.device != q.device:
@@ -96,18 +97,18 @@ def _check_cuda(q, tensors, stats=()):
         if x.dtype != q.dtype or lane is None:
             raise TypeError(f"no CUDA kernel lane for {name} {x.dtype} with "
                             f"q {q.dtype}: it takes all float32 or all "
-                            "bfloat16")
+                            "bfloat16 (ROADMAP C4)")
     for name, x in stats:
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM} is not "
-                         "supported by the CUDA kernels")
+                         "supported by the CUDA kernels (ROADMAP C4)")
     if q.dtype == torch.bfloat16:
         # the tensor-core lane moves 8 bf16 (16 bytes) per load
         if q.shape[-1] % 8:
             raise ValueError(f"head_dim {q.shape[-1]} is not a multiple of 8, "
-                             "which the bfloat16 kernels need")
+                             "which the bfloat16 kernels need (ROADMAP C4)")
         for name, x in tensors:
             if x.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned")
@@ -292,7 +293,7 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None):
 
     Args:
       q: ``[B, H, Tq, d]``; k, v: ``[B, H, Tk, d]``, float32 or bfloat16
-        (on the card: all one dtype, contiguous, d <= 64; bfloat16 needs
+        (on the card: all one dtype, contiguous, d <= 128; bfloat16 needs
         d a multiple of 8).
       causal: the autoregressive mask, position-based and top-left
         aligned (query i sees keys 0..i, also when Tq != Tk).

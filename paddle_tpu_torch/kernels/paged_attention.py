@@ -133,7 +133,7 @@ def _check_cuda(q, k_pool, v_pool, k_scale, v_scale, block_tables,
             raise TypeError(f"{name} must be int32, got {x.dtype}")
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM} is not "
-                         "supported by the CUDA kernel")
+                         "supported by the CUDA kernel (ROADMAP C4)")
     if block_tables.dim() != 2 or block_tables.shape[1] < 1:
         raise ValueError(f"block_tables must be [slots, max_pages], got "
                          f"{tuple(block_tables.shape)}")

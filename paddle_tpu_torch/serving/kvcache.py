@@ -478,7 +478,8 @@ def make_pools(config: KVCacheConfig, device=None, k_absmax=None,
     if config.dtype not in _POOL_DTYPES:
         raise NotImplementedError(
             f"KV pools of dtype {config.dtype!r} are not ported: the "
-            f"paged-attention kernel has lanes for {list(_POOL_DTYPES)}")
+            f"paged-attention kernel has lanes for {list(_POOL_DTYPES)} "
+            "(ROADMAP C4)")
     dev = resolve_device(device)
     shape = (config.num_layers, config.num_blocks, config.num_heads,
              config.block_size, config.head_dim)

@@ -15,8 +15,9 @@ versions:
   at most one bf16 ulp of |out| <= 4: atol 2e-2.
 
 Shapes follow ``tests/test_flash_ring_attention.py``: ragged T,
-rectangular blocks, Tq != Tk, causal and not. The kernel-vs-plain
-cases need a card and skip without one.
+rectangular blocks, Tq != Tk, causal and not; and head_dim 128, the
+kernels' widest capacity, in fp32 and bf16. The kernel-vs-plain cases
+need a card and skip without one.
 """
 import math
 
@@ -38,6 +39,8 @@ SHAPES = [
     (1, 2, 20, 55, 16, False, 8, 16),   # Tq != Tk (cross attention)
     (1, 2, 20, 55, 16, True, 8, 16),    # causal, Tq < Tk, top-left
     (1, 1, 40, 24, 8, True, 8, 8),      # causal, Tq > Tk
+    (1, 2, 40, 40, 128, True, 16, 16),  # head_dim 128
+    (1, 2, 24, 40, 128, False, 8, 16),  # head_dim 128, Tq != Tk
 ]
 IDS = [f"{s[2]}x{s[3]}-d{s[4]}-{'causal' if s[5] else 'full'}"
        for s in SHAPES]
@@ -117,8 +120,9 @@ def test_plain_kernels_match_jax_calls(jfa, shape):
 
 
 @pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[2], SHAPES[3],
-                                   SHAPES[5]],
-                         ids=[IDS[0], IDS[2], IDS[3], IDS[5]])
+                                   SHAPES[5], SHAPES[6], SHAPES[7]],
+                         ids=[IDS[0], IDS[2], IDS[3], IDS[5], IDS[6],
+                              IDS[7]])
 def test_grads_match_jax(jfa, shape):
     """Gradients of sum(sin(out)) through the port's autograd.Function
     and through JAX's custom_vjp."""
@@ -141,11 +145,10 @@ def test_grads_match_jax(jfa, shape):
         _close(got.numpy(), want, GRAD_TOL)
 
 
-def test_bf16_forward_and_grads_match_jax(jfa):
-    """bf16 inputs: outputs in bf16 from fp32 math on both sides."""
+def _bf16_forward_and_grads_match_jax(jfa, d):
     import jax
     import jax.numpy as jnp
-    q, k, v, do = _inputs(3, 1, 2, 40, 40, 16)
+    q, k, v, do = _inputs(3, 1, 2, 40, 40, d)
     jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
 
     def jf(q, k, v):
@@ -164,6 +167,16 @@ def test_bf16_forward_and_grads_match_jax(jfa):
     for got, want in zip(tg, jg):
         assert got.dtype == torch.bfloat16
         _close(got.float().numpy(), np.asarray(want, np.float32), BF16_TOL)
+
+
+def test_bf16_forward_and_grads_match_jax(jfa):
+    """bf16 inputs: outputs in bf16 from fp32 math on both sides."""
+    _bf16_forward_and_grads_match_jax(jfa, 16)
+
+
+def test_bf16_forward_and_grads_match_jax_at_head_dim_128(jfa):
+    """The same at head_dim 128, the bf16 kernels' widest capacity."""
+    _bf16_forward_and_grads_match_jax(jfa, 128)
 
 
 def test_no_keys_gives_zero_rows_and_neg_inf_lse():
@@ -222,6 +235,20 @@ def test_probe_plain_tf32_variant_keeps_only_the_hi_product():
         flash_probe.plain_tf32_source(plain)
 
 
+def test_probe_fwd_unroll2_variant_changes_only_the_forward_s_product():
+    from paddle_tpu_torch.kernels import _build, flash_probe
+    src = (_build.CSRC_DIR / "flash_attention.cu").read_text()
+    var = flash_probe.fwd_unroll2_source(src)
+    changed = [(a, b) for a, b in zip(src.splitlines(), var.splitlines())
+               if a != b]
+    assert len(changed) == 1 and len(src.splitlines()) == len(
+        var.splitlines())
+    assert "prod_rows<kD, kD / 8>(sQ, sK" in changed[0][0]
+    assert "prod_rows<kD>(sQ, sK" in changed[0][1]
+    with pytest.raises(ValueError, match="expected one"):
+        flash_probe.fwd_unroll2_source(var)
+
+
 # -------------------------------------------------------------- the card
 
 @pytest.fixture
@@ -242,7 +269,13 @@ def _card_case(dev, dtype, B, H, Tq, Tk, d, seed=8):
                                    (1, 2, 100, 100, 64, True),
                                    (1, 2, 70, 130, 32, False),
                                    (1, 2, 40, 130, 32, True),
-                                   (1, 1, 90, 33, 16, True)])
+                                   (1, 1, 90, 33, 16, True),
+                                   (2, 3, 128, 128, 128, True),
+                                   (1, 2, 100, 100, 128, True),
+                                   (1, 2, 70, 130, 128, False),
+                                   (1, 2, 512, 200, 128, True),
+                                   (1, 2, 130, 130, 96, True),
+                                   (1, 2, 70, 130, 96, False)])
 def test_kernels_match_plain_on_card(cuda_device, dtype, shape):
     """Forward, dq and dk/dv kernels against their plain versions on the
     same card tensors: fp32 to 1e-5 (out) / 1e-4 (grads); bf16 against
@@ -324,12 +357,22 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda_device):
         tfa.flash_attention_fwd(q, k.to(torch.bfloat16), v, True, 0.1)
     with pytest.raises(TypeError, match="lane"):
         tfa.flash_attention_fwd(q.half(), k.half(), v.half(), True, 0.1)
-    wide = [torch.zeros(1, 1, 8, 128, device=cuda_device) for _ in range(3)]
-    with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_attention_fwd(*wide, True, 0.1)
+    # head_dim 128, the widest capacity, runs; 129 raises naming C4
+    wide = [torch.zeros(1, 1, 8, 128, device=cuda_device, dtype=dt)
+            for dt in (torch.float32, torch.bfloat16) for _ in range(3)]
+    for x in (wide[:3], wide[3:]):
+        out, lse = tfa.flash_attention_fwd(*x, True, 0.1)
+        torch.cuda.synchronize()
+        assert out.shape == x[0].shape and not out.any()
+        want = torch.log(torch.arange(1, 9.0, device=cuda_device))
+        assert torch.allclose(lse[0, 0], want, atol=1e-6, rtol=0)
+    wider = [torch.zeros(1, 1, 8, 129, device=cuda_device)
+             for _ in range(3)]
+    with pytest.raises(ValueError, match="head_dim.*ROADMAP C4"):
+        tfa.flash_attention_fwd(*wider, True, 0.1)
     odd = [torch.zeros(1, 1, 8, 12, device=cuda_device,
                        dtype=torch.bfloat16) for _ in range(3)]
-    with pytest.raises(ValueError, match="multiple of 8"):
+    with pytest.raises(ValueError, match="multiple of 8.*ROADMAP C4"):
         tfa.flash_attention_fwd(*odd, True, 0.1)
     tfa.flash_attention_fwd(*[x.float() for x in odd], True, 0.1)  # fp32: ok
     shifted = torch.zeros(8 * 64 + 4, device=cuda_device,
@@ -347,7 +390,11 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda_device):
                                    (1, 2, 200, 512, 64, False),
                                    (1, 2, 200, 512, 64, True),
                                    (2, 2, 300, 300, 32, True),
-                                   (1, 2, 70, 0, 64, True)])
+                                   (1, 2, 70, 0, 64, True),
+                                   (1, 2, 500, 500, 128, True),
+                                   (1, 2, 200, 512, 128, False),
+                                   (2, 2, 300, 300, 96, True),
+                                   (1, 2, 70, 0, 128, True)])
 def test_bf16_forward_ragged_and_bit_equal_on_card(cuda_device, shape):
     """B8's bf16 kernel (wgmma, a cp.async ring, masks on the diagonal and
     tail tiles only) at a ragged T, Tq != Tk, d 32 and Tk = 0: lse within
@@ -392,6 +439,24 @@ def test_bf16_forward_negative_scale_on_card(cuda_device, causal):
     assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp32_forward_negative_scale_on_card(cuda_device, causal, d):
+    """The fp32 forward takes each row's max on the scaled scores, so a
+    scale <= 0 needs no other path: out and lse within 1e-5 of the plain
+    version, at both head_dim capacities, and two launches bit-equal."""
+    q, k, v, _do = _card_case(cuda_device, torch.float32, 2, 3, 200, 200, d)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal, -0.125)
+    out2, lse2 = tfa.flash_attention_fwd(q, k, v, causal, -0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    r_out, r_lse = tfa.flash_attention_fwd_reference(q, k, v, causal,
+                                                     -0.125)
+    assert float((out - r_out).abs().max()) <= 1e-5
+    assert float((lse - r_lse).abs().max()) <= 1e-5
+
+
 # B9 on the card: (B, H, Tq, Tk, d, causal). d 32 / 40 / 64; a ragged T;
 # Tq != Tk both ways, causal and not; 8 x 12 heads at T 512 (768 q tiles,
 # more blocks than the card holds at once); one tile (the causal diagonal
@@ -408,6 +473,13 @@ B9_CARD_SHAPES = [
     (8, 12, 512, 512, 64, True),
     (1, 2, 64, 64, 64, True),
     (1, 2, 70, 0, 64, True),
+    (2, 3, 256, 256, 128, True),
+    (2, 3, 256, 256, 96, False),
+    (1, 2, 500, 500, 128, True),
+    (1, 2, 200, 512, 128, True),
+    (1, 2, 512, 200, 128, False),
+    (4, 8, 512, 512, 128, True),
+    (1, 2, 70, 0, 128, True),
 ]
 B9_CARD_IDS = [f"{s[0]}x{s[1]}-{s[2]}x{s[3]}-d{s[4]}-"
                f"{'causal' if s[5] else 'full'}" for s in B9_CARD_SHAPES]
@@ -463,12 +535,15 @@ def test_backward_kernels_match_plain_and_repeat_on_card(cuda_device, dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d, offset", [(33, 0), (64, 1)],
-                         ids=["d33", "unaligned"])
+@pytest.mark.parametrize("d, offset", [(33, 0), (64, 1), (36, 1), (100, 0),
+                                       (128, 1)],
+                         ids=["d33", "unaligned", "d36-unaligned", "d100",
+                              "d128-unaligned"])
 def test_fp32_backward_scalar_staging_on_card(cuda_device, d, offset):
-    """The fp32 backward stages by scalar loads when a row is no whole
+    """The fp32 lane stages by scalar loads when a row is no whole
     number of 16-byte pieces (d 33) or a tensor starts off a 16-byte
-    boundary: the same 1e-4 against the plain versions, and bit-equal
+    boundary, at both head_dim capacities: the backward to the same 1e-4
+    against the plain versions, the forward to 1e-5, and bit-equal
     launches."""
     q, k, v, do = _card_case(cuda_device, torch.float32, 1, 2, 130, 130, d)
     if offset:
@@ -483,3 +558,10 @@ def test_fp32_backward_scalar_staging_on_card(cuda_device, d, offset):
              *tfa.flash_attention_dkv_reference(*args))
     for g, p in zip(got, plain):
         assert float((g - p).abs().max()) <= 1e-4
+    out, f_lse = tfa.flash_attention_fwd(q, k, v, True, scale)
+    out2, f_lse2 = tfa.flash_attention_fwd(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(f_lse, f_lse2)
+    r_out, r_lse = tfa.flash_attention_fwd_reference(q, k, v, True, scale)
+    assert float((out - r_out).abs().max()) <= 1e-5
+    assert float((f_lse - r_lse).abs().max()) <= 1e-5

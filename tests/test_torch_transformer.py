@@ -18,6 +18,10 @@ A bf16 forward + loss is held at atol 5e-2 on the logits and 1e-2 on
 the loss: each matmul rounds to bf16 (2^-8 relative) in another order
 on the two sides, through two layers and the tied head.
 
+A wider config with head_dim 128 (d_model 256, 2 heads), the flash
+kernels' widest capacity, holds the loss and every gradient leaf at the
+same atol 1e-4, with both ``attn_impl`` values.
+
 The JAX oracles are computed once per module (jitted) and cached, so
 the file stays a few tens of seconds. The kernel-vs-plain training step
 needs a card and skips without one.
@@ -92,6 +96,10 @@ def _assert_trees_close(got, want, tol):
         a = a.detach().float().numpy() if torch.is_tensor(a) else a
         np.testing.assert_allclose(a, np.asarray(b, np.float32), atol=tol,
                                    rtol=0, err_msg=path)
+
+
+# d_model // n_heads = 128: the flash kernels' widest head_dim
+WIDE = dict(SMALL, d_model=256, n_heads=2, d_ff=128)
 
 
 @pytest.fixture(scope="module")
@@ -223,6 +231,42 @@ def test_loss_and_every_grad_match_jax(oracle, jparams, impl):
     want_loss, want_grads = oracle.loss_and_grads(impl)
     tok, tgt = _tb(*_batch(33, 2))
     loss, grads = _grads(_port(jparams), tok, tgt, _tcfg(impl))
+    assert abs(float(loss) - want_loss) <= TOL
+    _assert_trees_close(grads, want_grads, TOL)
+
+
+@pytest.fixture(scope="module")
+def wide_oracle(jt):
+    """The WIDE config's params and, per ``attn_impl``, JAX's loss and
+    gradients on one batch (T 33), computed once for the module."""
+    import jax
+    import jax.numpy as jnp
+    cfgs = {impl: jt.TransformerConfig(**WIDE, attn_impl=impl,
+                                       dtype=jnp.float32)
+            for impl in IMPLS}
+    params = _np_tree(jt.init_params(jax.random.PRNGKey(1), cfgs["xla"]))
+    tok, tgt = (jnp.asarray(a) for a in _batch(33, 8))
+    cache = {}
+
+    def get(impl):
+        if impl not in cache:
+            vg = jax.jit(jax.value_and_grad(
+                lambda p, a, b: jt.loss_fn(p, a, b, cfgs[impl])))
+            loss, grads = vg(jax.tree_util.tree_map(jnp.asarray, params),
+                             tok, tgt)
+            cache[impl] = float(loss), _np_tree(grads)
+        return cache[impl]
+    return params, get
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_head_dim_128_loss_and_every_grad_match_jax(wide_oracle, impl):
+    jp, get = wide_oracle
+    want_loss, want_grads = get(impl)
+    tok, tgt = _tb(*_batch(33, 8))
+    cfg = tt.TransformerConfig(**WIDE, attn_impl=impl, dtype=torch.float32)
+    assert cfg.head_dim == 128
+    loss, grads = _grads(_port(jp), tok, tgt, cfg)
     assert abs(float(loss) - want_loss) <= TOL
     _assert_trees_close(grads, want_grads, TOL)
 
@@ -397,6 +441,36 @@ def test_train_step_kernels_match_plain_on_card(cuda_device, bf16):
     pcfg = tt.TransformerConfig(**cfg, dtype=dt, attn_impl="flash_reference")
     params = tt.init_params(kcfg, seed=1, device=cuda_device)
     tok, tgt = (t.to(cuda_device) for t in _tb(*_batch(150, 7)))
+    tk.reset_launches()
+    loss, grads = _grads(params, tok, tgt, kcfg)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        assert tk.LAUNCHES[name] == cfg["n_layers"], name
+    r_loss, r_grads = _grads(params, tok, tgt, pcfg)
+    tol = 2e-2 if bf16 else 1e-4
+    assert abs(float(loss) - float(r_loss)) <= tol * abs(float(r_loss))
+    for (path, a), (_q, b) in zip(_leaves(grads), _leaves(r_grads)):
+        rel = float(torch.linalg.vector_norm((a - b).float())
+                    / torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
+        assert rel <= tol, (path, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_head_dim_128_train_step_kernels_match_plain_on_card(cuda_device,
+                                                             bf16):
+    """One step at head_dim 128 (d_model 256, 2 heads), the flash
+    kernels' widest capacity: loss and gradients with the kernels
+    against ``flash_reference`` on the card, fp32 relative L2 <= 1e-4,
+    bf16 <= 2e-2."""
+    cfg = dict(WIDE, max_len=160)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    kcfg = tt.TransformerConfig(**cfg, dtype=dt, attn_impl="flash")
+    pcfg = tt.TransformerConfig(**cfg, dtype=dt, attn_impl="flash_reference")
+    assert kcfg.head_dim == 128
+    params = tt.init_params(kcfg, seed=2, device=cuda_device)
+    tok, tgt = (t.to(cuda_device) for t in _tb(*_batch(150, 9)))
     tk.reset_launches()
     loss, grads = _grads(params, tok, tgt, kcfg)
     torch.cuda.synchronize()
