@@ -143,7 +143,20 @@ The text-classification slice adds, in the same run:
    computes this LSTM; the dW reductions beside their yardstick, one
    ``torch.matmul`` with fp32 sums on pre-built ``hprev`` or
    ``[xe | hprev]``, and two launches on the same inputs held
-   bit-equal), B14/B15 at both layers;
+   bit-equal), B14/B15 at both layers. B14/B15's bf16 lane takes the
+   resident route (``fused_rnn.lstm_cluster_plan``): its rows add the
+   plan (tile rows, clusters, CTAs a cluster, the card's co-resident
+   clusters), ``device_ms`` with the card's queue kept ahead of the host,
+   µs a step of each recurrence alone, and the cluster exchange alone
+   (``lstm_exchange``: the forward's, the backward's and the barrier's µs
+   a step over 100 empty steps); the route's pre-pass (``lstm_proj_xg``)
+   and post-pass (``lstm_proj_dxe``) are rows of their own, each against
+   its plain version, two launches bit-equal, beside a bf16 PyTorch GEMM
+   on the tensor cores (the pre-pass also beside the fp32 one). The bf16
+   streaming route, which the plan gives past D 512, is held at D 1024
+   (the wide classifier's first layer: T 100, B 128, E 128), forward and
+   backward at the bf16 gate, each counted under its ``_stream`` name,
+   rows of its own (``lstm_proj_{fwd,bwd}_bf16_stream``);
 4f. one full-width flagship training step (bench.py's bench_lstm:
    ``lstm_benchmark_net`` with ``fused_lstm``, batch 128 x 100, vocab
    5147, emb 128, hidden 512, 2 layers) in fp32 and under AMP, and the
@@ -155,12 +168,17 @@ The text-classification slice adds, in the same run:
 5f. the slice's main paths: ``train_lstm`` (bench_lstm: fused_lstm,
    AMP, Adam 0.002, 3 + 20 steps: ms per batch, words/s, MFU against
    bench.py's analytic FLOPs, peak memory, every loss finite; each
-   B14/B15 kernel launched exactly 2 x steps), ``train_lstm_composed``
+   B14/B15 kernel launched exactly 2 x steps, on the route the plan
+   gives: in bf16 the resident one, its pre- and post-pass too; its ms
+   per batch over ``train_lstm_composed``'s), ``train_lstm_composed``
    (fc + dynamic_lstm: B10/B11, 2 x steps), ``train_lstm_ragged``
    (ragged LoD, so fused_lstm falls back to B10/B11), short fp32 runs of
-   both routes (the fp32 lanes' launches), and ``profile_lstm`` (one
-   step under ``torch.profiler``: the kernels' device ms, the device's
-   busy and idle share).
+   both routes (the fp32 lanes' launches), ``train_lstm_wide`` (hidden
+   1024, AMP, 1 + 3 steps: B14/B15's bf16 streaming route, 2 x steps
+   each), and ``profile_lstm`` (three
+   steps under ``torch.profiler``: the kernels' device ms a step, the
+   pre-pass, the recurrences and the post-pass by name, the device's busy
+   and idle share).
 
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
 lane of every kernel), the ``serve``, ``train``, seq2seq and LSTM lines
@@ -2178,6 +2196,25 @@ LSTM_KERNELS = {
 }
 LSTM_COMPOSED = ("lstm_fwd", "lstm_bwd", "lstm_dw")
 LSTM_PROJ = ("lstm_proj_fwd", "lstm_proj_bwd", "lstm_proj_dw")
+# B14/B15's routes (fused_rnn.lstm_cluster_plan): the launch names each
+# adds to LSTM_PROJ, and the resident route's pre- and post-pass kernels,
+# each with the TPU kernel whose product it computes
+LSTM_ROUTE_NAMES = {
+    "resident": ("lstm_proj_fwd_cluster", "lstm_proj_bwd_cluster",
+                 "lstm_proj_xg", "lstm_proj_dxe"),
+    "streaming": ("lstm_proj_fwd_stream", "lstm_proj_bwd_stream")}
+LSTM_PASSES = {"lstm_proj_xg": "paddle_tpu/kernels/fused_rnn.py:663",
+               "lstm_proj_dxe": "paddle_tpu/kernels/fused_rnn.py:700"}
+LSTM_PASS_NOTES = {
+    "lstm_proj_xg": "torch.addmm(b, xe, wx) in bf16 (tensor cores, fp32 "
+                    "sums, bf16 out where the kernel writes fp32); "
+                    "library_fp32_ms: the same on fp32 copies of the bf16 "
+                    "operands (the exact function: bf16 products are exact "
+                    "in fp32), a CUDA-core fp32 GEMM",
+    "lstm_proj_dxe": "torch.matmul(dx, wx.t()) in bf16 (fp32 sums, bf16 "
+                     "out)"}
+XG_REL_TOL = 1e-5               # fp32 sums of exact bf16 products
+DXE_REL_TOL = 2.0 ** -7         # one bf16 rounding of the fp32 sum
 LSTM_LIBRARY_NOTE = ("none: no PyTorch call computes this LSTM "
                      "(torch.nn.LSTM / cuDNN has two bias vectors, its own "
                      "gate layout, and no length mask that keeps c)")
@@ -2198,6 +2235,13 @@ TEXT_B, TEXT_T, TEXT_LR = 128, 100, 0.002
 LSTM_SHAPES = {"layer1": (100, 128, 512, 128, False),
                "layer2": (100, 128, 512, 512, False),
                "ragged": (100, 128, 512, 128, True)}
+# the classifier at hidden 1024 (5f's train_lstm_wide): past D 512 W's
+# slices would not fit a 16-CTA cluster, so B14/B15's bf16 lane takes the
+# streaming route; 3f holds it at the wide model's first layer (T, B, D, E)
+TEXT_WIDE_CFG = dict(TEXT_CFG, hid_dim=1024)
+LSTM_STREAM_SHAPE = (TEXT_T, TEXT_B, TEXT_WIDE_CFG["hid_dim"],
+                     TEXT_CFG["emb_dim"])
+LSTM_STREAM_ROWS = ("lstm_proj_fwd_stream", "lstm_proj_bwd_stream")
 
 
 def _lstm_case(dev, T, B, D, E, ragged, seed=0):
@@ -2259,6 +2303,116 @@ def _lstm_bound(name, dtype, T, B, D, E):
     t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def _pass_bound(name, T, B, D, E):
+    """Least time of the resident route's pre-pass (xe, Wx, b -> xg fp32)
+    or post-pass (dx, Wx -> dxe bf16): bytes over the HBM rate against
+    the product at the bf16 tensor-core rate."""
+    tb, G = T * B, 4 * D
+    if name == "lstm_proj_xg":
+        nbytes = 2 * (tb * E + E * G + G) + 4 * tb * G
+    else:
+        nbytes = 2 * (tb * G + E * G + tb * E)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 2.0 * tb * E * G / H100_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def lstm_exchange(fr, dev, flush, plan, D, T=100):
+    """The resident recurrences' cluster exchange alone at the plan's
+    tile (fused_rnn.lstm_cluster_probe): device µs a step of the
+    forward's (h slice to every CTA, one barrier), the backward's
+    (reduce-scatter, two barriers) and the barrier alone, each over T
+    steps less an empty launch."""
+    out = {"T": T, "bb": plan.bb, "tiles": plan.tiles}
+    for mode, name in ((0, "fwd"), (1, "bwd"), (2, "barrier")):
+        full = _time_ms(lambda: fr.lstm_cluster_probe(
+            D, plan.bb, plan.tiles, T, mode, dev), flush, reps=10,
+            queue_ahead=True)
+        empty = _time_ms(lambda: fr.lstm_cluster_probe(
+            D, plan.bb, plan.tiles, 0, mode, dev), flush, reps=10,
+            queue_ahead=True)
+        out[f"{name}_us_per_step"] = (full - empty) * 1e3 / T
+    return out
+
+
+def _lstm_resident(fr, dev, flush, c, o, T, B, D, E):
+    """B14/B15 bf16 on the resident route at one layer: the plan, device
+    ms of each wrapper (pre-pass + recurrence; recurrence + post-pass)
+    and of each recurrence alone (µs a step), and kernel-line records of
+    the pre-pass and the post-pass against their plain versions (two
+    launches bit-equal)."""
+    plan = fr._cluster_plan(torch.bfloat16, B, D, dev)
+    _check(plan.route == "resident", f"lstm bf16 D {D}: route {plan}")
+    xe, wx, b, w, lens, h0, c0 = (c[k] for k in ("xe", "wx", "b", "w",
+                                                "lens", "h0", "c0"))
+    dhs, dcs = c["dhs"], c["dcs"]
+    xg = fr.lstm_proj_xg(xe, wx, b)
+    bargs = (o["p_gates"], o["p_cs"], w, lens, h0, c0, dhs, dcs)
+    dx = fr.lstm_cluster_bwd(*bargs)[0]
+    rec_fwd = _time_ms(lambda: fr.lstm_cluster_fwd(xg, w, lens, h0, c0),
+                       flush, reps=10, queue_ahead=True)
+    rec_bwd = _time_ms(lambda: fr.lstm_cluster_bwd(*bargs), flush, reps=10,
+                       queue_ahead=True)
+    out = {"plan": {"route": plan.route, "bb": plan.bb,
+                    "clusters": plan.tiles, "cluster_ctas": plan.cluster,
+                    "max_clusters": plan.max_clusters,
+                    "smem_bytes": plan.smem},
+           "device_ms": {
+               "lstm_proj_fwd": _time_ms(
+                   lambda: fr.lstm_proj_fwd(xe, wx, b, w, lens, h0, c0),
+                   flush, reps=10, queue_ahead=True),
+               "lstm_proj_bwd": _time_ms(
+                   lambda: fr.lstm_proj_bwd_data(o["p_gates"], o["p_cs"],
+                                                 wx, w, lens, h0, c0, dhs,
+                                                 dcs),
+                   flush, reps=10, queue_ahead=True),
+               "recurrence_fwd": rec_fwd, "recurrence_bwd": rec_bwd},
+           "us_per_step": {"fwd": rec_fwd * 1e3 / T,
+                           "bwd": rec_bwd * 1e3 / T}}
+    mm = torch.backends.cuda.matmul
+    xe2, wxf = xe.reshape(T * B, E), wx.float()
+    xef, bf_ = xe2.float(), b.float()
+    dx2 = dx.reshape(T * B, 4 * D)
+    passes = {
+        "lstm_proj_xg": (lambda: fr.lstm_proj_xg(xe, wx, b),
+                         lambda: fr.lstm_proj_xg_reference(xe, wx, b),
+                         lambda: torch.addmm(b, xe2, wx), XG_REL_TOL),
+        "lstm_proj_dxe": (lambda: fr.lstm_proj_dxe(dx, wx),
+                          lambda: fr.lstm_proj_dxe_reference(dx, wx),
+                          lambda: torch.matmul(dx2, wx.t()), DXE_REL_TOL)}
+    out["passes"] = {}
+    for name, (kernel_fn, plain_fn, lib_fn, tol) in passes.items():
+        got, again, want = kernel_fn(), kernel_fn(), plain_fn()
+        _check(torch.equal(got, again),
+               f"{name}: two launches on the same inputs differ")
+        err = _max_err(got, want)
+        scale = float(want.float().abs().max())
+        _check(err <= tol * max(scale, 1e-30),
+               f"{name}: {err} from its plain version (max |plain| "
+               f"{scale}, tolerance {tol} of it)")
+        prev = mm.allow_bf16_reduced_precision_reduction
+        mm.allow_bf16_reduced_precision_reduction = False
+        try:
+            lib_ms = _time_ms(lib_fn, flush)
+        finally:
+            mm.allow_bf16_reduced_precision_reduction = prev
+        out["passes"][name] = _lane_record(
+            f"{name}_bf16", LSTM_PASSES[name], GRU_SOURCE, err,
+            _time_ms(kernel_fn, flush),
+            _time_ms(plain_fn, flush, reps=5), lib_ms,
+            _pass_bound(name, T, B, D, E),
+            {"shape": [T, B, D, E], "dtype": "bfloat16",
+             "err_is": f"max abs, <= {tol} x max|plain|",
+             "device_ms": _time_ms(kernel_fn, flush, queue_ahead=True),
+             "library_note": LSTM_PASS_NOTES[name],
+             "bit_equal_two_launches": True})
+    out["passes"]["lstm_proj_xg"]["library_fp32_ms"] = _time_ms(
+        lambda: torch.addmm(bf_, xef, wxf), flush)
+    del xg, dx, xef, dx2
+    return out
 
 
 def _rel_max(a, b):
@@ -2410,6 +2564,20 @@ def check_lstm(fr, kernels, dev, flush, dtype):
         }
         # B10/B11 do not depend on E: timed once, at layer 1
         names = LSTM_KERNELS if key == "layer1" else LSTM_PROJ
+        # the bf16 lane of B14/B15 takes the resident route: device ms,
+        # µs a step, the plan, and its pre- and post-pass kernels
+        res_keys = ({"lstm_proj_fwd": "fwd", "lstm_proj_bwd": "bwd"}
+                    if lane == "bf16" else {})
+        if res_keys:
+            res = _lstm_resident(fr, dev, flush, c, o, T, B, D, E)
+            for pname, prec in res["passes"].items():
+                if key == "layer1":
+                    recs[pname] = prec
+                else:
+                    recs[pname].update({f"layer2_{k}": prec[k] for k in (
+                        "ms", "device_ms", "bound_ms", "library_ms",
+                        "library_fp32_ms", "max_abs_err", "shape")
+                        if k in prec})
         for name in names:
             kernel_fn, plain_fn = calls[name]
             extra = {"library_note": LSTM_LIBRARY_NOTE, "library_ms": None}
@@ -2424,6 +2592,11 @@ def check_lstm(fr, kernels, dev, flush, dtype):
                                    "layer2_bound_ms": bound[0],
                                    "layer2_library_ms": extra["library_ms"],
                                    "layer2_shape": [T, B, D, E]})
+                if name in res_keys:
+                    recs[name].update({
+                        "layer2_device_ms": res["device_ms"][name],
+                        "layer2_us_per_step": res["us_per_step"][
+                            res_keys[name]]})
                 continue
             outs = LSTM_OUTPUTS[name]
             rec = _lane_record(
@@ -2439,10 +2612,107 @@ def check_lstm(fr, kernels, dev, flush, dtype):
             if lane == "bf16":
                 rec["err_vs_fp32_and_plain_bf16_err"] = {n: worst[n]
                                                          for n in outs}
+            if name in res_keys:
+                rec.update({"plan": res["plan"],
+                            "device_ms": res["device_ms"][name],
+                            "us_per_step": res["us_per_step"][
+                                res_keys[name]],
+                            "recurrence_device_ms": res["device_ms"][
+                                "recurrence_" + res_keys[name]]})
+                if name == "lstm_proj_fwd":
+                    rec["exchange"] = lstm_exchange(
+                        fr, dev, flush, fr._cluster_plan(dtype, B, D, dev),
+                        D, T)
             recs[name] = rec
         del c, o, calls
     kernels.reset_launches()
     return recs
+
+
+def check_lstm_streaming(fr, kernels, dev, flush):
+    """Phase 3f, B14/B15's bf16 lane on the streaming route (one kernel a
+    direction reading W and Wx from L2 every step) at LSTM_STREAM_SHAPE:
+    the plan must stream; one forward and one backward (from the kernel's
+    own gates) each count once under ``lstm_proj_{fwd,bwd}`` and their
+    ``_stream`` names and launch nothing else; every output no further
+    from the fp32 plain result than 1.5x the bf16 plain version + 1e-3
+    (3f's bf16 gate, LSTM_OUTPUTS' measures). Then each timed beside its
+    plain version and its bound. Returns kernels-line records keyed by
+    the route's launch names."""
+    T, B, D, E = LSTM_STREAM_SHAPE
+    dtype = torch.bfloat16
+    plan = fr._cluster_plan(dtype, B, D, dev)
+    _check(plan.route == "streaming", f"lstm bf16 D {D}: route {plan}")
+    c = {k: (v if k == "lens" else v.to(dtype))
+         for k, v in _lstm_case(dev, T, B, D, E, False).items() if k != "x"}
+    xe, wx, b, w, lens, h0, c0 = (c[k] for k in ("xe", "wx", "b", "w",
+                                                "lens", "h0", "c0"))
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    got = {"lstm_proj_fwd": fr.lstm_proj_fwd(xe, wx, b, w, lens, h0, c0)}
+    bargs = (got["lstm_proj_fwd"][2], got["lstm_proj_fwd"][1], wx, w, lens,
+             h0, c0, c["dhs"], c["dcs"])
+    got["lstm_proj_bwd"] = fr.lstm_proj_bwd_data(*bargs)
+    torch.cuda.synchronize()
+    moved = {n: k - before[n] for n, k in kernels.LAUNCHES.items()
+             if k != before[n]}
+    want = dict.fromkeys(("lstm_proj_fwd", "lstm_proj_bwd",
+                          *LSTM_STREAM_ROWS), 1)
+    _check(moved == want, f"lstm bf16 D {D}: launches {moved}, want {want}")
+    f32 = [a if a is lens else a.float() for a in (xe, wx, b, w, lens, h0,
+                                                    c0)]
+    plain = {"lstm_proj_fwd": fr.lstm_proj_fwd_reference(xe, wx, b, w, lens,
+                                                         h0, c0),
+             "lstm_proj_bwd": fr.lstm_proj_bwd_data_reference(*bargs)}
+    exact = {"lstm_proj_fwd": fr.lstm_proj_fwd_reference(*f32),
+             "lstm_proj_bwd": fr.lstm_proj_bwd_data_reference(
+                 *(a if a is lens else a.float() for a in bargs))}
+    calls = {"lstm_proj_fwd": (lambda: fr.lstm_proj_fwd(xe, wx, b, w, lens,
+                                                        h0, c0),
+                               lambda: fr.lstm_proj_fwd_reference(
+                                   xe, wx, b, w, lens, h0, c0)),
+             "lstm_proj_bwd": (lambda: fr.lstm_proj_bwd_data(*bargs),
+                               lambda: fr.lstm_proj_bwd_data_reference(
+                                   *bargs))}
+    recs = {}
+    for name, (kernel_fn, plain_fn) in calls.items():
+        outs = LSTM_OUTPUTS[name]
+        gate = {}
+        for n, g, p, e in zip(outs, got[name], plain[name], exact[name]):
+            gate[n] = (_LSTM_MEASURE[outs[n]](g, e),
+                       _LSTM_MEASURE[outs[n]](p, e))
+            _check(gate[n][0] <= FLASH_BF16_RATIO * gate[n][1] + 1e-3,
+                   f"lstm bf16 streaming D {D}: {n} is {gate[n][0]} from "
+                   f"fp32, the plain version {gate[n][1]}")
+        ms = _time_ms(kernel_fn, flush, reps=10)
+        device_ms = _time_ms(kernel_fn, flush, reps=10, queue_ahead=True)
+        recs[f"{name}_stream"] = _lane_record(
+            f"{name}_bf16_stream", LSTM_KERNELS[name], GRU_SOURCE,
+            max(e for e, _p in gate.values()), ms,
+            _time_ms(plain_fn, flush, reps=3), None,
+            _lstm_bound(name, dtype, T, B, D, E),
+            {"shape": [T, B, D, E], "dtype": "bfloat16",
+             "plan": {"route": plan.route}, "device_ms": device_ms,
+             "us_per_step": device_ms * 1e3 / T,
+             "err_is": dict(outs), "err_vs_fp32_and_plain_bf16_err": gate,
+             "library_note": LSTM_LIBRARY_NOTE})
+    del c, got, plain, exact, calls
+    kernels.reset_launches()
+    return recs
+
+
+def _lstm_route_names(dev, fused_proj, amp, ragged=False,
+                      D=TEXT_CFG["hid_dim"]):
+    """The launch names a classifier step's two LSTM layers add to, once
+    each: the composed route's three (fc + dynamic_lstm, or a ragged
+    batch), or B14/B15's with those of the route ``lstm_cluster_plan``
+    gives layers of width D (the flagship's) in the step's dtype."""
+    from paddle_tpu_torch.kernels import fused_rnn as fr
+    if not fused_proj or ragged:
+        return LSTM_COMPOSED
+    dtype = torch.bfloat16 if amp else torch.float32
+    route = fr._cluster_plan(dtype, TEXT_B, D, dev).route
+    return LSTM_PROJ + LSTM_ROUTE_NAMES[route]
 
 
 def _text_feeds(dev, n=4, seed=0, ragged=False):
@@ -2489,8 +2759,8 @@ def check_text_step(tx, fr, kernels, dev):
     recs = []
     for fused_proj in (True, False):
         exact = None
-        route = LSTM_PROJ if fused_proj else LSTM_COMPOSED
         for amp in (False, True):
+            route = _lstm_route_names(dev, fused_proj, amp)
             torch.cuda.empty_cache()
             cfg = tx.TextConfig(**TEXT_CFG, fused_proj=fused_proj, amp=amp)
             params = tx.init_params(cfg, seed=0, device=dev)
@@ -2550,7 +2820,7 @@ def check_text_step(tx, fr, kernels, dev):
 
 
 def train_text(tx, kernels, dev, key="train_lstm", fused_proj=True,
-               amp=True, ragged=False, warmup=3, steps=20):
+               amp=True, ragged=False, warmup=3, steps=20, widths=TEXT_CFG):
     """Phase 5f: a flagship training run. ``make_train_step(cfg, "adam",
     0.002)`` at bench_lstm's shape over 4 seeded feeds: ``warmup`` steps,
     then ``steps`` timed in one window (tokens/s: B x T words per step;
@@ -2559,10 +2829,10 @@ def train_text(tx, kernels, dev, key="train_lstm", fused_proj=True,
     words of a ragged batch), every loss
     read back once at the end and held finite. The launch counts are
     zeroed just before the first step and read just after the last:
-    each kernel of the route (fused_lstm on uniform lengths: B14/B15;
-    fc + dynamic_lstm, or any ragged batch: B10/B11) runs twice a
-    step."""
-    cfg = tx.TextConfig(**TEXT_CFG, fused_proj=fused_proj, amp=amp)
+    each kernel of the route (fused_lstm on uniform lengths: B14/B15 on
+    the route ``lstm_cluster_plan`` gives ``widths``' hidden size; fc +
+    dynamic_lstm, or any ragged batch: B10/B11) runs twice a step."""
+    cfg = tx.TextConfig(**widths, fused_proj=fused_proj, amp=amp)
     params = tx.init_params(cfg, seed=0, device=dev)
     opt, step = tx.make_train_step(cfg, "adam", TEXT_LR)
     state = opt.init(params)
@@ -2588,7 +2858,8 @@ def train_text(tx, kernels, dev, key="train_lstm", fused_proj=True,
     launches = dict(kernels.LAUNCHES)              # read just after
     n = warmup + steps
     want = dict.fromkeys(kernels.LAUNCHES, 0)
-    route = LSTM_PROJ if fused_proj and not ragged else LSTM_COMPOSED
+    route = _lstm_route_names(dev, fused_proj, amp, ragged,
+                              widths["hid_dim"])
     want.update(dict.fromkeys(route, 2 * n))
     _check(launches == want, f"{key}: launches {launches} over {n} steps, "
            f"want {want}")
@@ -2604,7 +2875,7 @@ def train_text(tx, kernels, dev, key="train_lstm", fused_proj=True,
     kernels.reset_launches()
     return {key: {
         "amp": amp, "fused_proj": fused_proj, "ragged": ragged,
-        "batch": [TEXT_B, TEXT_T], "widths": TEXT_CFG, "lr": TEXT_LR,
+        "batch": [TEXT_B, TEXT_T], "widths": widths, "lr": TEXT_LR,
         "optimizer": "adam", "warmup_steps": warmup, "timed_steps": steps,
         "wall_s": wall, "tokens_per_s": words * steps / wall,
         "ms_per_batch_p50": float(np.median(step_ms)),
@@ -2634,7 +2905,9 @@ def profile_text(tx, dev):
     return {"profile_lstm": dict(
         {"batch": [TEXT_B, TEXT_T], "amp": True, "fused_proj": True},
         **_profile([lambda i=i: call(i) for i in range(5)],
-                   named=("lstm_fwd_kernel", "lstm_bwd_kernel",
+                   named=("lstm_xg_kernel", "lstm_cluster_fwd_kernel",
+                          "lstm_cluster_bwd_kernel", "lstm_dxe_kernel",
+                          "lstm_fwd_kernel", "lstm_bwd_kernel",
                           "dw_wgmma", "sum_partials")))}
 
 
@@ -2730,6 +3003,9 @@ def main():
     llanes = {}
     for dtype in (torch.float32, torch.bfloat16):
         llanes[dtype] = check_lstm(fr, kernels, dev, flush, dtype)
+        if dtype == torch.bfloat16:
+            llanes[dtype].update(check_lstm_streaming(fr, kernels, dev,
+                                                      flush))
         for rec in llanes[dtype].values():
             _say(f"kernel check: {rec['name']} max_abs_err "
                  f"{rec['max_abs_err']:.3e}")
@@ -2926,18 +3202,31 @@ def main():
             ("train_lstm_ragged", dict(ragged=True)),
             ("train_lstm_fp32", dict(amp=False, warmup=2, steps=5)),
             ("train_lstm_composed_fp32", dict(fused_proj=False, amp=False,
-                                              warmup=2, steps=5))):
+                                              warmup=2, steps=5)),
+            ("train_lstm_wide", dict(widths=TEXT_WIDE_CFG, warmup=1,
+                                     steps=3))):
         torch.cuda.empty_cache()
         text_runs[key] = train_text(tx, kernels, dev, key=key, **kw)
     for dtype, proj_key, comp_key in (
             (torch.float32, "train_lstm_fp32", "train_lstm_composed_fp32"),
             (torch.bfloat16, "train_lstm", "train_lstm_composed")):
         for name, rec in llanes[dtype].items():
-            key = proj_key if name in LSTM_PROJ else comp_key
+            key = (proj_key if name in LSTM_PROJ or name in LSTM_PASSES
+                   else "train_lstm_wide" if name in LSTM_STREAM_ROWS
+                   else comp_key)
             rec["launches"] = text_runs[key][1][name]
             rec["launches_run"] = key
+            if name in ("lstm_proj_fwd", "lstm_proj_bwd"):
+                rec["launches_by_route"] = {
+                    r: text_runs[key][1][f"{name}{sfx}"]
+                    for r, sfx in (("resident", "_cluster"),
+                                   ("streaming", "_stream"))}
     torch.cuda.empty_cache()
     plrec = profile_text(tx, dev)
+    fused = text_runs["train_lstm"][0]["train_lstm"]
+    composed = text_runs["train_lstm_composed"][0]["train_lstm_composed"]
+    fused["ms_per_batch_vs_composed"] = (fused["ms_per_batch_p50"]
+                                         / composed["ms_per_batch_p50"])
     text_runs["train_lstm"][0]["train_lstm"].update({
         "device_busy_ms_per_step_profiled":
             plrec["profile_lstm"]["device_busy_ms_per_step"],
@@ -2963,7 +3252,11 @@ def main():
         *(glanes[d][n] for d in (torch.float32, torch.bfloat16)
           for n in GRU_KERNELS),
         *(llanes[d][n] for d in (torch.float32, torch.bfloat16)
-          for n in LSTM_KERNELS)]}))
+          for n in LSTM_KERNELS),
+        *(llanes[torch.bfloat16][n] for n in LSTM_PASSES
+          if n in llanes[torch.bfloat16]),
+        *(llanes[torch.bfloat16][n] for n in LSTM_STREAM_ROWS
+          if n in llanes[torch.bfloat16])]}))
     _say(json.dumps(srec))
     for rec in (sqrec, s8rec, sbrec):
         _say(json.dumps(rec))

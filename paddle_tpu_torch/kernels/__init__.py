@@ -32,7 +32,16 @@ LAUNCHES: Dict[str, int] = {"paged_attention_mixed": 0,
                             "lstm_dw": 0,
                             "lstm_proj_fwd": 0,
                             "lstm_proj_bwd": 0,
-                            "lstm_proj_dw": 0}
+                            "lstm_proj_dw": 0,
+                            # B14/B15's two routes (each launch also counts
+                            # under lstm_proj_fwd / _bwd) and the resident
+                            # route's pre- and post-pass GEMMs
+                            "lstm_proj_fwd_cluster": 0,
+                            "lstm_proj_bwd_cluster": 0,
+                            "lstm_proj_fwd_stream": 0,
+                            "lstm_proj_bwd_stream": 0,
+                            "lstm_proj_xg": 0,
+                            "lstm_proj_dxe": 0}
 
 
 def reset_launches() -> None:

@@ -1,6 +1,7 @@
 // Fused LSTM and GRU recurrences for Hopper (sm_90a), each with a
 // float32 and a bfloat16 lane (the recurrences on the CUDA cores, the dW
-// reductions' bf16 lane on the tensor cores):
+// reductions' bf16 lane on the tensor cores; B14/B15's bf16 lane on the
+// resident route below, its products on the tensor cores):
 //   LSTM (gates i|f|c~|o, w [D, 4D]):
 //     lstm_fwd       (B10) replaces paddle_tpu/kernels/fused_rnn.py:
 //                    _lstm_fwd_kernel, launched by _lstm_fwd_call;
@@ -11,6 +12,11 @@
 //     lstm_proj_bwd  (B15) _lstm_proj_bwd_kernel (_lstm_proj_bwd_call):
 //     (+ lstm_dw     the recurrence with dxe = dgates_lp @ Wx^T and the
 //      over [Wx; W]) fp32 db, then dWx and dW in one reduction;
+//     B14/B15 in bf16, the resident route (rc:: below, C entries
+//     proj_gemm, cluster_lstm_fwd, cluster_lstm_bwd): lstm_xg_kernel
+//     (xe @ Wx + b for every step), lstm_cluster_fwd_kernel,
+//     lstm_cluster_bwd_kernel, lstm_dxe_kernel (dx @ Wx^T for every
+//     step);
 //   GRU (gates u|r|c~, w [D, 3D]):
 //     gru_fwd        (B12) _gru_fwd_kernel (_gru_fwd_call);
 //     gru_bwd +      (B13) the reverse recurrence and the dW reduction
@@ -92,11 +98,44 @@
 //     (the wrapper's dw_plan: the most splits that keep one wave of
 //     blocks) whose fp32 partials a second pass sums in split order. No
 //     atomics: the same inputs give the same bits.
-// The LSTM's W is 2 MiB in bf16 (B14/B15 add Wx, 0.5 or 2 MiB), so its
-// steps are set by the same L2 reads: 128 blocks x 2.5-4 MiB a step.
-// Left for later work: tensor cores in the recurrences, W split across
-// the SMs and kept resident with a per-step grid barrier, cp.async
-// prefetch of the next step's x.
+// The LSTM's W is 2 MiB in bf16 (B14/B15 add Wx, 0.5 or 2 MiB), so the
+// streaming kernels' steps are set by the same L2 reads: 128 blocks x
+// 2.5-4 MiB a step (B10/B11, and B14/B15 in fp32 and where the resident
+// route does not fit).
+//
+// B14/B15's bf16 resident route. What is left of a step once the input
+// projection leaves it (xe @ Wx + b does not depend on h; dxe = dgates
+// @ Wx^T does not feed the recurrence) is [B, D] x [D, 4D]: 2.1 MFLOP
+// per 16 batch rows, far too little to hide L2 streaming of W. So W stays
+// on chip: one thread-block cluster of D / 32 CTAs per tile of 16 or 32
+// batch rows (16 CTAs at D 512: 16 x 227 KB holds W's 2 MiB, [Wx; W]'s 4
+// would not fit), CTA j keeping the 128 gate columns of hidden units
+// 32j..32j+31 (128 KiB at D 512) in shared memory for all T steps.
+// Per step a CTA needs the whole h (forward) or contributes a partial
+// to every unit's dh (reverse), so the CTAs of a cluster exchange h's
+// bf16 slices (an all-gather) or dh's fp32 partials (a reduce-scatter)
+// through distributed shared memory, with the hardware cluster barrier
+// (arrive after the stores, wait before the reads) ordering each step;
+// nothing crosses clusters, so clusters never wait on each other and
+// the tiles beyond what the card holds at once run in waves. The
+// products run on mma.sync m16n8k16 (bf16 in, fp32 sums) from the
+// resident slice: the forward reads it as B [k][n] by ldmatrix, the
+// reverse reads the same bytes transposed by ldmatrix.trans, so no
+// transposed copy of W is made. The input projection runs before the
+// loop as one GEMM (lstm_xg_kernel, fp32 out: the Pallas sum (xe Wx +
+// b) + h W keeps its first term unrounded, and a bf16 xg would move
+// 12-30 % of the gates by an ulp), and dxe after it from the rounded
+// dgates (lstm_dxe_kernel: the same GEMM with Wx read transposed).
+// What bounds a step is the exchange, not the product: on an H100 (700
+// W) a 16-CTA cluster barrier costs 0.7 us, and distributed shared
+// memory moved 10-20 B a cycle into each SM, which the destinations'
+// order, rotated by the sender's rank so that every receiver is busy at
+// once, took from 3.3 to 2.2 us (forward, 30 KiB a CTA) and from 8.9 to
+// 6.3 us (reverse, 60 KiB of fp32 partials and two barriers) a step.
+// The card holds 7 such clusters at once, so at B 128 the plan takes 4
+// tiles of 32 rows, not 8 of 16. Sums run in fixed orders (the K halves
+// in the forward, the slots in rank order and db's partials in row-group
+// and tile order in the reverse): two launches give the same bits.
 //
 // Built by paddle_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -1462,6 +1501,868 @@ cudaError_t launch_dw(const void* xe, const void* hs, const void* h0,
 // E (the B14/B15 input width): a multiple of 64 (the dWx tiles)
 bool bad_e(int E) { return E < 64 || E % 64 != 0; }
 
+// ------------------------- B14/B15 bf16: the resident route (rc)
+//
+// Three launches stand in for the bf16 lstm_proj_fwd / lstm_proj_bwd
+// recurrence kernels above (notes at the top of the file):
+//   lstm_xg_kernel           xg [T*B, 4D] fp32 = xe @ Wx + b, every step
+//                            at once (a tensor-core GEMM);
+//   lstm_cluster_fwd_kernel  the forward recurrence from xg, W resident;
+//   lstm_cluster_bwd_kernel  the reverse recurrence: dx, db, dh0, dc0;
+//   lstm_dxe_kernel          dxe [T*B, E] = dx @ Wx^T (the GEMM of the
+//                            pre-pass with B read transposed, bf16 out).
+namespace rc {
+
+constexpr int kU = 32;          // hidden units a CTA of a cluster owns
+constexpr int kN = 4 * kU;      // its gate columns: i|f|c~|o of its units
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kMaxCluster = 16;
+constexpr int kLdg = kN + 8;    // row stride of the dgates tile (bf16)
+
+// shared memory (bytes) of the recurrences for tiles of 16 * mt rows:
+// W's slice [kN][D + 8] bf16 (rows padded by 16 bytes, so ldmatrix's
+// eight row addresses fall on distinct banks), then the forward's h
+// buffers [2][BB][D + 8] bf16, its staged h slice [BB][kU] bf16 and the
+// K halves' partial sums [4][mt][4][32][4] fp32; the backward's dgates
+// tile [BB][kLdg] bf16 and the reduce-scatter slots [nc][BB][kU] fp32
+constexpr int fwd_smem(int mt, int D) {
+  return 2 * (kN * (D + 8) + 2 * 16 * mt * (D + 8) + 16 * mt * kU) +
+         4 * (4 * mt * 4 * 32 * 4);
+}
+constexpr int bwd_smem(int mt, int D) {
+  return 2 * (kN * (D + 8) + 16 * mt * kLdg) + 4 * (D / kU) * 16 * mt * kU;
+}
+constexpr int probe_smem(int mt, int D) {
+  return fwd_smem(mt, D) > bwd_smem(mt, D) ? fwd_smem(mt, D)
+                                           : bwd_smem(mt, D);
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// the hardware cluster barrier in two halves: writes to any CTA's shared
+// memory before a thread's arrive are seen by every thread after its wait
+// (.aligned: every lane of the warp executes it together)
+__device__ __forceinline__ void cl_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cl_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// 16 / 8 bytes into CTA `rank`'s shared memory at the offset of addr
+__device__ __forceinline__ void st_cl16(uint32_t addr, uint32_t rank,
+                                        uint4 v) {
+  asm volatile(
+      "{\n.reg .b32 a;\nmapa.shared::cluster.u32 a, %0, %1;\n"
+      "st.shared::cluster.v4.u32 [a], {%2, %3, %4, %5};\n}\n" ::"r"(addr),
+      "r"(rank), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+      : "memory");
+}
+__device__ __forceinline__ void st_cl8(uint32_t addr, uint32_t rank,
+                                       float a, float b) {
+  asm volatile(
+      "{\n.reg .b32 a;\nmapa.shared::cluster.u32 a, %0, %1;\n"
+      "st.shared::cluster.v2.f32 [a], {%2, %3};\n}\n" ::"r"(addr),
+      "r"(rank), "f"(a), "f"(b)
+      : "memory");
+}
+// four 8 x 8 b16 matrices (lanes 8i..8i+7 give matrix i's row addresses;
+// lane 4g + t receives elements 2t, 2t + 1 of row g of each), and the
+// transposed form (lane 4g + t receives rows 2t, 2t + 1 of column g)
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t r[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 sums. Fragments
+// (lane 4g + t): a0 = A[g][2t, 2t+1], a1 = A[g+8][..], a2 = A[g][2t+8,
+// 2t+9], a3 = A[g+8][..]; b0 = B[2t, 2t+1][g], b1 = B[2t+8, 2t+9][g];
+// d0, d1 = D[g][2t, 2t+1], d2, d3 = D[g+8][2t, 2t+1]
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ws[n][k] = W[k][(n / kU) * D + u0 + n % kU] (n < kN, k < D): the CTA's
+// gate columns of W [D, 4D], transposed, eight k to a 16-byte store;
+// four such items a thread at a time, so that 32 loads are in flight
+__device__ __forceinline__ void load_w_slice(const bf16* __restrict__ w,
+                                             bf16* ws, int D, int u0) {
+  constexpr int kBatch = 4;
+  const int G = 4 * D, ld = D + 8, total = kN * (D / 8);
+  const unsigned short* wu = reinterpret_cast<const unsigned short*>(w);
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kThreads) {
+    uint32_t v[kBatch][4];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      const int n = i % kN, k0 = 8 * (i / kN);
+      const unsigned short* src =
+          wu + static_cast<size_t>(k0) * G + (n / kU) * D + u0 + n % kU;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[u][j] = i < total
+                      ? static_cast<uint32_t>(__ldg(src + 2 * j * G)) |
+                            static_cast<uint32_t>(
+                                __ldg(src + (2 * j + 1) * G)) << 16
+                      : 0u;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < total) {
+        *reinterpret_cast<uint4*>(ws + (i % kN) * ld + 8 * (i / kN)) =
+            make_uint4(v[u][0], v[u][1], v[u][2], v[u][3]);
+      }
+    }
+  }
+}
+
+// the tile's new h slice hst [BB][kU] into the h buffer `hnext` [BB][ld]
+// of every CTA of the cluster, at this CTA's columns u0..u0+31. The
+// destinations are taken in an order rotated by the sender's rank, so
+// that the CTAs' stores spread over every receiver at once.
+template <int BB>
+__device__ __forceinline__ void push_h(const bf16* hst, const bf16* hnext,
+                                       int ld, int u0, int nc, int me) {
+  const uint32_t dst0 = smem_u32(hnext + u0);
+  for (int i = threadIdx.x; i < nc * BB * 4; i += kThreads) {
+    const int part = i & 3, r = (i >> 2) % BB;
+    const uint32_t rank = static_cast<uint32_t>((i / (4 * BB) + me) % nc);
+    const uint4 v = *reinterpret_cast<const uint4*>(hst + r * kU + 8 * part);
+    st_cl16(dst0 + 2 * (r * ld + 8 * part), rank, v);
+  }
+}
+
+// the n-tile (8 of the D columns) that warp `warp` of CTA `rank` takes as
+// its j-th in the backward's product: warp + 8 j' with j' = j + rank
+// (mod 8), so that, j by j, the CTAs' partials go to different owners
+__device__ __forceinline__ int bwd_tile(int warp, int j, int rank) {
+  return warp + 8 * ((j + rank) & 7);
+}
+
+// the backward's partial dh_prev (this warp's n-tiles) into slot `rank`
+// of each column's owner: CTA n / kU
+template <int MT>
+__device__ __forceinline__ void push_partials(const float (&acc)[MT][8][4],
+                                              const float* slot, int rank,
+                                              int n_nt, int warp, int lane) {
+  constexpr int BB = 16 * MT;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int nt = bwd_tile(warp, j, rank);
+    if (nt >= n_nt) continue;
+    const int n0 = 8 * nt;
+    const uint32_t owner = static_cast<uint32_t>(n0 / kU);
+    const int col = n0 % kU + 2 * t4;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = 16 * mt + g + 8 * rr;
+        st_cl8(smem_u32(slot + (rank * BB + row) * kU + col), owner,
+               acc[mt][j][2 * rr], acc[mt][j][2 * rr + 1]);
+      }
+    }
+  }
+}
+
+// one cell's step from its four pre-activations p0..p3 (i, f, c~, o):
+// the fp32 carries hp, cp updated under the step's mask m, the four
+// activations out (scalars throughout, so that nothing leaves registers)
+__device__ __forceinline__ void cell(float p0, float p1, float p2, float p3,
+                                     float m, float& hp, float& cp,
+                                     float& g0, float& g1, float& g2,
+                                     float& g3) {
+  g0 = sigmoid(p0);
+  g1 = sigmoid(p1);
+  g2 = tanhf(p2);
+  g3 = sigmoid(p3);
+  const float ct = g1 * cp + g0 * g2;
+  const float ht = g3 * tanhf(ct);
+  hp = m * ht + (1.f - m) * hp;
+  cp = m * ct + (1.f - m) * cp;
+}
+
+// xg of step t for this thread's cells: rows 16 mt + g + 8 kh, units uc,
+// uc + 1, the four gates (zeros on padding rows)
+template <int MT>
+__device__ __forceinline__ void load_xg(const float* __restrict__ xg,
+                                        float (&xv)[MT][4][2], int t, int B,
+                                        int D, int row0, int uc) {
+  const int G = 4 * D;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int b = row0 + 16 * mt;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float2 v = make_float2(0.f, 0.f);
+      if (b < B) {
+        v = __ldcs(reinterpret_cast<const float2*>(
+            xg + (static_cast<size_t>(t) * B + b) * G + q * D + uc));
+      }
+      xv[mt][q][0] = v.x;
+      xv[mt][q][1] = v.y;
+    }
+  }
+}
+
+// B14's recurrence. One cluster of nc = D / 32 CTAs per tile of BB = 16
+// MT batch rows; CTA `rank` owns hidden units u0 = 32 rank .. u0 + 31 and
+// keeps its 128 columns of W in shared memory for all T steps. Per step
+// each of its 8 warps multiplies the tile's h (bf16, the whole [BB, D],
+// in the step's h buffer) by W's slice on the tensor cores: warp w takes
+// the 8 units 8 (w % 4).. of all four gates over half of K (kh = w / 4).
+// The halves meet in shared memory: each warp hands the other half's
+// rows to its partner (the same units, the other K half) and takes its
+// own, so warps kh update the cells of rows 16 mt + g + 8 kh; the cells'
+// fp32 carries h and c never leave their registers. The new h slice
+// (bf16) goes to every CTA's other h buffer by DSMEM; one cluster barrier
+// (arrive after the stores, wait before the next product) ends the step,
+// and the step's hs, cs and gates are written to global memory between
+// its two halves.
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_cluster_fwd_kernel(const float* __restrict__ xg,
+                            const bf16* __restrict__ w,
+                            const float* __restrict__ lens,
+                            const bf16* __restrict__ h0,
+                            const bf16* __restrict__ c0,
+                            bf16* __restrict__ hs, bf16* __restrict__ cs,
+                            bf16* __restrict__ gates, int n_steps, int B,
+                            int D) {
+  constexpr int BB = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem_rc[];
+  const int ld = D + 8, G = 4 * D, nc = D / kU;
+  bf16* ws = reinterpret_cast<bf16*>(smem_rc);
+  bf16* hb = ws + kN * ld;              // [2][BB][ld]
+  bf16* hst = hb + 2 * BB * ld;         // [BB][kU]
+  float* red = reinterpret_cast<float*>(hst + BB * kU);  // [2][4][MT][4][32][2]
+  const int rank = static_cast<int>(cluster_rank());
+  const int u0 = rank * kU;
+  const int b0 = static_cast<int>(blockIdx.x) / nc * BB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ug = warp & 3, kh = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int uc = u0 + 8 * ug + 2 * t4;  // the first unit of a cell pair
+  const int rl = g + 8 * kh;            // the cells' row in each m-tile
+
+  load_w_slice(w, ws, D, u0);
+  for (int i = tid; i < BB * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), k0 = 8 * (i % (D / 8));
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (b0 + r < B) {
+      v = *reinterpret_cast<const uint4*>(
+          h0 + static_cast<size_t>(b0 + r) * D + k0);
+    }
+    *reinterpret_cast<uint4*>(hb + r * ld + k0) = v;
+  }
+  float hc[MT][2], cc[MT][2], len[MT], xv[MT][4][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int b = b0 + 16 * mt + rl;
+    const size_t o = static_cast<size_t>(b) * D + uc;
+    len[mt] = b < B ? lens[b] : 0.f;
+#pragma unroll
+    for (int cu = 0; cu < 2; ++cu) {
+      hc[mt][cu] = b < B ? to_f(h0[o + cu]) : 0.f;
+      cc[mt][cu] = b < B ? to_f(c0[o + cu]) : 0.f;
+    }
+  }
+  if (n_steps > 0) load_xg<MT>(xg, xv, 0, B, D, b0 + rl, uc);
+  __syncthreads();
+  cl_arrive();  // the first wait: every CTA has started, its h0 in place
+
+  // per-lane ldmatrix addresses: A (h rows), B (W slice rows of the
+  // warp's units, gates q and q + 1 by lane / 16)
+  const uint32_t a_lane = static_cast<uint32_t>(
+      2 * (((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4)));
+  const uint32_t b_addr = smem_u32(
+      ws + ((lane >> 4) * kU + 8 * ug + (lane & 7)) * ld +
+      8 * ((lane >> 3) & 1));
+  const int kb = kh * (D / 2);
+  // this warp's partials for its partner's rows, and the partner's for
+  // this one's: [writer's kh][ug][mt][q][lane] float2
+  float* red_out = red + ((kh * 4 + ug) * MT * 4 * 32 + lane) * 2;
+  const float* red_in = red + (((kh ^ 1) * 4 + ug) * MT * 4 * 32 + lane) * 2;
+  for (int t = 0; t < n_steps; ++t) {
+    const int cur = t & 1;
+    const uint32_t a_addr = smem_u32(hb + cur * BB * ld) + a_lane;
+    cl_wait();  // h_t is whole in buffer cur
+    float acc[MT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][q][e] = 0.f;
+    for (int k = kb; k < kb + D / 2; k += 16) {
+      uint32_t bq[2][4];  // gates 0, 1 and gates 2, 3
+      ldsm_x4(b_addr + 2 * k, bq[0]);
+      ldsm_x4(b_addr + 2 * (2 * kU * ld + k), bq[1]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        ldsm_x4(a_addr + 2 * (16 * mt * ld + k), a);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mma_bf16(acc[mt][q], a, bq[q >> 1][2 * (q & 1)],
+                   bq[q >> 1][2 * (q & 1) + 1]);
+      }
+    }
+    // a fragment's rows g (elements 0, 1) and g + 8 (2, 3): this warp's
+    // cells are one pair, its partner's the other (selects, not an index
+    // by kh, which would put acc in local memory)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<float2*>(red_out + (mt * 4 + q) * 32 * 2) =
+            kh ? make_float2(acc[mt][q][0], acc[mt][q][1])
+               : make_float2(acc[mt][q][2], acc[mt][q][3]);
+    __syncthreads();
+    float gv[MT][4][2];  // the activations: [mt][gate][unit]
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float m = static_cast<float>(t) < len[mt] ? 1.f : 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 p =
+            *reinterpret_cast<const float2*>(red_in + (mt * 4 + q) * 32 * 2);
+        // (xe_t Wx + b) + h_lp W, h_lp W the two K halves' sum
+        const float m0 = kh ? acc[mt][q][2] : acc[mt][q][0];
+        const float m1 = kh ? acc[mt][q][3] : acc[mt][q][1];
+        acc[mt][q][0] = xv[mt][q][0] + (m0 + p.x);
+        acc[mt][q][1] = xv[mt][q][1] + (m1 + p.y);
+      }
+#pragma unroll
+      for (int cu = 0; cu < 2; ++cu)
+        cell(acc[mt][0][cu], acc[mt][1][cu], acc[mt][2][cu], acc[mt][3][cu],
+             m, hc[mt][cu], cc[mt][cu], gv[mt][0][cu], gv[mt][1][cu],
+             gv[mt][2][cu], gv[mt][3][cu]);
+      *reinterpret_cast<uint32_t*>(hst + (16 * mt + rl) * kU + 8 * ug +
+                                   2 * t4) = f2_to_bf2(hc[mt][0], hc[mt][1]);
+    }
+    __syncthreads();  // the slice is staged; red is read
+    push_h<BB>(hst, hb + (cur ^ 1) * BB * ld, ld, u0, nc, rank);
+    cl_arrive();
+    // the step's outputs, then the next step's xg
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int b = b0 + 16 * mt + rl;
+      if (b >= B) continue;
+      const size_t row = static_cast<size_t>(t) * B + b;
+      store2(hs + row * D + uc, hc[mt]);
+      store2(cs + row * D + uc, cc[mt]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        store2(gates + row * G + q * D + uc, gv[mt][q]);
+    }
+    if (t + 1 < n_steps) load_xg<MT>(xg, xv, t + 1, B, D, b0 + rl, uc);
+  }
+  cl_wait();  // no CTA writes into this one's shared memory any more
+}
+
+// the backward's inputs of step t for this thread's cells (rows r0 + 16
+// i, units gu, gu + 1): the four saved gates, c_prev as stored, dhs and
+// dcs, four bytes a load
+template <int MT>
+__device__ __forceinline__ void load_bwd(
+    const bf16* __restrict__ gates, const bf16* __restrict__ cs,
+    const bf16* __restrict__ c0, const bf16* __restrict__ dhs,
+    const bf16* __restrict__ dcs, float (&gq)[MT][4][2], float (&cp)[MT][2],
+    float (&dhv)[MT][2], float (&dcv)[MT][2], int t, int B, int D, int row0,
+    int gu) {
+  const int G = 4 * D;
+  auto ld2 = [](const bf16* p, float* v) {
+    const float2 f = bf2_to_f2(*reinterpret_cast<const unsigned*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+  };
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int b = row0 + 16 * i;
+    if (b >= B) {
+#pragma unroll
+      for (int cu = 0; cu < 2; ++cu) {
+        gq[i][0][cu] = gq[i][1][cu] = gq[i][2][cu] = gq[i][3][cu] = 0.f;
+        cp[i][cu] = dhv[i][cu] = dcv[i][cu] = 0.f;
+      }
+      continue;
+    }
+    const size_t n = static_cast<size_t>(t) * B + b;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) ld2(gates + n * G + q * D + gu, gq[i][q]);
+    ld2(t > 0 ? cs + (n - B) * D + gu : c0 + static_cast<size_t>(b) * D + gu,
+        cp[i]);
+    ld2(dhs + n * D + gu, dhv[i]);
+    ld2(dcs + n * D + gu, dcv[i]);
+  }
+}
+
+// B15's recurrence, reverse time; the clusters, tiles and W slices of
+// the forward. Per step: (1) thread (warp, lane) forms the dgates of its
+// cells (rows 2 warp + lane / 16 + 16 i, units u0 + 2 (lane % 16) and the
+// next) from its fp32 carries dh, dc and the step's inputs (fetched a
+// step ahead, during the previous step's barrier wait), writes dx, keeps
+// the unrounded dgates' sum for db and the dgates rounded to bf16 in the
+// shared tile [BB][128]; (2) the partial dh_prev = dgates_lp [BB, 128] x
+// W_slice^T [128, D] on the tensor cores, read from the same resident
+// slice by ldmatrix.trans (no transposed copy of W): warp w takes the
+// n-tiles w, w + 8, ... (in bwd_tile's order), their B fragments loaded
+// in pairs before the products; (3) reduce-scatter: each partial column
+// block goes to its owner's slot for this CTA (DSMEM); cluster barrier;
+// each owner sums the nc slots in rank order (two launches give the same
+// bits) into its dh carry; a second barrier, split around the next
+// step's work, frees the slots.
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_cluster_bwd_kernel(const bf16* __restrict__ gates,
+                            const bf16* __restrict__ cs,
+                            const bf16* __restrict__ w,
+                            const float* __restrict__ lens,
+                            const bf16* __restrict__ c0,
+                            const bf16* __restrict__ dhs,
+                            const bf16* __restrict__ dcs,
+                            bf16* __restrict__ dx,
+                            float* __restrict__ db_part,
+                            bf16* __restrict__ dh0, bf16* __restrict__ dc0,
+                            int n_steps, int B, int D) {
+  constexpr int BB = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem_rc[];
+  const int ld = D + 8, G = 4 * D, nc = D / kU, n_nt = D / 8;
+  bf16* ws = reinterpret_cast<bf16*>(smem_rc);
+  bf16* dg = ws + kN * ld;                                // [BB][kLdg]
+  float* slot = reinterpret_cast<float*>(dg + BB * kLdg);  // [nc][BB][kU]
+  const int rank = static_cast<int>(cluster_rank());
+  const int u0 = rank * kU;
+  const int tile = static_cast<int>(blockIdx.x) / nc;
+  const int b0 = tile * BB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int up = 2 * (lane & 15);        // the cells' first local unit
+  const int gu = u0 + up;
+  const int r0 = 2 * warp + (lane >> 4);  // their row in each 16 rows
+
+  load_w_slice(w, ws, D, u0);
+  float dh[MT][2], dc[MT][2], keep[MT][2], len[MT], dbq[4][2];
+  float gq[MT][4][2], cp[MT][2], dhv[MT][2], dcv[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int b = b0 + r0 + 16 * i;
+    len[i] = b < B ? lens[b] : 0.f;
+#pragma unroll
+    for (int cu = 0; cu < 2; ++cu) dh[i][cu] = dc[i][cu] = keep[i][cu] = 0.f;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) dbq[q][0] = dbq[q][1] = 0.f;
+  if (n_steps > 0) {
+    load_bwd<MT>(gates, cs, c0, dhs, dcs, gq, cp, dhv, dcv, n_steps - 1, B,
+                 D, b0 + r0, gu);
+  }
+  __syncthreads();
+  cl_arrive();  // pairs with the first step's wait before its stores
+
+  const uint32_t a_addr = smem_u32(
+      dg + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLdg + 8 * (lane >> 4));
+  const uint32_t b_addr = smem_u32(ws + (lane & 15) * ld);
+  for (int t = n_steps - 1; t >= 0; --t) {
+    // (1) the cells
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r = r0 + 16 * i, b = b0 + r;
+      const float m = static_cast<float>(t) < len[i] ? 1.f : 0.f;
+      float d[4][2];
+#pragma unroll
+      for (int cu = 0; cu < 2; ++cu) {
+        const float ig = gq[i][0][cu], fg = gq[i][1][cu];
+        const float gg = gq[i][2][cu], og = gq[i][3][cu];
+        const float ct = fg * cp[i][cu] + ig * gg;  // the pre-mask cell
+        const float tc = tanhf(ct);
+        const float dH = dhv[i][cu] + dh[i][cu];
+        const float dC = dcv[i][cu] + dc[i][cu];
+        const float dht = m * dH;
+        const float dct = m * dC + dht * og * (1.f - tc * tc);
+        d[0][cu] = dct * gg * ig * (1.f - ig);
+        d[1][cu] = dct * cp[i][cu] * fg * (1.f - fg);
+        d[2][cu] = dct * ig * (1.f - gg * gg);
+        d[3][cu] = dht * tc * og * (1.f - og);
+        dc[i][cu] = (1.f - m) * dC + dct * fg;
+        keep[i][cu] = (1.f - m) * dH;
+      }
+      if (b < B) {
+        const size_t n = static_cast<size_t>(t) * B + b;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          store2(dx + n * G + q * D + gu, d[q]);
+          dbq[q][0] += d[q][0];
+          dbq[q][1] += d[q][1];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)  // padding rows: zeros (their inputs are)
+        *reinterpret_cast<uint32_t*>(dg + r * kLdg + q * kU + up) =
+            f2_to_bf2(d[q][0], d[q][1]);
+    }
+    __syncthreads();  // the dgates tile is whole
+    // (2) the partial product
+    float acc[MT][8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kN; k += 16) {
+      uint32_t a[MT][4], bf[8][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(a_addr + 2 * (16 * mt * kLdg + k), a[mt]);
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        // n-tiles j (lanes 0-15's rows) and j + 1 (lanes 16-31's), each
+        // clamped into range: a tile past D is loaded, never multiplied
+        const int nt = min(bwd_tile(warp, j + (lane >> 4), rank), n_nt - 1);
+        uint32_t r[4];
+        ldsm_x4_t(b_addr + 2 * (k * ld + 8 * nt), r);
+        bf[j][0] = r[0]; bf[j][1] = r[1]; bf[j + 1][0] = r[2];
+        bf[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (bwd_tile(warp, j, rank) >= n_nt) continue;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma_bf16(acc[mt][j], a[mt], bf[j][0], bf[j][1]);
+      }
+    }
+    // (3) reduce-scatter
+    cl_wait();  // every owner has summed the slots of the step before
+    push_partials<MT>(acc, slot, rank, n_nt, warp, lane);
+    cl_arrive();
+    if (t > 0) {  // the next step's inputs, in flight across the barrier
+      load_bwd<MT>(gates, cs, c0, dhs, dcs, gq, cp, dhv, dcv, t - 1, B, D,
+                   b0 + r0, gu);
+    }
+    cl_wait();  // every partial is in its owner's slots
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r = r0 + 16 * i;
+      float s[2] = {0.f, 0.f};
+      for (int j = 0; j < nc; ++j) {
+        const float2 v =
+            *reinterpret_cast<const float2*>(slot + (j * BB + r) * kU + up);
+        s[0] += v.x;
+        s[1] += v.y;
+      }
+      dh[i][0] = keep[i][0] + s[0];  // (1 - m) dH + dgates_lp W^T
+      dh[i][1] = keep[i][1] + s[1];
+    }
+    cl_arrive();
+  }
+  cl_wait();  // no CTA writes into this one's shared memory any more
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int b = b0 + r0 + 16 * i;
+    if (b >= B) continue;
+    store2(dh0 + static_cast<size_t>(b) * D + gu, dh[i]);
+    store2(dc0 + static_cast<size_t>(b) * D + gu, dc[i]);
+  }
+  // db: the 16 row groups' sums (each over its rows, in step order)
+  // summed in group order into this tile's partial row
+  float* dbs = reinterpret_cast<float*>(smem_rc);  // W's slice is done
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    *reinterpret_cast<float2*>(dbs + r0 * kN + q * kU + up) =
+        make_float2(dbq[q][0], dbq[q][1]);
+  __syncthreads();
+  if (tid < kN) {
+    float s = 0.f;
+    for (int j = 0; j < 16; ++j) s += dbs[j * kN + tid];
+    db_part[static_cast<size_t>(tile) * G + (tid / kU) * D + u0 +
+            tid % kU] = s;
+  }
+}
+
+// The cluster exchange alone, for T steps of an empty recurrence at the
+// kernels' tile: mode 0 the forward's (stage the h slice, DSMEM to every
+// CTA, one barrier), mode 1 the backward's (partials to their owners'
+// slots, barrier, the owners' sums, a second barrier), mode 2 the
+// barrier alone. out[cta] keeps a value read from the exchanged buffers,
+// so nothing is optimized away.
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_cluster_probe_kernel(float* __restrict__ out, int n_steps, int D,
+                              int mode) {
+  constexpr int BB = 16 * MT, R = BB / 8;
+  extern __shared__ __align__(16) unsigned char smem_rc[];
+  const int ld = D + 8, nc = D / kU, n_nt = D / 8;
+  const int rank = static_cast<int>(cluster_rank());
+  const int u0 = rank * kU;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  bf16* hb = reinterpret_cast<bf16*>(smem_rc);  // [2][BB][ld]
+  bf16* hst = hb + 2 * BB * ld;                  // [BB][kU]
+  float* slot = reinterpret_cast<float*>(smem_rc);  // [nc][BB][kU]
+  for (int i = tid; i < 2 * BB * ld + BB * kU; i += kThreads) {
+    hb[i] = __float2bfloat16(0.f);
+  }
+  __syncthreads();
+  cl_arrive();
+  float keep = 0.f;
+  for (int t = 0; t < n_steps; ++t) {
+    if (mode == 0) {
+      cl_wait();
+      for (int i = tid; i < BB * kU; i += kThreads) {
+        hst[i] = __float2bfloat16(static_cast<float>(t + i));
+      }
+      __syncthreads();
+      push_h<BB>(hst, hb + ((t & 1) ^ 1) * BB * ld, ld, u0, nc, rank);
+      cl_arrive();
+    } else if (mode == 2) {
+      cl_wait();
+      cl_arrive();
+    } else {
+      float acc[MT][8][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][j][e] = keep + t + e;
+      cl_wait();
+      push_partials<MT>(acc, slot, rank, n_nt, warp, lane);
+      cl_arrive();
+      cl_wait();
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float s = 0.f;
+        for (int j = 0; j < nc; ++j)
+          s += slot[(j * BB + warp + 8 * i) * kU + lane];
+        keep += s;
+      }
+      cl_arrive();
+    }
+  }
+  cl_wait();
+  if (tid == 0) {
+    out[blockIdx.x] = mode == 0 ? to_f(hb[(n_steps & 1) * BB * ld + u0]) : 0.f;
+  }
+  if (mode != 0 && keep == -1.f) out[blockIdx.x] = keep;
+}
+
+// C [M][N] = A [M][K] B (+ bias[N]): bf16 operands, fp32 sums on
+// mma.sync m16n8k16. B is [K][N] row-major (kBkn), or given as B^T [N][K]
+// row-major. 128 x 128 output tiles, 8 warps of 64 x 32, 32-deep cp.async
+// stages double-buffered; rows past M and columns past N zero-filled. K a
+// multiple of 32, N of 8.
+constexpr int kGm = 128, kGn = 128, kGk = 32;
+constexpr int kGld = kGk + 8;   // A (and B^T) rows in shared memory
+constexpr int kGldb = kGn + 8;  // B [K][N] rows
+
+template <bool kBkn, bool kF32Out>
+__device__ __forceinline__ void proj_gemm(const bf16* __restrict__ a,
+                                          const bf16* __restrict__ b,
+                                          const bf16* __restrict__ bias,
+                                          void* __restrict__ out, int M,
+                                          int K, int N) {
+  __shared__ __align__(16) bf16 As[2][kGm * kGld];
+  __shared__ __align__(16) bf16 Bs[2][kBkn ? kGk * kGldb : kGn * kGld];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const int m0 = static_cast<int>(blockIdx.y) * kGm;
+  const int n0 = static_cast<int>(blockIdx.x) * kGn;
+  auto load = [&](int stage, int k0) {
+    for (int i = tid; i < kGm * 4; i += 256) {
+      const int r = i >> 2, c = (i & 3) * 8;
+      const bool ok = m0 + r < M;
+      cp16(smem_u32(&As[stage][r * kGld + c]),
+           a + static_cast<size_t>(ok ? m0 + r : 0) * K + k0 + c, ok);
+    }
+    if (kBkn) {
+      for (int i = tid; i < kGk * 16; i += 256) {
+        const int r = i >> 4, c = (i & 15) * 8;
+        const bool ok = n0 + c < N;
+        cp16(smem_u32(&Bs[stage][r * kGldb + c]),
+             b + static_cast<size_t>(k0 + r) * N + (ok ? n0 + c : 0), ok);
+      }
+    } else {
+      for (int i = tid; i < kGn * 4; i += 256) {
+        const int r = i >> 2, c = (i & 3) * 8;
+        const bool ok = n0 + r < N;
+        cp16(smem_u32(&Bs[stage][r * kGld + c]),
+             b + static_cast<size_t>(ok ? n0 + r : 0) * K + k0 + c, ok);
+      }
+    }
+  };
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int n_k = K / kGk;
+  load(0, 0);
+  cp_commit();
+  for (int s = 0; s < n_k; ++s) {
+    if (s + 1 < n_k) load((s + 1) & 1, (s + 1) * kGk);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();  // stage s landed
+    const bf16* as = As[s & 1];
+    const bf16* bs = Bs[s & 1];
+#pragma unroll
+    for (int kk = 0; kk < kGk; kk += 16) {
+      uint32_t af[4][4], bfr[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        ldsm_x4(smem_u32(as + (wm * 64 + 16 * mi + (lane & 7) +
+                               8 * ((lane >> 3) & 1)) * kGld +
+                         kk + 8 * (lane >> 4)),
+                af[mi]);
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t r[4];
+        if (kBkn) {
+          ldsm_x4_t(smem_u32(bs + (kk + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                      kGldb +
+                             wn * 32 + 16 * p + 8 * (lane >> 4)),
+                    r);
+        } else {
+          ldsm_x4(smem_u32(bs + (wn * 32 + 16 * p + (lane & 7) +
+                                 8 * (lane >> 4)) * kGld +
+                           kk + 8 * ((lane >> 3) & 1)),
+                  r);
+        }
+        bfr[2 * p][0] = r[0];
+        bfr[2 * p][1] = r[1];
+        bfr[2 * p + 1][0] = r[2];
+        bfr[2 * p + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
+    }
+    __syncthreads();  // every warp is done with stage s
+  }
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = m0 + wm * 64 + 16 * mi + g + 8 * hh;
+      if (row >= M) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int col = n0 + wn * 32 + 8 * ni + 2 * t4;
+        if (col >= N) continue;
+        const size_t o = static_cast<size_t>(row) * N + col;
+        const float v[2] = {acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]};
+        if constexpr (kF32Out) {  // (xe_t Wx) + b, as the Pallas sum
+          float* of = static_cast<float*>(out);
+          *reinterpret_cast<float2*>(of + o) =
+              make_float2(v[0] + to_f(bias[col]), v[1] + to_f(bias[col + 1]));
+        } else {
+          store2(static_cast<bf16*>(out) + o, v);
+        }
+      }
+    }
+  }
+}
+
+// xg [M = T*B][G] fp32 = xe [M][E] @ wx [E][G] + b
+__global__ void __launch_bounds__(256)
+    lstm_xg_kernel(const bf16* __restrict__ xe, const bf16* __restrict__ wx,
+                   const bf16* __restrict__ bias, float* __restrict__ xg,
+                   int M, int E, int G) {
+  proj_gemm<true, true>(xe, wx, bias, xg, M, E, G);
+}
+
+// dxe [M][E] bf16 = dx [M][G] @ wx^T (wx [E][G] read as B^T)
+__global__ void __launch_bounds__(256)
+    lstm_dxe_kernel(const bf16* __restrict__ dx, const bf16* __restrict__ wx,
+                    bf16* __restrict__ dxe, int M, int E, int G) {
+  proj_gemm<false, false>(dx, wx, nullptr, dxe, M, G, E);
+}
+
+template <typename K>
+cudaError_t cluster_attrs(K kernel, int smem) {
+  cudaError_t err = opt_in(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// a launch of `tiles` clusters of nc CTAs (the cluster along x)
+template <typename K, typename... Args>
+cudaError_t launch_cluster(K kernel, int nc, int tiles, int smem,
+                           cudaStream_t st, Args... args) {
+  const cudaError_t err = cluster_attrs(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(nc);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nc * tiles));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// how many clusters of nc CTAs of `kernel` the card holds at once
+template <typename K>
+cudaError_t max_clusters(K kernel, int nc, int smem, int* n) {
+  cudaError_t err = cluster_attrs(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(nc);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nc));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+}
+
+// lane 1 (bf16) only; D a multiple of 32 with at most 16 CTAs a cluster;
+// bb 16 or 32 rows a tile, its shared memory within the opt-in limit
+bool bad_cluster(int lane, int n_steps, int B, int D, int bb) {
+  const int mt = bb / 16;
+  return lane != 1 || n_steps < 0 || B < 1 || D < kU || D % kU != 0 ||
+         D / kU > kMaxCluster || (bb != 16 && bb != 32) ||
+         fwd_smem(mt, D) > 232448 || bwd_smem(mt, D) > 232448;
+}
+
+}  // namespace rc
+
 }  // namespace
 
 // x [T, B, 3D], w [D, 3D], lens [B] fp32, h0 [B, D] -> hs [T, B, D],
@@ -1640,5 +2541,140 @@ extern "C" int lstm_dw(int lane, const void* xe, const void* hs,
                                           n_steps, B, D, E, splits, st)
                 : launch_dw<bf16, false>(xe, hs, h0, nullptr, dx, part, dw,
                                          n_steps, B, D, E, splits, st);
+  return static_cast<int>(err);
+}
+
+// ------------------------------- B14/B15 bf16: the resident route (rc)
+
+// The route's two GEMMs: mode 0, the pre-pass (a = xe [M][K = E], b = wx
+// [K][N = 4D], bias = b [N] -> out = xg [M][N] fp32); mode 1, the
+// post-pass (a = dx [M][K = 4D], b = wx [N = E][K] read transposed ->
+// out = dxe [M][N] bf16). M = T * B.
+extern "C" int proj_gemm(int lane, const void* a, const void* b,
+                         const void* bias, void* out, int M, int K, int N,
+                         int mode, void* stream) {
+  if (lane != 1 || M < 1 || K < rc::kGk || K % rc::kGk != 0 || N < 8 ||
+      N % 8 != 0 || (mode != 0 && mode != 1) ||
+      (mode == 0 && bias == nullptr) || (M + rc::kGm - 1) / rc::kGm > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>((N + rc::kGn - 1) / rc::kGn),
+                  static_cast<unsigned>((M + rc::kGm - 1) / rc::kGm));
+  if (mode == 0) {
+    rc::lstm_xg_kernel<<<grid, 256, 0, st>>>(
+        static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+        static_cast<const bf16*>(bias), static_cast<float*>(out), M, K, N);
+  } else {
+    rc::lstm_dxe_kernel<<<grid, 256, 0, st>>>(
+        static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+        static_cast<bf16*>(out), M, N, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B14's recurrence on the resident route. xg [T, B, 4D] fp32 (the
+// pre-pass), w [D, 4D], lens [B] fp32, h0, c0 [B, D] -> hs, cs [T, B, D],
+// gates [T, B, 4D]; ceil(B / bb) clusters of D / 32 CTAs.
+extern "C" int cluster_lstm_fwd(int lane, const void* xg, const void* w,
+                                const float* lens, const void* h0,
+                                const void* c0, void* hs, void* cs,
+                                void* gates, int n_steps, int B, int D,
+                                int bb, void* stream) {
+  if (rc::bad_cluster(lane, n_steps, B, D, bb)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nc = D / rc::kU, tiles = (B + bb - 1) / bb;
+#define CALL(MT)                                                            \
+  rc::launch_cluster(rc::lstm_cluster_fwd_kernel<MT>, nc, tiles,           \
+                     rc::fwd_smem(MT, D), st, static_cast<const float*>(xg), \
+                     static_cast<const bf16*>(w), lens,                    \
+                     static_cast<const bf16*>(h0),                         \
+                     static_cast<const bf16*>(c0), static_cast<bf16*>(hs),  \
+                     static_cast<bf16*>(cs), static_cast<bf16*>(gates),     \
+                     n_steps, B, D)
+  const cudaError_t err = bb == 16 ? CALL(1) : CALL(2);
+#undef CALL
+  return static_cast<int>(err);
+}
+
+// B15's recurrence on the resident route. gates [T, B, 4D], cs [T, B, D],
+// w [D, 4D] (read transposed from its resident slices), lens, c0, dhs,
+// dcs -> dx [T, B, 4D] (dgates in bf16), dh0, dc0 [B, D], and db [4D]
+// fp32 (the unrounded dgates' sum) through db_part [ceil(B / bb)][4D]
+// fp32 scratch. dxe is the post-pass's (proj_gemm mode 1 over dx).
+extern "C" int cluster_lstm_bwd(int lane, const void* gates, const void* cs,
+                                const void* w, const float* lens,
+                                const void* c0, const void* dhs,
+                                const void* dcs, void* dx, float* db_part,
+                                float* db, void* dh0, void* dc0, int n_steps,
+                                int B, int D, int bb, void* stream) {
+  if (rc::bad_cluster(lane, n_steps, B, D, bb)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nc = D / rc::kU, tiles = (B + bb - 1) / bb;
+#define CALL(MT)                                                             \
+  rc::launch_cluster(                                                       \
+      rc::lstm_cluster_bwd_kernel<MT>, nc, tiles, rc::bwd_smem(MT, D), st,  \
+      static_cast<const bf16*>(gates), static_cast<const bf16*>(cs),        \
+      static_cast<const bf16*>(w), lens, static_cast<const bf16*>(c0),      \
+      static_cast<const bf16*>(dhs), static_cast<const bf16*>(dcs),         \
+      static_cast<bf16*>(dx), db_part, static_cast<bf16*>(dh0),             \
+      static_cast<bf16*>(dc0), n_steps, B, D)
+  cudaError_t err = bb == 16 ? CALL(1) : CALL(2);
+#undef CALL
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // db: the tiles' fp32 partials summed in tile order
+  sum_partials4_kernel<float><<<(D + 255) / 256, 256, 0, st>>>(
+      reinterpret_cast<const float4*>(db_part), db, D, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[0] = how many clusters of D / 32 CTAs (tiles of bb rows) the card
+// holds at once: the fewer of the two recurrences'
+extern "C" int cluster_lstm_occupancy(int lane, int* out, int D, int bb,
+                                      void* stream) {
+  (void)stream;
+  if (rc::bad_cluster(lane, 0, 1, D, bb) || out == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nc = D / rc::kU;
+  int f = 0, b = 0;
+  cudaError_t err =
+      bb == 16 ? rc::max_clusters(rc::lstm_cluster_fwd_kernel<1>, nc,
+                                  rc::fwd_smem(1, D), &f)
+               : rc::max_clusters(rc::lstm_cluster_fwd_kernel<2>, nc,
+                                  rc::fwd_smem(2, D), &f);
+  if (err == cudaSuccess) {
+    err = bb == 16 ? rc::max_clusters(rc::lstm_cluster_bwd_kernel<1>, nc,
+                                      rc::bwd_smem(1, D), &b)
+                   : rc::max_clusters(rc::lstm_cluster_bwd_kernel<2>, nc,
+                                      rc::bwd_smem(2, D), &b);
+  }
+  out[0] = f < b ? f : b;
+  return static_cast<int>(err);
+}
+
+// The cluster exchange alone (lstm_cluster_probe_kernel): `tiles`
+// clusters of D / 32 CTAs, n_steps steps; mode 0 the forward's, 1 the
+// backward's, 2 the barrier alone. out: one float per CTA.
+extern "C" int cluster_lstm_probe(int lane, float* out, int n_steps,
+                                  int tiles, int D, int bb, int mode,
+                                  void* stream) {
+  if (rc::bad_cluster(lane, n_steps, 1, D, bb) || tiles < 1 || mode < 0 ||
+      mode > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nc = D / rc::kU;
+  const cudaError_t err =
+      bb == 16 ? rc::launch_cluster(rc::lstm_cluster_probe_kernel<1>, nc,
+                                    tiles, rc::probe_smem(1, D), st, out,
+                                    n_steps, D, mode)
+               : rc::launch_cluster(rc::lstm_cluster_probe_kernel<2>, nc,
+                                    tiles, rc::probe_smem(2, D), st, out,
+                                    n_steps, D, mode);
   return static_cast<int>(err);
 }

@@ -35,7 +35,18 @@ name: ``lstm_fwd`` (B10); ``lstm_bwd`` and ``lstm_dw`` (B11's recurrence
 and dW reduction); ``lstm_proj_fwd`` (B14); ``lstm_proj_bwd`` and
 ``lstm_proj_dw`` (B15's recurrence, with dxe and db, and its dWx/dW
 reduction); ``gru_fwd`` (B12); ``gru_bwd`` and ``gru_dw`` (B13). They
-raise on what the kernels do not take. On CPU tensors each runs its
+raise on what the kernels do not take.
+
+B14/B15 take one of two routes, chosen by shape before any launch
+(``lstm_cluster_plan``). The resident route (bf16, D a multiple of 32 up
+to 512): the pre-pass ``lstm_proj_xg`` (xg = xe @ Wx + b for every step,
+fp32), the recurrence ``lstm_cluster_fwd`` / ``lstm_cluster_bwd`` with W
+split over one thread-block cluster's shared memory, and the post-pass
+``lstm_proj_dxe`` (dxe = dx @ Wx^T). The streaming route (everything
+else): one kernel per direction that reads W and Wx from L2 every step.
+Each recurrence launch counts under ``lstm_proj_fwd`` / ``lstm_proj_bwd``
+and under its route's name (``..._cluster``, ``..._stream``); the passes
+under ``lstm_proj_xg`` / ``lstm_proj_dxe``. On CPU tensors each runs its
 plain version, which follows the Pallas body step by step in torch ops.
 Inside ``plain_versions()`` the scans run the plain versions on any
 device: what the kernels are held against on the card.
@@ -54,15 +65,21 @@ import torch
 
 from paddle_tpu_torch import kernels as _kernels
 
-__all__ = ["DwPlan", "dw_plan", "gru_bwd", "gru_bwd_data", "gru_bwd_data_reference",
+__all__ = ["ClusterPlan", "DwPlan", "dw_plan", "gru_bwd", "gru_bwd_data",
+           "gru_bwd_data_reference",
            "gru_bwd_reference", "gru_dw", "gru_dw_reference", "gru_fwd",
            "gru_fwd_reference", "gru_scan", "gru_scan_dp", "lstm_bwd",
            "lstm_bwd_data", "lstm_bwd_data_reference", "lstm_bwd_reference",
+           "lstm_cluster_bwd", "lstm_cluster_bwd_reference",
+           "lstm_cluster_fwd", "lstm_cluster_fwd_reference",
+           "lstm_cluster_plan", "lstm_cluster_probe",
            "lstm_dw", "lstm_dw_reference", "lstm_fwd", "lstm_fwd_reference",
            "lstm_proj_bwd", "lstm_proj_bwd_data",
            "lstm_proj_bwd_data_reference", "lstm_proj_bwd_reference",
-           "lstm_proj_dw", "lstm_proj_dw_reference", "lstm_proj_fwd",
-           "lstm_proj_fwd_reference", "lstm_scan", "lstm_scan_dp",
+           "lstm_proj_dw", "lstm_proj_dw_reference", "lstm_proj_dxe",
+           "lstm_proj_dxe_reference", "lstm_proj_fwd",
+           "lstm_proj_fwd_reference", "lstm_proj_xg",
+           "lstm_proj_xg_reference", "lstm_scan", "lstm_scan_dp",
            "lstm_scan_proj", "plain_versions"]
 
 _LANES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,7 +87,10 @@ _LANES = {torch.float32: 0, torch.bfloat16: 1}
 # takes the lane first and the stream last
 _ENTRIES = {"gru_fwd": (6, 4), "gru_bwd": (8, 4), "gru_dw": (6, 4),
             "lstm_fwd": (8, 4), "lstm_bwd": (10, 4), "lstm_dw": (6, 5),
-            "lstm_proj_fwd": (10, 5), "lstm_proj_bwd": (14, 5)}
+            "lstm_proj_fwd": (10, 5), "lstm_proj_bwd": (14, 5),
+            "proj_gemm": (4, 4), "cluster_lstm_fwd": (8, 4),
+            "cluster_lstm_bwd": (12, 4), "cluster_lstm_occupancy": (1, 2),
+            "cluster_lstm_probe": (1, 5)}
 _entries = {}
 SMEM_LIMIT = 232448        # bytes of shared memory a block may opt in to
 # shared memory of each recurrence kernel for bb batch rows, hidden D and
@@ -196,10 +216,10 @@ def _pick_bb(name, B, D, dev, E=0):
     return bb
 
 
-def _launch(name, lane, pointers, ints, dev, entry=None):
+def _launch(name, lane, pointers, ints, dev, entry=None, also=()):
     """Launch the C entry ``entry`` (default ``name``) on the current
     stream of ``dev``; raise on a CUDA error and count the launch under
-    ``name``."""
+    ``name`` and each name in ``also``."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _cuda_entry(entry or name)(
@@ -207,7 +227,8 @@ def _launch(name, lane, pointers, ints, dev, entry=None):
             *ints, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    _kernels.LAUNCHES[name] += 1
+    for n in (name, *also):
+        _kernels.LAUNCHES[n] += 1
 
 
 def _hprev(hs, h0):
@@ -579,6 +600,46 @@ def lstm_proj_bwd_reference(xe, gates, hs, cs, wx, w, lens, h0, c0, dhs,
     return dxe, dwx, db, dw, dh0, dc0
 
 
+def lstm_proj_xg_reference(xe, wx, b):
+    """Plain version of the resident route's pre-pass (``lstm_proj_xg``):
+    ``xe @ Wx + b`` for every step at once, the fp32 sums kept in fp32:
+    ``xg [T, B, 4D]``, the first term of the Pallas step's sum."""
+    T, B, E = xe.shape
+    return (xe.reshape(T * B, E).float() @ wx.float()
+            + b.float()).reshape(T, B, wx.shape[1])
+
+
+def lstm_cluster_fwd_reference(xg, w, lens, h0, c0):
+    """Plain version of the resident forward recurrence
+    (``lstm_cluster_fwd``): per step ``xg_t + h_lp @ W`` in fp32; returns
+    ``(hs, cs, gates)`` in h0's dtype."""
+    T, B, G = xg.shape
+    wf = w.float()
+    return _lstm_loop(T, B, G // 4, h0, lens, h0, c0, w,
+                      lambda t, h_lp: xg[t].float() + h_lp @ wf)
+
+
+def lstm_cluster_bwd_reference(gates, cs, w, lens, h0, c0, dhs, dcs):
+    """Plain version of the resident reverse recurrence
+    (``lstm_cluster_bwd``): ``(dx [T, B, 4D] the dgates in the gates'
+    dtype, db [4D] fp32 (the sum of the unrounded dgates), dh0, dc0)``."""
+    db = torch.zeros((gates.shape[-1],), dtype=torch.float32,
+                     device=gates.device)
+    dx, dh, dc = _lstm_bwd_loop(gates, cs, w, lens, c0, dhs, dcs,
+                                lambda t, dgates, dg_lp: db.add_(
+                                    dgates.sum(0)))
+    return dx, db, dh.to(h0.dtype), dc.to(c0.dtype)
+
+
+def lstm_proj_dxe_reference(dx, wx):
+    """Plain version of the resident route's post-pass (``lstm_proj_dxe``):
+    ``dx @ Wx^T`` for every step at once, fp32 sums rounded to dx's dtype
+    (dx holds the dgates rounded to W's: the Pallas step's operand)."""
+    T, B, G = dx.shape
+    return (dx.reshape(T * B, G).float() @ wx.float().T).to(
+        dx.dtype).reshape(T, B, wx.shape[0])
+
+
 def _check_c0(h0, c0):
     if tuple(c0.shape) != tuple(h0.shape) or c0.dtype != h0.dtype:
         raise ValueError(f"c0 {tuple(c0.shape)} {c0.dtype} must match h0 "
@@ -655,6 +716,85 @@ def dw_plan(kind, dtype, T, B, D, E=0, n_sm=132):
                   [(z * per, min(n_rows, (z + 1) * per))
                    for z in range(splits)],
                   (splits, M, G) if splits > 1 else None)
+
+
+REC_UNITS = 32             # hidden units a CTA of a resident cluster owns
+REC_MAX_CLUSTER = 16       # CTAs a cluster may hold (a non-portable size)
+REC_TILES = (16, 32)       # batch rows a cluster: one or two mma M tiles
+
+
+class ClusterPlan(NamedTuple):
+    """How B14/B15's bf16 recurrences run (``lstm_cluster_plan``)."""
+    route: str                 # "resident" or "streaming"
+    bb: int                    # batch rows a cluster (0: streaming)
+    cluster: int               # CTAs a cluster: D / REC_UNITS
+    tiles: int                 # clusters in the grid: ceil(B / bb)
+    max_clusters: int          # clusters the card holds at once
+    smem: int                  # bytes of shared memory a CTA
+
+
+def _rec_smem(kind, bb, D):
+    """Shared memory of a resident recurrence CTA (``csrc/fused_rnn.cu``'s
+    ``rc::fwd_smem`` / ``bwd_smem``): W's slice [128, D + 8] bf16; the
+    forward's h buffers [2, bb, D + 8] bf16, staged slice [bb, 32] bf16
+    and K-half partials [4, bb/16, 4, 32, 4] fp32; the backward's dgates
+    tile [bb, 136] bf16 and slots [D / 32, bb, 32] fp32."""
+    n = 4 * REC_UNITS
+    if kind == "fwd":
+        return (2 * (n * (D + 8) + 2 * bb * (D + 8) + bb * REC_UNITS)
+                + 4 * (4 * (bb // 16) * 4 * 32 * 4))
+    return 2 * (n * (D + 8) + bb * (n + 8)) + 4 * D * bb
+
+
+def lstm_cluster_plan(dtype, B, D, n_sm=132, max_clusters=None):
+    """B14/B15's route and tile, by shape, before any launch. Resident:
+    bf16, D a multiple of 32 with at most 16 CTAs a cluster (D <= 512),
+    both recurrences' CTAs within ``SMEM_LIMIT``, and the card able to
+    hold a cluster. Each tile of ``bb`` batch rows is one cluster of D /
+    32 CTAs (CTA j owns hidden units 32j..32j+31, its 128 columns of W
+    resident); ``bb`` is 16 (one mma M tile) while ``ceil(B / 16)``
+    clusters fit on the card at once (``max_clusters``: the card's count,
+    queried from the kernels; by default ``n_sm // (D / 32)``), else 32
+    where its shared memory fits: fewer, larger tiles, all co-resident
+    where they can be. Clusters never wait on each other, so more tiles
+    than fit run in waves. Everything else (fp32, other D) streams W
+    from L2 every step."""
+    nc = D // REC_UNITS if D % REC_UNITS == 0 else 0
+    fits = {bb: max(_rec_smem("fwd", bb, D), _rec_smem("bwd", bb, D))
+            <= SMEM_LIMIT for bb in REC_TILES}
+    mc = 0
+    if dtype == torch.bfloat16 and 1 <= nc <= REC_MAX_CLUSTER and fits[16]:
+        mc = n_sm // nc if max_clusters is None else int(max_clusters)
+    if mc < 1:
+        return ClusterPlan("streaming", 0, 0, 0, 0, 0)
+    bb = 16 if -(-B // 16) <= mc or not fits[32] else 32
+    return ClusterPlan("resident", bb, nc, -(-B // bb), mc,
+                       max(_rec_smem("fwd", bb, D), _rec_smem("bwd", bb, D)))
+
+
+_max_clusters_of = {}      # (device index, D) -> the card's count
+
+
+def _cluster_plan(dtype, B, D, dev):
+    """``lstm_cluster_plan`` with the card's SM count and, for a shape
+    the resident route can take, the number of its clusters the card
+    holds at once (asked of the CUDA runtime once per device and D)."""
+    if (dtype != torch.bfloat16 or D % REC_UNITS
+            or not 1 <= D // REC_UNITS <= REC_MAX_CLUSTER):
+        return lstm_cluster_plan(dtype, B, D)
+    key = (torch.cuda.current_device() if dev.index is None else dev.index,
+           D)
+    mc = _max_clusters_of.get(key)
+    if mc is None:
+        out = torch.zeros(1, dtype=torch.int32)
+        with torch.cuda.device(dev):
+            err = _cuda_entry("cluster_lstm_occupancy")(
+                1, out.data_ptr(), D, REC_TILES[0], None)
+        if err != 0:
+            raise RuntimeError(f"cluster occupancy query for D={D} failed: "
+                               f"CUDA error {err}")
+        mc = _max_clusters_of[key] = int(out[0])
+    return lstm_cluster_plan(dtype, B, D, _n_sm(dev), mc)
 
 
 def _dw_partials(plan, dev):
@@ -744,17 +884,187 @@ def lstm_bwd(gates, hs, cs, w, lens, h0, c0, dhs, dcs):
     return dx, lstm_dw(hs, h0, dx), dh0, dc0
 
 
+def lstm_proj_xg(xe, wx, b):
+    """The resident route's pre-pass: ``xg [T, B, 4D]`` fp32 = ``xe @ Wx
+    + b`` for every step, one tensor-core GEMM (``LAUNCHES
+    ["lstm_proj_xg"]``) on bf16 CUDA tensors, else raise; CPU tensors
+    take the plain version."""
+    if xe.dim() != 3 or wx.dim() != 2 or tuple(b.shape) != (wx.shape[1],) \
+            or wx.shape[0] != xe.shape[2]:
+        raise ValueError(f"xe {tuple(xe.shape)}, wx {tuple(wx.shape)} and b "
+                         f"{tuple(b.shape)} do not agree (want [T, B, E], "
+                         "[E, 4D], [4D])")
+    if _device_kind(xe) == "cpu":
+        return lstm_proj_xg_reference(xe, wx, b)
+    T, B, E = xe.shape
+    _check_bf16("lstm_proj_xg", xe, wx, b)
+    _check_cuda((("xe", xe), ("wx", wx), ("b", b)))
+    _check_d(E, "E")
+    xg = torch.empty((T, B, wx.shape[1]), dtype=torch.float32,
+                     device=xe.device)
+    if T * B:
+        _launch("lstm_proj_xg", 1, (xe, wx, b, xg), (T * B, E, wx.shape[1], 0),
+                xe.device, entry="proj_gemm")
+    return xg
+
+
+def lstm_proj_dxe(dx, wx):
+    """The resident route's post-pass: ``dxe [T, B, E]`` = ``dx @ Wx^T``
+    for every step (fp32 sums, bf16 out), the pre-pass's GEMM with Wx
+    read transposed (``LAUNCHES["lstm_proj_dxe"]``) on bf16 CUDA tensors,
+    else raise; CPU tensors take the plain version."""
+    if dx.dim() != 3 or wx.dim() != 2 or wx.shape[1] != dx.shape[2]:
+        raise ValueError(f"dx {tuple(dx.shape)} and wx {tuple(wx.shape)} do "
+                         "not agree (want [T, B, 4D], [E, 4D])")
+    if _device_kind(dx) == "cpu":
+        return lstm_proj_dxe_reference(dx, wx)
+    T, B, G = dx.shape
+    _check_bf16("lstm_proj_dxe", dx, wx)
+    _check_cuda((("dx", dx), ("wx", wx)))
+    _check_d(wx.shape[0], "E")
+    dxe = dx.new_empty((T, B, wx.shape[0]))
+    if T * B:
+        _launch("lstm_proj_dxe", 1, (dx, wx, None, dxe),
+                (T * B, G, wx.shape[0], 1), dx.device, entry="proj_gemm")
+    return dxe
+
+
+def _check_bf16(name, *tensors):
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"{name} has a bfloat16 lane only (the resident "
+                        "route's); got " + ", ".join(str(t.dtype)
+                                                     for t in tensors))
+
+
+def _resident_plan(name, w, B, dev):
+    plan = _cluster_plan(w.dtype, B, w.shape[0], dev)
+    if plan.route != "resident":
+        raise ValueError(f"{name}: D={w.shape[0]} in {w.dtype} takes the "
+                         "streaming route, not the resident one "
+                         "(lstm_cluster_plan)")
+    return plan
+
+
+def lstm_cluster_fwd(xg, w, lens, h0, c0):
+    """B14's recurrence on the resident route: ``(hs, cs, gates)`` in h0's
+    dtype from the pre-pass's fp32 ``xg [T, B, 4D]``. CUDA tensors launch
+    the cluster kernel (``LAUNCHES["lstm_proj_fwd"]`` and
+    ``["lstm_proj_fwd_cluster"]``) or raise; CPU tensors take the plain
+    version."""
+    D = w.shape[0] if w.dim() == 2 else 0
+    if (xg.dim() != 3 or tuple(w.shape) != (D, 4 * D)
+            or xg.shape[2] != 4 * D or tuple(h0.shape) != (xg.shape[1], D)
+            or tuple(lens.shape) != (xg.shape[1], 1)):
+        raise ValueError(f"xg {tuple(xg.shape)}, w {tuple(w.shape)}, lens "
+                         f"{tuple(lens.shape)} and h0 {tuple(h0.shape)} do "
+                         "not agree (want [T, B, 4D], [D, 4D], [B, 1], "
+                         "[B, D])")
+    T, B = xg.shape[:2]
+    _check_c0(h0, c0)
+    if w.dtype != h0.dtype:
+        raise TypeError(f"w {w.dtype} and h0 {h0.dtype} must share one "
+                        "dtype")
+    if xg.dtype != torch.float32:
+        raise TypeError(f"xg must be float32 (the pre-pass's sums), got "
+                        f"{xg.dtype}")
+    if _device_kind(w) == "cpu":
+        return lstm_cluster_fwd_reference(xg, w, lens, h0, c0)
+    _check_bf16("lstm_cluster_fwd", w, h0, c0)
+    _check_cuda((("w", w), ("xg", xg), ("h0", h0), ("c0", c0)), lens)
+    return _cluster_fwd(_resident_plan("lstm_cluster_fwd", w, B, w.device),
+                        xg, w, lens, h0, c0)
+
+
+def _cluster_fwd(plan, xg, w, lens, h0, c0):
+    """Launch B14's resident recurrence at ``plan``'s tile on checked
+    tensors."""
+    T, B, D = xg.shape[0], xg.shape[1], w.shape[0]
+    hs = h0.new_empty((T, B, D))
+    cs = h0.new_empty((T, B, D))
+    gates = h0.new_empty((T, B, 4 * D))
+    if B:
+        _launch("lstm_proj_fwd", 1, (xg, w, lens, h0, c0, hs, cs, gates),
+                (T, B, D, plan.bb), w.device, entry="cluster_lstm_fwd",
+                also=("lstm_proj_fwd_cluster",))
+    return hs, cs, gates
+
+
+def lstm_cluster_bwd(gates, cs, w, lens, h0, c0, dhs, dcs):
+    """B15's recurrence on the resident route: ``(dx, db, dh0, dc0)``, dx
+    the dgates in bf16, db fp32; W read from its resident slices (no
+    transposed copy). CUDA tensors launch the cluster kernel
+    (``LAUNCHES["lstm_proj_bwd"]`` and ``["lstm_proj_bwd_cluster"]``) or
+    raise; CPU tensors take the plain version."""
+    T, B, D = _check_shapes(gates, w, lens, h0, ng=4)
+    _check_c0(h0, c0)
+    if _device_kind(gates) == "cpu":
+        return lstm_cluster_bwd_reference(gates, cs, w, lens, h0, c0, dhs,
+                                          dcs)
+    _check_like(gates, cs, h0, ("dhs", dhs, cs.shape),
+                ("dcs", dcs, cs.shape), ("c0", c0, h0.shape), ng=4)
+    _check_bf16("lstm_cluster_bwd", gates, w)
+    _check_cuda((("gates", gates), ("cs", cs), ("w", w), ("c0", c0),
+                 ("dhs", dhs), ("dcs", dcs)), lens)
+    return _cluster_bwd(_resident_plan("lstm_cluster_bwd", w, B,
+                                       gates.device),
+                        gates, cs, w, lens, h0, c0, dhs, dcs)
+
+
+def _cluster_bwd(plan, gates, cs, w, lens, h0, c0, dhs, dcs):
+    """Launch B15's resident recurrence at ``plan``'s tile on checked
+    tensors."""
+    T, B, D = cs.shape
+    dev = gates.device
+    dx = torch.empty_like(gates)
+    db = torch.zeros((4 * D,), dtype=torch.float32, device=dev)
+    dh0 = torch.empty_like(h0)
+    dc0 = torch.empty_like(c0)
+    if B:
+        # fp32 per-tile db partials, summed in tile order
+        db_part = torch.empty((plan.tiles, 4 * D), dtype=torch.float32,
+                              device=dev)
+        _launch("lstm_proj_bwd", 1,
+                (gates, cs, w, lens, c0, dhs, dcs, dx, db_part, db, dh0,
+                 dc0), (T, B, D, plan.bb), dev, entry="cluster_lstm_bwd",
+                also=("lstm_proj_bwd_cluster",))
+    return dx, db, dh0, dc0
+
+
+def lstm_cluster_probe(D, bb, tiles, n_steps, mode, dev):
+    """The resident recurrences' cluster exchange alone (no product, no
+    cell): ``tiles`` clusters of D / 32 CTAs run ``n_steps`` steps of
+    mode 0, the forward's (the h slice to every CTA by DSMEM, one cluster
+    barrier), or mode 1, the backward's (partials to their owners' slots,
+    barrier, the owners' sums, a second barrier). What one step of the
+    barrier and exchange costs on the card; no launch count."""
+    out = torch.empty(tiles * (D // REC_UNITS), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        err = _cuda_entry("cluster_lstm_probe")(
+            1, out.data_ptr(), n_steps, tiles, D, bb, mode,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cluster probe launch failed: CUDA error {err}")
+    return out
+
+
 def lstm_proj_fwd(xe, wx, b, w, lens, h0, c0):
-    """B14: ``(hs, cs, gates)``. CUDA tensors launch the kernel
-    (``LAUNCHES["lstm_proj_fwd"]``) or raise; CPU tensors take the plain
+    """B14: ``(hs, cs, gates)``. CUDA tensors take the route of
+    ``lstm_cluster_plan``: resident (the pre-pass ``lstm_proj_xg``, then
+    ``lstm_cluster_fwd``) or streaming (one kernel reading W and Wx from
+    L2 every step, ``LAUNCHES["lstm_proj_fwd"]`` and
+    ``["lstm_proj_fwd_stream"]``), or raise; CPU tensors take the plain
     version."""
     T, B, D, E = _check_proj(xe, wx, b, w, lens, h0, c0)
     if _device_kind(xe) == "cpu":
         return lstm_proj_fwd_reference(xe, wx, b, w, lens, h0, c0)
     lane = _check_cuda((("xe", xe), ("wx", wx), ("b", b), ("w", w),
                         ("h0", h0), ("c0", c0)), lens)
-    _check_d(D)
     _check_d(E, "E")
+    plan = _cluster_plan(xe.dtype, B, D, xe.device)
+    if plan.route == "resident":
+        return _cluster_fwd(plan, lstm_proj_xg(xe, wx, b), w, lens, h0, c0)
+    _check_d(D)
     hs = xe.new_empty((T, B, D))
     cs = xe.new_empty((T, B, D))
     gates = xe.new_empty((T, B, 4 * D))
@@ -762,15 +1072,18 @@ def lstm_proj_fwd(xe, wx, b, w, lens, h0, c0):
         _launch("lstm_proj_fwd", lane,
                 (xe, wx, b, w, lens, h0, c0, hs, cs, gates),
                 (T, B, D, E, _pick_bb("lstm_proj_fwd", B, D, xe.device, E)),
-                xe.device)
+                xe.device, also=("lstm_proj_fwd_stream",))
     return hs, cs, gates
 
 
 def lstm_proj_bwd_data(gates, cs, wx, w, lens, h0, c0, dhs, dcs):
     """B15's recurrence: ``(dxe, dx, db, dh0, dc0)``, dx the dgates
     rounded to W's dtype (the reductions' operand), db fp32. CUDA tensors
-    launch the kernel (``LAUNCHES["lstm_proj_bwd"]``) or raise; CPU
-    tensors take the plain version."""
+    take the route of ``lstm_cluster_plan``: resident
+    (``lstm_cluster_bwd``, then the post-pass ``lstm_proj_dxe``) or
+    streaming (one kernel over transposed copies of W and Wx,
+    ``LAUNCHES["lstm_proj_bwd"]`` and ``["lstm_proj_bwd_stream"]``), or
+    raise; CPU tensors take the plain version."""
     T, B, D = _check_shapes(gates, w, lens, h0, ng=4)
     _check_c0(h0, c0)
     if _device_kind(gates) == "cpu":
@@ -785,9 +1098,14 @@ def lstm_proj_bwd_data(gates, cs, wx, w, lens, h0, c0, dhs, dcs):
                 ("wx", wx, wx.shape), ng=4)
     lane = _check_cuda((("gates", gates), ("cs", cs), ("wx", wx), ("w", w),
                         ("c0", c0), ("dhs", dhs), ("dcs", dcs)), lens)
-    _check_d(D)
     _check_d(E, "E")
     dev = gates.device
+    plan = _cluster_plan(gates.dtype, B, D, dev)
+    if plan.route == "resident":
+        dx, db, dh0, dc0 = _cluster_bwd(plan, gates, cs, w, lens, h0, c0,
+                                        dhs, dcs)
+        return lstm_proj_dxe(dx, wx), dx, db, dh0, dc0
+    _check_d(D)
     dx = torch.empty_like(gates)
     dxe = gates.new_empty((T, B, E))
     db = torch.zeros((4 * D,), dtype=torch.float32, device=dev)
@@ -800,7 +1118,8 @@ def lstm_proj_bwd_data(gates, cs, wx, w, lens, h0, c0, dhs, dcs):
                               device=dev)
         _launch("lstm_proj_bwd", lane,
                 (gates, cs, _wt(w), _wt(wx), lens, c0, dhs, dcs, dx, dxe,
-                 db_part, db, dh0, dc0), (T, B, D, E, bb), dev)
+                 db_part, db, dh0, dc0), (T, B, D, E, bb), dev,
+                also=("lstm_proj_bwd_stream",))
     return dxe, dx, db, dh0, dc0
 
 

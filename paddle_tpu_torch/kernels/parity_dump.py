@@ -16,12 +16,17 @@ to ``FILE``:
   projections with M 80;
 - B12/B13 (``gru_fwd``, ``gru_bwd_data``, ``gru_dw``) and B10/B11/B14/
   B15 (every LSTM wrapper), fp32 and bf16, at ``GRU_SHAPES`` /
-  ``LSTM_SHAPES``.
+  ``LSTM_SHAPES``; ``lstm_proj_dw`` also on inputs that no redesigned
+  kernel made (B10/B11's hs and dx), so that it is held on its own.
 
-The seeded inputs come from this checkout's ``chip_smoke.py``. Run the first
-form once per tree, each in its own process. The second prints, for each
-output, whether the two files hold the same bits, and exits non-zero if
-any differs or is missing. Needs one card.
+The outputs of kernels a PR redesigns are saved under a name that starts
+with ``REDESIGNED`` (now: B14/B15's bf16 lane, the resident route, and
+what is computed from them): the comparison reports them apart and does
+not fail on them. The seeded inputs come from this checkout's
+``chip_smoke.py``. Run the first form once per tree, each in its own
+process. The second prints, for each output, whether the two files hold
+the same bits, and exits non-zero if any other output differs or is
+missing. Needs one card.
 """
 from __future__ import annotations
 
@@ -34,6 +39,11 @@ from pathlib import Path
 import torch
 
 _HERE = Path(__file__).resolve().parents[2]
+REDESIGNED = "redesigned:"
+# the LSTM outputs that B14/B15's bf16 kernels compute, or that are
+# computed from theirs
+_PROJ_OUTPUTS = ("p_hs", "p_cs", "p_gates", "dxe", "p_dx", "db", "p_dh0",
+                 "p_dc0", "dwx", "p_dw")
 
 
 def chip_smoke():
@@ -104,8 +114,14 @@ def _outputs(cs, pa, qm, fr, dev):
             c = cs._lstm_case(dev, T, Bb, D, E, ragged)
             lc = {n: (t.to(dtype) if n != "lens" else t)
                   for n, t in c.items()}
-            for n, t in cs._lstm_run(fr, lc).items():
-                out[f"lstm_{lane}_{key}_{n}"] = t
+            o = cs._lstm_run(fr, lc)
+            for n, t in o.items():
+                tag = (REDESIGNED if lane == "bf16" and n in _PROJ_OUTPUTS
+                       else "")
+                out[f"{tag}lstm_{lane}_{key}_{n}"] = t
+            dwx, dw = fr.lstm_proj_dw(lc["xe"], o["hs"], lc["h0"], o["dx"])
+            out[f"lstm_{lane}_{key}_proj_dw_on_b11_dwx"] = dwx
+            out[f"lstm_{lane}_{key}_proj_dw_on_b11_dw"] = dw
     torch.cuda.synchronize()
     return {n: t.detach().cpu() for n, t in out.items()}
 
@@ -131,9 +147,13 @@ def compare(a: Path, b: Path) -> int:
             and torch.equal(x[n], y[n]) for n in x}
     for n in sorted(set(y) - set(x)):
         same[n] = False
-    differ = sorted(n for n, ok in same.items() if not ok)
-    print(json.dumps({"outputs": len(same), "bit_equal": len(same)
-                      - len(differ), "differ": differ}))
+    held = {n: ok for n, ok in same.items() if not n.startswith(REDESIGNED)}
+    new = {n: ok for n, ok in same.items() if n.startswith(REDESIGNED)}
+    differ = sorted(n for n, ok in held.items() if not ok)
+    print(json.dumps({"outputs": len(held), "bit_equal": len(held)
+                      - len(differ), "differ": differ,
+                      "redesigned": {"outputs": len(new),
+                                     "bit_equal": sum(new.values())}}))
     return 1 if differ else 0
 
 

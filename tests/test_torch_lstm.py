@@ -28,6 +28,15 @@ The ops go through ``paddle_tpu.framework.registry.get_op_info(...)
 port's registry on the other, from the same packed inputs and LoD:
 outputs atol 1e-5 (fp32) / 2e-2 (bf16), gradients atol 1e-4.
 
+B14/B15's resident route (bf16: xg = xe @ Wx + b for every step in
+fp32, the recurrence, then dxe = dx @ Wx^T) as plain PyTorch
+(``lstm_proj_xg`` / ``lstm_cluster_fwd`` / ``lstm_cluster_bwd`` /
+``lstm_proj_dxe`` on the CPU) against the same JAX calls, both lanes at
+the same tolerances; in the bf16 lane, xg rounded to bf16 would move
+12-30 % of the gates off JAX's bits, against under 0.1 % in fp32; and
+``lstm_cluster_plan``'s route and tile at B 1 / 17 / 128 / 130, D 64 /
+96 / 512 / 1024, both dtypes.
+
 The kernel-vs-plain cases need a card and skip without one.
 """
 import contextlib
@@ -182,6 +191,114 @@ def test_proj_backward_matches_jax(jfr, bf16):
                             t["h0"], t["c0"], t["dhs"], t["dcs"])
     assert got[2].dtype == torch.float32                 # db
     _close_grads(got, want, ("dxe", "dwx", "db", "dw", "dh0", "dc0"), bf16)
+
+
+def _hoisted_fwd(t, xg_dtype=torch.float32):
+    """The resident route's forward as its plain parts: xg for every step
+    (kept in ``xg_dtype``), then the recurrence."""
+    xg = tfr.lstm_proj_xg(t["xe"], t["wx"], t["b"])
+    return tfr.lstm_cluster_fwd(xg.to(xg_dtype).float(), t["w"], t["lens"],
+                                t["h0"], t["c0"])
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_hoisted_forward_matches_jax(jfr, bf16):
+    """xe @ Wx + b out of the loop (fp32), then the recurrence, equals
+    ``_lstm_proj_fwd_call``, which adds it inside each step."""
+    a = _inputs()
+    args = ("xe", "wx", "b", "w", "lens", "h0", "c0")
+    want = jfr._lstm_proj_fwd_call(*(_j(a[k], bf16) for k in args),
+                                   interpret=True)
+    got = _hoisted_fwd({k: _t(a[k], bf16) for k in args})
+    for g, w_, name in zip(got, want, ("hs", "cs", "gates")):
+        _close(g, w_, BF16_FWD_TOL if bf16 else TOL, what=name)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_hoisted_backward_matches_jax(jfr, bf16):
+    """The reverse recurrence without dxe (dx, db, dh0, dc0), then dxe =
+    dx @ Wx^T for every step from the rounded dgates, then the dW
+    reductions, equal ``_lstm_proj_bwd_call`` from the same saved
+    tensors."""
+    a = _inputs()
+    j = {k: _j(v, bf16) for k, v in a.items()}
+    jhs, jcs, jg = jfr._lstm_proj_fwd_call(
+        j["xe"], j["wx"], j["b"], j["w"], j["lens"], j["h0"], j["c0"],
+        interpret=True)
+    want = jfr._lstm_proj_bwd_call(
+        j["xe"], jg, jhs, jcs, j["wx"], j["w"], j["lens"], j["h0"], j["c0"],
+        j["dhs"], j["dcs"], interpret=True)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    g, hs, cs = (_from_jax(v, dt) for v in (jg, jhs, jcs))
+    t = {k: _t(v, bf16) for k, v in a.items()}
+    dx, db, dh0, dc0 = tfr.lstm_cluster_bwd(g, cs, t["w"], t["lens"],
+                                            t["h0"], t["c0"], t["dhs"],
+                                            t["dcs"])
+    dxe = tfr.lstm_proj_dxe(dx, t["wx"])
+    dwx, dw = tfr.lstm_proj_dw(t["xe"], hs, t["h0"], dx)
+    assert db.dtype == torch.float32 and dxe.dtype == dt
+    _close_grads((dxe, dwx, db, dw, dh0, dc0), want,
+                 ("dxe", "dwx", "db", "dw", "dh0", "dc0"), bf16)
+
+
+def test_xg_kept_in_fp32_keeps_the_gates_on_jax_bits(jfr):
+    """Why the pre-pass stores xg in fp32: rounded to bf16 it would move
+    12-30 % of the bf16 gates (hs, cs) off JAX's values by an ulp, where
+    the fp32 xg leaves under 0.1 % of them off."""
+    args = ("xe", "wx", "b", "w", "lens", "h0", "c0")
+    for seed in (1, 2):
+        a = _inputs(seed=seed)
+        want = jfr._lstm_proj_fwd_call(*(_j(a[k], True) for k in args),
+                                       interpret=True)
+        t = {k: _t(a[k], True) for k in args}
+        for xg_dtype, lo, hi in ((torch.float32, 0.0, 1e-3),
+                                 (torch.bfloat16, 0.05, 1.0)):
+            got = _hoisted_fwd(t, xg_dtype)
+            for g, w_, name in zip(got, want, ("hs", "cs", "gates")):
+                off = float((_np(g) != np.asarray(w_, np.float32)).mean())
+                assert lo <= off <= hi, (seed, xg_dtype, name, off)
+
+
+# (dtype, B, D) -> (route, bb, clusters) with the H100's 7 co-resident
+# 16-CTA clusters at D 512 and n_sm // (D / 32) elsewhere
+_PLAN_B = (1, 17, 128, 130)
+_PLAN_D = (64, 96, 512, 1024)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D_", _PLAN_D)
+@pytest.mark.parametrize("B_", _PLAN_B)
+def test_cluster_plan_route_and_tile(dtype, D_, B_):
+    mc = 7 if D_ == 512 else None
+    plan = tfr.lstm_cluster_plan(dtype, B_, D_, 132, mc)
+    if dtype == torch.float32 or D_ > 512:
+        assert plan == tfr.ClusterPlan("streaming", 0, 0, 0, 0, 0)
+        return
+    nc = D_ // 32
+    assert plan.route == "resident" and plan.cluster == nc
+    assert plan.max_clusters == (7 if D_ == 512 else 132 // nc)
+    # 16-row tiles while ceil(B / 16) clusters fit at once, else 32
+    bb = 16 if -(-B_ // 16) <= plan.max_clusters else 32
+    assert (plan.bb, plan.tiles) == (bb, -(-B_ // bb))
+    assert plan.smem <= tfr.SMEM_LIMIT
+
+
+def test_cluster_plan_limits():
+    """The CTAs' shared memory as csrc/fused_rnn.cu's rc::fwd_smem /
+    bwd_smem count it; no cluster on the card, or a D that is no
+    multiple of 32, streams."""
+    assert tfr._rec_smem("fwd", 16, 512) == 175616
+    assert tfr._rec_smem("fwd", 32, 512) == 218112
+    assert tfr._rec_smem("bwd", 16, 512) == 170240
+    assert tfr._rec_smem("bwd", 32, 512) == 207360
+    bf = torch.bfloat16
+    assert tfr.lstm_cluster_plan(bf, 128, 512, 132, 0).route == \
+        "streaming"
+    assert tfr.lstm_cluster_plan(bf, 128, 80).route == "streaming"
+    assert tfr.lstm_cluster_plan(bf, 128, 32).cluster == 1
+    assert tfr.lstm_cluster_plan(bf, 2000, 512, 132, 7) == \
+        tfr.ClusterPlan("resident", 32, 16, 63, 7, 218112)
 
 
 def _jax_scan_grads(jfr, proj, a, bf16=False):
@@ -659,3 +776,166 @@ def test_dw_at_flagship_shapes_on_card(cuda_device, dtype, E_):
     assert torch.equal(dwx, again[0]) and torch.equal(dw, again[1])
     r_dwx, r_dw = tfr.lstm_proj_dw_reference(xe, hs, h0, dx)
     assert _rel_l2(dwx, r_dwx) <= l2 and _rel_l2(dw, r_dw) <= l2
+
+
+def _flagship(dev, T, B, E, ragged, seed=11):
+    """Seeded fp32 inputs at the flagship's widths (D 512), lens ragged
+    (0..T with 0 and T present) or all T."""
+    a = _inputs(seed=seed, B=B, T=T, D=512, E=E)
+    if not ragged:
+        a["lens"][:] = T
+    return {k: _t(v).to(dev) for k, v in a.items()}
+
+
+def _bf16_gate(got, plain, exact):
+    """The bf16 kernels' gate (chip_smoke.py's): no further from the fp32
+    plain result than 1.5x the bf16 plain version + 1e-3."""
+    for a, p, e in zip(got, plain, exact):
+        err = float((a.float() - e.float()).abs().max())
+        plain_err = float((p.float() - e.float()).abs().max())
+        assert err <= 1.5 * plain_err + 1e-3, (err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32-stream", "bf16-resident"])
+@pytest.mark.parametrize("shape", [(100, 128, 128, False),
+                                   (100, 128, 512, False),
+                                   (100, 130, 128, True)],
+                         ids=["layer1", "layer2", "b130-ragged"])
+def test_proj_routes_match_plain_at_flagship_on_card(cuda_device, dtype,
+                                                     shape):
+    """B14 and B15's recurrence at the flagship's layers (T 100, D 512, E
+    128 / 512) and at B 130 (no multiple of the tile) with ragged
+    lengths: bf16 takes the resident route, fp32 the streaming one, each
+    counted under its own name; fp32 within 1e-5 / 1e-4 of the plain
+    versions, bf16 within chip_smoke.py's gate of the fp32 plain
+    result."""
+    Tn, Bn, En, ragged = shape
+    t = _flagship(cuda_device, Tn, Bn, En, ragged)
+    lp = {k: (v if k == "lens" else v.to(dtype)) for k, v in t.items()}
+    route = "cluster" if dtype == torch.bfloat16 else "stream"
+    before = dict(tk.LAUNCHES)
+    fwd = tfr.lstm_proj_fwd(lp["xe"], lp["wx"], lp["b"], lp["w"], lp["lens"],
+                            lp["h0"], lp["c0"])
+    bargs = (fwd[2], fwd[1], lp["wx"], lp["w"], lp["lens"], lp["h0"],
+             lp["c0"], lp["dhs"], lp["dcs"])
+    bwd = tfr.lstm_proj_bwd_data(*bargs)
+    torch.cuda.synchronize()
+    for d in ("fwd", "bwd"):
+        assert tk.LAUNCHES[f"lstm_proj_{d}"] == before[f"lstm_proj_{d}"] + 1
+        assert tk.LAUNCHES[f"lstm_proj_{d}_{route}"] == \
+            before[f"lstm_proj_{d}_{route}"] + 1
+    for n in ("lstm_proj_xg", "lstm_proj_dxe"):
+        assert tk.LAUNCHES[n] == before[n] + (route == "cluster")
+    pf = tfr.lstm_proj_fwd_reference(lp["xe"], lp["wx"], lp["b"], lp["w"],
+                                     lp["lens"], lp["h0"], lp["c0"])
+    pb = tfr.lstm_proj_bwd_data_reference(*bargs)
+    if dtype == torch.float32:
+        for a, b_ in zip(fwd, pf):
+            assert float((a - b_).abs().max()) <= 1e-5
+        for a, b_ in zip(bwd, pb):
+            assert float((a - b_).abs().max()) <= 1e-4 * max(
+                1.0, float(b_.abs().max()))
+        return
+    f32 = {k: v.float() for k, v in lp.items()}
+    ef = tfr.lstm_proj_fwd_reference(f32["xe"], f32["wx"], f32["b"],
+                                     f32["w"], f32["lens"], f32["h0"],
+                                     f32["c0"])
+    eb = tfr.lstm_proj_bwd_data_reference(
+        *(a.float() for a in bargs[:5]), f32["h0"], f32["c0"], f32["dhs"],
+        f32["dcs"])
+    _bf16_gate(fwd, pf, ef)
+    _bf16_gate(bwd, pb, eb)
+    if ragged:
+        zero = t["lens"][:, 0] == 0
+        assert bool((fwd[0][:, zero] == lp["h0"][zero]).all())
+        assert not bwd[1][:, zero].any()
+
+
+@pytest.mark.cuda
+def test_resident_kernels_two_launches_bit_equal_on_card(cuda_device):
+    """Each kernel of the resident route (pre-pass, both recurrences,
+    post-pass) gives the same bits on the same inputs: fixed sum orders,
+    no atomics."""
+    t = {k: (v if k == "lens" else v.to(torch.bfloat16))
+         for k, v in _flagship(cuda_device, 100, 130, 128, True).items()}
+    runs = []
+    for _ in range(2):
+        xg = tfr.lstm_proj_xg(t["xe"], t["wx"], t["b"])
+        hs, cs, g = tfr.lstm_cluster_fwd(xg, t["w"], t["lens"], t["h0"],
+                                         t["c0"])
+        dx, db, dh0, dc0 = tfr.lstm_cluster_bwd(g, cs, t["w"], t["lens"],
+                                                t["h0"], t["c0"], t["dhs"],
+                                                t["dcs"])
+        runs.append((xg, hs, cs, g, dx, db, dh0, dc0,
+                     tfr.lstm_proj_dxe(dx, t["wx"])))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_wide_d_takes_the_streaming_route_on_card(cuda_device):
+    """D 1024 in bf16: W's slice would not fit a 16-CTA cluster, so B14
+    and B15's recurrence stream W from L2 every step (each counted under
+    its ``_stream`` name, no pass launched): the forward within 2e-2 of
+    its plain version, the backward (from the kernel's own gates) within
+    chip_smoke.py's bf16 gate of the fp32 plain result."""
+    t = {k: (v if k == "lens" else v.to(cuda_device, torch.bfloat16))
+         for k, v in ((k, _t(v).to(cuda_device)) for k, v in _inputs(
+             seed=12, B=8, T=5, D=1024, E=128).items())}
+    assert tfr._cluster_plan(torch.bfloat16, 8, 1024,
+                             cuda_device).route == "streaming"
+    before = dict(tk.LAUNCHES)
+    got = tfr.lstm_proj_fwd(t["xe"], t["wx"], t["b"], t["w"], t["lens"],
+                            t["h0"], t["c0"])
+    assert tk.LAUNCHES["lstm_proj_fwd_stream"] == \
+        before["lstm_proj_fwd_stream"] + 1
+    want = tfr.lstm_proj_fwd_reference(t["xe"], t["wx"], t["b"], t["w"],
+                                       t["lens"], t["h0"], t["c0"])
+    for a, b_ in zip(got, want):
+        assert float((a.float() - b_.float()).abs().max()) <= 2e-2
+    bargs = (got[2], got[1], t["wx"], t["w"], t["lens"], t["h0"], t["c0"],
+             t["dhs"], t["dcs"])
+    bwd = tfr.lstm_proj_bwd_data(*bargs)
+    torch.cuda.synchronize()
+    for d in ("fwd", "bwd"):
+        assert tk.LAUNCHES[f"lstm_proj_{d}_stream"] == \
+            before[f"lstm_proj_{d}_stream"] + 1
+        assert tk.LAUNCHES[f"lstm_proj_{d}_cluster"] == \
+            before[f"lstm_proj_{d}_cluster"]
+    for n in ("lstm_proj_xg", "lstm_proj_dxe"):
+        assert tk.LAUNCHES[n] == before[n]
+    exact = tfr.lstm_proj_bwd_data_reference(*(
+        a if k == "lens" else a.float() for k, a in zip(
+            ("gates", "cs", "wx", "w", "lens", "h0", "c0", "dhs", "dcs"),
+            bargs)))
+    _bf16_gate(bwd, tfr.lstm_proj_bwd_data_reference(*bargs), exact)
+
+
+@pytest.mark.cuda
+def test_resident_wrappers_raise_on_what_they_do_not_take(cuda_device):
+    t = {k: (v if k == "lens" else v.to(torch.bfloat16))
+         for k, v in _flagship(cuda_device, 3, 16, 128, False).items()}
+    xg = tfr.lstm_proj_xg(t["xe"], t["wx"], t["b"])
+    args = (t["w"], t["lens"], t["h0"], t["c0"])
+    with pytest.raises(TypeError, match="bfloat16 lane"):
+        tfr.lstm_proj_xg(t["xe"].float(), t["wx"].float(), t["b"].float())
+    with pytest.raises(TypeError, match="float32"):
+        tfr.lstm_cluster_fwd(xg.to(torch.bfloat16), *args)
+    with pytest.raises(TypeError, match="bfloat16 lane"):
+        tfr.lstm_cluster_fwd(xg, *(a.float() for a in args))
+    with pytest.raises(ValueError, match="streaming route"):
+        w2 = torch.zeros((1024, 4096), dtype=torch.bfloat16,
+                         device=cuda_device)
+        h2 = torch.zeros((16, 1024), dtype=torch.bfloat16,
+                         device=cuda_device)
+        tfr.lstm_cluster_fwd(torch.zeros((3, 16, 4096), device=cuda_device),
+                             w2, t["lens"], h2, h2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfr.lstm_proj_dxe(torch.zeros((3, 16, 2048), dtype=torch.bfloat16,
+                                      device=cuda_device)[:, ::2].repeat(
+                                          1, 2, 1).transpose(0, 1),
+                          t["wx"])
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tfr.lstm_proj_xg(t["xe"][..., :96].contiguous(),
+                         t["wx"][:96].contiguous(), t["b"])

@@ -143,7 +143,11 @@ def test_cpu_path_launches_no_kernel():
                                 "gru_fwd", "gru_bwd", "gru_dw",
                                 "lstm_fwd", "lstm_bwd", "lstm_dw",
                                 "lstm_proj_fwd", "lstm_proj_bwd",
-                                "lstm_proj_dw"}
+                                "lstm_proj_dw", "lstm_proj_fwd_cluster",
+                                "lstm_proj_bwd_cluster",
+                                "lstm_proj_fwd_stream",
+                                "lstm_proj_bwd_stream", "lstm_proj_xg",
+                                "lstm_proj_dxe"}
     assert not any(tk.LAUNCHES.values())
 
 

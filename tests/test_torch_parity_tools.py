@@ -5,6 +5,7 @@ to run without a card (exit 1, no output file)."""
 import torch
 
 from paddle_tpu_torch.kernels import flash_probe, flash_train_timing
+from paddle_tpu_torch.kernels import lstm_probe
 from paddle_tpu_torch.kernels import parity_dump
 
 _LOG = """\
@@ -45,6 +46,22 @@ def test_parity_compare_holds_every_output_to_its_bits(tmp_path, capsys):
     assert '"differ": ["y"]' in capsys.readouterr().out.splitlines()[-1]
 
 
+def test_parity_compare_reports_redesigned_outputs_apart(tmp_path, capsys):
+    """An output saved under the REDESIGNED prefix (a kernel the PR
+    redesigns) is counted apart and may differ; every other one is held
+    to its bits."""
+    tag = parity_dump.REDESIGNED
+    a = {"x": torch.arange(4.0), tag + "p": torch.ones(3)}
+    torch.save(a, tmp_path / "a.pt")
+    torch.save(dict(a, **{tag + "p": torch.zeros(3)}), tmp_path / "b.pt")
+    assert parity_dump.compare(tmp_path / "a.pt", tmp_path / "b.pt") == 0
+    out = capsys.readouterr().out
+    assert '"bit_equal": 1' in out and '"redesigned": {"outputs": 1, ' \
+        '"bit_equal": 0}' in out
+    torch.save(dict(a, x=torch.zeros(4)), tmp_path / "c.pt")
+    assert parity_dump.compare(tmp_path / "a.pt", tmp_path / "c.pt") == 1
+
+
 def test_card_scripts_refuse_to_run_without_a_card(tmp_path, monkeypatch,
                                                    capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -52,5 +69,7 @@ def test_card_scripts_refuse_to_run_without_a_card(tmp_path, monkeypatch,
     assert parity_dump.main(["--out", str(out)]) == 1
     assert flash_probe.main(["--out", str(tmp_path / "probe")]) == 1
     assert flash_train_timing.main([]) == 1
+    assert lstm_probe.main(["--out", str(tmp_path / "lstm.json")]) == 1
     assert not out.exists() and not (tmp_path / "probe").exists()
+    assert not (tmp_path / "lstm.json").exists()
     assert "no CUDA device" in capsys.readouterr().err
