@@ -143,25 +143,34 @@ The text-classification slice adds, in the same run:
    computes this LSTM; the dW reductions beside their yardstick, one
    ``torch.matmul`` with fp32 sums on pre-built ``hprev`` or
    ``[xe | hprev]``, and two launches on the same inputs held
-   bit-equal), B14/B15 at both layers. B14/B15's bf16 lane takes the
-   resident route (``fused_rnn.lstm_cluster_plan``): its rows add the
-   plan (tile rows, clusters, CTAs a cluster, the card's co-resident
-   clusters), ``device_ms`` with the card's queue kept ahead of the host,
-   µs a step of each recurrence alone, and the cluster exchange alone
+   bit-equal), B14/B15 at both layers. The recurrences' bf16 lane takes
+   the resident route (``fused_rnn.lstm_cluster_plan`` of the call's one
+   dtype). B14/B15's rows add the plan (tile
+   rows, clusters, CTAs a cluster, the card's co-resident clusters),
+   ``device_ms`` with the card's queue kept ahead of the host, µs a step
+   of each recurrence alone, and the cluster exchange alone
    (``lstm_exchange``: the forward's, the backward's and the barrier's µs
    a step over 100 empty steps); the route's pre-pass (``lstm_proj_xg``)
    and post-pass (``lstm_proj_dxe``) are rows of their own, each against
    its plain version, two launches bit-equal, beside a bf16 PyTorch GEMM
-   on the tensor cores (the pre-pass also beside the fp32 one). The bf16
-   streaming route, which the plan gives past D 512, is held at D 1024
-   (the wide classifier's first layer: T 100, B 128, E 128), forward and
-   backward at the bf16 gate, each counted under its ``_stream`` name,
-   rows of its own (``lstm_proj_{fwd,bwd}_bf16_stream``);
+   on the tensor cores (the pre-pass also beside the fp32 one). B10/B11's
+   bf16 rows (``lstm_fwd_bf16``, ``lstm_bwd_bf16``) add the plan,
+   ``device_ms`` and µs a step (each wrapper is its recurrence alone),
+   and hold, at the uniform layers' shape and the ragged batch: each
+   call counted under ``lstm_fwd`` / ``lstm_bwd`` and its ``_cluster``
+   name, B10 bit-equal to B14's recurrence (``lstm_cluster_fwd``) on
+   float(x), B11's dx, dh0, dc0 to ``lstm_cluster_bwd``'s, two launches
+   of each bit-equal. The bf16 streaming route, which the plan gives past
+   D 512, is held at D 1024 (the wide classifier's first layer: T 100, B
+   128, E 128) for B10/B11 and B14/B15, forward and backward at the bf16
+   gate, each counted under its ``_stream`` name, rows of their own
+   (``lstm_{fwd,bwd}_bf16_stream``, ``lstm_proj_{fwd,bwd}_bf16_stream``);
 4f. one full-width flagship training step (bench.py's bench_lstm:
    ``lstm_benchmark_net`` with ``fused_lstm``, batch 128 x 100, vocab
    5147, emb 128, hidden 512, 2 layers) in fp32 and under AMP, and the
-   composed route (fc + ``dynamic_lstm``) in both, through the kernels
-   (under sync-debug "error"; each route's kernels launched twice)
+   composed route (fc + ``dynamic_lstm``: under AMP B10/B11 on the
+   resident route) in both, through the kernels (under sync-debug
+   "error"; each route's kernels launched twice, on the route's names)
    against the same step through their plain versions: the loss and
    every gradient by relative L2 (fp32 1e-4; AMP no further from the
    fp32 plain gradient than 1.5x the AMP plain path + 1e-2);
@@ -171,14 +180,17 @@ The text-classification slice adds, in the same run:
    B14/B15 kernel launched exactly 2 x steps, on the route the plan
    gives: in bf16 the resident one, its pre- and post-pass too; its ms
    per batch over ``train_lstm_composed``'s), ``train_lstm_composed``
-   (fc + dynamic_lstm: B10/B11, 2 x steps), ``train_lstm_ragged``
-   (ragged LoD, so fused_lstm falls back to B10/B11), short fp32 runs of
-   both routes (the fp32 lanes' launches), ``train_lstm_wide`` (hidden
-   1024, AMP, 1 + 3 steps: B14/B15's bf16 streaming route, 2 x steps
-   each), and ``profile_lstm`` (three
-   steps under ``torch.profiler``: the kernels' device ms a step, the
-   pre-pass, the recurrences and the post-pass by name, the device's busy
-   and idle share).
+   (fc + dynamic_lstm: B10/B11, 2 x steps, on the resident route's
+   ``lstm_{fwd,bwd}_cluster`` names), ``train_lstm_ragged`` (ragged LoD,
+   so fused_lstm falls back to B10/B11, the same names), short fp32 runs
+   of both routes (the fp32 lanes' launches, on the ``_stream`` names),
+   ``train_lstm_wide`` (hidden 1024, AMP, 1 + 3 steps: B14/B15's bf16
+   streaming route, 2 x steps each), ``train_lstm_wide_ragged`` (the
+   same on ragged LoD: B10/B11's bf16 streaming route), ``profile_lstm``
+   (three steps under ``torch.profiler``: the kernels' device ms a step,
+   the pre-pass, the recurrences and the post-pass by name, the device's
+   busy and idle share) and ``profile_lstm_composed`` (the same for the
+   composed route: B10/B11's recurrences and B11's dW by name).
 
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
 lane of every kernel), the ``serve``, ``train``, seq2seq and LSTM lines
@@ -2196,9 +2208,12 @@ LSTM_KERNELS = {
 }
 LSTM_COMPOSED = ("lstm_fwd", "lstm_bwd", "lstm_dw")
 LSTM_PROJ = ("lstm_proj_fwd", "lstm_proj_bwd", "lstm_proj_dw")
-# B14/B15's routes (fused_rnn.lstm_cluster_plan): the launch names each
-# adds to LSTM_PROJ, and the resident route's pre- and post-pass kernels,
-# each with the TPU kernel whose product it computes
+# the recurrences' routes (fused_rnn.lstm_cluster_plan): the
+# launch names each adds to LSTM_COMPOSED (B10/B11) and to LSTM_PROJ
+# (B14/B15, with the resident route's pre- and post-pass kernels)
+LSTM_COMPOSED_ROUTE_NAMES = {
+    "resident": ("lstm_fwd_cluster", "lstm_bwd_cluster"),
+    "streaming": ("lstm_fwd_stream", "lstm_bwd_stream")}
 LSTM_ROUTE_NAMES = {
     "resident": ("lstm_proj_fwd_cluster", "lstm_proj_bwd_cluster",
                  "lstm_proj_xg", "lstm_proj_dxe"),
@@ -2235,13 +2250,18 @@ TEXT_B, TEXT_T, TEXT_LR = 128, 100, 0.002
 LSTM_SHAPES = {"layer1": (100, 128, 512, 128, False),
                "layer2": (100, 128, 512, 512, False),
                "ragged": (100, 128, 512, 128, True)}
-# the classifier at hidden 1024 (5f's train_lstm_wide): past D 512 W's
-# slices would not fit a 16-CTA cluster, so B14/B15's bf16 lane takes the
-# streaming route; 3f holds it at the wide model's first layer (T, B, D, E)
+# the classifier at hidden 1024 (5f's train_lstm_wide and
+# train_lstm_wide_ragged): past D 512 W's slices would not fit a 16-CTA
+# cluster, so the LSTM recurrences' bf16 lane takes the streaming route;
+# 3f holds it at the wide model's first layer (T, B, D, E)
 TEXT_WIDE_CFG = dict(TEXT_CFG, hid_dim=1024)
 LSTM_STREAM_SHAPE = (TEXT_T, TEXT_B, TEXT_WIDE_CFG["hid_dim"],
                      TEXT_CFG["emb_dim"])
-LSTM_STREAM_ROWS = ("lstm_proj_fwd_stream", "lstm_proj_bwd_stream")
+# the streaming rows and the run whose launches each reports
+LSTM_STREAM_ROWS = {"lstm_proj_fwd_stream": "train_lstm_wide",
+                    "lstm_proj_bwd_stream": "train_lstm_wide",
+                    "lstm_fwd_stream": "train_lstm_wide_ragged",
+                    "lstm_bwd_stream": "train_lstm_wide_ragged"}
 
 
 def _lstm_case(dev, T, B, D, E, ragged, seed=0):
@@ -2415,6 +2435,64 @@ def _lstm_resident(fr, dev, flush, c, o, T, B, D, E):
     return out
 
 
+def _lstm_composed_resident(fr, kernels, dev, flush, lc, got, T, B, D,
+                            timed=True):
+    """B10 and B11's recurrence in bf16 on the resident route at one
+    shape (``lc`` the bf16 inputs, ``got`` ``_lstm_run``'s kernel
+    outputs): the route the plan and dtypes give must be resident; one
+    call of each counts under its wrapper's and its route's name and
+    nothing else; B10 is bit-equal to ``lstm_cluster_fwd`` (B14's
+    recurrence) on ``float(x)``, B11's dx, dh0, dc0 to
+    ``lstm_cluster_bwd``'s; two launches of each bit-equal. ``timed``:
+    device ms of each (the card's queue kept ahead of the host) and µs a
+    step, with the plan."""
+    x, w, lens, h0, c0 = (lc[k] for k in ("x", "w", "lens", "h0", "c0"))
+    plan = fr._cluster_plan(x.dtype, B, D, dev)
+    _check(plan.route == "resident", f"B10/B11 bf16 B {B} D {D}: plan "
+           f"{plan}")
+    bargs = (got["gates"], got["cs"], w, lens, h0, c0, lc["dhs"], lc["dcs"])
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    fwd = fr.lstm_fwd(x, w, lens, h0, c0)
+    bwd = fr.lstm_bwd_data(*bargs)
+    torch.cuda.synchronize()
+    moved = {n: k - before[n] for n, k in kernels.LAUNCHES.items()
+             if k != before[n]}
+    want = dict.fromkeys(LSTM_COMPOSED[:2]
+                         + LSTM_COMPOSED_ROUTE_NAMES["resident"], 1)
+    _check(moved == want, f"B10/B11 bf16: launches {moved}, want {want}")
+    ref_b = fr.lstm_cluster_bwd(*bargs)
+    same = {"fwd_vs_cluster_fwd_on_float_x": all(
+                torch.equal(a, b_) for a, b_ in zip(
+                    fwd, fr.lstm_cluster_fwd(x.float(), w, lens, h0, c0))),
+            "bwd_vs_cluster_bwd": all(
+                torch.equal(a, b_) for a, b_ in zip(
+                    bwd, (ref_b[0], ref_b[2], ref_b[3]))),
+            "fwd_two_launches": all(torch.equal(a, b_) for a, b_ in zip(
+                fwd, fr.lstm_fwd(x, w, lens, h0, c0))),
+            "bwd_two_launches": all(torch.equal(a, b_) for a, b_ in zip(
+                bwd, fr.lstm_bwd_data(*bargs)))}
+    _check(all(same.values()), f"B10/B11 bf16 B {B} D {D}: bits {same}")
+    _check(all(torch.equal(a, b_) for a, b_ in zip(
+        fwd, (got["hs"], got["cs"], got["gates"]))),
+        "B10 bf16: _lstm_run's launch differs from this one")
+    del fwd, bwd, ref_b
+    if not timed:
+        return {}
+    dev_f = _time_ms(lambda: fr.lstm_fwd(x, w, lens, h0, c0), flush,
+                     reps=10, queue_ahead=True)
+    dev_b = _time_ms(lambda: fr.lstm_bwd_data(*bargs), flush, reps=10,
+                     queue_ahead=True)
+    plan_rec = {"route": plan.route, "bb": plan.bb, "clusters": plan.tiles,
+                "cluster_ctas": plan.cluster,
+                "max_clusters": plan.max_clusters, "smem_bytes": plan.smem}
+    # the wrapper is the recurrence alone: no pass beside it
+    return {name: {"plan": plan_rec, "device_ms": ms,
+                   "recurrence_device_ms": ms, "us_per_step": ms * 1e3 / T,
+                   "bit_equal": same}
+            for name, ms in (("lstm_fwd", dev_f), ("lstm_bwd", dev_b))}
+
+
 def _rel_max(a, b):
     """max |a - b| over max |b| (floored at 1)."""
     return _max_err(a, b) / max(1.0, float(b.float().abs().max()))
@@ -2505,6 +2583,11 @@ def check_lstm(fr, kernels, dev, flush, dtype):
     for key, (T, B, D, E, ragged) in LSTM_SHAPES.items():
         c = _lstm_case(dev, T, B, D, E, ragged)
         errs, got = _lstm_errors(fr, c, dtype)
+        if lane == "bf16" and ragged:   # the uniform shape: timed below
+            _lstm_composed_resident(
+                fr, kernels, dev, flush,
+                {k: (v if k == "lens" else v.to(dtype))
+                 for k, v in c.items()}, got, T, B, D, timed=False)
         for n, e in errs.items():
             if dtype == torch.float32:
                 worst[n] = max(worst.get(n, 0.0), e)
@@ -2565,9 +2648,13 @@ def check_lstm(fr, kernels, dev, flush, dtype):
         # B10/B11 do not depend on E: timed once, at layer 1
         names = LSTM_KERNELS if key == "layer1" else LSTM_PROJ
         # the bf16 lane of B14/B15 takes the resident route: device ms,
-        # µs a step, the plan, and its pre- and post-pass kernels
+        # µs a step, the plan, and its pre- and post-pass kernels; B10/
+        # B11's the same recurrences, with no passes
         res_keys = ({"lstm_proj_fwd": "fwd", "lstm_proj_bwd": "bwd"}
                     if lane == "bf16" else {})
+        composed_res = (_lstm_composed_resident(fr, kernels, dev, flush, c,
+                                                o, T, B, D)
+                        if lane == "bf16" and key == "layer1" else {})
         if res_keys:
             res = _lstm_resident(fr, dev, flush, c, o, T, B, D, E)
             for pname, prec in res["passes"].items():
@@ -2612,6 +2699,7 @@ def check_lstm(fr, kernels, dev, flush, dtype):
             if lane == "bf16":
                 rec["err_vs_fp32_and_plain_bf16_err"] = {n: worst[n]
                                                          for n in outs}
+            rec.update(composed_res.get(name, {}))
             if name in res_keys:
                 rec.update({"plan": res["plan"],
                             "device_ms": res["device_ms"][name],
@@ -2630,73 +2718,82 @@ def check_lstm(fr, kernels, dev, flush, dtype):
 
 
 def check_lstm_streaming(fr, kernels, dev, flush):
-    """Phase 3f, B14/B15's bf16 lane on the streaming route (one kernel a
-    direction reading W and Wx from L2 every step) at LSTM_STREAM_SHAPE:
-    the plan must stream; one forward and one backward (from the kernel's
-    own gates) each count once under ``lstm_proj_{fwd,bwd}`` and their
-    ``_stream`` names and launch nothing else; every output no further
-    from the fp32 plain result than 1.5x the bf16 plain version + 1e-3
-    (3f's bf16 gate, LSTM_OUTPUTS' measures). Then each timed beside its
-    plain version and its bound. Returns kernels-line records keyed by
-    the route's launch names."""
+    """Phase 3f, the LSTM recurrences' bf16 lane on the streaming route
+    (one kernel a direction reading W, and B14/B15's Wx, from L2 every
+    step) at LSTM_STREAM_SHAPE: the plan must stream; one forward and one
+    backward (from the kernel's own gates) of B10/B11 and of B14/B15 each
+    count once under its wrapper's name and its ``_stream`` name and
+    launch nothing else; every output no further from the fp32 plain
+    result than 1.5x the bf16 plain version + 1e-3 (3f's bf16 gate,
+    LSTM_OUTPUTS' measures). Then each timed beside its plain version and
+    its bound. Returns kernels-line records keyed by the route's launch
+    names."""
     T, B, D, E = LSTM_STREAM_SHAPE
     dtype = torch.bfloat16
     plan = fr._cluster_plan(dtype, B, D, dev)
     _check(plan.route == "streaming", f"lstm bf16 D {D}: route {plan}")
     c = {k: (v if k == "lens" else v.to(dtype))
-         for k, v in _lstm_case(dev, T, B, D, E, False).items() if k != "x"}
-    xe, wx, b, w, lens, h0, c0 = (c[k] for k in ("xe", "wx", "b", "w",
-                                                "lens", "h0", "c0"))
+         for k, v in _lstm_case(dev, T, B, D, E, False).items()}
+    x, xe, wx, b, w, lens, h0, c0 = (c[k] for k in (
+        "x", "xe", "wx", "b", "w", "lens", "h0", "c0"))
     torch.cuda.synchronize()
     before = dict(kernels.LAUNCHES)
-    got = {"lstm_proj_fwd": fr.lstm_proj_fwd(xe, wx, b, w, lens, h0, c0)}
-    bargs = (got["lstm_proj_fwd"][2], got["lstm_proj_fwd"][1], wx, w, lens,
-             h0, c0, c["dhs"], c["dcs"])
-    got["lstm_proj_bwd"] = fr.lstm_proj_bwd_data(*bargs)
+    got = {"lstm_fwd": fr.lstm_fwd(x, w, lens, h0, c0),
+           "lstm_proj_fwd": fr.lstm_proj_fwd(xe, wx, b, w, lens, h0, c0)}
+    bargs = {"lstm_bwd": (got["lstm_fwd"][2], got["lstm_fwd"][1], w, lens,
+                          h0, c0, c["dhs"], c["dcs"]),
+             "lstm_proj_bwd": (got["lstm_proj_fwd"][2],
+                               got["lstm_proj_fwd"][1], wx, w, lens, h0, c0,
+                               c["dhs"], c["dcs"])}
+    got["lstm_bwd"] = fr.lstm_bwd_data(*bargs["lstm_bwd"])
+    got["lstm_proj_bwd"] = fr.lstm_proj_bwd_data(*bargs["lstm_proj_bwd"])
     torch.cuda.synchronize()
     moved = {n: k - before[n] for n, k in kernels.LAUNCHES.items()
              if k != before[n]}
-    want = dict.fromkeys(("lstm_proj_fwd", "lstm_proj_bwd",
-                          *LSTM_STREAM_ROWS), 1)
+    want = dict.fromkeys(("lstm_fwd", "lstm_bwd", "lstm_proj_fwd",
+                          "lstm_proj_bwd", *LSTM_STREAM_ROWS), 1)
     _check(moved == want, f"lstm bf16 D {D}: launches {moved}, want {want}")
-    f32 = [a if a is lens else a.float() for a in (xe, wx, b, w, lens, h0,
-                                                    c0)]
-    plain = {"lstm_proj_fwd": fr.lstm_proj_fwd_reference(xe, wx, b, w, lens,
-                                                         h0, c0),
-             "lstm_proj_bwd": fr.lstm_proj_bwd_data_reference(*bargs)}
-    exact = {"lstm_proj_fwd": fr.lstm_proj_fwd_reference(*f32),
-             "lstm_proj_bwd": fr.lstm_proj_bwd_data_reference(
-                 *(a if a is lens else a.float() for a in bargs))}
-    calls = {"lstm_proj_fwd": (lambda: fr.lstm_proj_fwd(xe, wx, b, w, lens,
-                                                        h0, c0),
-                               lambda: fr.lstm_proj_fwd_reference(
-                                   xe, wx, b, w, lens, h0, c0)),
-             "lstm_proj_bwd": (lambda: fr.lstm_proj_bwd_data(*bargs),
-                               lambda: fr.lstm_proj_bwd_data_reference(
-                                   *bargs))}
+
+    def f32(args):
+        return [a if a is lens else a.float() for a in args]
+
+    fargs = {"lstm_fwd": (x, w, lens, h0, c0),
+             "lstm_proj_fwd": (xe, wx, b, w, lens, h0, c0), **bargs}
+    refs = {"lstm_fwd": fr.lstm_fwd_reference,
+            "lstm_bwd": fr.lstm_bwd_data_reference,
+            "lstm_proj_fwd": fr.lstm_proj_fwd_reference,
+            "lstm_proj_bwd": fr.lstm_proj_bwd_data_reference}
+    kerns = {"lstm_fwd": fr.lstm_fwd, "lstm_bwd": fr.lstm_bwd_data,
+             "lstm_proj_fwd": fr.lstm_proj_fwd,
+             "lstm_proj_bwd": fr.lstm_proj_bwd_data}
     recs = {}
-    for name, (kernel_fn, plain_fn) in calls.items():
+    for name, ref in refs.items():
+        args = fargs[name]
+        plain = ref(*args)
+        exact = ref(*f32(args))
         outs = LSTM_OUTPUTS[name]
         gate = {}
-        for n, g, p, e in zip(outs, got[name], plain[name], exact[name]):
+        for n, g, p, e in zip(outs, got[name], plain, exact):
             gate[n] = (_LSTM_MEASURE[outs[n]](g, e),
                        _LSTM_MEASURE[outs[n]](p, e))
             _check(gate[n][0] <= FLASH_BF16_RATIO * gate[n][1] + 1e-3,
                    f"lstm bf16 streaming D {D}: {n} is {gate[n][0]} from "
                    f"fp32, the plain version {gate[n][1]}")
+        del plain, exact
+        kernel_fn = (lambda k=kerns[name], a=args: k(*a))
         ms = _time_ms(kernel_fn, flush, reps=10)
         device_ms = _time_ms(kernel_fn, flush, reps=10, queue_ahead=True)
         recs[f"{name}_stream"] = _lane_record(
             f"{name}_bf16_stream", LSTM_KERNELS[name], GRU_SOURCE,
             max(e for e, _p in gate.values()), ms,
-            _time_ms(plain_fn, flush, reps=3), None,
+            _time_ms(lambda r=ref, a=args: r(*a), flush, reps=3), None,
             _lstm_bound(name, dtype, T, B, D, E),
-            {"shape": [T, B, D, E], "dtype": "bfloat16",
-             "plan": {"route": plan.route}, "device_ms": device_ms,
-             "us_per_step": device_ms * 1e3 / T,
+            {"shape": [T, B, D] + ([E] if "proj" in name else []),
+             "dtype": "bfloat16", "plan": {"route": plan.route},
+             "device_ms": device_ms, "us_per_step": device_ms * 1e3 / T,
              "err_is": dict(outs), "err_vs_fp32_and_plain_bf16_err": gate,
              "library_note": LSTM_LIBRARY_NOTE})
-    del c, got, plain, exact, calls
+    del c, got, bargs, fargs
     kernels.reset_launches()
     return recs
 
@@ -2705,13 +2802,14 @@ def _lstm_route_names(dev, fused_proj, amp, ragged=False,
                       D=TEXT_CFG["hid_dim"]):
     """The launch names a classifier step's two LSTM layers add to, once
     each: the composed route's three (fc + dynamic_lstm, or a ragged
-    batch), or B14/B15's with those of the route ``lstm_cluster_plan``
-    gives layers of width D (the flagship's) in the step's dtype."""
+    batch: B10/B11) or B14/B15's, each with those of the route
+    ``lstm_cluster_plan`` gives layers of width D (the flagship's) in the
+    step's dtype (every tensor of the step's recurrences in it)."""
     from paddle_tpu_torch.kernels import fused_rnn as fr
-    if not fused_proj or ragged:
-        return LSTM_COMPOSED
     dtype = torch.bfloat16 if amp else torch.float32
     route = fr._cluster_plan(dtype, TEXT_B, D, dev).route
+    if not fused_proj or ragged:
+        return LSTM_COMPOSED + LSTM_COMPOSED_ROUTE_NAMES[route]
     return LSTM_PROJ + LSTM_ROUTE_NAMES[route]
 
 
@@ -2819,6 +2917,32 @@ def check_text_step(tx, fr, kernels, dev):
     return recs
 
 
+def timed_steps(step, params, state, feeds, warmup=3, steps=20):
+    """A training loop as 5f times it: ``warmup`` steps, then ``steps``
+    in one window with CUDA events between steps and no host syncs, over
+    ``feeds`` in turn. Returns ``(params, state, losses, step_ms,
+    wall_s)``: every step's loss (a card tensor), each timed step's ms
+    and the window's host seconds."""
+    losses = []
+    for i in range(warmup):
+        params, state, loss, _acc = step(params, state,
+                                         feeds[i % len(feeds)])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        events[i].record()
+        params, state, loss, _acc = step(params, state,
+                                         feeds[(warmup + i) % len(feeds)])
+        losses.append(loss)
+    events[steps].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    return params, state, losses, step_ms, wall
+
+
 def train_text(tx, kernels, dev, key="train_lstm", fused_proj=True,
                amp=True, ragged=False, warmup=3, steps=20, widths=TEXT_CFG):
     """Phase 5f: a flagship training run. ``make_train_step(cfg, "adam",
@@ -2840,21 +2964,8 @@ def train_text(tx, kernels, dev, key="train_lstm", fused_proj=True,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()                       # the main path: go
-    losses = []
-    for i in range(warmup):
-        params, state, loss, _acc = step(params, state, feeds[i % 4])
-        losses.append(loss)
-    torch.cuda.synchronize()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
-    t0 = time.perf_counter()
-    for i in range(steps):
-        events[i].record()
-        params, state, loss, _acc = step(params, state,
-                                         feeds[(warmup + i) % 4])
-        losses.append(loss)
-    events[steps].record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    params, state, losses, step_ms, wall = timed_steps(
+        step, params, state, feeds, warmup, steps)
     launches = dict(kernels.LAUNCHES)              # read just after
     n = warmup + steps
     want = dict.fromkeys(kernels.LAUNCHES, 0)
@@ -2866,7 +2977,6 @@ def train_text(tx, kernels, dev, key="train_lstm", fused_proj=True,
     loss_list = torch.stack(losses).cpu().tolist()
     _check(all(np.isfinite(loss_list)), f"{key}: non-finite loss "
            f"{loss_list}")
-    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
     words = sum(int(f["words"].lod.total_size()) for f in feeds) / 4
     # bench.py's count is per padded batch; a ragged batch needs only its
     # words' share of it
@@ -2887,11 +2997,13 @@ def train_text(tx, kernels, dev, key="train_lstm", fused_proj=True,
         "losses_finite": len(loss_list), "launches": launches}}, launches
 
 
-def profile_text(tx, dev):
-    """Where a flagship training step's time goes (fused_lstm, AMP): three
-    steps under ``torch.profiler`` after two warm-up steps, with the LSTM
-    kernels' device ms per step and the device's busy and idle share."""
-    cfg = tx.TextConfig(**TEXT_CFG)
+def profile_text(tx, dev, fused_proj=True):
+    """Where a flagship training step's time goes (AMP; fused_lstm, or
+    with ``fused_proj=False`` the composed route, fc + dynamic_lstm:
+    ``profile_lstm_composed``): three steps under ``torch.profiler`` after
+    two warm-up steps, with the LSTM kernels' device ms per step by name
+    and the device's busy and idle share."""
+    cfg = tx.TextConfig(**TEXT_CFG, fused_proj=fused_proj)
     state = {"p": tx.init_params(cfg, seed=0, device=dev)}
     opt, step = tx.make_train_step(cfg, "adam", TEXT_LR)
     state["o"] = opt.init(state["p"])
@@ -2902,8 +3014,9 @@ def profile_text(tx, dev):
                                                   feeds[i % 4])
         return loss.cpu()
 
-    return {"profile_lstm": dict(
-        {"batch": [TEXT_B, TEXT_T], "amp": True, "fused_proj": True},
+    key = "profile_lstm" if fused_proj else "profile_lstm_composed"
+    return {key: dict(
+        {"batch": [TEXT_B, TEXT_T], "amp": True, "fused_proj": fused_proj},
         **_profile([lambda i=i: call(i) for i in range(5)],
                    named=("lstm_xg_kernel", "lstm_cluster_fwd_kernel",
                           "lstm_cluster_bwd_kernel", "lstm_dxe_kernel",
@@ -3204,7 +3317,10 @@ def main():
             ("train_lstm_composed_fp32", dict(fused_proj=False, amp=False,
                                               warmup=2, steps=5)),
             ("train_lstm_wide", dict(widths=TEXT_WIDE_CFG, warmup=1,
-                                     steps=3))):
+                                     steps=3)),
+            ("train_lstm_wide_ragged", dict(widths=TEXT_WIDE_CFG,
+                                            ragged=True, warmup=1,
+                                            steps=3))):
         torch.cuda.empty_cache()
         text_runs[key] = train_text(tx, kernels, dev, key=key, **kw)
     for dtype, proj_key, comp_key in (
@@ -3212,26 +3328,28 @@ def main():
             (torch.bfloat16, "train_lstm", "train_lstm_composed")):
         for name, rec in llanes[dtype].items():
             key = (proj_key if name in LSTM_PROJ or name in LSTM_PASSES
-                   else "train_lstm_wide" if name in LSTM_STREAM_ROWS
-                   else comp_key)
+                   else LSTM_STREAM_ROWS.get(name, comp_key))
             rec["launches"] = text_runs[key][1][name]
             rec["launches_run"] = key
-            if name in ("lstm_proj_fwd", "lstm_proj_bwd"):
+            if name in ("lstm_fwd", "lstm_bwd", "lstm_proj_fwd",
+                        "lstm_proj_bwd"):
                 rec["launches_by_route"] = {
                     r: text_runs[key][1][f"{name}{sfx}"]
                     for r, sfx in (("resident", "_cluster"),
                                    ("streaming", "_stream"))}
     torch.cuda.empty_cache()
     plrec = profile_text(tx, dev)
+    torch.cuda.empty_cache()
+    pcrec = profile_text(tx, dev, fused_proj=False)
     fused = text_runs["train_lstm"][0]["train_lstm"]
     composed = text_runs["train_lstm_composed"][0]["train_lstm_composed"]
     fused["ms_per_batch_vs_composed"] = (fused["ms_per_batch_p50"]
                                          / composed["ms_per_batch_p50"])
-    text_runs["train_lstm"][0]["train_lstm"].update({
-        "device_busy_ms_per_step_profiled":
-            plrec["profile_lstm"]["device_busy_ms_per_step"],
-        "device_idle_share_profiled":
-            plrec["profile_lstm"]["device_idle_share"]})
+    for run, prof in ((fused, plrec["profile_lstm"]),
+                      (composed, pcrec["profile_lstm_composed"])):
+        run.update({"device_busy_ms_per_step_profiled":
+                    prof["device_busy_ms_per_step"],
+                    "device_idle_share_profiled": prof["device_idle_share"]})
     _say(f"lstm phases done at {time.perf_counter() - t0:.1f} s")
 
     _say(json.dumps(prec))
@@ -3240,6 +3358,7 @@ def main():
     _say(json.dumps(ptrec))
     _say(json.dumps(psrec))
     _say(json.dumps(plrec))
+    _say(json.dumps(pcrec))
     _say(json.dumps({"kernels": [
         krec, lanes["bfloat16"], lanes["int8"], lanes["fp8-e4m3"],
         *(dlanes[d] for d in ("float32", "bfloat16", "int8", "fp8-e4m3")),
@@ -3255,8 +3374,7 @@ def main():
           for n in LSTM_KERNELS),
         *(llanes[torch.bfloat16][n] for n in LSTM_PASSES
           if n in llanes[torch.bfloat16]),
-        *(llanes[torch.bfloat16][n] for n in LSTM_STREAM_ROWS
-          if n in llanes[torch.bfloat16])]}))
+        *(llanes[torch.bfloat16][n] for n in LSTM_STREAM_ROWS)]}))
     _say(json.dumps(srec))
     for rec in (sqrec, s8rec, sbrec):
         _say(json.dumps(rec))

@@ -33,9 +33,14 @@ LAUNCHES: Dict[str, int] = {"paged_attention_mixed": 0,
                             "lstm_proj_fwd": 0,
                             "lstm_proj_bwd": 0,
                             "lstm_proj_dw": 0,
-                            # B14/B15's two routes (each launch also counts
-                            # under lstm_proj_fwd / _bwd) and the resident
-                            # route's pre- and post-pass GEMMs
+                            # the LSTM recurrences' two routes (each launch
+                            # also counts under its wrapper's name) and
+                            # B14/B15's pre- and post-pass GEMMs on the
+                            # resident one
+                            "lstm_fwd_cluster": 0,
+                            "lstm_bwd_cluster": 0,
+                            "lstm_fwd_stream": 0,
+                            "lstm_bwd_stream": 0,
                             "lstm_proj_fwd_cluster": 0,
                             "lstm_proj_bwd_cluster": 0,
                             "lstm_proj_fwd_stream": 0,

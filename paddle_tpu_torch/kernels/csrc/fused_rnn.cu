@@ -1,7 +1,8 @@
 // Fused LSTM and GRU recurrences for Hopper (sm_90a), each with a
 // float32 and a bfloat16 lane (the recurrences on the CUDA cores, the dW
-// reductions' bf16 lane on the tensor cores; B14/B15's bf16 lane on the
-// resident route below, its products on the tensor cores):
+// reductions' bf16 lane on the tensor cores; the LSTM recurrences' bf16
+// lane, B10/B11 and B14/B15, on the resident route below, its products on
+// the tensor cores):
 //   LSTM (gates i|f|c~|o, w [D, 4D]):
 //     lstm_fwd       (B10) replaces paddle_tpu/kernels/fused_rnn.py:
 //                    _lstm_fwd_kernel, launched by _lstm_fwd_call;
@@ -12,11 +13,16 @@
 //     lstm_proj_bwd  (B15) _lstm_proj_bwd_kernel (_lstm_proj_bwd_call):
 //     (+ lstm_dw     the recurrence with dxe = dgates_lp @ Wx^T and the
 //      over [Wx; W]) fp32 db, then dWx and dW in one reduction;
-//     B14/B15 in bf16, the resident route (rc:: below, C entries
-//     proj_gemm, cluster_lstm_fwd, cluster_lstm_bwd): lstm_xg_kernel
-//     (xe @ Wx + b for every step), lstm_cluster_fwd_kernel,
-//     lstm_cluster_bwd_kernel, lstm_dxe_kernel (dx @ Wx^T for every
-//     step);
+//     the bf16 lane on the resident route (rc:: below):
+//     lstm_cluster_fwd_kernel and lstm_cluster_bwd_kernel, the two
+//     recurrences, serve B10 (C entry cluster_lstm_fwd_x: x in bf16 as
+//     the step's first term), B11's recurrence (cluster_lstm_bwd without
+//     db), B14 (cluster_lstm_fwd: the fp32 xg of lstm_xg_kernel, xe @ Wx
+//     + b for every step, C entry proj_gemm) and B15's recurrence
+//     (cluster_lstm_bwd with db, then lstm_dxe_kernel, dx @ Wx^T for
+//     every step); the streaming kernels (lstm_fwd_kernel,
+//     lstm_bwd_kernel) keep the fp32 lanes and the bf16 shapes the plan
+//     does not make resident;
 //   GRU (gates u|r|c~, w [D, 3D]):
 //     gru_fwd        (B12) _gru_fwd_kernel (_gru_fwd_call);
 //     gru_bwd +      (B13) the reverse recurrence and the dW reduction
@@ -100,12 +106,13 @@
 //     atomics: the same inputs give the same bits.
 // The LSTM's W is 2 MiB in bf16 (B14/B15 add Wx, 0.5 or 2 MiB), so the
 // streaming kernels' steps are set by the same L2 reads: 128 blocks x
-// 2.5-4 MiB a step (B10/B11, and B14/B15 in fp32 and where the resident
-// route does not fit).
+// 2-4 MiB a step (B10/B11 and B14/B15 in fp32, and in bf16 where the
+// resident route does not fit).
 //
-// B14/B15's bf16 resident route. What is left of a step once the input
-// projection leaves it (xe @ Wx + b does not depend on h; dxe = dgates
-// @ Wx^T does not feed the recurrence) is [B, D] x [D, 4D]: 2.1 MFLOP
+// The LSTM's bf16 resident route (B10/B11 and B14/B15). What is left of
+// a step once the input projection leaves it (xe @ Wx + b does not depend
+// on h; dxe = dgates @ Wx^T does not feed the recurrence; B10/B11's x
+// holds the projected gates already) is [B, D] x [D, 4D]: 2.1 MFLOP
 // per 16 batch rows, far too little to hide L2 streaming of W. So W stays
 // on chip: one thread-block cluster of D / 32 CTAs per tile of 16 or 32
 // batch rows (16 CTAs at D 512: 16 x 227 KB holds W's 2 MiB, [Wx; W]'s 4
@@ -126,6 +133,10 @@
 // b) + h W keeps its first term unrounded, and a bf16 xg would move
 // 12-30 % of the gates by an ulp), and dxe after it from the rounded
 // dgates (lstm_dxe_kernel: the same GEMM with Wx read transposed).
+// B10 and B11's recurrence run the same two kernels: B10's step reads
+// its first term from x in bf16 (widened to fp32, exact, so B10 on x is
+// B14's recurrence on xg = float(x) bit for bit), and B11's reverse is
+// B15's without db (no partials, no second launch).
 // What bounds a step is the exchange, not the product: on an H100 (700
 // W) a 16-CTA cluster barrier costs 0.7 us, and distributed shared
 // memory moved 10-20 B a cycle into each SM, which the destinations'
@@ -1701,10 +1712,19 @@ __device__ __forceinline__ void cell(float p0, float p1, float p2, float p3,
   cp = m * ct + (1.f - m) * cp;
 }
 
-// xg of step t for this thread's cells: rows 16 mt + g + 8 kh, units uc,
-// uc + 1, the four gates (zeros on padding rows)
-template <int MT>
-__device__ __forceinline__ void load_xg(const float* __restrict__ xg,
+// the step's first term at one unit pair as fp32: B14's xg (fp32, eight
+// bytes) or B10's x (bf16, four bytes widened: exact)
+__device__ __forceinline__ float2 ld_first(const float* p) {
+  return __ldcs(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ld_first(const bf16* p) {
+  return bf2_to_f2(__ldcs(reinterpret_cast<const unsigned*>(p)));
+}
+
+// the first term of step t (xg, or x) for this thread's cells: rows 16 mt
+// + g + 8 kh, units uc, uc + 1, the four gates (zeros on padding rows)
+template <int MT, typename XT>
+__device__ __forceinline__ void load_xg(const XT* __restrict__ xg,
                                         float (&xv)[MT][4][2], int t, int B,
                                         int D, int row0, int uc) {
   const int G = 4 * D;
@@ -1715,8 +1735,7 @@ __device__ __forceinline__ void load_xg(const float* __restrict__ xg,
     for (int q = 0; q < 4; ++q) {
       float2 v = make_float2(0.f, 0.f);
       if (b < B) {
-        v = __ldcs(reinterpret_cast<const float2*>(
-            xg + (static_cast<size_t>(t) * B + b) * G + q * D + uc));
+        v = ld_first(xg + (static_cast<size_t>(t) * B + b) * G + q * D + uc);
       }
       xv[mt][q][0] = v.x;
       xv[mt][q][1] = v.y;
@@ -1724,12 +1743,13 @@ __device__ __forceinline__ void load_xg(const float* __restrict__ xg,
   }
 }
 
-// B14's recurrence. One cluster of nc = D / 32 CTAs per tile of BB = 16
-// MT batch rows; CTA `rank` owns hidden units u0 = 32 rank .. u0 + 31 and
-// keeps its 128 columns of W in shared memory for all T steps. Per step
-// each of its 8 warps multiplies the tile's h (bf16, the whole [BB, D],
-// in the step's h buffer) by W's slice on the tensor cores: warp w takes
-// the 8 units 8 (w % 4).. of all four gates over half of K (kh = w / 4).
+// B14's (and B10's) recurrence. One cluster of nc = D / 32 CTAs per tile
+// of BB = 16 MT batch rows; CTA `rank` owns hidden units u0 = 32 rank ..
+// u0 + 31 and keeps its 128 columns of W in shared memory for all T
+// steps. Per step each of its 8 warps multiplies the tile's h (bf16, the
+// whole [BB, D], in the step's h buffer) by W's slice on the tensor
+// cores: warp w takes the 8 units 8 (w % 4).. of all four gates over half
+// of K (kh = w / 4).
 // The halves meet in shared memory: each warp hands the other half's
 // rows to its partner (the same units, the other K half) and takes its
 // own, so warps kh update the cells of rows 16 mt + g + 8 kh; the cells'
@@ -1737,10 +1757,13 @@ __device__ __forceinline__ void load_xg(const float* __restrict__ xg,
 // (bf16) goes to every CTA's other h buffer by DSMEM; one cluster barrier
 // (arrive after the stores, wait before the next product) ends the step,
 // and the step's hs, cs and gates are written to global memory between
-// its two halves.
-template <int MT>
+// its two halves. XT is the type of the step's first term: float for
+// B14's xg (the pre-pass's fp32 sums), bf16 for B10's x (the
+// pre-projected gates as dynamic_lstm passes them); each value is widened
+// to fp32 as it is loaded, and nothing else of the step depends on XT.
+template <int MT, typename XT>
 __global__ void __launch_bounds__(kThreads, 1)
-    lstm_cluster_fwd_kernel(const float* __restrict__ xg,
+    lstm_cluster_fwd_kernel(const XT* __restrict__ xg,
                             const bf16* __restrict__ w,
                             const float* __restrict__ lens,
                             const bf16* __restrict__ h0,
@@ -1916,11 +1939,12 @@ __device__ __forceinline__ void load_bwd(
   }
 }
 
-// B15's recurrence, reverse time; the clusters, tiles and W slices of
-// the forward. Per step: (1) thread (warp, lane) forms the dgates of its
-// cells (rows 2 warp + lane / 16 + 16 i, units u0 + 2 (lane % 16) and the
-// next) from its fp32 carries dh, dc and the step's inputs (fetched a
-// step ahead, during the previous step's barrier wait), writes dx, keeps
+// B15's (and B11's) recurrence, reverse time; the clusters, tiles and W
+// slices of the forward. Per step: (1) thread (warp, lane) forms the
+// dgates of its cells (rows 2 warp + lane / 16 + 16 i, units u0 + 2 (lane
+// % 16) and the next) from its fp32 carries dh, dc and the step's inputs
+// (fetched a step ahead, during the previous step's barrier wait), writes
+// dx, keeps
 // the unrounded dgates' sum for db and the dgates rounded to bf16 in the
 // shared tile [BB][128]; (2) the partial dh_prev = dgates_lp [BB, 128] x
 // W_slice^T [128, D] on the tensor cores, read from the same resident
@@ -1930,8 +1954,9 @@ __device__ __forceinline__ void load_bwd(
 // block goes to its owner's slot for this CTA (DSMEM); cluster barrier;
 // each owner sums the nc slots in rank order (two launches give the same
 // bits) into its dh carry; a second barrier, split around the next
-// step's work, frees the slots.
-template <int MT>
+// step's work, frees the slots. kDb: B15 keeps db's partials (db_part);
+// B11 has no db, and with kDb false nothing of it is kept or written.
+template <int MT, bool kDb>
 __global__ void __launch_bounds__(kThreads, 1)
     lstm_cluster_bwd_kernel(const bf16* __restrict__ gates,
                             const bf16* __restrict__ cs,
@@ -2010,8 +2035,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           store2(dx + n * G + q * D + gu, d[q]);
-          dbq[q][0] += d[q][0];
-          dbq[q][1] += d[q][1];
+          if (kDb) {
+            dbq[q][0] += d[q][0];
+            dbq[q][1] += d[q][1];
+          }
         }
       }
 #pragma unroll
@@ -2084,6 +2111,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     store2(dh0 + static_cast<size_t>(b) * D + gu, dh[i]);
     store2(dc0 + static_cast<size_t>(b) * D + gu, dc[i]);
   }
+  if (!kDb) return;
   // db: the 16 row groups' sums (each over its rows, in step order)
   // summed in group order into this tile's partial row
   float* dbs = reinterpret_cast<float*>(smem_rc);  // W's slice is done
@@ -2361,6 +2389,25 @@ bool bad_cluster(int lane, int n_steps, int B, int D, int bb) {
          fwd_smem(mt, D) > 232448 || bwd_smem(mt, D) > 232448;
 }
 
+// the forward recurrence at tiles of bb rows, its first term x of type XT
+// (B14's fp32 xg, B10's bf16 x)
+template <typename XT>
+cudaError_t cluster_fwd(const void* x, const void* w, const float* lens,
+                        const void* h0, const void* c0, void* hs, void* cs,
+                        void* gates, int n_steps, int B, int D, int bb,
+                        cudaStream_t st) {
+  const int nc = D / kU, tiles = (B + bb - 1) / bb;
+#define CALL(MT)                                                           \
+  launch_cluster(lstm_cluster_fwd_kernel<MT, XT>, nc, tiles, fwd_smem(MT, D), \
+                 st, static_cast<const XT*>(x), static_cast<const bf16*>(w), \
+                 lens, static_cast<const bf16*>(h0),                        \
+                 static_cast<const bf16*>(c0), static_cast<bf16*>(hs),      \
+                 static_cast<bf16*>(cs), static_cast<bf16*>(gates), n_steps, \
+                 B, D)
+  return bb == 16 ? CALL(1) : CALL(2);
+#undef CALL
+}
+
 }  // namespace rc
 
 }  // namespace
@@ -2544,7 +2591,7 @@ extern "C" int lstm_dw(int lane, const void* xe, const void* hs,
   return static_cast<int>(err);
 }
 
-// ------------------------------- B14/B15 bf16: the resident route (rc)
+// --------------------- B10/B11, B14/B15 bf16: the resident route (rc)
 
 // The route's two GEMMs: mode 0, the pre-pass (a = xe [M][K = E], b = wx
 // [K][N = 4D], bias = b [N] -> out = xg [M][N] fp32); mode 1, the
@@ -2584,19 +2631,25 @@ extern "C" int cluster_lstm_fwd(int lane, const void* xg, const void* w,
   if (rc::bad_cluster(lane, n_steps, B, D, bb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nc = D / rc::kU, tiles = (B + bb - 1) / bb;
-#define CALL(MT)                                                            \
-  rc::launch_cluster(rc::lstm_cluster_fwd_kernel<MT>, nc, tiles,           \
-                     rc::fwd_smem(MT, D), st, static_cast<const float*>(xg), \
-                     static_cast<const bf16*>(w), lens,                    \
-                     static_cast<const bf16*>(h0),                         \
-                     static_cast<const bf16*>(c0), static_cast<bf16*>(hs),  \
-                     static_cast<bf16*>(cs), static_cast<bf16*>(gates),     \
-                     n_steps, B, D)
-  const cudaError_t err = bb == 16 ? CALL(1) : CALL(2);
-#undef CALL
-  return static_cast<int>(err);
+  return static_cast<int>(rc::cluster_fwd<float>(
+      xg, w, lens, h0, c0, hs, cs, gates, n_steps, B, D, bb,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// B10 on the resident route: cluster_lstm_fwd with x [T, B, 4D] bf16 (the
+// pre-projected gates plus bias, 4-byte aligned) as the step's first term
+// in place of the fp32 xg.
+extern "C" int cluster_lstm_fwd_x(int lane, const void* x, const void* w,
+                                  const float* lens, const void* h0,
+                                  const void* c0, void* hs, void* cs,
+                                  void* gates, int n_steps, int B, int D,
+                                  int bb, void* stream) {
+  if (rc::bad_cluster(lane, n_steps, B, D, bb)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(rc::cluster_fwd<bf16>(
+      x, w, lens, h0, c0, hs, cs, gates, n_steps, B, D, bb,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // B15's recurrence on the resident route. gates [T, B, 4D], cs [T, B, D],
@@ -2604,26 +2657,32 @@ extern "C" int cluster_lstm_fwd(int lane, const void* xg, const void* w,
 // dcs -> dx [T, B, 4D] (dgates in bf16), dh0, dc0 [B, D], and db [4D]
 // fp32 (the unrounded dgates' sum) through db_part [ceil(B / bb)][4D]
 // fp32 scratch. dxe is the post-pass's (proj_gemm mode 1 over dx).
+// B11's recurrence passes db_part and db null: no db, no scratch, no
+// second launch.
 extern "C" int cluster_lstm_bwd(int lane, const void* gates, const void* cs,
                                 const void* w, const float* lens,
                                 const void* c0, const void* dhs,
                                 const void* dcs, void* dx, float* db_part,
                                 float* db, void* dh0, void* dc0, int n_steps,
                                 int B, int D, int bb, void* stream) {
-  if (rc::bad_cluster(lane, n_steps, B, D, bb)) {
+  if (rc::bad_cluster(lane, n_steps, B, D, bb) ||
+      (db_part == nullptr) != (db == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nc = D / rc::kU, tiles = (B + bb - 1) / bb;
-#define CALL(MT)                                                             \
+#define CALL(MT, DB)                                                         \
   rc::launch_cluster(                                                       \
-      rc::lstm_cluster_bwd_kernel<MT>, nc, tiles, rc::bwd_smem(MT, D), st,  \
-      static_cast<const bf16*>(gates), static_cast<const bf16*>(cs),        \
+      rc::lstm_cluster_bwd_kernel<MT, DB>, nc, tiles, rc::bwd_smem(MT, D),  \
+      st, static_cast<const bf16*>(gates), static_cast<const bf16*>(cs),    \
       static_cast<const bf16*>(w), lens, static_cast<const bf16*>(c0),      \
       static_cast<const bf16*>(dhs), static_cast<const bf16*>(dcs),         \
       static_cast<bf16*>(dx), db_part, static_cast<bf16*>(dh0),             \
       static_cast<bf16*>(dc0), n_steps, B, D)
-  cudaError_t err = bb == 16 ? CALL(1) : CALL(2);
+  if (db == nullptr) {
+    return static_cast<int>(bb == 16 ? CALL(1, false) : CALL(2, false));
+  }
+  cudaError_t err = bb == 16 ? CALL(1, true) : CALL(2, true);
 #undef CALL
   if (err != cudaSuccess) return static_cast<int>(err);
   // db: the tiles' fp32 partials summed in tile order
@@ -2633,7 +2692,9 @@ extern "C" int cluster_lstm_bwd(int lane, const void* gates, const void* cs,
 }
 
 // out[0] = how many clusters of D / 32 CTAs (tiles of bb rows) the card
-// holds at once: the fewer of the two recurrences'
+// holds at once: the fewer of the two recurrences' (B14/B15's
+// instantiations; B10/B11's have the same shared memory and one CTA an
+// SM, so the same count)
 extern "C" int cluster_lstm_occupancy(int lane, int* out, int D, int bb,
                                       void* stream) {
   (void)stream;
@@ -2643,15 +2704,17 @@ extern "C" int cluster_lstm_occupancy(int lane, int* out, int D, int bb,
   const int nc = D / rc::kU;
   int f = 0, b = 0;
   cudaError_t err =
-      bb == 16 ? rc::max_clusters(rc::lstm_cluster_fwd_kernel<1>, nc,
-                                  rc::fwd_smem(1, D), &f)
-               : rc::max_clusters(rc::lstm_cluster_fwd_kernel<2>, nc,
-                                  rc::fwd_smem(2, D), &f);
+      bb == 16
+          ? rc::max_clusters(rc::lstm_cluster_fwd_kernel<1, float>, nc,
+                             rc::fwd_smem(1, D), &f)
+          : rc::max_clusters(rc::lstm_cluster_fwd_kernel<2, float>, nc,
+                             rc::fwd_smem(2, D), &f);
   if (err == cudaSuccess) {
-    err = bb == 16 ? rc::max_clusters(rc::lstm_cluster_bwd_kernel<1>, nc,
-                                      rc::bwd_smem(1, D), &b)
-                   : rc::max_clusters(rc::lstm_cluster_bwd_kernel<2>, nc,
-                                      rc::bwd_smem(2, D), &b);
+    err = bb == 16
+              ? rc::max_clusters(rc::lstm_cluster_bwd_kernel<1, true>, nc,
+                                 rc::bwd_smem(1, D), &b)
+              : rc::max_clusters(rc::lstm_cluster_bwd_kernel<2, true>, nc,
+                                 rc::bwd_smem(2, D), &b);
   }
   out[0] = f < b ? f : b;
   return static_cast<int>(err);

@@ -37,17 +37,22 @@ and dW reduction); ``lstm_proj_fwd`` (B14); ``lstm_proj_bwd`` and
 reduction); ``gru_fwd`` (B12); ``gru_bwd`` and ``gru_dw`` (B13). They
 raise on what the kernels do not take.
 
-B14/B15 take one of two routes, chosen by shape before any launch
-(``lstm_cluster_plan``). The resident route (bf16, D a multiple of 32 up
-to 512): the pre-pass ``lstm_proj_xg`` (xg = xe @ Wx + b for every step,
-fp32), the recurrence ``lstm_cluster_fwd`` / ``lstm_cluster_bwd`` with W
-split over one thread-block cluster's shared memory, and the post-pass
-``lstm_proj_dxe`` (dxe = dx @ Wx^T). The streaming route (everything
-else): one kernel per direction that reads W and Wx from L2 every step.
-Each recurrence launch counts under ``lstm_proj_fwd`` / ``lstm_proj_bwd``
-and under its route's name (``..._cluster``, ``..._stream``); the passes
-under ``lstm_proj_xg`` / ``lstm_proj_dxe``. On CPU tensors each runs its
-plain version, which follows the Pallas body step by step in torch ops.
+The LSTM recurrences (B10, B11's, B14, B15's) take one of two routes,
+chosen by the call's dtype and shape before any launch
+(``lstm_cluster_plan``; every tensor of a call shares one dtype). The
+resident route (bf16, D a multiple of 32 up to
+512): the recurrence ``lstm_cluster_fwd`` / ``lstm_cluster_bwd`` with W
+split over one thread-block cluster's shared memory; B14 first runs the
+pre-pass ``lstm_proj_xg`` (xg = xe @ Wx + b for every step, fp32) and
+B15 after it the post-pass ``lstm_proj_dxe`` (dxe = dx @ Wx^T), while
+B10 reads its bf16 x as the step's first term and B11's recurrence
+skips db. The streaming route (everything else): one kernel per
+direction that reads W (and Wx) from L2 every step. Each recurrence
+launch counts under its wrapper's name (``lstm_fwd``, ``lstm_bwd``,
+``lstm_proj_fwd``, ``lstm_proj_bwd``) and under its route's
+(``..._cluster``, ``..._stream``); the passes under ``lstm_proj_xg`` /
+``lstm_proj_dxe``. On CPU tensors each runs its plain version, which
+follows the Pallas body step by step in torch ops.
 Inside ``plain_versions()`` the scans run the plain versions on any
 device: what the kernels are held against on the card.
 
@@ -89,6 +94,7 @@ _ENTRIES = {"gru_fwd": (6, 4), "gru_bwd": (8, 4), "gru_dw": (6, 4),
             "lstm_fwd": (8, 4), "lstm_bwd": (10, 4), "lstm_dw": (6, 5),
             "lstm_proj_fwd": (10, 5), "lstm_proj_bwd": (14, 5),
             "proj_gemm": (4, 4), "cluster_lstm_fwd": (8, 4),
+            "cluster_lstm_fwd_x": (8, 4),
             "cluster_lstm_bwd": (12, 4), "cluster_lstm_occupancy": (1, 2),
             "cluster_lstm_probe": (1, 5)}
 _entries = {}
@@ -724,7 +730,7 @@ REC_TILES = (16, 32)       # batch rows a cluster: one or two mma M tiles
 
 
 class ClusterPlan(NamedTuple):
-    """How B14/B15's bf16 recurrences run (``lstm_cluster_plan``)."""
+    """How the bf16 LSTM recurrences run (``lstm_cluster_plan``)."""
     route: str                 # "resident" or "streaming"
     bb: int                    # batch rows a cluster (0: streaming)
     cluster: int               # CTAs a cluster: D / REC_UNITS
@@ -747,7 +753,8 @@ def _rec_smem(kind, bb, D):
 
 
 def lstm_cluster_plan(dtype, B, D, n_sm=132, max_clusters=None):
-    """B14/B15's route and tile, by shape, before any launch. Resident:
+    """The LSTM recurrences' route and tile (B10/B11's and B14/B15's), by
+    shape, before any launch. Resident:
     bf16, D a multiple of 32 with at most 16 CTAs a cluster (D <= 512),
     both recurrences' CTAs within ``SMEM_LIMIT``, and the card able to
     hold a cluster. Each tile of ``bb`` batch rows is one cluster of D /
@@ -803,28 +810,42 @@ def _dw_partials(plan, dev):
 
 
 def lstm_fwd(x, w, lens, h0, c0):
-    """B10: ``(hs, cs, gates)``. CUDA tensors launch the kernel
-    (``kernels.LAUNCHES["lstm_fwd"]``) or raise; CPU tensors take the
+    """B10: ``(hs, cs, gates)`` in x's dtype. CUDA tensors take the route
+    of ``lstm_cluster_plan`` for x's dtype: resident
+    (``lstm_cluster_fwd``'s kernel with x in bf16 as the step's first
+    term, ``kernels.LAUNCHES["lstm_fwd"]`` and
+    ``["lstm_fwd_cluster"]``) or streaming (one kernel reading W from L2
+    every step, ``["lstm_fwd"]`` and ``["lstm_fwd_stream"]``), or raise
+    (every tensor contiguous and 16-byte aligned); CPU tensors take the
     plain version."""
     T, B, D = _check_shapes(x, w, lens, h0, ng=4)
     _check_c0(h0, c0)
     if _device_kind(x) == "cpu":
         return lstm_fwd_reference(x, w, lens, h0, c0)
     lane = _check_cuda((("x", x), ("w", w), ("h0", h0), ("c0", c0)), lens)
+    plan = _cluster_plan(x.dtype, B, D, x.device)
+    if plan.route == "resident":
+        return _cluster_fwd(plan, x, w, lens, h0, c0, "lstm_fwd")
     _check_d(D)
     hs = x.new_empty((T, B, D))
     cs = x.new_empty((T, B, D))
     gates = torch.empty_like(x)
     if B:
         _launch("lstm_fwd", lane, (x, w, lens, h0, c0, hs, cs, gates),
-                (T, B, D, _pick_bb("lstm_fwd", B, D, x.device)), x.device)
+                (T, B, D, _pick_bb("lstm_fwd", B, D, x.device)), x.device,
+                also=("lstm_fwd_stream",))
     return hs, cs, gates
 
 
 def lstm_bwd_data(gates, cs, w, lens, h0, c0, dhs, dcs):
-    """B11's recurrence: ``(dx, dh0, dc0)``. CUDA tensors launch the
-    kernel (``LAUNCHES["lstm_bwd"]``) or raise; CPU tensors take the
-    plain version."""
+    """B11's recurrence: ``(dx, dh0, dc0)``, dx the dgates in the gates'
+    dtype. CUDA tensors take the route of ``lstm_cluster_plan`` for the
+    gates' dtype: resident
+    (``lstm_cluster_bwd``'s kernel without db, W read transposed from its
+    resident slices, ``LAUNCHES["lstm_bwd"]`` and ``["lstm_bwd_cluster"]``)
+    or streaming (one kernel over a transposed copy of W, ``["lstm_bwd"]``
+    and ``["lstm_bwd_stream"]``), or raise; CPU tensors take the plain
+    version."""
     T, B, D = _check_shapes(gates, w, lens, h0, ng=4)
     _check_c0(h0, c0)
     if _device_kind(gates) == "cpu":
@@ -833,6 +854,11 @@ def lstm_bwd_data(gates, cs, w, lens, h0, c0, dhs, dcs):
                 ("dcs", dcs, cs.shape), ("c0", c0, h0.shape), ng=4)
     lane = _check_cuda((("gates", gates), ("cs", cs), ("w", w), ("c0", c0),
                         ("dhs", dhs), ("dcs", dcs)), lens)
+    plan = _cluster_plan(gates.dtype, B, D, gates.device)
+    if plan.route == "resident":
+        dx, _db, dh0, dc0 = _cluster_bwd(plan, gates, cs, w, lens, h0, c0,
+                                         dhs, dcs, "lstm_bwd", with_db=False)
+        return dx, dh0, dc0
     _check_d(D)
     dx = torch.empty_like(gates)
     dh0 = torch.empty_like(h0)
@@ -841,7 +867,7 @@ def lstm_bwd_data(gates, cs, w, lens, h0, c0, dhs, dcs):
         _launch("lstm_bwd", lane,
                 (gates, cs, _wt(w), lens, c0, dhs, dcs, dx, dh0, dc0),
                 (T, B, D, _pick_bb("lstm_bwd", B, D, gates.device)),
-                gates.device)
+                gates.device, also=("lstm_bwd_stream",))
     return dx, dh0, dc0
 
 
@@ -975,17 +1001,20 @@ def lstm_cluster_fwd(xg, w, lens, h0, c0):
                         xg, w, lens, h0, c0)
 
 
-def _cluster_fwd(plan, xg, w, lens, h0, c0):
-    """Launch B14's resident recurrence at ``plan``'s tile on checked
-    tensors."""
+def _cluster_fwd(plan, xg, w, lens, h0, c0, name="lstm_proj_fwd"):
+    """Launch the resident forward recurrence at ``plan``'s tile on
+    checked tensors, counted under ``name`` and ``name + "_cluster"``:
+    B14's (``xg`` the pre-pass's fp32) or B10's (``xg`` its bf16 x)."""
     T, B, D = xg.shape[0], xg.shape[1], w.shape[0]
     hs = h0.new_empty((T, B, D))
     cs = h0.new_empty((T, B, D))
     gates = h0.new_empty((T, B, 4 * D))
     if B:
-        _launch("lstm_proj_fwd", 1, (xg, w, lens, h0, c0, hs, cs, gates),
-                (T, B, D, plan.bb), w.device, entry="cluster_lstm_fwd",
-                also=("lstm_proj_fwd_cluster",))
+        _launch(name, 1, (xg, w, lens, h0, c0, hs, cs, gates),
+                (T, B, D, plan.bb), w.device,
+                entry=("cluster_lstm_fwd" if xg.dtype == torch.float32
+                       else "cluster_lstm_fwd_x"),
+                also=(name + "_cluster",))
     return hs, cs, gates
 
 
@@ -1010,23 +1039,27 @@ def lstm_cluster_bwd(gates, cs, w, lens, h0, c0, dhs, dcs):
                         gates, cs, w, lens, h0, c0, dhs, dcs)
 
 
-def _cluster_bwd(plan, gates, cs, w, lens, h0, c0, dhs, dcs):
-    """Launch B15's resident recurrence at ``plan``'s tile on checked
-    tensors."""
+def _cluster_bwd(plan, gates, cs, w, lens, h0, c0, dhs, dcs,
+                 name="lstm_proj_bwd", with_db=True):
+    """Launch the resident reverse recurrence at ``plan``'s tile on
+    checked tensors, counted under ``name`` and ``name + "_cluster"``:
+    B15's, or without db (``with_db`` False: B11's, db None)."""
     T, B, D = cs.shape
     dev = gates.device
     dx = torch.empty_like(gates)
-    db = torch.zeros((4 * D,), dtype=torch.float32, device=dev)
-    dh0 = torch.empty_like(h0)
-    dc0 = torch.empty_like(c0)
-    if B:
+    db = db_part = None
+    if with_db:
+        db = torch.zeros((4 * D,), dtype=torch.float32, device=dev)
         # fp32 per-tile db partials, summed in tile order
         db_part = torch.empty((plan.tiles, 4 * D), dtype=torch.float32,
                               device=dev)
-        _launch("lstm_proj_bwd", 1,
+    dh0 = torch.empty_like(h0)
+    dc0 = torch.empty_like(c0)
+    if B:
+        _launch(name, 1,
                 (gates, cs, w, lens, c0, dhs, dcs, dx, db_part, db, dh0,
                  dc0), (T, B, D, plan.bb), dev, entry="cluster_lstm_bwd",
-                also=("lstm_proj_bwd_cluster",))
+                also=(name + "_cluster",))
     return dx, db, dh0, dc0
 
 

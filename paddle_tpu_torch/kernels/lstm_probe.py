@@ -1,25 +1,38 @@
-"""B14/B15's resident route (bf16) on the card:
+"""The LSTM recurrences' resident route (bf16) on the card:
 
     python -m paddle_tpu_torch.kernels.lstm_probe [--out FILE]
     python -m paddle_tpu_torch.kernels.lstm_probe --time [--root DIR]
+        [--fused-only STEPS]
 
 The first form measures the cluster exchange alone
 (``chip_smoke.lstm_exchange``: 100 empty steps at the flagship's tile,
 B 128, D 512; µs a step of the forward's exchange, the backward's and
 the barrier alone), one JSON line.
 
-The second times B14's and B15's bf16 wrappers (``lstm_proj_fwd``,
-``lstm_proj_bwd_data``) at the flagship's two layers (T 100, B 128,
-D 512, E 128 / 512) on the tree at DIR (default this one, imported as
-``parity_dump.use_checkout`` does): run it for a parent tree and this
-one in turns. Timings are ``chip_smoke._time_ms``'s with the card's
-queue kept ahead of the host (device ms, L2 flushed), on this
-checkout's seeded inputs. Both need one card.
+The second times, on the tree at DIR (default this one, imported as
+``parity_dump.use_checkout`` does), B10's and B11's bf16 wrappers
+(``lstm_fwd``, ``lstm_bwd_data``) at T 100, B 128, D 512 and B14's and
+B15's (``lstm_proj_fwd``, ``lstm_proj_bwd_data``) at the flagship's two
+layers (E 128 / 512), then the classifier's AMP training step on its
+three routes (``train_lstm``: fused_lstm; ``train_lstm_composed``: fc +
+dynamic_lstm; ``train_lstm_ragged``: fused_lstm on ragged LoD, which
+falls back to the composed route) through ``chip_smoke.timed_steps``,
+the loop ``chip_smoke.train_text`` times, without its launch checks (a
+parent tree may count under other names): ms per batch p50 over 20
+steps after 3; and the fused step's host wall and device busy ms under
+``torch.profiler``. Run it for a parent tree and this one in turns,
+each side first as often as the other. ``--fused-only STEPS`` times
+the fused route's step alone (STEPS steps, then the profile), with no
+kernel timed before it in the process. Kernel timings are
+``chip_smoke._time_ms``'s with the card's queue kept ahead of the host
+(device ms, L2 flushed), on this checkout's seeded inputs. Both need
+one card.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 from pathlib import Path
 
@@ -33,9 +46,19 @@ T_, B_, D_ = 100, 128, 512
 
 
 def timing(cs, fr, dev, flush):
-    """Device ms of B14's and B15's bf16 wrappers at the flagship's two
-    layers."""
+    """Device ms of B10's and B11's bf16 wrappers at T 100, B 128, D 512
+    and of B14's and B15's at the flagship's two layers."""
     out = {}
+    c = {k: (v if k == "lens" else v.to(torch.bfloat16))
+         for k, v in cs._lstm_case(dev, T_, B_, D_, 128, False).items()}
+    args = (c["w"], c["lens"], c["h0"], c["c0"])
+    hs, cs_, gates = fr.lstm_fwd(c["x"], *args)
+    out["lstm_fwd_device_ms"] = cs._time_ms(
+        lambda: fr.lstm_fwd(c["x"], *args), flush, reps=10, queue_ahead=True)
+    out["lstm_bwd_device_ms"] = cs._time_ms(
+        lambda: fr.lstm_bwd_data(gates, cs_, *args, c["dhs"], c["dcs"]),
+        flush, reps=10, queue_ahead=True)
+    del c, hs, cs_, gates
     for key, E in LAYERS.items():
         c = {k: (v if k == "lens" else v.to(torch.bfloat16))
              for k, v in cs._lstm_case(dev, T_, B_, D_, E, False).items()}
@@ -52,11 +75,50 @@ def timing(cs, fr, dev, flush):
     return out
 
 
+ROUTES = (("train_lstm", True, False),       # (key, fused_proj, ragged)
+          ("train_lstm_composed", False, False),
+          ("train_lstm_ragged", True, True))
+
+
+def step_timing(cs, dev, routes=ROUTES, steps=20):
+    """ms per batch p50 of the classifier's AMP step on ``routes``, timed
+    by ``chip_smoke.timed_steps`` (3 + ``steps`` steps; 5f's
+    ``train_text`` times 20), every loss finite; then the fused route's
+    step under ``torch.profiler`` (``chip_smoke.profile_text``): host
+    wall ms, device busy ms and their difference, a step."""
+    from paddle_tpu_torch.models import text as tx
+    out = {}
+    for key, fused_proj, ragged in routes:
+        cfg = tx.TextConfig(**cs.TEXT_CFG, fused_proj=fused_proj)
+        params = tx.init_params(cfg, seed=0, device=dev)
+        opt, step = tx.make_train_step(cfg, "adam", cs.TEXT_LR)
+        _p, _s, losses, step_ms, _wall = cs.timed_steps(
+            step, params, opt.init(params), cs._text_feeds(dev, ragged=ragged),
+            steps=steps)
+        if not bool(torch.isfinite(torch.stack(losses)).all()):
+            raise RuntimeError(f"{key}: a non-finite loss")
+        out[f"{key}_ms_per_batch_p50"] = statistics.median(step_ms)
+        del params, opt, step, _p, _s, losses
+        torch.cuda.empty_cache()
+    prof = cs.profile_text(tx, dev)["profile_lstm"]
+    out["profile_lstm"] = {
+        "wall_ms_per_step": prof["wall_ms_per_step"],
+        "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+        "host_only_ms_per_step": (prof["wall_ms_per_step"]
+                                  - prof["device_busy_ms_per_step"]),
+        "device_idle_share": prof["device_idle_share"]}
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path)
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--root", type=Path, default=_HERE)
+    ap.add_argument("--fused-only", type=int, metavar="STEPS",
+                    help="with --time: only the fused route's step, "
+                    "STEPS timed steps, no kernel timings")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("lstm_probe: no CUDA device", file=sys.stderr)
@@ -69,8 +131,12 @@ def main(argv=None):
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     card = cs._card_line()
     if args.time:
-        print(json.dumps(dict({"root": str(args.root), "card": card},
-                              **timing(cs, fr, dev, flush))), flush=True)
+        rec = {"root": str(args.root), "card": card}
+        if args.fused_only:
+            rec.update(step_timing(cs, dev, ROUTES[:1], args.fused_only))
+        else:
+            rec.update(timing(cs, fr, dev, flush), **step_timing(cs, dev))
+        print(json.dumps(rec), flush=True)
         return 0
     plan = fr._cluster_plan(torch.bfloat16, B_, D_, dev)
     rec = {"card": card, "exchange": dict(

@@ -37,6 +37,14 @@ the same tolerances; in the bf16 lane, xg rounded to bf16 would move
 ``lstm_cluster_plan``'s route and tile at B 1 / 17 / 128 / 130, D 64 /
 96 / 512 / 1024, both dtypes.
 
+B10/B11 on the same resident recurrences (bf16; T 8, B 16, D 64, ragged
+lengths with 0, and uniform): B10's plain version on bf16 x equals the
+resident forward's (``lstm_cluster_fwd_reference``) on float(x) bit for
+bit, B11's recurrence the resident reverse's dx, dh0 and dc0, and both
+equal JAX ``_lstm_fwd_call`` / ``_lstm_bwd_call`` at the bf16
+tolerances; their route as ``lstm_cluster_plan``'s for the call's one
+dtype, a mixed-dtype call raising before any route is chosen.
+
 The kernel-vs-plain cases need a card and skip without one.
 """
 import contextlib
@@ -99,7 +107,7 @@ def _t(a, bf16=False):
 
 def _np(x):
     if torch.is_tensor(x):
-        return x.detach().float().numpy()
+        return x.detach().float().cpu().numpy()
     return np.asarray(x, np.float32)
 
 
@@ -257,6 +265,104 @@ def test_xg_kept_in_fp32_keeps_the_gates_on_jax_bits(jfr):
             for g, w_, name in zip(got, want, ("hs", "cs", "gates")):
                 off = float((_np(g) != np.asarray(w_, np.float32)).mean())
                 assert lo <= off <= hi, (seed, xg_dtype, name, off)
+
+
+def _small(seed, ragged):
+    """B10/B11's resident-route cases cut down: T 8, B 16, D 64, lengths
+    0..T with 0 and T present, or all T."""
+    a = _inputs(seed=seed, B=16, T=8, D=64, E=64)
+    if not ragged:
+        a["lens"][:] = 8
+    return a
+
+
+@pytest.mark.parametrize("ragged", [True, False], ids=["ragged", "uniform"])
+def test_b10_is_the_resident_forward_on_float_x(jfr, ragged):
+    """B10 on bf16 x is B14's resident recurrence on xg = float(x) bit for
+    bit (widening bf16 to fp32 is exact; the step adds h_lp W to it in
+    fp32 either way), so the cluster kernel serves both; and both equal
+    ``_lstm_fwd_call``."""
+    a = _small(21, ragged)
+    names = ("x", "w", "lens", "h0", "c0")
+    t = {k: _t(a[k], True) for k in names}
+    args = (t["w"], t["lens"], t["h0"], t["c0"])
+    b10 = tfr.lstm_fwd_reference(t["x"], *args)
+    resident = tfr.lstm_cluster_fwd_reference(t["x"].float(), *args)
+    assert all(torch.equal(p, q) for p, q in zip(b10, resident))
+    assert all(torch.equal(p, q)
+               for p, q in zip(tfr.lstm_fwd(t["x"], *args), b10))
+    want = jfr._lstm_fwd_call(*(_j(a[k], True) for k in names),
+                              interpret=True)
+    for g, w_, name in zip(b10, want, ("hs", "cs", "gates")):
+        assert g.dtype == torch.bfloat16, name
+        _close(g, w_, BF16_FWD_TOL, what=name)
+
+
+@pytest.mark.parametrize("ragged", [True, False], ids=["ragged", "uniform"])
+def test_b11_is_the_resident_reverse_without_db(jfr, ragged):
+    """B11's recurrence is B15's resident reverse without db: dx (the
+    dgates in the gates' dtype), dh0 and dc0 bit for bit, from the same
+    (JAX) saved tensors; and both, with B11's dW, equal
+    ``_lstm_bwd_call``."""
+    a = _small(22, ragged)
+    j = {k: _j(v, True) for k, v in a.items()}
+    jhs, jcs, jg = jfr._lstm_fwd_call(j["x"], j["w"], j["lens"], j["h0"],
+                                      j["c0"], interpret=True)
+    want = jfr._lstm_bwd_call(jg, jhs, jcs, j["w"], j["lens"], j["h0"],
+                              j["c0"], j["dhs"], j["dcs"], interpret=True)
+    g, hs, cs = (_from_jax(v, torch.bfloat16) for v in (jg, jhs, jcs))
+    t = {k: _t(v, True) for k, v in a.items()}
+    bargs = (g, cs, t["w"], t["lens"], t["h0"], t["c0"], t["dhs"], t["dcs"])
+    b11 = tfr.lstm_bwd_data_reference(*bargs)
+    dx, db, dh0, dc0 = tfr.lstm_cluster_bwd_reference(*bargs)
+    assert db.dtype == torch.float32
+    assert all(torch.equal(p, q) for p, q in zip(b11, (dx, dh0, dc0)))
+    assert all(torch.equal(p, q)
+               for p, q in zip(tfr.lstm_bwd_data(*bargs), b11))
+    _close_grads((b11[0], tfr.lstm_dw_reference(hs, t["h0"], b11[0]),
+                  b11[1], b11[2]), want, ("dx", "dw", "dh0", "dc0"), True)
+
+
+_BF, _F32 = torch.bfloat16, torch.float32
+# (the call's dtype, B, D, co-resident clusters) -> B10/B11's route
+_ROUTES = {
+    "bf16-b128-d512": (_BF, 128, 512, 7, "resident"),
+    "bf16-b130-d512": (_BF, 130, 512, 7, "resident"),
+    "bf16-b16-d64": (_BF, 16, 64, None, "resident"),
+    "bf16-d1024": (_BF, 128, 1024, None, "streaming"),
+    "bf16-d80": (_BF, 8, 80, None, "streaming"),
+    "bf16-no-cluster": (_BF, 128, 512, 0, "streaming"),
+    "fp32-d512": (_F32, 128, 512, 7, "streaming"),
+}
+
+
+@pytest.mark.parametrize("case", list(_ROUTES))
+def test_lstm_route_is_the_plan_of_the_calls_dtype(case):
+    """``lstm_fwd`` / ``lstm_bwd_data`` take the route of
+    ``lstm_cluster_plan`` (the plan B14/B15 use) for the call's one
+    dtype: resident in bf16 where the shape fits a cluster, else
+    streaming."""
+    dtype, B_, D_, mc, route = _ROUTES[case]
+    assert tfr.lstm_cluster_plan(dtype, B_, D_, 132, mc).route == route
+
+
+@pytest.mark.parametrize("which", ["fwd-w", "fwd-h0", "fwd-c0",
+                                   "bwd-w", "bwd-h0", "bwd-c0"])
+def test_lstm_wrappers_take_one_dtype_before_routing(which):
+    """A call with one fp32 tensor among bf16 ones raises before any
+    route is chosen, so the plan of the first tensor's dtype is the
+    call's (the card path also holds cs, dhs and dcs to the gates'
+    dtype: the card test of mixed inputs)."""
+    t = {k: _t(v, bf16=True) for k, v in _inputs(B=4, T=3, D=64).items()}
+    kind, name = which.split("-")
+    t[name] = t[name].float()
+    with pytest.raises((TypeError, ValueError), match="dtype|must match"):
+        if kind == "fwd":
+            tfr.lstm_fwd(t["x"], t["w"], t["lens"], t["h0"], t["c0"])
+        else:
+            tfr.lstm_bwd_data(t["x"], t["h0"].new_zeros((3, 4, 64)), t["w"],
+                              t["lens"], t["h0"], t["c0"], t["dhs"],
+                              t["dcs"])
 
 
 # (dtype, B, D) -> (route, bb, clusters) with the H100's 7 co-resident
@@ -939,3 +1045,147 @@ def test_resident_wrappers_raise_on_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="multiple of 64"):
         tfr.lstm_proj_xg(t["xe"][..., :96].contiguous(),
                          t["wx"][:96].contiguous(), t["b"])
+
+
+def _route_moved(before, names):
+    return {n: tk.LAUNCHES[n] - before[n] for n in names}
+
+
+_B10_B11_NAMES = ("lstm_fwd", "lstm_bwd", "lstm_fwd_cluster",
+                  "lstm_bwd_cluster", "lstm_fwd_stream", "lstm_bwd_stream")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, False), (130, True)],
+                         ids=["b128-uniform", "b130-ragged"])
+def test_b10_b11_resident_route_at_flagship_on_card(cuda_device, shape):
+    """B10 and B11's recurrence in bf16 at T 100, D 512 (B 130: a padded
+    last tile, lengths 0..100) take the resident route, each counted
+    under its wrapper's and its ``_cluster`` name; within chip_smoke.py's
+    bf16 gate of the fp32 plain result; B10 bit-equal to B14's
+    recurrence (``lstm_cluster_fwd``) on float(x), B11's dx, dh0, dc0 to
+    ``lstm_cluster_bwd``'s; two launches of each bit-equal; a zero-length
+    row keeps h0 and gets no dgates."""
+    Bn, ragged = shape
+    t = _flagship(cuda_device, 100, Bn, 128, ragged)
+    lp = {k: (v if k == "lens" else v.to(torch.bfloat16))
+          for k, v in t.items()}
+    args = (lp["w"], lp["lens"], lp["h0"], lp["c0"])
+    before = dict(tk.LAUNCHES)
+    fwd = tfr.lstm_fwd(lp["x"], *args)
+    bargs = (fwd[2], fwd[1], *args, lp["dhs"], lp["dcs"])
+    bwd = tfr.lstm_bwd_data(*bargs)
+    torch.cuda.synchronize()
+    assert _route_moved(before, _B10_B11_NAMES) == {
+        "lstm_fwd": 1, "lstm_bwd": 1, "lstm_fwd_cluster": 1,
+        "lstm_bwd_cluster": 1, "lstm_fwd_stream": 0, "lstm_bwd_stream": 0}
+    f32 = {k: v.float() for k, v in lp.items()}
+    _bf16_gate(fwd, tfr.lstm_fwd_reference(lp["x"], *args),
+               tfr.lstm_fwd_reference(f32["x"], f32["w"], f32["lens"],
+                                      f32["h0"], f32["c0"]))
+    _bf16_gate(bwd, tfr.lstm_bwd_data_reference(*bargs),
+               tfr.lstm_bwd_data_reference(*(a.float() for a in bargs)))
+    resident = tfr.lstm_cluster_fwd(lp["x"].float(), *args)
+    assert all(torch.equal(a, b_) for a, b_ in zip(fwd, resident))
+    dx, _db, dh0, dc0 = tfr.lstm_cluster_bwd(*bargs)
+    assert all(torch.equal(a, b_) for a, b_ in zip(bwd, (dx, dh0, dc0)))
+    assert all(torch.equal(a, b_)
+               for a, b_ in zip(fwd, tfr.lstm_fwd(lp["x"], *args)))
+    assert all(torch.equal(a, b_)
+               for a, b_ in zip(bwd, tfr.lstm_bwd_data(*bargs)))
+    if ragged:
+        zero = t["lens"][:, 0] == 0
+        assert bool(zero.any())
+        assert bool((fwd[0][:, zero] == lp["h0"][zero]).all())
+        assert bool((fwd[1][:, zero] == lp["c0"][zero]).all())
+        assert not bwd[0][:, zero].any()
+
+
+@pytest.mark.cuda
+def test_dynamic_lstm_reverse_through_the_resident_route_on_card(
+        cuda_device):
+    """``dynamic_lstm`` with ``is_reverse`` on ragged bf16 input (the op
+    reverses x outside the kernel, so the kernels see a forward scan):
+    Hidden, Cell and the gradients of Input, Weight, H0 and C0 through
+    B10/B11 on the resident route against the same op through their plain
+    versions, within a bf16 ulp (outputs) and BF16_GRAD_TOL (inputs'
+    gradients; the weight's relatively)."""
+    case = _op_case(13, RAGGED)
+    slots = _case_slots(case, h0=True)
+    info = treg.get_op_info("dynamic_lstm")
+    attrs = dict(info.attrs, is_reverse=True)
+
+    def run(plain):
+        live = {s: torch.from_numpy(case[s]).to(cuda_device, torch.bfloat16)
+                .requires_grad_() for s in slots}
+        ctx = treg.OpContext(attrs=attrs, in_lods={
+            "Input": [LoD.from_lengths([RAGGED])]})
+        with tfr.plain_versions() if plain else contextlib.nullcontext():
+            out = info.compute({s: [live[s]] for s in slots}, attrs, ctx)
+            loss = (out["Hidden"].float().sin().sum()
+                    + 0.5 * out["Cell"].float().cos().sum())
+            grads = torch.autograd.grad(loss, [live[s] for s in slots])
+        return out["Hidden"], out["Cell"], grads
+
+    before = dict(tk.LAUNCHES)
+    hs, cs, grads = run(False)
+    torch.cuda.synchronize()
+    moved = _route_moved(before, _B10_B11_NAMES)
+    assert moved["lstm_fwd_cluster"] == moved["lstm_bwd_cluster"] == 1
+    assert moved["lstm_fwd_stream"] == moved["lstm_bwd_stream"] == 0
+    p_hs, p_cs, p_grads = run(True)
+    _close(hs, p_hs, BF16_FWD_TOL, what="Hidden")
+    _close(cs, p_cs, BF16_FWD_TOL, what="Cell")
+    for g, p, s in zip(grads, p_grads, slots):
+        if s in ("Weight", "Bias"):
+            _close(g, p, 0.1, rtol=2e-2, what=s)
+        else:
+            _close(g, p, BF16_GRAD_TOL, what=s)
+
+
+@pytest.mark.cuda
+def test_b10_b11_wide_d_streams_on_card(cuda_device):
+    """D 1024 in bf16 is past the resident route: B10 and B11's
+    recurrence stream W from L2 (each counted under its ``_stream``
+    name), the forward within 2e-2 of its plain version, the backward
+    (from the kernel's own gates) within chip_smoke.py's bf16 gate of the
+    fp32 plain result."""
+    t = {k: (v if k == "lens" else v.to(cuda_device, torch.bfloat16))
+         for k, v in ((k, _t(v).to(cuda_device)) for k, v in _inputs(
+             seed=14, B=8, T=5, D=1024, E=128).items())}
+    args = (t["w"], t["lens"], t["h0"], t["c0"])
+    before = dict(tk.LAUNCHES)
+    got = tfr.lstm_fwd(t["x"], *args)
+    bargs = (got[2], got[1], *args, t["dhs"], t["dcs"])
+    bwd = tfr.lstm_bwd_data(*bargs)
+    torch.cuda.synchronize()
+    assert _route_moved(before, _B10_B11_NAMES) == {
+        "lstm_fwd": 1, "lstm_bwd": 1, "lstm_fwd_cluster": 0,
+        "lstm_bwd_cluster": 0, "lstm_fwd_stream": 1, "lstm_bwd_stream": 1}
+    for a, b_ in zip(got, tfr.lstm_fwd_reference(t["x"], *args)):
+        assert float((a.float() - b_.float()).abs().max()) <= 2e-2
+    _bf16_gate(bwd, tfr.lstm_bwd_data_reference(*bargs),
+               tfr.lstm_bwd_data_reference(*(
+                   a if a is t["lens"] else a.float() for a in bargs)))
+
+
+@pytest.mark.cuda
+def test_b10_b11_wrappers_raise_on_mixed_or_misaligned_inputs_on_card(
+        cuda_device):
+    """The routes are chosen from checked inputs: one dtype for every
+    tensor of a call, each 16-byte aligned (the resident forward loads x
+    four bytes at a time)."""
+    t = {k: (v if k == "lens" else v.to(torch.bfloat16))
+         for k, v in _flagship(cuda_device, 3, 16, 128, False).items()}
+    args = (t["w"], t["lens"], t["h0"], t["c0"])
+    with pytest.raises(TypeError, match="one dtype"):
+        tfr.lstm_fwd(t["x"], t["w"].float(), *args[1:])
+    g, cs = tfr.lstm_fwd(t["x"], *args)[2:0:-1]
+    with pytest.raises(TypeError, match="gates' dtype"):
+        tfr.lstm_bwd_data(g, cs, *args, t["dhs"].float(), t["dcs"])
+    flat = torch.empty(t["x"].numel() + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:].view(t["x"].shape)
+    shifted.copy_(t["x"])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfr.lstm_fwd(shifted, *args)

@@ -142,6 +142,8 @@ def test_cpu_path_launches_no_kernel():
                                 "flash_attention_dq", "flash_attention_dkv",
                                 "gru_fwd", "gru_bwd", "gru_dw",
                                 "lstm_fwd", "lstm_bwd", "lstm_dw",
+                                "lstm_fwd_cluster", "lstm_bwd_cluster",
+                                "lstm_fwd_stream", "lstm_bwd_stream",
                                 "lstm_proj_fwd", "lstm_proj_bwd",
                                 "lstm_proj_dw", "lstm_proj_fwd_cluster",
                                 "lstm_proj_bwd_cluster",
