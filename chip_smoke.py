@@ -2221,11 +2221,14 @@ LSTM_ROUTE_NAMES = {
 LSTM_PASSES = {"lstm_proj_xg": "paddle_tpu/kernels/fused_rnn.py:663",
                "lstm_proj_dxe": "paddle_tpu/kernels/fused_rnn.py:700"}
 LSTM_PASS_NOTES = {
-    "lstm_proj_xg": "torch.addmm(b, xe, wx) in bf16 (tensor cores, fp32 "
-                    "sums, bf16 out where the kernel writes fp32); "
-                    "library_fp32_ms: the same on fp32 copies of the bf16 "
-                    "operands (the exact function: bf16 products are exact "
-                    "in fp32), a CUDA-core fp32 GEMM",
+    "lstm_proj_xg": "torch.addmm(b, xe, wx, out_dtype=torch.float32): bf16 "
+                    "operands, fp32 sums and fp32 out, the pre-pass's own "
+                    "function, but a slow path on an H100 (several times "
+                    "the time to write xg once, nearly flat in E): judge "
+                    "the pass by bound_ms / device_ms; "
+                    "library_bf16_out_device_ms: torch.addmm(b, xe, wx) in "
+                    "bf16 (bf16 out, half the bytes written: another "
+                    "function)",
     "lstm_proj_dxe": "torch.matmul(dx, wx.t()) in bf16 (fp32 sums, bf16 "
                      "out)"}
 XG_REL_TOL = 1e-5               # fp32 sums of exact bf16 products
@@ -2363,7 +2366,10 @@ def _lstm_resident(fr, dev, flush, c, o, T, B, D, E):
     ms of each wrapper (pre-pass + recurrence; recurrence + post-pass)
     and of each recurrence alone (µs a step), and kernel-line records of
     the pre-pass and the post-pass against their plain versions (two
-    launches bit-equal)."""
+    launches bit-equal), each beside its same-function PyTorch call timed
+    both ways (``library_ms``; ``library_device_ms`` with the queue kept
+    ahead, as ``device_ms``), the pre-pass also beside a bf16-out addmm
+    (``LSTM_PASS_NOTES``)."""
     plan = fr._cluster_plan(torch.bfloat16, B, D, dev)
     _check(plan.route == "resident", f"lstm bf16 D {D}: route {plan}")
     xe, wx, b, w, lens, h0, c0 = (c[k] for k in ("xe", "wx", "b", "w",
@@ -2393,13 +2399,14 @@ def _lstm_resident(fr, dev, flush, c, o, T, B, D, E):
            "us_per_step": {"fwd": rec_fwd * 1e3 / T,
                            "bwd": rec_bwd * 1e3 / T}}
     mm = torch.backends.cuda.matmul
-    xe2, wxf = xe.reshape(T * B, E), wx.float()
-    xef, bf_ = xe2.float(), b.float()
+    xe2 = xe.reshape(T * B, E)
     dx2 = dx.reshape(T * B, 4 * D)
     passes = {
         "lstm_proj_xg": (lambda: fr.lstm_proj_xg(xe, wx, b),
                          lambda: fr.lstm_proj_xg_reference(xe, wx, b),
-                         lambda: torch.addmm(b, xe2, wx), XG_REL_TOL),
+                         lambda: torch.addmm(b, xe2, wx,
+                                             out_dtype=torch.float32),
+                         XG_REL_TOL),
         "lstm_proj_dxe": (lambda: fr.lstm_proj_dxe(dx, wx),
                           lambda: fr.lstm_proj_dxe_reference(dx, wx),
                           lambda: torch.matmul(dx2, wx.t()), DXE_REL_TOL)}
@@ -2417,6 +2424,7 @@ def _lstm_resident(fr, dev, flush, c, o, T, B, D, E):
         mm.allow_bf16_reduced_precision_reduction = False
         try:
             lib_ms = _time_ms(lib_fn, flush)
+            lib_device_ms = _time_ms(lib_fn, flush, queue_ahead=True)
         finally:
             mm.allow_bf16_reduced_precision_reduction = prev
         out["passes"][name] = _lane_record(
@@ -2427,11 +2435,17 @@ def _lstm_resident(fr, dev, flush, c, o, T, B, D, E):
             {"shape": [T, B, D, E], "dtype": "bfloat16",
              "err_is": f"max abs, <= {tol} x max|plain|",
              "device_ms": _time_ms(kernel_fn, flush, queue_ahead=True),
+             "library_device_ms": lib_device_ms,
              "library_note": LSTM_PASS_NOTES[name],
              "bit_equal_two_launches": True})
-    out["passes"]["lstm_proj_xg"]["library_fp32_ms"] = _time_ms(
-        lambda: torch.addmm(bf_, xef, wxf), flush)
-    del xg, dx, xef, dx2
+    prev = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        out["passes"]["lstm_proj_xg"]["library_bf16_out_device_ms"] = \
+            _time_ms(lambda: torch.addmm(b, xe2, wx), flush, queue_ahead=True)
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = prev
+    del xg, dx, dx2
     return out
 
 
@@ -2662,8 +2676,10 @@ def check_lstm(fr, kernels, dev, flush, dtype):
                     recs[pname] = prec
                 else:
                     recs[pname].update({f"layer2_{k}": prec[k] for k in (
-                        "ms", "device_ms", "bound_ms", "library_ms",
-                        "library_fp32_ms", "max_abs_err", "shape")
+                        "ms", "device_ms", "bound_ms", "bound_by",
+                        "library_ms", "library_device_ms",
+                        "library_bf16_out_device_ms", "max_abs_err",
+                        "shape")
                         if k in prec})
         for name in names:
             kernel_fn, plain_fn = calls[name]

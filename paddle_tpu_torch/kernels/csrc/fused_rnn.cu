@@ -18,9 +18,10 @@
 //     recurrences, serve B10 (C entry cluster_lstm_fwd_x: x in bf16 as
 //     the step's first term), B11's recurrence (cluster_lstm_bwd without
 //     db), B14 (cluster_lstm_fwd: the fp32 xg of lstm_xg_kernel, xe @ Wx
-//     + b for every step, C entry proj_gemm) and B15's recurrence
-//     (cluster_lstm_bwd with db, then lstm_dxe_kernel, dx @ Wx^T for
-//     every step); the streaming kernels (lstm_fwd_kernel,
+//     + b for every step) and B15's recurrence (cluster_lstm_bwd with db,
+//     then lstm_dxe_kernel, dx @ Wx^T for every step); those two passes
+//     are one persistent wgmma GEMM fed by TMA (rc::proj_gemm, C entry
+//     proj_gemm); the streaming kernels (lstm_fwd_kernel,
 //     lstm_bwd_kernel) keep the fp32 lanes and the bf16 shapes the plan
 //     does not make resident;
 //   GRU (gates u|r|c~, w [D, 3D]):
@@ -132,7 +133,9 @@
 // loop as one GEMM (lstm_xg_kernel, fp32 out: the Pallas sum (xe Wx +
 // b) + h W keeps its first term unrounded, and a bf16 xg would move
 // 12-30 % of the gates by an ulp), and dxe after it from the rounded
-// dgates (lstm_dxe_kernel: the same GEMM with Wx read transposed).
+// dgates (lstm_dxe_kernel: the same GEMM with Wx read transposed); both
+// are rc::proj_gemm, persistent clusters of two on wgmma, the operands
+// by TMA as they lie, the output staged and stored by TMA.
 // B10 and B11's recurrence run the same two kernels: B10's step reads
 // its first term from x in bf16 (widened to fp32, exact, so B10 on x is
 // B14's recurrence on xg = float(x) bit for bit), and B11's reverse is
@@ -552,18 +555,17 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                                      << 62;
 }
 
-// d (64 x BN, fp32, the wgmma accumulator layout) += A (64 x 16) * B (16
-// x BN), both bf16 MN-major in shared memory (the two transpose bits)
-template <int BN>
-__device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t a,
-                                    uint64_t b);
+// d (64 x N, fp32, the wgmma accumulator layout; N = 256 or 128 from d's
+// size) += A (64 x 16) * B (16 x N), bf16 in shared memory; TA / TB the
+// transpose bits: 1 for an MN-major operand (the dW reductions read both
+// so), 0 for a K-major one
 // eight accumulator operands of a wgmma
 #define DW_R8(i)                                                         \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-template <>
-__device__ __forceinline__ void mma<256>(float (&d)[128], uint64_t a,
-                                        uint64_t b) {
+template <int TA = 1, int TB = 1>
+__device__ __forceinline__ void mma(float (&d)[128], uint64_t a,
+                                    uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -583,17 +585,17 @@ __device__ __forceinline__ void mma<256>(float (&d)[128], uint64_t a,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 1, 1;\n}\n"
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
       : DW_R8(0), DW_R8(8), DW_R8(16), DW_R8(24),
         DW_R8(32), DW_R8(40), DW_R8(48), DW_R8(56),
         DW_R8(64), DW_R8(72), DW_R8(80), DW_R8(88),
         DW_R8(96), DW_R8(104), DW_R8(112), DW_R8(120)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <>
-__device__ __forceinline__ void mma<128>(float (&d)[64], uint64_t a,
-                                        uint64_t b) {
+template <int TA = 1, int TB = 1>
+__device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
+                                    uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -605,10 +607,10 @@ __device__ __forceinline__ void mma<128>(float (&d)[64], uint64_t a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : DW_R8(0), DW_R8(8), DW_R8(16), DW_R8(24),
         DW_R8(32), DW_R8(40), DW_R8(48), DW_R8(56)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 #undef DW_R8
 
@@ -708,6 +710,36 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
         "h"(static_cast<uint16_t>((1 << cm) - 1))
         : "memory");
   }
+}
+
+// the box at (x, y) of a 2-D tensor map from shared memory at src (a bulk
+// group of this thread's); commit, and wait until at most N groups are
+// still reading shared memory (.read) or writing device memory
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];\n" ::"l"(map),
+      "r"(src), "r"(x), "r"(y)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads of wgmma accumulators above the
+// wgmma.wait_group that completes them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // The operands' tensor maps (64-column x kBK-row boxes, 128-byte swizzle):
@@ -841,8 +873,8 @@ __global__ void __launch_bounds__(288, 1)
       wg_fence();
 #pragma unroll
       for (int k = 0; k < kBK / 16; ++k) {
-        mma<BN>(acc, desc(st + wg * kSlice + k * 2048, kSlice, 1024),
-                desc(st + 2 * kSlice + k * 2048, kSlice, 1024));
+        mma(acc, desc(st + wg * kSlice + k * 2048, kSlice, 1024),
+            desc(st + 2 * kSlice + k * 2048, kSlice, 1024));
       }
       wg_commit();
       wg_wait<0>();  // the products of stage c are done: release it
@@ -1372,12 +1404,13 @@ cudaError_t launch_lstm_bwd(const void* gates, const void* cs, const void* wt,
   return cudaGetLastError();
 }
 
-// a tensor map of a row-major bf16 [rows, cols] tensor (row stride ld
-// elements) in 64-column x rows_box boxes and the 128-byte swizzle,
-// through the driver's cuTensorMapEncodeTiled (found through the runtime:
-// no -lcuda)
-cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int rows,
-                            int cols, int ld, int rows_box) {
+// a tensor map of a row-major [rows, cols] tensor of `type` (elements of
+// `size` bytes, row stride ld elements) in box_cols x rows_box boxes and
+// the 128-byte swizzle, through the driver's cuTensorMapEncodeTiled (found
+// through the runtime: no -lcuda)
+cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int size,
+                       const void* base, int rows, int cols, int ld,
+                       int box_cols, int rows_box) {
   static const PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -1392,15 +1425,22 @@ cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int rows,
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(rows_box)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * size};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(rows_box)};
   const cuuint32_t steps[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-      dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ... of a bf16 tensor in 64-column boxes
+cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int rows,
+                            int cols, int ld, int rows_box) {
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows,
+                    cols, ld, 64, rows_box);
 }
 
 template <bool GRU, int BN>
@@ -1517,7 +1557,7 @@ bool bad_e(int E) { return E < 64 || E % 64 != 0; }
 // Three launches stand in for the bf16 lstm_proj_fwd / lstm_proj_bwd
 // recurrence kernels above (notes at the top of the file):
 //   lstm_xg_kernel           xg [T*B, 4D] fp32 = xe @ Wx + b, every step
-//                            at once (a tensor-core GEMM);
+//                            at once (proj_gemm: wgmma, TMA, persistent);
 //   lstm_cluster_fwd_kernel  the forward recurrence from xg, W resident;
 //   lstm_cluster_bwd_kernel  the reverse recurrence: dx, db, dh0, dc0;
 //   lstm_dxe_kernel          dxe [T*B, E] = dx @ Wx^T (the GEMM of the
@@ -2195,141 +2235,330 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (mode != 0 && keep == -1.f) out[blockIdx.x] = keep;
 }
 
-// C [M][N] = A [M][K] B (+ bias[N]): bf16 operands, fp32 sums on
-// mma.sync m16n8k16. B is [K][N] row-major (kBkn), or given as B^T [N][K]
-// row-major. 128 x 128 output tiles, 8 warps of 64 x 32, 32-deep cp.async
-// stages double-buffered; rows past M and columns past N zero-filled. K a
-// multiple of 32, N of 8.
-constexpr int kGm = 128, kGn = 128, kGk = 32;
-constexpr int kGld = kGk + 8;   // A (and B^T) rows in shared memory
-constexpr int kGldb = kGn + 8;  // B [K][N] rows
+// C [M][N] = A [M][K] B (+ bias[N]): the route's two GEMMs, bf16 operands
+// read as they lie, fp32 sums on wgmma, no copy or transpose. Mode 0, the
+// pre-pass (lstm_xg_kernel): A = xe, B = Wx [K][N] (MN-major), fp32 out
+// plus the bias after the full K sum. Mode 1, the post-pass
+// (lstm_dxe_kernel): A = dx, B = Wx [N][K] read as B^T (K-major), bf16
+// out. What bounds them at the flagship's shapes (T*B = 12,800, D 512):
+// the pre-pass writes 105 MB of fp32 (bytes); the post-pass reads dx's
+// 52 MB, and at E 512 does 27 GFLOP (0.027 ms at 989 TFLOP/s).
+// The design: one persistent block an SM, in clusters of two (CM). A
+// cluster walks cluster tiles (CM row tiles sharing one column tile of
+// BN columns: 128 in mode 0 and where N <= 128, else 256); each block
+// loads its own A and 1/CM of B, multicast to the cluster, so B's L2
+// reads fall by CM. A row tile is two halves of op.rows <= 64 rows, each
+// in the place of a 64-row m64 operand (the rows past op.rows are
+// computed and never stored); the launch takes as few rows as keep the
+// rounds that 128-row tiles would take, so the last round is not left
+// part empty (the post-pass at T*B = 12,800 on 66 clusters: 49-row
+// halves, every SM busy, where 128-row tiles left 32 idle). In a block
+// one producer warp fills a ring of 64-deep K stages by TMA (128-byte
+// swizzle; rows and columns past the bounds load as zeros) for two
+// consumer warpgroups that run wgmma m64nBNk16 from the landed stages,
+// one group in flight behind the next, with a full and an empty mbarrier
+// a stage (empty: every consuming warpgroup of every block releases it,
+// since every block's producer writes it). The epilogue stages 64 columns a pass in shared
+// memory, in the 128-byte swizzle (conflict-free), and stores each pass
+// by TMA, the stores draining while the next products run.
+//   - Mode 1 (bf16 out) is cooperative: each warpgroup takes one half of
+//     every tile and stages two buffers deep.
+//   - Mode 0 (fp32 out, 105 MB at the flagship: write-bound) is
+//     ping-pong: each warpgroup takes every other tile whole (both
+//     halves, two m64 products a k-step), so one writes its tile out
+//     while the other's products run; they wait for stages in turn (a
+//     tile each) so that no stage is awaited a ring phase early.
+// Sums run in a fixed order, the same for any op.rows: two launches give
+// the same bits.
+struct ProjOps {
+  const bf16* bias;  // mode 0: [N]
+  int M, N, K;
+  int rows;   // a half tile's rows, <= 64
+  int n_col;  // column tiles
+  int tiles;  // cluster tiles (CM row tiles) x column tiles
+};
 
-template <bool kBkn, bool kF32Out>
-__device__ __forceinline__ void proj_gemm(const bf16* __restrict__ a,
-                                          const bf16* __restrict__ b,
-                                          const bf16* __restrict__ bias,
-                                          void* __restrict__ out, int M,
-                                          int K, int N) {
-  __shared__ __align__(16) bf16 As[2][kGm * kGld];
-  __shared__ __align__(16) bf16 Bs[2][kBkn ? kGk * kGldb : kGn * kGld];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t4 = lane & 3;
-  const int m0 = static_cast<int>(blockIdx.y) * kGm;
-  const int n0 = static_cast<int>(blockIdx.x) * kGn;
-  auto load = [&](int stage, int k0) {
-    for (int i = tid; i < kGm * 4; i += 256) {
-      const int r = i >> 2, c = (i & 3) * 8;
-      const bool ok = m0 + r < M;
-      cp16(smem_u32(&As[stage][r * kGld + c]),
-           a + static_cast<size_t>(ok ? m0 + r : 0) * K + k0 + c, ok);
+// the tensor maps: a [M][K] in 64 x op.rows boxes; b [K][N] in 64 x 64
+// boxes (mode 0: one 64-column slice of a stage), or [N][K] in 64 x BN/CM
+// boxes (mode 1: a block's part of the stage); out [M][N] in boxes of
+// 128 bytes x op.rows
+struct ProjMaps {
+  CUtensorMap a, b, out;
+};
+
+// kPre: mode 0 (ping-pong), else mode 1 (cooperative)
+template <int BN, bool kPre>
+struct ProjCfg {
+  static constexpr int kBK = 64;                 // K a stage
+  static constexpr int kABytes = tc::kBM * 128;  // 2 x 64 rows of 64 K
+  static constexpr int kStageBytes = kABytes + BN * 128;
+  static constexpr int kOutSize = kPre ? 4 : 2;
+  static constexpr int kBoxCols = 128 / kOutSize;  // an output box's
+  static constexpr int kBoxBytes = 64 * 128;
+  // the epilogue: a warpgroup stages kEpiCols columns a pass in one of
+  // kStgBufs buffers, each pass's TMA store draining while the next
+  // passes are written (ping-pong: the other warpgroup's products hide it)
+  static constexpr int kEpiCols = 64;
+  static constexpr int kStgBufs = kPre ? 1 : 2;
+  static constexpr int kEpiBoxes = kEpiCols / kBoxCols;
+  static constexpr int kPasses = BN / kEpiCols;
+  // a warpgroup's halves of a tile: both (ping-pong) or one
+  static constexpr int kHalves = kPre ? 2 : 1;
+  static constexpr int kBufBytes = kEpiBoxes * kBoxBytes * kHalves;
+  static constexpr int kStgBytes = kStgBufs * kBufBytes;  // a warpgroup's
+  // what is left of 226 KiB (227 less the barriers) for the ring, <= 6
+  static constexpr int kRing = 226 * 1024 - 1024 - 2 * kStgBytes;
+  static constexpr int kStages =
+      kRing / kStageBytes < 6 ? kRing / kStageBytes : 6;
+  static constexpr int kSmem = kStages * kStageBytes + 2 * kStgBytes + 1024;
+  static_assert(kStages > 1, "a stage to load while they run");
+};
+
+template <int BN, int CM, bool kPre>
+__device__ __forceinline__ void proj_gemm(const ProjOps& op,
+                                          const ProjMaps& maps) {
+  using C = ProjCfg<BN, kPre>;
+  constexpr int kS = C::kStages;
+  static_assert(kPre ? BN / 64 % CM == 0 : BN % (8 * CM) == 0,
+                "each block of a cluster loads an equal part of B");
+  extern __shared__ uint8_t pg_smem[];
+  // full, then empty, then (ping-pong) each warpgroup's turn
+  __shared__ __align__(8) uint64_t bars[2 * kS + 2];
+  const uint32_t raw = smem_u32(pg_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = pg_smem + (base - raw);
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kS;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int rank = tc::cluster_rank();
+  const int cid = static_cast<int>(blockIdx.x) / CM;
+  const int n_cl = static_cast<int>(gridDim.x) / CM;
+  const int n_k = (op.K + C::kBK - 1) / C::kBK;
+  const int rows = op.rows;
+
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      tc::mbar_init(full0 + 8 * s, 1);
+      // every consumer warpgroup of every block (ping-pong: one of each)
+      tc::mbar_init(empty0 + 8 * s, (kPre ? 1 : 2) * CM);
     }
-    if (kBkn) {
-      for (int i = tid; i < kGk * 16; i += 256) {
-        const int r = i >> 4, c = (i & 15) * 8;
-        const bool ok = n0 + c < N;
-        cp16(smem_u32(&Bs[stage][r * kGldb + c]),
-             b + static_cast<size_t>(k0 + r) * N + (ok ? n0 + c : 0), ok);
-      }
-    } else {
-      for (int i = tid; i < kGn * 4; i += 256) {
-        const int r = i >> 2, c = (i & 3) * 8;
-        const bool ok = n0 + r < N;
-        cp16(smem_u32(&Bs[stage][r * kGld + c]),
-             b + static_cast<size_t>(ok ? n0 + r : 0) * K + k0 + c, ok);
-      }
-    }
-  };
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  const int n_k = K / kGk;
-  load(0, 0);
-  cp_commit();
-  for (int s = 0; s < n_k; ++s) {
-    if (s + 1 < n_k) load((s + 1) & 1, (s + 1) * kGk);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();  // stage s landed
-    const bf16* as = As[s & 1];
-    const bf16* bs = Bs[s & 1];
-#pragma unroll
-    for (int kk = 0; kk < kGk; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        ldsm_x4(smem_u32(as + (wm * 64 + 16 * mi + (lane & 7) +
-                               8 * ((lane >> 3) & 1)) * kGld +
-                         kk + 8 * (lane >> 4)),
-                af[mi]);
-      }
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t r[4];
-        if (kBkn) {
-          ldsm_x4_t(smem_u32(bs + (kk + (lane & 7) + 8 * ((lane >> 3) & 1)) *
-                                      kGldb +
-                             wn * 32 + 16 * p + 8 * (lane >> 4)),
-                    r);
-        } else {
-          ldsm_x4(smem_u32(bs + (wn * 32 + 16 * p + (lane & 7) +
-                                 8 * (lane >> 4)) * kGld +
-                           kk + 8 * ((lane >> 3) & 1)),
-                  r);
-        }
-        bfr[2 * p][0] = r[0];
-        bfr[2 * p][1] = r[1];
-        bfr[2 * p + 1][0] = r[2];
-        bfr[2 * p + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
-    }
-    __syncthreads();  // every warp is done with stage s
+    tc::mbar_init(empty0 + 8 * kS, 1);
+    tc::mbar_init(empty0 + 8 * kS + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = m0 + wm * 64 + 16 * mi + g + 8 * hh;
-      if (row >= M) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + 8 * ni + 2 * t4;
-        if (col >= N) continue;
-        const size_t o = static_cast<size_t>(row) * N + col;
-        const float v[2] = {acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]};
-        if constexpr (kF32Out) {  // (xe_t Wx) + b, as the Pallas sum
-          float* of = static_cast<float*>(out);
-          *reinterpret_cast<float2*>(of + o) =
-              make_float2(v[0] + to_f(bias[col]), v[1] + to_f(bias[col + 1]));
-        } else {
-          store2(static_cast<bf16*>(out) + o, v);
+  tc::cluster_sync();
+
+  if (wg == 2) {  // ---- the producer warp
+    int it = 0;   // stages filled, over every tile
+    for (int t = cid; t < op.tiles; t += n_cl) {
+      const int m0 = (CM * (t / op.n_col) + rank) * 2 * rows;
+      const int n0 = (t % op.n_col) * BN;
+      for (int kb = 0; kb < n_k; ++kb, ++it) {
+        const int s = it % kS;
+        if (it >= kS) tc::mbar_wait(empty0 + 8 * s, (it / kS - 1) & 1);
+        if (lane == 0) {
+          const uint32_t st = base + s * C::kStageBytes, full = full0 + 8 * s;
+          const uint32_t b = st + C::kABytes;
+          tc::mbar_expect_tx(full, (2 * rows + BN) * 128, false);
+          tc::tma_load(st, &maps.a, kb * C::kBK, m0, full);
+          tc::tma_load(st + 8192, &maps.a, kb * C::kBK, m0 + rows, full);
+          if (kPre) {
+            constexpr int kPer = BN / 64 / CM;  // slices a block loads
+            for (int j = rank * kPer; j < (rank + 1) * kPer; ++j) {
+              tc::tma_load(b + j * 8192, &maps.b, n0 + 64 * j, kb * C::kBK,
+                           full, CM);
+            }
+          } else {
+            tc::tma_load(b + rank * BN / CM * 128, &maps.b, kb * C::kBK,
+                         n0 + rank * BN / CM, full, CM);
+          }
         }
       }
     }
+  } else if constexpr (kPre) {  // ---- ping-pong: warpgroup wg takes the
+    // block's tiles wg, wg + 2, ...: both halves, so one warpgroup's
+    // epilogue runs while the other's products do. The two wait for
+    // stages in turn, a tile each (turn: the other's last stage of its
+    // tile has landed), so no stage is awaited a phase early. (Written
+    // out on its own: with its declarations and stage release shared
+    // with mode 1's, ptxas serialized this loop's wgmma (C7515), 0.062 ->
+    // 0.080 ms at E 512 on an H100.)
+    const int wtid = tid & 127;
+    const bool issuer = wtid == 0;
+    const int r0 = 16 * (wtid >> 5) + (lane >> 2);  // and r0 + 8
+    const uint32_t stg = base + kS * C::kStageBytes + wg * C::kStgBytes;
+    uint8_t* const gstg = gbase + (stg - base);
+    float acc[2][BN / 2];  // the two halves
+    for (int j = wg, t = cid + wg * n_cl; t < op.tiles;
+         j += 2, t += 2 * n_cl) {
+      const int m0 = (CM * (t / op.n_col) + rank) * 2 * rows;
+      const int n0 = (t % op.n_col) * BN;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[0][i] = acc[1][i] = 0.f;
+      const uint32_t turn = empty0 + 8 * kS;  // turn + 8 wg: wg's turn
+      if (j > 0) tc::mbar_wait(turn + 8 * wg, ((j >> 1) - 1 + wg) & 1);
+      for (int kb = 0; kb < n_k; ++kb) {
+        const int it = j * n_k + kb, s = it % kS;
+        const uint32_t st = base + s * C::kStageBytes, b = st + C::kABytes;
+        tc::mbar_wait(full0 + 8 * s, (it / kS) & 1);
+        if (kb == n_k - 1 && issuer) tc::mbar_arrive_at(turn + 8 - 8 * wg,
+                                                        rank);
+        tc::wg_fence();
+#pragma unroll
+        for (int k = 0; k < C::kBK / 16; ++k) {
+          const uint64_t db = tc::desc(b + 2048 * k, 8192, 1024);
+          tc::mma<0, 1>(acc[0], tc::desc(st + 32 * k, 16, 1024), db);
+          tc::mma<0, 1>(acc[1], tc::desc(st + 8192 + 32 * k, 16, 1024), db);
+        }
+        tc::wg_commit();
+        tc::wg_wait<1>();  // the stage before this one is done
+        if (kb > 0 && issuer) {
+          for (int r = 0; r < CM; ++r) {
+            tc::mbar_arrive_at(empty0 + 8 * ((it - 1) % kS), r);
+          }
+        }
+      }
+      tc::wg_wait<0>();
+      tc::fence_regs(acc[0]);
+      tc::fence_regs(acc[1]);
+      if (issuer) {
+        for (int r = 0; r < CM; ++r) {
+          tc::mbar_arrive_at(empty0 + 8 * ((j * n_k + n_k - 1) % kS), r);
+        }
+      }
+      if (m0 >= op.M) continue;  // a cluster tile's rows past M
+      // accumulator 4j + 2h + e: row r0 + 8h, column 8j + 2 (lane % 4) + e
+#pragma unroll
+      for (int p = 0; p < C::kPasses; ++p) {
+        if (issuer) tc::bulk_wait_read<0>();  // the staging is free
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+#pragma unroll
+        for (int jj = 0; jj < C::kEpiCols / 8; ++jj) {
+          const int jc = p * C::kEpiCols / 8 + jj;
+          const int cl = 8 * jj + 2 * (lane & 3);
+          const int cb = cl % C::kBoxCols;
+          float2 bv = make_float2(0.f, 0.f);
+          const int col = n0 + p * C::kEpiCols + cl;
+          if (col < op.N) {
+            bv = bf2_to_f2(
+                __ldg(reinterpret_cast<const unsigned*>(op.bias + col)));
+          }
+#pragma unroll
+          for (int hm = 0; hm < 2; ++hm) {  // the half
+            uint8_t* const box = gstg + (hm * C::kEpiBoxes +
+                                         cl / C::kBoxCols) * C::kBoxBytes;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {  // (xe_t Wx) + b, as the Pallas sum
+              const int r = r0 + 8 * h;
+              const float v0 = acc[hm][4 * jc + 2 * h];
+              const float v1 = acc[hm][4 * jc + 2 * h + 1];
+              *reinterpret_cast<float2*>(
+                  box + r * 128 + (((cb >> 2) ^ (r & 7)) << 4) +
+                  (cb & 3) * 4) = make_float2(v0 + bv.x, v1 + bv.y);
+            }
+          }
+        }
+        tc::fence_async();  // the staging's writes, seen by TMA
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+        if (issuer) {
+          for (int hm = 0; hm < 2; ++hm) {
+            for (int x = 0; x < C::kEpiBoxes; ++x) {
+              tc::tma_store(&maps.out,
+                            stg + (hm * C::kEpiBoxes + x) * C::kBoxBytes,
+                            n0 + p * C::kEpiCols + x * C::kBoxCols,
+                            m0 + rows * hm);
+            }
+          }
+          tc::bulk_commit();
+        }
+      }
+    }
+    if (issuer) tc::bulk_wait<0>();
+  } else {  // ---- cooperative: warpgroup wg takes half wg of every tile
+    const int wtid = tid & 127;
+    const bool issuer = wtid == 0;
+    const int r0 = 16 * (wtid >> 5) + (lane >> 2);  // and r0 + 8
+    const uint32_t stg = base + kS * C::kStageBytes + wg * C::kStgBytes;
+    uint8_t* const gstg = gbase + (stg - base);
+    auto release = [&](int s) {  // stage s, to every block's producer
+      if (issuer) {
+        for (int r = 0; r < CM; ++r) tc::mbar_arrive_at(empty0 + 8 * s, r);
+      }
+    };
+    float acc[BN / 2];
+    int it = 0, ep = 0;  // stages consumed, epilogue passes
+    for (int t = cid; t < op.tiles; t += n_cl) {
+      const int m0 = (CM * (t / op.n_col) + rank) * 2 * rows + rows * wg;
+      const int n0 = (t % op.n_col) * BN;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int kb = 0; kb < n_k; ++kb, ++it) {
+        const int s = it % kS;
+        const uint32_t st = base + s * C::kStageBytes;
+        const uint32_t a = st + wg * 8192, b = st + C::kABytes;
+        tc::mbar_wait(full0 + 8 * s, (it / kS) & 1);
+        tc::wg_fence();
+#pragma unroll
+        for (int k = 0; k < C::kBK / 16; ++k) {
+          tc::mma<0, 0>(acc, tc::desc(a + 32 * k, 16, 1024),
+                        tc::desc(b + 32 * k, 16, 1024));
+        }
+        tc::wg_commit();
+        tc::wg_wait<1>();  // the stage before this one is done
+        if (kb > 0) release((it - 1) % kS);
+      }
+      tc::wg_wait<0>();
+      tc::fence_regs(acc);
+      release((it - 1) % kS);
+      if (m0 >= op.M) continue;  // a cluster tile's rows past M
+      // accumulator 4j + 2h + e: row r0 + 8h, column 8j + 2 (lane % 4) + e
+#pragma unroll
+      for (int p = 0; p < C::kPasses; ++p, ++ep) {
+        const int off = ep % C::kStgBufs * C::kBufBytes;
+        if (issuer) tc::bulk_wait_read<C::kStgBufs - 1>();  // buffer free
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+#pragma unroll
+        for (int jj = 0; jj < C::kEpiCols / 8; ++jj) {
+          const int j = p * C::kEpiCols / 8 + jj;
+          const int cl = 8 * jj + 2 * (lane & 3);
+          const int cb = cl % C::kBoxCols;
+          uint8_t* const box = gstg + off + cl / C::kBoxCols * C::kBoxBytes;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 8 * h;
+            *reinterpret_cast<unsigned*>(
+                box + r * 128 + (((cb >> 3) ^ (r & 7)) << 4) +
+                (cb & 7) * 2) = f2_to_bf2(acc[4 * j + 2 * h],
+                                          acc[4 * j + 2 * h + 1]);
+          }
+        }
+        tc::fence_async();  // the staging's writes, seen by TMA
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+        if (issuer) {
+          for (int x = 0; x < C::kEpiBoxes; ++x) {
+            tc::tma_store(&maps.out, stg + off + x * C::kBoxBytes,
+                          n0 + p * C::kEpiCols + x * C::kBoxCols, m0);
+          }
+          tc::bulk_commit();
+        }
+      }
+    }
+    if (issuer) tc::bulk_wait<0>();
   }
+  tc::cluster_sync();  // no block leaves while its peer may still signal it
 }
 
 // xg [M = T*B][G] fp32 = xe [M][E] @ wx [E][G] + b
-__global__ void __launch_bounds__(256)
-    lstm_xg_kernel(const bf16* __restrict__ xe, const bf16* __restrict__ wx,
-                   const bf16* __restrict__ bias, float* __restrict__ xg,
-                   int M, int E, int G) {
-  proj_gemm<true, true>(xe, wx, bias, xg, M, E, G);
+template <int BN, int CM>
+__global__ void __launch_bounds__(288, 1)
+    lstm_xg_kernel(const ProjOps op, const __grid_constant__ ProjMaps maps) {
+  proj_gemm<BN, CM, true>(op, maps);
 }
 
 // dxe [M][E] bf16 = dx [M][G] @ wx^T (wx [E][G] read as B^T)
-__global__ void __launch_bounds__(256)
-    lstm_dxe_kernel(const bf16* __restrict__ dx, const bf16* __restrict__ wx,
-                    bf16* __restrict__ dxe, int M, int E, int G) {
-  proj_gemm<false, false>(dx, wx, nullptr, dxe, M, G, E);
+template <int BN, int CM>
+__global__ void __launch_bounds__(288, 1)
+    lstm_dxe_kernel(const ProjOps op, const __grid_constant__ ProjMaps maps) {
+  proj_gemm<BN, CM, false>(op, maps);
 }
 
 template <typename K>
@@ -2593,31 +2822,86 @@ extern "C" int lstm_dw(int lane, const void* xe, const void* hs,
 
 // --------------------- B10/B11, B14/B15 bf16: the resident route (rc)
 
+// One of the route's GEMMs (rc::proj_gemm): a persistent grid of as many
+// clusters of CM as the card holds at once, at most one a cluster tile;
+// the rows of a tile as few as keep the rounds that 128-row tiles would
+// take (so the last round is full); then tensor maps of its operands and
+// output in boxes of those rows.
+template <int BN, int CM, bool kPre, typename Kern>
+cudaError_t launch_proj(Kern kernel, const void* a, const void* b,
+                        const void* bias, void* out, int M, int K, int N,
+                        cudaStream_t st) {
+  using C = rc::ProjCfg<BN, kPre>;
+  cudaError_t err = opt_in(kernel, C::kSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CM;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CM);
+  cfg.blockDim = dim3(288);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static int clusters = 0;  // the clusters the card holds at once
+  if (clusters < 1) {
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+  }
+  rc::ProjOps op{static_cast<const bf16*>(bias), M, N, K, 0,
+                 (N + BN - 1) / BN, 0};
+  const int full_rows = (M + CM * tc::kBM - 1) / (CM * tc::kBM);
+  const int rounds = (full_rows * op.n_col + clusters - 1) / clusters;
+  const int row_tiles = rounds * clusters / op.n_col;  // >= full_rows
+  op.rows = (M + 2 * CM * row_tiles - 1) / (2 * CM * row_tiles);  // <= 64
+  op.tiles = (M + 2 * CM * op.rows - 1) / (2 * CM * op.rows) * op.n_col;
+  rc::ProjMaps maps;
+  err = bf16_tensor_map(&maps.a, a, M, K, K, op.rows);
+  if (err == cudaSuccess) {
+    err = kPre ? bf16_tensor_map(&maps.b, b, K, N, N, 64)
+               : bf16_tensor_map(&maps.b, b, N, K, K, BN / CM);
+  }
+  if (err == cudaSuccess) {
+    err = tensor_map(&maps.out,
+                     kPre ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     C::kOutSize, out, M, N, N, C::kBoxCols, op.rows);
+  }
+  if (err != cudaSuccess) return err;
+  const int n_cl = op.tiles < clusters ? op.tiles : clusters;
+  cfg.gridDim = dim3(static_cast<unsigned>(CM * n_cl));
+  return cudaLaunchKernelEx(&cfg, kernel, op, maps);
+}
+
 // The route's two GEMMs: mode 0, the pre-pass (a = xe [M][K = E], b = wx
 // [K][N = 4D], bias = b [N] -> out = xg [M][N] fp32); mode 1, the
 // post-pass (a = dx [M][K = 4D], b = wx [N = E][K] read transposed ->
-// out = dxe [M][N] bf16). M = T * B.
+// out = dxe [M][N] bf16). M = T * B; K a multiple of 32, N of 8 (the
+// tensor maps' 16-byte row strides).
 extern "C" int proj_gemm(int lane, const void* a, const void* b,
                          const void* bias, void* out, int M, int K, int N,
                          int mode, void* stream) {
-  if (lane != 1 || M < 1 || K < rc::kGk || K % rc::kGk != 0 || N < 8 ||
-      N % 8 != 0 || (mode != 0 && mode != 1) ||
-      (mode == 0 && bias == nullptr) || (M + rc::kGm - 1) / rc::kGm > 65535) {
+  if (lane != 1 || M < 1 || K < 32 || K % 32 != 0 || N < 8 || N % 8 != 0 ||
+      (mode != 0 && mode != 1) || (mode == 0 && bias == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>((N + rc::kGn - 1) / rc::kGn),
-                  static_cast<unsigned>((M + rc::kGm - 1) / rc::kGm));
+  cudaError_t err;
   if (mode == 0) {
-    rc::lstm_xg_kernel<<<grid, 256, 0, st>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-        static_cast<const bf16*>(bias), static_cast<float*>(out), M, K, N);
+    err = launch_proj<128, 2, true>(rc::lstm_xg_kernel<128, 2>, a, b, bias,
+                                    out, M, K, N, st);
+  } else if (N <= 128) {
+    err = launch_proj<128, 2, false>(rc::lstm_dxe_kernel<128, 2>, a, b,
+                                     nullptr, out, M, K, N, st);
   } else {
-    rc::lstm_dxe_kernel<<<grid, 256, 0, st>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-        static_cast<bf16*>(out), M, N, K);
+    err = launch_proj<256, 2, false>(rc::lstm_dxe_kernel<256, 2>, a, b,
+                                     nullptr, out, M, K, N, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // B14's recurrence on the resident route. xg [T, B, 4D] fp32 (the

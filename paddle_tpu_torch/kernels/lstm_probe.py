@@ -12,11 +12,13 @@ the barrier alone), one JSON line.
 The second times, on the tree at DIR (default this one, imported as
 ``parity_dump.use_checkout`` does), B10's and B11's bf16 wrappers
 (``lstm_fwd``, ``lstm_bwd_data``) at T 100, B 128, D 512 and B14's and
-B15's (``lstm_proj_fwd``, ``lstm_proj_bwd_data``) at the flagship's two
-layers (E 128 / 512), then the classifier's AMP training step on its
-three routes (``train_lstm``: fused_lstm; ``train_lstm_composed``: fc +
-dynamic_lstm; ``train_lstm_ragged``: fused_lstm on ragged LoD, which
-falls back to the composed route) through ``chip_smoke.timed_steps``,
+B15's (``lstm_proj_fwd``, ``lstm_proj_bwd_data``, and their passes
+``lstm_proj_xg`` and ``lstm_proj_dxe`` alone, the latter beside
+``torch.matmul``) at the flagship's two layers (E 128 / 512), then the
+classifier's AMP training step on its three routes (``train_lstm``:
+fused_lstm; ``train_lstm_composed``: fc + dynamic_lstm;
+``train_lstm_ragged``: fused_lstm on ragged LoD, which falls back to
+the composed route) through ``chip_smoke.timed_steps``,
 the loop ``chip_smoke.train_text`` times, without its launch checks (a
 parent tree may count under other names): ms per batch p50 over 20
 steps after 3; and the fused step's host wall and device busy ms under
@@ -47,7 +49,8 @@ T_, B_, D_ = 100, 128, 512
 
 def timing(cs, fr, dev, flush):
     """Device ms of B10's and B11's bf16 wrappers at T 100, B 128, D 512
-    and of B14's and B15's at the flagship's two layers."""
+    and of B14's and B15's, and their passes, at the flagship's two
+    layers."""
     out = {}
     c = {k: (v if k == "lens" else v.to(torch.bfloat16))
          for k, v in cs._lstm_case(dev, T_, B_, D_, 128, False).items()}
@@ -72,6 +75,24 @@ def timing(cs, fr, dev, flush):
                                           c["lens"], c["h0"], c["c0"],
                                           c["dhs"], c["dcs"]),
             flush, reps=10, queue_ahead=True)
+        out[f"lstm_proj_xg_{key}_device_ms"] = cs._time_ms(
+            lambda: fr.lstm_proj_xg(c["xe"], c["wx"], c["b"]), flush,
+            queue_ahead=True)
+        # the post-pass on the gates, a [T, B, 4D] bf16 of dx's shape
+        out[f"lstm_proj_dxe_{key}_device_ms"] = cs._time_ms(
+            lambda: fr.lstm_proj_dxe(gates, c["wx"]), flush,
+            queue_ahead=True)
+        # its same-function library call, as chip_smoke.py times it
+        mm = torch.backends.cuda.matmul
+        prev = mm.allow_bf16_reduced_precision_reduction
+        mm.allow_bf16_reduced_precision_reduction = False
+        try:
+            g2 = gates.reshape(T_ * B_, 4 * D_)
+            out[f"lstm_proj_dxe_{key}_library_device_ms"] = cs._time_ms(
+                lambda: torch.matmul(g2, c["wx"].t()), flush,
+                queue_ahead=True)
+        finally:
+            mm.allow_bf16_reduced_precision_reduction = prev
     return out
 
 

@@ -19,15 +19,13 @@ to ``FILE``:
   ``LSTM_SHAPES``; ``lstm_proj_dw`` also on B10/B11's hs and dx.
 
 The outputs of kernels a PR redesigns are saved under a name that starts
-with ``REDESIGNED`` (now: B10/B11's bf16 lane, the resident route, and
-what is computed from them: B11's dW and ``lstm_proj_dw`` on B10/B11's
-outputs): the comparison reports them apart and does not fail on them.
-Every other output, B14/B15's bf16 resident route included, must keep
-its bits. The seeded inputs come from this checkout's
-``chip_smoke.py``. Run the first form once per tree, each in its own
-process. The second prints, for each output, whether the two files hold
-the same bits, and exits non-zero if any other output differs or is
-missing. Needs one card.
+with ``REDESIGNED`` (the LSTM outputs named in ``_REDESIGNED_OUTPUTS``,
+bf16 lane; none now: every output must keep its bits): the comparison
+reports them apart and does not fail on them. The seeded inputs come
+from this checkout's ``chip_smoke.py``. Run the first form once per
+tree, each in its own process. The second prints, for each output,
+whether the two files hold the same bits, and exits non-zero if any
+other output differs or is missing. Needs one card.
 """
 from __future__ import annotations
 
@@ -41,9 +39,9 @@ import torch
 
 _HERE = Path(__file__).resolve().parents[2]
 REDESIGNED = "redesigned:"
-# the LSTM outputs that B10/B11's bf16 kernels compute, or that are
-# computed from theirs
-_B10_B11_OUTPUTS = ("hs", "cs", "gates", "dx", "dh0", "dc0", "dw")
+# the bf16 LSTM outputs of a redesign that changes their bits, or of
+# what is computed from them (``_lstm_run``'s names)
+_REDESIGNED_OUTPUTS: tuple = ()
 
 
 def chip_smoke():
@@ -117,11 +115,11 @@ def _outputs(cs, pa, qm, fr, dev):
             o = cs._lstm_run(fr, lc)
             tag = REDESIGNED if lane == "bf16" else ""
             for n, t in o.items():
-                out[f"{tag if n in _B10_B11_OUTPUTS else ''}"
+                out[f"{tag if n in _REDESIGNED_OUTPUTS else ''}"
                     f"lstm_{lane}_{key}_{n}"] = t
             dwx, dw = fr.lstm_proj_dw(lc["xe"], o["hs"], lc["h0"], o["dx"])
-            out[f"{tag}lstm_{lane}_{key}_proj_dw_on_b11_dwx"] = dwx
-            out[f"{tag}lstm_{lane}_{key}_proj_dw_on_b11_dw"] = dw
+            out[f"lstm_{lane}_{key}_proj_dw_on_b11_dwx"] = dwx
+            out[f"lstm_{lane}_{key}_proj_dw_on_b11_dw"] = dw
     torch.cuda.synchronize()
     return {n: t.detach().cpu() for n, t in out.items()}
 

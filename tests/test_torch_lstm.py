@@ -1047,6 +1047,50 @@ def test_resident_wrappers_raise_on_what_they_do_not_take(cuda_device):
                          t["wx"][:96].contiguous(), t["b"])
 
 
+# chip_smoke.py's gates of the two passes against their plain versions:
+# fp32 sums of exact bf16 products (xg); one bf16 rounding of them (dxe)
+XG_REL_TOL = 1e-5
+DXE_REL_TOL = 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(100, 128, 512, 128), (100, 128, 512, 512),
+                                   (3, 16, 64, 64), (3, 16, 512, 192),
+                                   (100, 130, 64, 512), (100, 130, 512, 192)],
+                         ids=["layer1", "layer2", "m48-d64-e64",
+                              "m48-d512-e192", "m13000-d64-e512",
+                              "m13000-d512-e192"])
+def test_passes_match_plain_and_repeat_on_card(cuda_device, shape):
+    """The resident route's pre-pass (xg = xe @ Wx + b, fp32 out, a
+    nonzero bias) and post-pass (dxe = dx @ Wx^T, bf16 out), one
+    persistent wgmma GEMM: at the flagship's two layers, at T*B = 48 and
+    13,000 (no multiple of a 128-row tile or of a pair of them), E 64 /
+    192 / 512 (mode 1's N: one column tile, a partial one, two) and D 64 /
+    512: each within chip_smoke.py's gate of its plain version, two
+    launches bit-equal, one launch counted each."""
+    Tn, Bn, Dn, En = shape
+    t = {k: _t(v, bf16=True).to(cuda_device) for k, v in _inputs(
+        seed=13, B=Bn, T=Tn, D=Dn, E=En).items()
+        if k in ("xe", "wx", "b", "x")}
+    dx = t["x"]     # [T, B, 4D] bf16: stands in for the rounded dgates
+    before = dict(tk.LAUNCHES)
+    xg, xg2 = (tfr.lstm_proj_xg(t["xe"], t["wx"], t["b"]) for _ in range(2))
+    dxe, dxe2 = (tfr.lstm_proj_dxe(dx, t["wx"]) for _ in range(2))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["lstm_proj_xg"] == before["lstm_proj_xg"] + 2
+    assert tk.LAUNCHES["lstm_proj_dxe"] == before["lstm_proj_dxe"] + 2
+    assert torch.equal(xg, xg2) and torch.equal(dxe, dxe2)
+    assert xg.dtype == torch.float32 and dxe.dtype == torch.bfloat16
+    for got, want, tol in (
+            (xg, tfr.lstm_proj_xg_reference(t["xe"], t["wx"], t["b"]),
+             XG_REL_TOL),
+            (dxe, tfr.lstm_proj_dxe_reference(dx, t["wx"]), DXE_REL_TOL)):
+        assert got.shape == want.shape
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= \
+            tol * scale, (tol, scale)
+
+
 def _route_moved(before, names):
     return {n: tk.LAUNCHES[n] - before[n] for n in names}
 
