@@ -3,7 +3,11 @@
 
 Drives the port's main path on one NVIDIA card and checks it:
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--ref-tokens FILE]
+
+(``--ref-tokens``: another tree's greedy tokens of the serve lines, from
+``python -m paddle_tpu_torch.kernels.paged_probe --root DIR --serve
+FILE``; each serve line then reports ``greedy_equal_share_vs_parent``.)
 
 Phases, in order (any failure exits non-zero and prints no result):
 
@@ -12,7 +16,12 @@ Phases, in order (any failure exits non-zero and prints no result):
    csrc`` with ``nvcc`` for sm_90a (timed);
 3. each kernel against its plain PyTorch version at the shapes the
    main path gives it (max_abs_err <= 1e-5), then timed beside its
-   plain version, one PyTorch library call and its bound;
+   plain version, one PyTorch library call and its bound; the
+   paged-attention rows (B1-B6) are also timed with the card's queue
+   kept ahead of the host (``device_ms``, ``library_device_ms``: what
+   they are judged by). B1/B2's row-tile kernel: two launches
+   bit-equal, and rows launched alone bit-equal to the same rows in the
+   80-row launch;
 4. two full-width mixed steps with the kernel (under CUDA sync-debug
    "error": the step must not sync the host) against the same steps
    with the plain attention (logits and pools);
@@ -51,7 +60,9 @@ The whole-prompt slice adds, in the same run:
    hit; both with rung padding rows), every lane (float32, bfloat16,
    int8, fp8-e4m3) against its plain version, timed beside it, an SDPA
    yardstick on gathered K/V and its bound; and the chunk kernel at one
-   row per slot against the decode kernel;
+   row per slot against the decode kernel; B3/B4 launch B1/B2's row-tile
+   kernel, so two launches and the mixed form on identity slots are held
+   bit-equal to them;
 4c. a full-width ``decode_step`` (16 ragged slots) and the two
    full-width ``prefill`` calls with the kernels (under sync-debug
    "error") against the same calls with the plain versions, in fp32 and
@@ -232,6 +243,11 @@ QUANT_ERR_RATIO = 1.5
 # B7's two kernels (the row quantization, the product) as torch.profiler
 # names them: profile_quant reports their device ms per step
 B7_PROFILE_NAMES = ("quantize_rows_kernel", "qmm_kernel")
+# the paged-attention kernels as torch.profiler names them: B1-B4's
+# row-tile kernel (the mixed and decode steps) and B5/B6's chunk kernel;
+# the profiles report their device ms per step
+PAGED_PROFILE_NAMES = ("paged_attention_rows_kernel",
+                       "paged_attention_chunk")
 
 
 def _check(ok, what):
@@ -396,8 +412,22 @@ def check_attention(pa, dev, flush, shape, dtype="float32"):
     _check(err <= ATTN_TOL, f"paged_attention_mixed {dtype} max_abs_err "
            f"{err}")
     _check(not got[ctx == 0].any(), "ctx 0 rows must be exact zeros")
-    kernel_ms = _time_ms(lambda: pa.paged_attention_mixed(*args, **kw),
-                         flush)
+    again = pa.paged_attention_mixed(*args, **kw)
+    # rows launched alone: a decode row, the first, a middle and the last
+    # row of the two chunks
+    half = (T - S) // 2
+    alone = {t: pa.paged_attention_mixed(
+        q[t:t + 1], k, v, tables, slots[t:t + 1], ctx[t:t + 1], **kw)
+        for t in (4, S, S + half // 2, S + half - 1, S + half, T - 1)}
+    torch.cuda.synchronize()
+    _check(torch.equal(got, again), f"paged_attention_mixed {dtype}: two "
+           "launches on the same inputs differ")
+    for t, one in alone.items():
+        _check(torch.equal(one[0], got[t]), f"paged_attention_mixed "
+               f"{dtype}: row {t} alone differs from the row in the launch")
+
+    def kernel():
+        return pa.paged_attention_mixed(*args, **kw)
     plain_ms = _time_ms(
         lambda: pa.paged_attention_mixed_reference(*args, **kw), flush)
     # library yardstick: SDPA over the pre-gathered (and dequantized)
@@ -407,20 +437,20 @@ def check_attention(pa, dev, flush, shape, dtype="float32"):
     mask = (torch.arange(P * B, device=dev)[None, :]
             < ctx.clamp(min=1)[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _time_ms(lambda: sdpa(q[:, :, None], kd, vd,
-                                       attn_mask=mask), flush)
+
+    def library():
+        return sdpa(q[:, :, None], kd, vd, attn_mask=mask)
     bound_ms, bound_by = _attention_bound(
         tables_np, slots_np, ctx_np, H, d, B, P,
         elem_bytes=k.element_size(), scaled=ks is not None)
     kernels.reset_launches()
     name, replaces = ATTN_LANES[dtype]
-    return {"name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-            "replaces": replaces,
-            "max_abs_err": err, "ms": kernel_ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "shape": dict(shape, dtype=dtype)}
+    return _lane_record(
+        name, replaces, "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+        err, None, plain_ms, None, (bound_ms, bound_by),
+        dict(_device_times(kernel, library, flush),
+             two_launches_bit_equal=True, rows_alone_bit_equal=len(alone),
+             shape=dict(shape, dtype=dtype)))
 
 
 # pool dtype -> (kernels-line name, TPU kernel function it replaces), for
@@ -488,10 +518,25 @@ def _lane_record(name, replaces, source, err, kernel_ms, plain_ms,
                  "bound_by": bound[1], "library_ms": library_ms}, **extra)
 
 
-def check_decode_attention(pa, dev, flush, shape, dtype):
+def _device_times(kernel, library, flush):
+    """The paged-attention rows' times: the kernel and its SDPA yardstick
+    by ``_time_ms`` (``ms``, ``library_ms``: the ctypes wrapper's host
+    time can land in the window) and with the card's queue kept ahead of
+    the host (``device_ms``, ``library_device_ms``: what a row is judged
+    by)."""
+    return {"ms": _time_ms(kernel, flush),
+            "library_ms": _time_ms(library, flush),
+            "device_ms": _time_ms(kernel, flush, queue_ahead=True),
+            "library_device_ms": _time_ms(library, flush, queue_ahead=True)}
+
+
+def check_decode_attention(pa, dev, flush, shape, dtype,
+                           identity_bits=True):
     """Phase 3c: the decode-step kernel (B3, B4 on 1-byte pools) against
     its plain version at the decode shape: 16 slots, ragged contexts
-    including 0, 1, block edges and the full 512-key table."""
+    including 0, 1, block edges and the full 512-key table; two launches
+    bit-equal and, with ``identity_bits``, ``paged_attention_mixed`` on
+    identity slots bit-equal to it (one kernel behind both)."""
     S, H, d, B, P, N = (shape[k] for k in "SHdBPN")
     g = torch.Generator(device=dev).manual_seed(4)
     rng = np.random.default_rng(4)
@@ -511,15 +556,28 @@ def check_decode_attention(pa, dev, flush, shape, dtype):
     name, replaces = DECODE_LANES[dtype]
     _check(err <= ATTN_TOL, f"{name} max_abs_err {err}")
     _check(not got[lens == 0].any(), "ctx 0 slots must be exact zeros")
-    kernel_ms = _time_ms(lambda: pa.paged_attention(*args, **kw), flush)
+    again = pa.paged_attention(*args, **kw)
+    # the same rows through the mixed form on identity slots
+    mixed = pa.paged_attention_mixed(
+        q, k, v, tables, torch.arange(S, dtype=torch.int32, device=dev),
+        lens, **kw)
+    torch.cuda.synchronize()
+    _check(torch.equal(got, again), f"{name}: two launches on the same "
+           "inputs differ")
+    _check(torch.equal(got, mixed) or not identity_bits, f"{name}: the "
+           "mixed form on identity slots gives other bits")
+
+    def kernel():
+        return pa.paged_attention(*args, **kw)
     plain_ms = _time_ms(lambda: pa.paged_attention_reference(*args, **kw),
                         flush)
     kd, vd = _dense_kv(k, v, ks, vs, tables)
     mask = (torch.arange(P * B, device=dev)[None, :]
             < lens.clamp(min=1)[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _time_ms(lambda: sdpa(q[:, :, None], kd, vd,
-                                       attn_mask=mask), flush)
+
+    def library():
+        return sdpa(q[:, :, None], kd, vd, attn_mask=mask)
     bound = _attention_bound(tables_np, np.arange(S), lens_np, H, d, B, P,
                              elem_bytes=k.element_size(),
                              scaled=ks is not None, n_index=1)
@@ -531,9 +589,12 @@ def check_decode_attention(pa, dev, flush, shape, dtype):
     _check(g1_err <= ATTN_TOL, f"chunk kernel at G=1 vs {name}: {g1_err}")
     return _lane_record(
         name, replaces, "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-        err, kernel_ms, plain_ms, library_ms, bound,
-        {"chunk_g1_vs_decode_max_abs_err": g1_err,
-         "shape": dict(S=S, H=H, d=d, B=B, P=P, N=N, dtype=dtype)})
+        err, None, plain_ms, None, bound,
+        dict(_device_times(kernel, library, flush),
+             chunk_g1_vs_decode_max_abs_err=g1_err,
+             two_launches_bit_equal=True,
+             mixed_on_identity_bit_equal=bool(torch.equal(got, mixed)),
+             shape=dict(S=S, H=H, d=d, B=B, P=P, N=N, dtype=dtype)))
 
 
 def check_chunk_attention(pa, dev, flush, shape, dtype):
@@ -1008,11 +1069,12 @@ def _profile(calls, named=()):
             for sub in named}} if named else {})}
 
 
-def profile_whole(dm, make_pools, cfg, params, kv, slots_n, n_steps=8):
+def profile_whole(dm, make_pools, cfg, params, kv, slots_n, n_steps=8,
+                  named=PAGED_PROFILE_NAMES):
     """Where the whole-mode time goes: ``n_steps`` decode steps over 16
     active slots (contexts 200+), then ``n_steps`` rung-384 prefills
     (370 real tokens, each into its own blocks), each call ending in the
-    engine's small read-back."""
+    engine's small read-back; ``named`` as ``_profile``'s."""
     rng = np.random.default_rng(6)
     dev = params["embed"].device
     pages = kv.blocks_for(cfg.max_seq_len)
@@ -1045,10 +1107,9 @@ def profile_whole(dm, make_pools, cfg, params, kv, slots_n, n_steps=8):
 
     return {"profile_whole": {
         "decode_step": dict({"slots": slots_n}, **_profile(
-            [lambda a=a: decode(*a) for a in dec])),
+            [lambda a=a: decode(*a) for a in dec], named)),
         "prefill_384": dict({"rung": 384, "true_len": 370}, **_profile(
-            [lambda a=a: prefill(*a) for a in pre],
-            named=("paged_attention_chunk",)))}}
+            [lambda a=a: prefill(*a) for a in pre], named))}}
 
 
 def _requests(cfg, n_requests=48, seed=0):
@@ -3040,7 +3101,19 @@ def profile_text(tx, dev, fused_proj=True):
                           "dw_wgmma", "sum_partials")))}
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke of the port.")
+    ap.add_argument("--ref-tokens", type=argparse.FileType(),
+                    help="greedy tokens of another tree's serve lines "
+                    "(paddle_tpu_torch.kernels.paged_probe --serve): each "
+                    "serve line reports greedy_equal_share_vs_parent")
+    args = ap.parse_args(argv)
+    ref_tokens = json.load(args.ref_tokens) if args.ref_tokens else {}
+
+    def parent(key):
+        return {"parent": ref_tokens[key]} if key in ref_tokens else {}
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the "
               "card", file=sys.stderr)
@@ -3177,11 +3250,12 @@ def main():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    srec, launches, fp32_tokens = serve(DecodeEngine, kernels, cfg, params)
+    srec, launches, fp32_tokens = serve(DecodeEngine, kernels, cfg, params,
+                                        reference=parent("serve"))
     krec["launches"] = launches["paged_attention_mixed"]
     torch.cuda.synchronize()
     prec = profile_steps(dm, make_pools, cfg, params, kv, shape["T"],
-                         max_slots)
+                         max_slots, named=PAGED_PROFILE_NAMES[:1])
 
     # the slice's main path: int8 KV + int8 weights, the same 48 requests
     torch.cuda.empty_cache()
@@ -3189,7 +3263,7 @@ def main():
     sqrec, qlaunch, q_tokens = serve(
         DecodeEngine, kernels, cfg, params, key="serve_quant",
         engine_kw=dict(kv_config=kv8, quant_plan="int8"),
-        reference={"fp32": fp32_tokens})
+        reference=dict(parent("serve_quant"), fp32=fp32_tokens))
     lanes["int8"]["launches"] = qlaunch["paged_attention_mixed_quant"]
     qrecs["int8"]["launches"] = qlaunch["quant_matmul"]
     # short runs: fp8 KV + fp8 weights, and bf16 KV with fp32 weights
@@ -3198,20 +3272,21 @@ def main():
     s8rec, f8launch, f8_tokens = serve(
         DecodeEngine, kernels, cfg, params, key="serve_fp8", n_serve=16,
         engine_kw=dict(kv_config=cfg.kv_config(16, 2048, "fp8-e4m3"),
-                       quant_plan="fp8-e4m3"))
+                       quant_plan="fp8-e4m3"), reference=parent("serve_fp8"))
     lanes["fp8-e4m3"]["launches"] = f8launch["paged_attention_mixed_quant"]
     qrecs["fp8-e4m3"]["launches"] = f8launch["quant_matmul"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     sbrec, bflaunch, bf_tokens = serve(
         DecodeEngine, kernels, cfg, params, key="serve_bf16", n_serve=16,
-        engine_kw=dict(kv_config=cfg.kv_config(16, 2048, "bfloat16")))
+        engine_kw=dict(kv_config=cfg.kv_config(16, 2048, "bfloat16")),
+        reference=parent("serve_bf16"))
     lanes["bfloat16"]["launches"] = bflaunch["paged_attention_mixed"]
     torch.cuda.synchronize()
     qparams = dm.quantize_decoder_params(cfg, params, "int8")
     pqrec = profile_steps(dm, make_pools, cfg, qparams, kv8, shape["T"],
                           max_slots, cal=cal, key="profile_quant",
-                          named=B7_PROFILE_NAMES)
+                          named=B7_PROFILE_NAMES + PAGED_PROFILE_NAMES[:1])
     del qparams
     _say(f"chunked serving phases done at {time.perf_counter() - t0:.1f} s")
 
@@ -3235,7 +3310,7 @@ def main():
              bf_tokens)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        refs = {"chunked": chunked}
+        refs = dict(parent(key), chunked=chunked)
         if "serve_whole" in whole_runs:
             refs["whole_fp32"] = whole_runs["serve_whole"][2]
         whole_runs[key] = serve(DecodeEngine, kernels, cfg, params,

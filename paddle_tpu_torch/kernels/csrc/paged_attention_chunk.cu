@@ -81,159 +81,268 @@
 //     tile. So a row's output depends only on its own context and the pool
 //     (a row launched alone gives the same bits as inside a chunk), and
 //     two launches give the same bits.
+// The payload picks, the tf32 products, the staging, the softmax state and
+// the key groups' merge are paged_attention.cuh's, shared with the row-tile
+// kernel of paged_attention.cu (B1-B4), which folds its tiles transposed.
 //
 // Built by paddle_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes; the C entry returns cudaGetLastError().
 
 #include "paged_attention.cuh"
-#include "tf32_mma_cp_async.cuh"
 
 namespace {
 
-using paged::kMaxHeadDim;
+using paged::kLog2e;
 using paged::kNegInf;
 
+constexpr int kMaxHeadDim = 128;               // d <= 128, d % 4 == 0
 constexpr int kKeys = 32;                      // keys per tile
 constexpr int kRowWarps = 2;                   // 16-row warps per block
 constexpr int kKeyWarps = 2;                   // key groups per block
 constexpr int kRows = 16 * kRowWarps;          // rows per block
 constexpr int kThreadsC = 32 * kRowWarps * kKeyWarps;
-// e^x as 2^(x log2 e): the product rounds to fp32 first, so a p = e^(s - m)
-// near 1 is off by ~2^-22 (ex2's own error) and a small one by ~|s - m|
-// 2^-24 of itself
-constexpr float kLog2e = 1.4426950408889634f;
 
-// f[c] += A B[c] for the N column tiles c of one k-step, at fp32 parity:
-// three products for an fp32 B (split here: A_lo B_hi, A_hi B_lo, A_hi
-// B_hi), two for a B exact in tf32 (A_lo B, A_hi B). Each product runs
-// over all N tiles before the next, so N independent chains are in flight.
-template <bool kExact, int N>
-__device__ __forceinline__ void mma_round(float (*f)[4],
-                                          const uint32_t ahi[4],
-                                          const uint32_t alo[4],
-                                          const uint32_t (*b)[2]) {
-  if constexpr (kExact) {
-#pragma unroll
-    for (int c = 0; c < N; ++c) mma(f[c], alo, b[c][0], b[c][1]);
-#pragma unroll
-    for (int c = 0; c < N; ++c) mma(f[c], ahi, b[c][0], b[c][1]);
-  } else {
-    uint32_t bh[N][2], bl[N][2];
-#pragma unroll
-    for (int c = 0; c < N; ++c) {
-      split(__uint_as_float(b[c][0]), bh[c][0], bl[c][0]);
-      split(__uint_as_float(b[c][1]), bh[c][1], bl[c][1]);
-    }
-#pragma unroll
-    for (int c = 0; c < N; ++c) mma(f[c], alo, bh[c][0], bh[c][1]);
-#pragma unroll
-    for (int c = 0; c < N; ++c) mma(f[c], ahi, bl[c][0], bl[c][1]);
-#pragma unroll
-    for (int c = 0; c < N; ++c) mma(f[c], ahi, bh[c][0], bh[c][1]);
-  }
-}
-
-__device__ __forceinline__ uint32_t f16_to_f32_bits(uint32_t h) {
-  return __float_as_uint(
-      __half2float(__ushort_as_half(static_cast<unsigned short>(h))));
-}
-
-// Element i of a payload run held in 32-bit words w, as the fp32 (or,
-// kExact, tf32-exact) bit pattern the tensor core reads. i is a constant
-// once the loops are unrolled.
-template <typename T>
-struct Payload;
-template <>
-struct Payload<float> {
-  static constexpr bool kExact = false;  // split into hi + lo at the mma
-  static __device__ __forceinline__ uint32_t pick(const uint32_t* w, int i) {
-    return w[i];
-  }
-};
-template <>
-struct Payload<__nv_bfloat16> {
-  static constexpr bool kExact = true;
-  static __device__ __forceinline__ uint32_t pick(const uint32_t* w, int i) {
-    return i & 1 ? w[i >> 1] & 0xffff0000u : w[i >> 1] << 16;
-  }
-};
-template <>
-struct Payload<int8_t> {
-  static constexpr bool kExact = true;
-  // byte b as 2^23 + (b + 128) in the mantissa, less 2^23 + 128: exact
-  static __device__ __forceinline__ uint32_t pick(const uint32_t* w, int i) {
-    return __float_as_uint(
-        __uint_as_float(__byte_perm(w[i >> 2] ^ 0x80808080u, 0x4b000000u,
-                                    0x7440 + (i & 3))) -
-        8388736.f);
-  }
-};
-template <>
-struct Payload<__nv_fp8_e4m3> {
-  static constexpr bool kExact = true;
-  // two e4m3 bytes to f16x2 in one cvt (exact; the pair's other pick reuses
-  // it), the half to fp32
-  static __device__ __forceinline__ uint32_t pick(const uint32_t* w, int i) {
-    uint32_t h2;
-    asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n"
-        : "=r"(h2)
-        : "h"(static_cast<unsigned short>(w[i >> 2] >>
-                                          (16 * ((i >> 1) & 1)))));
-    return f16_to_f32_bits(i & 1 ? h2 >> 16 : h2 & 0xffffu);
-  }
-};
-
-template <int kWords>
-__device__ __forceinline__ void lds(const char* p, uint32_t* w) {
-  if constexpr (kWords == 4) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  } else {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    w[0] = v.x;
-    w[1] = v.y;
-  }
-}
-
-// The shapes of one lane (payload T, kD = 64 or 128 head dims, zero-padded
-// past d) in shared memory and in the fragments.
+// The chunk kernel's shared memory for one lane (payload T, kD = 64 or 128
+// head dims): a two-stage ring of one 32-key tile per key group, then the
+// row warps' q fragments.
 template <typename T, bool kScaled, int kD>
-struct Cfg {
-  static constexpr int kElem = sizeof(T);
-  static constexpr int kRowBytes = kD * kElem;
-  // K rows at 64 mod 128 bytes: a quarter-warp's two rows of 16-byte
-  // fragment loads fill the 32 banks; V rows at 16 mod 64: the four rows
-  // 2t of a quarter-warp (or a half-warp's 8-byte loads) do
-  static constexpr int kPK =
-      kRowBytes % 128 == 64 ? kRowBytes : kRowBytes + 64;
-  static constexpr int kPV = kRowBytes + 16;
-  static constexpr int kTileBytes =
-      kKeys * (kPK + kPV) + (kScaled ? 2 * kKeys * 4 : 0);
-  // S = Q K^T: a lane loads 16 bytes of a K row (kEPC dims, kEPC / 2
-  // k-steps); dims (4c + t) * kEPC + 2s and + 1 are k-step c * kKSG + s's
-  // k indices t and t + 4
-  static constexpr int kEPC = 16 / kElem;
-  static constexpr int kKSG = kEPC / 2;
-  static constexpr int kKS = kD / 8;             // k-steps over d
-  static constexpr int kGroups = kKS / kKSG;
-  // O += P V: lane g loads kU bytes (kEPU dims) of units g + 8j, j < kNU,
-  // of each of its two V rows; n-tile nd = j * kEPU + i of O holds dims
-  // (n + 8j) * kEPU + i at its column n
-  static constexpr int kU = kRowBytes / 8 < 16 ? kRowBytes / 8 : 16;
-  static constexpr int kEPU = kU / kElem;
-  static constexpr int kNU = kRowBytes / (8 * kU);
-  static constexpr int kNT = kD / 8;             // O's n-tiles
-  static constexpr int kQBytes = kRowWarps * kKS * 32 * 16 * 2;
-  static constexpr int kSmem = 2 * kKeyWarps * kTileBytes + kQBytes;
+struct Cfg : paged::Tile<T, kScaled, kD, kKeys> {
+  using Base = paged::Tile<T, kScaled, kD, kKeys>;
+  static constexpr int kQBytes = kRowWarps * Base::kQBytes;
+  static constexpr int kSmem = 2 * kKeyWarps * Base::kBytes + kQBytes;
   // the key groups' merge, in the ring once it is drained
-  static_assert((kKeyWarps - 1) * kRowWarps * (4 * kNT + 4) * 32 * 4 <=
-                    2 * kKeyWarps * kTileBytes,
+  static_assert((kKeyWarps - 1) * kRowWarps *
+                        paged::merge_vals<Base::kNT>() * 32 * 4 <=
+                    2 * kKeyWarps * Base::kBytes,
                 "merge scratch must fit in the ring");
 };
+
+// The four elements of q's A fragment (rows ln / 4 and + 8, dims dim and
+// + 1) split into tf32 hi and lo, stored for k-step ks at index ks * 32 +
+// ln of qf_hi / qf_lo
+__device__ __forceinline__ void q_split(const float qv[4], uint4* qf_hi,
+                                        uint4* qf_lo, int at) {
+  uint4 hi, lo;
+  split(qv[0], hi.x, lo.x);
+  split(qv[1], hi.y, lo.y);
+  split(qv[2], hi.z, lo.z);
+  split(qv[3], hi.w, lo.w);
+  qf_hi[at] = hi;
+  qf_lo[at] = lo;
+}
+
+// Fold the staged tile at `base` (keys k0 .. k0 + kKeys - 1) into st. The
+// warp's q fragments are qf_hi / qf_lo (index ks * 32 + lane); ctx[r] is
+// row r's context and wmin the smallest of the warp's 16 rows: a tile below
+// it needs no mask. Keys at or past a row's context get p = 0; a row with
+// every key masked keeps its state bit for bit.
+template <class C, typename T, bool kScaled>
+__device__ __forceinline__ void fold_tile(paged::RowState<C::kNT>& st,
+                                          const char* base,
+                                          const uint4* qf_hi,
+                                          const uint4* qf_lo, int k0,
+                                          const int ctx[2], int wmin,
+                                          float sm_scale, int lane) {
+  using Pl = paged::Payload<T>;
+  constexpr int kNS = C::kNS;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const char* sk = base;
+  const char* sv = base + kNS * 8 * C::kPK;
+  const float* ksc =
+      reinterpret_cast<const float*>(base + kNS * 8 * (C::kPK + C::kPV));
+  const float* vsc = ksc + kNS * 8;
+
+  // S = Q K^T, 16 rows x kKeys keys: sc[nt] = keys 8nt .. 8nt + 7
+  float sc[kNS][4];
+#pragma unroll
+  for (int nt = 0; nt < kNS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < C::kGroups; ++c) {
+    uint32_t raw[kNS][4];  // K rows 8nt + gq, chunk 4c + tq
+#pragma unroll
+    for (int nt = 0; nt < kNS; ++nt) {
+      paged::lds<4>(sk + (8 * nt + gq) * C::kPK + 16 * (4 * c + tq), raw[nt]);
+    }
+#pragma unroll
+    for (int j = 0; j < C::kKSG; j += 2) {  // two k-steps a round
+      uint32_t qh[2][4], ql[2][4], b[2][kNS][2];
+      float f[2][kNS][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int at = (c * C::kKSG + j + u) * 32 + lane;
+        const uint4 a = qf_hi[at];
+        const uint4 z = qf_lo[at];
+        qh[u][0] = a.x; qh[u][1] = a.y; qh[u][2] = a.z; qh[u][3] = a.w;
+        ql[u][0] = z.x; ql[u][1] = z.y; ql[u][2] = z.z; ql[u][3] = z.w;
+#pragma unroll
+        for (int nt = 0; nt < kNS; ++nt) {
+          b[u][nt][0] = Pl::pick(raw[nt], 2 * (j + u));
+          b[u][nt][1] = Pl::pick(raw[nt], 2 * (j + u) + 1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) f[u][nt][e] = 0.f;
+        }
+        paged::mma_round<Pl::kExact, kNS>(f[u], qh[u], ql[u], b[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+#pragma unroll
+        for (int nt = 0; nt < kNS; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[nt][e] = __fadd_rn(sc[nt][e], f[u][nt][e]);
+          }
+        }
+      }
+    }
+  }
+
+  // online softmax: rows gq (r = 0) and gq + 8 (r = 1), keys k0 + 8nt +
+  // 2tq + e in sc[nt][2r + e]
+  const bool edge = k0 + kNS * 8 > wmin;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int nt = 0; nt < kNS; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 8 * nt + 2 * tq + e;
+        float x = sc[nt][2 * r + e];
+        if (kScaled) x = __fmul_rn(x, ksc[j]);
+        x = __fmul_rn(x, sm_scale);
+        if (edge && k0 + j >= ctx[r]) x = kNegInf;
+        sc[nt][2 * r + e] = x;
+        mx = fmaxf(mx, x);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(st.m[r], mx);
+    const float alpha =
+        exp2f(__fmul_rn(__fsub_rn(st.m[r], m_new), kLog2e));
+    st.m[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kNS; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 8 * nt + 2 * tq + e;
+        const float x = __fmul_rn(__fsub_rn(sc[nt][2 * r + e], m_new),
+                                  kLog2e);
+        const float p = edge && k0 + j >= ctx[r] ? 0.f : exp2f(x);
+        sc[nt][2 * r + e] = p;
+        sum = __fadd_rn(sum, p);
+      }
+    }
+    st.l[r] = __fadd_rn(__fmul_rn(st.l[r], alpha), sum);
+#pragma unroll
+    for (int nd = 0; nd < C::kNT; ++nd) {
+      st.o[nd][2 * r] = __fmul_rn(st.o[nd][2 * r], alpha);
+      st.o[nd][2 * r + 1] = __fmul_rn(st.o[nd][2 * r + 1], alpha);
+    }
+  }
+
+  // O += P V: k-step nt takes keys 8nt + 2t (k index t) and 8nt + 2t + 1
+  // (t + 4), the two columns a lane holds of S's n-tile nt
+#pragma unroll
+  for (int nt = 0; nt < kNS; ++nt) {
+    float p[4] = {sc[nt][0], sc[nt][2], sc[nt][1], sc[nt][3]};
+    if (kScaled) {
+      const float2 vs =
+          *reinterpret_cast<const float2*>(vsc + 8 * nt + 2 * tq);
+      p[0] = __fmul_rn(p[0], vs.x);
+      p[1] = __fmul_rn(p[1], vs.x);
+      p[2] = __fmul_rn(p[2], vs.y);
+      p[3] = __fmul_rn(p[3], vs.y);
+    }
+    uint32_t ph[4], pl[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(p[e], ph[e], pl[e]);
+    uint32_t w[2][C::kNU][C::kU / 4];  // V rows 8nt + 2tq and + 1
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+#pragma unroll
+      for (int j = 0; j < C::kNU; ++j) {
+        paged::lds<C::kU / 4>(sv + (8 * nt + 2 * tq + x) * C::kPV +
+                                  C::kU * (gq + 8 * j),
+                              w[x][j]);
+      }
+    }
+#pragma unroll
+    for (int rd = 0; rd < C::kNT; rd += 8) {  // eight n-tiles a round
+      uint32_t b[8][2];
+      float f[8][4];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int nd = rd + u;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          b[u][x] = Pl::pick(w[x][nd / C::kEPU], nd % C::kEPU);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[u][e] = 0.f;
+      }
+      paged::mma_round<Pl::kExact, 8>(f, ph, pl, b);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st.o[rd + u][e] = __fadd_rn(st.o[rd + u][e], f[u][e]);
+        }
+      }
+    }
+  }
+}
+
+// Each row's sum over its quad: every lane of the quad gets the same bits.
+template <int kNT>
+__device__ __forceinline__ void quad_sum(paged::RowState<kNT>& st) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    st.l[r] = __fadd_rn(st.l[r], __shfl_xor_sync(0xffffffffu, st.l[r], 1));
+    st.l[r] = __fadd_rn(st.l[r], __shfl_xor_sync(0xffffffffu, st.l[r], 2));
+  }
+}
+
+// Row half r (row gq + 8r of the warp tile) of the merged state, divided by
+// its sum, into orow[0 .. d): four consecutive dims at a time where d % 4
+// == 0 (n-tiles nd0 .. nd0 + 3 hold four consecutive dims at each column),
+// else element by element. A row with context 0 writes zeros.
+template <class C>
+__device__ __forceinline__ void store_row(
+    float* __restrict__ orow, const paged::RowState<C::kNT>& st, int r,
+    bool live, int d, int tq) {
+  const float inv = __frcp_rn(st.l[r]);  // ctx 0 rows: l = 0, never read
+#pragma unroll
+  for (int nd0 = 0; nd0 < C::kNT; nd0 += 4) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int dim =
+          (2 * tq + e + 8 * (nd0 / C::kEPU)) * C::kEPU + nd0 % C::kEPU;
+      if (dim >= d) continue;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live) {
+        v.x = __fmul_rn(st.o[nd0][2 * r + e], inv);
+        v.y = __fmul_rn(st.o[nd0 + 1][2 * r + e], inv);
+        v.z = __fmul_rn(st.o[nd0 + 2][2 * r + e], inv);
+        v.w = __fmul_rn(st.o[nd0 + 3][2 * r + e], inv);
+      }
+      if (d % 4 == 0) {  // all four or none
+        *reinterpret_cast<float4*>(orow + dim) = v;
+      } else {
+        orow[dim] = v.x;
+        if (dim + 1 < d) orow[dim + 1] = v.y;
+        if (dim + 2 < d) orow[dim + 2] = v.z;
+        if (dim + 3 < d) orow[dim + 3] = v.w;
+      }
+    }
+  }
+}
 
 // One block per (slot s, tile of kRows rows, head h), the heaviest tiles
 // (the last rows of a causal chunk) first. Warp w: rows 16 (w % kRowWarps)
@@ -251,7 +360,6 @@ paged_attention_chunk_kernel(const float* __restrict__ q,
                              int d, int B, int P, int n_row_tiles,
                              int copy_bytes, float sm_scale) {
   using C = Cfg<T, kScaled, kD>;
-  using Pl = Payload<T>;
   extern __shared__ __align__(16) char smem[];
   __shared__ int s_ctx[kRows];
 
@@ -277,8 +385,7 @@ paged_attention_chunk_kernel(const float* __restrict__ q,
     const int ln = i & 31;
     const int ks = (i >> 5) % C::kKS;
     const int r0 = g0 + 16 * (i / (32 * C::kKS)) + (ln >> 2);
-    const int dim = (4 * (ks / C::kKSG) + (ln & 3)) * C::kEPC +
-                    2 * (ks % C::kKSG);
+    const int dim = paged::q_frag_dim<C>(ks, ln);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = r0 + 8 * (e & 1);
@@ -317,67 +424,32 @@ paged_attention_chunk_kernel(const float* __restrict__ q,
     return key < n_keys ? table[key / B] : -1;
   };
   auto stage = [&](int it, int blk) {
-    char* base = smem + ((it & 1) * kKeyWarps + skg) * C::kTileBytes;
+    char* base = smem + ((it & 1) * kKeyWarps + skg) * C::kBytes;
     const bool ok = blk >= 0;
     const size_t off =
         ok ? ((static_cast<size_t>(blk) * H + h) * B + key_of(it) % B) * d
            : 0;
-    const char* ksrc = reinterpret_cast<const char*>(k_pool + off);
-    const char* vsrc = reinterpret_cast<const char*>(v_pool + off);
-    char* kdst = base + sj * C::kPK;
-    char* vdst = base + kKeys * C::kPK + sj * C::kPV;
-    const int real = d * C::kElem;
-    if (copy_bytes > 0) {
-      for (int u = sub * copy_bytes; u < C::kRowBytes;
-           u += kRowWarps * copy_bytes) {
-        const bool in = ok && u < real;
-        cp_async(smem_u32(kdst + u),
-                 in ? ksrc + u : reinterpret_cast<const char*>(k_pool),
-                 copy_bytes, in);
-        cp_async(smem_u32(vdst + u),
-                 in ? vsrc + u : reinterpret_cast<const char*>(v_pool),
-                 copy_bytes, in);
-      }
-    } else {  // a pool off a 4-byte boundary: byte loads
-      for (int u = sub; u < C::kRowBytes; u += kRowWarps) {
-        const bool in = ok && u < real;
-        kdst[u] = in ? ksrc[u] : 0;
-        vdst[u] = in ? vsrc[u] : 0;
-      }
-    }
-    if (kScaled && sub == 0) {
-      float* sc = reinterpret_cast<float*>(base + kKeys * (C::kPK + C::kPV));
-      const size_t at = ok ? static_cast<size_t>(blk) * H + h : 0;
-      cp_async(smem_u32(sc + sj), k_scale + at, 4, ok);
-      cp_async(smem_u32(sc + kKeys + sj), v_scale + at, 4, ok);
-    }
+    float* sc = reinterpret_cast<float*>(base + kKeys * (C::kPK + C::kPV));
+    paged::stage_row<C>(base + sj * C::kPK,
+                        base + kKeys * C::kPK + sj * C::kPV,
+                        kScaled ? sc + sj : nullptr, sc + kKeys + sj, k_pool,
+                        v_pool, k_scale, v_scale, off,
+                        ok ? static_cast<size_t>(blk) * H + h : 0, ok, sub,
+                        kRowWarps, copy_bytes, d * C::kElem);
   };
 
-  float o[C::kNT][4];
-#pragma unroll
-  for (int nd = 0; nd < C::kNT; ++nd) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
-  }
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+  paged::RowState<C::kNT> st;
+  st.init();
 
   int blk_next = -1;
   if (n_iter > 0) stage(0, block_of(0));
   cp_commit();
   if (n_iter > 1) blk_next = block_of(1);
-  uint4* qf_hi = reinterpret_cast<uint4*>(smem + 2 * kKeyWarps *
-                                          C::kTileBytes);
+  uint4* qf_hi = reinterpret_cast<uint4*>(smem + 2 * kKeyWarps * C::kBytes);
   uint4* qf_lo = qf_hi + kRowWarps * C::kKS * 32;
 #pragma unroll
   for (int u = 0; u < kQPer; ++u) {  // read after the loop's first barrier
-    uint4 hi, lo;
-    split(qv[u][0], hi.x, lo.x);
-    split(qv[u][1], hi.y, lo.y);
-    split(qv[u][2], hi.z, lo.z);
-    split(qv[u][3], hi.w, lo.w);
-    qf_hi[threadIdx.x + u * kThreadsC] = hi;
-    qf_lo[threadIdx.x + u * kThreadsC] = lo;
+    q_split(qv[u], qf_hi, qf_lo, threadIdx.x + u * kThreadsC);
   }
   for (int it = 0; it < n_iter; ++it) {
     cp_wait<0>();
@@ -387,247 +459,24 @@ paged_attention_chunk_kernel(const float* __restrict__ q,
     if (it + 2 < n_iter) blk_next = block_of(it + 2);
     const int k0 = (it * kKeyWarps + kg) * kKeys;
     if (k0 >= wmax) continue;  // no row of this warp sees these keys
-    const char* base = smem + ((it & 1) * kKeyWarps + kg) * C::kTileBytes;
-    const char* sk = base;
-    const char* sv = base + kKeys * C::kPK;
-    const float* ksc =
-        reinterpret_cast<const float*>(base + kKeys * (C::kPK + C::kPV));
-    const float* vsc = ksc + kKeys;
-
-    // S = Q K^T, 16 rows x 32 keys: sc[nt] = keys 8nt .. 8nt + 7
-    float sc[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
-    }
-#pragma unroll
-    for (int c = 0; c < C::kGroups; ++c) {
-      uint32_t raw[4][4];  // K rows 8nt + gq, chunk 4c + tq
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        lds<4>(sk + (8 * nt + gq) * C::kPK + 16 * (4 * c + tq), raw[nt]);
-      }
-#pragma unroll
-      for (int j = 0; j < C::kKSG; j += 2) {  // two k-steps a round
-        uint32_t qh[2][4], ql[2][4], b[2][4][2];
-        float f[2][4][4];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int at = (rw * C::kKS + c * C::kKSG + j + u) * 32 + lane;
-          const uint4 a = qf_hi[at];
-          const uint4 z = qf_lo[at];
-          qh[u][0] = a.x; qh[u][1] = a.y; qh[u][2] = a.z; qh[u][3] = a.w;
-          ql[u][0] = z.x; ql[u][1] = z.y; ql[u][2] = z.z; ql[u][3] = z.w;
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            b[u][nt][0] = Pl::pick(raw[nt], 2 * (j + u));
-            b[u][nt][1] = Pl::pick(raw[nt], 2 * (j + u) + 1);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) f[u][nt][e] = 0.f;
-          }
-          mma_round<Pl::kExact, 4>(f[u], qh[u], ql[u], b[u]);
-        }
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              sc[nt][e] = __fadd_rn(sc[nt][e], f[u][nt][e]);
-            }
-          }
-        }
-      }
-    }
-
-    // online softmax: rows gq (r = 0) and gq + 8 (r = 1), keys k0 + 8nt +
-    // 2tq + e in sc[nt][2r + e]
-    const bool edge = k0 + kKeys > wmin;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = 8 * nt + 2 * tq + e;
-          float x = sc[nt][2 * r + e];
-          if (kScaled) x = __fmul_rn(x, ksc[j]);
-          x = __fmul_rn(x, sm_scale);
-          if (edge && k0 + j >= ctx[r]) x = kNegInf;
-          sc[nt][2 * r + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = exp2f(__fmul_rn(__fsub_rn(m[r], m_new), kLog2e));
-      m[r] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = 8 * nt + 2 * tq + e;
-          const float x = __fmul_rn(__fsub_rn(sc[nt][2 * r + e], m_new),
-                                    kLog2e);
-          const float p = edge && k0 + j >= ctx[r] ? 0.f : exp2f(x);
-          sc[nt][2 * r + e] = p;
-          sum = __fadd_rn(sum, p);
-        }
-      }
-      l[r] = __fadd_rn(__fmul_rn(l[r], alpha), sum);
-#pragma unroll
-      for (int nd = 0; nd < C::kNT; ++nd) {
-        o[nd][2 * r] = __fmul_rn(o[nd][2 * r], alpha);
-        o[nd][2 * r + 1] = __fmul_rn(o[nd][2 * r + 1], alpha);
-      }
-    }
-
-    // O += P V: k-step nt takes keys 8nt + 2t (k index t) and 8nt + 2t + 1
-    // (t + 4), the two columns a lane holds of S's n-tile nt
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      float p[4] = {sc[nt][0], sc[nt][2], sc[nt][1], sc[nt][3]};
-      if (kScaled) {
-        const float2 vs =
-            *reinterpret_cast<const float2*>(vsc + 8 * nt + 2 * tq);
-        p[0] = __fmul_rn(p[0], vs.x);
-        p[1] = __fmul_rn(p[1], vs.x);
-        p[2] = __fmul_rn(p[2], vs.y);
-        p[3] = __fmul_rn(p[3], vs.y);
-      }
-      uint32_t ph[4], pl[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split(p[e], ph[e], pl[e]);
-      uint32_t w[2][C::kNU][C::kU / 4];  // V rows 8nt + 2tq and + 1
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-#pragma unroll
-        for (int j = 0; j < C::kNU; ++j) {
-          lds<C::kU / 4>(sv + (8 * nt + 2 * tq + x) * C::kPV +
-                             C::kU * (gq + 8 * j),
-                         w[x][j]);
-        }
-      }
-#pragma unroll
-      for (int rd = 0; rd < C::kNT; rd += 8) {  // eight n-tiles a round
-        uint32_t b[8][2];
-        float f[8][4];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int nd = rd + u;
-#pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            b[u][x] = Pl::pick(w[x][nd / C::kEPU], nd % C::kEPU);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) f[u][e] = 0.f;
-        }
-        mma_round<Pl::kExact, 8>(f, ph, pl, b);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            o[rd + u][e] = __fadd_rn(o[rd + u][e], f[u][e]);
-          }
-        }
-      }
-    }
+    fold_tile<C, T, kScaled>(
+        st, smem + ((it & 1) * kKeyWarps + kg) * C::kBytes,
+        qf_hi + rw * C::kKS * 32, qf_lo + rw * C::kKS * 32, k0, ctx, wmin,
+        sm_scale, lane);
   }
   cp_wait<0>();
   __syncthreads();  // the ring is free: it holds the merge
 
-  // each row's sum over its quad (every lane of the quad gets the same bits)
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
-    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 2));
-  }
-  if (kKeyWarps > 1) {
-    // [group - 1][row warp][value][lane]: m, l, then O
-    constexpr int kVals = 4 + 4 * C::kNT;
-    float* mrg = reinterpret_cast<float*>(smem);
-    if (kg > 0) {
-      float* p = mrg + ((kg - 1) * kRowWarps + rw) * kVals * 32 + lane;
-      p[0] = m[0];
-      p[32] = m[1];
-      p[64] = l[0];
-      p[96] = l[1];
-#pragma unroll
-      for (int nd = 0; nd < C::kNT; ++nd) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) p[(4 + 4 * nd + e) * 32] = o[nd][e];
-      }
-    }
-    __syncthreads();
-    if (kg == 0) {
-      float m_all[2] = {m[0], m[1]};
-#pragma unroll
-      for (int k = 1; k < kKeyWarps; ++k) {
-        const float* p = mrg + ((k - 1) * kRowWarps + rw) * kVals * 32 + lane;
-        m_all[0] = fmaxf(m_all[0], p[0]);
-        m_all[1] = fmaxf(m_all[1], p[32]);
-      }
-      float f[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        f[r] = expf(__fsub_rn(m[r], m_all[r]));
-        l[r] = __fmul_rn(l[r], f[r]);
-      }
-#pragma unroll
-      for (int nd = 0; nd < C::kNT; ++nd) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[nd][e] = __fmul_rn(o[nd][e], f[e >> 1]);
-      }
-#pragma unroll
-      for (int k = 1; k < kKeyWarps; ++k) {
-        const float* p = mrg + ((k - 1) * kRowWarps + rw) * kVals * 32 + lane;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          // 0 for a group that saw no key of the row
-          f[r] = expf(__fsub_rn(p[32 * r], m_all[r]));
-          l[r] = __fadd_rn(l[r], __fmul_rn(p[(2 + r) * 32], f[r]));
-        }
-#pragma unroll
-        for (int nd = 0; nd < C::kNT; ++nd) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            o[nd][e] = __fadd_rn(
-                o[nd][e], __fmul_rn(p[(4 + 4 * nd + e) * 32], f[e >> 1]));
-          }
-        }
-      }
-    }
-  }
+  quad_sum(st);
+  paged::merge_groups<C::kNT, kKeyWarps>(st, reinterpret_cast<float*>(smem),
+                                         kg, rw, kRowWarps, lane);
   if (kg != 0) return;
-  // ctx 0 rows: l = 0, never read
-  const float inv[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int g = g0 + 16 * rw + gq + 8 * r;
     if (g >= G) continue;
-    float* orow = out + ((static_cast<size_t>(s) * G + g) * H + h) * d;
-    // n-tiles nd0 .. nd0 + 3 hold four consecutive dims at each column
-#pragma unroll
-    for (int nd0 = 0; nd0 < C::kNT; nd0 += 4) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int dim =
-            (2 * tq + e + 8 * (nd0 / C::kEPU)) * C::kEPU + nd0 % C::kEPU;
-        if (dim >= d) continue;  // d % 4 == 0: all four or none
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ctx[r] > 0) {
-          v.x = __fmul_rn(o[nd0][2 * r + e], inv[r]);
-          v.y = __fmul_rn(o[nd0 + 1][2 * r + e], inv[r]);
-          v.z = __fmul_rn(o[nd0 + 2][2 * r + e], inv[r]);
-          v.w = __fmul_rn(o[nd0 + 3][2 * r + e], inv[r]);
-        }
-        *reinterpret_cast<float4*>(orow + dim) = v;
-      }
-    }
+    store_row<C>(out + ((static_cast<size_t>(s) * G + g) * H + h) * d,
+                        st, r, ctx[r] > 0, d, tq);
   }
 }
 

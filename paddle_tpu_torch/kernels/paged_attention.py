@@ -22,9 +22,10 @@ gathered block is dequantized as ``payload * scale`` before the same
 fold.
 
 On CUDA tensors each wrapper launches its hand-written sm_90a kernel
-(``csrc/paged_attention.cu`` for the mixed and decode forms,
-``csrc/paged_attention_chunk.cu`` for the chunk form; see the notes
-there) and raises on anything it does not take. On CPU tensors it runs
+(``csrc/paged_attention.cu``'s row-tile kernel for the mixed and decode
+forms, head_dim up to 256; ``csrc/paged_attention_chunk.cu`` for the
+chunk form, head_dim up to 128; see the notes there) and raises on
+anything it does not take. On CPU tensors it runs
 the plain version: ``paged_attention_reference`` — the same dense
 gather + masked softmax as the JAX package's reference, which the tests
 hold against the Pallas kernels in interpret mode — and, for the other
@@ -44,7 +45,11 @@ __all__ = ["NEG_INF", "paged_attention", "paged_attention_chunk",
            "paged_attention_mixed_reference", "paged_attention_reference"]
 
 NEG_INF = -1e30  # finite stand-in for -inf: keeps exp() NaN-free
-MAX_HEAD_DIM = 128  # the CUDA kernels keep head_dim/32 floats per lane
+# the widest head_dim each CUDA kernel takes: the row-tile kernel of the
+# mixed and decode forms is instantiated up to 256 dims, the chunk kernel
+# up to 128 (ROADMAP C4)
+MAX_HEAD_DIM = {"paged_attention_mixed": 256, "paged_attention_decode": 256,
+                "paged_attention_chunk": 128}
 # pool dtype -> (lane id, scaled)
 _LANES = {
     torch.float32: (0, False),
@@ -97,13 +102,13 @@ def _check_pools(q, k_pool, v_pool, k_scale, v_scale):
                                  f"{want}, got {tuple(sc.shape)}")
 
 
-def _check_cuda(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+def _check_cuda(entry, q, k_pool, v_pool, k_scale, v_scale, block_tables,
                 index_arrays):
-    """What the CUDA kernels take: every tensor on q's card and
-    contiguous; float32 q; float32 or bfloat16 pools without scales, or
-    int8 / float8_e4m3fn pools with float32 scales; int32 tables and
+    """What the CUDA kernel of ``entry`` takes: every tensor on q's card
+    and contiguous; float32 q; float32 or bfloat16 pools without scales,
+    or int8 / float8_e4m3fn pools with float32 scales; int32 tables and
     index arrays (``index_arrays``: ``(name, tensor)`` pairs); head_dim
-    <= 128. Returns ``(lane id, scaled)``."""
+    at most ``MAX_HEAD_DIM[entry]``. Returns ``(lane id, scaled)``."""
     named = (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
              ("block_tables", block_tables)) + tuple(index_arrays)
     if k_scale is not None:
@@ -131,9 +136,10 @@ def _check_cuda(q, k_pool, v_pool, k_scale, v_scale, block_tables,
     for name, x in named[3:4] + tuple(index_arrays):
         if x.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {x.dtype}")
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM} is not "
-                         "supported by the CUDA kernel (ROADMAP C4)")
+    if q.shape[-1] > MAX_HEAD_DIM[entry]:
+        raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM[entry]} "
+                         f"is not supported by the CUDA kernel of {entry} "
+                         "(ROADMAP C4)")
     if block_tables.dim() != 2 or block_tables.shape[1] < 1:
         raise ValueError(f"block_tables must be [slots, max_pages], got "
                          f"{tuple(block_tables.shape)}")
@@ -145,7 +151,7 @@ def _launch(entry, counters, q, k_pool, v_pool, k_scale, v_scale,
     """Check the CUDA tensors, launch ``entry`` on q's current stream
     into a fresh output shaped like q, raise on a CUDA error, and count
     the launch under ``counters[scaled]``."""
-    lane, scaled = _check_cuda(q, k_pool, v_pool, k_scale, v_scale,
+    lane, scaled = _check_cuda(entry, q, k_pool, v_pool, k_scale, v_scale,
                                block_tables, index_arrays)
     fn = _cuda_entry(entry)
     out = torch.empty_like(q)
@@ -232,9 +238,11 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
         marks an inactive slot: its output row is 0.
       k_scale, v_scale, sm_scale: as ``paged_attention_mixed``.
 
-    Returns ``[slots, heads, head_dim]``. CUDA tensors launch the decode
-    kernel (``kernels.LAUNCHES["paged_attention"]``, or
-    ``["paged_attention_quant"]`` for quantized pools) or raise; CPU
+    Returns ``[slots, heads, head_dim]``. CUDA tensors launch the
+    mixed form's row-tile kernel with row i on slot i, so the result has
+    ``paged_attention_mixed``'s bits on identity slots
+    (``kernels.LAUNCHES["paged_attention"]``, or
+    ``["paged_attention_quant"]`` for quantized pools), or raise; CPU
     tensors take ``paged_attention_reference``.
     """
     if q.dim() != 3:

@@ -10,6 +10,9 @@ runs each kernel wrapper but the flash ones (``flash_probe`` holds those)
 once on seeded inputs at ``chip_smoke.py``'s shapes, saving every output
 to ``FILE``:
 
+- B1/B2 ``paged_attention_mixed`` and B3/B4 ``paged_attention``, every
+  pool lane, at the smoke's mixed step (80 rows) and decode step (16
+  slots);
 - B5/B6 ``paged_attention_chunk``, every pool lane, at the rung-384 and
   the prefix-hit rung-256 prefill;
 - B7 ``quant_matmul``, int8 and fp8-e4m3, at the decoder's four
@@ -19,9 +22,9 @@ to ``FILE``:
   ``LSTM_SHAPES``; ``lstm_proj_dw`` also on B10/B11's hs and dx.
 
 The outputs of kernels a PR redesigns are saved under a name that starts
-with ``REDESIGNED`` (the LSTM outputs named in ``_REDESIGNED_OUTPUTS``,
-bf16 lane; none now: every output must keep its bits): the comparison
-reports them apart and does not fail on them. The seeded inputs come
+with ``REDESIGNED`` (B1-B4's, since their row-tile kernel; the LSTM
+outputs named in ``_REDESIGNED_OUTPUTS``, bf16 lane, none now): the
+comparison reports them apart and does not fail on them. The seeded inputs come
 from this checkout's ``chip_smoke.py``. Run the first form once per
 tree, each in its own process. The second prints, for each output,
 whether the two files hold the same bits, and exits non-zero if any
@@ -74,6 +77,22 @@ def _outputs(cs, pa, qm, fr, dev):
     out = {}
     shape = {"H": 12, "d": 64, "B": 16, "P": 32, "N": 2048}
     H, d, B, P, N = (shape[k] for k in "HdBPN")
+    S = 16
+    q, k32, v32, tables, slots, ctx = cs._attention_case(
+        dev, S + 64, H, d, B, P, S, N)
+    tables, slots, ctx = (torch.from_numpy(a).to(dev)
+                          for a in (tables, slots, ctx))
+    qd = q[:S].contiguous()
+    lens = ctx[:S].contiguous()
+    for dtype in cs.ATTN_LANES:
+        k, v, ks, vs = ((k32, v32, None, None) if dtype == "float32" else
+                        cs._quant_pools(dev, dtype, N, H, B, d))
+        kw = {} if ks is None else {"k_scale": ks, "v_scale": vs}
+        out[f"{REDESIGNED}mixed_{dtype}"] = pa.paged_attention_mixed(
+            q, k, v, tables, slots, ctx, **kw)
+        out[f"{REDESIGNED}decode_{dtype}"] = pa.paged_attention(
+            qd, k, v, tables, lens, **kw)
+    del q, k32, v32, k, v, ks, vs
     for dtype in cs.CHUNK_LANES:
         k, v, ks, vs = cs._pools_for(dev, dtype, N, H, B, d, seed=5)
         kw = {} if ks is None else {"k_scale": ks, "v_scale": vs}

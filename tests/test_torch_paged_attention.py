@@ -306,3 +306,197 @@ def test_quantized_kernel_matches_plain_on_card(cuda_device, dtype):
     with pytest.raises(TypeError):
         tpa.paged_attention_mixed(args[0], pools[0], pools[1], *args[1:],
                                   **scales)
+
+
+def test_head_dim_limits_per_form():
+    """The wrappers' CUDA checks (run here on CPU tensors): the row-tile
+    kernel of the mixed and decode forms takes head_dim up to 256, the
+    chunk kernel up to 128; past that they raise naming ROADMAP C4."""
+    for entry, widest in (("paged_attention_mixed", 256),
+                          ("paged_attention_decode", 256),
+                          ("paged_attention_chunk", 128)):
+        assert tpa.MAX_HEAD_DIM[entry] == widest
+        for d in (1, 33, widest, widest + 1):
+            q = torch.zeros((3, 2, d))
+            k = torch.zeros((5, 2, 4, d))
+            tables = torch.zeros((3, 2), dtype=torch.int32)
+            lens = torch.ones(3, dtype=torch.int32)
+            check = lambda: tpa._check_cuda(  # noqa: E731
+                entry, q, k, k, None, None, tables, (("lens", lens),))
+            if d > widest:
+                with pytest.raises(ValueError, match="C4"):
+                    check()
+            else:
+                assert check() == (0, False)
+
+
+CARD_LANES = ["float32", "bfloat16", "int8", "fp8-e4m3"]
+
+
+def _card_pools(dev, dtype, N, H, B, d, seed=20):
+    if dtype == "float32":
+        rng = np.random.default_rng(100 + seed)
+        k, v = (torch.from_numpy(rng.standard_normal((N, H, B, d)).astype(
+            np.float32)) for _ in range(2))
+        ks = vs = None
+    else:
+        k, v, ks, vs = _quant_pools(seed, dtype, N, H, B, d)
+    return [None if x is None else x.to(dev) for x in (k, v, ks, vs)]
+
+
+def _engine_layout(rng, S=16, P=32, B=16, N=600, start=320, chunk=64):
+    """The engine's own mixed-step rows: S decode rows (slot s at row s,
+    ragged contexts, an inactive one), then one ``chunk``-row prefill
+    chunk of one slot at positions start .. start + chunk - 1."""
+    tables = rng.integers(0, N, (S, P)).astype(np.int32)
+    slots = np.zeros(S + chunk, np.int32)
+    slots[:S] = np.arange(S)
+    ctx = np.zeros(S + chunk, np.int32)
+    ctx[:S] = rng.integers(1, P * B + 1, S)
+    ctx[:4] = [0, 1, B, P * B]
+    slots[3] = 0                                   # inactive: ctx 0
+    ctx[3] = 0
+    slots[S:] = 5
+    ctx[S:] = start + np.arange(chunk) + 1
+    return tables, slots, ctx
+
+
+def _mixed_on_card(dev, dtype, tables, slots, ctx, d=64, B=16, N=600, H=12,
+                   seed=20):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((len(slots), H, d)).astype(
+        np.float32)).to(dev)
+    k, v, ks, vs = _card_pools(dev, dtype, N, H, B, d, seed)
+    idx = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in (tables, slots, ctx)]
+    return (q, k, v, *idx), dict(k_scale=ks, v_scale=vs)
+
+
+def _counter(scales):
+    return ("paged_attention_mixed_quant" if scales["k_scale"] is not None
+            else "paged_attention_mixed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CARD_LANES)
+@pytest.mark.parametrize("layout", ["smoke", "engine"])
+def test_mixed_kernel_lanes_on_card(cuda_device, dtype, layout):
+    """Each lane against its plain version at the smoke's shapes (80 rows,
+    two 32-row chunks) and at the engine's own layout (16 decode rows,
+    then one 64-row chunk of one slot at positions 320-383): TOL, ctx 0
+    rows exact zeros, two launches bit-equal, one launch counted."""
+    rng = np.random.default_rng(21)
+    if layout == "smoke":
+        _q, _k, _v, tables, slots, ctx = _case(9, T=80, H=12, d=64, B=16,
+                                               P=32, N=600, S=16)
+        slots[16:48], slots[48:] = 3, 7
+        ctx[16:48] = np.arange(101, 133)
+        ctx[48:] = np.arange(301, 333)
+    else:
+        tables, slots, ctx = _engine_layout(rng)
+    args, scales = _mixed_on_card(cuda_device, dtype, tables, slots, ctx)
+    tk.reset_launches()
+    got = tpa.paged_attention_mixed(*args, **scales)
+    again = tpa.paged_attention_mixed(*args, **scales)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[_counter(scales)] == 2
+    assert sum(tk.LAUNCHES.values()) == 2
+    want = tpa.paged_attention_mixed_reference(*args, **scales)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
+    assert not got[args[5] == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CARD_LANES)
+@pytest.mark.parametrize("case", ["d33", "d36", "d96", "d128", "d256",
+                                  "block8"])
+def test_mixed_kernel_shapes_on_card(cuda_device, dtype, case):
+    """Head dims that are no multiple of 4 or 8 (33, 36), 96, 128 and 256
+    (the widest), and 8-token pages, at the engine's layout: each lane
+    against its plain version, two launches bit-equal."""
+    rng = np.random.default_rng(22)
+    d, B, P = 64, 16, 32
+    if case == "block8":
+        B, P = 8, 64
+    else:
+        d = int(case[1:])
+    tables, slots, ctx = _engine_layout(rng, P=P, B=B, start=100, chunk=40)
+    args, scales = _mixed_on_card(cuda_device, dtype, tables, slots, ctx,
+                                  d=d, B=B, H=4)
+    got = tpa.paged_attention_mixed(*args, **scales)
+    again = tpa.paged_attention_mixed(*args, **scales)
+    torch.cuda.synchronize()
+    want = tpa.paged_attention_mixed_reference(*args, **scales)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
+    assert not got[args[5] == 0].any()
+
+
+def _poison_stale(args, scales, dtype):
+    """The same launch with every table entry past its slot's furthest
+    need pointing at one extra block whose K, V (and scales) are NaN: a
+    kernel that read any of them would put NaN in some row."""
+    q, k, v, tables, slots, ctx = args
+    B = k.shape[2]
+    bad = k.shape[0]
+    nan = float("nan")
+    if dtype == "int8":         # no NaN payload: the NaN scales poison it
+        k2, v2 = (torch.cat([x, x[:1]]) for x in (k, v))
+    elif dtype == "fp8-e4m3":   # 0x7f is e4m3fn's NaN
+        k2, v2 = (torch.cat([x, torch.full_like(
+            x[:1].view(torch.uint8), 0x7f).view(x.dtype)]) for x in (k, v))
+    else:
+        k2, v2 = (torch.cat([x, torch.full_like(x[:1], nan)])
+                  for x in (k, v))
+    sc = {}
+    if scales["k_scale"] is not None:
+        sc = {n: torch.cat([s, torch.full_like(s[:1], nan)])
+              for n, s in scales.items()}
+    t2 = tables.clone()
+    need = {}
+    for s, c in zip(slots.tolist(), ctx.tolist()):
+        need[s] = max(need.get(s, 0), -(-c // B))
+    for s in range(t2.shape[0]):
+        t2[s, need.get(s, 0):] = bad
+    return (q, k2, v2, t2, slots, ctx), (sc or scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CARD_LANES)
+def test_mixed_kernel_reads_no_stale_entry_on_card(cuda_device, dtype):
+    """Table entries past a slot's pages name a NaN block: the outputs are
+    the clean tables' bit for bit (nothing past a row's pages is read)."""
+    rng = np.random.default_rng(23)
+    tables, slots, ctx = _engine_layout(rng)
+    args, scales = _mixed_on_card(cuda_device, dtype, tables, slots, ctx)
+    clean = tpa.paged_attention_mixed(*args, **scales)
+    args2, scales2 = _poison_stale(args, scales, dtype)
+    stale = tpa.paged_attention_mixed(*args2, **scales2)
+    torch.cuda.synchronize()
+    assert not torch.isnan(clean).any()
+    assert torch.equal(clean, stale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CARD_LANES)
+def test_mixed_kernel_row_alone_on_card(cuda_device, dtype):
+    """A row launched alone (T = 1) gives the bits of the same row inside
+    the engine layout's 80-row launch and inside a 32-row launch of one
+    slot: its output depends only on its q, its context and its slot's
+    pages."""
+    rng = np.random.default_rng(24)
+    tables, slots, ctx = _engine_layout(rng)
+    args, scales = _mixed_on_card(cuda_device, dtype, tables, slots, ctx)
+    q, k, v, tables_d, slots_d, ctx_d = args
+    full = tpa.paged_attention_mixed(*args, **scales)
+    part = tpa.paged_attention_mixed(q[40:72], k, v, tables_d,
+                                     slots_d[40:72], ctx_d[40:72], **scales)
+    for t in (0, 2, 7, 15, 16, 17, 31, 40, 47, 48, 55, 71, 79):
+        one = tpa.paged_attention_mixed(q[t:t + 1], k, v, tables_d,
+                                        slots_d[t:t + 1], ctx_d[t:t + 1],
+                                        **scales)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], full[t]), t
+        if 40 <= t < 72:
+            assert torch.equal(one[0], part[t - 40]), t

@@ -417,3 +417,82 @@ def test_chunk_kernel_row_alone_on_card(cuda_device, dtype):
                                         **scales)
         torch.cuda.synchronize()
         assert torch.equal(one[:, 0], chunk[:, g]), g
+
+
+def _decode_on_card(dev, dtype, S=16, H=12, d=64, B=16, P=32, N=600,
+                    seed=30):
+    """Decode-step inputs on the card: ragged lengths with 0, 1, block
+    edges and the full table, tables of valid block ids."""
+    q, tables, lens = _decode_case(seed, S=S, H=H, d=d, B=B, P=P, N=N)
+    lens[-1] = 0
+    k, v, ks, vs = _on(dev, *_pools(seed, dtype, N, H, B, d))
+    q, tables, lens = _on(dev, *(torch.from_numpy(a)
+                                 for a in (q, tables, lens)))
+    return (q, k, v, tables, lens), dict(k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LANES)
+@pytest.mark.parametrize("case", ["smoke", "d33", "d36", "d96", "d128",
+                                  "d256", "block8"])
+def test_decode_kernel_shapes_on_card(cuda_device, dtype, case):
+    """The decode form at the smoke's shape, at head dims 33, 36, 96, 128
+    and 256, and with 8-token pages: each lane against its plain version,
+    ctx 0 slots exact zeros, two launches bit-equal, and the mixed form on
+    identity slots (row i on slot i: the same row-tile kernel) bit-equal
+    to it."""
+    kw = {}
+    if case == "block8":
+        kw = dict(B=8, P=64)
+    elif case != "smoke":
+        kw = dict(d=int(case[1:]), H=4)
+    args, scales = _decode_on_card(cuda_device, dtype, **kw)
+    q, k, v, tables, lens = args
+    tk.reset_launches()
+    got = tpa.paged_attention(*args, **scales)
+    again = tpa.paged_attention(*args, **scales)
+    ident = torch.arange(q.shape[0], dtype=torch.int32, device=cuda_device)
+    mixed = tpa.paged_attention_mixed(q, k, v, tables, ident, lens,
+                                      **scales)
+    torch.cuda.synchronize()
+    sfx = "_quant" if scales["k_scale"] is not None else ""
+    assert tk.LAUNCHES["paged_attention" + sfx] == 2
+    assert tk.LAUNCHES["paged_attention_mixed" + sfx] == 1
+    want = tpa.paged_attention_reference(*args, **scales)
+    torch.testing.assert_close(got, want, **TOL)
+    assert not got[lens == 0].any()
+    assert torch.equal(got, again)
+    assert torch.equal(got, mixed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LANES)
+def test_decode_kernel_reads_no_stale_entry_on_card(cuda_device, dtype):
+    """Table entries past a slot's pages name an extra block whose K, V
+    and scales are NaN (int8: its scales): the outputs keep the clean
+    tables' bits, so no K/V row, scale or table entry past a slot's
+    pages is read."""
+    args, scales = _decode_on_card(cuda_device, dtype)
+    q, k, v, tables, lens = args
+    clean = tpa.paged_attention(*args, **scales)
+    bad = k.shape[0]
+    if dtype == "int8":
+        k2, v2 = (torch.cat([x, x[:1]]) for x in (k, v))
+    elif dtype == "fp8-e4m3":
+        k2, v2 = (torch.cat([x, torch.full_like(
+            x[:1].view(torch.uint8), 0x7f).view(x.dtype)]) for x in (k, v))
+    else:
+        k2, v2 = (torch.cat([x, torch.full_like(x[:1], float("nan"))])
+                  for x in (k, v))
+    sc = scales
+    if scales["k_scale"] is not None:
+        sc = {n: torch.cat([t, torch.full_like(t[:1], float("nan"))])
+              for n, t in scales.items()}
+    B = k.shape[2]
+    t2 = tables.clone()
+    for s, n in enumerate(lens.tolist()):
+        t2[s, -(-n // B):] = bad
+    stale = tpa.paged_attention(q, k2, v2, t2, lens, **sc)
+    torch.cuda.synchronize()
+    assert not torch.isnan(clean).any()
+    assert torch.equal(clean, stale)
