@@ -118,11 +118,15 @@ The seq2seq slice adds, in the same run:
    30, B 512, D 512), the generation shape (B 128) and a ragged training
    batch (lengths 0..30); fp32 to 1e-5 (hs, gates) / 1e-4 (dx, dh0; dW
    by relative L2), bf16 no further from the fp32 plain result than 1.5x
-   the bf16 plain version + 1e-3; each kernel timed beside its plain
-   version and its bound (no PyTorch call computes this GRU; the dW
-   reduction beside its yardstick, two ``torch.matmul`` calls with fp32
-   sums on pre-built operands, and two of its launches on the same
-   inputs held bit-equal);
+   the bf16 plain version + 1e-3 (the bf16 recurrences on the resident
+   route of ``fused_rnn.lstm_cluster_plan`` with three gates, the fp32
+   ones streaming); two launches of each kernel on the same inputs held
+   bit-equal, each timed beside its plain version and its bound (``ms``,
+   and ``device_ms`` with the card's queue kept ahead of the host; no
+   PyTorch call computes this GRU; the dW reduction beside its
+   yardstick, two ``torch.matmul`` calls with fp32 sums on pre-built
+   operands), the recurrences' records with their plan (route, tile,
+   clusters, waves);
 4e. one full-width seq2seq training step (bench.py's bench_seq2seq
    config, half the sources ragged) in fp32 and bf16 through the kernels
    (under sync-debug "error") against the same step through their plain
@@ -132,11 +136,13 @@ The seq2seq slice adds, in the same run:
 5e. the slice's main paths: ``train_seq2seq`` (bf16, Adam, 3 + 20
    steps over bench.py's 4 seeded batches: tokens/s, step ms, MFU, peak
    memory, every loss finite; each GRU kernel launched exactly 2 x
-   steps), ``train_seq2seq_fp32`` (2 + 5 steps, the fp32 lanes),
+   steps, the recurrences also under ``gru_{fwd,bwd}_cluster``),
+   ``train_seq2seq_fp32`` (2 + 5 steps, the fp32 lanes, ``_stream``),
    ``generate_beam`` (bench_beam: fp32, batch 128, beam 5, length 30;
-   one call under sync-debug "error", 2 ``gru_fwd`` launches per call,
-   deterministic; best-beam agreement with the plain GRU reported) and
-   ``profile_seq2seq`` (one bf16 step under ``torch.profiler``).
+   one call under sync-debug "error", 2 ``gru_fwd`` and
+   ``gru_fwd_stream`` launches per call, deterministic; best-beam
+   agreement with the plain GRU reported) and ``profile_seq2seq`` (one
+   bf16 step under ``torch.profiler``; B12 + B13's recurrences a step).
 
 The text-classification slice adds, in the same run:
 
@@ -1718,6 +1724,10 @@ GRU_KERNELS = {
     "gru_dw": "paddle_tpu/kernels/fused_rnn.py:481",
 }
 GRU_SOURCE = "paddle_tpu_torch/kernels/csrc/fused_rnn.cu"
+# the recurrences' routes (fused_rnn.lstm_cluster_plan with ng=3): the
+# launch names each adds to gru_fwd and gru_bwd
+GRU_ROUTE_NAMES = {"resident": ("gru_fwd_cluster", "gru_bwd_cluster"),
+                   "streaming": ("gru_fwd_stream", "gru_bwd_stream")}
 GRU_FWD_TOL = 1e-5              # fp32 hs and gates, kernel vs plain
 GRU_GRAD_TOL = 1e-4             # fp32 dx and dh0
 GRU_DW_REL = 1e-4               # fp32 dW, relative L2
@@ -1897,6 +1907,18 @@ def _gru_errors(fr, x, w, lens, h0, dhs, dtype):
     return errs, got
 
 
+def _gru_plan(fr, dtype, B, D, dev):
+    """The GRU recurrences' plan at one shape, as a record: route, tile
+    rows (bb), clusters and waves of clusters."""
+    plan = fr._cluster_plan(dtype, B, D, dev, ng=3)
+    if plan.route != "resident":
+        return {"route": plan.route}
+    return {"route": plan.route, "bb": plan.bb, "clusters": plan.tiles,
+            "cluster_ctas": plan.cluster, "max_clusters": plan.max_clusters,
+            "waves": -(-plan.tiles // plan.max_clusters),
+            "smem_bytes": plan.smem}
+
+
 def check_gru(fr, kernels, dev, flush, dtype):
     """Phase 3e: B12 (gru_fwd) and B13 (gru_bwd: the reverse recurrence;
     gru_dw: the dW reduction), one lane, against their plain versions at
@@ -1904,10 +1926,14 @@ def check_gru(fr, kernels, dev, flush, dtype):
     128) and a ragged training batch (lengths 0..30: a zero-length row
     keeps h0 and gets no gradient). fp32: hs/gates to 1e-5, dx/dh0 to
     1e-4, dW to 1e-4 relative L2; bf16: no further from the fp32 plain
-    result than 1.5x the bf16 plain version + 1e-3. Then each kernel
-    timed beside its plain version and its bound (fp32 gru_fwd at the
-    generation shape, which runs it; everything else at the training
-    shape). Returns one kernels-line record per kernel."""
+    result than 1.5x the bf16 plain version + 1e-3. Then each kernel,
+    two launches of it bit-equal, timed beside its plain version and its
+    bound (fp32 gru_fwd at the generation shape, which runs it;
+    everything else at the training shape): ``ms`` by ``_time_ms``, and
+    ``device_ms`` with the card's queue kept ahead of the host (the
+    ctypes wrapper's host time otherwise lands in the window). The
+    recurrences' records carry their plan (``_gru_plan``). Returns one
+    kernels-line record per kernel."""
     lane = "bf16" if dtype == torch.bfloat16 else "fp32"
     worst = {}
     for key, (T, B, D, ragged) in GRU_SHAPES.items():
@@ -1959,6 +1985,14 @@ def check_gru(fr, kernels, dev, flush, dtype):
         if name == "gru_dw":
             extra.update(_dw_yardstick(name, kernel_fn, _dw_library_call(
                 name, hs, h0, dx, gates=gates), flush), err_is="relative L2")
+        else:
+            first, second = kernel_fn(), kernel_fn()
+            _check(all(torch.equal(a, b) for a, b in zip(first, second)),
+                   f"{name} {lane}: two launches on the same inputs differ")
+            del first, second
+            extra.update(plan=_gru_plan(fr, dtype, B, D, dev),
+                         bit_equal_two_launches=True)
+        extra["device_ms"] = _time_ms(kernel_fn, flush, queue_ahead=True)
         rec = _lane_record(
             name if lane == "fp32" else f"{name}_bf16", GRU_KERNELS[name],
             GRU_SOURCE,
@@ -1976,10 +2010,14 @@ def check_gru(fr, kernels, dev, flush, dtype):
         x, w, lens, h0, _d = _gru_case(dev, T, B, D, False)
         recs["gru_fwd"]["train_shape_ms"] = _time_ms(
             lambda: fr.gru_fwd(x, w, lens, h0), flush)
+        recs["gru_fwd"]["train_shape_device_ms"] = _time_ms(
+            lambda: fr.gru_fwd(x, w, lens, h0), flush, queue_ahead=True)
         recs["gru_fwd"]["train_shape_bound_ms"] = _gru_bound(
             "gru_fwd", dtype, T, B, D)[0]
     # B13 as the JAX kernel counts it: the recurrence and dW together
     recs["gru_bwd"]["b13_ms"] = recs["gru_bwd"]["ms"] + recs["gru_dw"]["ms"]
+    recs["gru_bwd"]["b13_device_ms"] = (recs["gru_bwd"]["device_ms"]
+                                        + recs["gru_dw"]["device_ms"])
     T, B, D, _r = GRU_SHAPES["train"]
     tb, e = T * B, 2 if dtype == torch.bfloat16 else 4
     b13_bytes = e * (2 * tb * 3 * D + 2 * tb * D + 2 * 3 * D * D + B * D)
@@ -2113,8 +2151,13 @@ def train_s2s(s2s, kernels, dev, key="train_seq2seq", dtype=torch.bfloat16,
     target tokens per step; step ms p50 from CUDA events between steps,
     no host syncs), every loss read back once at the end and held
     finite. The launch counts are zeroed just before the first step and
-    read just after the last: each GRU kernel runs twice per step."""
+    read just after the last: each GRU kernel runs twice per step, the
+    recurrences each under their route's name too (``GRU_ROUTE_NAMES``
+    of ``lstm_cluster_plan`` with ng=3: the bf16 run's resident, the fp32
+    run's streaming)."""
     cfg = s2s.Seq2SeqConfig(**S2S_CFG, dtype=dtype)
+    route = kernels.fused_rnn._cluster_plan(
+        dtype, S2S_B, S2S_CFG["hidden_dim"], dev, ng=3).route
     params = s2s.init_params(cfg, seed=0, device=dev)
     opt, step = s2s.make_train_step(cfg, lr=S2S_LR)
     state = opt.init(params)
@@ -2139,7 +2182,7 @@ def train_s2s(s2s, kernels, dev, key="train_seq2seq", dtype=torch.bfloat16,
     launches = dict(kernels.LAUNCHES)              # read just after
     n = warmup + steps
     want = dict.fromkeys(kernels.LAUNCHES, 0)
-    for name in GRU_KERNELS:
+    for name in (*GRU_KERNELS, *GRU_ROUTE_NAMES[route]):
         want[name] = 2 * n
     _check(launches == want, f"{key}: launches {launches} over {n} steps, "
            f"want {want}")
@@ -2161,7 +2204,8 @@ def train_s2s(s2s, kernels, dev, key="train_seq2seq", dtype=torch.bfloat16,
         "mfu_vs_bf16_peak": flops * steps / wall / H100_BF16_FLOPS,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "loss_first": loss_list[0], "loss_last": loss_list[-1],
-        "losses_finite": len(loss_list), "launches": launches}}, launches
+        "losses_finite": len(loss_list), "gru_route": route,
+        "launches": launches}}, launches
 
 
 def generate_beam(s2s, fr, kernels, dev, calls=6):
@@ -2171,7 +2215,8 @@ def generate_beam(s2s, fr, kernels, dev, calls=6):
     then ``calls`` timed calls alternating the sources (ms per batch;
     emitted tokens/s: batch x max_len per call). The launch counts are
     zeroed just before the first call and read just after the last: two
-    ``gru_fwd`` launches per call (the encoder). Two calls on one source
+    ``gru_fwd`` launches per call (the encoder), each also under its
+    route's name (fp32: ``gru_fwd_stream``). Two calls on one source
     give the same sequences; agreement of the best beam with the
     plain-GRU path is reported, not gated."""
     cfg = s2s.Seq2SeqConfig(**S2S_CFG)
@@ -2202,7 +2247,10 @@ def generate_beam(s2s, fr, kernels, dev, calls=6):
     wall = (time.perf_counter() - t0) / calls
     launches = dict(kernels.LAUNCHES)              # read just after
     want = dict.fromkeys(kernels.LAUNCHES, 0)
-    want["gru_fwd"] = 2 * (calls + 1)
+    route = fr._cluster_plan(torch.float32, BEAM_B, S2S_CFG["hidden_dim"],
+                             dev, ng=3).route
+    for name in ("gru_fwd", GRU_ROUTE_NAMES[route][0]):
+        want[name] = 2 * (calls + 1)
     _check(launches == want, f"generate_beam: launches {launches}, want "
            f"{want}")
     again = gen(srcs[0])
@@ -2233,10 +2281,16 @@ def generate_beam(s2s, fr, kernels, dev, calls=6):
         "launches": launches}}, launches
 
 
+GRU_RECURRENCE_KERNELS = ("gru_cluster_fwd_kernel", "gru_cluster_bwd_kernel",
+                          "gru_fwd_kernel", "gru_bwd_kernel")
+
+
 def profile_s2s(s2s, dev):
     """Where a full-width bf16 seq2seq training step's time goes: one
     step under ``torch.profiler`` after two warm-up steps, with B12 and
-    B13's device ms per step."""
+    B13's device ms per step (each kernel by name: the recurrences on
+    either route, the dW reduction and its ordered sum) and the two
+    recurrences' sum (``gru_recurrences_device_ms_per_step``)."""
     cfg = s2s.Seq2SeqConfig(**S2S_CFG, dtype=torch.bfloat16)
     state = {"p": s2s.init_params(cfg, seed=0, device=dev)}
     opt, step = s2s.make_train_step(cfg, lr=S2S_LR)
@@ -2248,11 +2302,14 @@ def profile_s2s(s2s, dev):
                                             batches[i % 4])
         return loss.cpu()
 
-    return {"profile_seq2seq": dict(
-        {"batch": [S2S_B, S2S_S, S2S_T], "dtype": "bfloat16"},
-        **_profile([lambda i=i: call(i) for i in range(3)],
-                   named=("gru_fwd_kernel", "gru_bwd_kernel", "dw_wgmma",
-                          "sum_partials")))}
+    rec = dict({"batch": [S2S_B, S2S_S, S2S_T], "dtype": "bfloat16"},
+               **_profile([lambda i=i: call(i) for i in range(3)],
+                          named=GRU_RECURRENCE_KERNELS + ("dw_wgmma",
+                                                          "sum_partials")))
+    named = rec.get("named_device_ms_per_step", {})
+    rec["gru_recurrences_device_ms_per_step"] = sum(
+        named.get(k, 0.0) for k in GRU_RECURRENCE_KERNELS)
+    return {"profile_seq2seq": rec}
 
 
 # -------------------------------------------------------------------- LSTM

@@ -1,8 +1,8 @@
 // Fused LSTM and GRU recurrences for Hopper (sm_90a), each with a
-// float32 and a bfloat16 lane (the recurrences on the CUDA cores, the dW
-// reductions' bf16 lane on the tensor cores; the LSTM recurrences' bf16
-// lane, B10/B11 and B14/B15, on the resident route below, its products on
-// the tensor cores):
+// float32 and a bfloat16 lane (the fp32 recurrences streaming W on the
+// CUDA cores; the bf16 recurrences, B10/B11, B14/B15 and B12/B13, on the
+// resident route below, their products on the tensor cores; the dW
+// reductions' bf16 lane on the tensor cores):
 //   LSTM (gates i|f|c~|o, w [D, 4D]):
 //     lstm_fwd       (B10) replaces paddle_tpu/kernels/fused_rnn.py:
 //                    _lstm_fwd_kernel, launched by _lstm_fwd_call;
@@ -27,7 +27,12 @@
 //   GRU (gates u|r|c~, w [D, 3D]):
 //     gru_fwd        (B12) _gru_fwd_kernel (_gru_fwd_call);
 //     gru_bwd +      (B13) the reverse recurrence and the dW reduction
-//     gru_dw         of _gru_bwd_kernel (_gru_bwd_call).
+//     gru_dw         of _gru_bwd_kernel (_gru_bwd_call);
+//     the bf16 lane on the resident route (rc::gru_cluster_fwd_kernel,
+//     rc::gru_cluster_bwd_kernel: the same C entries with a cluster's
+//     tile of 16, 32 or 48 rows for bb); the streaming kernels
+//     (gru_fwd_kernel, gru_bwd_kernel) keep the fp32 lane and the bf16
+//     shapes the plan does not make resident.
 // Layouts are the JAX ones, time-major and row-major:
 //   x, gates [T, B, G]    pre-projected input gates (+ bias) / the saved
 //                         post-activation gates; G = 4D (LSTM), 3D (GRU)
@@ -49,16 +54,23 @@
 // the stored dtype (in the bf16 lane the backward's c~ = f*c_prev + i*g
 // uses the rounded cell, as the Pallas kernel does).
 //
-// What bounds them here, and the design (the GRU's; the LSTM kernels
-// below follow it, their notes say where they differ). At the seq2seq
-// training shape (T 30, B 512, D 512, bf16) one forward does 2*T*B*D*3D
-// = 24 GFLOP over 112 MB: the card's bound is the bytes (0.033 ms); at
-// the LSTM flagship's (T 100, B 128, D 512, bf16) B10 does 27 GFLOP over
-// 134 MB (0.040 ms). But W (1.5 MiB in
-// bf16, 3 MiB in fp32) is re-read by every step of the recurrence, and it
-// does not fit one SM's 227 KB of shared memory, so the TPU kernel's
-// design (W resident in VMEM for all T steps) does not carry over. This
-// first version keeps it simple:
+// What bounds them here, and the design. At the seq2seq training shape
+// (T 30, B 512, D 512, bf16) one forward does 2*T*B*D*3D = 24 GFLOP
+// over 112 MB: the card's bound is the bytes (0.034 ms); at the LSTM
+// flagship's (T 100, B 128, D 512, bf16) B10 does 27 GFLOP over 134 MB
+// (0.040 ms). But W (1.5 MiB in bf16, 3 MiB in fp32) is re-read by every
+// step of the recurrence, and it does not fit one SM's 227 KB of shared
+// memory, so the TPU kernel's design (W resident in VMEM for all T
+// steps) does not carry over to one block. Two routes:
+//   - bf16: W split over one thread-block cluster's shared memory (the
+//     resident route, rc:: below, notes there): a step is a product of
+//     the tile's h with the CTA's resident columns on the tensor cores
+//     and an exchange between the cluster's CTAs by DSMEM, so neither L2
+//     nor the SMs' arithmetic sets it, but the exchange and its cluster
+//     barriers. fp32 W (3 MiB: 192 KiB a CTA over 16 CTAs) leaves no
+//     room for the h buffers, so the fp32 lanes stream.
+//   - streaming, the fp32 lanes (and bf16 shapes the plan does not make
+//     resident): W read from L2 every step, as follows.
 //   - gru_fwd / gru_bwd: one block of 256 threads per tile of BB batch
 //     rows (BB in 1, 2, 4, 8, picked by the wrapper so the tiles fill the
 //     card), walking all T steps inside the block (the Pallas grid's
@@ -76,7 +88,9 @@
 //     phase 1, drh = dc_lp @ W_c^T, dr_pre; phase 2, dur_lp @ W_ur^T and
 //     dh_prev. Both products read W transposed (a copy the wrapper makes
 //     once per call) with the forward's pattern, 2 columns per thread.
-//     Every product is one routine, cols_dot.
+//     Every product is one routine, cols_dot. At B 512 that is 128
+//     blocks x 1.5 MiB of L2 reads a step in bf16: 2.4-2.7 ms a call,
+//     which is why the bf16 lane went resident.
 //   - the dW reductions (gru_dw; lstm_dw, which serves B11 and B15's
 //     [dWx; dW]): dW cannot be a per-block accumulator here (3 MiB of
 //     fp32), so it is a second kernel after the recurrence, one GEMM
@@ -110,7 +124,8 @@
 // 2-4 MiB a step (B10/B11 and B14/B15 in fp32, and in bf16 where the
 // resident route does not fit).
 //
-// The LSTM's bf16 resident route (B10/B11 and B14/B15). What is left of
+// The bf16 resident route (the LSTM's B10/B11 and B14/B15; the GRU's
+// B12/B13 on the same helpers, differences below). What is left of
 // a step once the input projection leaves it (xe @ Wx + b does not depend
 // on h; dxe = dgates @ Wx^T does not feed the recurrence; B10/B11's x
 // holds the projected gates already) is [B, D] x [D, 4D]: 2.1 MFLOP
@@ -150,6 +165,22 @@
 // tiles of 32 rows, not 8 of 16. Sums run in fixed orders (the K halves
 // in the forward, the slots in rank order and db's partials in row-group
 // and tile order in the reverse): two launches give the same bits.
+// The GRU (rc::gru_cluster_fwd_kernel, rc::gru_cluster_bwd_kernel): CTA j
+// keeps the 96 columns u | r | c~ of its units (99,840 B at D 512). Its
+// reset comes before the candidate's product, c~ = tanh(x_c + bf16(r *
+// h) W_c) (why no cuDNN GRU computes it), so each step has two products
+// and two exchanges: the forward all-gathers bf16(r * h) after g_ur =
+// x_ur + h W_ur and h after c~ (one h and one rh buffer: each CTA
+// arrives after its last read of a buffer, and no CTA writes one before
+// the barrier that follows every CTA's reads); the reverse
+// reduce-scatters drh = dc~ W_c^T, then dur W_ur^T, through one set of
+// fp32 slots (four barrier phases a step), both products reading the
+// resident slice by ldmatrix.trans. The plan takes the tile (16, 32 or
+// 48 rows) with the fewest waves: at the seq2seq batch (B 512) 11
+// clusters of 48 rows in 2 waves, where 32 rows take 16 in 3. Every
+// fp32 operation of the cell math is an __f*_rn intrinsic, so nothing is
+// contracted into an FMA differently in another instantiation: a row's
+// bits do not depend on its tile or on B.
 //
 // Built by paddle_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -1565,23 +1596,26 @@ bool bad_e(int E) { return E < 64 || E % 64 != 0; }
 namespace rc {
 
 constexpr int kU = 32;          // hidden units a CTA of a cluster owns
-constexpr int kN = 4 * kU;      // its gate columns: i|f|c~|o of its units
+constexpr int kN = 4 * kU;      // the LSTM's gate columns: i|f|c~|o of them
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kMaxCluster = 16;
-constexpr int kLdg = kN + 8;    // row stride of the dgates tile (bf16)
+constexpr int kLdg = kN + 8;    // row stride of the LSTM's dgates tile (bf16)
 
-// shared memory (bytes) of the recurrences for tiles of 16 * mt rows:
-// W's slice [kN][D + 8] bf16 (rows padded by 16 bytes, so ldmatrix's
-// eight row addresses fall on distinct banks), then the forward's h
-// buffers [2][BB][D + 8] bf16, its staged h slice [BB][kU] bf16 and the
-// K halves' partial sums [4][mt][4][32][4] fp32; the backward's dgates
-// tile [BB][kLdg] bf16 and the reduce-scatter slots [nc][BB][kU] fp32
-constexpr int fwd_smem(int mt, int D) {
-  return 2 * (kN * (D + 8) + 2 * 16 * mt * (D + 8) + 16 * mt * kU) +
-         4 * (4 * mt * 4 * 32 * 4);
+// shared memory (bytes) of the recurrences of ng gates (4: the LSTM, 3:
+// the GRU) for tiles of 16 * mt rows: W's slice [ng * kU][D + 8] bf16
+// (rows padded by 16 bytes, so ldmatrix's eight row addresses fall on
+// distinct banks), then the forward's two [BB][D + 8] bf16 buffers (the
+// LSTM's h, double-buffered; the GRU's h and r * h), its staged slice
+// [BB][kU] bf16 and the K halves' partial sums [4][mt][ng][32][4] fp32;
+// the backward's dgates tile [BB][ng * kU + 8] bf16 and the
+// reduce-scatter slots [nc][BB][kU] fp32
+constexpr int fwd_smem(int mt, int D, int ng = 4) {
+  return 2 * (ng * kU * (D + 8) + 2 * 16 * mt * (D + 8) + 16 * mt * kU) +
+         4 * (4 * mt * ng * 32 * 4);
 }
-constexpr int bwd_smem(int mt, int D) {
-  return 2 * (kN * (D + 8) + 16 * mt * kLdg) + 4 * (D / kU) * 16 * mt * kU;
+constexpr int bwd_smem(int mt, int D, int ng = 4) {
+  return 2 * (ng * kU * (D + 8) + 16 * mt * (ng * kU + 8)) +
+         4 * (D / kU) * 16 * mt * kU;
 }
 constexpr int probe_smem(int mt, int D) {
   return fwd_smem(mt, D) > bwd_smem(mt, D) ? fwd_smem(mt, D)
@@ -1622,8 +1656,15 @@ __device__ __forceinline__ void st_cl8(uint32_t addr, uint32_t rank,
       : "memory");
 }
 // four 8 x 8 b16 matrices (lanes 8i..8i+7 give matrix i's row addresses;
-// lane 4g + t receives elements 2t, 2t + 1 of row g of each), and the
-// transposed form (lane 4g + t receives rows 2t, 2t + 1 of column g)
+// lane 4g + t receives elements 2t, 2t + 1 of row g of each), two of
+// them (lanes 0-15's addresses), and the transposed form (lane 4g + t
+// receives rows 2t, 2t + 1 of column g)
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t r[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -1649,13 +1690,15 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// ws[n][k] = W[k][(n / kU) * D + u0 + n % kU] (n < kN, k < D): the CTA's
-// gate columns of W [D, 4D], transposed, eight k to a 16-byte store;
-// four such items a thread at a time, so that 32 loads are in flight
+// ws[n][k] = W[k][(n / kU) * D + u0 + n % kU] (n < NG * kU, k < D): the
+// CTA's gate columns of W [D, NG * D], transposed, eight k to a 16-byte
+// store; four such items a thread at a time, so that 32 loads are in
+// flight
+template <int NG>
 __device__ __forceinline__ void load_w_slice(const bf16* __restrict__ w,
                                              bf16* ws, int D, int u0) {
-  constexpr int kBatch = 4;
-  const int G = 4 * D, ld = D + 8, total = kN * (D / 8);
+  constexpr int kBatch = 4, kN = NG * kU;
+  const int G = NG * D, ld = D + 8, total = kN * (D / 8);
   const unsigned short* wu = reinterpret_cast<const unsigned short*>(w);
   for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kThreads) {
     uint32_t v[kBatch][4];
@@ -1706,6 +1749,51 @@ __device__ __forceinline__ void push_h(const bf16* hst, const bf16* hnext,
 // (mod 8), so that, j by j, the CTAs' partials go to different owners
 __device__ __forceinline__ int bwd_tile(int warp, int j, int rank) {
   return warp + 8 * ((j + rank) & 7);
+}
+
+// the reverse's partial product on the tensor cores: acc [BB][this
+// warp's n-tiles of D] = dg[:, K0:K1] x W_slice[K0:K1][:], dg the
+// dgates tile (bf16, row stride LDG; a_addr its lane's ldmatrix address)
+// and W_slice the resident slice's rows n, read as they lie by
+// ldmatrix.trans (b_addr: row lane % 16), so that no transposed copy of
+// W is made. Warp w takes the n-tiles bwd_tile(w, j, rank), j < 8, their
+// B fragments loaded in pairs before the products; K runs in order.
+template <int MT, int K0, int K1, int LDG>
+__device__ __forceinline__ void slice_t_product(float (&acc)[MT][8][4],
+                                                uint32_t a_addr,
+                                                uint32_t b_addr, int ld,
+                                                int n_nt, int warp,
+                                                int lane, int rank) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+#pragma unroll
+  for (int k = K0; k < K1; k += 16) {
+    uint32_t a[MT][4], bf[8][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldsm_x4(a_addr + 2 * (16 * mt * LDG + k), a[mt]);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      // n-tiles j (lanes 0-15's rows) and j + 1 (lanes 16-31's), each
+      // clamped into range: a tile past D is loaded, never multiplied
+      const int nt = min(bwd_tile(warp, j + (lane >> 4), rank), n_nt - 1);
+      uint32_t r[4];
+      ldsm_x4_t(b_addr + 2 * (k * ld + 8 * nt), r);
+      bf[j][0] = r[0]; bf[j][1] = r[1]; bf[j + 1][0] = r[2];
+      bf[j + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (bwd_tile(warp, j, rank) >= n_nt) continue;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        mma_bf16(acc[mt][j], a[mt], bf[j][0], bf[j][1]);
+    }
+  }
 }
 
 // the backward's partial dh_prev (this warp's n-tiles) into slot `rank`
@@ -1762,17 +1850,18 @@ __device__ __forceinline__ float2 ld_first(const bf16* p) {
 }
 
 // the first term of step t (xg, or x) for this thread's cells: rows 16 mt
-// + g + 8 kh, units uc, uc + 1, the four gates (zeros on padding rows)
-template <int MT, typename XT>
+// + g + 8 kh, units uc, uc + 1, each of the NG gates (zeros on padding
+// rows)
+template <int MT, int NG, typename XT>
 __device__ __forceinline__ void load_xg(const XT* __restrict__ xg,
-                                        float (&xv)[MT][4][2], int t, int B,
+                                        float (&xv)[MT][NG][2], int t, int B,
                                         int D, int row0, int uc) {
-  const int G = 4 * D;
+  const int G = NG * D;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int b = row0 + 16 * mt;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < NG; ++q) {
       float2 v = make_float2(0.f, 0.f);
       if (b < B) {
         v = ld_first(xg + (static_cast<size_t>(t) * B + b) * G + q * D + uc);
@@ -1826,7 +1915,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int uc = u0 + 8 * ug + 2 * t4;  // the first unit of a cell pair
   const int rl = g + 8 * kh;            // the cells' row in each m-tile
 
-  load_w_slice(w, ws, D, u0);
+  load_w_slice<4>(w, ws, D, u0);
   for (int i = tid; i < BB * (D / 8); i += kThreads) {
     const int r = i / (D / 8), k0 = 8 * (i % (D / 8));
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
@@ -2024,7 +2113,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int gu = u0 + up;
   const int r0 = 2 * warp + (lane >> 4);  // their row in each 16 rows
 
-  load_w_slice(w, ws, D, u0);
+  load_w_slice<4>(w, ws, D, u0);
   float dh[MT][2], dc[MT][2], keep[MT][2], len[MT], dbq[4][2];
   float gq[MT][4][2], cp[MT][2], dhv[MT][2], dcv[MT][2];
 #pragma unroll
@@ -2089,36 +2178,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();  // the dgates tile is whole
     // (2) the partial product
     float acc[MT][8][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-#pragma unroll
-    for (int k = 0; k < kN; k += 16) {
-      uint32_t a[MT][4], bf[8][2];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldsm_x4(a_addr + 2 * (16 * mt * kLdg + k), a[mt]);
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        // n-tiles j (lanes 0-15's rows) and j + 1 (lanes 16-31's), each
-        // clamped into range: a tile past D is loaded, never multiplied
-        const int nt = min(bwd_tile(warp, j + (lane >> 4), rank), n_nt - 1);
-        uint32_t r[4];
-        ldsm_x4_t(b_addr + 2 * (k * ld + 8 * nt), r);
-        bf[j][0] = r[0]; bf[j][1] = r[1]; bf[j + 1][0] = r[2];
-        bf[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (bwd_tile(warp, j, rank) >= n_nt) continue;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          mma_bf16(acc[mt][j], a[mt], bf[j][0], bf[j][1]);
-      }
-    }
+    slice_t_product<MT, 0, kN, kLdg>(acc, a_addr, b_addr, ld, n_nt, warp,
+                                     lane, rank);
     // (3) reduce-scatter
     cl_wait();  // every owner has summed the slots of the step before
     push_partials<MT>(acc, slot, rank, n_nt, warp, lane);
@@ -2233,6 +2294,407 @@ __global__ void __launch_bounds__(kThreads, 1)
     out[blockIdx.x] = mode == 0 ? to_f(hb[(n_steps & 1) * BB * ld + u0]) : 0.f;
   }
   if (mode != 0 && keep == -1.f) out[blockIdx.x] = keep;
+}
+
+// ------------------------------------------------- B12/B13 bf16 (rc, GRU)
+//
+// The GRU's cell math rounds every fp32 operation on its own, in the
+// Pallas bodies' order (the __f*_rn intrinsics: nvcc contracts none of
+// them into an FMA), so that a row's bits do not depend on the tile, the
+// m-tile or the fragment half it falls in.
+
+// B12's bf16 recurrence on the resident route: the clusters, tiles and
+// warp layout of lstm_cluster_fwd_kernel, CTA `rank` keeping the 96 gate
+// columns (u | r | c~) of its units u0 = 32 rank .. u0 + 31 in shared
+// memory for all T steps. The reset comes before the candidate's product
+// (c~ = tanh(x_c + bf16(r * h) W_c)), so a step has two halves, each a
+// product over the whole tile (warp w: the 8 units 8 (w % 4).. over half
+// of K, the halves met in shared memory as in the LSTM), an all-gather
+// by DSMEM and a cluster barrier:
+//   (a) g_ur = x[:, :2D] + h_lp W_ur from the h buffer (the whole bf16
+//       h); u, r; the CTA's slice of bf16(r * h) goes to every CTA's rh
+//       buffer;
+//   (b) c~ = tanh(x_c + rh_lp W_c) from the rh buffer; the blend and the
+//       length mask on the fp32 carry, which never leaves its registers;
+//       the new h slice goes to every CTA's h buffer.
+// One h and one rh buffer suffice, because every CTA arrives at the
+// barrier that ends a half only after its last read of that half's
+// buffer (its products are consumed before it stages its slice): the h
+// pushes of step t follow the (a) -> (b) barrier, which every CTA
+// reaches after reading h in (a); the rh pushes of step t + 1 follow the
+// (b) -> (a) barrier, which every CTA reaches after reading rh in (b).
+// u and r are written between the halves, hs and c~ after the second,
+// with the next step's x fetched behind them.
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+    gru_cluster_fwd_kernel(const bf16* __restrict__ x,
+                           const bf16* __restrict__ w,
+                           const float* __restrict__ lens,
+                           const bf16* __restrict__ h0,
+                           bf16* __restrict__ hs, bf16* __restrict__ gates,
+                           int n_steps, int B, int D) {
+  constexpr int BB = 16 * MT, NG = 3;
+  extern __shared__ __align__(16) unsigned char smem_rc[];
+  const int ld = D + 8, G = NG * D, nc = D / kU;
+  bf16* ws = reinterpret_cast<bf16*>(smem_rc);  // [NG * kU][ld]
+  bf16* hb = ws + NG * kU * ld;                 // [BB][ld] h
+  bf16* rb = hb + BB * ld;                      // [BB][ld] r * h
+  bf16* hst = rb + BB * ld;                     // [BB][kU] a staged slice
+  // the K halves' partials, [2][4][MT][NG][32][2]
+  float* red = reinterpret_cast<float*>(hst + BB * kU);
+  const int rank = static_cast<int>(cluster_rank());
+  const int u0 = rank * kU;
+  const int b0 = static_cast<int>(blockIdx.x) / nc * BB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ug = warp & 3, kh = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int uc = u0 + 8 * ug + 2 * t4;  // the first unit of a cell pair
+  const int rl = g + 8 * kh;            // the cells' row in each m-tile
+
+  load_w_slice<NG>(w, ws, D, u0);
+  for (int i = tid; i < BB * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), k0 = 8 * (i % (D / 8));
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (b0 + r < B) {
+      v = *reinterpret_cast<const uint4*>(
+          h0 + static_cast<size_t>(b0 + r) * D + k0);
+    }
+    *reinterpret_cast<uint4*>(hb + r * ld + k0) = v;
+  }
+  float hc[MT][2], len[MT], xv[MT][NG][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int b = b0 + 16 * mt + rl;
+    const size_t o = static_cast<size_t>(b) * D + uc;
+    len[mt] = b < B ? lens[b] : 0.f;
+#pragma unroll
+    for (int cu = 0; cu < 2; ++cu) hc[mt][cu] = b < B ? to_f(h0[o + cu]) : 0.f;
+  }
+  if (n_steps > 0) load_xg<MT>(x, xv, 0, B, D, b0 + rl, uc);
+  __syncthreads();
+  cl_arrive();  // the first wait: every CTA has started, its h0 in place
+
+  // per-lane ldmatrix addresses: A (rows of the h or rh buffer); B, the
+  // warp's units of gates u and r (by lane / 16), and of gate c~ (.x2)
+  const uint32_t a_lane = static_cast<uint32_t>(
+      2 * (((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4)));
+  const uint32_t h_addr = smem_u32(hb) + a_lane;
+  const uint32_t rh_addr = smem_u32(rb) + a_lane;
+  const uint32_t bur_addr = smem_u32(
+      ws + ((lane >> 4) * kU + 8 * ug + (lane & 7)) * ld +
+      8 * ((lane >> 3) & 1));
+  const uint32_t bc_addr = smem_u32(
+      ws + (2 * kU + 8 * ug + (lane & 7)) * ld + 8 * ((lane >> 3) & 1));
+  const int kb = kh * (D / 2);
+  // this warp's partials for its partner's rows, and the partner's for
+  // this one's: [writer's kh][ug][mt][gate][lane] float2
+  float* red_out = red + ((kh * 4 + ug) * MT * NG * 32 + lane) * 2;
+  const float* red_in =
+      red + (((kh ^ 1) * 4 + ug) * MT * NG * 32 + lane) * 2;
+  for (int t = 0; t < n_steps; ++t) {
+    // (a) g_ur = x[:, :2D] + h_lp W_ur; u, r; bf16(r * h)
+    cl_wait();  // h_t is whole in the h buffer
+    float acc[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][q][e] = 0.f;
+    for (int k = kb; k < kb + D / 2; k += 16) {
+      uint32_t bq[4];  // gate u (0, 1), gate r (2, 3)
+      ldsm_x4(bur_addr + 2 * k, bq);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        ldsm_x4(h_addr + 2 * (16 * mt * ld + k), a);
+        mma_bf16(acc[mt][0], a, bq[0], bq[1]);
+        mma_bf16(acc[mt][1], a, bq[2], bq[3]);
+      }
+    }
+    // a fragment's rows g (elements 0, 1) and g + 8 (2, 3): this warp's
+    // cells are one pair, its partner's the other
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        *reinterpret_cast<float2*>(red_out + (mt * NG + q) * 32 * 2) =
+            kh ? make_float2(acc[mt][q][0], acc[mt][q][1])
+               : make_float2(acc[mt][q][2], acc[mt][q][3]);
+    __syncthreads();
+    float gv[MT][NG][2];  // the activations: [mt][gate][unit]
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float2 p = *reinterpret_cast<const float2*>(
+            red_in + (mt * NG + q) * 32 * 2);
+        const float m0 = kh ? acc[mt][q][2] : acc[mt][q][0];
+        const float m1 = kh ? acc[mt][q][3] : acc[mt][q][1];
+        gv[mt][q][0] = sigmoid(__fadd_rn(xv[mt][q][0], __fadd_rn(m0, p.x)));
+        gv[mt][q][1] = sigmoid(__fadd_rn(xv[mt][q][1], __fadd_rn(m1, p.y)));
+      }
+      *reinterpret_cast<uint32_t*>(hst + (16 * mt + rl) * kU + 8 * ug +
+                                   2 * t4) =
+          f2_to_bf2(__fmul_rn(gv[mt][1][0], hc[mt][0]),
+                    __fmul_rn(gv[mt][1][1], hc[mt][1]));
+    }
+    __syncthreads();  // the rh slice is staged; red is read
+    push_h<BB>(hst, rb, ld, u0, nc, rank);
+    cl_arrive();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int b = b0 + 16 * mt + rl;
+      if (b >= B) continue;
+      const size_t row = static_cast<size_t>(t) * B + b;
+      store2(gates + row * G + uc, gv[mt][0]);
+      store2(gates + row * G + D + uc, gv[mt][1]);
+    }
+    // (b) c~ = tanh(x_c + rh_lp W_c); the blend under the mask
+    cl_wait();  // r * h is whole in the rh buffer
+    float acc_c[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_c[mt][e] = 0.f;
+    for (int k = kb; k < kb + D / 2; k += 16) {
+      uint32_t bc[2];
+      ldsm_x2(bc_addr + 2 * k, bc);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        ldsm_x4(rh_addr + 2 * (16 * mt * ld + k), a);
+        mma_bf16(acc_c[mt], a, bc[0], bc[1]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      *reinterpret_cast<float2*>(red_out + (mt * NG + 2) * 32 * 2) =
+          kh ? make_float2(acc_c[mt][0], acc_c[mt][1])
+             : make_float2(acc_c[mt][2], acc_c[mt][3]);
+    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float m = static_cast<float>(t) < len[mt] ? 1.f : 0.f;
+      const float2 p = *reinterpret_cast<const float2*>(
+          red_in + (mt * NG + 2) * 32 * 2);
+      const float s[2] = {__fadd_rn(kh ? acc_c[mt][2] : acc_c[mt][0], p.x),
+                          __fadd_rn(kh ? acc_c[mt][3] : acc_c[mt][1], p.y)};
+#pragma unroll
+      for (int cu = 0; cu < 2; ++cu) {
+        const float u = gv[mt][0][cu], hp = hc[mt][cu];
+        const float c = tanhf(__fadd_rn(xv[mt][2][cu], s[cu]));
+        const float ht =
+            __fadd_rn(__fmul_rn(u, hp), __fmul_rn(__fsub_rn(1.f, u), c));
+        gv[mt][2][cu] = c;
+        hc[mt][cu] =
+            __fadd_rn(__fmul_rn(m, ht), __fmul_rn(__fsub_rn(1.f, m), hp));
+      }
+      *reinterpret_cast<uint32_t*>(hst + (16 * mt + rl) * kU + 8 * ug +
+                                   2 * t4) = f2_to_bf2(hc[mt][0], hc[mt][1]);
+    }
+    __syncthreads();  // the h slice is staged; red is read
+    push_h<BB>(hst, hb, ld, u0, nc, rank);
+    cl_arrive();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int b = b0 + 16 * mt + rl;
+      if (b >= B) continue;
+      const size_t row = static_cast<size_t>(t) * B + b;
+      store2(hs + row * D + uc, hc[mt]);
+      store2(gates + row * G + 2 * D + uc, gv[mt][2]);
+    }
+    if (t + 1 < n_steps) load_xg<MT>(x, xv, t + 1, B, D, b0 + rl, uc);
+  }
+  cl_wait();  // no CTA writes into this one's shared memory any more
+}
+
+// the GRU reverse's inputs of step t for this thread's cells (rows row0
+// + 16 i, units gu, gu + 1): the three saved gates, h_prev as stored (h0
+// at t = 0) and dhs, four bytes a load
+template <int MT>
+__device__ __forceinline__ void load_gru_bwd(
+    const bf16* __restrict__ gates, const bf16* __restrict__ hs,
+    const bf16* __restrict__ h0, const bf16* __restrict__ dhs,
+    float (&gq)[MT][3][2], float (&hp)[MT][2], float (&dhv)[MT][2], int t,
+    int B, int D, int row0, int gu) {
+  const int G = 3 * D;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int b = row0 + 16 * i;
+    if (b >= B) {
+#pragma unroll
+      for (int cu = 0; cu < 2; ++cu) {
+        gq[i][0][cu] = gq[i][1][cu] = gq[i][2][cu] = 0.f;
+        hp[i][cu] = dhv[i][cu] = 0.f;
+      }
+      continue;
+    }
+    const size_t n = static_cast<size_t>(t) * B + b;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) load2(gates + n * G + q * D + gu, gq[i][q]);
+    load2(t > 0 ? hs + (n - B) * D + gu : h0 + static_cast<size_t>(b) * D + gu,
+          hp[i]);
+    load2(dhs + n * D + gu, dhv[i]);
+  }
+}
+
+// B13's bf16 reverse recurrence on the resident route; the clusters,
+// tiles and W slices of gru_cluster_fwd_kernel, the thread layout of
+// lstm_cluster_bwd_kernel (thread (warp, lane) owns the cells of rows 2
+// warp + lane / 16 + 16 i, units u0 + 2 (lane % 16) and the next). Per
+// step, in reverse:
+//   (1) the owners form du_pre and dc_pre from their fp32 carry dh and
+//       the step's inputs (fetched a step ahead), write them to dx and,
+//       in bf16, to the dgates tile [BB][du | dr | dc~];
+//   (2) the partial drh = dc_lp[:, own 32] W_c_slice^T over all D
+//       (slice_t_product: the resident slice read by ldmatrix.trans) is
+//       reduce-scattered to the columns' owners (DSMEM, one slot per
+//       sender), which sum the slots in rank order and form dr_pre;
+//   (3) the partial dur_lp[:, own 64] W_ur_slice^T is reduce-scattered
+//       the same way, and dh_prev = dh_t u + drh r + dur_lp W_ur^T + (1 -
+//       m) dH in that order (the Pallas body's).
+// One set of slots serves both reductions: each push waits on the
+// barrier every owner arrives at after it has summed the slots before,
+// so a step takes four barrier phases. dx keeps the JAX layout
+// [du_pre | dr_pre | dc_pre] that gru_dw reads.
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+    gru_cluster_bwd_kernel(const bf16* __restrict__ gates,
+                           const bf16* __restrict__ hs,
+                           const bf16* __restrict__ w,
+                           const float* __restrict__ lens,
+                           const bf16* __restrict__ h0,
+                           const bf16* __restrict__ dhs,
+                           bf16* __restrict__ dx, bf16* __restrict__ dh0,
+                           int n_steps, int B, int D) {
+  constexpr int BB = 16 * MT, NG = 3, LDG = NG * kU + 8;
+  extern __shared__ __align__(16) unsigned char smem_rc[];
+  const int ld = D + 8, G = NG * D, nc = D / kU, n_nt = D / 8;
+  bf16* ws = reinterpret_cast<bf16*>(smem_rc);
+  bf16* dg = ws + NG * kU * ld;                          // [BB][LDG]
+  float* slot = reinterpret_cast<float*>(dg + BB * LDG);  // [nc][BB][kU]
+  const int rank = static_cast<int>(cluster_rank());
+  const int u0 = rank * kU;
+  const int b0 = static_cast<int>(blockIdx.x) / nc * BB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int up = 2 * (lane & 15);        // the cells' first local unit
+  const int gu = u0 + up;
+  const int r0 = 2 * warp + (lane >> 4);  // their row in each 16 rows
+
+  load_w_slice<NG>(w, ws, D, u0);
+  float dh[MT][2], len[MT], gq[MT][3][2], hp[MT][2], dhv[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int b = b0 + r0 + 16 * i;
+    len[i] = b < B ? lens[b] : 0.f;
+    dh[i][0] = dh[i][1] = 0.f;
+  }
+  if (n_steps > 0) {
+    load_gru_bwd<MT>(gates, hs, h0, dhs, gq, hp, dhv, n_steps - 1, B, D,
+                     b0 + r0, gu);
+  }
+  __syncthreads();
+  cl_arrive();  // pairs with the first step's wait before its stores
+
+  const uint32_t a_addr = smem_u32(
+      dg + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDG + 8 * (lane >> 4));
+  const uint32_t b_addr = smem_u32(ws + (lane & 15) * ld);
+  for (int t = n_steps - 1; t >= 0; --t) {
+    // (1) du_pre, dc_pre
+    float dht[MT][2], keep[MT][2], part[MT][2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r = r0 + 16 * i, b = b0 + r;
+      const float m = static_cast<float>(t) < len[i] ? 1.f : 0.f;
+      float du[2], dc[2];
+#pragma unroll
+      for (int cu = 0; cu < 2; ++cu) {
+        const float u = gq[i][0][cu], c = gq[i][2][cu];
+        const float dH = __fadd_rn(dhv[i][cu], dh[i][cu]);
+        dht[i][cu] = __fmul_rn(m, dH);
+        keep[i][cu] = __fmul_rn(__fsub_rn(1.f, m), dH);
+        const float dhu = __fmul_rn(dht[i][cu], __fsub_rn(hp[i][cu], c));
+        du[cu] = __fmul_rn(__fmul_rn(dhu, u), __fsub_rn(1.f, u));
+        dc[cu] = __fmul_rn(__fmul_rn(dht[i][cu], __fsub_rn(1.f, u)),
+                           __fsub_rn(1.f, __fmul_rn(c, c)));
+      }
+      if (b < B) {
+        const size_t n = static_cast<size_t>(t) * B + b;
+        store2(dx + n * G + gu, du);
+        store2(dx + n * G + 2 * D + gu, dc);
+      }
+      // padding rows: zeros (their inputs are)
+      *reinterpret_cast<uint32_t*>(dg + r * LDG + up) = f2_to_bf2(du[0], du[1]);
+      *reinterpret_cast<uint32_t*>(dg + r * LDG + 2 * kU + up) =
+          f2_to_bf2(dc[0], dc[1]);
+    }
+    __syncthreads();  // the dc~ columns of the tile are whole
+    // (2) drh: the partial product, reduce-scatter, the owners' sums
+    float acc[MT][8][4];
+    slice_t_product<MT, 2 * kU, 3 * kU, LDG>(acc, a_addr, b_addr, ld, n_nt,
+                                             warp, lane, rank);
+    cl_wait();  // every owner has summed the slots of the reduction before
+    push_partials<MT>(acc, slot, rank, n_nt, warp, lane);
+    cl_arrive();
+    cl_wait();  // every partial is in its owner's slots
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r = r0 + 16 * i, b = b0 + r;
+      float drh[2] = {0.f, 0.f}, dr[2];
+      for (int j = 0; j < nc; ++j) {
+        const float2 v =
+            *reinterpret_cast<const float2*>(slot + (j * BB + r) * kU + up);
+        drh[0] += v.x;
+        drh[1] += v.y;
+      }
+#pragma unroll
+      for (int cu = 0; cu < 2; ++cu) {
+        const float rg = gq[i][1][cu];
+        dr[cu] = __fmul_rn(__fmul_rn(__fmul_rn(drh[cu], hp[i][cu]), rg),
+                           __fsub_rn(1.f, rg));
+        part[i][cu] = __fadd_rn(__fmul_rn(dht[i][cu], gq[i][0][cu]),
+                                __fmul_rn(drh[cu], rg));
+      }
+      if (b < B) {
+        store2(dx + (static_cast<size_t>(t) * B + b) * G + D + gu, dr);
+      }
+      *reinterpret_cast<uint32_t*>(dg + r * LDG + kU + up) =
+          f2_to_bf2(dr[0], dr[1]);
+    }
+    cl_arrive();
+    __syncthreads();  // the du | dr columns of the tile are whole
+    // (3) dur_lp W_ur^T: the partial product, reduce-scatter, dh_prev
+    slice_t_product<MT, 0, 2 * kU, LDG>(acc, a_addr, b_addr, ld, n_nt, warp,
+                                        lane, rank);
+    cl_wait();  // every owner has summed the drh slots
+    push_partials<MT>(acc, slot, rank, n_nt, warp, lane);
+    cl_arrive();
+    if (t > 0) {  // the next step's inputs, in flight across the barrier
+      load_gru_bwd<MT>(gates, hs, h0, dhs, gq, hp, dhv, t - 1, B, D,
+                       b0 + r0, gu);
+    }
+    cl_wait();  // every partial is in its owner's slots
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r = r0 + 16 * i;
+      float s[2] = {0.f, 0.f};
+      for (int j = 0; j < nc; ++j) {
+        const float2 v =
+            *reinterpret_cast<const float2*>(slot + (j * BB + r) * kU + up);
+        s[0] += v.x;
+        s[1] += v.y;
+      }
+      dh[i][0] = __fadd_rn(__fadd_rn(part[i][0], s[0]), keep[i][0]);
+      dh[i][1] = __fadd_rn(__fadd_rn(part[i][1], s[1]), keep[i][1]);
+    }
+    cl_arrive();
+  }
+  cl_wait();  // no CTA writes into this one's shared memory any more
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int b = b0 + r0 + 16 * i;
+    if (b < B) store2(dh0 + static_cast<size_t>(b) * D + gu, dh[i]);
+  }
 }
 
 // C [M][N] = A [M][K] B (+ bias[N]): the route's two GEMMs, bf16 operands
@@ -2610,12 +3072,14 @@ cudaError_t max_clusters(K kernel, int nc, int smem, int* n) {
 }
 
 // lane 1 (bf16) only; D a multiple of 32 with at most 16 CTAs a cluster;
-// bb 16 or 32 rows a tile, its shared memory within the opt-in limit
-bool bad_cluster(int lane, int n_steps, int B, int D, int bb) {
+// bb rows a tile, 16 or 32 (the LSTM, ng 4) or 16, 32 or 48 (the GRU, ng
+// 3), both recurrences' shared memory within the opt-in limit
+bool bad_cluster(int lane, int n_steps, int B, int D, int bb, int ng = 4) {
   const int mt = bb / 16;
   return lane != 1 || n_steps < 0 || B < 1 || D < kU || D % kU != 0 ||
-         D / kU > kMaxCluster || (bb != 16 && bb != 32) ||
-         fwd_smem(mt, D) > 232448 || bwd_smem(mt, D) > 232448;
+         D / kU > kMaxCluster || (ng != 3 && ng != 4) || bb % 16 != 0 ||
+         mt < 1 || mt > (ng == 3 ? 3 : 2) || fwd_smem(mt, D, ng) > 232448 ||
+         bwd_smem(mt, D, ng) > 232448;
 }
 
 // the forward recurrence at tiles of bb rows, its first term x of type XT
@@ -2637,20 +3101,55 @@ cudaError_t cluster_fwd(const void* x, const void* w, const float* lens,
 #undef CALL
 }
 
+// B12's recurrence (fwd) or B13's reverse one at tiles of bb rows: the
+// kernel of MT = bb / 16 for `tiles` clusters of D / 32 CTAs
+cudaError_t gru_cluster(bool fwd, const void* a, const void* b,
+                        const void* w, const float* lens, const void* h0,
+                        const void* dhs, void* out0, void* out1, int n_steps,
+                        int B, int D, int bb, cudaStream_t st) {
+  const int nc = D / kU, tiles = (B + bb - 1) / bb;
+  const bf16 *a_ = static_cast<const bf16*>(a),
+             *b_ = static_cast<const bf16*>(b),
+             *w_ = static_cast<const bf16*>(w),
+             *h0_ = static_cast<const bf16*>(h0),
+             *dhs_ = static_cast<const bf16*>(dhs);
+  bf16 *o0 = static_cast<bf16*>(out0), *o1 = static_cast<bf16*>(out1);
+#define FWD(MT)                                                            \
+  launch_cluster(gru_cluster_fwd_kernel<MT>, nc, tiles, fwd_smem(MT, D, 3), \
+                 st, a_, w_, lens, h0_, o0, o1, n_steps, B, D)
+#define BWD(MT)                                                            \
+  launch_cluster(gru_cluster_bwd_kernel<MT>, nc, tiles, bwd_smem(MT, D, 3), \
+                 st, a_, b_, w_, lens, h0_, dhs_, o0, o1, n_steps, B, D)
+  if (fwd) return bb == 16 ? FWD(1) : bb == 32 ? FWD(2) : FWD(3);
+  return bb == 16 ? BWD(1) : bb == 32 ? BWD(2) : BWD(3);
+#undef FWD
+#undef BWD
+}
+
 }  // namespace rc
 
 }  // namespace
 
 // x [T, B, 3D], w [D, 3D], lens [B] fp32, h0 [B, D] -> hs [T, B, D],
-// gates [T, B, 3D]; one block per bb rows.
+// gates [T, B, 3D]. bb 1, 2, 4, 8: the streaming kernel, one block per bb
+// rows (either lane); bb 16, 32, 48: the resident route (bf16), one
+// cluster of D / 32 CTAs per bb rows.
 extern "C" int gru_fwd(int lane, const void* x, const void* w,
                        const float* lens, const void* h0, void* hs,
                        void* gates, int n_steps, int B, int D, int bb,
                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bb >= 16) {
+    if (rc::bad_cluster(lane, n_steps, B, D, bb, 3)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(rc::gru_cluster(true, x, nullptr, w, lens, h0,
+                                            nullptr, hs, gates, n_steps, B,
+                                            D, bb, st));
+  }
   if (bad_sizes(lane, n_steps, B, D, bb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GRU_FWD(T, BB) \
   launch_fwd<T, BB>(x, w, lens, h0, hs, gates, n_steps, B, D, st)
   cudaError_t err;
@@ -2665,17 +3164,27 @@ extern "C" int gru_fwd(int lane, const void* x, const void* w,
   return static_cast<int>(err);
 }
 
-// gates [T, B, 3D], hs [T, B, D], wt = W^T [3D, D], lens, h0, dhs
-// [T, B, D] -> dx [T, B, 3D], dh0 [B, D]; one block per bb rows, reverse
-// time.
+// gates [T, B, 3D], hs [T, B, D], wt, lens, h0, dhs [T, B, D] -> dx
+// [T, B, 3D], dh0 [B, D], reverse time. bb 1, 2, 4, 8: the streaming
+// kernel, one block per bb rows, wt = W^T [3D, D]; bb 16, 32, 48: the
+// resident route (bf16), one cluster per bb rows, wt = W [D, 3D] itself
+// (read transposed from its resident slices).
 extern "C" int gru_bwd(int lane, const void* gates, const void* hs,
                        const void* wt, const float* lens, const void* h0,
                        const void* dhs, void* dx, void* dh0, int n_steps,
                        int B, int D, int bb, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bb >= 16) {
+    if (rc::bad_cluster(lane, n_steps, B, D, bb, 3)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(rc::gru_cluster(false, gates, hs, wt, lens, h0,
+                                            dhs, dx, dh0, n_steps, B, D, bb,
+                                            st));
+  }
   if (bad_sizes(lane, n_steps, B, D, bb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GRU_BWD(T, BB)                                                    \
   launch_bwd<T, BB>(gates, hs, wt, lens, h0, dhs, dx, dh0, n_steps, B, D, \
                     st)
@@ -2976,30 +3485,39 @@ extern "C" int cluster_lstm_bwd(int lane, const void* gates, const void* cs,
 }
 
 // out[0] = how many clusters of D / 32 CTAs (tiles of bb rows) the card
-// holds at once: the fewer of the two recurrences' (B14/B15's
-// instantiations; B10/B11's have the same shared memory and one CTA an
-// SM, so the same count)
-extern "C" int cluster_lstm_occupancy(int lane, int* out, int D, int bb,
-                                      void* stream) {
+// holds at once: the fewer of the two recurrences' of ng gates (4: B14/
+// B15's instantiations; B10/B11's have the same shared memory and one CTA
+// an SM, so the same count; 3: B12/B13's)
+extern "C" int cluster_occupancy(int lane, int* out, int D, int bb, int ng,
+                                 void* stream) {
   (void)stream;
-  if (rc::bad_cluster(lane, 0, 1, D, bb) || out == nullptr) {
+  if (rc::bad_cluster(lane, 0, 1, D, bb, ng) || out == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int nc = D / rc::kU;
+  const int nc = D / rc::kU, mt = bb / 16;
   int f = 0, b = 0;
-  cudaError_t err =
-      bb == 16
-          ? rc::max_clusters(rc::lstm_cluster_fwd_kernel<1, float>, nc,
-                             rc::fwd_smem(1, D), &f)
-          : rc::max_clusters(rc::lstm_cluster_fwd_kernel<2, float>, nc,
-                             rc::fwd_smem(2, D), &f);
-  if (err == cudaSuccess) {
-    err = bb == 16
-              ? rc::max_clusters(rc::lstm_cluster_bwd_kernel<1, true>, nc,
-                                 rc::bwd_smem(1, D), &b)
-              : rc::max_clusters(rc::lstm_cluster_bwd_kernel<2, true>, nc,
-                                 rc::bwd_smem(2, D), &b);
+#define FWD(K, MT) rc::max_clusters(K, nc, rc::fwd_smem(MT, D, ng), &f)
+#define BWD(K, MT) rc::max_clusters(K, nc, rc::bwd_smem(MT, D, ng), &b)
+  cudaError_t err;
+  if (ng == 4) {
+    err = mt == 1 ? FWD((rc::lstm_cluster_fwd_kernel<1, float>), 1)
+                  : FWD((rc::lstm_cluster_fwd_kernel<2, float>), 2);
+    if (err == cudaSuccess) {
+      err = mt == 1 ? BWD((rc::lstm_cluster_bwd_kernel<1, true>), 1)
+                    : BWD((rc::lstm_cluster_bwd_kernel<2, true>), 2);
+    }
+  } else {
+    err = mt == 1   ? FWD(rc::gru_cluster_fwd_kernel<1>, 1)
+          : mt == 2 ? FWD(rc::gru_cluster_fwd_kernel<2>, 2)
+                    : FWD(rc::gru_cluster_fwd_kernel<3>, 3);
+    if (err == cudaSuccess) {
+      err = mt == 1   ? BWD(rc::gru_cluster_bwd_kernel<1>, 1)
+            : mt == 2 ? BWD(rc::gru_cluster_bwd_kernel<2>, 2)
+                      : BWD(rc::gru_cluster_bwd_kernel<3>, 3);
+    }
   }
+#undef FWD
+#undef BWD
   out[0] = f < b ? f : b;
   return static_cast<int>(err);
 }

@@ -51,8 +51,14 @@ direction that reads W (and Wx) from L2 every step. Each recurrence
 launch counts under its wrapper's name (``lstm_fwd``, ``lstm_bwd``,
 ``lstm_proj_fwd``, ``lstm_proj_bwd``) and under its route's
 (``..._cluster``, ``..._stream``); the passes under ``lstm_proj_xg`` /
-``lstm_proj_dxe``. On CPU tensors each runs its plain version, which
-follows the Pallas body step by step in torch ops.
+``lstm_proj_dxe``. The GRU recurrences (B12, B13's) take the routes of
+the same plan with three gates (``lstm_cluster_plan(..., ng=3)``):
+resident in bf16 (the forward's reset before the candidate's product
+makes two exchanges a step; the reverse reads W transposed from its
+resident slices, with no transposed copy), else streaming; each launch
+counts under ``gru_fwd`` / ``gru_bwd`` and ``gru_{fwd,bwd}_{cluster,
+stream}``. On CPU tensors each runs its plain version, which follows the
+Pallas body step by step in torch ops.
 Inside ``plain_versions()`` the scans run the plain versions on any
 device: what the kernels are held against on the card.
 
@@ -95,7 +101,7 @@ _ENTRIES = {"gru_fwd": (6, 4), "gru_bwd": (8, 4), "gru_dw": (6, 4),
             "lstm_proj_fwd": (10, 5), "lstm_proj_bwd": (14, 5),
             "proj_gemm": (4, 4), "cluster_lstm_fwd": (8, 4),
             "cluster_lstm_fwd_x": (8, 4),
-            "cluster_lstm_bwd": (12, 4), "cluster_lstm_occupancy": (1, 2),
+            "cluster_lstm_bwd": (12, 4), "cluster_occupancy": (1, 3),
             "cluster_lstm_probe": (1, 5)}
 _entries = {}
 SMEM_LIMIT = 232448        # bytes of shared memory a block may opt in to
@@ -325,42 +331,59 @@ def gru_bwd_reference(gates, hs, w, lens, h0, dhs):
 # ------------------------------------------------------------------ kernels
 
 def gru_fwd(x, w, lens, h0):
-    """The forward: ``(hs, gates)``. CUDA tensors launch the kernel
-    (``kernels.LAUNCHES["gru_fwd"]``) or raise; CPU tensors take the
-    plain version."""
+    """The forward: ``(hs, gates)``. CUDA tensors take the route of
+    ``lstm_cluster_plan(..., ng=3)`` for x's dtype: resident (bf16: W
+    split over one thread-block cluster's shared memory,
+    ``kernels.LAUNCHES["gru_fwd"]`` and ``["gru_fwd_cluster"]``) or
+    streaming (one kernel reading W from L2 every step, ``["gru_fwd"]``
+    and ``["gru_fwd_stream"]``), or raise; CPU tensors take the plain
+    version."""
     T, B, D = _check_shapes(x, w, lens, h0)
     if _device_kind(x) == "cpu":
         return gru_fwd_reference(x, w, lens, h0)
     lane = _check_cuda((("x", x), ("w", w), ("h0", h0)), lens)
-    _check_d(D)
+    plan = _cluster_plan(x.dtype, B, D, x.device, ng=3)
+    if plan.route == "resident":
+        bb, route = plan.bb, "gru_fwd_cluster"
+    else:
+        _check_d(D)
+        bb, route = _pick_bb("gru_fwd", B, D, x.device), "gru_fwd_stream"
     hs = x.new_empty((T, B, D))
     gates = torch.empty_like(x)
     if B:
-        _launch("gru_fwd", lane, (x, w, lens, h0, hs, gates),
-                (T, B, D, _pick_bb("gru_fwd", B, D, x.device)), x.device)
+        _launch("gru_fwd", lane, (x, w, lens, h0, hs, gates), (T, B, D, bb),
+                x.device, also=(route,))
     return hs, gates
 
 
 def gru_bwd_data(gates, hs, w, lens, h0, dhs):
-    """The backward recurrence: ``(dx, dh0)``. CUDA tensors launch the
-    kernel (``LAUNCHES["gru_bwd"]``) or raise; CPU tensors take the
-    plain version."""
+    """The backward recurrence: ``(dx, dh0)``. CUDA tensors take the
+    route of ``lstm_cluster_plan(..., ng=3)`` for the gates' dtype:
+    resident (W read transposed from its resident slices,
+    ``LAUNCHES["gru_bwd"]`` and ``["gru_bwd_cluster"]``) or streaming
+    (one kernel over a transposed copy of W, ``["gru_bwd"]`` and
+    ``["gru_bwd_stream"]``), or raise; CPU tensors take the plain
+    version."""
     T, B, D = _check_shapes(gates, w, lens, h0)
     if _device_kind(gates) == "cpu":
         return gru_bwd_data_reference(gates, hs, w, lens, h0, dhs)
     _check_like(gates, hs, h0, ("dhs", dhs, hs.shape))
     lane = _check_cuda((("gates", gates), ("hs", hs), ("w", w), ("h0", h0),
                         ("dhs", dhs)), lens)
-    _check_d(D)
+    plan = _cluster_plan(gates.dtype, B, D, gates.device, ng=3)
+    if plan.route == "resident":
+        bb, route = plan.bb, "gru_bwd_cluster"
+    else:
+        _check_d(D)
+        bb, route = _pick_bb("gru_bwd", B, D, gates.device), "gru_bwd_stream"
     dx = torch.empty_like(gates)
     dh0 = torch.empty_like(h0)
     if B:
-        # the kernel reads W^T [3D, D]: both of its products then walk
-        # neighbouring columns, as the forward's do
-        wt = w.t().contiguous()
+        # the streaming kernel reads W^T [3D, D]: both of its products
+        # then walk neighbouring columns, as the forward's do
+        wt = w if plan.route == "resident" else _wt(w)
         _launch("gru_bwd", lane, (gates, hs, wt, lens, h0, dhs, dx, dh0),
-                (T, B, D, _pick_bb("gru_bwd", B, D, gates.device)),
-                gates.device)
+                (T, B, D, bb), gates.device, also=(route,))
     return dx, dh0
 
 
@@ -726,11 +749,14 @@ def dw_plan(kind, dtype, T, B, D, E=0, n_sm=132):
 
 REC_UNITS = 32             # hidden units a CTA of a resident cluster owns
 REC_MAX_CLUSTER = 16       # CTAs a cluster may hold (a non-portable size)
-REC_TILES = (16, 32)       # batch rows a cluster: one or two mma M tiles
+# batch rows a cluster, by the recurrence's gate count: one to three mma
+# M tiles (the LSTM's 48-row tile is not built: at D 512 it does not fit)
+REC_TILES = {4: (16, 32), 3: (16, 32, 48)}
 
 
 class ClusterPlan(NamedTuple):
-    """How the bf16 LSTM recurrences run (``lstm_cluster_plan``)."""
+    """How the bf16 LSTM and GRU recurrences run
+    (``lstm_cluster_plan``)."""
     route: str                 # "resident" or "streaming"
     bb: int                    # batch rows a cluster (0: streaming)
     cluster: int               # CTAs a cluster: D / REC_UNITS
@@ -739,69 +765,80 @@ class ClusterPlan(NamedTuple):
     smem: int                  # bytes of shared memory a CTA
 
 
-def _rec_smem(kind, bb, D):
-    """Shared memory of a resident recurrence CTA (``csrc/fused_rnn.cu``'s
-    ``rc::fwd_smem`` / ``bwd_smem``): W's slice [128, D + 8] bf16; the
-    forward's h buffers [2, bb, D + 8] bf16, staged slice [bb, 32] bf16
-    and K-half partials [4, bb/16, 4, 32, 4] fp32; the backward's dgates
-    tile [bb, 136] bf16 and slots [D / 32, bb, 32] fp32."""
-    n = 4 * REC_UNITS
+def _rec_smem(kind, bb, D, ng=4):
+    """Shared memory of a resident recurrence CTA of ``ng`` gates (4: the
+    LSTM, 3: the GRU; ``csrc/fused_rnn.cu``'s ``rc::fwd_smem`` /
+    ``bwd_smem``): W's slice [32 ng, D + 8] bf16; the forward's two
+    [bb, D + 8] bf16 buffers (the LSTM's h twice, the GRU's h and r * h),
+    staged slice [bb, 32] bf16 and K-half partials [4, bb/16, ng, 32, 4]
+    fp32; the backward's dgates tile [bb, 32 ng + 8] bf16 and slots
+    [D / 32, bb, 32] fp32."""
+    n = ng * REC_UNITS
     if kind == "fwd":
         return (2 * (n * (D + 8) + 2 * bb * (D + 8) + bb * REC_UNITS)
-                + 4 * (4 * (bb // 16) * 4 * 32 * 4))
+                + 4 * (4 * (bb // 16) * ng * 32 * 4))
     return 2 * (n * (D + 8) + bb * (n + 8)) + 4 * D * bb
 
 
-def lstm_cluster_plan(dtype, B, D, n_sm=132, max_clusters=None):
-    """The LSTM recurrences' route and tile (B10/B11's and B14/B15's), by
-    shape, before any launch. Resident:
-    bf16, D a multiple of 32 with at most 16 CTAs a cluster (D <= 512),
-    both recurrences' CTAs within ``SMEM_LIMIT``, and the card able to
-    hold a cluster. Each tile of ``bb`` batch rows is one cluster of D /
-    32 CTAs (CTA j owns hidden units 32j..32j+31, its 128 columns of W
-    resident); ``bb`` is 16 (one mma M tile) while ``ceil(B / 16)``
-    clusters fit on the card at once (``max_clusters``: the card's count,
-    queried from the kernels; by default ``n_sm // (D / 32)``), else 32
-    where its shared memory fits: fewer, larger tiles, all co-resident
-    where they can be. Clusters never wait on each other, so more tiles
-    than fit run in waves. Everything else (fp32, other D) streams W
-    from L2 every step."""
+def lstm_cluster_plan(dtype, B, D, n_sm=132, max_clusters=None, ng=4):
+    """The resident recurrences' route and tile, by shape, before any
+    launch: the LSTM's (``ng`` 4: B10/B11's and B14/B15's) or the GRU's
+    (``ng`` 3: B12/B13's). Resident: bf16, D a multiple of 32 with at
+    most 16 CTAs a cluster (D <= 512), both recurrences' CTAs within
+    ``SMEM_LIMIT`` at the smallest tile, and the card able to hold a
+    cluster. Each tile of ``bb`` batch rows is one cluster of D / 32 CTAs
+    (CTA j owns hidden units 32j..32j+31, its 32 ng columns of W
+    resident). Clusters never wait on each other, so more tiles than the
+    card holds at once (``max_clusters``: the card's count, queried from
+    the kernels; by default ``n_sm // (D / 32)``) run in waves; ``bb`` is
+    the tile of ``REC_TILES[ng]`` whose shared memory fits with the
+    fewest waves, the smaller of two with as many (the LSTM's: 16 while
+    ``ceil(B / 16)`` clusters fit at once, else 32). Everything else
+    (fp32, other D) streams W from L2 every step."""
     nc = D // REC_UNITS if D % REC_UNITS == 0 else 0
-    fits = {bb: max(_rec_smem("fwd", bb, D), _rec_smem("bwd", bb, D))
-            <= SMEM_LIMIT for bb in REC_TILES}
+    fits = [bb for bb in REC_TILES[ng]
+            if max(_rec_smem("fwd", bb, D, ng), _rec_smem("bwd", bb, D, ng))
+            <= SMEM_LIMIT]
     mc = 0
-    if dtype == torch.bfloat16 and 1 <= nc <= REC_MAX_CLUSTER and fits[16]:
+    if dtype == torch.bfloat16 and 1 <= nc <= REC_MAX_CLUSTER and \
+            REC_TILES[ng][0] in fits:
         mc = n_sm // nc if max_clusters is None else int(max_clusters)
     if mc < 1:
         return ClusterPlan("streaming", 0, 0, 0, 0, 0)
-    bb = 16 if -(-B // 16) <= mc or not fits[32] else 32
+
+    def waves(bb):             # ceil(B / bb) clusters, mc at a time
+        return -(-(-(-B // bb)) // mc)
+
+    bb = min(fits, key=lambda b: (waves(b), b))
     return ClusterPlan("resident", bb, nc, -(-B // bb), mc,
-                       max(_rec_smem("fwd", bb, D), _rec_smem("bwd", bb, D)))
+                       max(_rec_smem("fwd", bb, D, ng),
+                           _rec_smem("bwd", bb, D, ng)))
 
 
-_max_clusters_of = {}      # (device index, D) -> the card's count
+_max_clusters_of = {}      # (device index, D, ng) -> the card's count
 
 
-def _cluster_plan(dtype, B, D, dev):
+def _cluster_plan(dtype, B, D, dev, ng=4):
     """``lstm_cluster_plan`` with the card's SM count and, for a shape
-    the resident route can take, the number of its clusters the card
-    holds at once (asked of the CUDA runtime once per device and D)."""
+    the resident route can take, the number of its clusters (of the
+    recurrences of ``ng`` gates, at the smallest tile) the card holds at
+    once (asked of the CUDA runtime once per device, D and ng)."""
     if (dtype != torch.bfloat16 or D % REC_UNITS
             or not 1 <= D // REC_UNITS <= REC_MAX_CLUSTER):
-        return lstm_cluster_plan(dtype, B, D)
+        return lstm_cluster_plan(dtype, B, D, ng=ng)
     key = (torch.cuda.current_device() if dev.index is None else dev.index,
-           D)
+           D, ng)
     mc = _max_clusters_of.get(key)
     if mc is None:
         out = torch.zeros(1, dtype=torch.int32)
         with torch.cuda.device(dev):
-            err = _cuda_entry("cluster_lstm_occupancy")(
-                1, out.data_ptr(), D, REC_TILES[0], None)
+            err = _cuda_entry("cluster_occupancy")(
+                1, out.data_ptr(), D, REC_TILES[ng][0], ng, None)
         if err != 0:
             raise RuntimeError(f"cluster occupancy query for D={D} failed: "
                                f"CUDA error {err}")
         mc = _max_clusters_of[key] = int(out[0])
-    return lstm_cluster_plan(dtype, B, D, _n_sm(dev), mc)
+    return lstm_cluster_plan(dtype, B, D, _n_sm(dev), mc, ng)
 
 
 def _dw_partials(plan, dev):

@@ -19,12 +19,17 @@ to ``FILE``:
   projections with M 80;
 - B12/B13 (``gru_fwd``, ``gru_bwd_data``, ``gru_dw``) and B10/B11/B14/
   B15 (every LSTM wrapper), fp32 and bf16, at ``GRU_SHAPES`` /
-  ``LSTM_SHAPES``; ``lstm_proj_dw`` also on B10/B11's hs and dx.
+  ``LSTM_SHAPES``; ``lstm_proj_dw`` also on B10/B11's hs and dx; bf16
+  ``gru_dw`` also on inputs that no kernel made (hs and gates from the
+  forward's plain version, dx from the reverse's), so that it is held
+  to the other tree's bits whatever the recurrences give.
 
 The outputs of kernels a PR redesigns are saved under a name that starts
-with ``REDESIGNED`` (B1-B4's, since their row-tile kernel; the LSTM
-outputs named in ``_REDESIGNED_OUTPUTS``, bf16 lane, none now): the
-comparison reports them apart and does not fail on them. The seeded inputs come
+with ``REDESIGNED`` (B1-B4's, since their row-tile kernel; the bf16 GRU
+recurrences' hs, gates, dx and dh0, since their resident route, and the
+dW computed from them; the LSTM outputs named in
+``_REDESIGNED_OUTPUTS``, bf16 lane, none now): the comparison reports
+them apart and does not fail on them. The seeded inputs come
 from this checkout's ``chip_smoke.py``. Run the first form once per
 tree, each in its own process. The second prints, for each output,
 whether the two files hold the same bits, and exits non-zero if any
@@ -124,9 +129,16 @@ def _outputs(cs, pa, qm, fr, dev):
             hs, gates = fr.gru_fwd(xs, ws, lens, h0s)
             dx, dh0 = fr.gru_bwd_data(gates, hs, ws, lens, h0s, dhss)
             dw = fr.gru_dw(gates, hs, h0s, dx)
+            tag = REDESIGNED if lane == "bf16" else ""
             for n, t in (("hs", hs), ("gates", gates), ("dx", dx),
                          ("dh0", dh0), ("dw", dw)):
-                out[f"gru_{lane}_{key}_{n}"] = t
+                out[f"{tag}gru_{lane}_{key}_{n}"] = t
+            if lane == "bf16":
+                p_hs, p_gates = fr.gru_fwd_reference(xs, ws, lens, h0s)
+                p_dx, _p_dh0 = fr.gru_bwd_data_reference(
+                    p_gates, p_hs, ws, lens, h0s, dhss)
+                out[f"gru_{lane}_{key}_dw_on_plain"] = fr.gru_dw(
+                    p_gates, p_hs, h0s, p_dx)
         for key, (T, Bb, D, E, ragged) in cs.LSTM_SHAPES.items():
             c = cs._lstm_case(dev, T, Bb, D, E, ragged)
             lc = {n: (t.to(dtype) if n != "lens" else t)
