@@ -2331,11 +2331,17 @@ LSTM_PROJ = ("lstm_proj_fwd", "lstm_proj_bwd", "lstm_proj_dw")
 # (B14/B15, with the resident route's pre- and post-pass kernels)
 LSTM_COMPOSED_ROUTE_NAMES = {
     "resident": ("lstm_fwd_cluster", "lstm_bwd_cluster"),
+    "grid": ("lstm_fwd_grid", "lstm_bwd_grid"),
     "streaming": ("lstm_fwd_stream", "lstm_bwd_stream")}
 LSTM_ROUTE_NAMES = {
     "resident": ("lstm_proj_fwd_cluster", "lstm_proj_bwd_cluster",
                  "lstm_proj_xg", "lstm_proj_dxe"),
+    "grid": ("lstm_proj_fwd_grid", "lstm_proj_bwd_grid", "lstm_proj_xg",
+             "lstm_proj_dxe"),
     "streaming": ("lstm_proj_fwd_stream", "lstm_proj_bwd_stream")}
+# the routes' suffixes of the launch names
+LSTM_ROUTE_SUFFIX = {"resident": "_cluster", "grid": "_grid",
+                     "streaming": "_stream"}
 LSTM_PASSES = {"lstm_proj_xg": "paddle_tpu/kernels/fused_rnn.py:663",
                "lstm_proj_dxe": "paddle_tpu/kernels/fused_rnn.py:700"}
 LSTM_PASS_NOTES = {
@@ -2371,18 +2377,39 @@ TEXT_B, TEXT_T, TEXT_LR = 128, 100, 0.002
 LSTM_SHAPES = {"layer1": (100, 128, 512, 128, False),
                "layer2": (100, 128, 512, 512, False),
                "ragged": (100, 128, 512, 128, True)}
-# the classifier at hidden 1024 (5f's train_lstm_wide and
-# train_lstm_wide_ragged): past D 512 W's slices would not fit a 16-CTA
-# cluster, so the LSTM recurrences' bf16 lane takes the streaming route;
-# 3f holds it at the wide model's first layer (T, B, D, E)
+# the classifier past D 512 (5f), where W's slices no longer fit a
+# 16-CTA cluster: at hidden 1024 (train_lstm_wide, train_lstm_wide_ragged)
+# and at the reference's published hidden 1280 (its benchmark/README.md's
+# widest LSTM, batch 128 x 100: train_lstm_1280 and its ragged run) the
+# bf16 recurrences take the grid route (W resident across 4 / 5 clusters
+# of 16 CTAs); at hidden 640, a D neither W-resident route takes
+# (train_lstm_640 and its ragged run), the streaming route
 TEXT_WIDE_CFG = dict(TEXT_CFG, hid_dim=1024)
-LSTM_STREAM_SHAPE = (TEXT_T, TEXT_B, TEXT_WIDE_CFG["hid_dim"],
-                     TEXT_CFG["emb_dim"])
-# the streaming rows and the run whose launches each reports
-LSTM_STREAM_ROWS = {"lstm_proj_fwd_stream": "train_lstm_wide",
-                    "lstm_proj_bwd_stream": "train_lstm_wide",
-                    "lstm_fwd_stream": "train_lstm_wide_ragged",
-                    "lstm_bwd_stream": "train_lstm_wide_ragged"}
+TEXT_1280_CFG = dict(TEXT_CFG, hid_dim=1280)
+TEXT_640_CFG = dict(TEXT_CFG, hid_dim=640)
+# 3f past D 512: (route, (T, B, D, E), the rows' key suffix, the E of a
+# second layer B14/B15 are also held at, or None): the grid route at the
+# hidden-1024 model's first layer and the hidden-1280 model's two, the
+# streaming route at hidden 640's first
+LSTM_WIDE_CHECKS = (
+    ("grid", (TEXT_T, TEXT_B, 1024, TEXT_CFG["emb_dim"]), "", None),
+    ("grid", (TEXT_T, TEXT_B, 1280, TEXT_CFG["emb_dim"]), "_d1280", 1280),
+    ("streaming", (TEXT_T, TEXT_B, 640, TEXT_CFG["emb_dim"]), "", None))
+# each row of those checks and the 5f run whose launches it reports (the
+# launch name is the row's key without its suffix)
+LSTM_WIDE_ROWS = {
+    "lstm_proj_fwd_grid": "train_lstm_wide",
+    "lstm_proj_bwd_grid": "train_lstm_wide",
+    "lstm_fwd_grid": "train_lstm_wide_ragged",
+    "lstm_bwd_grid": "train_lstm_wide_ragged",
+    "lstm_proj_fwd_grid_d1280": "train_lstm_1280",
+    "lstm_proj_bwd_grid_d1280": "train_lstm_1280",
+    "lstm_fwd_grid_d1280": "train_lstm_1280_ragged",
+    "lstm_bwd_grid_d1280": "train_lstm_1280_ragged",
+    "lstm_proj_fwd_stream": "train_lstm_640",
+    "lstm_proj_bwd_stream": "train_lstm_640",
+    "lstm_fwd_stream": "train_lstm_640_ragged",
+    "lstm_bwd_stream": "train_lstm_640_ragged"}
 
 
 def _lstm_case(dev, T, B, D, E, ragged, seed=0):
@@ -2851,58 +2878,117 @@ def check_lstm(fr, kernels, dev, flush, dtype):
     return recs
 
 
-def check_lstm_streaming(fr, kernels, dev, flush):
-    """Phase 3f, the LSTM recurrences' bf16 lane on the streaming route
-    (one kernel a direction reading W, and B14/B15's Wx, from L2 every
-    step) at LSTM_STREAM_SHAPE: the plan must stream; one forward and one
-    backward (from the kernel's own gates) of B10/B11 and of B14/B15 each
-    count once under its wrapper's name and its ``_stream`` name and
-    launch nothing else; every output no further from the fp32 plain
-    result than 1.5x the bf16 plain version + 1e-3 (3f's bf16 gate,
-    LSTM_OUTPUTS' measures). Then each timed beside its plain version and
-    its bound. Returns kernels-line records keyed by the route's launch
-    names."""
-    T, B, D, E = LSTM_STREAM_SHAPE
+def _recurrence_bound(name, T, B, D):
+    """Least time of a W-resident recurrence alone (bf16; what
+    ``us_per_step`` reads): B10's or B14's forward (x bf16 / the
+    pre-pass's xg fp32, W, h0, c0 -> hs, cs, gates) or B11's or B15's
+    reverse (gates, cs, W, c0, dhs, dcs -> dx, dh0, dc0; B15 also db
+    fp32): its bytes over the HBM rate against its product (2 T B D 4D
+    FLOPs) at the bf16 tensor-core rate."""
+    tb, G = T * B, 4 * D
+    if name in ("lstm_fwd", "lstm_proj_fwd"):
+        nbytes = ((2 if name == "lstm_fwd" else 4) * tb * G
+                  + 2 * (D * G + 2 * B * D + 2 * tb * D + tb * G))
+    else:
+        nbytes = (2 * (tb * G + tb * D + D * G + B * D + 2 * tb * D + tb * G
+                       + 2 * B * D)
+                  + (4 * G if name == "lstm_proj_bwd" else 0))
+    t_bytes = (nbytes + 4 * B) / H100_BYTES_PER_S * 1e3
+    t_ops = 2.0 * tb * D * G / H100_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+LSTM_WIDE_NAMES = ("lstm_fwd", "lstm_bwd", "lstm_proj_fwd", "lstm_proj_bwd")
+
+
+def check_lstm_wide(fr, kernels, dev, flush, route, shape, sfx="",
+                    names=LSTM_WIDE_NAMES):
+    """Phase 3f, the LSTM recurrences' bf16 lane past D 512 at one shape
+    (T, B, D, E) on ``route``: the grid route (W resident across a group
+    of 16-CTA clusters) or the streaming one (W, and B14/B15's Wx, read
+    from L2 every step). The plan must give ``route``; one forward and
+    one backward (from the kernel's own gates) of each of ``names``
+    (B10/B11, B14/B15) count once under its wrapper's name and its
+    route's (``_grid``: with B14/B15's pre- and post-pass) and launch
+    nothing else; every output no further from the fp32 plain result than
+    1.5x the bf16 plain version + 1e-3 (3f's bf16 gate, LSTM_OUTPUTS'
+    measures). On the grid route also: two launches of each bit-equal,
+    B10 bit-equal to B14's recurrence (``lstm_cluster_fwd``) on
+    float(x), B11's dx, dh0, dc0 to B15's recurrence's, and each
+    recurrence's device ms alone beside its bound (``_recurrence_bound``).
+    Then each wrapper timed beside its plain version and its bound.
+    Returns kernels-line records keyed by the route's launch names +
+    ``sfx``."""
+    T, B, D, E = shape
     dtype = torch.bfloat16
     plan = fr._cluster_plan(dtype, B, D, dev)
-    _check(plan.route == "streaming", f"lstm bf16 D {D}: route {plan}")
+    _check(plan.route == route, f"lstm bf16 D {D}: route {plan}, want "
+           f"{route}")
+    rsfx = LSTM_ROUTE_SUFFIX[route]
     c = {k: (v if k == "lens" else v.to(dtype))
          for k, v in _lstm_case(dev, T, B, D, E, False).items()}
     x, xe, wx, b, w, lens, h0, c0 = (c[k] for k in (
         "x", "xe", "wx", "b", "w", "lens", "h0", "c0"))
+    fwd = {"lstm_fwd": (fr.lstm_fwd, (x, w, lens, h0, c0)),
+           "lstm_proj_fwd": (fr.lstm_proj_fwd, (xe, wx, b, w, lens, h0, c0))}
     torch.cuda.synchronize()
     before = dict(kernels.LAUNCHES)
-    got = {"lstm_fwd": fr.lstm_fwd(x, w, lens, h0, c0),
-           "lstm_proj_fwd": fr.lstm_proj_fwd(xe, wx, b, w, lens, h0, c0)}
-    bargs = {"lstm_bwd": (got["lstm_fwd"][2], got["lstm_fwd"][1], w, lens,
-                          h0, c0, c["dhs"], c["dcs"]),
-             "lstm_proj_bwd": (got["lstm_proj_fwd"][2],
-                               got["lstm_proj_fwd"][1], wx, w, lens, h0, c0,
-                               c["dhs"], c["dcs"])}
-    got["lstm_bwd"] = fr.lstm_bwd_data(*bargs["lstm_bwd"])
-    got["lstm_proj_bwd"] = fr.lstm_proj_bwd_data(*bargs["lstm_proj_bwd"])
+    got = {n: k(*a) for n, (k, a) in fwd.items()
+           if n in names or n.replace("fwd", "bwd") in names}
+    bargs = {n.replace("fwd", "bwd"): (o[2], o[1])
+             + ((wx,) if "proj" in n else ()) + (w, lens, h0, c0, c["dhs"],
+                                                 c["dcs"])
+             for n, o in got.items()}
+    kerns = {"lstm_fwd": fr.lstm_fwd, "lstm_bwd": fr.lstm_bwd_data,
+             "lstm_proj_fwd": fr.lstm_proj_fwd,
+             "lstm_proj_bwd": fr.lstm_proj_bwd_data}
+    for n in bargs:
+        got[n] = kerns[n](*bargs[n])
     torch.cuda.synchronize()
     moved = {n: k - before[n] for n, k in kernels.LAUNCHES.items()
              if k != before[n]}
-    want = dict.fromkeys(("lstm_fwd", "lstm_bwd", "lstm_proj_fwd",
-                          "lstm_proj_bwd", *LSTM_STREAM_ROWS), 1)
+    want = dict.fromkeys(names + tuple(n + rsfx for n in names), 1)
+    if route == "grid" and "lstm_proj_fwd" in names:
+        want.update(lstm_proj_xg=1, lstm_proj_dxe=1)
     _check(moved == want, f"lstm bf16 D {D}: launches {moved}, want {want}")
+    fargs = {"lstm_fwd": fwd["lstm_fwd"][1],
+             "lstm_proj_fwd": fwd["lstm_proj_fwd"][1], **bargs}
+    bits = {}
+    rec_fns = {}
+    if route == "grid" and "lstm_proj_bwd" in names:
+        xg = fr.lstm_proj_xg(xe, wx, b)
+        pb = bargs["lstm_proj_bwd"]
+        rec_fns = {"lstm_proj_fwd": lambda: fr.lstm_cluster_fwd(
+                       xg, w, lens, h0, c0),
+                   "lstm_proj_bwd": lambda: fr.lstm_cluster_bwd(
+                       pb[0], pb[1], *pb[3:])}
+    if route == "grid":
+        bits = {f"{n}_two_launches": all(torch.equal(a, b_) for a, b_ in zip(
+            got[n], kerns[n](*fargs[n]))) for n in names}
+        if "lstm_fwd" in names:
+            ref_b = fr.lstm_cluster_bwd(*bargs["lstm_bwd"])
+            bits["b10_vs_b14_recurrence_on_float_x"] = all(
+                torch.equal(a, b_) for a, b_ in zip(
+                    got["lstm_fwd"], fr.lstm_cluster_fwd(x.float(), w, lens,
+                                                         h0, c0)))
+            bits["b11_vs_b15_recurrence"] = all(
+                torch.equal(a, b_) for a, b_ in zip(
+                    got["lstm_bwd"], (ref_b[0], ref_b[2], ref_b[3])))
+            del ref_b
+        _check(all(bits.values()), f"lstm bf16 grid D {D}: bits {bits}")
 
     def f32(args):
         return [a if a is lens else a.float() for a in args]
 
-    fargs = {"lstm_fwd": (x, w, lens, h0, c0),
-             "lstm_proj_fwd": (xe, wx, b, w, lens, h0, c0), **bargs}
     refs = {"lstm_fwd": fr.lstm_fwd_reference,
             "lstm_bwd": fr.lstm_bwd_data_reference,
             "lstm_proj_fwd": fr.lstm_proj_fwd_reference,
             "lstm_proj_bwd": fr.lstm_proj_bwd_data_reference}
-    kerns = {"lstm_fwd": fr.lstm_fwd, "lstm_bwd": fr.lstm_bwd_data,
-             "lstm_proj_fwd": fr.lstm_proj_fwd,
-             "lstm_proj_bwd": fr.lstm_proj_bwd_data}
+    plan_rec = plan._asdict()
     recs = {}
-    for name, ref in refs.items():
-        args = fargs[name]
+    for name in names:
+        ref, args = refs[name], fargs[name]
         plain = ref(*args)
         exact = ref(*f32(args))
         outs = LSTM_OUTPUTS[name]
@@ -2911,23 +2997,34 @@ def check_lstm_streaming(fr, kernels, dev, flush):
             gate[n] = (_LSTM_MEASURE[outs[n]](g, e),
                        _LSTM_MEASURE[outs[n]](p, e))
             _check(gate[n][0] <= FLASH_BF16_RATIO * gate[n][1] + 1e-3,
-                   f"lstm bf16 streaming D {D}: {n} is {gate[n][0]} from "
-                   f"fp32, the plain version {gate[n][1]}")
+                   f"lstm bf16 {route} D {D} E {E}: {n} is {gate[n][0]} "
+                   f"from fp32, the plain version {gate[n][1]}")
         del plain, exact
         kernel_fn = (lambda k=kerns[name], a=args: k(*a))
         ms = _time_ms(kernel_fn, flush, reps=10)
         device_ms = _time_ms(kernel_fn, flush, reps=10, queue_ahead=True)
-        recs[f"{name}_stream"] = _lane_record(
-            f"{name}_bf16_stream", LSTM_KERNELS[name], GRU_SOURCE,
+        extra = {"shape": [T, B, D] + ([E] if "proj" in name else []),
+                 "dtype": "bfloat16", "plan": plan_rec,
+                 "device_ms": device_ms, "err_is": dict(outs),
+                 "err_vs_fp32_and_plain_bf16_err": gate,
+                 "library_note": LSTM_LIBRARY_NOTE}
+        if route == "grid":
+            rec_ms = (_time_ms(rec_fns[name], flush, reps=10,
+                               queue_ahead=True) if name in rec_fns
+                      else device_ms)
+            extra.update({"recurrence_device_ms": rec_ms,
+                          "us_per_step": rec_ms * 1e3 / T,
+                          "recurrence_bound_ms": _recurrence_bound(
+                              name, T, B, D)[0],
+                          "bit_equal": bits})
+        else:
+            extra["us_per_step"] = device_ms * 1e3 / T
+        recs[f"{name}{rsfx}{sfx}"] = _lane_record(
+            f"{name}_bf16{rsfx}{sfx}", LSTM_KERNELS[name], GRU_SOURCE,
             max(e for e, _p in gate.values()), ms,
             _time_ms(lambda r=ref, a=args: r(*a), flush, reps=3), None,
-            _lstm_bound(name, dtype, T, B, D, E),
-            {"shape": [T, B, D] + ([E] if "proj" in name else []),
-             "dtype": "bfloat16", "plan": {"route": plan.route},
-             "device_ms": device_ms, "us_per_step": device_ms * 1e3 / T,
-             "err_is": dict(outs), "err_vs_fp32_and_plain_bf16_err": gate,
-             "library_note": LSTM_LIBRARY_NOTE})
-    del c, got, bargs, fargs
+            _lstm_bound(name, dtype, T, B, D, E), extra)
+    del c, got, bargs, fargs, rec_fns
     kernels.reset_launches()
     return recs
 
@@ -2976,7 +3073,8 @@ def _text_grads(tx, params, feed, cfg):
     return loss.detach(), dict(zip(live, grads))
 
 
-def check_text_step(tx, fr, kernels, dev):
+def check_text_step(tx, fr, kernels, dev, widths=TEXT_CFG,
+                    fused_routes=(True, False), fp32_kernels=True):
     """Phase 4f: one full-width flagship training step (bench_lstm's
     config: fused_lstm, batch 128 x 100) in fp32 and under AMP, and the
     composed route (fc + dynamic_lstm) in both, through the LSTM kernels
@@ -2986,16 +3084,27 @@ def check_text_step(tx, fr, kernels, dev):
     from the same params and feed: the loss, and every gradient by
     relative L2 with each leaf's norm floored at S2S_NORM_FLOOR x the
     whole gradient's (fp32: S2S_REL_TOL; AMP: no further from the fp32
-    plain gradient than S2S_BF16_RATIO x the AMP plain path's + 1e-2)."""
+    plain gradient than S2S_BF16_RATIO x the AMP plain path's + 1e-2).
+    ``widths`` another model's (hidden 1280: the grid route),
+    ``fused_routes`` the routes held; with ``fp32_kernels`` False the
+    fp32 step runs through the plain versions alone, as the AMP gate's
+    reference, and the AMP step is the one held."""
     feed = _text_feeds(dev, n=1, seed=1)[0]
     recs = []
-    for fused_proj in (True, False):
+    for fused_proj in fused_routes:
         exact = None
         for amp in (False, True):
-            route = _lstm_route_names(dev, fused_proj, amp)
+            route = _lstm_route_names(dev, fused_proj, amp,
+                                      D=widths["hid_dim"])
             torch.cuda.empty_cache()
-            cfg = tx.TextConfig(**TEXT_CFG, fused_proj=fused_proj, amp=amp)
+            cfg = tx.TextConfig(**widths, fused_proj=fused_proj, amp=amp)
             params = tx.init_params(cfg, seed=0, device=dev)
+            if not (amp or fp32_kernels):
+                with fr.plain_versions():
+                    _p_loss, exact = _text_grads(tx, params, feed, cfg)
+                floor = S2S_NORM_FLOOR * _grad_norm(exact)
+                del params
+                continue
             torch.cuda.synchronize()
             kernels.reset_launches()
             torch.cuda.set_sync_debug_mode("error")
@@ -3015,6 +3124,7 @@ def check_text_step(tx, fr, kernels, dev):
             _check(bool(torch.isfinite(loss)), f"4f: loss {float(loss)}")
             loss_rel = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
             rec = {"fused_proj": fused_proj, "amp": amp,
+                   "hid_dim": widths["hid_dim"],
                    "loss": float(loss), "plain_loss": float(p_loss),
                    "loss_rel_err": loss_rel, "sync_debug": "error"}
             if exact is None:
@@ -3131,13 +3241,14 @@ def train_text(tx, kernels, dev, key="train_lstm", fused_proj=True,
         "losses_finite": len(loss_list), "launches": launches}}, launches
 
 
-def profile_text(tx, dev, fused_proj=True):
+def profile_text(tx, dev, fused_proj=True, widths=TEXT_CFG):
     """Where a flagship training step's time goes (AMP; fused_lstm, or
     with ``fused_proj=False`` the composed route, fc + dynamic_lstm:
-    ``profile_lstm_composed``): three steps under ``torch.profiler`` after
-    two warm-up steps, with the LSTM kernels' device ms per step by name
-    and the device's busy and idle share."""
-    cfg = tx.TextConfig(**TEXT_CFG, fused_proj=fused_proj)
+    ``profile_lstm_composed``; at other ``widths``, the published
+    hidden-1280 model's: ``profile_lstm_wide``): three steps under
+    ``torch.profiler`` after two warm-up steps, with the LSTM kernels'
+    device ms per step by name and the device's busy and idle share."""
+    cfg = tx.TextConfig(**widths, fused_proj=fused_proj)
     state = {"p": tx.init_params(cfg, seed=0, device=dev)}
     opt, step = tx.make_train_step(cfg, "adam", TEXT_LR)
     state["o"] = opt.init(state["p"])
@@ -3148,12 +3259,15 @@ def profile_text(tx, dev, fused_proj=True):
                                                   feeds[i % 4])
         return loss.cpu()
 
-    key = "profile_lstm" if fused_proj else "profile_lstm_composed"
+    key = ("profile_lstm_wide" if widths is not TEXT_CFG else
+           "profile_lstm" if fused_proj else "profile_lstm_composed")
     return {key: dict(
-        {"batch": [TEXT_B, TEXT_T], "amp": True, "fused_proj": fused_proj},
+        {"batch": [TEXT_B, TEXT_T], "amp": True, "fused_proj": fused_proj,
+         "widths": widths},
         **_profile([lambda i=i: call(i) for i in range(5)],
                    named=("lstm_xg_kernel", "lstm_cluster_fwd_kernel",
-                          "lstm_cluster_bwd_kernel", "lstm_dxe_kernel",
+                          "lstm_cluster_bwd_kernel", "lstm_grid_fwd_kernel",
+                          "lstm_grid_bwd_kernel", "lstm_dxe_kernel",
                           "lstm_fwd_kernel", "lstm_bwd_kernel",
                           "dw_wgmma", "sum_partials")))}
 
@@ -3262,9 +3376,25 @@ def main(argv=None):
     llanes = {}
     for dtype in (torch.float32, torch.bfloat16):
         llanes[dtype] = check_lstm(fr, kernels, dev, flush, dtype)
-        if dtype == torch.bfloat16:
-            llanes[dtype].update(check_lstm_streaming(fr, kernels, dev,
-                                                      flush))
+        # past D 512: the grid route at hidden 1024 and 1280 (both of the
+        # 1280 model's layers), the streaming route at hidden 640
+        for route, lshape, sfx, e2 in (LSTM_WIDE_CHECKS
+                                       if dtype == torch.bfloat16 else ()):
+            wide = check_lstm_wide(fr, kernels, dev, flush, route, lshape,
+                                   sfx)
+            if e2:
+                layer2 = check_lstm_wide(fr, kernels, dev, flush, route,
+                                         lshape[:3] + (e2,), sfx,
+                                         names=LSTM_WIDE_NAMES[2:])
+                for k, rec in layer2.items():
+                    wide[k].update({f"layer2_{f}": rec[f] for f in (
+                        "ms", "device_ms", "plain_ms", "bound_ms",
+                        "bound_by", "max_abs_err", "recurrence_device_ms",
+                        "us_per_step", "shape",
+                        "err_vs_fp32_and_plain_bf16_err") if f in rec})
+            llanes[dtype].update(wide)
+            _say(f"lstm plan bf16 D {lshape[2]}: "
+                 + json.dumps(next(iter(wide.values()))["plan"]))
         for rec in llanes[dtype].values():
             _say(f"kernel check: {rec['name']} max_abs_err "
                  f"{rec['max_abs_err']:.3e}")
@@ -3299,9 +3429,14 @@ def main(argv=None):
     # 4e: one full-width seq2seq step, kernels vs plain GRU versions
     for rec in check_s2s_step(s2s, fr, kernels, dev):
         _say("seq2seq step check: " + json.dumps(rec))
-    # 4f: one full-width flagship LSTM step, kernels vs plain versions
+    # 4f: one full-width flagship LSTM step, kernels vs plain versions;
+    # then the published hidden-1280 classifier's AMP step (the grid
+    # route) against its plain path
     for rec in check_text_step(tx, fr, kernels, dev):
         _say("lstm step check: " + json.dumps(rec))
+    for rec in check_text_step(tx, fr, kernels, dev, widths=TEXT_1280_CFG,
+                               fused_routes=(True,), fp32_kernels=False):
+        _say("lstm step check 1280: " + json.dumps(rec))
     del qparams, fp32_logits, fp32_whole, script
     _say(f"step phases done at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
@@ -3468,27 +3603,47 @@ def main(argv=None):
                                      steps=3)),
             ("train_lstm_wide_ragged", dict(widths=TEXT_WIDE_CFG,
                                             ragged=True, warmup=1,
-                                            steps=3))):
+                                            steps=3)),
+            ("train_lstm_1280", dict(widths=TEXT_1280_CFG, warmup=1,
+                                     steps=3)),
+            ("train_lstm_1280_ragged", dict(widths=TEXT_1280_CFG,
+                                            ragged=True, warmup=1,
+                                            steps=3)),
+            ("train_lstm_640", dict(widths=TEXT_640_CFG, warmup=1,
+                                    steps=3)),
+            ("train_lstm_640_ragged", dict(widths=TEXT_640_CFG, ragged=True,
+                                           warmup=1, steps=3))):
         torch.cuda.empty_cache()
         text_runs[key] = train_text(tx, kernels, dev, key=key, **kw)
     for dtype, proj_key, comp_key in (
             (torch.float32, "train_lstm_fp32", "train_lstm_composed_fp32"),
             (torch.bfloat16, "train_lstm", "train_lstm_composed")):
         for name, rec in llanes[dtype].items():
+            if name in LSTM_WIDE_ROWS:
+                key = LSTM_WIDE_ROWS[name]
+                rec["launches"] = text_runs[key][1][name.replace("_d1280",
+                                                                 "")]
+                rec["launches_run"] = key
+                continue
             key = (proj_key if name in LSTM_PROJ or name in LSTM_PASSES
-                   else LSTM_STREAM_ROWS.get(name, comp_key))
+                   else comp_key)
             rec["launches"] = text_runs[key][1][name]
             rec["launches_run"] = key
-            if name in ("lstm_fwd", "lstm_bwd", "lstm_proj_fwd",
-                        "lstm_proj_bwd"):
+            if name in LSTM_WIDE_NAMES:
                 rec["launches_by_route"] = {
                     r: text_runs[key][1][f"{name}{sfx}"]
-                    for r, sfx in (("resident", "_cluster"),
-                                   ("streaming", "_stream"))}
+                    for r, sfx in LSTM_ROUTE_SUFFIX.items()}
     torch.cuda.empty_cache()
     plrec = profile_text(tx, dev)
     torch.cuda.empty_cache()
     pcrec = profile_text(tx, dev, fused_proj=False)
+    torch.cuda.empty_cache()
+    pwrec = profile_text(tx, dev, widths=TEXT_1280_CFG)
+    wide = text_runs["train_lstm_1280"][0]["train_lstm_1280"]
+    wide.update({"device_busy_ms_per_step_profiled":
+                 pwrec["profile_lstm_wide"]["device_busy_ms_per_step"],
+                 "device_idle_share_profiled":
+                 pwrec["profile_lstm_wide"]["device_idle_share"]})
     fused = text_runs["train_lstm"][0]["train_lstm"]
     composed = text_runs["train_lstm_composed"][0]["train_lstm_composed"]
     fused["ms_per_batch_vs_composed"] = (fused["ms_per_batch_p50"]
@@ -3507,6 +3662,7 @@ def main(argv=None):
     _say(json.dumps(psrec))
     _say(json.dumps(plrec))
     _say(json.dumps(pcrec))
+    _say(json.dumps(pwrec))
     _say(json.dumps({"kernels": [
         krec, lanes["bfloat16"], lanes["int8"], lanes["fp8-e4m3"],
         *(dlanes[d] for d in ("float32", "bfloat16", "int8", "fp8-e4m3")),
@@ -3522,7 +3678,7 @@ def main(argv=None):
           for n in LSTM_KERNELS),
         *(llanes[torch.bfloat16][n] for n in LSTM_PASSES
           if n in llanes[torch.bfloat16]),
-        *(llanes[torch.bfloat16][n] for n in LSTM_STREAM_ROWS)]}))
+        *(llanes[torch.bfloat16][n] for n in LSTM_WIDE_ROWS)]}))
     _say(json.dumps(srec))
     for rec in (sqrec, s8rec, sbrec):
         _say(json.dumps(rec))

@@ -33,10 +33,10 @@ LAUNCHES: Dict[str, int] = {"paged_attention_mixed": 0,
                             "lstm_proj_fwd": 0,
                             "lstm_proj_bwd": 0,
                             "lstm_proj_dw": 0,
-                            # the LSTM recurrences' two routes (each launch
-                            # also counts under its wrapper's name) and
-                            # B14/B15's pre- and post-pass GEMMs on the
-                            # resident one
+                            # the LSTM recurrences' three routes (each
+                            # launch also counts under its wrapper's name)
+                            # and B14/B15's pre- and post-pass GEMMs on the
+                            # W-resident ones (cluster, grid)
                             "lstm_fwd_cluster": 0,
                             "lstm_bwd_cluster": 0,
                             "lstm_fwd_stream": 0,
@@ -45,6 +45,10 @@ LAUNCHES: Dict[str, int] = {"paged_attention_mixed": 0,
                             "lstm_proj_bwd_cluster": 0,
                             "lstm_proj_fwd_stream": 0,
                             "lstm_proj_bwd_stream": 0,
+                            "lstm_fwd_grid": 0,
+                            "lstm_bwd_grid": 0,
+                            "lstm_proj_fwd_grid": 0,
+                            "lstm_proj_bwd_grid": 0,
                             "lstm_proj_xg": 0,
                             "lstm_proj_dxe": 0,
                             # the GRU recurrences' two routes (each launch

@@ -21,9 +21,13 @@
 //     + b for every step) and B15's recurrence (cluster_lstm_bwd with db,
 //     then lstm_dxe_kernel, dx @ Wx^T for every step); those two passes
 //     are one persistent wgmma GEMM fed by TMA (rc::proj_gemm, C entry
-//     proj_gemm); the streaming kernels (lstm_fwd_kernel,
-//     lstm_bwd_kernel) keep the fp32 lanes and the bf16 shapes the plan
-//     does not make resident;
+//     proj_gemm); past D 512 (D 768, 1024, 1280) the bf16 lane takes the
+//     grid route (rc:: below): lstm_grid_fwd_kernel (C entries
+//     grid_lstm_fwd, B14's recurrence on xg, and grid_lstm_fwd_x, B10)
+//     and lstm_grid_bwd_kernel (grid_lstm_bwd: B15's recurrence with db,
+//     B11's without), beside the same two passes; the streaming kernels
+//     (lstm_fwd_kernel, lstm_bwd_kernel) keep the fp32 lanes and the bf16
+//     shapes neither W-resident route takes;
 //   GRU (gates u|r|c~, w [D, 3D]):
 //     gru_fwd        (B12) _gru_fwd_kernel (_gru_fwd_call);
 //     gru_bwd +      (B13) the reverse recurrence and the dW reduction
@@ -61,7 +65,7 @@
 // (0.040 ms). But W (1.5 MiB in bf16, 3 MiB in fp32) is re-read by every
 // step of the recurrence, and it does not fit one SM's 227 KB of shared
 // memory, so the TPU kernel's design (W resident in VMEM for all T
-// steps) does not carry over to one block. Two routes:
+// steps) does not carry over to one block. Three routes:
 //   - bf16: W split over one thread-block cluster's shared memory (the
 //     resident route, rc:: below, notes there): a step is a product of
 //     the tile's h with the CTA's resident columns on the tensor cores
@@ -69,6 +73,10 @@
 //     nor the SMs' arithmetic sets it, but the exchange and its cluster
 //     barriers. fp32 W (3 MiB: 192 KiB a CTA over 16 CTAs) leaves no
 //     room for the h buffers, so the fp32 lanes stream.
+//   - bf16 past D 512, where W outgrows one cluster (the LSTM's grid
+//     route, rc:: below, notes there): W resident across a group of
+//     D / 256 clusters of 16 CTAs that the card holds at once, the step's
+//     exchange through L2 behind one group barrier a step.
 //   - streaming, the fp32 lanes (and bf16 shapes the plan does not make
 //     resident): W read from L2 every step, as follows.
 //   - gru_fwd / gru_bwd: one block of 256 threads per tile of BB batch
@@ -121,8 +129,8 @@
 //     atomics: the same inputs give the same bits.
 // The LSTM's W is 2 MiB in bf16 (B14/B15 add Wx, 0.5 or 2 MiB), so the
 // streaming kernels' steps are set by the same L2 reads: 128 blocks x
-// 2-4 MiB a step (B10/B11 and B14/B15 in fp32, and in bf16 where the
-// resident route does not fit).
+// 2-4 MiB a step (B10/B11 and B14/B15 in fp32, and in bf16 where neither
+// W-resident route fits).
 //
 // The bf16 resident route (the LSTM's B10/B11 and B14/B15; the GRU's
 // B12/B13 on the same helpers, differences below). What is left of
@@ -1690,14 +1698,14 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// ws[n][k] = W[k][(n / kU) * D + u0 + n % kU] (n < NG * kU, k < D): the
-// CTA's gate columns of W [D, NG * D], transposed, eight k to a 16-byte
-// store; four such items a thread at a time, so that 32 loads are in
-// flight
-template <int NG>
+// ws[n][k] = W[k][(n / U) * D + u0 + n % U] (n < NG * U, k < D): the
+// CTA's gate columns of W [D, NG * D] for its U units, transposed, eight k
+// to a 16-byte store; four such items a thread at a time, so that 32
+// loads are in flight
+template <int NG, int U = kU>
 __device__ __forceinline__ void load_w_slice(const bf16* __restrict__ w,
                                              bf16* ws, int D, int u0) {
-  constexpr int kBatch = 4, kN = NG * kU;
+  constexpr int kBatch = 4, kN = NG * U;
   const int G = NG * D, ld = D + 8, total = kN * (D / 8);
   const unsigned short* wu = reinterpret_cast<const unsigned short*>(w);
   for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kThreads) {
@@ -1707,7 +1715,7 @@ __device__ __forceinline__ void load_w_slice(const bf16* __restrict__ w,
       const int i = i0 + u * kThreads;
       const int n = i % kN, k0 = 8 * (i / kN);
       const unsigned short* src =
-          wu + static_cast<size_t>(k0) * G + (n / kU) * D + u0 + n % kU;
+          wu + static_cast<size_t>(k0) * G + (n / U) * D + u0 + n % U;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         v[u][j] = i < total
@@ -3023,6 +3031,564 @@ __global__ void __launch_bounds__(288, 1)
   proj_gemm<BN, CM, false>(op, maps);
 }
 
+// ------------------- B10/B11, B14/B15 bf16 past D 512: the grid route
+//
+// Past D 512 the 4D columns of W no longer fit one 16-CTA cluster's shared
+// memory (8 MiB at D 1024, 12.5 MiB at D 1280, against some 3.6 MB), and
+// the streaming kernels read all of W from L2 at every step (240-360 us a
+// step at D 1024, T 100, B 128 on an H100). The grid route keeps W
+// resident across a group of D / 256 clusters of 16 CTAs, all resident
+// at once (D 1024: 64 CTAs, D 1280: 80), each CTA holding 16 hidden
+// units' share of W in shared memory for all T steps. A step's exchange
+// crosses clusters through L2, ordered by one group barrier a step
+// (group_sync: a cluster barrier, one arrival a cluster on a step counter
+// in global memory, release at gpu scope, a spin on an acquire load of
+// it, a cluster barrier). The group fills most of the card, so one group
+// does every batch row: the rows loop inside the step in tiles of 128
+// (no wave of groups repeats the T-step chain), and the step's [B, D]
+// operand streams through shared memory in K chunks of 64 (cp.async.cg
+// from L2, three stages), since it does not fit beside W's share.
+//   lstm_grid_fwd_kernel, B14's recurrence (xg fp32; with lstm_xg_kernel it
+//     replaces paddle_tpu/kernels/fused_rnn.py:663, _lstm_proj_fwd_call's
+//     _lstm_proj_fwd_kernel) and B10 (x bf16; :215, _lstm_fwd_call's
+//     _lstm_fwd_kernel) at these D: CTA i owns units 16 i..16 i + 15 and keeps
+//     their 64 gate columns [64][D + 8] (load_w_slice). A step multiplies
+//     h_{t-1} (hs[t - 1], or h0: the stored bf16 h is the product's operand)
+//     by them on the tensor cores (mma.sync m16n8k16, fp32 sums over K in
+//     order): warp (mg, ug) takes rows 16 mg and 16 mg + 64 of the tile and
+//     the four gates of units 8 ug.., so each thread holds all four gates of
+//     its cells and no partial crosses warps. The cell (__f*_rn, as the GRU's)
+//     writes hs[t], cs[t], gates[t] and the fp32 carries. hs[t] is fresh
+//     memory every step, so no buffer is reused across steps and one barrier a
+//     step orders every read after every write.
+//   lstm_grid_bwd_kernel, B15's recurrence (with db; with lstm_dxe_kernel it
+//     replaces paddle_tpu/kernels/fused_rnn.py:700, _lstm_proj_bwd_call's
+//     _lstm_proj_bwd_kernel, all but dW) and B11's (without db; :266,
+//     _lstm_bwd_call's _lstm_bwd_kernel, all but dW) at these D: dh_prev =
+//     dgates_lp W^T sums over all 4D gate columns, which column slices would
+//     turn into an all-to-all of fp32 [B, D] partials (512 KB a CTA a step at
+//     B 128, D 1024). Instead the K of that product is split by cluster and
+//     its N by rank: cluster c owns the units of its CTAs, CTA (c, j) the 16
+//     units 16 NCL j + 16 c.. (NCL = D / 256, the group's clusters), so a
+//     cluster's 1024 gate columns are its CTAs' dgates; CTA (c, j) keeps W's
+//     rows 16 NCL j .. 16 NCL (j + 1) - 1 over those columns, [16 NCL][1024 +
+//     8], read from W as it lies (no transposed copy). A step: each CTA's
+//     cells write their dgates (dx[t], bf16: the rounded operand of the
+//     product); a cluster barrier; each CTA multiplies the cluster's dgates
+//     (read from L2 in K chunks, as the forward reads h) by its rows: cluster
+//     c's share of dh_prev at the units of rank j, fp32 [B, 16 NCL], into
+//     global slots [2][NCL][B][D]; the group barrier; each CTA sums the NCL
+//     clusters' slots at its own units in cluster order (fixed: two launches
+//     give the same bits) at the start of the next step's cells. The slots are
+//     double-buffered by step parity: a slot of parity p is written again two
+//     steps later, after the barrier that follows every reader.
+//     db (B15): each thread sums its cells' unrounded dgates over its rows
+//     and steps; the 32 threads of a unit pair are summed in thread order
+//     at the end, and each CTA writes db at its own units.
+//   The fp32 carries (h, c; the backward's (1 - m) dH and dc) live in
+//   global scratch [2][B][D], each element read and written only by the
+//   thread of its cell. Scratch (carries, slots, the step counter, zeroed
+//   for each launch) is the wrapper's. The launch refuses a group that the
+//   card cannot hold at once (cudaOccupancyMaxActiveClusters, and the
+//   cooperative launch attribute beside the cluster dimension), and a
+//   spin that waits longer than kSpinNs traps, which fails the stream: no
+//   CTA waits on a cluster that is not resident, and none carries on past
+//   one.
+// What bounds them: the card's least time for a whole call is its operations
+// (B10 at T 100, B 128, D 1024: 107 GFLOP, 0.109 ms at 989 TFLOP/s, against
+// 0.27 GB in 0.081 ms), but a step cannot start before the one before it ends,
+// so the chain of T steps sets the time: a step's product is 2 B D 64 FLOP a
+// CTA (17 MFLOP at B 128, D 1024) on mma.sync, its operand 2 B D bytes a CTA
+// from L2 (256 KB; 16 MB for the group), and the group barrier. The design
+// keeps W out of that chain (resident), stages the operand in three K chunks
+// so its L2 reads overlap the product, and has one barrier a step; the operand
+// is read once a CTA, not multicast to the cluster (a TMA multicast would cut
+// the group's L2 reads 16-fold, at the price of a cluster-wide handshake per
+// stage).
+constexpr int kGU = 16;             // hidden units a CTA of the grid route owns
+constexpr int kGN = 4 * kGU;        // the forward's gate columns of them
+constexpr int kGCl = 16;            // CTAs a cluster
+constexpr int kGRows = 128;         // batch rows a row tile
+constexpr int kGK = 64;             // K of a staged chunk
+constexpr int kGStages = 3;
+constexpr int kGLd = kGK + 8;       // row stride of a staged chunk (bf16)
+constexpr int kGBwdK = kGN * kGCl;  // the backward's K: a cluster's columns
+constexpr int kGStage = kGRows * kGLd;
+constexpr unsigned long long kSpinNs = 4000000000ull;
+
+// shared memory of the grid route's CTAs: the forward's W columns [64][D +
+// 8] or the backward's W rows [D / 16][1024 + 8], then the staged chunks
+// [3][128][72], all bf16
+constexpr int grid_fwd_smem(int D) {
+  return 2 * (kGN * (D + 8) + kGStages * kGStage);
+}
+constexpr int grid_bwd_smem(int D) {
+  return 2 * ((D / kGCl) * (kGBwdK + 8) + kGStages * kGStage);
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// the group barrier: every CTA of the launch's clusters arrives before any
+// leaves, and what any of them wrote to global memory before it is seen
+// by all of them after it. Barrier s (from 1) waits for s * ncl arrivals.
+__device__ __forceinline__ void group_sync(unsigned* counter,
+                                           unsigned target) {
+  cl_arrive();
+  cl_wait();  // the cluster's writes are released to its rank 0
+  if (threadIdx.x == 0 && cluster_rank() == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(counter)
+                 : "memory");
+    const unsigned long long t0 = global_ns();
+    for (;;) {
+      unsigned v;
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(v)
+                   : "l"(counter)
+                   : "memory");
+      if (v >= target) break;
+      if (global_ns() - t0 > kSpinNs) __trap();
+    }
+    __threadfence();
+  }
+  cl_arrive();
+  cl_wait();
+}
+
+// the cell of rc::cell with every fp32 operation rounded on its own
+__device__ __forceinline__ void cell_rn(float p0, float p1, float p2, float p3,
+                                        float m, float& hp, float& cp,
+                                        float& g0, float& g1, float& g2,
+                                        float& g3) {
+  g0 = sigmoid(p0);
+  g1 = sigmoid(p1);
+  g2 = tanhf(p2);
+  g3 = sigmoid(p3);
+  const float ct = __fadd_rn(__fmul_rn(g1, cp), __fmul_rn(g0, g2));
+  const float ht = __fmul_rn(g3, tanhf(ct));
+  const float keep = __fsub_rn(1.f, m);
+  hp = __fadd_rn(__fmul_rn(m, ht), __fmul_rn(keep, hp));
+  cp = __fadd_rn(__fmul_rn(m, ct), __fmul_rn(keep, cp));
+}
+
+// K chunk c % nkc of row tile c / nkc of a [rows][ld_src] bf16 operand
+// (columns col(k0 + 8 p) for p < 8, k0 = 64 (c % nkc)) into stage c % 3;
+// rows past B read as zeros. One commit group per call, empty past nch.
+template <typename Col>
+__device__ __forceinline__ void grid_issue(uint32_t st0, const bf16* src,
+                                           size_t ld_src, int B, int c,
+                                           int nkc, int nch, Col col) {
+  if (c < nch) {
+    const int r0 = c / nkc * kGRows, kc = c % nkc;
+    const uint32_t dst = st0 + 2 * (c % kGStages) * kGStage;
+    for (int i = threadIdx.x; i < kGRows * (kGK / 8); i += kThreads) {
+      const int r = i >> 3, p = i & 7, b = r0 + r;
+      cp16(dst + 2 * (r * kGLd + 8 * p),
+           src + static_cast<size_t>(b < B ? b : 0) * ld_src + col(kc, p),
+           b < B);
+    }
+  }
+  cp_commit();
+}
+
+template <typename XT>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_grid_fwd_kernel(const XT* __restrict__ xg,
+                         const bf16* __restrict__ w,
+                         const float* __restrict__ lens,
+                         const bf16* __restrict__ h0,
+                         const bf16* __restrict__ c0, bf16* __restrict__ hs,
+                         bf16* __restrict__ cs, bf16* __restrict__ gates,
+                         float* __restrict__ carry,
+                         unsigned* __restrict__ counter, int n_steps, int B,
+                         int D) {
+  extern __shared__ __align__(16) unsigned char smem_rc[];
+  const int ld = D + 8, G = 4 * D;
+  const unsigned ncl = gridDim.x / kGCl;
+  bf16* ws = reinterpret_cast<bf16*>(smem_rc);   // [kGN][ld]
+  const uint32_t st0 = smem_u32(ws + kGN * ld);  // [kGStages][kGRows][kGLd]
+  const int u0 = static_cast<int>(blockIdx.x) * kGU;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ug = warp & 1, mg = warp >> 1, g = lane >> 2, t4 = lane & 3;
+  const int uc = u0 + 8 * ug + 2 * t4;  // the cells' first unit
+  const int nkc = D / kGK, nch = (B + kGRows - 1) / kGRows * nkc;
+  float* hcar = carry;
+  float* ccar = carry + static_cast<size_t>(B) * D;
+
+  load_w_slice<4, kGU>(w, ws, D, u0);
+  __syncthreads();
+  // per-lane ldmatrix addresses: A (the staged rows), B (the W columns of
+  // the warp's units, gates q and q + 1 by lane / 16)
+  const uint32_t a_lane = static_cast<uint32_t>(
+      2 * (((lane & 7) + 8 * ((lane >> 3) & 1)) * kGLd + 8 * (lane >> 4)));
+  const uint32_t b_addr =
+      smem_u32(ws + ((lane >> 4) * kGU + 8 * ug + (lane & 7)) * ld +
+               8 * ((lane >> 3) & 1));
+  const auto col = [](int kc, int p) { return kGK * kc + 8 * p; };
+  for (int t = 0; t < n_steps; ++t) {
+    const bf16* hsrc = t == 0 ? h0 : hs + static_cast<size_t>(t - 1) * B * D;
+    grid_issue(st0, hsrc, D, B, 0, nkc, nch, col);
+    grid_issue(st0, hsrc, D, B, 1, nkc, nch, col);
+    float acc[2][4][4], xv[2][2][4][2], hp[2][2][2], cv[2][2][2], len[2][2];
+    for (int c = 0; c < nch; ++c) {
+      const int r0 = c / nkc * kGRows, kc = c % nkc;
+      if (kc == 0) {  // the row tile's cells: first terms, carries, lengths
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int b = r0 + 16 * (mg + 4 * mt) + g + 8 * hh;
+            const bool ok = b < B;
+            len[mt][hh] = ok ? lens[b] : 0.f;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float2 v =
+                  ok ? ld_first(xg + (static_cast<size_t>(t) * B + b) * G +
+                                q * D + uc)
+                     : make_float2(0.f, 0.f);
+              xv[mt][hh][q][0] = v.x;
+              xv[mt][hh][q][1] = v.y;
+            }
+            const size_t o = static_cast<size_t>(ok ? b : 0) * D + uc;
+            float2 h = make_float2(0.f, 0.f), cc = h;
+            if (ok && t == 0) {
+              h = bf2_to_f2(*reinterpret_cast<const unsigned*>(h0 + o));
+              cc = bf2_to_f2(*reinterpret_cast<const unsigned*>(c0 + o));
+            } else if (ok) {
+              h = __ldcg(reinterpret_cast<const float2*>(hcar + o));
+              cc = __ldcg(reinterpret_cast<const float2*>(ccar + o));
+            }
+            hp[mt][hh][0] = h.x;
+            hp[mt][hh][1] = h.y;
+            cv[mt][hh][0] = cc.x;
+            cv[mt][hh][1] = cc.y;
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][q][e] = 0.f;
+        }
+      }
+      cp_wait<1>();
+      __syncthreads();  // chunk c is in; stage (c + 2) % 3 is free
+      grid_issue(st0, hsrc, D, B, c + 2, nkc, nch, col);
+      const uint32_t a_base = st0 + 2 * (c % kGStages) * kGStage + a_lane;
+#pragma unroll
+      for (int ks = 0; ks < kGK / 16; ++ks) {
+        const int k = kc * kGK + 16 * ks;
+        uint32_t bq[2][4];  // gates 0, 1 and gates 2, 3
+        ldsm_x4(b_addr + 2 * k, bq[0]);
+        ldsm_x4(b_addr + 2 * (2 * kGU * ld + k), bq[1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int m0 = 16 * (mg + 4 * mt);
+          if (r0 + m0 >= B) continue;  // no live row in this m-tile
+          uint32_t a[4];
+          ldsm_x4(a_base + 2 * (m0 * kGLd + 16 * ks), a);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            mma_bf16(acc[mt][q], a, bq[q >> 1][2 * (q & 1)],
+                     bq[q >> 1][2 * (q & 1) + 1]);
+        }
+      }
+      if (kc != nkc - 1) continue;
+      // the cells of the row tile: rows g (elements 0, 1) and g + 8 (2, 3)
+      // of each m-tile, units uc, uc + 1
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int b = r0 + 16 * (mg + 4 * mt) + g + 8 * hh;
+          const float m = static_cast<float>(t) < len[mt][hh] ? 1.f : 0.f;
+          float gv[4][2];
+#pragma unroll
+          for (int cu = 0; cu < 2; ++cu) {
+            float p[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)  // (xe_t Wx + b) + h_lp W
+              p[q] = __fadd_rn(xv[mt][hh][q][cu], acc[mt][q][2 * hh + cu]);
+            cell_rn(p[0], p[1], p[2], p[3], m, hp[mt][hh][cu],
+                    cv[mt][hh][cu], gv[0][cu], gv[1][cu], gv[2][cu],
+                    gv[3][cu]);
+          }
+          if (b >= B) continue;
+          const size_t row = static_cast<size_t>(t) * B + b;
+          const size_t o = static_cast<size_t>(b) * D + uc;
+          store2(hs + row * D + uc, hp[mt][hh]);
+          store2(cs + row * D + uc, cv[mt][hh]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            store2(gates + row * G + q * D + uc, gv[q]);
+          store2(hcar + o, hp[mt][hh]);
+          store2(ccar + o, cv[mt][hh]);
+        }
+      }
+    }
+    group_sync(counter, static_cast<unsigned>(t + 1) * ncl);
+  }
+}
+
+template <int NCL, bool kDb>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_grid_bwd_kernel(const bf16* __restrict__ gates,
+                         const bf16* __restrict__ cs,
+                         const bf16* __restrict__ w,
+                         const float* __restrict__ lens,
+                         const bf16* __restrict__ c0,
+                         const bf16* __restrict__ dhs,
+                         const bf16* __restrict__ dcs, bf16* __restrict__ dx,
+                         float* __restrict__ db, bf16* __restrict__ dh0,
+                         bf16* __restrict__ dc0, float* __restrict__ carry,
+                         float* __restrict__ slots,
+                         unsigned* __restrict__ counter, int n_steps,
+                         int B) {
+  constexpr int D = 256 * NCL, G = 4 * D, KB = kGU * NCL, ldw = kGBwdK + 8;
+  constexpr int nkc = kGBwdK / kGK;
+  extern __shared__ __align__(16) unsigned char smem_rc[];
+  bf16* ws = reinterpret_cast<bf16*>(smem_rc);    // [KB][ldw]
+  const uint32_t st0 = smem_u32(ws + KB * ldw);  // [kGStages][kGRows][kGLd]
+  const int rank = static_cast<int>(cluster_rank());
+  const int cl = static_cast<int>(blockIdx.x) / kGCl;
+  const int k0 = KB * rank;        // the product's units (W's rows)
+  const int own = k0 + kGU * cl;   // the units of this CTA's cells
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mg = warp >> 1, ng = warp & 1, g = lane >> 2, t4 = lane & 3;
+  const int up = 2 * (tid & 7), rr = tid >> 3, gu = own + up;
+  const int nch = (B + kGRows - 1) / kGRows * nkc;
+  const size_t plane = static_cast<size_t>(B) * D;  // a [B][D] fp32 array
+  float* kcar = carry;          // (1 - m) dH of the step before
+  float* ccar = carry + plane;  // dc
+
+  // ws[o][n] = W[k0 + o][q D + KB j + 16 cl + u], n = 256 q + 16 j + u:
+  // the cluster's gate columns (its CTAs' units, rank by rank) in K order
+  for (int i = tid; i < KB * (kGBwdK / 8); i += kThreads) {
+    const int o = i / (kGBwdK / 8), n = 8 * (i % (kGBwdK / 8));
+    const int cw = (n >> 8) * D + KB * ((n >> 4) & 15) + kGU * cl + (n & 15);
+    *reinterpret_cast<uint4*>(ws + o * ldw + n) = __ldg(
+        reinterpret_cast<const uint4*>(w + static_cast<size_t>(k0 + o) * G +
+                                       cw));
+  }
+  float dbq[4][2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) dbq[q][0] = dbq[q][1] = 0.f;
+  __syncthreads();
+  const uint32_t a_lane = static_cast<uint32_t>(
+      2 * (((lane & 7) + 8 * ((lane >> 3) & 1)) * kGLd + 8 * (lane >> 4)));
+  const uint32_t b_lane =
+      smem_u32(ws + (lane & 7) * ldw + 8 * ((lane >> 3) & 1));
+  // the cluster's dgates of K chunk kc, 8 columns p: gate kc / 4, ranks
+  // 4 (kc % 4) + p / 2
+  const auto col = [cl](int kc, int p) {
+    return (kc >> 2) * D + KB * (4 * (kc & 3) + (p >> 1)) + kGU * cl +
+           8 * (p & 1);
+  };
+  // dh at this thread's cells: the keep term plus the clusters' slots of
+  // parity `par`, summed in cluster order
+  const auto dh_at = [&](int b, int par, float (&dh)[2]) {
+    const size_t o = static_cast<size_t>(b) * D + gu;
+    const float2 k = __ldcg(reinterpret_cast<const float2*>(kcar + o));
+    float2 v[NCL];
+#pragma unroll
+    for (int c = 0; c < NCL; ++c)
+      v[c] = __ldcg(reinterpret_cast<const float2*>(
+          slots + (static_cast<size_t>(par) * NCL + c) * plane + o));
+    float s0 = v[0].x, s1 = v[0].y;
+#pragma unroll
+    for (int c = 1; c < NCL; ++c) {
+      s0 = __fadd_rn(s0, v[c].x);
+      s1 = __fadd_rn(s1, v[c].y);
+    }
+    dh[0] = __fadd_rn(k.x, s0);  // (1 - m) dH + dgates_lp W^T
+    dh[1] = __fadd_rn(k.y, s1);
+  };
+
+  for (int t = n_steps - 1; t >= 0; --t) {
+    const int done = n_steps - 1 - t;  // steps behind this one
+    // (1) the cells: dx[t], the carries, db's sums
+    for (int r0 = 0; r0 < B; r0 += kGRows) {
+      float gq[4][4][2], cpv[4][2], dhv[4][2], dcv[4][2], dh[4][2], dc[4][2];
+      float len[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int b = r0 + rr + 32 * i;
+        const bool ok = b < B;
+        const int bb = ok ? b : 0;
+        const size_t n = static_cast<size_t>(t) * B + bb;
+        auto ld2 = [](const bf16* p, float* v) {
+          const float2 f = bf2_to_f2(*reinterpret_cast<const unsigned*>(p));
+          v[0] = f.x;
+          v[1] = f.y;
+        };
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ld2(gates + n * G + q * D + gu, gq[i][q]);
+        ld2(t > 0 ? cs + (n - B) * D + gu
+                  : c0 + static_cast<size_t>(bb) * D + gu,
+            cpv[i]);
+        ld2(dhs + n * D + gu, dhv[i]);
+        ld2(dcs + n * D + gu, dcv[i]);
+        len[i] = ok ? lens[bb] : 0.f;
+        if (done == 0) {
+          dh[i][0] = dh[i][1] = dc[i][0] = dc[i][1] = 0.f;
+        } else {
+          dh_at(bb, (t + 1) & 1, dh[i]);
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(
+              ccar + static_cast<size_t>(bb) * D + gu));
+          dc[i][0] = v.x;
+          dc[i][1] = v.y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int b = r0 + rr + 32 * i;
+        if (b >= B) continue;
+        const float m = static_cast<float>(t) < len[i] ? 1.f : 0.f;
+        const float keep_m = __fsub_rn(1.f, m);
+        float d[4][2], keep[2], dcn[2];
+#pragma unroll
+        for (int cu = 0; cu < 2; ++cu) {
+          const float ig = gq[i][0][cu], fg = gq[i][1][cu];
+          const float gg = gq[i][2][cu], og = gq[i][3][cu];
+          const float cp = cpv[i][cu];
+          const float tc = tanhf(__fadd_rn(__fmul_rn(fg, cp),
+                                           __fmul_rn(ig, gg)));
+          const float dH = __fadd_rn(dhv[i][cu], dh[i][cu]);
+          const float dC = __fadd_rn(dcv[i][cu], dc[i][cu]);
+          const float dht = __fmul_rn(m, dH);
+          const float dct = __fadd_rn(
+              __fmul_rn(m, dC),
+              __fmul_rn(__fmul_rn(dht, og),
+                        __fsub_rn(1.f, __fmul_rn(tc, tc))));
+          d[0][cu] = __fmul_rn(__fmul_rn(__fmul_rn(dct, gg), ig),
+                               __fsub_rn(1.f, ig));
+          d[1][cu] = __fmul_rn(__fmul_rn(__fmul_rn(dct, cp), fg),
+                               __fsub_rn(1.f, fg));
+          d[2][cu] = __fmul_rn(__fmul_rn(dct, ig),
+                               __fsub_rn(1.f, __fmul_rn(gg, gg)));
+          d[3][cu] = __fmul_rn(__fmul_rn(__fmul_rn(dht, tc), og),
+                               __fsub_rn(1.f, og));
+          dcn[cu] = __fadd_rn(__fmul_rn(keep_m, dC), __fmul_rn(dct, fg));
+          keep[cu] = __fmul_rn(keep_m, dH);
+        }
+        const size_t n = static_cast<size_t>(t) * B + b;
+        const size_t o = static_cast<size_t>(b) * D + gu;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          store2(dx + n * G + q * D + gu, d[q]);
+          if (kDb) {
+            dbq[q][0] = __fadd_rn(dbq[q][0], d[q][0]);
+            dbq[q][1] = __fadd_rn(dbq[q][1], d[q][1]);
+          }
+        }
+        store2(kcar + o, keep);
+        store2(ccar + o, dcn);
+      }
+    }
+    cl_arrive();
+    cl_wait();  // the cluster's dgates of step t are in dx
+    // (2) the cluster's share of dh_prev at units k0..: dgates [B, 1024]
+    // x ws^T [1024, KB], into slots[t & 1][cl]
+    const bf16* dsrc = dx + static_cast<size_t>(t) * B * G;
+    float* sout = slots + (static_cast<size_t>(t & 1) * NCL + cl) * plane;
+    grid_issue(st0, dsrc, G, B, 0, nkc, nch, col);
+    grid_issue(st0, dsrc, G, B, 1, nkc, nch, col);
+    float acc[2][NCL][4];
+    for (int c = 0; c < nch; ++c) {
+      const int r0 = c / nkc * kGRows, kc = c % nkc;
+      if (kc == 0) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int jn = 0; jn < NCL; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][jn][e] = 0.f;
+      }
+      cp_wait<1>();
+      __syncthreads();
+      grid_issue(st0, dsrc, G, B, c + 2, nkc, nch, col);
+      const uint32_t a_base = st0 + 2 * (c % kGStages) * kGStage + a_lane;
+#pragma unroll
+      for (int ks = 0; ks < kGK / 16; ++ks) {
+        const int k = kc * kGK + 16 * ks;
+        uint32_t bf[NCL + 1][2];
+#pragma unroll
+        for (int jp = 0; jp < NCL; jp += 2) {
+          // n-tiles jp (lanes 0-15's rows) and jp + 1 (lanes 16-31's),
+          // the second clamped into the warp's range
+          const int nt = ng * NCL + min(jp + (lane >> 4), NCL - 1);
+          uint32_t r[4];
+          ldsm_x4(b_lane + 2 * (8 * nt * ldw + k), r);
+          bf[jp][0] = r[0];
+          bf[jp][1] = r[1];
+          bf[jp + 1][0] = r[2];
+          bf[jp + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int m0 = 16 * (mg + 4 * mt);
+          if (r0 + m0 >= B) continue;
+          uint32_t a[4];
+          ldsm_x4(a_base + 2 * (m0 * kGLd + 16 * ks), a);
+#pragma unroll
+          for (int jn = 0; jn < NCL; ++jn)
+            mma_bf16(acc[mt][jn], a, bf[jn][0], bf[jn][1]);
+        }
+      }
+      if (kc != nkc - 1) continue;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int b = r0 + 16 * (mg + 4 * mt) + g + 8 * hh;
+          if (b >= B) continue;
+#pragma unroll
+          for (int jn = 0; jn < NCL; ++jn)
+            *reinterpret_cast<float2*>(
+                sout + static_cast<size_t>(b) * D + k0 +
+                8 * (ng * NCL + jn) + 2 * t4) =
+                make_float2(acc[mt][jn][2 * hh], acc[mt][jn][2 * hh + 1]);
+        }
+      }
+    }
+    group_sync(counter, static_cast<unsigned>(done + 1) * NCL);
+  }
+  // dh0, dc0: the carries after step 0 (zeros for no step)
+  for (int r0 = 0; r0 < B; r0 += kGRows) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int b = r0 + rr + 32 * i;
+      if (b >= B) continue;
+      float dh[2] = {0.f, 0.f}, dc[2] = {0.f, 0.f};
+      const size_t o = static_cast<size_t>(b) * D + gu;
+      if (n_steps > 0) {
+        dh_at(b, 0, dh);
+        const float2 v = __ldcg(reinterpret_cast<const float2*>(ccar + o));
+        dc[0] = v.x;
+        dc[1] = v.y;
+      }
+      store2(dh0 + o, dh);
+      store2(dc0 + o, dc);
+    }
+  }
+  if (!kDb) return;
+  // db at this CTA's units: the 32 row threads of each unit pair summed in
+  // thread order (the stages are free: the last barrier is behind)
+  float* dbs = reinterpret_cast<float*>(ws + KB * ldw);  // [32][kGN]
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    *reinterpret_cast<float2*>(dbs + rr * kGN + q * kGU + up) =
+        make_float2(dbq[q][0], dbq[q][1]);
+  __syncthreads();
+  if (tid < kGN) {
+    float s = 0.f;
+    for (int r = 0; r < 32; ++r) s = __fadd_rn(s, dbs[r * kGN + tid]);
+    db[(tid / kGU) * D + own + tid % kGU] = s;
+  }
+}
+
 template <typename K>
 cudaError_t cluster_attrs(K kernel, int smem) {
   cudaError_t err = opt_in(kernel, smem);
@@ -3124,6 +3690,83 @@ cudaError_t gru_cluster(bool fwd, const void* a, const void* b,
   return bb == 16 ? BWD(1) : bb == 32 ? BWD(2) : BWD(3);
 #undef FWD
 #undef BWD
+}
+
+// a launch of the grid route: ncl clusters of 16 CTAs, refused unless the
+// card holds all of them at once (a spin would wait on a cluster that is
+// not resident): checked here, and asked of the CUDA runtime by the
+// cooperative attribute beside the cluster dimension, under which the
+// launch fails rather than run a group that cannot be resident together
+template <typename K, typename... Args>
+cudaError_t launch_grid(K kernel, int ncl, int smem, cudaStream_t st,
+                        Args... args) {
+  int n = 0;
+  cudaError_t err = max_clusters(kernel, kGCl, smem, &n);
+  if (err != cudaSuccess) return err;
+  if (n < ncl) return cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kGCl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(kGCl * ncl));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// lane 1 (bf16) only; D a multiple of 256 with 3 to 5 clusters (D 768,
+// 1024, 1280), both kernels' shared memory within the opt-in limit
+bool bad_grid(int lane, int n_steps, int B, int D) {
+  return lane != 1 || n_steps < 0 || B < 1 || D % (kGU * kGCl) != 0 ||
+         D / (kGU * kGCl) < 3 || D / (kGU * kGCl) > 5 ||
+         grid_fwd_smem(D) > 232448 || grid_bwd_smem(D) > 232448;
+}
+
+// the grid route's forward recurrence, its first term x of type XT (B14's
+// fp32 xg, B10's bf16 x)
+template <typename XT>
+cudaError_t grid_fwd(const void* x, const void* w, const float* lens,
+                     const void* h0, const void* c0, void* hs, void* cs,
+                     void* gates, float* carry, unsigned* counter,
+                     int n_steps, int B, int D, cudaStream_t st) {
+  return launch_grid(lstm_grid_fwd_kernel<XT>, D / (kGU * kGCl),
+                     grid_fwd_smem(D), st, static_cast<const XT*>(x),
+                     static_cast<const bf16*>(w), lens,
+                     static_cast<const bf16*>(h0),
+                     static_cast<const bf16*>(c0), static_cast<bf16*>(hs),
+                     static_cast<bf16*>(cs), static_cast<bf16*>(gates), carry,
+                     counter, n_steps, B, D);
+}
+
+// the grid route's reverse recurrence, with db (B15) or without (B11: db
+// null)
+cudaError_t grid_bwd(const void* gates, const void* cs, const void* w,
+                     const float* lens, const void* c0, const void* dhs,
+                     const void* dcs, void* dx, float* db, void* dh0,
+                     void* dc0, float* carry, float* slots, unsigned* counter,
+                     int n_steps, int B, int D, cudaStream_t st) {
+#define CALL(NCL, DB)                                                       \
+  launch_grid(lstm_grid_bwd_kernel<NCL, DB>, NCL, grid_bwd_smem(256 * NCL), \
+              st, static_cast<const bf16*>(gates),                          \
+              static_cast<const bf16*>(cs), static_cast<const bf16*>(w),    \
+              lens, static_cast<const bf16*>(c0),                           \
+              static_cast<const bf16*>(dhs), static_cast<const bf16*>(dcs), \
+              static_cast<bf16*>(dx), db, static_cast<bf16*>(dh0),          \
+              static_cast<bf16*>(dc0), carry, slots, counter, n_steps, B)
+  const int ncl = D / (kGU * kGCl);
+  if (db == nullptr) {
+    return ncl == 3 ? CALL(3, false) : ncl == 4 ? CALL(4, false)
+                                                : CALL(5, false);
+  }
+  return ncl == 3 ? CALL(3, true) : ncl == 4 ? CALL(4, true) : CALL(5, true);
+#undef CALL
 }
 
 }  // namespace rc
@@ -3541,5 +4184,83 @@ extern "C" int cluster_lstm_probe(int lane, float* out, int n_steps,
                : rc::launch_cluster(rc::lstm_cluster_probe_kernel<2>, nc,
                                     tiles, rc::probe_smem(2, D), st, out,
                                     n_steps, D, mode);
+  return static_cast<int>(err);
+}
+
+// B14's recurrence on the grid route (D 768, 1024, 1280). xg [T, B, 4D]
+// fp32 (the pre-pass), w [D, 4D], lens [B] fp32, h0, c0 [B, D] -> hs, cs
+// [T, B, D], gates [T, B, 4D]; carry fp32 [2][B][D] and counter (one
+// uint32, zero) scratch; D / 256 clusters of 16 CTAs, refused
+// (cudaErrorCooperativeLaunchTooLarge) unless the card holds them at once.
+extern "C" int grid_lstm_fwd(int lane, const void* xg, const void* w,
+                             const float* lens, const void* h0,
+                             const void* c0, void* hs, void* cs, void* gates,
+                             float* carry, unsigned* counter, int n_steps,
+                             int B, int D, void* stream) {
+  if (rc::bad_grid(lane, n_steps, B, D) || carry == nullptr ||
+      counter == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(rc::grid_fwd<float>(
+      xg, w, lens, h0, c0, hs, cs, gates, carry, counter, n_steps, B, D,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// B10 on the grid route: grid_lstm_fwd with x [T, B, 4D] bf16 (the
+// pre-projected gates plus bias) as the step's first term.
+extern "C" int grid_lstm_fwd_x(int lane, const void* x, const void* w,
+                               const float* lens, const void* h0,
+                               const void* c0, void* hs, void* cs,
+                               void* gates, float* carry, unsigned* counter,
+                               int n_steps, int B, int D, void* stream) {
+  if (rc::bad_grid(lane, n_steps, B, D) || carry == nullptr ||
+      counter == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(rc::grid_fwd<bf16>(
+      x, w, lens, h0, c0, hs, cs, gates, carry, counter, n_steps, B, D,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// B15's recurrence on the grid route. gates [T, B, 4D], cs [T, B, D], w
+// [D, 4D] (its rows resident, read as they lie), lens, c0, dhs, dcs ->
+// dx [T, B, 4D] (dgates in bf16), dh0, dc0 [B, D], and db [4D] fp32 (the
+// unrounded dgates' sum); carry fp32 [2][B][D], slots fp32 [2][D / 256][B]
+// [D] and counter (one uint32, zero) scratch. B11's recurrence passes db
+// null: no db.
+extern "C" int grid_lstm_bwd(int lane, const void* gates, const void* cs,
+                             const void* w, const float* lens,
+                             const void* c0, const void* dhs,
+                             const void* dcs, void* dx, float* db, void* dh0,
+                             void* dc0, float* carry, float* slots,
+                             unsigned* counter, int n_steps, int B, int D,
+                             void* stream) {
+  if (rc::bad_grid(lane, n_steps, B, D) || carry == nullptr ||
+      slots == nullptr || counter == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(rc::grid_bwd(
+      gates, cs, w, lens, c0, dhs, dcs, dx, db, dh0, dc0, carry, slots,
+      counter, n_steps, B, D, static_cast<cudaStream_t>(stream)));
+}
+
+// out[0] = how many 16-CTA clusters of the grid route's kernels at D the
+// card holds at once (the fewer of the two recurrences'); the route needs
+// D / 256.
+extern "C" int grid_occupancy(int lane, int* out, int D, void* stream) {
+  (void)stream;
+  if (rc::bad_grid(lane, 0, 1, D) || out == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int f = 0, b = 0;
+  cudaError_t err = rc::max_clusters(rc::lstm_grid_fwd_kernel<float>,
+                                     rc::kGCl, rc::grid_fwd_smem(D), &f);
+  const int ncl = D / (rc::kGU * rc::kGCl);
+#define BWD(NCL)                                                    \
+  rc::max_clusters(rc::lstm_grid_bwd_kernel<NCL, true>, rc::kGCl,   \
+                   rc::grid_bwd_smem(256 * NCL), &b)
+  if (err == cudaSuccess) err = ncl == 3 ? BWD(3) : ncl == 4 ? BWD(4) : BWD(5);
+#undef BWD
+  out[0] = f < b ? f : b;
   return static_cast<int>(err);
 }

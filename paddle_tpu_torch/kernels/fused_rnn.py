@@ -37,22 +37,26 @@ and dW reduction); ``lstm_proj_fwd`` (B14); ``lstm_proj_bwd`` and
 reduction); ``gru_fwd`` (B12); ``gru_bwd`` and ``gru_dw`` (B13). They
 raise on what the kernels do not take.
 
-The LSTM recurrences (B10, B11's, B14, B15's) take one of two routes,
+The LSTM recurrences (B10, B11's, B14, B15's) take one of three routes,
 chosen by the call's dtype and shape before any launch
 (``lstm_cluster_plan``; every tensor of a call shares one dtype). The
-resident route (bf16, D a multiple of 32 up to
-512): the recurrence ``lstm_cluster_fwd`` / ``lstm_cluster_bwd`` with W
-split over one thread-block cluster's shared memory; B14 first runs the
-pre-pass ``lstm_proj_xg`` (xg = xe @ Wx + b for every step, fp32) and
-B15 after it the post-pass ``lstm_proj_dxe`` (dxe = dx @ Wx^T), while
-B10 reads its bf16 x as the step's first term and B11's recurrence
-skips db. The streaming route (everything else): one kernel per
-direction that reads W (and Wx) from L2 every step. Each recurrence
-launch counts under its wrapper's name (``lstm_fwd``, ``lstm_bwd``,
-``lstm_proj_fwd``, ``lstm_proj_bwd``) and under its route's
-(``..._cluster``, ``..._stream``); the passes under ``lstm_proj_xg`` /
-``lstm_proj_dxe``. The GRU recurrences (B12, B13's) take the routes of
-the same plan with three gates (``lstm_cluster_plan(..., ng=3)``):
+resident route (bf16, D a multiple of 32 up to 512): the recurrence
+``lstm_cluster_fwd`` / ``lstm_cluster_bwd`` with W split over one
+thread-block cluster's shared memory. The grid route (bf16 at D 768, 1024
+and 1280): the same functions on kernels that keep W resident across a
+group of D / 256 clusters of 16 CTAs, all resident at once, the step's
+exchange crossing clusters through L2 behind one group barrier a step.
+On both, B14 first runs the pre-pass ``lstm_proj_xg`` (xg = xe @ Wx + b
+for every step, fp32) and B15 after it the post-pass ``lstm_proj_dxe``
+(dxe = dx @ Wx^T), while B10 reads its bf16 x as the step's first term
+and B11's recurrence skips db. The streaming route (everything else):
+one kernel per direction that reads W (and Wx) from L2 every step. Each
+recurrence launch counts under its wrapper's name (``lstm_fwd``,
+``lstm_bwd``, ``lstm_proj_fwd``, ``lstm_proj_bwd``) and under its
+route's (``..._cluster``, ``..._grid``, ``..._stream``); the passes under
+``lstm_proj_xg`` / ``lstm_proj_dxe``. The GRU recurrences (B12, B13's)
+take the resident and streaming routes of the same plan with three gates
+(``lstm_cluster_plan(..., ng=3)``):
 resident in bf16 (the forward's reset before the candidate's product
 makes two exchanges a step; the reverse reads W transposed from its
 resident slices, with no transposed copy), else streaming; each launch
@@ -102,7 +106,9 @@ _ENTRIES = {"gru_fwd": (6, 4), "gru_bwd": (8, 4), "gru_dw": (6, 4),
             "proj_gemm": (4, 4), "cluster_lstm_fwd": (8, 4),
             "cluster_lstm_fwd_x": (8, 4),
             "cluster_lstm_bwd": (12, 4), "cluster_occupancy": (1, 3),
-            "cluster_lstm_probe": (1, 5)}
+            "cluster_lstm_probe": (1, 5), "grid_lstm_fwd": (10, 3),
+            "grid_lstm_fwd_x": (10, 3), "grid_lstm_bwd": (14, 3),
+            "grid_occupancy": (1, 1)}
 _entries = {}
 SMEM_LIMIT = 232448        # bytes of shared memory a block may opt in to
 # shared memory of each recurrence kernel for bb batch rows, hidden D and
@@ -754,15 +760,28 @@ REC_MAX_CLUSTER = 16       # CTAs a cluster may hold (a non-portable size)
 REC_TILES = {4: (16, 32), 3: (16, 32, 48)}
 
 
+GRID_UNITS = 16            # hidden units a CTA of the grid route owns
+GRID_CLUSTER = 16          # CTAs a cluster of the grid route
+GRID_ROWS = 128            # batch rows a row tile of the grid route
+GRID_K = 1024              # the grid backward's K: a cluster's gate columns
+# the grid route's staged K chunks: [3][128 rows][64 + 8] bf16
+_GRID_STAGES = 2 * 3 * GRID_ROWS * (64 + 8)
+
+
 class ClusterPlan(NamedTuple):
     """How the bf16 LSTM and GRU recurrences run
     (``lstm_cluster_plan``)."""
-    route: str                 # "resident" or "streaming"
-    bb: int                    # batch rows a cluster (0: streaming)
-    cluster: int               # CTAs a cluster: D / REC_UNITS
-    tiles: int                 # clusters in the grid: ceil(B / bb)
+    route: str                 # "resident", "grid" or "streaming"
+    bb: int                    # batch rows a cluster (grid: a row tile;
+    #                            0: streaming)
+    cluster: int               # CTAs a cluster: D / REC_UNITS (grid: 16)
+    tiles: int                 # clusters in the grid: ceil(B / bb) (grid:
+    #                            row tiles, looped inside each step)
     max_clusters: int          # clusters the card holds at once
     smem: int                  # bytes of shared memory a CTA
+    units: int = 0             # grid: hidden units a CTA (0 elsewhere)
+    group: int = 0             # grid: clusters a group, D / 256 (0
+    #                            elsewhere)
 
 
 def _rec_smem(kind, bb, D, ng=4):
@@ -780,21 +799,61 @@ def _rec_smem(kind, bb, D, ng=4):
     return 2 * (n * (D + 8) + bb * (n + 8)) + 4 * D * bb
 
 
+def _grid_smem(D):
+    """Shared memory of a grid-route CTA (``csrc/fused_rnn.cu``'s
+    ``rc::grid_fwd_smem`` / ``grid_bwd_smem``, the larger): the
+    forward's W columns of its 16 units [64, D + 8] or the backward's W
+    rows [D / 16, 1024 + 8], bf16, then the staged K chunks."""
+    return 2 * max(4 * GRID_UNITS * (D + 8),
+                   D // GRID_CLUSTER * (GRID_K + 8)) + _GRID_STAGES
+
+
+def _grid_shape(dtype, D, ng):
+    """The shapes the grid route takes: the LSTM in bf16 at D 768, 1024
+    and 1280 (a multiple of 256 past the resident route's 512, with 3 to
+    5 clusters of 16 CTAs and both recurrences' CTAs within
+    ``SMEM_LIMIT``; D 1536 would need 253,440 bytes)."""
+    return (ng == 4 and dtype == torch.bfloat16
+            and D % (GRID_UNITS * GRID_CLUSTER) == 0
+            and 3 <= D // (GRID_UNITS * GRID_CLUSTER) <= 5
+            and _grid_smem(D) <= SMEM_LIMIT)
+
+
 def lstm_cluster_plan(dtype, B, D, n_sm=132, max_clusters=None, ng=4):
-    """The resident recurrences' route and tile, by shape, before any
-    launch: the LSTM's (``ng`` 4: B10/B11's and B14/B15's) or the GRU's
-    (``ng`` 3: B12/B13's). Resident: bf16, D a multiple of 32 with at
-    most 16 CTAs a cluster (D <= 512), both recurrences' CTAs within
-    ``SMEM_LIMIT`` at the smallest tile, and the card able to hold a
-    cluster. Each tile of ``bb`` batch rows is one cluster of D / 32 CTAs
-    (CTA j owns hidden units 32j..32j+31, its 32 ng columns of W
-    resident). Clusters never wait on each other, so more tiles than the
-    card holds at once (``max_clusters``: the card's count, queried from
-    the kernels; by default ``n_sm // (D / 32)``) run in waves; ``bb`` is
-    the tile of ``REC_TILES[ng]`` whose shared memory fits with the
-    fewest waves, the smaller of two with as many (the LSTM's: 16 while
-    ``ceil(B / 16)`` clusters fit at once, else 32). Everything else
-    (fp32, other D) streams W from L2 every step."""
+    """The recurrences' route and tile, by shape, before any launch: the
+    LSTM's (``ng`` 4: B10/B11's and B14/B15's) or the GRU's (``ng`` 3:
+    B12/B13's). Three routes:
+
+    - resident: bf16, D a multiple of 32 with at most 16 CTAs a cluster
+      (D <= 512), both recurrences' CTAs within ``SMEM_LIMIT`` at the
+      smallest tile, and the card able to hold a cluster. Each tile of
+      ``bb`` batch rows is one cluster of D / 32 CTAs (CTA j owns hidden
+      units 32j..32j+31, its 32 ng columns of W resident). Clusters never
+      wait on each other, so more tiles than the card holds at once
+      (``max_clusters``: the card's count, queried from the kernels; by
+      default ``n_sm // (D / 32)``) run in waves; ``bb`` is the tile of
+      ``REC_TILES[ng]`` whose shared memory fits with the fewest waves,
+      the smaller of two with as many (the LSTM's: 16 while ``ceil(B /
+      16)`` clusters fit at once, else 32).
+    - grid (the LSTM only): bf16 at D 768, 1024 and 1280
+      (``_grid_shape``), where W no longer fits one cluster: W resident
+      across a group of ``group`` = D / 256 clusters of 16 CTAs (each CTA
+      16 ``units``), all of which the card must hold at once
+      (``max_clusters``: the count of the grid kernels' 16-CTA clusters,
+      queried from the card; by default ``n_sm // 16``). One group does
+      every row: ``tiles`` row tiles of ``bb`` = 128 loop inside each
+      step.
+    - streaming: everything else (fp32, the GRU past D 512, other D, a
+      group the card cannot hold) reads W from L2 every step."""
+    if _grid_shape(dtype, D, ng):
+        group = D // (GRID_UNITS * GRID_CLUSTER)
+        mc = (n_sm // GRID_CLUSTER if max_clusters is None
+              else int(max_clusters))
+        if mc < group:
+            return ClusterPlan("streaming", 0, 0, 0, 0, 0)
+        return ClusterPlan("grid", GRID_ROWS, GRID_CLUSTER,
+                           -(-B // GRID_ROWS), mc, _grid_smem(D),
+                           GRID_UNITS, group)
     nc = D // REC_UNITS if D % REC_UNITS == 0 else 0
     fits = [bb for bb in REC_TILES[ng]
             if max(_rec_smem("fwd", bb, D, ng), _rec_smem("bwd", bb, D, ng))
@@ -822,9 +881,12 @@ def _cluster_plan(dtype, B, D, dev, ng=4):
     """``lstm_cluster_plan`` with the card's SM count and, for a shape
     the resident route can take, the number of its clusters (of the
     recurrences of ``ng`` gates, at the smallest tile) the card holds at
-    once (asked of the CUDA runtime once per device, D and ng)."""
-    if (dtype != torch.bfloat16 or D % REC_UNITS
-            or not 1 <= D // REC_UNITS <= REC_MAX_CLUSTER):
+    once, or for a shape the grid route can take, the number of the grid
+    kernels' 16-CTA clusters (asked of the CUDA runtime once per device,
+    D and ng)."""
+    grid = _grid_shape(dtype, D, ng)
+    if not grid and (dtype != torch.bfloat16 or D % REC_UNITS
+                     or not 1 <= D // REC_UNITS <= REC_MAX_CLUSTER):
         return lstm_cluster_plan(dtype, B, D, ng=ng)
     key = (torch.cuda.current_device() if dev.index is None else dev.index,
            D, ng)
@@ -832,8 +894,9 @@ def _cluster_plan(dtype, B, D, dev, ng=4):
     if mc is None:
         out = torch.zeros(1, dtype=torch.int32)
         with torch.cuda.device(dev):
-            err = _cuda_entry("cluster_occupancy")(
-                1, out.data_ptr(), D, REC_TILES[ng][0], ng, None)
+            err = (_cuda_entry("grid_occupancy")(1, out.data_ptr(), D, None)
+                   if grid else _cuda_entry("cluster_occupancy")(
+                       1, out.data_ptr(), D, REC_TILES[ng][0], ng, None))
         if err != 0:
             raise RuntimeError(f"cluster occupancy query for D={D} failed: "
                                f"CUDA error {err}")
@@ -848,20 +911,20 @@ def _dw_partials(plan, dev):
 
 def lstm_fwd(x, w, lens, h0, c0):
     """B10: ``(hs, cs, gates)`` in x's dtype. CUDA tensors take the route
-    of ``lstm_cluster_plan`` for x's dtype: resident
-    (``lstm_cluster_fwd``'s kernel with x in bf16 as the step's first
-    term, ``kernels.LAUNCHES["lstm_fwd"]`` and
-    ``["lstm_fwd_cluster"]``) or streaming (one kernel reading W from L2
-    every step, ``["lstm_fwd"]`` and ``["lstm_fwd_stream"]``), or raise
-    (every tensor contiguous and 16-byte aligned); CPU tensors take the
-    plain version."""
+    of ``lstm_cluster_plan`` for x's dtype: resident or grid
+    (``lstm_cluster_fwd``'s kernel of that route with x in bf16 as the
+    step's first term, ``kernels.LAUNCHES["lstm_fwd"]`` and
+    ``["lstm_fwd_cluster"]`` / ``["lstm_fwd_grid"]``) or streaming (one
+    kernel reading W from L2 every step, ``["lstm_fwd"]`` and
+    ``["lstm_fwd_stream"]``), or raise (every tensor contiguous and
+    16-byte aligned); CPU tensors take the plain version."""
     T, B, D = _check_shapes(x, w, lens, h0, ng=4)
     _check_c0(h0, c0)
     if _device_kind(x) == "cpu":
         return lstm_fwd_reference(x, w, lens, h0, c0)
     lane = _check_cuda((("x", x), ("w", w), ("h0", h0), ("c0", c0)), lens)
     plan = _cluster_plan(x.dtype, B, D, x.device)
-    if plan.route == "resident":
+    if plan.route != "streaming":
         return _cluster_fwd(plan, x, w, lens, h0, c0, "lstm_fwd")
     _check_d(D)
     hs = x.new_empty((T, B, D))
@@ -877,12 +940,12 @@ def lstm_fwd(x, w, lens, h0, c0):
 def lstm_bwd_data(gates, cs, w, lens, h0, c0, dhs, dcs):
     """B11's recurrence: ``(dx, dh0, dc0)``, dx the dgates in the gates'
     dtype. CUDA tensors take the route of ``lstm_cluster_plan`` for the
-    gates' dtype: resident
-    (``lstm_cluster_bwd``'s kernel without db, W read transposed from its
-    resident slices, ``LAUNCHES["lstm_bwd"]`` and ``["lstm_bwd_cluster"]``)
-    or streaming (one kernel over a transposed copy of W, ``["lstm_bwd"]``
-    and ``["lstm_bwd_stream"]``), or raise; CPU tensors take the plain
-    version."""
+    gates' dtype: resident or grid (``lstm_cluster_bwd``'s kernel of that
+    route without db, W read from its resident slices,
+    ``LAUNCHES["lstm_bwd"]`` and ``["lstm_bwd_cluster"]`` /
+    ``["lstm_bwd_grid"]``) or streaming (one kernel over a transposed copy
+    of W, ``["lstm_bwd"]`` and ``["lstm_bwd_stream"]``), or raise; CPU
+    tensors take the plain version."""
     T, B, D = _check_shapes(gates, w, lens, h0, ng=4)
     _check_c0(h0, c0)
     if _device_kind(gates) == "cpu":
@@ -892,7 +955,7 @@ def lstm_bwd_data(gates, cs, w, lens, h0, c0, dhs, dcs):
     lane = _check_cuda((("gates", gates), ("cs", cs), ("w", w), ("c0", c0),
                         ("dhs", dhs), ("dcs", dcs)), lens)
     plan = _cluster_plan(gates.dtype, B, D, gates.device)
-    if plan.route == "resident":
+    if plan.route != "streaming":
         dx, _db, dh0, dc0 = _cluster_bwd(plan, gates, cs, w, lens, h0, c0,
                                          dhs, dcs, "lstm_bwd", with_db=False)
         return dx, dh0, dc0
@@ -1000,20 +1063,21 @@ def _check_bf16(name, *tensors):
 
 
 def _resident_plan(name, w, B, dev):
+    """The plan of a W-resident route (resident or grid), or raise."""
     plan = _cluster_plan(w.dtype, B, w.shape[0], dev)
-    if plan.route != "resident":
+    if plan.route == "streaming":
         raise ValueError(f"{name}: D={w.shape[0]} in {w.dtype} takes the "
-                         "streaming route, not the resident one "
+                         "streaming route, not a W-resident one "
                          "(lstm_cluster_plan)")
     return plan
 
 
 def lstm_cluster_fwd(xg, w, lens, h0, c0):
-    """B14's recurrence on the resident route: ``(hs, cs, gates)`` in h0's
+    """B14's recurrence on a W-resident route: ``(hs, cs, gates)`` in h0's
     dtype from the pre-pass's fp32 ``xg [T, B, 4D]``. CUDA tensors launch
-    the cluster kernel (``LAUNCHES["lstm_proj_fwd"]`` and
-    ``["lstm_proj_fwd_cluster"]``) or raise; CPU tensors take the plain
-    version."""
+    the kernel of the plan's route (``LAUNCHES["lstm_proj_fwd"]`` and
+    ``["lstm_proj_fwd_cluster"]``, or ``["lstm_proj_fwd_grid"]`` past D
+    512) or raise; CPU tensors take the plain version."""
     D = w.shape[0] if w.dim() == 2 else 0
     if (xg.dim() != 3 or tuple(w.shape) != (D, 4 * D)
             or xg.shape[2] != 4 * D or tuple(h0.shape) != (xg.shape[1], D)
@@ -1038,29 +1102,46 @@ def lstm_cluster_fwd(xg, w, lens, h0, c0):
                         xg, w, lens, h0, c0)
 
 
+def _grid_scratch(B, D, dev, slots=0):
+    """The grid kernels' scratch: the fp32 carries [2, B, D], the
+    backward's fp32 slots [2, slots, B, D] (``slots`` clusters; none for
+    0) and the step counter, zeroed."""
+    f32 = torch.float32
+    return (torch.empty((2, B, D), dtype=f32, device=dev),
+            torch.empty((2, slots, B, D), dtype=f32, device=dev)
+            if slots else None,
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
 def _cluster_fwd(plan, xg, w, lens, h0, c0, name="lstm_proj_fwd"):
-    """Launch the resident forward recurrence at ``plan``'s tile on
-    checked tensors, counted under ``name`` and ``name + "_cluster"``:
-    B14's (``xg`` the pre-pass's fp32) or B10's (``xg`` its bf16 x)."""
+    """Launch the forward recurrence of ``plan``'s route (resident, at its
+    tile, or grid) on checked tensors, counted under ``name`` and ``name +
+    "_cluster"`` / ``"_grid"``: B14's (``xg`` the pre-pass's fp32) or
+    B10's (``xg`` its bf16 x)."""
     T, B, D = xg.shape[0], xg.shape[1], w.shape[0]
     hs = h0.new_empty((T, B, D))
     cs = h0.new_empty((T, B, D))
     gates = h0.new_empty((T, B, 4 * D))
-    if B:
+    x_sfx = "" if xg.dtype == torch.float32 else "_x"
+    if B and plan.route == "grid":
+        carry, _slots, counter = _grid_scratch(B, D, w.device)
+        _launch(name, 1, (xg, w, lens, h0, c0, hs, cs, gates, carry,
+                          counter), (T, B, D), w.device,
+                entry="grid_lstm_fwd" + x_sfx, also=(name + "_grid",))
+    elif B:
         _launch(name, 1, (xg, w, lens, h0, c0, hs, cs, gates),
                 (T, B, D, plan.bb), w.device,
-                entry=("cluster_lstm_fwd" if xg.dtype == torch.float32
-                       else "cluster_lstm_fwd_x"),
-                also=(name + "_cluster",))
+                entry="cluster_lstm_fwd" + x_sfx, also=(name + "_cluster",))
     return hs, cs, gates
 
 
 def lstm_cluster_bwd(gates, cs, w, lens, h0, c0, dhs, dcs):
-    """B15's recurrence on the resident route: ``(dx, db, dh0, dc0)``, dx
+    """B15's recurrence on a W-resident route: ``(dx, db, dh0, dc0)``, dx
     the dgates in bf16, db fp32; W read from its resident slices (no
-    transposed copy). CUDA tensors launch the cluster kernel
-    (``LAUNCHES["lstm_proj_bwd"]`` and ``["lstm_proj_bwd_cluster"]``) or
-    raise; CPU tensors take the plain version."""
+    transposed copy). CUDA tensors launch the kernel of the plan's route
+    (``LAUNCHES["lstm_proj_bwd"]`` and ``["lstm_proj_bwd_cluster"]``, or
+    ``["lstm_proj_bwd_grid"]`` past D 512) or raise; CPU tensors take the
+    plain version."""
     T, B, D = _check_shapes(gates, w, lens, h0, ng=4)
     _check_c0(h0, c0)
     if _device_kind(gates) == "cpu":
@@ -1078,21 +1159,28 @@ def lstm_cluster_bwd(gates, cs, w, lens, h0, c0, dhs, dcs):
 
 def _cluster_bwd(plan, gates, cs, w, lens, h0, c0, dhs, dcs,
                  name="lstm_proj_bwd", with_db=True):
-    """Launch the resident reverse recurrence at ``plan``'s tile on
-    checked tensors, counted under ``name`` and ``name + "_cluster"``:
-    B15's, or without db (``with_db`` False: B11's, db None)."""
+    """Launch the reverse recurrence of ``plan``'s route (resident, at its
+    tile, or grid) on checked tensors, counted under ``name`` and ``name +
+    "_cluster"`` / ``"_grid"``: B15's, or without db (``with_db`` False:
+    B11's, db None)."""
     T, B, D = cs.shape
     dev = gates.device
     dx = torch.empty_like(gates)
     db = db_part = None
     if with_db:
         db = torch.zeros((4 * D,), dtype=torch.float32, device=dev)
-        # fp32 per-tile db partials, summed in tile order
-        db_part = torch.empty((plan.tiles, 4 * D), dtype=torch.float32,
-                              device=dev)
+        if plan.route == "resident":
+            # fp32 per-tile db partials, summed in tile order
+            db_part = torch.empty((plan.tiles, 4 * D), dtype=torch.float32,
+                                  device=dev)
     dh0 = torch.empty_like(h0)
     dc0 = torch.empty_like(c0)
-    if B:
+    if B and plan.route == "grid":
+        carry, slots, counter = _grid_scratch(B, D, dev, plan.group)
+        _launch(name, 1, (gates, cs, w, lens, c0, dhs, dcs, dx, db, dh0, dc0,
+                          carry, slots, counter), (T, B, D), dev,
+                entry="grid_lstm_bwd", also=(name + "_grid",))
+    elif B:
         _launch(name, 1,
                 (gates, cs, w, lens, c0, dhs, dcs, dx, db_part, db, dh0,
                  dc0), (T, B, D, plan.bb), dev, entry="cluster_lstm_bwd",
@@ -1120,11 +1208,11 @@ def lstm_cluster_probe(D, bb, tiles, n_steps, mode, dev):
 
 def lstm_proj_fwd(xe, wx, b, w, lens, h0, c0):
     """B14: ``(hs, cs, gates)``. CUDA tensors take the route of
-    ``lstm_cluster_plan``: resident (the pre-pass ``lstm_proj_xg``, then
-    ``lstm_cluster_fwd``) or streaming (one kernel reading W and Wx from
-    L2 every step, ``LAUNCHES["lstm_proj_fwd"]`` and
-    ``["lstm_proj_fwd_stream"]``), or raise; CPU tensors take the plain
-    version."""
+    ``lstm_cluster_plan``: resident or grid (the pre-pass
+    ``lstm_proj_xg``, then ``lstm_cluster_fwd``'s kernel of the route) or
+    streaming (one kernel reading W and Wx from L2 every step,
+    ``LAUNCHES["lstm_proj_fwd"]`` and ``["lstm_proj_fwd_stream"]``), or
+    raise; CPU tensors take the plain version."""
     T, B, D, E = _check_proj(xe, wx, b, w, lens, h0, c0)
     if _device_kind(xe) == "cpu":
         return lstm_proj_fwd_reference(xe, wx, b, w, lens, h0, c0)
@@ -1132,7 +1220,7 @@ def lstm_proj_fwd(xe, wx, b, w, lens, h0, c0):
                         ("h0", h0), ("c0", c0)), lens)
     _check_d(E, "E")
     plan = _cluster_plan(xe.dtype, B, D, xe.device)
-    if plan.route == "resident":
+    if plan.route != "streaming":
         return _cluster_fwd(plan, lstm_proj_xg(xe, wx, b), w, lens, h0, c0)
     _check_d(D)
     hs = xe.new_empty((T, B, D))
@@ -1149,11 +1237,12 @@ def lstm_proj_fwd(xe, wx, b, w, lens, h0, c0):
 def lstm_proj_bwd_data(gates, cs, wx, w, lens, h0, c0, dhs, dcs):
     """B15's recurrence: ``(dxe, dx, db, dh0, dc0)``, dx the dgates
     rounded to W's dtype (the reductions' operand), db fp32. CUDA tensors
-    take the route of ``lstm_cluster_plan``: resident
-    (``lstm_cluster_bwd``, then the post-pass ``lstm_proj_dxe``) or
-    streaming (one kernel over transposed copies of W and Wx,
-    ``LAUNCHES["lstm_proj_bwd"]`` and ``["lstm_proj_bwd_stream"]``), or
-    raise; CPU tensors take the plain version."""
+    take the route of ``lstm_cluster_plan``: resident or grid
+    (``lstm_cluster_bwd``'s kernel of the route, then the post-pass
+    ``lstm_proj_dxe``) or streaming (one kernel over transposed copies of
+    W and Wx, ``LAUNCHES["lstm_proj_bwd"]`` and
+    ``["lstm_proj_bwd_stream"]``), or raise; CPU tensors take the plain
+    version."""
     T, B, D = _check_shapes(gates, w, lens, h0, ng=4)
     _check_c0(h0, c0)
     if _device_kind(gates) == "cpu":
@@ -1171,7 +1260,7 @@ def lstm_proj_bwd_data(gates, cs, wx, w, lens, h0, c0, dhs, dcs):
     _check_d(E, "E")
     dev = gates.device
     plan = _cluster_plan(gates.dtype, B, D, dev)
-    if plan.route == "resident":
+    if plan.route != "streaming":
         dx, db, dh0, dc0 = _cluster_bwd(plan, gates, cs, w, lens, h0, c0,
                                         dhs, dcs)
         return lstm_proj_dxe(dx, wx), dx, db, dh0, dc0

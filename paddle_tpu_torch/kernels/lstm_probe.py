@@ -2,8 +2,9 @@
 
     python -m paddle_tpu_torch.kernels.lstm_probe [--out FILE]
     python -m paddle_tpu_torch.kernels.lstm_probe --time [--root DIR]
-        [--fused-only STEPS | --gru]
+        [--fused-only STEPS | --gru | --wide]
     python -m paddle_tpu_torch.kernels.lstm_probe --gru-tiles
+    python -m paddle_tpu_torch.kernels.lstm_probe --grid-ablation
 
 The first form measures the cluster exchange alone
 (``chip_smoke.lstm_exchange``: 100 empty steps at the flagship's tile,
@@ -32,13 +33,30 @@ a step under ``torch.profiler`` (``chip_smoke.profile_s2s``). Run it
 for a parent tree and this one in turns, each side first as often as
 the other. ``--fused-only STEPS`` times the fused route's step alone
 (STEPS steps, then the profile), with no kernel timed before it in the
-process; ``--gru`` the GRU rows and the seq2seq step alone.
+process; ``--gru`` the GRU rows and the seq2seq step alone; ``--wide``
+the LSTM's bf16 lane past D 512 alone (``wide_timing``): the four
+wrappers at T 100, B 128, D 1024 (E 128) and D 1280 (E 128 and 1280),
+each recurrence alone too where the tree's plan keeps W resident (the
+grid route), and the AMP step of the classifier at hidden 1024
+(``train_lstm_wide``) and 1280 (``train_lstm_1280``), fused_lstm,
+uniform lengths, ms per batch p50 over 10 steps after 3.
 
 The third times the GRU's resident recurrences of this tree at T 30, B
 512, D 512 at each tile the kernels take (16, 32 and 48 rows a
 cluster: 32, 16 and 11 clusters), launched through the C entries with
 the tile given, every tile's outputs held bit-equal to the plan's, and
-prints the plan's tile beside the ranking. Kernel timings are
+prints the plan's tile beside the ranking.
+
+The fourth builds variants of this tree's ``fused_rnn.cu`` (under
+``kernels/build/ablation/``) in which parts of the grid route's two
+kernels are switched off by preprocessor flags inserted into a copy of
+the source (``ABLATIONS``: the group barrier, the operand's cp.async
+loads, the products), and times each variant's forward (B10's C entry)
+and reverse (B11's) at T 100, B 128, D 1024 and 1280 beside the intact
+build (whose outputs are held bit-equal to the wrappers'): where a
+step's time goes, as differences between variants; the outputs of a
+variant with a part switched off are wrong, and only its time is read.
+Kernel timings are
 ``chip_smoke._time_ms``'s with the card's queue kept ahead of the host
 (device ms, L2 flushed), on this checkout's seeded inputs. Both need
 one card.
@@ -199,21 +217,168 @@ def timing(cs, fr, dev, flush):
     return out
 
 
+WIDE = ((1024, 128), (1280, 128), (1280, 1280))   # (D, E) of --wide
+# --grid-ablation: variant -> the parts of a grid-route step switched off
+ABLATIONS = {"intact": (), "no_barrier": ("NO_SYNC",),
+             "no_product": ("NO_MMA",), "no_load": ("NO_LOAD",),
+             "no_load_no_product": ("NO_LOAD", "NO_MMA"),
+             "cells_only": ("NO_LOAD", "NO_MMA", "NO_SYNC")}
+# (the text each switch guards in csrc/fused_rnn.cu, what it becomes)
+_SWITCHES = (
+    ("      cp16(dst + 2 * (r * kGLd + 8 * p),\n"
+     "           src + static_cast<size_t>(b < B ? b : 0) * ld_src "
+     "+ col(kc, p),\n           b < B);",
+     "#ifndef NO_LOAD\n{}\n#endif"),
+    ("          if (r0 + m0 >= B) continue;  // no live row in this m-tile",
+     "{}\n#ifdef NO_MMA\n          continue;\n#endif"),
+    ("          if (r0 + m0 >= B) continue;\n          uint32_t a[4];",
+     "          if (r0 + m0 >= B) continue;\n#ifdef NO_MMA\n"
+     "          continue;\n#endif\n          uint32_t a[4];"),
+    ("                                           unsigned target) {\n",
+     "{}#ifdef NO_SYNC\n  return;\n#endif\n"))
+
+
+def _ablation_builds():
+    """Each ABLATIONS variant of csrc/fused_rnn.cu built with nvcc (one
+    process each, all at once): {variant: ctypes library}."""
+    import ctypes
+    import subprocess
+    from paddle_tpu_torch.kernels import _build
+    src = (_build.CSRC_DIR / "fused_rnn.cu").read_text()
+    for old, new in _SWITCHES:
+        if src.count(old) != 1:
+            raise RuntimeError(f"ablation switch not found once: {old!r}")
+        src = src.replace(old, new.format(old) if "{}" in new else new)
+    out = _build.BUILD_DIR / "ablation"
+    out.mkdir(parents=True, exist_ok=True)
+    for h in _build.CSRC_DIR.glob("*.cuh"):
+        (out / h.name).write_bytes(h.read_bytes())
+    (out / "fused_rnn.cu").write_text(src)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    procs = {v: subprocess.Popen(
+        [_build.find_nvcc(), *flags, *(f"-D{d}" for d in defs), "-o",
+         str(out / f"{v}.so"), str(out / "fused_rnn.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for v, defs in ABLATIONS.items()}
+    for v, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"ablation {v}: nvcc failed\n{log}")
+    return {v: ctypes.CDLL(str(out / f"{v}.so")) for v in ABLATIONS}
+
+
+def grid_ablation(cs, fr, dev, flush, T=100, B=128):
+    """Device ms of the grid route's forward (``grid_lstm_fwd_x``, B10)
+    and reverse (``grid_lstm_bwd`` without db, B11) in each ABLATIONS
+    variant at D 1024 and 1280; the intact variant's forward bit-equal to
+    ``lstm_fwd``'s."""
+    import ctypes
+    libs = _ablation_builds()
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    out = {}
+    for D in (1024, 1280):
+        c = {k: (v if k == "lens" else v.to(torch.bfloat16))
+             for k, v in cs._lstm_case(dev, T, B, D, 128, False).items()}
+        hs, cs_, g = fr.lstm_fwd(c["x"], c["w"], c["lens"], c["h0"], c["c0"])
+        o = [torch.empty_like(t) for t in (hs, cs_, g, g, c["h0"], c["c0"])]
+        carry = torch.empty((2, B, D), dtype=torch.float32, device=dev)
+        slots = torch.empty((2, D // 256, B, D), dtype=torch.float32,
+                            device=dev)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        st = torch.cuda.current_stream(dev).cuda_stream
+        rec = {}
+        for v, lib in libs.items():
+            fwd_e, bwd_e = lib.grid_lstm_fwd_x, lib.grid_lstm_bwd
+            fwd_e.argtypes = [i32] + [ptr] * 10 + [i32] * 3 + [ptr]
+            bwd_e.argtypes = [i32] + [ptr] * 14 + [i32] * 3 + [ptr]
+            fwd_e.restype = bwd_e.restype = i32
+
+            def fwd(e=fwd_e):
+                counter.zero_()
+                err = e(1, *(t.data_ptr() for t in (
+                    c["x"], c["w"], c["lens"], c["h0"], c["c0"], *o[:3],
+                    carry, counter)), T, B, D, st)
+                if err:
+                    raise RuntimeError(f"ablation fwd: CUDA error {err}")
+
+            def bwd(e=bwd_e):
+                counter.zero_()
+                ps = [t.data_ptr() for t in (g, cs_, c["w"], c["lens"],
+                                             c["c0"], c["dhs"], c["dcs"],
+                                             o[3])]
+                err = e(1, *ps, None, *(t.data_ptr() for t in (
+                    o[4], o[5], carry, slots, counter)), T, B, D, st)
+                if err:
+                    raise RuntimeError(f"ablation bwd: CUDA error {err}")
+
+            if v == "intact":
+                fwd()
+                torch.cuda.synchronize()
+                rec["intact_fwd_bit_equal"] = all(
+                    torch.equal(a, b) for a, b in zip(o[:3], (hs, cs_, g)))
+            rec[v] = {d: cs._time_ms(fn, flush, reps=10, queue_ahead=True)
+                      for d, fn in (("fwd_device_ms", fwd),
+                                    ("bwd_device_ms", bwd))}
+        out[f"d{D}"] = rec
+        del c, o, carry, slots, hs, cs_, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def wide_timing(cs, fr, dev, flush):
+    """Device ms of the bf16 LSTM wrappers past D 512 (B10 and B11 at E
+    128 only: they do not depend on E) and, where the plan keeps W
+    resident, of B14's and B15's recurrences alone (``lstm_cluster_fwd``
+    on the pre-pass's xg, ``lstm_cluster_bwd``); each key starts with
+    ``d{D}_e{E}_``, beside the route the tree's plan gives."""
+    out = {}
+    bf = torch.bfloat16
+    for D, E in WIDE:
+        key = f"d{D}_e{E}"
+        c = {k: (v if k == "lens" else v.to(bf))
+             for k, v in cs._lstm_case(dev, T_, B_, D, E, False).items()}
+        args = (c["w"], c["lens"], c["h0"], c["c0"])
+        route = fr._cluster_plan(bf, B_, D, dev).route
+        out[f"{key}_route"] = route
+        _hs, pcs, pg = fr.lstm_proj_fwd(c["xe"], c["wx"], c["b"], *args)
+        bargs = (pg, pcs, *args, c["dhs"], c["dcs"])
+        calls = {"lstm_proj_fwd": lambda: fr.lstm_proj_fwd(
+                     c["xe"], c["wx"], c["b"], *args),
+                 "lstm_proj_bwd": lambda: fr.lstm_proj_bwd_data(
+                     pg, pcs, c["wx"], *bargs[2:])}
+        if E == 128:
+            calls.update({"lstm_fwd": lambda: fr.lstm_fwd(c["x"], *args),
+                          "lstm_bwd": lambda: fr.lstm_bwd_data(*bargs)})
+        if route != "streaming":
+            xg = fr.lstm_proj_xg(c["xe"], c["wx"], c["b"])
+            calls.update({
+                "recurrence_fwd": lambda: fr.lstm_cluster_fwd(xg, *args),
+                "recurrence_bwd": lambda: fr.lstm_cluster_bwd(*bargs)})
+        for name, fn in calls.items():
+            out[f"{key}_{name}_device_ms"] = cs._time_ms(
+                fn, flush, reps=10, queue_ahead=True)
+        del c, calls, bargs, _hs, pcs, pg
+        torch.cuda.empty_cache()
+    return out
+
+
 ROUTES = (("train_lstm", True, False),       # (key, fused_proj, ragged)
           ("train_lstm_composed", False, False),
           ("train_lstm_ragged", True, True))
 
 
-def step_timing(cs, dev, routes=ROUTES, steps=20):
+def step_timing(cs, dev, routes=ROUTES, steps=20, widths=None,
+                profiled=True):
     """ms per batch p50 of the classifier's AMP step on ``routes``, timed
     by ``chip_smoke.timed_steps`` (3 + ``steps`` steps; 5f's
-    ``train_text`` times 20), every loss finite; then the fused route's
-    step under ``torch.profiler`` (``chip_smoke.profile_text``): host
-    wall ms, device busy ms and their difference, a step."""
+    ``train_text`` times 20), every loss finite, at ``widths`` (default
+    the flagship's); then, with ``profiled``, the fused route's step under
+    ``torch.profiler`` (``chip_smoke.profile_text``): host wall ms,
+    device busy ms and their difference, a step."""
     from paddle_tpu_torch.models import text as tx
     out = {}
     for key, fused_proj, ragged in routes:
-        cfg = tx.TextConfig(**cs.TEXT_CFG, fused_proj=fused_proj)
+        cfg = tx.TextConfig(**(widths or cs.TEXT_CFG), fused_proj=fused_proj)
         params = tx.init_params(cfg, seed=0, device=dev)
         opt, step = tx.make_train_step(cfg, "adam", cs.TEXT_LR)
         _p, _s, losses, step_ms, _wall = cs.timed_steps(
@@ -224,6 +389,8 @@ def step_timing(cs, dev, routes=ROUTES, steps=20):
         out[f"{key}_ms_per_batch_p50"] = statistics.median(step_ms)
         del params, opt, step, _p, _s, losses
         torch.cuda.empty_cache()
+    if not profiled:
+        return out
     prof = cs.profile_text(tx, dev)["profile_lstm"]
     out["profile_lstm"] = {
         "wall_ms_per_step": prof["wall_ms_per_step"],
@@ -246,7 +413,11 @@ def main(argv=None):
     ap.add_argument("--gru", action="store_true",
                     help="with --time: only the GRU rows and the seq2seq "
                     "step")
+    ap.add_argument("--wide", action="store_true",
+                    help="with --time: only the LSTM's bf16 lane past D "
+                    "512 (D 1024, 1280) and the hidden-1024 / 1280 steps")
     ap.add_argument("--gru-tiles", action="store_true")
+    ap.add_argument("--grid-ablation", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("lstm_probe: no CUDA device", file=sys.stderr)
@@ -265,11 +436,21 @@ def main(argv=None):
         elif args.gru:
             rec.update(gru_timing(cs, fr, dev, flush), **s2s_step_timing(
                 cs, dev))
+        elif args.wide:
+            rec.update(wide_timing(cs, fr, dev, flush))
+            for key, widths in (("train_lstm_wide", cs.TEXT_WIDE_CFG),
+                                ("train_lstm_1280", cs.TEXT_1280_CFG)):
+                rec.update(step_timing(cs, dev, ((key, True, False),), 10,
+                                       widths, profiled=False))
         else:
             rec.update(timing(cs, fr, dev, flush), **step_timing(cs, dev),
                        **gru_timing(cs, fr, dev, flush),
                        **s2s_step_timing(cs, dev))
         print(json.dumps(rec), flush=True)
+        return 0
+    if args.grid_ablation:
+        print(json.dumps({"card": card, "grid_ablation": grid_ablation(
+            cs, fr, dev, flush)}), flush=True)
         return 0
     if args.gru_tiles:
         print(json.dumps({"card": card, "gru_tiles": gru_tiles(

@@ -19,7 +19,9 @@ to ``FILE``:
   projections with M 80;
 - B12/B13 (``gru_fwd``, ``gru_bwd_data``, ``gru_dw``) and B10/B11/B14/
   B15 (every LSTM wrapper), fp32 and bf16, at ``GRU_SHAPES`` /
-  ``LSTM_SHAPES``; ``lstm_proj_dw`` also on B10/B11's hs and dx; bf16
+  ``LSTM_SHAPES`` and past D 512 at ``WIDE_SHAPES`` (T 20, a ragged B
+  130: D 1024, the grid route in bf16, and D 640, the streaming route);
+  ``lstm_proj_dw`` also on B10/B11's hs and dx (D 512); bf16
   ``gru_dw`` also on inputs that no kernel made (hs and gates from the
   forward's plain version, dx from the reverse's), so that it is held
   to the other tree's bits whatever the recurrences give.
@@ -28,7 +30,9 @@ The outputs of kernels a PR redesigns are saved under a name that starts
 with ``REDESIGNED`` (B1-B4's, since their row-tile kernel; the bf16 GRU
 recurrences' hs, gates, dx and dh0, since their resident route, and the
 dW computed from them; the LSTM outputs named in
-``_REDESIGNED_OUTPUTS``, bf16 lane, none now): the comparison reports
+``_REDESIGNED_OUTPUTS``, bf16 lane, none now; every bf16 LSTM output at
+the D of ``_REDESIGNED_D``, since the grid route, and what is computed
+from them): the comparison reports
 them apart and does not fail on them. The seeded inputs come
 from this checkout's ``chip_smoke.py``. Run the first form once per
 tree, each in its own process. The second prints, for each output,
@@ -50,6 +54,11 @@ REDESIGNED = "redesigned:"
 # the bf16 LSTM outputs of a redesign that changes their bits, or of
 # what is computed from them (``_lstm_run``'s names)
 _REDESIGNED_OUTPUTS: tuple = ()
+# past D 512 (T, B, D, E, ragged), and the D whose bf16 LSTM outputs a
+# redesign changes (the grid route's)
+WIDE_SHAPES = {"d1024": (20, 130, 1024, 128, True),
+               "d640": (20, 130, 640, 128, True)}
+_REDESIGNED_D = (1024,)
 
 
 def chip_smoke():
@@ -151,6 +160,15 @@ def _outputs(cs, pa, qm, fr, dev):
             dwx, dw = fr.lstm_proj_dw(lc["xe"], o["hs"], lc["h0"], o["dx"])
             out[f"lstm_{lane}_{key}_proj_dw_on_b11_dwx"] = dwx
             out[f"lstm_{lane}_{key}_proj_dw_on_b11_dw"] = dw
+        for key, (T, Bb, D, E, ragged) in WIDE_SHAPES.items():
+            c = cs._lstm_case(dev, T, Bb, D, E, ragged)
+            o = cs._lstm_run(fr, {n: (t.to(dtype) if n != "lens" else t)
+                                  for n, t in c.items()})
+            tag = (REDESIGNED if lane == "bf16" and D in _REDESIGNED_D
+                   else "")
+            for n, t in o.items():
+                out[f"{tag}lstm_{lane}_{key}_{n}"] = t
+            del c, o
     torch.cuda.synchronize()
     return {n: t.detach().cpu() for n, t in out.items()}
 

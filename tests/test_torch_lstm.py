@@ -35,7 +35,7 @@ fp32, the recurrence, then dxe = dx @ Wx^T) as plain PyTorch
 the same tolerances; in the bf16 lane, xg rounded to bf16 would move
 12-30 % of the gates off JAX's bits, against under 0.1 % in fp32; and
 ``lstm_cluster_plan``'s route and tile at B 1 / 17 / 128 / 130, D 64 /
-96 / 512 / 1024, both dtypes.
+96 / 512 / 1024 (bf16 D 1024: the grid route), both dtypes.
 
 B10/B11 on the same resident recurrences (bf16; T 8, B 16, D 64, ragged
 lengths with 0, and uniform): B10's plain version on bf16 x equals the
@@ -329,7 +329,7 @@ _ROUTES = {
     "bf16-b128-d512": (_BF, 128, 512, 7, "resident"),
     "bf16-b130-d512": (_BF, 130, 512, 7, "resident"),
     "bf16-b16-d64": (_BF, 16, 64, None, "resident"),
-    "bf16-d1024": (_BF, 128, 1024, None, "streaming"),
+    "bf16-d1024": (_BF, 128, 1024, None, "grid"),
     "bf16-d80": (_BF, 8, 80, None, "streaming"),
     "bf16-no-cluster": (_BF, 128, 512, 0, "streaming"),
     "fp32-d512": (_F32, 128, 512, 7, "streaming"),
@@ -340,8 +340,8 @@ _ROUTES = {
 def test_lstm_route_is_the_plan_of_the_calls_dtype(case):
     """``lstm_fwd`` / ``lstm_bwd_data`` take the route of
     ``lstm_cluster_plan`` (the plan B14/B15 use) for the call's one
-    dtype: resident in bf16 where the shape fits a cluster, else
-    streaming."""
+    dtype: resident in bf16 where the shape fits a cluster, grid where W
+    needs a group of clusters (D 1024), else streaming."""
     dtype, B_, D_, mc, route = _ROUTES[case]
     assert tfr.lstm_cluster_plan(dtype, B_, D_, 132, mc).route == route
 
@@ -366,7 +366,8 @@ def test_lstm_wrappers_take_one_dtype_before_routing(which):
 
 
 # (dtype, B, D) -> (route, bb, clusters) with the H100's 7 co-resident
-# 16-CTA clusters at D 512 and n_sm // (D / 32) elsewhere
+# 16-CTA clusters at D 512 and n_sm // (D / 32) elsewhere; bf16 D 1024
+# takes the grid route (n_sm // 16 clusters of 16 CTAs by default)
 _PLAN_B = (1, 17, 128, 130)
 _PLAN_D = (64, 96, 512, 1024)
 
@@ -378,8 +379,12 @@ _PLAN_D = (64, 96, 512, 1024)
 def test_cluster_plan_route_and_tile(dtype, D_, B_):
     mc = 7 if D_ == 512 else None
     plan = tfr.lstm_cluster_plan(dtype, B_, D_, 132, mc)
-    if dtype == torch.float32 or D_ > 512:
+    if dtype == torch.float32:
         assert plan == tfr.ClusterPlan("streaming", 0, 0, 0, 0, 0)
+        return
+    if D_ > 512:     # W over a group of 4 clusters, 128-row tiles
+        assert plan == tfr.ClusterPlan("grid", 128, 16, -(-B_ // 128),
+                                       132 // 16, 187392, 16, 4)
         return
     nc = D_ // 32
     assert plan.route == "resident" and plan.cluster == nc
@@ -981,15 +986,16 @@ def test_resident_kernels_two_launches_bit_equal_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_wide_d_takes_the_streaming_route_on_card(cuda_device):
-    """D 1024 in bf16: W's slice would not fit a 16-CTA cluster, so B14
-    and B15's recurrence stream W from L2 every step (each counted under
-    its ``_stream`` name, no pass launched): the forward within 2e-2 of
-    its plain version, the backward (from the kernel's own gates) within
-    chip_smoke.py's bf16 gate of the fp32 plain result."""
+    """D 640 in bf16: W's slice would not fit a 16-CTA cluster, and D is
+    no multiple of 256 for the grid route, so B14 and B15's recurrence
+    stream W from L2 every step (each counted under its ``_stream`` name,
+    no pass launched): the forward within 2e-2 of its plain version, the
+    backward (from the kernel's own gates) within chip_smoke.py's bf16
+    gate of the fp32 plain result."""
     t = {k: (v if k == "lens" else v.to(cuda_device, torch.bfloat16))
          for k, v in ((k, _t(v).to(cuda_device)) for k, v in _inputs(
-             seed=12, B=8, T=5, D=1024, E=128).items())}
-    assert tfr._cluster_plan(torch.bfloat16, 8, 1024,
+             seed=12, B=8, T=5, D=640, E=128).items())}
+    assert tfr._cluster_plan(torch.bfloat16, 8, 640,
                              cuda_device).route == "streaming"
     before = dict(tk.LAUNCHES)
     got = tfr.lstm_proj_fwd(t["xe"], t["wx"], t["b"], t["w"], t["lens"],
@@ -1031,11 +1037,11 @@ def test_resident_wrappers_raise_on_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError, match="bfloat16 lane"):
         tfr.lstm_cluster_fwd(xg, *(a.float() for a in args))
     with pytest.raises(ValueError, match="streaming route"):
-        w2 = torch.zeros((1024, 4096), dtype=torch.bfloat16,
+        w2 = torch.zeros((640, 2560), dtype=torch.bfloat16,
                          device=cuda_device)
-        h2 = torch.zeros((16, 1024), dtype=torch.bfloat16,
+        h2 = torch.zeros((16, 640), dtype=torch.bfloat16,
                          device=cuda_device)
-        tfr.lstm_cluster_fwd(torch.zeros((3, 16, 4096), device=cuda_device),
+        tfr.lstm_cluster_fwd(torch.zeros((3, 16, 2560), device=cuda_device),
                              w2, t["lens"], h2, h2)
     with pytest.raises(ValueError, match="contiguous"):
         tfr.lstm_proj_dxe(torch.zeros((3, 16, 2048), dtype=torch.bfloat16,
@@ -1189,14 +1195,14 @@ def test_dynamic_lstm_reverse_through_the_resident_route_on_card(
 
 @pytest.mark.cuda
 def test_b10_b11_wide_d_streams_on_card(cuda_device):
-    """D 1024 in bf16 is past the resident route: B10 and B11's
-    recurrence stream W from L2 (each counted under its ``_stream``
-    name), the forward within 2e-2 of its plain version, the backward
-    (from the kernel's own gates) within chip_smoke.py's bf16 gate of the
-    fp32 plain result."""
+    """D 640 in bf16 is past the resident route and no multiple of 256
+    for the grid route: B10 and B11's recurrence stream W from L2 (each
+    counted under its ``_stream`` name), the forward within 2e-2 of its
+    plain version, the backward (from the kernel's own gates) within
+    chip_smoke.py's bf16 gate of the fp32 plain result."""
     t = {k: (v if k == "lens" else v.to(cuda_device, torch.bfloat16))
          for k, v in ((k, _t(v).to(cuda_device)) for k, v in _inputs(
-             seed=14, B=8, T=5, D=1024, E=128).items())}
+             seed=14, B=8, T=5, D=640, E=128).items())}
     args = (t["w"], t["lens"], t["h0"], t["c0"])
     before = dict(tk.LAUNCHES)
     got = tfr.lstm_fwd(t["x"], *args)

@@ -149,7 +149,9 @@ def test_cpu_path_launches_no_kernel():
                                 "lstm_proj_bwd_cluster",
                                 "lstm_proj_fwd_stream",
                                 "lstm_proj_bwd_stream", "lstm_proj_xg",
-                                "lstm_proj_dxe", "gru_fwd_cluster",
+                                "lstm_proj_dxe", "lstm_fwd_grid",
+                                "lstm_bwd_grid", "lstm_proj_fwd_grid",
+                                "lstm_proj_bwd_grid", "gru_fwd_cluster",
                                 "gru_bwd_cluster", "gru_fwd_stream",
                                 "gru_bwd_stream"}
     assert not any(tk.LAUNCHES.values())
