@@ -161,27 +161,33 @@ The text-classification slice adds, in the same run:
    ``torch.matmul`` with fp32 sums on pre-built ``hprev`` or
    ``[xe | hprev]``, and two launches on the same inputs held
    bit-equal), B14/B15 at both layers. The recurrences' bf16 lane takes
-   the resident route (``fused_rnn.lstm_cluster_plan`` of the call's one
-   dtype). B14/B15's rows add the plan (tile
+   the resident route, their fp32 lane the grid route
+   (``fused_rnn.lstm_cluster_plan`` of the call's one dtype; the fp32
+   plans at D 256, 512 and 768 are printed first: units, group,
+   clusters held). B14/B15's rows add the plan (tile
    rows, clusters, CTAs a cluster, the card's co-resident clusters),
    ``device_ms`` with the card's queue kept ahead of the host, µs a step
-   of each recurrence alone, and the cluster exchange alone
+   of each recurrence alone, and (bf16) the cluster exchange alone
    (``lstm_exchange``: the forward's, the backward's and the barrier's µs
    a step over 100 empty steps); the route's pre-pass (``lstm_proj_xg``)
-   and post-pass (``lstm_proj_dxe``) are rows of their own, each against
-   its plain version, two launches bit-equal, beside a bf16 PyTorch GEMM
-   on the tensor cores (the pre-pass also beside the fp32 one). B10/B11's
-   bf16 rows (``lstm_fwd_bf16``, ``lstm_bwd_bf16``) add the plan,
-   ``device_ms`` and µs a step (each wrapper is its recurrence alone),
-   and hold, at the uniform layers' shape and the ragged batch: each
-   call counted under ``lstm_fwd`` / ``lstm_bwd`` and its ``_cluster``
-   name, B10 bit-equal to B14's recurrence (``lstm_cluster_fwd``) on
-   float(x), B11's dx, dh0, dc0 to ``lstm_cluster_bwd``'s, two launches
-   of each bit-equal. The bf16 streaming route, which the plan gives past
-   D 512, is held at D 1024 (the wide classifier's first layer: T 100, B
-   128, E 128) for B10/B11 and B14/B15, forward and backward at the bf16
-   gate, each counted under its ``_stream`` name, rows of their own
-   (``lstm_{fwd,bwd}_bf16_stream``, ``lstm_proj_{fwd,bwd}_bf16_stream``);
+   and post-pass (``lstm_proj_dxe``) are rows of their own in each lane,
+   each against its plain version (fp32: within 1e-5 of its largest
+   entry), two launches bit-equal, beside a PyTorch GEMM of the lane
+   (the bf16 pre-pass also beside the fp32-out one). The fp32
+   recurrences' bound is their cheapest exact tensor-core form (three
+   tf32 products), the CUDA-core one beside it (``bound_cuda_core_ms``).
+   B10/B11's rows add the plan, ``device_ms`` and µs a step (each
+   wrapper is its recurrence alone), and hold, at the uniform layers'
+   shape and the ragged batch: each call counted under ``lstm_fwd`` /
+   ``lstm_bwd`` and its route's name, B10 bit-equal to B14's recurrence
+   (``lstm_cluster_fwd``) on float(x), B11's dx, dh0, dc0 to
+   ``lstm_cluster_bwd``'s, two launches of each bit-equal. Past D 512
+   the bf16 grid route at D 1024 and 1280 and the bf16 streaming route at
+   D 640, and the fp32 streaming route at D 640 (a D the fp32 grid route
+   does not take: T 100, B 128, E 128), for B10/B11 and B14/B15, forward
+   and backward at the lane's gate, each counted under its route's name,
+   rows of their own (``lstm_{fwd,bwd}_bf16_grid``, ...,
+   ``lstm_{fwd,bwd}_stream``, ``lstm_proj_{fwd,bwd}_stream`` for fp32);
 4f. one full-width flagship training step (bench.py's bench_lstm:
    ``lstm_benchmark_net`` with ``fused_lstm``, batch 128 x 100, vocab
    5147, emb 128, hidden 512, 2 layers) in fp32 and under AMP, and the
@@ -200,7 +206,9 @@ The text-classification slice adds, in the same run:
    (fc + dynamic_lstm: B10/B11, 2 x steps, on the resident route's
    ``lstm_{fwd,bwd}_cluster`` names), ``train_lstm_ragged`` (ragged LoD,
    so fused_lstm falls back to B10/B11, the same names), short fp32 runs
-   of both routes (the fp32 lanes' launches, on the ``_stream`` names),
+   of both routes (the fp32 lanes' launches, on the ``_grid`` names, with
+   the passes), short fp32 runs at hidden 640 (``train_lstm_640_fp32``,
+   ``train_lstm_640_composed_fp32``: the fp32 streaming route's),
    ``train_lstm_wide`` (hidden 1024, AMP, 1 + 3 steps: B14/B15's bf16
    streaming route, 2 x steps each), ``train_lstm_wide_ragged`` (the
    same on ragged LoD: B10/B11's bf16 streaming route), ``profile_lstm``
@@ -2357,6 +2365,12 @@ LSTM_PASS_NOTES = {
                      "out)"}
 XG_REL_TOL = 1e-5               # fp32 sums of exact bf16 products
 DXE_REL_TOL = 2.0 ** -7         # one bf16 rounding of the fp32 sum
+# the fp32 lane's passes (3xTF32 against fp32 sums): fp32 parity
+F32_PASS_REL_TOL = 1e-5
+F32_PASS_NOTES = {
+    "lstm_proj_xg": "torch.addmm(b, xe, wx) in fp32 (full fp32: TF32 off), "
+                    "the pre-pass's function",
+    "lstm_proj_dxe": "torch.matmul(dx, wx.t()) in fp32 (TF32 off)"}
 LSTM_LIBRARY_NOTE = ("none: no PyTorch call computes this LSTM "
                      "(torch.nn.LSTM / cuDNN has two bias vectors, its own "
                      "gate layout, and no length mask that keeps c)")
@@ -2395,6 +2409,12 @@ LSTM_WIDE_CHECKS = (
     ("grid", (TEXT_T, TEXT_B, 1024, TEXT_CFG["emb_dim"]), "", None),
     ("grid", (TEXT_T, TEXT_B, 1280, TEXT_CFG["emb_dim"]), "_d1280", 1280),
     ("streaming", (TEXT_T, TEXT_B, 640, TEXT_CFG["emb_dim"]), "", None))
+# the fp32 lane's grid route takes D 256, 512 and 768 (3f holds it at
+# LSTM_SHAPES' D 512 and prints its plans at all three); its streaming
+# route is held at hidden 640's first layer
+LSTM_F32_GRID_D = (256, 512, 768)
+LSTM_WIDE_CHECKS_FP32 = (
+    ("streaming", (TEXT_T, TEXT_B, 640, TEXT_CFG["emb_dim"]), "", None),)
 # each row of those checks and the 5f run whose launches it reports (the
 # launch name is the row's key without its suffix)
 LSTM_WIDE_ROWS = {
@@ -2410,6 +2430,11 @@ LSTM_WIDE_ROWS = {
     "lstm_proj_bwd_stream": "train_lstm_640",
     "lstm_fwd_stream": "train_lstm_640_ragged",
     "lstm_bwd_stream": "train_lstm_640_ragged"}
+LSTM_WIDE_ROWS_FP32 = {
+    "lstm_proj_fwd_stream": "train_lstm_640_fp32",
+    "lstm_proj_bwd_stream": "train_lstm_640_fp32",
+    "lstm_fwd_stream": "train_lstm_640_composed_fp32",
+    "lstm_bwd_stream": "train_lstm_640_composed_fp32"}
 
 
 def _lstm_case(dev, T, B, D, E, ragged, seed=0):
@@ -2436,11 +2461,14 @@ def _lstm_case(dev, T, B, D, E, ragged, seed=0):
             "wx": randn(E, 4 * D, scale=0.05), "b": randn(4 * D, scale=0.1)}
 
 
-def _lstm_bound(name, dtype, T, B, D, E):
+def _lstm_bound(name, dtype, T, B, D, E, cuda_cores=False):
     """Least time of one call: its inputs read once and outputs written
     once (payload at the lane's width; lens and db fp32) over the HBM
     rate, against its products (2 FLOPs per multiply-add) over the lane's
-    peak (fp32 CUDA cores, bf16 tensor cores)."""
+    peak: bf16 tensor cores; fp32 recurrences (B10, B11's, B14, B15's) at
+    their cheapest exact tensor-core form, three tf32 products (3xTF32;
+    ``cuda_cores``: the fp32 CUDA cores, the bound they were held to before
+    it), the fp32 dW reductions at the CUDA cores."""
     e = 2 if dtype == torch.bfloat16 else 4
     tb, G = T * B, 4 * D
     if name == "lstm_fwd":        # x, W, h0, c0 -> hs, cs, gates
@@ -2466,24 +2494,33 @@ def _lstm_bound(name, dtype, T, B, D, E):
         nbytes = e * (tb * E + tb * D + tb * G + (E + D) * G)
         flops = 2.0 * tb * (E + D) * G
     nbytes += 4 * B                # lens
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    if dtype == torch.bfloat16:
+        s_per_flop = 1.0 / H100_BF16_FLOPS
+    elif name in LSTM_WIDE_NAMES and not cuda_cores:
+        s_per_flop = CHUNK_S_PER_FLOP["float32"]
+    else:
+        s_per_flop = 1.0 / H100_FP32_FLOPS
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = flops * s_per_flop * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def _pass_bound(name, T, B, D, E):
-    """Least time of the resident route's pre-pass (xe, Wx, b -> xg fp32)
-    or post-pass (dx, Wx -> dxe bf16): bytes over the HBM rate against
-    the product at the bf16 tensor-core rate."""
+def _pass_bound(name, T, B, D, E, dtype=torch.bfloat16):
+    """Least time of the W-resident routes' pre-pass (xe, Wx, b -> xg
+    fp32) or post-pass (dx, Wx -> dxe in dx's dtype): bytes over the HBM
+    rate against the product at the bf16 tensor-core rate (fp32: three
+    tf32 products)."""
     tb, G = T * B, 4 * D
+    e = 2 if dtype == torch.bfloat16 else 4
     if name == "lstm_proj_xg":
-        nbytes = 2 * (tb * E + E * G + G) + 4 * tb * G
+        nbytes = e * (tb * E + E * G + G) + 4 * tb * G
     else:
-        nbytes = 2 * (tb * G + E * G + tb * E)
+        nbytes = e * (tb * G + E * G + tb * E)
+    s_per_flop = (1.0 / H100_BF16_FLOPS if dtype == torch.bfloat16
+                  else CHUNK_S_PER_FLOP["float32"])
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = 2.0 * tb * E * G / H100_BF16_FLOPS * 1e3
+    t_ops = 2.0 * tb * E * G * s_per_flop * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -2507,16 +2544,20 @@ def lstm_exchange(fr, dev, flush, plan, D, T=100):
 
 
 def _lstm_resident(fr, dev, flush, c, o, T, B, D, E):
-    """B14/B15 bf16 on the resident route at one layer: the plan, device
-    ms of each wrapper (pre-pass + recurrence; recurrence + post-pass)
-    and of each recurrence alone (µs a step), and kernel-line records of
-    the pre-pass and the post-pass against their plain versions (two
-    launches bit-equal), each beside its same-function PyTorch call timed
-    both ways (``library_ms``; ``library_device_ms`` with the queue kept
-    ahead, as ``device_ms``), the pre-pass also beside a bf16-out addmm
-    (``LSTM_PASS_NOTES``)."""
-    plan = fr._cluster_plan(torch.bfloat16, B, D, dev)
-    _check(plan.route == "resident", f"lstm bf16 D {D}: route {plan}")
+    """B14/B15 on a W-resident route at one layer: bf16 on the resident
+    route, fp32 on the grid route (``c``'s dtype). The plan, device ms of
+    each wrapper (pre-pass + recurrence; recurrence + post-pass) and of
+    each recurrence alone (µs a step), and kernel-line records of the
+    pre-pass and the post-pass against their plain versions (two launches
+    bit-equal), each beside its same-function PyTorch call timed both
+    ways (``library_ms``; ``library_device_ms`` with the queue kept
+    ahead, as ``device_ms``), the bf16 pre-pass also beside a bf16-out
+    addmm (``LSTM_PASS_NOTES``; fp32: ``F32_PASS_NOTES``)."""
+    dtype = c["w"].dtype
+    bf = dtype == torch.bfloat16
+    plan = fr._cluster_plan(dtype, B, D, dev)
+    _check(plan.route == ("resident" if bf else "grid"),
+           f"lstm {dtype} D {D}: route {plan}")
     xe, wx, b, w, lens, h0, c0 = (c[k] for k in ("xe", "wx", "b", "w",
                                                 "lens", "h0", "c0"))
     dhs, dcs = c["dhs"], c["dcs"]
@@ -2530,7 +2571,8 @@ def _lstm_resident(fr, dev, flush, c, o, T, B, D, E):
     out = {"plan": {"route": plan.route, "bb": plan.bb,
                     "clusters": plan.tiles, "cluster_ctas": plan.cluster,
                     "max_clusters": plan.max_clusters,
-                    "smem_bytes": plan.smem},
+                    "smem_bytes": plan.smem, "units": plan.units,
+                    "group": plan.group},
            "device_ms": {
                "lstm_proj_fwd": _time_ms(
                    lambda: fr.lstm_proj_fwd(xe, wx, b, w, lens, h0, c0),
@@ -2549,12 +2591,14 @@ def _lstm_resident(fr, dev, flush, c, o, T, B, D, E):
     passes = {
         "lstm_proj_xg": (lambda: fr.lstm_proj_xg(xe, wx, b),
                          lambda: fr.lstm_proj_xg_reference(xe, wx, b),
-                         lambda: torch.addmm(b, xe2, wx,
-                                             out_dtype=torch.float32),
-                         XG_REL_TOL),
+                         (lambda: torch.addmm(b, xe2, wx,
+                                              out_dtype=torch.float32))
+                         if bf else (lambda: torch.addmm(b, xe2, wx)),
+                         XG_REL_TOL if bf else F32_PASS_REL_TOL),
         "lstm_proj_dxe": (lambda: fr.lstm_proj_dxe(dx, wx),
                           lambda: fr.lstm_proj_dxe_reference(dx, wx),
-                          lambda: torch.matmul(dx2, wx.t()), DXE_REL_TOL)}
+                          lambda: torch.matmul(dx2, wx.t()),
+                          DXE_REL_TOL if bf else F32_PASS_REL_TOL)}
     out["passes"] = {}
     for name, (kernel_fn, plain_fn, lib_fn, tol) in passes.items():
         got, again, want = kernel_fn(), kernel_fn(), plain_fn()
@@ -2573,41 +2617,44 @@ def _lstm_resident(fr, dev, flush, c, o, T, B, D, E):
         finally:
             mm.allow_bf16_reduced_precision_reduction = prev
         out["passes"][name] = _lane_record(
-            f"{name}_bf16", LSTM_PASSES[name], GRU_SOURCE, err,
-            _time_ms(kernel_fn, flush),
+            f"{name}_bf16" if bf else f"{name}_fp32", LSTM_PASSES[name],
+            GRU_SOURCE, err, _time_ms(kernel_fn, flush),
             _time_ms(plain_fn, flush, reps=5), lib_ms,
-            _pass_bound(name, T, B, D, E),
-            {"shape": [T, B, D, E], "dtype": "bfloat16",
+            _pass_bound(name, T, B, D, E, dtype),
+            {"shape": [T, B, D, E], "dtype": str(dtype).replace("torch.", ""),
              "err_is": f"max abs, <= {tol} x max|plain|",
              "device_ms": _time_ms(kernel_fn, flush, queue_ahead=True),
              "library_device_ms": lib_device_ms,
-             "library_note": LSTM_PASS_NOTES[name],
+             "library_note": (LSTM_PASS_NOTES if bf
+                              else F32_PASS_NOTES)[name],
              "bit_equal_two_launches": True})
-    prev = mm.allow_bf16_reduced_precision_reduction
-    mm.allow_bf16_reduced_precision_reduction = False
-    try:
-        out["passes"]["lstm_proj_xg"]["library_bf16_out_device_ms"] = \
-            _time_ms(lambda: torch.addmm(b, xe2, wx), flush, queue_ahead=True)
-    finally:
-        mm.allow_bf16_reduced_precision_reduction = prev
+    if bf:
+        prev = mm.allow_bf16_reduced_precision_reduction
+        mm.allow_bf16_reduced_precision_reduction = False
+        try:
+            out["passes"]["lstm_proj_xg"]["library_bf16_out_device_ms"] = \
+                _time_ms(lambda: torch.addmm(b, xe2, wx), flush,
+                         queue_ahead=True)
+        finally:
+            mm.allow_bf16_reduced_precision_reduction = prev
     del xg, dx, dx2
     return out
 
 
 def _lstm_composed_resident(fr, kernels, dev, flush, lc, got, T, B, D,
-                            timed=True):
-    """B10 and B11's recurrence in bf16 on the resident route at one
-    shape (``lc`` the bf16 inputs, ``got`` ``_lstm_run``'s kernel
-    outputs): the route the plan and dtypes give must be resident; one
-    call of each counts under its wrapper's and its route's name and
-    nothing else; B10 is bit-equal to ``lstm_cluster_fwd`` (B14's
-    recurrence) on ``float(x)``, B11's dx, dh0, dc0 to
-    ``lstm_cluster_bwd``'s; two launches of each bit-equal. ``timed``:
-    device ms of each (the card's queue kept ahead of the host) and µs a
-    step, with the plan."""
+                            timed=True, route="resident"):
+    """B10 and B11's recurrence on a W-resident route at one shape
+    (``lc`` the inputs, bf16 on the resident route or fp32 on the grid
+    route, ``got`` ``_lstm_run``'s kernel outputs): the route the plan
+    and dtypes give must be ``route``; one call of each counts under its
+    wrapper's and its route's name and nothing else; B10 is bit-equal to
+    ``lstm_cluster_fwd`` (B14's recurrence) on ``float(x)``, B11's dx,
+    dh0, dc0 to ``lstm_cluster_bwd``'s; two launches of each bit-equal.
+    ``timed``: device ms of each (the card's queue kept ahead of the
+    host) and µs a step, with the plan."""
     x, w, lens, h0, c0 = (lc[k] for k in ("x", "w", "lens", "h0", "c0"))
     plan = fr._cluster_plan(x.dtype, B, D, dev)
-    _check(plan.route == "resident", f"B10/B11 bf16 B {B} D {D}: plan "
+    _check(plan.route == route, f"B10/B11 {x.dtype} B {B} D {D}: plan "
            f"{plan}")
     bargs = (got["gates"], got["cs"], w, lens, h0, c0, lc["dhs"], lc["dcs"])
     torch.cuda.synchronize()
@@ -2618,8 +2665,9 @@ def _lstm_composed_resident(fr, kernels, dev, flush, lc, got, T, B, D,
     moved = {n: k - before[n] for n, k in kernels.LAUNCHES.items()
              if k != before[n]}
     want = dict.fromkeys(LSTM_COMPOSED[:2]
-                         + LSTM_COMPOSED_ROUTE_NAMES["resident"], 1)
-    _check(moved == want, f"B10/B11 bf16: launches {moved}, want {want}")
+                         + LSTM_COMPOSED_ROUTE_NAMES[route], 1)
+    _check(moved == want, f"B10/B11 {x.dtype}: launches {moved}, want "
+           f"{want}")
     ref_b = fr.lstm_cluster_bwd(*bargs)
     same = {"fwd_vs_cluster_fwd_on_float_x": all(
                 torch.equal(a, b_) for a, b_ in zip(
@@ -2631,10 +2679,11 @@ def _lstm_composed_resident(fr, kernels, dev, flush, lc, got, T, B, D,
                 fwd, fr.lstm_fwd(x, w, lens, h0, c0))),
             "bwd_two_launches": all(torch.equal(a, b_) for a, b_ in zip(
                 bwd, fr.lstm_bwd_data(*bargs)))}
-    _check(all(same.values()), f"B10/B11 bf16 B {B} D {D}: bits {same}")
+    _check(all(same.values()), f"B10/B11 {x.dtype} B {B} D {D}: bits "
+           f"{same}")
     _check(all(torch.equal(a, b_) for a, b_ in zip(
         fwd, (got["hs"], got["cs"], got["gates"]))),
-        "B10 bf16: _lstm_run's launch differs from this one")
+        f"B10 {x.dtype}: _lstm_run's launch differs from this one")
     del fwd, bwd, ref_b
     if not timed:
         return {}
@@ -2644,7 +2693,8 @@ def _lstm_composed_resident(fr, kernels, dev, flush, lc, got, T, B, D,
                      queue_ahead=True)
     plan_rec = {"route": plan.route, "bb": plan.bb, "clusters": plan.tiles,
                 "cluster_ctas": plan.cluster,
-                "max_clusters": plan.max_clusters, "smem_bytes": plan.smem}
+                "max_clusters": plan.max_clusters, "smem_bytes": plan.smem,
+                "units": plan.units, "group": plan.group}
     # the wrapper is the recurrence alone: no pass beside it
     return {name: {"plan": plan_rec, "device_ms": ms,
                    "recurrence_device_ms": ms, "us_per_step": ms * 1e3 / T,
@@ -2739,14 +2789,17 @@ def check_lstm(fr, kernels, dev, flush, dtype):
     worst = {}
     tol = {"abs": LSTM_FWD_TOL, "rel": LSTM_GRAD_REL, "l2": LSTM_DW_REL}
     how = {n: m for outs in LSTM_OUTPUTS.values() for n, m in outs.items()}
+    # the recurrences' W-resident route: bf16 resident, fp32 grid
+    route = "resident" if lane == "bf16" else "grid"
     for key, (T, B, D, E, ragged) in LSTM_SHAPES.items():
         c = _lstm_case(dev, T, B, D, E, ragged)
         errs, got = _lstm_errors(fr, c, dtype)
-        if lane == "bf16" and ragged:   # the uniform shape: timed below
+        if ragged:   # the uniform shape: timed below
             _lstm_composed_resident(
                 fr, kernels, dev, flush,
                 {k: (v if k == "lens" else v.to(dtype))
-                 for k, v in c.items()}, got, T, B, D, timed=False)
+                 for k, v in c.items()}, got, T, B, D, timed=False,
+                route=route)
         for n, e in errs.items():
             if dtype == torch.float32:
                 worst[n] = max(worst.get(n, 0.0), e)
@@ -2806,26 +2859,24 @@ def check_lstm(fr, kernels, dev, flush, dtype):
         }
         # B10/B11 do not depend on E: timed once, at layer 1
         names = LSTM_KERNELS if key == "layer1" else LSTM_PROJ
-        # the bf16 lane of B14/B15 takes the resident route: device ms,
-        # µs a step, the plan, and its pre- and post-pass kernels; B10/
-        # B11's the same recurrences, with no passes
-        res_keys = ({"lstm_proj_fwd": "fwd", "lstm_proj_bwd": "bwd"}
-                    if lane == "bf16" else {})
+        # B14/B15 take the W-resident route (bf16: resident, fp32: grid):
+        # device ms, µs a step, the plan, and its pre- and post-pass
+        # kernels; B10/B11's the same recurrences, with no passes
+        res_keys = {"lstm_proj_fwd": "fwd", "lstm_proj_bwd": "bwd"}
         composed_res = (_lstm_composed_resident(fr, kernels, dev, flush, c,
-                                                o, T, B, D)
-                        if lane == "bf16" and key == "layer1" else {})
-        if res_keys:
-            res = _lstm_resident(fr, dev, flush, c, o, T, B, D, E)
-            for pname, prec in res["passes"].items():
-                if key == "layer1":
-                    recs[pname] = prec
-                else:
-                    recs[pname].update({f"layer2_{k}": prec[k] for k in (
-                        "ms", "device_ms", "bound_ms", "bound_by",
-                        "library_ms", "library_device_ms",
-                        "library_bf16_out_device_ms", "max_abs_err",
-                        "shape")
-                        if k in prec})
+                                                o, T, B, D, route=route)
+                        if key == "layer1" else {})
+        res = _lstm_resident(fr, dev, flush, c, o, T, B, D, E)
+        for pname, prec in res["passes"].items():
+            if key == "layer1":
+                recs[pname] = prec
+            else:
+                recs[pname].update({f"layer2_{k}": prec[k] for k in (
+                    "ms", "device_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms",
+                    "library_bf16_out_device_ms", "max_abs_err",
+                    "shape")
+                    if k in prec})
         for name in names:
             kernel_fn, plain_fn = calls[name]
             extra = {"library_note": LSTM_LIBRARY_NOTE, "library_ms": None}
@@ -2835,11 +2886,17 @@ def check_lstm(fr, kernels, dev, flush, dtype):
                     o["p_dx" if "proj" in name else "dx"], xe=xe), flush)
             ms = _time_ms(kernel_fn, flush, reps=10)
             bound = _lstm_bound(name, dtype, T, B, D, E)
+            if lane == "fp32" and name in LSTM_WIDE_NAMES:
+                extra["bound_cuda_core_ms"] = _lstm_bound(
+                    name, dtype, T, B, D, E, cuda_cores=True)[0]
             if key == "layer2":
                 recs[name].update({"layer2_ms": ms,
                                    "layer2_bound_ms": bound[0],
                                    "layer2_library_ms": extra["library_ms"],
                                    "layer2_shape": [T, B, D, E]})
+                if "bound_cuda_core_ms" in extra:
+                    recs[name]["layer2_bound_cuda_core_ms"] = \
+                        extra["bound_cuda_core_ms"]
                 if name in res_keys:
                     recs[name].update({
                         "layer2_device_ms": res["device_ms"][name],
@@ -2861,6 +2918,9 @@ def check_lstm(fr, kernels, dev, flush, dtype):
                 rec["err_vs_fp32_and_plain_bf16_err"] = {n: worst[n]
                                                          for n in outs}
             rec.update(composed_res.get(name, {}))
+            if name in LSTM_WIDE_NAMES:
+                rec["recurrence_bound_ms"] = _recurrence_bound(
+                    name, T, B, D, dtype)[0]
             if name in res_keys:
                 rec.update({"plan": res["plan"],
                             "device_ms": res["device_ms"][name],
@@ -2868,7 +2928,7 @@ def check_lstm(fr, kernels, dev, flush, dtype):
                                 res_keys[name]],
                             "recurrence_device_ms": res["device_ms"][
                                 "recurrence_" + res_keys[name]]})
-                if name == "lstm_proj_fwd":
+                if name == "lstm_proj_fwd" and route == "resident":
                     rec["exchange"] = lstm_exchange(
                         fr, dev, flush, fr._cluster_plan(dtype, B, D, dev),
                         D, T)
@@ -2878,23 +2938,26 @@ def check_lstm(fr, kernels, dev, flush, dtype):
     return recs
 
 
-def _recurrence_bound(name, T, B, D):
-    """Least time of a W-resident recurrence alone (bf16; what
-    ``us_per_step`` reads): B10's or B14's forward (x bf16 / the
+def _recurrence_bound(name, T, B, D, dtype=torch.bfloat16):
+    """Least time of a W-resident recurrence alone (what ``us_per_step``
+    reads): B10's or B14's forward (x in the lane's dtype / the
     pre-pass's xg fp32, W, h0, c0 -> hs, cs, gates) or B11's or B15's
     reverse (gates, cs, W, c0, dhs, dcs -> dx, dh0, dc0; B15 also db
     fp32): its bytes over the HBM rate against its product (2 T B D 4D
-    FLOPs) at the bf16 tensor-core rate."""
+    FLOPs) at the bf16 tensor-core rate (fp32: three tf32 products)."""
     tb, G = T * B, 4 * D
+    e = 2 if dtype == torch.bfloat16 else 4
     if name in ("lstm_fwd", "lstm_proj_fwd"):
-        nbytes = ((2 if name == "lstm_fwd" else 4) * tb * G
-                  + 2 * (D * G + 2 * B * D + 2 * tb * D + tb * G))
+        nbytes = ((e if name == "lstm_fwd" else 4) * tb * G
+                  + e * (D * G + 2 * B * D + 2 * tb * D + tb * G))
     else:
-        nbytes = (2 * (tb * G + tb * D + D * G + B * D + 2 * tb * D + tb * G
+        nbytes = (e * (tb * G + tb * D + D * G + B * D + 2 * tb * D + tb * G
                        + 2 * B * D)
                   + (4 * G if name == "lstm_proj_bwd" else 0))
+    s_per_flop = (1.0 / H100_BF16_FLOPS if dtype == torch.bfloat16
+                  else CHUNK_S_PER_FLOP["float32"])
     t_bytes = (nbytes + 4 * B) / H100_BYTES_PER_S * 1e3
-    t_ops = 2.0 * tb * D * G / H100_BF16_FLOPS * 1e3
+    t_ops = 2.0 * tb * D * G * s_per_flop * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -2903,17 +2966,19 @@ LSTM_WIDE_NAMES = ("lstm_fwd", "lstm_bwd", "lstm_proj_fwd", "lstm_proj_bwd")
 
 
 def check_lstm_wide(fr, kernels, dev, flush, route, shape, sfx="",
-                    names=LSTM_WIDE_NAMES):
-    """Phase 3f, the LSTM recurrences' bf16 lane past D 512 at one shape
-    (T, B, D, E) on ``route``: the grid route (W resident across a group
-    of 16-CTA clusters) or the streaming one (W, and B14/B15's Wx, read
-    from L2 every step). The plan must give ``route``; one forward and
-    one backward (from the kernel's own gates) of each of ``names``
-    (B10/B11, B14/B15) count once under its wrapper's name and its
-    route's (``_grid``: with B14/B15's pre- and post-pass) and launch
+                    names=LSTM_WIDE_NAMES, dtype=torch.bfloat16):
+    """Phase 3f, the LSTM recurrences' bf16 lane past D 512 (or, with
+    ``dtype`` float32, the fp32 lane at a D its grid route does not take)
+    at one shape (T, B, D, E) on ``route``: the grid route (W resident
+    across a group of 16-CTA clusters) or the streaming one (W, and
+    B14/B15's Wx, read from L2 every step). The plan must give ``route``;
+    one forward and one backward (from the kernel's own gates) of each of
+    ``names`` (B10/B11, B14/B15) count once under its wrapper's name and
+    its route's (``_grid``: with B14/B15's pre- and post-pass) and launch
     nothing else; every output no further from the fp32 plain result than
     1.5x the bf16 plain version + 1e-3 (3f's bf16 gate, LSTM_OUTPUTS'
-    measures). On the grid route also: two launches of each bit-equal,
+    measures; fp32: within 3f's fp32 tolerances of the plain version). On
+    the grid route also: two launches of each bit-equal,
     B10 bit-equal to B14's recurrence (``lstm_cluster_fwd``) on
     float(x), B11's dx, dh0, dc0 to B15's recurrence's, and each
     recurrence's device ms alone beside its bound (``_recurrence_bound``).
@@ -2921,9 +2986,11 @@ def check_lstm_wide(fr, kernels, dev, flush, route, shape, sfx="",
     Returns kernels-line records keyed by the route's launch names +
     ``sfx``."""
     T, B, D, E = shape
-    dtype = torch.bfloat16
+    bf = dtype == torch.bfloat16
+    lane = "bf16" if bf else "fp32"
+    tol = {"abs": LSTM_FWD_TOL, "rel": LSTM_GRAD_REL, "l2": LSTM_DW_REL}
     plan = fr._cluster_plan(dtype, B, D, dev)
-    _check(plan.route == route, f"lstm bf16 D {D}: route {plan}, want "
+    _check(plan.route == route, f"lstm {lane} D {D}: route {plan}, want "
            f"{route}")
     rsfx = LSTM_ROUTE_SUFFIX[route]
     c = {k: (v if k == "lens" else v.to(dtype))
@@ -2951,7 +3018,8 @@ def check_lstm_wide(fr, kernels, dev, flush, route, shape, sfx="",
     want = dict.fromkeys(names + tuple(n + rsfx for n in names), 1)
     if route == "grid" and "lstm_proj_fwd" in names:
         want.update(lstm_proj_xg=1, lstm_proj_dxe=1)
-    _check(moved == want, f"lstm bf16 D {D}: launches {moved}, want {want}")
+    _check(moved == want, f"lstm {lane} D {D}: launches {moved}, want "
+           f"{want}")
     fargs = {"lstm_fwd": fwd["lstm_fwd"][1],
              "lstm_proj_fwd": fwd["lstm_proj_fwd"][1], **bargs}
     bits = {}
@@ -2976,7 +3044,7 @@ def check_lstm_wide(fr, kernels, dev, flush, route, shape, sfx="",
                 torch.equal(a, b_) for a, b_ in zip(
                     got["lstm_bwd"], (ref_b[0], ref_b[2], ref_b[3])))
             del ref_b
-        _check(all(bits.values()), f"lstm bf16 grid D {D}: bits {bits}")
+        _check(all(bits.values()), f"lstm {lane} grid D {D}: bits {bits}")
 
     def f32(args):
         return [a if a is lens else a.float() for a in args]
@@ -2990,24 +3058,37 @@ def check_lstm_wide(fr, kernels, dev, flush, route, shape, sfx="",
     for name in names:
         ref, args = refs[name], fargs[name]
         plain = ref(*args)
-        exact = ref(*f32(args))
         outs = LSTM_OUTPUTS[name]
         gate = {}
-        for n, g, p, e in zip(outs, got[name], plain, exact):
-            gate[n] = (_LSTM_MEASURE[outs[n]](g, e),
-                       _LSTM_MEASURE[outs[n]](p, e))
-            _check(gate[n][0] <= FLASH_BF16_RATIO * gate[n][1] + 1e-3,
-                   f"lstm bf16 {route} D {D} E {E}: {n} is {gate[n][0]} "
-                   f"from fp32, the plain version {gate[n][1]}")
-        del plain, exact
+        if bf:
+            exact = ref(*f32(args))
+            for n, g, p, e in zip(outs, got[name], plain, exact):
+                gate[n] = (_LSTM_MEASURE[outs[n]](g, e),
+                           _LSTM_MEASURE[outs[n]](p, e))
+                _check(gate[n][0] <= FLASH_BF16_RATIO * gate[n][1] + 1e-3,
+                       f"lstm bf16 {route} D {D} E {E}: {n} is "
+                       f"{gate[n][0]} from fp32, the plain version "
+                       f"{gate[n][1]}")
+            del exact
+        else:
+            for n, g, p in zip(outs, got[name], plain):
+                gate[n] = (_LSTM_MEASURE[outs[n]](g, p), 0.0)
+                _check(gate[n][0] <= tol[outs[n]],
+                       f"lstm fp32 {route} D {D} E {E}: {n} differs by "
+                       f"{gate[n][0]}")
+        del plain
         kernel_fn = (lambda k=kerns[name], a=args: k(*a))
         ms = _time_ms(kernel_fn, flush, reps=10)
         device_ms = _time_ms(kernel_fn, flush, reps=10, queue_ahead=True)
         extra = {"shape": [T, B, D] + ([E] if "proj" in name else []),
-                 "dtype": "bfloat16", "plan": plan_rec,
-                 "device_ms": device_ms, "err_is": dict(outs),
-                 "err_vs_fp32_and_plain_bf16_err": gate,
-                 "library_note": LSTM_LIBRARY_NOTE}
+                 "dtype": str(dtype).replace("torch.", ""),
+                 "plan": plan_rec, "device_ms": device_ms,
+                 "err_is": dict(outs), "library_note": LSTM_LIBRARY_NOTE}
+        if bf:
+            extra["err_vs_fp32_and_plain_bf16_err"] = gate
+        else:
+            extra["bound_cuda_core_ms"] = _lstm_bound(
+                name, dtype, T, B, D, E, cuda_cores=True)[0]
         if route == "grid":
             rec_ms = (_time_ms(rec_fns[name], flush, reps=10,
                                queue_ahead=True) if name in rec_fns
@@ -3015,12 +3096,13 @@ def check_lstm_wide(fr, kernels, dev, flush, route, shape, sfx="",
             extra.update({"recurrence_device_ms": rec_ms,
                           "us_per_step": rec_ms * 1e3 / T,
                           "recurrence_bound_ms": _recurrence_bound(
-                              name, T, B, D)[0],
+                              name, T, B, D, dtype)[0],
                           "bit_equal": bits})
         else:
             extra["us_per_step"] = device_ms * 1e3 / T
         recs[f"{name}{rsfx}{sfx}"] = _lane_record(
-            f"{name}_bf16{rsfx}{sfx}", LSTM_KERNELS[name], GRU_SOURCE,
+            f"{name}{'_bf16' if bf else ''}{rsfx}{sfx}", LSTM_KERNELS[name],
+            GRU_SOURCE,
             max(e for e, _p in gate.values()), ms,
             _time_ms(lambda r=ref, a=args: r(*a), flush, reps=3), None,
             _lstm_bound(name, dtype, T, B, D, E), extra)
@@ -3374,14 +3456,19 @@ def main(argv=None):
                  f"{rec['max_abs_err']:.3e}")
     # 3f: the LSTM kernels, B10/B11 (dynamic_lstm) and B14/B15 (fused_lstm)
     llanes = {}
+    for D in LSTM_F32_GRID_D:
+        _say(f"lstm plan fp32 D {D}: " + json.dumps(
+            fr._cluster_plan(torch.float32, TEXT_B, D, dev)._asdict()))
     for dtype in (torch.float32, torch.bfloat16):
         llanes[dtype] = check_lstm(fr, kernels, dev, flush, dtype)
-        # past D 512: the grid route at hidden 1024 and 1280 (both of the
-        # 1280 model's layers), the streaming route at hidden 640
+        # bf16 past D 512: the grid route at hidden 1024 and 1280 (both
+        # of the 1280 model's layers), the streaming route at hidden 640;
+        # fp32 at hidden 640, a D its grid route does not take: streaming
         for route, lshape, sfx, e2 in (LSTM_WIDE_CHECKS
-                                       if dtype == torch.bfloat16 else ()):
+                                       if dtype == torch.bfloat16
+                                       else LSTM_WIDE_CHECKS_FP32):
             wide = check_lstm_wide(fr, kernels, dev, flush, route, lshape,
-                                   sfx)
+                                   sfx, dtype=dtype)
             if e2:
                 layer2 = check_lstm_wide(fr, kernels, dev, flush, route,
                                          lshape[:3] + (e2,), sfx,
@@ -3393,7 +3480,7 @@ def main(argv=None):
                         "us_per_step", "shape",
                         "err_vs_fp32_and_plain_bf16_err") if f in rec})
             llanes[dtype].update(wide)
-            _say(f"lstm plan bf16 D {lshape[2]}: "
+            _say(f"lstm plan {str(dtype)[6:]} D {lshape[2]}: "
                  + json.dumps(next(iter(wide.values()))["plan"]))
         for rec in llanes[dtype].values():
             _say(f"kernel check: {rec['name']} max_abs_err "
@@ -3612,15 +3699,22 @@ def main(argv=None):
             ("train_lstm_640", dict(widths=TEXT_640_CFG, warmup=1,
                                     steps=3)),
             ("train_lstm_640_ragged", dict(widths=TEXT_640_CFG, ragged=True,
-                                           warmup=1, steps=3))):
+                                           warmup=1, steps=3)),
+            ("train_lstm_640_fp32", dict(widths=TEXT_640_CFG, amp=False,
+                                         warmup=1, steps=2)),
+            ("train_lstm_640_composed_fp32", dict(
+                widths=TEXT_640_CFG, fused_proj=False, amp=False, warmup=1,
+                steps=2))):
         torch.cuda.empty_cache()
         text_runs[key] = train_text(tx, kernels, dev, key=key, **kw)
-    for dtype, proj_key, comp_key in (
-            (torch.float32, "train_lstm_fp32", "train_lstm_composed_fp32"),
-            (torch.bfloat16, "train_lstm", "train_lstm_composed")):
+    for dtype, proj_key, comp_key, wide_rows in (
+            (torch.float32, "train_lstm_fp32", "train_lstm_composed_fp32",
+             LSTM_WIDE_ROWS_FP32),
+            (torch.bfloat16, "train_lstm", "train_lstm_composed",
+             LSTM_WIDE_ROWS)):
         for name, rec in llanes[dtype].items():
-            if name in LSTM_WIDE_ROWS:
-                key = LSTM_WIDE_ROWS[name]
+            if name in wide_rows:
+                key = wide_rows[name]
                 rec["launches"] = text_runs[key][1][name.replace("_d1280",
                                                                  "")]
                 rec["launches_run"] = key
@@ -3676,8 +3770,9 @@ def main(argv=None):
           for n in GRU_KERNELS),
         *(llanes[d][n] for d in (torch.float32, torch.bfloat16)
           for n in LSTM_KERNELS),
-        *(llanes[torch.bfloat16][n] for n in LSTM_PASSES
-          if n in llanes[torch.bfloat16]),
+        *(llanes[d][n] for d in (torch.float32, torch.bfloat16)
+          for n in LSTM_PASSES),
+        *(llanes[torch.float32][n] for n in LSTM_WIDE_ROWS_FP32),
         *(llanes[torch.bfloat16][n] for n in LSTM_WIDE_ROWS)]}))
     _say(json.dumps(srec))
     for rec in (sqrec, s8rec, sbrec):

@@ -1,8 +1,10 @@
 // Fused LSTM and GRU recurrences for Hopper (sm_90a), each with a
-// float32 and a bfloat16 lane (the fp32 recurrences streaming W on the
-// CUDA cores; the bf16 recurrences, B10/B11, B14/B15 and B12/B13, on the
-// resident route below, their products on the tensor cores; the dW
-// reductions' bf16 lane on the tensor cores):
+// float32 and a bfloat16 lane (the bf16 recurrences, B10/B11, B14/B15 and
+// B12/B13, on the resident route below, their products on the tensor
+// cores; the LSTM's fp32 recurrences on the grid route at D 256-768, their
+// products on the tensor cores as 3xTF32; the other fp32 recurrences
+// streaming W on the CUDA cores; the dW reductions' bf16 lane on the
+// tensor cores):
 //   LSTM (gates i|f|c~|o, w [D, 4D]):
 //     lstm_fwd       (B10) replaces paddle_tpu/kernels/fused_rnn.py:
 //                    _lstm_fwd_kernel, launched by _lstm_fwd_call;
@@ -25,9 +27,12 @@
 //     grid route (rc:: below): lstm_grid_fwd_kernel (C entries
 //     grid_lstm_fwd, B14's recurrence on xg, and grid_lstm_fwd_x, B10)
 //     and lstm_grid_bwd_kernel (grid_lstm_bwd: B15's recurrence with db,
-//     B11's without), beside the same two passes; the streaming kernels
-//     (lstm_fwd_kernel, lstm_bwd_kernel) keep the fp32 lanes and the bf16
-//     shapes neither W-resident route takes;
+//     B11's without), beside the same two passes; the fp32 lane takes the
+//     grid route at D 256, 512 and 768 (lstm_grid_fwd_f32_kernel,
+//     lstm_grid_bwd_f32_kernel: lane 0 of the same C entries, beside the
+//     passes' fp32 lane, proj_f32_kernel: lane 0 of proj_gemm); the
+//     streaming kernels (lstm_fwd_kernel, lstm_bwd_kernel) keep the fp32
+//     lane and the bf16 shapes no W-resident route takes;
 //   GRU (gates u|r|c~, w [D, 3D]):
 //     gru_fwd        (B12) _gru_fwd_kernel (_gru_fwd_call);
 //     gru_bwd +      (B13) the reverse recurrence and the dW reduction
@@ -71,14 +76,15 @@
 //     the tile's h with the CTA's resident columns on the tensor cores
 //     and an exchange between the cluster's CTAs by DSMEM, so neither L2
 //     nor the SMs' arithmetic sets it, but the exchange and its cluster
-//     barriers. fp32 W (3 MiB: 192 KiB a CTA over 16 CTAs) leaves no
-//     room for the h buffers, so the fp32 lanes stream.
-//   - bf16 past D 512, where W outgrows one cluster (the LSTM's grid
-//     route, rc:: below, notes there): W resident across a group of
-//     D / 256 clusters of 16 CTAs that the card holds at once, the step's
+//     barriers. fp32 W (4 MiB at D 512: 256 KiB a CTA over 16 CTAs) does
+//     not fit one cluster.
+//   - bf16 past D 512, and the LSTM's fp32 lane at D 256-768, where W
+//     outgrows one cluster (the LSTM's grid route, rc:: below, notes
+//     there): W resident across a group of D / 256 (fp32: D / 128)
+//     clusters of 16 CTAs that the card holds at once, the step's
 //     exchange through L2 behind one group barrier a step.
-//   - streaming, the fp32 lanes (and bf16 shapes the plan does not make
-//     resident): W read from L2 every step, as follows.
+//   - streaming, the other fp32 shapes (and bf16 shapes the plan does not
+//     make resident): W read from L2 every step, as follows.
 //   - gru_fwd / gru_bwd: one block of 256 threads per tile of BB batch
 //     rows (BB in 1, 2, 4, 8, picked by the wrapper so the tiles fill the
 //     card), walking all T steps inside the block (the Pallas grid's
@@ -3175,24 +3181,73 @@ __device__ __forceinline__ void cell_rn(float p0, float p1, float p2, float p3,
   cp = __fadd_rn(__fmul_rn(m, ct), __fmul_rn(keep, cp));
 }
 
-// K chunk c % nkc of row tile c / nkc of a [rows][ld_src] bf16 operand
-// (columns col(k0 + 8 p) for p < 8, k0 = 64 (c % nkc)) into stage c % 3;
-// rows past B read as zeros. One commit group per call, empty past nch.
-template <typename Col>
-__device__ __forceinline__ void grid_issue(uint32_t st0, const bf16* src,
+// K chunk c % nkc of row tile c / nkc of a [rows][ld_src] operand of
+// type E (bf16, or fp32 in the fp32 lane), 16 bytes (kV elements) at
+// columns col(kc, p) for p < 64 / kV, into stage c % 3 ([128][64 + kV]:
+// kGLd for bf16, kFLd for fp32); rows past B read as zeros. One commit
+// group per call, empty past nch.
+template <typename E, typename Col>
+__device__ __forceinline__ void grid_issue(uint32_t st0, const E* src,
                                            size_t ld_src, int B, int c,
                                            int nkc, int nch, Col col) {
+  constexpr int kV = 16 / sizeof(E), kLd = kGK + kV, kE = sizeof(E);
   if (c < nch) {
     const int r0 = c / nkc * kGRows, kc = c % nkc;
-    const uint32_t dst = st0 + 2 * (c % kGStages) * kGStage;
-    for (int i = threadIdx.x; i < kGRows * (kGK / 8); i += kThreads) {
-      const int r = i >> 3, p = i & 7, b = r0 + r;
-      cp16(dst + 2 * (r * kGLd + 8 * p),
+    const uint32_t dst = st0 + kE * (c % kGStages) * kGRows * kLd;
+    for (int i = threadIdx.x; i < kGRows * (kGK / kV); i += kThreads) {
+      const int r = i / (kGK / kV), p = i % (kGK / kV), b = r0 + r;
+      cp16(dst + kE * (r * kLd + kV * p),
            src + static_cast<size_t>(b < B ? b : 0) * ld_src + col(kc, p),
            b < B);
     }
   }
   cp_commit();
+}
+
+// dh at the cell pair at offset o of a [B][D] plane: the keep term
+// kcar[o] ((1 - m) dH of the step before) plus the NCL clusters' slots of
+// parity par (their shares of dgates W^T), summed in cluster order
+template <int NCL>
+__device__ __forceinline__ void dh_sum(const float* kcar, const float* slots,
+                                       size_t plane, size_t o, int par,
+                                       float (&dh)[2]) {
+  const float2 k = __ldcg(reinterpret_cast<const float2*>(kcar + o));
+  float2 v[NCL];
+#pragma unroll
+  for (int c = 0; c < NCL; ++c)
+    v[c] = __ldcg(reinterpret_cast<const float2*>(
+        slots + (static_cast<size_t>(par) * NCL + c) * plane + o));
+  float s0 = v[0].x, s1 = v[0].y;
+#pragma unroll
+  for (int c = 1; c < NCL; ++c) {
+    s0 = __fadd_rn(s0, v[c].x);
+    s1 = __fadd_rn(s1, v[c].y);
+  }
+  dh[0] = __fadd_rn(k.x, s0);
+  dh[1] = __fadd_rn(k.y, s1);
+}
+
+// the reverse cell of cell_rn, every fp32 operation rounded on its own:
+// from the saved gates (i, f, c~, o), c_prev, the upstream dH = dhs + dh,
+// dC = dcs + dc and the mask m, the four dgates d, the carried dc and the
+// keep term (1 - m) dH of the next dh
+__device__ __forceinline__ void bwd_cell_rn(float ig, float fg, float gg,
+                                            float og, float cp, float dH,
+                                            float dC, float m,
+                                            float (&d)[4], float& dcn,
+                                            float& keep) {
+  const float keep_m = __fsub_rn(1.f, m);
+  const float tc = tanhf(__fadd_rn(__fmul_rn(fg, cp), __fmul_rn(ig, gg)));
+  const float dht = __fmul_rn(m, dH);
+  const float dct =
+      __fadd_rn(__fmul_rn(m, dC), __fmul_rn(__fmul_rn(dht, og),
+                                            __fsub_rn(1.f, __fmul_rn(tc, tc))));
+  d[0] = __fmul_rn(__fmul_rn(__fmul_rn(dct, gg), ig), __fsub_rn(1.f, ig));
+  d[1] = __fmul_rn(__fmul_rn(__fmul_rn(dct, cp), fg), __fsub_rn(1.f, fg));
+  d[2] = __fmul_rn(__fmul_rn(dct, ig), __fsub_rn(1.f, __fmul_rn(gg, gg)));
+  d[3] = __fmul_rn(__fmul_rn(__fmul_rn(dht, tc), og), __fsub_rn(1.f, og));
+  dcn = __fadd_rn(__fmul_rn(keep_m, dC), __fmul_rn(dct, fg));
+  keep = __fmul_rn(keep_m, dH);
 }
 
 template <typename XT>
@@ -3386,24 +3441,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     return (kc >> 2) * D + KB * (4 * (kc & 3) + (p >> 1)) + kGU * cl +
            8 * (p & 1);
   };
-  // dh at this thread's cells: the keep term plus the clusters' slots of
-  // parity `par`, summed in cluster order
+  // dh at this thread's cells (row b)
   const auto dh_at = [&](int b, int par, float (&dh)[2]) {
-    const size_t o = static_cast<size_t>(b) * D + gu;
-    const float2 k = __ldcg(reinterpret_cast<const float2*>(kcar + o));
-    float2 v[NCL];
-#pragma unroll
-    for (int c = 0; c < NCL; ++c)
-      v[c] = __ldcg(reinterpret_cast<const float2*>(
-          slots + (static_cast<size_t>(par) * NCL + c) * plane + o));
-    float s0 = v[0].x, s1 = v[0].y;
-#pragma unroll
-    for (int c = 1; c < NCL; ++c) {
-      s0 = __fadd_rn(s0, v[c].x);
-      s1 = __fadd_rn(s1, v[c].y);
-    }
-    dh[0] = __fadd_rn(k.x, s0);  // (1 - m) dH + dgates_lp W^T
-    dh[1] = __fadd_rn(k.y, s1);
+    dh_sum<NCL>(kcar, slots, plane, static_cast<size_t>(b) * D + gu, par,
+                dh);
   };
 
   for (int t = n_steps - 1; t >= 0; --t) {
@@ -3446,32 +3487,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int b = r0 + rr + 32 * i;
         if (b >= B) continue;
         const float m = static_cast<float>(t) < len[i] ? 1.f : 0.f;
-        const float keep_m = __fsub_rn(1.f, m);
         float d[4][2], keep[2], dcn[2];
 #pragma unroll
         for (int cu = 0; cu < 2; ++cu) {
-          const float ig = gq[i][0][cu], fg = gq[i][1][cu];
-          const float gg = gq[i][2][cu], og = gq[i][3][cu];
-          const float cp = cpv[i][cu];
-          const float tc = tanhf(__fadd_rn(__fmul_rn(fg, cp),
-                                           __fmul_rn(ig, gg)));
-          const float dH = __fadd_rn(dhv[i][cu], dh[i][cu]);
-          const float dC = __fadd_rn(dcv[i][cu], dc[i][cu]);
-          const float dht = __fmul_rn(m, dH);
-          const float dct = __fadd_rn(
-              __fmul_rn(m, dC),
-              __fmul_rn(__fmul_rn(dht, og),
-                        __fsub_rn(1.f, __fmul_rn(tc, tc))));
-          d[0][cu] = __fmul_rn(__fmul_rn(__fmul_rn(dct, gg), ig),
-                               __fsub_rn(1.f, ig));
-          d[1][cu] = __fmul_rn(__fmul_rn(__fmul_rn(dct, cp), fg),
-                               __fsub_rn(1.f, fg));
-          d[2][cu] = __fmul_rn(__fmul_rn(dct, ig),
-                               __fsub_rn(1.f, __fmul_rn(gg, gg)));
-          d[3][cu] = __fmul_rn(__fmul_rn(__fmul_rn(dht, tc), og),
-                               __fsub_rn(1.f, og));
-          dcn[cu] = __fadd_rn(__fmul_rn(keep_m, dC), __fmul_rn(dct, fg));
-          keep[cu] = __fmul_rn(keep_m, dH);
+          float dq[4];
+          bwd_cell_rn(gq[i][0][cu], gq[i][1][cu], gq[i][2][cu],
+                      gq[i][3][cu], cpv[i][cu],
+                      __fadd_rn(dhv[i][cu], dh[i][cu]),
+                      __fadd_rn(dcv[i][cu], dc[i][cu]), m, dq, dcn[cu],
+                      keep[cu]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) d[q][cu] = dq[q];
         }
         const size_t n = static_cast<size_t>(t) * B + b;
         const size_t o = static_cast<size_t>(b) * D + gu;
@@ -3586,6 +3612,539 @@ __global__ void __launch_bounds__(kThreads, 1)
     float s = 0.f;
     for (int r = 0; r < 32; ++r) s = __fadd_rn(s, dbs[r * kGN + tid]);
     db[(tid / kGU) * D + own + tid % kGU] = s;
+  }
+}
+
+// ------------ B10/B11, B14/B15 fp32 at D 256, 512, 768: the grid route
+//
+// The fp32 lane of the grid route (the bf16 lane's notes above hold, the
+// differences here). fp32 W is 4 MiB at D 512, more than a 16-CTA cluster
+// holds beside any operand stages, and the streaming kernels read all of
+// it from L2 every step on the CUDA cores (97-195 us a step at T 100, B
+// 128, D 512 on an H100). Here a CTA owns 8 hidden units, so a group is D
+// / 128 clusters of 16 CTAs (D 512: 4, the bf16 lane's CTA count at D
+// 1024) and a CTA's share of W takes as many bytes as the bf16 lane's at
+// twice the D. The step's product is exact to fp32 on the tensor cores as
+// 3xTF32 (tf32_mma_cp_async.cuh: tf32 hi and lo halves of both operands,
+// a_lo b_hi + a_hi b_lo + a_hi b_hi on mma.sync m16n8k8; bf16 halves
+// would keep 16 bits of the 24): warp w takes rows 16 w..16 w + 15 of the
+// 128-row tile against all of the CTA's columns, so a thread holds the
+// whole cells (four gates) of two rows and two units, and each fragment
+// is split as it is loaded from shared memory. The operand's K chunks are
+// staged as [3][128][64 + 4] fp32 (the 16-byte pad puts a fragment's 32
+// loads on 32 banks, as W's row pad does).
+//   lstm_grid_fwd_f32_kernel: B14's recurrence (xg fp32) and B10 (x fp32:
+//     the same first term, so one kernel serves both). CTA i keeps the 32
+//     gate columns of units 8 i..8 i + 7, [32][D + 4] (n = 8 q + u). In
+//     fp32 the stored h is the product's operand and the carry, so h_{t-1}
+//     and c_{t-1} are read from hs[t - 1] and cs[t - 1] (h0, c0 at t = 0):
+//     no carry scratch.
+//   lstm_grid_bwd_f32_kernel: B15's recurrence (with db) and B11's
+//     (without). CTA (c, j) owns units 8 NCL j + 8 c.. (NCL = D / 128) and
+//     keeps W's rows 8 NCL j.. over its cluster's 512 gate columns, [8
+//     NCL][512 + 4]; dx (the unrounded dgates: in fp32 the product's
+//     operand) is read back from L2 in K chunks of the cluster's columns;
+//     the slots, their sum in cluster order, the carries in scratch and
+//     db's sum in thread order are the bf16 lane's.
+// What bounds them: the chain of T steps, as in the bf16 lane: a step's
+// product is 2 B D 32 FLOP a CTA (4.2 MFLOP at B 128, D 512; three tf32
+// products of it), its operand 4 B D bytes a CTA from L2 (256 KB), and the
+// group barrier.
+constexpr int kFU = 8;              // hidden units a CTA of the fp32 lane
+constexpr int kFN = 4 * kFU;        // the forward's gate columns of them
+constexpr int kFBwdK = kFN * kGCl;  // the backward's K: a cluster's columns
+constexpr int kFLd = kGK + 4;       // row stride of a staged chunk (fp32)
+constexpr int kFStage = kGRows * kFLd;
+
+// shared memory of the fp32 lane's CTAs: W's columns [32][D + 4] or rows
+// [D / 16][512 + 4], then the staged chunks [3][128][68], all fp32
+constexpr int grid_fwd_smem_f32(int D) {
+  return 4 * (kFN * (D + 4) + kGStages * kFStage);
+}
+constexpr int grid_bwd_smem_f32(int D) {
+  return 4 * ((D / kGCl) * (kFBwdK + 4) + kGStages * kFStage);
+}
+
+// acc[n] += A B over one staged K chunk, as 3xTF32 (in tf32::mma3's
+// order: a_lo b_hi, a_hi b_lo, a_hi b_hi): A the warp's 16 rows at `a`
+// ([row][k], row stride kFLd), B[k][n] = ws[8 n + g][k0 + k] (row stride
+// ldw); fragments split into hi and lo as they are loaded. The tensor
+// cores' fp32 sums truncate, so the chunk is summed from zero and added
+// to acc by a rounded add: a product over K takes K / 64 truncated chains
+// of 24 mma, not one of 3 K / 8 (at K 2048 that chain missed fp32 parity,
+// 1.1e-5 of the largest output).
+template <int NT>
+__device__ __forceinline__ void chunk_product_f32(float (&acc)[NT][4],
+                                                  const float* a,
+                                                  const float* ws, int ldw,
+                                                  int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const float* ar = a + g * kFLd + t4;
+  const float* bw = ws + g * ldw + k0 + t4;
+  float part[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kGK / 8; ++ks) {
+    uint32_t ahi[4], alo[4];
+    split(ar[8 * ks], ahi[0], alo[0]);
+    split(ar[8 * kFLd + 8 * ks], ahi[1], alo[1]);
+    split(ar[8 * ks + 4], ahi[2], alo[2]);
+    split(ar[8 * kFLd + 8 * ks + 4], ahi[3], alo[3]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float* br = bw + 8 * n * ldw + 8 * ks;
+      uint32_t bh0, bl0, bh1, bl1;
+      split(br[0], bh0, bl0);
+      split(br[4], bh1, bl1);
+      mma(part[n], alo, bh0, bh1);
+      mma(part[n], ahi, bl0, bl1);
+      mma(part[n], ahi, bh0, bh1);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = __fadd_rn(acc[n][e], part[n][e]);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_grid_fwd_f32_kernel(const float* __restrict__ xg,
+                             const float* __restrict__ w,
+                             const float* __restrict__ lens,
+                             const float* __restrict__ h0,
+                             const float* __restrict__ c0,
+                             float* __restrict__ hs, float* __restrict__ cs,
+                             float* __restrict__ gates,
+                             unsigned* __restrict__ counter, int n_steps,
+                             int B, int D) {
+  extern __shared__ __align__(16) unsigned char smem_rc[];
+  const int ld = D + 4, G = 4 * D;
+  const unsigned ncl = gridDim.x / kGCl;
+  float* ws = reinterpret_cast<float*>(smem_rc);  // [kFN][ld]
+  float* stg = ws + kFN * ld;                     // [kGStages][kGRows][kFLd]
+  const uint32_t st0 = smem_u32(stg);
+  const int u0 = static_cast<int>(blockIdx.x) * kFU;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t4 = tid & 3;
+  const int uc = u0 + 2 * t4;  // the cells' first unit
+  const int nkc = D / kGK, nch = (B + kGRows - 1) / kGRows * nkc;
+
+  // ws[n][k] = W[k][(n / 8) D + u0 + n % 8]: the CTA's gate columns
+  for (int i = tid; i < kFN * D; i += kThreads) {
+    const int n = i % kFN, k = i / kFN;
+    ws[n * ld + k] = __ldg(w + static_cast<size_t>(k) * G +
+                           (n / kFU) * D + u0 + n % kFU);
+  }
+  __syncthreads();
+  const auto col = [](int kc, int p) { return kGK * kc + 4 * p; };
+  for (int t = 0; t < n_steps; ++t) {
+    const size_t prev = static_cast<size_t>(t - 1) * B * D;
+    const float* hsrc = t == 0 ? h0 : hs + prev;
+    const float* csrc = t == 0 ? c0 : cs + prev;
+    grid_issue(st0, hsrc, D, B, 0, nkc, nch, col);
+    grid_issue(st0, hsrc, D, B, 1, nkc, nch, col);
+    float acc[4][4], xv[2][4][2], hp[2][2], cv[2][2], len[2];
+    for (int c = 0; c < nch; ++c) {
+      const int kc = c % nkc, m0 = c / nkc * kGRows + 16 * warp;
+      if (kc == 0) {  // the row tile's cells: first terms, carries, lengths
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int b = m0 + g + 8 * hh;
+          const bool ok = b < B;
+          len[hh] = ok ? lens[b] : 0.f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float2 v =
+                ok ? *reinterpret_cast<const float2*>(
+                         xg + (static_cast<size_t>(t) * B + b) * G + q * D +
+                         uc)
+                   : make_float2(0.f, 0.f);
+            xv[hh][q][0] = v.x;
+            xv[hh][q][1] = v.y;
+          }
+          const size_t o = static_cast<size_t>(ok ? b : 0) * D + uc;
+          const float2 h = __ldcg(reinterpret_cast<const float2*>(hsrc + o));
+          const float2 cc = __ldcg(reinterpret_cast<const float2*>(csrc + o));
+          hp[hh][0] = h.x;
+          hp[hh][1] = h.y;
+          cv[hh][0] = cc.x;
+          cv[hh][1] = cc.y;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+      }
+      cp_wait<1>();
+      __syncthreads();  // chunk c is in; stage (c + 2) % 3 is free
+      grid_issue(st0, hsrc, D, B, c + 2, nkc, nch, col);
+      if (m0 < B) {  // a live row in the warp's m-tile
+        chunk_product_f32<4>(acc, stg + (c % kGStages) * kFStage +
+                                      16 * warp * kFLd,
+                             ws, ld, kc * kGK);
+      }
+      if (kc != nkc - 1) continue;
+      // the cells: rows g (elements 0, 1) and g + 8 (2, 3), units uc, uc + 1
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int b = m0 + g + 8 * hh;
+        const float m = static_cast<float>(t) < len[hh] ? 1.f : 0.f;
+        float gv[4][2];
+#pragma unroll
+        for (int cu = 0; cu < 2; ++cu) {
+          float p[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)  // (xe_t Wx + b) + h W
+            p[q] = __fadd_rn(xv[hh][q][cu], acc[q][2 * hh + cu]);
+          cell_rn(p[0], p[1], p[2], p[3], m, hp[hh][cu], cv[hh][cu],
+                  gv[0][cu], gv[1][cu], gv[2][cu], gv[3][cu]);
+        }
+        if (b >= B) continue;
+        const size_t row = static_cast<size_t>(t) * B + b;
+        store2(hs + row * D + uc, hp[hh]);
+        store2(cs + row * D + uc, cv[hh]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          store2(gates + row * G + q * D + uc, gv[q]);
+      }
+    }
+    group_sync(counter, static_cast<unsigned>(t + 1) * ncl);
+  }
+}
+
+template <int NCL, bool kDb>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_grid_bwd_f32_kernel(const float* __restrict__ gates,
+                             const float* __restrict__ cs,
+                             const float* __restrict__ w,
+                             const float* __restrict__ lens,
+                             const float* __restrict__ c0,
+                             const float* __restrict__ dhs,
+                             const float* __restrict__ dcs,
+                             float* __restrict__ dx, float* __restrict__ db,
+                             float* __restrict__ dh0, float* __restrict__ dc0,
+                             float* __restrict__ carry,
+                             float* __restrict__ slots,
+                             unsigned* __restrict__ counter, int n_steps,
+                             int B) {
+  constexpr int D = kFU * kGCl * NCL, G = 4 * D, KB = kFU * NCL;
+  constexpr int ldw = kFBwdK + 4, nkc = kFBwdK / kGK;
+  extern __shared__ __align__(16) unsigned char smem_rc[];
+  float* ws = reinterpret_cast<float*>(smem_rc);  // [KB][ldw]
+  float* stg = ws + KB * ldw;                     // [kGStages][kGRows][kFLd]
+  const uint32_t st0 = smem_u32(stg);
+  const int rank = static_cast<int>(cluster_rank());
+  const int cl = static_cast<int>(blockIdx.x) / kGCl;
+  const int k0 = KB * rank;         // the product's units (W's rows)
+  const int own = k0 + kFU * cl;    // the units of this CTA's cells
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t4 = tid & 3;
+  const int up = 2 * (tid & 3), rr = tid >> 2, gu = own + up;
+  const int nch = (B + kGRows - 1) / kGRows * nkc;
+  const size_t plane = static_cast<size_t>(B) * D;  // a [B][D] fp32 array
+  float* kcar = carry;          // (1 - m) dH of the step before
+  float* ccar = carry + plane;  // dc
+
+  // ws[o][n] = W[k0 + o][q D + KB j + 8 cl + u], n = 128 q + 8 j + u:
+  // the cluster's gate columns (its CTAs' units, rank by rank) in K order
+  for (int i = tid; i < KB * (kFBwdK / 4); i += kThreads) {
+    const int o = i / (kFBwdK / 4), n = 4 * (i % (kFBwdK / 4));
+    const int cw = (n >> 7) * D + KB * ((n >> 3) & 15) + kFU * cl + (n & 7);
+    *reinterpret_cast<float4*>(ws + o * ldw + n) = __ldg(
+        reinterpret_cast<const float4*>(w + static_cast<size_t>(k0 + o) * G +
+                                        cw));
+  }
+  float dbq[4][2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) dbq[q][0] = dbq[q][1] = 0.f;
+  __syncthreads();
+  // the cluster's dgates of K chunk kc, 4 columns p: gate kc / 2, ranks
+  // 8 (kc % 2) + p / 2
+  const auto col = [cl](int kc, int p) {
+    return (kc >> 1) * D + KB * (8 * (kc & 1) + (p >> 1)) + kFU * cl +
+           4 * (p & 1);
+  };
+  // dh at this thread's cells (row b)
+  const auto dh_at = [&](int b, int par, float (&dh)[2]) {
+    dh_sum<NCL>(kcar, slots, plane, static_cast<size_t>(b) * D + gu, par,
+                dh);
+  };
+  const auto ld2 = [](const float* p, float* v) {
+    const float2 f = __ldcg(reinterpret_cast<const float2*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+  };
+
+  for (int t = n_steps - 1; t >= 0; --t) {
+    const int done = n_steps - 1 - t;  // steps behind this one
+    // (1) the cells: dx[t], the carries, db's sums; rows rr and rr + 64
+    // of each row tile, units gu, gu + 1
+    for (int r0 = 0; r0 < B; r0 += kGRows) {
+      float gq[2][4][2], cpv[2][2], dhv[2][2], dcv[2][2], dh[2][2], dc[2][2];
+      float len[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int b = r0 + rr + 64 * i;
+        const bool ok = b < B;
+        const int bb = ok ? b : 0;
+        const size_t n = static_cast<size_t>(t) * B + bb;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ld2(gates + n * G + q * D + gu, gq[i][q]);
+        ld2(t > 0 ? cs + (n - B) * D + gu
+                  : c0 + static_cast<size_t>(bb) * D + gu,
+            cpv[i]);
+        ld2(dhs + n * D + gu, dhv[i]);
+        ld2(dcs + n * D + gu, dcv[i]);
+        len[i] = ok ? lens[bb] : 0.f;
+        if (done == 0) {
+          dh[i][0] = dh[i][1] = dc[i][0] = dc[i][1] = 0.f;
+        } else {
+          dh_at(bb, (t + 1) & 1, dh[i]);
+          ld2(ccar + static_cast<size_t>(bb) * D + gu, dc[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int b = r0 + rr + 64 * i;
+        if (b >= B) continue;
+        const float m = static_cast<float>(t) < len[i] ? 1.f : 0.f;
+        float d[4][2], keep[2], dcn[2];
+#pragma unroll
+        for (int cu = 0; cu < 2; ++cu) {
+          float dq[4];
+          bwd_cell_rn(gq[i][0][cu], gq[i][1][cu], gq[i][2][cu],
+                      gq[i][3][cu], cpv[i][cu],
+                      __fadd_rn(dhv[i][cu], dh[i][cu]),
+                      __fadd_rn(dcv[i][cu], dc[i][cu]), m, dq, dcn[cu],
+                      keep[cu]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) d[q][cu] = dq[q];
+        }
+        const size_t n = static_cast<size_t>(t) * B + b;
+        const size_t o = static_cast<size_t>(b) * D + gu;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          store2(dx + n * G + q * D + gu, d[q]);
+          if (kDb) {
+            dbq[q][0] = __fadd_rn(dbq[q][0], d[q][0]);
+            dbq[q][1] = __fadd_rn(dbq[q][1], d[q][1]);
+          }
+        }
+        store2(kcar + o, keep);
+        store2(ccar + o, dcn);
+      }
+    }
+    cl_arrive();
+    cl_wait();  // the cluster's dgates of step t are in dx
+    // (2) the cluster's share of dh_prev at units k0..: dgates [B, 512]
+    // x ws^T [512, KB], into slots[t & 1][cl]
+    const float* dsrc = dx + static_cast<size_t>(t) * B * G;
+    float* sout = slots + (static_cast<size_t>(t & 1) * NCL + cl) * plane;
+    grid_issue(st0, dsrc, G, B, 0, nkc, nch, col);
+    grid_issue(st0, dsrc, G, B, 1, nkc, nch, col);
+    float acc[NCL][4];
+    for (int c = 0; c < nch; ++c) {
+      const int kc = c % nkc, m0 = c / nkc * kGRows + 16 * warp;
+      if (kc == 0) {
+#pragma unroll
+        for (int jn = 0; jn < NCL; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[jn][e] = 0.f;
+      }
+      cp_wait<1>();
+      __syncthreads();
+      grid_issue(st0, dsrc, G, B, c + 2, nkc, nch, col);
+      if (m0 < B) {
+        chunk_product_f32<NCL>(acc, stg + (c % kGStages) * kFStage +
+                                        16 * warp * kFLd,
+                               ws, ldw, kc * kGK);
+      }
+      if (kc != nkc - 1) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int b = m0 + g + 8 * hh;
+        if (b >= B) continue;
+#pragma unroll
+        for (int jn = 0; jn < NCL; ++jn)
+          *reinterpret_cast<float2*>(sout + static_cast<size_t>(b) * D + k0 +
+                                     8 * jn + 2 * t4) =
+              make_float2(acc[jn][2 * hh], acc[jn][2 * hh + 1]);
+      }
+    }
+    group_sync(counter, static_cast<unsigned>(done + 1) * NCL);
+  }
+  // dh0, dc0: the carries after step 0 (zeros for no step)
+  for (int r0 = 0; r0 < B; r0 += kGRows) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int b = r0 + rr + 64 * i;
+      if (b >= B) continue;
+      float dh[2] = {0.f, 0.f}, dc[2] = {0.f, 0.f};
+      const size_t o = static_cast<size_t>(b) * D + gu;
+      if (n_steps > 0) {
+        dh_at(b, 0, dh);
+        ld2(ccar + o, dc);
+      }
+      store2(dh0 + o, dh);
+      store2(dc0 + o, dc);
+    }
+  }
+  if (!kDb) return;
+  // db at this CTA's units: the 64 row threads of each unit pair summed in
+  // thread order (the stages are free: the last barrier is behind)
+  float* dbs = stg;  // [64][kFN]
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    *reinterpret_cast<float2*>(dbs + rr * kFN + q * kFU + up) =
+        make_float2(dbq[q][0], dbq[q][1]);
+  __syncthreads();
+  if (tid < kFN) {
+    float s = 0.f;
+    for (int r = 0; r < 64; ++r) s = __fadd_rn(s, dbs[r * kFN + tid]);
+    db[(tid / kFU) * D + own + tid % kFU] = s;
+  }
+}
+
+// The fp32 lane of B14/B15's two passes (proj_gemm lane 0), on the
+// tensor cores at fp32 parity: out [M][N] = a [M][K] b (+ bias [N]);
+// kPre: the pre-pass, b [K][N] (Wx as it lies), fp32 out = xg; else the
+// post-pass, b [N][K] (Wx read transposed), out = dxe. 128 x 128 output
+// tiles, 8 warps of 32 x 64, K in chunks of 32 staged by cp.async and
+// double-buffered ([128][36] for a and b [N][K], [32][136] for b [K][N]:
+// each fragment's 32 loads on 32 banks), 3xTF32 on mma.sync, each chunk
+// summed from zero and added by a rounded add (as chunk_product_f32);
+// rows past M and columns past N read as zeros and are not written. Each
+// output sums its K in order: two launches give the same bits. What
+// bounds it: its
+// products (three tf32 products of 2 M K N FLOP); right and simple, a
+// small share of B14/B15's call.
+constexpr int kPT = 128;                 // output rows and columns a tile
+constexpr int kPK = 32;                  // K a stage
+constexpr int kPALd = kPK + 4;           // [row][k] stride
+constexpr int kPBLd = kPT + 8;           // b [K][N]: [k][n] stride
+constexpr int kPStage = kPT * kPALd + (kPT * kPALd > kPK * kPBLd
+                                           ? kPT * kPALd
+                                           : kPK * kPBLd);  // floats
+constexpr int kProjF32Smem = 4 * 2 * kPStage;
+
+template <bool kPre>
+__global__ void __launch_bounds__(kThreads)
+    proj_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int M, int K, int N) {
+  extern __shared__ __align__(16) unsigned char smem_rc[];
+  float* sm = reinterpret_cast<float*>(smem_rc);  // [2][kPStage]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;  // the warp's 32 rows, 64 columns
+  const int m0 = static_cast<int>(blockIdx.y) * kPT;
+  const int n0 = static_cast<int>(blockIdx.x) * kPT;
+  const int nk = K / kPK;
+  const auto issue = [&](int kc) {
+    if (kc < nk) {
+      float* as = sm + (kc & 1) * kPStage;
+      float* bs = as + kPT * kPALd;
+      const int k = kc * kPK;
+      for (int i = tid; i < kPT * (kPK / 4); i += kThreads) {
+        const int r = i >> 3, p = i & 7, row = m0 + r;
+        cp16(smem_u32(as + r * kPALd + 4 * p),
+             a + static_cast<size_t>(row < M ? row : 0) * K + k + 4 * p,
+             row < M);
+        if (kPre) {  // b rows k.., columns n0..: [32][128]
+          const int kr = i >> 5, pn = i & 31, cn = n0 + 4 * pn;
+          cp16(smem_u32(bs + kr * kPBLd + 4 * pn),
+               b + static_cast<size_t>(k + kr) * N + (cn < N ? cn : 0),
+               cn < N);
+        } else {     // b rows n0.. (its N), columns k..: [128][32]
+          const int cn = n0 + r;
+          cp16(smem_u32(bs + r * kPALd + 4 * p),
+               b + static_cast<size_t>(cn < N ? cn : 0) * K + k + 4 * p,
+               cn < N);
+        }
+      }
+    }
+    cp_commit();
+  };
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  issue(0);
+  for (int kc = 0; kc < nk; ++kc) {
+    issue(kc + 1);
+    cp_wait<1>();
+    __syncthreads();  // chunk kc is in
+    const float* as = sm + (kc & 1) * kPStage;
+    const float* bs = as + kPT * kPALd;
+    float part[2][8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kPK / 8; ++ks) {
+      const int k = 8 * ks + t4;
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* ar = as + (32 * wm + 16 * mt + g) * kPALd + k;
+        split(ar[0], ahi[mt][0], alo[mt][0]);
+        split(ar[8 * kPALd], ahi[mt][1], alo[mt][1]);
+        split(ar[4], ahi[mt][2], alo[mt][2]);
+        split(ar[8 * kPALd + 4], ahi[mt][3], alo[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int n = 64 * wn + 8 * nt + g;
+        const float b0 = kPre ? bs[k * kPBLd + n] : bs[n * kPALd + k];
+        const float b1 = kPre ? bs[(k + 4) * kPBLd + n] : bs[n * kPALd + k + 4];
+        uint32_t bh0, bl0, bh1, bl1;
+        split(b0, bh0, bl0);
+        split(b1, bh1, bl1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma(part[mt][nt], alo[mt], bh0, bh1);
+          mma(part[mt][nt], ahi[mt], bl0, bl1);
+          mma(part[mt][nt], ahi[mt], bh0, bh1);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mt][nt][e] = __fadd_rn(acc[mt][nt][e], part[mt][nt][e]);
+    __syncthreads();  // every warp is done with the stage issue() refills
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int cn = n0 + 64 * wn + 8 * nt + 2 * t4;
+    if (cn >= N) continue;
+    float bv[2] = {0.f, 0.f};
+    if (kPre) load2(bias + cn, bv);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = m0 + 32 * wm + 16 * mt + g + 8 * hh;
+        if (row >= M) continue;
+        float v[2] = {acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]};
+        if (kPre) {  // (xe Wx) + b
+          v[0] = __fadd_rn(v[0], bv[0]);
+          v[1] = __fadd_rn(v[1], bv[1]);
+        }
+        store2(out + static_cast<size_t>(row) * N + cn, v);
+      }
   }
 }
 
@@ -3721,21 +4280,37 @@ cudaError_t launch_grid(K kernel, int ncl, int smem, cudaStream_t st,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// lane 1 (bf16) only; D a multiple of 256 with 3 to 5 clusters (D 768,
-// 1024, 1280), both kernels' shared memory within the opt-in limit
+// lane 1 (bf16): D a multiple of 256 with 3 to 5 clusters (D 768, 1024,
+// 1280); lane 0 (fp32): D 256, 512 or 768 (2, 4 or 6 clusters of 8-unit
+// CTAs); both kernels' shared memory within the opt-in limit
 bool bad_grid(int lane, int n_steps, int B, int D) {
-  return lane != 1 || n_steps < 0 || B < 1 || D % (kGU * kGCl) != 0 ||
-         D / (kGU * kGCl) < 3 || D / (kGU * kGCl) > 5 ||
-         grid_fwd_smem(D) > 232448 || grid_bwd_smem(D) > 232448;
+  if (n_steps < 0 || B < 1) return true;
+  if (lane == 0) {
+    return (D != 256 && D != 512 && D != 768) ||
+           grid_fwd_smem_f32(D) > 232448 || grid_bwd_smem_f32(D) > 232448;
+  }
+  return lane != 1 || D % (kGU * kGCl) != 0 || D / (kGU * kGCl) < 3 ||
+         D / (kGU * kGCl) > 5 || grid_fwd_smem(D) > 232448 ||
+         grid_bwd_smem(D) > 232448;
 }
 
 // the grid route's forward recurrence, its first term x of type XT (B14's
-// fp32 xg, B10's bf16 x)
+// fp32 xg, B10's bf16 x); lane 0: every tensor fp32, no carry
 template <typename XT>
-cudaError_t grid_fwd(const void* x, const void* w, const float* lens,
-                     const void* h0, const void* c0, void* hs, void* cs,
-                     void* gates, float* carry, unsigned* counter,
-                     int n_steps, int B, int D, cudaStream_t st) {
+cudaError_t grid_fwd(int lane, const void* x, const void* w,
+                     const float* lens, const void* h0, const void* c0,
+                     void* hs, void* cs, void* gates, float* carry,
+                     unsigned* counter, int n_steps, int B, int D,
+                     cudaStream_t st) {
+  if (lane == 0) {
+    return launch_grid(lstm_grid_fwd_f32_kernel, D / (kFU * kGCl),
+                       grid_fwd_smem_f32(D), st, static_cast<const float*>(x),
+                       static_cast<const float*>(w), lens,
+                       static_cast<const float*>(h0),
+                       static_cast<const float*>(c0), static_cast<float*>(hs),
+                       static_cast<float*>(cs), static_cast<float*>(gates),
+                       counter, n_steps, B, D);
+  }
   return launch_grid(lstm_grid_fwd_kernel<XT>, D / (kGU * kGCl),
                      grid_fwd_smem(D), st, static_cast<const XT*>(x),
                      static_cast<const bf16*>(w), lens,
@@ -3746,12 +4321,31 @@ cudaError_t grid_fwd(const void* x, const void* w, const float* lens,
 }
 
 // the grid route's reverse recurrence, with db (B15) or without (B11: db
-// null)
-cudaError_t grid_bwd(const void* gates, const void* cs, const void* w,
-                     const float* lens, const void* c0, const void* dhs,
-                     const void* dcs, void* dx, float* db, void* dh0,
-                     void* dc0, float* carry, float* slots, unsigned* counter,
-                     int n_steps, int B, int D, cudaStream_t st) {
+// null); lane 0: every tensor fp32
+cudaError_t grid_bwd(int lane, const void* gates, const void* cs,
+                     const void* w, const float* lens, const void* c0,
+                     const void* dhs, const void* dcs, void* dx, float* db,
+                     void* dh0, void* dc0, float* carry, float* slots,
+                     unsigned* counter, int n_steps, int B, int D,
+                     cudaStream_t st) {
+  if (lane == 0) {
+#define F32(NCL, DB)                                                          \
+  launch_grid(lstm_grid_bwd_f32_kernel<NCL, DB>, NCL,                        \
+              grid_bwd_smem_f32(kFU * kGCl * NCL), st,                       \
+              static_cast<const float*>(gates), static_cast<const float*>(cs), \
+              static_cast<const float*>(w), lens,                            \
+              static_cast<const float*>(c0), static_cast<const float*>(dhs), \
+              static_cast<const float*>(dcs), static_cast<float*>(dx), db,   \
+              static_cast<float*>(dh0), static_cast<float*>(dc0), carry,     \
+              slots, counter, n_steps, B)
+    const int ncl = D / (kFU * kGCl);
+    if (db == nullptr) {
+      return ncl == 2 ? F32(2, false) : ncl == 4 ? F32(4, false)
+                                                 : F32(6, false);
+    }
+    return ncl == 2 ? F32(2, true) : ncl == 4 ? F32(4, true) : F32(6, true);
+#undef F32
+  }
 #define CALL(NCL, DB)                                                       \
   launch_grid(lstm_grid_bwd_kernel<NCL, DB>, NCL, grid_bwd_smem(256 * NCL), \
               st, static_cast<const bf16*>(gates),                          \
@@ -4032,18 +4626,41 @@ cudaError_t launch_proj(Kern kernel, const void* a, const void* b,
 // The route's two GEMMs: mode 0, the pre-pass (a = xe [M][K = E], b = wx
 // [K][N = 4D], bias = b [N] -> out = xg [M][N] fp32); mode 1, the
 // post-pass (a = dx [M][K = 4D], b = wx [N = E][K] read transposed ->
-// out = dxe [M][N] bf16). M = T * B; K a multiple of 32, N of 8 (the
-// tensor maps' 16-byte row strides).
+// out = dxe [M][N] in dx's dtype). M = T * B; K a multiple of 32, N of 8
+// (the tensor maps' 16-byte row strides). Lane 1: bf16 operands
+// (proj_gemm's wgmma kernels); lane 0: fp32 operands (rc::proj_f32_kernel,
+// 3xTF32).
 extern "C" int proj_gemm(int lane, const void* a, const void* b,
                          const void* bias, void* out, int M, int K, int N,
                          int mode, void* stream) {
-  if (lane != 1 || M < 1 || K < 32 || K % 32 != 0 || N < 8 || N % 8 != 0 ||
-      (mode != 0 && mode != 1) || (mode == 0 && bias == nullptr)) {
+  if ((lane != 0 && lane != 1) || M < 1 || K < 32 || K % 32 != 0 || N < 8 ||
+      N % 8 != 0 || (mode != 0 && mode != 1) ||
+      (mode == 0 && bias == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (mode == 0) {
+  if (lane == 0) {
+    const dim3 grid((N + rc::kPT - 1) / rc::kPT, (M + rc::kPT - 1) / rc::kPT);
+    const auto* af = static_cast<const float*>(a);
+    const auto* bf = static_cast<const float*>(b);
+    auto* of = static_cast<float*>(out);
+    if (mode == 0) {
+      err = opt_in(rc::proj_f32_kernel<true>, rc::kProjF32Smem);
+      if (err == cudaSuccess) {
+        rc::proj_f32_kernel<true><<<grid, rc::kThreads, rc::kProjF32Smem,
+                                    st>>>(af, bf,
+                                          static_cast<const float*>(bias), of,
+                                          M, K, N);
+      }
+    } else {
+      err = opt_in(rc::proj_f32_kernel<false>, rc::kProjF32Smem);
+      if (err == cudaSuccess) {
+        rc::proj_f32_kernel<false><<<grid, rc::kThreads, rc::kProjF32Smem,
+                                     st>>>(af, bf, nullptr, of, M, K, N);
+      }
+    }
+  } else if (mode == 0) {
     err = launch_proj<128, 2, true>(rc::lstm_xg_kernel<128, 2>, a, b, bias,
                                     out, M, K, N, st);
   } else if (N <= 128) {
@@ -4187,47 +4804,50 @@ extern "C" int cluster_lstm_probe(int lane, float* out, int n_steps,
   return static_cast<int>(err);
 }
 
-// B14's recurrence on the grid route (D 768, 1024, 1280). xg [T, B, 4D]
-// fp32 (the pre-pass), w [D, 4D], lens [B] fp32, h0, c0 [B, D] -> hs, cs
-// [T, B, D], gates [T, B, 4D]; carry fp32 [2][B][D] and counter (one
-// uint32, zero) scratch; D / 256 clusters of 16 CTAs, refused
+// B14's recurrence on the grid route (lane 1, bf16: D 768, 1024, 1280;
+// lane 0, fp32: D 256, 512, 768). xg [T, B, 4D] fp32 (the pre-pass), w
+// [D, 4D], lens [B] fp32, h0, c0 [B, D] -> hs, cs [T, B, D], gates [T, B,
+// 4D]; counter (one uint32, zero) and, lane 1 only, carry fp32 [2][B][D]
+// scratch; D / 256 (lane 0: D / 128) clusters of 16 CTAs, refused
 // (cudaErrorCooperativeLaunchTooLarge) unless the card holds them at once.
+// Lane 0 also serves B10 in fp32 (x is then its first term).
 extern "C" int grid_lstm_fwd(int lane, const void* xg, const void* w,
                              const float* lens, const void* h0,
                              const void* c0, void* hs, void* cs, void* gates,
                              float* carry, unsigned* counter, int n_steps,
                              int B, int D, void* stream) {
-  if (rc::bad_grid(lane, n_steps, B, D) || carry == nullptr ||
-      counter == nullptr) {
+  if (rc::bad_grid(lane, n_steps, B, D) ||
+      (lane == 1 && carry == nullptr) || counter == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(rc::grid_fwd<float>(
-      xg, w, lens, h0, c0, hs, cs, gates, carry, counter, n_steps, B, D,
-      static_cast<cudaStream_t>(stream)));
+      lane, xg, w, lens, h0, c0, hs, cs, gates, carry, counter, n_steps, B,
+      D, static_cast<cudaStream_t>(stream)));
 }
 
 // B10 on the grid route: grid_lstm_fwd with x [T, B, 4D] bf16 (the
-// pre-projected gates plus bias) as the step's first term.
+// pre-projected gates plus bias) as the step's first term; lane 0 (x
+// fp32) is grid_lstm_fwd's.
 extern "C" int grid_lstm_fwd_x(int lane, const void* x, const void* w,
                                const float* lens, const void* h0,
                                const void* c0, void* hs, void* cs,
                                void* gates, float* carry, unsigned* counter,
                                int n_steps, int B, int D, void* stream) {
-  if (rc::bad_grid(lane, n_steps, B, D) || carry == nullptr ||
-      counter == nullptr) {
+  if (rc::bad_grid(lane, n_steps, B, D) ||
+      (lane == 1 && carry == nullptr) || counter == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(rc::grid_fwd<bf16>(
-      x, w, lens, h0, c0, hs, cs, gates, carry, counter, n_steps, B, D,
-      static_cast<cudaStream_t>(stream)));
+      lane, x, w, lens, h0, c0, hs, cs, gates, carry, counter, n_steps, B,
+      D, static_cast<cudaStream_t>(stream)));
 }
 
 // B15's recurrence on the grid route. gates [T, B, 4D], cs [T, B, D], w
 // [D, 4D] (its rows resident, read as they lie), lens, c0, dhs, dcs ->
-// dx [T, B, 4D] (dgates in bf16), dh0, dc0 [B, D], and db [4D] fp32 (the
-// unrounded dgates' sum); carry fp32 [2][B][D], slots fp32 [2][D / 256][B]
-// [D] and counter (one uint32, zero) scratch. B11's recurrence passes db
-// null: no db.
+// dx [T, B, 4D] (dgates in the lane's dtype), dh0, dc0 [B, D], and db
+// [4D] fp32 (the unrounded dgates' sum); carry fp32 [2][B][D], slots fp32
+// [2][clusters][B][D] (D / 256 clusters; lane 0: D / 128) and counter (one
+// uint32, zero) scratch. B11's recurrence passes db null: no db.
 extern "C" int grid_lstm_bwd(int lane, const void* gates, const void* cs,
                              const void* w, const float* lens,
                              const void* c0, const void* dhs,
@@ -4240,19 +4860,34 @@ extern "C" int grid_lstm_bwd(int lane, const void* gates, const void* cs,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(rc::grid_bwd(
-      gates, cs, w, lens, c0, dhs, dcs, dx, db, dh0, dc0, carry, slots,
+      lane, gates, cs, w, lens, c0, dhs, dcs, dx, db, dh0, dc0, carry, slots,
       counter, n_steps, B, D, static_cast<cudaStream_t>(stream)));
 }
 
-// out[0] = how many 16-CTA clusters of the grid route's kernels at D the
-// card holds at once (the fewer of the two recurrences'); the route needs
-// D / 256.
+// out[0] = how many 16-CTA clusters of the grid route's kernels of the
+// lane at D the card holds at once (the fewer of the two recurrences' at
+// their own shared memory); the route needs D / 256 (lane 0: D / 128).
 extern "C" int grid_occupancy(int lane, int* out, int D, void* stream) {
   (void)stream;
   if (rc::bad_grid(lane, 0, 1, D) || out == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int f = 0, b = 0;
+  if (lane == 0) {
+    cudaError_t err =
+        rc::max_clusters(rc::lstm_grid_fwd_f32_kernel, rc::kGCl,
+                         rc::grid_fwd_smem_f32(D), &f);
+    const int ncl = D / (rc::kFU * rc::kGCl);
+#define BWD(NCL)                                                        \
+  rc::max_clusters(rc::lstm_grid_bwd_f32_kernel<NCL, true>, rc::kGCl,   \
+                   rc::grid_bwd_smem_f32(D), &b)
+    if (err == cudaSuccess) {
+      err = ncl == 2 ? BWD(2) : ncl == 4 ? BWD(4) : BWD(6);
+    }
+#undef BWD
+    out[0] = f < b ? f : b;
+    return static_cast<int>(err);
+  }
   cudaError_t err = rc::max_clusters(rc::lstm_grid_fwd_kernel<float>,
                                      rc::kGCl, rc::grid_fwd_smem(D), &f);
   const int ncl = D / (rc::kGU * rc::kGCl);

@@ -43,14 +43,16 @@ chosen by the call's dtype and shape before any launch
 resident route (bf16, D a multiple of 32 up to 512): the recurrence
 ``lstm_cluster_fwd`` / ``lstm_cluster_bwd`` with W split over one
 thread-block cluster's shared memory. The grid route (bf16 at D 768, 1024
-and 1280): the same functions on kernels that keep W resident across a
-group of D / 256 clusters of 16 CTAs, all resident at once, the step's
-exchange crossing clusters through L2 behind one group barrier a step.
-On both, B14 first runs the pre-pass ``lstm_proj_xg`` (xg = xe @ Wx + b
-for every step, fp32) and B15 after it the post-pass ``lstm_proj_dxe``
-(dxe = dx @ Wx^T), while B10 reads its bf16 x as the step's first term
-and B11's recurrence skips db. The streaming route (everything else):
-one kernel per direction that reads W (and Wx) from L2 every step. Each
+and 1280; fp32 at D 256, 512 and 768, its product exact to fp32 on the
+tensor cores as 3xTF32): the same functions on kernels that keep W
+resident across a group of D / 256 (fp32: D / 128) clusters of 16 CTAs,
+all resident at once, the step's exchange crossing clusters through L2
+behind one group barrier a step. On both, B14 first runs the pre-pass
+``lstm_proj_xg`` (xg = xe @ Wx + b for every step, fp32) and B15 after it
+the post-pass ``lstm_proj_dxe`` (dxe = dx @ Wx^T), while B10 reads its x
+as the step's first term and B11's recurrence skips db. The streaming
+route (everything else): one kernel per direction that reads W (and Wx)
+from L2 every step. Each
 recurrence launch counts under its wrapper's name (``lstm_fwd``,
 ``lstm_bwd``, ``lstm_proj_fwd``, ``lstm_proj_bwd``) and under its
 route's (``..._cluster``, ``..._grid``, ``..._stream``); the passes under
@@ -766,6 +768,13 @@ GRID_ROWS = 128            # batch rows a row tile of the grid route
 GRID_K = 1024              # the grid backward's K: a cluster's gate columns
 # the grid route's staged K chunks: [3][128 rows][64 + 8] bf16
 _GRID_STAGES = 2 * 3 * GRID_ROWS * (64 + 8)
+# the grid route's fp32 lane: 8 units a CTA (a group of D / 128
+# clusters), the D it takes, the backward's K (its cluster's 512 gate
+# columns) and its staged K chunks [3][128 rows][64 + 4] fp32
+GRID_F32_UNITS = 8
+GRID_F32_D = (256, 512, 768)
+GRID_F32_K = 4 * GRID_F32_UNITS * GRID_CLUSTER
+_GRID_F32_STAGES = 4 * 3 * GRID_ROWS * (64 + 4)
 
 
 class ClusterPlan(NamedTuple):
@@ -779,9 +788,10 @@ class ClusterPlan(NamedTuple):
     #                            row tiles, looped inside each step)
     max_clusters: int          # clusters the card holds at once
     smem: int                  # bytes of shared memory a CTA
-    units: int = 0             # grid: hidden units a CTA (0 elsewhere)
-    group: int = 0             # grid: clusters a group, D / 256 (0
-    #                            elsewhere)
+    units: int = 0             # grid: hidden units a CTA, 16 (fp32: 8;
+    #                            0 elsewhere)
+    group: int = 0             # grid: clusters a group, D / (16 units)
+    #                            (0 elsewhere)
 
 
 def _rec_smem(kind, bb, D, ng=4):
@@ -799,21 +809,35 @@ def _rec_smem(kind, bb, D, ng=4):
     return 2 * (n * (D + 8) + bb * (n + 8)) + 4 * D * bb
 
 
-def _grid_smem(D):
+def _grid_smem(D, dtype=torch.bfloat16):
     """Shared memory of a grid-route CTA (``csrc/fused_rnn.cu``'s
     ``rc::grid_fwd_smem`` / ``grid_bwd_smem``, the larger): the
     forward's W columns of its 16 units [64, D + 8] or the backward's W
-    rows [D / 16, 1024 + 8], bf16, then the staged K chunks."""
+    rows [D / 16, 1024 + 8], bf16, then the staged K chunks; in fp32
+    (``grid_fwd_smem_f32`` / ``grid_bwd_smem_f32``) the columns of 8
+    units [32, D + 4] or the rows [D / 16, 512 + 4] and the fp32
+    chunks."""
+    if dtype == torch.float32:
+        return 4 * max(4 * GRID_F32_UNITS * (D + 4),
+                       D // GRID_CLUSTER * (GRID_F32_K + 4)) + \
+            _GRID_F32_STAGES
     return 2 * max(4 * GRID_UNITS * (D + 8),
                    D // GRID_CLUSTER * (GRID_K + 8)) + _GRID_STAGES
 
 
 def _grid_shape(dtype, D, ng):
-    """The shapes the grid route takes: the LSTM in bf16 at D 768, 1024
-    and 1280 (a multiple of 256 past the resident route's 512, with 3 to
-    5 clusters of 16 CTAs and both recurrences' CTAs within
-    ``SMEM_LIMIT``; D 1536 would need 253,440 bytes)."""
-    return (ng == 4 and dtype == torch.bfloat16
+    """The shapes the grid route takes, the LSTM's only: in bf16 D 768,
+    1024 and 1280 (a multiple of 256 past the resident route's 512, with
+    3 to 5 clusters of 16 CTAs and both recurrences' CTAs within
+    ``SMEM_LIMIT``; D 1536 would need 253,440 bytes); in fp32 D 256, 512
+    and 768 (``GRID_F32_D``: 2, 4 and 6 clusters of 16 CTAs of 8 units,
+    137,728 to 203,520 bytes a CTA; D 1024 would need 8 clusters, more
+    than an H100 holds at once, and 16 units a CTA 264 KB)."""
+    if ng != 4:
+        return False
+    if dtype == torch.float32:
+        return D in GRID_F32_D and _grid_smem(D, dtype) <= SMEM_LIMIT
+    return (dtype == torch.bfloat16
             and D % (GRID_UNITS * GRID_CLUSTER) == 0
             and 3 <= D // (GRID_UNITS * GRID_CLUSTER) <= 5
             and _grid_smem(D) <= SMEM_LIMIT)
@@ -835,25 +859,28 @@ def lstm_cluster_plan(dtype, B, D, n_sm=132, max_clusters=None, ng=4):
       ``REC_TILES[ng]`` whose shared memory fits with the fewest waves,
       the smaller of two with as many (the LSTM's: 16 while ``ceil(B /
       16)`` clusters fit at once, else 32).
-    - grid (the LSTM only): bf16 at D 768, 1024 and 1280
-      (``_grid_shape``), where W no longer fits one cluster: W resident
-      across a group of ``group`` = D / 256 clusters of 16 CTAs (each CTA
-      16 ``units``), all of which the card must hold at once
-      (``max_clusters``: the count of the grid kernels' 16-CTA clusters,
-      queried from the card; by default ``n_sm // 16``). One group does
-      every row: ``tiles`` row tiles of ``bb`` = 128 loop inside each
-      step.
-    - streaming: everything else (fp32, the GRU past D 512, other D, a
-      group the card cannot hold) reads W from L2 every step."""
+    - grid (the LSTM only): bf16 at D 768, 1024 and 1280, where W no
+      longer fits one cluster, and fp32 at D 256, 512 and 768, where fp32
+      W does not (``_grid_shape``): W resident across a group of
+      ``group`` clusters of 16 CTAs (each CTA 16 ``units`` in bf16, 8 in
+      fp32: D / 256 or D / 128 clusters), all of which the card must hold
+      at once (``max_clusters``: the count of the lane's grid kernels'
+      16-CTA clusters, queried from the card; by default ``n_sm //
+      16``). One group does every row: ``tiles`` row tiles of ``bb`` =
+      128 loop inside each step.
+    - streaming: everything else (fp32 at any other D, the GRU past D
+      512 and in fp32, other D, a group the card cannot hold) reads W
+      from L2 every step."""
     if _grid_shape(dtype, D, ng):
-        group = D // (GRID_UNITS * GRID_CLUSTER)
+        units = GRID_F32_UNITS if dtype == torch.float32 else GRID_UNITS
+        group = D // (units * GRID_CLUSTER)
         mc = (n_sm // GRID_CLUSTER if max_clusters is None
               else int(max_clusters))
         if mc < group:
             return ClusterPlan("streaming", 0, 0, 0, 0, 0)
         return ClusterPlan("grid", GRID_ROWS, GRID_CLUSTER,
-                           -(-B // GRID_ROWS), mc, _grid_smem(D),
-                           GRID_UNITS, group)
+                           -(-B // GRID_ROWS), mc, _grid_smem(D, dtype),
+                           units, group)
     nc = D // REC_UNITS if D % REC_UNITS == 0 else 0
     fits = [bb for bb in REC_TILES[ng]
             if max(_rec_smem("fwd", bb, D, ng), _rec_smem("bwd", bb, D, ng))
@@ -874,29 +901,33 @@ def lstm_cluster_plan(dtype, B, D, n_sm=132, max_clusters=None, ng=4):
                            _rec_smem("bwd", bb, D, ng)))
 
 
-_max_clusters_of = {}      # (device index, D, ng) -> the card's count
+# (device index, route, lane, D, ng) -> the card's count
+_max_clusters_of = {}
 
 
 def _cluster_plan(dtype, B, D, dev, ng=4):
     """``lstm_cluster_plan`` with the card's SM count and, for a shape
     the resident route can take, the number of its clusters (of the
     recurrences of ``ng`` gates, at the smallest tile) the card holds at
-    once, or for a shape the grid route can take, the number of the grid
-    kernels' 16-CTA clusters (asked of the CUDA runtime once per device,
-    D and ng)."""
+    once, or for a shape the grid route can take, the number of the
+    lane's grid kernels' 16-CTA clusters at their own shared memory
+    (asked of the CUDA runtime once per device, route, lane, D and
+    ng)."""
     grid = _grid_shape(dtype, D, ng)
     if not grid and (dtype != torch.bfloat16 or D % REC_UNITS
                      or not 1 <= D // REC_UNITS <= REC_MAX_CLUSTER):
         return lstm_cluster_plan(dtype, B, D, ng=ng)
+    lane = _LANES[dtype]
     key = (torch.cuda.current_device() if dev.index is None else dev.index,
-           D, ng)
+           "grid" if grid else "resident", lane, D, ng)
     mc = _max_clusters_of.get(key)
     if mc is None:
         out = torch.zeros(1, dtype=torch.int32)
         with torch.cuda.device(dev):
-            err = (_cuda_entry("grid_occupancy")(1, out.data_ptr(), D, None)
+            err = (_cuda_entry("grid_occupancy")(lane, out.data_ptr(), D,
+                                                 None)
                    if grid else _cuda_entry("cluster_occupancy")(
-                       1, out.data_ptr(), D, REC_TILES[ng][0], ng, None))
+                       lane, out.data_ptr(), D, REC_TILES[ng][0], ng, None))
         if err != 0:
             raise RuntimeError(f"cluster occupancy query for D={D} failed: "
                                f"CUDA error {err}")
@@ -1011,10 +1042,10 @@ def lstm_bwd(gates, hs, cs, w, lens, h0, c0, dhs, dcs):
 
 
 def lstm_proj_xg(xe, wx, b):
-    """The resident route's pre-pass: ``xg [T, B, 4D]`` fp32 = ``xe @ Wx
-    + b`` for every step, one tensor-core GEMM (``LAUNCHES
-    ["lstm_proj_xg"]``) on bf16 CUDA tensors, else raise; CPU tensors
-    take the plain version."""
+    """The W-resident routes' pre-pass: ``xg [T, B, 4D]`` fp32 = ``xe @
+    Wx + b`` for every step, one tensor-core GEMM (``LAUNCHES
+    ["lstm_proj_xg"]``) on CUDA tensors of one dtype, bf16 (``wgmma``) or
+    fp32 (3xTF32), else raise; CPU tensors take the plain version."""
     if xe.dim() != 3 or wx.dim() != 2 or tuple(b.shape) != (wx.shape[1],) \
             or wx.shape[0] != xe.shape[2]:
         raise ValueError(f"xe {tuple(xe.shape)}, wx {tuple(wx.shape)} and b "
@@ -1023,43 +1054,43 @@ def lstm_proj_xg(xe, wx, b):
     if _device_kind(xe) == "cpu":
         return lstm_proj_xg_reference(xe, wx, b)
     T, B, E = xe.shape
-    _check_bf16("lstm_proj_xg", xe, wx, b)
-    _check_cuda((("xe", xe), ("wx", wx), ("b", b)))
+    _check_one_dtype("lstm_proj_xg", xe, wx, b)
+    lane = _check_cuda((("xe", xe), ("wx", wx), ("b", b)))
     _check_d(E, "E")
     xg = torch.empty((T, B, wx.shape[1]), dtype=torch.float32,
                      device=xe.device)
     if T * B:
-        _launch("lstm_proj_xg", 1, (xe, wx, b, xg), (T * B, E, wx.shape[1], 0),
-                xe.device, entry="proj_gemm")
+        _launch("lstm_proj_xg", lane, (xe, wx, b, xg),
+                (T * B, E, wx.shape[1], 0), xe.device, entry="proj_gemm")
     return xg
 
 
 def lstm_proj_dxe(dx, wx):
-    """The resident route's post-pass: ``dxe [T, B, E]`` = ``dx @ Wx^T``
-    for every step (fp32 sums, bf16 out), the pre-pass's GEMM with Wx
-    read transposed (``LAUNCHES["lstm_proj_dxe"]``) on bf16 CUDA tensors,
-    else raise; CPU tensors take the plain version."""
+    """The W-resident routes' post-pass: ``dxe [T, B, E]`` = ``dx @
+    Wx^T`` for every step (fp32 sums, out in dx's dtype), the pre-pass's
+    GEMM with Wx read transposed (``LAUNCHES["lstm_proj_dxe"]``) on CUDA
+    tensors of one dtype, bf16 or fp32, else raise; CPU tensors take the
+    plain version."""
     if dx.dim() != 3 or wx.dim() != 2 or wx.shape[1] != dx.shape[2]:
         raise ValueError(f"dx {tuple(dx.shape)} and wx {tuple(wx.shape)} do "
                          "not agree (want [T, B, 4D], [E, 4D])")
     if _device_kind(dx) == "cpu":
         return lstm_proj_dxe_reference(dx, wx)
     T, B, G = dx.shape
-    _check_bf16("lstm_proj_dxe", dx, wx)
-    _check_cuda((("dx", dx), ("wx", wx)))
+    _check_one_dtype("lstm_proj_dxe", dx, wx)
+    lane = _check_cuda((("dx", dx), ("wx", wx)))
     _check_d(wx.shape[0], "E")
     dxe = dx.new_empty((T, B, wx.shape[0]))
     if T * B:
-        _launch("lstm_proj_dxe", 1, (dx, wx, None, dxe),
+        _launch("lstm_proj_dxe", lane, (dx, wx, None, dxe),
                 (T * B, G, wx.shape[0], 1), dx.device, entry="proj_gemm")
     return dxe
 
 
-def _check_bf16(name, *tensors):
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError(f"{name} has a bfloat16 lane only (the resident "
-                        "route's); got " + ", ".join(str(t.dtype)
-                                                     for t in tensors))
+def _check_one_dtype(name, *tensors):
+    if len({t.dtype for t in tensors}) != 1:
+        raise TypeError(f"{name} takes tensors of one dtype; got "
+                        + ", ".join(str(t.dtype) for t in tensors))
 
 
 def _resident_plan(name, w, B, dev):
@@ -1076,8 +1107,9 @@ def lstm_cluster_fwd(xg, w, lens, h0, c0):
     """B14's recurrence on a W-resident route: ``(hs, cs, gates)`` in h0's
     dtype from the pre-pass's fp32 ``xg [T, B, 4D]``. CUDA tensors launch
     the kernel of the plan's route (``LAUNCHES["lstm_proj_fwd"]`` and
-    ``["lstm_proj_fwd_cluster"]``, or ``["lstm_proj_fwd_grid"]`` past D
-    512) or raise; CPU tensors take the plain version."""
+    ``["lstm_proj_fwd_cluster"]``, or ``["lstm_proj_fwd_grid"]`` on the
+    grid route: bf16 past D 512, fp32 at ``GRID_F32_D``) or raise; CPU
+    tensors take the plain version."""
     D = w.shape[0] if w.dim() == 2 else 0
     if (xg.dim() != 3 or tuple(w.shape) != (D, 4 * D)
             or xg.shape[2] != 4 * D or tuple(h0.shape) != (xg.shape[1], D)
@@ -1096,18 +1128,17 @@ def lstm_cluster_fwd(xg, w, lens, h0, c0):
                         f"{xg.dtype}")
     if _device_kind(w) == "cpu":
         return lstm_cluster_fwd_reference(xg, w, lens, h0, c0)
-    _check_bf16("lstm_cluster_fwd", w, h0, c0)
     _check_cuda((("w", w), ("xg", xg), ("h0", h0), ("c0", c0)), lens)
     return _cluster_fwd(_resident_plan("lstm_cluster_fwd", w, B, w.device),
                         xg, w, lens, h0, c0)
 
 
-def _grid_scratch(B, D, dev, slots=0):
-    """The grid kernels' scratch: the fp32 carries [2, B, D], the
-    backward's fp32 slots [2, slots, B, D] (``slots`` clusters; none for
-    0) and the step counter, zeroed."""
+def _grid_scratch(B, D, dev, slots=0, carry=True):
+    """The grid kernels' scratch: the fp32 carries [2, B, D] (none
+    without ``carry``), the backward's fp32 slots [2, slots, B, D]
+    (``slots`` clusters; none for 0) and the step counter, zeroed."""
     f32 = torch.float32
-    return (torch.empty((2, B, D), dtype=f32, device=dev),
+    return (torch.empty((2, B, D), dtype=f32, device=dev) if carry else None,
             torch.empty((2, slots, B, D), dtype=f32, device=dev)
             if slots else None,
             torch.zeros(1, dtype=torch.int32, device=dev))
@@ -1117,19 +1148,23 @@ def _cluster_fwd(plan, xg, w, lens, h0, c0, name="lstm_proj_fwd"):
     """Launch the forward recurrence of ``plan``'s route (resident, at its
     tile, or grid) on checked tensors, counted under ``name`` and ``name +
     "_cluster"`` / ``"_grid"``: B14's (``xg`` the pre-pass's fp32) or
-    B10's (``xg`` its bf16 x)."""
+    B10's (``xg`` its x: bf16, or fp32, where it is B14's entry). The
+    grid route's fp32 lane keeps its carries in hs and cs: no carry
+    scratch."""
     T, B, D = xg.shape[0], xg.shape[1], w.shape[0]
     hs = h0.new_empty((T, B, D))
     cs = h0.new_empty((T, B, D))
     gates = h0.new_empty((T, B, 4 * D))
     x_sfx = "" if xg.dtype == torch.float32 else "_x"
+    lane = _LANES[w.dtype]
     if B and plan.route == "grid":
-        carry, _slots, counter = _grid_scratch(B, D, w.device)
-        _launch(name, 1, (xg, w, lens, h0, c0, hs, cs, gates, carry,
-                          counter), (T, B, D), w.device,
-                entry="grid_lstm_fwd" + x_sfx, also=(name + "_grid",))
+        carry, _slots, counter = _grid_scratch(B, D, w.device, carry=lane == 1)
+        _launch(name, lane, (xg, w, lens, h0, c0, hs, cs, gates, carry,
+                             counter), (T, B, D),
+                w.device, entry="grid_lstm_fwd" + x_sfx,
+                also=(name + "_grid",))
     elif B:
-        _launch(name, 1, (xg, w, lens, h0, c0, hs, cs, gates),
+        _launch(name, lane, (xg, w, lens, h0, c0, hs, cs, gates),
                 (T, B, D, plan.bb), w.device,
                 entry="cluster_lstm_fwd" + x_sfx, also=(name + "_cluster",))
     return hs, cs, gates
@@ -1137,11 +1172,12 @@ def _cluster_fwd(plan, xg, w, lens, h0, c0, name="lstm_proj_fwd"):
 
 def lstm_cluster_bwd(gates, cs, w, lens, h0, c0, dhs, dcs):
     """B15's recurrence on a W-resident route: ``(dx, db, dh0, dc0)``, dx
-    the dgates in bf16, db fp32; W read from its resident slices (no
-    transposed copy). CUDA tensors launch the kernel of the plan's route
-    (``LAUNCHES["lstm_proj_bwd"]`` and ``["lstm_proj_bwd_cluster"]``, or
-    ``["lstm_proj_bwd_grid"]`` past D 512) or raise; CPU tensors take the
-    plain version."""
+    the dgates in the gates' dtype, db fp32; W read from its resident
+    slices (no transposed copy). CUDA tensors launch the kernel of the
+    plan's route (``LAUNCHES["lstm_proj_bwd"]`` and
+    ``["lstm_proj_bwd_cluster"]``, or ``["lstm_proj_bwd_grid"]`` on the
+    grid route: bf16 past D 512, fp32 at ``GRID_F32_D``) or raise; CPU
+    tensors take the plain version."""
     T, B, D = _check_shapes(gates, w, lens, h0, ng=4)
     _check_c0(h0, c0)
     if _device_kind(gates) == "cpu":
@@ -1149,7 +1185,6 @@ def lstm_cluster_bwd(gates, cs, w, lens, h0, c0, dhs, dcs):
                                           dcs)
     _check_like(gates, cs, h0, ("dhs", dhs, cs.shape),
                 ("dcs", dcs, cs.shape), ("c0", c0, h0.shape), ng=4)
-    _check_bf16("lstm_cluster_bwd", gates, w)
     _check_cuda((("gates", gates), ("cs", cs), ("w", w), ("c0", c0),
                  ("dhs", dhs), ("dcs", dcs)), lens)
     return _cluster_bwd(_resident_plan("lstm_cluster_bwd", w, B,
@@ -1175,13 +1210,14 @@ def _cluster_bwd(plan, gates, cs, w, lens, h0, c0, dhs, dcs,
                                   device=dev)
     dh0 = torch.empty_like(h0)
     dc0 = torch.empty_like(c0)
+    lane = _LANES[gates.dtype]
     if B and plan.route == "grid":
         carry, slots, counter = _grid_scratch(B, D, dev, plan.group)
-        _launch(name, 1, (gates, cs, w, lens, c0, dhs, dcs, dx, db, dh0, dc0,
-                          carry, slots, counter), (T, B, D), dev,
+        _launch(name, lane, (gates, cs, w, lens, c0, dhs, dcs, dx, db, dh0,
+                             dc0, carry, slots, counter), (T, B, D), dev,
                 entry="grid_lstm_bwd", also=(name + "_grid",))
     elif B:
-        _launch(name, 1,
+        _launch(name, lane,
                 (gates, cs, w, lens, c0, dhs, dcs, dx, db_part, db, dh0,
                  dc0), (T, B, D, plan.bb), dev, entry="cluster_lstm_bwd",
                 also=(name + "_cluster",))

@@ -2,7 +2,7 @@
 
     python -m paddle_tpu_torch.kernels.lstm_probe [--out FILE]
     python -m paddle_tpu_torch.kernels.lstm_probe --time [--root DIR]
-        [--fused-only STEPS | --gru | --wide]
+        [--fused-only STEPS | --gru | --wide | --fp32]
     python -m paddle_tpu_torch.kernels.lstm_probe --gru-tiles
     python -m paddle_tpu_torch.kernels.lstm_probe --grid-ablation
 
@@ -39,7 +39,13 @@ wrappers at T 100, B 128, D 1024 (E 128) and D 1280 (E 128 and 1280),
 each recurrence alone too where the tree's plan keeps W resident (the
 grid route), and the AMP step of the classifier at hidden 1024
 (``train_lstm_wide``) and 1280 (``train_lstm_1280``), fused_lstm,
-uniform lengths, ms per batch p50 over 10 steps after 3.
+uniform lengths, ms per batch p50 over 10 steps after 3; ``--fp32`` the
+LSTM's fp32 lane alone (``fp32_timing``): the four wrappers at T 100, B
+128, D 512 (B14/B15 at E 128 and 512), each recurrence and pass alone
+where the tree's plan keeps W resident (the grid route), and the fp32
+steps of the classifier on both routes (``train_lstm_fp32``: fused_lstm;
+``train_lstm_composed_fp32``: fc + dynamic_lstm), ms per batch p50 over
+10 steps after 3.
 
 The third times the GRU's resident recurrences of this tree at T 30, B
 512, D 512 at each tile the kernels take (16, 32 and 48 rows a
@@ -225,7 +231,7 @@ ABLATIONS = {"intact": (), "no_barrier": ("NO_SYNC",),
              "cells_only": ("NO_LOAD", "NO_MMA", "NO_SYNC")}
 # (the text each switch guards in csrc/fused_rnn.cu, what it becomes)
 _SWITCHES = (
-    ("      cp16(dst + 2 * (r * kGLd + 8 * p),\n"
+    ("      cp16(dst + kE * (r * kLd + kV * p),\n"
      "           src + static_cast<size_t>(b < B ? b : 0) * ld_src "
      "+ col(kc, p),\n           b < B);",
      "#ifndef NO_LOAD\n{}\n#endif"),
@@ -362,23 +368,61 @@ def wide_timing(cs, fr, dev, flush):
     return out
 
 
+def fp32_timing(cs, fr, dev, flush):
+    """Device ms of the fp32 LSTM wrappers at T 100, B 128, D 512 (B10
+    and B11 at E 128 only) and, where the tree's plan keeps W resident,
+    of B14's and B15's recurrences and passes alone; each key starts
+    with ``e{E}_``, beside the route the tree's plan gives."""
+    out = {}
+    f32 = torch.float32
+    out["route"] = fr._cluster_plan(f32, B_, D_, dev).route
+    for key, E in LAYERS.items():
+        c = cs._lstm_case(dev, T_, B_, D_, E, False)
+        args = (c["w"], c["lens"], c["h0"], c["c0"])
+        _hs, pcs, pg = fr.lstm_proj_fwd(c["xe"], c["wx"], c["b"], *args)
+        bargs = (pg, pcs, *args, c["dhs"], c["dcs"])
+        calls = {"lstm_proj_fwd": lambda: fr.lstm_proj_fwd(
+                     c["xe"], c["wx"], c["b"], *args),
+                 "lstm_proj_bwd": lambda: fr.lstm_proj_bwd_data(
+                     pg, pcs, c["wx"], *bargs[2:])}
+        if E == 128:
+            calls.update({"lstm_fwd": lambda: fr.lstm_fwd(c["x"], *args),
+                          "lstm_bwd": lambda: fr.lstm_bwd_data(*bargs)})
+        if out["route"] != "streaming":
+            xg = fr.lstm_proj_xg(c["xe"], c["wx"], c["b"])
+            calls.update({
+                "recurrence_fwd": lambda: fr.lstm_cluster_fwd(xg, *args),
+                "recurrence_bwd": lambda: fr.lstm_cluster_bwd(*bargs),
+                "lstm_proj_xg": lambda: fr.lstm_proj_xg(c["xe"], c["wx"],
+                                                        c["b"]),
+                "lstm_proj_dxe": lambda: fr.lstm_proj_dxe(pg, c["wx"])})
+        for name, fn in calls.items():
+            out[f"{key}_{name}_device_ms"] = cs._time_ms(
+                fn, flush, reps=10, queue_ahead=True)
+        del c, calls, bargs, _hs, pcs, pg
+        torch.cuda.empty_cache()
+    return out
+
+
 ROUTES = (("train_lstm", True, False),       # (key, fused_proj, ragged)
           ("train_lstm_composed", False, False),
           ("train_lstm_ragged", True, True))
 
 
 def step_timing(cs, dev, routes=ROUTES, steps=20, widths=None,
-                profiled=True):
-    """ms per batch p50 of the classifier's AMP step on ``routes``, timed
-    by ``chip_smoke.timed_steps`` (3 + ``steps`` steps; 5f's
-    ``train_text`` times 20), every loss finite, at ``widths`` (default
-    the flagship's); then, with ``profiled``, the fused route's step under
-    ``torch.profiler`` (``chip_smoke.profile_text``): host wall ms,
-    device busy ms and their difference, a step."""
+                profiled=True, amp=True):
+    """ms per batch p50 of the classifier's step (AMP, or fp32 without
+    ``amp``) on ``routes``, timed by ``chip_smoke.timed_steps`` (3 +
+    ``steps`` steps; 5f's ``train_text`` times 20), every loss finite, at
+    ``widths`` (default the flagship's); then, with ``profiled``, the
+    fused route's step under ``torch.profiler``
+    (``chip_smoke.profile_text``): host wall ms, device busy ms and their
+    difference, a step."""
     from paddle_tpu_torch.models import text as tx
     out = {}
     for key, fused_proj, ragged in routes:
-        cfg = tx.TextConfig(**(widths or cs.TEXT_CFG), fused_proj=fused_proj)
+        cfg = tx.TextConfig(**(widths or cs.TEXT_CFG), fused_proj=fused_proj,
+                            amp=amp)
         params = tx.init_params(cfg, seed=0, device=dev)
         opt, step = tx.make_train_step(cfg, "adam", cs.TEXT_LR)
         _p, _s, losses, step_ms, _wall = cs.timed_steps(
@@ -416,6 +460,9 @@ def main(argv=None):
     ap.add_argument("--wide", action="store_true",
                     help="with --time: only the LSTM's bf16 lane past D "
                     "512 (D 1024, 1280) and the hidden-1024 / 1280 steps")
+    ap.add_argument("--fp32", action="store_true",
+                    help="with --time: only the LSTM's fp32 lane at D 512 "
+                    "and the classifier's fp32 steps")
     ap.add_argument("--gru-tiles", action="store_true")
     ap.add_argument("--grid-ablation", action="store_true")
     args = ap.parse_args(argv)
@@ -436,6 +483,12 @@ def main(argv=None):
         elif args.gru:
             rec.update(gru_timing(cs, fr, dev, flush), **s2s_step_timing(
                 cs, dev))
+        elif args.fp32:
+            rec.update(fp32_timing(cs, fr, dev, flush))
+            rec.update(step_timing(
+                cs, dev, (("train_lstm_fp32", True, False),
+                          ("train_lstm_composed_fp32", False, False)), 10,
+                profiled=False, amp=False))
         elif args.wide:
             rec.update(wide_timing(cs, fr, dev, flush))
             for key, widths in (("train_lstm_wide", cs.TEXT_WIDE_CFG),

@@ -31,8 +31,11 @@ with ``REDESIGNED`` (B1-B4's, since their row-tile kernel; the bf16 GRU
 recurrences' hs, gates, dx and dh0, since their resident route, and the
 dW computed from them; the LSTM outputs named in
 ``_REDESIGNED_OUTPUTS``, bf16 lane, none now; every bf16 LSTM output at
-the D of ``_REDESIGNED_D``, since the grid route, and what is computed
-from them): the comparison reports
+the D of ``_REDESIGNED_D``, none now (the grid route's bf16 lane at D
+1024 is held since its redesign landed); every fp32 LSTM output at
+``LSTM_SHAPES``' D 512, since the grid route's fp32 lane, and what is
+computed from them, while the fp32 LSTM at ``WIDE_SHAPES``, which still
+streams, is held): the comparison reports
 them apart and does not fail on them. The seeded inputs come
 from this checkout's ``chip_smoke.py``. Run the first form once per
 tree, each in its own process. The second prints, for each output,
@@ -55,10 +58,13 @@ REDESIGNED = "redesigned:"
 # what is computed from them (``_lstm_run``'s names)
 _REDESIGNED_OUTPUTS: tuple = ()
 # past D 512 (T, B, D, E, ragged), and the D whose bf16 LSTM outputs a
-# redesign changes (the grid route's)
+# redesign changes (none now)
 WIDE_SHAPES = {"d1024": (20, 130, 1024, 128, True),
                "d640": (20, 130, 640, 128, True)}
-_REDESIGNED_D = (1024,)
+_REDESIGNED_D: tuple = ()
+# the D whose fp32 LSTM outputs a redesign changes (the grid route's
+# fp32 lane at LSTM_SHAPES)
+_REDESIGNED_D_FP32 = (512,)
 
 
 def chip_smoke():
@@ -153,13 +159,15 @@ def _outputs(cs, pa, qm, fr, dev):
             lc = {n: (t.to(dtype) if n != "lens" else t)
                   for n, t in c.items()}
             o = cs._lstm_run(fr, lc)
-            tag = REDESIGNED if lane == "bf16" else ""
+            fp32_grid = lane == "fp32" and D in _REDESIGNED_D_FP32
+            tag = REDESIGNED if lane == "bf16" or fp32_grid else ""
             for n, t in o.items():
-                out[f"{tag if n in _REDESIGNED_OUTPUTS else ''}"
+                out[f"{tag if n in _REDESIGNED_OUTPUTS or fp32_grid else ''}"
                     f"lstm_{lane}_{key}_{n}"] = t
             dwx, dw = fr.lstm_proj_dw(lc["xe"], o["hs"], lc["h0"], o["dx"])
-            out[f"lstm_{lane}_{key}_proj_dw_on_b11_dwx"] = dwx
-            out[f"lstm_{lane}_{key}_proj_dw_on_b11_dw"] = dw
+            tag = REDESIGNED if fp32_grid else ""
+            out[f"{tag}lstm_{lane}_{key}_proj_dw_on_b11_dwx"] = dwx
+            out[f"{tag}lstm_{lane}_{key}_proj_dw_on_b11_dw"] = dw
         for key, (T, Bb, D, E, ragged) in WIDE_SHAPES.items():
             c = cs._lstm_case(dev, T, Bb, D, E, ragged)
             o = cs._lstm_run(fr, {n: (t.to(dtype) if n != "lens" else t)

@@ -332,7 +332,7 @@ _ROUTES = {
     "bf16-d1024": (_BF, 128, 1024, None, "grid"),
     "bf16-d80": (_BF, 8, 80, None, "streaming"),
     "bf16-no-cluster": (_BF, 128, 512, 0, "streaming"),
-    "fp32-d512": (_F32, 128, 512, 7, "streaming"),
+    "fp32-d512": (_F32, 128, 512, 7, "grid"),
 }
 
 
@@ -341,7 +341,8 @@ def test_lstm_route_is_the_plan_of_the_calls_dtype(case):
     """``lstm_fwd`` / ``lstm_bwd_data`` take the route of
     ``lstm_cluster_plan`` (the plan B14/B15 use) for the call's one
     dtype: resident in bf16 where the shape fits a cluster, grid where W
-    needs a group of clusters (D 1024), else streaming."""
+    needs a group of clusters (bf16 D 1024, fp32 D 512), else
+    streaming."""
     dtype, B_, D_, mc, route = _ROUTES[case]
     assert tfr.lstm_cluster_plan(dtype, B_, D_, 132, mc).route == route
 
@@ -367,7 +368,8 @@ def test_lstm_wrappers_take_one_dtype_before_routing(which):
 
 # (dtype, B, D) -> (route, bb, clusters) with the H100's 7 co-resident
 # 16-CTA clusters at D 512 and n_sm // (D / 32) elsewhere; bf16 D 1024
-# takes the grid route (n_sm // 16 clusters of 16 CTAs by default)
+# and fp32 D 512 take the grid route (n_sm // 16 clusters of 16 CTAs by
+# default)
 _PLAN_B = (1, 17, 128, 130)
 _PLAN_D = (64, 96, 512, 1024)
 
@@ -379,6 +381,11 @@ _PLAN_D = (64, 96, 512, 1024)
 def test_cluster_plan_route_and_tile(dtype, D_, B_):
     mc = 7 if D_ == 512 else None
     plan = tfr.lstm_cluster_plan(dtype, B_, D_, 132, mc)
+    if dtype == torch.float32 and D_ == 512:
+        # W over a group of 4 clusters of 8-unit CTAs, 128-row tiles
+        assert plan == tfr.ClusterPlan("grid", 128, 16, -(-B_ // 128), 7,
+                                       170496, 8, 4)
+        return
     if dtype == torch.float32:
         assert plan == tfr.ClusterPlan("streaming", 0, 0, 0, 0, 0)
         return
@@ -918,14 +925,15 @@ def test_proj_routes_match_plain_at_flagship_on_card(cuda_device, dtype,
                                                      shape):
     """B14 and B15's recurrence at the flagship's layers (T 100, D 512, E
     128 / 512) and at B 130 (no multiple of the tile) with ragged
-    lengths: bf16 takes the resident route, fp32 the streaming one, each
-    counted under its own name; fp32 within 1e-5 / 1e-4 of the plain
-    versions, bf16 within chip_smoke.py's gate of the fp32 plain
-    result."""
+    lengths: bf16 takes the resident route, fp32 the grid route (the
+    streaming one until its fp32 lane; the case ids keep the old name),
+    each counted under its own name with its passes; fp32 within 1e-5 /
+    1e-4 of the plain versions, bf16 within chip_smoke.py's gate of the
+    fp32 plain result."""
     Tn, Bn, En, ragged = shape
     t = _flagship(cuda_device, Tn, Bn, En, ragged)
     lp = {k: (v if k == "lens" else v.to(dtype)) for k, v in t.items()}
-    route = "cluster" if dtype == torch.bfloat16 else "stream"
+    route = "cluster" if dtype == torch.bfloat16 else "grid"
     before = dict(tk.LAUNCHES)
     fwd = tfr.lstm_proj_fwd(lp["xe"], lp["wx"], lp["b"], lp["w"], lp["lens"],
                             lp["h0"], lp["c0"])
@@ -938,7 +946,7 @@ def test_proj_routes_match_plain_at_flagship_on_card(cuda_device, dtype,
         assert tk.LAUNCHES[f"lstm_proj_{d}_{route}"] == \
             before[f"lstm_proj_{d}_{route}"] + 1
     for n in ("lstm_proj_xg", "lstm_proj_dxe"):
-        assert tk.LAUNCHES[n] == before[n] + (route == "cluster")
+        assert tk.LAUNCHES[n] == before[n] + 1
     pf = tfr.lstm_proj_fwd_reference(lp["xe"], lp["wx"], lp["b"], lp["w"],
                                      lp["lens"], lp["h0"], lp["c0"])
     pb = tfr.lstm_proj_bwd_data_reference(*bargs)
@@ -1030,12 +1038,12 @@ def test_resident_wrappers_raise_on_what_they_do_not_take(cuda_device):
          for k, v in _flagship(cuda_device, 3, 16, 128, False).items()}
     xg = tfr.lstm_proj_xg(t["xe"], t["wx"], t["b"])
     args = (t["w"], t["lens"], t["h0"], t["c0"])
-    with pytest.raises(TypeError, match="bfloat16 lane"):
-        tfr.lstm_proj_xg(t["xe"].float(), t["wx"].float(), t["b"].float())
+    with pytest.raises(TypeError, match="one dtype"):
+        tfr.lstm_proj_xg(t["xe"].float(), t["wx"], t["b"])
     with pytest.raises(TypeError, match="float32"):
         tfr.lstm_cluster_fwd(xg.to(torch.bfloat16), *args)
-    with pytest.raises(TypeError, match="bfloat16 lane"):
-        tfr.lstm_cluster_fwd(xg, *(a.float() for a in args))
+    with pytest.raises(TypeError, match="one dtype"):
+        tfr.lstm_cluster_fwd(xg, t["w"].float(), *args[1:])
     with pytest.raises(ValueError, match="streaming route"):
         w2 = torch.zeros((640, 2560), dtype=torch.bfloat16,
                          device=cuda_device)

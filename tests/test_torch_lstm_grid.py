@@ -108,7 +108,8 @@ def test_grid_smem_by_hand():
             if tfr._grid_shape(BF, D_, 4) and D_ > 512] == [768, 1024, 1280]
 
 
-# the parent's plans where the grid route changes nothing: (dtype, B, D,
+# the plans the grid route leaves as they were, and fp32 D 512, which its
+# fp32 lane takes (4 clusters of 16 CTAs of 8 units): (dtype, B, D,
 # clusters, ng) -> plan
 _UNCHANGED = {
     "bf16-b128-d512": ((BF, 128, 512, 7, 4),
@@ -119,7 +120,8 @@ _UNCHANGED = {
                      ("resident", 16, 2, 1, 66, 32256)),
     "bf16-d512-no-cluster": ((BF, 128, 512, 0, 4),
                              ("streaming", 0, 0, 0, 0, 0)),
-    "fp32-d512": ((F32, 128, 512, 7, 4), ("streaming", 0, 0, 0, 0, 0)),
+    "fp32-d512": ((F32, 128, 512, 7, 4),
+                  ("grid", 128, 16, 1, 7, 170496, 8, 4)),
     "gru-bf16-b512-d512": ((BF, 512, 512, 7, 3),
                            ("resident", 48, 16, 11, 7, 221184)),
     "gru-fp32-d512": ((F32, 512, 512, 7, 3), ("streaming", 0, 0, 0, 0, 0)),
