@@ -120,13 +120,18 @@ The seq2seq slice adds, in the same run:
    by relative L2), bf16 no further from the fp32 plain result than 1.5x
    the bf16 plain version + 1e-3 (the bf16 recurrences on the resident
    route of ``fused_rnn.lstm_cluster_plan`` with three gates, the fp32
-   ones streaming); two launches of each kernel on the same inputs held
+   ones on its grid route, whose plans at D 256 / 512 / 768 are
+   printed); two launches of each kernel on the same inputs held
    bit-equal, each timed beside its plain version and its bound (``ms``,
-   and ``device_ms`` with the card's queue kept ahead of the host; no
-   PyTorch call computes this GRU; the dW reduction beside its
-   yardstick, two ``torch.matmul`` calls with fp32 sums on pre-built
+   and ``device_ms`` with the card's queue kept ahead of the host, and µs
+   a step; the fp32 recurrences' bound at 3xTF32, the CUDA-core one
+   beside it; no PyTorch call computes this GRU; the dW reduction beside
+   its yardstick, two ``torch.matmul`` calls with fp32 sums on pre-built
    operands), the recurrences' records with their plan (route, tile,
-   clusters, waves);
+   clusters, waves; grid: the group's clusters, row tiles); and the fp32
+   recurrences at hidden 640 (a D the grid route does not take: the
+   streaming kernels, rows ``gru_{fwd,bwd}_stream_d640``) held the same
+   way;
 4e. one full-width seq2seq training step (bench.py's bench_seq2seq
    config, half the sources ragged) in fp32 and bf16 through the kernels
    (under sync-debug "error") against the same step through their plain
@@ -137,10 +142,11 @@ The seq2seq slice adds, in the same run:
    steps over bench.py's 4 seeded batches: tokens/s, step ms, MFU, peak
    memory, every loss finite; each GRU kernel launched exactly 2 x
    steps, the recurrences also under ``gru_{fwd,bwd}_cluster``),
-   ``train_seq2seq_fp32`` (2 + 5 steps, the fp32 lanes, ``_stream``),
+   ``train_seq2seq_fp32`` (2 + 5 steps, the fp32 lanes, ``_grid``),
+   ``train_seq2seq_640_fp32`` (hidden 640, 1 + 2 steps, ``_stream``),
    ``generate_beam`` (bench_beam: fp32, batch 128, beam 5, length 30;
    one call under sync-debug "error", 2 ``gru_fwd`` and
-   ``gru_fwd_stream`` launches per call, deterministic; best-beam
+   ``gru_fwd_grid`` launches per call, deterministic; best-beam
    agreement with the plain GRU reported) and ``profile_seq2seq`` (one
    bf16 step under ``torch.profiler``; B12 + B13's recurrences a step).
 
@@ -1735,6 +1741,7 @@ GRU_SOURCE = "paddle_tpu_torch/kernels/csrc/fused_rnn.cu"
 # the recurrences' routes (fused_rnn.lstm_cluster_plan with ng=3): the
 # launch names each adds to gru_fwd and gru_bwd
 GRU_ROUTE_NAMES = {"resident": ("gru_fwd_cluster", "gru_bwd_cluster"),
+                   "grid": ("gru_fwd_grid", "gru_bwd_grid"),
                    "streaming": ("gru_fwd_stream", "gru_bwd_stream")}
 GRU_FWD_TOL = 1e-5              # fp32 hs and gates, kernel vs plain
 GRU_GRAD_TOL = 1e-4             # fp32 dx and dh0
@@ -1750,6 +1757,24 @@ BEAM_B, BEAM_K = 128, 5
 # 3e's shapes (T, B, D, ragged): what training and generation give B12/B13
 GRU_SHAPES = {"train": (30, 512, 512, False), "beam": (30, 128, 512, False),
               "ragged": (30, 512, 512, True)}
+# the fp32 lane's grid route takes D 256, 512 and 768 (3e holds it at
+# GRU_SHAPES' D 512 and prints its plans at all three); its streaming
+# route is held at hidden 640 (GRU_STREAM_FP32: T, B, D), whose rows'
+# launches come from a short fp32 run at that width (S2S_640_CFG)
+GRU_F32_GRID_D = (256, 512, 768)
+GRU_STREAM_FP32 = (30, 512, 640)
+
+
+def _gru_route_wanted(dtype, D):
+    """The route 3e and 5e hold the GRU's recurrences to at hidden D:
+    fp32 the grid at GRU_F32_GRID_D and streaming elsewhere, bf16
+    resident to D 512 and streaming past it."""
+    if dtype == torch.float32:
+        return "grid" if D in GRU_F32_GRID_D else "streaming"
+    return "resident" if D <= 512 else "streaming"
+
+
+S2S_640_CFG = dict(S2S_CFG, hidden_dim=640)
 # 4e: one full-width seq2seq step, kernels vs plain GRU versions: the loss
 # and every gradient by relative L2, each leaf's norm floored at
 # S2S_NORM_FLOOR x the whole gradient's norm: a leaf that cancels below
@@ -1785,12 +1810,15 @@ def _gru_case(dev, T, B, D, ragged, seed=0):
             lens, randn(B, D, scale=0.3), randn(T, B, D))
 
 
-def _gru_bound(name, dtype, T, B, D):
+def _gru_bound(name, dtype, T, B, D, cuda_cores=False):
     """Least time of one call: its inputs read once and outputs written
     once (payload at the lane's width, lens fp32) over the HBM rate,
     against its products (2 FLOPs per multiply-add: fwd h@W_ur and rh@W_c;
     bwd dc@W_c^T and dur@W_ur^T; dW the same two as outer products) over
-    the lane's peak (fp32 CUDA cores, bf16 tensor cores)."""
+    the lane's peak: bf16 tensor cores; the fp32 recurrences at their
+    cheapest exact tensor-core form, three tf32 products (3xTF32;
+    ``cuda_cores``: the fp32 CUDA cores, the bound they were held to
+    before it), the fp32 dW at the CUDA cores."""
     e = 2 if dtype == torch.bfloat16 else 4
     tb = T * B
     if name == "gru_fwd":   # x, W, h0 -> hs, gates (+ lens)
@@ -1802,9 +1830,14 @@ def _gru_bound(name, dtype, T, B, D):
     else:                    # hprev, r, dx -> dW
         nbytes = e * (tb * D + tb * D + tb * 3 * D + 3 * D * D)
     flops = 2.0 * tb * D * 3 * D
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    if dtype == torch.bfloat16:
+        s_per_flop = 1.0 / H100_BF16_FLOPS
+    elif name != "gru_dw" and not cuda_cores:
+        s_per_flop = CHUNK_S_PER_FLOP["float32"]
+    else:
+        s_per_flop = 1.0 / H100_FP32_FLOPS
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = flops * s_per_flop * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -1917,8 +1950,15 @@ def _gru_errors(fr, x, w, lens, h0, dhs, dtype):
 
 def _gru_plan(fr, dtype, B, D, dev):
     """The GRU recurrences' plan at one shape, as a record: route, tile
-    rows (bb), clusters and waves of clusters."""
+    rows (bb), clusters and waves of clusters (grid: the group's clusters
+    of 16 CTAs and their units, all held at once, and the row tiles
+    looped inside each step)."""
     plan = fr._cluster_plan(dtype, B, D, dev, ng=3)
+    if plan.route == "grid":
+        return {"route": plan.route, "clusters": plan.group,
+                "cluster_ctas": plan.cluster, "units_per_cta": plan.units,
+                "row_tiles": plan.tiles, "max_clusters": plan.max_clusters,
+                "smem_bytes": plan.smem}
     if plan.route != "resident":
         return {"route": plan.route}
     return {"route": plan.route, "bb": plan.bb, "clusters": plan.tiles,
@@ -1939,12 +1979,17 @@ def check_gru(fr, kernels, dev, flush, dtype):
     bound (fp32 gru_fwd at the generation shape, which runs it;
     everything else at the training shape): ``ms`` by ``_time_ms``, and
     ``device_ms`` with the card's queue kept ahead of the host (the
-    ctypes wrapper's host time otherwise lands in the window). The
-    recurrences' records carry their plan (``_gru_plan``). Returns one
+    ctypes wrapper's host time otherwise lands in the window). The plan
+    must give ``_gru_route_wanted``'s route at each shape (fp32: the
+    grid); the recurrences' records carry it (``_gru_plan``). Returns one
     kernels-line record per kernel."""
     lane = "bf16" if dtype == torch.bfloat16 else "fp32"
     worst = {}
     for key, (T, B, D, ragged) in GRU_SHAPES.items():
+        plan, want = (fr._cluster_plan(dtype, B, D, dev, ng=3),
+                      _gru_route_wanted(dtype, D))
+        _check(plan.route == want, f"gru {lane} {key}: route {plan}, want "
+               f"{want}")
         x, w, lens, h0, dhs = _gru_case(dev, T, B, D, ragged)
         errs, got = _gru_errors(fr, x, w, lens, h0, dhs, dtype)
         for n, e in errs.items():
@@ -2001,6 +2046,11 @@ def check_gru(fr, kernels, dev, flush, dtype):
             extra.update(plan=_gru_plan(fr, dtype, B, D, dev),
                          bit_equal_two_launches=True)
         extra["device_ms"] = _time_ms(kernel_fn, flush, queue_ahead=True)
+        if name != "gru_dw":
+            extra["us_per_step"] = extra["device_ms"] / T * 1e3
+            if lane == "fp32":
+                extra["bound_cuda_core_ms"] = _gru_bound(
+                    name, dtype, T, B, D, cuda_cores=True)[0]
         rec = _lane_record(
             name if lane == "fp32" else f"{name}_bf16", GRU_KERNELS[name],
             GRU_SOURCE,
@@ -2020,8 +2070,13 @@ def check_gru(fr, kernels, dev, flush, dtype):
             lambda: fr.gru_fwd(x, w, lens, h0), flush)
         recs["gru_fwd"]["train_shape_device_ms"] = _time_ms(
             lambda: fr.gru_fwd(x, w, lens, h0), flush, queue_ahead=True)
+        recs["gru_fwd"]["train_shape_us_per_step"] = \
+            recs["gru_fwd"]["train_shape_device_ms"] / T * 1e3
         recs["gru_fwd"]["train_shape_bound_ms"] = _gru_bound(
             "gru_fwd", dtype, T, B, D)[0]
+        recs["gru_fwd"]["train_shape_bound_cuda_core_ms"] = _gru_bound(
+            "gru_fwd", dtype, T, B, D, cuda_cores=True)[0]
+        recs["gru_fwd"]["train_shape_plan"] = _gru_plan(fr, dtype, B, D, dev)
     # B13 as the JAX kernel counts it: the recurrence and dW together
     recs["gru_bwd"]["b13_ms"] = recs["gru_bwd"]["ms"] + recs["gru_dw"]["ms"]
     recs["gru_bwd"]["b13_device_ms"] = (recs["gru_bwd"]["device_ms"]
@@ -2033,6 +2088,61 @@ def check_gru(fr, kernels, dev, flush, dtype):
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     recs["gru_bwd"]["b13_bound_ms"] = max(b13_bytes / H100_BYTES_PER_S,
                                           b13_ops / peak) * 1e3
+    kernels.reset_launches()
+    return recs
+
+
+def check_gru_stream_fp32(fr, kernels, dev, flush, shape=GRU_STREAM_FP32):
+    """Phase 3e, the GRU's fp32 lane at a D its grid route does not take
+    (hidden 640): the plan must stream; one forward and one reverse
+    recurrence count once under ``gru_fwd`` / ``gru_bwd`` and their
+    ``_stream`` names and launch nothing else; each within GRU_FWD_TOL /
+    GRU_GRAD_TOL of its plain version, two launches bit-equal, timed
+    beside its plain version and its bound. Returns kernels-line records
+    ``gru_{fwd,bwd}_stream_d{D}``."""
+    T, B, D = shape
+    plan = fr._cluster_plan(torch.float32, B, D, dev, ng=3)
+    _check(plan.route == "streaming", f"gru fp32 D {D}: route {plan}, want "
+           "streaming")
+    x, w, lens, h0, dhs = _gru_case(dev, T, B, D, True)
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    hs, gates = fr.gru_fwd(x, w, lens, h0)
+    dx, dh0 = fr.gru_bwd_data(gates, hs, w, lens, h0, dhs)
+    torch.cuda.synchronize()
+    moved = {n: k - before[n] for n, k in kernels.LAUNCHES.items()
+             if k != before[n]}
+    want = dict.fromkeys(("gru_fwd", "gru_bwd", *GRU_ROUTE_NAMES[
+        "streaming"]), 1)
+    _check(moved == want, f"gru fp32 D {D}: launches {moved}, want {want}")
+    calls = {"gru_fwd": ((hs, gates), lambda: fr.gru_fwd(x, w, lens, h0),
+                         lambda: fr.gru_fwd_reference(x, w, lens, h0),
+                         GRU_FWD_TOL),
+             "gru_bwd": ((dx, dh0), lambda: fr.gru_bwd_data(
+                 gates, hs, w, lens, h0, dhs),
+                 lambda: fr.gru_bwd_data_reference(gates, hs, w, lens, h0,
+                                                   dhs), GRU_GRAD_TOL)}
+    recs = {}
+    for name, (got, kernel_fn, plain_fn, tol) in calls.items():
+        err = max(_max_err(a, p) for a, p in zip(got, plain_fn()))
+        _check(err <= tol, f"gru fp32 D {D}: {name} differs by {err}")
+        _check(all(torch.equal(a, b) for a, b in zip(got, kernel_fn())),
+               f"gru fp32 D {D}: {name}: two launches on the same inputs "
+               "differ")
+        device_ms = _time_ms(kernel_fn, flush, reps=5, queue_ahead=True)
+        key = f"{name}_stream_d{D}"
+        recs[key] = _lane_record(
+            key, GRU_KERNELS[name], GRU_SOURCE, err,
+            _time_ms(kernel_fn, flush, reps=5),
+            _time_ms(plain_fn, flush, reps=3), None,
+            _gru_bound(name, torch.float32, T, B, D),
+            {"shape": [T, B, D], "dtype": "float32", "plan": {
+                "route": plan.route}, "device_ms": device_ms,
+             "us_per_step": device_ms / T * 1e3,
+             "bound_cuda_core_ms": _gru_bound(name, torch.float32, T, B, D,
+                                              cuda_cores=True)[0],
+             "bit_equal_two_launches": True,
+             "library_note": GRU_LIBRARY_NOTE})
     kernels.reset_launches()
     return recs
 
@@ -2152,7 +2262,7 @@ def _s2s_flops(cfg):
 
 
 def train_s2s(s2s, kernels, dev, key="train_seq2seq", dtype=torch.bfloat16,
-              warmup=3, steps=20):
+              warmup=3, steps=20, widths=S2S_CFG):
     """Phase 5e: a seq2seq training run. ``make_train_step(cfg,
     lr=1e-3)`` (Adam) at bench_seq2seq's shape over its 4 seeded batches:
     ``warmup`` steps, then ``steps`` timed in one window (tokens/s: B x T
@@ -2161,11 +2271,14 @@ def train_s2s(s2s, kernels, dev, key="train_seq2seq", dtype=torch.bfloat16,
     finite. The launch counts are zeroed just before the first step and
     read just after the last: each GRU kernel runs twice per step, the
     recurrences each under their route's name too (``GRU_ROUTE_NAMES``
-    of ``lstm_cluster_plan`` with ng=3: the bf16 run's resident, the fp32
-    run's streaming)."""
-    cfg = s2s.Seq2SeqConfig(**S2S_CFG, dtype=dtype)
+    of ``lstm_cluster_plan`` with ng=3, which must be
+    ``_gru_route_wanted``'s: the bf16 run's resident, the fp32 run's grid;
+    at ``widths`` S2S_640_CFG the fp32 run's streaming)."""
+    cfg = s2s.Seq2SeqConfig(**widths, dtype=dtype)
     route = kernels.fused_rnn._cluster_plan(
-        dtype, S2S_B, S2S_CFG["hidden_dim"], dev, ng=3).route
+        dtype, S2S_B, widths["hidden_dim"], dev, ng=3).route
+    want = _gru_route_wanted(dtype, widths["hidden_dim"])
+    _check(route == want, f"{key}: GRU route {route}, want {want}")
     params = s2s.init_params(cfg, seed=0, device=dev)
     opt, step = s2s.make_train_step(cfg, lr=S2S_LR)
     state = opt.init(params)
@@ -2203,7 +2316,7 @@ def train_s2s(s2s, kernels, dev, key="train_seq2seq", dtype=torch.bfloat16,
     kernels.reset_launches()
     return {key: {
         "dtype": str(dtype).replace("torch.", ""),
-        "batch": [S2S_B, S2S_S, S2S_T], "widths": S2S_CFG, "lr": S2S_LR,
+        "batch": [S2S_B, S2S_S, S2S_T], "widths": widths, "lr": S2S_LR,
         "warmup_steps": warmup, "timed_steps": steps, "wall_s": wall,
         "tokens_per_s": S2S_B * S2S_T * steps / wall,
         "step_ms_p50": float(np.median(step_ms)),
@@ -2216,7 +2329,7 @@ def train_s2s(s2s, kernels, dev, key="train_seq2seq", dtype=torch.bfloat16,
         "launches": launches}}, launches
 
 
-def generate_beam(s2s, fr, kernels, dev, calls=6):
+def generate_beam(s2s, fr, kernels, dev, calls=6, hold_route=True):
     """Phase 5e: beam-search generation at bench_beam's config (fp32,
     batch 128, beam 5, source and output length 30, 2 seeded sources).
     One call under sync-debug "error" (nothing in the search may sync),
@@ -2224,9 +2337,11 @@ def generate_beam(s2s, fr, kernels, dev, calls=6):
     emitted tokens/s: batch x max_len per call). The launch counts are
     zeroed just before the first call and read just after the last: two
     ``gru_fwd`` launches per call (the encoder), each also under its
-    route's name (fp32: ``gru_fwd_stream``). Two calls on one source
-    give the same sequences; agreement of the best beam with the
-    plain-GRU path is reported, not gated."""
+    route's name, which must be the grid's at B 128, D 512
+    (``gru_fwd_grid``; ``hold_route`` False takes the plan's route, as a
+    probe timing another tree does). Two calls on one source give the
+    same sequences; agreement of the best beam with the plain-GRU path
+    is reported, not gated."""
     cfg = s2s.Seq2SeqConfig(**S2S_CFG)
     params = s2s.init_params(cfg, seed=0, device=dev)
     rng = np.random.RandomState(0)
@@ -2257,6 +2372,9 @@ def generate_beam(s2s, fr, kernels, dev, calls=6):
     want = dict.fromkeys(kernels.LAUNCHES, 0)
     route = fr._cluster_plan(torch.float32, BEAM_B, S2S_CFG["hidden_dim"],
                              dev, ng=3).route
+    wanted = _gru_route_wanted(torch.float32, S2S_CFG["hidden_dim"])
+    _check(route == wanted or not hold_route, f"generate_beam: GRU route "
+           f"{route}, want {wanted}")
     for name in ("gru_fwd", GRU_ROUTE_NAMES[route][0]):
         want[name] = 2 * (calls + 1)
     _check(launches == want, f"generate_beam: launches {launches}, want "
@@ -2290,16 +2408,19 @@ def generate_beam(s2s, fr, kernels, dev, calls=6):
 
 
 GRU_RECURRENCE_KERNELS = ("gru_cluster_fwd_kernel", "gru_cluster_bwd_kernel",
-                          "gru_fwd_kernel", "gru_bwd_kernel")
+                          "gru_grid_fwd_f32_kernel",
+                          "gru_grid_bwd_f32_kernel", "gru_fwd_kernel",
+                          "gru_bwd_kernel")
 
 
-def profile_s2s(s2s, dev):
-    """Where a full-width bf16 seq2seq training step's time goes: one
-    step under ``torch.profiler`` after two warm-up steps, with B12 and
-    B13's device ms per step (each kernel by name: the recurrences on
-    either route, the dW reduction and its ordered sum) and the two
-    recurrences' sum (``gru_recurrences_device_ms_per_step``)."""
-    cfg = s2s.Seq2SeqConfig(**S2S_CFG, dtype=torch.bfloat16)
+def profile_s2s(s2s, dev, dtype=torch.bfloat16):
+    """Where a full-width seq2seq training step's time goes (bf16, or the
+    fp32 lane): one step under ``torch.profiler`` after two warm-up
+    steps, with B12 and B13's device ms per step (each kernel by name:
+    the recurrences on any route, the dW reduction and its ordered sum)
+    and the two recurrences' sum
+    (``gru_recurrences_device_ms_per_step``)."""
+    cfg = s2s.Seq2SeqConfig(**S2S_CFG, dtype=dtype)
     state = {"p": s2s.init_params(cfg, seed=0, device=dev)}
     opt, step = s2s.make_train_step(cfg, lr=S2S_LR)
     state["o"] = opt.init(state["p"])
@@ -2310,7 +2431,8 @@ def profile_s2s(s2s, dev):
                                             batches[i % 4])
         return loss.cpu()
 
-    rec = dict({"batch": [S2S_B, S2S_S, S2S_T], "dtype": "bfloat16"},
+    rec = dict({"batch": [S2S_B, S2S_S, S2S_T],
+                "dtype": str(dtype).replace("torch.", "")},
                **_profile([lambda i=i: call(i) for i in range(3)],
                           named=GRU_RECURRENCE_KERNELS + ("dw_wgmma",
                                                           "sum_partials")))
@@ -3449,8 +3571,14 @@ def main(argv=None):
                  f"{rec['max_abs_err']:.3e}")
     # 3e: the GRU forward (B12) and backward (B13: recurrence, dW)
     glanes = {}
+    for D in GRU_F32_GRID_D:
+        _say(f"gru plan fp32 D {D}: " + json.dumps(
+            fr._cluster_plan(torch.float32, S2S_B, D, dev, ng=3)._asdict()))
     for dtype in (torch.float32, torch.bfloat16):
         glanes[dtype] = check_gru(fr, kernels, dev, flush, dtype)
+        if dtype == torch.float32:   # hidden 640: the streaming route
+            glanes[dtype].update(check_gru_stream_fp32(fr, kernels, dev,
+                                                       flush))
         for rec in glanes[dtype].values():
             _say(f"kernel check: {rec['name']} max_abs_err "
                  f"{rec['max_abs_err']:.3e}")
@@ -3658,7 +3786,10 @@ def main(argv=None):
     s2s_runs = {}
     for key, kw in (("train_seq2seq", {}),
                     ("train_seq2seq_fp32", dict(dtype=torch.float32,
-                                                warmup=2, steps=5))):
+                                                warmup=2, steps=5)),
+                    ("train_seq2seq_640_fp32", dict(
+                        dtype=torch.float32, warmup=1, steps=2,
+                        widths=S2S_640_CFG))):
         torch.cuda.empty_cache()
         s2s_runs[key] = train_s2s(s2s, kernels, dev, key=key, **kw)
     torch.cuda.empty_cache()
@@ -3666,7 +3797,12 @@ def main(argv=None):
     for dtype, key in ((torch.float32, "train_seq2seq_fp32"),
                        (torch.bfloat16, "train_seq2seq")):
         for name, rec in glanes[dtype].items():
-            rec["launches"] = s2s_runs[key][1][name]
+            if "_stream_d" in name:   # the hidden-640 run's launches
+                rec["launches"] = s2s_runs["train_seq2seq_640_fp32"][1][
+                    name.split("_d")[0]]
+                rec["launches_run"] = "train_seq2seq_640_fp32"
+            else:
+                rec["launches"] = s2s_runs[key][1][name]
     # fp32 B12's main path is generation (timed at its shape)
     fwd32 = glanes[torch.float32]["gru_fwd"]
     fwd32["launches_train_seq2seq_fp32"] = fwd32["launches"]
@@ -3768,6 +3904,8 @@ def main(argv=None):
           for n in FLASH_KERNELS),
         *(glanes[d][n] for d in (torch.float32, torch.bfloat16)
           for n in GRU_KERNELS),
+        *(glanes[torch.float32][f"{n}_stream_d{GRU_STREAM_FP32[2]}"]
+          for n in ("gru_fwd", "gru_bwd")),
         *(llanes[d][n] for d in (torch.float32, torch.bfloat16)
           for n in LSTM_KERNELS),
         *(llanes[d][n] for d in (torch.float32, torch.bfloat16)

@@ -51,12 +51,14 @@ LAUNCHES: Dict[str, int] = {"paged_attention_mixed": 0,
                             "lstm_proj_bwd_grid": 0,
                             "lstm_proj_xg": 0,
                             "lstm_proj_dxe": 0,
-                            # the GRU recurrences' two routes (each launch
-                            # also counts under its wrapper's name)
+                            # the GRU recurrences' three routes (each
+                            # launch also counts under its wrapper's name)
                             "gru_fwd_cluster": 0,
                             "gru_bwd_cluster": 0,
                             "gru_fwd_stream": 0,
-                            "gru_bwd_stream": 0}
+                            "gru_bwd_stream": 0,
+                            "gru_fwd_grid": 0,
+                            "gru_bwd_grid": 0}
 
 
 def reset_launches() -> None:

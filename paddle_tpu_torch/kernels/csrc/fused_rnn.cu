@@ -3047,9 +3047,8 @@ __global__ void __launch_bounds__(288, 1)
 // at once (D 1024: 64 CTAs, D 1280: 80), each CTA holding 16 hidden
 // units' share of W in shared memory for all T steps. A step's exchange
 // crosses clusters through L2, ordered by one group barrier a step
-// (group_sync: a cluster barrier, one arrival a cluster on a step counter
-// in global memory, release at gpu scope, a spin on an acquire load of
-// it, a cluster barrier). The group fills most of the card, so one group
+// (group_sync: every CTA arrives on a step counter in global memory,
+// release at gpu scope, and spins on an acquire load of it). The group fills most of the card, so one group
 // does every batch row: the rows loop inside the step in tiles of 128
 // (no wave of groups repeats the T-step chain), and the step's [B, D]
 // operand streams through shared memory in K chunks of 64 (cp.async.cg
@@ -3138,14 +3137,16 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-// the group barrier: every CTA of the launch's clusters arrives before any
-// leaves, and what any of them wrote to global memory before it is seen
-// by all of them after it. Barrier s (from 1) waits for s * ncl arrivals.
+// the group barrier: every CTA of the launch arrives before any leaves,
+// and what any of them wrote to global memory before it is seen by all of
+// them after it. Each CTA arrives on the counter itself (release at gpu
+// scope after its threads' writes, a spin on an acquire load), as a
+// cooperative grid sync does: barrier s (from 1) waits for s x the
+// launch's CTAs arrivals.
 __device__ __forceinline__ void group_sync(unsigned* counter,
                                            unsigned target) {
-  cl_arrive();
-  cl_wait();  // the cluster's writes are released to its rank 0
-  if (threadIdx.x == 0 && cluster_rank() == 0) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
     __threadfence();
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(counter)
                  : "memory");
@@ -3161,8 +3162,7 @@ __device__ __forceinline__ void group_sync(unsigned* counter,
     }
     __threadfence();
   }
-  cl_arrive();
-  cl_wait();
+  __syncthreads();
 }
 
 // the cell of rc::cell with every fp32 operation rounded on its own
@@ -3383,7 +3383,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-    group_sync(counter, static_cast<unsigned>(t + 1) * ncl);
+    group_sync(counter, static_cast<unsigned>(t + 1) * ncl * kGCl);
   }
 }
 
@@ -3579,7 +3579,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-    group_sync(counter, static_cast<unsigned>(done + 1) * NCL);
+    group_sync(counter, static_cast<unsigned>(done + 1) * NCL * kGCl);
   }
   // dh0, dc0: the carries after step 0 (zeros for no step)
   for (int r0 = 0; r0 < B; r0 += kGRows) {
@@ -3668,7 +3668,10 @@ constexpr int grid_bwd_smem_f32(int D) {
 // acc[n] += A B over one staged K chunk, as 3xTF32 (in tf32::mma3's
 // order: a_lo b_hi, a_hi b_lo, a_hi b_hi): A the warp's 16 rows at `a`
 // ([row][k], row stride kFLd), B[k][n] = ws[8 n + g][k0 + k] (row stride
-// ldw); fragments split into hi and lo as they are loaded. The tensor
+// ldw, a multiple of 4), NT even. The fragments are loaded by ldmatrix
+// (fp32 words read as pairs of b16: thread 4 g + t gets word t of row g
+// of each 8 x 4 word matrix; A's four in one x4, B's two n-tiles' four in
+// one) and split into hi and lo as they are loaded. The tensor
 // cores' fp32 sums truncate, so the chunk is summed from zero and added
 // to acc by a rounded add: a product over K takes K / 64 truncated chains
 // of 24 mma, not one of 3 K / 8 (at K 2048 that chain missed fp32 parity,
@@ -3678,9 +3681,14 @@ __device__ __forceinline__ void chunk_product_f32(float (&acc)[NT][4],
                                                   const float* a,
                                                   const float* ws, int ldw,
                                                   int k0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const float* ar = a + g * kFLd + t4;
-  const float* bw = ws + g * ldw + k0 + t4;
+  static_assert(NT % 2 == 0, "two n-tiles an ldmatrix");
+  const int lane = threadIdx.x & 31, q = lane >> 3, r8 = lane & 7;
+  // matrix q of A: rows 8 (q % 2).., words 4 (q / 2).. of the 16 x 8 tile;
+  // of B: n-tile q / 2 of the pair, words 4 (q % 2).. (b0, b1)
+  const uint32_t a_addr =
+      smem_u32(a + (8 * (q & 1) + r8) * kFLd + 4 * (q >> 1));
+  const uint32_t b_addr =
+      smem_u32(ws + (8 * (q >> 1) + r8) * ldw + k0 + 4 * (q & 1));
   float part[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -3688,20 +3696,24 @@ __device__ __forceinline__ void chunk_product_f32(float (&acc)[NT][4],
     for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < kGK / 8; ++ks) {
-    uint32_t ahi[4], alo[4];
-    split(ar[8 * ks], ahi[0], alo[0]);
-    split(ar[8 * kFLd + 8 * ks], ahi[1], alo[1]);
-    split(ar[8 * ks + 4], ahi[2], alo[2]);
-    split(ar[8 * kFLd + 8 * ks + 4], ahi[3], alo[3]);
+    uint32_t av[4], ahi[4], alo[4];
+    ldsm_x4(a_addr + 32 * ks, av);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const float* br = bw + 8 * n * ldw + 8 * ks;
-      uint32_t bh0, bl0, bh1, bl1;
-      split(br[0], bh0, bl0);
-      split(br[4], bh1, bl1);
-      mma(part[n], alo, bh0, bh1);
-      mma(part[n], ahi, bl0, bl1);
-      mma(part[n], ahi, bh0, bh1);
+    for (int e = 0; e < 4; ++e) split(__uint_as_float(av[e]), ahi[e], alo[e]);
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {
+      uint32_t bv[4];
+      ldsm_x4(b_addr + 4 * (16 * p * ldw + 8 * ks), bv);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(__uint_as_float(bv[2 * h]), bh0, bl0);
+        split(__uint_as_float(bv[2 * h + 1]), bh1, bl1);
+        float* d = part[2 * p + h];
+        mma(d, alo, bh0, bh1);
+        mma(d, ahi, bl0, bl1);
+        mma(d, ahi, bh0, bh1);
+      }
     }
   }
 #pragma unroll
@@ -3811,7 +3823,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           store2(gates + row * G + q * D + uc, gv[q]);
       }
     }
-    group_sync(counter, static_cast<unsigned>(t + 1) * ncl);
+    group_sync(counter, static_cast<unsigned>(t + 1) * ncl * kGCl);
   }
 }
 
@@ -3974,7 +3986,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               make_float2(acc[jn][2 * hh], acc[jn][2 * hh + 1]);
       }
     }
-    group_sync(counter, static_cast<unsigned>(done + 1) * NCL);
+    group_sync(counter, static_cast<unsigned>(done + 1) * NCL * kGCl);
   }
   // dh0, dc0: the carries after step 0 (zeros for no step)
   for (int r0 = 0; r0 < B; r0 += kGRows) {
@@ -4005,6 +4017,579 @@ __global__ void __launch_bounds__(kThreads, 1)
     float s = 0.f;
     for (int r = 0; r < 64; ++r) s = __fadd_rn(s, dbs[r * kFN + tid]);
     db[(tid / kFU) * D + own + tid % kFU] = s;
+  }
+}
+
+// ------------------------- B12/B13 fp32 at D 256, 512, 768: the grid route
+//
+// The GRU's fp32 recurrences on the LSTM fp32 lane's mechanism (notes
+// above): fp32 W resident across a group of D / 128 clusters of 16 CTAs
+// of 8 units, all held at once (launch_grid), the products exact to fp32
+// as 3xTF32 on mma.sync (chunk_product_f32, each 64-K chunk summed from
+// zero), every fp32 cell operation an __f*_rn intrinsic (a row's bits do
+// not depend on B). The reset comes before the candidate's product, so
+// each step has two products and two exchanges, each ending in a group
+// barrier (group_sync):
+//   gru_grid_fwd_f32_kernel, B12 (replaces paddle_tpu/kernels/
+//     fused_rnn.py:450, _gru_fwd_call's _gru_fwd_kernel) at these D, W
+//     split by K over the clusters: CTA (c, j) owns units KB j + 8 c..
+//     (KB = 8 NCL: cluster c's units are its CTAs' 128, the K of its
+//     products) and keeps W's rows of cluster c's units over the columns
+//     u | r | c~ of units KB j .. KB j + KB - 1, [3 KB][128 + 4] (n = KB q
+//     + o). A step: (a) each CTA multiplies the cluster's h_{t-1} (a copy
+//     in cluster order, hc) by its u | r rows, cluster c's share of g_ur at
+//     units KB j.., into fp32 slots [NCL][B][3D]; the group barrier; the
+//     owners sum the NCL clusters' slots in cluster order, form u, r and r
+//     h_{t-1} (h_{t-1} as stored in hs: in fp32 the stored h is the carry
+//     and the operand; r h into rhc, in cluster order), write gates u, r;
+//     a cluster barrier (the cluster's r h is its own CTAs'); (b) the same
+//     with rhc against the c~ rows; the group barrier; the owners form c~,
+//     the blend and the length mask, write hs[t], hc and gates c~; a
+//     cluster barrier. The u | r and c~ partials take separate columns of
+//     the slots, and one hc and one rhc suffice: every reader of a buffer
+//     or a slot of step t reads it before it arrives at the barrier after
+//     which step t + 1 writes it again ((a)'s slots and rhc are read before
+//     the group barrier of (b), hc before that of (a); (b)'s slots before
+//     the group barrier of the next (a)).
+//   gru_grid_bwd_f32_kernel, B13's reverse recurrence (replaces :481,
+//     _gru_bwd_call's _gru_bwd_kernel, all but dW) at these D: the LSTM's
+//     reverse layout (CTA (c, j) owns units KB j + 8 c.., keeps W's rows KB
+//     j.. over its cluster's 384 gate columns, [KB][384 + 4], read as they
+//     lie) with the GRU's two reductions. A step in reverse: (1) the
+//     owners form dh (the carry of the step before: (dh_t u + drh r) + the
+//     slots of dur W_ur^T + (1 - m) dH, in the Pallas body's order), du_pre
+//     and dc_pre, written to dx [du_pre | dr_pre | dc_pre] (the layout
+//     gru_dw reads) and to dgc (the dgates in cluster order); a cluster
+//     barrier; (2) each CTA multiplies the cluster's dc_pre columns by its
+//     rows: its partial drh, into slots[0]; the group barrier; (3) the
+//     owners sum the slots in cluster order, form dr_pre (to dx and dgc)
+//     and dh_t u + drh r; a cluster barrier; (4) the cluster's du_pre |
+//     dr_pre columns by the rows: the partial dur W_ur^T into slots[1];
+//     the group barrier. The carries ((1 - m) dH; dh_t, then dh_t u + drh
+//     r) live in fp32 scratch [2][B][D], each element read and written
+//     only by the thread of its cell; dh0 is the carry after step 0. No
+//     db: the GRU's kernel has none.
+// The K-split's and the reverse's operands (hc, rhc, dgc) are scratch in
+// cluster order, [NCL][Bp][K] (Bp: B in whole 128-row tiles), so that a
+// chunk's row is 256 contiguous bytes, and are multicast to the cluster's
+// 16 CTAs (mc_product: one bulk copy a row, each CTA copying 8 rows of a
+// tile; three stages), so that L2 serves each chunk once a cluster, where
+// cp.async staging from the JAX layout read eight 32-byte pieces a row,
+// every CTA its own copy. Owners load kOwnRows rows' inputs before
+// computing any.
+// What bounds them: the chain of T steps (the card's least time for a call,
+// its operations as three tf32 products, is 5-8 % of it): a step's
+// products are 2 B D 3D / (D / 8) FLOP a CTA (37.7 MFLOP at B 512, D 512;
+// three tf32 products of it) on mma.sync from shared memory, the owners'
+// sums and cells (the partials' [B, 3 KB] fp32 through L2), and two group
+// and two cluster barriers a step (lstm_probe --grid-ablation --gru).
+constexpr int kGruK = kFU * kGCl;      // the forward's K: a cluster's units
+constexpr int kGruKLd = kGruK + 4;     // row stride of its W rows (fp32)
+constexpr int kGruBwdK = 3 * kGruK;    // the reverse's K: its 384 columns
+constexpr int kOwnRows = 4;            // rows an owner loads at once
+
+// shared memory of the GRU's fp32 grid CTAs: W's rows [3 D / 16][132]
+// (forward) or [D / 16][388] (reverse), then the staged chunks
+// [3][128][68]
+constexpr int grid_gru_fwd_smem_f32(int D) {
+  return 4 * (3 * (D / kGCl) * kGruKLd + kGStages * kFStage);
+}
+constexpr int grid_gru_bwd_smem_f32(int D) {
+  return 4 * ((D / kGCl) * (kGruBwdK + 4) + kGStages * kFStage);
+}
+
+// The K-split forward's and the reverse's staging. Their operands lie in
+// cluster order (a cluster's K contiguous in a row, rows padded to whole
+// 128-row tiles), and all 16 CTAs of a cluster multiply the same chunks:
+// each chunk is multicast to the 16 by bulk copies (one 256-byte row a
+// copy), each CTA copying 8 of a tile's 128 rows, so L2 serves a chunk
+// once a cluster. full[s] counts the bytes into stage s (each CTA expects
+// all 32 KiB), empty[s] the 16 CTAs done reading it (each releases a
+// stage on every CTA of the cluster), so no copy lands in a stage a CTA
+// still reads. Chunks are numbered through the kernel (seq), the stage
+// seq % NS, the phase seq / NS.
+struct McPipe {
+  uint32_t full0, empty0;  // NS mbarriers each, 8 bytes apart
+  unsigned seq;            // the kernel's next chunk
+};
+
+__device__ __forceinline__ void mc_init(McPipe& pp, uint64_t* bars, int ns) {
+  pp.full0 = smem_u32(bars);
+  pp.empty0 = pp.full0 + 8 * ns;
+  pp.seq = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      tc::mbar_init(pp.full0 + 8 * s, 1);
+      tc::mbar_init(pp.empty0 + 8 * s, kGCl);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// the bulk copy of `bytes` at src into shared memory at dst of every CTA
+// of the cluster, completing on bar there
+__device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src,
+                                               int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes."
+      "multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(static_cast<uint16_t>(0xffff))
+      : "memory");
+}
+
+// wait for the phase of parity `parity` of the mbarrier at bar; a wait
+// longer than kSpinNs traps (a copy that never lands fails the stream
+// rather than hang it)
+__device__ __forceinline__ void mc_wait(uint32_t bar, uint32_t parity) {
+  const unsigned long long t0 = global_ns();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (global_ns() - t0 > kSpinNs) __trap();
+  }
+}
+
+// the operand's stores by generic writes seen by the bulk copies that
+// read them later (after a barrier)
+__device__ __forceinline__ void fence_to_async() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// stage chunk c of a product (tile c / nkc, K chunk kc0 + c % nkc of a
+// cluster-ordered [rows][ld] operand at src) as kernel chunk seq: wait
+// until the 16 CTAs have released its stage, expect its bytes, copy this
+// CTA's 8 rows
+template <int NS>
+__device__ __forceinline__ void mc_issue(const McPipe& pp, float* stg,
+                                         const float* src, int ld, int nkc,
+                                         int kc0, int c, unsigned seq,
+                                         int rank) {
+  const int tid = threadIdx.x;
+  if (tid >= 8) return;
+  const int s = static_cast<int>(seq % NS);
+  if (seq >= NS) mc_wait(pp.empty0 + 8 * s, (seq / NS - 1) & 1);
+  if (tid == 0) tc::mbar_expect_tx(pp.full0 + 8 * s, kGRows * kGK * 4, false);
+  const int row = c / nkc * kGRows + 8 * rank + tid;
+  bulk_multicast(smem_u32(stg + s * kFStage + (8 * rank + tid) * kFLd),
+                 src + static_cast<size_t>(row) * ld + kGK * (kc0 + c % nkc),
+                 kGK * 4, pp.full0 + 8 * s);
+}
+
+// A product on the multicast staging: for each 128-row tile of the
+// cluster-ordered operand src, acc = (the warp's 16 rows, chunks kc0 ..
+// kc0 + nkc - 1) x (NT n-tiles of ws from K offset k_ofs:
+// chunk_product_f32), then epi(m0, acc) where the warp's m-tile has a
+// live row (m0 its first: the thread holds rows m0 + g and m0 + g + 8,
+// columns 8 n + 2 t4 and the next)
+template <int NT, int NS, typename Epi>
+__device__ __forceinline__ void mc_product(McPipe& pp, float* stg,
+                                           const float* src, int ld, int B,
+                                           int nkc, int kc0, const float* ws,
+                                           int ldw, int k_ofs, int rank,
+                                           Epi epi) {
+  const int warp = threadIdx.x >> 5;
+  const int nch = (B + kGRows - 1) / kGRows * nkc;
+  const unsigned base = pp.seq;
+  for (int c = 0; c < NS - 1 && c < nch; ++c)
+    mc_issue<NS>(pp, stg, src, ld, nkc, kc0, c, base + c, rank);
+  float acc[NT][4];
+  for (int c = 0; c < nch; ++c) {
+    const unsigned seq = base + c;
+    const int s = static_cast<int>(seq % NS);
+    const int kc = c % nkc, m0 = c / nkc * kGRows + 16 * warp;
+    if (kc == 0) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    }
+    mc_wait(pp.full0 + 8 * s, (seq / NS) & 1);
+    if (m0 < B) {  // a live row in the warp's m-tile
+      chunk_product_f32<NT>(acc, stg + s * kFStage + 16 * warp * kFLd, ws,
+                            ldw, k_ofs + kc * kGK);
+      if (kc == nkc - 1) epi(m0, acc);
+    }
+    __syncthreads();  // every warp is done reading stage s
+    if (threadIdx.x < kGCl) tc::mbar_arrive_at(pp.empty0 + 8 * s, threadIdx.x);
+    if (c + NS - 1 < nch)
+      mc_issue<NS>(pp, stg, src, ld, nkc, kc0, c + NS - 1, seq + NS - 1,
+                   rank);
+  }
+  pp.seq = base + nch;
+}
+
+// the NCL clusters' partials at offset o of planes `stride` apart, summed
+// in cluster order
+template <int NCL>
+__device__ __forceinline__ float2 sum_slots(const float* s, size_t stride,
+                                            size_t o) {
+  float2 v[NCL];
+#pragma unroll
+  for (int c = 0; c < NCL; ++c)
+    v[c] = __ldcg(reinterpret_cast<const float2*>(s + c * stride + o));
+#pragma unroll
+  for (int c = 1; c < NCL; ++c) {
+    v[0].x = __fadd_rn(v[0].x, v[c].x);
+    v[0].y = __fadd_rn(v[0].y, v[c].y);
+  }
+  return v[0];
+}
+
+__device__ __forceinline__ float2 ldcg2(const float* p) {
+  return __ldcg(reinterpret_cast<const float2*>(p));
+}
+
+// h = m (u h_prev + (1 - u) c~) + (1 - m) h_prev, c~ = tanh(s), in the
+// Pallas body's order
+__device__ __forceinline__ float gru_blend(float u, float hp, float s,
+                                          float m, float& c) {
+  c = tanhf(s);
+  const float ht =
+      __fadd_rn(__fmul_rn(u, hp), __fmul_rn(__fsub_rn(1.f, u), c));
+  return __fadd_rn(__fmul_rn(m, ht), __fmul_rn(__fsub_rn(1.f, m), hp));
+}
+
+template <int NCL>
+__global__ void __launch_bounds__(kThreads, 1)
+    gru_grid_fwd_f32_kernel(const float* __restrict__ x,
+                            const float* __restrict__ w,
+                            const float* __restrict__ lens,
+                            const float* __restrict__ h0,
+                            float* __restrict__ hs, float* __restrict__ gates,
+                            float* __restrict__ hr, float* __restrict__ slots,
+                            unsigned* __restrict__ counter, int n_steps,
+                            int B) {
+  constexpr int D = kGruK * NCL, G = 3 * D, KB = kFU * NCL, NW = 3 * KB;
+  constexpr int NS = kGStages;
+  extern __shared__ __align__(16) unsigned char smem_rc[];
+  __shared__ uint64_t mbars[2 * NS];
+  float* ws = reinterpret_cast<float*>(smem_rc);  // [NW][kGruKLd]
+  float* stg = ws + NW * kGruKLd;                 // [NS][kGRows][kFLd]
+  const int rank = static_cast<int>(cluster_rank());
+  const int cl = static_cast<int>(blockIdx.x) / kGCl;
+  const int tid = threadIdx.x, g = (tid & 31) >> 2, t4 = tid & 3;
+  // the owners' cells: rows rr + 64 i, units gu and gu + 1
+  const int rr = tid >> 2, gu = KB * rank + kFU * cl + 2 * t4;
+  const int nb = KB * rank + 2 * t4;  // the products' columns: nb + 8 j
+  const size_t plane = static_cast<size_t>(B) * G;  // a cluster's slots
+  float* sout = slots + cl * plane;
+  // the operands in cluster order, [2][NCL][Bp][128] copies of h and r h
+  // (Bp: B in whole 128-row tiles), a cluster's units contiguous in a row
+  // (K order), the owners' at 8 rank
+  const size_t cplane = static_cast<size_t>(B + kGRows - 1) / kGRows *
+                        kGRows * kGruK;
+  float* hc = hr + cl * cplane;
+  float* rhc = hr + (NCL + cl) * cplane;
+  const int oc = kFU * rank + 2 * t4;
+  McPipe pp;
+  mc_init(pp, mbars, NS);
+
+  // ws[n][k] = W[KB (k / 8) + 8 cl + k % 8][(n / KB) D + KB rank + n % KB]
+  for (int i = tid; i < NW * kGruK; i += kThreads) {
+    const int n = i % NW, k = i / NW;
+    ws[n * kGruKLd + k] =
+        __ldg(w + static_cast<size_t>(KB * (k >> 3) + kFU * cl + (k & 7)) * G +
+              (n / KB) * D + KB * rank + n % KB);
+  }
+  // h0 in cluster order (the owners' cells)
+  for (int b = rr; b < B; b += 64)
+    *reinterpret_cast<float2*>(hc + static_cast<size_t>(b) * kGruK + oc) =
+        ldcg2(h0 + static_cast<size_t>(b) * D + gu);
+  fence_to_async();
+  cl_arrive();
+  cl_wait();  // the cluster's h0 is in hc; its barriers are set up
+  // a product's partials at the thread's rows: n-tile q NCL + j at
+  // columns (q0 + q) D + nb + 8 j (q0: the product's first gate)
+  const auto put = [&](int m0, const auto& acc, int q0) {
+    constexpr int NT =
+        std::extent<std::remove_reference_t<decltype(acc)>>::value;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int b = m0 + g + 8 * hh;
+      if (b >= B) continue;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        *reinterpret_cast<float2*>(
+            sout + static_cast<size_t>(b) * G + (q0 + n / NCL) * D + nb +
+            8 * (n % NCL)) = make_float2(acc[n][2 * hh], acc[n][2 * hh + 1]);
+    }
+  };
+  unsigned bars = 0;
+  for (int t = 0; t < n_steps; ++t) {
+    const float* hsrc =
+        t == 0 ? h0 : hs + static_cast<size_t>(t - 1) * B * D;
+    const size_t xt = static_cast<size_t>(t) * B;
+    // (a) cluster cl's share of h W_ur
+    mc_product<2 * NCL, NS>(
+        pp, stg, hc, kGruK, B, 2, 0, ws, kGruKLd, 0, rank,
+        [&](int m0, float (&acc)[2 * NCL][4]) { put(m0, acc, 0); });
+    group_sync(counter, ++bars * NCL * kGCl);
+    // u, r, r h at the owners' cells, kOwnRows rows' loads at once (a row
+    // past B loads row B - 1 and stores nothing)
+    for (int i0 = 0; 64 * i0 < B; i0 += kOwnRows) {
+      float2 su[kOwnRows], sr[kOwnRows], xu[kOwnRows], xr[kOwnRows],
+          hp[kOwnRows];
+#pragma unroll
+      for (int i = 0; i < kOwnRows; ++i) {
+        const int b = min(rr + 64 * (i0 + i), B - 1);
+        const size_t o = static_cast<size_t>(b) * G + gu;
+        su[i] = sum_slots<NCL>(slots, plane, o);
+        sr[i] = sum_slots<NCL>(slots, plane, o + D);
+        const float* xp = x + (xt + b) * G + gu;
+        xu[i] = __ldg(reinterpret_cast<const float2*>(xp));
+        xr[i] = __ldg(reinterpret_cast<const float2*>(xp + D));
+        hp[i] = ldcg2(hsrc + static_cast<size_t>(b) * D + gu);
+      }
+#pragma unroll
+      for (int i = 0; i < kOwnRows; ++i) {
+        const int b = rr + 64 * (i0 + i);
+        if (b >= B) continue;
+        const float u[2] = {sigmoid(__fadd_rn(xu[i].x, su[i].x)),
+                            sigmoid(__fadd_rn(xu[i].y, su[i].y))};
+        const float r[2] = {sigmoid(__fadd_rn(xr[i].x, sr[i].x)),
+                            sigmoid(__fadd_rn(xr[i].y, sr[i].y))};
+        *reinterpret_cast<float2*>(rhc + static_cast<size_t>(b) * kGruK +
+                                   oc) =
+            make_float2(__fmul_rn(r[0], hp[i].x), __fmul_rn(r[1], hp[i].y));
+        store2(gates + (xt + b) * G + gu, u);
+        store2(gates + (xt + b) * G + D + gu, r);
+      }
+    }
+    fence_to_async();
+    cl_arrive();
+    cl_wait();  // the cluster's r h is in rhc
+    // (b) cluster cl's share of (r h) W_c
+    mc_product<NCL, NS>(
+        pp, stg, rhc, kGruK, B, 2, 0, ws + 2 * KB * kGruKLd, kGruKLd, 0, rank,
+        [&](int m0, float (&acc)[NCL][4]) { put(m0, acc, 2); });
+    group_sync(counter, ++bars * NCL * kGCl);
+    // c~, the blend under the mask, at the owners' cells
+    for (int i0 = 0; 64 * i0 < B; i0 += kOwnRows) {
+      float2 sc[kOwnRows], xc[kOwnRows], u[kOwnRows], hp[kOwnRows];
+      float len[kOwnRows];
+#pragma unroll
+      for (int i = 0; i < kOwnRows; ++i) {
+        const int b = min(rr + 64 * (i0 + i), B - 1);
+        const size_t n = (xt + b) * G + gu;
+        sc[i] = sum_slots<NCL>(slots, plane,
+                               static_cast<size_t>(b) * G + 2 * D + gu);
+        xc[i] = __ldg(reinterpret_cast<const float2*>(x + n + 2 * D));
+        u[i] = ldcg2(gates + n);
+        hp[i] = ldcg2(hsrc + static_cast<size_t>(b) * D + gu);
+        len[i] = lens[b];
+      }
+#pragma unroll
+      for (int i = 0; i < kOwnRows; ++i) {
+        const int b = rr + 64 * (i0 + i);
+        if (b >= B) continue;
+        const size_t n = (xt + b) * G + gu;
+        const float m = static_cast<float>(t) < len[i] ? 1.f : 0.f;
+        float c[2];
+        const float h[2] = {
+            gru_blend(u[i].x, hp[i].x, __fadd_rn(xc[i].x, sc[i].x), m, c[0]),
+            gru_blend(u[i].y, hp[i].y, __fadd_rn(xc[i].y, sc[i].y), m,
+                      c[1])};
+        store2(hs + (xt + b) * D + gu, h);
+        store2(hc + static_cast<size_t>(b) * kGruK + oc, h);
+        store2(gates + n + 2 * D, c);
+      }
+    }
+    fence_to_async();
+    cl_arrive();
+    cl_wait();  // the cluster's h_t is in hc
+  }
+}
+
+template <int NCL>
+__global__ void __launch_bounds__(kThreads, 1)
+    gru_grid_bwd_f32_kernel(const float* __restrict__ gates,
+                            const float* __restrict__ hs,
+                            const float* __restrict__ w,
+                            const float* __restrict__ lens,
+                            const float* __restrict__ h0,
+                            const float* __restrict__ dhs,
+                            float* __restrict__ dx, float* __restrict__ dh0,
+                            float* __restrict__ carry,
+                            float* __restrict__ slots,
+                            float* __restrict__ dg,
+                            unsigned* __restrict__ counter, int n_steps,
+                            int B) {
+  constexpr int D = kGruK * NCL, G = 3 * D, KB = kFU * NCL;
+  constexpr int ldw = kGruBwdK + 4, NS = kGStages;
+  extern __shared__ __align__(16) unsigned char smem_rc[];
+  __shared__ uint64_t mbars[2 * NS];
+  float* ws = reinterpret_cast<float*>(smem_rc);  // [KB][ldw]
+  float* stg = ws + KB * ldw;                     // [NS][kGRows][kFLd]
+  const int rank = static_cast<int>(cluster_rank());
+  const int cl = static_cast<int>(blockIdx.x) / kGCl;
+  const int k0 = KB * rank;  // the products' units (W's rows)
+  const int tid = threadIdx.x, g = (tid & 31) >> 2, t4 = tid & 3;
+  const int rr = tid >> 2, gu = k0 + kFU * cl + 2 * t4;  // the owners' cells
+  const size_t plane = static_cast<size_t>(B) * D;  // a [B][D] fp32 array
+  float* kcar = carry;          // (1 - m) dH
+  float* pcar = carry + plane;  // dh_t, then dh_t u + drh r
+  float* s_rh = slots;                // [NCL][B][D] partials of drh
+  float* s_ur = slots + NCL * plane;  // ... and of dur W_ur^T
+  // the dgates in cluster order, [NCL][Bp][384] (Bp: B in whole 128-row
+  // tiles), a cluster's gate columns contiguous in a row (K order: 128 q +
+  // 8 j + u), the owners' at 8 rank
+  float* dgc = dg + static_cast<size_t>(cl) * ((B + kGRows - 1) / kGRows) *
+                        kGRows * kGruBwdK;
+  const int oc = kFU * rank + 2 * t4;
+  McPipe pp;
+  mc_init(pp, mbars, NS);  // first used after the first cluster barrier
+
+  // ws[o][n] = W[k0 + o][q D + KB j + 8 cl + u], n = 128 q + 8 j + u: the
+  // cluster's gate columns (its CTAs' units, rank by rank) in K order
+  for (int i = tid; i < KB * (kGruBwdK / 4); i += kThreads) {
+    const int o = i / (kGruBwdK / 4), n = 4 * (i % (kGruBwdK / 4));
+    const int cw = (n >> 7) * D + KB * ((n >> 3) & 15) + kFU * cl + (n & 7);
+    *reinterpret_cast<float4*>(ws + o * ldw + n) = __ldg(
+        reinterpret_cast<const float4*>(w + static_cast<size_t>(k0 + o) * G +
+                                        cw));
+  }
+  // a product's partials at the thread's rows, units k0 + 8 jn + 2 t4
+  const auto put = [&](float* s, int m0, const float (&acc)[NCL][4]) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int b = m0 + g + 8 * hh;
+      if (b >= B) continue;
+#pragma unroll
+      for (int jn = 0; jn < NCL; ++jn)
+        *reinterpret_cast<float2*>(s + cl * plane + static_cast<size_t>(b) * D +
+                                   k0 + 8 * jn + 2 * t4) =
+            make_float2(acc[jn][2 * hh], acc[jn][2 * hh + 1]);
+    }
+  };
+  // dh at the cells of row b: (dh_t u + drh r) + dur W_ur^T + (1 - m) dH
+  const auto dh_at = [&](int b) {
+    const size_t o = static_cast<size_t>(b) * D + gu;
+    const float2 p = ldcg2(pcar + o), k = ldcg2(kcar + o);
+    const float2 s = sum_slots<NCL>(s_ur, plane, o);
+    return make_float2(__fadd_rn(__fadd_rn(p.x, s.x), k.x),
+                       __fadd_rn(__fadd_rn(p.y, s.y), k.y));
+  };
+  unsigned bars = 0;
+  for (int t = n_steps - 1; t >= 0; --t) {
+    const size_t nt = static_cast<size_t>(t) * B;
+    const float* hprev = t > 0 ? hs + (nt - B) * D : h0;
+    // (1) du_pre, dc_pre at the owners' cells (rows rr + 64 i), kOwnRows
+    // rows' loads at once (a row past B loads row B - 1, stores nothing)
+    for (int i0 = 0; 64 * i0 < B; i0 += kOwnRows) {
+      float2 dhr[kOwnRows], ur[kOwnRows], cr[kOwnRows], hpr[kOwnRows],
+          dvr[kOwnRows];
+      float len[kOwnRows];
+#pragma unroll
+      for (int i = 0; i < kOwnRows; ++i) {
+        const int b = min(rr + 64 * (i0 + i), B - 1);
+        const size_t n = (nt + b) * G + gu;
+        dhr[i] = t == n_steps - 1 ? make_float2(0.f, 0.f) : dh_at(b);
+        ur[i] = __ldg(reinterpret_cast<const float2*>(gates + n));
+        cr[i] = __ldg(reinterpret_cast<const float2*>(gates + n + 2 * D));
+        hpr[i] = __ldg(reinterpret_cast<const float2*>(
+            hprev + static_cast<size_t>(b) * D + gu));
+        dvr[i] = __ldg(reinterpret_cast<const float2*>(
+            dhs + (nt + b) * D + gu));
+        len[i] = lens[b];
+      }
+#pragma unroll
+      for (int i = 0; i < kOwnRows; ++i) {
+        const int b = rr + 64 * (i0 + i);
+        if (b >= B) continue;
+        const size_t n = (nt + b) * G + gu, o = static_cast<size_t>(b) * D + gu;
+        const float m = static_cast<float>(t) < len[i] ? 1.f : 0.f;
+        const float uu[2] = {ur[i].x, ur[i].y}, cc[2] = {cr[i].x, cr[i].y};
+        const float hv[2] = {hpr[i].x, hpr[i].y};
+        const float dH[2] = {__fadd_rn(dvr[i].x, dhr[i].x),
+                             __fadd_rn(dvr[i].y, dhr[i].y)};
+        float dht[2], keep[2], du[2], dc[2];
+#pragma unroll
+        for (int cu = 0; cu < 2; ++cu) {
+          dht[cu] = __fmul_rn(m, dH[cu]);
+          keep[cu] = __fmul_rn(__fsub_rn(1.f, m), dH[cu]);
+          du[cu] = __fmul_rn(
+              __fmul_rn(__fmul_rn(dht[cu], __fsub_rn(hv[cu], cc[cu])), uu[cu]),
+              __fsub_rn(1.f, uu[cu]));
+          dc[cu] = __fmul_rn(__fmul_rn(dht[cu], __fsub_rn(1.f, uu[cu])),
+                             __fsub_rn(1.f, __fmul_rn(cc[cu], cc[cu])));
+        }
+        float* dgo = dgc + static_cast<size_t>(b) * kGruBwdK + oc;
+        store2(dx + n, du);
+        store2(dx + n + 2 * D, dc);
+        store2(dgo, du);
+        store2(dgo + 2 * kGruK, dc);
+        store2(kcar + o, keep);
+        store2(pcar + o, dht);
+      }
+    }
+    fence_to_async();
+    cl_arrive();
+    cl_wait();  // the cluster's du_pre, dc_pre of step t are in dgc
+    // (2) the cluster's share of drh = dc_pre W_c^T at units k0.. (its K
+    // chunks 4 and 5)
+    mc_product<NCL, NS>(
+        pp, stg, dgc, kGruBwdK, B, 2, 4, ws, ldw, 2 * kGruK, rank,
+        [&](int m0, float (&acc)[NCL][4]) { put(s_rh, m0, acc); });
+    group_sync(counter, ++bars * NCL * kGCl);
+    // (3) drh; dr_pre; dh_t u + drh r
+    for (int i0 = 0; 64 * i0 < B; i0 += kOwnRows) {
+      float2 drr[kOwnRows], ur[kOwnRows], rg[kOwnRows], hpr[kOwnRows],
+          dhtr[kOwnRows];
+#pragma unroll
+      for (int i = 0; i < kOwnRows; ++i) {
+        const int b = min(rr + 64 * (i0 + i), B - 1);
+        const size_t n = (nt + b) * G + gu, o = static_cast<size_t>(b) * D + gu;
+        drr[i] = sum_slots<NCL>(s_rh, plane, o);
+        ur[i] = __ldg(reinterpret_cast<const float2*>(gates + n));
+        rg[i] = __ldg(reinterpret_cast<const float2*>(gates + n + D));
+        hpr[i] = __ldg(reinterpret_cast<const float2*>(hprev + o));
+        dhtr[i] = ldcg2(pcar + o);
+      }
+#pragma unroll
+      for (int i = 0; i < kOwnRows; ++i) {
+        const int b = rr + 64 * (i0 + i);
+        if (b >= B) continue;
+        const size_t n = (nt + b) * G + gu, o = static_cast<size_t>(b) * D + gu;
+        const float2 drh = drr[i], u = ur[i], r = rg[i], hp = hpr[i],
+                     dht = dhtr[i];
+        const float dr[2] = {
+            __fmul_rn(__fmul_rn(__fmul_rn(drh.x, hp.x), r.x),
+                      __fsub_rn(1.f, r.x)),
+            __fmul_rn(__fmul_rn(__fmul_rn(drh.y, hp.y), r.y),
+                      __fsub_rn(1.f, r.y))};
+        const float part[2] = {
+            __fadd_rn(__fmul_rn(dht.x, u.x), __fmul_rn(drh.x, r.x)),
+            __fadd_rn(__fmul_rn(dht.y, u.y), __fmul_rn(drh.y, r.y))};
+        store2(dx + n + D, dr);
+        store2(dgc + static_cast<size_t>(b) * kGruBwdK + kGruK + oc, dr);
+        store2(pcar + o, part);
+      }
+    }
+    fence_to_async();
+    cl_arrive();
+    cl_wait();  // the cluster's dr_pre of step t is in dgc
+    // (4) the cluster's share of dur W_ur^T at units k0..
+    mc_product<NCL, NS>(
+        pp, stg, dgc, kGruBwdK, B, 4, 0, ws, ldw, 0, rank,
+        [&](int m0, float (&acc)[NCL][4]) { put(s_ur, m0, acc); });
+    group_sync(counter, ++bars * NCL * kGCl);
+  }
+  // dh0: the carry after step 0 (zeros for no step)
+  for (int r0 = 0; r0 < B; r0 += kGRows) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int b = r0 + rr + 64 * i;
+      if (b >= B) continue;
+      const float2 dh = n_steps > 0 ? dh_at(b) : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(dh0 + static_cast<size_t>(b) * D + gu) = dh;
+    }
   }
 }
 
@@ -4360,6 +4945,48 @@ cudaError_t grid_bwd(int lane, const void* gates, const void* cs,
                                                 : CALL(5, false);
   }
   return ncl == 3 ? CALL(3, true) : ncl == 4 ? CALL(4, true) : CALL(5, true);
+#undef CALL
+}
+
+// the GRU's grid route: lane 0 (fp32) only, D 256, 512 or 768 (2, 4 or 6
+// clusters of 8-unit CTAs), every kernel's shared memory within the
+// opt-in limit
+bool bad_grid_gru(int lane, int n_steps, int B, int D) {
+  return n_steps < 0 || B < 1 || lane != 0 ||
+         (D != 256 && D != 512 && D != 768) ||
+         grid_gru_fwd_smem_f32(D) > 232448 ||
+         grid_gru_bwd_smem_f32(D) > 232448;
+}
+
+// B12 on the grid route: W split by K over the clusters, the partials in
+// slots
+cudaError_t grid_gru_fwd(const float* x, const float* w,
+                         const float* lens, const float* h0, float* hs,
+                         float* gates, float* hr, float* slots,
+                         unsigned* counter, int n_steps, int B, int D,
+                         cudaStream_t st) {
+  const int ncl = D / kGruK;
+#define CALL(NCL)                                                         \
+  launch_grid(gru_grid_fwd_f32_kernel<NCL>, NCL,                          \
+              grid_gru_fwd_smem_f32(kGruK * NCL), st, x, w, lens, h0, hs, \
+              gates, hr, slots, counter, n_steps, B)
+  return ncl == 2 ? CALL(2) : ncl == 4 ? CALL(4) : CALL(6);
+#undef CALL
+}
+
+// B13's reverse recurrence on the grid route
+cudaError_t grid_gru_bwd(const float* gates, const float* hs, const float* w,
+                         const float* lens, const float* h0,
+                         const float* dhs, float* dx, float* dh0,
+                         float* carry, float* slots, float* dg,
+                         unsigned* counter, int n_steps, int B, int D,
+                         cudaStream_t st) {
+#define CALL(NCL)                                                          \
+  launch_grid(gru_grid_bwd_f32_kernel<NCL>, NCL,                           \
+              grid_gru_bwd_smem_f32(kGruK * NCL), st, gates, hs, w, lens,  \
+              h0, dhs, dx, dh0, carry, slots, dg, counter, n_steps, B)
+  const int ncl = D / kGruK;
+  return ncl == 2 ? CALL(2) : ncl == 4 ? CALL(4) : CALL(6);
 #undef CALL
 }
 
@@ -4864,15 +5491,83 @@ extern "C" int grid_lstm_bwd(int lane, const void* gates, const void* cs,
       counter, n_steps, B, D, static_cast<cudaStream_t>(stream)));
 }
 
+// B12's recurrence on the grid route (lane 0, fp32: D 256, 512, 768). x
+// [T, B, 3D], w [D, 3D], lens [B] fp32, h0 [B, D] -> hs [T, B, D], gates
+// [T, B, 3D]; hr fp32 [2][rows padded to whole 128-row tiles][D] (h and
+// r h in cluster order), slots fp32 [D / 128][B][3D] and counter (one
+// uint32, zero) scratch; W split by K over the clusters. D / 128 clusters
+// of 16 CTAs, refused (cudaErrorCooperativeLaunchTooLarge) unless the
+// card holds them at once.
+extern "C" int grid_gru_fwd(int lane, const void* x, const void* w,
+                            const float* lens, const void* h0, void* hs,
+                            void* gates, float* hr, float* slots,
+                            unsigned* counter, int n_steps, int B, int D,
+                            void* stream) {
+  if (rc::bad_grid_gru(lane, n_steps, B, D) || hr == nullptr ||
+      slots == nullptr || counter == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(rc::grid_gru_fwd(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      lens, static_cast<const float*>(h0), static_cast<float*>(hs),
+      static_cast<float*>(gates), hr, slots, counter, n_steps, B, D,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// B13's reverse recurrence on the grid route (lane 0, fp32: D 256, 512,
+// 768). gates [T, B, 3D], hs [T, B, D], w [D, 3D] (its rows resident,
+// read as they lie), lens, h0, dhs -> dx [T, B, 3D] (du_pre | dr_pre |
+// dc_pre), dh0 [B, D]; carry fp32 [2][B][D], slots fp32 [2][D / 128][B]
+// [D], dg fp32 [D / 128][B][384] (the dgates in cluster order) and counter
+// (one uint32, zero) scratch.
+extern "C" int grid_gru_bwd(int lane, const void* gates, const void* hs,
+                            const void* w, const float* lens, const void* h0,
+                            const void* dhs, void* dx, void* dh0,
+                            float* carry, float* slots, float* dg,
+                            unsigned* counter, int n_steps, int B, int D,
+                            void* stream) {
+  if (rc::bad_grid_gru(lane, n_steps, B, D) || carry == nullptr ||
+      slots == nullptr || dg == nullptr || counter == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(rc::grid_gru_bwd(
+      static_cast<const float*>(gates), static_cast<const float*>(hs),
+      static_cast<const float*>(w), lens, static_cast<const float*>(h0),
+      static_cast<const float*>(dhs), static_cast<float*>(dx),
+      static_cast<float*>(dh0), carry, slots, dg, counter, n_steps, B, D,
+      static_cast<cudaStream_t>(stream)));
+}
+
 // out[0] = how many 16-CTA clusters of the grid route's kernels of the
-// lane at D the card holds at once (the fewer of the two recurrences' at
-// their own shared memory); the route needs D / 256 (lane 0: D / 128).
-extern "C" int grid_occupancy(int lane, int* out, int D, void* stream) {
+// lane at D the card holds at once (the fewest of the recurrences' of ng
+// gates at their own shared memory: the LSTM's two, ng 4; the GRU's
+// three, ng 3, fp32 only); the route needs D / 256 (lane 0: D / 128).
+extern "C" int grid_occupancy(int lane, int* out, int D, int ng,
+                              void* stream) {
   (void)stream;
-  if (rc::bad_grid(lane, 0, 1, D) || out == nullptr) {
+  if (out == nullptr || (ng != 3 && ng != 4) ||
+      (ng == 4 ? rc::bad_grid(lane, 0, 1, D)
+               : rc::bad_grid_gru(lane, 0, 1, D))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int f = 0, b = 0;
+  if (ng == 3) {
+    const int ncl = D / rc::kGruK;
+#define FWD(NCL)                                                     \
+  rc::max_clusters(rc::gru_grid_fwd_f32_kernel<NCL>, rc::kGCl,       \
+                   rc::grid_gru_fwd_smem_f32(D), &f)
+#define BWD(NCL)                                                     \
+  rc::max_clusters(rc::gru_grid_bwd_f32_kernel<NCL>, rc::kGCl,       \
+                   rc::grid_gru_bwd_smem_f32(D), &b)
+    cudaError_t err = ncl == 2 ? FWD(2) : ncl == 4 ? FWD(4) : FWD(6);
+    if (err == cudaSuccess) {
+      err = ncl == 2 ? BWD(2) : ncl == 4 ? BWD(4) : BWD(6);
+    }
+#undef FWD
+#undef BWD
+    out[0] = f < b ? f : b;
+    return static_cast<int>(err);
+  }
   if (lane == 0) {
     cudaError_t err =
         rc::max_clusters(rc::lstm_grid_fwd_f32_kernel, rc::kGCl,

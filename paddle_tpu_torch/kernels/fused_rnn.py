@@ -57,14 +57,17 @@ recurrence launch counts under its wrapper's name (``lstm_fwd``,
 ``lstm_bwd``, ``lstm_proj_fwd``, ``lstm_proj_bwd``) and under its
 route's (``..._cluster``, ``..._grid``, ``..._stream``); the passes under
 ``lstm_proj_xg`` / ``lstm_proj_dxe``. The GRU recurrences (B12, B13's)
-take the resident and streaming routes of the same plan with three gates
-(``lstm_cluster_plan(..., ng=3)``):
-resident in bf16 (the forward's reset before the candidate's product
-makes two exchanges a step; the reverse reads W transposed from its
-resident slices, with no transposed copy), else streaming; each launch
-counts under ``gru_fwd`` / ``gru_bwd`` and ``gru_{fwd,bwd}_{cluster,
-stream}``. On CPU tensors each runs its plain version, which follows the
-Pallas body step by step in torch ops.
+take the three routes of the same plan with three gates
+(``lstm_cluster_plan(..., ng=3)``; the forward's reset before the
+candidate's product makes two exchanges a step): resident in bf16 up to
+D 512 (the reverse reads W transposed from its resident slices, with no
+transposed copy), grid in fp32 at D 256, 512 and 768 (the forward's W
+split by K over the group's clusters, their partials summed in cluster
+order; the reverse's rows of W resident as the LSTM's, read as they
+lie; 3xTF32), else streaming; each launch counts under ``gru_fwd`` /
+``gru_bwd`` and ``gru_{fwd,bwd}_{cluster,grid,stream}``. On CPU tensors
+each runs its plain version, which follows the Pallas body step by step
+in torch ops.
 Inside ``plain_versions()`` the scans run the plain versions on any
 device: what the kernels are held against on the card.
 
@@ -110,7 +113,8 @@ _ENTRIES = {"gru_fwd": (6, 4), "gru_bwd": (8, 4), "gru_dw": (6, 4),
             "cluster_lstm_bwd": (12, 4), "cluster_occupancy": (1, 3),
             "cluster_lstm_probe": (1, 5), "grid_lstm_fwd": (10, 3),
             "grid_lstm_fwd_x": (10, 3), "grid_lstm_bwd": (14, 3),
-            "grid_occupancy": (1, 1)}
+            "grid_gru_fwd": (9, 3), "grid_gru_bwd": (12, 3),
+            "grid_occupancy": (1, 2)}
 _entries = {}
 SMEM_LIMIT = 232448        # bytes of shared memory a block may opt in to
 # shared memory of each recurrence kernel for bb batch rows, hidden D and
@@ -342,15 +346,35 @@ def gru_fwd(x, w, lens, h0):
     """The forward: ``(hs, gates)``. CUDA tensors take the route of
     ``lstm_cluster_plan(..., ng=3)`` for x's dtype: resident (bf16: W
     split over one thread-block cluster's shared memory,
-    ``kernels.LAUNCHES["gru_fwd"]`` and ``["gru_fwd_cluster"]``) or
-    streaming (one kernel reading W from L2 every step, ``["gru_fwd"]``
-    and ``["gru_fwd_stream"]``), or raise; CPU tensors take the plain
+    ``kernels.LAUNCHES["gru_fwd"]`` and ``["gru_fwd_cluster"]``), grid
+    (fp32 at ``GRID_F32_D``: W split over a group of clusters,
+    ``["gru_fwd"]`` and ``["gru_fwd_grid"]``) or streaming (one kernel
+    reading W from L2 every step, ``["gru_fwd"]`` and
+    ``["gru_fwd_stream"]``), or raise; CPU tensors take the plain
     version."""
     T, B, D = _check_shapes(x, w, lens, h0)
     if _device_kind(x) == "cpu":
         return gru_fwd_reference(x, w, lens, h0)
     lane = _check_cuda((("x", x), ("w", w), ("h0", h0)), lens)
     plan = _cluster_plan(x.dtype, B, D, x.device, ng=3)
+    if plan.route == "grid":
+        hs = x.new_empty((T, B, D))
+        gates = torch.empty_like(x)
+        if B:
+            # W split by K over the clusters; scratch: fp32 copies of h
+            # and r * h in cluster order (rows padded to whole row tiles),
+            # the partial slots [clusters, B, 3D], the step counter
+            f32, dev = torch.float32, x.device
+            _launch("gru_fwd", lane,
+                    (x, w, lens, h0, hs, gates,
+                     torch.empty((2, plan.tiles * plan.bb, D), dtype=f32,
+                                 device=dev),
+                     torch.empty((plan.group, B, 3 * D), dtype=f32,
+                                 device=dev),
+                     torch.zeros(1, dtype=torch.int32, device=dev)),
+                    (T, B, D), dev, entry="grid_gru_fwd",
+                    also=("gru_fwd_grid",))
+        return hs, gates
     if plan.route == "resident":
         bb, route = plan.bb, "gru_fwd_cluster"
     else:
@@ -368,8 +392,10 @@ def gru_bwd_data(gates, hs, w, lens, h0, dhs):
     """The backward recurrence: ``(dx, dh0)``. CUDA tensors take the
     route of ``lstm_cluster_plan(..., ng=3)`` for the gates' dtype:
     resident (W read transposed from its resident slices,
-    ``LAUNCHES["gru_bwd"]`` and ``["gru_bwd_cluster"]``) or streaming
-    (one kernel over a transposed copy of W, ``["gru_bwd"]`` and
+    ``LAUNCHES["gru_bwd"]`` and ``["gru_bwd_cluster"]``), grid (fp32 at
+    ``GRID_F32_D``: W's rows resident across a group of clusters, read as
+    they lie, ``["gru_bwd"]`` and ``["gru_bwd_grid"]``) or streaming (one
+    kernel over a transposed copy of W, ``["gru_bwd"]`` and
     ``["gru_bwd_stream"]``), or raise; CPU tensors take the plain
     version."""
     T, B, D = _check_shapes(gates, w, lens, h0)
@@ -379,6 +405,23 @@ def gru_bwd_data(gates, hs, w, lens, h0, dhs):
     lane = _check_cuda((("gates", gates), ("hs", hs), ("w", w), ("h0", h0),
                         ("dhs", dhs)), lens)
     plan = _cluster_plan(gates.dtype, B, D, gates.device, ng=3)
+    if plan.route == "grid":
+        dx = torch.empty_like(gates)
+        dh0 = torch.empty_like(h0)
+        if B:
+            # scratch: the carries, the partial slots, the dgates in
+            # cluster order [clusters, rows padded to whole row tiles,
+            # 384], the step counter
+            carry, slots, counter = _grid_scratch(B, D, gates.device,
+                                                  plan.group)
+            dg = torch.empty((plan.group, plan.tiles * plan.bb,
+                              GRU_GRID_F32_BWD_K), dtype=torch.float32,
+                             device=gates.device)
+            _launch("gru_bwd", lane, (gates, hs, w, lens, h0, dhs, dx, dh0,
+                                      carry, slots, dg, counter), (T, B, D),
+                    gates.device, entry="grid_gru_bwd",
+                    also=("gru_bwd_grid",))
+        return dx, dh0
     if plan.route == "resident":
         bb, route = plan.bb, "gru_bwd_cluster"
     else:
@@ -775,6 +818,11 @@ GRID_F32_UNITS = 8
 GRID_F32_D = (256, 512, 768)
 GRID_F32_K = 4 * GRID_F32_UNITS * GRID_CLUSTER
 _GRID_F32_STAGES = 4 * 3 * GRID_ROWS * (64 + 4)
+# the GRU's fp32 grid route: the forward's K (its cluster's 128 units;
+# the rows of W a CTA keeps, over the columns u | r | c~ of D / 16 units)
+# and the backward's (its cluster's 384 gate columns)
+GRU_GRID_F32_K = GRID_F32_UNITS * GRID_CLUSTER
+GRU_GRID_F32_BWD_K = 3 * GRU_GRID_F32_K
 
 
 class ClusterPlan(NamedTuple):
@@ -809,14 +857,21 @@ def _rec_smem(kind, bb, D, ng=4):
     return 2 * (n * (D + 8) + bb * (n + 8)) + 4 * D * bb
 
 
-def _grid_smem(D, dtype=torch.bfloat16):
+def _grid_smem(D, dtype=torch.bfloat16, ng=4):
     """Shared memory of a grid-route CTA (``csrc/fused_rnn.cu``'s
     ``rc::grid_fwd_smem`` / ``grid_bwd_smem``, the larger): the
     forward's W columns of its 16 units [64, D + 8] or the backward's W
     rows [D / 16, 1024 + 8], bf16, then the staged K chunks; in fp32
     (``grid_fwd_smem_f32`` / ``grid_bwd_smem_f32``) the columns of 8
     units [32, D + 4] or the rows [D / 16, 512 + 4] and the fp32
-    chunks."""
+    chunks. The GRU's (``ng`` 3, fp32: ``grid_gru_fwd_smem_f32`` /
+    ``grid_gru_bwd_smem_f32``): the forward's W rows of its cluster's
+    128 units over the three gates of D / 16 units [3 D / 16, 128 + 4],
+    or the backward's rows [D / 16, 384 + 4], and the fp32 chunks."""
+    if ng == 3:
+        return 4 * max(3 * (D // GRID_CLUSTER) * (GRU_GRID_F32_K + 4),
+                       D // GRID_CLUSTER * (GRU_GRID_F32_BWD_K + 4)) + \
+            _GRID_F32_STAGES
     if dtype == torch.float32:
         return 4 * max(4 * GRID_F32_UNITS * (D + 4),
                        D // GRID_CLUSTER * (GRID_F32_K + 4)) + \
@@ -826,18 +881,18 @@ def _grid_smem(D, dtype=torch.bfloat16):
 
 
 def _grid_shape(dtype, D, ng):
-    """The shapes the grid route takes, the LSTM's only: in bf16 D 768,
-    1024 and 1280 (a multiple of 256 past the resident route's 512, with
-    3 to 5 clusters of 16 CTAs and both recurrences' CTAs within
-    ``SMEM_LIMIT``; D 1536 would need 253,440 bytes); in fp32 D 256, 512
-    and 768 (``GRID_F32_D``: 2, 4 and 6 clusters of 16 CTAs of 8 units,
-    137,728 to 203,520 bytes a CTA; D 1024 would need 8 clusters, more
-    than an H100 holds at once, and 16 units a CTA 264 KB)."""
-    if ng != 4:
-        return False
+    """The shapes the grid route takes: the LSTM's (``ng`` 4) in bf16 at
+    D 768, 1024 and 1280 (a multiple of 256 past the resident route's
+    512, with 3 to 5 clusters of 16 CTAs and both recurrences' CTAs
+    within ``SMEM_LIMIT``; D 1536 would need 253,440 bytes); the LSTM's
+    and the GRU's (``ng`` 3) in fp32 at D 256, 512 and 768
+    (``GRID_F32_D``: 2, 4 and 6 clusters of 16 CTAs of 8 units; the
+    LSTM's 137,728 to 203,520 bytes a CTA, the GRU's 129,792 to 180,480;
+    D 1024 would need 8 clusters, more than an H100 holds at once, and 16
+    units a CTA 264 KB)."""
     if dtype == torch.float32:
-        return D in GRID_F32_D and _grid_smem(D, dtype) <= SMEM_LIMIT
-    return (dtype == torch.bfloat16
+        return D in GRID_F32_D and _grid_smem(D, dtype, ng) <= SMEM_LIMIT
+    return (ng == 4 and dtype == torch.bfloat16
             and D % (GRID_UNITS * GRID_CLUSTER) == 0
             and 3 <= D // (GRID_UNITS * GRID_CLUSTER) <= 5
             and _grid_smem(D) <= SMEM_LIMIT)
@@ -859,18 +914,19 @@ def lstm_cluster_plan(dtype, B, D, n_sm=132, max_clusters=None, ng=4):
       ``REC_TILES[ng]`` whose shared memory fits with the fewest waves,
       the smaller of two with as many (the LSTM's: 16 while ``ceil(B /
       16)`` clusters fit at once, else 32).
-    - grid (the LSTM only): bf16 at D 768, 1024 and 1280, where W no
-      longer fits one cluster, and fp32 at D 256, 512 and 768, where fp32
-      W does not (``_grid_shape``): W resident across a group of
+    - grid: the LSTM's bf16 at D 768, 1024 and 1280, where W no longer
+      fits one cluster, and the LSTM's and the GRU's fp32 at D 256, 512
+      and 768, where fp32 W does not (``_grid_shape``): W resident across
+      a group of
       ``group`` clusters of 16 CTAs (each CTA 16 ``units`` in bf16, 8 in
       fp32: D / 256 or D / 128 clusters), all of which the card must hold
       at once (``max_clusters``: the count of the lane's grid kernels'
-      16-CTA clusters, queried from the card; by default ``n_sm //
-      16``). One group does every row: ``tiles`` row tiles of ``bb`` =
-      128 loop inside each step.
-    - streaming: everything else (fp32 at any other D, the GRU past D
-      512 and in fp32, other D, a group the card cannot hold) reads W
-      from L2 every step."""
+      16-CTA clusters of ``ng`` gates, queried from the card; by default
+      ``n_sm // 16``). One group does every row: ``tiles`` row tiles of
+      ``bb`` = 128 loop inside each step.
+    - streaming: everything else (fp32 at any other D, the GRU in bf16
+      past D 512, other D, a group the card cannot hold) reads W from L2
+      every step."""
     if _grid_shape(dtype, D, ng):
         units = GRID_F32_UNITS if dtype == torch.float32 else GRID_UNITS
         group = D // (units * GRID_CLUSTER)
@@ -879,7 +935,7 @@ def lstm_cluster_plan(dtype, B, D, n_sm=132, max_clusters=None, ng=4):
         if mc < group:
             return ClusterPlan("streaming", 0, 0, 0, 0, 0)
         return ClusterPlan("grid", GRID_ROWS, GRID_CLUSTER,
-                           -(-B // GRID_ROWS), mc, _grid_smem(D, dtype),
+                           -(-B // GRID_ROWS), mc, _grid_smem(D, dtype, ng),
                            units, group)
     nc = D // REC_UNITS if D % REC_UNITS == 0 else 0
     fits = [bb for bb in REC_TILES[ng]
@@ -910,9 +966,9 @@ def _cluster_plan(dtype, B, D, dev, ng=4):
     the resident route can take, the number of its clusters (of the
     recurrences of ``ng`` gates, at the smallest tile) the card holds at
     once, or for a shape the grid route can take, the number of the
-    lane's grid kernels' 16-CTA clusters at their own shared memory
-    (asked of the CUDA runtime once per device, route, lane, D and
-    ng)."""
+    lane's grid kernels' 16-CTA clusters of ``ng`` gates at their own
+    shared memory (asked of the CUDA runtime once per device, route,
+    lane, D and ng)."""
     grid = _grid_shape(dtype, D, ng)
     if not grid and (dtype != torch.bfloat16 or D % REC_UNITS
                      or not 1 <= D // REC_UNITS <= REC_MAX_CLUSTER):
@@ -925,7 +981,7 @@ def _cluster_plan(dtype, B, D, dev, ng=4):
         out = torch.zeros(1, dtype=torch.int32)
         with torch.cuda.device(dev):
             err = (_cuda_entry("grid_occupancy")(lane, out.data_ptr(), D,
-                                                 None)
+                                                 ng, None)
                    if grid else _cuda_entry("cluster_occupancy")(
                        lane, out.data_ptr(), D, REC_TILES[ng][0], ng, None))
         if err != 0:
@@ -1136,7 +1192,8 @@ def lstm_cluster_fwd(xg, w, lens, h0, c0):
 def _grid_scratch(B, D, dev, slots=0, carry=True):
     """The grid kernels' scratch: the fp32 carries [2, B, D] (none
     without ``carry``), the backward's fp32 slots [2, slots, B, D]
-    (``slots`` clusters; none for 0) and the step counter, zeroed."""
+    (``slots`` clusters; none for 0; the GRU's: drh's partials, then dur
+    W_ur^T's) and the step counter, zeroed."""
     f32 = torch.float32
     return (torch.empty((2, B, D), dtype=f32, device=dev) if carry else None,
             torch.empty((2, slots, B, D), dtype=f32, device=dev)

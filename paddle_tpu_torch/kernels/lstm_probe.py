@@ -103,12 +103,45 @@ def gru_timing(cs, fr, dev, flush, T=30, B=512, D=512):
             queue_ahead=True)}
 
 
-def s2s_step_timing(cs, dev, steps=20):
-    """The bf16 seq2seq training step: ``chip_smoke.train_s2s``'s loop
-    (3 warm-up steps, ``steps`` timed) without its launch checks, every
-    loss finite; then ``chip_smoke.profile_s2s``'s profile."""
+# --time --gru --fp32: (T, B, D) of B12 fp32's two main paths (beam
+# search's encoder, the fp32 training step) and B13's recurrence (the
+# training step)
+GRU_F32_SHAPES = {"beam": (30, 128, 512), "train": (30, 512, 512)}
+
+
+def gru_fp32_timing(cs, fr, dev, flush):
+    """Device ms of B12's fp32 wrapper (``gru_fwd``) at the generation
+    and training shapes and of B13's recurrence (``gru_bwd_data``) at the
+    training shape, beside the route the tree's plan gives and µs a
+    step."""
+    out = {}
+    f32 = torch.float32
+    for key, (T, B, D) in GRU_F32_SHAPES.items():
+        x, w, lens, h0, dhs = cs._gru_case(dev, T, B, D, False)
+        plan = fr._cluster_plan(f32, B, D, dev, ng=3)
+        out[f"{key}_route"] = plan.route
+        hs, gates = fr.gru_fwd(x, w, lens, h0)
+        calls = {"gru_fwd": lambda: fr.gru_fwd(x, w, lens, h0)}
+        if key == "train":
+            calls["gru_bwd"] = lambda: fr.gru_bwd_data(gates, hs, w, lens,
+                                                       h0, dhs)
+        for name, fn in calls.items():
+            ms = cs._time_ms(fn, flush, reps=10, queue_ahead=True)
+            out[f"{key}_{name}_fp32_device_ms"] = ms
+            out[f"{key}_{name}_fp32_us_per_step"] = ms / T * 1e3
+        del x, w, lens, h0, dhs, hs, gates, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def s2s_step_timing(cs, dev, steps=20, dtype=torch.bfloat16):
+    """The seq2seq training step (bf16, or fp32: keys with ``_fp32``):
+    ``chip_smoke.train_s2s``'s loop (3 warm-up steps, ``steps`` timed)
+    without its launch checks, every loss finite; then
+    ``chip_smoke.profile_s2s``'s profile."""
     from paddle_tpu_torch.models import seq2seq as s2s
-    cfg = s2s.Seq2SeqConfig(**cs.S2S_CFG, dtype=torch.bfloat16)
+    sfx = "" if dtype == torch.bfloat16 else "_fp32"
+    cfg = s2s.Seq2SeqConfig(**cs.S2S_CFG, dtype=dtype)
     params = s2s.init_params(cfg, seed=0, device=dev)
     opt, step = s2s.make_train_step(cfg, lr=cs.S2S_LR)
     _p, _s, losses, step_ms, wall = cs.timed_steps(
@@ -118,12 +151,12 @@ def s2s_step_timing(cs, dev, steps=20):
         raise RuntimeError("seq2seq: a non-finite loss")
     del params, opt, step, _p, _s, losses
     torch.cuda.empty_cache()
-    prof = cs.profile_s2s(s2s, dev)["profile_seq2seq"]
+    prof = cs.profile_s2s(s2s, dev, dtype)["profile_seq2seq"]
     torch.cuda.empty_cache()
-    return {"train_seq2seq_ms_per_step_p50": statistics.median(step_ms),
-            "train_seq2seq_tokens_per_s":
+    return {f"train_seq2seq{sfx}_ms_per_step_p50": statistics.median(step_ms),
+            f"train_seq2seq{sfx}_tokens_per_s":
                 cs.S2S_B * cs.S2S_T * steps / wall,
-            "profile_seq2seq": {
+            f"profile_seq2seq{sfx}": {
                 "wall_ms_per_step": prof["wall_ms_per_step"],
                 "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
                 "device_idle_share": prof["device_idle_share"],
@@ -240,8 +273,18 @@ _SWITCHES = (
     ("          if (r0 + m0 >= B) continue;\n          uint32_t a[4];",
      "          if (r0 + m0 >= B) continue;\n#ifdef NO_MMA\n"
      "          continue;\n#endif\n          uint32_t a[4];"),
-    ("                                           unsigned target) {\n",
-     "{}#ifdef NO_SYNC\n  return;\n#endif\n"))
+    ("void group_sync(unsigned* counter,\n"
+     "                                           unsigned target) {\n",
+     "{}#ifdef NO_SYNC\n  return;\n#endif\n"),
+    ("  if (tid == 0) tc::mbar_expect_tx(pp.full0 + 8 * s, kGRows * kGK * 4, "
+     "false);",
+     "#ifdef NO_LOAD\n  if (tid == 0) tc::mbar_expect_tx(pp.full0 + 8 * s, "
+     "0, false);\n  return;\n#endif\n{}"),
+    ("    mc_wait(pp.full0 + 8 * s, (seq / NS) & 1);\n"
+     "    if (m0 < B) {  // a live row in the warp's m-tile",
+     "    mc_wait(pp.full0 + 8 * s, (seq / NS) & 1);\n#ifdef NO_MMA\n"
+     "    if (false) {\n#else\n"
+     "    if (m0 < B) {  // a live row in the warp's m-tile\n#endif"))
 
 
 def _ablation_builds():
@@ -327,6 +370,76 @@ def grid_ablation(cs, fr, dev, flush, T=100, B=128):
                                     ("bwd_device_ms", bwd))}
         out[f"d{D}"] = rec
         del c, o, carry, slots, hs, cs_, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def gru_grid_ablation(cs, fr, dev, flush, T=30):
+    """Device ms of the GRU's fp32 grid route in each ABLATIONS variant:
+    the forward (``grid_gru_fwd``) and the reverse (``grid_gru_bwd``) at
+    D 512, B 128 and 512; the intact variant's forward and reverse
+    bit-equal to the wrappers' where the tree's plan takes the grid
+    route. With the products switched off no partial is written (the
+    products' epilogues go with them)."""
+    import ctypes
+    libs = _ablation_builds()
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    out = {}
+    D = 512
+    for B in (128, 512):
+        x, w, lens, h0, dhs = cs._gru_case(dev, T, B, D, False)
+        hs, g = fr.gru_fwd_reference(x, w, lens, h0)
+        f32 = dict(dtype=torch.float32, device=dev)
+        o_hs, o_g, o_dx = (torch.empty_like(t) for t in (hs, g, g))
+        bp = -(-B // 128) * 128            # rows in whole 128-row tiles
+        o_dh0, hr = torch.empty_like(h0), torch.empty((2, bp, D), **f32)
+        fslots = torch.empty((D // 128, B, 3 * D), **f32)
+        carry = torch.empty((2, B, D), **f32)
+        bslots = torch.empty((2, D // 128, B, D), **f32)
+        dg = torch.empty((D // 128, bp, 384), **f32)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        st = torch.cuda.current_stream(dev).cuda_stream
+        rec = {}
+        for v, lib in libs.items():
+            fwd_e, bwd_e = lib.grid_gru_fwd, lib.grid_gru_bwd
+            fwd_e.argtypes = [i32] + [ptr] * 9 + [i32] * 3 + [ptr]
+            bwd_e.argtypes = [i32] + [ptr] * 12 + [i32] * 3 + [ptr]
+            fwd_e.restype = bwd_e.restype = i32
+
+            def fwd(e=fwd_e):
+                counter.zero_()
+                err = e(0, *(t.data_ptr() for t in (x, w, lens, h0, o_hs,
+                                                    o_g, hr, fslots,
+                                                    counter)),
+                        T, B, D, st)
+                if err:
+                    raise RuntimeError(f"ablation gru fwd: CUDA error {err}")
+
+            def bwd(e=bwd_e):
+                counter.zero_()
+                err = e(0, *(t.data_ptr() for t in (g, hs, w, lens, h0, dhs,
+                                                    o_dx, o_dh0, carry,
+                                                    bslots, dg, counter)),
+                        T, B, D, st)
+                if err:
+                    raise RuntimeError(f"ablation gru bwd: CUDA error {err}")
+
+            if v == "intact" and fr._cluster_plan(
+                    torch.float32, B, D, dev, ng=3).route == "grid":
+                fwd()
+                bwd()
+                k_hs, k_g = fr.gru_fwd(x, w, lens, h0)
+                k_dx, k_dh0 = fr.gru_bwd_data(g, hs, w, lens, h0, dhs)
+                torch.cuda.synchronize()
+                rec["intact_bit_equal_to_wrappers"] = all(
+                    torch.equal(a, b) for a, b in ((o_hs, k_hs), (o_g, k_g),
+                                                   (o_dx, k_dx),
+                                                   (o_dh0, k_dh0)))
+            rec[v] = {d: cs._time_ms(fn, flush, reps=10, queue_ahead=True)
+                      for d, fn in (("fwd_device_ms", fwd),
+                                    ("bwd_device_ms", bwd))}
+        out[f"b{B}_d{D}"] = rec
+        del x, w, lens, h0, dhs, hs, g, o_hs, o_g, o_dx, hr, fslots, carry
         torch.cuda.empty_cache()
     return out
 
@@ -462,7 +575,9 @@ def main(argv=None):
                     "512 (D 1024, 1280) and the hidden-1024 / 1280 steps")
     ap.add_argument("--fp32", action="store_true",
                     help="with --time: only the LSTM's fp32 lane at D 512 "
-                    "and the classifier's fp32 steps")
+                    "and the classifier's fp32 steps; with --gru too, "
+                    "the GRU's fp32 recurrences, the fp32 seq2seq step "
+                    "and beam search")
     ap.add_argument("--gru-tiles", action="store_true")
     ap.add_argument("--grid-ablation", action="store_true")
     args = ap.parse_args(argv)
@@ -480,6 +595,15 @@ def main(argv=None):
         rec = {"root": str(args.root), "card": card}
         if args.fused_only:
             rec.update(step_timing(cs, dev, ROUTES[:1], args.fused_only))
+        elif args.gru and args.fp32:
+            from paddle_tpu_torch import kernels
+            from paddle_tpu_torch.models import seq2seq as s2s
+            rec.update(gru_fp32_timing(cs, fr, dev, flush))
+            rec.update(s2s_step_timing(cs, dev, 10, torch.float32))
+            beam = cs.generate_beam(s2s, fr, kernels, dev,
+                                    hold_route=False)[0]
+            rec["generate_beam_ms_per_batch"] = \
+                beam["generate_beam"]["ms_per_batch"]
         elif args.gru:
             rec.update(gru_timing(cs, fr, dev, flush), **s2s_step_timing(
                 cs, dev))
@@ -502,7 +626,8 @@ def main(argv=None):
         print(json.dumps(rec), flush=True)
         return 0
     if args.grid_ablation:
-        print(json.dumps({"card": card, "grid_ablation": grid_ablation(
+        fn = gru_grid_ablation if args.gru else grid_ablation
+        print(json.dumps({"card": card, "grid_ablation": fn(
             cs, fr, dev, flush)}), flush=True)
         return 0
     if args.gru_tiles:

@@ -19,23 +19,25 @@ to ``FILE``:
   projections with M 80;
 - B12/B13 (``gru_fwd``, ``gru_bwd_data``, ``gru_dw``) and B10/B11/B14/
   B15 (every LSTM wrapper), fp32 and bf16, at ``GRU_SHAPES`` /
-  ``LSTM_SHAPES`` and past D 512 at ``WIDE_SHAPES`` (T 20, a ragged B
-  130: D 1024, the grid route in bf16, and D 640, the streaming route);
-  ``lstm_proj_dw`` also on B10/B11's hs and dx (D 512); bf16
-  ``gru_dw`` also on inputs that no kernel made (hs and gates from the
-  forward's plain version, dx from the reverse's), so that it is held
-  to the other tree's bits whatever the recurrences give.
+  ``LSTM_SHAPES`` and past D 512 at ``GRU_WIDE_SHAPES`` (T 20, a ragged
+  B 130, D 640: the streaming route in both lanes) / ``WIDE_SHAPES`` (D
+  1024, the LSTM's grid route in bf16, and D 640, the streaming route);
+  ``lstm_proj_dw`` also on B10/B11's hs and dx (D 512); ``gru_dw`` also
+  on inputs that no kernel made (hs and gates from the forward's plain
+  version, dx from the reverse's), so that it is held to the other
+  tree's bits whatever the recurrences give.
 
 The outputs of kernels a PR redesigns are saved under a name that starts
-with ``REDESIGNED`` (B1-B4's, since their row-tile kernel; the bf16 GRU
-recurrences' hs, gates, dx and dh0, since their resident route, and the
-dW computed from them; the LSTM outputs named in
+with ``REDESIGNED`` (B1-B4's, since their row-tile kernel; the fp32 GRU
+recurrences' hs, gates, dx and dh0 at the D of ``_REDESIGNED_GRU_D_FP32``,
+since their grid route, and the dW computed from them (the bf16 GRU's,
+tagged since its resident route, are held again); the LSTM outputs named in
 ``_REDESIGNED_OUTPUTS``, bf16 lane, none now; every bf16 LSTM output at
 the D of ``_REDESIGNED_D``, none now (the grid route's bf16 lane at D
-1024 is held since its redesign landed); every fp32 LSTM output at
-``LSTM_SHAPES``' D 512, since the grid route's fp32 lane, and what is
-computed from them, while the fp32 LSTM at ``WIDE_SHAPES``, which still
-streams, is held): the comparison reports
+1024 is held since its redesign landed); every fp32 LSTM output at the
+D of ``_REDESIGNED_D_FP32``, none now (the grid route's fp32 lane at
+``LSTM_SHAPES``' D 512 is held since its redesign landed)): the
+comparison reports
 them apart and does not fail on them. The seeded inputs come
 from this checkout's ``chip_smoke.py``. Run the first form once per
 tree, each in its own process. The second prints, for each output,
@@ -64,7 +66,11 @@ WIDE_SHAPES = {"d1024": (20, 130, 1024, 128, True),
 _REDESIGNED_D: tuple = ()
 # the D whose fp32 LSTM outputs a redesign changes (the grid route's
 # fp32 lane at LSTM_SHAPES)
-_REDESIGNED_D_FP32 = (512,)
+_REDESIGNED_D_FP32 = ()
+# the GRU past D 512 (T, B, D, ragged), and the D whose fp32 GRU outputs
+# a redesign changes (the grid route's fp32 lane at GRU_SHAPES)
+GRU_WIDE_SHAPES = {"d640": (20, 130, 640, True)}
+_REDESIGNED_GRU_D_FP32 = (512,)
 
 
 def chip_smoke():
@@ -138,22 +144,23 @@ def _outputs(cs, pa, qm, fr, dev):
             out[f"qmm_{lane}_{name}"] = qm.quant_matmul(x, wq, ws)
     for dtype in (torch.float32, torch.bfloat16):
         lane = "bf16" if dtype == torch.bfloat16 else "fp32"
-        for key, (T, Bb, D, ragged) in cs.GRU_SHAPES.items():
+        for key, (T, Bb, D, ragged) in (*cs.GRU_SHAPES.items(),
+                                        *GRU_WIDE_SHAPES.items()):
             x, w, lens, h0, dhs = cs._gru_case(dev, T, Bb, D, ragged)
             xs, ws, h0s, dhss = (t.to(dtype) for t in (x, w, h0, dhs))
             hs, gates = fr.gru_fwd(xs, ws, lens, h0s)
             dx, dh0 = fr.gru_bwd_data(gates, hs, ws, lens, h0s, dhss)
             dw = fr.gru_dw(gates, hs, h0s, dx)
-            tag = REDESIGNED if lane == "bf16" else ""
+            tag = (REDESIGNED if lane == "fp32"
+                   and D in _REDESIGNED_GRU_D_FP32 else "")
             for n, t in (("hs", hs), ("gates", gates), ("dx", dx),
                          ("dh0", dh0), ("dw", dw)):
                 out[f"{tag}gru_{lane}_{key}_{n}"] = t
-            if lane == "bf16":
-                p_hs, p_gates = fr.gru_fwd_reference(xs, ws, lens, h0s)
-                p_dx, _p_dh0 = fr.gru_bwd_data_reference(
-                    p_gates, p_hs, ws, lens, h0s, dhss)
-                out[f"gru_{lane}_{key}_dw_on_plain"] = fr.gru_dw(
-                    p_gates, p_hs, h0s, p_dx)
+            p_hs, p_gates = fr.gru_fwd_reference(xs, ws, lens, h0s)
+            p_dx, _p_dh0 = fr.gru_bwd_data_reference(
+                p_gates, p_hs, ws, lens, h0s, dhss)
+            out[f"gru_{lane}_{key}_dw_on_plain"] = fr.gru_dw(
+                p_gates, p_hs, h0s, p_dx)
         for key, (T, Bb, D, E, ragged) in cs.LSTM_SHAPES.items():
             c = cs._lstm_case(dev, T, Bb, D, E, ragged)
             lc = {n: (t.to(dtype) if n != "lens" else t)

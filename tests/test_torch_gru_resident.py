@@ -5,7 +5,9 @@ shared memory).
 On the CPU:
 
 - the route and tile of the generalised plan ``lstm_cluster_plan(...,
-  ng=3)``: fp32 streams; bf16 at D 128 / 384 / 512 is resident with 4 /
+  ng=3)``: fp32 at D 512 takes the grid route (16-CTA clusters;
+  ``tests/test_torch_gru_grid_fp32.py`` holds it); bf16 at D 128 / 384 /
+  512 is resident with 4 /
   12 / 16 CTAs a cluster; D 640, a card that holds no cluster and a
   shared-memory overflow stream; the tile is the one with the fewest
   waves (48 rows at the seq2seq batch of 512);
@@ -72,7 +74,7 @@ def _np(x):
 
 # case -> (dtype, B, D, max_clusters, smem_limit, (route, cluster))
 _ROUTES = {
-    "fp32-d512": (torch.float32, 512, 512, 7, None, ("streaming", 0)),
+    "fp32-d512": (torch.float32, 512, 512, 7, None, ("grid", 16)),
     "bf16-d128": (BF, 512, 128, None, None, ("resident", 4)),
     "bf16-d384": (BF, 512, 384, None, None, ("resident", 12)),
     "bf16-d512": (BF, 512, 512, 7, None, ("resident", 16)),
@@ -301,8 +303,9 @@ def test_a_rows_bits_do_not_depend_on_the_batch_on_card(cuda_device):
 
 # (dtype, T, B, D) -> route: the plan's, counted under its own name
 _COUNTED = {"bf16-d512": (BF, 5, 64, 512, "cluster"),
-            "fp32-d512": (torch.float32, 5, 64, 512, "stream"),
+            "fp32-d512": (torch.float32, 5, 64, 512, "grid"),
             "bf16-d640": (BF, 3, 8, 640, "stream")}
+_PLANNED = {"cluster": "resident", "grid": "grid", "stream": "streaming"}
 
 
 @pytest.mark.cuda
@@ -312,7 +315,7 @@ def test_route_counts_follow_the_plan_on_card(cuda_device, case):
     x, w, lens, h0, dhs = (t.to(dtype) if t.shape[-1] != 1 else t
                            for t in _card(cuda_device, T_, B_, D_, False))
     plan = tfr._cluster_plan(dtype, B_, D_, cuda_device, ng=3)
-    assert plan.route == ("resident" if route == "cluster" else "streaming")
+    assert plan.route == _PLANNED[route]
     torch.cuda.synchronize()
     before = dict(tk.LAUNCHES)
     hs, gates = tfr.gru_fwd(x, w, lens, h0)

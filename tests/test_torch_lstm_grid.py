@@ -109,8 +109,8 @@ def test_grid_smem_by_hand():
 
 
 # the plans the grid route leaves as they were, and fp32 D 512, which its
-# fp32 lane takes (4 clusters of 16 CTAs of 8 units): (dtype, B, D,
-# clusters, ng) -> plan
+# fp32 lane takes (4 clusters of 16 CTAs of 8 units; the GRU's too, at its
+# own kernels' shared memory): (dtype, B, D, clusters, ng) -> plan
 _UNCHANGED = {
     "bf16-b128-d512": ((BF, 128, 512, 7, 4),
                        ("resident", 32, 16, 4, 7, 218112)),
@@ -124,7 +124,8 @@ _UNCHANGED = {
                   ("grid", 128, 16, 1, 7, 170496, 8, 4)),
     "gru-bf16-b512-d512": ((BF, 512, 512, 7, 3),
                            ("resident", 48, 16, 11, 7, 221184)),
-    "gru-fp32-d512": ((F32, 512, 512, 7, 3), ("streaming", 0, 0, 0, 0, 0)),
+    "gru-fp32-d512": ((F32, 512, 512, 7, 3),
+                      ("grid", 128, 16, 4, 7, 155136, 8, 4)),
 }
 
 

@@ -10,7 +10,8 @@ On the CPU:
   + 4] and the backward's W rows [D / 16, 516], fp32, plus three staged
   chunks [128, 68] fp32), and the fp32 shapes it refuses (D 1024 and
   1280, D 384 and 640, a card that holds fewer clusters than the group,
-  the GRU);
+  for the GRU's kernels too: ``tests/test_torch_gru_grid_fp32.py`` holds
+  the GRU's grid plans);
 - ``_cluster_plan``'s cache of the card's counts, keyed by route and
   lane: a bf16 D-512 plan (the resident kernels' count) and an fp32
   D-512 plan (the fp32 grid kernels' count, lane 0) each ask the card;
@@ -100,8 +101,8 @@ _REFUSED = {
     "d512-3-clusters": (128, 512, 3, 4),
     "d768-5-clusters": (128, 768, 5, 4),
     "d256-no-cluster": (8, 256, 0, 4),
-    "gru-d512": (512, 512, None, 3),
-    "gru-d256": (128, 256, None, 3),
+    "gru-d512": (512, 512, 3, 3),
+    "gru-d256": (128, 256, 1, 3),
 }
 
 
