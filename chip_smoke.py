@@ -223,9 +223,33 @@ The text-classification slice adds, in the same run:
    busy and idle share) and ``profile_lstm_composed`` (the same for the
    composed route: B10/B11's recurrences and B11's dW by name).
 
+The framework core adds, in the same run:
+
+6a. ``exec_mlp``: the MNIST MLP (``models.mnist.mlp`` at bench.py's
+   784-128-64-10, batch 64, ``Adam(0.01).minimize``) through the layers
+   DSL and ``Executor(CUDAPlace(0))`` on seeded host batches with a class
+   signal: the startup program, 3 + 20 timed steps (ms a step p50 from
+   CUDA events, the host's enqueue ms a step and µs per registry op, and
+   the forward's alone; every loss finite, the last below the first),
+   then 5 steps equal to
+   the same 5 on ``CPUPlace`` from a copy of the state (losses and every
+   persistable within 1e-5, Adam's eps-regime elements within 1e-4), a
+   step under sync-debug "error", ``run_multi(K=8)`` bit-equal to 8
+   ``run``s, and three steps under ``torch.profiler`` (device busy ms,
+   idle share);
+6b. ``exec_text``: the classifier's op list as a Program
+   (``text.build_program(TextConfig())``, bench_lstm's widths, Adam
+   0.002) through ``Executor(CUDAPlace(0), amp=True)``: 3 + 20 steps at
+   uniform lengths and 1 + 3 on ragged LoD, the launch counts zeroed just
+   before each run and read just after (B14/B15, then B10/B11, on the
+   resident route's names, exactly twice a step), every step's loss
+   equal to ``make_train_step``'s from the same parameters (rtol 1e-4),
+   ms a batch beside ``train_lstm``'s, and three uniform steps under
+   ``torch.profiler`` beside ``profile_lstm``'s.
+
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
-lane of every kernel), the ``serve``, ``train``, seq2seq and LSTM lines
-and, last,
+lane of every kernel), the ``serve``, ``train``, seq2seq, LSTM,
+``exec_mlp`` and ``exec_text`` lines and, last,
 ``{"ok": true, "device": {...}}``. Float32 matmuls run in full float32
 (TF32 off). With no CUDA card it exits non-zero at once.
 """
@@ -3476,6 +3500,295 @@ def profile_text(tx, dev, fused_proj=True, widths=TEXT_CFG):
                           "dw_wgmma", "sum_partials")))}
 
 
+# 6a: bench.py:1157-1168's MNIST MLP (784-128-64-10, batch 64,
+# Adam(0.01)) through the port's layers DSL and Executor
+MLP_B, MLP_DIM, MLP_LR = 64, 784, 0.01
+MLP_TOL = 1e-5                  # fp32, card vs CPU: sum order only
+# Adam's first update of an element is lr * g / (|g| + 3.2e-7): where
+# that first nonzero gradient is a near-cancelled sum (|g| < 1e-6), the
+# ~1e-9 by which two fp32 sum orders round it moves the update by up to
+# lr * 1e-9 / 3.2e-7 = 3e-5; such elements are held to 1e-4
+ADAM_EPS_REGIME, ADAM_EPS_REGIME_TOL = 1e-6, 1e-4
+TEXT_EXEC_RTOL = 1e-4           # Executor vs make_train_step, per-step loss
+
+
+def _mlp_program(minimize=True):
+    """``models.mnist.mlp`` with ``Adam(MLP_LR).minimize`` (or, without
+    ``minimize``, its forward alone, the same names) in fresh programs:
+    (main, startup, loss, the @GRAD names, the op count a step: the
+    registry ops of the main block)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import program as prog
+    from paddle_tpu_torch.models import mnist
+    prog._name_counters.clear()
+    main, start = pt.Program(), pt.Program()
+    with pt.program_guard(main, start):
+        img = pt.layers.data("img", [MLP_DIM])
+        label = pt.layers.data("label", [1], dtype="int64")
+        _, loss, _ = mnist.mlp(img, label)
+        if minimize:
+            pt.optimizer.Adam(MLP_LR).minimize(loss)
+    grads = [p.name + "@GRAD" for p in main.global_block().all_parameters()]
+    n_ops = sum(op.type != "backward" for op in main.global_block().ops)
+    return main, start, loss, grads, n_ops
+
+
+def _mlp_feeds(n, seed=0):
+    """``n`` host batches with a class signal, numpy arrays as a user
+    feeds them: the layout of the JAX package's ``datasets/mnist.py``
+    synthetic surrogate (a class prototype plus noise, clipped to [-1,
+    1]) with a weaker signal (prototypes randn x 0.1 under noise randn x
+    1.0, where the surrogate's 0.8 / 0.5 drives the loss to 0 within
+    three Adam steps): 23 steps take the loss from 2.6 to about 1.6."""
+    protos = np.random.RandomState(0xC0FFEE).randn(10, MLP_DIM) * 0.1
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        label = rng.randint(0, 10, (MLP_B, 1)).astype(np.int64)
+        img = protos[label[:, 0]] + rng.randn(MLP_B, MLP_DIM)
+        out.append({"img": np.clip(img, -1, 1).astype(np.float32),
+                    "label": label})
+    return out
+
+
+def _scope_copy(scope, names, device):
+    """A new Scope holding copies of ``names`` on ``device``."""
+    from paddle_tpu_torch.core.scope import Scope
+    out = Scope()
+    for n in names:
+        out.set_tensor(n, scope.find_var(n).array.detach().to(device,
+                                                              copy=True))
+    return out
+
+
+def exec_mlp(dev, warmup=3, steps=20, k=8):
+    """Phase 6a (``exec_mlp``): the MNIST MLP at bench.py's widths on
+    ``CUDAPlace(0)``: the startup program (seed 0), then ``warmup`` +
+    ``steps`` timed steps (CUDA events between steps, no host reads; the
+    host's enqueue time per step and per op, and the same for the
+    forward alone), every loss finite and the last below the first;
+    then, from the state they leave, 5 steps held
+    against the same 5 on ``CPUPlace`` from a copy of it (losses and
+    every persistable within MLP_TOL, Adam's eps-regime elements within
+    ADAM_EPS_REGIME_TOL); one step under sync-debug "error" (no host
+    sync); ``run_multi(K=k)`` against k ``run``s from one state (losses
+    and every persistable bit-equal); three steps under
+    ``torch.profiler``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import Scope
+    main, start, loss, grads, n_ops = _mlp_program()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = Scope()
+    start.random_seed = 0
+    exe.run(start, scope=scope)
+    names = sorted(scope.local_var_names())
+    feeds = _mlp_feeds(warmup + steps + 6 + k)
+    # the timed window, from the startup state
+    losses = []
+    for f in feeds[:warmup]:
+        losses.append(exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                              return_numpy=False)[0].array)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    t0 = time.perf_counter()
+    for i, f in enumerate(feeds[warmup:warmup + steps]):
+        events[i].record()
+        losses.append(exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                              return_numpy=False)[0].array)
+    events[steps].record()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    loss_list = torch.stack(losses).cpu().tolist()
+    _check(all(np.isfinite(loss_list)), f"exec_mlp: losses {loss_list}")
+    _check(loss_list[-1] < loss_list[0],
+           f"exec_mlp: last loss {loss_list[-1]} not below the first "
+           f"{loss_list[0]}")
+    # the forward alone (its program, the same scope): the host's share
+    # of the backward segment and the updates is the difference
+    fwd, _, fwd_loss, _, fwd_ops = _mlp_program(minimize=False)
+    for f in feeds[:warmup]:
+        exe.run(fwd, feed=f, fetch_list=[fwd_loss], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for f in feeds[warmup:warmup + steps]:
+        exe.run(fwd, feed=f, fetch_list=[fwd_loss], scope=scope,
+                return_numpy=False)
+    fwd_host_ms = (time.perf_counter() - t1) * 1e3 / steps
+    torch.cuda.synchronize()
+    feeds = feeds[warmup + steps:]
+    # card == CPU over 5 steps from the same state
+    cpu_scope = _scope_copy(scope, names, "cpu")
+    cpu_exe = pt.Executor(pt.CPUPlace())
+    opening, loss_errs = {}, []
+    for f in feeds[:5]:
+        got = exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+        want = cpu_exe.run(main, feed=f, fetch_list=[loss] + grads,
+                           scope=cpu_scope)
+        for g, v in zip(grads, want[1:]):
+            seen = opening.get(g)
+            opening[g] = v if seen is None else np.where(seen != 0, seen, v)
+        loss_errs.append(abs(float(got[0]) - float(want[0])))
+        _check(loss_errs[-1] <= MLP_TOL * (1 + abs(float(want[0]))),
+               f"exec_mlp: card loss {float(got[0])} vs CPU {float(want[0])}")
+    worst, regime = 0.0, 0
+    for n in names:
+        a = scope.find_var(n).array.cpu().numpy()
+        b = cpu_scope.find_var(n).array.numpy()
+        g = np.abs(opening.get(n + "@GRAD", np.zeros(1)))
+        tiny = np.broadcast_to((g > 0) & (g < ADAM_EPS_REGIME), a.shape)
+        regime += int(tiny.sum())
+        err = np.abs(a - b)
+        _check(bool((err[tiny] <= ADAM_EPS_REGIME_TOL).all()),
+               f"exec_mlp: {n} eps-regime elements off the CPU by "
+               f"{err[tiny].max(initial=0.0)}")
+        bad = (err > MLP_TOL * (1 + np.abs(b))) & ~tiny
+        worst = max(worst, float(err[~tiny].max(initial=0.0)))
+        _check(not bad.any(), f"exec_mlp: {n} off the CPU by {worst} at "
+               f"{int(bad.sum())} elements")
+    # one step with no host sync
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exe.run(main, feed=feeds[5], fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # run_multi(K) == K runs, from one state
+    a, b = _scope_copy(scope, names, dev), _scope_copy(scope, names, dev)
+    ea, eb = pt.Executor(pt.CUDAPlace(0)), pt.Executor(pt.CUDAPlace(0))
+    one = [ea.run(main, feed=f, fetch_list=[loss], scope=a,
+                  return_numpy=False)[0].array for f in feeds[6:]]
+    multi = eb.run_multi(main, feeds[6:], fetch_list=[loss], scope=b,
+                         return_numpy=False)[0]
+    torch.cuda.synchronize()
+    _check(torch.equal(multi, torch.stack(one)),
+           f"exec_mlp: run_multi losses {multi.tolist()} vs runs "
+           f"{torch.stack(one).tolist()}")
+    for n in names:
+        _check(torch.equal(a.find_var(n).array, b.find_var(n).array),
+               f"exec_mlp: run_multi {n} differs from {k} runs")
+    _check(ea._step_ctr == eb._step_ctr == k,
+           f"exec_mlp: step counters {ea._step_ctr} / {eb._step_ctr}")
+    prof = _profile([lambda f=f: exe.run(main, feed=f, fetch_list=[loss],
+                                         scope=scope)
+                     for f in feeds[:5]])
+    host_ms = host_s * 1e3 / steps
+    return {"exec_mlp": {
+        "widths": [MLP_DIM, 128, 64, 10], "batch": MLP_B,
+        "optimizer": f"adam {MLP_LR}", "place": "CUDAPlace(0)",
+        "warmup_steps": warmup, "timed_steps": steps,
+        "ms_per_step_p50": float(np.median(step_ms)),
+        "ms_per_step_min": float(np.min(step_ms)),
+        "wall_ms_per_step": wall * 1e3 / steps,
+        "host_enqueue_ms_per_step": host_ms, "ops_per_step": n_ops,
+        "host_us_per_op": host_ms * 1e3 / n_ops,
+        "forward_only_host_enqueue_ms_per_step": fwd_host_ms,
+        "forward_ops_per_step": fwd_ops,
+        "forward_host_us_per_op": fwd_host_ms * 1e3 / fwd_ops,
+        "loss_first": loss_list[0], "loss_last": loss_list[-1],
+        "losses_finite": len(loss_list),
+        "card_vs_cpu_steps": 5, "card_vs_cpu_loss_max_abs_err":
+        max(loss_errs), "card_vs_cpu_persistable_max_abs_err": worst,
+        "adam_eps_regime_elements": regime, "tol": MLP_TOL,
+        "sync_debug": "error", "run_multi_k": k,
+        "run_multi_equal_runs": True, "profile": prof}}
+
+
+def exec_text(tx, kernels, dev, train_lstm_ms, warmup=3, steps=20,
+              ragged_warmup=1, ragged_steps=3):
+    """Phase 6b (``exec_text``): ``text.build_program(TextConfig())`` (the
+    classifier at bench.py's widths, Adam 0.002) through
+    ``Executor(CUDAPlace(0), amp=True)``: the startup program (seed 0),
+    then ``warmup`` + ``steps`` steps at uniform lengths, timed as 5f
+    times the hand-written list (ms a batch p50 beside ``train_lstm``'s),
+    and ``ragged_warmup`` + ``ragged_steps`` on ragged LoD from the same
+    start. The launch counts are zeroed just before each run and read
+    just after: B14/B15 (uniform) and B10/B11 (ragged) on their routes,
+    twice a step each. Every step's loss equals ``make_train_step(cfg,
+    "adam", TEXT_LR)``'s from the same parameters and feeds within
+    TEXT_EXEC_RTOL (the same ops on the same kernels; the updates'
+    arithmetic in another order). Then five uniform steps, the last
+    three under ``torch.profiler``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import Scope
+    cfg = tx.TextConfig(**TEXT_CFG)
+    main, start = tx.build_program(cfg)   # Adam(TEXT_LR)
+    names = [n for n, _, _ in tx.param_specs(cfg)]
+    rec = {"batch": [TEXT_B, TEXT_T], "widths": TEXT_CFG, "amp": True,
+           "optimizer": f"adam {TEXT_LR}", "place": "CUDAPlace(0)",
+           "train_lstm_ms_per_batch_p50": train_lstm_ms}
+    for key, ragged, n_warm, n_timed in (("uniform", False, warmup, steps),
+                                         ("ragged", True, ragged_warmup,
+                                          ragged_steps)):
+        exe = pt.Executor(pt.CUDAPlace(0), amp=True)
+        scope = Scope()
+        start.random_seed = 0
+        exe.run(start, scope=scope)
+        params = {n: scope.find_var(n).array.clone() for n in names}
+        feeds = _text_feeds(dev, ragged=ragged)
+        n = n_warm + n_timed
+        torch.cuda.synchronize()
+        kernels.reset_launches()                   # the main path: go
+        losses = []
+        for i in range(n_warm):
+            losses.append(exe.run(main, feed=feeds[i % 4],
+                                  fetch_list=["loss"], scope=scope,
+                                  return_numpy=False)[0].array)
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(n_timed + 1)]
+        for i in range(n_timed):
+            events[i].record()
+            losses.append(exe.run(main, feed=feeds[(n_warm + i) % 4],
+                                  fetch_list=["loss"], scope=scope,
+                                  return_numpy=False)[0].array)
+        events[n_timed].record()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)          # read just after
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        want.update(dict.fromkeys(_lstm_route_names(dev, True, True,
+                                                     ragged), 2 * n))
+        _check(launches == want, f"exec_text {key}: launches {launches} "
+               f"over {n} steps, want {want}")
+        step_ms = [events[i].elapsed_time(events[i + 1])
+                   for i in range(n_timed)]
+        # the hand-written list's step from the same parameters
+        opt, step = tx.make_train_step(cfg, "adam", TEXT_LR)
+        state = opt.init(params)
+        ref = []
+        for i in range(n):
+            params, state, loss, _acc = step(params, state, feeds[i % 4])
+            ref.append(loss)
+        kernels.reset_launches()
+        got = torch.stack(losses).cpu().tolist()
+        ref = torch.stack(ref).cpu().tolist()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+        _check(all(np.isfinite(got)) and rel <= TEXT_EXEC_RTOL,
+               f"exec_text {key}: losses {got} vs make_train_step {ref}")
+        if not ragged:   # where the uniform step's time goes
+            rec["profile"] = _profile(
+                [lambda i=i: exe.run(main, feed=feeds[i % 4],
+                                     fetch_list=["loss"], scope=scope)
+                 for i in range(5)],
+                named=("lstm_xg_kernel", "lstm_cluster_fwd_kernel",
+                       "lstm_cluster_bwd_kernel", "lstm_dxe_kernel",
+                       "dw_wgmma"))
+        rec[key] = {"steps": n, "launches": {k: v for k, v in
+                                             launches.items() if v},
+                    "loss_first": got[0], "loss_last": got[-1],
+                    "loss_max_rel_err_vs_make_train_step": rel,
+                    "rtol": TEXT_EXEC_RTOL,
+                    "ms_per_batch_p50": float(np.median(step_ms)),
+                    "ms_per_batch_min": float(np.min(step_ms))}
+        del exe, scope, params, state
+    rec["ms_per_batch_vs_train_lstm"] = (rec["uniform"]["ms_per_batch_p50"]
+                                         / train_lstm_ms)
+    return {"exec_text": rec}
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke of the port.")
@@ -3868,12 +4181,12 @@ def main(argv=None):
     torch.cuda.empty_cache()
     pcrec = profile_text(tx, dev, fused_proj=False)
     torch.cuda.empty_cache()
-    pwrec = profile_text(tx, dev, widths=TEXT_1280_CFG)
+    plwrec = profile_text(tx, dev, widths=TEXT_1280_CFG)
     wide = text_runs["train_lstm_1280"][0]["train_lstm_1280"]
     wide.update({"device_busy_ms_per_step_profiled":
-                 pwrec["profile_lstm_wide"]["device_busy_ms_per_step"],
+                 plwrec["profile_lstm_wide"]["device_busy_ms_per_step"],
                  "device_idle_share_profiled":
-                 pwrec["profile_lstm_wide"]["device_idle_share"]})
+                 plwrec["profile_lstm_wide"]["device_idle_share"]})
     fused = text_runs["train_lstm"][0]["train_lstm"]
     composed = text_runs["train_lstm_composed"][0]["train_lstm_composed"]
     fused["ms_per_batch_vs_composed"] = (fused["ms_per_batch_p50"]
@@ -3885,6 +4198,18 @@ def main(argv=None):
                     "device_idle_share_profiled": prof["device_idle_share"]})
     _say(f"lstm phases done at {time.perf_counter() - t0:.1f} s")
 
+    # 6: the framework core: the MNIST MLP through the layers DSL and the
+    # Executor, then the classifier's op list as a Program through it
+    torch.cuda.empty_cache()
+    mlp_rec = exec_mlp(dev)
+    torch.cuda.empty_cache()
+    xtext_rec = exec_text(tx, kernels, dev, fused["ms_per_batch_p50"])
+    xtext_rec["exec_text"]["profile_lstm"] = {
+        k: plrec["profile_lstm"][k] for k in (
+            "wall_ms_per_step", "device_busy_ms_per_step",
+            "device_idle_share", "device_kernels_per_step")}
+    _say(f"executor phases done at {time.perf_counter() - t0:.1f} s")
+
     _say(json.dumps(prec))
     _say(json.dumps(pqrec))
     _say(json.dumps(pwrec))
@@ -3892,7 +4217,7 @@ def main(argv=None):
     _say(json.dumps(psrec))
     _say(json.dumps(plrec))
     _say(json.dumps(pcrec))
-    _say(json.dumps(pwrec))
+    _say(json.dumps(plwrec))
     _say(json.dumps({"kernels": [
         krec, lanes["bfloat16"], lanes["int8"], lanes["fp8-e4m3"],
         *(dlanes[d] for d in ("float32", "bfloat16", "int8", "fp8-e4m3")),
@@ -3924,6 +4249,8 @@ def main(argv=None):
     _say(json.dumps(beam_rec))
     for key in text_runs:
         _say(json.dumps(text_runs[key][0]))
+    _say(json.dumps(mlp_rec))
+    _say(json.dumps(xtext_rec))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,6 +12,12 @@ not import, so it is recognised by name and moved as its bytes.
 The transformer's nested tree (``{"embed", "pos_embed",
 "out_ln_scale", "layers": [dict, ...]}``) goes through the same copy:
 dicts and lists are walked, every leaf converted as above.
+
+``scope_from_jax`` carries a JAX ``Scope``'s persistables (a Program's
+parameters, learning rate and optimizer accumulators, keyed by variable
+name) into the port's ``Scope``: a JAX PRNG stream is not a torch one,
+so parity runs the JAX startup program and carries its values over
+rather than comparing random initializers value for value.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 
 from paddle_tpu_torch.device import resolve_device
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "scope_from_jax"]
 
 
 def _leaf(name, value, dev) -> torch.Tensor:
@@ -53,3 +59,16 @@ def params_from_jax(params: Mapping[str, Any], device=None):
     default; ``"cpu"`` when asked for). Float, int8 and float8_e4m3fn
     arrays are carried with their dtypes; any other dtype raises."""
     return _walk("", params, resolve_device(device))
+
+
+def scope_from_jax(arrays: Mapping[str, Any], scope=None, device=None):
+    """Write a JAX Scope's persistables (as numpy, keyed by variable
+    name: ``{n: np.asarray(jax_scope.find_var(n).array)}``) into the
+    port's ``scope`` (the global one by default) on ``device`` (the card
+    by default; ``"cpu"`` when asked for), with ``params_from_jax``'s
+    dtypes; returns the scope."""
+    from paddle_tpu_torch.core.scope import global_scope
+    scope = global_scope() if scope is None else scope
+    for name, value in params_from_jax(dict(arrays), device).items():
+        scope.set_tensor(name, value)
+    return scope

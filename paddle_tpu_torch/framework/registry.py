@@ -20,7 +20,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-__all__ = ["OpContext", "OpInfo", "register_op", "get_op_info", "run_op"]
+__all__ = ["OpContext", "OpInfo", "register_op", "get_op_info", "has_op",
+           "run_op"]
 
 
 @dataclasses.dataclass
@@ -30,13 +31,16 @@ class OpContext:
     ``in_lods`` maps input slot name -> list of LoD (host metadata).
     Compute fns may fill ``out_lods`` for ragged outputs; by default the
     caller propagates the first input's LoD. ``rng`` is a
-    ``torch.Generator`` for sampling ops (the JAX PRNG key's role)."""
+    ``torch.Generator`` for sampling ops (the JAX PRNG key's role);
+    ``device`` is where an op with no tensor input (``fill_constant``)
+    makes its output."""
 
     attrs: Dict[str, Any]
     in_lods: Dict[str, List[Any]] = dataclasses.field(default_factory=dict)
     out_lods: Dict[str, List[Any]] = dataclasses.field(default_factory=dict)
     rng: Optional[torch.Generator] = None
     is_test: bool = False
+    device: Optional[torch.device] = None
 
     def lod(self, slot: str, idx: int = 0):
         lods = self.in_lods.get(slot)
@@ -91,12 +95,20 @@ def register_op(type: str, inputs: Sequence[str], outputs: Sequence[str],
 
 def get_op_info(type: str) -> OpInfo:
     if type not in _REGISTRY:
-        # the op modules register on import
-        import paddle_tpu_torch.ops  # noqa: F401
+        _ensure_ops()    # the op modules register on import
     if type not in _REGISTRY:
         raise KeyError(f"unknown op type {type!r}; registered: "
                        f"{sorted(_REGISTRY)}")
     return _REGISTRY[type]
+
+
+def _ensure_ops():
+    import paddle_tpu_torch.ops  # noqa: F401
+
+
+def has_op(type: str) -> bool:
+    _ensure_ops()
+    return type in _REGISTRY
 
 
 def _amp_cast(vals, src, dst):
@@ -105,13 +117,15 @@ def _amp_cast(vals, src, dst):
 
 
 def run_op(type: str, ins: Dict[str, List[Any]], attrs=None, in_lods=None,
-           amp: bool = False, rng=None, is_test: bool = False):
+           amp: bool = False, rng=None, is_test: bool = False,
+           device=None):
     """Run one op as the JAX ``Executor`` runs it in its op loop
     (``framework/executor.py``, the body of ``_run_block``): the
     registered defaults under ``attrs``; under ``amp`` an
     ``amp_compute`` op gets its float32 inputs cast to bfloat16 and its
     bfloat16 outputs cast back to float32; each output slot gets the LoD
     the op set, else (``propagate_lod``) the first input slot's.
+    ``device``: where an op with no tensor input makes its output.
 
     ``ins``: slot -> list of tensors; ``in_lods``: slot -> list of LoD
     (or None). Returns ``(outs, out_lods)``: slot -> list of tensors and
@@ -124,7 +138,8 @@ def run_op(type: str, ins: Dict[str, List[Any]], attrs=None, in_lods=None,
     in_lods = in_lods or {}
     ctx = OpContext(attrs=full, in_lods=in_lods,
                     rng=rng if info.needs_rng else None,
-                    is_test=bool(full.get("is_test", is_test)))
+                    is_test=bool(full.get("is_test", is_test)),
+                    device=device)
     if amp and info.amp_compute:
         ins = {slot: _amp_cast(vals, torch.float32, torch.bfloat16)
                for slot, vals in ins.items()}

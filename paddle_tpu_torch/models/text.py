@@ -4,14 +4,17 @@ embedding -> N stacked LSTMs -> last-step pool -> fc -> softmax
 cross-entropy) on one card, with its training step.
 
 The JAX model is a Program built by the layers DSL and run by the
-Executor; the port has neither yet (ROADMAP A1-A3), so ``program(cfg)``
-writes down the ops those layers emit, in their order, with their slot
-names, variable names and attributes, and ``forward`` runs them one at a
-time through ``framework.registry.run_op``, as the Executor's op loop
-does: LoD travels with each variable, and under AMP (``Executor(amp=
-True)``) every ``amp_compute`` op (``mul``, ``dynamic_lstm``,
-``fused_lstm``) gets bf16 inputs over the fp32 masters and casts its
-outputs back to fp32.
+Executor; the port's layers DSL has no LSTM layers yet (ROADMAP A4.3),
+so ``program(cfg)`` writes down the ops those layers emit, in their
+order, with their slot names, variable names and attributes, and
+``forward`` runs them one at a time through
+``framework.registry.run_op``, as the Executor's op loop does: LoD
+travels with each variable, and under AMP (``Executor(amp=True)``)
+every ``amp_compute`` op (``mul``, ``dynamic_lstm``, ``fused_lstm``)
+gets bf16 inputs over the fp32 masters and casts its outputs back to
+fp32. ``build_program(cfg)`` turns the same op list into a port
+``Program`` (startup program, feeds, Adam through
+``optimizer.minimize``) for ``framework.executor.Executor``.
 
 With ``fused_proj`` each layer is one ``fused_lstm`` op, which on
 uniform lengths runs the input projection inside the recurrence
@@ -37,9 +40,9 @@ from paddle_tpu_torch.core.lod import LoDTensor
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.framework.registry import run_op
 
-__all__ = ["TextConfig", "param_specs", "program", "init_params",
-           "forward", "loss_fn", "SGD", "Adam", "make_train_step",
-           "train_flops"]
+__all__ = ["TextConfig", "param_specs", "program", "build_program",
+           "init_params", "forward", "loss_fn", "SGD", "Adam",
+           "make_train_step", "train_flops"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +144,49 @@ def program(cfg: TextConfig, seq_lens: bool = False):
              {"Accuracy": ["accuracy"], "Correct": ["correct"],
               "Total": ["total"]}, {})]
     return ops
+
+
+# the op list's integer outputs (everything else is float32)
+_INT_OUTPUTS = ("top_idx", "correct", "total", "last_index")
+
+
+def build_program(cfg: TextConfig, seq_lens: bool = False):
+    """``program(cfg, seq_lens)`` as a port ``Program`` pair ``(main,
+    startup)``, trained by bench.py's ``Adam(0.002)`` through
+    ``optimizer.minimize``: the parameters of ``param_specs`` by
+    name, initialized by the startup program (Xavier-uniform, zero
+    biases), the feed variables ``words`` (int64, LoD level 1),
+    ``label`` (int64) and, with ``seq_lens``, ``seq_lens`` (int32), and
+    every op of the list with its slots and attributes. Run it with
+    ``Executor(place, amp=cfg.amp)``, fetching ``loss``, ``prediction``
+    or ``accuracy``."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework.program import Program, program_guard
+    from paddle_tpu_torch.initializer import (ConstantInitializer,
+                                              XavierInitializer)
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        gb = main.global_block()
+        gb.create_var(name="words", shape=[-1, 1], dtype="int64",
+                      lod_level=1, is_data=True, stop_gradient=True)
+        gb.create_var(name="label", shape=[-1, 1], dtype="int64",
+                      is_data=True, stop_gradient=True)
+        if seq_lens:
+            gb.create_var(name="seq_lens", shape=[-1], dtype="int32",
+                          is_data=True, stop_gradient=True)
+        for name, shape, init in param_specs(cfg):
+            p = gb.create_parameter(shape=shape, dtype="float32", name=name)
+            (ConstantInitializer(0.0) if init == "zeros"
+             else XavierInitializer())(p)
+        for op_type, ins, outs, attrs in program(cfg, seq_lens):
+            for names in outs.values():
+                for n in names:
+                    if n not in gb.vars:
+                        gb.create_var(name=n, dtype="int32"
+                                      if n in _INT_OUTPUTS else "float32")
+            gb.append_op(op_type, ins, outs, attrs)
+        optimizer.Adam(0.002).minimize(gb.var("loss"))
+    return main, startup
 
 
 def init_params(cfg: TextConfig, seed: int = 0,

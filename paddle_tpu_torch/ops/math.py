@@ -1,17 +1,31 @@
-"""Dense math operators the text classifier emits: the port of the JAX
-package's ``ops/math.py`` ``mul`` (``amp_compute``), ``elementwise_add``
-(fc's bias), ``mean``, ``lookup_table`` (the embedding) and ``top_k``
-(the accuracy metric's first half); the reference's mul_op.cc,
-elementwise_add_op.cc, mean_op.cc, lookup_table_op.cc and top_k_op.cc.
+"""Dense math operators the text classifier and the MNIST MLP emit: the
+port of the JAX package's ``ops/math.py`` ``mul`` (``amp_compute``),
+``elementwise_add`` (fc's bias), ``sum`` (fc over several inputs),
+``mean``, ``lookup_table`` (the embedding) and ``top_k`` (the accuracy
+metric's first half), and the startup program's initializer ops
+``fill_constant``, ``uniform_random`` and ``gaussian_random``; the
+reference's mul_op.cc, elementwise_add_op.cc, sum_op.cc, mean_op.cc,
+lookup_table_op.cc, top_k_op.cc, fill_constant_op.cc,
+uniform_random_op.cc and gaussian_random_op.cc.
+
+The random ops draw from the ``torch.Generator`` the Executor hands
+them (seeded from its seed, the step and the op's index), or from one
+seeded with the op's own nonzero ``seed`` attribute, on the Executor's
+device. A JAX PRNG stream is not a torch one: the same seed gives other
+numbers than the JAX package, from the same distribution.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.dtype import convert_dtype
 from paddle_tpu_torch.framework.registry import register_op
 
-__all__ = ["mul", "elementwise_add", "mean", "lookup_table", "top_k"]
+__all__ = ["mul", "elementwise_add", "sum_op", "mean", "lookup_table",
+           "top_k", "fill_constant", "uniform_random", "gaussian_random"]
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -61,6 +75,12 @@ def elementwise_add(ins, attrs, ctx):
     return {"Out": x + _broadcast_y(x, y, attrs["axis"])}
 
 
+@register_op("sum", inputs=["X"], outputs=["Out"])
+def sum_op(ins, attrs, ctx):
+    """add_n over duplicable X (ref operators/sum_op.cc)."""
+    return {"Out": functools.reduce(torch.add, ins["X"])}
+
+
 @register_op("mean", inputs=["X"], outputs=["Out"])
 def mean(ins, attrs, ctx):
     return {"Out": torch.mean(ins["X"][0])}
@@ -86,3 +106,41 @@ def lookup_table(ins, attrs, ctx):
 def top_k(ins, attrs, ctx):
     vals, idx = torch.topk(ins["X"][0], attrs["k"], dim=-1)
     return {"Out": vals, "Indices": idx.to(torch.int32)}
+
+
+@register_op("fill_constant", inputs=[], outputs=["Out"],
+             attrs={"shape": None, "dtype": "float32", "value": 0.0})
+def fill_constant(ins, attrs, ctx):
+    return {"Out": torch.full(tuple(attrs["shape"]), attrs["value"],
+                              dtype=convert_dtype(attrs["dtype"]),
+                              device=ctx.device)}
+
+
+def _generator(ctx, seed):
+    """The Executor's generator, or (a nonzero ``seed`` attribute) one of
+    the op's own on the same device."""
+    if seed == 0:
+        return ctx.rng
+    gen = torch.Generator(device=ctx.rng.device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+@register_op("uniform_random", inputs=[], outputs=["Out"], needs_rng=True,
+             attrs={"shape": None, "min": -1.0, "max": 1.0, "dtype": "float32",
+                    "seed": 0})
+def uniform_random(ins, attrs, ctx):
+    gen = _generator(ctx, attrs["seed"])
+    u = torch.rand(tuple(attrs["shape"]), generator=gen, device=gen.device,
+                   dtype=convert_dtype(attrs["dtype"]))
+    return {"Out": attrs["min"] + (attrs["max"] - attrs["min"]) * u}
+
+
+@register_op("gaussian_random", inputs=[], outputs=["Out"], needs_rng=True,
+             attrs={"shape": None, "mean": 0.0, "std": 1.0, "dtype": "float32",
+                    "seed": 0})
+def gaussian_random(ins, attrs, ctx):
+    gen = _generator(ctx, attrs["seed"])
+    z = torch.randn(tuple(attrs["shape"]), generator=gen, device=gen.device,
+                    dtype=convert_dtype(attrs["dtype"]))
+    return {"Out": attrs["mean"] + attrs["std"] * z}
