@@ -247,12 +247,45 @@ The framework core adds, in the same run:
    ms a batch beside ``train_lstm``'s, and three uniform steps under
    ``torch.profiler`` beside ``profile_lstm``'s.
 
+The training entry point adds:
+
+6c. ``trainer_lstm``: ``text.lstm_benchmark_net(fused_proj=True)`` built
+   by the layers DSL at bench_lstm's widths (vocab 5147, emb 128, hidden
+   512, 2 layers, batch 128 x 100, ``Adam(0.002)``), its op list and
+   ``fingerprint`` equal to ``text.build_program(TextConfig())``'s,
+   trained by ``Trainer(..., metrics=[acc], executor=
+   Executor(CUDAPlace(0), amp=True))`` over ``reader.batch`` of a seeded
+   sample generator: 3 + 20 batches at K = 1 (every cost bit-equal to
+   ``Executor.run`` over ``build_program`` from the same startup state
+   on the same feeds), the same with ``double_buffer=True`` and with
+   ``steps_per_call=8`` (3 groups); one pass over ``datasets.imdb``'s
+   ragged surrogate (batch 128, lengths 20-100) and one bucketed pass
+   (``bucket_by_sequence_length`` over boundaries 25 / 50 / 75 / 100 and
+   runtime ``seq_lens``, bench_lstm_bucketed's plane). The launch counts
+   are zeroed before each run and read after: B14/B15 on uniform
+   batches, B10/B11 on ragged ones, exactly twice a step. One step of
+   the DSL program on the kernels against the plain versions (the 4f
+   AMP gate); ``reader.device_buffered`` alone under sync-debug "error";
+   ms a batch of each run beside ``exec_text``'s and ``train_lstm``'s,
+   and five Trainer steps under ``torch.profiler``;
+6d. ``exec_gru``: a DSL program ``embedding -> fc(3 x 512) ->
+   dynamic_gru(512) -> sequence_pool("last") -> fc -> softmax cross
+   entropy`` at the seq2seq encoder's shape (batch 512 x 30, half the
+   rows ragged) through ``Executor(CUDAPlace(0))``, under AMP (bf16) and
+   in fp32: B12/B13 (``gru_fwd``, ``gru_bwd``, ``gru_dw`` and the route's
+   names) launched once a step through the ``dynamic_gru`` op, each
+   step's loss against the plain versions' (the 4e gates: relative 1e-4
+   in fp32, 1e-2 in bf16), ms a step, and three steps under
+   ``torch.profiler``.
+
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
 lane of every kernel), the ``serve``, ``train``, seq2seq, LSTM,
-``exec_mlp`` and ``exec_text`` lines and, last,
+``exec_mlp``, ``exec_text``, ``trainer_lstm`` and ``exec_gru`` lines
+and, last,
 ``{"ok": true, "device": {...}}``. Float32 matmuls run in full float32
 (TF32 off). With no CUDA card it exits non-zero at once.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -3736,14 +3769,14 @@ def exec_text(tx, kernels, dev, train_lstm_ms, warmup=3, steps=20,
         losses = []
         for i in range(n_warm):
             losses.append(exe.run(main, feed=feeds[i % 4],
-                                  fetch_list=["loss"], scope=scope,
+                                  fetch_list=[tx.LOSS], scope=scope,
                                   return_numpy=False)[0].array)
         events = [torch.cuda.Event(enable_timing=True)
                   for _ in range(n_timed + 1)]
         for i in range(n_timed):
             events[i].record()
             losses.append(exe.run(main, feed=feeds[(n_warm + i) % 4],
-                                  fetch_list=["loss"], scope=scope,
+                                  fetch_list=[tx.LOSS], scope=scope,
                                   return_numpy=False)[0].array)
         events[n_timed].record()
         torch.cuda.synchronize()
@@ -3771,7 +3804,7 @@ def exec_text(tx, kernels, dev, train_lstm_ms, warmup=3, steps=20,
         if not ragged:   # where the uniform step's time goes
             rec["profile"] = _profile(
                 [lambda i=i: exe.run(main, feed=feeds[i % 4],
-                                     fetch_list=["loss"], scope=scope)
+                                     fetch_list=[tx.LOSS], scope=scope)
                  for i in range(5)],
                 named=("lstm_xg_kernel", "lstm_cluster_fwd_kernel",
                        "lstm_cluster_bwd_kernel", "lstm_dxe_kernel",
@@ -3787,6 +3820,396 @@ def exec_text(tx, kernels, dev, train_lstm_ms, warmup=3, steps=20,
     rec["ms_per_batch_vs_train_lstm"] = (rec["uniform"]["ms_per_batch_p50"]
                                          / train_lstm_ms)
     return {"exec_text": rec}
+
+
+# 6c: bench_lstm's flagship through the training entry point
+TRAINER_BOUNDS = (25, 50, 75, 100)      # bench_lstm_bucketed's buckets
+
+
+def _lstm_trainer(state=None, seq_lens=False):
+    """``lstm_benchmark_net(fused_proj=True)`` at TEXT_CFG's widths, built
+    by the layers DSL in fresh default programs and a fresh global scope,
+    in a ``Trainer`` with ``Adam(TEXT_LR)`` on ``Executor(CUDAPlace(0),
+    amp=True)``; its startup state ``state`` (name -> card tensor, copied)
+    or, with None, its startup program's (seed 0)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import global_scope, reset_global_scope
+    from paddle_tpu_torch.framework import program as prog
+    from paddle_tpu_torch.models import text as tx
+    prog.fresh_programs()
+    reset_global_scope()
+    words = pt.layers.data("words", [1], dtype="int64", lod_level=1)
+    label = pt.layers.data("label", [1], dtype="int64")
+    feeds = [words, label]
+    sl = None
+    if seq_lens:
+        sl = pt.layers.data("seq_lens", [], dtype="int32")
+        feeds.append(sl)
+    _, loss, acc = tx.lstm_benchmark_net(
+        words, label, input_dim=TEXT_CFG["vocab_size"],
+        emb_dim=TEXT_CFG["emb_dim"], hid_dim=TEXT_CFG["hid_dim"],
+        num_layers=TEXT_CFG["num_layers"], seq_lens=sl, fused_proj=True)
+    tr = pt.Trainer(cost=loss, optimizer=pt.optimizer.Adam(TEXT_LR),
+                    feed_list=feeds, metrics=[acc],
+                    executor=pt.Executor(pt.CUDAPlace(0), amp=True))
+    if state is None:
+        tr.startup_program.random_seed = 0
+        tr._init_params()
+    else:
+        for n, v in state.items():
+            global_scope().set_tensor(n, v.clone())
+        tr._initialized = True
+    return tr
+
+
+def _uniform_batches(n, seed):
+    """A reader creator: ``reader.batch`` of a seeded sample generator,
+    ``n`` batches of TEXT_B (TEXT_T word ids, 0/1 label) samples."""
+    import paddle_tpu_torch as pt
+
+    def samples():
+        rng = np.random.RandomState(seed)
+        for _ in range(n * TEXT_B):
+            yield (rng.randint(0, TEXT_CFG["vocab_size"], TEXT_T).tolist(),
+                   int(rng.randint(0, 2)))
+    return pt.reader.batch(samples, TEXT_B)
+
+
+def _trainer_run(trainer, reader, kernels, want_names, **kw):
+    """One ``trainer.train`` pass over ``reader``, the launch counts
+    zeroed just before and read just after: (per-batch costs, the
+    EndIteration host times after the start, the launches), each of
+    ``want_names`` launched exactly twice a batch and nothing else."""
+    import paddle_tpu_torch as pt
+    costs, stamps = [], []
+
+    def handler(e):
+        if isinstance(e, pt.event.EndIteration):
+            stamps.append(time.perf_counter())
+            costs.append(e.cost)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()                     # the main path: go
+    t0 = time.perf_counter()
+    trainer.train(reader, num_passes=1, event_handler=handler, log_period=0,
+                  **kw)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)            # read just after
+    kernels.reset_launches()
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update(dict.fromkeys(want_names, 2 * len(costs)))
+    _check(launches == want, f"trainer_lstm: launches {launches} over "
+           f"{len(costs)} batches, want {want}")
+    _check(len(costs) > 0 and all(np.isfinite(costs)),
+           f"trainer_lstm: costs {costs}")
+    return costs, [t0] + stamps, {k: v for k, v in launches.items() if v}
+
+
+def _batch_ms(stamps, skip, per=1):
+    """ms a batch: the p50 of the gaps between result times after the
+    first ``skip`` gaps (``per`` results a gap, a K-group's)."""
+    gaps = np.diff(stamps[::per])[skip:] * 1e3
+    return float(np.median(gaps)) / per
+
+
+def _trainer_step_vs_plain(fr, tr, state, batch, dev):
+    """One step of the Trainer's program from ``state`` on the kernels,
+    and the same step through their plain versions, AMP and fp32 (the
+    fp32 plain gradient is the reference): 4f's AMP gate on the loss
+    and on every gradient (relative L2, each leaf floored)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import Scope
+    main = tr.main_program
+    params = [p.name for p in main.global_block().all_parameters()]
+    feed = tr.feeder.feed(batch)
+    out = {}
+    for key, amp, plain in (("kernels", True, False), ("plain", True, True),
+                            ("fp32_plain", False, True)):
+        scope = Scope()
+        for n, v in state.items():
+            scope.set_tensor(n, v.clone())
+        exe = pt.Executor(pt.CUDAPlace(0), amp=amp)
+        with fr.plain_versions() if plain else contextlib.nullcontext():
+            got = exe.run(main, feed=feed, scope=scope, fetch_list=[
+                tr.cost] + [n + "@GRAD" for n in params],
+                return_numpy=False)
+        out[key] = (float(got[0].array), dict(zip(params, (
+            g.array for g in got[1:]))))
+        del scope, exe
+    loss, grads = out["kernels"]
+    p_loss, p_grads = out["plain"]
+    exact = out["fp32_plain"][1]
+    floor = S2S_NORM_FLOOR * _grad_norm(exact)
+    loss_rel = abs(loss - p_loss) / abs(p_loss)
+    _check(loss_rel <= 1e-2, f"trainer_lstm: step loss rel {loss_rel}")
+    gate = {}
+    for k, g in grads.items():
+        _check(bool(torch.isfinite(g).all()), f"trainer_lstm: grad {k}")
+        err = _rel_l2(g, exact[k], floor)
+        plain_err = _rel_l2(p_grads[k], exact[k], floor)
+        gate[k] = (err, plain_err)
+        _check(err <= S2S_BF16_RATIO * plain_err + 1e-2,
+               f"trainer_lstm: grad {k} is {err} from the fp32 plain "
+               f"gradient, the AMP plain path {plain_err}")
+    return {"loss": loss, "plain_loss": p_loss, "loss_rel_err": loss_rel,
+            "grad_rel_l2_vs_fp32_plain_and_plain_amp": gate}
+
+
+def trainer_lstm(tx, fr, kernels, dev, train_lstm_ms, exec_text_ms,
+                 warmup=3, steps=20, k=8, groups=3):
+    """Phase 6c (``trainer_lstm``), as the module docstring sets out."""
+    import itertools
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import (Scope, global_scope,
+                                             reset_global_scope)
+    from paddle_tpu_torch.framework import program as prog
+    rec = {"batch": [TEXT_B, TEXT_T], "widths": TEXT_CFG, "amp": True,
+           "optimizer": f"adam {TEXT_LR}", "place": "CUDAPlace(0)",
+           "train_lstm_ms_per_batch_p50": train_lstm_ms,
+           "exec_text_ms_per_batch_p50": exec_text_ms}
+    uniform = _lstm_route_names(dev, True, True)
+    ragged = _lstm_route_names(dev, True, True, ragged=True)
+    tr = _lstm_trainer()
+    state = {n: global_scope().find_var(n).array.clone()
+             for n in global_scope().local_var_names()}
+    # the DSL's program is build_program's, op for op and name for name
+    main, start = tr.main_program, tr.startup_program
+    prog._name_counters.clear()
+    b_main, b_start = tx.build_program(tx.TextConfig(**TEXT_CFG))
+    ops = [(o.type, o.inputs, o.outputs, o.attrs)
+           for o in main.global_block().ops]
+    _check(ops == [(o.type, o.inputs, o.outputs, o.attrs)
+                   for o in b_main.global_block().ops]
+           and main.fingerprint() == b_main.fingerprint()
+           and start.fingerprint() == b_start.fingerprint(),
+           "trainer_lstm: the DSL's program is not build_program's")
+    rec.update({"fingerprint": main.fingerprint(), "ops": len(ops),
+                "program_equals_build_program": True})
+    # K = 1: 3 + 20 batches
+    reader = _uniform_batches(warmup + steps, seed=3)
+    costs, stamps, launches = _trainer_run(tr, reader, kernels, uniform)
+    rec["k1"] = {"batches": len(costs), "launches": launches,
+                 "ms_per_batch_p50": _batch_ms(stamps, warmup),
+                 "cost_first": costs[0], "cost_last": costs[-1]}
+    # every cost bit-equal to build_program's through the Executor
+    scope = Scope()
+    for n, v in state.items():
+        scope.set_tensor(n, v.clone())
+    exe = pt.Executor(pt.CUDAPlace(0), amp=True)
+    want = [float(exe.run(b_main, feed=tr.feeder.feed(b), scope=scope,
+                          fetch_list=[tx.LOSS])[0]) for b in reader()]
+    kernels.reset_launches()
+    _check(costs == want, f"trainer_lstm: Trainer costs {costs[:3]} vs "
+           f"build_program's {want[:3]}")
+    rec["k1"]["costs_bit_equal_build_program"] = True
+    del scope, exe
+    # one step on the kernels against the plain versions
+    first = next(iter(reader()))
+    rec["step_vs_plain"] = _trainer_step_vs_plain(fr, tr, state, first, dev)
+    # double_buffer, then steps_per_call=k, from the same state
+    tr = _lstm_trainer(state)
+    db, stamps, _ = _trainer_run(tr, reader, kernels, uniform,
+                                 double_buffer=True)
+    _check(db == costs, f"trainer_lstm: double_buffer costs {db[:3]} vs "
+           f"{costs[:3]}")
+    rec["double_buffer"] = {"batches": len(db), "costs_equal_k1": True,
+                            "ms_per_batch_p50": _batch_ms(stamps, warmup)}
+    tr = _lstm_trainer(state)
+    kc, stamps, _ = _trainer_run(tr, _uniform_batches(k * groups, seed=4),
+                                 kernels, uniform, steps_per_call=k)
+    _check(len(kc) == k * groups, f"trainer_lstm: {len(kc)} K={k} results")
+    rec[f"k{k}"] = {"batches": len(kc), "groups": groups,
+                    "ms_per_batch_p50": _batch_ms(stamps, 1, per=k),
+                    "cost_first": kc[0], "cost_last": kc[-1]}
+    # device_buffered alone makes no host sync
+    items = [tr.feeder.feed(b) for b in itertools.islice(reader(), 3)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = list(pt.reader.device_buffered(lambda: iter(items), 2)())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    _check(len(got) == 3 and all(g["label"].device == dev
+                                 and g["words"].array.device == dev
+                                 for g in got),
+           "trainer_lstm: device_buffered items not on the card")
+    rec["device_buffered_sync_debug"] = "error"
+    # one pass over the imdb surrogate: ragged, B10/B11
+    tr = _lstm_trainer(state)
+    imdb = pt.reader.batch(pt.datasets.imdb.train(), TEXT_B, drop_last=True)
+    ic, stamps, launches = _trainer_run(tr, imdb, kernels, ragged)
+    rec["imdb_ragged"] = {"batches": len(ic), "launches": launches,
+                          "ms_per_batch_p50": _batch_ms(stamps, 1),
+                          "cost_first": ic[0], "cost_last": ic[-1]}
+    # a bucketed pass: padded to the bucket bound, runtime seq_lens
+    tr = _lstm_trainer(state, seq_lens=True)
+    full = pt.reader.bucket_by_sequence_length(
+        pt.reader.map_readers(lambda s: (s[0], s[1], len(s[0])),
+                              pt.datasets.imdb.train()),
+        TRAINER_BOUNDS, TEXT_B)
+    bc, stamps, launches = _trainer_run(
+        tr, lambda: (b for b in full() if len(b) == TEXT_B), kernels,
+        uniform)
+    rec["bucketed"] = {"batches": len(bc), "bounds": TRAINER_BOUNDS,
+                       "launches": launches,
+                       "ms_per_batch_p50": _batch_ms(stamps, 1),
+                       "cost_first": bc[0], "cost_last": bc[-1]}
+    # five Trainer steps (the last three profiled)
+    tr = _lstm_trainer(state)
+    batches = list(itertools.islice(reader(), 5))
+    rec["profile"] = _profile(
+        [lambda b=b: tr.train_one_batch(b) for b in batches],
+        named=("lstm_xg_kernel", "lstm_cluster_fwd_kernel",
+               "lstm_cluster_bwd_kernel", "lstm_dxe_kernel", "dw_wgmma"))
+    kernels.reset_launches()
+    k1 = rec["k1"]["ms_per_batch_p50"]
+    rec["k1_ms_per_batch_vs_exec_text"] = k1 / exec_text_ms
+    rec["k1_ms_per_batch_vs_train_lstm"] = k1 / train_lstm_ms
+    _say(f"trainer_lstm: ms a batch K=1 {k1:.2f}, double_buffer "
+         f"{rec['double_buffer']['ms_per_batch_p50']:.2f}, K={k} "
+         f"{rec[f'k{k}']['ms_per_batch_p50']:.2f}, imdb ragged "
+         f"{rec['imdb_ragged']['ms_per_batch_p50']:.2f}, bucketed "
+         f"{rec['bucketed']['ms_per_batch_p50']:.2f}; exec_text "
+         f"{exec_text_ms:.2f}, train_lstm {train_lstm_ms:.2f}; idle share "
+         f"{rec['profile']['device_idle_share']}")
+    del tr, state
+    reset_global_scope()
+    return {"trainer_lstm": rec}
+
+
+# 6d: a dynamic_gru program at the seq2seq encoder's shape
+GRU_PROG_CLASSES = 2
+
+
+def _gru_program():
+    """``embedding -> fc(3 x hidden) -> dynamic_gru(hidden) ->
+    sequence_pool("last") -> fc -> softmax cross entropy`` at S2S_CFG's
+    source vocab, embedding and hidden widths, ``Adam(S2S_LR)``, built by
+    the layers DSL in fresh programs: (main, startup, loss)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import program as prog
+    main, start = prog.fresh_programs()
+    words = pt.layers.data("words", [1], dtype="int64", lod_level=1)
+    label = pt.layers.data("label", [1], dtype="int64")
+    emb = pt.layers.embedding(words, size=[S2S_CFG["src_vocab"],
+                                           S2S_CFG["emb_dim"]])
+    H = S2S_CFG["hidden_dim"]
+    hidden = pt.layers.dynamic_gru(pt.layers.fc(emb, 3 * H), H)
+    logits = pt.layers.fc(pt.layers.sequence_pool(hidden, "last"),
+                          GRU_PROG_CLASSES)
+    loss = pt.layers.mean(pt.layers.softmax_with_cross_entropy(logits,
+                                                               label))
+    pt.optimizer.Adam(S2S_LR).minimize(loss)
+    return main, start, loss
+
+
+def _gru_program_feeds(n, seed=0):
+    """``n`` host feeds of S2S_B sequences: the first half S2S_S long,
+    the second half 1..S2S_S (seeded), random ids and 0/1 labels."""
+    from paddle_tpu_torch.core.lod import LoD, LoDTensor
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        lens = np.full(S2S_B, S2S_S)
+        lens[S2S_B // 2:] = rng.randint(1, S2S_S + 1, S2S_B - S2S_B // 2)
+        words = rng.randint(0, S2S_CFG["src_vocab"], (int(lens.sum()), 1))
+        out.append({"words": LoDTensor(words, LoD.from_lengths(
+            [lens.tolist()])), "label": rng.randint(0, GRU_PROG_CLASSES,
+                                                    (S2S_B, 1))})
+    return out
+
+
+def exec_gru(fr, kernels, dev, warmup=1, steps=5):
+    """Phase 6d (``exec_gru``): the program of ``_gru_program`` through
+    ``Executor(CUDAPlace(0))`` under AMP and in fp32, from its startup
+    program (seed 0): ``warmup`` + ``steps`` steps, timed by CUDA events,
+    the launch counts zeroed just before and read just after (each GRU
+    kernel once a step, the recurrences also under their route's name),
+    then the same steps from the same state through the plain versions:
+    every step's loss within the 4e gates (relative S2S_REL_TOL in fp32,
+    1e-2 in bf16); then five steps, the last three under
+    ``torch.profiler``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import Scope
+    recs = {}
+    for amp in (True, False):
+        dtype = torch.bfloat16 if amp else torch.float32
+        key = "bf16" if amp else "fp32"
+        main, start, loss = _gru_program()
+        route = fr._cluster_plan(dtype, S2S_B, S2S_CFG["hidden_dim"], dev,
+                                 ng=3).route
+        want_route = _gru_route_wanted(dtype, S2S_CFG["hidden_dim"])
+        _check(route == want_route, f"exec_gru {key}: GRU route {route}, "
+               f"want {want_route}")
+        exe = pt.Executor(pt.CUDAPlace(0), amp=amp)
+        scope = Scope()
+        start.random_seed = 0
+        exe.run(start, scope=scope)
+        state = {n: scope.find_var(n).array.clone()
+                 for n in scope.local_var_names()}
+        feeds = _gru_program_feeds(warmup + steps)
+        torch.cuda.synchronize()
+        kernels.reset_launches()                   # the main path: go
+        losses = [exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                          return_numpy=False)[0].array
+                  for f in feeds[:warmup]]
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(steps + 1)]
+        for i, f in enumerate(feeds[warmup:]):
+            events[i].record()
+            losses.append(exe.run(main, feed=f, fetch_list=[loss],
+                                  scope=scope, return_numpy=False)[0].array)
+        events[steps].record()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)          # read just after
+        kernels.reset_launches()
+        n = warmup + steps
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        want.update(dict.fromkeys((*GRU_KERNELS, *GRU_ROUTE_NAMES[route]),
+                                  n))
+        _check(launches == want, f"exec_gru {key}: launches {launches} "
+               f"over {n} steps, want {want}")
+        step_ms = [events[i].elapsed_time(events[i + 1])
+                   for i in range(steps)]
+        got = torch.stack(losses).float().cpu().tolist()
+        plain_scope = Scope()
+        for nm, v in state.items():
+            plain_scope.set_tensor(nm, v)
+        with fr.plain_versions():
+            ref = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                 scope=plain_scope)[0]) for f in feeds]
+        kernels.reset_launches()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+        tol = 1e-2 if amp else S2S_REL_TOL
+        _check(all(np.isfinite(got)) and rel <= tol,
+               f"exec_gru {key}: losses {got} vs plain {ref}")
+        recs[key] = {"steps": n, "launches": {k: v for k, v in
+                                              launches.items() if v},
+                     "route": route, "loss_first": got[0],
+                     "loss_last": got[-1],
+                     "loss_max_rel_err_vs_plain": rel, "rtol": tol,
+                     "ms_per_step_p50": float(np.median(step_ms)),
+                     "ms_per_step_min": float(np.min(step_ms)),
+                     "profile": _profile(
+                         [lambda f=f: exe.run(main, feed=f,
+                                              fetch_list=[loss],
+                                              scope=scope)
+                          for f in feeds[:5]],
+                         named=GRU_RECURRENCE_KERNELS + ("dw_",))}
+        kernels.reset_launches()
+        _say(f"exec_gru {key}: ms a step {recs[key]['ms_per_step_p50']:.2f}"
+             f", device busy "
+             f"{recs[key]['profile']['device_busy_ms_per_step']}, idle "
+             f"share {recs[key]['profile']['device_idle_share']}")
+        del exe, scope, plain_scope, state
+        torch.cuda.empty_cache()
+    return {"exec_gru": {"batch": [S2S_B, S2S_S], "ragged_rows": S2S_B // 2,
+                         "emb_dim": S2S_CFG["emb_dim"],
+                         "hidden_dim": S2S_CFG["hidden_dim"],
+                         "optimizer": f"adam {S2S_LR}",
+                         "place": "CUDAPlace(0)", **recs}}
 
 
 def main(argv=None):
@@ -4210,6 +4633,16 @@ def main(argv=None):
             "device_idle_share", "device_kernels_per_step")}
     _say(f"executor phases done at {time.perf_counter() - t0:.1f} s")
 
+    # 6c / 6d: the training entry point: the flagship through the Trainer,
+    # and a dynamic_gru program through the Executor
+    torch.cuda.empty_cache()
+    trainer_rec = trainer_lstm(
+        tx, fr, kernels, dev, fused["ms_per_batch_p50"],
+        xtext_rec["exec_text"]["uniform"]["ms_per_batch_p50"])
+    torch.cuda.empty_cache()
+    gru_prog_rec = exec_gru(fr, kernels, dev)
+    _say(f"trainer phases done at {time.perf_counter() - t0:.1f} s")
+
     _say(json.dumps(prec))
     _say(json.dumps(pqrec))
     _say(json.dumps(pwrec))
@@ -4251,6 +4684,8 @@ def main(argv=None):
         _say(json.dumps(text_runs[key][0]))
     _say(json.dumps(mlp_rec))
     _say(json.dumps(xtext_rec))
+    _say(json.dumps(trainer_rec))
+    _say(json.dumps(gru_prog_rec))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,18 @@ AMP, ``run_multi``, ``prepare_infer``), used as in the JAX package::
     exe = pt.Executor(pt.CUDAPlace(0))
     exe.run(pt.default_startup_program())
 
+The training entry point, as in the JAX package: the text nets and the
+book models built by the DSL (``models.text``, ``models.book``,
+``nets``), ``Trainer.train(reader, num_passes, event_handler)`` with
+its ``event``s, the ``DataFeeder``, the ``reader`` decorators (the
+card-side double buffer ``reader.device_buffered`` among them), the
+``datasets`` (imdb, mnist, uci_housing) and checkpoints (``io``, the
+JAX package's on-disk format)::
+
+    trainer = pt.Trainer(cost=loss, optimizer=pt.optimizer.Adam(0.01),
+                         feed_list=[x, label], place=pt.CUDAPlace(0))
+    trainer.train(pt.reader.batch(sample_reader, 64), num_passes=1)
+
 The other slices so far are generative serving: ``serving.DecodeEngine``
 with chunked or whole-prompt prefill and continuous or static admission
 over a block-paged KV cache (float32, bfloat16, or int8 / fp8-e4m3 with
@@ -44,10 +56,14 @@ from paddle_tpu_torch.framework.program import (Program,
                                                 default_main_program,
                                                 default_startup_program,
                                                 program_guard)
-from paddle_tpu_torch import initializer, layers, optimizer
+from paddle_tpu_torch import (datasets, event, initializer, io, layers,
+                              nets, optimizer, reader)
+from paddle_tpu_torch.data_feeder import DataFeeder
 from paddle_tpu_torch.param_attr import ParamAttr
+from paddle_tpu_torch.trainer import Trainer
 
-__all__ = ["CPUPlace", "CUDAPlace", "Executor", "LoD", "LoDTensor",
-           "ParamAttr", "Program", "Scope", "default_main_program",
-           "default_startup_program", "initializer", "layers", "optimizer",
-           "program_guard", "resolve_device"]
+__all__ = ["CPUPlace", "CUDAPlace", "DataFeeder", "Executor", "LoD",
+           "LoDTensor", "ParamAttr", "Program", "Scope", "Trainer",
+           "datasets", "default_main_program", "default_startup_program",
+           "event", "initializer", "io", "layers", "nets", "optimizer",
+           "program_guard", "reader", "resolve_device"]

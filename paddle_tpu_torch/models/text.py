@@ -1,20 +1,25 @@
-"""The IMDB LSTM text classifier: the port of the JAX package's
-``models/text.py`` ``lstm_benchmark_net`` (the reference's RNN benchmark:
-embedding -> N stacked LSTMs -> last-step pool -> fc -> softmax
-cross-entropy) on one card, with its training step.
+"""Text models: the port of the JAX package's ``models/text.py``, the
+nets built by the layers DSL (``lstm_benchmark_net``,
+``stacked_lstm_net``, ``convolution_net``, ``word2vec_net``), and the
+IMDB LSTM classifier written down op by op with its training step.
 
-The JAX model is a Program built by the layers DSL and run by the
-Executor; the port's layers DSL has no LSTM layers yet (ROADMAP A4.3),
-so ``program(cfg)`` writes down the ops those layers emit, in their
-order, with their slot names, variable names and attributes, and
-``forward`` runs them one at a time through
-``framework.registry.run_op``, as the Executor's op loop does: LoD
-travels with each variable, and under AMP (``Executor(amp=True)``)
-every ``amp_compute`` op (``mul``, ``dynamic_lstm``, ``fused_lstm``)
-gets bf16 inputs over the fp32 masters and casts its outputs back to
-fp32. ``build_program(cfg)`` turns the same op list into a port
-``Program`` (startup program, feeds, Adam through
-``optimizer.minimize``) for ``framework.executor.Executor``.
+The DSL nets append their ops to the default main program exactly as
+the JAX package's do (the same op list, variable and parameter names,
+shapes and ``fingerprint`` from cleared name counters), for a Program
+run by ``Executor`` or trained by ``Trainer``.
+
+``lstm_benchmark_net`` is also written down by hand: ``program(cfg)``
+lists the ops it emits (the reference's RNN benchmark: embedding -> N
+stacked LSTMs -> last-step pool -> fc -> softmax cross-entropy), in
+their order, with their slot names, variable names and attributes, and
+``build_program(cfg)`` makes a ``Program`` of that list (variables
+declared with the DSL's shapes, startup program, Adam through
+``optimizer.minimize``) that the DSL-built net is held to. ``forward``
+runs the list one op at a time through ``framework.registry.run_op``,
+as the Executor's op loop does: LoD travels with each variable, and
+under AMP (``Executor(amp=True)``) every ``amp_compute`` op (``mul``,
+``dynamic_lstm``, ``fused_lstm``) gets bf16 inputs over the fp32
+masters and casts its outputs back to fp32.
 
 With ``fused_proj`` each layer is one ``fused_lstm`` op, which on
 uniform lengths runs the input projection inside the recurrence
@@ -25,8 +30,11 @@ LoD, each layer is ``fc`` (``mul`` + ``elementwise_add``) and
 Parameters are a flat dict keyed by the JAX Program's parameter names
 (``embedding_0.w_0``, ``fused_lstm_0.w_0`` ...), as a fresh process
 names them, so ``convert.params_from_jax`` carries a JAX scope over
-unchanged. Training is SGD or Adam as the JAX optimizer ops define them
-(``ops/optimizer_ops.py``); nothing in a step reads a value back.
+unchanged. The fetches keep the DSL's names (``LOSS``, ``PREDICTION``,
+``ACCURACY``); ``forward`` also takes them as ``"loss"``,
+``"prediction"`` and ``"accuracy"``. Training is SGD or Adam as the JAX
+optimizer ops define them (``ops/optimizer_ops.py``); nothing in a step
+reads a value back.
 """
 from __future__ import annotations
 
@@ -36,13 +44,24 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from paddle_tpu_torch import layers, nets
 from paddle_tpu_torch.core.lod import LoDTensor
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.framework.registry import run_op
 
-__all__ = ["TextConfig", "param_specs", "program", "build_program",
-           "init_params", "forward", "loss_fn", "SGD", "Adam",
-           "make_train_step", "train_flops"]
+__all__ = ["TextConfig", "param_specs", "program", "variables",
+           "build_program", "init_params", "forward", "loss_fn", "SGD",
+           "Adam", "make_train_step", "train_flops", "LOSS", "PREDICTION",
+           "ACCURACY", "convolution_net", "stacked_lstm_net",
+           "lstm_benchmark_net", "word2vec_net"]
+
+# the DSL's names of the classifier's fetches
+LOSS = "mean_0.tmp_0"
+PREDICTION = "softmax_0.tmp_0"
+ACCURACY = "accuracy_0.tmp_2"
+_FETCH = {"loss": LOSS, "prediction": PREDICTION, "accuracy": ACCURACY}
+_POOL, _POOL_INDEX = "sequence_pool_0.tmp_0", "sequence_pool_0.tmp_1"
+_SCE = "softmax_with_cross_entropy_0"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,21 +103,27 @@ def param_specs(cfg: TextConfig) -> List[Tuple[str, Tuple[int, ...], str]]:
     return specs
 
 
-def _fc(name, x, out):
-    """``layers.fc`` without activation: mul, then the bias add."""
-    mul_out = f"{name}.tmp_0"
-    return [("mul", {"X": [x], "Y": [f"{name}.w_0"]}, {"Out": [mul_out]},
+def _fc(name, x):
+    """``layers.fc`` without activation: mul, then the bias add; its
+    output is ``{name}.tmp_1``."""
+    return [("mul", {"X": [x], "Y": [f"{name}.w_0"]},
+             {"Out": [f"{name}.tmp_0"]},
              {"x_num_col_dims": 1, "y_num_col_dims": 1}),
-            ("elementwise_add", {"X": [mul_out], "Y": [f"{name}.b_0"]},
-             {"Out": [out]}, {"axis": 1})]
+            ("elementwise_add", {"X": [f"{name}.tmp_0"],
+                                 "Y": [f"{name}.b_0"]},
+             {"Out": [f"{name}.tmp_1"]}, {"axis": 1})]
+
+
+def _head_fc(cfg):
+    return f"fc_{0 if cfg.fused_proj else cfg.num_layers}"
 
 
 def program(cfg: TextConfig, seq_lens: bool = False):
     """The ops ``lstm_benchmark_net`` emits, in order: ``(type, inputs,
     outputs, attrs)`` with inputs and outputs mapping slot -> variable
-    names. The feed variables are ``words`` (LoD), ``label`` and, with
-    ``seq_lens``, ``seq_lens``; the fetches ``loss``, ``prediction`` and
-    ``accuracy``."""
+    names (the DSL's). The feed variables are ``words`` (LoD),
+    ``label`` and, with ``seq_lens``, ``seq_lens``; the fetches
+    ``LOSS``, ``PREDICTION`` and ``ACCURACY``."""
     sl = {"SeqLens": ["seq_lens"]} if seq_lens else {}
     ops = [("lookup_table",
             {"W": ["embedding_0.w_0"], "Ids": ["words"]},
@@ -115,7 +140,7 @@ def program(cfg: TextConfig, seq_lens: bool = False):
                         {"is_reverse": False}))
         else:
             n = f"dynamic_lstm_{i}"
-            ops += _fc(f"fc_{i}", cur, f"fc_{i}.tmp_1")
+            ops += _fc(f"fc_{i}", cur)
             ops.append(("dynamic_lstm",
                         {"Input": [f"fc_{i}.tmp_1"], "Weight": [f"{n}.w_0"],
                          "Bias": [f"{n}.b_0"], **sl},
@@ -126,28 +151,56 @@ def program(cfg: TextConfig, seq_lens: bool = False):
                          "candidate_activation": "tanh"}))
         cur = f"{n}.tmp_0"
     ops.append(("sequence_pool", {"X": [cur], **sl},
-                {"Out": ["last"], "MaxIndex": ["last_index"]},
+                {"Out": [_POOL], "MaxIndex": [_POOL_INDEX]},
                 {"pooltype": "LAST"}))
-    fc = f"fc_{0 if cfg.fused_proj else cfg.num_layers}"
-    ops += _fc(fc, "last", "logits")
-    ops += [("softmax", {"X": ["logits"]}, {"Out": ["prediction"]},
-             {"axis": -1}),
+    fc = _head_fc(cfg)
+    logits = f"{fc}.tmp_1"
+    ops += _fc(fc, _POOL)
+    ops += [("softmax", {"X": [logits]}, {"Out": [PREDICTION]}, {}),
             ("softmax_with_cross_entropy",
-             {"Logits": ["logits"], "Label": ["label"]},
-             {"Softmax": ["ce_softmax"], "Loss": ["ce_loss"]},
+             {"Logits": [logits], "Label": ["label"]},
+             {"Softmax": [f"{_SCE}.tmp_0"], "Loss": [f"{_SCE}.tmp_1"]},
              {"soft_label": False}),
-            ("mean", {"X": ["ce_loss"]}, {"Out": ["loss"]}, {}),
-            ("top_k", {"X": ["prediction"]},
-             {"Out": ["top_out"], "Indices": ["top_idx"]}, {"k": 1}),
-            ("accuracy", {"Out": ["top_out"], "Indices": ["top_idx"],
+            ("mean", {"X": [f"{_SCE}.tmp_1"]}, {"Out": [LOSS]}, {}),
+            ("top_k", {"X": [PREDICTION]},
+             {"Out": ["accuracy_0.tmp_0"], "Indices": ["accuracy_0.tmp_1"]},
+             {"k": 1}),
+            ("accuracy", {"Out": ["accuracy_0.tmp_0"],
+                          "Indices": ["accuracy_0.tmp_1"],
                           "Label": ["label"]},
-             {"Accuracy": ["accuracy"], "Correct": ["correct"],
-              "Total": ["total"]}, {})]
+             {"Accuracy": [ACCURACY], "Correct": ["accuracy_0.tmp_3"],
+              "Total": ["accuracy_0.tmp_4"]}, {})]
     return ops
 
 
-# the op list's integer outputs (everything else is float32)
-_INT_OUTPUTS = ("top_idx", "correct", "total", "last_index")
+def variables(cfg: TextConfig) -> Dict[str, Tuple[Any, str, int]]:
+    """``(shape, dtype, lod_level)`` of each variable ``program(cfg)``'s
+    ops write, as the DSL's layers declare them."""
+    H, C = cfg.hid_dim, cfg.class_dim
+    out = {"embedding_0.tmp_0": ((-1, cfg.emb_dim), "float32", 1)}
+    for i in range(cfg.num_layers):
+        if cfg.fused_proj:
+            n = f"fused_lstm_{i}"
+        else:
+            n = f"dynamic_lstm_{i}"
+            out[f"fc_{i}.tmp_0"] = out[f"fc_{i}.tmp_1"] = (
+                (-1, 4 * H), "float32", 1)
+        out[f"{n}.tmp_0"] = out[f"{n}.tmp_1"] = ((-1, H), "float32", 1)
+    fc = _head_fc(cfg)
+    out.update({
+        _POOL: ((-1, H), "float32", 0), _POOL_INDEX: (None, "int64", 0),
+        f"{fc}.tmp_0": ((-1, C), "float32", 0),
+        f"{fc}.tmp_1": ((-1, C), "float32", 0),
+        PREDICTION: ((-1, C), "float32", 0),
+        f"{_SCE}.tmp_0": ((-1, C), "float32", 0),
+        f"{_SCE}.tmp_1": ((-1, 1), "float32", 0),
+        LOSS: ((), "float32", 0),
+        "accuracy_0.tmp_0": (None, "float32", 0),
+        "accuracy_0.tmp_1": (None, "int32", 0),
+        ACCURACY: (None, "float32", 0),
+        "accuracy_0.tmp_3": (None, "int32", 0),
+        "accuracy_0.tmp_4": (None, "int32", 0)})
+    return out
 
 
 def build_program(cfg: TextConfig, seq_lens: bool = False):
@@ -156,10 +209,12 @@ def build_program(cfg: TextConfig, seq_lens: bool = False):
     ``optimizer.minimize``: the parameters of ``param_specs`` by
     name, initialized by the startup program (Xavier-uniform, zero
     biases), the feed variables ``words`` (int64, LoD level 1),
-    ``label`` (int64) and, with ``seq_lens``, ``seq_lens`` (int32), and
-    every op of the list with its slots and attributes. Run it with
-    ``Executor(place, amp=cfg.amp)``, fetching ``loss``, ``prediction``
-    or ``accuracy``."""
+    ``label`` (int64) and, with ``seq_lens``, ``seq_lens`` (int32), the
+    variables of ``variables(cfg)`` and every op of the list with its
+    slots and attributes: the Program ``lstm_benchmark_net`` builds
+    through the layers DSL, op for op and name for name. Run it with
+    ``Executor(place, amp=cfg.amp)``, fetching ``LOSS``, ``PREDICTION``
+    or ``ACCURACY``."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.framework.program import Program, program_guard
     from paddle_tpu_torch.initializer import (ConstantInitializer,
@@ -178,14 +233,15 @@ def build_program(cfg: TextConfig, seq_lens: bool = False):
             p = gb.create_parameter(shape=shape, dtype="float32", name=name)
             (ConstantInitializer(0.0) if init == "zeros"
              else XavierInitializer())(p)
+        specs = variables(cfg)
         for op_type, ins, outs, attrs in program(cfg, seq_lens):
             for names in outs.values():
                 for n in names:
-                    if n not in gb.vars:
-                        gb.create_var(name=n, dtype="int32"
-                                      if n in _INT_OUTPUTS else "float32")
+                    shape, dtype, lod_level = specs[n]
+                    gb.create_var(name=n, shape=shape, dtype=dtype,
+                                  lod_level=lod_level)
             gb.append_op(op_type, ins, outs, attrs)
-        optimizer.Adam(0.002).minimize(gb.var("loss"))
+        optimizer.Adam(0.002).minimize(gb.var(LOSS))
     return main, startup
 
 
@@ -215,7 +271,9 @@ def forward(params: Dict[str, Any], feed: Dict[str, Any], cfg: TextConfig,
             fetch=("loss", "prediction", "accuracy")):
     """Run the program over ``feed`` (``words``: a ``LoDTensor`` of int
     ids [total, 1]; ``label`` [B, 1] int; optionally ``seq_lens`` [B]
-    int) with ``params``; returns the fetched variables (a dict)."""
+    int) with ``params``; returns the fetched variables (a dict keyed as
+    ``fetch`` names them: ``"loss"``, ``"prediction"``, ``"accuracy"``
+    or a variable's name)."""
     env = dict(params)
     lods = {}
     for k, v in feed.items():
@@ -238,7 +296,7 @@ def forward(params: Dict[str, Any], feed: Dict[str, Any], cfg: TextConfig,
                         lods[n] = lod
                     else:
                         lods.pop(n, None)
-    return {k: env[k] for k in fetch}
+    return {k: env[_FETCH.get(k, k)] for k in fetch}
 
 
 def loss_fn(params, feed, cfg: TextConfig):
@@ -328,3 +386,81 @@ def train_flops(cfg: TextConfig, batch: int, seq_len: int) -> float:
     per_step = sum(8 * H * ((cfg.emb_dim if i == 0 else H) + H)
                    for i in range(cfg.num_layers))
     return 3.0 * per_step * seq_len * batch
+
+
+# ------------------------------------------------------ the DSL-built nets
+
+def convolution_net(data, label, input_dim, class_dim=2, emb_dim=32,
+                    hid_dim=32):
+    """Sentiment conv net (ref book understand_sentiment conv)."""
+    emb = layers.embedding(data, size=[input_dim, emb_dim])
+    conv3 = nets.sequence_conv_pool(emb, hid_dim, 3, act="tanh")
+    conv4 = nets.sequence_conv_pool(emb, hid_dim, 4, act="tanh")
+    logits = layers.fc([conv3, conv4], class_dim)
+    prediction = layers.softmax(logits)
+    loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+    acc = layers.accuracy(prediction, label)
+    return prediction, loss, acc
+
+
+def stacked_lstm_net(data, label, input_dim, class_dim=2, emb_dim=128,
+                     hid_dim=128, stacked_num=3):
+    """Stacked LSTM sentiment net (ref book understand_sentiment stacked
+    lstm): every even layer runs reversed."""
+    emb = layers.embedding(data, size=[input_dim, emb_dim])
+    fc1 = layers.fc(emb, hid_dim * 4)
+    lstm1, _ = layers.dynamic_lstm(fc1, hid_dim * 4)
+    inputs = [fc1, lstm1]
+    for i in range(2, stacked_num + 1):
+        fc = layers.fc(inputs, hid_dim * 4)
+        lstm, _ = layers.dynamic_lstm(fc, hid_dim * 4,
+                                      is_reverse=(i % 2) == 0)
+        inputs = [fc, lstm]
+    fc_last = layers.sequence_pool(inputs[0], "max")
+    lstm_last = layers.sequence_pool(inputs[1], "max")
+    logits = layers.fc([fc_last, lstm_last], class_dim)
+    prediction = layers.softmax(logits)
+    loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+    acc = layers.accuracy(prediction, label)
+    return prediction, loss, acc
+
+
+def lstm_benchmark_net(data, label, input_dim, class_dim=2, emb_dim=128,
+                       hid_dim=512, num_layers=2, seq_lens=None,
+                       fused_proj=False):
+    """The reference's RNN benchmark topology: embedding -> N stacked
+    LSTMs -> last-step pool -> fc softmax. ``seq_lens``: optional [B]
+    int variable of runtime valid lengths for bucketed ragged batches.
+    ``fused_proj``: each layer one ``fused_lstm`` (the projection inside
+    the recurrence kernels, B14 / B15, on uniform batches), else ``fc``
+    + ``dynamic_lstm`` (B10 / B11). ``program(TextConfig(...))`` lists
+    the ops this builds."""
+    emb = layers.embedding(data, size=[input_dim, emb_dim])
+    cur = emb
+    for _ in range(num_layers):
+        if fused_proj:
+            cur, _ = layers.fused_lstm(cur, hid_dim, seq_lens=seq_lens)
+        else:
+            proj = layers.fc(cur, hid_dim * 4)
+            cur, _ = layers.dynamic_lstm(proj, hid_dim * 4,
+                                         seq_lens=seq_lens)
+    last = layers.sequence_pool(cur, "last", seq_lens=seq_lens)
+    logits = layers.fc(last, class_dim)
+    prediction = layers.softmax(logits)
+    loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+    acc = layers.accuracy(prediction, label)
+    return prediction, loss, acc
+
+
+def word2vec_net(words, next_word, dict_size, emb_dim=32, hid_dim=256,
+                 n_gram=4):
+    """N-gram language model (ref book test_word2vec): the n words'
+    embeddings share one table."""
+    embs = [layers.embedding(w, size=[dict_size, emb_dim],
+                             param_attr="shared_w") for w in words]
+    concat = layers.concat(embs, axis=1)
+    hidden = layers.fc(concat, hid_dim, act="sigmoid")
+    logits = layers.fc(hidden, dict_size)
+    prediction = layers.softmax(logits)
+    loss = layers.mean(layers.softmax_with_cross_entropy(logits, next_word))
+    return prediction, loss

@@ -1,14 +1,16 @@
 """Loss operators: a copy of the JAX package's ``ops/loss.py``
-``nll_from_logits`` (the transformer's and the seq2seq model's loss) and
+``nll_from_logits`` (the transformer's and the seq2seq model's loss),
 the ``softmax_with_cross_entropy`` op (the reference's
-softmax_with_cross_entropy_op.cc)."""
+softmax_with_cross_entropy_op.cc) and ``square_error_cost`` (fit_a_line's
+loss; the reference's squared_l2_distance_op.cc / v2 mse_cost)."""
 from __future__ import annotations
 
 import torch
 
 from paddle_tpu_torch.framework.registry import register_op
 
-__all__ = ["nll_from_logits", "softmax_with_cross_entropy"]
+__all__ = ["nll_from_logits", "softmax_with_cross_entropy",
+           "square_error_cost"]
 
 
 def nll_from_logits(logits, targets):
@@ -37,3 +39,10 @@ def softmax_with_cross_entropy(ins, attrs, ctx):
     lse = torch.logsumexp(lf, dim=-1, keepdim=True)
     softmax = torch.exp(lf - lse).to(logits.dtype)
     return {"Softmax": softmax, "Loss": loss.to(logits.dtype)}
+
+
+@register_op("square_error_cost", inputs=["X", "Y"], outputs=["Out"])
+def square_error_cost(ins, attrs, ctx):
+    """(x - y)^2, elementwise."""
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": torch.square(x - y)}

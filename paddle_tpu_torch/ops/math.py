@@ -1,12 +1,14 @@
-"""Dense math operators the text classifier and the MNIST MLP emit: the
-port of the JAX package's ``ops/math.py`` ``mul`` (``amp_compute``),
-``elementwise_add`` (fc's bias), ``sum`` (fc over several inputs),
-``mean``, ``lookup_table`` (the embedding) and ``top_k`` (the accuracy
-metric's first half), and the startup program's initializer ops
-``fill_constant``, ``uniform_random`` and ``gaussian_random``; the
-reference's mul_op.cc, elementwise_add_op.cc, sum_op.cc, mean_op.cc,
-lookup_table_op.cc, top_k_op.cc, fill_constant_op.cc,
-uniform_random_op.cc and gaussian_random_op.cc.
+"""Dense math operators the text nets, the book models and the MNIST MLP
+emit: the port of the JAX package's ``ops/math.py`` ``mul`` and
+``matmul`` (``amp_compute``), the elementwise ops (``elementwise_add``,
+fc's bias; ``_sub``, ``_mul``, ``_div``), ``scale``, ``sum`` (fc over
+several inputs), ``mean``, ``concat`` and ``split``, ``lookup_table``
+(the embedding) and ``top_k`` (the accuracy metric's first half), and
+the startup program's initializer ops ``fill_constant``,
+``uniform_random`` and ``gaussian_random``; the reference's mul_op.cc,
+matmul_op.cc, elementwise_*_op.cc, scale_op.cc, sum_op.cc, mean_op.cc,
+concat_op.cc, split_op.cc, lookup_table_op.cc, top_k_op.cc,
+fill_constant_op.cc, uniform_random_op.cc and gaussian_random_op.cc.
 
 The random ops draw from the ``torch.Generator`` the Executor hands
 them (seeded from its seed, the step and the op's index), or from one
@@ -24,8 +26,10 @@ import torch
 from paddle_tpu_torch.core.dtype import convert_dtype
 from paddle_tpu_torch.framework.registry import register_op
 
-__all__ = ["mul", "elementwise_add", "sum_op", "mean", "lookup_table",
-           "top_k", "fill_constant", "uniform_random", "gaussian_random"]
+__all__ = ["mul", "matmul", "elementwise_add", "elementwise_sub",
+           "elementwise_mul", "elementwise_div", "scale", "sum_op", "mean",
+           "concat", "split", "lookup_table", "top_k", "fill_constant",
+           "uniform_random", "gaussian_random"]
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -68,11 +72,43 @@ def _broadcast_y(x, y, axis):
                      + (1,) * (x.dim() - ax - y.dim()))
 
 
-@register_op("elementwise_add", inputs=["X", "Y"], outputs=["Out"],
-             attrs={"axis": -1})
-def elementwise_add(ins, attrs, ctx):
+@register_op("matmul", inputs=["X", "Y"], outputs=["Out"],
+             attrs={"transpose_X": False, "transpose_Y": False, "alpha": 1.0},
+             amp_compute=True)
+def matmul(ins, attrs, ctx):
     x, y = ins["X"][0], ins["Y"][0]
-    return {"Out": x + _broadcast_y(x, y, attrs["axis"])}
+    if attrs["transpose_X"] and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs["transpose_Y"] and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = _accum_matmul(x, y)
+    if attrs["alpha"] != 1.0:
+        out = out * attrs["alpha"]
+    return {"Out": out}
+
+
+def _register_elementwise(name, fn):
+    @register_op(name, inputs=["X", "Y"], outputs=["Out"], attrs={"axis": -1})
+    def _ew(ins, attrs, ctx, _fn=fn):
+        x, y = ins["X"][0], ins["Y"][0]
+        return {"Out": _fn(x, _broadcast_y(x, y, attrs["axis"]))}
+    _ew.__name__ = name
+    return _ew
+
+
+elementwise_add = _register_elementwise("elementwise_add", torch.add)
+elementwise_sub = _register_elementwise("elementwise_sub", torch.sub)
+elementwise_mul = _register_elementwise("elementwise_mul", torch.mul)
+elementwise_div = _register_elementwise("elementwise_div", torch.div)
+
+
+@register_op("scale", inputs=["X"], outputs=["Out"],
+             attrs={"scale": 1.0, "bias": 0.0, "bias_after_scale": True})
+def scale(ins, attrs, ctx):
+    x = ins["X"][0]
+    s, b = attrs["scale"], attrs["bias"]
+    out = x * s + b if attrs["bias_after_scale"] else (x + b) * s
+    return {"Out": out.to(x.dtype)}
 
 
 @register_op("sum", inputs=["X"], outputs=["Out"])
@@ -84,6 +120,26 @@ def sum_op(ins, attrs, ctx):
 @register_op("mean", inputs=["X"], outputs=["Out"])
 def mean(ins, attrs, ctx):
     return {"Out": torch.mean(ins["X"][0])}
+
+
+@register_op("concat", inputs=["X"], outputs=["Out"], attrs={"axis": 0})
+def concat(ins, attrs, ctx):
+    return {"Out": torch.cat(ins["X"], dim=attrs["axis"])}
+
+
+@register_op("split", inputs=["X"], outputs=["Out"],
+             attrs={"num": 0, "sections": None, "axis": 0})
+def split(ins, attrs, ctx):
+    x = ins["X"][0]
+    axis = attrs["axis"]
+    if attrs["sections"]:
+        return {"Out": list(torch.split(x, list(attrs["sections"]),
+                                        dim=axis))}
+    n = attrs["num"]
+    if x.shape[axis] % n:
+        raise ValueError(f"split: axis {axis} of size {x.shape[axis]} does "
+                         f"not divide into {n} equal parts")
+    return {"Out": list(torch.split(x, x.shape[axis] // n, dim=axis))}
 
 
 @register_op("lookup_table", inputs=["W", "Ids"], outputs=["Out"],

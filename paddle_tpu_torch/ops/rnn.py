@@ -1,6 +1,7 @@
 """Recurrent ops over ragged batches: the port of the JAX package's
-``ops/rnn.py`` ``dynamic_lstm`` and ``fused_lstm`` (the reference's
-operators/lstm_op.cc and its fully fused hl_cuda_lstm.cu), with the
+``ops/rnn.py`` ``dynamic_lstm``, ``fused_lstm`` and ``dynamic_gru`` (the
+reference's operators/lstm_op.cc and its fully fused hl_cuda_lstm.cu,
+gru_op.cc), with the
 helpers of the fused recurrence: the engagement predicate ``_fused_ok``,
 ``_pack``, ``_lens_from_mask`` and ``_reverse_valid`` (which the seq2seq
 encoder uses too).
@@ -15,13 +16,15 @@ package:
   B11) over the pre-projected gates; ``fused_lstm`` on uniform lengths
   and not reversed runs ``lstm_scan_proj`` (B14 / B15), the input
   projection inside the recurrence, and otherwise computes the gates
-  with one matmul and delegates to ``dynamic_lstm``;
+  with one matmul and delegates to ``dynamic_lstm``; ``dynamic_gru``
+  runs ``gru_scan`` (B12 / B13) over the pre-projected gates;
 - elsewhere (peepholes, non-standard activations, shapes that do not
   tile, ``FLAGS.fused_rnn`` off) a Python loop over time steps with the
   JAX ``lax.scan`` body's math in the input's dtype; its gradients come
   from autograd.
 
-Gate order: i, f, c~, o.
+Gate order: i, f, c~, o for the LSTM; u (update), r (reset), c~ for the
+GRU.
 """
 from __future__ import annotations
 
@@ -32,11 +35,12 @@ from paddle_tpu_torch.core.lod import pack_indices
 from paddle_tpu_torch.flags import FLAGS
 from paddle_tpu_torch.framework.registry import register_op
 from paddle_tpu_torch.kernels import in_spmd_trace
-from paddle_tpu_torch.kernels.fused_rnn import lstm_scan, lstm_scan_proj
+from paddle_tpu_torch.kernels.fused_rnn import (gru_scan, lstm_scan,
+                                                lstm_scan_proj)
 from paddle_tpu_torch.ops.sequence import _require_lod
 
 __all__ = ["_fused_ok", "_lens_from_mask", "_pack", "_reverse_valid",
-           "dynamic_lstm", "fused_lstm"]
+           "dynamic_gru", "dynamic_lstm", "fused_lstm"]
 
 _ACT = {
     "sigmoid": torch.sigmoid,
@@ -270,3 +274,64 @@ def fused_lstm(ins, attrs, ctx):
                  "cell_activation": "tanh",
                  "candidate_activation": "tanh"}
     return dynamic_lstm(sub_ins, sub_attrs, ctx)
+
+
+@register_op("dynamic_gru",
+             inputs=["Input", "Weight", "Bias", "H0", "SeqLens"],
+             outputs=["Hidden"],
+             optional_inputs=["Bias", "H0", "SeqLens"],
+             attrs={"is_reverse": False, "gate_activation": "sigmoid",
+                    "activation": "tanh"},
+             amp_compute=True)
+def dynamic_gru(ins, attrs, ctx):
+    """Input: packed [total, 3D] (update | reset | candidate
+    pre-projections) with LoD; Weight [D, 3D]: ``[:, :2D]`` the u/r
+    recurrent weights, ``[:, 2D:]`` the candidate's (the reference's
+    gru_op.cc layout, and ``gru_scan``'s); Bias [1, 3D], added to the
+    input before the recurrence; H0 [B, D]; ``SeqLens`` (optional, [B]
+    int): runtime valid lengths over the static LoD mask. ``h = u *
+    h_prev + (1 - u) * c~``; a masked step keeps h."""
+    x, w = ins["Input"][0], ins["Weight"][0]
+    lod = _require_lod(ctx, "Input")
+    D = w.shape[0]
+    gate_act = _ACT[attrs["gate_activation"]]
+    cand_act = _ACT[attrs["activation"]]
+    bias = _opt(ins, "Bias")
+
+    xp, mask, unpack, B, T = _pack(x, lod, 3 * D)  # [B, T, 3D]
+    mask = _runtime_mask(ins, mask, T)
+    if attrs["is_reverse"]:
+        xp = _reverse_valid(xp, mask, T)
+    if bias is not None:
+        xp = xp + bias.reshape(-1).to(xp.dtype)
+    h0 = _opt(ins, "H0")
+    h_init = (torch.zeros((B, D), dtype=x.dtype, device=x.device)
+              if h0 is None else h0.to(x.dtype))
+    std_acts = (attrs["gate_activation"] == "sigmoid"
+                and attrs["activation"] == "tanh")
+    if _fused_ok(B, D, x.dtype, std_acts):
+        hs = gru_scan(xp.transpose(0, 1).contiguous(),
+                      w.to(x.dtype).contiguous(), _lens_from_mask(mask),
+                      h_init.contiguous())
+        hs = hs.transpose(0, 1)
+    else:
+        xs = xp.transpose(0, 1)                     # [T, B, 3D]
+        mT = mask.transpose(0, 1)[..., None].to(x.dtype)   # [T, B, 1]
+        w_ur, w_c = w[:, :2 * D], w[:, 2 * D:]
+        h = h_init
+        hl = []
+        for t in range(T):
+            x_t = xs[t]
+            g_ur = x_t[:, :2 * D] + h @ w_ur
+            u = gate_act(g_ur[:, :D])
+            r = gate_act(g_ur[:, D:])
+            c = cand_act(x_t[:, 2 * D:] + (r * h) @ w_c)
+            h_new = u * h + (1 - u) * c
+            m_t = mT[t]
+            h = m_t * h_new + (1 - m_t) * h
+            hl.append(h)
+        hs = torch.stack(hl, dim=1) if hl else x.new_zeros((B, 0, D))
+    if attrs["is_reverse"]:
+        hs = _reverse_valid(hs, mask, T)
+    ctx.set_lod("Hidden", lod)
+    return {"Hidden": unpack(hs)}

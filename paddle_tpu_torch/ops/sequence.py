@@ -1,6 +1,7 @@
 """Ragged-sequence (LoD) operators: the port of the JAX package's
-``ops/sequence.py`` ``_require_lod`` and the ``sequence_pool`` op (the
-reference's operators/sequence_pool_op.cc).
+``ops/sequence.py`` ``_require_lod``, the ``sequence_pool`` op (the
+reference's operators/sequence_pool_op.cc) and the ``sequence_conv`` op
+(sequence_conv_op.cc, math/context_project.h).
 
 Sequences stay in packed-segment form (values on axis 0 plus host
 offsets, see ``core.lod``); a per-sequence reduction is one
@@ -14,8 +15,9 @@ import torch
 
 from paddle_tpu_torch.core.lod import LoD, host_to_device
 from paddle_tpu_torch.framework.registry import register_op
+from paddle_tpu_torch.ops.math import _accum_matmul
 
-__all__ = ["_require_lod", "sequence_pool"]
+__all__ = ["_require_lod", "sequence_pool", "sequence_conv"]
 
 
 def _require_lod(ctx, slot="X"):
@@ -100,3 +102,38 @@ def sequence_pool(ins, attrs, ctx):
     # outer levels (if nested) survive pooling over the innermost level
     ctx.set_lod("Out", LoD(lod.levels[:-1]) if len(lod) > 1 else None)
     return {"Out": out}
+
+
+def _context_index(offs, clen, cstart):
+    """``[total, clen]`` packed-row index of each row's context window
+    (row r + cstart + c), -1 where that row lies outside r's sequence."""
+    offs = np.asarray(offs, np.int64)
+    total = int(offs[-1])
+    seg = np.repeat(np.arange(len(offs) - 1), np.diff(offs))
+    lo, hi = offs[:-1][seg], offs[1:][seg]
+    src = np.arange(total)[:, None] + cstart + np.arange(clen)[None, :]
+    inside = (src >= lo[:, None]) & (src < hi[:, None])
+    return np.where(inside, src, -1)
+
+
+@register_op("sequence_conv", inputs=["X", "Filter"], outputs=["Out"],
+             attrs={"contextStart": None, "contextLength": 3,
+                    "contextStride": 1}, amp_compute=True)
+def sequence_conv(ins, attrs, ctx):
+    """Context-window projection, then one matmul: each packed row's
+    window of ``contextLength`` rows from ``contextStart`` (default
+    ``-(contextLength - 1) // 2``), rows outside its sequence zero,
+    flattened to ``[total, contextLength * D]`` @ Filter. The window
+    index is made on the host from the LoD offsets."""
+    x, w = ins["X"][0], ins["Filter"][0]
+    lod = _require_lod(ctx)
+    clen = attrs["contextLength"]
+    cstart = attrs["contextStart"]
+    if cstart is None:
+        cstart = -((clen - 1) // 2)
+    idx = _context_index(lod.offsets(-1), clen, cstart)
+    gi = host_to_device(np.maximum(idx, 0), x.device)
+    mask = host_to_device((idx >= 0).astype(np.float32), x.device)
+    ctxmat = x[gi] * mask[..., None].to(x.dtype)      # [total, clen, D]
+    ctxmat = ctxmat.reshape(x.shape[0], clen * x.shape[-1])
+    return {"Out": _accum_matmul(ctxmat, w)}

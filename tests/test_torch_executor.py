@@ -435,8 +435,8 @@ def test_text_program_equals_make_train_step(lens_key):
         if sl:   # runtime lengths over a uniform LoD
             feed["seq_lens"] = torch.tensor(TEXT_LENS["ragged"],
                                             dtype=torch.int32)
-        loss, acc = exe.run(main, feed=feed, fetch_list=["loss", "accuracy"],
-                            scope=scope)
+        loss, acc = exe.run(main, feed=feed,
+                            fetch_list=[tx.LOSS, tx.ACCURACY], scope=scope)
         params, state, w_loss, w_acc = step(params, state, feed)
         np.testing.assert_allclose(loss, w_loss.numpy(), atol=TOL, rtol=TOL)
         np.testing.assert_allclose(acc, w_acc.numpy(), atol=TOL, rtol=TOL)

@@ -147,7 +147,7 @@ def test_text_program_runs_the_lstm_kernels(cuda_place, lens, names):
             [lens])), "label": torch.from_numpy(
                 rng.randint(0, 2, (8, 1))).to(dev)} for _ in range(2)]
     tk.reset_launches()
-    got = [exe.run(main, feed=f, fetch_list=["loss"], scope=scope)[0]
+    got = [exe.run(main, feed=f, fetch_list=[tx.LOSS], scope=scope)[0]
            for f in feeds]
     launches = dict(tk.LAUNCHES)
     for n in names:

@@ -159,10 +159,16 @@ def test_variable_sugar_adds_and_names_what_is_missing():
         c = a + b
         assert main.global_block().ops[-1].type == "elementwise_add"
         assert main.global_block().ops[-1].outputs == {"Out": [c.name]}
+        d = a - b
+        assert main.global_block().ops[-1].type == "elementwise_sub"
+        assert main.global_block().ops[-1].outputs == {"Out": [d.name]}
+        e = a * 2.0
+        assert main.global_block().ops[-1].type == "scale"
+        assert main.global_block().ops[-1].attrs == {
+            "scale": 2.0, "bias": 0.0, "bias_after_scale": True}
+        assert e.shape == a.shape
         with pytest.raises(NotImplementedError, match="A8"):
-            a - b
-        with pytest.raises(NotImplementedError, match="A3"):
-            a * 2.0
+            2.0 / a
 
 
 def test_block_var_lookup_names_near_misses():
