@@ -278,10 +278,37 @@ The training entry point adds:
    in fp32, 1e-2 in bf16), ms a step, and three steps under
    ``torch.profiler``.
 
+The image-classification path (bench.py's ``_bench_image_model``:
+the layers DSL, ``Momentum(0.01, momentum=0.9).minimize``,
+``Executor(CUDAPlace(0), amp=True)``, ``RandomState(0)`` images, two
+feeds alternated; no hand-written kernel, every launch count stays 0)
+adds:
+
+6e. ``exec_resnet50``: ``resnet_imagenet(depth=50, class_dim=1000)`` at
+   224 x 224: batch 64, 3 + 20 steps (ms a batch p50 by CUDA events and
+   by the host clock, images/s, MFU with bench.py's 3.8 GMACs an image x
+   2 x 3 over 989 TFLOP/s, peak memory, every loss finite), batch 128
+   and 256 1 + 5 steps each, three batch-64 steps under
+   ``torch.profiler`` (device busy, idle share, device and registry ops
+   a step, top device ops); one fp32 step at batch 2 on the card (cuDNN
+   deterministic) and the port on the CPU from one startup state, each
+   against the same step in float64 (the loss, every gradient,
+   parameter update and running statistic within the IMAGE_PARITY_*
+   gates, the card no more than 2x the CPU's distance); AMP's first
+   loss at batch 64 within 2e-2 of fp32's;
+6f. ``exec_image``: AlexNet, VGG-16 and GoogLeNet (224 x 224, 1000
+   classes) and SmallNet (32 x 32, 10 classes) at batch 64, 1 + 5 steps
+   each; ResNet-50 with the space-to-depth stem as 6e's batch 64 (3 + 20
+   steps, profiled);
+6g. ``trainer_image``: the book's ``recognize_digits_conv`` and
+   ``smallnet_cifar`` through ``Trainer`` on the card over the mnist and
+   cifar-10 surrogates, 8 batches of 64 each (events in order, costs
+   finite, ms a batch).
+
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
 lane of every kernel), the ``serve``, ``train``, seq2seq, LSTM,
-``exec_mlp``, ``exec_text``, ``trainer_lstm`` and ``exec_gru`` lines
-and, last,
+``exec_mlp``, ``exec_text``, ``trainer_lstm``, ``exec_gru``,
+``exec_resnet50``, ``exec_image`` and ``trainer_image`` lines and, last,
 ``{"ok": true, "device": {...}}``. Float32 matmuls run in full float32
 (TF32 off). With no CUDA card it exits non-zero at once.
 """
@@ -4212,6 +4239,502 @@ def exec_gru(fr, kernels, dev, warmup=1, steps=5):
                          "place": "CUDAPlace(0)", **recs}}
 
 
+# 6e-6g: bench.py's image-classification workloads (_bench_image_model,
+# :582-646: the layers DSL, Momentum(0.01, momentum=0.9).minimize,
+# Executor(amp=True), images from np.random.RandomState(0), two feeds
+# alternated) through the port. No hand-written kernel lies on this path
+# (convolutions are cuDNN's, pooling and batch norm PyTorch ops): the
+# launch counts stay 0.
+IMAGE_LR, IMAGE_MU = 0.01, 0.9
+# name -> (builder over models.image, image side, classes, bench.py's
+# forward GMACs an image: :649-675, :696, :718, :748, :770)
+IMAGE_MODELS = {
+    "resnet50": (lambda im, i, l: im.resnet_imagenet(
+        i, l, class_dim=1000, depth=50), 224, 1000, 3.8),
+    "resnet50_s2d": (lambda im, i, l: im.resnet_imagenet(
+        i, l, class_dim=1000, depth=50, s2d_stem=True), 224, 1000, 3.8),
+    "alexnet": (lambda im, i, l: im.alexnet(i, l, class_dim=1000), 224,
+                1000, 0.7),
+    "vgg16": (lambda im, i, l: im.vgg16(i, l, class_dim=1000), 224, 1000,
+              15.5),
+    "googlenet": (lambda im, i, l: im.googlenet(i, l, class_dim=1000), 224,
+                  1000, 1.5),
+    "smallnet": (lambda im, i, l: im.smallnet_mnist_cifar(i, l, class_dim=10),
+                 32, 10, 0.01235),
+}
+IMAGE_B = 64
+# 6e's parity step (ResNet-50, batch 2, 224 x 224, fp32, TF32 off, cuDNN
+# deterministic) on the card and the port on the CPU from one state, each
+# held against the same step in float64 (_plain_step64, on the CPU). An
+# fp32 step's gradients lie a few percent from the float64 ones (batch
+# norm's backward over 2 x 7 x 7 values a channel cancels), so the card
+# and the CPU are each held against the exact step, and the card's
+# distance against the CPU's. The CPU's own distance (seed-0 state,
+# tests/test_torch_image.py's float64 test): the loss 3.2e-6 relative,
+# each gradient and update at most 0.030 relative L2, all the gradients
+# together 0.024, each running statistic's batch part at most 4.0e-5. The
+# gates stand 2-30x above those readings (the test holds them there):
+IMAGE_PARITY_LOSS_REL = 5e-5
+IMAGE_PARITY_GRAD_REL_L2 = 0.1       # each gradient and parameter update
+IMAGE_PARITY_ALL_GRADS_REL_L2 = 0.06
+IMAGE_PARITY_STAT_REL_L2 = 5e-4
+IMAGE_PARITY_CARD_OVER_CPU = 2.0     # card's all-gradients distance / CPU's
+AMP_FIRST_LOSS_REL = 2e-2       # AMP's first loss vs fp32's, batch 64
+
+
+def _image_program(name):
+    """IMAGE_MODELS[name] with Momentum(IMAGE_LR, IMAGE_MU).minimize, in
+    fresh default programs and a fresh global scope (the s2d stem's mask
+    is written there): (main, startup, loss, acc, registry ops a
+    step)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import reset_global_scope
+    from paddle_tpu_torch.framework import program as prog
+    from paddle_tpu_torch.models import image
+    main, start = prog.fresh_programs()
+    reset_global_scope()
+    build, hw, _, _ = IMAGE_MODELS[name]
+    img = pt.layers.data("img", [3, hw, hw])
+    label = pt.layers.data("label", [1], dtype="int64")
+    _, loss, acc = build(image, img, label)
+    pt.optimizer.Momentum(IMAGE_LR, momentum=IMAGE_MU).minimize(loss)
+    n_ops = sum(op.type != "backward" for op in main.global_block().ops)
+    return main, start, loss, acc, n_ops
+
+
+def _image_feeds(name, bs, dev=None):
+    """bench.py's two feeds: ``RandomState(0)`` images in [0, 1) and
+    labels, staged on ``dev`` (as bench.py stages them on the chip)."""
+    _, hw, classes, _ = IMAGE_MODELS[name]
+    rng = np.random.RandomState(0)
+    feeds = [{"img": rng.rand(bs, 3, hw, hw).astype(np.float32),
+              "label": rng.randint(0, classes, (bs, 1)).astype(np.int64)}
+             for _ in range(2)]
+    if dev is None:
+        return feeds
+    return [{k: torch.from_numpy(v).to(dev) for k, v in f.items()}
+            for f in feeds]
+
+
+def _image_train(kernels, dev, name, bs, warmup, steps, amp=True):
+    """``warmup`` + ``steps`` steps of IMAGE_MODELS[name] at batch ``bs``
+    from its startup program (seed 0) on ``Executor(CUDAPlace(0),
+    amp=amp)``, the two feeds alternated, the launch counts zeroed just
+    before and read just after (none may launch): ms a batch p50 by CUDA
+    events and by the host clock (the gaps between ``run``'s returns),
+    the wall ms a batch (the timed steps and the final sync), images/s
+    and MFU (bench.py's 2 x 3 x GMACs an image over 989 TFLOP/s) from
+    the wall, peak memory, every loss finite. Returns (record, exe, main,
+    loss, feeds)."""
+    import paddle_tpu_torch as pt
+    main, start, loss, _, n_ops = _image_program(name)
+    _, hw, classes, gmacs = IMAGE_MODELS[name]
+    exe = pt.Executor(pt.CUDAPlace(0), amp=amp)
+    start.random_seed = 0
+    exe.run(start)
+    feeds = _image_feeds(name, bs, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()                     # the path: go
+    losses = [exe.run(main, feed=feeds[i % 2], fetch_list=[loss],
+                      return_numpy=False)[0].array for i in range(warmup)]
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    stamps = [time.perf_counter()]
+    for i in range(steps):
+        events[i].record()
+        losses.append(exe.run(main, feed=feeds[i % 2], fetch_list=[loss],
+                              return_numpy=False)[0].array)
+        stamps.append(time.perf_counter())
+    events[steps].record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - stamps[0]
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    _check(not launches, f"{name}: kernels launched {launches}")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    loss_list = torch.stack(losses).float().cpu().tolist()
+    _check(all(np.isfinite(loss_list)), f"{name}: losses {loss_list}")
+    wall_ms = wall_s * 1e3 / steps
+    flops = gmacs * 1e9 * 2 * 3 * bs
+    p50 = float(np.median(step_ms))
+    rec = {"batch": bs, "image": [3, hw, hw], "classes": classes,
+           "optimizer": f"momentum {IMAGE_LR} mu {IMAGE_MU}",
+           "amp": amp, "warmup_steps": warmup, "timed_steps": steps,
+           "ms_per_batch_p50": p50, "ms_per_batch_min": float(min(step_ms)),
+           "host_ms_per_batch_p50": float(np.median(np.diff(stamps))) * 1e3,
+           "wall_ms_per_batch": wall_ms,
+           "images_per_s": bs / (wall_ms / 1e3),
+           "images_per_s_p50": bs / (p50 / 1e3),
+           "gmacs_per_image": gmacs,
+           "mfu": flops / (wall_ms / 1e3) / H100_BF16_FLOPS,
+           "mfu_p50": flops / (p50 / 1e3) / H100_BF16_FLOPS,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "registry_ops_per_step": n_ops, "loss_first": loss_list[0],
+           "loss_last": loss_list[-1], "losses_finite": len(loss_list),
+           "kernel_launches": 0}
+    _say(f"{name} batch {bs}{'' if amp else ' fp32'}: ms a batch p50 "
+         f"{p50:.2f} (host {rec['host_ms_per_batch_p50']:.2f}, wall "
+         f"{wall_ms:.2f}), "
+         f"{rec['images_per_s']:.1f} images/s, MFU {rec['mfu']:.4f}, peak "
+         f"{rec['peak_memory_gib']:.2f} GiB")
+    return rec, exe, main, loss, feeds
+
+
+def _release():
+    from paddle_tpu_torch.core.scope import reset_global_scope
+    reset_global_scope()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _plain_step64(main, state, feed):
+    """One training step of ``main`` (an image program of conv2d,
+    batch_norm, relu, pool2d, elementwise_add, mul, softmax,
+    softmax_with_cross_entropy, mean, top_k and accuracy ops, then
+    ``momentum`` updates) in float64 on the CPU, written from the ops'
+    definitions apart from the port: the loss's gradients by autograd,
+    batch norm over the batch with the biased variance, its running
+    statistics ``mom * old + (1 - mom) * batch``, velocity ``mu * v + g``
+    and ``p - lr * v``. ``state`` maps every persistable to a tensor;
+    returns (loss, the persistables after the step)."""
+    import torch.nn.functional as F
+    block = main.global_block()
+    env = {n: torch.as_tensor(v).detach().to("cpu", torch.float64,
+                                             copy=True)
+           for n, v in state.items()}
+    params = [p.name for p in block.all_parameters() if p.trainable]
+    for n in params:
+        env[n].requires_grad_(True)
+    for n, v in feed.items():
+        v = torch.as_tensor(v)
+        env[n] = v.to(torch.float64) if v.is_floating_point() else v
+    new = {}
+    per_channel = (1, -1, 1, 1)
+    for op in block.ops:
+        t, a = op.type, op.attrs
+
+        def x(slot):
+            return env[op.inputs[slot][0]]
+
+        if t == "backward":
+            loss = env[op.inputs["Loss"][0]]
+            break
+        if t == "conv2d":
+            out = {"Output": F.conv2d(x("Input"), x("Filter"), None,
+                                      a["strides"], a["paddings"],
+                                      a["dilations"], a["groups"])}
+        elif t == "batch_norm":
+            xi = x("X")
+            m = xi.mean((0, 2, 3))
+            var = ((xi - m.reshape(per_channel)) ** 2).mean((0, 2, 3))
+            y = ((xi - m.reshape(per_channel))
+                 / torch.sqrt(var.reshape(per_channel) + a["epsilon"])
+                 * x("Scale").reshape(per_channel)
+                 + x("Bias").reshape(per_channel))
+            mom = a["momentum"]
+            new[op.outputs["MeanOut"][0]] = (
+                mom * x("Mean") + (1 - mom) * m.detach())
+            new[op.outputs["VarianceOut"][0]] = (
+                mom * x("Variance") + (1 - mom) * var.detach())
+            out = {"Y": y}
+        elif t == "relu":
+            out = {"Out": F.relu(x("X"))}
+        elif t == "pool2d" and a["global_pooling"]:
+            fn = torch.amax if a["pooling_type"] == "max" else torch.mean
+            out = {"Out": fn(x("X"), (2, 3), keepdim=True)}
+        elif t == "pool2d" and a["pooling_type"] == "max":
+            out = {"Out": F.max_pool2d(x("X"), a["ksize"], a["strides"],
+                                       a["paddings"])}
+        elif t == "elementwise_add":
+            xi, y = x("X"), x("Y")
+            ax = a["axis"] if a["axis"] >= 0 else xi.dim() - y.dim()
+            y = y.reshape((1,) * ax + tuple(y.shape)
+                          + (1,) * (xi.dim() - ax - y.dim()))
+            out = {"Out": xi + y}
+        elif t == "mul":
+            xi, y = x("X"), x("Y")
+            k, j = a["x_num_col_dims"], a["y_num_col_dims"]
+            prod = xi.reshape(int(np.prod(xi.shape[:k])), -1) @ y.reshape(
+                int(np.prod(y.shape[:j])), -1)
+            out = {"Out": prod.reshape(tuple(xi.shape[:k])
+                                       + tuple(y.shape[j:]))}
+        elif t == "softmax":
+            out = {"Out": torch.softmax(x("X"), -1)}
+        elif t == "softmax_with_cross_entropy" and not a["soft_label"]:
+            logp = torch.log_softmax(x("Logits"), -1)
+            out = {"Softmax": logp.exp(),
+                   "Loss": -logp.gather(1, x("Label").reshape(-1, 1))}
+        elif t == "mean":
+            out = {"Out": x("X").mean().reshape(1)}
+        elif t in ("top_k", "accuracy"):
+            continue
+        else:
+            raise NotImplementedError(f"_plain_step64: op {t} {a}")
+        for slot, v in out.items():
+            env[op.outputs[slot][0]] = v
+    grads = dict(zip(params, torch.autograd.grad(
+        loss.sum(), [env[n] for n in params])))
+    for op in block.ops:
+        if op.type != "momentum":
+            continue
+        p, vel = op.inputs["Param"][0], op.inputs["Velocity"][0]
+        g, lr = grads[p], float(env[op.inputs["LearningRate"][0]])
+        mu = op.attrs["mu"]
+        v_out = mu * env[vel] + g
+        step = g + mu * v_out if op.attrs["use_nesterov"] else v_out
+        new[vel] = v_out
+        new[p] = env[p].detach() - lr * step
+    out = {n: new.get(n, env[n]).detach() for n in state}
+    return float(loss.detach().reshape(())), out
+
+
+def _step_distances(main, init, after, ref, loss, ref_loss):
+    """How far one step's persistables ``after`` (and its ``loss``) lie
+    from ``ref`` (and ``ref_loss``), both from ``init``: the loss's
+    relative error; each velocity's (after one step, the gradient's) and
+    each parameter update's relative L2, the most and where; all the
+    velocities together; each running statistic's batch part (new -
+    momentum x old), the most."""
+    block = main.global_block()
+    stats = {op.inputs[s][0]: op.attrs["momentum"] for op in block.ops
+             if op.type == "batch_norm" for s in ("Mean", "Variance")}
+    params = [p.name for p in block.all_parameters()]
+    vel = sorted(n for n in ref if n.startswith("velocity_"))
+
+    def dist(a, b):
+        return _rel_l2(a.double(), b.double())
+
+    def worst(errs):
+        name = max(errs, key=errs.get)
+        return errs[name], name
+
+    grad, grad_at = worst({n: dist(after[n], ref[n]) for n in vel})
+    update, update_at = worst({n: dist(after[n] - init[n], ref[n] - init[n])
+                               for n in params})
+    stat, stat_at = worst({n: dist(after[n] - m * init[n],
+                                   ref[n] - m * init[n])
+                           for n, m in stats.items()})
+    return {"loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+            "grad_max_rel_l2": grad, "grad_max_at": grad_at,
+            "all_grads_rel_l2": dist(torch.cat([after[n].reshape(-1)
+                                                for n in vel]),
+                                     torch.cat([ref[n].reshape(-1)
+                                                for n in vel])),
+            "update_max_rel_l2": update, "update_max_at": update_at,
+            "stat_max_rel_l2": stat, "stat_max_at": stat_at,
+            "n_stats": len(stats), "n_params": len(params)}
+
+
+def _within_parity_gates(d):
+    return (d["loss_rel"] <= IMAGE_PARITY_LOSS_REL
+            and max(d["grad_max_rel_l2"], d["update_max_rel_l2"])
+            <= IMAGE_PARITY_GRAD_REL_L2
+            and d["all_grads_rel_l2"] <= IMAGE_PARITY_ALL_GRADS_REL_L2
+            and d["stat_max_rel_l2"] <= IMAGE_PARITY_STAT_REL_L2)
+
+
+def _image_parity(dev):
+    """ResNet-50's one fp32 step at batch 2, 224 x 224, from one startup
+    state (seed 0) on ``CUDAPlace(0)`` (cuDNN deterministic for this
+    step only) and on ``CPUPlace``, each against the same step in float64
+    (``_plain_step64``): the loss, every velocity (the gradient),
+    parameter update and running statistic's batch part within the
+    IMAGE_PARITY_* gates, the card's distance at most
+    IMAGE_PARITY_CARD_OVER_CPU times the CPU's; the card against the CPU
+    is reported."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import Scope
+    main, start, loss, _, _ = _image_program("resnet50")
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = Scope()
+    start.random_seed = 0
+    exe.run(start, scope=scope)
+    names = sorted(scope.local_var_names())
+    cpu_scope = _scope_copy(scope, names, "cpu")
+    init = {n: cpu_scope.find_var(n).array.clone() for n in names}
+    feed = _image_feeds("resnet50", 2)[0]
+    torch.backends.cudnn.deterministic = True
+    try:
+        (got,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    t0 = time.perf_counter()
+    (want,) = pt.Executor(pt.CPUPlace()).run(main, feed=feed,
+                                             fetch_list=[loss],
+                                             scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_loss, ref = _plain_step64(main, init, feed)
+    f64_s = time.perf_counter() - t0
+    card = {n: scope.find_var(n).array.cpu() for n in names}
+    cpu = {n: cpu_scope.find_var(n).array for n in names}
+    got, want = float(got), float(want)
+    d_card = _step_distances(main, init, card, ref, got, ref_loss)
+    d_cpu = _step_distances(main, init, cpu, ref, want, ref_loss)
+    d_pair = _step_distances(main, init, card, cpu, got, want)
+    _say(f"resnet50 parity: card vs float64 {json.dumps(d_card)}; CPU vs "
+         f"float64 {json.dumps(d_cpu)}; card vs CPU {json.dumps(d_pair)}")
+    _check(d_card["n_stats"] == 106 and d_card["n_params"] == 161,
+           f"resnet50 parity: {d_card['n_stats']} stats, "
+           f"{d_card['n_params']} params")
+    _check(np.isfinite(got) and _within_parity_gates(d_card),
+           f"resnet50 parity: card vs float64 {d_card}")
+    _check(_within_parity_gates(d_cpu),
+           f"resnet50 parity: CPU vs float64 {d_cpu}")
+    _check(d_card["all_grads_rel_l2"]
+           <= IMAGE_PARITY_CARD_OVER_CPU * d_cpu["all_grads_rel_l2"],
+           f"resnet50 parity: card {d_card['all_grads_rel_l2']} vs CPU "
+           f"{d_cpu['all_grads_rel_l2']} from float64")
+    for n in names:     # what no op writes (the learning rate) is unchanged
+        if not torch.equal(init[n].double(), ref[n]):
+            continue
+        _check(torch.equal(card[n], init[n]) and torch.equal(cpu[n], init[n]),
+               f"resnet50 parity: {n} moved")
+    del scope, cpu_scope, init, card, cpu, ref, exe
+    _release()
+    hw = IMAGE_MODELS["resnet50"][1]
+    return {"batch": 2, "image": [3, hw, hw], "dtype": "float32",
+            "cudnn_deterministic": True, "loss_card": got, "loss_cpu": want,
+            "loss_float64": ref_loss, "card_vs_float64": d_card,
+            "cpu_vs_float64": d_cpu, "card_vs_cpu": d_pair,
+            "tol": {"loss_rel": IMAGE_PARITY_LOSS_REL,
+                    "grad_and_update_rel_l2": IMAGE_PARITY_GRAD_REL_L2,
+                    "all_grads_rel_l2": IMAGE_PARITY_ALL_GRADS_REL_L2,
+                    "stat_rel_l2": IMAGE_PARITY_STAT_REL_L2,
+                    "card_over_cpu_all_grads": IMAGE_PARITY_CARD_OVER_CPU},
+            "cpu_step_s": cpu_s, "float64_step_s": f64_s}
+
+
+def _image_train_profiled(kernels, dev, name):
+    """``_image_train`` of ``name`` at batch IMAGE_B, 3 + 20 steps, then
+    three more under ``torch.profiler`` (its record's ``profile``)."""
+    rec, exe, main, loss, feeds = _image_train(kernels, dev, name, IMAGE_B,
+                                               3, 20)
+    prof = _profile([lambda f=f: exe.run(main, feed=f, fetch_list=[loss])
+                     for f in (feeds * 3)[:5]])
+    prof["registry_ops_per_step"] = rec["registry_ops_per_step"]
+    rec["profile"] = prof
+    del exe, main, loss, feeds
+    _release()
+    _say(f"{name} profile: device busy {prof['device_busy_ms_per_step']}"
+         f" ms a step, idle share {prof['device_idle_share']}, "
+         f"{prof['device_kernels_per_step']} device ops a step")
+    return rec
+
+
+def exec_resnet50(kernels, dev):
+    """Phase 6e (``exec_resnet50``): bench_resnet50 through the port:
+    ResNet-50 at 224 x 224, 1000 classes, ``Momentum(0.01, 0.9)``,
+    ``Executor(CUDAPlace(0), amp=True)``: batch 64 3 + 20 steps, batch 128
+    and 256 1 + 5 each; three batch-64 steps under ``torch.profiler``;
+    the parity step (the card and the CPU each against float64); AMP's
+    first loss against fp32's."""
+    runs = {f"batch_{IMAGE_B}": _image_train_profiled(kernels, dev,
+                                                      "resnet50")}
+    for bs in (128, 256):
+        runs[f"batch_{bs}"] = _image_train(kernels, dev, "resnet50", bs, 1,
+                                           5)[0]
+        _release()
+    parity = _image_parity(dev)
+    fp32 = _image_train(kernels, dev, "resnet50", IMAGE_B, 0, 1,
+                        amp=False)[0]["loss_first"]
+    _release()
+    amp_first = runs[f"batch_{IMAGE_B}"]["loss_first"]
+    amp_rel = abs(amp_first - fp32) / abs(fp32)
+    _check(amp_rel <= AMP_FIRST_LOSS_REL,
+           f"resnet50: AMP first loss {amp_first} vs fp32 {fp32}")
+    return {"exec_resnet50": {
+        "model": "resnet_imagenet(depth=50, class_dim=1000)",
+        "place": "CUDAPlace(0)", "mfu_peak_flops": H100_BF16_FLOPS,
+        **runs, "parity_card_vs_cpu": parity,
+        "amp_vs_fp32_first_loss": {"amp": amp_first, "fp32": fp32,
+                                   "rel_err": amp_rel,
+                                   "tol": AMP_FIRST_LOSS_REL}}}
+
+
+def exec_image(kernels, dev):
+    """Phase 6f (``exec_image``): bench.py's AlexNet, VGG-16 and GoogLeNet
+    (224 x 224, 1000 classes) and SmallNet (32 x 32, 10 classes) at batch
+    64, 1 + 5 steps each, and ResNet-50 with the space-to-depth stem as
+    ``exec_resnet50`` runs the 7 x 7 stem at batch 64 (3 + 20 steps, three
+    profiled)."""
+    out = {}
+    for name in ("alexnet", "vgg16", "googlenet", "smallnet"):
+        out[name] = _image_train(kernels, dev, name, IMAGE_B, 1, 5)[0]
+        _release()
+    out["resnet50_s2d"] = _image_train_profiled(kernels, dev, "resnet50_s2d")
+    return {"exec_image": {"place": "CUDAPlace(0)", "amp": True, **out}}
+
+
+def _image_trainer_run(kernels, name, n_batches, bs=64):
+    """The book's ``recognize_digits_conv`` (``mnist.conv``, Adam 0.01) or
+    ``smallnet_cifar`` (SmallNet, Momentum 0.01) through ``Trainer`` on
+    ``CUDAPlace(0)``, one pass over ``n_batches`` batches of the dataset's
+    surrogate (images reshaped as test_book.py reshapes them): the
+    events in order, every cost finite, ms a batch (the p50 of the gaps
+    between EndIteration events after the first)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import reset_global_scope
+    from paddle_tpu_torch.framework import program as prog
+    from paddle_tpu_torch.models import image, mnist
+    prog.fresh_programs()
+    reset_global_scope()
+    if name == "recognize_digits_conv":
+        shape, raw = (1, 28, 28), pt.datasets.mnist.train(n_batches * bs)
+        img = pt.layers.data("img", list(shape))
+        label = pt.layers.data("label", [1], dtype="int64")
+        _, loss, acc = mnist.conv(img, label)
+        opt = pt.optimizer.Adam(0.01)
+    else:
+        shape, raw = (3, 32, 32), pt.datasets.cifar.train10(n_batches * bs)
+        img = pt.layers.data("img", list(shape))
+        label = pt.layers.data("label", [1], dtype="int64")
+        _, loss, acc = image.smallnet_mnist_cifar(img, label)
+        opt = pt.optimizer.Momentum(0.01)
+
+    def shaped():
+        for im, lab in raw():
+            yield im.reshape(shape), lab
+
+    tr = pt.Trainer(cost=loss, optimizer=opt, feed_list=[img, label],
+                    metrics=[acc], place=pt.CUDAPlace(0))
+    kinds, costs, stamps = [], [], []
+
+    def handler(e):
+        kinds.append(type(e).__name__)
+        if isinstance(e, pt.event.EndIteration):
+            stamps.append(time.perf_counter())
+            costs.append(e.cost)
+
+    kernels.reset_launches()
+    tr.train(pt.reader.batch(shaped, bs), num_passes=1,
+             event_handler=handler, log_period=0)
+    torch.cuda.synchronize()
+    _check(not any(kernels.LAUNCHES.values()),
+           f"trainer_image {name}: kernels launched")
+    _check(kinds == ["BeginPass"] + ["BeginIteration", "EndIteration"]
+           * n_batches + ["EndPass"], f"trainer_image {name}: events {kinds}")
+    _check(all(np.isfinite(costs)), f"trainer_image {name}: costs {costs}")
+    del tr
+    _release()
+    return {"batch": bs, "image": list(shape), "batches": n_batches,
+            "optimizer": "adam 0.01" if name == "recognize_digits_conv"
+            else "momentum 0.01", "cost_first": float(costs[0]),
+            "cost_last": float(costs[-1]),
+            "ms_per_batch_p50": float(np.median(np.diff(stamps)[1:])) * 1e3}
+
+
+def trainer_image(kernels):
+    """Phase 6g (``trainer_image``): the two conv book models through the
+    ``Trainer`` on the card, over the mnist and cifar-10 surrogates."""
+    out = {name: _image_trainer_run(kernels, name, 8)
+           for name in ("recognize_digits_conv", "smallnet_cifar")}
+    for name, rec in out.items():
+        _say(f"trainer_image {name}: ms a batch {rec['ms_per_batch_p50']:.2f}"
+             f", cost {rec['cost_first']:.4f} -> {rec['cost_last']:.4f}")
+    return {"trainer_image": {"place": "CUDAPlace(0)", **out}}
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke of the port.")
@@ -4643,6 +5166,15 @@ def main(argv=None):
     gru_prog_rec = exec_gru(fr, kernels, dev)
     _say(f"trainer phases done at {time.perf_counter() - t0:.1f} s")
 
+    # 6e-6g: the image-classification path: ResNet-50 at bench.py's batch
+    # 64 (and 128, 256), the other image models, the conv book models
+    # through the Trainer
+    torch.cuda.empty_cache()
+    resnet_rec = exec_resnet50(kernels, dev)
+    image_rec = exec_image(kernels, dev)
+    trainer_image_rec = trainer_image(kernels)
+    _say(f"image phases done at {time.perf_counter() - t0:.1f} s")
+
     _say(json.dumps(prec))
     _say(json.dumps(pqrec))
     _say(json.dumps(pwrec))
@@ -4686,6 +5218,9 @@ def main(argv=None):
     _say(json.dumps(xtext_rec))
     _say(json.dumps(trainer_rec))
     _say(json.dumps(gru_prog_rec))
+    _say(json.dumps(resnet_rec))
+    _say(json.dumps(image_rec))
+    _say(json.dumps(trainer_image_rec))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,18 +12,25 @@ activation), ``embedding``, ``softmax`` / ``relu`` / ``sigmoid`` /
 ``tanh``, ``mean``, ``concat``, ``split``, ``matmul``, ``scale``, the
 elementwise ops, ``softmax_with_cross_entropy``, ``square_error_cost``,
 ``accuracy`` (``top_k`` then ``accuracy``), the sequence layers
-``sequence_pool`` (with runtime ``seq_lens``) and ``sequence_conv``, and
-the recurrent layers ``dynamic_lstm``, ``fused_lstm`` and
-``dynamic_gru``. The rest of the DSL (conv, pooling, normalization,
-dropout, the other losses and sequence ops) is ROADMAP A8's.
+``sequence_pool`` (with runtime ``seq_lens``) and ``sequence_conv``, the
+recurrent layers ``dynamic_lstm``, ``fused_lstm`` and ``dynamic_gru``,
+and the image layers of the JAX package's ``ops/nn.py`` (``conv2d``,
+``conv2d_transpose``, ``pool2d``, ``batch_norm``, ``layer_norm``,
+``dropout``, ``lrn``, ``pad``, ``max_pool2d_with_index``, ``unpool``,
+``spp``, ``conv3d``, ``conv3d_transpose``, ``pool3d``, ``selective_fc``,
+``sampling_id``) with ``reshape`` and ``transpose``. The rest of the DSL
+(the other losses and sequence ops, control flow) is ROADMAP A8's.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence
 
 import numpy as np
 
 from paddle_tpu_torch.framework.program import Variable, default_main_program
+from paddle_tpu_torch.initializer import (ConstantInitializer,
+                                          NormalInitializer)
 from paddle_tpu_torch.layer_helper import LayerHelper
 
 __all__ = [
@@ -33,7 +40,10 @@ __all__ = [
     "elementwise_div", "scale", "sequence_pool", "sequence_first_step",
     "sequence_last_step", "sequence_conv", "dynamic_lstm", "fused_lstm",
     "dynamic_gru", "softmax", "relu", "sigmoid", "tanh",
-    "elementwise_binary_sugar",
+    "elementwise_binary_sugar", "conv2d", "conv2d_transpose", "pool2d",
+    "batch_norm", "layer_norm", "dropout", "reshape", "transpose", "lrn",
+    "pad", "max_pool2d_with_index", "unpool", "spp", "conv3d",
+    "conv3d_transpose", "pool3d", "selective_fc", "sampling_id",
 ]
 
 
@@ -101,6 +111,259 @@ def embedding(input, size: Sequence[int], param_attr=None, dtype="float32",
                      outputs={"Out": out},
                      attrs={"padding_idx": padding_idx, "is_sparse": is_sparse})
     return out
+
+
+# ---------------------------------------------------------------------------
+# image layers
+
+
+def _conv_out_dim(in_dim, k, s, p, d=1):
+    if in_dim is None or in_dim < 0:
+        return -1
+    return (in_dim + 2 * p - (d * (k - 1) + 1)) // s + 1
+
+
+def conv2d(input, num_filters: int, filter_size, stride=1, padding=0,
+           dilation=1, groups=1, param_attr=None, bias_attr=None,
+           act: Optional[str] = None, name=None) -> Variable:
+    """(ref fluid/layers.py:660 conv2d; conv_op.cc). NCHW; the filter
+    [num_filters, C / groups, kh, kw] from N(0, sqrt(2 / (kh kw C)))."""
+    helper = LayerHelper("conv2d", name=name)
+    fsize = filter_size if isinstance(filter_size, (list, tuple)) else (
+        filter_size, filter_size)
+    num_channels = input.shape[1]
+    w_shape = [num_filters, num_channels // groups, fsize[0], fsize[1]]
+    std = math.sqrt(2.0 / (fsize[0] * fsize[1] * num_channels))
+    w = helper.create_parameter(param_attr, shape=w_shape, dtype=input.dtype,
+                                default_initializer=NormalInitializer(0.0, std))
+    strides = list(stride) if isinstance(stride, (list, tuple)) else [stride, stride]
+    paddings = list(padding) if isinstance(padding, (list, tuple)) else [padding, padding]
+    dilations = list(dilation) if isinstance(dilation, (list, tuple)) else [dilation, dilation]
+    out_shape = None
+    if input.shape is not None and len(input.shape) == 4:
+        n, _, h, w_in = input.shape
+        oh = _conv_out_dim(h, fsize[0], strides[0], paddings[0], dilations[0])
+        ow = _conv_out_dim(w_in, fsize[1], strides[1], paddings[1], dilations[1])
+        out_shape = (n, num_filters, oh, ow)
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=out_shape)
+    helper.append_op(
+        "conv2d", inputs={"Input": input, "Filter": w},
+        outputs={"Output": out},
+        attrs={"strides": strides, "paddings": paddings,
+               "dilations": dilations, "groups": groups})
+    pre_act = helper.append_bias_op(out, bias_attr, num_filters, dim_start=1)
+    return helper.append_activation(pre_act, act)
+
+
+def conv2d_transpose(input, num_filters: int, filter_size, stride=1, padding=0,
+                     param_attr=None, bias_attr=False, act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", name=name)
+    fsize = filter_size if isinstance(filter_size, (list, tuple)) else (
+        filter_size, filter_size)
+    w = helper.create_parameter(
+        param_attr, shape=[input.shape[1], num_filters, fsize[0], fsize[1]],
+        dtype=input.dtype)
+    st = [stride, stride] if isinstance(stride, int) else list(stride)
+    pd = [padding, padding] if isinstance(padding, int) else list(padding)
+    out_shape = None
+    if input.shape is not None and len(input.shape) == 4:
+        n, _, h, w_in = input.shape
+        oh = -1 if h < 0 else (h - 1) * st[0] + fsize[0] - 2 * pd[0]
+        ow = -1 if w_in < 0 else (w_in - 1) * st[1] + fsize[1] - 2 * pd[1]
+        out_shape = (n, num_filters, oh, ow)
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=out_shape)
+    helper.append_op(
+        "conv2d_transpose", inputs={"Input": input, "Filter": w},
+        outputs={"Output": out},
+        attrs={"strides": st, "paddings": pd})
+    pre_act = helper.append_bias_op(out, bias_attr, num_filters, dim_start=1)
+    return helper.append_activation(pre_act, act)
+
+
+def pool2d(input, pool_size=2, pool_type="max", pool_stride=None,
+           pool_padding=0, global_pooling=False, name=None) -> Variable:
+    helper = LayerHelper("pool2d", name=name)
+    if pool_stride is None:
+        pool_stride = pool_size
+    out_shape = None
+    if input.shape is not None and len(input.shape) == 4:
+        n, c, h, w = input.shape
+        if global_pooling:
+            out_shape = (n, c, 1, 1)
+        else:
+            ks = pool_size if isinstance(pool_size, (list, tuple)) else (pool_size, pool_size)
+            st = pool_stride if isinstance(pool_stride, (list, tuple)) else (pool_stride, pool_stride)
+            pd = pool_padding if isinstance(pool_padding, (list, tuple)) else (pool_padding, pool_padding)
+            out_shape = (n, c, _conv_out_dim(h, ks[0], st[0], pd[0]),
+                         _conv_out_dim(w, ks[1], st[1], pd[1]))
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=out_shape)
+    helper.append_op(
+        "pool2d", inputs={"X": input}, outputs={"Out": out},
+        attrs={"pooling_type": pool_type,
+               "ksize": [pool_size, pool_size] if isinstance(pool_size, int) else list(pool_size),
+               "strides": [pool_stride, pool_stride] if isinstance(pool_stride, int) else list(pool_stride),
+               "paddings": [pool_padding, pool_padding] if isinstance(pool_padding, int) else list(pool_padding),
+               "global_pooling": global_pooling})
+    return out
+
+
+def batch_norm(input, act=None, momentum=0.9, epsilon=1e-5, param_attr=None,
+               bias_attr=None, is_test=False, name=None) -> Variable:
+    """(ref fluid/layers.py:792 batch_norm): fp32 Scale (1) and Bias (0)
+    parameters; the running mean (0) and variance (1) are persistable
+    global variables, not parameters, which the op writes back
+    (MeanOut / VarianceOut name them)."""
+    helper = LayerHelper("batch_norm", name=name)
+    c = input.shape[1] if len(input.shape) > 1 else input.shape[-1]
+    scale = helper.create_parameter(param_attr, shape=[c], dtype="float32",
+                                    default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, shape=[c], dtype="float32",
+                                   is_bias=True)
+    mean = helper.create_global_variable(shape=[c], dtype="float32")
+    var = helper.create_global_variable(shape=[c], dtype="float32")
+    ConstantInitializer(0.0)(mean)
+    ConstantInitializer(1.0)(var)
+    saved_mean = helper.create_tmp_variable(dtype="float32", shape=(c,))
+    saved_var = helper.create_tmp_variable(dtype="float32", shape=(c,))
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=input.shape)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+                "Variance": var},
+        outputs={"Y": out, "MeanOut": mean, "VarianceOut": var,
+                 "SavedMean": saved_mean, "SavedVariance": saved_var},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test})
+    return helper.append_activation(out, act)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, name=None):
+    helper = LayerHelper("layer_norm", name=name)
+    d = int(np.prod(input.shape[begin_norm_axis:]))
+    inputs = {"X": input}
+    if scale:
+        inputs["Scale"] = helper.create_parameter(
+            param_attr, shape=[d], dtype="float32",
+            default_initializer=ConstantInitializer(1.0))
+    if shift:
+        inputs["Bias"] = helper.create_parameter(
+            bias_attr, shape=[d], dtype="float32", is_bias=True)
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=input.shape)
+    mean = helper.create_tmp_variable(dtype="float32")
+    var = helper.create_tmp_variable(dtype="float32")
+    helper.append_op("layer_norm", inputs=inputs,
+                     outputs={"Y": out, "Mean": mean, "Variance": var},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return out
+
+
+def dropout(x, dropout_prob=0.5, is_test=False, seed=0, name=None):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_tmp_variable(dtype=x.dtype, shape=x.shape,
+                                     lod_level=x.lod_level)
+    mask = helper.create_tmp_variable(dtype=x.dtype, shape=x.shape)
+    helper.append_op("dropout", inputs={"X": x},
+                     outputs={"Out": out, "Mask": mask},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": seed})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=input.shape)
+    mid = helper.create_tmp_variable(dtype=input.dtype, shape=input.shape)
+    helper.append_op("lrn", inputs={"X": input},
+                     outputs={"Out": out, "MidOut": mid},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def max_pool2d_with_index(input, ksize, strides=None, paddings=(0, 0),
+                          name=None):
+    helper = LayerHelper("max_pool2d_with_index", name=name)
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=None)
+    mask = helper.create_tmp_variable(dtype="int32", shape=None)
+    helper.append_op(
+        "max_pool2d_with_index", inputs={"X": input},
+        outputs={"Out": out, "Mask": mask},
+        attrs={"ksize": list(ksize), "strides": list(strides or ksize),
+               "paddings": list(paddings), "global_pooling": False})
+    return out, mask
+
+
+def _conv3d_common(op_type, input, num_filters, filter_size, stride, padding,
+                   dilation, groups, param_attr, bias_attr, act, name,
+                   transpose=False):
+    helper = LayerHelper(op_type, name=name)
+    fs = (list(filter_size) if isinstance(filter_size, (list, tuple))
+          else [filter_size] * 3)
+    num_channels = input.shape[1]
+    if transpose:
+        w_shape = [num_channels, num_filters] + fs
+    else:
+        w_shape = [num_filters, num_channels // groups] + fs
+    std = math.sqrt(2.0 / (fs[0] * fs[1] * fs[2] * num_channels))
+    w = helper.create_parameter(param_attr, shape=w_shape, dtype=input.dtype,
+                                default_initializer=NormalInitializer(0.0, std))
+    st = list(stride) if isinstance(stride, (list, tuple)) else [stride] * 3
+    pd = list(padding) if isinstance(padding, (list, tuple)) else [padding] * 3
+    dl = list(dilation) if isinstance(dilation, (list, tuple)) else [dilation] * 3
+    out_shape = None
+    if input.shape is not None and len(input.shape) == 5:
+        n = input.shape[0]
+        dims = []
+        for i in range(3):
+            d_in = input.shape[2 + i]
+            if transpose:
+                dims.append((d_in - 1) * st[i] - 2 * pd[i]
+                            + dl[i] * (fs[i] - 1) + 1)
+            else:
+                dims.append(_conv_out_dim(d_in, fs[i], st[i], pd[i], dl[i]))
+        out_shape = (n, num_filters) + tuple(dims)
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=out_shape)
+    attrs = {"strides": st, "paddings": pd, "dilations": dl}
+    if not transpose:
+        attrs["groups"] = groups
+    helper.append_op(op_type, inputs={"Input": input, "Filter": w},
+                     outputs={"Output": out}, attrs=attrs)
+    pre = helper.append_bias_op(out, bias_attr, num_filters, dim_start=1)
+    return helper.append_activation(pre, act)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None):
+    """NCDHW 3D convolution (ref Conv3DLayer.cpp; conv_op.cc 3D)."""
+    return _conv3d_common("conv3d", input, num_filters, filter_size, stride,
+                          padding, dilation, groups, param_attr, bias_attr,
+                          act, name)
+
+
+def conv3d_transpose(input, num_filters, filter_size, stride=1, padding=0,
+                     dilation=1, param_attr=None, bias_attr=False, act=None,
+                     name=None):
+    """(ref DeConv3DLayer.cpp; conv_transpose_op.cc 3D)."""
+    return _conv3d_common("conv3d_transpose", input, num_filters, filter_size,
+                          stride, padding, dilation, 1, param_attr, bias_attr,
+                          act, name, transpose=True)
+
+
+def selective_fc(input, size: int, selection, param_attr=None, act=None,
+                 name=None):
+    """Compute only the selected columns of a big fc output
+    (ref SelectiveFullyConnectedLayer.cpp). ``selection`` [B, K] int."""
+    helper = LayerHelper("selective_fc", name=name)
+    w = helper.create_parameter(param_attr, shape=[input.shape[-1], size],
+                                dtype=input.dtype)
+    shape = None
+    if input.shape is not None and selection.shape is not None:
+        shape = (input.shape[0], selection.shape[-1])
+    out = helper.create_tmp_variable(dtype=input.dtype, shape=shape)
+    helper.append_op("selective_fc",
+                     inputs={"X": input, "W": w, "Selection": selection},
+                     outputs={"Out": out})
+    return helper.append_activation(out, act)
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False, name=None):
@@ -243,6 +506,72 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, name=None):
                        {"scale": float(scale), "bias": float(bias),
                         "bias_after_scale": bias_after_scale}, name=name)
 
+
+def reshape(x, shape, name=None):
+    out_shape = [x.shape[i] if (s == 0 and x.shape is not None) else s
+                 for i, s in enumerate(shape)]
+    return _single_out("reshape", {"X": x}, {"shape": list(shape)}, name=name,
+                       shape=tuple(out_shape))
+
+
+def transpose(x, perm, name=None):
+    shape = tuple(x.shape[i] for i in perm) if x.shape is not None else None
+    return _single_out("transpose", {"X": x}, {"axis": list(perm)}, name=name,
+                       shape=shape)
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _single_out("pad", {"X": x},
+                       {"paddings": list(paddings), "pad_value": pad_value},
+                       name=name)
+
+
+def unpool(input, indices, ksize, strides=None, paddings=(0, 0), name=None):
+    return _single_out(
+        "unpool", {"X": input, "Indices": indices},
+        {"ksize": list(ksize), "strides": list(strides or ksize),
+         "paddings": list(paddings)}, name=name, shape=None)
+
+
+def spp(input, pyramid_height=2, pooling_type="max", name=None):
+    shape = None
+    if input.shape is not None:
+        bins = sum(4 ** lv for lv in range(pyramid_height))
+        shape = (input.shape[0], input.shape[1] * bins)
+    return _single_out("spp", {"X": input},
+                       {"pyramid_height": pyramid_height,
+                        "pooling_type": pooling_type}, name=name, shape=shape)
+
+
+def pool3d(input, pool_size=2, pool_type="max", pool_stride=2, pool_padding=0,
+           global_pooling=False, name=None):
+    """(ref Pool3DLayer.cpp; pool_op.cc 3D)."""
+    ks = (list(pool_size) if isinstance(pool_size, (list, tuple))
+          else [pool_size] * 3)
+    st = (list(pool_stride) if isinstance(pool_stride, (list, tuple))
+          else [pool_stride] * 3)
+    pd = (list(pool_padding) if isinstance(pool_padding, (list, tuple))
+          else [pool_padding] * 3)
+    shape = None
+    if input.shape is not None and len(input.shape) == 5:
+        if global_pooling:
+            shape = tuple(input.shape[:2]) + (1, 1, 1)
+        else:
+            dims = [(input.shape[2 + i] + 2 * pd[i] - ks[i]) // st[i] + 1
+                    for i in range(3)]
+            shape = tuple(input.shape[:2]) + tuple(dims)
+    return _single_out("pool3d", {"X": input},
+                       {"pooling_type": pool_type, "ksize": ks,
+                        "strides": st, "paddings": pd,
+                        "global_pooling": global_pooling},
+                       name=name, shape=shape)
+
+
+def sampling_id(x, seed=0, name=None):
+    """(ref sampling_id_op.cc; SamplingIdLayer.cpp)."""
+    shape = (x.shape[0],) if x.shape is not None else None
+    return _single_out("sampling_id", {"X": x}, {"seed": seed}, name=name,
+                       dtype="int32", shape=shape)
 
 # ---------------------------------------------------------------------------
 # sequence layers

@@ -6,7 +6,10 @@ IMDB LSTM text classifier (``lstm_benchmark_net``: ops run one at a time
 as the Executor runs them, trained with SGD or Adam, AMP; and as a
 ``Program`` for the Executor, ``build_program``) and the text nets built
 by the layers DSL; ``models.mnist``, the MNIST MLP built by the layers
-DSL; and ``models.book``, the book models' graph builders."""
-from paddle_tpu_torch.models import book, mnist, seq2seq, text, transformer
+DSL, and its LeNet-style ``conv`` net; ``models.image``, the image
+classifiers (AlexNet, VGG-16, ResNet, GoogLeNet, SmallNet) built by the
+layers DSL; and ``models.book``, the book models' graph builders."""
+from paddle_tpu_torch.models import (book, image, mnist, seq2seq, text,
+                                     transformer)
 
-__all__ = ["book", "mnist", "seq2seq", "text", "transformer"]
+__all__ = ["book", "image", "mnist", "seq2seq", "text", "transformer"]

@@ -10,10 +10,6 @@ caller controls which default programs the graph lands in::
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models.book import build_book_model
     loss, main, startup = build_book_model("fit_a_line")
-
-``recognize_digits_conv`` and ``smallnet_cifar`` need conv2d / pool2d
-(and ``smallnet_cifar`` the Momentum optimizer): they raise, naming
-ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -41,14 +37,21 @@ def recognize_digits_mlp(pt):
 
 
 def recognize_digits_conv(pt):
-    raise NotImplementedError(
-        "recognize_digits_conv needs conv2d / pool2d "
-        "(nets.simple_img_conv_pool), not ported yet (ROADMAP A8)")
+    from paddle_tpu_torch.models import mnist as mnist_models
+    img = pt.layers.data("img", [1, 28, 28])
+    label = pt.layers.data("label", [1], dtype="int64")
+    _, loss, _acc = mnist_models.conv(img, label)
+    pt.optimizer.Adam(0.01).minimize(loss)
+    return loss
 
 
 def smallnet_cifar(pt):
-    raise NotImplementedError(
-        "smallnet_cifar needs conv2d / pool2d, not ported yet (ROADMAP A8)")
+    from paddle_tpu_torch.models import image as image_models
+    img = pt.layers.data("img", [3, 32, 32])
+    label = pt.layers.data("label", [1], dtype="int64")
+    _, loss, _acc = image_models.smallnet_mnist_cifar(img, label)
+    pt.optimizer.Momentum(0.01).minimize(loss)
+    return loss
 
 
 def word2vec(pt):

@@ -2,13 +2,15 @@
 emit: the port of the JAX package's ``ops/math.py`` ``mul`` and
 ``matmul`` (``amp_compute``), the elementwise ops (``elementwise_add``,
 fc's bias; ``_sub``, ``_mul``, ``_div``), ``scale``, ``sum`` (fc over
-several inputs), ``mean``, ``concat`` and ``split``, ``lookup_table``
-(the embedding) and ``top_k`` (the accuracy metric's first half), and
-the startup program's initializer ops ``fill_constant``,
-``uniform_random`` and ``gaussian_random``; the reference's mul_op.cc,
-matmul_op.cc, elementwise_*_op.cc, scale_op.cc, sum_op.cc, mean_op.cc,
-concat_op.cc, split_op.cc, lookup_table_op.cc, top_k_op.cc,
-fill_constant_op.cc, uniform_random_op.cc and gaussian_random_op.cc.
+several inputs), ``mean``, ``concat`` and ``split``, ``reshape`` and
+``transpose`` (the space-to-depth stem of ``models/image.py``),
+``lookup_table`` (the embedding) and ``top_k`` (the accuracy metric's
+first half), and the startup program's initializer ops
+``fill_constant``, ``uniform_random`` and ``gaussian_random``; the
+reference's mul_op.cc, matmul_op.cc, elementwise_*_op.cc, scale_op.cc,
+sum_op.cc, mean_op.cc, concat_op.cc, split_op.cc, reshape_op.cc,
+transpose_op.cc, lookup_table_op.cc, top_k_op.cc, fill_constant_op.cc,
+uniform_random_op.cc and gaussian_random_op.cc.
 
 The random ops draw from the ``torch.Generator`` the Executor hands
 them (seeded from its seed, the step and the op's index), or from one
@@ -28,7 +30,7 @@ from paddle_tpu_torch.framework.registry import register_op
 
 __all__ = ["mul", "matmul", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "scale", "sum_op", "mean",
-           "concat", "split", "lookup_table", "top_k", "fill_constant",
+           "concat", "split", "reshape", "transpose", "lookup_table", "top_k", "fill_constant",
            "uniform_random", "gaussian_random"]
 
 _LOW = (torch.bfloat16, torch.float16)
@@ -140,6 +142,20 @@ def split(ins, attrs, ctx):
         raise ValueError(f"split: axis {axis} of size {x.shape[axis]} does "
                          f"not divide into {n} equal parts")
     return {"Out": list(torch.split(x, x.shape[axis] // n, dim=axis))}
+
+
+@register_op("reshape", inputs=["X"], outputs=["Out"], attrs={"shape": None})
+def reshape(ins, attrs, ctx):
+    """fluid semantics: a 0 copies the input's dim, one -1 is inferred."""
+    x = ins["X"][0]
+    shape = [x.shape[i] if s == 0 else s
+             for i, s in enumerate(attrs["shape"])]
+    return {"Out": x.reshape(shape)}
+
+
+@register_op("transpose", inputs=["X"], outputs=["Out"], attrs={"axis": None})
+def transpose(ins, attrs, ctx):
+    return {"Out": ins["X"][0].permute(list(attrs["axis"]))}
 
 
 @register_op("lookup_table", inputs=["W", "Ids"], outputs=["Out"],

@@ -1,12 +1,12 @@
 """Optimizer-update operators: the port of the JAX package's
-``ops/optimizer_ops.py`` ``sgd`` and ``adam`` (the reference's sgd_op.cc
-and adam_op.cc).
+``ops/optimizer_ops.py`` ``sgd``, ``momentum`` and ``adam`` (the
+reference's sgd_op.cc, momentum_op.cc and adam_op.cc).
 
 An update is a pure function (Param, state) -> (Param', state'): each
 output is a new tensor, nothing is written in place, so the forward
 segment of a step never sees the values its own update makes. The
 Executor runs these ops after the ``backward`` pseudo-op, outside
-autograd. The rest of the family (momentum, adagrad, adamax, ...) is
+autograd. The rest of the family (adagrad, adamax, ...) is
 ROADMAP A3.
 """
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 
 from paddle_tpu_torch.framework.registry import register_op
 
-__all__ = ["sgd", "adam"]
+__all__ = ["sgd", "momentum", "adam"]
 
 
 @register_op("sgd", inputs=["Param", "Grad", "LearningRate"],
@@ -23,6 +23,23 @@ __all__ = ["sgd", "adam"]
 def sgd(ins, attrs, ctx):
     p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
     return {"ParamOut": p - lr.reshape(()).to(p.dtype) * g}
+
+
+@register_op("momentum", inputs=["Param", "Grad", "Velocity", "LearningRate"],
+             outputs=["ParamOut", "VelocityOut"],
+             attrs={"mu": 0.9, "use_nesterov": False})
+def momentum(ins, attrs, ctx):
+    """``v' = mu v + g``; ``p' = p - lr v'``, or with Nesterov
+    ``p' = p - lr (g + mu v')``."""
+    p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
+    lr = ins["LearningRate"][0].reshape(())
+    mu = attrs["mu"]
+    v_out = mu * v + g
+    if attrs["use_nesterov"]:
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": p_out, "VelocityOut": v_out}
 
 
 @register_op("adam",

@@ -1,6 +1,7 @@
 """Optimizers — build the update region of the program: the port of the
-JAX package's ``optimizer.py`` ``Optimizer``, ``SGD`` and ``Adam``
-(fluid/optimizer.py:13,190: accumulators and ``minimize``).
+JAX package's ``optimizer.py`` ``Optimizer``, ``SGD``, ``Momentum``
+and ``Adam`` (fluid/optimizer.py:13,190: accumulators and
+``minimize``).
 
 ``minimize`` appends the ``backward`` pseudo-op, a learning-rate
 variable filled once by the startup program, each optimizer's
@@ -13,8 +14,8 @@ Not ported yet, each raising ``NotImplementedError`` naming ROADMAP A3:
 ``regularization=`` and per-parameter regularizers (their ``scale`` /
 ``sign`` ops), ``global_clip_norm=`` (``clip.py``), a learning-rate
 scheduler (``lr_scheduler.py``: anything but a number), the other
-optimizers (Momentum, Adagrad, Adamax, DecayedAdagrad, AdaDelta,
-RMSProp, Ftrl) and ``ModelAverage``. Per-parameter update hooks are
+optimizers (Adagrad, Adamax, DecayedAdagrad, AdaDelta, RMSProp, Ftrl)
+and ``ModelAverage``. Per-parameter update hooks are
 ROADMAP A8's (``param_hooks.py``).
 """
 from __future__ import annotations
@@ -134,6 +135,31 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": p})
 
 
+class MomentumOptimizer(Optimizer):
+    """(ref fluid/optimizer.py MomentumOptimizer; momentum_op.cc): one
+    ``velocity`` accumulator a parameter."""
+
+    def __init__(self, learning_rate, momentum=0.9, use_nesterov=False,
+                 **kw):
+        super().__init__(learning_rate, **kw)
+        self.momentum = momentum
+        self.use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": p, "Grad": g, "Velocity": v,
+                    "LearningRate": self._lr_var},
+            outputs={"ParamOut": p, "VelocityOut": v},
+            attrs={"mu": self.momentum, "use_nesterov": self.use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     """(ref fluid/optimizer.py AdamOptimizer; adam_op.cc)."""
 
@@ -179,7 +205,6 @@ def _deferred(name, what="this optimizer's update op"):
                            "__doc__": "Not ported yet (ROADMAP A3)."})
 
 
-MomentumOptimizer = _deferred("MomentumOptimizer")
 AdagradOptimizer = _deferred("AdagradOptimizer")
 AdamaxOptimizer = _deferred("AdamaxOptimizer")
 DecayedAdagradOptimizer = _deferred("DecayedAdagradOptimizer")

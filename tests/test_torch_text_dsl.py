@@ -423,16 +423,22 @@ def test_book_model_programs_match_jax(name):
 
 @pytest.mark.parametrize("name", ["recognize_digits_conv", "smallnet_cifar"])
 def test_conv_book_models_raise_naming_a8(name):
-    with pytest.raises(NotImplementedError, match="A8"):
-        tbook.build_book_model(name)
-    with fresh("torch"):
+    """The conv book builders, the conv nets and attention with dropout
+    raised naming A8 until the image path was ported; now they build
+    (their programs equal the JAX package's in
+    ``tests/test_torch_image.py``) and nothing of them names A8."""
+    loss, main, _ = tbook.build_book_model(name)
+    types = [op.type for op in main.global_block().ops]
+    assert "conv2d" in types and "pool2d" in types and loss.shape == ()
+    with fresh("torch") as (main, _):
         x = pt.layers.data("img", [1, 28, 28])
-        with pytest.raises(NotImplementedError, match="A8"):
-            tnets.simple_img_conv_pool(x, 4, 3, 2, 2)
-        with pytest.raises(NotImplementedError, match="A8"):
-            tnets.img_conv_group(x, [4])
-        with pytest.raises(NotImplementedError, match="A8"):
-            tnets.scaled_dot_product_attention(x, x, x, dropout_rate=0.1)
+        a = tnets.simple_img_conv_pool(x, 4, 3, 2, 2)
+        b = tnets.img_conv_group(x, [4], conv_with_batchnorm=True,
+                                 conv_batchnorm_drop_rate=0.1)
+        q = pt.layers.data("q", [6, 8])
+        tnets.scaled_dot_product_attention(q, q, q, dropout_rate=0.1)
+    assert a.shape == (-1, 4, 13, 13) and b.shape == (-1, 4, 14, 14)
+    assert [op.type for op in main.global_block().ops].count("dropout") == 2
     with pytest.raises(KeyError, match="unknown book model"):
         tbook.build_book_model("no_such_model")
 

@@ -1,6 +1,7 @@
 """The port's ``Trainer`` (and ``io``) held against the JAX package's on
 the CPU: port versions of ``tests/test_book.py``'s ``fit_a_line``,
-``recognize_digits_mlp``, ``trainer_events_sequence``,
+``recognize_digits_mlp``, ``recognize_digits_conv``, ``smallnet_cifar``
+(Momentum over ``datasets.cifar``'s surrogate), ``trainer_events_sequence``,
 ``understand_sentiment_conv``, ``understand_sentiment_stacked_lstm`` and
 ``word2vec``.
 
@@ -43,6 +44,7 @@ from paddle_tpu import reader as jreader
 from paddle_tpu import datasets as jdatasets
 from paddle_tpu.core import scope as jscope
 from paddle_tpu.framework import program as jprog
+from paddle_tpu.models import image as jimage
 from paddle_tpu.models import mnist as jmnist
 from paddle_tpu.models import text as jtext
 from paddle_tpu.trainer import Trainer as JTrainer
@@ -54,6 +56,7 @@ from paddle_tpu_torch import datasets as tdatasets
 from paddle_tpu_torch.convert import scope_from_jax
 from paddle_tpu_torch.core import scope as tscope
 from paddle_tpu_torch.framework import program as tprog
+from paddle_tpu_torch.models import image as timage
 from paddle_tpu_torch.models import mnist as tmnist
 from paddle_tpu_torch.models import text as ttext
 from paddle_tpu_torch.trainer import MasterTrainer, Trainer
@@ -103,6 +106,31 @@ def _mlp(side):
     label = pkg.layers.data("label", [1], dtype="int64")
     _, loss, acc = models.mlp(img, label)
     return loss, pkg.optimizer.Adam(0.01), [img, label], [acc]
+
+
+def _mnist_conv(side):
+    pkg, models = SIDES[side][0], SIDES[side][3]
+    img = pkg.layers.data("img", [1, 28, 28])
+    label = pkg.layers.data("label", [1], dtype="int64")
+    _, loss, acc = models.conv(img, label)
+    return loss, pkg.optimizer.Adam(0.01), [img, label], [acc]
+
+
+def _smallnet_cifar(side):
+    pkg = SIDES[side][0]
+    image = jimage if side == "jax" else timage
+    img = pkg.layers.data("img", [3, 32, 32])
+    label = pkg.layers.data("label", [1], dtype="int64")
+    _, loss, acc = image.smallnet_mnist_cifar(img, label)
+    return loss, pkg.optimizer.Momentum(0.01), [img, label], [acc]
+
+
+def _reshaped(reader, shape):
+    """``reader``'s flat images as ``shape`` (test_book.py's reshape)."""
+    def shaped():
+        for im, lab in reader():
+            yield im.reshape(shape), lab
+    return shaped
 
 
 def _events_net(side):
@@ -221,6 +249,12 @@ BOOK = {
         lambda r, d: r.batch(_imdb_like_reader(48, 64, seed=1), 16), 2),
     "word2vec": (_word2vec, lambda r, d: r.batch(
         lambda: iter(_word2vec_samples()), 32), 2),
+    "recognize_digits_conv": (_mnist_conv, lambda r, d: r.batch(
+        _reshaped(d.mnist.train(256), (1, 28, 28)), 32), 1),
+    # one pass: from its 7th step on, the two sides' fp32 sum orders part
+    # and the gap doubles a step (3e-5 by the 12th), the net near chance
+    "smallnet_cifar": (_smallnet_cifar, lambda r, d: r.batch(
+        _reshaped(d.cifar.train10(256), (3, 32, 32)), 32), 1),
 }
 
 
