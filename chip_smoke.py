@@ -305,10 +305,41 @@ adds:
    cifar-10 surrogates, 8 batches of 64 each (events in order, costs
    finite, ms a batch).
 
+The rest of training's core (no hand-written kernel of its own: the
+schedules, the clip, the decay and the other optimizers are eager ops)
+adds:
+
+6h. ``trainer_lstm_recipe``: 6c's flagship through the ``Trainer`` with
+   ``Adam(ExponentialDecay(0.002, decay_steps=10, decay_rate=0.5),
+   global_clip_norm=5.0)``, ``L2Decay(8e-4)`` on every parameter and a
+   ``ModelAverage(0.999)``: 3 + 20 batches at K = 1 and 3 groups at
+   K = 8, B14/B15 exactly twice a batch, every cost finite; checking
+   steps between them: the fetched learning rate within 1 ulp of the
+   closed form in float32 at every step (K = 1 and K = 8), the clipped
+   global norm at most 5 (1 + 1e-6); ``ModelAverage.apply()`` and its
+   restore under sync-debug "error" (the restore the live tensors, bit
+   for bit); ms a batch beside 6c's K = 1; registry ops a step, device
+   busy and idle share under ``torch.profiler``; K = 1 of the plain
+   flagship and of the recipe in turns (plain, recipe, recipe, plain:
+   the host's speed drifts within a call); then each of the six
+   other optimizers (the same schedule and clip) 1 + 5 batches from the
+   recipe's startup parameters; then every new op (the optimizers'
+   updates, ``lr_schedule``, ``ema_update``, the pruning pair, the
+   clip's and the decay's ops) on the card against the same op on the
+   CPU at the flagship's parameter shapes, relative L2 <= 1e-6;
+   ``exec_resnet50_recipe``: 6e's batch-64 ResNet-50 with He et al.'s
+   recipe (``Momentum(PiecewiseDecay([8, 16], [0.1, 0.01, 0.001]),
+   0.9)``, ``L2Decay(1e-4)`` on every parameter): 3 + 20 steps, the
+   fetched learning rate the piecewise value at every step, three steps
+   profiled, ms a batch, images/s, MFU, registry ops a step and host us
+   an op beside 6e's, and 6e's run and the recipe's in turns (recipe,
+   plain, plain, recipe).
+
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
 lane of every kernel), the ``serve``, ``train``, seq2seq, LSTM,
 ``exec_mlp``, ``exec_text``, ``trainer_lstm``, ``exec_gru``,
-``exec_resnet50``, ``exec_image`` and ``trainer_image`` lines and, last,
+``exec_resnet50``, ``exec_image``, ``trainer_image``,
+``trainer_lstm_recipe`` and ``exec_resnet50_recipe`` lines and, last,
 ``{"ok": true, "device": {...}}``. Float32 matmuls run in full float32
 (TF32 off). With no CUDA card it exits non-zero at once.
 """
@@ -3853,14 +3884,12 @@ def exec_text(tx, kernels, dev, train_lstm_ms, warmup=3, steps=20,
 TRAINER_BOUNDS = (25, 50, 75, 100)      # bench_lstm_bucketed's buckets
 
 
-def _lstm_trainer(state=None, seq_lens=False):
+def _flagship_net(seq_lens=False):
     """``lstm_benchmark_net(fused_proj=True)`` at TEXT_CFG's widths, built
-    by the layers DSL in fresh default programs and a fresh global scope,
-    in a ``Trainer`` with ``Adam(TEXT_LR)`` on ``Executor(CUDAPlace(0),
-    amp=True)``; its startup state ``state`` (name -> card tensor, copied)
-    or, with None, its startup program's (seed 0)."""
+    by the layers DSL in fresh default programs and a fresh global scope:
+    (its feed variables, loss, accuracy)."""
     import paddle_tpu_torch as pt
-    from paddle_tpu_torch.core.scope import global_scope, reset_global_scope
+    from paddle_tpu_torch.core.scope import reset_global_scope
     from paddle_tpu_torch.framework import program as prog
     from paddle_tpu_torch.models import text as tx
     prog.fresh_programs()
@@ -3876,6 +3905,17 @@ def _lstm_trainer(state=None, seq_lens=False):
         words, label, input_dim=TEXT_CFG["vocab_size"],
         emb_dim=TEXT_CFG["emb_dim"], hid_dim=TEXT_CFG["hid_dim"],
         num_layers=TEXT_CFG["num_layers"], seq_lens=sl, fused_proj=True)
+    return feeds, loss, acc
+
+
+def _lstm_trainer(state=None, seq_lens=False):
+    """``_flagship_net`` in a ``Trainer`` with ``Adam(TEXT_LR)`` on
+    ``Executor(CUDAPlace(0), amp=True)``; its startup state ``state``
+    (name -> card tensor, copied) or, with None, its startup program's
+    (seed 0)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import global_scope
+    feeds, loss, acc = _flagship_net(seq_lens)
     tr = pt.Trainer(cost=loss, optimizer=pt.optimizer.Adam(TEXT_LR),
                     feed_list=feeds, metrics=[acc],
                     executor=pt.Executor(pt.CUDAPlace(0), amp=True))
@@ -4282,11 +4322,12 @@ IMAGE_PARITY_CARD_OVER_CPU = 2.0     # card's all-gradients distance / CPU's
 AMP_FIRST_LOSS_REL = 2e-2       # AMP's first loss vs fp32's, batch 64
 
 
-def _image_program(name):
-    """IMAGE_MODELS[name] with Momentum(IMAGE_LR, IMAGE_MU).minimize, in
-    fresh default programs and a fresh global scope (the s2d stem's mask
-    is written there): (main, startup, loss, acc, registry ops a
-    step)."""
+def _image_program(name, recipe=False):
+    """IMAGE_MODELS[name] with Momentum(IMAGE_LR, IMAGE_MU).minimize, or
+    with ``recipe`` He et al.'s (a piecewise learning rate, weight decay
+    on every parameter: 6h), in fresh default programs and a fresh
+    global scope (the s2d stem's mask is written there): (main, startup,
+    loss, acc, registry ops a step)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.core.scope import reset_global_scope
     from paddle_tpu_torch.framework import program as prog
@@ -4297,7 +4338,12 @@ def _image_program(name):
     img = pt.layers.data("img", [3, hw, hw])
     label = pt.layers.data("label", [1], dtype="int64")
     _, loss, acc = build(image, img, label)
-    pt.optimizer.Momentum(IMAGE_LR, momentum=IMAGE_MU).minimize(loss)
+    lr = IMAGE_LR
+    if recipe:
+        for p in main.global_block().all_parameters():
+            p.regularizer = pt.regularizer.L2Decay(RESNET_DECAY)
+        lr = pt.lr_scheduler.PiecewiseDecay(RESNET_BOUNDARIES, RESNET_VALUES)
+    pt.optimizer.Momentum(lr, momentum=IMAGE_MU).minimize(loss)
     n_ops = sum(op.type != "backward" for op in main.global_block().ops)
     return main, start, loss, acc, n_ops
 
@@ -4316,7 +4362,8 @@ def _image_feeds(name, bs, dev=None):
             for f in feeds]
 
 
-def _image_train(kernels, dev, name, bs, warmup, steps, amp=True):
+def _image_train(kernels, dev, name, bs, warmup, steps, amp=True,
+                 recipe=False):
     """``warmup`` + ``steps`` steps of IMAGE_MODELS[name] at batch ``bs``
     from its startup program (seed 0) on ``Executor(CUDAPlace(0),
     amp=amp)``, the two feeds alternated, the launch counts zeroed just
@@ -4324,10 +4371,13 @@ def _image_train(kernels, dev, name, bs, warmup, steps, amp=True):
     events and by the host clock (the gaps between ``run``'s returns),
     the wall ms a batch (the timed steps and the final sync), images/s
     and MFU (bench.py's 2 x 3 x GMACs an image over 989 TFLOP/s) from
-    the wall, peak memory, every loss finite. Returns (record, exe, main,
-    loss, feeds)."""
+    the wall, peak memory, every loss finite; with ``recipe`` (6h) the
+    learning rate fetched at every step, each the piecewise value.
+    Returns (record, exe, main, loss, feeds)."""
     import paddle_tpu_torch as pt
-    main, start, loss, _, n_ops = _image_program(name)
+    main, start, loss, _, n_ops = _image_program(name, recipe)
+    fetch = [loss] + ([_var_named(main, r"learning_rate_\d+")]
+                      if recipe else [])
     _, hw, classes, gmacs = IMAGE_MODELS[name]
     exe = pt.Executor(pt.CUDAPlace(0), amp=amp)
     start.random_seed = 0
@@ -4336,15 +4386,15 @@ def _image_train(kernels, dev, name, bs, warmup, steps, amp=True):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()                     # the path: go
-    losses = [exe.run(main, feed=feeds[i % 2], fetch_list=[loss],
-                      return_numpy=False)[0].array for i in range(warmup)]
+    got = [exe.run(main, feed=feeds[i % 2], fetch_list=fetch,
+                   return_numpy=False) for i in range(warmup)]
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     stamps = [time.perf_counter()]
     for i in range(steps):
         events[i].record()
-        losses.append(exe.run(main, feed=feeds[i % 2], fetch_list=[loss],
-                              return_numpy=False)[0].array)
+        got.append(exe.run(main, feed=feeds[i % 2], fetch_list=fetch,
+                           return_numpy=False))
         stamps.append(time.perf_counter())
     events[steps].record()
     torch.cuda.synchronize()
@@ -4352,7 +4402,7 @@ def _image_train(kernels, dev, name, bs, warmup, steps, amp=True):
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     _check(not launches, f"{name}: kernels launched {launches}")
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
-    loss_list = torch.stack(losses).float().cpu().tolist()
+    loss_list = torch.stack([g[0].array for g in got]).float().cpu().tolist()
     _check(all(np.isfinite(loss_list)), f"{name}: losses {loss_list}")
     wall_ms = wall_s * 1e3 / steps
     flops = gmacs * 1e9 * 2 * 3 * bs
@@ -4372,6 +4422,13 @@ def _image_train(kernels, dev, name, bs, warmup, steps, amp=True):
            "registry_ops_per_step": n_ops, "loss_first": loss_list[0],
            "loss_last": loss_list[-1], "losses_finite": len(loss_list),
            "kernel_launches": 0}
+    if recipe:
+        lrs = torch.cat([g[1].array for g in got]).cpu().tolist()
+        want = [float(resnet_lr(i)) for i in range(len(lrs))]
+        _check(lrs == want, f"{name}: lr {lrs}, the piecewise values {want}")
+        rec.update({"optimizer": f"momentum piecewise {RESNET_BOUNDARIES} "
+                    f"{RESNET_VALUES} mu {IMAGE_MU}, l2_decay {RESNET_DECAY}",
+                    "lr_per_step": lrs, "lr_equals_piecewise": True})
     _say(f"{name} batch {bs}{'' if amp else ' fp32'}: ms a batch p50 "
          f"{p50:.2f} (host {rec['host_ms_per_batch_p50']:.2f}, wall "
          f"{wall_ms:.2f}), "
@@ -4605,11 +4662,11 @@ def _image_parity(dev):
             "cpu_step_s": cpu_s, "float64_step_s": f64_s}
 
 
-def _image_train_profiled(kernels, dev, name):
+def _image_train_profiled(kernels, dev, name, recipe=False):
     """``_image_train`` of ``name`` at batch IMAGE_B, 3 + 20 steps, then
     three more under ``torch.profiler`` (its record's ``profile``)."""
     rec, exe, main, loss, feeds = _image_train(kernels, dev, name, IMAGE_B,
-                                               3, 20)
+                                               3, 20, recipe=recipe)
     prof = _profile([lambda f=f: exe.run(main, feed=f, fetch_list=[loss])
                      for f in (feeds * 3)[:5]])
     prof["registry_ops_per_step"] = rec["registry_ops_per_step"]
@@ -4733,6 +4790,449 @@ def trainer_image(kernels):
         _say(f"trainer_image {name}: ms a batch {rec['ms_per_batch_p50']:.2f}"
              f", cost {rec['cost_first']:.4f} -> {rec['cost_last']:.4f}")
     return {"trainer_image": {"place": "CUDAPlace(0)", **out}}
+
+
+# 6h: the rest of training's core on its two card paths: the flagship
+# and ResNet-50 trained to a full recipe (a learning-rate schedule,
+# global-norm clipping, weight decay and, on the flagship, a model
+# average), the six other optimizers, and each new op on the card
+# against the same op on the CPU
+RECIPE_LR = dict(base_lr=0.002, decay_steps=10, decay_rate=0.5)
+RECIPE_CLIP = 5.0
+RECIPE_DECAY = 8e-4
+RECIPE_AVERAGE = 0.999
+# He et al. 2016 ("Deep Residual Learning", 3.4): momentum 0.9, weight
+# decay 1e-4, the learning rate cut 10x in steps; the steps here fall
+# within the phase's 23 (3 + 20)
+RESNET_BOUNDARIES, RESNET_VALUES = [8, 16], [0.1, 0.01, 0.001]
+RESNET_DECAY = 1e-4
+OPTIM_OP_REL_L2 = 1e-6
+OTHER_OPTIMIZERS = ("Adagrad", "Adamax", "DecayedAdagrad", "AdaDelta",
+                    "RMSProp", "Ftrl")
+
+
+def _recipe_schedule(pt):
+    return pt.lr_scheduler.ExponentialDecay(
+        RECIPE_LR["base_lr"], decay_steps=RECIPE_LR["decay_steps"],
+        decay_rate=RECIPE_LR["decay_rate"])
+
+
+def recipe_lr(step):
+    """The recipe's learning rate at ``step`` in float32, as the JAX
+    package's compiled step evaluates the closed form ``base * rate **
+    (step / decay_steps)``: the division by the constant a product with
+    its float32 reciprocal (``ops/optimizer_ops.lr_schedule``), the power
+    rounded once to float32, then the product."""
+    r = np.float32(1.0 / RECIPE_LR["decay_steps"])
+    power = np.float64(np.float32(RECIPE_LR["decay_rate"])) ** np.float64(
+        np.float32(step) * r)
+    return np.float32(RECIPE_LR["base_lr"]) * np.float32(power)
+
+
+def resnet_lr(step):
+    """The piecewise learning rate at ``step``: values[#boundaries <=
+    step], in float32."""
+    import bisect
+    return np.float32(RESNET_VALUES[bisect.bisect_right(RESNET_BOUNDARIES,
+                                                        step)])
+
+
+def ulps(a, b):
+    """ulps between positive float32 values."""
+    ia = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    ib = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(ia - ib)
+
+
+def _recipe_trainer(make_opt, state=None, average=True):
+    """``_flagship_net`` with ``L2Decay(RECIPE_DECAY)`` set on every
+    parameter before the Trainer's ``minimize`` with ``make_opt(pt)``, on
+    ``Executor(CUDAPlace(0), amp=True)``; with ``average`` a
+    ``ModelAverage(RECIPE_AVERAGE)`` created after that ``minimize``.
+    Its startup program (seed 0) runs, then the parameters in ``state``
+    (name -> card tensor) are copied in. Returns (trainer, average)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import global_scope
+    feeds, loss, acc = _flagship_net()
+    main = pt.default_main_program()
+    for p in main.global_block().all_parameters():
+        p.regularizer = pt.regularizer.L2Decay(RECIPE_DECAY)
+    tr = pt.Trainer(cost=loss, optimizer=make_opt(pt), feed_list=feeds,
+                    metrics=[acc],
+                    executor=pt.Executor(pt.CUDAPlace(0), amp=True))
+    ma = pt.optimizer.ModelAverage(RECIPE_AVERAGE) if average else None
+    tr.startup_program.random_seed = 0
+    tr._init_params()
+    for n, v in (state or {}).items():
+        global_scope().set_tensor(n, v.clone())
+    return tr, ma
+
+
+def _var_named(main, pattern):
+    import re
+    return next(n for n in main.global_block().vars
+                if re.fullmatch(pattern, n))
+
+
+def _recipe_checks(tr, batches, k):
+    """Checking steps of the recipe trainer (not timed; they train on):
+    one ``Executor.run`` a batch fetching the learning rate, the global
+    norm before the clip and every clipped gradient, then ``k`` batches
+    in one ``run_multi`` fetching the learning rate. Each lr within 1
+    ulp of ``recipe_lr`` at its step; each clipped global norm at most
+    RECIPE_CLIP (1 + 1e-6)."""
+    from paddle_tpu_torch.core.scope import global_scope
+    main, exe = tr.main_program, tr.exe
+    lr = tr.optimizer._lr_var.name
+    step = tr.optimizer._global_step_var.name
+    norm = _var_named(main, r"global_norm_\d+")
+    grads = [p.name + "@GRAD" for p in main.global_block().all_parameters()]
+    first = int(global_scope().find_var(step).array.item())
+    lrs, norms = [], []
+    for b in batches[:2]:
+        got = exe.run(main, feed=tr.feeder.feed(b),
+                      fetch_list=[lr, norm] + grads, return_numpy=False)
+        clipped = torch.sqrt(sum(torch.sum(g.array.double() ** 2)
+                                 for g in got[2:])).item()
+        lrs.append(float(got[0].array.item()))
+        norms.append((float(got[1].array.item()), clipped))
+    multi = exe.run_multi(main, [tr.feeder.feed(b) for b in batches[2:2 + k]],
+                          fetch_list=[lr])[0].reshape(-1).tolist()
+    lrs += multi
+    want = [float(recipe_lr(first + i)) for i in range(len(lrs))]
+    worst = int(max(ulps(lrs, want)))
+    _check(worst <= 1, f"recipe: lr {lrs} vs the closed form {want}")
+    _check(all(c <= RECIPE_CLIP * (1 + 1e-6) for _, c in norms),
+           f"recipe: clipped global norms {norms} over {RECIPE_CLIP}")
+    return {"first_step": first, "lr": lrs, "closed_form": want,
+            "lr_max_ulps": worst, "k": k,
+            "global_norm_before_and_after_clip": norms,
+            "clip_norm": RECIPE_CLIP}
+
+
+def _model_average_swap(ma):
+    """``ma.apply()`` and its restore under sync-debug "error": inside,
+    each parameter is a copy of its shadow; after, the live tensors
+    themselves, bit-equal to before."""
+    from paddle_tpu_torch.core.scope import global_scope
+    scope = global_scope()
+    live = {p: scope.find_var(p).array for p, _ in ma._pairs}
+    saved = {p: t.clone() for p, t in live.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with ma.apply():
+            inside = {p: scope.find_var(p).array for p, _ in ma._pairs}
+        after = {p: scope.find_var(p).array for p, _ in ma._pairs}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(inside[p], scope.find_var(a).array)
+               and inside[p] is not scope.find_var(a).array
+               for p, a in ma._pairs), "recipe: apply() is not the shadows")
+    _check(all(after[p] is live[p] and torch.equal(after[p], saved[p])
+               for p in live), "recipe: the restore is not the live weights")
+    drift = max(float((scope.find_var(a).array - saved[p]).abs().max())
+                for p, a in ma._pairs)
+    return {"sync_debug": "error", "pairs": len(ma._pairs),
+            "restore_bit_equal": True, "max_abs_shadow_minus_live": drift}
+
+
+def optim_op_cases(shapes, seed=0):
+    """Every op the training plane adds, on parameters of ``shapes``
+    with seeded gradients and state: [(case, op, inputs as numpy,
+    attrs)]: the six optimizers' updates, proximal_gd / _adagrad,
+    ema_update, the pruning pair, the decay's sign, the clip's
+    squared_l2_norm and elementwise_mul by its factor, each a parameter;
+    then the clip's sum, sqrt, elementwise_max and elementwise_div over
+    the parameters' norms, assign, increment and lr_schedule (every
+    strategy) at steps 0-60."""
+    rng = np.random.RandomState(seed)
+    lr = np.array([0.01], np.float32)
+    cases = []
+    for i, shape in enumerate(shapes):
+        def rand(scale):
+            return (rng.randn(*shape) * scale).astype(np.float32)
+
+        def pos(scale):
+            return ((rng.rand(*shape) + 0.1) * scale).astype(np.float32)
+
+        p, g = rand(0.1), rand(1e-3)
+        u = {"Param": p, "Grad": g}
+        for name, op, ins, attrs in (
+                ("adagrad", "adagrad", {"Moment": pos(1e-6),
+                                        "LearningRate": lr}, {}),
+                ("adamax", "adamax", {"LearningRate": lr,
+                                      "Moment": rand(1e-4),
+                                      "InfNorm": pos(1e-3),
+                                      "Beta1Pow": np.array([0.9 ** 4],
+                                                           np.float32)}, {}),
+                ("decayed_adagrad", "decayed_adagrad",
+                 {"Moment": pos(1e-6), "LearningRate": lr}, {}),
+                ("adadelta", "adadelta", {"AvgSquaredGrad": pos(1e-6),
+                                          "AvgSquaredUpdate": pos(1e-8)},
+                 {}),
+                ("rmsprop", "rmsprop", {"MeanSquare": pos(1e-6),
+                                        "Moment": rand(1e-4),
+                                        "LearningRate": lr},
+                 {"momentum": 0.5}),
+                ("ftrl", "ftrl", {"SquaredAccumulator": pos(1e-6),
+                                  "LinearAccumulator": rand(1e-2),
+                                  "LearningRate": lr},
+                 {"l1": 1e-3, "l2": 1e-3}),
+                ("proximal_gd", "proximal_gd", {"LearningRate": lr},
+                 {"l1": 0.01, "l2": 0.01}),
+                ("proximal_adagrad", "proximal_adagrad",
+                 {"Moment": pos(1e-6), "LearningRate": lr},
+                 {"l1": 0.01, "l2": 0.01})):
+            cases.append((f"{name}_{i}", op, dict(u, **ins), attrs))
+        cases += [
+            (f"ema_update_{i}", "ema_update", {"Param": p, "Avg": rand(0.1)},
+             {"decay": RECIPE_AVERAGE}),
+            (f"magnitude_prune_mask_{i}", "magnitude_prune_mask",
+             {"Param": p}, {"sparsity_ratio": 0.6}),
+            (f"apply_mask_{i}", "apply_mask", {"Param": p, "Mask": (
+                rng.rand(*shape) > 0.6).astype(np.float32)}, {}),
+            (f"sign_{i}", "sign", {"X": p}, {}),
+            (f"squared_l2_norm_{i}", "squared_l2_norm", {"X": g}, {}),
+            (f"clip_mul_{i}", "elementwise_mul",
+             {"X": g, "Y": np.array([0.37], np.float32)}, {})]
+    norms = [np.array([rng.rand() * 4], np.float32) for _ in shapes]
+    clip = np.array([RECIPE_CLIP], np.float32)
+    cases += [("clip_sum", "sum", {"X": norms}, {}),
+              ("clip_sqrt", "sqrt", {"X": norms[0] * 9}, {}),
+              ("clip_max", "elementwise_max", {"X": norms[0] * 9, "Y": clip},
+               {}),
+              ("clip_div", "elementwise_div", {"X": clip, "Y": norms[0] * 9},
+               {}),
+              ("assign", "assign", {"X": rng.randn(*shapes[0]).astype(
+                  np.float32)}, {}),
+              ("increment", "increment", {"X": np.array([41.0], np.float32)},
+               {"step": 1.0})]
+    schedules = {
+        "exponential": dict(strategy="exponential_decay", base_lr=0.002,
+                            decay_steps=10.0, decay_rate=0.5),
+        "natural_exp": dict(strategy="natural_exp_decay", base_lr=0.1,
+                            decay_steps=7.0, decay_rate=0.3, staircase=True),
+        "inverse_time": dict(strategy="inverse_time_decay", base_lr=0.1,
+                             decay_steps=3.0, decay_rate=0.7),
+        "polynomial": dict(strategy="polynomial_decay", base_lr=0.1,
+                           decay_steps=25.0, end_lr=0.001, power=1.5,
+                           cycle=True),
+        "piecewise": dict(strategy="piecewise_decay",
+                          boundaries=[float(b) for b in RESNET_BOUNDARIES],
+                          values=RESNET_VALUES),
+        "linear": dict(strategy="linear_decay", base_lr=0.1,
+                       decay_rate=0.001, end_lr=0.05)}
+    for name, attrs in schedules.items():
+        for step in (0, 1, 8, 16, 37, 60):
+            cases.append((f"lr_schedule_{name}_{step}", "lr_schedule",
+                          {"Step": np.array([step], np.float32)}, attrs))
+    return cases
+
+
+def optim_ops_card_vs_cpu(dev, shapes):
+    """Each of ``optim_op_cases(shapes)`` through ``registry.run_op`` on
+    the card and on the CPU: every output's relative L2 distance (0
+    where both are 0) at most OPTIM_OP_REL_L2. Returns {op: the worst
+    distance over its cases}."""
+    from paddle_tpu_torch.framework import registry
+    worst = {}
+    for case, op, ins, attrs in optim_op_cases(shapes):
+        outs = {}
+        for where in ("cuda", "cpu"):
+            d = dev if where == "cuda" else torch.device("cpu")
+            live = {s: [torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                        for a in (v if isinstance(v, list) else [v])]
+                    for s, v in ins.items()}
+            outs[where] = registry.run_op(op, live, attrs, device=d)[0]
+        for slot, vals in outs["cpu"].items():
+            for want, got in zip(vals, outs["cuda"][slot]):
+                _check(got.device.type == dev.type and got.dtype == want.dtype
+                       and got.shape == want.shape, f"{case} {slot}")
+                w, g = want.double(), got.double().cpu()
+                den = float(torch.linalg.vector_norm(w))
+                err = float(torch.linalg.vector_norm(g - w))
+                rel = err / den if den else err
+                _check(rel <= OPTIM_OP_REL_L2,
+                       f"{case} {slot}: card vs CPU relative L2 {rel}")
+                worst[op] = max(worst.get(op, 0.0), rel)
+    return worst
+
+
+def trainer_lstm_recipe(kernels, dev, trainer_rec, warmup=3, steps=20,
+                        k=8, groups=3):
+    """Phase 6h's ``trainer_lstm_recipe``, as the module docstring sets
+    out."""
+    import itertools
+    from paddle_tpu_torch.core.scope import global_scope, reset_global_scope
+
+    def recipe(pt):
+        return pt.optimizer.Adam(_recipe_schedule(pt),
+                                 global_clip_norm=RECIPE_CLIP)
+
+    base = trainer_rec["trainer_lstm"]
+    uniform = _lstm_route_names(dev, True, True)
+    # the host's speed drifts within a call: K = 1 of the plain flagship
+    # (6c's Trainer) and of the recipe in turns, plain / recipe / recipe
+    # / plain, each 3 + 20 batches
+    turns = {"plain": [], "recipe": []}
+
+    def plain_k1():
+        ptr = _lstm_trainer()
+        _, pst, _ = _trainer_run(ptr, _uniform_batches(warmup + steps, seed=3),
+                                 kernels, uniform)
+        turns["plain"].append(_batch_ms(pst, warmup))
+        del ptr
+
+    plain_k1()
+    tr, ma = _recipe_trainer(recipe)
+    main = tr.main_program
+    params = [p.name for p in main.global_block().all_parameters()]
+    state = {n: global_scope().find_var(n).array.clone() for n in params}
+    n_ops = sum(op.type != "backward" for op in main.global_block().ops)
+    types = [op.type for op in main.global_block().ops]
+    rec = {"batch": [TEXT_B, TEXT_T], "widths": TEXT_CFG, "amp": True,
+           "optimizer": f"adam, exponential_decay {RECIPE_LR}, "
+           f"global_clip_norm {RECIPE_CLIP}, l2_decay {RECIPE_DECAY}, "
+           f"model_average {RECIPE_AVERAGE}", "place": "CUDAPlace(0)",
+           "parameters": len(params), "registry_ops_per_step": n_ops,
+           "trainer_lstm_registry_ops_per_step": base["ops"] - 1,
+           "ops_by_type": {t: types.count(t) for t in (
+               "squared_l2_norm", "elementwise_mul", "scale", "sum",
+               "lr_schedule", "increment", "ema_update")}}
+    # K = 1: 3 + 20 batches
+    costs, stamps, launches = _trainer_run(
+        tr, _uniform_batches(warmup + steps, seed=3), kernels, uniform)
+    rec["k1"] = {"batches": len(costs), "launches": launches,
+                 "ms_per_batch_p50": _batch_ms(stamps, warmup),
+                 "cost_first": costs[0], "cost_last": costs[-1]}
+    turns["recipe"].append(rec["k1"]["ms_per_batch_p50"])
+    _, stamps, _ = _trainer_run(tr, _uniform_batches(warmup + steps, seed=9),
+                                kernels, uniform)
+    turns["recipe"].append(_batch_ms(stamps, warmup))
+    # the checking steps: lr against the closed form (K = 1 and K = k),
+    # the clipped global norm
+    checks = list(_uniform_batches(2 + k, seed=6)())
+    rec["checks"] = _recipe_checks(tr, checks, k)
+    kernels.reset_launches()
+    # K = k: 3 groups
+    kc, stamps, _ = _trainer_run(tr, _uniform_batches(k * groups, seed=4),
+                                 kernels, uniform, steps_per_call=k)
+    _check(len(kc) == k * groups, f"recipe: {len(kc)} K={k} results")
+    step = int(global_scope().find_var(
+        tr.optimizer._global_step_var.name).array.item())
+    last_lr = float(global_scope().find_var(
+        tr.optimizer._lr_var.name).array.item())
+    _check(step == 2 * (warmup + steps) + 2 + k + k * groups
+           and ulps(last_lr, recipe_lr(step - 1)) <= 1,
+           f"recipe: after K={k} step {step}, lr {last_lr}")
+    rec[f"k{k}"] = {"batches": len(kc), "groups": groups,
+                    "ms_per_batch_p50": _batch_ms(stamps, 1, per=k),
+                    "cost_first": kc[0], "cost_last": kc[-1],
+                    "global_step_after": step, "lr_after": last_lr}
+    # the model average: the swap on the device, and an evaluation with
+    # the averaged weights
+    rec["model_average"] = _model_average_swap(ma)
+    with ma.apply():
+        avg_cost = tr.test(_uniform_batches(2, seed=7))["cost"]
+    _check(np.isfinite(avg_cost), f"recipe: averaged cost {avg_cost}")
+    rec["model_average"]["test_cost_averaged"] = avg_cost
+    # five Trainer steps (the last three profiled)
+    batches = list(itertools.islice(_uniform_batches(5, seed=8)(), 5))
+    rec["profile"] = _profile(
+        [lambda b=b: tr.train_one_batch(b) for b in batches],
+        named=("lstm_xg_kernel", "lstm_cluster_fwd_kernel",
+               "lstm_cluster_bwd_kernel", "lstm_dxe_kernel", "dw_wgmma"))
+    rec["profile"]["registry_ops_per_step"] = n_ops
+    kernels.reset_launches()
+    del tr, ma
+    plain_k1()
+    rec["k1_in_turns_ms_per_batch_p50"] = turns
+    rec["k1_in_turns_recipe_over_plain"] = (
+        sum(turns["recipe"]) / sum(turns["plain"]))
+    # the six other optimizers (the same schedule and clip), 1 + 5
+    # batches each from the recipe's startup parameters
+    others = {}
+    for name in OTHER_OPTIMIZERS:
+        def make(pt, name=name):
+            return getattr(pt.optimizer, name)(_recipe_schedule(pt),
+                                               global_clip_norm=RECIPE_CLIP)
+        tr6, _ = _recipe_trainer(make, state, average=False)
+        oc, stamps, launches = _trainer_run(
+            tr6, _uniform_batches(6, seed=5), kernels, uniform)
+        others[name] = {"batches": len(oc), "launches": launches,
+                        "ms_per_batch_p50": _batch_ms(stamps, 1),
+                        "cost_first": oc[0], "cost_last": oc[-1]}
+        del tr6
+    rec["other_optimizers"] = others
+    reset_global_scope()
+    # each new op on the card against the CPU, at the flagship's
+    # parameter shapes
+    shapes = [tuple(state[n].shape) for n in params]
+    rec["op_card_vs_cpu_rel_l2"] = optim_ops_card_vs_cpu(dev, shapes)
+    rec["op_card_vs_cpu_tol"] = OPTIM_OP_REL_L2
+    rec["parameter_shapes"] = shapes
+    k1 = rec["k1"]["ms_per_batch_p50"]
+    rec["trainer_lstm_k1_ms_per_batch_p50"] = base["k1"]["ms_per_batch_p50"]
+    rec["k1_ms_per_batch_vs_trainer_lstm"] = (
+        k1 / base["k1"]["ms_per_batch_p50"])
+    rec["trainer_lstm_profile"] = {
+        key: base["profile"][key] for key in (
+            "wall_ms_per_step", "device_busy_ms_per_step",
+            "device_idle_share", "device_kernels_per_step")}
+    _say(f"trainer_lstm_recipe: ms a batch K=1 {k1:.2f} (trainer_lstm "
+         f"{base['k1']['ms_per_batch_p50']:.2f}; in turns {turns}), K={k} "
+         f"{rec[f'k{k}']['ms_per_batch_p50']:.2f}; {n_ops} registry ops a "
+         f"step; device busy {rec['profile']['device_busy_ms_per_step']} "
+         f"ms, idle share {rec['profile']['device_idle_share']}; lr within "
+         f"{rec['checks']['lr_max_ulps']} ulp; worst op card vs CPU "
+         f"{max(rec['op_card_vs_cpu_rel_l2'].values()):.2e}")
+    del state
+    torch.cuda.empty_cache()
+    return {"trainer_lstm_recipe": rec}
+
+
+def exec_resnet50_recipe(kernels, dev, resnet_rec):
+    """Phase 6h's ``exec_resnet50_recipe``: 6e's batch-64 run with He et
+    al.'s recipe (``Momentum(PiecewiseDecay(RESNET_BOUNDARIES,
+    RESNET_VALUES), 0.9)``, ``L2Decay(RESNET_DECAY)`` on every parameter
+    the builder creates): 3 + 20 steps, the fetched lr at each against
+    the piecewise values, three more under ``torch.profiler``; host us a
+    registry op; 6e's numbers beside, and 6e's run and the recipe's in
+    turns (recipe / plain / plain / recipe: the host's speed drifts
+    within a call)."""
+    rec = _image_train_profiled(kernels, dev, "resnet50", recipe=True)
+    turns = {"recipe": [rec], "plain": []}
+    for recipe in (False, False, True):
+        turns["recipe" if recipe else "plain"].append(_image_train(
+            kernels, dev, "resnet50", IMAGE_B, 3, 20, recipe=recipe)[0])
+        _release()
+    rec["in_turns"] = {side: {key: [r[key] for r in runs] for key in (
+        "ms_per_batch_p50", "host_ms_per_batch_p50", "wall_ms_per_batch",
+        "images_per_s")} for side, runs in turns.items()}
+    rec["in_turns_recipe_over_plain_ms"] = (
+        sum(rec["in_turns"]["recipe"]["ms_per_batch_p50"])
+        / sum(rec["in_turns"]["plain"]["ms_per_batch_p50"]))
+    base = resnet_rec["exec_resnet50"][f"batch_{IMAGE_B}"]
+    for r in (rec, base):
+        r["host_us_per_registry_op"] = (r["host_ms_per_batch_p50"] * 1e3
+                                        / r["registry_ops_per_step"])
+    rec["exec_resnet50"] = {key: base[key] for key in (
+        "ms_per_batch_p50", "host_ms_per_batch_p50", "wall_ms_per_batch",
+        "images_per_s", "mfu", "registry_ops_per_step",
+        "host_us_per_registry_op")}
+    rec["exec_resnet50"]["profile"] = {key: base["profile"][key] for key in (
+        "wall_ms_per_step", "device_busy_ms_per_step", "device_idle_share",
+        "device_kernels_per_step")}
+    _say(f"exec_resnet50_recipe: ms a batch p50 {rec['ms_per_batch_p50']:.2f}"
+         f" (exec_resnet50 {base['ms_per_batch_p50']:.2f}), "
+         f"{rec['registry_ops_per_step']} registry ops "
+         f"({base['registry_ops_per_step']}), host "
+         f"{rec['host_us_per_registry_op']:.1f} us an op; in turns "
+         f"{rec['in_turns_recipe_over_plain_ms']:.3f}x plain; lr "
+         f"{rec['lr_per_step']}")
+    return {"exec_resnet50_recipe": rec}
 
 
 def main(argv=None):
@@ -5175,6 +5675,14 @@ def main(argv=None):
     trainer_image_rec = trainer_image(kernels)
     _say(f"image phases done at {time.perf_counter() - t0:.1f} s")
 
+    # 6h: the rest of training's core: the flagship and ResNet-50 trained
+    # to a full recipe, the other optimizers, the new ops card vs CPU
+    torch.cuda.empty_cache()
+    recipe_rec = trainer_lstm_recipe(kernels, dev, trainer_rec)
+    resnet_recipe_rec = exec_resnet50_recipe(kernels, dev, resnet_rec)
+    _release()
+    _say(f"recipe phases done at {time.perf_counter() - t0:.1f} s")
+
     _say(json.dumps(prec))
     _say(json.dumps(pqrec))
     _say(json.dumps(pwrec))
@@ -5221,6 +5729,8 @@ def main(argv=None):
     _say(json.dumps(resnet_rec))
     _say(json.dumps(image_rec))
     _say(json.dumps(trainer_image_rec))
+    _say(json.dumps(recipe_rec))
+    _say(json.dumps(resnet_recipe_rec))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,11 @@
 
 The port is built slice by slice beside the JAX package, which stays
 the reference it is held against. The framework core: the Program IR,
-the layers DSL (the part the MNIST MLP uses), ``optimizer`` (SGD,
-Adam) and the eager ``Executor`` (``framework.executor``; feeds, fetches
+the layers DSL, ``optimizer`` (SGD, Momentum, Adam, Adagrad, Adamax,
+DecayedAdagrad, AdaDelta, RMSProp, Ftrl, ``ModelAverage``; a number or
+an ``lr_scheduler`` schedule as the learning rate, ``global_clip_norm=``
+through ``clip``, ``regularizer``'s weight decay) and the eager
+``Executor`` (``framework.executor``; feeds, fetches
 and the Scope, the ``backward`` pseudo-op through ``torch.autograd``,
 AMP, ``run_multi``, ``prepare_infer``), used as in the JAX package::
 
@@ -21,7 +24,8 @@ book models built by the DSL (``models.text``, ``models.book``,
 ``nets``), ``Trainer.train(reader, num_passes, event_handler)`` with
 its ``event``s, the ``DataFeeder``, the ``reader`` decorators (the
 card-side double buffer ``reader.device_buffered`` among them), the
-``datasets`` (imdb, mnist, uci_housing) and checkpoints (``io``, the
+``datasets`` (the JAX package's thirteen), ``reader.provider`` and
+checkpoints (``io``, the
 JAX package's on-disk format)::
 
     trainer = pt.Trainer(cost=loss, optimizer=pt.optimizer.Adam(0.01),
@@ -57,7 +61,8 @@ from paddle_tpu_torch.framework.program import (Program,
                                                 default_startup_program,
                                                 program_guard)
 from paddle_tpu_torch import (datasets, event, initializer, io, layers,
-                              nets, optimizer, reader)
+                              lr_scheduler, nets, optimizer, reader,
+                              regularizer)
 from paddle_tpu_torch.data_feeder import DataFeeder
 from paddle_tpu_torch.param_attr import ParamAttr
 from paddle_tpu_torch.trainer import Trainer
@@ -65,5 +70,6 @@ from paddle_tpu_torch.trainer import Trainer
 __all__ = ["CPUPlace", "CUDAPlace", "DataFeeder", "Executor", "LoD",
            "LoDTensor", "ParamAttr", "Program", "Scope", "Trainer",
            "datasets", "default_main_program", "default_startup_program",
-           "event", "initializer", "io", "layers", "nets", "optimizer",
-           "program_guard", "reader", "resolve_device"]
+           "event", "initializer", "io", "layers", "lr_scheduler", "nets",
+           "optimizer", "program_guard", "reader", "regularizer",
+           "resolve_device"]

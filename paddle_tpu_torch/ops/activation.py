@@ -1,15 +1,15 @@
 """Activation operators the text nets and the MNIST MLP emit: the port of
 the JAX package's ``ops/activation.py`` ``softmax``, ``relu``,
-``sigmoid`` and ``tanh`` (the reference's softmax_op.cc,
-activation_op.cc), the ops ``layers.fc(act=...)`` and the layers' unary
-sugar append."""
+``sigmoid``, ``tanh`` and ``sqrt`` (the reference's softmax_op.cc,
+activation_op.cc), the ops ``layers.fc(act=...)``, the layers' unary
+sugar and the global-norm clip (``sqrt``) append."""
 from __future__ import annotations
 
 import torch
 
 from paddle_tpu_torch.framework.registry import register_op
 
-__all__ = ["softmax", "relu", "sigmoid", "tanh"]
+__all__ = ["softmax", "relu", "sigmoid", "tanh", "sqrt"]
 
 
 @register_op("softmax", inputs=["X"], outputs=["Out"], attrs={"axis": -1})
@@ -30,3 +30,8 @@ def sigmoid(ins, attrs, ctx):
 @register_op("tanh", inputs=["X"], outputs=["Out"])
 def tanh(ins, attrs, ctx):
     return {"Out": torch.tanh(ins["X"][0])}
+
+
+@register_op("sqrt", inputs=["X"], outputs=["Out"])
+def sqrt(ins, attrs, ctx):
+    return {"Out": torch.sqrt(ins["X"][0])}

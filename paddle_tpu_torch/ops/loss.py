@@ -1,8 +1,10 @@
 """Loss operators: a copy of the JAX package's ``ops/loss.py``
 ``nll_from_logits`` (the transformer's and the seq2seq model's loss),
 the ``softmax_with_cross_entropy`` op (the reference's
-softmax_with_cross_entropy_op.cc) and ``square_error_cost`` (fit_a_line's
-loss; the reference's squared_l2_distance_op.cc / v2 mse_cost)."""
+softmax_with_cross_entropy_op.cc), ``square_error_cost`` (fit_a_line's
+loss; the reference's squared_l2_distance_op.cc / v2 mse_cost) and
+``squared_l2_norm`` (a gradient's share of the global-norm clip; the
+reference's squared_l2_norm_op.cc)."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +12,7 @@ import torch
 from paddle_tpu_torch.framework.registry import register_op
 
 __all__ = ["nll_from_logits", "softmax_with_cross_entropy",
-           "square_error_cost"]
+           "square_error_cost", "squared_l2_norm"]
 
 
 def nll_from_logits(logits, targets):
@@ -46,3 +48,9 @@ def square_error_cost(ins, attrs, ctx):
     """(x - y)^2, elementwise."""
     x, y = ins["X"][0], ins["Y"][0]
     return {"Out": torch.square(x - y)}
+
+
+@register_op("squared_l2_norm", inputs=["X"], outputs=["Out"])
+def squared_l2_norm(ins, attrs, ctx):
+    x = ins["X"][0]
+    return {"Out": torch.sum(x * x).reshape(1)}

@@ -1,15 +1,18 @@
 """Dense math operators the text nets, the book models and the MNIST MLP
 emit: the port of the JAX package's ``ops/math.py`` ``mul`` and
 ``matmul`` (``amp_compute``), the elementwise ops (``elementwise_add``,
-fc's bias; ``_sub``, ``_mul``, ``_div``), ``scale``, ``sum`` (fc over
-several inputs), ``mean``, ``concat`` and ``split``, ``reshape`` and
+fc's bias; ``_sub``, ``_mul``, ``_div``, ``_max``), ``scale``, ``sum``
+(fc over several inputs), ``mean``, ``concat`` and ``split``, ``reshape`` and
 ``transpose`` (the space-to-depth stem of ``models/image.py``),
 ``lookup_table`` (the embedding) and ``top_k`` (the accuracy metric's
-first half), and the startup program's initializer ops
+first half), the training plane's helpers ``sign`` (L1 decay),
+``assign`` (ModelAverage's shadow) and ``increment`` (a learning-rate
+schedule's global step), and the startup program's initializer ops
 ``fill_constant``, ``uniform_random`` and ``gaussian_random``; the
 reference's mul_op.cc, matmul_op.cc, elementwise_*_op.cc, scale_op.cc,
 sum_op.cc, mean_op.cc, concat_op.cc, split_op.cc, reshape_op.cc,
-transpose_op.cc, lookup_table_op.cc, top_k_op.cc, fill_constant_op.cc,
+transpose_op.cc, lookup_table_op.cc, top_k_op.cc, sign_op.cc,
+assign_op.cc, increment_op.cc, fill_constant_op.cc,
 uniform_random_op.cc and gaussian_random_op.cc.
 
 The random ops draw from the ``torch.Generator`` the Executor hands
@@ -29,9 +32,10 @@ from paddle_tpu_torch.core.dtype import convert_dtype
 from paddle_tpu_torch.framework.registry import register_op
 
 __all__ = ["mul", "matmul", "elementwise_add", "elementwise_sub",
-           "elementwise_mul", "elementwise_div", "scale", "sum_op", "mean",
-           "concat", "split", "reshape", "transpose", "lookup_table", "top_k", "fill_constant",
-           "uniform_random", "gaussian_random"]
+           "elementwise_mul", "elementwise_div", "elementwise_max", "scale",
+           "sum_op", "mean", "concat", "split", "reshape", "transpose",
+           "lookup_table", "top_k", "sign", "assign", "increment",
+           "fill_constant", "uniform_random", "gaussian_random"]
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -102,6 +106,7 @@ elementwise_add = _register_elementwise("elementwise_add", torch.add)
 elementwise_sub = _register_elementwise("elementwise_sub", torch.sub)
 elementwise_mul = _register_elementwise("elementwise_mul", torch.mul)
 elementwise_div = _register_elementwise("elementwise_div", torch.div)
+elementwise_max = _register_elementwise("elementwise_max", torch.maximum)
 
 
 @register_op("scale", inputs=["X"], outputs=["Out"],
@@ -178,6 +183,26 @@ def lookup_table(ins, attrs, ctx):
 def top_k(ins, attrs, ctx):
     vals, idx = torch.topk(ins["X"][0], attrs["k"], dim=-1)
     return {"Out": vals, "Indices": idx.to(torch.int32)}
+
+
+@register_op("sign", inputs=["X"], outputs=["Out"])
+def sign(ins, attrs, ctx):
+    return {"Out": torch.sign(ins["X"][0])}
+
+
+@register_op("assign", inputs=["X"], outputs=["Out"])
+def assign(ins, attrs, ctx):
+    """A copy of X (a new tensor: nothing the Executor holds aliases
+    another variable's storage)."""
+    return {"Out": ins["X"][0].clone()}
+
+
+@register_op("increment", inputs=["X"], outputs=["Out"], attrs={"step": 1.0})
+def increment(ins, attrs, ctx):
+    """``X + step``, step cast to X's dtype (an integer X stays one)."""
+    x = ins["X"][0]
+    step = attrs["step"] if x.is_floating_point() else int(attrs["step"])
+    return {"Out": x + step}
 
 
 @register_op("fill_constant", inputs=[], outputs=["Out"],

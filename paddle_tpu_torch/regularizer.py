@@ -1,10 +1,13 @@
 """Weight-decay regularizers: the port of the JAX package's
-``regularizer.py`` (fluid/regularizer.py; OptimizerWithRegularizer.h).
+``regularizer.py`` (fluid/regularizer.py; the legacy
+OptimizerWithRegularizer.h). A regularizer set on a parameter
+(``ParamAttr(regularizer=...)`` or ``Parameter.regularizer``) appends its
+decay ops onto the parameter's gradient before the optimizer's update:
+L2 ``scale`` + ``sum``, L1 ``sign`` + ``scale`` + ``sum``.
 
-The classes are here so that ``ParamAttr(regularizer=...)`` and
-``Optimizer(regularization=...)`` name them as in the JAX package; the
-decay ops they append (``scale``, ``sign``) are ROADMAP A3's, so
-appending one raises, naming it.
+``Optimizer(regularization=...)`` is accepted and ignored, as in the JAX
+package, whose ``minimize`` decays only through each parameter's own
+regularizer (ROADMAP C5).
 """
 from __future__ import annotations
 
@@ -14,21 +17,40 @@ __all__ = ["WeightDecayRegularizer", "L1DecayRegularizer",
 
 
 class WeightDecayRegularizer:
+    def append_regularization_op(self, param, grad, block):
+        raise NotImplementedError
+
+
+class L2DecayRegularizer(WeightDecayRegularizer):
+    """``grad += coeff * param``."""
+
     def __init__(self, regularization_coeff: float = 0.0):
         self.coeff = regularization_coeff
 
     def append_regularization_op(self, param, grad, block):
-        raise NotImplementedError(
-            f"{type(self).__name__} appends scale/sign ops, which the port "
-            "has not yet (ROADMAP A3)")
-
-
-class L2DecayRegularizer(WeightDecayRegularizer):
-    """coeff * param added to the gradient (not ported yet: A3)."""
+        decay = block.create_var(shape=param.shape, dtype=param.dtype)
+        block.append_op("scale", inputs={"X": param}, outputs={"Out": decay},
+                        attrs={"scale": self.coeff})
+        block.append_op("sum", inputs={"X": [grad, decay]},
+                        outputs={"Out": grad})
+        return grad
 
 
 class L1DecayRegularizer(WeightDecayRegularizer):
-    """coeff * sign(param) added to the gradient (not ported yet: A3)."""
+    """``grad += coeff * sign(param)``."""
+
+    def __init__(self, regularization_coeff: float = 0.0):
+        self.coeff = regularization_coeff
+
+    def append_regularization_op(self, param, grad, block):
+        sgn = block.create_var(shape=param.shape, dtype=param.dtype)
+        block.append_op("sign", inputs={"X": param}, outputs={"Out": sgn})
+        decay = block.create_var(shape=param.shape, dtype=param.dtype)
+        block.append_op("scale", inputs={"X": sgn}, outputs={"Out": decay},
+                        attrs={"scale": self.coeff})
+        block.append_op("sum", inputs={"X": [grad, decay]},
+                        outputs={"Out": grad})
+        return grad
 
 
 L1Decay = L1DecayRegularizer

@@ -3,7 +3,9 @@ CPU.
 
 The MNIST MLP (``models.mnist.mlp`` at bench.py's widths 784-128-64-10,
 batch 16, seeded features with a class signal) is built through both
-packages in fresh programs, with ``Adam(0.01)`` and with ``SGD(0.1)``.
+packages in fresh programs, with ``Adam(0.01)``, ``SGD(0.1)`` and each
+of the six other optimizers (Adagrad, Adamax, DecayedAdagrad, AdaDelta,
+RMSProp, Ftrl).
 The JAX startup program runs in a JAX scope and its persistables are
 carried over with ``convert.scope_from_jax`` (a JAX PRNG stream is not a
 torch one). Then the same 5 steps go through ``Executor(CPUPlace())``
@@ -14,8 +16,10 @@ on both sides:
   after the fifth step (parameters, learning rate, Adam's moments and
   powers), atol/rtol 1e-5 (the tolerance ``tests/test_torch_text.py``
   holds fp32 training to: the same fp32 math, sums in another order),
-  except Adam's parameter elements whose first nonzero gradient lies in
-  its eps regime (ADAM_EPS_REGIME below), held to 1e-4;
+  except the parameter elements of Adam, Adagrad, DecayedAdagrad and
+  Adamax whose first nonzero gradient lies in the eps regime
+  (ADAM_EPS_REGIME below), held to 1e-4, and Ftrl's accumulators, held
+  to 1e-4 of their largest entry (FTRL_ACCUM_TOL);
 - AMP (``amp=True``: the ``mul`` ops in bf16 over fp32 masters): every
   step's loss within ``tests/test_torch_text.py``'s AMP_LOSS_TOL 2e-3.
 
@@ -65,9 +69,26 @@ AMP_LOSS_TOL = 2e-3
 # persistable to TOL.
 ADAM_EPS_REGIME = 1e-6
 ADAM_EPS_REGIME_TOL = 1e-4
+# Adagrad, DecayedAdagrad and Adamax divide a gradient by a running norm
+# of itself, so an element's first update is about lr * sign(g) however
+# small g is: an element whose first nonzero gradient is such a
+# near-cancelled sum (|g| < 1e-6) moves by lr * (a few 1e-3) between two
+# sum orders. Such elements are held to ADAM_EPS_REGIME_TOL as Adam's.
+EPS_REGIME_OPTS = ("adam", "adagrad", "decayed_adagrad", "adamax")
+# Ftrl's accumulators sum the raw gradients and sigma * p with sigma =
+# (sqrt(n') - sqrt(n)) / lr, a difference of two close roots over lr;
+# after 5 steps at lr 0.02 the two sides' sums lie up to 1e-4 of the
+# accumulator's largest entry apart (its parameters and losses at TOL)
+FTRL_ACCUM_TOL = 1e-4
 B, STEPS = 16, 5
 OPTS = {"adam": lambda m: m.optimizer.Adam(0.01),
-        "sgd": lambda m: m.optimizer.SGD(0.1)}
+        "sgd": lambda m: m.optimizer.SGD(0.1),
+        "adagrad": lambda m: m.optimizer.Adagrad(0.01),
+        "adamax": lambda m: m.optimizer.Adamax(0.002),
+        "decayed_adagrad": lambda m: m.optimizer.DecayedAdagrad(0.002),
+        "adadelta": lambda m: m.optimizer.AdaDelta(1.0),
+        "rmsprop": lambda m: m.optimizer.RMSProp(0.001, momentum=0.5),
+        "ftrl": lambda m: m.optimizer.Ftrl(0.02, l1=1e-3, l2=1e-3)}
 
 
 @contextlib.contextmanager
@@ -164,7 +185,7 @@ def port_run(init, opt, amp=False):
     return first, losses, after
 
 
-@pytest.mark.parametrize("opt", ["adam", "sgd"])
+@pytest.mark.parametrize("opt", list(OPTS))
 def test_mlp_training_matches_jax(opt):
     init, j_first, j_losses, j_after, opening = jax_run(opt)
     first, losses, after = port_run(init, opt)
@@ -176,7 +197,12 @@ def test_mlp_training_matches_jax(opt):
     assert sorted(after) == sorted(j_after)
     for name, value in after.items():
         want = j_after[name]
-        if opt == "adam" and name + "@GRAD" in opening:
+        if opt == "ftrl" and name.startswith(("squared_", "linear_")):
+            np.testing.assert_allclose(
+                value, want, rtol=0, err_msg=name,
+                atol=FTRL_ACCUM_TOL * float(np.abs(want).max()))
+            continue
+        if opt in EPS_REGIME_OPTS and name + "@GRAD" in opening:
             g = np.abs(opening[name + "@GRAD"])
             tiny = (g > 0) & (g < ADAM_EPS_REGIME)   # 0: never a gradient
             assert tiny.mean() < 1e-2, (name, int(tiny.sum()))

@@ -15,10 +15,15 @@ package's on the CPU.
   ``tests/test_torch_trainer_cuda.py``.
 - ``reader.creator``: ``np_array``, ``text_file``; ``recordio`` and
   ``cloud_reader`` raise naming ROADMAP A11.
-- ``datasets``: the first 64 samples of ``imdb``, ``uci_housing`` and
-  ``mnist`` (train and test) equal the JAX modules', from the fixture
-  files under tests/fixtures/datasets and from the synthetic surrogates
-  (an empty DATA_HOME): arrays bit-equal, labels and ids equal.
+- ``datasets``: the first 64 samples of each of the thirteen datasets
+  but cifar (``tests/test_torch_image.py``): imdb, uci_housing, mnist,
+  imikolov, sentiment, wmt14, movielens, conll05, ctr, mq2007 (its three
+  formats), flowers and voc2012, train and test splits, equal the JAX
+  modules', from the fixture files under tests/fixtures/datasets and
+  from the synthetic surrogates (an empty DATA_HOME): arrays bit-equal,
+  labels and ids equal; so are their dictionaries and size tables.
+- ``reader.provider``: each slot type's conversion, shuffled and
+  buffered, and the range error, as the JAX ``provider``.
 - ``DataFeeder``: dense, LoD and nested-LoD slots give the JAX feeder's
   arrays, dtypes and LoD offsets.
 """
@@ -29,16 +34,20 @@ import pytest
 import torch
 
 from paddle_tpu import data_feeder as jfeeder
+from paddle_tpu import datasets as jds
 from paddle_tpu import layers as jlayers
+from paddle_tpu import reader as jreader
 from paddle_tpu.datasets import common as jcommon
 from paddle_tpu.datasets import imdb as jimdb
 from paddle_tpu.datasets import mnist as jmnist
 from paddle_tpu.datasets import uci_housing as juci
 from paddle_tpu.framework import program as jprog
 from paddle_tpu.reader import decorator as jdec
+from paddle_tpu.reader import provider as jprovider
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import data_feeder as tfeeder
+from paddle_tpu_torch import datasets as tds
 from paddle_tpu_torch.core.lod import LoDTensor
 from paddle_tpu_torch.datasets import common as tcommon
 from paddle_tpu_torch.datasets import imdb as timdb
@@ -47,6 +56,7 @@ from paddle_tpu_torch.datasets import uci_housing as tuci
 from paddle_tpu_torch.framework import program as tprog
 from paddle_tpu_torch.reader import creator as tcreator
 from paddle_tpu_torch.reader import decorator as tdec
+from paddle_tpu_torch.reader import provider as tprovider
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures", "datasets")
@@ -182,6 +192,41 @@ DATASETS = {
     "mnist_train": (lambda m: m.train(), jmnist, tmnist),
     "mnist_test": (lambda m: m.test(), jmnist, tmnist),
 }
+# the nine other datasets: name -> (reader over the module, its name)
+for _name, _make in {
+        "imikolov_train": lambda m: m.train(m.build_dict(min_word_freq=1),
+                                            n=3),
+        "imikolov_test": lambda m: m.test(n=5),
+        "sentiment_train": lambda m: m.train(),
+        "sentiment_test": lambda m: m.test(),
+        "wmt14_train": lambda m: m.train(),
+        "wmt14_test": lambda m: m.test(dict_size=100),
+        "movielens_train": lambda m: m.train(),
+        "movielens_test": lambda m: m.test(),
+        "conll05_train": lambda m: m.train(),
+        "conll05_test": lambda m: m.test(),
+        "ctr_train": lambda m: m.train(),
+        "ctr_test": lambda m: m.test(),
+        "mq2007_pairwise": lambda m: m.train(),
+        "mq2007_pointwise": lambda m: m.train(format="pointwise"),
+        "mq2007_listwise": lambda m: m.test(format="listwise"),
+        "flowers_train": lambda m: m.train(16),
+        "flowers_valid": lambda m: m.valid(8),
+        "voc2012_train": lambda m: m.train(),
+        "voc2012_val": lambda m: m.val(),
+}.items():
+    _mod = _name.split("_")[0]
+    DATASETS[_name] = (_make, getattr(jds, _mod), getattr(tds, _mod))
+
+# module -> its other public functions, each equal between the packages
+DATASET_TABLES = {
+    "imikolov": lambda m: m.build_dict(min_word_freq=1),
+    "sentiment": lambda m: m.get_word_dict(),
+    "movielens": lambda m: (m.max_user_id(), m.max_movie_id(),
+                            m.max_job_id(), m.num_categories(),
+                            m.title_vocab_size()),
+    "conll05": lambda m: (m.get_dict(), m.get_embedding() is None),
+}
 
 
 @pytest.mark.parametrize("source", ["fixtures", "surrogate"])
@@ -191,12 +236,61 @@ def test_dataset_samples_match_jax(name, source, monkeypatch, tmp_path):
     monkeypatch.setattr(jcommon, "DATA_HOME", home)
     monkeypatch.setattr(tcommon, "DATA_HOME", home)
     make, jmod, tmod = DATASETS[name]
+    for mod in (jmod, tmod):
+        getattr(mod, "_META_CACHE", {}).clear()   # kept per DATA_HOME
     want = list(zip(range(64), make(jmod)()))
     got = list(zip(range(64), make(tmod)()))
     assert len(got) == len(want) > 0
     _same(got, want)
     if name.startswith("imdb"):
         assert timdb.word_dict() == jimdb.word_dict()
+    table = DATASET_TABLES.get(name.split("_")[0])
+    if table is not None:
+        _same(table(tmod), table(jmod))
+    for mod in (jmod, tmod):
+        getattr(mod, "_META_CACHE", {}).clear()
+
+
+def _provider_samples(seed=0):
+    rng = np.random.RandomState(seed)
+    for _ in range(12):
+        yield (rng.randn(3).tolist(), int(rng.randint(0, 5)),
+               rng.choice(10, int(rng.randint(0, 4)), replace=False).tolist(),
+               rng.randint(0, 7, int(rng.randint(1, 5))).tolist(),
+               [rng.randn(2) for _ in range(int(rng.randint(1, 3)))])
+
+
+def _provider_types(mod):
+    return [mod.dense_vector(3), mod.integer_value(5),
+            mod.sparse_binary_vector(10), mod.integer_value_sequence(7),
+            mod.dense_vector_sequence(2)]
+
+
+@pytest.mark.parametrize("mode", ["plain", "shuffled", "buffered"])
+def test_provider_samples_match_jax(mode):
+    """``reader.provider`` (also ``reader.data_provider``) converts each
+    slot as the JAX one does; shuffled, the same samples in some order;
+    a sample that breaks its declaration raises the same error."""
+    kw = {"plain": {}, "shuffled": {"should_shuffle": True},
+          "buffered": {"buffer_size": 4}}[mode]
+    assert pt.reader.data_provider is tprovider.provider
+    got = list(tprovider.provider(_provider_types(tprovider), **kw)(
+        _provider_samples)(1)())
+    want = list(jreader.data_provider(_provider_types(jprovider), **kw)(
+        _provider_samples)(1)())
+    assert len(got) == len(want) == 12
+    if mode == "shuffled":
+        key = lambda smp: repr([np.asarray(x).tolist()  # noqa: E731
+                                for x in smp[:4]])
+        got, want = sorted(got, key=key), sorted(want, key=key)
+    _same(got, want)
+
+    def bad():
+        yield ([0.0, 1.0, 2.0], 9, [], [1], [np.zeros(2)])
+
+    for mod in (tprovider, jprovider):
+        with pytest.raises(ValueError, match="outside"):
+            list(mod.provider(_provider_types(mod))(bad)()())
 
 
 def _feed_vars(layers, mod):

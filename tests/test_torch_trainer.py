@@ -23,7 +23,12 @@ step by step) gives the costs and parameters of K = 1, and
 ``load_params`` round-trips, a checkpoint written by the JAX
 ``io.save_params`` loads into the port and one written by the port loads
 into the JAX package (values bit-equal, the manifest's sha256 checked),
-a corrupted file raises ``CheckpointError``, ``save_dir`` with
+a checkpoint of a Trainer with ``Adagrad(ExponentialDecay)`` after 3
+batches (its moments, learning rate and global step) crosses between
+the packages both ways and the next 2 batches agree, ``word2vec`` over
+imikolov (Adagrad, an exponential decay) and ``convolution_net`` over
+sentiment (RMSProp, a piecewise decay) match the JAX Trainer, a
+corrupted file raises ``CheckpointError``, ``save_dir`` with
 ``save_period=1`` writes each pass's parameters, and
 ``save_inference_model`` -> ``load_inference_model`` gives the pruned
 program's predictions.
@@ -393,6 +398,115 @@ def test_checkpoints_round_trip_and_cross_load(tmp_path):
         tio.load_params(ttr.exe, tdir, ttr.main_program, scope=fresh)
     with pytest.raises(tio.CheckpointError, match="MANIFEST"):
         tio.load_vars(ttr.exe, str(tmp_path), ["x"])
+
+
+def _mlp_adagrad_schedule(side):
+    pkg, models = SIDES[side][0], SIDES[side][3]
+    img = pkg.layers.data("img", [784])
+    label = pkg.layers.data("label", [1], dtype="int64")
+    _, loss, acc = models.mlp(img, label)
+    opt = pkg.optimizer.Adagrad(pkg.lr_scheduler.ExponentialDecay(
+        0.01, decay_steps=2, decay_rate=0.5))
+    return loss, opt, [img, label], [acc]
+
+
+def _persistable_values(main, scope):
+    return {n: np.array(scope.find_var(n).array)
+            for n, v in main.global_block().vars.items()
+            if v.persistable and scope.find_var(n) is not None}
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_scheduled_adagrad_checkpoint_cross_loads(direction, tmp_path):
+    """A Trainer with ``Adagrad(ExponentialDecay)`` saves its
+    persistables (parameters, Adagrad's moments, the learning rate and
+    the global step) after 3 batches in one package; the other package
+    loads them and both train 2 more batches: the costs, the next
+    learning rates, the global step and every accumulator agree."""
+    jtr, ttr = _pair(_mlp_adagrad_schedule)
+    make = lambda r, d: r.batch(d.mnist.train(320), 64)  # noqa: E731
+    jbatches = list(make(jreader, jdatasets)())
+    tbatches = list(make(treader, tdatasets)())
+    src, dst = (jtr, ttr) if direction == "jax_to_port" else (ttr, jtr)
+    for b in (jbatches if src is jtr else tbatches)[:3]:
+        src.train_one_batch(b)
+    ckpt = str(tmp_path / "ckpt")
+    if src is jtr:
+        jio.save_persistables(jtr.exe, ckpt, jtr.main_program)
+        names = tio.load_persistables(ttr.exe, ckpt, scope=None)
+    else:
+        tio.save_persistables(ttr.exe, ckpt, ttr.main_program)
+        names = jio.load_persistables(jtr.exe, ckpt)
+    assert any(n.startswith("moment_") for n in names)
+    assert any(n.startswith("global_step") for n in names)
+    # the source's next steps, and the destination's from the checkpoint
+    jcosts = [jtr.train_one_batch(b)["cost"] for b in jbatches[3:]]
+    tcosts = [ttr.train_one_batch(b)["cost"] for b in tbatches[3:]]
+    np.testing.assert_allclose(tcosts, jcosts, atol=TOL, rtol=TOL)
+    want = _persistable_values(jtr.main_program, jscope.global_scope())
+    got = {n: v for n, v in _persistable_values(
+        ttr.main_program, tscope.global_scope()).items()}
+    assert sorted(got) == sorted(want)
+    step = next(n for n in got if n.startswith("global_step"))
+    assert got[step].tolist() == want[step].tolist() == [5.0]
+    lr = next(n for n in got if n.startswith("learning_rate"))
+    assert got[lr][0] == want[lr][0] == np.float32(0.01 * 0.5 ** 2)
+    for n, v in got.items():
+        np.testing.assert_allclose(v, want[n], atol=TOL, rtol=TOL,
+                                   err_msg=n)
+
+
+def _word2vec_imikolov(side):
+    pkg, text = SIDES[side][0], SIDES[side][4]
+    words = [pkg.layers.data(f"w{i}", [1], dtype="int64") for i in range(4)]
+    nxt = pkg.layers.data("next", [1], dtype="int64")
+    _, loss = text.word2vec_net(words, nxt, dict_size=2073, emb_dim=8,
+                                hid_dim=32)
+    opt = pkg.optimizer.Adagrad(pkg.lr_scheduler.ExponentialDecay(
+        0.05, decay_steps=4, decay_rate=0.8))
+    return loss, opt, words + [nxt], []
+
+
+def _sentiment_conv_sentiment(side):
+    pkg, text = SIDES[side][0], SIDES[side][4]
+    data = pkg.layers.data("words", [1], dtype="int64", lod_level=1)
+    label = pkg.layers.data("label", [1], dtype="int64")
+    _, loss, acc = text.convolution_net(data, label, input_dim=2048,
+                                        emb_dim=16, hid_dim=16)
+    opt = pkg.optimizer.RMSProp(pkg.lr_scheduler.PiecewiseDecay(
+        [3], [0.01, 0.003]), momentum=0.5)
+    return loss, opt, [data, label], [acc]
+
+
+# the book models over the datasets they were written for (imikolov's
+# and sentiment's synthetic surrogates), with the other optimizers and
+# a schedule: name -> (builder, reader over one side's modules, passes)
+BOOK_DATASETS = {
+    "word2vec_imikolov": (_word2vec_imikolov, lambda r, d: r.batch(
+        d.imikolov.train(n_synthetic=128), 32), 2),
+    "understand_sentiment_conv_sentiment": (
+        _sentiment_conv_sentiment,
+        lambda r, d: r.batch(d.sentiment.train(32), 16), 2),
+}
+
+
+@pytest.mark.parametrize("name", list(BOOK_DATASETS))
+def test_book_models_on_their_datasets_match_jax(name, monkeypatch,
+                                                 tmp_path):
+    from paddle_tpu.datasets import common as jcommon
+    from paddle_tpu_torch.datasets import common as tcommon
+    monkeypatch.setattr(jcommon, "DATA_HOME", str(tmp_path))
+    monkeypatch.setattr(tcommon, "DATA_HOME", str(tmp_path))
+    build, make_reader, passes = BOOK_DATASETS[name]
+    jtr, ttr = _pair(build)
+    want, got = [], []
+    jtr.train(make_reader(jreader, jdatasets), num_passes=passes,
+              event_handler=_recorder(want), log_period=0)
+    ttr.train(make_reader(treader, tdatasets), num_passes=passes,
+              event_handler=_recorder(got), log_period=0)
+    _same_events(got, want)
+    costs = [r[3] for r in got if r[0] == "EndIteration"]
+    assert costs and all(np.isfinite(costs))
 
 
 def test_save_period_writes_each_pass_checkpoint(tmp_path):
