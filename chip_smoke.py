@@ -78,6 +78,38 @@ The whole-prompt slice adds, in the same run:
    then ``profile_whole``: a decode step and a rung-384 prefill under
    ``torch.profiler``.
 
+The speculative-decoding and beam slice adds, in the same run:
+
+5g. the first 16 requests of the burst through speculative engines:
+   ``serve_spec`` (chunked, fp32, γ 3, draft ``SPEC_DRAFT_CFG`` with
+   weights from seed 7), ``serve_spec_self`` (whole, fp32, γ 4, the
+   target as its own draft: the accept, γ-cap and rollback paths every
+   round) and ``serve_spec_quant`` (whole, int8 KV for both models +
+   int8 target weights, the small draft, γ 3). Launch counts are exact
+   (whole: B3/B4 the draft's layers x γ x verify rounds, B5/B6 the
+   target's layers x rounds + both models' layers x prefills, B7 four a
+   target layer a call; chunked: B1 both models' layers x mixed steps,
+   B3 the draft's layers x γ x rounds, B5 the target's layers x
+   rounds), pools leak-free and consistent. Tokens are compared with
+   the plain run of the same pool and weights (``serve``,
+   ``serve_whole``, ``serve_whole_quant``): equal, or, for a request
+   that differs, the plain run's tokens replayed teacher-forced through
+   ``mixed_step`` on the card must show a near-tie at the first
+   differing position (the two tokens' logits within ``_near_tie``'s
+   bound); then ``serve_beam``: ``generate_beam(K=4,
+   max_new_tokens=32)`` over requests 1 and 3 (the second hits the
+   first's shared 128-token prefix in the prefix cache) on a whole-mode
+   fp32 engine and a chunked engine with an int8 pool (the quantized
+   copy-on-write, the prefix through the mixed step), each against
+   ``impl="dense"`` on the same engine (``_beam_check``: fp32 beams
+   equal or near-ties; the int8 pool's beams equal, bit for bit in
+   their route, to ``_beams_by_value``: the same kernels over per-beam
+   pool regions regathered by value, nothing shared; against the fp32
+   dense lane reported only), with exact launch counts (B3/B4 layers x
+   32 a call), ms a call, and the same calls on a twin engine with every copy checked on
+   the card (payload bytes and scale rows equal the source block's; > 0
+   copies) giving the same beams.
+
 The training slice adds, in the same run:
 
 3d. the flash-attention forward (B8) and its dq and dk/dv backward
@@ -336,7 +368,9 @@ adds:
    plain, plain, recipe).
 
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
-lane of every kernel), the ``serve``, ``train``, seq2seq, LSTM,
+lane of every kernel; the paged-attention and B7 lanes add their 5g
+launches, ``launches_5g``), the ``serve`` (5g's ``serve_spec*`` and
+``serve_beam`` among them), ``train``, seq2seq, LSTM,
 ``exec_mlp``, ``exec_text``, ``trainer_lstm``, ``exec_gru``,
 ``exec_resnet50``, ``exec_image``, ``trainer_image``,
 ``trainer_lstm_recipe`` and ``exec_resnet50_recipe`` lines and, last,
@@ -1366,6 +1400,371 @@ def solo_tokens(DecodeEngine, cfg, params, indices, engine_kw,
                            timeout=600).tokens.tolist() for j in indices}
     eng.close()
     return out
+
+
+# --------------------------------------------- speculation and beams (5g)
+
+# the speculative lines' draft: same vocab and context as the target,
+# a quarter of its width and two layers
+SPEC_DRAFT_CFG = dict(vocab_size=32000, d_model=256, n_heads=4,
+                      head_dim=64, n_layers=2, d_ff=1024, max_seq_len=512)
+SPEC_N = 16                     # the burst's first requests
+SERVE_BEAM_K, SERVE_BEAM_NEW = 4, 32
+BEAM_REQUESTS = (1, 3)          # both behind the shared prefix
+# beam scores are sums of SERVE_BEAM_NEW log-probs near -log(32000) each
+# (|score| ~ 330, whose fp32 ulp is 3.05e-5); the fp32 paged lane's
+# log-probs lie within 2 x LOGIT_TOL of the dense lane's (log-softmax
+# moves a gap by at most twice a logit's error), so two fp32 beams of
+# one sequence agree within SERVE_BEAM_NEW x (ulp + 2 x LOGIT_TOL)
+BEAM_FP32_TOL = SERVE_BEAM_NEW * (3.05e-5 + 2 * LOGIT_TOL)
+
+
+def _near_tie(fp32_eps, quant_eps=None):
+    """The bound under which two routes' greedy tokens may differ: the
+    two tokens' logits within 4 x the largest logit distance between two
+    routes (each route's logits lie within eps of the model's, so a flip
+    needs the two tokens within 2 eps on any one route, and within 4 eps
+    on the replay, a third route). fp32: eps = LOGIT_TOL, the gate on
+    12-layer logits whose attention agrees within ATTN_TOL. int8 (KV and
+    weights): eps = the quantized step's kernel-vs-plain logit distance
+    measured by 4b / 4c in this run: an ulp of attention moves an int8
+    K/V value or activation by a quantum there."""
+    return 4.0 * (fp32_eps if quant_eps is None else quant_eps)
+
+
+def _replay_logits(dm, make_pools, cfg, params, kv_dtype, cal, tokens):
+    """Teacher-forced logits of ``tokens`` at positions 0..n-1 in ONE
+    ``mixed_step`` on the card (pools of ``kv_dtype`` under ``cal``)."""
+    n = len(tokens)
+    kv = cfg.kv_config(16, n // 16 + 2, kv_dtype)
+    k, v = make_pools(kv, None, *cal)
+    dev = params["embed"].device
+    logits, _, _ = dm.mixed_step(
+        cfg, params, k, v, torch.tensor(tokens, device=dev),
+        torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.arange(n, dtype=torch.int32, device=dev),
+        torch.ones(n, dtype=torch.bool, device=dev),
+        torch.arange(kv.num_blocks, dtype=torch.int32, device=dev)[None])
+    return logits
+
+
+def _compare_greedy(dm, make_pools, cfg, params, kv_dtype, cal, prompts,
+                    plain, got, bound, key):
+    """Equal tokens, or a near-tie at the first differing position of
+    each request that differs (``_near_tie``); any other divergence
+    fails. Returns the comparison's record."""
+    ties = []
+    for j, (a, b) in enumerate(zip(plain, got)):
+        if a == b:
+            continue
+        i = next(i for i in range(min(len(a), len(b))) if a[i] != b[i])
+        seq = list(prompts[j]) + list(a[:i])
+        lg = _replay_logits(dm, make_pools, cfg, params, kv_dtype, cal,
+                            seq)[-1].double()
+        top = torch.topk(lg, 2).values
+        gap = float((lg[a[i]] - lg[b[i]]).abs())
+        ties.append({"request": j, "position": i, "tokens": [a[i], b[i]],
+                     "logit_gap": gap,
+                     "replay_top2_gap": float(top[0] - top[1])})
+        _check(gap <= bound, f"{key}: request {j} diverges from the plain "
+               f"run at token {i} ({a[i]} vs {b[i]}) with a logit gap "
+               f"{gap} > the near-tie bound {bound}")
+    return {"equal_share": float(np.mean([a == b for a, b in
+                                          zip(plain, got)])),
+            "near_ties": len(ties), "near_tie_bound": bound,
+            "near_tie_detail": ties}
+
+
+def serve_spec(DecodeEngine, kernels, dm, make_pools, cfg, params, key,
+               engine_kw, draft_cfg, draft_params, plain, bound, cal=(
+                   None, None)):
+    """Phase 5g: the burst's first SPEC_N requests through a speculative
+    engine (``engine_kw`` adds the mode, γ, pool and weights); exact
+    launch counts, a leak-free pool, and the tokens against ``plain``
+    (the plain run's of the same pool and weights) by
+    ``_compare_greedy``. Returns the line's record and its launches."""
+    prompts, max_new = _requests(cfg)
+    prompts, max_new = prompts[:SPEC_N], max_new[:SPEC_N]
+    kw = dict(block_size=16, num_blocks=2048, max_slots=16, eos_id=0,
+              **engine_kw)
+    eng = DecodeEngine(cfg, params, draft_cfg=draft_cfg,
+                       draft_params=draft_params, **kw)
+    n_entries = eng.warmup()
+    torch.cuda.synchronize()
+    kernels.reset_launches()                       # the main path: go
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, m) for p, m in zip(prompts, max_new)]
+    results = [f.result(timeout=900) for f in futs]
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)              # read just after
+    st = eng.stats()
+    spec = st["speculation"]
+    rounds, steps = spec["verify_steps"], int(st["steps_total"])
+    prefills = int(st["prefills_total"])
+    L, Ld, gamma = cfg.n_layers, draft_cfg.n_layers, eng.speculate_k
+    q = "_quant" if eng.kv.quantized else ""
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want["paged_attention" + q] = Ld * gamma * rounds
+    if eng.prefill_mode == "chunked":
+        want["paged_attention_mixed" + q] = (L + Ld) * (steps - rounds)
+        want["paged_attention_chunk" + q] = L * rounds
+        target_calls = steps
+    else:
+        want["paged_attention_chunk" + q] = L * rounds + (L + Ld) * prefills
+        target_calls = rounds + prefills
+    if eng.quant_plan:
+        want["quant_matmul"] = 4 * L * target_calls
+    _check(launches == want, f"{key}: launches {launches} over {rounds} "
+           f"rounds, {steps} steps, {prefills} prefills, want {want}")
+    eng.pool.assert_consistent()
+    tparams, kv_dtype = eng.params, eng.kv.dtype
+    eng.close()
+    _check(eng.pool.check_leaks() == [] and eng.pool.blocks_in_use == 0,
+           f"{key}: leaked blocks {eng.pool.check_leaks()}")
+    del eng
+    tokens = [r.tokens.tolist() for r in results]
+    for r, m in zip(results, max_new):
+        _check(1 <= len(r.tokens) <= m, f"{len(r.tokens)} tokens, max {m}")
+    cmp_ = _compare_greedy(dm, make_pools, cfg, tparams, kv_dtype, cal,
+                           prompts, plain[:SPEC_N], tokens, bound, key)
+    n_tok = int(sum(len(t) for t in tokens))
+    rec = {"requests": len(prompts), "generated_tokens": n_tok,
+           "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "ttft_ms_p50": st["ttft_ms_p50"], "tpot_ms_p50": st["tpot_ms_p50"],
+           "step_ms_p50": st["step_ms_p50"], "gamma": gamma,
+           "draft_layers": Ld, "verify_rounds": rounds,
+           "slot_rounds": spec["rounds"],
+           "mean_accept_len": spec["mean_accept_len"],
+           "tokens_per_slot_round": n_tok / max(1, spec["rounds"]),
+           "mixed_steps": (steps - rounds
+                           if st["prefill_mode"] == "chunked" else 0),
+           "prefills": prefills, "warmup_entries": n_entries,
+           "prefill_mode": st["prefill_mode"],
+           "kv_dtype": st["quant"]["kv_dtype"],
+           "weights_quantized": st["quant"]["weights_quantized"],
+           "launches": launches, "vs_plain": cmp_,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return {key: rec}, launches
+
+
+def _oracle_logprobs(dm, cfg, params, prompt, seq, n):
+    """The dense lane's log-prob of each of a beam's first ``n`` tokens,
+    teacher-forced through ``make_dense_beam_step_fn`` after the dense
+    prefill of the prompt minus its last token (the BOS)."""
+    dev = params["embed"].device
+    kc, vc = dm.dense_prefill(cfg, params, np.asarray(prompt[:-1]),
+                              len(prompt) - 1)
+    state = (kc[None], vc[None], torch.full((1,), len(prompt) - 1,
+                                            dtype=torch.int32, device=dev))
+    step = dm.make_dense_beam_step_fn(cfg, params)
+    tok, out = int(prompt[-1]), []
+    for t in range(n):
+        lp, state = step(state, torch.tensor([tok], device=dev))
+        tok = int(seq[t])
+        out.append(float(lp[0, tok]))
+    return np.asarray(out)
+
+
+def _beam_check(dm, cfg, params, prompt, paged, ref, tol, near_ties=True):
+    """Each paged beam against ``ref``'s beam of the same rank: the same
+    sequence and length with scores within ``tol``, or (``near_ties``,
+    against the dense lane) a near-tie: the dense lane's own score of
+    the paged beam within ``tol`` of the dense beam's. Returns the
+    record."""
+    K = paged.sequences.shape[1]
+    ties = []
+    for i in range(K):
+        ps, pl = paged.sequences[0, i], int(paged.lengths[0, i])
+        if pl == int(ref.lengths[0, i]) and (ps == ref.sequences[0, i]).all():
+            err = abs(float(paged.scores[0, i]) - float(ref.scores[0, i]))
+            _check(err <= tol, f"beam {i}: paged score off the "
+                   f"reference's by {err} > {tol}")
+            continue
+        _check(near_ties, f"beam {i}: the paged sequence differs from the "
+               "reference's")
+        oracle = float(_oracle_logprobs(dm, cfg, params, prompt, ps,
+                                        pl).sum())
+        gap = abs(oracle - float(ref.scores[0, i]))
+        ties.append({"beam": i, "oracle_score": oracle,
+                     "dense_score": float(ref.scores[0, i]),
+                     "paged_score": float(paged.scores[0, i]), "gap": gap})
+        _check(gap <= tol, f"beam {i}: paged sequence differs from the "
+               f"dense lane's and scores {gap} off it (> {tol})")
+    return {"beams_equal": K - len(ties), "near_ties": ties,
+            "score_max_abs_diff": float(np.abs(paged.scores
+                                               - ref.scores).max())}
+
+
+def _beams_by_value(dm, make_pools, beam_search, eng, params, cal, prompt,
+                    hit):
+    """The paged lane's beams with nothing shared and nothing copied on
+    write: ``decode.beam_search`` (the dense lane's search) over
+    per-beam regions of a pool of the engine's dtype, regathered by
+    value every step and stepped by the same ``decode_step`` kernels.
+    The prefix goes in through the mixed step along the engine's own
+    chunked route (``T``-row calls from position 0 over the ``hit``
+    tokens the prefix cache supplied, then from ``hit`` over the tail),
+    so every value matches the paged lane's bit for bit where the
+    copy-on-write is right."""
+    cfg, K, new = eng.cfg, SERVE_BEAM_K, SERVE_BEAM_NEW
+    dev = params["embed"].device
+    prefix = np.asarray(prompt[:-1], np.int32)
+    n0, T = int(prefix.size), eng._mixed_rows
+    nb = eng.kv.blocks_for(n0 + new)
+    k, v = make_pools(cfg.kv_config(eng.kv.block_size, nb, eng.kv.dtype),
+                      None, *cal)
+    table = torch.arange(nb, dtype=torch.int32, device=dev)[None]
+    for lo, hi in ((0, hit), (hit, n0)):
+        for c in range(lo, hi, T):
+            take = min(T, hi - c)
+            rows = np.zeros((3, T), np.int32)
+            rows[0, :take] = prefix[c:c + take]
+            rows[1, :take] = np.arange(c, c + take)
+            rows[2, :take] = 1
+            r = torch.from_numpy(rows).to(dev)
+            dm.mixed_step(cfg, params, k, v, r[0], torch.zeros_like(r[0]),
+                          r[1], r[2].bool(), table,
+                          write_limit=eng.max_context)
+    lead = [x[None].repeat(K, *[1] * x.dim()) for x in (k[0], k[1], v[0],
+                                                         v[1])]
+    tables = (torch.arange(K, device=dev)[:, None] * nb
+              + torch.arange(nb, device=dev)[None]).to(torch.int32)
+    ones = torch.ones((K,), dtype=torch.bool, device=dev)
+
+    def step(state, tokens):
+        *parts, lens = state
+        flat = [x.transpose(0, 1).reshape(x.shape[1], K * nb, *x.shape[3:])
+                .contiguous() for x in parts]
+        logits, _, _ = dm.decode_step(
+            cfg, params, (flat[0], flat[1], k[2]), (flat[2], flat[3], v[2]),
+            tokens, tables, lens, ones)
+        back = [x.reshape(x.shape[0], K, nb, *x.shape[2:]).transpose(0, 1)
+                for x in flat]
+        return torch.log_softmax(logits, dim=-1), (*back, lens + 1)
+
+    res = beam_search(step, (*lead, torch.full((K,), n0, dtype=torch.int32,
+                                                 device=dev)),
+                      batch_size=1, beam_size=K, max_len=new,
+                      bos_id=int(prompt[-1]), eos_id=eng.eos_id,
+                      vocab_size=cfg.vocab_size)
+    return type(res)(*[x.cpu().numpy() for x in res])
+
+
+def serve_beam(DecodeEngine, kernels, dm, make_pools, beam_search, cfg,
+               params, rungs, int8_cal):
+    """Phase 5g's beam line: ``generate_beam`` over requests
+    BEAM_REQUESTS on a whole-mode fp32 engine and a chunked engine with
+    an int8 pool (``int8_cal``: its calibration probe's absmax), each
+    against ``impl="dense"`` on the same engine (``_beam_check``; the
+    int8 pool's beams are held to ``_beams_by_value`` instead and only
+    compared with the fp32 dense lane: a quantized K/V moves every
+    log-prob, by up to 0.12 in 4c's logits, so over near-flat random
+    logits the two searches prune other prefixes), with exact launch
+    counts; a twin engine takes the same calls with every
+    copy-on-write checked on the card (the copied payload bytes and
+    scale rows equal the source's) and must give the same beams."""
+    prompts, _ = _requests(cfg)
+    out, launch_sum = {}, dict.fromkeys(kernels.LAUNCHES, 0)
+    for name, kw, tol in (
+            ("whole_fp32", dict(prefill_mode="whole"), BEAM_FP32_TOL),
+            ("chunked_int8", dict(kv_config=cfg.kv_config(16, 2048, "int8")),
+             BEAM_FP32_TOL)):
+        eng, twin = (DecodeEngine(cfg, params, block_size=16,
+                                  num_blocks=2048, max_slots=16, eos_id=0,
+                                  prompt_rungs=rungs, autostart=False, **kw)
+                     for _ in range(2))
+        T = eng._mixed_rows
+        quant = eng.kv.quantized
+        q = "_quant" if quant else ""
+        copies_checked = [0]
+        real_copy = twin._cow_copy
+
+        def checked_copy(src, dst, eng=twin, real_copy=real_copy,
+                         quant=quant, copies_checked=copies_checked):
+            real_copy(src, dst)
+            for pool in (eng._k_pool, eng._v_pool):
+                pay = pool[0].view(torch.uint8) if quant else pool
+                for a, b in zip(src, dst):
+                    if a == b:
+                        continue
+                    _check(torch.equal(pay[:, b], pay[:, a]) and (
+                        not quant or torch.equal(pool[1][:, b],
+                                                 pool[1][:, a])),
+                           f"CoW: block {b} is not a copy of block {a}")
+                    copies_checked[0] += 1
+        twin._cow_copy = checked_copy
+        calls = []
+        for j in BEAM_REQUESTS:
+            p = prompts[j]
+            hits0 = eng.stats()["prefix"]["hit_tokens"]
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            paged = eng.generate_beam(p, beam_size=SERVE_BEAM_K,
+                                      max_new_tokens=SERVE_BEAM_NEW)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(kernels.LAUNCHES)
+            hit = int(eng.stats()["prefix"]["hit_tokens"] - hits0)
+            tail = len(p) - 1 - hit
+            want = dict.fromkeys(kernels.LAUNCHES, 0)
+            want["paged_attention" + q] = cfg.n_layers * SERVE_BEAM_NEW
+            if eng.prefill_mode == "whole":
+                want["paged_attention_chunk" + q] = cfg.n_layers
+            else:
+                want["paged_attention_mixed" + q] = \
+                    cfg.n_layers * -(-tail // T)
+            _check(launches == want, f"serve_beam {name}: launches "
+                   f"{launches}, want {want}")
+            for k, v in launches.items():
+                launch_sum[k] += v
+            t0 = time.perf_counter()
+            dense = eng.generate_beam(p, beam_size=SERVE_BEAM_K,
+                                      max_new_tokens=SERVE_BEAM_NEW,
+                                      impl="dense")
+            torch.cuda.synchronize()
+            dense_ms = (time.perf_counter() - t0) * 1e3
+            _check(kernels.LAUNCHES == launches, "the dense lane launched "
+                   "a kernel")
+            again = twin.generate_beam(p, beam_size=SERVE_BEAM_K,
+                                       max_new_tokens=SERVE_BEAM_NEW)
+            _check(all(np.array_equal(x, y) for x, y in zip(paged, again)),
+                   f"serve_beam {name}: the twin engine gave other beams")
+            if quant:
+                rec = _beam_check(dm, cfg, params, p, paged, _beams_by_value(
+                    dm, make_pools, beam_search, eng, params, int8_cal, p,
+                    hit), tol, near_ties=False)
+                rec["vs_dense"] = {
+                    "best_beam_equal": bool(
+                        paged.lengths[0, 0] == dense.lengths[0, 0]
+                        and (paged.sequences[0, 0]
+                             == dense.sequences[0, 0]).all()),
+                    "score_diffs": (paged.scores - dense.scores)[0].tolist()}
+            else:
+                rec = _beam_check(dm, cfg, params, p, paged, dense, tol)
+            rec.update({"request": j, "prompt_tokens": len(p),
+                        "prefix_hit_tokens": hit, "ms": ms,
+                        "dense_ms": dense_ms, "launches": launches,
+                        "lengths": paged.lengths[0].tolist(),
+                        "scores": paged.scores[0].tolist(),
+                        "dense_scores": dense.scores[0].tolist()})
+            calls.append(rec)
+        _check(calls[1]["prefix_hit_tokens"] >= 112,   # 7-8 blocks of 16
+               "the second beam call missed the shared prefix")
+        _check(copies_checked[0] > 0, f"serve_beam {name}: no block copied")
+        for e in (eng, twin):
+            e.pool.assert_consistent()
+            e.close()
+            _check(e.pool.check_leaks() == [] and e.pool.blocks_in_use == 0,
+                   f"serve_beam {name}: leaked blocks")
+        out[name] = {"calls": calls, "cow_copies": eng.cow_copies,
+                     "cow_copies_checked": copies_checked[0],
+                     "score_tol": tol, "kv_dtype": eng.kv.dtype,
+                     "prefill_mode": eng.prefill_mode,
+                     "beam_size": SERVE_BEAM_K,
+                     "max_new_tokens": SERVE_BEAM_NEW}
+        del eng, twin
+    return {"serve_beam": out}, launch_sum
 
 
 # ---------------------------------------------------------------- training
@@ -5258,6 +5657,7 @@ def main(argv=None):
     from paddle_tpu_torch.kernels import fused_rnn as fr
     from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.kernels import quant_matmul as qm
+    from paddle_tpu_torch.decode import beam_search
     from paddle_tpu_torch.serving import (DecodeEngine, DecoderConfig,
                                           init_params, make_pools)
     from paddle_tpu_torch.serving import decode_model as dm
@@ -5508,6 +5908,52 @@ def main(argv=None):
     pwrec = profile_whole(dm, make_pools, cfg, params, kv, max_slots)
     _say(f"whole serving phases done at {time.perf_counter() - t0:.1f} s")
 
+    # 5g: speculative decoding (a small draft; the target as its own
+    # draft; int8) and copy-on-write beams, against the plain runs above
+    dcfg = DecoderConfig(**SPEC_DRAFT_CFG)
+    dparams = init_params(dcfg, seed=7)
+    quant_eps = max(mqrec["logits_max_abs_err"], wqrec["logits_max_abs_err"])
+    spec_runs = {}
+    for key, kw, (dc, dp), plain, bound, scal in (
+            ("serve_spec", dict(speculate_k=3), (dcfg, dparams),
+             fp32_tokens, _near_tie(LOGIT_TOL), (None, None)),
+            ("serve_spec_self", dict(whole, speculate_k=4), (cfg, params),
+             whole_runs["serve_whole"][2], _near_tie(LOGIT_TOL),
+             (None, None)),
+            ("serve_spec_quant", dict(whole, speculate_k=3, kv_config=kv8,
+                                      quant_plan="int8"), (dcfg, dparams),
+             whole_runs["serve_whole_quant"][2],
+             _near_tie(LOGIT_TOL, quant_eps), cal)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        spec_runs[key] = serve_spec(DecodeEngine, kernels, dm, make_pools,
+                                    cfg, params, key, kw, dc, dp, plain,
+                                    bound, scal)
+        spec_runs[key][0][key]["card"] = card
+    del dparams
+    torch.cuda.empty_cache()
+    sbeam_rec, sbeam_launch = serve_beam(
+        DecodeEngine, kernels, dm, make_pools, beam_search, cfg, params,
+        rungs, _probe_kv_absmax(cfg, params))
+    sbeam_rec["serve_beam"]["card"] = card
+    # B1-B7's launches on these paths, beside each lane's main-path count
+    spec_l = {k: v[1] for k, v in spec_runs.items()}
+    for rec, name, keys in (
+            (krec, "paged_attention_mixed", ("serve_spec",)),
+            (lanes["int8"], "paged_attention_mixed_quant", ()),
+            (dlanes["float32"], "paged_attention",
+             ("serve_spec", "serve_spec_self")),
+            (dlanes["int8"], "paged_attention_quant", ("serve_spec_quant",)),
+            (clanes["float32"], "paged_attention_chunk",
+             ("serve_spec", "serve_spec_self")),
+            (clanes["int8"], "paged_attention_chunk_quant",
+             ("serve_spec_quant",)),
+            (qrecs["int8"], "quant_matmul", ("serve_spec_quant",))):
+        rec["launches_5g"] = dict({k: spec_l[k][name] for k in keys},
+                                  serve_beam=sbeam_launch[name])
+    _say(f"speculative and beam phases done at "
+         f"{time.perf_counter() - t0:.1f} s")
+
     # 5d: the training slice's main path: bf16 with the flash kernels,
     # then the same steps with the plain attention ("xla") and a short
     # fp32 run (the fp32 lanes' launches); then the 6 x 128 heads' model
@@ -5715,6 +6161,9 @@ def main(argv=None):
         _say(json.dumps(rec))
     for key in whole_runs:
         _say(json.dumps(whole_runs[key][0]))
+    for key in spec_runs:
+        _say(json.dumps(spec_runs[key][0]))
+    _say(json.dumps(sbeam_rec))
     for key in train_runs:
         _say(json.dumps(train_runs[key][0]))
     for key in s2s_runs:

@@ -1,11 +1,11 @@
 """DecodeEngine — continuous-batching autoregressive serving on the card.
 
-The port of the JAX package's ``serving/decode_engine.py`` without
-speculation: chunked or whole-prompt prefill, continuous or static
-admission, prefix cache on or off, with a float32, bfloat16, int8 or
-fp8-e4m3 KV pool and fp32 or quantized projection weights. An
-**iteration-level** loop (the vLLM/Orca policy) runs on its own
-thread: every turn retires slots that finished, admits waiting
+The port of the JAX package's ``serving/decode_engine.py``: chunked or
+whole-prompt prefill, continuous or static admission, prefix cache on
+or off, with a float32, bfloat16, int8 or fp8 KV pool and fp32 or
+quantized projection weights, speculative decoding and copy-on-write
+beams. An **iteration-level** loop (the vLLM/Orca policy) runs on its
+own thread: every turn retires slots that finished, admits waiting
 requests into free slots, then advances every resident request.
 
 - **Chunked prefill** (``prefill_mode="chunked"``, the default): each
@@ -39,14 +39,31 @@ same solo or inside a churning batch.
   per-layer/head scales from ``kv_calibration`` or a one-time dense
   prefill probe; ``quant_plan`` sends the projections through the
   quantized matmul kernel.
+- **Speculative decoding** (``speculate_k=γ`` with a draft model): a
+  round runs γ chained draft ``decode_step`` calls (the argmax stays on
+  the card between them), then ONE target ``decode_chunk`` over
+  ``[pending, draft_1..γ]``; the proposals and the verify tokens come
+  back in one host copy. Greedy accept keeps the longest agreeing
+  prefix, emitting at most γ tokens a round, so the draft pool's
+  written horizon equals ``seq_lens`` afterwards; rollback is a length
+  rollback plus a refcount release of trailing blocks. The draft pool
+  lies on the target pool's block grid (same block size, count and
+  dtype), so one BlockPool and one table array serve both, and every
+  prefill writes both. Each verify row is the same per-row fold as a
+  plain step, so speculative greedy tokens are plain greedy's.
+- **CoW beams**: ``generate_beam`` rides the same pool: the K beams
+  share the prompt's blocks by refcount and copy a block (its payload
+  and, in a quantized pool, its stored scale row) only when a beam
+  first writes into a block another owner still holds. Host scoring is
+  ``decode.beam_search``'s, operation for operation; ``impl="dense"``
+  runs the dense-cache oracle instead.
 
 The argmax stays on the device; the one host fence per dispatch is
 reading the tokens back (with the EOS flags in whole mode, as one small
 buffer). The pools are updated in place.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): speculation (A6.4, with its quantized draft pool), CoW beams
-(A6.5), telemetry with the lifecycle ledger and goodput decomposition
+item): telemetry with the lifecycle ledger and goodput decomposition
 (A6.6), and the compile cache (A6.7).
 
 Metric names are the decode contract of the JAX package's
@@ -64,7 +81,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from paddle_tpu_torch.decode import greedy_step
+from paddle_tpu_torch.decode import NEG, BeamResult, beam_search, greedy_step
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.obs.metrics import (LATENCY_BUCKETS_MS,
                                           MetricsRegistry)
@@ -168,6 +185,13 @@ class DecodeEngine:
     ``.decisions``) replaces the projection weights with 1-byte
     payloads served by the quantized matmul kernel; the probe runs on
     the quantized weights, as in the JAX engine.
+
+    ``speculate_k`` / ``draft_cfg`` / ``draft_params``: the speculative
+    lane, γ draft proposals a round verified by one target chunk (the
+    draft's weights default to ``init_params(draft_cfg, seed)``; they
+    stay unquantized, and a quantized pool gives the draft a pool of
+    the same dtype with its own calibration probe). Greedy tokens stay
+    plain greedy's; only the dispatch count changes.
     """
 
     def __init__(self, cfg: dm.DecoderConfig, params=None, *,
@@ -203,9 +227,8 @@ class DecodeEngine:
         if speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got "
                              f"{speculate_k}")
-        if speculate_k > 0 or draft_cfg is not None \
-                or draft_params is not None:
-            raise _not_ported("speculative decoding", "A6.4")
+        if speculate_k > 0 and draft_cfg is None:
+            raise ValueError("speculate_k > 0 requires a draft_cfg")
         if compile_cache is not None:
             raise _not_ported("compile_cache", "A6.7")
         if telemetry is not None:
@@ -252,6 +275,34 @@ class DecodeEngine:
         self.max_pages = self.kv.blocks_for(self.max_context)
         self.prefix_cache = bool(prefix_cache)
 
+        # ---- speculative lane: the draft pool lies on the target pool's
+        # block grid (same block_size / num_blocks / dtype), so ONE
+        # BlockPool and one table array account for both, and a prefix
+        # hit carries both pools' content (both models' K/V at a
+        # position are functions of the same token prefix)
+        self.speculate_k = int(speculate_k)
+        self.draft_cfg = draft_cfg if self.speculate_k > 0 else None
+        self.draft_kv = None
+        self.draft_params = None
+        if self.draft_cfg is not None:
+            if self.draft_cfg.max_seq_len < self.max_context:
+                raise ValueError(
+                    f"draft max_seq_len {self.draft_cfg.max_seq_len} "
+                    f"< max_context {self.max_context}")
+            if self.draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft vocab differs from target")
+            self.draft_kv = self.draft_cfg.kv_config(
+                self.kv.block_size, self.kv.num_blocks, self.kv.dtype)
+            if draft_params is None:
+                draft_params = dm.init_params(self.draft_cfg, seed,
+                                              self.device)
+            for name, p in draft_params.items():
+                if p.device != self.device:
+                    raise ValueError(
+                        f"draft param {name!r} is on {p.device}, the "
+                        f"engine on {self.device}")
+            self.draft_params = draft_params
+
         # ---- chunked prefill: prompts stream into the mixed step as
         # fixed-size token chunks under a per-step budget. The default
         # chunk is block-aligned (4 blocks); any size is correct — the
@@ -280,6 +331,15 @@ class DecodeEngine:
                 k_cal, v_cal = _probe_kv_absmax(cfg, self.params)
         self._k_pool, self._v_pool = make_pools(
             self.kv, self.device, k_absmax=k_cal, v_absmax=v_cal)
+        self._dk_pool = self._dv_pool = None
+        if self.draft_kv is not None:
+            dk_cal = dv_cal = None
+            if self.draft_kv.quantized:   # the draft's own probe
+                dk_cal, dv_cal = _probe_kv_absmax(self.draft_cfg,
+                                                  self.draft_params)
+            self._dk_pool, self._dv_pool = make_pools(
+                self.draft_kv, self.device, k_absmax=dk_cal,
+                v_absmax=dv_cal)
         self._tokens = np.zeros((self.max_slots,), np.int32)
         self._seq_lens = np.zeros((self.max_slots,), np.int32)
         self._active = np.zeros((self.max_slots,), bool)
@@ -302,6 +362,10 @@ class DecodeEngine:
         self._device_lock = threading.Lock()
         self._occ_steps = 0
         self._tot_steps = 0
+        self._spec_rounds = 0       # slot-rounds (per slot per verify)
+        self._spec_accepted = 0
+        self._verify_steps = 0      # verify dispatches
+        self.cow_copies = 0         # blocks copied by the beam lane
         self._closed = False
         self._started = False
         self._warmed = False
@@ -369,6 +433,11 @@ class DecodeEngine:
             "(chunked prefill mode)",
             buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0,
                      256.0, 512.0))
+        self._accept_len = reg.histogram(
+            "decode_speculation_accept_len",
+            "draft tokens accepted per verify round (0..gamma)",
+            buckets=tuple(float(i) for i in
+                          range(max(self.speculate_k, 4) + 1)))
         self._fill_frac_g = reg.gauge(
             "decode_mixed_step_fill_frac",
             "prefill-token share of the last mixed step's valid rows "
@@ -378,24 +447,95 @@ class DecodeEngine:
             self.start()
 
     # ------------------------------------------------------- dispatch
+    @property
+    def _spec_on(self) -> bool:
+        return self.speculate_k > 0
+
+    def _upload(self, *arrays):
+        """Host int arrays -> ONE int32 buffer on the device."""
+        return torch.from_numpy(np.concatenate(
+            [np.asarray(a).reshape(-1) for a in arrays]).astype(
+                np.int32)).to(self.device)
+
     def _dispatch_mixed_rows(self, tokens, row_slots, positions, valid,
                              tables):
         """Run one mixed step on host-built row arrays and return the
         fenced per-row argmax tokens. The rows and tables go to the
         device as ONE int32 buffer; the argmax runs there, and reading
-        its [T] result back is the step's only host fence."""
+        its [T] result back is the step's only host fence. With the
+        speculative lane on, the same rows also write the DRAFT pool."""
         T = self._mixed_rows
-        buf = torch.from_numpy(np.concatenate([
-            tokens, row_slots, positions, valid.astype(np.int32),
-            tables.reshape(-1)]).astype(np.int32)).to(self.device)
+        buf = self._upload(tokens, row_slots, positions,
+                           valid.astype(np.int32), tables)
         rows = buf[:4 * T].view(4, T)
+        args = (rows[0], rows[1], rows[2], rows[3].bool(),
+                buf[4 * T:].view(self.max_slots, self.max_pages))
         logits, _, _ = dm.mixed_step(
-            self.cfg, self.params, self._k_pool, self._v_pool, rows[0],
-            rows[1], rows[2], rows[3].bool(),
-            buf[4 * T:].view(self.max_slots, self.max_pages),
+            self.cfg, self.params, self._k_pool, self._v_pool, *args,
             write_limit=self.max_context)
+        if self._spec_on:
+            dm.mixed_step(self.draft_cfg, self.draft_params,
+                          self._dk_pool, self._dv_pool, *args,
+                          write_limit=self.max_context)
         toks = torch.argmax(logits, dim=-1).to(torch.int32)
         return toks.cpu().numpy()
+
+    def _mixed_prefill_tail(self, tail, start_len: int, table_row):
+        """Write one table row's cold prompt tail through the mixed step
+        (the beam lane's prefix admission in chunked mode): chunks of up
+        to the step's full row count stream through slot 0 of a scratch
+        table whose row 0 is ``table_row``; resident slots' state is not
+        touched."""
+        T = self._mixed_rows
+        tables = np.zeros((self.max_slots, self.max_pages), np.int32)
+        tables[0] = table_row
+        tail = np.asarray(tail, np.int32)
+        zeros = np.zeros((T,), np.int32)
+        for done in range(0, int(tail.size), T):
+            take = min(T, int(tail.size) - done)
+            tokens = zeros.copy()
+            positions = zeros.copy()
+            valid = np.zeros((T,), bool)
+            tokens[:take] = tail[done:done + take]
+            positions[:take] = np.arange(start_len + done,
+                                         start_len + done + take)
+            valid[:take] = True
+            self._dispatch_mixed_rows(tokens, zeros, positions, valid,
+                                      tables)
+
+    def _dispatch_spec(self, dec):
+        """One speculative round's dispatches over the slots in ``dec``:
+        γ chained draft ``decode_step`` calls proposing a token each (a
+        slot stops writing at ``max_context``; the argmax stays on the
+        device between steps), then ONE target ``decode_chunk`` over
+        ``[pending, draft_1..γ]`` at positions ``seq_lens ..
+        seq_lens+γ``. Returns the fenced ``(proposals [S, γ], verify
+        tokens [S, γ+1])``, read back together in one copy."""
+        S, P, gamma = self.max_slots, self.max_pages, self.speculate_k
+        mc = self.max_context
+        buf = self._upload(self._tokens, self._seq_lens,
+                           dec.astype(np.int32), self._tables)
+        pending, seq_lens = buf[:S], buf[S:2 * S]
+        active = buf[2 * S:3 * S].bool()
+        tables = buf[3 * S:].view(S, P)
+        tok, lens, props = pending, seq_lens, []
+        for _ in range(gamma):
+            eff = active & (lens < mc)    # never write past the context
+            logits, _, _ = dm.decode_step(
+                self.draft_cfg, self.draft_params, self._dk_pool,
+                self._dv_pool, tok, tables, lens, eff)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            props.append(tok)
+            lens = lens + 1
+        props = torch.stack(props, dim=1)                    # [S, γ]
+        chunk = torch.cat([pending[:, None], props], dim=1)  # [S, γ+1]
+        q_lens = torch.full_like(seq_lens, gamma + 1)
+        logits, _, _ = dm.decode_chunk(
+            self.cfg, self.params, self._k_pool, self._v_pool, chunk,
+            tables, seq_lens, q_lens, active, write_limit=mc)
+        verify = torch.argmax(logits, dim=-1).to(torch.int32)
+        out = torch.cat([props, verify], dim=1).cpu().numpy()
+        return out[:, :gamma], out[:, gamma:]
 
     def _dispatch_decode(self):
         """Run one whole-mode ``decode_step`` over every slot (tokens,
@@ -405,9 +545,8 @@ class DecodeEngine:
         and ``done = active & (next == eos)``; the two come back as one
         [2, S] read, the dispatch's only host fence."""
         S = self.max_slots
-        buf = torch.from_numpy(np.concatenate([
-            self._tokens, self._seq_lens, self._active.astype(np.int32),
-            self._tables.reshape(-1)]).astype(np.int32)).to(self.device)
+        buf = self._upload(self._tokens, self._seq_lens,
+                           self._active.astype(np.int32), self._tables)
         active = buf[2 * S:3 * S].bool()
         logits, _, _ = dm.decode_step(
             self.cfg, self.params, self._k_pool, self._v_pool, buf[:S],
@@ -425,11 +564,14 @@ class DecodeEngine:
         the lengths stay host ints. Returns the fenced ``(first_token,
         done)``, read back together (never the [vocab] logits)."""
         R = padded.shape[0]
-        buf = torch.from_numpy(np.concatenate([padded, row]).astype(
-            np.int32)).to(self.device)
+        buf = self._upload(padded, row)
         logits_last, _, _ = dm.prefill(
             self.cfg, self.params, self._k_pool, self._v_pool, buf[:R],
             tail_len, start_len, buf[R:], write_limit=self.max_context)
+        if self._spec_on:       # the draft pool too, in the same turn
+            dm.prefill(self.draft_cfg, self.draft_params, self._dk_pool,
+                       self._dv_pool, buf[:R], tail_len, start_len,
+                       buf[R:], write_limit=self.max_context)
         nxt, _fin = greedy_step(
             logits_last[None, :],
             torch.zeros((1,), dtype=torch.bool, device=self.device),
@@ -447,7 +589,8 @@ class DecodeEngine:
         step shapes the engine serves, counted as the JAX engine counts
         its entries: 1 in chunked mode (the mixed step), ``1 +
         len(prompt_rungs)`` in whole mode (the decode step and one
-        prefill per rung)."""
+        prefill per rung), and 2 more with the speculative lane (the
+        draft scan and the verify chunk)."""
         with self._device_lock:
             if self.prefill_mode == "chunked":
                 T = self._mixed_rows
@@ -463,6 +606,9 @@ class DecodeEngine:
                     self._dispatch_prefill(np.zeros((rung,), np.int32),
                                            0, 0, zero_row)
                 n = 1 + len(self.prompt_rungs)
+            if self._spec_on:
+                self._dispatch_spec(np.zeros((self.max_slots,), bool))
+                n += 2
         self._warmed = True
         return n
 
@@ -524,9 +670,6 @@ class DecodeEngine:
         """Synchronous convenience wrapper: submit + wait."""
         return self.submit(prompt, max_new_tokens).result(timeout=timeout)
 
-    def generate_beam(self, *args, **kwargs):
-        raise _not_ported("generate_beam (copy-on-write beams)", "A6.5")
-
     @property
     def queue_depth(self) -> int:
         return len(self._pending)
@@ -558,6 +701,8 @@ class DecodeEngine:
                     if any(self._active):
                         if self.prefill_mode == "chunked":
                             self._iterate_chunked()
+                        elif self._spec_on:
+                            self._iterate_spec()
                         else:
                             self._iterate_whole()
             except Exception as exc:   # fail loudly into the futures
@@ -740,16 +885,23 @@ class DecodeEngine:
         self._queue_depth.set(self.queue_depth)
         return True
 
-    def _ensure_blocks(self):
-        """Before a step writing at position ``seq_lens[s]``, every
-        active slot must own the block covering that write; grow where
-        a slot crosses a boundary, preempting the newest request when
-        the pool is dry. Writes never land past ``max_context - 1``."""
+    def _ensure_blocks(self, horizon: int = 0):
+        """Before a step writing at position ``seq_lens[s]`` (and, for a
+        speculative round, up to ``seq_lens[s] + horizon``), every
+        active slot must own the blocks covering its last write; grow
+        where a slot crosses a boundary, preempting the newest request
+        when the pool is dry. Writes never land past ``max_context -
+        1`` (the steps mask them), so the horizon is clamped there."""
         for s in range(self.max_slots):
             r = self._slots[s]
             if r is None:
                 continue
-            last_write = min(int(self._seq_lens[s]), self.max_context - 1)
+            # a mid-prefill slot allocated its whole prompt at admission;
+            # a speculative horizon never applies to it
+            last_write = min(
+                int(self._seq_lens[s])
+                + (0 if self._prefill_target[s] else horizon),
+                self.max_context - 1)
             need_pages = last_write // self.kv.block_size + 1
             have = len(self.pool.owner_blocks(r.request_id))
             while have < need_pages and self._slots[s] is r:
@@ -797,27 +949,40 @@ class DecodeEngine:
 
     def _iterate_chunked(self):
         """One turn: pack this step's decode rows and a bounded budget
-        of prefill-chunk rows into ONE mixed dispatch."""
+        of prefill-chunk rows into ONE mixed dispatch. With speculation
+        on, the mixed step carries only prefill chunks (writing both
+        pools) and the slots past their prefill decode by a speculative
+        round in the same turn."""
+        if self._spec_on:
+            if np.any(self._active & (self._prefill_target > 0)):
+                self._ensure_blocks()
+                plan = self._plan_chunks(decode_rows=False)
+                if plan is not None:
+                    self._dispatch_mixed_step(plan)
+            if np.any(self._active & (self._prefill_target == 0)):
+                self._iterate_spec()
+            return
         self._ensure_blocks()
         if not any(self._active):   # growth may have preempted everyone
             return
-        plan = self._plan_chunks()
+        plan = self._plan_chunks(decode_rows=True)
         if plan is not None:
             self._dispatch_mixed_step(plan)
 
-    def _plan_chunks(self):
+    def _plan_chunks(self, decode_rows: bool):
         """Build the mixed step's row plan: rows ``0..S-1`` are the
         decode rows (slot s at row s, masked where inactive or still
-        prefilling), rows ``S..`` pack prefill chunks oldest admission
-        first until ``prefill_token_budget`` tokens are scheduled.
-        Returns None when no row is valid."""
+        prefilling, or all masked without ``decode_rows``), rows
+        ``S..`` pack prefill chunks oldest admission first until
+        ``prefill_token_budget`` tokens are scheduled. Returns None
+        when no row is valid."""
         S = self.max_slots
         tokens = np.zeros((self._mixed_rows,), np.int32)
         row_slots = np.zeros((self._mixed_rows,), np.int32)
         positions = np.zeros((self._mixed_rows,), np.int32)
         valid = np.zeros((self._mixed_rows,), bool)
         n_dec = 0
-        for s in range(S):
+        for s in range(S if decode_rows else 0):
             if self._active[s] and not self._prefill_target[s]:
                 tokens[s] = self._tokens[s]
                 row_slots[s] = s
@@ -901,6 +1066,60 @@ class DecodeEngine:
                     self._advance(s, tok, tok == self.eos_id)
         self._update_gauges()
 
+    def _iterate_spec(self):
+        """One speculative round: the draft scan, one verify chunk, then
+        greedy accept on the host. Verify row i holds the target's
+        greedy token after ``[pending, draft_1..i]``, valid while every
+        earlier proposal matched it, so the emitted tokens are plain
+        greedy's. Emission is capped at γ tokens a round, so the draft
+        pool's written horizon (positions ``n..n+γ-1``) equals
+        ``seq_lens`` afterwards; target writes past the new length are
+        dead (the next round overwrites them) and trailing blocks
+        allocated for the horizon are released."""
+        gamma = self.speculate_k
+        self._ensure_blocks(horizon=gamma)
+        # chunked mode: a mid-prefill slot is not in the round
+        dec = self._active & (self._prefill_target == 0)
+        if not np.any(dec):
+            return
+        occ = int(np.sum(dec))
+        t0 = time.perf_counter()
+        props, verify = self._dispatch_spec(dec)
+        self._step_ms.observe((time.perf_counter() - t0) * 1e3)
+        self._steps_total.inc()
+        self._verify_steps += 1
+        self._occ_steps += occ
+        self._tot_steps += self.max_slots
+        # (the JAX engine books the round's ledger events and its
+        # decode_compute / spec_overhead split here: A6.6)
+        for s in range(self.max_slots):
+            r = self._slots[s]
+            if r is None or self._prefill_target[s]:
+                continue
+            k = 0
+            while k < gamma and int(props[s, k]) == int(verify[s, k]):
+                k += 1
+            self._accept_len.observe(float(k))
+            self._spec_rounds += 1
+            self._spec_accepted += k
+            retired = False
+            for i in range(min(k + 1, gamma)):
+                tok = int(verify[s, i])
+                r.generated.append(tok)
+                self._tokens_total.inc()
+                self._seq_lens[s] += 1
+                if (tok == self.eos_id or len(r.generated) >= r.max_new
+                        or int(self._seq_lens[s]) + 1
+                        >= self.max_context):
+                    self._retire(s)
+                    retired = True
+                    break
+            if not retired:
+                self._tokens[s] = tok
+                keep = int(self._seq_lens[s]) // self.kv.block_size + 1
+                self.pool.release_tail(r.request_id, keep)
+        self._update_gauges()
+
     def _retire(self, slot: int):
         r = self._slots[slot]
         self.pool.free(r.request_id)
@@ -933,6 +1152,240 @@ class DecodeEngine:
         if self._tot_steps:
             self._occ_frac.set(
                 round(self._occ_steps / self._tot_steps, 4))
+
+    # ------------------------------------------------- offline beam lane
+    def generate_beam(self, prompt: Sequence[int], beam_size: int = 4,
+                      max_new_tokens: Optional[int] = None,
+                      length_penalty: float = 0.0,
+                      impl: str = "paged") -> BeamResult:
+        """Offline beam search riding the same paged pool as greedy
+        serving: the prompt's prefix is prefilled once (or reacquired
+        from the prefix cache) and all K beams share it by refcount;
+        when a beam writes into a block another owner still references,
+        the block is copied first (copy-on-write). Host scoring is
+        ``decode.beam_search``'s, operation for operation (the same
+        two-stage top-k and tie-breaking, finished beams frozen,
+        backtrack, GNMT length penalty), so the result matches the
+        dense-cache lane, kept as the oracle (``impl="dense"``). The
+        prompt's last token is the BOS the search scores.
+
+        Runs synchronously, serialised against the decode loop (both
+        write the pools and the block refcounts). Returns a
+        ``BeamResult`` of numpy arrays shaped ``[1, K, ...]``."""
+        if impl == "dense":
+            return self._generate_beam_dense(
+                prompt, beam_size, max_new_tokens, length_penalty)
+        if impl != "paged":
+            raise ValueError(f"impl must be paged|dense, got {impl!r}")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt")
+        K = int(beam_size)
+        if K > self.cfg.vocab_size:
+            raise ValueError(
+                f"beam_size ({K}) > vocab_size ({self.cfg.vocab_size})")
+        max_new = int(max_new_tokens if max_new_tokens is not None
+                      else self.default_max_new)
+        prefix = prompt[:-1]
+        if int(prefix.size) + max_new > self.max_context:
+            raise ValueError(
+                f"prefix {prefix.size} + max_new {max_new} exceeds "
+                f"max_context {self.max_context}")
+        with self._device_lock:
+            return self._beam_paged(prefix, int(prompt[-1]), K, max_new,
+                                    float(length_penalty))
+
+    def _dispatch_beam_step(self, tokens, tables, lens):
+        """One ``decode_step`` over K beam rows (all active); returns the
+        fenced log-softmax scores [K, vocab] as float32 numpy."""
+        K = tokens.shape[0]
+        buf = self._upload(tokens, lens, tables)
+        logits, _, _ = dm.decode_step(
+            self.cfg, self.params, self._k_pool, self._v_pool, buf[:K],
+            buf[2 * K:].view(K, self.max_pages), buf[K:2 * K],
+            torch.ones((K,), dtype=torch.bool, device=self.device))
+        return torch.log_softmax(logits, dim=-1).cpu().numpy()
+
+    def _cow_copy(self, src, dst):
+        """Copy pool block ``src[i]`` into ``dst[i]`` in both pools, in
+        place (plain indexing: no kernel). A quantized block carries its
+        stored per-block scale row along, so the copy dequantizes to
+        the original's values; 1-byte payloads move as uint8."""
+        src = torch.from_numpy(np.asarray(src, np.int64)).to(self.device)
+        dst = torch.from_numpy(np.asarray(dst, np.int64)).to(self.device)
+        for pool in (self._k_pool, self._v_pool):
+            if isinstance(pool, tuple):
+                payload, scales, _cal = pool
+                pl = payload.view(torch.uint8)
+                pl[:, dst] = pl[:, src]
+                scales[:, dst] = scales[:, src]
+            else:
+                pool[:, dst] = pool[:, src]
+
+    def _beam_paged(self, prefix, bos: int, K: int, max_new: int,
+                    length_penalty: float) -> BeamResult:
+        bs = self.kv.block_size
+        prefix_len = int(prefix.size)
+        V = self.cfg.vocab_size
+        bid = next(_request_ids)
+        owners = [("beam", bid, 0, i) for i in range(K)]
+        tables = np.zeros((K, self.max_pages), np.int32)
+        all_gens = list(owners)           # every owner ever created
+        try:
+            # ---- admit the shared prefix once; all K beams refcount it
+            if prefix_len:
+                hashes: List[str] = []
+                hits: List[int] = []
+                if self.prefix_cache:
+                    hashes = chain_block_hashes(prefix, bs)
+                    for i in range((prefix_len - 1) // bs):
+                        blk = self.pool.acquire_cached(hashes[i],
+                                                       owners[0])
+                        if blk is None:
+                            break
+                        hits.append(blk)
+                hit_len = len(hits) * bs
+                fresh = self.pool.alloc(
+                    self.kv.blocks_for(prefix_len) - len(hits), owners[0])
+                prefix_blocks = hits + fresh
+                row = np.zeros((self.max_pages,), np.int32)
+                row[:len(prefix_blocks)] = prefix_blocks
+                tail = prefix[hit_len:]
+                if self.prefill_mode == "chunked":
+                    self._mixed_prefill_tail(tail, hit_len, row)
+                else:
+                    padded = np.zeros((self._rung_for(int(tail.size)),),
+                                      np.int32)
+                    padded[:tail.size] = tail
+                    self._dispatch_prefill(padded, int(tail.size),
+                                           hit_len, row)
+                self._prefix_hit_tokens.inc(hit_len)
+                self._prefix_miss_tokens.inc(int(tail.size))
+                for i, h in enumerate(hashes):
+                    self.pool.register(int(row[i]), h)
+                for i in range(1, K):
+                    self.pool.share(prefix_blocks, owners[i])
+                tables[:, :len(prefix_blocks)] = prefix_blocks
+            # ---- host beam state, exactly decode.beam_search's
+            scores = np.array([0.0] + [NEG] * (K - 1), np.float32)
+            tokens = np.full((K,), bos, np.int32)
+            finished = np.zeros((K,), bool)
+            fin_row = np.full((V,), NEG, np.float32)
+            fin_row[self.eos_id] = 0.0
+            frames: List[tuple] = []
+            for t in range(max_new):
+                pos = prefix_len + t
+                page = pos // bs
+                src = np.zeros((K,), np.int32)
+                dst = np.zeros((K,), np.int32)
+                for i in range(K):
+                    if pos % bs == 0:       # a fresh page for every beam
+                        blk = self.pool.alloc(1, owners[i])[0]
+                        tables[i, page] = blk
+                        src[i] = dst[i] = blk
+                    else:
+                        blk = int(tables[i, page])
+                        if self.pool.refcount(blk) > 1:   # CoW
+                            new = self.pool.alloc(1, owners[i])[0]
+                            self.pool.release_blocks(owners[i], [blk])
+                            tables[i, page] = new
+                            src[i], dst[i] = blk, new
+                        else:
+                            src[i] = dst[i] = blk
+                if np.any(src != dst):
+                    # (the JAX engine times the copy as its cow_copy
+                    # component and a ledger event here: A6.6)
+                    self._cow_copy(src, dst)
+                    self.cow_copies += int(np.sum(src != dst))
+                lp = self._dispatch_beam_step(
+                    tokens, tables, np.full((K,), pos, np.int32))
+                lp = np.where(finished[:, None], fin_row[None], lp)
+                cand = scores[:, None] + lp              # [K, V]
+                # two-stage top-k; a stable descending argsort breaks
+                # ties at the lowest index, like lax.top_k
+                i1 = np.argsort(-cand, axis=1, kind="stable")[:, :K]
+                s1f = np.take_along_axis(cand, i1, axis=1).reshape(-1)
+                i1f = i1.reshape(-1)
+                idx2 = np.argsort(-s1f, kind="stable")[:K]
+                new_scores = s1f[idx2].astype(np.float32)
+                parent = (idx2 // K).astype(np.int32)
+                token = i1f[idx2].astype(np.int32)
+                new_finished = finished[parent] | (token == self.eos_id)
+                frames.append((token, parent))
+                # fork: each surviving beam refcounts its parent's table
+                # (this step's write included); the old generation goes
+                new_owners = [("beam", bid, t + 1, i) for i in range(K)]
+                all_gens.extend(new_owners)
+                for i in range(K):
+                    self.pool.share(
+                        list(self.pool.owner_blocks(owners[parent[i]])),
+                        new_owners[i])
+                for o in owners:
+                    self.pool.free(o)
+                owners = new_owners
+                tables = tables[parent].copy()
+                tokens, scores, finished = token, new_scores, \
+                    new_finished
+            # ---- backtrack (decode.beam_search's reverse walk)
+            beam = np.arange(K, dtype=np.int32)
+            rev: List[np.ndarray] = []
+            for tok_t, par_t in reversed(frames):
+                rev.append(tok_t[beam])
+                beam = par_t[beam]
+            sequences = np.stack(rev[::-1], axis=-1)       # [K, T]
+            eq = sequences == self.eos_id
+            lengths = np.where(np.any(eq, axis=-1),
+                               np.argmax(eq, axis=-1) + 1,
+                               max_new).astype(np.int32)
+            if length_penalty > 0.0:
+                norm = ((5.0 + lengths.astype(np.float32)) / 6.0) \
+                    ** length_penalty
+                scores = (scores / norm).astype(np.float32)
+                order = np.argsort(-scores, kind="stable")
+                sequences, lengths, scores = (sequences[order],
+                                              lengths[order],
+                                              scores[order])
+            t_idx = np.arange(max_new)
+            sequences = np.where(t_idx[None, :] < lengths[:, None],
+                                 sequences, self.eos_id).astype(np.int32)
+            return BeamResult(sequences=sequences[None],
+                              lengths=lengths[None], scores=scores[None])
+        finally:
+            for o in all_gens:
+                self.pool.free(o)
+            self._update_gauges()
+
+    def _generate_beam_dense(self, prompt: Sequence[int],
+                             beam_size: int = 4,
+                             max_new_tokens: Optional[int] = None,
+                             length_penalty: float = 0.0) -> BeamResult:
+        """The dense-cache beam lane, the paged lane's oracle:
+        ``decode.beam_search`` over ``decode_model.
+        make_dense_beam_step_fn``, whose per-beam caches are regathered
+        by value, so it shares nothing with the pool. The prompt minus
+        its last token is prefilled densely (padded to its rung)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt")
+        padded = np.zeros((self._rung_for(int(prompt.size)),), np.int32)
+        padded[:prompt.size - 1] = prompt[:-1]
+        max_new = int(max_new_tokens if max_new_tokens is not None
+                      else self.default_max_new)
+        K = int(beam_size)
+        with self._device_lock:
+            kc, vc = dm.dense_prefill(self.cfg, self.params, padded,
+                                      int(prompt.size) - 1)
+            state = (kc[None].repeat(K, 1, 1, 1, 1),
+                     vc[None].repeat(K, 1, 1, 1, 1),
+                     torch.full((K,), int(prompt.size) - 1,
+                                dtype=torch.int32, device=self.device))
+            res = beam_search(
+                dm.make_dense_beam_step_fn(self.cfg, self.params), state,
+                batch_size=1, beam_size=K, max_len=max_new,
+                bos_id=int(prompt[-1]), eos_id=self.eos_id,
+                vocab_size=self.cfg.vocab_size,
+                length_penalty=length_penalty)
+        return BeamResult(*[x.cpu().numpy() for x in res])
 
     # ------------------------------------------------------------- stats
     def stats(self) -> dict:
@@ -977,6 +1430,13 @@ class DecodeEngine:
                     self._prefix_hit_tokens.value
                     / max(1, self._prefix_hit_tokens.value
                           + self._prefix_miss_tokens.value), 4),
+            },
+            "speculation": {
+                "gamma": self.speculate_k,
+                "rounds": self._spec_rounds,
+                "mean_accept_len": round(
+                    self._spec_accepted / max(1, self._spec_rounds), 4),
+                "verify_steps": self._verify_steps,
             },
             "prompt_rungs": list(self.prompt_rungs),
             "prefill_mode": self.prefill_mode,

@@ -45,7 +45,8 @@ from paddle_tpu_torch.serving.kvcache import KVCacheConfig
 
 __all__ = ["DecoderConfig", "init_params", "param_bytes", "mixed_step",
            "decode_step", "decode_chunk", "prefill", "QUANT_PROJ_KEYS",
-           "quantize_decoder_params", "dense_prefill"]
+           "quantize_decoder_params", "dense_prefill",
+           "make_dense_beam_step_fn"]
 
 _LN_EPS = 1e-5
 # Projection weights eligible for the quantized-matmul lane. Embed/pos
@@ -560,3 +561,45 @@ def dense_prefill(cfg: DecoderConfig, params, tokens, true_len):
         x = _proj(params, f"l{l}_wo", attn.reshape(R, -1), x)
         x = x + _mlp(cfg, params, l, x)
     return kc, vc
+
+
+def make_dense_beam_step_fn(cfg: DecoderConfig, params):
+    """A ``decode.beam_search`` step function over dense per-beam caches
+    (the JAX package's ``make_dense_beam_step_fn``, in plain PyTorch),
+    the oracle of the engine's paged beam lane.
+
+    ``step_fn(state, tokens)`` with ``state = (k_cache [rows, L, H, T,
+    d], v_cache, lens [rows])``: every leaf leads with rows (= batch x
+    beam), so the search's parent regather moves whole per-beam K/V
+    histories by value. The step writes the new token's K/V into copies
+    of the caches at position ``lens`` and returns the log-softmax
+    scores ``[rows, vocab]`` and the advanced state."""
+    scale = 1.0 / float(cfg.head_dim) ** 0.5
+
+    @torch.no_grad()
+    def step_fn(state, tokens):
+        kc, vc, lens = state
+        dev = kc.device
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        rows = tokens.shape[0]
+        pos = lens.long()
+        x = params["embed"][tokens] + \
+            params["pos"][pos.clamp(0, cfg.max_seq_len - 1)]
+        mask = torch.arange(cfg.max_seq_len, device=dev)[None, :] \
+            <= pos[:, None]                              # [rows, T]
+        r = torch.arange(rows, device=dev)
+        kc, vc = kc.clone(), vc.clone()
+        for l in range(cfg.n_layers):
+            q, k, v = _qkv(cfg, params, l, x)
+            kc[r, l, :, pos, :] = k.float()
+            vc[r, l, :, pos, :] = v.float()
+            s = torch.einsum("rhd,rhtd->rht", q.float(), kc[:, l]) * scale
+            s = torch.where(mask[:, None, :], s, torch.full_like(s, -1e30))
+            p = torch.softmax(s, dim=-1)
+            attn = torch.einsum("rht,rhtd->rhd", p, vc[:, l])
+            x = _proj(params, f"l{l}_wo", attn.reshape(rows, -1), x)
+            x = x + _mlp(cfg, params, l, x)
+        logp = torch.log_softmax(_logits(cfg, params, x), dim=-1)
+        return logp, (kc, vc, lens + 1)
+
+    return step_fn

@@ -10,9 +10,11 @@ and the test checks that every greedy step's top-2 logit gap exceeds
 the result. The quantized configurations (int8 KV + int8 weights,
 fp8-e4m3 KV + fp8 weights, bfloat16 KV) are held to the same, with the
 same default calibration probe on both sides. Also: solo == batched
-inside the port, the options not ported yet raise, entry points raise
-without a card unless asked for the CPU, and no module of the port
-imports JAX or the JAX package."""
+inside the port, the options not ported yet (telemetry, the compile
+cache) raise, entry points raise without a card unless asked for the
+CPU, and no module of the port imports JAX or the JAX package.
+Speculation and beams: ``test_torch_decode_spec.py``,
+``test_torch_decode_beam.py``."""
 import ast
 import os
 import pathlib
@@ -297,24 +299,12 @@ def test_queue_backpressure(np_params):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(speculate_k=2, draft_cfg=TCFG), "A6.4"),
-    (dict(speculate_k=2, draft_cfg=TCFG,
-          kv_config=TCFG.kv_config(4, 8, dtype="int8")), "A6.4"),
-    (dict(speculate_k=2, draft_cfg=TCFG, quant_plan="int8"), "A6.4"),
     (dict(compile_cache="/nonexistent"), "A6.7"),
     (dict(telemetry=object()), "A6.6"),
 ])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         DecodeEngine(TCFG, device="cpu", autostart=False, **kw)
-
-
-def test_generate_beam_raises(np_params):
-    eng = DecodeEngine(TCFG, params_from_jax(np_params, "cpu"),
-                       device="cpu", autostart=False)
-    with pytest.raises(NotImplementedError, match="A6.5"):
-        eng.generate_beam([1, 2, 3])
-    eng.close()
 
 
 def test_entry_points_raise_without_card(monkeypatch):
