@@ -110,6 +110,42 @@ The speculative-decoding and beam slice adds, in the same run:
    the card (payload bytes and scale rows equal the source block's; > 0
    copies) giving the same beams.
 
+The serving telemetry plane (``obs/``: ``Telemetry``, the tracer, the
+flight recorder, the alert rules, the profiler; the engine's lifecycle
+ledger and serving-goodput decomposition) adds, in the same run:
+
+5h. ``serve_telemetry``: the 48 requests through the chunked fp32
+   engine with ``Telemetry(trace_path=<tmp>/trace.jsonl,
+   flight=FlightRecorder(<tmp>, install_signal=False))`` and the ledger
+   on: launch counts exactly as ``serve``'s, the pool leak-free and
+   consistent, tokens equal to ``serve``'s (or a near-tie, as 5g
+   holds them), 48 closed ``serving_request`` spans in the trace read
+   back (one per request id), ``decode_ttft_ms`` counting 48, every
+   retired ledger's four TTFT parts summing to its TTFT within 1e-3 ms
+   and its submit <= admit <= first token <= finish, the components
+   reconciling the loop wall within 10%, 0 < ``decode_goodput`` <= 1,
+   the alert rules evaluated, every metric name of the live registry in
+   a metric table of ``docs/observability.md`` / ``docs/serving.md``;
+   it prints the verdict, the components, the TTFT attribution and
+   ``requestz(n=3)``'s timelines. ``profile_telemetry``: the first 16
+   requests again on that engine under ``tel.profiler``: the capture's
+   ``paged_attention_rows_kernel`` events, counted by
+   ``parse_device_trace``, equal the B1 launches of the window; device
+   busy ms and the idle fraction beside the ``profile`` line's.
+   ``serve_telemetry_spec_quant``: ``serve_spec_quant``'s engine (whole,
+   int8 KV + weights, γ 3, the small draft) with telemetry, the first 16
+   requests: 5g's launch counts, the ledger's ``spec`` events' accepted
+   tokens equal to the engine's count, ``spec_overhead`` > 0, tokens as
+   ``serve_spec_quant``'s (or near-ties under its bound).
+   ``serve_telemetry_beam``: one ``generate_beam(K=4, 32 new)`` of
+   request 1 on a fresh chunked int8 engine of ``serve_beam``'s: the
+   beam mini-ledger's ``cow`` events equal the copies made, ``cow_copy``
+   > 0, the beams ``serve_beam``'s. ``ledger_overhead``: the first 16
+   requests on fresh chunked fp32 engines in turns (plain, telemetry and
+   ledger, telemetry and ledger, plain): tokens/s and step ms p50 of
+   each and the on / off ratio (reported, not gated), tokens equal in
+   all four.
+
 The training slice adds, in the same run:
 
 3d. the flash-attention forward (B8) and its dq and dk/dv backward
@@ -369,8 +405,9 @@ adds:
 
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
 lane of every kernel; the paged-attention and B7 lanes add their 5g
-launches, ``launches_5g``), the ``serve`` (5g's ``serve_spec*`` and
-``serve_beam`` among them), ``train``, seq2seq, LSTM,
+launches, ``launches_5g``, and B1, B2, B4, B6 and B7 their 5h ones,
+``launches_5h``), the ``serve`` (5g's ``serve_spec*`` and
+``serve_beam`` and 5h's lines among them), ``train``, seq2seq, LSTM,
 ``exec_mlp``, ``exec_text``, ``trainer_lstm``, ``exec_gru``,
 ``exec_resnet50``, ``exec_image``, ``trainer_image``,
 ``trainer_lstm_recipe`` and ``exec_resnet50_recipe`` lines and, last,
@@ -379,8 +416,11 @@ launches, ``launches_5g``), the ``serve`` (5g's ``serve_spec*`` and
 """
 import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1299,14 +1339,16 @@ def _requests(cfg, n_requests=48, seed=0):
 
 def serve(DecodeEngine, kernels, cfg, params, n_requests=48, seed=0,
           key="serve", engine_kw=None, n_serve=None, reference=None,
-          solo_index=1):
-    """Phase 5 (and 5b, 5c): a main path. ``engine_kw`` adds the
-    engine's KV dtype / quant plan / prefill mode / admission;
-    ``n_serve`` serves only the first requests of the burst;
+          solo_index=1, check=None):
+    """Phase 5 (and 5b, 5c, 5h): a main path. ``engine_kw`` adds the
+    engine's KV dtype / quant plan / prefill mode / admission /
+    telemetry; ``n_serve`` serves only the first requests of the burst;
     ``reference`` (token lists of other runs, by name) is compared, not
     gated; request ``solo_index`` (None: none) served solo on a fresh
-    engine must give the same tokens. Returns the serve record, the
-    launch counts of the run and the generated tokens."""
+    engine must give the same tokens; ``check(eng, prompts, max_new,
+    results)`` runs on the open engine after the launch check and
+    returns fields for the record. Returns the serve record, the launch
+    counts of the run and the generated tokens."""
     prompts, max_new = _requests(cfg, n_requests, seed)
     prompts, max_new = prompts[:n_serve], max_new[:n_serve]
     kw = dict(block_size=16, num_blocks=2048, max_slots=16, eos_id=0,
@@ -1344,6 +1386,7 @@ def serve(DecodeEngine, kernels, cfg, params, n_requests=48, seed=0,
            f"steps and {prefills} prefills, want {want}")
     if len(prompts) > kw["max_slots"]:   # some wait while the prefix lands
         _check(st["prefix"]["hit_tokens"] > 0, "the shared prefix never hit")
+    extra = check(eng, prompts, max_new, results) if check else {}
     eng.pool.assert_consistent()
     eng.close()
     _check(eng.pool.check_leaks() == [] and eng.pool.blocks_in_use == 0,
@@ -1386,6 +1429,7 @@ def serve(DecodeEngine, kernels, cfg, params, n_requests=48, seed=0,
     for name, ref in (reference or {}).items():
         rec[f"greedy_equal_share_vs_{name}"] = float(np.mean(
             [a == b for a, b in zip(tokens, ref)]))
+    rec.update(extra)
     return {key: rec}, launches, tokens
 
 
@@ -1477,12 +1521,14 @@ def _compare_greedy(dm, make_pools, cfg, params, kv_dtype, cal, prompts,
 
 def serve_spec(DecodeEngine, kernels, dm, make_pools, cfg, params, key,
                engine_kw, draft_cfg, draft_params, plain, bound, cal=(
-                   None, None)):
-    """Phase 5g: the burst's first SPEC_N requests through a speculative
-    engine (``engine_kw`` adds the mode, γ, pool and weights); exact
-    launch counts, a leak-free pool, and the tokens against ``plain``
-    (the plain run's of the same pool and weights) by
-    ``_compare_greedy``. Returns the line's record and its launches."""
+                   None, None), check=None):
+    """Phase 5g (and 5h): the burst's first SPEC_N requests through a
+    speculative engine (``engine_kw`` adds the mode, γ, pool, weights
+    and telemetry); exact launch counts, a leak-free pool, and the
+    tokens against ``plain`` (the plain run's of the same pool and
+    weights, or 5g's) by ``_compare_greedy``; ``check(eng)`` runs on the
+    open engine after the launch check and returns fields for the
+    record. Returns the line's record, its launches and its tokens."""
     prompts, max_new = _requests(cfg)
     prompts, max_new = prompts[:SPEC_N], max_new[:SPEC_N]
     kw = dict(block_size=16, num_blocks=2048, max_slots=16, eos_id=0,
@@ -1516,6 +1562,7 @@ def serve_spec(DecodeEngine, kernels, dm, make_pools, cfg, params, key,
         want["quant_matmul"] = 4 * L * target_calls
     _check(launches == want, f"{key}: launches {launches} over {rounds} "
            f"rounds, {steps} steps, {prefills} prefills, want {want}")
+    extra = check(eng) if check else {}
     eng.pool.assert_consistent()
     tparams, kv_dtype = eng.params, eng.kv.dtype
     eng.close()
@@ -1543,8 +1590,8 @@ def serve_spec(DecodeEngine, kernels, dm, make_pools, cfg, params, key,
            "kv_dtype": st["quant"]["kv_dtype"],
            "weights_quantized": st["quant"]["weights_quantized"],
            "launches": launches, "vs_plain": cmp_,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    return {key: rec}, launches
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **extra}
+    return {key: rec}, launches, tokens
 
 
 def _oracle_logprobs(dm, cfg, params, prompt, seq, n):
@@ -1652,7 +1699,8 @@ def _beams_by_value(dm, make_pools, beam_search, eng, params, cal, prompt,
 
 def serve_beam(DecodeEngine, kernels, dm, make_pools, beam_search, cfg,
                params, rungs, int8_cal):
-    """Phase 5g's beam line: ``generate_beam`` over requests
+    """Phase 5g's beam line (its paged beams returned too, by engine
+    name and call): ``generate_beam`` over requests
     BEAM_REQUESTS on a whole-mode fp32 engine and a chunked engine with
     an int8 pool (``int8_cal``: its calibration probe's absmax), each
     against ``impl="dense"`` on the same engine (``_beam_check``; the
@@ -1665,6 +1713,7 @@ def serve_beam(DecodeEngine, kernels, dm, make_pools, beam_search, cfg,
     scale rows equal the source's) and must give the same beams."""
     prompts, _ = _requests(cfg)
     out, launch_sum = {}, dict.fromkeys(kernels.LAUNCHES, 0)
+    beams = {}
     for name, kw, tol in (
             ("whole_fp32", dict(prefill_mode="whole"), BEAM_FP32_TOL),
             ("chunked_int8", dict(kv_config=cfg.kv_config(16, 2048, "int8")),
@@ -1749,6 +1798,7 @@ def serve_beam(DecodeEngine, kernels, dm, make_pools, beam_search, cfg,
                         "scores": paged.scores[0].tolist(),
                         "dense_scores": dense.scores[0].tolist()})
             calls.append(rec)
+            beams.setdefault(name, []).append(paged)
         _check(calls[1]["prefix_hit_tokens"] >= 112,   # 7-8 blocks of 16
                "the second beam call missed the shared prefix")
         _check(copies_checked[0] > 0, f"serve_beam {name}: no block copied")
@@ -1764,7 +1814,291 @@ def serve_beam(DecodeEngine, kernels, dm, make_pools, beam_search, cfg,
                      "beam_size": SERVE_BEAM_K,
                      "max_new_tokens": SERVE_BEAM_NEW}
         del eng, twin
-    return {"serve_beam": out}, launch_sum
+    return {"serve_beam": out}, launch_sum, beams
+
+
+# ---------------------------------------------------- telemetry plane (5h)
+
+TEL_N = 16                      # the burst's first requests (shorter lines)
+# B1-B4's row-tile kernel as torch.profiler names it (PAGED_PROFILE_NAMES)
+ROWS_KERNEL = PAGED_PROFILE_NAMES[0]
+
+
+def _doc_metric_names():
+    """The metric names the docs' contract tables declare
+    (``docs/observability.md``, ``docs/serving.md``), read by
+    ``tools/check_metric_contract.py`` (os, re and sys only)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    from check_metric_contract import doc_metric_names
+    return set(doc_metric_names(os.path.join(root, "docs")))
+
+
+def _telemetry(tmp):
+    """A telemetry session streaming its trace under ``tmp``, with a
+    flight recorder there (no SIGTERM handler: the smoke owns none)."""
+    from paddle_tpu_torch.obs import FlightRecorder, Telemetry
+    return Telemetry(trace_path=os.path.join(tmp, "trace.jsonl"),
+                     flight=FlightRecorder(os.path.join(tmp, "flight"),
+                                           install_signal=False))
+
+
+def _ledger_checks(eng, tel, key, doc_names):
+    """What 5h holds of an engine that served with telemetry and the
+    ledger: each retired request's four TTFT parts sum to its TTFT
+    within 1e-3 ms and its submit <= admit <= first token <= finish;
+    the loop's components reconcile its wall within 10%; 0 <
+    ``decode_goodput`` <= 1; every lowercase metric name of the live
+    registry is in a docs contract table (the synthetic ``ALERTS``
+    series is outside the contract by its own rule). Returns the
+    decomposition's record."""
+    # let the loop close its last turn: a snapshot taken mid-turn holds
+    # that turn's components but not yet its wall
+    time.sleep(0.2)
+    leds = [led for led in eng.retired_ledgers() if "ttft_parts" in led]
+    _check(leds, f"{key}: no retired ledger")
+    for led in leds:
+        parts = sum(led["ttft_parts"].values())
+        _check(abs(parts - led["ttft_ms"]) <= 1e-3,
+               f"{key}: request {led['request_id']}'s TTFT parts sum to "
+               f"{parts}, its TTFT is {led['ttft_ms']}")
+        ts = {e[0]: float(e[1]) for e in led["events"]}
+        seq = [ts["submit"], ts["admit"], ts["first_token"], ts["finish"]]
+        _check(seq == sorted(seq), f"{key}: request {led['request_id']}'s "
+               f"timeline is not monotonic: {seq}")
+    snap = eng.goodput_snapshot()
+    cov = sum(snap["components"].values()) / snap["loop_wall_ms"]
+    _check(abs(cov - 1.0) <= 0.10, f"{key}: the components cover {cov} "
+           "of the loop wall (10% allowed)")
+    g = eng.stats()["goodput"]
+    _check(0.0 < g["decode_goodput"] <= 1.0,
+           f"{key}: decode_goodput {g['decode_goodput']}")
+    names = {m.name for m in tel.registry.metrics()
+             if m.name == m.name.lower()}
+    missing = sorted(names - doc_names)
+    _check(not missing, f"{key}: metrics outside the docs contract: "
+           f"{missing}")
+    t = g["ttft"]
+    return {"verdict": g["verdict"], "decode_goodput": g["decode_goodput"],
+            "coverage": g["coverage"], "loop_wall_ms": g["loop_wall_ms"],
+            "turns": g["turns"], "components_ms": g["components"],
+            "ttft_attribution": {k: t[k] for k in (
+                "requests", "ttft_ms_p50", "ttft_ms_p99", "p50", "p99",
+                "dominant_p99", "prefill_stall_share_p99")},
+            "ledgers_checked": len(leds),
+            "metric_names_in_contract": len(names)}
+
+
+def profile_telemetry(eng, tel, kernels, prompts, max_new, tmp, card):
+    """5h's capture: ``prompts`` served on the open engine under
+    ``tel.profiler``; ``parse_device_trace`` of the capture must count
+    as many row-tile kernel events as B1's wrapper launched in the
+    window, with device-busy ms > 0 and an idle fraction in [0, 1]."""
+    from paddle_tpu_torch.obs.profiler import parse_device_trace
+    torch.cuda.synchronize()
+    l0 = kernels.LAUNCHES["paged_attention_mixed"]
+    log_dir = tel.profiler.start(os.path.join(tmp, "profile"))
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, m) for p, m in zip(prompts, max_new)]
+    for f in futs:
+        f.result(timeout=600)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    artifact = tel.profiler.stop()
+    launched = kernels.LAUNCHES["paged_attention_mixed"] - l0
+    prof = parse_device_trace(log_dir, program="decode_step")
+    _check(prof is not None, "profile_telemetry: no device event in the "
+           "capture")
+    seen = sum(n for name, n in prof.event_counts.items()
+               if ROWS_KERNEL in name)
+    _check(seen == launched > 0, f"profile_telemetry: the capture holds "
+           f"{seen} {ROWS_KERNEL} events, the window launched {launched}")
+    _check(prof.device_ms_total > 0.0 and prof.idle_frac is not None
+           and 0.0 <= prof.idle_frac <= 1.0,
+           f"profile_telemetry: device busy {prof.device_ms_total} ms, "
+           f"idle fraction {prof.idle_frac}")
+    return {"requests": len(prompts), "wall_ms": wall_ms,
+            "device_busy_ms": prof.device_ms_total,
+            "idle_frac": prof.idle_frac, "device_events": prof.spans,
+            "rows_kernel_events": seen, "rows_kernel_launches": launched,
+            "op_kind_ms": {k: round(v, 4)
+                           for k, v in sorted(prof.op_kind_ms.items())},
+            "artifact_mb": os.path.getsize(artifact) / 1e6, "card": card}
+
+
+def serve_telemetry(DecodeEngine, kernels, dm, make_pools, cfg, params,
+                    plain, tmp, doc_names, card):
+    """5h's main line and its capture (see the module docstring).
+    Returns its record (``profile_telemetry`` inside) and the launches
+    of the burst and of the capture."""
+    from paddle_tpu_torch.obs.trace import read_trace
+    tel = _telemetry(tmp)
+    trace = os.path.join(tmp, "trace.jsonl")
+    held = {}
+
+    def check(eng, prompts, max_new, results):
+        rec = _ledger_checks(eng, tel, "serve_telemetry", doc_names)
+        tel.flush()
+        roots = [r for r in read_trace(trace) if r.get("type") == "span"
+                 and r.get("name") == "serving_request"]
+        ids = sorted(r["args"]["request_id"] for r in roots)
+        _check(ids == sorted(r.request_id for r in results),
+               f"serve_telemetry: {len(roots)} closed serving_request "
+               f"spans for {len(results)} requests")
+        n_ttft = eng.registry.find("decode_ttft_ms").count
+        _check(n_ttft == len(prompts), f"serve_telemetry: decode_ttft_ms "
+               f"counted {n_ttft}")
+        evals = tel.registry.find("alert_evaluations_total")
+        _check(evals is not None and evals.value > 0,
+               "serve_telemetry: the alert rules were never evaluated")
+        rz = eng.requestz(n=3)
+        rec.update({"request_spans_closed": len(roots),
+                    "alert_evaluations": evals.value,
+                    "requestz_slowest": [
+                        {"request_id": r["request_id"],
+                         "ttft_ms": r["ttft_ms"],
+                         "ttft_parts": r["ttft_parts"],
+                         "timeline": r["timeline"]}
+                        for r in rz["requests"]]})
+        held["profile"] = profile_telemetry(
+            eng, tel, kernels, prompts[:TEL_N], max_new[:TEL_N], tmp,
+            card)
+        held["profile_launches"] = held["profile"]["rows_kernel_launches"]
+        return rec
+
+    rec, launches, tokens = serve(
+        DecodeEngine, kernels, cfg, params, key="serve_telemetry",
+        engine_kw=dict(telemetry=tel), solo_index=None, check=check)
+    tel.close()
+    prompts, _ = _requests(cfg)
+    line = rec["serve_telemetry"]
+    line["vs_serve"] = _compare_greedy(
+        dm, make_pools, cfg, params, "float32", (None, None), prompts,
+        plain, tokens, _near_tie(LOGIT_TOL), "serve_telemetry")
+    line["profile_telemetry"] = held["profile"]
+    line["card"] = card
+    return rec, launches, held["profile_launches"]
+
+
+def spec_ledger_check(tel, doc_names):
+    """5h's check of a speculative engine with telemetry: the ledger's
+    ``spec`` events' accepted tokens sum to the engine's count, and
+    speculation cost more than it won (``spec_overhead`` > 0)."""
+    def check(eng):
+        rec = _ledger_checks(eng, tel, "serve_telemetry_spec_quant",
+                             doc_names)
+        acc = sum(e[3] for led in eng.retired_ledgers()
+                  for e in led["events"] if e[0] == "spec")
+        _check(acc == eng._spec_accepted, f"serve_telemetry_spec_quant: "
+               f"the ledger accepts {acc}, the engine "
+               f"{eng._spec_accepted}")
+        over = eng.goodput_snapshot()["components"]["spec_overhead"]
+        _check(over > 0.0, "serve_telemetry_spec_quant: no spec_overhead")
+        rec.update({"ledger_accepted": acc, "spec_overhead_ms": over})
+        return rec
+    return check
+
+
+def serve_telemetry_beam(DecodeEngine, kernels, cfg, params, rungs, ref,
+                         card):
+    """5h's beam line: ``generate_beam(K=4, 32 new)`` of request
+    BEAM_REQUESTS[0] on a fresh chunked int8 engine of ``serve_beam``'s
+    (ledger on): its launches as ``serve_beam`` counts them, the beam
+    mini-ledger's ``cow`` events equal to the copies made (> 0), a
+    ``cow_copy`` component > 0, and the beams ``ref``'s (``serve_beam``'s
+    first call on the same engine)."""
+    prompts, _ = _requests(cfg)
+    p = prompts[BEAM_REQUESTS[0]]
+    eng = DecodeEngine(cfg, params, block_size=16, num_blocks=2048,
+                       max_slots=16, eos_id=0, prompt_rungs=rungs,
+                       kv_config=cfg.kv_config(16, 2048, "int8"),
+                       autostart=False)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.generate_beam(p, beam_size=SERVE_BEAM_K,
+                            max_new_tokens=SERVE_BEAM_NEW)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want["paged_attention_quant"] = cfg.n_layers * SERVE_BEAM_NEW
+    want["paged_attention_mixed_quant"] = \
+        cfg.n_layers * -(-(len(p) - 1) // eng._mixed_rows)
+    _check(launches == want, f"serve_telemetry_beam: launches {launches}, "
+           f"want {want}")
+    (led,) = eng.retired_ledgers()
+    cows = sum(e[2] for e in led["events"] if e[0] == "cow")
+    _check(cows == eng.cow_copies > 0, f"serve_telemetry_beam: {cows} "
+           f"copies in the ledger, {eng.cow_copies} made")
+    cow_ms = eng.goodput_snapshot()["components"]["cow_copy"]
+    _check(cow_ms > 0.0, "serve_telemetry_beam: no cow_copy time")
+    _check(np.array_equal(res.sequences, ref.sequences)
+           and np.array_equal(res.lengths, ref.lengths),
+           "serve_telemetry_beam: other beams than serve_beam's")
+    eng.pool.assert_consistent()
+    eng.close()
+    _check(eng.pool.check_leaks() == [] and eng.pool.blocks_in_use == 0,
+           "serve_telemetry_beam: leaked blocks")
+    return {"serve_telemetry_beam": {
+        "request": BEAM_REQUESTS[0], "ms": ms, "launches": launches,
+        "cow_events": len([e for e in led["events"] if e[0] == "cow"]),
+        "cow_copies": cows, "cow_copy_ms": cow_ms,
+        "ledger_total_ms": led["total_ms"],
+        "scores_max_abs_diff_vs_serve_beam": float(
+            np.abs(res.scores - ref.scores).max()),
+        "card": card}}, launches
+
+
+def ledger_overhead(DecodeEngine, kernels, cfg, params, card):
+    """5h's cost line: the first TEL_N requests on fresh chunked fp32
+    engines in turns, plain (no telemetry, ``ledger=False``), with
+    telemetry and the ledger twice, plain again; tokens/s and step ms
+    p50 of each and the on / off ratios (host-timed, so reported, not
+    gated); the tokens equal in all four. Returns the record and the B1
+    launches of the four runs."""
+    from paddle_tpu_torch.obs import Telemetry
+    prompts, max_new = _requests(cfg)
+    prompts, max_new = prompts[:TEL_N], max_new[:TEL_N]
+    runs, tokens, n_b1 = [], [], 0
+    for on in (False, True, True, False):
+        tel = Telemetry(trace_path=None) if on else None
+        eng = DecodeEngine(cfg, params, block_size=16, num_blocks=2048,
+                           max_slots=16, eos_id=0, telemetry=tel,
+                           ledger=on)
+        eng.warmup()
+        torch.cuda.synchronize()
+        b0 = kernels.LAUNCHES["paged_attention_mixed"]
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, m) for p, m in zip(prompts, max_new)]
+        toks = [f.result(timeout=600).tokens.tolist() for f in futs]
+        wall = time.perf_counter() - t0
+        n_b1 += kernels.LAUNCHES["paged_attention_mixed"] - b0
+        st = eng.stats()
+        eng.close()
+        _check(eng.pool.check_leaks() == [] and eng.pool.blocks_in_use == 0,
+               "ledger_overhead: leaked blocks")
+        if tel is not None:
+            tel.close()
+        n_tok = sum(len(t) for t in toks)
+        runs.append({"telemetry_and_ledger": on, "wall_s": wall,
+                     "tokens_per_s": n_tok / wall,
+                     "step_ms_p50": st["step_ms_p50"],
+                     "steps": st["steps_total"]})
+        tokens.append(toks)
+    _check(all(t == tokens[0] for t in tokens),
+           "ledger_overhead: the four runs gave other tokens")
+
+    def mean(field, on):
+        return float(np.mean([r[field] for r in runs
+                              if r["telemetry_and_ledger"] == on]))
+    return {"ledger_overhead": {
+        "requests": TEL_N, "runs": runs,
+        "tokens_per_s_on_over_off": mean("tokens_per_s", True)
+        / mean("tokens_per_s", False),
+        "step_ms_p50_on_over_off": mean("step_ms_p50", True)
+        / mean("step_ms_p50", False),
+        "card": card}}, n_b1
 
 
 # ---------------------------------------------------------------- training
@@ -5932,7 +6266,7 @@ def main(argv=None):
         spec_runs[key][0][key]["card"] = card
     del dparams
     torch.cuda.empty_cache()
-    sbeam_rec, sbeam_launch = serve_beam(
+    sbeam_rec, sbeam_launch, sbeams = serve_beam(
         DecodeEngine, kernels, dm, make_pools, beam_search, cfg, params,
         rungs, _probe_kv_absmax(cfg, params))
     sbeam_rec["serve_beam"]["card"] = card
@@ -5953,6 +6287,57 @@ def main(argv=None):
                                   serve_beam=sbeam_launch[name])
     _say(f"speculative and beam phases done at "
          f"{time.perf_counter() - t0:.1f} s")
+
+    # 5h: the serving telemetry plane: the chunked fp32 burst with
+    # telemetry and its capture, the int8 speculative line, the int8
+    # beam, and the ledger's cost in turns
+    doc_names = _doc_metric_names()
+    tel_dir = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stel_rec, stel_launch, ptel_launch = serve_telemetry(
+        DecodeEngine, kernels, dm, make_pools, cfg, params, fp32_tokens,
+        os.path.join(tel_dir, "serve"), doc_names, card)
+    stel_rec["serve_telemetry"]["profile_telemetry"]["profile_line"] = {
+        k: prec["profile"][k] for k in ("wall_ms_per_step",
+                                        "device_busy_ms_per_step",
+                                        "device_idle_share")}
+    torch.cuda.empty_cache()
+    tel_spec = _telemetry(os.path.join(tel_dir, "spec"))
+    dparams = init_params(dcfg, seed=7)
+    sqtel_rec, sqtel_launch, _ = serve_spec(
+        DecodeEngine, kernels, dm, make_pools, cfg, params,
+        "serve_telemetry_spec_quant",
+        dict(whole, speculate_k=3, kv_config=kv8, quant_plan="int8",
+             telemetry=tel_spec), dcfg, dparams,
+        spec_runs["serve_spec_quant"][2], _near_tie(LOGIT_TOL, quant_eps),
+        cal, check=spec_ledger_check(tel_spec, doc_names))
+    tel_spec.close()
+    sqtel_rec["serve_telemetry_spec_quant"]["card"] = card
+    del dparams
+    torch.cuda.empty_cache()
+    btel_rec, btel_launch = serve_telemetry_beam(
+        DecodeEngine, kernels, cfg, params, rungs,
+        sbeams["chunked_int8"][0], card)
+    torch.cuda.empty_cache()
+    lo_rec, lo_launch = ledger_overhead(DecodeEngine, kernels, cfg, params,
+                                        card)
+    krec["launches_5h"] = {
+        "serve_telemetry": stel_launch["paged_attention_mixed"],
+        "profile_telemetry": ptel_launch, "ledger_overhead": lo_launch}
+    for rec, name, runs in (
+            (lanes["int8"], "paged_attention_mixed_quant",
+             {"serve_telemetry_beam": btel_launch}),
+            (dlanes["int8"], "paged_attention_quant",
+             {"serve_telemetry_spec_quant": sqtel_launch,
+              "serve_telemetry_beam": btel_launch}),
+            (clanes["int8"], "paged_attention_chunk_quant",
+             {"serve_telemetry_spec_quant": sqtel_launch}),
+            (qrecs["int8"], "quant_matmul",
+             {"serve_telemetry_spec_quant": sqtel_launch})):
+        rec["launches_5h"] = {k: v[name] for k, v in runs.items()}
+    shutil.rmtree(tel_dir)
+    _say(f"telemetry phases done at {time.perf_counter() - t0:.1f} s")
 
     # 5d: the training slice's main path: bf16 with the flash kernels,
     # then the same steps with the plain attention ("xla") and a short
@@ -6164,6 +6549,8 @@ def main(argv=None):
     for key in spec_runs:
         _say(json.dumps(spec_runs[key][0]))
     _say(json.dumps(sbeam_rec))
+    for rec in (stel_rec, sqtel_rec, btel_rec, lo_rec):
+        _say(json.dumps(rec))
     for key in train_runs:
         _say(json.dumps(train_runs[key][0]))
     for key in s2s_runs:

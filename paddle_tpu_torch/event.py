@@ -23,7 +23,8 @@ class EndPass(Event):
         self.pass_id = pass_id
         self.evaluator_results = evaluator_results or {}
         # the per-pass telemetry rollup of the JAX package's obs session;
-        # the port has no telemetry yet (ROADMAP A5), so it stays None
+        # the port's Trainer takes no telemetry yet (ROADMAP A5, A item
+        # 2), so it stays None
         self.telemetry = telemetry
 
 

@@ -25,7 +25,8 @@ Options of the JAX Executor:
 - ``interpret``, ``donate`` and ``cache_size`` mean nothing here (every
   run is eager, no buffer is aliased between a step's input and output,
   and nothing is compiled to cache); they are accepted and ignored.
-- ``telemetry=`` needs ROADMAP A5's modules, ``validate=True`` A10's
+- ``telemetry=`` needs the Executor's hooks into ``obs.Telemetry``
+  (ROADMAP A5's training-side planes, A item 2), ``validate=True`` A10's
   static verifier and ``compile_cache=`` (or the ``compile_cache_dir``
   flag) A11's store: each raises ``NotImplementedError`` naming it, as
   do ``static_rnn``, ``while`` and ``conditional_block`` (A8) and
@@ -145,8 +146,9 @@ class Executor:
         the ROADMAP item that ports what they need."""
         if telemetry:
             raise NotImplementedError(
-                "Executor(telemetry=...) needs obs/telemetry.py, not ported "
-                "yet (ROADMAP A5)")
+                "Executor(telemetry=...): the Executor's telemetry hooks "
+                "(dispatch spans, the cost and goodput planes) are not "
+                "wired yet (ROADMAP A5, A item 2)")
         if validate:
             raise NotImplementedError(
                 "Executor(validate=True) needs the static verifier "
@@ -255,6 +257,19 @@ class Executor:
         if return_numpy:
             return [_to_numpy(t) for t in stacked]
         return stacked
+
+    def warm(self, program: Optional[Program] = None,
+             feed: Optional[Dict[str, Any]] = None,
+             fetch_list: Optional[Sequence] = None,
+             scope: Optional[Scope] = None,
+             fetch_sets: Optional[Sequence[Sequence]] = None,
+             steps_per_call: int = 1) -> int:
+        """The JAX Executor's pre-compile of every fetch-set variant
+        (its compile cache's warm boot): raises, naming ROADMAP A11,
+        which ports the compile cache."""
+        raise NotImplementedError(
+            "Executor.warm (pre-compiling the compile cache's entries) "
+            "is not ported yet (ROADMAP A11)")
 
     def prepare_infer(self, program: Optional[Program] = None,
                       fetch_list: Optional[Sequence] = None,

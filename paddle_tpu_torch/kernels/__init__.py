@@ -7,6 +7,12 @@ launches by wrapper name (incremented where the kernel is launched and
 nowhere else), so a run can show that its main path went through the
 kernels; ``reset_launches`` zeroes it.
 
+The wrappers take the JAX wrappers' ``interpret=`` (the Pallas
+interpreter): ``interpret=True`` on a CPU tensor is the plain version,
+which the CPU path already is, and on a CUDA tensor raises
+``ValueError`` (``check_interpret``): a CUDA tensor goes to the kernel
+or raises.
+
 ``spmd_trace_guard`` marks an SPMD-partitioned trace (the JAX package's
 ``kernels.spmd_trace_guard``); the port has no SPMD path yet, so a
 kernel dispatch inside one raises, naming ROADMAP A9.
@@ -66,6 +72,17 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def check_interpret(interpret, t, wrapper: str) -> None:
+    """Refuse ``interpret=True`` for a CUDA tensor ``t`` (no interpreter
+    runs on the card, and the plain version is not a silent fallback);
+    any ``interpret`` is accepted for a CPU tensor."""
+    if interpret and t.device.type == "cuda":
+        raise ValueError(
+            f"{wrapper}(interpret=True) on a CUDA tensor: the card runs "
+            f"the kernel or raises (the Pallas interpreter's plain "
+            f"counterpart is the CPU path; call with CPU tensors)")
+
+
 _tls = threading.local()
 
 
@@ -104,7 +121,7 @@ from paddle_tpu_torch.kernels import paged_attention  # noqa: E402
 from paddle_tpu_torch.kernels import quant_matmul  # noqa: E402
 
 __all__ = ["LAUNCHES", "NEG_INF", "flash_attention", "fused_rnn",
-           "in_spmd_trace", "paged_attention",
+           "check_interpret", "in_spmd_trace", "paged_attention",
            "paged_attention_chunk", "paged_attention_chunk_reference",
            "paged_attention_mixed", "paged_attention_mixed_reference",
            "paged_attention_reference", "quant_matmul", "reset_launches",

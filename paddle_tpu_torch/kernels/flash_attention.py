@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import numbers
 
 import torch
 
@@ -288,7 +289,8 @@ def flash_attention_reference(q, k, v, *, causal=False, sm_scale=None):
     return _apply(q, k, v, causal, sm_scale, True)
 
 
-def flash_attention(q, k, v, *, causal=False, sm_scale=None):
+def flash_attention(q, k, v, *, causal=False, sm_scale=None,
+                    block_q=128, block_k=128, interpret=None):
     """Tiled online-softmax attention.
 
     Args:
@@ -298,9 +300,21 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None):
       causal: the autoregressive mask, position-based and top-left
         aligned (query i sees keys 0..i, also when Tq != Tk).
       sm_scale: logit scale; default ``1/sqrt(d)``.
+      block_q, block_k: the Pallas kernel's tile sizes; positive ints,
+        with no effect here (the Hopper kernels pick their own tiles,
+        and a tile size never changes the function).
+      interpret: the JAX wrapper's Pallas-interpreter switch: True on
+        CPU tensors is the plain versions (as without it), on CUDA
+        tensors a ``ValueError``.
 
     Returns ``[B, H, Tq, d]`` in q's dtype, differentiable in q, k and v
     through the flash backward. CUDA tensors run the kernels, CPU
     tensors their plain versions.
     """
+    for name, tile in (("block_q", block_q), ("block_k", block_k)):
+        if isinstance(tile, bool) \
+                or not isinstance(tile, numbers.Integral) or tile < 1:
+            raise ValueError(f"{name} must be a positive int, got "
+                             f"{tile!r}")
+    _kernels.check_interpret(interpret, q, "flash_attention")
     return _apply(q, k, v, causal, sm_scale, False)

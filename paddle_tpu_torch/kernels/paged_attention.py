@@ -178,7 +178,7 @@ def _default_scale(q, sm_scale):
 
 def paged_attention_mixed(q, k_pool, v_pool, block_tables, row_slots,
                           ctx_lens, *, k_scale=None, v_scale=None,
-                          sm_scale=None):
+                          sm_scale=None, interpret=None):
     """Attention for a MIXED batch of independent single-token rows.
 
     Args:
@@ -193,6 +193,9 @@ def paged_attention_mixed(q, k_pool, v_pool, block_tables, row_slots,
       k_scale, v_scale: ``[num_blocks, heads]`` fp32 per-block scales of
         a quantized pool, or None for a float pool.
       sm_scale: logit scale; default ``1/sqrt(head_dim)``.
+      interpret: the JAX wrapper's Pallas-interpreter switch: True on a
+        CPU tensor is the plain version (as without it), on a CUDA
+        tensor a ``ValueError``.
 
     Returns ``[rows, heads, head_dim]``. CUDA tensors launch the kernel
     (adding one to ``kernels.LAUNCHES["paged_attention_mixed"]`` for
@@ -211,6 +214,7 @@ def paged_attention_mixed(q, k_pool, v_pool, block_tables, row_slots,
             f"row_slots/ctx_lens must be [rows] = ({T},), got "
             f"{tuple(row_slots.shape)} / {tuple(ctx_lens.shape)}")
     sm_scale = _default_scale(q, sm_scale)
+    _kernels.check_interpret(interpret, q, "paged_attention_mixed")
     if q.device.type == "cpu":
         return paged_attention_mixed_reference(
             q, k_pool, v_pool, block_tables, row_slots, ctx_lens,
@@ -225,7 +229,8 @@ def paged_attention_mixed(q, k_pool, v_pool, block_tables, row_slots,
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
-                    k_scale=None, v_scale=None, sm_scale=None):
+                    k_scale=None, v_scale=None, sm_scale=None,
+                    interpret=None):
     """One decode step of attention over block-paged K/V.
 
     Args:
@@ -236,7 +241,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
       seq_lens: ``[slots]`` int32 — context length per slot, INCLUDING
         the current token (whose K/V must already be in the pool). 0
         marks an inactive slot: its output row is 0.
-      k_scale, v_scale, sm_scale: as ``paged_attention_mixed``.
+      k_scale, v_scale, sm_scale, interpret: as
+        ``paged_attention_mixed``.
 
     Returns ``[slots, heads, head_dim]``. CUDA tensors launch the
     mixed form's row-tile kernel with row i on slot i, so the result has
@@ -257,6 +263,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
         raise ValueError(f"block_tables must be [slots = {S}, max_pages], "
                          f"got {tuple(block_tables.shape)}")
     sm_scale = _default_scale(q, sm_scale)
+    _kernels.check_interpret(interpret, q, "paged_attention")
     if q.device.type == "cpu":
         return paged_attention_reference(
             q, k_pool, v_pool, block_tables, seq_lens, k_scale=k_scale,
@@ -270,7 +277,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
 
 
 def paged_attention_chunk(q, k_pool, v_pool, block_tables, ctx_lens, *,
-                          k_scale=None, v_scale=None, sm_scale=None):
+                          k_scale=None, v_scale=None, sm_scale=None,
+                          interpret=None):
     """Attention for a CHUNK of q_len query rows per slot over the
     block-paged pool (the whole-prompt prefill rides this).
 
@@ -282,7 +290,7 @@ def paged_attention_chunk(q, k_pool, v_pool, block_tables, ctx_lens, *,
         row INCLUDING itself (row g at absolute position p sees ``p + 1``
         keys), which encodes the causal intra-chunk mask; 0 masks a row
         entirely (its output is exactly zero).
-      k_scale, v_scale, sm_scale: as ``paged_attention``.
+      k_scale, v_scale, sm_scale, interpret: as ``paged_attention``.
 
     Returns ``[slots, q_len, heads, head_dim]``; q_len = 1 gives what
     ``paged_attention`` gives. CUDA tensors launch the row-tiled chunk
@@ -303,6 +311,7 @@ def paged_attention_chunk(q, k_pool, v_pool, block_tables, ctx_lens, *,
         raise ValueError(f"block_tables must be [slots = {S}, max_pages], "
                          f"got {tuple(block_tables.shape)}")
     sm_scale = _default_scale(q, sm_scale)
+    _kernels.check_interpret(interpret, q, "paged_attention_chunk")
     if q.device.type == "cpu":
         return paged_attention_chunk_reference(
             q, k_pool, v_pool, block_tables, ctx_lens, k_scale=k_scale,

@@ -195,7 +195,7 @@ def _n_sm(dev):
     return n
 
 
-def quant_matmul(x, wq, w_scale):
+def quant_matmul(x, wq, w_scale, *, interpret=None):
     """``x @ dequant(wq)`` with the dequantization fused into the
     epilogue.
 
@@ -205,12 +205,16 @@ def quant_matmul(x, wq, w_scale):
       wq: ``[K, N]`` int8 or float8_e4m3fn weights from
         ``quantize_weight``.
       w_scale: ``[N]`` fp32 per-output-channel scales.
+      interpret: the JAX wrapper's Pallas-interpreter switch: True on a
+        CPU tensor is the plain version (as without it), on a CUDA
+        tensor a ``ValueError``.
 
     Returns ``[..., N]`` fp32. CUDA tensors launch the kernel (adding
     one to ``kernels.LAUNCHES["quant_matmul"]``) or raise; CPU tensors
     take the plain version.
     """
     _check_args(x, wq, w_scale)
+    _kernels.check_interpret(interpret, x, "quant_matmul")
     K, N = wq.shape
     x2 = x if x.dim() == 2 else x.reshape(-1, K)
     if x.device.type == "cpu":

@@ -5,8 +5,9 @@ and the DoubleBuffer prefetch thread of the legacy C++ data providers,
 dataproviders/DataProvider.h:249). ``buffered`` and ``xmap_readers``
 prepare batches on host threads; ``device_buffered`` also moves them
 onto the card ahead of the step. The same inputs give the JAX
-decorators' outputs, ``shuffle``'s seeded order included. (The JAX
-module's telemetry sink is ROADMAP A5's.)
+decorators' outputs, ``shuffle``'s seeded order included. A
+telemetry session's reader sink (``obs/goodput.py``'s
+``attach_reader_sink``) sees the queue waits, as in the JAX module.
 
 A *reader creator* is a zero-arg callable returning an iterable of
 samples.
@@ -17,13 +18,46 @@ import itertools
 import queue
 import random as _random
 import threading
-from typing import Callable, List
+import time as _time
+from typing import Callable, List, Optional
 
 __all__ = [
     "map_readers", "shuffle", "chain", "compose", "buffered", "firstn",
     "xmap_readers", "cache", "batch", "bucket_by_sequence_length",
-    "device_buffered", "ComposeNotAligned",
+    "device_buffered", "ComposeNotAligned", "set_obs_sink",
 ]
+
+# Observability sink — installed by obs/goodput.py (attach_reader_sink)
+# for the duration of a telemetry session; this module keeps ZERO obs
+# imports and the off-path cost is one module-global read per item.
+# Signature: sink(queue_kind: str, wait_ms: float, qsize: int).
+_OBS_SINK: Optional[Callable] = None
+
+
+def set_obs_sink(sink: Optional[Callable]) -> bool:
+    """Install (or, with None, clear) the module's metrics sink. The
+    first installer wins so concurrent telemetry sessions don't fight
+    over the global; returns False when an install was refused."""
+    global _OBS_SINK
+    if sink is not None and _OBS_SINK is not None:
+        return False
+    _OBS_SINK = sink
+    return True
+
+
+def _timed_get(q, queue_kind: str):
+    """``q.get()`` that reports its blocking time + the post-get queue
+    occupancy to the installed sink (no-op without one)."""
+    sink = _OBS_SINK
+    if sink is None:
+        return q.get()
+    t0 = _time.perf_counter()
+    e = q.get()
+    try:
+        sink(queue_kind, (_time.perf_counter() - t0) * 1e3, q.qsize())
+    except Exception:
+        pass
+    return e
 
 
 def map_readers(func: Callable, *readers):
@@ -43,12 +77,24 @@ def shuffle(reader, buf_size: int, seed=None):
     def shuffled():
         rng = _random.Random(seed)
         buf: List = []
+        t_fill = _time.perf_counter()
         for e in reader():
             buf.append(e)
             if len(buf) >= buf_size:
+                sink = _OBS_SINK
+                if sink is not None:
+                    # one refill interval = the time this stage spent
+                    # pulling buf_size samples from the wrapped reader
+                    try:
+                        sink("shuffle",
+                             (_time.perf_counter() - t_fill) * 1e3,
+                             len(buf))
+                    except Exception:
+                        pass
                 rng.shuffle(buf)
                 yield from buf
                 buf = []
+                t_fill = _time.perf_counter()
         if buf:
             rng.shuffle(buf)
             yield from buf
@@ -132,7 +178,7 @@ def buffered(reader, size: int):
         t.start()
         try:
             while True:
-                e = q.get()
+                e = _timed_get(q, "buffered")
                 if e is end:
                     if failure:   # a reader error must not look like a
                         raise failure[0]   # clean end-of-stream
@@ -224,7 +270,7 @@ def device_buffered(reader, size: int = 2, device=None):
         t.start()
         try:
             while True:
-                e = q.get()
+                e = _timed_get(q, "device_buffered")
                 if e is end:
                     if failure:   # a reader/convert error must not look like
                         raise failure[0]   # a clean end-of-stream

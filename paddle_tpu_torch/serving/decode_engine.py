@@ -62,9 +62,28 @@ The argmax stays on the device; the one host fence per dispatch is
 reading the tokens back (with the EOS flags in whole mode, as one small
 buffer). The pools are updated in place.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): telemetry with the lifecycle ledger and goodput decomposition
-(A6.6), and the compile cache (A6.7).
+- **Serving goodput** (``obs/servegoodput.py``), always on: the loop
+  books its wall time into components (``prefill_stall``,
+  ``chunked_prefill``, ``decode_compute``, ``host_batching``,
+  ``spec_overhead``, ``cow_copy``, ``idle``), each measured directly,
+  and reconciles them against the loop's own wall clock
+  (``goodput_snapshot``, ``stats()["goodput"]``).
+- **Lifecycle ledger** (``ledger=True``, a ring of ``ledger_ring``
+  retired requests): each request keeps its events (submit, admit,
+  prefill or chunks, steps, speculation rounds, preemptions, first
+  token, finish) and an exact four-part TTFT decomposition
+  (``retired_ledgers``, ``requestz``); a beam call keeps a mini-ledger
+  with its copy-on-write events.
+- **Telemetry** (``telemetry=``, an ``obs.Telemetry``): the metrics go
+  to its registry, each request opens a ``serving_request`` span
+  (carrying a caller's ``submit(trace_context=)``) with its prefill
+  spans under it, sampled / slow / preempted requests export their
+  ledger as child spans, the loop runs under the flight recorder's
+  guard and ticks the alert rules every 32 turns.
+
+Not ported yet: the compile cache (``compile_cache=``,
+``compile_count``) raises ``NotImplementedError`` naming ROADMAP item
+A6.7.
 
 Metric names are the decode contract of the JAX package's
 ``docs/serving.md``.
@@ -85,6 +104,10 @@ from paddle_tpu_torch.decode import NEG, BeamResult, beam_search, greedy_step
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.obs.metrics import (LATENCY_BUCKETS_MS,
                                           MetricsRegistry)
+from paddle_tpu_torch.obs.servegoodput import (COMPONENTS,
+                                               decompose_serving,
+                                               render_timeline)
+from paddle_tpu_torch.obs.telemetry import Telemetry
 from paddle_tpu_torch.serving import decode_model as dm
 from paddle_tpu_torch.serving.batcher import ServingOverloadError
 from paddle_tpu_torch.serving.kvcache import (BlockPool, KVCacheConfig,
@@ -95,6 +118,18 @@ from paddle_tpu_torch.serving.kvcache import (BlockPool, KVCacheConfig,
 __all__ = ["DecodeEngine", "DecodeResult", "DecodeRequest"]
 
 _request_ids = itertools.count(1)
+
+# lifecycle-ledger bounds: per-request event cap (a runaway generation
+# must not grow an unbounded host list), span-export sampling (every
+# Nth retired request exports its ledger as child spans), and the TTFT
+# past which a request always exports (slow requests are the ones the
+# spans exist to explain)
+_MAX_LEDGER_EVENTS = 2048
+_LEDGER_SAMPLE_EVERY = 16
+_SLOW_TTFT_MS = 250.0
+# decode-loop turns between alert-engine ticks (the burn-rate SLO
+# rules need evaluations even when no trainer loop is stepping)
+_ALERT_TICK_TURNS = 32
 
 
 def _probe_kv_absmax(cfg, params, probe_len: int = 64,
@@ -135,8 +170,10 @@ class DecodeRequest:
     """One queued/in-flight generation."""
 
     __slots__ = ("prompt", "max_new", "rung", "future", "request_id",
-                 "t_submit", "t_ns", "generated", "t_first", "preempts",
-                 "admit_seq")
+                 "t_submit", "t_ns", "span_sid", "generated", "t_first",
+                 "preempts", "admit_seq", "events", "stall_mark",
+                 "stall_behind_ms", "redo_ms", "own_prefill_ms",
+                 "stint_t0")
 
     def __init__(self, prompt: np.ndarray, max_new: int, rung: int):
         self.prompt = prompt
@@ -146,16 +183,31 @@ class DecodeRequest:
         self.request_id = next(_request_ids)
         self.t_submit = time.perf_counter()
         self.t_ns = time.monotonic_ns()
+        self.span_sid = None           # the serving_request span's id
         self.generated: List[int] = []
         self.t_first: Optional[float] = None
         self.preempts = 0
         self.admit_seq = -1
+        # ---- lifecycle ledger (cheap host tuples, no tracer spans):
+        # the event timeline plus the TTFT-decomposition accumulators.
+        # ``stall_mark`` marks the engine's cumulative-prefill clock at
+        # each queue-stint start; the delta at admission is the prefill
+        # time OTHER requests ran while this one waited.
+        self.events: List[tuple] = []
+        self.stall_mark = 0.0
+        self.stall_behind_ms = 0.0
+        self.redo_ms = 0.0           # work discarded by preemptions
+        self.own_prefill_ms = 0.0    # final stint's prefill dispatch
+        self.stint_t0: Optional[float] = None   # current stint start
 
     def reset(self):
-        """Preemption: back to the prompt; the Future survives."""
+        """Preemption: back to the prompt; the Future survives (and so
+        do the ledger accumulators — redo/stall keep integrating)."""
         self.generated = []
         self.t_first = None
         self.admit_seq = -1
+        self.own_prefill_ms = 0.0
+        self.stint_t0 = None
 
 
 class DecodeEngine:
@@ -192,6 +244,18 @@ class DecodeEngine:
     stay unquantized, and a quantized pool gives the draft a pool of
     the same dtype with its own calibration probe). Greedy tokens stay
     plain greedy's; only the dispatch count changes.
+
+    ``attn_impl``: the JAX engine's switch between its Pallas kernel and
+    its reference. Here the device decides: ``"auto"`` (the default)
+    takes the kernels on the card and their plain versions on the CPU;
+    ``"kernel"`` is accepted on the card and ``"reference"`` on the CPU,
+    and any other pairing raises ``ValueError``.
+
+    ``telemetry``: an ``obs.Telemetry`` (True for a default session,
+    None or False for none) whose registry takes the engine's metrics;
+    ``ledger`` / ``ledger_ring``: keep each retired request's lifecycle
+    ledger in a ring of that many (the serving-goodput decomposition
+    runs either way).
     """
 
     def __init__(self, cfg: dm.DecoderConfig, params=None, *,
@@ -202,6 +266,7 @@ class DecodeEngine:
                  max_new_tokens: int = 32,
                  max_context: Optional[int] = None,
                  eos_id: int = 0,
+                 attn_impl: str = "auto",
                  admission: str = "continuous",
                  prefill_mode: str = "chunked",
                  chunk_size: Optional[int] = None,
@@ -216,6 +281,8 @@ class DecodeEngine:
                  speculate_k: int = 0,
                  quant_plan=None,
                  kv_calibration=None,
+                 ledger: bool = True,
+                 ledger_ring: int = 256,
                  device=None,
                  autostart: bool = True):
         if admission not in ("continuous", "static"):
@@ -231,9 +298,6 @@ class DecodeEngine:
             raise ValueError("speculate_k > 0 requires a draft_cfg")
         if compile_cache is not None:
             raise _not_ported("compile_cache", "A6.7")
-        if telemetry is not None:
-            raise _not_ported("telemetry (with the lifecycle ledger and "
-                              "goodput decomposition)", "A6.6")
         self.cfg = cfg
         self.kv = kv_config or cfg.kv_config(block_size, num_blocks)
         if (self.kv.num_layers, self.kv.num_heads, self.kv.head_dim) != \
@@ -243,6 +307,14 @@ class DecodeEngine:
                 f"model (layers/heads/head_dim = {cfg.n_layers}/"
                 f"{cfg.n_heads}/{cfg.head_dim})")
         self.device = resolve_device(device)
+        want = {"cuda": "kernel", "cpu": "reference"}.get(self.device.type)
+        if attn_impl not in ("auto", want):
+            raise ValueError(
+                f"attn_impl={attn_impl!r} on {self.device}: the device "
+                f"picks the attention here (a CUDA tensor goes to the "
+                f"kernel, a CPU tensor to the plain version), so only "
+                f"'auto' or {want!r} is accepted")
+        self.attn_impl = want
         if params is None:
             params = dm.init_params(cfg, seed, self.device)
         for name, p in params.items():
@@ -366,13 +438,29 @@ class DecodeEngine:
         self._spec_accepted = 0
         self._verify_steps = 0      # verify dispatches
         self.cow_copies = 0         # blocks copied by the beam lane
+        # ---- serving-goodput observatory (obs/servegoodput.py): the
+        # loop-wall component accumulators, the cumulative-prefill
+        # clock queued requests measure their stall against, and the
+        # bounded ring of retired-request ledgers
+        self._ledger_on = bool(ledger)
+        self._retired: deque = deque(maxlen=max(1, int(ledger_ring)))
+        self._retire_seq = 0
+        self._comp_ms: Dict[str, float] = {k: 0.0 for k in COMPONENTS}
+        self._loop_wall_ms = 0.0
+        self._loop_turns = 0
+        self._cum_prefill_ms = 0.0
+        self._step_seq = 0
         self._closed = False
         self._started = False
         self._warmed = False
         self._thread: Optional[threading.Thread] = None
 
+        # (the compile-cache hooks, Telemetry.record_compile_cache, go
+        # with the compile cache itself: ROADMAP A6.7)
+        self.telemetry = Telemetry.ensure(telemetry)
         # ---- metrics (names are the docs/serving.md decode contract)
-        reg = MetricsRegistry("decode")
+        reg = (self.telemetry.registry if self.telemetry is not None
+               else MetricsRegistry("decode"))
         self.registry = reg
         self._requests = reg.counter(
             "decode_requests_total", "generations accepted by submit()")
@@ -427,6 +515,20 @@ class DecodeEngine:
         self._occ_frac = reg.gauge(
             "decode_slot_occupancy_frac",
             "occupied slot-steps / total slot-steps since boot")
+        self._goodput_g = reg.gauge(
+            "decode_goodput",
+            "fenced decode-step compute ms / non-idle loop wall ms")
+        self._comp_g = reg.gauge(
+            "decode_component_ms",
+            "cumulative decode-loop wall ms attributed to each "
+            "component (obs/servegoodput.py decomposition)",
+            ("component",))
+        self._redo_ms_h = reg.histogram(
+            "decode_preempted_redo_ms",
+            "per retired request: wall ms of admissions + decode work "
+            "discarded by preemptions (the redo cost TTFT silently "
+            "absorbs; requires the lifecycle ledger)",
+            buckets=LATENCY_BUCKETS_MS)
         self._chunk_tokens_h = reg.histogram(
             "decode_prefill_chunk_tokens",
             "prefill tokens scheduled per slot per mixed step "
@@ -443,6 +545,9 @@ class DecodeEngine:
             "prefill-token share of the last mixed step's valid rows "
             "(0 = pure decode, 1 = pure prefill)")
         self._fill_frac_g.set(0.0)
+        if self.telemetry is not None:
+            self.telemetry.register_status("decode", self.stats)
+            self.telemetry.register_requests("decode", self.requestz)
         if autostart:
             self.start()
 
@@ -612,6 +717,13 @@ class DecodeEngine:
         self._warmed = True
         return n
 
+    @property
+    def compile_count(self) -> int:
+        """The JAX engine's count of compiled entries (its compile
+        cache's bookkeeping): raises, naming ROADMAP A6.7."""
+        raise _not_ported("compile_count (the compile cache's entry "
+                          "count)", "A6.7")
+
     # ------------------------------------------------------------- client
     def _rung_for(self, n: int) -> int:
         for r in self.prompt_rungs:
@@ -622,11 +734,18 @@ class DecodeEngine:
             f"{self.prompt_rungs[-1]}")
 
     def submit(self, prompt: Sequence[int],
-               max_new_tokens: Optional[int] = None) -> Future:
+               max_new_tokens: Optional[int] = None,
+               trace_context: Optional[dict] = None) -> Future:
         """Queue one generation; returns a Future resolving to a
         ``DecodeResult``. Raises ``ServingOverloadError`` past
         ``max_queue`` pending requests (explicit backpressure), and
-        ``ValueError`` for prompts that can never fit."""
+        ``ValueError`` for prompts that can never fit.
+
+        ``trace_context`` is an inherited cross-process wire context
+        (``Tracer.wire_context``): with telemetry on, the
+        ``serving_request`` span this engine opens then carries
+        ``trace_id``/``remote_parent`` back to the root span the caller
+        opened in its own process."""
         if self._closed:
             raise RuntimeError("engine is closed")
         if not self._started:
@@ -652,9 +771,20 @@ class DecodeEngine:
                 f"holds ({self.kv.num_blocks}); shrink the request or "
                 "grow num_blocks")
         req = DecodeRequest(prompt, max_new, rung)
+        if self._ledger_on:
+            req.events.append(("submit", 0.0))
+            req.stall_mark = self._cum_prefill_ms
+        tel = self.telemetry
+        if tel is not None:
+            req.span_sid = tel.tracer.start_span(
+                "serving_request", request_id=req.request_id,
+                kind="decode", prompt_tokens=int(prompt.size),
+                ctx=trace_context)
         with self._cv:
             if len(self._pending) >= self.max_queue:
                 self._rejected.inc()
+                if tel is not None:
+                    tel.tracer.end_span(req.span_sid, rejected=True)
                 raise ServingOverloadError(
                     f"queue full ({self.max_queue} pending "
                     "generations); retry with backoff")
@@ -679,19 +809,41 @@ class DecodeEngine:
         if self._started:
             return
         self._started = True
-        self._thread = threading.Thread(target=self._loop,
+        self._thread = threading.Thread(target=self._run,
                                         name="decode-loop", daemon=True)
         self._thread.start()
 
-    def _loop(self):
+    def _run(self):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)   # this thread's card
+        fl = self.telemetry.flight if self.telemetry is not None else None
+        if fl is not None:
+            with fl.guard("decode_loop"):
+                self._loop()
+        else:
+            self._loop()
+
+    def _loop(self):
+        # loop wall accumulates turn-to-turn deltas (not per-phase
+        # sums), so everything the thread did — including inter-turn
+        # overhead — is inside the clock the component decomposition
+        # must reconcile against; only measured cv-waits count as idle,
+        # the rest of any gap is honest residual
+        prev_end = time.perf_counter()
         while True:
             with self._cv:
                 while (not self._pending
                        and not any(self._active)
                        and not self._closed):
+                    t_wait = time.perf_counter()
                     self._cv.wait(timeout=0.05)
+                    now = time.perf_counter()
+                    self._comp_ms["idle"] += (now - t_wait) * 1e3
+                    # advance the wall clock through the idle stretch
+                    # too, so a snapshot taken while the engine sits
+                    # empty still reconciles
+                    self._loop_wall_ms += (now - prev_end) * 1e3
+                    prev_end = now
                 if (self._closed and not self._pending
                         and not any(self._active)):
                     return
@@ -707,8 +859,19 @@ class DecodeEngine:
                             self._iterate_whole()
             except Exception as exc:   # fail loudly into the futures
                 self._fail_all(exc)
+            now = time.perf_counter()
+            self._loop_wall_ms += (now - prev_end) * 1e3
+            prev_end = now
+            self._loop_turns += 1
+            if (self.telemetry is not None
+                    and self._loop_turns % _ALERT_TICK_TURNS == 0):
+                try:   # a host-side rule must not stop the loop
+                    self.telemetry.alerts.evaluate()
+                except Exception:
+                    pass
 
     def _fail_all(self, exc):
+        tel = self.telemetry
         for s in range(self.max_slots):
             r = self._slots[s]
             if r is None:
@@ -718,11 +881,15 @@ class DecodeEngine:
             self._active[s] = False
             self._prefill_target[s] = 0
             self._slot_hashes[s] = []
+            if tel is not None:
+                tel.tracer.end_span(r.span_sid, error=repr(exc))
             if not r.future.done():
                 r.future.set_exception(exc)
         with self._cv:
             pending, self._pending = list(self._pending), deque()
         for r in pending:
+            if tel is not None:
+                tel.tracer.end_span(r.span_sid, error=repr(exc))
             if not r.future.done():
                 r.future.set_exception(exc)
 
@@ -740,6 +907,8 @@ class DecodeEngine:
         baseline)."""
         if self.admission == "static" and any(self._active):
             return
+        t_adm0 = time.perf_counter()
+        prefill_ms = 0.0
         while True:
             with self._cv:
                 if not self._pending:
@@ -750,16 +919,29 @@ class DecodeEngine:
                 if slot is None or not self.pool.can_alloc(need):
                     break
                 self._pending.popleft()
-            self._admit_into(head, slot)
+            prefill_ms += self._admit_into(head, slot)
         self._queue_depth.set(self.queue_depth)
+        # admission host work is measured directly (total admit phase
+        # minus the fenced prefill dispatches inside it), NOT derived
+        # as a residual — the 10% reconciliation stays falsifiable
+        self._comp_ms["host_batching"] += max(
+            (time.perf_counter() - t_adm0) * 1e3 - prefill_ms, 0.0)
 
-    def _admit_into(self, r: DecodeRequest, slot: int):
+    def _admit_into(self, r: DecodeRequest, slot: int) -> float:
         """Admit ``r`` into ``slot``: prefix-cache acquire, allocate the
         rest of the prompt's blocks, then either hand the slot to
         chunked prefill (``_finish_admit_chunked``) or run its whole
-        prefill now (``_finish_admit_whole``)."""
+        prefill now (``_finish_admit_whole``). Returns the fenced
+        prefill dispatch ms so ``_admit`` can subtract it from its
+        host-batching time."""
         now_ns = time.monotonic_ns()
         self._queue_age_ms.observe((now_ns - r.t_ns) / 1e6)
+        if self._ledger_on:
+            # close the queue stint: the engine's cumulative-prefill
+            # clock advanced only by OTHER requests' prefills while
+            # this one waited (a queued request cannot prefill itself)
+            r.stall_behind_ms += max(
+                self._cum_prefill_ms - r.stall_mark, 0.0)
         toks = r.prompt
         bs = self.kv.block_size
         # ---- prefix cache: reacquire published FULL blocks by chained
@@ -789,30 +971,39 @@ class DecodeEngine:
         row[:len(hit_blocks)] = hit_blocks
         row[len(hit_blocks):len(hit_blocks) + len(fresh)] = fresh
         if self.prefill_mode == "chunked":
-            self._finish_admit_chunked(r, slot, row, hashes, hit_len)
-        else:
-            self._finish_admit_whole(r, slot, row, hashes, hit_len)
+            return self._finish_admit_chunked(r, slot, row, hashes,
+                                              hit_len)
+        return self._finish_admit_whole(r, slot, row, hashes, hit_len)
 
     def _finish_admit_whole(self, r: DecodeRequest, slot: int, row,
-                            hashes: List[str], hit_len: int):
+                            hashes: List[str], hit_len: int) -> float:
         """Whole-prompt admission: ONE synchronous prefill dispatch of
         the cold tail (padded to its own rung) at position ``hit_len``,
         which emits the first generated token; every full block of the
         prompt is published right away (a hit re-registers as a no-op:
-        registration is first-wins)."""
+        registration is first-wins). Returns the dispatch's ms."""
         tail = r.prompt[hit_len:]
-        padded = np.zeros((self._rung_for(int(tail.size)),), np.int32)
+        tail_rung = self._rung_for(int(tail.size))
+        padded = np.zeros((tail_rung,), np.int32)
         padded[:tail.size] = tail
+        t0 = time.perf_counter()
+        t0_ns = time.monotonic_ns()
         try:
             tok, done = self._dispatch_prefill(padded, int(tail.size),
                                                hit_len, row)
         except Exception as exc:
             # not in a slot yet, so _fail_all would miss it: release its
-            # blocks and fail its future here
+            # blocks, close its span and fail its future here
             self.pool.free(r.request_id)
+            if self.telemetry is not None:
+                self.telemetry.tracer.end_span(r.span_sid,
+                                               error=repr(exc))
             if not r.future.done():
                 r.future.set_exception(exc)
             raise
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        self._comp_ms["prefill_stall"] += prefill_ms
+        self._cum_prefill_ms += prefill_ms
         self._prefills.inc()
         self._prefix_hit_tokens.inc(hit_len)
         self._prefix_miss_tokens.inc(int(tail.size))
@@ -822,7 +1013,25 @@ class DecodeEngine:
         r.t_first = time.perf_counter()
         r.generated.append(tok)
         self._tokens_total.inc()
-        self._ttft_ms.observe((r.t_first - r.t_submit) * 1e3)
+        ttft_ms = (r.t_first - r.t_submit) * 1e3
+        self._ttft_ms.observe(ttft_ms)
+        if self._ledger_on:
+            r.own_prefill_ms = prefill_ms
+            r.stint_t0 = t0
+            if len(r.events) < _MAX_LEDGER_EVENTS:
+                rel = (t0 - r.t_submit) * 1e3
+                r.events.append(("admit", round(rel, 3), hit_len,
+                                 int(tail.size)))
+                r.events.append(("prefill", round(rel, 3),
+                                 round(prefill_ms, 3), tail_rung))
+                r.events.append(("first_token", round(ttft_ms, 3)))
+        if self.telemetry is not None:
+            self.telemetry.tracer.emit_spans([(
+                "decode_prefill", t0_ns, int(prefill_ms * 1e6),
+                r.span_sid,
+                {"request_id": r.request_id, "rung": tail_rung,
+                 "prompt_tokens": int(r.prompt.size),
+                 "prefix_hit_tokens": hit_len})])
         self._slots[slot] = r
         self._tokens[slot] = tok
         self._seq_lens[slot] = r.prompt.size
@@ -830,21 +1039,33 @@ class DecodeEngine:
         self._tables[slot] = row
         if done or len(r.generated) >= r.max_new:
             self._retire(slot)
+        return prefill_ms
 
     def _finish_admit_chunked(self, r: DecodeRequest, slot: int,
-                              row, hashes: List[str], hit_len: int):
+                              row, hashes: List[str],
+                              hit_len: int) -> float:
         """The slot becomes resident with all its prompt blocks
         allocated and ``_prefill_target`` set — NO dispatch, so
         admission never stalls the decode batch; the prompt streams
         through the mixed step in budgeted chunks starting next turn.
         Prefix-hit blocks short-circuit (``_seq_lens`` starts at the
         hit length). Content hashes are deferred to ``_slot_hashes``
-        and publish only when the prefill completes."""
+        and publish only when the prefill completes. Returns 0.0 (no
+        dispatch ran)."""
         toks = r.prompt
+        tail = int(toks.size) - hit_len
         self._prefills.inc()
         self._prefix_hit_tokens.inc(hit_len)
-        self._prefix_miss_tokens.inc(int(toks.size) - hit_len)
+        self._prefix_miss_tokens.inc(tail)
         r.admit_seq = next(self._admit_seq)
+        if self._ledger_on:
+            now = time.perf_counter()
+            r.own_prefill_ms = 0.0
+            r.stint_t0 = now
+            if len(r.events) < _MAX_LEDGER_EVENTS:
+                r.events.append(("admit",
+                                 round((now - r.t_submit) * 1e3, 3),
+                                 hit_len, tail))
         self._slots[slot] = r
         self._tokens[slot] = 0
         self._seq_lens[slot] = hit_len
@@ -852,6 +1073,7 @@ class DecodeEngine:
         self._tables[slot] = row
         self._prefill_target[slot] = int(toks.size)
         self._slot_hashes[slot] = list(hashes)
+        return 0.0
 
     # ------------------------------------------------------ block growth
     def _preempt_latest(self) -> bool:
@@ -877,6 +1099,16 @@ class DecodeEngine:
         # unpublished hashes die with the blocks
         self._prefill_target[victim_slot] = 0
         self._slot_hashes[victim_slot] = []
+        if self._ledger_on:
+            now = time.perf_counter()
+            if victim.stint_t0 is not None:
+                # everything since this stint's prefill started is
+                # redone after the restart — the preemption redo cost
+                victim.redo_ms += (now - victim.stint_t0) * 1e3
+            if len(victim.events) < _MAX_LEDGER_EVENTS:
+                victim.events.append(
+                    ("preempt", round((now - victim.t_submit) * 1e3, 3)))
+            victim.stall_mark = self._cum_prefill_ms   # reopen stint
         victim.reset()
         victim.preempts += 1
         self._preempted.inc()
@@ -919,30 +1151,41 @@ class DecodeEngine:
     def _iterate_whole(self):
         """One whole-mode turn: ONE decode step over every slot, then
         retire on EOS, ``max_new`` or ``max_context``."""
+        t_it0 = time.perf_counter()
         self._ensure_blocks()
         if not any(self._active):   # growth may have preempted everyone
             return
         occ = int(np.sum(self._active))
         t0 = time.perf_counter()
         nxt, done = self._dispatch_decode()
-        self._step_ms.observe((time.perf_counter() - t0) * 1e3)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        self._step_ms.observe(step_ms)
         self._steps_total.inc()
+        self._comp_ms["decode_compute"] += step_ms
+        self._step_seq += 1
         self._occ_steps += occ
         self._tot_steps += self.max_slots
         for s in range(self.max_slots):
             if self._slots[s] is not None:
-                self._advance(s, int(nxt[s]), bool(done[s]))
+                self._advance(s, int(nxt[s]), bool(done[s]), t0, occ)
         self._update_gauges()
+        self._comp_ms["host_batching"] += max(
+            (time.perf_counter() - t_it0) * 1e3 - step_ms, 0.0)
 
-    def _advance(self, s: int, tok: int, done: bool):
-        """Slot ``s`` decoded ``tok`` at its write frontier: record it,
-        move the frontier, and retire on EOS (``done``), ``max_new`` or
-        ``max_context``."""
+    def _advance(self, s: int, tok: int, done: bool, t0: float,
+                 occ: int):
+        """Slot ``s`` decoded ``tok`` at its write frontier in the step
+        dispatched at ``t0`` over ``occ`` occupied slots: record it (and
+        the ledger's ``step`` event), move the frontier, and retire on
+        EOS (``done``), ``max_new`` or ``max_context``."""
         r = self._slots[s]
         r.generated.append(tok)
         self._tokens_total.inc()
         self._tokens[s] = tok
         self._seq_lens[s] += 1
+        if self._ledger_on and len(r.events) < _MAX_LEDGER_EVENTS:
+            r.events.append(("step", round((t0 - r.t_submit) * 1e3, 3),
+                             self._step_seq, occ))
         if (done or len(r.generated) >= r.max_new
                 or int(self._seq_lens[s]) + 1 >= self.max_context):
             self._retire(s)
@@ -953,12 +1196,13 @@ class DecodeEngine:
         on, the mixed step carries only prefill chunks (writing both
         pools) and the slots past their prefill decode by a speculative
         round in the same turn."""
+        t_it0 = time.perf_counter()
         if self._spec_on:
             if np.any(self._active & (self._prefill_target > 0)):
                 self._ensure_blocks()
                 plan = self._plan_chunks(decode_rows=False)
                 if plan is not None:
-                    self._dispatch_mixed_step(plan)
+                    self._dispatch_mixed_step(plan, t_it0)
             if np.any(self._active & (self._prefill_target == 0)):
                 self._iterate_spec()
             return
@@ -967,7 +1211,7 @@ class DecodeEngine:
             return
         plan = self._plan_chunks(decode_rows=True)
         if plan is not None:
-            self._dispatch_mixed_step(plan)
+            self._dispatch_mixed_step(plan, t_it0)
 
     def _plan_chunks(self, decode_rows: bool):
         """Build the mixed step's row plan: rows ``0..S-1`` are the
@@ -1019,27 +1263,45 @@ class DecodeEngine:
             return None
         return tokens, row_slots, positions, valid, takes, n_dec, n_pre
 
-    def _dispatch_mixed_step(self, plan):
+    def _dispatch_mixed_step(self, plan, t_it0: float):
         """Dispatch one mixed step and advance host state: prefill
         slots move their write frontier ``take`` tokens (emitting the
         first generated token and publishing deferred prefix hashes
-        when the prompt completes); decode rows advance by one."""
+        when the prompt completes); decode rows advance by one. The
+        fenced step is split between ``chunked_prefill`` and
+        ``decode_compute`` by prefill-row share; the turn's host work
+        since ``t_it0`` outside the dispatch is ``host_batching``."""
         tokens, row_slots, positions, valid, takes, n_dec, n_pre = plan
         occ = int(np.sum(self._active))
+        ledger = self._ledger_on
         t0 = time.perf_counter()
         toks = self._dispatch_mixed_rows(
             tokens, row_slots, positions, valid, self._tables)
         step_ms = (time.perf_counter() - t0) * 1e3
         self._step_ms.observe(step_ms)
         self._steps_total.inc()
+        self._step_seq += 1
         self._occ_steps += occ
         self._tot_steps += self.max_slots
-        self._fill_frac_g.set(round(n_pre / max(n_dec + n_pre, 1), 4))
+        total = max(n_dec + n_pre, 1)
+        fill = n_pre / total
+        self._fill_frac_g.set(round(fill, 4))
+        pre_ms = step_ms * fill
+        self._comp_ms["chunked_prefill"] += pre_ms
+        self._comp_ms["decode_compute"] += step_ms - pre_ms
+        self._cum_prefill_ms += pre_ms
         now = time.perf_counter()
         for s, take, finishes, last_row in takes:
             r = self._slots[s]
             self._seq_lens[s] += take
             self._chunk_tokens_h.observe(float(take))
+            share = step_ms * (take / total)
+            if ledger:
+                r.own_prefill_ms += share
+                if len(r.events) < _MAX_LEDGER_EVENTS:
+                    r.events.append(
+                        ("chunk", round((t0 - r.t_submit) * 1e3, 3),
+                         take, round(share, 3)))
             if not finishes:
                 continue
             # last prompt token written: its row's argmax IS the first
@@ -1050,12 +1312,22 @@ class DecodeEngine:
             r.t_first = now
             r.generated.append(tok)
             self._tokens_total.inc()
-            self._ttft_ms.observe((r.t_first - r.t_submit) * 1e3)
+            ttft_ms = (r.t_first - r.t_submit) * 1e3
+            self._ttft_ms.observe(ttft_ms)
             # publish full-block hashes only now — a half-written
             # block must never have been acquirable mid-prefill
             for i, h in enumerate(self._slot_hashes[s]):
                 self.pool.register(int(self._tables[s, i]), h)
             self._slot_hashes[s] = []
+            if ledger and len(r.events) < _MAX_LEDGER_EVENTS:
+                r.events.append(("first_token", round(ttft_ms, 3)))
+            if self.telemetry is not None:
+                dur_ns = max(int(r.own_prefill_ms * 1e6), 1)
+                self.telemetry.tracer.emit_spans([(
+                    "decode_prefill", time.monotonic_ns() - dur_ns,
+                    dur_ns, r.span_sid,
+                    {"request_id": r.request_id, "chunked": True,
+                     "prompt_tokens": int(r.prompt.size)})])
             if (tok == self.eos_id or len(r.generated) >= r.max_new
                     or int(self._seq_lens[s]) + 1 >= self.max_context):
                 self._retire(s)
@@ -1063,8 +1335,10 @@ class DecodeEngine:
             for s in range(self.max_slots):
                 if self._slots[s] is not None and valid[s]:
                     tok = int(toks[s])
-                    self._advance(s, tok, tok == self.eos_id)
+                    self._advance(s, tok, tok == self.eos_id, t0, occ)
         self._update_gauges()
+        self._comp_ms["host_batching"] += max(
+            (time.perf_counter() - t_it0) * 1e3 - step_ms, 0.0)
 
     def _iterate_spec(self):
         """One speculative round: the draft scan, one verify chunk, then
@@ -1077,6 +1351,7 @@ class DecodeEngine:
         dead (the next round overwrites them) and trailing blocks
         allocated for the horizon are released."""
         gamma = self.speculate_k
+        t_it0 = time.perf_counter()
         self._ensure_blocks(horizon=gamma)
         # chunked mode: a mid-prefill slot is not in the round
         dec = self._active & (self._prefill_target == 0)
@@ -1085,13 +1360,14 @@ class DecodeEngine:
         occ = int(np.sum(dec))
         t0 = time.perf_counter()
         props, verify = self._dispatch_spec(dec)
-        self._step_ms.observe((time.perf_counter() - t0) * 1e3)
+        round_ms = (time.perf_counter() - t0) * 1e3
+        self._step_ms.observe(round_ms)
         self._steps_total.inc()
         self._verify_steps += 1
+        self._step_seq += 1
         self._occ_steps += occ
         self._tot_steps += self.max_slots
-        # (the JAX engine books the round's ledger events and its
-        # decode_compute / spec_overhead split here: A6.6)
+        emitted = 0
         for s in range(self.max_slots):
             r = self._slots[s]
             if r is None or self._prefill_target[s]:
@@ -1102,8 +1378,14 @@ class DecodeEngine:
             self._accept_len.observe(float(k))
             self._spec_rounds += 1
             self._spec_accepted += k
+            m = min(k + 1, gamma)
+            emitted += m
+            if self._ledger_on and len(r.events) < _MAX_LEDGER_EVENTS:
+                rel = round((t0 - r.t_submit) * 1e3, 3)
+                r.events.append(("step", rel, self._step_seq, occ))
+                r.events.append(("spec", rel, gamma, k))
             retired = False
-            for i in range(min(k + 1, gamma)):
+            for i in range(m):
                 tok = int(verify[s, i])
                 r.generated.append(tok)
                 self._tokens_total.inc()
@@ -1118,7 +1400,16 @@ class DecodeEngine:
                 self._tokens[s] = tok
                 keep = int(self._seq_lens[s]) // self.kv.block_size + 1
                 self.pool.release_tail(r.request_id, keep)
+        # split the fenced round between productive decode and
+        # speculation overhead by the emitted-token yield: a round that
+        # lands its full γ-token cap is all decode compute, everything
+        # short of that is draft+verify time beyond the tokens it won
+        yield_frac = emitted / max(1, occ * gamma)
+        self._comp_ms["decode_compute"] += round_ms * yield_frac
+        self._comp_ms["spec_overhead"] += round_ms * (1.0 - yield_frac)
         self._update_gauges()
+        self._comp_ms["host_batching"] += max(
+            (time.perf_counter() - t_it0) * 1e3 - round_ms, 0.0)
 
     def _retire(self, slot: int):
         r = self._slots[slot]
@@ -1135,10 +1426,18 @@ class DecodeEngine:
         tpot = ((now - r.t_first) * 1e3 / (n - 1)) if n > 1 else None
         if tpot is not None:
             self._tpot_ms.observe(tpot)
+        ttft_ms = (r.t_first - r.t_submit) * 1e3
+        if self._ledger_on:
+            self._ledger_retire(r, now, n, ttft_ms, tpot)
+        if self.telemetry is not None:
+            self.telemetry.tracer.end_span(
+                r.span_sid, tokens=n, ttft_ms=round(ttft_ms, 3),
+                tpot_ms=(round(tpot, 3) if tpot is not None else None),
+                preempts=r.preempts)
         if not r.future.done():
             r.future.set_result(DecodeResult(
                 tokens=np.asarray(r.generated, np.int32),
-                ttft_ms=(r.t_first - r.t_submit) * 1e3, tpot_ms=tpot,
+                ttft_ms=ttft_ms, tpot_ms=tpot,
                 preempts=r.preempts, request_id=r.request_id))
 
     def _update_gauges(self):
@@ -1152,6 +1451,136 @@ class DecodeEngine:
         if self._tot_steps:
             self._occ_frac.set(
                 round(self._occ_steps / self._tot_steps, 4))
+        wall = self._loop_wall_ms
+        if wall > 0.0:
+            busy = max(wall - self._comp_ms["idle"], 1e-9)
+            self._goodput_g.set(round(
+                min(self._comp_ms["decode_compute"] / busy, 1.0), 4))
+            for k, v in self._comp_ms.items():
+                self._comp_g.set(round(v, 3), component=k)
+
+    # ------------------------------------------------ lifecycle ledger
+    def _ledger_retire(self, r: DecodeRequest, now: float, n: int,
+                       ttft_ms: float, tpot):
+        """Finalize one request's ledger: decompose its TTFT, push the
+        retired dict onto the bounded ring, observe the preemption-redo
+        histogram, and export the timeline as child spans for sampled
+        / slow / preempted requests (every request pays only the host
+        tuples; spans are the exception, not the rule)."""
+        total_ms = (now - r.t_submit) * 1e3
+        if len(r.events) < _MAX_LEDGER_EVENTS:
+            r.events.append(("finish", round(total_ms, 3)))
+        # exact-sum TTFT decomposition: own prefill and preemption redo
+        # are measured stints, the queue remainder is exact by
+        # construction, and the stall-behind share of it is the
+        # cumulative-prefill delta integrated over the queue stints
+        own = r.own_prefill_ms
+        redo = r.redo_ms
+        queue_total = max(ttft_ms - own - redo, 0.0)
+        stall_behind = min(r.stall_behind_ms, queue_total)
+        led = {
+            "request_id": r.request_id,
+            "prompt_tokens": int(r.prompt.size),
+            "tokens": n,
+            "preempts": r.preempts,
+            "ttft_ms": round(ttft_ms, 4),
+            "tpot_ms": (round(tpot, 4) if tpot is not None else None),
+            "total_ms": round(total_ms, 4),
+            "ttft_parts": {
+                "queue": round(queue_total - stall_behind, 4),
+                "prefill_stall_behind": round(stall_behind, 4),
+                "own_prefill": round(own, 4),
+                "preempt_redo": round(redo, 4),
+            },
+            "events": list(r.events),
+        }
+        if r.preempts:
+            self._redo_ms_h.observe(redo)
+        self._retired.append(led)
+        self._retire_seq += 1
+        if self.telemetry is not None and (
+                r.preempts > 0 or ttft_ms >= _SLOW_TTFT_MS
+                or self._retire_seq % _LEDGER_SAMPLE_EVERY == 0):
+            self._export_ledger_spans(r, led)
+
+    def _export_ledger_spans(self, r: DecodeRequest, led: dict):
+        """Child spans of the request's ``serving_request`` root, laid
+        out as consecutive TTFT-attribution intervals plus the decode
+        stream — the trace-view rendering of the ledger, emitted in one
+        tracer round-trip and only for sampled/slow/preempted
+        requests."""
+        spans = []
+        off = 0.0
+        for k in ("queue", "prefill_stall_behind", "preempt_redo",
+                  "own_prefill"):
+            d = led["ttft_parts"][k]
+            if d <= 0.0:
+                continue
+            spans.append((f"ttft_{k}", r.t_ns + int(off * 1e6),
+                          int(d * 1e6), r.span_sid,
+                          {"request_id": r.request_id}))
+            off += d
+        stream_ms = led["total_ms"] - led["ttft_ms"]
+        if stream_ms > 0.0:
+            spans.append(("decode_stream",
+                          r.t_ns + int(led["ttft_ms"] * 1e6),
+                          int(stream_ms * 1e6), r.span_sid,
+                          {"request_id": r.request_id,
+                           "tokens": led["tokens"],
+                           "preempts": led["preempts"]}))
+        if spans:
+            try:   # span export is host-side; it must not stop a retire
+                self.telemetry.tracer.emit_spans(spans)
+            except Exception:
+                pass
+
+    def goodput_snapshot(self) -> dict:
+        """Raw observatory accumulators (obs/servegoodput.py's input):
+        the measured loop wall, turn/step counts, per-component ms and
+        the slot-step occupancy integrals. ``cow_copy`` accrues in the
+        synchronous beam lane OUTSIDE the decode loop's wall clock, so
+        with beam traffic the component sum can exceed the loop wall —
+        the decode closed loop reconciles within tolerance."""
+        return {
+            "loop_wall_ms": self._loop_wall_ms,
+            "turns": self._loop_turns,
+            "steps": self._step_seq,
+            "components": dict(self._comp_ms),
+            "occ_steps": self._occ_steps,
+            "tot_steps": self._tot_steps,
+        }
+
+    def retired_ledgers(self, n: Optional[int] = None) -> List[dict]:
+        """The last-N retired request ledgers (oldest first)."""
+        leds = list(self._retired)
+        return leds if n is None else leds[-int(n):]
+
+    def requestz(self, n: int = 20, order: str = "slowest",
+                 preempts: bool = False) -> dict:
+        """The ``/requestz`` payload: retired-request ledgers with
+        rendered timelines. ``order`` is ``slowest`` (by TTFT; beam
+        mini-ledgers fall back to total wall) or ``recent``;
+        ``preempts=True`` keeps only requests that were preempted at
+        least once (the redo-cost lens)."""
+        leds = list(self._retired)
+        if preempts:
+            leds = [led for led in leds if led.get("preempts")]
+        if order == "slowest":
+            leds.sort(key=lambda led: (led.get("ttft_ms")
+                                       or led.get("total_ms") or 0.0),
+                      reverse=True)
+        else:
+            leds = leds[::-1]
+        leds = leds[:max(0, int(n))]
+        return {
+            "retired_total": self._retire_seq,
+            "ring": len(self._retired),
+            "ring_capacity": self._retired.maxlen,
+            "order": order,
+            "preempts_only": bool(preempts),
+            "requests": [dict(led, timeline=render_timeline(led))
+                         for led in leds],
+        }
 
     # ------------------------------------------------- offline beam lane
     def generate_beam(self, prompt: Sequence[int], beam_size: int = 4,
@@ -1231,6 +1660,9 @@ class DecodeEngine:
         owners = [("beam", bid, 0, i) for i in range(K)]
         tables = np.zeros((K, self.max_pages), np.int32)
         all_gens = list(owners)           # every owner ever created
+        t_beam0 = time.perf_counter()
+        beam_events: List[tuple] = [("submit", 0.0)] \
+            if self._ledger_on else []
         try:
             # ---- admit the shared prefix once; all K beams refcount it
             if prefix_len:
@@ -1293,10 +1725,22 @@ class DecodeEngine:
                         else:
                             src[i] = dst[i] = blk
                 if np.any(src != dst):
-                    # (the JAX engine times the copy as its cow_copy
-                    # component and a ledger event here: A6.6)
+                    t_cow = time.perf_counter()
                     self._cow_copy(src, dst)
-                    self.cow_copies += int(np.sum(src != dst))
+                    # fence so the cow component is the copy's real
+                    # cost, not its enqueue; the beam lane is offline,
+                    # so the sync is off the serving hot path
+                    if self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
+                    self._comp_ms["cow_copy"] += \
+                        (time.perf_counter() - t_cow) * 1e3
+                    n_copy = int(np.sum(src != dst))
+                    self.cow_copies += n_copy
+                    if (self._ledger_on
+                            and len(beam_events) < _MAX_LEDGER_EVENTS):
+                        beam_events.append(
+                            ("cow", round((t_cow - t_beam0) * 1e3, 3),
+                             n_copy))
                 lp = self._dispatch_beam_step(
                     tokens, tables, np.full((K,), pos, np.int32))
                 lp = np.where(finished[:, None], fin_row[None], lp)
@@ -1348,6 +1792,21 @@ class DecodeEngine:
             t_idx = np.arange(max_new)
             sequences = np.where(t_idx[None, :] < lengths[:, None],
                                  sequences, self.eos_id).astype(np.int32)
+            if self._ledger_on:
+                total_ms = (time.perf_counter() - t_beam0) * 1e3
+                beam_events.append(("finish", round(total_ms, 3)))
+                # beam mini-ledger: no TTFT decomposition (ttft_parts
+                # absent keeps it out of the tail attribution), but its
+                # CoW copies are on the requestz record
+                self._retired.append({
+                    "request_id": bid, "kind": "beam",
+                    "prompt_tokens": prefix_len + 1,
+                    "tokens": int(max_new), "preempts": 0,
+                    "ttft_ms": None, "tpot_ms": None,
+                    "total_ms": round(total_ms, 4),
+                    "events": beam_events,
+                })
+                self._retire_seq += 1
             return BeamResult(sequences=sequences[None],
                               lengths=lengths[None], scores=scores[None])
         finally:
@@ -1390,7 +1849,8 @@ class DecodeEngine:
     # ------------------------------------------------------------- stats
     def stats(self) -> dict:
         """Point-in-time decode summary, with the JAX engine's keys for
-        the parts ported."""
+        the parts ported (all but the compile cache's), the serving
+        goodput decomposition and the ledger ring's state."""
         by_rung: Dict[str, int] = {}
         with self._lock:
             for r in self._pending:
@@ -1415,6 +1875,14 @@ class DecodeEngine:
                 if self._tot_steps else 0.0),
             "active_slots": int(np.sum(self._active)),
             "max_slots": self.max_slots,
+            "goodput": decompose_serving(
+                self.goodput_snapshot(), ledgers=list(self._retired)),
+            "ledger": {
+                "enabled": self._ledger_on,
+                "retired_total": self._retire_seq,
+                "ring": len(self._retired),
+                "ring_capacity": self._retired.maxlen,
+            },
             "kv": self.pool.stats(),
             "kv_config": self.kv.describe(),
             "quant": {
@@ -1449,6 +1917,7 @@ class DecodeEngine:
                     self._chunk_tokens_h.percentile(50),
             },
             "admission": self.admission,
+            "attn_impl": self.attn_impl,
             "device": str(self.device),
             "warmed": self._warmed,
         }

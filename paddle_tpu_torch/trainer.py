@@ -16,8 +16,9 @@ Python float.
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: ``health=`` and ``numerics=`` (A5: obs/health.py, obs/numerics.py),
 ``telemetry=``, ``serve_port=`` and ``profile_steps=`` (A5 / A10: the
-telemetry session, the live introspection server and the device-trace
-capture), and ``MasterTrainer`` (A11: the master service).
+Trainer's hooks into ``obs.Telemetry``, the live introspection server
+and the loop's device-trace capture), and ``MasterTrainer`` (A11: the
+master service).
 """
 from __future__ import annotations
 
@@ -183,16 +184,18 @@ class Trainer:
         naming ROADMAP A5 / A10."""
         if telemetry:
             raise NotImplementedError(
-                "Trainer.train(telemetry=...) needs obs/telemetry.py, not "
-                "ported yet (ROADMAP A5)")
+                "Trainer.train(telemetry=...): the Trainer's telemetry "
+                "hooks (steps, goodput, health) are not wired yet "
+                "(ROADMAP A5, A item 2)")
         if serve_port is not None:
             raise NotImplementedError(
                 "Trainer.train(serve_port=...) needs obs/server.py and the "
                 "telemetry session, not ported yet (ROADMAP A5)")
         if profile_steps is not None:
             raise NotImplementedError(
-                "Trainer.train(profile_steps=...) needs obs/profiler.py, "
-                "not ported yet (ROADMAP A5 / A10)")
+                "Trainer.train(profile_steps=...) needs the Trainer's "
+                "telemetry hooks around obs/profiler.py, not wired yet "
+                "(ROADMAP A5 / A10)")
         from paddle_tpu_torch.flags import FLAGS
         log_period = FLAGS.log_period if log_period is None else log_period
         test_period = (FLAGS.test_period if test_period is None

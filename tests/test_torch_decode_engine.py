@@ -10,11 +10,11 @@ and the test checks that every greedy step's top-2 logit gap exceeds
 the result. The quantized configurations (int8 KV + int8 weights,
 fp8-e4m3 KV + fp8 weights, bfloat16 KV) are held to the same, with the
 same default calibration probe on both sides. Also: solo == batched
-inside the port, the options not ported yet (telemetry, the compile
-cache) raise, entry points raise without a card unless asked for the
-CPU, and no module of the port imports JAX or the JAX package.
-Speculation and beams: ``test_torch_decode_spec.py``,
-``test_torch_decode_beam.py``."""
+inside the port, the option not ported yet (the compile cache)
+raises, entry points raise without a card unless asked for the CPU,
+and no module of the port imports JAX or the JAX package. Speculation
+and beams: ``test_torch_decode_spec.py``, ``test_torch_decode_beam.py``;
+telemetry and the lifecycle ledger: ``test_torch_decode_ledger.py``."""
 import ast
 import os
 import pathlib
@@ -300,7 +300,6 @@ def test_queue_backpressure(np_params):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(compile_cache="/nonexistent"), "A6.7"),
-    (dict(telemetry=object()), "A6.6"),
 ])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
