@@ -403,14 +403,42 @@ adds:
    an op beside 6e's, and 6e's run and the recipe's in turns (recipe,
    plain, plain, recipe).
 
+The training-side observability planes (no kernel of their own; the
+kernel wrappers' FLOPs ledger rides B14/B15) add:
+
+6i. ``trainer_lstm_obs``: 6c's flagship from 6c's startup state through
+   ``Trainer(health="raise", numerics=NumericsSpec(sample_every=8,
+   calibration=<tmp>))`` and ``train(telemetry=Telemetry(<tmp>),
+   profile_steps=(5, 8))``: 3 + 20 batches at K = 1 and 3 groups at
+   K = 8 on 6c's feeds, every cost bit-equal to 6c's plain Trainer's on
+   the same feeds (run in the same phase), B14/B15 exactly twice a
+   batch, the ``tensor_stats`` op run on sampled steps only (3 of 23;
+   every step of a sampled group), the capture window holding 2 x 3
+   events each of the resident recurrence kernels; one device-to-host
+   copy a step under ``torch.profiler`` (sampled steps and not); the
+   fetched ``grad_norm`` of a checking step within 1e-5 of a float64
+   norm of its gradients; ``Executor.cost_report`` on the flagship:
+   ``flops_kernel`` equal to the ledger formulas' sum, ``flops`` over
+   bench.py's count in [0.98, 1.05], the scope unchanged, the plain
+   versions' count (4f's route) within 5 %; printed: ``device_mfu``
+   after 8 fenced steps beside bench's analytic MFU at the same ms,
+   ``measured_vs_modeled`` of the capture, and ms a batch with the
+   planes and without in turns (plain, planes, planes, plain); then a
+   planted NaN in bench.py's MLP (784-128-64-10, batch 64, health
+   "warn", numerics every step, a flight recorder): one health trip, the
+   bisector's verdict equal to the CPU's on the same feed and state, the
+   bundle's ``failing_feed.npz`` and ``numerics.json``, the
+   ``nonfinite_grads`` alert naming the op.
+
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
 lane of every kernel; the paged-attention and B7 lanes add their 5g
-launches, ``launches_5g``, and B1, B2, B4, B6 and B7 their 5h ones,
-``launches_5h``), the ``serve`` (5g's ``serve_spec*`` and
-``serve_beam`` and 5h's lines among them), ``train``, seq2seq, LSTM,
-``exec_mlp``, ``exec_text``, ``trainer_lstm``, ``exec_gru``,
-``exec_resnet50``, ``exec_image``, ``trainer_image``,
-``trainer_lstm_recipe`` and ``exec_resnet50_recipe`` lines and, last,
+launches, ``launches_5g``, B1, B2, B4, B6 and B7 their 5h ones,
+``launches_5h``, and B14/B15 bf16 their 6i ones, ``launches_6i``), the
+``serve`` (5g's ``serve_spec*`` and ``serve_beam`` and 5h's lines among
+them), ``train``, seq2seq, LSTM, ``exec_mlp``, ``exec_text``,
+``trainer_lstm``, ``exec_gru``, ``exec_resnet50``, ``exec_image``,
+``trainer_image``, ``trainer_lstm_recipe``, ``exec_resnet50_recipe``
+and ``trainer_lstm_obs`` lines and, last,
 ``{"ok": true, "device": {...}}``. Float32 matmuls run in full float32
 (TF32 off). With no CUDA card it exits non-zero at once.
 """
@@ -4357,6 +4385,14 @@ def _mlp_program(minimize=True):
     return main, start, loss, grads, n_ops
 
 
+def _ops_run(exe, main, fetch_list):
+    """The registry ops a step of ``main`` fetching ``fetch_list`` runs
+    (the Executor's liveness prune keeps what the fetches need)."""
+    live = exe._live(main, [getattr(v, "name", v) for v in fetch_list])
+    return sum(1 for op, keep in zip(main.global_block().ops, live)
+               if keep and op.type != "backward")
+
+
 def _mlp_feeds(n, seed=0):
     """``n`` host batches with a class signal, numpy arrays as a user
     feeds them: the layout of the JAX package's ``datasets/mnist.py``
@@ -4400,8 +4436,9 @@ def exec_mlp(dev, warmup=3, steps=20, k=8):
     ``torch.profiler``."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.core.scope import Scope
-    main, start, loss, grads, n_ops = _mlp_program()
+    main, start, loss, grads, _ = _mlp_program()
     exe = pt.Executor(pt.CUDAPlace(0))
+    n_ops = _ops_run(exe, main, [loss])
     scope = Scope()
     start.random_seed = 0
     exe.run(start, scope=scope)
@@ -4431,7 +4468,8 @@ def exec_mlp(dev, warmup=3, steps=20, k=8):
            f"{loss_list[0]}")
     # the forward alone (its program, the same scope): the host's share
     # of the backward segment and the updates is the difference
-    fwd, _, fwd_loss, _, fwd_ops = _mlp_program(minimize=False)
+    fwd, _, fwd_loss, _, _ = _mlp_program(minimize=False)
+    fwd_ops = _ops_run(exe, fwd, [fwd_loss])
     for f in feeds[:warmup]:
         exe.run(fwd, feed=f, fetch_list=[fwd_loss], scope=scope,
                 return_numpy=False)
@@ -4641,17 +4679,19 @@ def _flagship_net(seq_lens=False):
     return feeds, loss, acc
 
 
-def _lstm_trainer(state=None, seq_lens=False):
+def _lstm_trainer(state=None, seq_lens=False, **trainer_kw):
     """``_flagship_net`` in a ``Trainer`` with ``Adam(TEXT_LR)`` on
-    ``Executor(CUDAPlace(0), amp=True)``; its startup state ``state``
-    (name -> card tensor, copied) or, with None, its startup program's
-    (seed 0)."""
+    ``Executor(CUDAPlace(0), amp=True)`` (and ``trainer_kw``: 6i's
+    ``health=`` / ``numerics=``); its startup state ``state`` (name ->
+    card tensor, copied) or, with None, its startup program's (seed
+    0)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.core.scope import global_scope
     feeds, loss, acc = _flagship_net(seq_lens)
     tr = pt.Trainer(cost=loss, optimizer=pt.optimizer.Adam(TEXT_LR),
                     feed_list=feeds, metrics=[acc],
-                    executor=pt.Executor(pt.CUDAPlace(0), amp=True))
+                    executor=pt.Executor(pt.CUDAPlace(0), amp=True),
+                    **trainer_kw)
     if state is None:
         tr.startup_program.random_seed = 0
         tr._init_params()
@@ -5108,11 +5148,12 @@ def _image_train(kernels, dev, name, bs, warmup, steps, amp=True,
     learning rate fetched at every step, each the piecewise value.
     Returns (record, exe, main, loss, feeds)."""
     import paddle_tpu_torch as pt
-    main, start, loss, _, n_ops = _image_program(name, recipe)
+    main, start, loss, _, _ = _image_program(name, recipe)
     fetch = [loss] + ([_var_named(main, r"learning_rate_\d+")]
                       if recipe else [])
     _, hw, classes, gmacs = IMAGE_MODELS[name]
     exe = pt.Executor(pt.CUDAPlace(0), amp=amp)
+    n_ops = _ops_run(exe, main, fetch)
     start.random_seed = 0
     exe.run(start)
     feeds = _image_feeds(name, bs, dev)
@@ -5968,6 +6009,377 @@ def exec_resnet50_recipe(kernels, dev, resnet_rec):
     return {"exec_resnet50_recipe": rec}
 
 
+# 6i: the training-side observability planes on the flagship: the health
+# monitor, the numerics observatory, Executor(telemetry=) / the Trainer's
+# session with a profile window, and the cost plane's report
+OBS_SAMPLE_EVERY = 8
+OBS_PROFILE = (5, 8)          # batches a <= n < b captured
+OBS_GRAD_NORM_RTOL = 1e-5     # the fetched grad_norm vs a float64 norm
+OBS_PLAIN_FLOPS_RTOL = 0.05   # the plain versions' count vs the kernels'
+OBS_BENCH_RATIO = (0.98, 1.05)  # flops over bench.py's analytic count
+OBS_TURN_BATCHES = 10         # each in-turns run: 3 + this many batches
+
+
+def _bench_lstm_flops():
+    """bench.py's ``_lstm_flops_per_batch`` (:141-146) at TEXT_CFG's
+    widths: 4 gates x (in + hid) x hid MACs a step a layer a sample, 2
+    FLOPs a MAC, backward twice the forward."""
+    H, E = TEXT_CFG["hid_dim"], TEXT_CFG["emb_dim"]
+    return 3 * (8 * H * (E + H) + 8 * H * (H + H)) * TEXT_T * TEXT_B
+
+
+def _ledger_flops():
+    """The FLOPs the card's B14 and B15 note for one flagship step: JAX's
+    ``_lstm_proj_fwd_call`` / ``_lstm_proj_bwd_call`` formulas
+    (``fused_rnn.lstm_proj_*_flops``) over the two layers."""
+    from paddle_tpu_torch.kernels import fused_rnn as fr
+    D = TEXT_CFG["hid_dim"]
+    return sum(f(TEXT_T, TEXT_B, E, D) for E in (TEXT_CFG["emb_dim"], D)
+               for f in (fr.lstm_proj_fwd_flops, fr.lstm_proj_bwd_flops))
+
+
+def _obs_kw(tmp, sample_every=OBS_SAMPLE_EVERY):
+    """6i's Trainer options: health "raise", numerics every
+    ``sample_every`` steps with a calibration store under ``tmp``."""
+    import paddle_tpu_torch as pt
+    return dict(health="raise", numerics=pt.obs.NumericsSpec(
+        sample_every=sample_every, calibration=os.path.join(tmp, "cal")))
+
+
+@contextlib.contextmanager
+def _count_stats():
+    """The ``tensor_stats`` op's invocations while inside (a list, one
+    entry a call)."""
+    from paddle_tpu_torch.framework import registry
+    info = registry.get_op_info("tensor_stats")
+    orig, calls = info.compute, []
+
+    def counted(ins, attrs, ctx):
+        calls.append(1)
+        return orig(ins, attrs, ctx)
+    info.compute = counted
+    try:
+        yield calls
+    finally:
+        info.compute = orig
+
+
+def _planes_run(tr, reader, kernels, uniform, tmp, **kw):
+    """``_trainer_run`` of a planes Trainer under a fresh ``Telemetry``
+    streaming its trace under ``tmp``: (costs, stamps, launches, the
+    session, the tensor_stats calls)."""
+    import paddle_tpu_torch as pt
+    os.makedirs(tmp, exist_ok=True)
+    tel = pt.obs.Telemetry(trace_path=os.path.join(tmp, "trace.jsonl"))
+    with _count_stats() as calls:
+        costs, stamps, launches = _trainer_run(tr, reader, kernels, uniform,
+                                               telemetry=tel, **kw)
+    return costs, stamps, launches, tel, len(calls)
+
+
+def _obs_cost_plane(kernels, fr, state, batch, tmp, card):
+    """Cost plane: ``Executor.cost_report`` on the flagship's plain
+    Trainer program (the kernels, then 4f's plain versions), the scope
+    unchanged, then 9 fenced steps for ``device_mfu``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.obs.costreport import PEAK_BF16_FLOPS
+    tr = _lstm_trainer(state)
+    main, loss = tr.main_program, tr.cost
+    feed = tr.feeder.feed(batch)
+    tel = pt.obs.Telemetry(trace_path=os.path.join(tmp, "cost_trace.jsonl"))
+    exe = pt.Executor(pt.CUDAPlace(0), amp=True, telemetry=tel)
+    scope = Scope()
+    for n, v in state.items():
+        scope.set_tensor(n, v.clone())
+    before = {n: scope.find_var(n).array.clone()
+              for n in scope.local_var_names()}
+    kernels.reset_launches()
+    rep = exe.cost_report(main, feed=feed, fetch_list=[loss], scope=scope)
+    with fr.plain_versions():
+        plain = exe.cost_report(main, feed=feed, fetch_list=[loss],
+                                scope=scope)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    _check(set(scope.local_var_names()) == set(before) and all(
+        torch.equal(scope.find_var(n).array, v) for n, v in before.items()),
+        "trainer_lstm_obs: cost_report changed the scope")
+    ledger, bench = _ledger_flops(), _bench_lstm_flops()
+    _check(rep.flops_kernel == ledger,
+           f"trainer_lstm_obs: flops_kernel {rep.flops_kernel} != the "
+           f"ledger formulas' {ledger}")
+    ratio = rep.flops / bench
+    _check(OBS_BENCH_RATIO[0] <= ratio <= OBS_BENCH_RATIO[1],
+           f"trainer_lstm_obs: flops / bench {ratio}")
+    plain_rel = abs(plain.flops / rep.flops - 1.0)
+    _check(plain.flops_kernel == 0 and plain_rel <= OBS_PLAIN_FLOPS_RTOL,
+           f"trainer_lstm_obs: plain count {plain.flops} (kernel ledger "
+           f"{plain.flops_kernel}) vs the kernels' {rep.flops}")
+    for _ in range(9):   # the first dispatch of the key is its compile
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    series = tel.snapshot()["device_mfu"]["series"]
+    step_ms = tel._device_ms.median()
+    peak = PEAK_BF16_FLOPS["H100"]
+    out = {"flops": rep.flops, "flops_hlo": rep.flops_hlo,
+           "flops_kernel": rep.flops_kernel, "ledger_formulas": ledger,
+           "flops_kernel_equals_ledger": True,
+           "bench_flops_per_batch": bench, "flops_over_bench": ratio,
+           "plain_flops": plain.flops, "plain_rel_diff": plain_rel,
+           "op_kinds": rep.to_dict()["op_kinds"],
+           "argument_bytes": rep.argument_bytes,
+           "output_bytes": rep.output_bytes, "temp_bytes": rep.temp_bytes,
+           "scope_bit_equal": True, "fenced_steps": 8,
+           "device_step_ms_p50": step_ms,
+           "device_mfu_gauge": series.get("run", {}).get("value"),
+           "device_mfu_at_p50": rep.flops_per_step / (step_ms / 1e3) / peak,
+           "bench_mfu_at_p50": bench / (step_ms / 1e3) / peak,
+           "card": card}
+    tel.close()
+    del exe, scope, tr
+    return out
+
+
+def _nan_trainer(place, state=None, tel=None):
+    """bench.py's MNIST MLP (784-128-64-10, ``Adam(MLP_LR)``) in a
+    ``Trainer`` with health "warn" and numerics every step, on ``place``:
+    the startup program's state (seed 0) or ``state`` copied."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import global_scope, reset_global_scope
+    from paddle_tpu_torch.framework import program as prog
+    from paddle_tpu_torch.models import mnist
+    prog.fresh_programs()
+    reset_global_scope()
+    img = pt.layers.data("img", [MLP_DIM])
+    label = pt.layers.data("label", [1], dtype="int64")
+    _, loss, acc = mnist.mlp(img, label)
+    tr = pt.Trainer(cost=loss, optimizer=pt.optimizer.Adam(MLP_LR),
+                    feed_list=[img, label], metrics=[acc], place=place,
+                    health="warn",
+                    numerics=pt.obs.NumericsSpec(sample_every=1))
+    if state is None:
+        tr.startup_program.random_seed = 0
+        tr._init_params()
+    else:
+        for n, v in state.items():
+            global_scope().set_tensor(n, v.to(place.device, copy=True))
+        tr._initialized = True
+    return tr
+
+
+def _planted_nan(tmp, card):
+    """The MLP over 3 batches of 64 whose last holds one image with a
+    NaN, on the card under a ``Telemetry`` with its flight recorder, and
+    the same on the CPU from the same startup state: one trip, the same
+    NaN origin, the bundle's files, the alert's annotation."""
+    import warnings
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import global_scope
+    feeds = _mlp_feeds(3, seed=5)
+    feeds[-1]["img"][7, 123] = np.nan
+    samples = [(f["img"][i], int(f["label"][i, 0]))
+               for f in feeds for i in range(MLP_B)]
+    reader = pt.reader.batch(lambda: iter(samples), MLP_B)
+    tel = pt.obs.Telemetry(
+        trace_path=os.path.join(tmp, "nan_trace.jsonl"),
+        flight=pt.obs.FlightRecorder(os.path.join(tmp, "flight"),
+                                     install_signal=False))
+    tr = _nan_trainer(pt.CUDAPlace(0))
+    state = {n: global_scope().find_var(n).array.clone()
+             for n in global_scope().local_var_names()}
+    verdicts = {}
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        tr.train(reader, telemetry=tel, log_period=0)
+        torch.cuda.synchronize()
+        verdicts["card"] = tr.numerics.origin
+        cpu = _nan_trainer(pt.CPUPlace(), state)
+        cpu.train(reader, log_period=0)
+        verdicts["cpu"] = cpu.numerics.origin
+    trips = [r for r in tel.tracer.records if r.get("name") == "health_trip"]
+    _check(len(trips) == 1, f"trainer_lstm_obs: {len(trips)} health trips")
+    keys = ("found", "op_index", "op_type", "var", "nonfinite_count")
+    got = {k: verdicts["card"].get(k) for k in keys}
+    _check(got["found"] and got == {k: verdicts["cpu"].get(k) for k in keys},
+           f"trainer_lstm_obs: NaN origin on the card {verdicts['card']} "
+           f"vs the CPU {verdicts['cpu']}")
+    bundle = tel.flight.dumps[0] if tel.flight.dumps else ""
+    files = sorted(os.listdir(bundle)) if bundle else []
+    _check("failing_feed.npz" in files and "numerics.json" in files,
+           f"trainer_lstm_obs: the trip's bundle holds {files}")
+    alert = [a for a in tel.alerts.active()
+             if a.get("alertname") == "nonfinite_grads"]
+    op = f"#{got['op_index']} {got['op_type']}"
+    _check(bool(alert) and alert[0].get("annotations", {}).get(
+        "nan_origin_op") == op,
+        f"trainer_lstm_obs: the nonfinite_grads alert {alert}")
+    tel.close()
+    return {"widths": [MLP_DIM, 128, 64, 10], "batch": MLP_B,
+            "batches": len(feeds), "nan_at": [len(feeds) - 1, 7, 123],
+            "health_trips": 1, "warnings": len(
+                [x for x in w if "non-finite" in str(x.message)]),
+            "nan_origin": got, "equals_cpu_verdict": True,
+            "bundle_files": files, "alert_annotation": op, "card": card}
+
+
+def trainer_lstm_obs(kernels, fr, dev, card, warmup=3, steps=20, k=8,
+                     groups=3):
+    """Phase 6i (``trainer_lstm_obs``), as the module docstring sets
+    out."""
+    import itertools
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import Scope, global_scope
+    from paddle_tpu_torch.obs.costreport import PEAK_BF16_FLOPS
+    from paddle_tpu_torch.obs.profiler import (measured_vs_modeled,
+                                               parse_device_trace)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    uniform = _lstm_route_names(dev, True, True)
+    tr = _lstm_trainer()                    # 6c's startup state (seed 0)
+    state = {n: global_scope().find_var(n).array.clone()
+             for n in global_scope().local_var_names()}
+    reader = _uniform_batches(warmup + steps, seed=3)
+    greader = _uniform_batches(k * groups, seed=4)
+    rec = {"batch": [TEXT_B, TEXT_T], "widths": TEXT_CFG, "amp": True,
+           "health": "raise", "sample_every": OBS_SAMPLE_EVERY,
+           "profile_steps": list(OBS_PROFILE), "card": card}
+    # K = 1, plain (6c's Trainer) and planes; their costs bit-equal
+    plain, _, _ = _trainer_run(_lstm_trainer(state), reader, kernels,
+                               uniform)
+    tr = _lstm_trainer(state, **_obs_kw(tmp))
+    cap = os.path.join(tmp, "capture")
+    costs, stamps, launches, tel, n_stats = _planes_run(
+        tr, reader, kernels, uniform, os.path.join(tmp, "k1"),
+        profile_steps=OBS_PROFILE, profile_dir=cap)
+    _check(costs == plain, f"trainer_lstm_obs: planes costs {costs[:3]} vs "
+           f"the plain Trainer's {plain[:3]}")
+    mon = tr.numerics
+    n_t = len(mon.targets)
+    _check(mon.samples == 3 and n_stats == 3 * n_t,
+           f"trainer_lstm_obs: {mon.samples} sampled steps, {n_stats} "
+           f"tensor_stats calls over {n_t} targets (want 3 and {3 * n_t})")
+    snap = tel.snapshot()
+    prof = parse_device_trace(cap, program="run")
+    counts = prof.event_counts if prof is not None else {}
+    window = {sub: sum(c for name, c in counts.items() if sub in name)
+              for sub in ("lstm_cluster_fwd_kernel",
+                          "lstm_cluster_bwd_kernel")}
+    n_win = OBS_PROFILE[1] - OBS_PROFILE[0]
+    _check(all(v == 2 * n_win for v in window.values()),
+           f"trainer_lstm_obs: capture window counts {window}, want "
+           f"{2 * n_win} each")
+    join = measured_vs_modeled(prof, report=tel.cost_reports.get("run"),
+                               peak_flops=PEAK_BF16_FLOPS["H100"])
+    rec["k1"] = {
+        "batches": len(costs), "launches": launches,
+        "costs_bit_equal_plain_trainer": True,
+        "ms_per_batch_p50": _batch_ms(stamps, warmup),
+        "numerics_targets": n_t, "sampled_steps": mon.samples,
+        "tensor_stats_calls": n_stats,
+        "unsampled_steps_tensor_stats_calls": 0,
+        "grad_norm_last": tr.health.last["grad_norm"],
+        "update_ratio_last": tr.health.last["update_ratio"],
+        "jit_compiles": snap["jit_compiles_total"]["series"][""]["value"],
+        "jit_cache_hits": snap["jit_cache_hits_total"]["series"][""][
+            "value"],
+        "device_step_ms_p50": tel._device_ms.median(),
+        "device_mfu_gauge": snap.get("device_mfu", {}).get(
+            "series", {}).get("run", {}).get("value"),
+        "calibration_entries": len(mon.store.entries()),
+        "capture_window_events": window,
+        "measured_mfu": join["measured_mfu"],
+        "model_agreement_ratio": join["model_agreement_ratio"],
+        "capture_device_ms_per_step": join["device_ms_per_step"],
+        "capture_idle_frac": join["idle_frac"]}
+    tel.close()
+    # K = 8, 3 groups, plain and planes
+    gplain, _, _ = _trainer_run(_lstm_trainer(state), greader, kernels,
+                                uniform, steps_per_call=k)
+    tr = _lstm_trainer(state, **_obs_kw(tmp))
+    gcosts, gstamps, glaunch, tel, g_stats = _planes_run(
+        tr, greader, kernels, uniform, os.path.join(tmp, "k8"),
+        steps_per_call=k)
+    _check(gcosts == gplain, f"trainer_lstm_obs: K={k} planes costs "
+           f"{gcosts[:3]} vs plain {gplain[:3]}")
+    _check(tr.numerics.samples == k * groups
+           and g_stats == k * groups * n_t,
+           f"trainer_lstm_obs: K={k} {tr.numerics.samples} sampled rows, "
+           f"{g_stats} tensor_stats calls")
+    rec[f"k{k}"] = {"batches": len(gcosts), "groups": groups,
+                    "launches": glaunch, "costs_bit_equal_plain_trainer":
+                    True, "ms_per_batch_p50": _batch_ms(gstamps, 1, per=k),
+                    "sampled_rows": tr.numerics.samples,
+                    "tensor_stats_calls": g_stats,
+                    "megastep_k": tel.snapshot()["megastep_k"]["series"][
+                        ""]["value"]}
+    tel.close()
+    # one device-to-host copy a step, sampled steps and not
+    tr = _lstm_trainer(state, **_obs_kw(tmp, sample_every=2))
+    batches = list(itertools.islice(reader(), 5))
+    rec["profile"] = _profile(
+        [lambda b=b: tr.train_one_batch(b) for b in batches],
+        named=("lstm_cluster_fwd_kernel", "lstm_cluster_bwd_kernel"))
+    _check(rec["profile"]["dtoh_copies_per_step"] == 1.0,
+           "trainer_lstm_obs: device-to-host copies a step "
+           f"{rec['profile']['dtoh_copies_per_step']}")
+    kernels.reset_launches()
+    # the fetched grad_norm of a checking step vs a float64 norm of the
+    # same step's gradients
+    params = [p.name for p in tr.main_program.global_block()
+              .all_parameters()]
+    scope = Scope()
+    for n, v in state.items():
+        scope.set_tensor(n, v.clone())
+    got = pt.Executor(pt.CUDAPlace(0), amp=True).run(
+        tr.main_program, feed=tr.feeder.feed(batches[0]), scope=scope,
+        fetch_list=[tr._health_var] + [n + "@GRAD" for n in params],
+        return_numpy=False)
+    gn = float(got[0].array[0])
+    ref = float(torch.linalg.vector_norm(torch.cat(
+        [g.array.double().flatten() for g in got[1:]])))
+    _check(abs(gn - ref) <= OBS_GRAD_NORM_RTOL * ref,
+           f"trainer_lstm_obs: grad_norm {gn} vs {ref}")
+    rec["grad_norm_check"] = {"fetched": gn, "float64": ref,
+                              "rel_err": abs(gn - ref) / ref,
+                              "rtol": OBS_GRAD_NORM_RTOL}
+    kernels.reset_launches()
+    del scope, got, tr
+    # the cost plane
+    rec["cost_plane"] = _obs_cost_plane(kernels, fr, state, batches[0], tmp,
+                                        card)
+    # ms a batch, plain and planes in turns (host-bound: a finding)
+    turns = {"plain": [], "planes": []}
+    treader = _uniform_batches(warmup + OBS_TURN_BATCHES, seed=6)
+    for i, side in enumerate(("plain", "planes", "planes", "plain")):
+        if side == "plain":
+            _, st, _ = _trainer_run(_lstm_trainer(state), treader, kernels,
+                                    uniform)
+        else:
+            _, st, _, tel, _ = _planes_run(
+                _lstm_trainer(state, **_obs_kw(tmp)), treader, kernels,
+                uniform, os.path.join(tmp, f"turn{i}"))
+            tel.close()
+        turns[side].append(_batch_ms(st, warmup))
+    rec["ms_per_batch_in_turns"] = turns
+    rec["planes_over_plain"] = (float(np.mean(turns["planes"]))
+                                / float(np.mean(turns["plain"])))
+    # a planted NaN in the MLP
+    rec["planted_nan"] = _planted_nan(tmp, card)
+    kernels.reset_launches()
+    shutil.rmtree(tmp)
+    c = rec["cost_plane"]
+    _say(f"trainer_lstm_obs: costs bit-equal at K=1 and K={k}; flops "
+         f"{c['flops']:.6e} (ledger {c['flops_kernel']:.6e}) / bench "
+         f"{c['flops_over_bench']:.4f}; device_mfu {c['device_mfu_gauge']} "
+         f"vs bench {c['bench_mfu_at_p50']:.4f} at "
+         f"{c['device_step_ms_p50']:.3f} ms; ms a batch plain "
+         f"{turns['plain']} planes {turns['planes']}; {card}")
+    _release()
+    return {"trainer_lstm_obs": rec}
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke of the port.")
@@ -6514,6 +6926,15 @@ def main(argv=None):
     _release()
     _say(f"recipe phases done at {time.perf_counter() - t0:.1f} s")
 
+    # 6i: the training-side observability planes on the flagship: health,
+    # numerics, the Executor's and the Trainer's telemetry, the cost plane
+    torch.cuda.empty_cache()
+    obs_rec = trainer_lstm_obs(kernels, fr, dev, card)
+    for name in LSTM_PROJ + tuple(LSTM_PASSES):
+        llanes[torch.bfloat16][name]["launches_6i"] = obs_rec[
+            "trainer_lstm_obs"]["k1"]["launches"].get(name, 0)
+    _say(f"observability phases done at {time.perf_counter() - t0:.1f} s")
+
     _say(json.dumps(prec))
     _say(json.dumps(pqrec))
     _say(json.dumps(pwrec))
@@ -6567,6 +6988,7 @@ def main(argv=None):
     _say(json.dumps(trainer_image_rec))
     _say(json.dumps(recipe_rec))
     _say(json.dumps(resnet_recipe_rec))
+    _say(json.dumps(obs_rec))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

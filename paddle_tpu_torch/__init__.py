@@ -32,6 +32,18 @@ JAX package's on-disk format)::
                          feed_list=[x, label], place=pt.CUDAPlace(0))
     trainer.train(pt.reader.batch(sample_reader, 64), num_passes=1)
 
+The observability planes (``obs``): ``Telemetry`` sessions for the
+Executor, the Trainer and the decode engine, the training health
+monitor (``Trainer(health=)``), the numerics observatory
+(``Trainer(numerics=pt.obs.NumericsSpec(...))``), the cost plane
+(``Executor.cost_report``, a ``CostReport`` with the hand-written
+kernels' FLOPs ledger), the profiler, alerts and the flight recorder::
+
+    tel = pt.obs.Telemetry(trace_path="trace.jsonl")
+    trainer = pt.Trainer(..., health="warn",
+                         numerics=pt.obs.NumericsSpec(sample_every=8))
+    trainer.train(reader, telemetry=tel, profile_steps=(5, 8))
+
 The other slices so far are generative serving: ``serving.DecodeEngine``
 with chunked or whole-prompt prefill and continuous or static admission
 over a block-paged KV cache (float32, bfloat16, or int8 / fp8-e4m3 with
@@ -61,7 +73,7 @@ from paddle_tpu_torch.framework.program import (Program,
                                                 default_startup_program,
                                                 program_guard)
 from paddle_tpu_torch import (datasets, event, initializer, io, layers,
-                              lr_scheduler, nets, optimizer, reader,
+                              lr_scheduler, nets, obs, optimizer, reader,
                               regularizer)
 from paddle_tpu_torch.data_feeder import DataFeeder
 from paddle_tpu_torch.param_attr import ParamAttr
@@ -71,5 +83,5 @@ __all__ = ["CPUPlace", "CUDAPlace", "DataFeeder", "Executor", "LoD",
            "LoDTensor", "ParamAttr", "Program", "Scope", "Trainer",
            "datasets", "default_main_program", "default_startup_program",
            "event", "initializer", "io", "layers", "lr_scheduler", "nets",
-           "optimizer", "program_guard", "reader", "regularizer",
+           "obs", "optimizer", "program_guard", "reader", "regularizer",
            "resolve_device"]

@@ -22,9 +22,8 @@ class EndPass(Event):
                  telemetry=None):
         self.pass_id = pass_id
         self.evaluator_results = evaluator_results or {}
-        # the per-pass telemetry rollup of the JAX package's obs session;
-        # the port's Trainer takes no telemetry yet (ROADMAP A5, A item
-        # 2), so it stays None
+        # the per-pass rollup of the Trainer's telemetry session
+        # (``Telemetry.pass_rollup``), None without one
         self.telemetry = telemetry
 
 

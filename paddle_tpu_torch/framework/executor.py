@@ -21,19 +21,44 @@ A random op gets a ``torch.Generator`` on the Place's device seeded
 from (seed, step, op index): the ``seed`` flag, or a program's
 ``random_seed``, consumed by the next run as in the JAX package.
 
+A step runs only the ops its fetch set needs: a liveness prune keyed on
+(program, version, fetch set), computed once per key, keeps every op
+whose outputs a fetch or a kept op reads, every op that writes a
+persistable and every pseudo-op. It is the eager counterpart of XLA's
+dead-code elimination of the JAX Executor's jitted block, which the
+numerics observatory relies on (a step that does not fetch the stats
+runs no ``tensor_stats`` op); the kept ops give the values they would
+give in a full pass, and each random op keeps its (seed, step, op
+index) stream.
+
+``telemetry=`` (an ``obs.Telemetry``, or True for a default session)
+wires the JAX Executor's hooks: a dispatch counted per ``run`` /
+``run_multi`` (``record_dispatch``; ``record_megastep(K)``), the entry
+cache's hit or miss on the JAX key (program and version, for_test, the
+feed signature with LoD, the state signature, the fetch set, K) with
+the program's fingerprint on a miss, the first dispatch of a key billed
+as ``compile_span`` and counted into a ``CostReport``
+(``obs/costreport.py``) when the session's ``collect_hlo`` is on, during
+that same real step, and every later one under ``step_span`` (fenced on
+the card's stream) inside a ``step_annotation``. ``cost_report`` counts
+one step (or K) on a clone of the scope's state, writing nothing back;
+``scan_ops`` replays the forward op by op for ``bisect_nan_origin``.
+
 Options of the JAX Executor:
-- ``interpret``, ``donate`` and ``cache_size`` mean nothing here (every
-  run is eager, no buffer is aliased between a step's input and output,
-  and nothing is compiled to cache); they are accepted and ignored.
-- ``telemetry=`` needs the Executor's hooks into ``obs.Telemetry``
-  (ROADMAP A5's training-side planes, A item 2), ``validate=True`` A10's
-  static verifier and ``compile_cache=`` (or the ``compile_cache_dir``
-  flag) A11's store: each raises ``NotImplementedError`` naming it, as
-  do ``static_rnn``, ``while`` and ``conditional_block`` (A8) and
-  ``prepare_infer(quant_plan=...)`` (A10).
+- ``interpret`` and ``donate`` mean nothing here (every run is eager,
+  and no buffer is aliased between a step's input and output);
+  ``cache_size`` bounds the entry bookkeeping the telemetry hooks
+  count against, as it bounds the JAX Executor's compiled entries.
+- ``validate=True`` needs A10's static verifier and ``compile_cache=``
+  (or the ``compile_cache_dir`` flag) A11's store: each raises
+  ``NotImplementedError`` naming it, as do ``static_rnn``, ``while`` and
+  ``conditional_block`` (A8) and ``prepare_infer(quant_plan=...)``
+  (A10).
 """
 from __future__ import annotations
 
+import weakref
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -82,6 +107,17 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _nbytes(tensors) -> int:
+    return sum(int(t.numel()) * t.element_size() for t in tensors
+               if torch.is_tensor(t))
+
+
+def _fence(device) -> None:
+    """Wait for the card's current stream (nothing on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def _written(program: Program) -> List[str]:
     """The persistables the program's ops write (they may have no value
     in the scope yet, e.g. the startup program's)."""
@@ -105,15 +141,24 @@ class InferSession:
         self.program = program
         self.fetch_names = tuple(_names(fetch_list))
         self._state = executor._gather_state(program, scope)
+        self._entries: "OrderedDict[tuple, list]" = OrderedDict()
 
     def run(self, feed: Dict[str, Any]) -> List[torch.Tensor]:
         """One inference run against the pinned state. Returns the
         fetches as tensors on the device (nothing is read back). Fetches
-        that carry LoD are not taken: serving outputs are batch-major."""
+        that carry LoD are not taken: serving outputs are batch-major.
+        With the Executor's telemetry on, a dispatch of kind ``infer``
+        against the session's own entries (keyed on the feed
+        signature), as the JAX session's."""
         exe = self.executor
+        feed = exe._normalise_feed(self.program, feed)
         exe._step_ctr += 1
-        env, lod_env = exe._run_step(self.program, self._state, feed,
-                                     exe._step_ctr)
+        step = exe._step_ctr
+        env, lod_env = exe._dispatch(
+            self.program, "infer", 1, exe._feed_signature(feed),
+            lambda: exe._run_step(self.program, self._state, feed, step,
+                                  self.fetch_names),
+            self._state, feed, self.fetch_names, entries=self._entries)
         lod_fetches = [n for n in self.fetch_names if lod_env.get(n)]
         if lod_fetches:
             raise NotImplementedError(
@@ -140,15 +185,14 @@ class Executor:
         None is ``default_place()``, the card, which raises without one.
         ``amp``: bf16 compute on ``amp_compute`` ops (matmuls and the
         LSTM recurrences) over fp32 masters (None: the ``amp`` flag).
-        ``cache_size``, ``interpret`` and ``donate``: accepted and
-        ignored (every run is eager; nothing is cached or aliased).
-        ``telemetry``, ``validate`` and ``compile_cache`` raise, naming
-        the ROADMAP item that ports what they need."""
-        if telemetry:
-            raise NotImplementedError(
-                "Executor(telemetry=...): the Executor's telemetry hooks "
-                "(dispatch spans, the cost and goodput planes) are not "
-                "wired yet (ROADMAP A5, A item 2)")
+        ``telemetry``: an ``obs.Telemetry`` session, or True for a
+        default one (the module docstring lists its hooks); None is the
+        off switch, one attribute read a dispatch. ``cache_size``: the
+        entries the telemetry hooks' cache bookkeeping keeps (None: the
+        ``executor_cache_size`` flag). ``interpret`` and ``donate``:
+        accepted and ignored (every run is eager; nothing is aliased).
+        ``validate`` and ``compile_cache`` raise, naming the ROADMAP
+        item that ports what they need."""
         if validate:
             raise NotImplementedError(
                 "Executor(validate=True) needs the static verifier "
@@ -165,6 +209,18 @@ class Executor:
         self.amp = bool(FLAGS.amp if amp is None else amp)
         self._seed = int(FLAGS.seed)
         self._step_ctr = 0
+        self.telemetry = None
+        if telemetry:
+            from paddle_tpu_torch.obs.telemetry import Telemetry
+            self.telemetry = Telemetry.ensure(telemetry)
+        self._cache_size = int(FLAGS.executor_cache_size
+                               if cache_size is None else cache_size)
+        # entry key -> [program, not dispatched yet]: the JAX Executor's
+        # compiled-entry cache, as the telemetry hooks count it (the
+        # program is held, as a JAX entry's closure holds it)
+        self._entries: "OrderedDict[tuple, list]" = OrderedDict()
+        # program -> {(version, fetch set): live op flags}
+        self._live_cache = weakref.WeakKeyDictionary()
 
     # ------------------------------------------------------------------
     def run(
@@ -186,9 +242,13 @@ class Executor:
         fetch_names = _names(fetch_list)
         self._consume_seed(program)
         state = self._gather_state(program, scope)
+        feed = self._normalise_feed(program, feed or {})
         self._step_ctr += 1
-        env, lod_env = self._run_step(program, state, feed or {},
-                                      self._step_ctr)
+        step = self._step_ctr
+        env, lod_env = self._dispatch(
+            program, "run", 1, self._feed_signature(feed),
+            lambda: self._run_step(program, state, feed, step, fetch_names),
+            state, feed, fetch_names)
         fetches = self._fetch(env, fetch_names)
         for n in _written(program):
             if n in env:
@@ -236,10 +296,31 @@ class Executor:
                 f"run_multi: program writes persistable var(s) {missing} "
                 "that have no value in the scope yet — run the startup "
                 "program (or one single-step run()) first")
+        K, step0 = len(steps), self._step_ctr + 1
+        if self.telemetry is not None:
+            self.telemetry.record_megastep(K)
+        stacked = self._dispatch(
+            program, "run_multi", K,
+            self._feed_signature(steps[0]) + (("multi", K),),
+            lambda: self._multi_steps(program, state, steps, fetch_names,
+                                      step0, written),
+            state, steps[0], fetch_names)
+        self._step_ctr += K
+        for n in written:
+            scope.set_tensor(n, state[n])
+        if return_numpy:
+            return [_to_numpy(t) for t in stacked]
+        return stacked
+
+    def _multi_steps(self, program, state, steps, fetch_names, step0,
+                     written):
+        """``run_multi``'s K steps over ``state`` (updated in place with
+        each step's written persistables): the fetches stacked
+        step-major."""
         fetched = []
         for i, feed in enumerate(steps):
-            env, lod_env = self._run_step(program, state, feed,
-                                          self._step_ctr + 1 + i)
+            env, lod_env = self._run_step(program, state, feed, step0 + i,
+                                          fetch_names)
             if i == 0:
                 lod_fetches = [n for n in fetch_names if lod_env.get(n)]
                 if lod_fetches:
@@ -249,14 +330,8 @@ class Executor:
             fetched.append([t.detach() for t in self._fetch(env,
                                                             fetch_names)])
             state.update({n: env[n].detach() for n in written if n in env})
-        self._step_ctr += len(steps)
-        for n in written:
-            scope.set_tensor(n, state[n])
-        stacked = [torch.stack([f[j] for f in fetched])
-                   for j in range(len(fetch_names))]
-        if return_numpy:
-            return [_to_numpy(t) for t in stacked]
-        return stacked
+        return [torch.stack([f[j] for f in fetched])
+                for j in range(len(fetch_names))]
 
     def warm(self, program: Optional[Program] = None,
              feed: Optional[Dict[str, Any]] = None,
@@ -286,7 +361,208 @@ class Executor:
         return InferSession(self, program or default_main_program(),
                             list(fetch_list or []), scope)
 
+    def cost_report(self, program: Optional[Program] = None,
+                    feed: Optional[Dict[str, Any]] = None,
+                    fetch_list: Optional[Sequence] = None,
+                    scope: Optional[Scope] = None,
+                    feeds: Optional[Any] = None,
+                    feed_lods: Optional[Dict[str, LoD]] = None):
+        """The ``CostReport`` of one dispatch (``obs/costreport.py``):
+        ``feed`` counts one ``run`` step (kind "run"), ``feeds`` (as
+        ``run_multi`` takes them, per-step LoD in ``feed_lods``) its K
+        steps (kind "run_multi"). The JAX Executor compiles without
+        executing; the port counts a real step, on a clone of the
+        scope's state, and writes nothing back (the scope, the step
+        counter and the seed stay as they were). With a telemetry
+        session the report is recorded there too, and the call counts
+        against the entry cache as the JAX one does (a first call is a
+        miss, and the key's first dispatch is still billed as its
+        compile)."""
+        if (feed is None) == (feeds is None):
+            raise ValueError("cost_report: pass exactly one of feed= "
+                             "(single step) or feeds= (stacked K-step)")
+        program = program or default_main_program()
+        scope = scope or global_scope()
+        fetch_names = _names(fetch_list)
+        state = {n: t.clone() for n, t in
+                 self._gather_state(program, scope).items()}
+        if feeds is not None:
+            kind = "run_multi"
+            steps = self._split_feeds(program, feeds, feed_lods)
+            sig = self._feed_signature(steps[0]) + (("multi", len(steps)),)
+        else:
+            kind = "run"
+            steps = [self._normalise_feed(program, feed)]
+            sig = self._feed_signature(steps[0])
+        if self.telemetry is not None:
+            self._entry(program, sig, state, fetch_names)
+        step0, written = self._step_ctr + 1, _written(program)
+        _, report = self._counted(
+            program, kind, len(steps),
+            lambda: self._multi_steps(program, state, steps, fetch_names,
+                                      step0, written),
+            state, steps[0], fetch_names)
+        if self.telemetry is not None:
+            self.telemetry.record_cost_report(report)
+        return report
+
+    def scan_ops(self, program: Optional[Program] = None,
+                 feed: Optional[Dict[str, Any]] = None,
+                 scope: Optional[Scope] = None,
+                 on_op=None,
+                 stop_at: str = "backward",
+                 is_test: bool = False,
+                 sanitize_state: bool = False):
+        """Replay the program's global-block ops one at a time, calling
+        ``on_op(i, op, env)`` after each — the forward-scan primitive
+        behind NaN-origin bisection (obs/numerics.py): each op's output
+        is a tensor the observer can inspect for nonfinites.
+
+        Stops BEFORE the first op of type ``stop_at`` (default the
+        ``backward`` pseudo-op: everything later operates on gradients).
+        Reads feed + live scope state under ``no_grad``, writes nothing
+        back — a pure diagnostic replay, with the random ops' streams of
+        the current step. Returns the final env dict.
+
+        ``sanitize_state``: repair nonfinite STATE values before the
+        replay (NaN → 0, ±Inf clamped to the dtype's finite max). A
+        nonfinite training step has already written poisoned parameters
+        back to the scope by the time its health trip is handled, and
+        replaying against NaN weights would blame the first matmul;
+        repaired state lets a data-dependent blowup (log(0), overflow)
+        reproduce at its true origin."""
+        program = program or default_main_program()
+        scope = scope or global_scope()
+        env, lod_env = self._normalise_feed(program, feed or {})
+        for n, t in self._gather_state(program, scope).items():
+            if sanitize_state and t.is_floating_point():
+                t = torch.nan_to_num(t)
+            env[n] = t
+        ops = program.global_block().ops
+        for i, op in enumerate(ops):
+            if op.type == stop_at:
+                ops = ops[:i]
+                break
+        with torch.no_grad():
+            self._run_ops(ops, 0, env, lod_env, self._step_ctr, is_test,
+                          on_op=on_op)
+        return env
+
     # ------------------------------------------------------------------
+    def _feed_signature(self, feed) -> tuple:
+        """A normalised feed's (name, shape, dtype, LoD) signature."""
+        vals, lods = feed
+        return tuple((n, tuple(t.shape), t.dtype,
+                      _lod_signature(lods.get(n)))
+                     for n, t in sorted(vals.items()))
+
+    def _entry(self, program: Program, sig: tuple, state, fetch_names,
+               entries=None) -> list:
+        """The entry of (program, version, for_test, ``sig``, the state
+        signature, the fetch set) in ``entries`` (the Executor's): a hit
+        or a miss counted into the telemetry session, the program's
+        fingerprint recorded on a miss, LRU over ``cache_size``."""
+        tel = self.telemetry
+        entries = self._entries if entries is None else entries
+        key = (id(program), program._version, program.for_test, sig,
+               tuple((n, tuple(t.shape), t.dtype)
+                     for n, t in sorted(state.items())),
+               tuple(fetch_names))
+        entry = entries.get(key)
+        if entry is not None and entry[0] is program:
+            entries.move_to_end(key)
+            tel.record_cache(hit=True)
+            return entry
+        entry = entries[key] = [program, True]
+        while len(entries) > self._cache_size:
+            entries.popitem(last=False)
+        tel.record_cache(hit=False)
+        mode = "test" if program.for_test else "main"
+        tel.record_program_fingerprint(
+            f"{mode}:{id(program):#x}:v{program._version}",
+            program.fingerprint())
+        return entry
+
+    def _dispatch(self, program: Program, kind: str, steps: int,
+                  sig: tuple, run, state, feed, fetch_names, entries=None):
+        """``run()``, one dispatch of ``steps`` steps, with the telemetry
+        hooks when a session is on: the first dispatch of an entry
+        billed as its compile (and counted into a ``CostReport`` when
+        the session's ``collect_hlo`` is on), every later one fenced
+        under ``step_span``. Off, one branch around the call."""
+        tel = self.telemetry
+        if tel is None:
+            return run()
+        entry = self._entry(program, sig, state, fetch_names, entries)
+        tel.record_dispatch(kind, steps)
+        if entry[1]:
+            entry[1] = False
+            with tel.compile_span(kind):
+                if tel.collect_hlo:
+                    out, report = self._counted(program, kind, steps, run,
+                                                state, feed, fetch_names)
+                    tel.record_cost_report(report)
+                else:
+                    out = run()
+                _fence(self._device)
+            return out
+        from paddle_tpu_torch.obs.profiler import step_annotation
+        with tel.step_span(kind, steps) as holder:
+            with step_annotation(kind, tel._steps.value):
+                out = run()
+            holder["block_on"] = out
+        return out
+
+    def _counted(self, program: Program, kind: str, steps: int, run,
+                 state, feed, fetch_names):
+        """``run()`` (one dispatch: one step's ``(env, lods)``, or K steps'
+        stacked fetches with ``state`` threaded) under the cost plane's
+        counter: ``(its result, the dispatch's CostReport)``, arguments
+        the state and ``feed``'s values, outputs the fetches and the
+        written persistables."""
+        from paddle_tpu_torch.obs import costreport as _costreport
+        args = _nbytes(state.values()) + _nbytes(feed[0].values())
+        with _costreport.count_step(self._device) as counted:
+            out = run()
+        written = _written(program)
+        if isinstance(out, tuple):
+            env = out[0]
+            outs = _nbytes(env[n] for n in {*fetch_names, *written}
+                           if n in env)
+        else:
+            outs = _nbytes(out) + _nbytes(state[n] for n in written
+                                          if n in state)
+        temp = max(0, counted["peak_alloc"] - counted["alloc_before"]
+                   - outs) if counted["peak_alloc"] else 0
+        return out, _costreport.harvest_cost_report(
+            counted["op_flops"], program=kind, steps=steps,
+            kernel_flops=counted["kernel_flops"],
+            kernel_notes=counted["kernel_notes"], argument_bytes=args,
+            output_bytes=outs, temp_bytes=temp)
+
+    def _live(self, program: Program, fetch_names) -> List[bool]:
+        """Which ops of the global block a step fetching
+        ``fetch_names`` runs (the module docstring's liveness prune),
+        once per (program, version, fetch set)."""
+        per = self._live_cache.setdefault(program, {})
+        key = (program._version, tuple(fetch_names))
+        live = per.get(key)
+        if live is not None:
+            return live
+        block = program.global_block()
+        persist = {n for n, v in block.vars.items() if v.persistable}
+        need = set(fetch_names)
+        live = [False] * len(block.ops)
+        for i in range(len(block.ops) - 1, -1, -1):
+            op = block.ops[i]
+            if (op.type in Block.PSEUDO_OPS or op.type in _CONTROL_FLOW
+                    or any(n in need or n in persist
+                           for n in op.output_names())):
+                live[i] = True
+                need.update(op.input_names())
+        per[key] = live
+        return live
+
     def _consume_seed(self, program: Program):
         if program.random_seed is not None:
             self._seed = int(program.random_seed)
@@ -373,11 +649,14 @@ class Executor:
                     "(bucket the reader)")
         return steps
 
-    def _run_step(self, program: Program, state, feed, step: int):
+    def _run_step(self, program: Program, state, feed, step: int,
+                  fetch_names=None):
         """One pass of the program's block over ``state`` (name ->
         device tensor) and ``feed`` (a dict as ``run`` takes it, or the
-        (values, lods) pair ``_split_feeds`` makes): returns the final
-        environment and the LoD of each variable that has one."""
+        (values, lods) pair ``_normalise_feed`` makes), running the ops a
+        step fetching ``fetch_names`` needs (``_live``; None: every op):
+        returns the final environment and the LoD of each variable that
+        has one."""
         if isinstance(feed, tuple):
             feed_vals, feed_lods = feed
         else:
@@ -387,10 +666,12 @@ class Executor:
         lod_env = dict(feed_lods)
         is_test = program.for_test
         ops = program.global_block().ops
+        live = (None if fetch_names is None
+                else self._live(program, fetch_names))
         at = next((i for i, op in enumerate(ops) if op.type == "backward"),
                   None)
         if at is None:
-            self._run_ops(ops, 0, env, lod_env, step, is_test)
+            self._run_ops(ops, 0, env, lod_env, step, is_test, live)
             return env, lod_env
         bwd = ops[at]
         loss_name = bwd.attrs["loss_name"]
@@ -400,7 +681,7 @@ class Executor:
             for n in param_names:
                 leaves.append(env[n].detach().requires_grad_(True))
                 env[n] = leaves[-1]
-            self._run_ops(ops[:at], 0, env, lod_env, step, is_test)
+            self._run_ops(ops[:at], 0, env, lod_env, step, is_test, live)
             loss = env[loss_name]
             grads = (torch.autograd.grad(loss.sum(), leaves,
                                          allow_unused=True)
@@ -410,15 +691,19 @@ class Executor:
             env[n + "@GRAD"] = torch.zeros_like(env[n]) if g is None else g
         with torch.no_grad():
             self._run_ops(ops[at + 1:], at + 1, env, lod_env, step,
-                          is_test)
+                          is_test, live)
         return env, lod_env
 
     def _run_ops(self, ops, first: int, env, lod_env, step: int,
-                 is_test: bool):
+                 is_test: bool, live=None, on_op=None):
         """Run ``ops`` (block indices ``first``...) in order, each through
-        ``registry.run_op``; outputs land in ``env``, their LoD in
-        ``lod_env``."""
+        ``registry.run_op``, skipping those ``live`` (indexed by block
+        index) marks dead; outputs land in ``env``, their LoD in
+        ``lod_env``. ``on_op(i, op, env)`` observes each op that ran
+        (``scan_ops``)."""
         for i, op in enumerate(ops, first):
+            if live is not None and not live[i]:
+                continue
             if op.type in _CONTROL_FLOW:
                 raise NotImplementedError(
                     f"op #{i} {op.type!r}: control flow (control_flow.py) is "
@@ -459,6 +744,8 @@ class Executor:
                         lod_env[n] = lod
                     else:
                         lod_env.pop(n, None)
+            if on_op is not None:
+                on_op(i, op, env)
 
     @staticmethod
     def _fetch(env, fetch_names):

@@ -13,10 +13,21 @@ which the CPU path already is, and on a CUDA tensor raises
 ``ValueError`` (``check_interpret``): a CUDA tensor goes to the kernel
 or raises.
 
+Each wrapper's CUDA branch also notes the analytic FLOPs of the JAX
+function it replaces into the cost plane's ledger (``note_flops``,
+``obs/costreport.py``), once per JAX function, with the formula the
+JAX wrapper notes (a ``*_flops`` function beside each wrapper); the CPU
+branch notes nothing (the counter sees the plain version's products).
+The ledger is armed per thread; a kernel's autograd Function saves the
+box its forward saw (``saved_ledger``) and its backward, which the
+autograd engine may run on its device thread, re-arms it
+(``ledger_scope``).
+
 ``spmd_trace_guard`` marks an SPMD-partitioned trace (the JAX package's
 ``kernels.spmd_trace_guard``); the port has no SPMD path yet, so a
 kernel dispatch inside one raises, naming ROADMAP A9.
 """
+import contextlib
 import threading
 from typing import Dict
 
@@ -83,6 +94,33 @@ def check_interpret(interpret, t, wrapper: str) -> None:
             f"counterpart is the CPU path; call with CPU tensors)")
 
 
+def note_flops(flops: float) -> None:
+    """Note a launch's analytic FLOPs into the cost plane's ledger
+    (imported here at call time, as the JAX wrappers import theirs); a
+    no-op unless a ledger is armed on this thread."""
+    from paddle_tpu_torch.obs.costreport import note_flops as _note
+    _note(flops)
+
+
+def saved_ledger():
+    """The ledger box armed on this thread (None when none is): what a
+    kernel's autograd forward saves for its backward."""
+    from paddle_tpu_torch.obs.costreport import current_ledger
+    return current_ledger()
+
+
+@contextlib.contextmanager
+def ledger_scope(box):
+    """Re-arm ``box`` (a ``saved_ledger``) on this thread for the block;
+    nothing for None."""
+    if box is None:
+        yield
+        return
+    from paddle_tpu_torch.obs.costreport import flops_ledger
+    with flops_ledger(box):
+        yield
+
+
 _tls = threading.local()
 
 
@@ -121,7 +159,8 @@ from paddle_tpu_torch.kernels import paged_attention  # noqa: E402
 from paddle_tpu_torch.kernels import quant_matmul  # noqa: E402
 
 __all__ = ["LAUNCHES", "NEG_INF", "flash_attention", "fused_rnn",
-           "check_interpret", "in_spmd_trace", "paged_attention",
+           "check_interpret", "in_spmd_trace", "ledger_scope",
+           "note_flops", "paged_attention", "saved_ledger",
            "paged_attention_chunk", "paged_attention_chunk_reference",
            "paged_attention_mixed", "paged_attention_mixed_reference",
            "paged_attention_reference", "quant_matmul", "reset_launches",

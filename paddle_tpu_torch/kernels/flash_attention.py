@@ -20,7 +20,10 @@ accumulator are fp32.
 ``flash_attention`` is differentiable through a ``torch.autograd
 .Function`` that saves ``(q, k, v, out, lse)``. On CUDA tensors each of
 ``flash_attention_fwd``, ``flash_attention_dq`` and
-``flash_attention_dkv`` launches its hand-written sm_90a kernel
+``flash_attention_dkv`` launches its hand-written sm_90a kernel (the
+backward's two as ``flash_attention_bwd``; the forward and that pair
+note JAX's ``flash_fwd_flops`` / ``flash_bwd_flops`` into the cost
+plane's ledger)
 (``csrc/flash_attention.cu``, on the tensor cores: fp32 as 3xTF32 on
 ``mma.sync``, bf16 on ``wgmma``; each instantiated for head_dim <= 64
 and <= 128) and raises on anything it does not take;
@@ -41,6 +44,8 @@ import torch
 from paddle_tpu_torch import kernels as _kernels
 
 __all__ = ["MAX_HEAD_DIM", "NEG_INF", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_reference",
+           "flash_bwd_flops", "flash_fwd_flops",
            "flash_attention_dkv", "flash_attention_dkv_reference",
            "flash_attention_dq", "flash_attention_dq_reference",
            "flash_attention_fwd", "flash_attention_fwd_reference",
@@ -202,7 +207,8 @@ def flash_attention_fwd(q, k, v, causal, sm_scale):
     if _device_kind(q) == "cpu":
         return flash_attention_fwd_reference(q, k, v, causal, sm_scale)
     _check_cuda(q, (("q", q), ("k", k), ("v", v)))
-    B, H, Tq, _d = q.shape
+    B, H, Tq, d = q.shape
+    _kernels.note_flops(flash_fwd_flops(B, H, Tq, k.shape[2], d, causal))
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if out.numel():
@@ -246,10 +252,42 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal, sm_scale):
     return dk, dv
 
 
-# (forward, dq, dk/dv): the wrappers, or the plain versions on any device
-_KERNELS = (flash_attention_fwd, flash_attention_dq, flash_attention_dkv)
-_PLAIN = (flash_attention_fwd_reference, flash_attention_dq_reference,
-          flash_attention_dkv_reference)
+def flash_fwd_flops(B, H, Tq, Tk, d, causal):
+    """B8, ``_fwd_call``'s note (paddle_tpu/kernels/flash_attention.py:237):
+    QK^T and P@V, halved under the causal mask."""
+    return 4.0 * B * H * Tq * Tk * d * (0.5 if causal else 1.0)
+
+
+def flash_bwd_flops(B, H, Tq, Tk, d, causal):
+    """B9, ``_bwd_call``'s note (:284): dq and dk/dv recompute P and run
+    five block products against the forward's two."""
+    return 10.0 * B * H * Tq * Tk * d * (0.5 if causal else 1.0)
+
+
+def flash_attention_bwd(q, k, v, do, lse, delta, causal, sm_scale):
+    """B9: ``(dq, dk, dv)``, the dq and the dk/dv kernels on CUDA
+    tensors (one ``flash_bwd_flops`` note for both, as the one JAX
+    function), their plain versions on CPU tensors."""
+    dq = flash_attention_dq(q, k, v, do, lse, delta, causal, sm_scale)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, causal, sm_scale)
+    if _device_kind(q) == "cuda":
+        _kernels.note_flops(flash_bwd_flops(*q.shape, k.shape[2], causal))
+    return dq, dk, dv
+
+
+def flash_attention_bwd_reference(q, k, v, do, lse, delta, causal,
+                                  sm_scale):
+    """``flash_attention_bwd`` through the plain versions on any device."""
+    dq = flash_attention_dq_reference(q, k, v, do, lse, delta, causal,
+                                      sm_scale)
+    dk, dv = flash_attention_dkv_reference(q, k, v, do, lse, delta, causal,
+                                           sm_scale)
+    return dq, dk, dv
+
+
+# (forward, backward): the wrappers, or the plain versions on any device
+_KERNELS = (flash_attention_fwd, flash_attention_bwd)
+_PLAIN = (flash_attention_fwd_reference, flash_attention_bwd_reference)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -258,20 +296,22 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, plain):
-        fwd, _dq, _dkv = _PLAIN if plain else _KERNELS
+        fwd, _bwd = _PLAIN if plain else _KERNELS
         out, lse = fwd(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale, ctx.plain = causal, sm_scale, plain
+        ctx.ledger = _kernels.saved_ledger()
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        _fwd, dq_fn, dkv_fn = _PLAIN if ctx.plain else _KERNELS
+        _fwd, bwd = _PLAIN if ctx.plain else _KERNELS
         do = do.contiguous()      # autograd may hand a strided gradient
         delta = torch.sum(do.float() * out.float(), dim=-1)
-        dq = dq_fn(q, k, v, do, lse, delta, ctx.causal, ctx.sm_scale)
-        dk, dv = dkv_fn(q, k, v, do, lse, delta, ctx.causal, ctx.sm_scale)
+        with _kernels.ledger_scope(ctx.ledger):
+            dq, dk, dv = bwd(q, k, v, do, lse, delta, ctx.causal,
+                             ctx.sm_scale)
         return dq, dk, dv, None, None, None
 
 

@@ -35,7 +35,11 @@ name: ``lstm_fwd`` (B10); ``lstm_bwd`` and ``lstm_dw`` (B11's recurrence
 and dW reduction); ``lstm_proj_fwd`` (B14); ``lstm_proj_bwd`` and
 ``lstm_proj_dw`` (B15's recurrence, with dxe and db, and its dWx/dW
 reduction); ``gru_fwd`` (B12); ``gru_bwd`` and ``gru_dw`` (B13). They
-raise on what the kernels do not take.
+raise on what the kernels do not take. ``lstm_fwd``, ``lstm_bwd``,
+``lstm_proj_fwd``, ``lstm_proj_bwd``, ``gru_fwd`` and ``gru_bwd`` note the
+FLOPs of the JAX function each replaces into the cost plane's ledger
+(``lstm_fwd_flops`` ... ``gru_bwd_flops``: JAX's formulas) on CUDA
+tensors.
 
 The LSTM recurrences (B10, B11's, B14, B15's) take one of three routes,
 chosen by the call's dtype and shape before any launch
@@ -86,6 +90,8 @@ import torch
 from paddle_tpu_torch import kernels as _kernels
 
 __all__ = ["ClusterPlan", "DwPlan", "dw_plan", "gru_bwd", "gru_bwd_data",
+           "gru_bwd_flops", "gru_fwd_flops", "lstm_bwd_flops",
+           "lstm_fwd_flops", "lstm_proj_bwd_flops", "lstm_proj_fwd_flops",
            "gru_bwd_data_reference",
            "gru_bwd_reference", "gru_dw", "gru_dw_reference", "gru_fwd",
            "gru_fwd_reference", "gru_scan", "gru_scan_dp", "lstm_bwd",
@@ -255,6 +261,42 @@ def _launch(name, lane, pointers, ints, dev, entry=None, also=()):
         _kernels.LAUNCHES[n] += 1
 
 
+# The analytic FLOPs each JAX function notes into its cost plane
+# (``paddle_tpu/kernels/fused_rnn.py``'s ``_note_kernel_flops`` calls);
+# the CUDA branch of the wrapper that replaces it notes the same.
+
+def lstm_fwd_flops(T, B, D):
+    """B10, ``_lstm_fwd_call`` (fused_rnn.py:235): h @ w every step."""
+    return 2.0 * T * B * D * (4 * D)
+
+
+def lstm_bwd_flops(T, B, D):
+    """B11, ``_lstm_bwd_call`` (:296): dgates @ w^T and dW."""
+    return 4.0 * T * B * D * (4 * D)
+
+
+def gru_fwd_flops(T, B, D):
+    """B12, ``_gru_fwd_call`` (:456)."""
+    return 2.0 * T * B * D * (3 * D)
+
+
+def gru_bwd_flops(T, B, D):
+    """B13, ``_gru_bwd_call`` (:488)."""
+    return 4.0 * T * B * D * (3 * D)
+
+
+def lstm_proj_fwd_flops(T, B, E, D):
+    """B14, ``_lstm_proj_fwd_call`` (:671): xe @ wx + h @ w every step
+    (the pre-pass and the recurrence, one note)."""
+    return 2.0 * T * B * (E + D) * (4 * D)
+
+
+def lstm_proj_bwd_flops(T, B, E, D):
+    """B15, ``_lstm_proj_bwd_call`` (:711): the recurrence, the
+    post-pass and dWx + dW, one note."""
+    return 4.0 * T * B * (E + D) * (4 * D)
+
+
 def _hprev(hs, h0):
     """``[h0; hs[:-1]]`` in hs's dtype (the JAX ``_gru_bwd_call``)."""
     return torch.cat([h0[None].to(hs.dtype), hs[:-1]], dim=0)
@@ -356,6 +398,7 @@ def gru_fwd(x, w, lens, h0):
     if _device_kind(x) == "cpu":
         return gru_fwd_reference(x, w, lens, h0)
     lane = _check_cuda((("x", x), ("w", w), ("h0", h0)), lens)
+    _kernels.note_flops(gru_fwd_flops(T, B, D))
     plan = _cluster_plan(x.dtype, B, D, x.device, ng=3)
     if plan.route == "grid":
         hs = x.new_empty((T, B, D))
@@ -464,9 +507,13 @@ def gru_dw(gates, hs, h0, dx):
 
 def gru_bwd(gates, hs, w, lens, h0, dhs):
     """The backward: ``(dx, dw, dh0)``, the recurrence then the dW
-    reduction (on the card, one launch each)."""
+    reduction (on the card, one launch each, noted as one:
+    ``gru_bwd_flops``)."""
     dx, dh0 = gru_bwd_data(gates, hs, w, lens, h0, dhs)
-    return dx, gru_dw(gates, hs, h0, dx), dh0
+    dw = gru_dw(gates, hs, h0, dx)
+    if _device_kind(gates) == "cuda":
+        _kernels.note_flops(gru_bwd_flops(*hs.shape[:2], w.shape[0]))
+    return dx, dw, dh0
 
 
 # ----------------------------------------------------------------- autograd
@@ -492,14 +539,15 @@ class _GruScan(torch.autograd.Function):
     def forward(ctx, x, w, lens, h0, plain):
         hs, gates = (gru_fwd_reference if plain else gru_fwd)(x, w, lens, h0)
         ctx.save_for_backward(gates, hs, w, lens, h0)
-        ctx.plain = plain
+        ctx.plain, ctx.ledger = plain, _kernels.saved_ledger()
         return hs
 
     @staticmethod
     def backward(ctx, dhs):
         gates, hs, w, lens, h0 = ctx.saved_tensors
         bwd = gru_bwd_reference if ctx.plain else gru_bwd
-        dx, dw, dh0 = bwd(gates, hs, w, lens, h0, dhs.contiguous())
+        with _kernels.ledger_scope(ctx.ledger):
+            dx, dw, dh0 = bwd(gates, hs, w, lens, h0, dhs.contiguous())
         return dx, dw, None, dh0, None
 
 
@@ -1010,6 +1058,7 @@ def lstm_fwd(x, w, lens, h0, c0):
     if _device_kind(x) == "cpu":
         return lstm_fwd_reference(x, w, lens, h0, c0)
     lane = _check_cuda((("x", x), ("w", w), ("h0", h0), ("c0", c0)), lens)
+    _kernels.note_flops(lstm_fwd_flops(T, B, D))
     plan = _cluster_plan(x.dtype, B, D, x.device)
     if plan.route != "streaming":
         return _cluster_fwd(plan, x, w, lens, h0, c0, "lstm_fwd")
@@ -1092,9 +1141,12 @@ def lstm_dw(hs, h0, dx):
 
 def lstm_bwd(gates, hs, cs, w, lens, h0, c0, dhs, dcs):
     """B11: ``(dx, dw, dh0, dc0)``, the recurrence then the dW reduction
-    (on the card, one launch each)."""
+    (on the card, one launch each, noted as one: ``lstm_bwd_flops``)."""
     dx, dh0, dc0 = lstm_bwd_data(gates, cs, w, lens, h0, c0, dhs, dcs)
-    return dx, lstm_dw(hs, h0, dx), dh0, dc0
+    dw = lstm_dw(hs, h0, dx)
+    if _device_kind(gates) == "cuda":
+        _kernels.note_flops(lstm_bwd_flops(*hs.shape[:2], w.shape[0]))
+    return dx, dw, dh0, dc0
 
 
 def lstm_proj_xg(xe, wx, b):
@@ -1312,6 +1364,7 @@ def lstm_proj_fwd(xe, wx, b, w, lens, h0, c0):
     lane = _check_cuda((("xe", xe), ("wx", wx), ("b", b), ("w", w),
                         ("h0", h0), ("c0", c0)), lens)
     _check_d(E, "E")
+    _kernels.note_flops(lstm_proj_fwd_flops(T, B, E, D))
     plan = _cluster_plan(xe.dtype, B, D, xe.device)
     if plan.route != "streaming":
         return _cluster_fwd(plan, lstm_proj_xg(xe, wx, b), w, lens, h0, c0)
@@ -1392,10 +1445,14 @@ def lstm_proj_dw(xe, hs, h0, dx):
 
 def lstm_proj_bwd(xe, gates, hs, cs, wx, w, lens, h0, c0, dhs, dcs):
     """B15: ``(dxe, dwx, db, dw, dh0, dc0)`` as ``_lstm_proj_bwd_call``
-    returns them (db fp32): the recurrence, then the reductions."""
+    returns them (db fp32): the recurrence, then the reductions (on the
+    card noted as one: ``lstm_proj_bwd_flops``)."""
     dxe, dx, db, dh0, dc0 = lstm_proj_bwd_data(gates, cs, wx, w, lens, h0,
                                                c0, dhs, dcs)
     dwx, dw = lstm_proj_dw(xe, hs, h0, dx)
+    if _device_kind(gates) == "cuda":
+        T, B, E = xe.shape
+        _kernels.note_flops(lstm_proj_bwd_flops(T, B, E, w.shape[0]))
     return dxe, dwx, db, dw, dh0, dc0
 
 
@@ -1411,16 +1468,17 @@ class _LstmScan(torch.autograd.Function):
         hs, cs, gates = (lstm_fwd_reference if plain else lstm_fwd)(
             x, w, lens, h0, c0)
         ctx.save_for_backward(gates, hs, cs, w, lens, h0, c0)
-        ctx.plain = plain
+        ctx.plain, ctx.ledger = plain, _kernels.saved_ledger()
         return hs, cs
 
     @staticmethod
     def backward(ctx, dhs, dcs):
         gates, hs, cs, w, lens, h0, c0 = ctx.saved_tensors
         bwd = lstm_bwd_reference if ctx.plain else lstm_bwd
-        dx, dw, dh0, dc0 = bwd(gates, hs, cs, w, lens, h0, c0,
-                               dhs.to(hs.dtype).contiguous(),
-                               dcs.to(cs.dtype).contiguous())
+        with _kernels.ledger_scope(ctx.ledger):
+            dx, dw, dh0, dc0 = bwd(gates, hs, cs, w, lens, h0, c0,
+                                   dhs.to(hs.dtype).contiguous(),
+                                   dcs.to(cs.dtype).contiguous())
         return dx, dw, None, dh0, dc0, None
 
 
@@ -1450,16 +1508,18 @@ class _LstmScanProj(torch.autograd.Function):
         hs, cs, gates = (lstm_proj_fwd_reference if plain else
                          lstm_proj_fwd)(xe, wx, b, w, lens, h0, c0)
         ctx.save_for_backward(xe, gates, hs, cs, wx, b, w, lens, h0, c0)
-        ctx.plain = plain
+        ctx.plain, ctx.ledger = plain, _kernels.saved_ledger()
         return hs, cs
 
     @staticmethod
     def backward(ctx, dhs, dcs):
         xe, gates, hs, cs, wx, b, w, lens, h0, c0 = ctx.saved_tensors
         bwd = lstm_proj_bwd_reference if ctx.plain else lstm_proj_bwd
-        dxe, dwx, db, dw, dh0, dc0 = bwd(
-            xe, gates, hs, cs, wx, w, lens, h0, c0,
-            dhs.to(hs.dtype).contiguous(), dcs.to(cs.dtype).contiguous())
+        with _kernels.ledger_scope(ctx.ledger):
+            dxe, dwx, db, dw, dh0, dc0 = bwd(
+                xe, gates, hs, cs, wx, w, lens, h0, c0,
+                dhs.to(hs.dtype).contiguous(),
+                dcs.to(cs.dtype).contiguous())
         return dxe, dwx, db.to(b.dtype), dw, None, dh0, dc0, None
 
 

@@ -24,8 +24,10 @@ fold.
 On CUDA tensors each wrapper launches its hand-written sm_90a kernel
 (``csrc/paged_attention.cu``'s row-tile kernel for the mixed and decode
 forms, head_dim up to 256; ``csrc/paged_attention_chunk.cu`` for the
-chunk form, head_dim up to 128; see the notes there) and raises on
-anything it does not take. On CPU tensors it runs
+chunk form, head_dim up to 128; see the notes there), notes the JAX
+function's FLOPs into the cost plane's ledger (``paged_mixed_flops``,
+``paged_decode_flops``, ``paged_chunk_flops``) and raises on anything it
+does not take. On CPU tensors it runs
 the plain version: ``paged_attention_reference`` — the same dense
 gather + masked softmax as the JAX package's reference, which the tests
 hold against the Pallas kernels in interpret mode — and, for the other
@@ -41,6 +43,7 @@ import torch
 from paddle_tpu_torch import kernels as _kernels
 
 __all__ = ["NEG_INF", "paged_attention", "paged_attention_chunk",
+           "paged_chunk_flops", "paged_decode_flops", "paged_mixed_flops",
            "paged_attention_chunk_reference", "paged_attention_mixed",
            "paged_attention_mixed_reference", "paged_attention_reference"]
 
@@ -146,11 +149,29 @@ def _check_cuda(entry, q, k_pool, v_pool, k_scale, v_scale, block_tables,
     return lane
 
 
+def paged_mixed_flops(T, n_pages, H, block_size, d):
+    """B1/B2, ``_paged_mixed_call``'s note
+    (paddle_tpu/kernels/paged_attention.py:348): QK^T + P@V over every
+    page of the table a row may touch."""
+    return 4.0 * T * n_pages * H * block_size * d
+
+
+def paged_decode_flops(S, n_pages, H, block_size, d):
+    """B3/B4, ``_paged_call``'s note (:181)."""
+    return 4.0 * S * n_pages * H * block_size * d
+
+
+def paged_chunk_flops(S, G, n_pages, H, block_size, d):
+    """B5/B6, ``_paged_chunk_call``'s note (:571)."""
+    return 4.0 * S * G * n_pages * H * block_size * d
+
+
 def _launch(entry, counters, q, k_pool, v_pool, k_scale, v_scale,
-            block_tables, index_arrays, sizes, sm_scale):
+            block_tables, index_arrays, sizes, sm_scale, flops):
     """Check the CUDA tensors, launch ``entry`` on q's current stream
-    into a fresh output shaped like q, raise on a CUDA error, and count
-    the launch under ``counters[scaled]``."""
+    into a fresh output shaped like q, raise on a CUDA error, count the
+    launch under ``counters[scaled]`` and note ``flops`` (JAX's formula
+    for the replaced function) into the cost plane's ledger."""
     lane, scaled = _check_cuda(entry, q, k_pool, v_pool, k_scale, v_scale,
                                block_tables, index_arrays)
     fn = _cuda_entry(entry)
@@ -169,6 +190,7 @@ def _launch(entry, counters, q, k_pool, v_pool, k_scale, v_scale,
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
                            f"{err}")
     _kernels.LAUNCHES[counters[scaled]] += 1
+    _kernels.note_flops(flops)
     return out
 
 
@@ -225,7 +247,9 @@ def paged_attention_mixed(q, k_pool, v_pool, block_tables, row_slots,
                    ("paged_attention_mixed", "paged_attention_mixed_quant"),
                    q, k_pool, v_pool, k_scale, v_scale, block_tables,
                    (("row_slots", row_slots), ("ctx_lens", ctx_lens)),
-                   (T,), sm_scale)
+                   (T,), sm_scale,
+                   paged_mixed_flops(T, block_tables.shape[1],
+                                     *k_pool.shape[1:]))
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
@@ -273,7 +297,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
     return _launch("paged_attention_decode",
                    ("paged_attention", "paged_attention_quant"),
                    q, k_pool, v_pool, k_scale, v_scale, block_tables,
-                   (("seq_lens", seq_lens),), (S,), sm_scale)
+                   (("seq_lens", seq_lens),), (S,), sm_scale,
+                   paged_decode_flops(S, block_tables.shape[1],
+                                      *k_pool.shape[1:]))
 
 
 def paged_attention_chunk(q, k_pool, v_pool, block_tables, ctx_lens, *,
@@ -324,7 +350,9 @@ def paged_attention_chunk(q, k_pool, v_pool, block_tables, ctx_lens, *,
     return _launch("paged_attention_chunk",
                    ("paged_attention_chunk", "paged_attention_chunk_quant"),
                    q, k_pool, v_pool, k_scale, v_scale, block_tables,
-                   (("ctx_lens", ctx_lens),), (S, G), sm_scale)
+                   (("ctx_lens", ctx_lens),), (S, G), sm_scale,
+                   paged_chunk_flops(S, G, block_tables.shape[1],
+                                     *k_pool.shape[1:]))
 
 
 def paged_attention_mixed_reference(q, k_pool, v_pool, block_tables,

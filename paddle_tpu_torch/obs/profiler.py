@@ -22,9 +22,9 @@ The port of the JAX package's ``obs/profiler.py``, on ``torch.profiler``:
     sharing one ``trainer_step`` parent — exactly 0 on a
     single-dispatch step).
   * ``measured_vs_modeled`` joins a profile against the program's
-    modeled cost. The port has no ``CostReport`` yet (ROADMAP A item 2),
-    so ``report=None`` is the only form that runs: the measured per-kind
-    table, with no modeled shares.
+    modeled ``CostReport`` (obs/costreport.py): measured MFU and the
+    agreement of the measured per-kind times with the modeled FLOP
+    shares.
 """
 from __future__ import annotations
 
@@ -127,6 +127,7 @@ class Profiler:
             if not self._capturing:
                 return None
             try:
+                _edge_guard()
                 self._session.stop()
                 self._session.export_chrome_trace(
                     os.path.join(self._log_dir, "capture.trace.json"))
@@ -339,7 +340,27 @@ def _start_session():
         acts.append(ProfilerActivity.CUDA)
     session = torch.profiler.profile(activities=acts)
     session.start()
+    _edge_guard()
     return session
+
+
+# seconds of quiet on the card at each edge of a capture
+_EDGE_GUARD_S = 0.02
+
+
+def _edge_guard():
+    """With a card: wait for its queued work, then ``_EDGE_GUARD_S``.
+    The tracer keeps only the device events that lie between its start
+    and stop times on the host's clock, onto which the card's
+    timestamps are mapped with some error, so a kernel that runs right
+    after the start (or right before the stop) can fall outside and be
+    dropped (a Trainer's window on an H100 once lost one recurrence
+    kernel's event). A quiet card on both sides keeps every kernel of
+    the window away from the edges."""
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        time.sleep(_EDGE_GUARD_S)
 
 
 def parse_device_trace(log_dir: str,
@@ -416,43 +437,60 @@ def parse_device_trace(log_dir: str,
 # ------------------------------------------------------------------ join
 def measured_vs_modeled(profile: MeasuredProfile, report=None,
                         peak_flops: Optional[float] = None) -> dict:
-    """Join measured device time against the program's modeled cost:
-    the JAX join's dict with ``report=None`` (per-kind measured ms and
-    shares, modeled shares 0, ``measured_mfu`` and
-    ``model_agreement_ratio`` None). ``peak_flops`` is accepted for the
-    JAX signature. A ``CostReport`` join raises: the port's cost report
-    is ROADMAP A item 2.
+    """Join measured device time against the program's modeled
+    CostReport (obs/costreport.py).  ``measured_mfu`` uses modeled flops
+    over *measured* ms; ``model_agreement_ratio`` is the overlap
+    coefficient of the measured per-kind time distribution and the
+    modeled flop distribution — independent when the profile carries a
+    real per-kind timeline, 1.0 by construction under modeled-share
+    apportionment.
     """
-    if report is not None:
-        raise NotImplementedError(
-            "measured_vs_modeled(report=...): the port has no CostReport "
-            "yet (obs/costreport.py's harvest): ROADMAP A item 2")
     per_step_ms = profile.device_ms_per_step
+    modeled_share = {}
+    modeled_flops = {}
+    if report is not None:
+        for k, d in report.op_kinds.items():
+            modeled_share[k] = float(d.get("flops_share", 0.0) or 0.0)
+            modeled_flops[k] = float(d.get("flops", 0.0) or 0.0)
     steps = max(1, profile.steps)
     op_ms = {k: v / steps for k, v in profile.op_kind_ms.items()}
+    attribution = profile.attribution or "measured"
+    if not op_ms and modeled_share:
+        op_ms = {k: per_step_ms * s for k, s in modeled_share.items()}
+        attribution = "modeled-shares"
     total_op = sum(op_ms.values())
-    rows = []
-    for k in sorted(op_ms, key=lambda k: -op_ms[k]):
+    kinds = sorted(set(op_ms) | set(modeled_share),
+                   key=lambda k: -op_ms.get(k, 0.0))
+    rows, agreement = [], 0.0
+    for k in kinds:
+        m_ms = op_ms.get(k, 0.0)
+        m_share = m_ms / total_op if total_op > 0 else 0.0
+        agreement += min(m_share, modeled_share.get(k, 0.0))
         rows.append({
             "kind": k,
-            "measured_ms": round(op_ms[k], 4),
-            "measured_share": round(op_ms[k] / total_op
-                                    if total_op > 0 else 0.0, 4),
-            "modeled_share": 0.0,
-            "modeled_flops": 0.0,
+            "measured_ms": round(m_ms, 4),
+            "measured_share": round(m_share, 4),
+            "modeled_share": round(modeled_share.get(k, 0.0), 4),
+            "modeled_flops": modeled_flops.get(k, 0.0),
         })
+    measured_mfu = None
+    if report is not None:
+        from paddle_tpu_torch.obs.costreport import mfu
+        measured_mfu = mfu(report.flops_per_step, per_step_ms, peak_flops)
     return {
         "program": profile.program,
         "source": profile.source,
-        "attribution": profile.attribution or "measured",
+        "attribution": attribution,
         "steps": profile.steps,
         "device_ms_per_step": round(per_step_ms, 4),
         "compile_ms": round(profile.compile_ms, 3),
         "dispatch_gap_ms": round(profile.dispatch_gap_ms, 4),
         "gap_windows": profile.gap_windows,
         "idle_frac": profile.idle_frac,
-        "measured_mfu": None,
-        "model_agreement_ratio": None,
+        "measured_mfu": round(measured_mfu, 4)
+        if measured_mfu is not None else None,
+        "model_agreement_ratio": round(agreement, 4)
+        if (modeled_share and total_op > 0) else None,
         "kinds": rows,
     }
 

@@ -4,10 +4,11 @@ The port of the JAX package's ``obs/telemetry.py``. One ``Telemetry``
 owns a ``MetricsRegistry`` and a ``Tracer`` and exposes the handful of
 hooks the engines call. Every hook site in the hot path is guarded by a
 single ``if tel is not None``, which is how the plane stays zero-cost
-off. The decode engine takes one today (``DecodeEngine(telemetry=)``);
-the executor and trainer hooks are here as methods, and wiring them
-into ``Executor(telemetry=)`` / ``Trainer.train(telemetry=)`` is
-ROADMAP A item 2.
+off. The decode engine takes one (``DecodeEngine(telemetry=)``), as do
+the Executor (``Executor(telemetry=)``: dispatches, the entry cache,
+compile and fenced step spans, the cost report) and the Trainer
+(``Trainer.train(telemetry=)``: trainer steps, feed waits, passes,
+health, the numerics observatory).
 
 What the wiring records (names are the registry contract, see
 docs/observability.md):
@@ -247,8 +248,8 @@ class Telemetry:
             self.flight.alerts_provider = self.alerts.active
             self.flight.ledgers_provider = self._slowest_ledgers
         # numerics observatory (obs/numerics.py) — installed by the
-        # component that instruments its program (Trainer/ServingEngine)
-        # so uninstrumented sessions pay nothing (ROADMAP A item 2)
+        # component that instruments its program (the Trainer), so
+        # uninstrumented sessions pay nothing
         self.numerics = None
 
     # ----------------------------------------------------- live plane

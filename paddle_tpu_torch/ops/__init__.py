@@ -1,8 +1,9 @@
 """Operators of the port, registered in ``framework.registry`` on
 import: ``math`` (mul, matmul, the elementwise ops, scale, sum, mean,
-concat, split, reshape, transpose, lookup_table, top_k, sign, assign,
-increment, and the initializers' fill_constant, uniform_random,
-gaussian_random), ``activation`` (softmax, relu, sigmoid, tanh, sqrt),
+cast, concat, split, stack, reshape, transpose, lookup_table, top_k,
+sign, assign, increment, isfinite, tensor_stats, and the initializers'
+fill_constant, uniform_random, gaussian_random), ``activation``
+(softmax, relu, sigmoid, tanh, sqrt),
 ``loss`` (softmax_with_cross_entropy, square_error_cost,
 squared_l2_norm and the ``nll_from_logits`` helper of the transformer
 and seq2seq models), ``metric`` (accuracy), ``nn`` (conv,

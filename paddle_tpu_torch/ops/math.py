@@ -2,15 +2,19 @@
 emit: the port of the JAX package's ``ops/math.py`` ``mul`` and
 ``matmul`` (``amp_compute``), the elementwise ops (``elementwise_add``,
 fc's bias; ``_sub``, ``_mul``, ``_div``, ``_max``), ``scale``, ``sum``
-(fc over several inputs), ``mean``, ``concat`` and ``split``, ``reshape`` and
-``transpose`` (the space-to-depth stem of ``models/image.py``),
+(fc over several inputs), ``mean``, ``concat``, ``split`` and ``stack``,
+``reshape`` and ``transpose`` (the space-to-depth stem of
+``models/image.py``), ``cast`` and ``isfinite`` (the health monitor's
+ops, ``obs/health.py``), ``tensor_stats`` (the numerics observatory's
+per-tensor summary, ``obs/numerics.py``),
 ``lookup_table`` (the embedding) and ``top_k`` (the accuracy metric's
 first half), the training plane's helpers ``sign`` (L1 decay),
 ``assign`` (ModelAverage's shadow) and ``increment`` (a learning-rate
 schedule's global step), and the startup program's initializer ops
 ``fill_constant``, ``uniform_random`` and ``gaussian_random``; the
 reference's mul_op.cc, matmul_op.cc, elementwise_*_op.cc, scale_op.cc,
-sum_op.cc, mean_op.cc, concat_op.cc, split_op.cc, reshape_op.cc,
+sum_op.cc, mean_op.cc, concat_op.cc, split_op.cc, stack_op.cc,
+cast_op.cc, isfinite_op.cc, reshape_op.cc,
 transpose_op.cc, lookup_table_op.cc, top_k_op.cc, sign_op.cc,
 assign_op.cc, increment_op.cc, fill_constant_op.cc,
 uniform_random_op.cc and gaussian_random_op.cc.
@@ -29,11 +33,13 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.dtype import convert_dtype
+from paddle_tpu_torch.framework.dtype_limits import headroom_edges
 from paddle_tpu_torch.framework.registry import register_op
 
 __all__ = ["mul", "matmul", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_max", "scale",
-           "sum_op", "mean", "concat", "split", "reshape", "transpose",
+           "sum_op", "mean", "cast", "concat", "split", "stack", "reshape",
+           "transpose", "isfinite", "tensor_stats", "STAT_NAMES", "N_STATS",
            "lookup_table", "top_k", "sign", "assign", "increment",
            "fill_constant", "uniform_random", "gaussian_random"]
 
@@ -129,6 +135,11 @@ def mean(ins, attrs, ctx):
     return {"Out": torch.mean(ins["X"][0])}
 
 
+@register_op("cast", inputs=["X"], outputs=["Out"], attrs={"dtype": "float32"})
+def cast(ins, attrs, ctx):
+    return {"Out": ins["X"][0].to(convert_dtype(attrs["dtype"]))}
+
+
 @register_op("concat", inputs=["X"], outputs=["Out"], attrs={"axis": 0})
 def concat(ins, attrs, ctx):
     return {"Out": torch.cat(ins["X"], dim=attrs["axis"])}
@@ -147,6 +158,11 @@ def split(ins, attrs, ctx):
         raise ValueError(f"split: axis {axis} of size {x.shape[axis]} does "
                          f"not divide into {n} equal parts")
     return {"Out": list(torch.split(x, x.shape[axis] // n, dim=axis))}
+
+
+@register_op("stack", inputs=["X"], outputs=["Out"], attrs={"axis": 0})
+def stack(ins, attrs, ctx):
+    return {"Out": torch.stack(ins["X"], dim=attrs["axis"])}
 
 
 @register_op("reshape", inputs=["X"], outputs=["Out"], attrs={"shape": None})
@@ -241,3 +257,72 @@ def gaussian_random(ins, attrs, ctx):
     z = torch.randn(tuple(attrs["shape"]), generator=gen, device=gen.device,
                     dtype=convert_dtype(attrs["dtype"]))
     return {"Out": attrs["mean"] + attrs["std"] * z}
+
+
+@register_op("isfinite", inputs=["X"], outputs=["Out"])
+def isfinite(ins, attrs, ctx):
+    """Whole-tensor finiteness (ref operators/isfinite_op.cc): ``[1]``
+    float32, 1.0 when every element is finite, so the flag can ride a
+    float concat (the health monitor's fused ``[3]`` vector)."""
+    x = ins["X"][0]
+    return {"Out": torch.isfinite(x).all().to(torch.float32).reshape(1)}
+
+
+# The lanes ``tensor_stats`` emits, in output order: one table for the
+# pass that plants the op (analysis/instrument.py) and the monitor that
+# reads the fetch (obs/numerics.py), the JAX package's layout.
+STAT_NAMES = (
+    "absmax",          # max |x| over finite elements
+    "rms",             # sqrt(mean(x^2)) over finite elements
+    "mean",            # mean over finite elements
+    "nonfinite_count", # number of NaN/Inf elements
+    "zero_frac",       # fraction of exact zeros
+    "exp_hi_frac",     # finite fraction within headroom_bits of dtype max
+    "exp_lo_frac",     # finite nonzero fraction within headroom_bits of tiny
+    "count",           # total element count
+)
+N_STATS = len(STAT_NAMES)
+_F32_TINY = 2.0 ** -126    # float32's smallest normal
+
+
+@register_op("tensor_stats", inputs=["X"], outputs=["Out"],
+             attrs={"headroom_bits": 8.0}, propagate_lod=False)
+def tensor_stats(ins, attrs, ctx):
+    """A ``[N_STATS]`` float32 summary of one tensor (``STAT_NAMES``),
+    computed in float32 as the JAX op computes it: absmax / rms / mean
+    over the finite elements (nonfinite ones are masked out, so the
+    lanes stay comparable while ``nonfinite_count`` names the blowup),
+    the zero fraction over all elements, and the finite fractions within
+    ``headroom_bits`` powers of two of the tensor's own dtype's max
+    (``exp_hi_frac``) or, nonzero, of its smallest normal
+    (``exp_lo_frac``; ``framework/dtype_limits.headroom_edges``; integer
+    tensors take float32's). Subnormal float32 values count as zeros, as
+    XLA, which flushes them, counts them in the JAX op. An empty tensor
+    gives all zeros."""
+    x = ins["X"][0]
+    hi, lo = headroom_edges(x.dtype, float(attrs["headroom_bits"]))
+    f32 = torch.float32
+    n = x.numel()
+    if n == 0:
+        return {"Out": torch.zeros((N_STATS,), dtype=f32, device=x.device)}
+    zero = torch.zeros((), dtype=f32, device=x.device)
+    xf = x.to(f32)
+    xf = torch.where(xf.abs() < _F32_TINY, zero, xf)
+    finite = torch.isfinite(xf)
+    absx = torch.where(finite, xf, zero).abs()
+    n_finite = finite.to(f32).sum()
+    denom = torch.clamp_min(n_finite, 1.0)
+    # scalars made on the device (a fill, no host-to-device copy)
+    hi_edge = torch.full((), hi, dtype=f32, device=x.device)
+    lo_edge = torch.full((), lo, dtype=f32, device=x.device)
+    count = torch.full((), float(n), dtype=f32, device=x.device)
+    out = torch.stack([
+        absx.max(),
+        torch.sqrt(torch.where(finite, xf * xf, zero).sum() / denom),
+        torch.where(finite, xf, zero).sum() / denom,
+        count - n_finite,
+        (xf == 0.0).to(f32).mean(),
+        (finite & (absx >= hi_edge)).to(f32).sum() / denom,
+        (finite & (absx > 0.0) & (absx <= lo_edge)).to(f32).sum() / denom,
+        count])
+    return {"Out": out}

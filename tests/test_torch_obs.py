@@ -596,11 +596,31 @@ def test_profiler_session_on_the_cpu(tmp_path):
         tel.close()
 
 
-def test_measured_vs_modeled_with_a_report_names_its_item():
-    prof = tprofiler.MeasuredProfile(op_kind_ms={"dot": 1.0}, steps=1,
-                                     device_ms_total=1.0)
-    with pytest.raises(NotImplementedError, match="A item 2"):
-        tprofiler.measured_vs_modeled(prof, report=object())
+@pytest.mark.parametrize("measured", [
+    {"dot": 3.0, "custom": 5.0, "other": 2.0}, {}])
+def test_measured_vs_modeled_with_a_report_matches_jax(measured):
+    """The join against a ``CostReport``: measured MFU, the agreement of
+    the measured per-kind times with the modeled shares, and (with no
+    per-kind timeline) the modeled-share apportionment, as JAX's."""
+    from paddle_tpu.obs.costreport import CostReport as JReport
+    kinds = {"dot": {"flops": 6e9, "flops_share": 0.6},
+             "custom": {"flops": 4e9, "flops_share": 0.4}}
+    joins = []
+    for prof_mod, report_cls in ((jprofiler, JReport),
+                                 (tprofiler, tcost.CostReport)):
+        prof = prof_mod.MeasuredProfile(
+            program="run", source="device-trace", steps=4,
+            device_ms_total=40.0, op_kind_ms=dict(measured),
+            dispatch_gap_ms=0.5, gap_windows=3, idle_frac=0.25)
+        rep = report_cls(program="run", steps=1, flops=1e10,
+                         op_kinds=kinds)
+        joins.append(prof_mod.measured_vs_modeled(prof, report=rep,
+                                                  peak_flops=989e12))
+    assert joins[1] == joins[0]
+    assert joins[1]["measured_mfu"] is not None
+    assert joins[1]["model_agreement_ratio"] is not None
+    assert (tprofiler.format_measured_table(joins[1])
+            == jprofiler.format_measured_table(joins[0]))
 
 
 # ------------------------------------------------------------ telemetry

@@ -32,8 +32,13 @@ corrupted file raises ``CheckpointError``, ``save_dir`` with
 ``save_period=1`` writes each pass's parameters, and
 ``save_inference_model`` -> ``load_inference_model`` gives the pruned
 program's predictions.
-The options not ported yet raise naming their ROADMAP item, and with no
-place the Trainer's Executor is the card (it raises without one). The
+The training-side planes: ``status()``'s keys and ``train(telemetry=)``'s
+spans, counters and pass rollups equal the JAX Trainer's (K = 1 and in
+groups), ``profile_steps`` captures its window on the joined Executor's
+session, ``telemetry=True`` owns its session (the health and numerics
+planes' parity is ``tests/test_torch_health.py`` /
+``test_torch_numerics.py``). ``serve_port=`` raises naming A10, and with
+no place the Trainer's Executor is the card (it raises without one). The
 card's cases are in ``tests/test_torch_trainer_cuda.py``.
 """
 import json
@@ -56,6 +61,7 @@ from paddle_tpu.trainer import Trainer as JTrainer
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import io as tio
+from paddle_tpu_torch import obs as tobs
 from paddle_tpu_torch import reader as treader
 from paddle_tpu_torch import datasets as tdatasets
 from paddle_tpu_torch.convert import scope_from_jax
@@ -563,22 +569,128 @@ def test_persistables_and_inference_model(tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"health": "warn"}, "A5"), ({"numerics": True}, "A5")])
-def test_deferred_trainer_options_raise(kw, item):
-    loss, opt, feed_list, _ = _fit_a_line("torch")
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(cost=loss, optimizer=opt, feed_list=feed_list,
-                place=pt.CPUPlace(), **kw)
-
-
-@pytest.mark.parametrize("kw,item", [
-    ({"telemetry": True}, "A5"), ({"serve_port": 0}, "A5"),
-    ({"profile_steps": (0, 2)}, "A10")])
+@pytest.mark.parametrize("kw,item", [({"serve_port": 0}, "A10")])
 def test_deferred_train_options_raise(kw, item):
     tr, _, _ = _trainer("torch", _fit_a_line)
     with pytest.raises(NotImplementedError, match=item):
         tr.train(treader.batch(tdatasets.uci_housing.train(8), 4), **kw)
+
+
+def _obs_trainer(side):
+    """fit_a_line's Trainer with the health and numerics planes."""
+    pkg = SIDES[side][0]
+    loss, opt, feed_list, _ = _fit_a_line(side)
+    return SIDES[side][5](cost=loss, optimizer=opt, feed_list=feed_list,
+                          place=pkg.CPUPlace(), health="none",
+                          numerics=pkg.obs.NumericsSpec(sample_every=2))
+
+
+def test_status_keys_match_jax():
+    """``Trainer.status()``'s keys are the JAX Trainer's, before and
+    during training (its ``execution_plan`` row the error dict the JAX
+    Trainer gives when its plan fails: analysis/plan.py is A10)."""
+    from paddle_tpu.obs import Telemetry as JTelemetry
+    seen = {}
+    for side, tel_cls in (("jax", JTelemetry),
+                          ("torch", tobs.Telemetry)):
+        SIDES[side][6].fresh_programs()
+        tr = _obs_trainer(side)
+        before = tr.status()
+        tel = tel_cls(trace_path=None)
+        during = []
+        tr.train(SIDES[side][1].batch(
+            SIDES[side][2].uci_housing.train(16), 4), telemetry=tel,
+            log_period=0, event_handler=lambda e, _t=tr: during.append(
+                _t.status()) if type(e).__name__ == "EndIteration"
+            else None)
+        tel.close()
+        seen[side] = (sorted(before), sorted(during[-1]),
+                      sorted(during[-1]["numerics"]),
+                      sorted(during[-1]["goodput"]))
+    assert seen["torch"] == seen["jax"]
+    assert "error" in tr.status()["execution_plan"]
+    assert "A10" in tr.status()["execution_plan"]["error"]
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_train_telemetry_records_match_jax(k, monkeypatch):
+    """``train(telemetry=)``: the same span kinds and counts (trainer
+    steps, passes, compiles, fenced steps), counters and rollup keys as
+    the JAX Trainer over the same reader, K = 1 and in groups of 2. (The
+    JAX Trainer first warms its entries with ``Executor.warm``, which is
+    the compile cache's, A11, and not the port's: the JAX side runs
+    without it, as its Trainer does when warming fails.)"""
+    from paddle_tpu.obs import Telemetry as JTelemetry
+
+    def no_warm(*a, **k):
+        raise NotImplementedError("A11")
+    monkeypatch.setattr(jpt.Executor, "warm", no_warm)
+    got = {}
+    for side, tel_cls in (("jax", JTelemetry),
+                          ("torch", tobs.Telemetry)):
+        tr, _, _ = _trainer(side, _fit_a_line)
+        tel = tel_cls(trace_path=None, collect_hlo=False)
+        rollups = []
+        tr.train(SIDES[side][1].batch(
+            SIDES[side][2].uci_housing.train(24), 4), num_passes=2,
+            telemetry=tel, steps_per_call=k, log_period=0,
+            event_handler=lambda e: rollups.append(e.telemetry)
+            if type(e).__name__ == "EndPass" else None)
+        names = [r.get("name") for r in tel.tracer.records
+                 if r.get("name") in ("trainer_step", "pass",
+                                      "jit_compile", "device_step")]
+        snap = tel.snapshot()
+        got[side] = (sorted((n, names.count(n)) for n in set(names)),
+                     snap["trainer_examples_total"]["series"],
+                     snap["executor_steps_total"]["series"],
+                     snap["feed_wait_ms"]["series"].get("", {}).get(
+                         "count", 0),
+                     [sorted(r) for r in rollups],
+                     [(r["steps"], r["examples"]) for r in rollups])
+        assert tr.exe.telemetry is None
+        tel.close()
+    assert got["torch"] == got["jax"]
+
+
+def test_profile_window_and_joined_session(tmp_path):
+    """``profile_steps=(1, 3)`` captures batches 1 and 2 on the joined
+    Executor session's profiler; ``telemetry=True`` opens and closes its
+    own session; ``profile_steps`` validates its window."""
+    tel = tobs.Telemetry(trace_path=None)
+    loss, opt, feed_list, _ = _fit_a_line("torch")
+    tr = Trainer(cost=loss, optimizer=opt, feed_list=feed_list,
+                 executor=pt.Executor(pt.CPUPlace(), telemetry=tel))
+    states = []
+    orig_start = tel.profiler.start
+
+    def start(log_dir=None, window=None):
+        states.append(("start", window))
+        return orig_start(log_dir, window=window)
+    tel.profiler.start = start
+    tr.train(treader.batch(tdatasets.uci_housing.train(20), 4),
+             profile_steps=(1, 3), profile_dir=str(tmp_path / "cap"),
+             log_period=0)
+    assert states == [("start", (1, 3))]
+    assert not tel.profiler.capturing
+    assert (tmp_path / "cap" / "capture.trace.json").is_file()
+    names = [r.get("name") for r in tel.tracer.records]
+    assert names.count("trainer_step") == 5 and tr.exe.telemetry is tel
+    tel.close()
+    with pytest.raises(ValueError, match="profile_steps"):
+        tr.train(treader.batch(tdatasets.uci_housing.train(8), 4),
+                 profile_steps=(2, 1))
+    tprog.fresh_programs()
+    tscope.reset_global_scope()
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        tr2, _, _ = _trainer("torch", _fit_a_line)
+        tr2.train(treader.batch(tdatasets.uci_housing.train(8), 4),
+                  telemetry=True, log_period=0)
+    finally:
+        os.chdir(cwd)
+    assert (tmp_path / "trace.jsonl").stat().st_size > 0
+    assert tr2.exe.telemetry is None
 
 
 def test_master_trainer_and_default_place():
