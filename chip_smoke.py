@@ -146,6 +146,62 @@ ledger and serving-goodput decomposition) adds, in the same run:
    each and the on / off ratio (reported, not gated), tokens equal in
    all four.
 
+The fixed-shape serving front end (``ServingEngine``, ``BucketLadder``,
+``MicroBatcher``, ``Inferencer``; no kernel of its own: B14 on its path)
+adds, in the same run:
+
+5i. ``serve_fixed``: the flagship's inference program
+   (``lstm_benchmark_net(words, label, 5147, seq_lens=lens,
+   fused_proj=True)`` at bench_lstm's widths, ``clone(for_test=True)``,
+   weights from the startup program at seed 0) through
+   ``ServingEngine(feed_names=["words", "lens"], executor=
+   Executor(CUDAPlace(0), amp=True), ladder=BucketLadder(batch_buckets=
+   [8, 16, 32, 64, 128], seq_buckets={"words": [25, 50, 75, 100]}),
+   lens_feeds={"lens": "words"}, max_wait_ms=2.0)`` over 1024 one-row
+   requests (lengths from seed 0 uniform in 20-100): first three full
+   flushes (rung 128) of a parked engine started under
+   ``torch.profiler`` (one device-to-host copy per fetch per flush; the
+   device's idle share and top ops), then one engine a concurrency (8,
+   32, 128 closed-loop clients) over all 1024, then the first 128 on an
+   fp32 engine (32 clients). Each engine: ``warmup()`` 20 (the ladder's
+   size) and ``compile_count`` still 20 after the traffic; every future
+   holds a result; ``rows_total`` and ``serving_request_ms``'s count the
+   requests; the launch counts, zeroed after warmup and read after the
+   traffic, exactly B14 (``lstm_proj_fwd``) and its route's forward
+   kernels twice a flush and nothing else (B15 0); each request's rows
+   allclose to the same request assembled alone (``assemble_batch``:
+   rung 8, seven pad sequences of length 0) through the engine's session
+   (fp32 1e-5, AMP 2e-3 on the probabilities), every probability of
+   those solo batches finite; every metric name of the engine's registry
+   in a metric table of ``docs/serving.md`` / ``docs/observability.md``.
+   Before the engines: B14 at each of the ladder's 20 shapes (T 25-100,
+   B 8-128) for both layers' E, both lanes, against its plain version
+   with a quarter of the rows pads of length 0 (fp32 1e-5; bf16 3f's
+   rule), a pad row keeping h0 and c0 bit for bit; and the first 128
+   requests, sorted by length, in flushes of 8, 13, 32 and 75 rows,
+   through the AMP and the fp32 session, each with and without B14
+   (``FLAGS.fused_rnn`` off: the composed route): the last hidden state
+   and the logits of the fp32 kernel path within 1e-5 of the composed
+   one, the AMP kernel path's no further from the fp32 composed one than
+   1.5x the AMP composed path's + 1e-3 of the values' largest magnitude,
+   that limit on the last hidden state under a quarter of the median
+   distance between two requests'.
+   Printed: rows/s, client and ``serving_request_ms`` p50/p99 a
+   concurrency, occupancy and flushes a rung, the largest difference
+   from solo, and the batch-1 sync baseline on an engine's session (128
+   requests at their own length: the composed route). ``inferencer``:
+   the flagship saved by ``save_inference_model`` (fp32) and loaded by
+   ``Inferencer(dir, place=CUDAPlace(0))`` with a telemetry session:
+   ``warmup(sample, batch_sizes=[8])`` > 0 then 0, ``jit_compiles_total``
+   unchanged under traffic at the warmed shapes, ``infer`` of the first
+   16 requests within 1e-5 of the fp32 engine's rows. ``serve_mlp``:
+   bench.py's ``bench_serving`` harness (784-256-256-10, fp32,
+   ``BucketLadder(max_batch=8)``, 512 requests, concurrency 1 / 4 / 16)
+   against the batch-1 sync baseline on the same session (printed, not
+   gated). ``activations``: each of the 36 activation ops on a CUDA fp32
+   tensor against the port's CPU result, forward and gradient, within
+   1e-6, NaN, ±inf and ±0 among the inputs.
+
 The training slice adds, in the same run:
 
 3d. the flash-attention forward (B8) and its dq and dk/dv backward
@@ -433,9 +489,10 @@ kernel wrappers' FLOPs ledger rides B14/B15) add:
 Then it prints the ``profile`` lines, the ``kernels`` JSON line (every
 lane of every kernel; the paged-attention and B7 lanes add their 5g
 launches, ``launches_5g``, B1, B2, B4, B6 and B7 their 5h ones,
-``launches_5h``, and B14/B15 bf16 their 6i ones, ``launches_6i``), the
-``serve`` (5g's ``serve_spec*`` and ``serve_beam`` and 5h's lines among
-them), ``train``, seq2seq, LSTM, ``exec_mlp``, ``exec_text``,
+``launches_5h``, B14/B15 bf16 their 6i ones, ``launches_6i``, and B14
+and its pre-pass in both lanes their 5i ones, ``launches_5i``), the
+``serve`` (5g's ``serve_spec*`` and ``serve_beam``, 5h's and 5i's lines
+among them), ``train``, seq2seq, LSTM, ``exec_mlp``, ``exec_text``,
 ``trainer_lstm``, ``exec_gru``, ``exec_resnet50``, ``exec_image``,
 ``trainer_image``, ``trainer_lstm_recipe``, ``exec_resnet50_recipe``
 and ``trainer_lstm_obs`` lines and, last,
@@ -6380,6 +6437,681 @@ def trainer_lstm_obs(kernels, fr, dev, card, warmup=3, steps=20, k=8,
     return {"trainer_lstm_obs": rec}
 
 
+# ------------------------------------------- fixed-shape serving (5i)
+
+# the card's ladder for the flagship: B14 engages at batch rungs that are
+# multiples of 8 (the JAX predicate, ops/rnn.py _fused_ok); the imdb
+# surrogate's lengths 20-100 over bench_lstm_bucketed's boundaries
+SERVE_FIXED_LADDER = dict(batch_buckets=[8, 16, 32, 64, 128],
+                          seq_buckets={"words": [25, 50, 75, 100]})
+SERVE_FIXED_N = 1024                # one-row requests, lengths 20-100
+SERVE_FIXED_CONC = (8, 32, 128)     # closed-loop clients
+SERVE_FIXED_FP32_N = 128            # the fp32 engine's requests
+SERVE_FIXED_BASE_N = 128            # the batch-1 sync baseline's
+SERVE_FIXED_FLUSHES = 3             # full flushes under torch.profiler
+# a request's rows in a flush vs the same request assembled alone (rung
+# 8): fp32 sums in another order (the batch's other rows change no sum
+# of this row's, but the GEMM tiling of the pre-pass and the fc may);
+# AMP: every matmul and recurrence in bf16, a rounding apart where the
+# tiling differs, on probabilities
+SERVE_FIXED_TOL = {"fp32": 1e-5, "amp": 2e-3}
+# the first SERVE_FIXED_FP32_N requests, sorted by length, in flushes of
+# these sizes (rungs 8, 16, 32 and 128, pads of length 0 in two): the
+# served program's last hidden state and logits under AMP and fp32, each
+# through B14 and through the composed route (FLAGS.fused_rnn off)
+SERVE_FIXED_AMP_CHUNKS = (8, 13, 32, 75)
+# an AMP gate's limit must sit below this share of the median distance
+# between two requests' values (else a kernel that ignored its input
+# could pass it)
+SERVE_FIXED_SPREAD_SHARE = 0.25
+SERVE_MLP = dict(n=512, conc=(1, 4, 16), max_batch=8, wait_ms=2.0)
+INFER_LEN = 100                     # the Inferencer's sample length
+ACT_TOL = 1e-6                      # an activation on the card vs the CPU
+
+
+def _fixed_net(cfg):
+    """The flagship's inference program: ``lstm_benchmark_net(words,
+    label, vocab, seq_lens=lens, fused_proj=True)`` at ``cfg``'s widths
+    in fresh default programs and a fresh global scope, its startup run
+    at seed 0 on the CPU: (``main.clone(for_test=True)``, the main
+    program, the prediction's name)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import reset_global_scope
+    from paddle_tpu_torch.framework import program as prog
+    from paddle_tpu_torch.models import text as tx
+    prog.fresh_programs()
+    reset_global_scope()
+    words = pt.layers.data("words", [1], dtype="int64", lod_level=1)
+    label = pt.layers.data("label", [1], dtype="int64")
+    lens = pt.layers.data("lens", [], dtype="int32")
+    pred, _, _ = tx.lstm_benchmark_net(
+        words, label, cfg["vocab_size"], emb_dim=cfg["emb_dim"],
+        hid_dim=cfg["hid_dim"], num_layers=cfg["num_layers"],
+        seq_lens=lens, fused_proj=True)
+    start = pt.default_startup_program()
+    start.random_seed = 0
+    pt.Executor(pt.CPUPlace()).run(start)
+    main = pt.default_main_program()
+    return main.clone(for_test=True), main, pred.name
+
+
+def _fixed_requests(cfg, n, seed=0):
+    """``n`` one-row requests: word ids of lengths drawn from ``seed``
+    uniform in 20-100 (the imdb surrogate's range)."""
+    from paddle_tpu_torch.core.lod import LoD, LoDTensor
+    rng = np.random.RandomState(seed)
+    out = []
+    for length in rng.randint(20, 101, n):
+        toks = rng.randint(0, cfg["vocab_size"], (int(length), 1))
+        out.append({"words": LoDTensor(toks.astype(np.int64),
+                                       LoD.from_lengths([[int(length)]]))})
+    return out
+
+
+def _fixed_engine(program, pred, place, amp, max_wait_ms=2.0, fetch=None,
+                  **kw):
+    import paddle_tpu_torch as pt
+    return pt.ServingEngine(
+        program=program, feed_names=["words", "lens"],
+        fetch_names=list(fetch or [pred]),
+        executor=pt.Executor(place, amp=amp),
+        ladder=pt.BucketLadder(**SERVE_FIXED_LADDER),
+        lens_feeds={"lens": "words"}, max_wait_ms=max_wait_ms,
+        max_queue=SERVE_FIXED_N, **kw)
+
+
+def _solo_rows(eng, feeds):
+    """Each request assembled alone (``assemble_batch([req])``: rung 8,
+    seven pad sequences of length 0) through the engine's session: its
+    row, every probability of the padded batch finite."""
+    from paddle_tpu_torch.framework.executor import _to_numpy
+    from paddle_tpu_torch.serving import Request, assemble_batch
+    rows = []
+    for f in feeds:
+        pb = assemble_batch([Request(f, 1)], eng.ladder, eng.lod_feeds,
+                            eng.lens_feeds)
+        out = _to_numpy(eng.session.run(pb.feed)[0])
+        _check(pb.bucket == 8 and out.shape[0] == 8
+               and np.isfinite(out).all(),
+               f"serve_fixed: a solo batch (rung {pb.bucket}) holds "
+               "nonfinite probabilities")
+        rows.append(out[:1])
+    return rows
+
+
+def _b14_rungs(fr, dev, cfg=TEXT_CFG, ladder=SERVE_FIXED_LADDER):
+    """B14 (``lstm_proj_fwd``) at every shape the serving ladder gives it
+    (T a length rung, B a batch rung, E each layer's input width), both
+    lanes, on card tensors against its plain version. A quarter of the
+    rows (at least one) are pads of length 0, as in a partial flush; the
+    others take lengths in the rung's band (20, or the rung below + 1, up
+    to T), row 0 at T. fp32: LSTM_FWD_TOL; bf16: each output no further
+    from the fp32 plain result than 1.5x the bf16 plain version + 1e-3
+    (3f's rule). A pad row keeps h0 and c0 bit for bit, every output is
+    finite. Returns the worst errors of each lane and output."""
+    D = cfg["hid_dim"]
+    Ts = ladder["seq_buckets"]["words"]
+    names = ("hs", "cs", "gates")
+    rec = {"shapes": len(Ts) * len(ladder["batch_buckets"]) * 2}
+    for dtype in (torch.bfloat16, torch.float32):
+        bf = dtype == torch.bfloat16
+        lane = "bf16" if bf else "fp32"
+        worst = {}
+        for ti, T in enumerate(Ts):
+            lo = Ts[ti - 1] + 1 if ti else 20
+            for B in ladder["batch_buckets"]:
+                for E in (cfg["emb_dim"], D):
+                    c = _lstm_case(dev, T, B, D, E, False, seed=T + B + E)
+                    g = torch.Generator(device=dev)
+                    g.manual_seed(T * B + E)
+                    lens = torch.randint(lo, T + 1, (B, 1), generator=g,
+                                         device=dev).float()
+                    lens[0] = float(T)
+                    lens[B - max(1, B // 4):] = 0.0
+                    args = [lens if k == "lens" else c[k].to(dtype)
+                            for k in ("xe", "wx", "b", "w", "lens", "h0",
+                                      "c0")]
+                    got = fr.lstm_proj_fwd(*args)
+                    plain = fr.lstm_proj_fwd_reference(*args)
+                    exact = (fr.lstm_proj_fwd_reference(*[
+                        a if a is lens else a.float() for a in args])
+                        if bf else plain)
+                    what = f"serve_fixed B14 {lane} T {T} B {B} E {E}"
+                    for n, g_, p_, e_ in zip(names, got, plain, exact):
+                        _check(bool(torch.isfinite(g_).all()),
+                               f"{what}: {n} holds nonfinite values")
+                        if bf:
+                            err, perr = _max_err(g_, e_), _max_err(p_, e_)
+                            _check(err <= FLASH_BF16_RATIO * perr + 1e-3,
+                                   f"{what}: {n} is {err} from fp32, the "
+                                   f"plain version {perr}")
+                            w_ = worst.get(n, (0.0, 0.0))
+                            worst[n] = (max(w_[0], err), max(w_[1], perr))
+                        else:
+                            err = _max_err(g_, p_)
+                            _check(err <= LSTM_FWD_TOL,
+                                   f"{what}: {n} differs by {err}")
+                            worst[n] = max(worst.get(n, 0.0), err)
+                    pad = lens[:, 0] == 0
+                    _check(bool((got[0][:, pad] == args[5][pad]).all())
+                           and bool((got[1][:, pad] == args[6][pad]).all()),
+                           f"{what}: a length-0 pad row must keep h0, c0")
+                    del c, got, plain, exact
+        rec[lane] = ({n: {"err_vs_fp32": e, "plain_bf16_err": p}
+                      for n, (e, p) in worst.items()} if bf else worst)
+    return rec
+
+
+def _spread(rows):
+    """The median over pairs of requests of the largest difference between
+    their values (``rows`` [N, ...])."""
+    a = rows.reshape(rows.shape[0], -1)
+    d = np.abs(a[:, None, :] - a[None, :, :]).max(-1)
+    return float(np.median(d[np.triu_indices(len(a), 1)]))
+
+
+def _fixed_amp_vs_fp32(kernels, program, pred, place, feeds,
+                       chunks=SERVE_FIXED_AMP_CHUNKS):
+    """The served program's last hidden state (``sequence_pool``'s output)
+    and logits (the softmax's input), under AMP and fp32, each through
+    B14 and through the composed route (``FLAGS.fused_rnn`` off: a plain
+    per-step loop), on the same padded flushes (``feeds`` sorted by
+    length, in ``chunks``). Gates: the fp32 kernel path within
+    LSTM_FWD_TOL of the fp32 composed one; the AMP kernel path no further
+    from the fp32 composed one than 1.5x the AMP composed path + 1e-3 of
+    the values' largest magnitude, that limit for the last hidden state under SERVE_FIXED_SPREAD_SHARE
+    of the median distance between two requests'; B14 twice a kernel
+    flush, not at all a composed one."""
+    from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.framework.executor import _to_numpy
+    from paddle_tpu_torch.serving import Request, assemble_batch
+    ops = program.global_block().ops
+    last = next(op for op in ops
+                if op.type == "sequence_pool").outputs["Out"][0]
+    logits = next(op for op in ops if op.type == "softmax"
+                  and pred in op.output_names()).inputs["X"][0]
+    engs = {amp: _fixed_engine(program, pred, place, amp, autostart=False,
+                               fetch=[last, logits])
+            for amp in (True, False)}
+    order = sorted(feeds, key=lambda f: f["words"].lod.max_length())
+    out = {(amp, fused): [[], []] for amp in (True, False)
+           for fused in (True, False)}
+    start, rungs = 0, []
+    for k in chunks:
+        reqs = [Request(f, 1) for f in order[start:start + k]]
+        start += k
+        for amp, eng in engs.items():
+            pb = assemble_batch(reqs, eng.ladder, eng.lod_feeds,
+                                eng.lens_feeds)
+            if amp:
+                rungs.append([pb.bucket, pb.seq_rungs["words"]])
+            for fused in (True, False):
+                FLAGS.fused_rnn = fused
+                before = kernels.LAUNCHES["lstm_proj_fwd"]
+                got = [_to_numpy(t)[:k] for t in eng.session.run(pb.feed)]
+                FLAGS.fused_rnn = True
+                moved = kernels.LAUNCHES["lstm_proj_fwd"] - before
+                _check(moved == (2 if fused else 0),
+                       f"serve_fixed amp_vs_fp32: B14 launched {moved} "
+                       f"times in a {'kernel' if fused else 'composed'} "
+                       f"flush of rung {pb.bucket}")
+                for i, v in enumerate(got):
+                    out[(amp, fused)][i].append(v)
+    for e in engs.values():
+        e.close()
+    val = {key: [np.concatenate(v) for v in vs] for key, vs in out.items()}
+    ref = val[(False, False)]
+    rec = {"requests": start, "rungs": rungs}
+    for i, name in enumerate(("last_hidden", "logits")):
+        _check(all(np.isfinite(v[i]).all() for v in val.values()),
+               f"serve_fixed amp_vs_fp32: {name} holds nonfinite values")
+        f32 = float(np.max(np.abs(val[(False, True)][i] - ref[i])))
+        err = float(np.max(np.abs(val[(True, True)][i] - ref[i])))
+        perr = float(np.max(np.abs(val[(True, False)][i] - ref[i])))
+        # 3f's rule, its 1e-3 floor scaled to these values' size (3f's
+        # are of order 1; a served hidden state here is far smaller)
+        size = float(np.abs(ref[i]).max())
+        limit = FLASH_BF16_RATIO * perr + 1e-3 * size
+        spread = _spread(ref[i])
+        rec[name] = {"fp32_kernel_vs_composed": f32,
+                     "amp_kernel_vs_fp32": err,
+                     "amp_composed_vs_fp32": perr, "amp_limit": limit,
+                     "max_abs_fp32": size,
+                     "median_spread_between_requests": spread}
+        _check(f32 <= LSTM_FWD_TOL, f"serve_fixed amp_vs_fp32: fp32 "
+               f"{name} through B14 is {f32} from the composed route")
+        _check(err <= limit, f"serve_fixed amp_vs_fp32: AMP {name} is "
+               f"{err} from fp32, the AMP composed route {perr}")
+    lim, spr = (rec["last_hidden"]["amp_limit"],
+                rec["last_hidden"]["median_spread_between_requests"])
+    _check(lim <= SERVE_FIXED_SPREAD_SHARE * spr,
+           f"serve_fixed amp_vs_fp32: the AMP limit {lim} on the last "
+           f"hidden state is not under {SERVE_FIXED_SPREAD_SHARE} of the "
+           f"spread between requests {spr}")
+    return rec
+
+
+def _b14_want(kernels, fr, eng, dtype, dev):
+    """The launch counts a run of ``eng``'s flushes must show: B14 and
+    the forward kernels of each rung's route twice a flush (two layers),
+    nothing else (no B15: inference)."""
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    D = TEXT_CFG["hid_dim"]
+    for b in eng.ladder.batch_buckets:
+        flushes = int(eng._batches.get(bucket=str(b)))
+        route = fr._cluster_plan(dtype, b, D, dev).route
+        for name in ("lstm_proj_fwd",) + tuple(
+                n for n in LSTM_ROUTE_NAMES[route]
+                if "bwd" not in n and "dxe" not in n):
+            want[name] += 2 * flushes
+    return want
+
+
+def _closed_loop(eng, feeds, conc):
+    """``conc`` clients, each submitting the next request and waiting
+    for its rows until all are served: (the futures in request order,
+    client ms each, wall s)."""
+    import itertools
+    import threading
+    futs, lat = [None] * len(feeds), [None] * len(feeds)
+    nxt = itertools.count()
+
+    def client():
+        for i in iter(lambda: next(nxt), None):
+            if i >= len(feeds):
+                return
+            t = time.perf_counter()
+            futs[i] = eng.submit(feeds[i])
+            futs[i].exception(timeout=120)         # wait; raised below
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+    threads = [threading.Thread(target=client) for _ in range(conc)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return futs, lat, time.perf_counter() - t0
+
+
+def _fixed_rows_check(futs, solo, tol, what):
+    """Every future holds a result; each request's rows allclose to its
+    solo rows: the largest difference."""
+    worst = 0.0
+    for i, (fut, ref) in enumerate(zip(futs, solo)):
+        _check(fut is not None and fut.done() and fut.exception() is None,
+               f"{what}: request {i} has no result "
+               f"({fut.exception() if fut is not None else 'unsent'})")
+        got = fut.result()[0]
+        _check(got.shape == ref.shape and np.isfinite(got).all(),
+               f"{what}: request {i} rows {got.shape}, finite "
+               f"{np.isfinite(got).all()}")
+        worst = max(worst, float(np.max(np.abs(got - ref))))
+    _check(worst <= tol, f"{what}: rows vs solo max diff {worst:.3e} > "
+           f"{tol}")
+    return worst
+
+
+def _fixed_run(kernels, fr, dev, program, pred, place, amp, feeds, conc,
+               doc_names):
+    """One engine over ``feeds`` at ``conc`` clients, with 5i's gates:
+    warmup 20, rows vs solo, launches exactly B14's, compile count 20
+    after the traffic, every request counted. Returns its line and each
+    request's rows."""
+    dtype = torch.bfloat16 if amp else torch.float32
+    eng = _fixed_engine(program, pred, place, amp, autostart=False)
+    n_warm = eng.warmup()
+    _check(n_warm == eng.ladder.size == 20,
+           f"serve_fixed: warmup {n_warm}, ladder {eng.ladder.size}")
+    solo = _solo_rows(eng, feeds)
+    torch.cuda.synchronize()
+    kernels.reset_launches()                     # the main path: go
+    futs, lat, wall = _closed_loop(eng, feeds, conc)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)            # read just after
+    kernels.reset_launches()
+    st = eng.stats()
+    eng.close()
+    what = f"serve_fixed c{conc} {'amp' if amp else 'fp32'}"
+    worst = _fixed_rows_check(futs, solo,
+                              SERVE_FIXED_TOL["amp" if amp else "fp32"],
+                              what)
+    want = _b14_want(kernels, fr, eng, dtype, dev)
+    _check(launches == want, f"{what}: launches {launches}, want {want}")
+    _check(st["compile_count"] == 20, f"{what}: compile count "
+           f"{st['compile_count']} after the traffic")
+    _check(st["rows_total"] == st["requests_total"] == len(feeds)
+           and eng._request_ms.count == len(feeds),
+           f"{what}: rows {st['rows_total']}, requests "
+           f"{st['requests_total']}, serving_request_ms count "
+           f"{eng._request_ms.count}, want {len(feeds)}")
+    names = set(eng.registry.snapshot())
+    _check(names <= doc_names, f"{what}: metrics missing from the docs' "
+           f"contract tables: {sorted(names - doc_names)}")
+    flushes = int(st["batches_total"])
+    return ({
+        "concurrency": conc, "requests": len(feeds), "flushes": flushes,
+        "rows_per_s": len(feeds) / wall,
+        "client_ms_p50": float(np.percentile(lat, 50)),
+        "client_ms_p99": float(np.percentile(lat, 99)),
+        "request_ms_p50": st["request_ms_p50"],
+        "request_ms_p99": st["request_ms_p99"],
+        "batch_ms_p50": st["batch_ms_p50"],
+        "mean_batch_occupancy": st["mean_batch_occupancy"],
+        "flushes_per_rung": {str(b): int(eng._batches.get(bucket=str(b)))
+                             for b in eng.ladder.batch_buckets},
+        "max_abs_diff_vs_solo": worst,
+        "b14_launches": launches["lstm_proj_fwd"],
+        "b15_launches": launches["lstm_proj_bwd"] + launches[
+            "lstm_proj_dw"],
+        "launches": {k: v for k, v in launches.items() if v}},
+        [fut.result()[0] for fut in futs])
+
+
+def _trace_device_ms(prof):
+    """Device events of a ``torch.profiler`` session by name: {name:
+    [count, ms]}, read from its exported Chrome trace, which holds the
+    events of every thread's launches (``prof.events()`` keeps only
+    those it links to a profiled thread's host ops)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    path = os.path.join(tmp, "window.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        data = json.load(f)
+    shutil.rmtree(tmp)
+    out = {}
+    for e in (data.get("traceEvents", data) if isinstance(data, dict)
+              else data):
+        if e.get("ph") == "X" and str(e.get("cat", "")).lower() in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            rec = out.setdefault(str(e.get("name", "")), [0, 0.0])
+            rec[0] += 1
+            rec[1] += float(e.get("dur", 0.0) or 0.0) / 1e3
+    return out
+
+
+def _fixed_profiled(kernels, fr, dev, program, pred, place, feeds):
+    """SERVE_FIXED_FLUSHES full flushes (rung 128) of an AMP engine whose
+    flushes wait for 128 rows (its workers started before the capture),
+    under ``torch.profiler``: one device-to-host copy per fetch per
+    flush, B14 twice a flush, the rows vs solo; the device's busy and
+    idle share and its top ops."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.obs.profiler import _edge_guard
+    feeds = feeds[:SERVE_FIXED_FLUSHES * 128]
+    eng = _fixed_engine(program, pred, place, True, max_wait_ms=600_000.0)
+    eng.warmup()
+    solo = _solo_rows(eng, feeds)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _edge_guard()      # no kernel of the window near its edges
+        t0 = time.perf_counter()
+        futs = [eng.submit(f) for f in feeds]
+        for f in futs:
+            f.exception(timeout=120)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        _edge_guard()
+    launches = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    eng.close()
+    worst = _fixed_rows_check(futs, solo, SERVE_FIXED_TOL["amp"],
+                              "serve_fixed profile")
+    flushes = int(eng.stats()["batches_total"])
+    _check(flushes == SERVE_FIXED_FLUSHES
+           and int(eng._batches.get(bucket="128")) == flushes,
+           f"serve_fixed profile: {flushes} flushes")
+    want = _b14_want(kernels, fr, eng, torch.bfloat16, dev)
+    _check(launches == want, f"serve_fixed profile: launches {launches}, "
+           f"want {want}")
+    by_name = _trace_device_ms(prof)
+    dtoh = sum(n for k, (n, _) in by_name.items() if "DtoH" in k)
+    _check(dtoh == flushes * len(eng.fetch_names),
+           f"serve_fixed profile: {dtoh} device-to-host copies over "
+           f"{flushes} flushes of {len(eng.fetch_names)} fetch; the "
+           f"trace's device events: {sorted(by_name.items())[:40]}")
+    busy = sum(ms for _, ms in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:8]
+    return {"flushes": flushes, "dtoh_copies_per_flush": dtoh / flushes,
+            "wall_ms_per_flush": wall_ms / flushes,
+            "device_busy_ms_per_flush": busy / flushes,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "device_ops_per_flush": sum(n for n, _ in by_name.values())
+            / flushes,
+            "top_device_ms_per_flush": [[k[:60], v[1] / flushes]
+                                        for k, v in top],
+            "max_abs_diff_vs_solo": worst,
+            "b14_launches": launches["lstm_proj_fwd"],
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def _batch1_baseline(eng, feeds):
+    """Each request run alone at batch 1 (its own length, no padding)
+    through ``eng``'s session, synchronously: rows/s. At B 1 the fused
+    LSTM takes the composed route (the JAX predicate)."""
+    from paddle_tpu_torch.framework.executor import _to_numpy
+    lat = []
+    t0 = time.perf_counter()
+    for f in feeds:
+        t = time.perf_counter()
+        length = f["words"].lod.max_length()
+        _to_numpy(eng.session.run(dict(f, lens=np.asarray(
+            [length], np.int32)))[0])
+        lat.append((time.perf_counter() - t) * 1e3)
+    wall = time.perf_counter() - t0
+    return {"requests": len(feeds), "rows_per_s": len(feeds) / wall,
+            "ms_p50": float(np.percentile(lat, 50)),
+            "ms_p99": float(np.percentile(lat, 99))}
+
+
+def serve_fixed(kernels, fr, dev, card, doc_names, cfg=TEXT_CFG,
+                n=SERVE_FIXED_N, conc=SERVE_FIXED_CONC,
+                n_fp32=SERVE_FIXED_FP32_N, n_base=SERVE_FIXED_BASE_N):
+    """5i: the flagship's inference program through ``ServingEngine`` on
+    the card (module docstring): the profiled flushes, one AMP engine a
+    concurrency over the same ``n`` requests, the first ``n_fp32`` on an
+    fp32 engine, the batch-1 sync baseline. Returns (its record, the
+    launches of each run, the fp32 engine's requests and rows)."""
+    import paddle_tpu_torch as pt
+    place = pt.CUDAPlace(0) if dev.type == "cuda" else pt.CPUPlace()
+    program, _, pred = _fixed_net(cfg)
+    feeds = _fixed_requests(cfg, n)
+    rec = {"card": card, "ladder": SERVE_FIXED_LADDER,
+           "b14_at_rungs": _b14_rungs(fr, dev, cfg),
+           "amp_vs_fp32": _fixed_amp_vs_fp32(kernels, program, pred, place,
+                                             feeds[:n_fp32]),
+           "profiled": _fixed_profiled(kernels, fr, dev, program, pred,
+                                       place, feeds)}
+    for c in conc:
+        rec[f"amp_c{c}"], _ = _fixed_run(kernels, fr, dev, program, pred,
+                                         place, True, feeds, c, doc_names)
+    rec["fp32_c32"], fp32_rows = _fixed_run(
+        kernels, fr, dev, program, pred, place, False, feeds[:n_fp32], 32,
+        doc_names)
+    eng = _fixed_engine(program, pred, place, True, autostart=False)
+    eng.warmup()
+    rec["batch1_sync_baseline"] = _batch1_baseline(eng, feeds[:n_base])
+    eng.close()
+    launches = {k: v["launches"] for k, v in rec.items()
+                if isinstance(v, dict) and "launches" in v}
+    return {"serve_fixed": rec}, launches, (feeds[:n_fp32], fp32_rows)
+
+
+def serve_mlp(dev, card, n=SERVE_MLP["n"], conc=SERVE_MLP["conc"]):
+    """bench.py's ``bench_serving`` harness (:1203-1330) on the port:
+    the 784-256-256-10 fp32 MLP through ``ServingEngine`` with
+    ``BucketLadder(max_batch=8)``, 1-row closed-loop clients at each
+    concurrency over ``n`` requests, against the batch-1 sync baseline on
+    the same session. No hand-written kernel lies on this path; printed,
+    not gated."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.scope import reset_global_scope
+    from paddle_tpu_torch.framework import program as prog
+    from paddle_tpu_torch.framework.executor import _to_numpy
+    prog.fresh_programs()
+    reset_global_scope()
+    place = pt.CUDAPlace(0) if dev.type == "cuda" else pt.CPUPlace()
+    img = pt.layers.data("img", [784])
+    h = pt.layers.fc(img, 256, act="relu")
+    h = pt.layers.fc(h, 256, act="relu")
+    pred = pt.layers.softmax(pt.layers.fc(h, 10))
+    exe = pt.Executor(place)
+    pt.default_startup_program().random_seed = 0
+    exe.run(pt.default_startup_program())
+    rng = np.random.RandomState(0)
+    pool = [{"img": rng.rand(1, 784).astype(np.float32)}
+            for _ in range(64)]
+    eng = pt.ServingEngine(
+        program=pt.default_main_program().clone(for_test=True),
+        feed_names=["img"], fetch_names=[pred.name], executor=exe,
+        ladder=pt.BucketLadder(max_batch=SERVE_MLP["max_batch"]),
+        max_wait_ms=SERVE_MLP["wait_ms"], max_queue=4096)
+    rec = {"card": card, "warmup_compiles": eng.warmup()}
+    sess = eng.session
+    for _ in range(3):
+        _to_numpy(sess.run(pool[0])[0])
+    lat = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        t = time.perf_counter()
+        _to_numpy(sess.run(pool[i % len(pool)])[0])
+        lat.append((time.perf_counter() - t) * 1e3)
+    rec["baseline"] = {"rows_per_s": n / (time.perf_counter() - t0),
+                       "p50_ms": float(np.percentile(lat, 50)),
+                       "p99_ms": float(np.percentile(lat, 99))}
+    feeds = [pool[i % len(pool)] for i in range(n)]
+    for c in conc:
+        rows0, padded0 = eng._rows.value, eng._padded_rows.value
+        futs, clat, wall = _closed_loop(eng, feeds, c)
+        for fut in futs:
+            _check(fut.exception() is None, f"serve_mlp c{c}: "
+                   f"{fut.exception()}")
+        rows = eng._rows.value - rows0
+        rec[f"c{c}"] = {
+            "rows_per_s": rows / wall,
+            "p50_ms": float(np.percentile(clat, 50)),
+            "p99_ms": float(np.percentile(clat, 99)),
+            "occupancy": rows / (eng._padded_rows.value - padded0)}
+    rec["compile_count"] = eng.compile_count
+    eng.close()
+    best = max((k for k in rec if k.startswith("c") and k[1:].isdigit()),
+               key=lambda k: rec[k]["rows_per_s"])
+    rec["best"] = best
+    rec["vs_baseline"] = (rec[best]["rows_per_s"]
+                          / rec["baseline"]["rows_per_s"])
+    return {"serve_mlp": rec}
+
+
+def inferencer_line(dev, card, served, cfg=TEXT_CFG, n=16):
+    """``save_inference_model`` of the flagship (fp32, seed 0) into a
+    temp dir, then ``Inferencer(dir, place=CUDAPlace(0))`` with a
+    telemetry session: ``warmup(sample, batch_sizes=[8])`` > 0 then 0;
+    ``jit_compiles_total`` unchanged by traffic at the warmed shapes
+    (1 and 8 sequences of INFER_LEN words, through ``infer`` and
+    ``session().run``); ``infer`` of each of the first ``n`` requests
+    (batch 1: the composed route) allclose (fp32 1e-5) to the fp32
+    engine's rows of the same requests (``served``: the requests, their
+    rows)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.lod import LoD, LoDTensor
+    from paddle_tpu_torch.core.scope import global_scope
+    place = pt.CUDAPlace(0) if dev.type == "cuda" else pt.CPUPlace()
+    _, main, pred = _fixed_net(cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_inferencer_")
+    pt.io.save_inference_model(
+        tmp, ["words", "lens"], [main.global_block().var(pred)],
+        pt.Executor(pt.CPUPlace()), main_program=main,
+        scope=global_scope())
+    tel = pt.obs.Telemetry(trace_path=None)
+    inf = pt.Inferencer(tmp, place=place, telemetry=tel)
+    rng = np.random.RandomState(1)
+
+    def batch(b):
+        toks = rng.randint(0, cfg["vocab_size"], (b * INFER_LEN, 1))
+        return {"words": LoDTensor(toks.astype(np.int64), LoD.from_lengths(
+            [[INFER_LEN] * b])), "lens": np.full(b, INFER_LEN, np.int32)}
+
+    first = inf.warmup(batch(1), batch_sizes=[8])
+    again = inf.warmup(batch(1), batch_sizes=[8])
+    _check(first > 0 and again == 0,
+           f"inferencer: warmup {first} then {again}")
+
+    def compiles():
+        return tel.registry.snapshot()["jit_compiles_total"]["series"][
+            ""]["value"]
+
+    before = compiles()
+    for b in (1, 8, 8, 1):
+        inf.infer(batch(b))
+        inf.session().run(batch(b))
+    _check(compiles() == before, f"inferencer: jit_compiles_total "
+           f"{before} -> {compiles()} under warmed traffic")
+    worst = 0.0
+    for f, ref in list(zip(*served))[:n]:
+        got = inf.infer(dict(f, lens=np.asarray(
+            [f["words"].lod.max_length()], np.int32)))[0]
+        worst = max(worst, float(np.max(np.abs(got - ref))))
+    _check(worst <= SERVE_FIXED_TOL["fp32"],
+           f"inferencer: infer vs the fp32 engine's rows {worst:.3e}")
+    tel.close()
+    shutil.rmtree(tmp)
+    return {"inferencer": {"card": card, "warmup_entries": first,
+                           "warmup_again": again,
+                           "jit_compiles_total": before,
+                           "max_abs_diff_vs_engine": worst}}
+
+
+def activations_card_vs_cpu(dev):
+    """Each of the 36 activation ops (``ops/activation.py``) on a CUDA
+    fp32 tensor against the port's CPU result, forward and the gradient
+    of a seeded cotangent, allclose ACT_TOL (NaN where the CPU's is),
+    on seeded normal values with NaN, ±inf, ±0 and each op's bounds
+    among them. Returns each op's largest share of that bound
+    (``|card - cpu| / (ACT_TOL + ACT_TOL * |cpu|)``, finite values)."""
+    from paddle_tpu_torch.framework import registry
+    from paddle_tpu_torch.ops import activation as act
+    grid = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 0.5, -0.5, 1.0,
+                     -1.0, 6.0, 24.0, 40.0, -40.0, 100.0, -100.0],
+                    np.float32)
+    rng = np.random.RandomState(0)
+    x1 = np.concatenate([grid, 3 * rng.randn(1009).astype(np.float32)])
+    x4 = 2 * rng.randn(4, 6, 3, 5).astype(np.float32)
+    x4.reshape(-1)[:len(grid)] = grid
+    cases = [(op, {"X": x1}, {}) for op in act.ACTIVATION_OPS]
+    cases += [("softmax", {"X": x4.reshape(12, 30)}, {}),
+              ("log_softmax", {"X": x4.reshape(12, 30)}, {}),
+              ("maxout", {"X": x4}, {"groups": 3}),
+              ("prelu", {"X": x4, "Alpha": rng.rand(6).astype(
+                  np.float32)}, {})]
+    worst = {}
+    for op, arrays, attrs in cases:
+        res = {}
+        for d in ("cpu", dev):
+            ins = {s: torch.tensor(a, device=d, requires_grad=True)
+                   for s, a in arrays.items()}
+            outs, _ = registry.run_op(op, {s: [t] for s, t in ins.items()},
+                                      attrs)
+            out = outs["Out"][0]
+            ct = torch.from_numpy(np.random.RandomState(1).randn(
+                *out.shape).astype(np.float32)).to(d)
+            grads = torch.autograd.grad(out, list(ins.values()), ct)
+            res[str(d)] = [out.detach().cpu().numpy()] + [
+                g.cpu().numpy() for g in grads]
+        cpu, card = res["cpu"], res[str(dev)]
+        for a, b in zip(card, cpu):
+            np.testing.assert_allclose(a, b, rtol=ACT_TOL, atol=ACT_TOL,
+                                       err_msg=f"activation {op} on "
+                                       f"{dev}")
+        worst[op] = max(float(np.max(
+            np.abs(a[m] - b[m]) / (ACT_TOL + ACT_TOL * np.abs(b[m])),
+            initial=0.0)) for a, b in zip(card, cpu)
+            for m in [np.isfinite(a) & np.isfinite(b)])
+    return {"activations": {"ops": len(cases),
+                            "max_share_of_tolerance": worst}}
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke of the port.")
@@ -6751,6 +7483,24 @@ def main(argv=None):
     shutil.rmtree(tel_dir)
     _say(f"telemetry phases done at {time.perf_counter() - t0:.1f} s")
 
+    # 5i: the fixed-shape serving front end: the flagship's inference
+    # program through ServingEngine (B14, AMP and fp32), the Inferencer,
+    # bench_serving's MLP, the activation ops on the card
+    torch.cuda.empty_cache()
+    fixed_rec, fixed_launch, fp32_served = serve_fixed(kernels, fr, dev,
+                                                       card, doc_names)
+    for dtype, runs in ((torch.bfloat16, [k for k in fixed_launch
+                                          if k != "fp32_c32"]),
+                        (torch.float32, ["fp32_c32"])):
+        for name in ("lstm_proj_fwd", "lstm_proj_xg"):
+            llanes[dtype][name]["launches_5i"] = {
+                k: fixed_launch[k].get(name, 0) for k in runs}
+    inf_rec = inferencer_line(dev, card, fp32_served)
+    mlp_serve_rec = serve_mlp(dev, card)
+    act_rec = activations_card_vs_cpu(dev)
+    _say(f"fixed-shape serving phases done at "
+         f"{time.perf_counter() - t0:.1f} s")
+
     # 5d: the training slice's main path: bf16 with the flash kernels,
     # then the same steps with the plain attention ("xla") and a short
     # fp32 run (the fp32 lanes' launches); then the 6 x 128 heads' model
@@ -6970,7 +7720,8 @@ def main(argv=None):
     for key in spec_runs:
         _say(json.dumps(spec_runs[key][0]))
     _say(json.dumps(sbeam_rec))
-    for rec in (stel_rec, sqtel_rec, btel_rec, lo_rec):
+    for rec in (stel_rec, sqtel_rec, btel_rec, lo_rec, fixed_rec, inf_rec,
+                mlp_serve_rec, act_rec):
         _say(json.dumps(rec))
     for key in train_runs:
         _say(json.dumps(train_runs[key][0]))

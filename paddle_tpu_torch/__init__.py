@@ -44,6 +44,18 @@ kernels' FLOPs ledger), the profiler, alerts and the flight recorder::
                          numerics=pt.obs.NumericsSpec(sample_every=8))
     trainer.train(reader, telemetry=tel, profile_steps=(5, 8))
 
+Fixed-shape serving of a program built with the DSL, as in the JAX
+package: ``ServingEngine`` (micro-batching up a ``BucketLadder``, a pad
+worker and a dispatch worker over ``Executor.prepare_infer``'s session)
+and the synchronous ``Inferencer`` / ``infer`` over a
+``save_inference_model`` directory::
+
+    eng = pt.ServingEngine(program=main.clone(for_test=True),
+                           feed_names=["x"], fetch_names=[y.name],
+                           executor=pt.Executor(pt.CUDAPlace(0)),
+                           ladder=pt.BucketLadder(max_batch=8))
+    rows = eng.infer({"x": batch})
+
 The other slices so far are generative serving: ``serving.DecodeEngine``
 with chunked or whole-prompt prefill and continuous or static admission
 over a block-paged KV cache (float32, bfloat16, or int8 / fp8-e4m3 with
@@ -76,12 +88,15 @@ from paddle_tpu_torch import (datasets, event, initializer, io, layers,
                               lr_scheduler, nets, obs, optimizer, reader,
                               regularizer)
 from paddle_tpu_torch.data_feeder import DataFeeder
+from paddle_tpu_torch.inference import Inferencer, infer
 from paddle_tpu_torch.param_attr import ParamAttr
+from paddle_tpu_torch.serving import BucketLadder, ServingEngine
 from paddle_tpu_torch.trainer import Trainer
 
-__all__ = ["CPUPlace", "CUDAPlace", "DataFeeder", "Executor", "LoD",
-           "LoDTensor", "ParamAttr", "Program", "Scope", "Trainer",
-           "datasets", "default_main_program", "default_startup_program",
-           "event", "initializer", "io", "layers", "lr_scheduler", "nets",
+__all__ = ["BucketLadder", "CPUPlace", "CUDAPlace", "DataFeeder",
+           "Executor", "Inferencer", "LoD", "LoDTensor", "ParamAttr",
+           "Program", "Scope", "ServingEngine", "Trainer", "datasets",
+           "default_main_program", "default_startup_program", "event",
+           "infer", "initializer", "io", "layers", "lr_scheduler", "nets",
            "obs", "optimizer", "program_guard", "reader", "regularizer",
            "resolve_device"]

@@ -132,7 +132,14 @@ class InferSession:
     the program's persistables are gathered once onto the Place's device
     and the fetch set is frozen, so a request pays no scope walk. Later
     writes to the scope (training) do not reach the session; a program
-    that writes state writes the session's copy."""
+    that writes state writes the session's copy.
+
+    ``compiles`` counts the distinct feed signatures the session has run
+    (LRU over the Executor's ``cache_size``, as the JAX session's
+    compiled entries): under a ``BucketLadder`` it is bounded by the
+    ladder's size. Nothing is compiled here, so ``fresh_compiles``
+    equals ``compiles`` and ``cache_loads`` stays 0 (a persistent store
+    of compiled entries is ROADMAP A11's)."""
 
     def __init__(self, executor: "Executor", program: Program,
                  fetch_list: Sequence, scope: Optional[Scope] = None):
@@ -142,6 +149,22 @@ class InferSession:
         self.fetch_names = tuple(_names(fetch_list))
         self._state = executor._gather_state(program, scope)
         self._entries: "OrderedDict[tuple, list]" = OrderedDict()
+        self.compiles = 0
+        self.fresh_compiles = 0
+        self.cache_loads = 0
+
+    def signature(self, feed_vals: Dict[str, Any],
+                  feed_lods: Dict[str, Optional[LoD]]) -> tuple:
+        """The entry key of a normalised feed: (name, shape, dtype, LoD)
+        per feed, sorted by name."""
+        return self.executor._feed_signature((feed_vals, feed_lods))
+
+    def warm(self, feed: Dict[str, Any]) -> bool:
+        """Run the feed once; True if its signature was new (the JAX
+        session's first dispatch of an entry, which compiles it)."""
+        before = self.compiles
+        self.run(feed)
+        return self.compiles > before
 
     def run(self, feed: Dict[str, Any]) -> List[torch.Tensor]:
         """One inference run against the pinned state. Returns the
@@ -152,13 +175,18 @@ class InferSession:
         signature), as the JAX session's."""
         exe = self.executor
         feed = exe._normalise_feed(self.program, feed)
+        sig = self.signature(*feed)
+        if sig not in self._entries:    # the JAX session compiles here
+            self.compiles += 1
+            self.fresh_compiles += 1
+        entry = exe._entry(self.program, sig, self._entries)
         exe._step_ctr += 1
         step = exe._step_ctr
         env, lod_env = exe._dispatch(
-            self.program, "infer", 1, exe._feed_signature(feed),
+            self.program, "infer", 1, None,
             lambda: exe._run_step(self.program, self._state, feed, step,
                                   self.fetch_names),
-            self._state, feed, self.fetch_names, entries=self._entries)
+            self._state, feed, self.fetch_names, entry=entry)
         lod_fetches = [n for n in self.fetch_names if lod_env.get(n)]
         if lod_fetches:
             raise NotImplementedError(
@@ -395,7 +423,8 @@ class Executor:
             steps = [self._normalise_feed(program, feed)]
             sig = self._feed_signature(steps[0])
         if self.telemetry is not None:
-            self._entry(program, sig, state, fetch_names)
+            self._entry(program, self._run_key(program, sig, state,
+                                               fetch_names))
         step0, written = self._step_ctr + 1, _written(program)
         _, report = self._counted(
             program, kind, len(steps),
@@ -456,26 +485,33 @@ class Executor:
                       _lod_signature(lods.get(n)))
                      for n, t in sorted(vals.items()))
 
-    def _entry(self, program: Program, sig: tuple, state, fetch_names,
-               entries=None) -> list:
-        """The entry of (program, version, for_test, ``sig``, the state
-        signature, the fetch set) in ``entries`` (the Executor's): a hit
-        or a miss counted into the telemetry session, the program's
-        fingerprint recorded on a miss, LRU over ``cache_size``."""
+    def _run_key(self, program: Program, sig: tuple, state,
+                 fetch_names) -> tuple:
+        """An ``Executor.run`` / ``run_multi`` entry's key: (program,
+        version, for_test, ``sig``, the state signature, the fetch
+        set)."""
+        return (id(program), program._version, program.for_test, sig,
+                tuple((n, tuple(t.shape), t.dtype)
+                      for n, t in sorted(state.items())),
+                tuple(fetch_names))
+
+    def _entry(self, program: Program, key: tuple, entries=None) -> list:
+        """The entry of ``key`` in ``entries`` (the Executor's), LRU over
+        ``cache_size``; with telemetry on, a hit or a miss counted into
+        the session and the program's fingerprint recorded on a miss."""
         tel = self.telemetry
         entries = self._entries if entries is None else entries
-        key = (id(program), program._version, program.for_test, sig,
-               tuple((n, tuple(t.shape), t.dtype)
-                     for n, t in sorted(state.items())),
-               tuple(fetch_names))
         entry = entries.get(key)
         if entry is not None and entry[0] is program:
             entries.move_to_end(key)
-            tel.record_cache(hit=True)
+            if tel is not None:
+                tel.record_cache(hit=True)
             return entry
         entry = entries[key] = [program, True]
         while len(entries) > self._cache_size:
             entries.popitem(last=False)
+        if tel is None:
+            return entry
         tel.record_cache(hit=False)
         mode = "test" if program.for_test else "main"
         tel.record_program_fingerprint(
@@ -484,8 +520,9 @@ class Executor:
         return entry
 
     def _dispatch(self, program: Program, kind: str, steps: int,
-                  sig: tuple, run, state, feed, fetch_names, entries=None):
-        """``run()``, one dispatch of ``steps`` steps, with the telemetry
+                  sig: tuple, run, state, feed, fetch_names, entry=None):
+        """``run()``, one dispatch of ``steps`` steps on the entry of
+        ``sig`` (or ``entry``, already looked up), with the telemetry
         hooks when a session is on: the first dispatch of an entry
         billed as its compile (and counted into a ``CostReport`` when
         the session's ``collect_hlo`` is on), every later one fenced
@@ -493,7 +530,9 @@ class Executor:
         tel = self.telemetry
         if tel is None:
             return run()
-        entry = self._entry(program, sig, state, fetch_names, entries)
+        if entry is None:
+            entry = self._entry(program, self._run_key(program, sig, state,
+                                                       fetch_names))
         tel.record_dispatch(kind, steps)
         if entry[1]:
             entry[1] = False

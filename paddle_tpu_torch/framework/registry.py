@@ -21,7 +21,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 __all__ = ["OpContext", "OpInfo", "register_op", "get_op_info", "has_op",
-           "run_op"]
+           "registered_ops", "run_op"]
 
 
 @dataclasses.dataclass
@@ -109,6 +109,12 @@ def _ensure_ops():
 def has_op(type: str) -> bool:
     _ensure_ops()
     return type in _REGISTRY
+
+
+def registered_ops() -> List[str]:
+    """Every registered op type, sorted (the JAX registry's list)."""
+    _ensure_ops()
+    return sorted(_REGISTRY)
 
 
 def _amp_cast(vals, src, dst):

@@ -39,7 +39,7 @@ __all__ = [
     "elementwise_add", "elementwise_sub", "elementwise_mul",
     "elementwise_div", "scale", "sequence_pool", "sequence_first_step",
     "sequence_last_step", "sequence_conv", "dynamic_lstm", "fused_lstm",
-    "dynamic_gru", "softmax", "relu", "sigmoid", "tanh",
+    "dynamic_gru", "maxout",
     "elementwise_binary_sugar", "conv2d", "conv2d_transpose", "pool2d",
     "batch_norm", "layer_norm", "dropout", "reshape", "transpose", "lrn",
     "pad", "max_pool2d_with_index", "unpool", "spp", "conv3d",
@@ -731,16 +731,31 @@ def _make_unary(op_type):
     return f
 
 
-softmax = _make_unary("softmax")
-relu = _make_unary("relu")
-sigmoid = _make_unary("sigmoid")
-tanh = _make_unary("tanh")
+# the JAX DSL's generated wrappers (its ``_UNARY_OPS``, the reference's
+# fluid/layers.py ``_create_op_func_``), in its order
+_UNARY_OPS = [
+    "sigmoid", "logsigmoid", "exp", "relu", "tanh", "tanh_shrink", "sqrt",
+    "rsqrt", "abs", "ceil", "floor", "round", "reciprocal", "log", "square",
+    "softplus", "softsign", "gelu", "silu", "brelu", "leaky_relu",
+    "soft_relu", "elu", "relu6", "stanh", "hard_shrink", "thresholded_relu",
+    "hard_sigmoid", "swish", "softmax", "log_softmax", "sign", "sin", "cos",
+]
+
+for _op in _UNARY_OPS:
+    globals()[_op] = _make_unary(_op)
+    if _op not in __all__:
+        __all__.append(_op)
+
+
+def maxout(x, groups, name=None):
+    """NCHW channels split into ``groups``-wide groups, the max of each."""
+    return _single_out("maxout", {"X": x}, {"groups": groups}, name=name)
 
 
 def elementwise_binary_sugar(x, other, op_type, reverse=False):
     """``a + b``, ``a - b``, ``a * b`` and ``a / b`` on Variables append
     the elementwise op; a scalar operand appends ``scale``, as in the
-    JAX package. ``scalar / a`` needs the ``reciprocal`` op (A8)."""
+    JAX package (``scalar / a``: ``reciprocal``, then ``scale``)."""
     if isinstance(other, Variable):
         a, b = (other, x) if reverse else (x, other)
         return _elementwise(op_type, a, b)
@@ -754,8 +769,6 @@ def elementwise_binary_sugar(x, other, op_type, reverse=False):
         return scale(x, val, 0.0)
     if op_type == "elementwise_div":
         if reverse:
-            raise NotImplementedError(
-                "a scalar divided by a Variable appends the reciprocal op, "
-                "which the port has not yet (ROADMAP A8)")
+            return scale(_single_out("reciprocal", {"X": x}), val, 0.0)
         return scale(x, 1.0 / val, 0.0)
     raise TypeError(f"unsupported operand for {op_type}: {type(other)}")

@@ -194,16 +194,37 @@ def lookup_table(ins, attrs, ctx):
     return {"Out": out.reshape(lead + (w.shape[-1],))}
 
 
+def _total_order_key(x):
+    """An integer key whose order is IEEE-754's total order of ``x``'s
+    floats: -NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN (a negative
+    float's magnitude bits are flipped, so their order reverses)."""
+    bits = x.contiguous().view({2: torch.int16, 4: torch.int32,
+                                8: torch.int64}[x.element_size()])
+    flip = torch.iinfo(bits.dtype).max
+    return torch.where(bits < 0, bits ^ flip, bits)
+
+
 @register_op("top_k", inputs=["X"], outputs=["Out", "Indices"],
              attrs={"k": 1})
 def top_k(ins, attrs, ctx):
-    vals, idx = torch.topk(ins["X"][0], attrs["k"], dim=-1)
-    return {"Out": vals, "Indices": idx.to(torch.int32)}
+    """``jax.lax.top_k``'s values and indices: XLA's TopK on the CPU
+    orders floats by IEEE total order, descending (+NaN first, then
+    +inf, ..., +0 above -0, ..., -inf, -NaN last), ties to the lower
+    index. A stable descending sort of the total-order key gives that
+    order; ``torch.topk`` would rank every NaN alike and ±0 equal, and
+    does not keep ties in index order."""
+    x = ins["X"][0]
+    key = _total_order_key(x) if x.is_floating_point() else x
+    idx = torch.sort(key, dim=-1, descending=True,
+                     stable=True).indices[..., :attrs["k"]]
+    return {"Out": torch.gather(x, -1, idx), "Indices": idx.to(torch.int32)}
 
 
 @register_op("sign", inputs=["X"], outputs=["Out"])
 def sign(ins, attrs, ctx):
-    return {"Out": torch.sign(ins["X"][0])}
+    """``jnp.sign``: NaN stays NaN (``torch.sign`` gives 0 there)."""
+    x = ins["X"][0]
+    return {"Out": torch.where(torch.isnan(x), x, torch.sign(x))}
 
 
 @register_op("assign", inputs=["X"], outputs=["Out"])

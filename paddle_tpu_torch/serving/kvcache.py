@@ -49,7 +49,7 @@ from paddle_tpu_torch.device import resolve_device
 __all__ = ["KVCacheConfig", "BlockPool", "OutOfBlocksError",
            "chain_block_hashes", "QUANT_KV_DTYPES", "QUANT_QMAX",
            "FP8_E4M3_MAX", "kv_storage_dtype", "kv_quant_cal",
-           "make_pools"]
+           "kv_pool_hbm_bytes", "make_pools"]
 
 QUANT_KV_DTYPES = ("int8", "fp8-e4m3")
 FP8_E4M3_MAX = 448.0      # largest finite float8_e4m3fn magnitude
@@ -494,3 +494,13 @@ def make_pools(config: KVCacheConfig, device=None, k_absmax=None,
                 kv_quant_cal(config, absmax, dev))
 
     return pool(k_absmax), pool(v_absmax)
+
+
+def kv_pool_hbm_bytes(num_layers: int, num_heads: int, head_dim: int,
+                      block_size: int, num_blocks: int,
+                      dtype: str = "float32") -> int:
+    """``KVCacheConfig.hbm_bytes`` for callers that never build a config
+    (a sizing tool's KV and draft-model flags)."""
+    return KVCacheConfig(num_layers=num_layers, num_heads=num_heads,
+                         head_dim=head_dim, block_size=block_size,
+                         num_blocks=num_blocks, dtype=dtype).hbm_bytes

@@ -551,16 +551,19 @@ def test_scan_ops_env_matches_jax():
     f = feeds(1)[0]
     f["img"] = f["img"].copy()
     f["img"][0, 3] = np.nan
-    # the NaN row's top-1 class is not a defined value: torch.topk and
-    # XLA's TopK pick different indices among NaN logits (ROADMAP C7)
-    undefined = {"top_k", "accuracy"}
     for sanitize in (False, True):
-        # the poisoned state only where it is repaired (a NaN update,
-        # repaired to 0): on an inf parameter the two packages'
-        # softmax_with_cross_entropy spread NaN differently (ROADMAP C7)
+        # unsanitized: a +inf and a -inf weight, one a logit column, so
+        # NaN, ±inf and finite logits meet in top_k, accuracy and
+        # softmax_with_cross_entropy; sanitized: a NaN bias, repaired to
+        # 0 (an infinity would be clamped to the float's max, whose
+        # products make logits near 1e38 that carry the sum order)
         poisoned = dict(init)
         if sanitize:
             poisoned["fc_1.b_0"] = np.full_like(init["fc_1.b_0"], np.nan)
+        else:
+            w = init["fc_2.w_0"].copy()
+            w[0, 3], w[1, 5] = np.inf, -np.inf
+            poisoned["fc_2.w_0"] = w
         jscope_ = JScope()
         for n, v in poisoned.items():
             jscope_.set_tensor(n, v)
@@ -576,13 +579,13 @@ def test_scan_ops_env_matches_jax():
                     (i, op.type)))
         assert seen["torch"] == seen["jax"] and len(seen["torch"]) > 5
         outs = {n for op in tmain.global_block().ops
-                if op.type not in undefined
                 for n in op.output_names()} & set(envs["jax"])
         assert len(outs) > 5
+        assert {"top_k", "accuracy", "softmax_with_cross_entropy"} <= {
+            op.type for op in tmain.global_block().ops
+            if set(op.output_names()) & outs}
         for n in outs:
             want = np.asarray(envs["jax"][n])
-            if want.dtype.kind != "f":
-                continue
             np.testing.assert_allclose(envs["torch"][n].numpy(), want,
                                        rtol=1e-6, atol=1e-6, err_msg=n)
         # stop_at: nothing at or after the first op of that type

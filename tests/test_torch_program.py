@@ -171,8 +171,15 @@ def test_variable_sugar_adds_and_names_what_is_missing():
         assert main.global_block().ops[-1].attrs == {
             "scale": 2.0, "bias": 0.0, "bias_after_scale": True}
         assert e.shape == a.shape
-        with pytest.raises(NotImplementedError, match="A8"):
-            2.0 / a
+        # scalar / Variable: reciprocal, then scale by the scalar, as the
+        # JAX DSL appends them
+        f = 2.0 / a
+        ops = main.global_block().ops
+        assert [o.type for o in ops[-2:]] == ["reciprocal", "scale"]
+        assert ops[-2].inputs == {"X": [a.name]}
+        assert ops[-1].attrs == {"scale": 2.0, "bias": 0.0,
+                                 "bias_after_scale": True}
+        assert ops[-1].outputs == {"Out": [f.name]}
 
 
 def test_block_var_lookup_names_near_misses():
